@@ -1,0 +1,105 @@
+"""Seedable synthetic datasets with known class structure.
+
+The port's own copy of the churn and e-learning generators of
+`avenir_tpu/data/generators.py`: the same numpy draws from the same seed,
+so both packages see the same rows. They stand in for the reference's
+resource/telecom_churn.py and resource/elearn.py scripts.
+"""
+
+from __future__ import annotations
+
+from typing import List, Union
+
+import numpy as np
+
+from avenir_tpu_torch.core.dataset import Dataset
+from avenir_tpu_torch.core.schema import FeatureSchema
+
+
+def _rows_out(rows: List[List[str]], schema: FeatureSchema,
+              as_csv: bool) -> Union[Dataset, str]:
+    if as_csv:
+        return "\n".join(",".join(r) for r in rows) + "\n"
+    return Dataset.from_rows(rows, schema)
+
+
+def churn_schema() -> FeatureSchema:
+    """resource/churn.json-shaped schema (categorical features + binary class)."""
+    return FeatureSchema.from_json({
+        "fields": [
+            {"name": "id", "ordinal": 0, "id": True, "dataType": "string"},
+            {"name": "minUsed", "ordinal": 1, "dataType": "categorical",
+             "cardinality": ["low", "med", "high", "overage"], "feature": True},
+            {"name": "dataUsed", "ordinal": 2, "dataType": "categorical",
+             "cardinality": ["low", "med", "high"], "feature": True},
+            {"name": "CSCalls", "ordinal": 3, "dataType": "categorical",
+             "cardinality": ["low", "med", "high"], "feature": True},
+            {"name": "payment", "ordinal": 4, "dataType": "categorical",
+             "cardinality": ["poor", "average", "good"], "feature": True},
+            {"name": "acctAge", "ordinal": 5, "dataType": "int", "feature": True,
+             "min": 0, "max": 120, "bucketWidth": 12},
+            {"name": "status", "ordinal": 6, "dataType": "categorical",
+             "cardinality": ["open", "closed"]},
+        ]
+    })
+
+
+def generate_churn(n: int, seed: int = 7,
+                   as_csv: bool = False) -> Union[Dataset, str]:
+    """Telecom churn rows: 'closed' accounts skew to high CSCalls / poor
+    payment / high usage, like resource/telecom_churn.py's weighted draws."""
+    rng = np.random.default_rng(seed)
+    schema = churn_schema()
+    y = (rng.random(n) < 0.3).astype(np.int32)        # 30% churn
+
+    def draw(open_w: List[float], closed_w: List[float]) -> np.ndarray:
+        w = np.where(y[:, None] == 0, np.array(open_w), np.array(closed_w))
+        c = np.cumsum(w, axis=1) / w.sum(axis=1, keepdims=True)
+        return (rng.random(n)[:, None] > c).sum(axis=1).astype(np.int32)
+
+    min_used = draw([3, 4, 2, 1], [1, 2, 3, 4])
+    data_used = draw([3, 4, 2], [1, 2, 4])
+    cs_calls = draw([5, 2, 1], [1, 2, 5])
+    payment = draw([1, 3, 5], [5, 3, 1])
+    age = np.where(y == 0, rng.integers(12, 120, n),
+                   rng.integers(0, 48, n)).astype(np.int32)
+
+    def card(o: int) -> List[str]:
+        return schema.field_by_ordinal(o).cardinality
+
+    rows = [[f"C{i:08d}", card(1)[min_used[i]], card(2)[data_used[i]],
+             card(3)[cs_calls[i]], card(4)[payment[i]], str(age[i]),
+             card(6)[y[i]]]
+            for i in range(n)]
+    return _rows_out(rows, schema, as_csv)
+
+
+def elearn_schema(num_numeric: int = 6) -> FeatureSchema:
+    """resource/elearnActivity.json-style schema: id + numeric activity
+    features + pass/fail class — the KNN workload's dataset shape."""
+    fields = [{"name": "id", "ordinal": 0, "id": True, "dataType": "string"}]
+    for i in range(num_numeric):
+        fields.append({
+            "name": f"act{i}", "ordinal": i + 1, "dataType": "double",
+            "feature": True, "min": 0, "max": 100,
+        })
+    fields.append({
+        "name": "grade", "ordinal": num_numeric + 1, "dataType": "categorical",
+        "cardinality": ["fail", "pass"],
+    })
+    return FeatureSchema.from_json({"fields": fields})
+
+
+def generate_elearn(n: int, num_numeric: int = 6, seed: int = 11,
+                    as_csv: bool = False) -> Union[Dataset, str]:
+    """Two gaussian clusters in activity space -> separable pass/fail.
+    as_csv=True returns the rows as CSV text instead of a Dataset."""
+    rng = np.random.default_rng(seed)
+    schema = elearn_schema(num_numeric)
+    y = (rng.random(n) < 0.5).astype(np.int32)
+    centers = np.stack([np.full(num_numeric, 30.0), np.full(num_numeric, 65.0)])
+    x = centers[y] + rng.normal(0, 12.0, (n, num_numeric))
+    x = np.clip(x, 0, 100)
+    rows = [[f"S{i:08d}"] + [f"{v:.3f}" for v in x[i]] + [["fail", "pass"][y[i]]]
+            for i in range(n)]
+    return _rows_out(rows, schema, as_csv)

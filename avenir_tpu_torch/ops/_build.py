@@ -1,0 +1,110 @@
+"""Build the port's CUDA kernels with nvcc at first use; bind them with ctypes.
+
+Each source under `ops/csrc/` compiles on its own into a shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+
+The libraries land in `build/avenir_tpu_torch/<hash>/` at the root of the
+checkout, keyed on a hash of every source, header and flag, so an edited
+kernel rebuilds and an unchanged one is reused. `build_all()` starts one
+nvcc per source, all at once. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "avenir_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: library -> (source, C entry, argtypes); pointers and the stream are
+#: c_void_p so ctypes never cuts them to 32 bits
+LIBRARIES = {
+    "knn_topk": ("knn_topk.cu", "knn_topk_launch",
+                 [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                  _P]),
+    "knn_classify": ("knn_classify.cu", "knn_classify_launch",
+                     [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I,
+                      _I, _P, _P, _P, _P]),
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin); the "
+                           "CUDA kernels build only where the toolkit is")
+    return found
+
+
+def build_dir() -> Path:
+    """Directory of this build: a hash of every source, header and flag."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build_all() -> Dict[str, float]:
+    """Compile every library that is not built yet, one nvcc per source,
+    all started together. Returns {library: seconds} of the builds run.
+    Raises RuntimeError with the compiler's output if any build fails."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    jobs: List[tuple] = []
+    for name, (src, _entry, _args) in LIBRARIES.items():
+        lib = out / f"lib{name}.so"
+        if lib.exists():
+            continue
+        tmp = out / f".lib{name}.{os.getpid()}.so"
+        log = open(out / f"{name}.log", "w")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        jobs.append((name, lib, tmp, log, time.perf_counter(),
+                     subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+    secs: Dict[str, float] = {}
+    failed = []
+    for name, lib, tmp, log, t0, proc in jobs:
+        rc = proc.wait()
+        log.close()
+        secs[name] = time.perf_counter() - t0
+        if rc != 0:
+            failed.append(f"{name} (rc {rc}):\n{(out / f'{name}.log').read_text()}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return secs
+
+
+def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Declare the argument and return types of a library's C entry."""
+    _src, entry, args = LIBRARIES[name]
+    fn = getattr(lib, entry)
+    fn.argtypes = args
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library `name`, built first if it is not yet."""
+    if name not in _loaded:
+        path = build_dir() / f"lib{name}.so"
+        if not path.exists():
+            build_all()
+        _loaded[name] = bind(ctypes.CDLL(str(path)), name)
+    return _loaded[name]

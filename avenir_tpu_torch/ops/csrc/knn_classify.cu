@@ -1,0 +1,140 @@
+// Fused k-nearest-neighbour class vote on Hopper (sm_90a).
+//
+// Replaces _knn_kernel_lanes_vote (knn_classify_lanes) of
+// avenir_tpu/ops/pallas_knn.py: per query, the k smallest keys
+// bits(d^2) & ~mask | label, mask = 2^label_bits - 1, taken as a multiset
+// (equal keys carry the same distance and label, so the same vote), then
+// the vote epilogue: each key decodes to its quantized distance, is scored
+// by the reference kernel function on floor(dist * 100)
+// (Neighborhood.java:150-218) and summed into its class. Only [nq, C]
+// scores leave the device; no neighbour index is ever written.
+//
+// What bounds it on this card: the same fp32 distance compute as the top-k
+// kernels (knn_tile.cuh); the vote is k steps per query. The design shares
+// the partial kernel of knn_topk.cu (shared-memory train tile, register
+// carry, train-axis split) and fuses the split merge with the vote.
+#include "knn_tile.cuh"
+
+namespace {
+
+enum KernelFn { NONE = 0, LINEAR_MULT = 1, LINEAR_ADD = 2, GAUSSIAN = 3 };
+
+// pallas_knn._kernel_score on the final attribute-averaged distance
+__device__ __forceinline__ float kernel_score(float dist, int fn,
+                                              float param) {
+  const float d = floorf(dist * 100.f);
+  switch (fn) {
+    case LINEAR_MULT:
+      return d == 0.f ? 200.f : floorf(100.f / fmaxf(d, 1.f));
+    case LINEAR_ADD:
+      return fmaxf(100.f - d, 0.f);
+    case GAUSSIAN: {
+      const float u = d / param;
+      return floorf(100.f * expf(-0.5f * u * u));
+    }
+    default:
+      return 1.f;
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(knn::BQ)
+merge_vote_kernel(const int* __restrict__ part_key,
+                  const int* __restrict__ part_idx, int nq, int splits, int k,
+                  int label_mask, int n_classes, float inv_attrs, int euclid,
+                  int kernel_fn, float kernel_param,
+                  float* __restrict__ scores) {
+  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (qi >= nq) return;
+  knn::Carry<K> best;
+  knn::merge_splits<K>(part_key, part_idx, nq, splits, qi, knn::SENTINEL,
+                       best);
+  float* row = scores + (size_t)qi * n_classes;
+  for (int c = 0; c < n_classes; ++c) row[c] = 0.f;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    if (s < k) {
+      const int key = best.key[s];
+      const bool valid = key < knn::SENTINEL;
+      const float d2 = __int_as_float(key & ~label_mask);
+      // times the fp32 reciprocal of the attribute count, as XLA compiles
+      // the reference's division by that constant
+      const float dist = euclid ? sqrtf(fmaxf(d2, 0.f) * inv_attrs)
+                                : d2 * inv_attrs;
+      // select, don't multiply: an empty slot's bits may decode to NaN
+      const float score = valid ? kernel_score(dist, kernel_fn, kernel_param)
+                                : 0.f;
+      const int lab = key & label_mask;
+      if (valid && lab < n_classes) row[lab] += score;
+    }
+  }
+}
+
+template <int K>
+cudaError_t run(bool euclid, const float* q, const float* t,
+                const int* labels, int nq, int d, int n_valid, int k,
+                int label_mask, int n_classes, float inv_attrs, int kernel_fn,
+                float kernel_param, int splits, int rows_per_split,
+                int* part_key, int* part_idx, float* scores,
+                cudaStream_t stream) {
+  cudaError_t err = knn::launch_partial_metric<K, knn::LABELS>(
+      euclid, q, t, labels, nq, d, n_valid, splits, rows_per_split,
+      label_mask, knn::SENTINEL, part_key, part_idx, stream);
+  if (err != cudaSuccess) return err;
+  int eu = euclid ? 1 : 0;
+  void* args[] = {(void*)&part_key,  (void*)&part_idx,  (void*)&nq,
+                  (void*)&splits,    (void*)&k,         (void*)&label_mask,
+                  (void*)&n_classes, (void*)&inv_attrs, (void*)&eu,
+                  (void*)&kernel_fn, (void*)&kernel_param, (void*)&scores};
+  return cudaLaunchKernel(&merge_vote_kernel<K>,
+                          dim3((nq + knn::BQ - 1) / knn::BQ), dim3(knn::BQ),
+                          args, 0, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q [nq, d], t [nt, d] fp32 and labels [nt] int32 on the device; rows >=
+// n_valid of t are padding. scores [nq, n_classes] fp32 is overwritten.
+// kernel_fn: 0 none, 1 linearMultiplicative, 2 linearAdditive, 3 gaussian.
+// part_key/part_idx hold splits * nq * carry_width(k) ints each.
+// Returns cudaGetLastError().
+int knn_classify_launch(const float* q, const float* t, const int* labels,
+                        int nq, int d, int n_valid, int k, int euclid,
+                        int label_bits, int n_classes, float inv_attrs,
+                        int kernel_fn, float kernel_param, int splits,
+                        int rows_per_split, int* part_key, int* part_idx,
+                        float* scores, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int mask = (1 << label_bits) - 1;
+  cudaError_t err;
+  switch (knn::carry_width(k)) {
+    case 8:
+      err = run<8>(euclid, q, t, labels, nq, d, n_valid, k, mask, n_classes,
+                   inv_attrs, kernel_fn, kernel_param, splits, rows_per_split,
+                   part_key, part_idx, scores, s);
+      break;
+    case 16:
+      err = run<16>(euclid, q, t, labels, nq, d, n_valid, k, mask, n_classes,
+                    inv_attrs, kernel_fn, kernel_param, splits, rows_per_split,
+                    part_key, part_idx, scores, s);
+      break;
+    case 32:
+      err = run<32>(euclid, q, t, labels, nq, d, n_valid, k, mask, n_classes,
+                    inv_attrs, kernel_fn, kernel_param, splits, rows_per_split,
+                    part_key, part_idx, scores, s);
+      break;
+    case 64:
+      err = run<64>(euclid, q, t, labels, nq, d, n_valid, k, mask, n_classes,
+                    inv_attrs, kernel_fn, kernel_param, splits, rows_per_split,
+                    part_key, part_idx, scores, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,394 @@
+"""Wrappers of the three KNN top-k kernels, their plain versions, launch counts.
+
+Ports the three TPU kernels of `avenir_tpu/ops/pallas_knn.py` that the
+`nearestNeighbor` job runs:
+
+| wrapper              | CUDA source              | TPU kernel                    |
+|----------------------|--------------------------|-------------------------------|
+| `knn_topk`           | `csrc/knn_topk.cu`       | `_knn_kernel` (exact)         |
+| `knn_topk_lanes`     | `csrc/knn_topk.cu`       | `_knn_kernel_lanes`           |
+| `knn_classify_lanes` | `csrc/knn_classify.cu`   | `_knn_kernel_lanes_vote`      |
+
+A wrapper given CPU tensors computes its plain PyTorch version; given CUDA
+tensors it launches its kernel or raises — there is no fallback. Each
+wrapper counts its kernel launches in its `launches` attribute.
+
+All three select on an int32 key built from a non-negative fp32 distance
+d (squared for euclidean): the exact kernel on bits(d), the lane kernel on
+bits(d) & ~mask | column // 128 with mask = 2**pack_bits - 1, and the vote
+kernel on bits(d) & ~mask | label. Ties go to the lower train column.
+The plain versions use the same keys, masking and tie rule: they scan the
+train rows 4096 at a time and fold each block into the running top-k with
+a stable sort.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from avenir_tpu_torch.ops import _build
+
+#: largest k the kernels' carries take (knn_tile.cuh carry_width)
+KMAX = 64
+SENTINEL = 0x7F700000           # empty packed slot: a huge finite float
+INF_BITS = 0x7F800000           # empty exact slot: +inf
+LANES = 128                     # column // 128 is the lane kernel's chunk id
+LANE_CORPUS_CAP = LANES * (1 << 12)   # chunk ids fit 12 mantissa bits
+#: knn_tile.cuh: queries per block, train rows per tile, shared memory cap
+BQ, TT, SMEM_LIMIT = 128, 32, 232448
+#: most features the partial kernel stages in shared memory
+MAX_D = 4 * ((SMEM_LIMIT - 8 * TT) // (16 * (BQ + TT)))
+KERNEL_FNS = ("none", "linearMultiplicative", "linearAdditive", "gaussian")
+PLAIN_BLOCK = 4096
+
+
+def lane_pack_bits(nt: int) -> int:
+    """Mantissa bits that carry a 128-column chunk id of an nt-row
+    (padded) corpus — pallas_knn._lane_pack_bits."""
+    n_chunks = (nt + LANES - 1) // LANES
+    return max(1, (n_chunks - 1).bit_length())
+
+
+def label_bits(n_classes: int) -> int:
+    return max(1, (n_classes - 1).bit_length())
+
+
+def kernel_score(dist: torch.Tensor, kernel: str, kernel_param: float
+                 ) -> torch.Tensor:
+    """Reference vote score (Neighborhood.java:150-218, KERNEL_SCALE=100)
+    of attribute-averaged distances."""
+    d = torch.floor(dist * 100.0)
+    if kernel == "none":
+        return torch.ones_like(d)
+    if kernel == "linearMultiplicative":
+        return torch.where(d == 0, 200.0,
+                           torch.floor(100.0 / torch.clamp(d, min=1.0)))
+    if kernel == "linearAdditive":
+        return torch.clamp(100.0 - d, min=0.0)
+    if kernel == "gaussian":
+        u = d / kernel_param
+        return torch.floor(100.0 * torch.exp(-0.5 * u * u))
+    raise ValueError(f"unknown kernel {kernel}")
+
+
+# ------------------------------------------------------------------ checks
+def _check(q: torch.Tensor, t: torch.Tensor, k: int, metric: str,
+           n_valid: Optional[int]) -> int:
+    for name, x in (("q", q), ("t", t)):
+        if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 \
+                or x.dim() != 2:
+            raise TypeError(f"{name} must be a 2-D float32 tensor")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.device != t.device:
+        raise ValueError(f"q on {q.device} but t on {t.device}")
+    if q.shape[1] != t.shape[1]:
+        raise ValueError(f"q has {q.shape[1]} features, t {t.shape[1]}")
+    if q.is_cuda and q.shape[1] > MAX_D:
+        raise ValueError(f"{q.shape[1]} features; the kernels stage at most "
+                         f"{MAX_D} in shared memory")
+    if not 1 <= k <= KMAX:
+        raise ValueError(f"k={k}; the kernels take 1 <= k <= {KMAX}")
+    if metric not in ("euclidean", "manhattan"):
+        raise ValueError(f"unsupported metric {metric!r}")
+    nv = t.shape[0] if n_valid is None else int(n_valid)
+    if not 0 <= nv <= t.shape[0]:
+        raise ValueError(f"n_valid={nv} outside [0, {t.shape[0]}]")
+    return nv
+
+
+def _check_lanes(t: torch.Tensor) -> int:
+    bits = lane_pack_bits(t.shape[0])
+    if bits > 12:
+        raise ValueError(
+            f"corpus {t.shape[0]} needs {bits} chunk-id bits; cap is 12 "
+            f"(<= {LANE_CORPUS_CAP} rows) to keep quantization <= 2^-11")
+    return bits
+
+
+def _check_labels(t: torch.Tensor, t_labels: torch.Tensor, n_classes: int,
+                  kernel_fn: str) -> None:
+    if t_labels.dtype != torch.int32 or t_labels.dim() != 1 \
+            or t_labels.shape[0] != t.shape[0]:
+        raise TypeError("t_labels must be int32 [nt]")
+    if not t_labels.is_contiguous() or t_labels.device != t.device:
+        raise ValueError("t_labels must be contiguous and on t's device")
+    if not 1 <= n_classes <= 64:
+        raise ValueError(f"{n_classes} classes need > 6 label bits")
+    if kernel_fn not in KERNEL_FNS:
+        raise ValueError(f"unknown kernel {kernel_fn}")
+
+
+# ------------------------------------------------------------- epilogues
+def _finish(key: torch.Tensor, idx: torch.Tensor, metric: str,
+            n_attrs: int, pack_mask: int, empty: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keys -> (attribute-averaged distance, index), as pallas_knn's
+    wrappers finish: sqrt(d/n_attrs) or d/n_attrs; empty slots and
+    infinite distances become (+inf, -1)."""
+    bits = key & ~pack_mask
+    dist = torch.where(key >= empty, float("inf"),
+                       bits.view(torch.float32))
+    return _average(dist, metric, n_attrs), torch.where(torch.isinf(dist), -1, idx)
+
+
+def _average(d: torch.Tensor, metric: str, n_attrs: int) -> torch.Tensor:
+    """Squared or absolute sums -> attribute-averaged distance. The
+    reference divides by the constant attribute count, which XLA compiles
+    to a multiply by its fp32 reciprocal; so does this, to the same bits."""
+    inv = 1.0 / max(n_attrs, 1)
+    if metric == "euclidean":
+        return torch.sqrt(torch.clamp(d, min=0.0) * inv)
+    return d * inv
+
+
+def _vote(key: torch.Tensor, label_mask: int, n_classes: int, n_attrs: int,
+          metric: str, kernel_fn: str, kernel_param: float) -> torch.Tensor:
+    """Class scores [nq, C] of the k smallest label keys [nq, k] — the
+    epilogue of _knn_kernel_lanes_vote (pallas_knn.py:500-537)."""
+    scores = torch.zeros((key.shape[0], n_classes), dtype=torch.float32,
+                         device=key.device)
+    classes = torch.arange(n_classes, device=key.device, dtype=torch.int32)
+    for j in range(key.shape[1]):
+        m = key[:, j]
+        valid = m < SENTINEL
+        dist = _average((m & ~label_mask).view(torch.float32), metric, n_attrs)
+        # select, don't multiply: an empty slot's bits may decode to NaN
+        s = torch.where(valid, kernel_score(dist, kernel_fn, kernel_param), 0.0)
+        hit = valid[:, None] & ((m & label_mask)[:, None] == classes[None, :])
+        scores = scores + torch.where(hit, s[:, None], 0.0)
+    return scores
+
+
+# ---------------------------------------------------------- plain versions
+def _tile_plain(q: torch.Tensor, tb: torch.Tensor, metric: str,
+                qn: Optional[torch.Tensor]) -> torch.Tensor:
+    """[nq, m] distances (squared for euclidean) with the kernels' formula:
+    euclidean (|q|^2 + |t|^2) - 2 q.t clamped at +0 in fp32; manhattan
+    features 0..D-1 summed from 0.0."""
+    if metric == "euclidean":
+        v = (qn[:, None] + (tb * tb).sum(1)[None, :]) - 2.0 * (q @ tb.T)
+        return torch.where(v > 0, v, 0.0)
+    acc = torch.zeros((q.shape[0], tb.shape[0]), dtype=torch.float32,
+                      device=q.device)
+    for f in range(q.shape[1]):
+        acc = acc + (q[:, f, None] - tb[None, :, f]).abs()
+    return acc
+
+
+def _select_plain(q: torch.Tensor, t: torch.Tensor, k: int, metric: str,
+                  n_valid: int, pack_mask: int, empty: int,
+                  labels: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest (key, column) pairs per query, ascending, over train
+    rows [0, n_valid). labels=None packs column // 128 into the masked
+    bits (a zero mask leaves the exact distance bits)."""
+    nq, dev = q.shape[0], q.device
+    best_k = torch.full((nq, k), empty, dtype=torch.int32, device=dev)
+    best_i = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
+    qn = (q * q).sum(1) if metric == "euclidean" else None
+    for start in range(0, n_valid, PLAIN_BLOCK):
+        stop = min(start + PLAIN_BLOCK, n_valid)
+        key = _tile_plain(q, t[start:stop], metric, qn).view(torch.int32)
+        col = torch.arange(start, stop, dtype=torch.int32, device=dev)
+        if labels is not None:
+            key = (key & ~pack_mask) | labels[start:stop][None, :]
+        elif pack_mask:
+            key = (key & ~pack_mask) | (col >> 7)[None, :]
+        all_k = torch.cat([best_k, key], 1)
+        all_i = torch.cat([best_i, col.expand(nq, -1)], 1)
+        order = torch.sort(all_k, dim=1, stable=True).indices[:, :k]
+        best_k, best_i = all_k.gather(1, order), all_i.gather(1, order)
+    return best_k, best_i
+
+
+def knn_topk_plain(q, t, k=8, metric="euclidean", n_valid=None, n_attrs=None):
+    nv = _check(q, t, k, metric, n_valid)
+    key, idx = _select_plain(q, t, k, metric, nv, 0, INF_BITS)
+    return _finish(key, idx, metric, q.shape[1] if n_attrs is None else n_attrs,
+                   0, INF_BITS)
+
+
+def knn_topk_lanes_plain(q, t, k=8, metric="euclidean", n_valid=None,
+                         n_attrs=None):
+    nv = _check(q, t, k, metric, n_valid)
+    mask = (1 << _check_lanes(t)) - 1
+    key, idx = _select_plain(q, t, k, metric, nv, mask, SENTINEL)
+    return _finish(key, idx, metric, q.shape[1] if n_attrs is None else n_attrs,
+                   mask, SENTINEL)
+
+
+def knn_classify_lanes_plain(q, t, t_labels, k=8, n_classes=2, n_attrs=None,
+                             kernel_fn="none", kernel_param=1.0,
+                             metric="euclidean", n_valid=None):
+    nv = _check(q, t, k, metric, n_valid)
+    _check_labels(t, t_labels, n_classes, kernel_fn)
+    mask = (1 << label_bits(n_classes)) - 1
+    key, _ = _select_plain(q, t, k, metric, nv, mask, SENTINEL, t_labels)
+    return _vote(key, mask, n_classes,
+                 q.shape[1] if n_attrs is None else n_attrs, metric,
+                 kernel_fn, float(kernel_param))
+
+
+# ---------------------------------------------------------------- launches
+def _splits(nq: int, n_valid: int, sms: int) -> Tuple[int, int]:
+    """(splits, rows_per_split) of the train axis: about 8 blocks per SM,
+    at least 256 train rows per split."""
+    if n_valid == 0:
+        return 1, TT
+    blocks_x = (nq + BQ - 1) // BQ
+    splits = max(1, min(math.ceil(8 * sms / blocks_x),
+                        math.ceil(n_valid / 256)))
+    rows = math.ceil(math.ceil(n_valid / splits) / TT) * TT
+    return math.ceil(n_valid / rows), rows
+
+
+def _carry_width(k: int) -> int:
+    """Slots of the kernels' sorted carry for k (knn_tile.cuh carry_width)."""
+    return 8 if k <= 8 else 16 if k <= 16 else 32 if k <= 32 else 64
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else 0
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _launch_topk(lib, q, t, k, euclid, lanes, pack_bits, n_valid, sms,
+                 stream) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of knn_topk.cu; buffers on q's device."""
+    nq, d = q.shape
+    splits, rows = _splits(nq, n_valid, sms)
+    part_k = torch.empty(splits * nq * _carry_width(k), dtype=torch.int32,
+                         device=q.device)
+    part_i = torch.empty_like(part_k)
+    out_k = torch.empty((nq, k), dtype=torch.int32, device=q.device)
+    out_i = torch.empty_like(out_k)
+    _raise_on(lib.knn_topk_launch(
+        q.data_ptr(), t.data_ptr(), nq, d, n_valid, k, int(euclid),
+        int(lanes), pack_bits, splits, rows, part_k.data_ptr(),
+        part_i.data_ptr(), out_k.data_ptr(), out_i.data_ptr(), stream),
+        "knn_topk_lanes" if lanes else "knn_topk")
+    return out_k, out_i
+
+
+def _launch_classify(lib, q, t, t_labels, k, euclid, n_classes, n_attrs,
+                     kernel_fn, kernel_param, n_valid, sms, stream
+                     ) -> torch.Tensor:
+    """One launch of knn_classify.cu; buffers on q's device."""
+    nq, d = q.shape
+    splits, rows = _splits(nq, n_valid, sms)
+    part_k = torch.empty(splits * nq * _carry_width(k), dtype=torch.int32,
+                         device=q.device)
+    part_i = torch.empty_like(part_k)
+    scores = torch.empty((nq, n_classes), dtype=torch.float32, device=q.device)
+    _raise_on(lib.knn_classify_launch(
+        q.data_ptr(), t.data_ptr(), t_labels.data_ptr(), nq, d, n_valid, k,
+        int(euclid), label_bits(n_classes), n_classes, 1.0 / max(n_attrs, 1),
+        KERNEL_FNS.index(kernel_fn), float(kernel_param), splits, rows,
+        part_k.data_ptr(), part_i.data_ptr(), scores.data_ptr(), stream),
+        "knn_classify_lanes")
+    return scores
+
+
+# ----------------------------------------------------------------- wrappers
+def knn_topk(q: torch.Tensor, t: torch.Tensor, k: int = 8,
+             metric: str = "euclidean", n_valid: Optional[int] = None,
+             n_attrs: Optional[int] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dist [nq, k] float32 ascending, index [nq, k] int32) of the k
+    nearest of the first n_valid rows of t, by attribute-averaged distance
+    (euclidean: sqrt of the mean squared term; manhattan: the mean absolute
+    one, over n_attrs attributes, default the column count). Ties go to the
+    lower index; unfillable slots are (+inf, -1). Port of
+    pallas_knn.knn_topk_pallas (packed=False)."""
+    if not q.is_cuda:
+        return knn_topk_plain(q, t, k, metric, n_valid, n_attrs)
+    nv = _check(q, t, k, metric, n_valid)
+    na = q.shape[1] if n_attrs is None else n_attrs
+    if q.shape[0] == 0:
+        return _finish(*_empty(q, k), metric, na, 0, INF_BITS)
+    with torch.cuda.device(q.device):
+        key, idx = _launch_topk(_build.load("knn_topk"), q, t, k,
+                                metric == "euclidean", False, 0, nv,
+                                _sm_count(q.device), _stream(q.device))
+    knn_topk.launches += 1
+    return _finish(key, idx, metric, na, 0, INF_BITS)
+
+
+def knn_topk_lanes(q: torch.Tensor, t: torch.Tensor, k: int = 8,
+                   metric: str = "euclidean", n_valid: Optional[int] = None,
+                   n_attrs: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """As knn_topk, but selecting on the lane kernel's packed key, so the
+    distances are quantized to 2^-(23 - pack_bits) relative, with
+    pack_bits = lane_pack_bits(t.shape[0]) of the PADDED corpus (t is
+    capped at LANE_CORPUS_CAP rows). Port of pallas_knn.knn_topk_lanes."""
+    if not q.is_cuda:
+        return knn_topk_lanes_plain(q, t, k, metric, n_valid, n_attrs)
+    nv = _check(q, t, k, metric, n_valid)
+    bits = _check_lanes(t)
+    na = q.shape[1] if n_attrs is None else n_attrs
+    mask = (1 << bits) - 1
+    if q.shape[0] == 0:
+        return _finish(*_empty(q, k), metric, na, mask, SENTINEL)
+    with torch.cuda.device(q.device):
+        key, idx = _launch_topk(_build.load("knn_topk"), q, t, k,
+                                metric == "euclidean", True, bits, nv,
+                                _sm_count(q.device), _stream(q.device))
+    knn_topk_lanes.launches += 1
+    return _finish(key, idx, metric, na, mask, SENTINEL)
+
+
+def knn_classify_lanes(q: torch.Tensor, t: torch.Tensor,
+                       t_labels: torch.Tensor, k: int = 8,
+                       n_classes: int = 2, n_attrs: Optional[int] = None,
+                       kernel_fn: str = "none", kernel_param: float = 1.0,
+                       metric: str = "euclidean",
+                       n_valid: Optional[int] = None) -> torch.Tensor:
+    """Class scores [nq, n_classes] float32 of the kernel-weighted vote of
+    the k nearest rows, on keys that carry the class label in their low
+    label_bits(n_classes) bits. Port of pallas_knn.knn_classify_lanes."""
+    if not q.is_cuda:
+        return knn_classify_lanes_plain(q, t, t_labels, k, n_classes,
+                                        n_attrs, kernel_fn, kernel_param,
+                                        metric, n_valid)
+    nv = _check(q, t, k, metric, n_valid)
+    _check_labels(t, t_labels, n_classes, kernel_fn)
+    na = q.shape[1] if n_attrs is None else n_attrs
+    if q.shape[0] == 0:
+        return torch.zeros((0, n_classes), dtype=torch.float32,
+                           device=q.device)
+    with torch.cuda.device(q.device):
+        scores = _launch_classify(
+            _build.load("knn_classify"), q, t, t_labels, k,
+            metric == "euclidean", n_classes, na, kernel_fn,
+            kernel_param, nv, _sm_count(q.device), _stream(q.device))
+    knn_classify_lanes.launches += 1
+    return scores
+
+
+def _empty(q: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    z = torch.zeros((0, k), dtype=torch.int32, device=q.device)
+    return z, z
+
+
+knn_topk.launches = 0
+knn_topk_lanes.launches = 0
+knn_classify_lanes.launches = 0
+KERNEL_WRAPPERS = (knn_topk, knn_topk_lanes, knn_classify_lanes)
+
+
+def reset_launches() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
