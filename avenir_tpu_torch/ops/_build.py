@@ -4,6 +4,7 @@ Each source under `ops/csrc/` compiles on its own into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+         -split-compile=0
 
 The libraries land in `build/avenir_tpu_torch/<hash>/` at the root of the
 checkout, keyed on a hash of every source, header and flag, so an edited
@@ -24,19 +25,22 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "avenir_tpu_torch"
+#: -split-compile=0 optimizes a source's kernels on every CPU at once: the
+#: 56 template instances otherwise build one after another
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: library -> (source, C entry, argtypes); pointers and the stream are
 #: c_void_p so ctypes never cuts them to 32 bits
 LIBRARIES = {
     "knn_topk": ("knn_topk.cu", "knn_topk_launch",
-                 [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                  _P]),
+                 [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                  _P, _P]),
     "knn_classify": ("knn_classify.cu", "knn_classify_launch",
-                     [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I,
-                      _I, _P, _P, _P, _P]),
+                     [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F,
+                      _I, _I, _P, _P, _P, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

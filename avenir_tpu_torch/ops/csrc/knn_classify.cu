@@ -71,14 +71,14 @@ merge_vote_kernel(const int* __restrict__ part_key,
 }
 
 template <int K>
-cudaError_t run(bool euclid, const float* q, const float* t,
+cudaError_t run(bool euclid, int bf16, const float* q, const float* t,
                 const int* labels, int nq, int d, int n_valid, int k,
                 int label_mask, int n_classes, float inv_attrs, int kernel_fn,
                 float kernel_param, int splits, int rows_per_split,
                 int* part_key, int* part_idx, float* scores,
                 cudaStream_t stream) {
   cudaError_t err = knn::launch_partial_metric<K, knn::LABELS>(
-      euclid, q, t, labels, nq, d, n_valid, splits, rows_per_split,
+      euclid, bf16, q, t, labels, nq, d, n_valid, splits, rows_per_split,
       label_mask, knn::SENTINEL, part_key, part_idx, stream);
   if (err != cudaSuccess) return err;
   int eu = euclid ? 1 : 0;
@@ -98,37 +98,38 @@ extern "C" {
 // q [nq, d], t [nt, d] fp32 and labels [nt] int32 on the device; rows >=
 // n_valid of t are padding. scores [nq, n_classes] fp32 is overwritten.
 // kernel_fn: 0 none, 1 linearMultiplicative, 2 linearAdditive, 3 gaussian.
+// bf16=1 rounds the euclidean cross term's operands to bfloat16.
 // part_key/part_idx hold splits * nq * carry_width(k) ints each.
 // Returns cudaGetLastError().
 int knn_classify_launch(const float* q, const float* t, const int* labels,
                         int nq, int d, int n_valid, int k, int euclid,
-                        int label_bits, int n_classes, float inv_attrs,
-                        int kernel_fn, float kernel_param, int splits,
-                        int rows_per_split, int* part_key, int* part_idx,
-                        float* scores, void* stream) {
+                        int bf16, int label_bits, int n_classes,
+                        float inv_attrs, int kernel_fn, float kernel_param,
+                        int splits, int rows_per_split, int* part_key,
+                        int* part_idx, float* scores, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int mask = (1 << label_bits) - 1;
   cudaError_t err;
   switch (knn::carry_width(k)) {
     case 8:
-      err = run<8>(euclid, q, t, labels, nq, d, n_valid, k, mask, n_classes,
-                   inv_attrs, kernel_fn, kernel_param, splits, rows_per_split,
-                   part_key, part_idx, scores, s);
+      err = run<8>(euclid, bf16, q, t, labels, nq, d, n_valid, k, mask,
+                   n_classes, inv_attrs, kernel_fn, kernel_param, splits,
+                   rows_per_split, part_key, part_idx, scores, s);
       break;
     case 16:
-      err = run<16>(euclid, q, t, labels, nq, d, n_valid, k, mask, n_classes,
-                    inv_attrs, kernel_fn, kernel_param, splits, rows_per_split,
-                    part_key, part_idx, scores, s);
+      err = run<16>(euclid, bf16, q, t, labels, nq, d, n_valid, k, mask,
+                    n_classes, inv_attrs, kernel_fn, kernel_param, splits,
+                    rows_per_split, part_key, part_idx, scores, s);
       break;
     case 32:
-      err = run<32>(euclid, q, t, labels, nq, d, n_valid, k, mask, n_classes,
-                    inv_attrs, kernel_fn, kernel_param, splits, rows_per_split,
-                    part_key, part_idx, scores, s);
+      err = run<32>(euclid, bf16, q, t, labels, nq, d, n_valid, k, mask,
+                    n_classes, inv_attrs, kernel_fn, kernel_param, splits,
+                    rows_per_split, part_key, part_idx, scores, s);
       break;
     case 64:
-      err = run<64>(euclid, q, t, labels, nq, d, n_valid, k, mask, n_classes,
-                    inv_attrs, kernel_fn, kernel_param, splits, rows_per_split,
-                    part_key, part_idx, scores, s);
+      err = run<64>(euclid, bf16, q, t, labels, nq, d, n_valid, k, mask,
+                    n_classes, inv_attrs, kernel_fn, kernel_param, splits,
+                    rows_per_split, part_key, part_idx, scores, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,14 +1,25 @@
 // Shared body of the KNN top-k kernels for Hopper (sm_90a).
 //
-// One partial kernel serves all three ported TPU kernels of
+// One partial kernel serves all four TPU kernels of
 // avenir_tpu/ops/pallas_knn.py: it computes the distance of each query to
 // each train row and keeps, per query, the K smallest int32 selection keys
 // in a sorted register carry. Only the key differs by MODE:
 //   EXACT   key = bits(d)                                  (_knn_kernel)
 //   LANES   key = bits(d) & ~mask | column/128             (_knn_kernel_lanes)
 //   LABELS  key = bits(d) & ~mask | label[column]          (_knn_kernel_lanes_vote)
+//   PACKED  key = bits(d) & ~0xFFF                         (_knn_kernel_packed)
 // d is non-negative, so its bit pattern orders like the float. Ties in key
-// go to the lower train column, as the TPU kernels' first-argmin does.
+// go to the lower train column, as the TPU kernels' first-argmin does. The
+// carry holds the column beside each key, so PACKED needs no column bits
+// in the key and no tile cap: it selects on (bits(d) & ~0xFFF, column).
+//
+// METRIC L2_BF16 is euclidean with the operands of the cross term q.t
+// rounded to bfloat16, nearest even, as the TPU kernels'
+// compute_dtype="bfloat16" does; products and sums stay fp32, and the
+// norms |q|^2 and |t|^2 come from the unrounded values, so each is taken
+// before its operand is rounded in shared memory. It is a template
+// argument, not a runtime flag, so the fp32 instances compile as if bf16
+// did not exist.
 //
 // Layout: one thread per query, BQ queries per block; blockIdx.y splits the
 // train axis so that a few thousand queries still fill 132 SMs. Each split
@@ -25,6 +36,7 @@
 // full-precision products).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace knn {
@@ -34,7 +46,15 @@ constexpr int TT = 32;                  // train rows per shared-memory tile
 constexpr int SENTINEL = 0x7F700000;    // empty packed slot (pallas_knn._SENTINEL)
 constexpr int INF_BITS = 0x7F800000;    // empty exact slot: +inf
 
-enum Mode { EXACT = 0, LANES = 1, LABELS = 2 };
+enum Mode { EXACT = 0, LANES = 1, LABELS = 2, PACKED = 3 };
+enum Metric { L1 = 0, L2 = 1, L2_BF16 = 2 };
+
+__device__ __forceinline__ float4 round_bf16(float4 v) {
+  return make_float4(__bfloat162float(__float2bfloat16_rn(v.x)),
+                     __bfloat162float(__float2bfloat16_rn(v.y)),
+                     __bfloat162float(__float2bfloat16_rn(v.z)),
+                     __bfloat162float(__float2bfloat16_rn(v.w)));
+}
 
 // K smallest (key, column) pairs, ascending, in registers (K is a
 // compile-time constant, so every index below is static).
@@ -80,13 +100,15 @@ inline size_t partial_smem_bytes(int d) {
 // Per split (blockIdx.y) and query: the K smallest keys over train rows
 // [split*rows_per_split, min((split+1)*rows_per_split, n_valid)).
 // Outputs part_key/part_idx [splits][nq][K].
-template <int K, bool EUCLID, int MODE>
+template <int K, int METRIC, int MODE>
 __global__ void __launch_bounds__(BQ)
 partial_topk_kernel(const float* __restrict__ q, const float* __restrict__ t,
                     const int* __restrict__ labels, int nq, int d,
                     int n_valid, int rows_per_split, int pack_mask,
                     int empty_key, int* __restrict__ part_key,
                     int* __restrict__ part_idx) {
+  constexpr bool EUCLID = METRIC != L1;
+  constexpr bool BF16 = METRIC == L2_BF16;
   extern __shared__ float4 smem[];
   const int d4 = (d + 3) / 4;
   float4* q_s = smem;                                      // [d4][BQ]
@@ -112,6 +134,8 @@ partial_topk_kernel(const float* __restrict__ q, const float* __restrict__ t,
     qf[e] = (f < d && row < nq) ? q[(size_t)row * d + f] : 0.f;
   }
   __syncthreads();
+  // a thread reads only its own query's column of q_s from here on, so it
+  // may round that column in place once its norm is taken
   float qn = 0.f;
   if (EUCLID) {
     for (int f4 = 0; f4 < d4; ++f4) {
@@ -120,6 +144,7 @@ partial_topk_kernel(const float* __restrict__ q, const float* __restrict__ t,
       qn = fmaf(a.y, a.y, qn);
       qn = fmaf(a.z, a.z, qn);
       qn = fmaf(a.w, a.w, qn);
+      if (BF16) q_s[f4 * BQ + tid] = round_bf16(a);
     }
   }
 
@@ -147,6 +172,7 @@ partial_topk_kernel(const float* __restrict__ q, const float* __restrict__ t,
           s = fmaf(b.y, b.y, s);
           s = fmaf(b.z, b.z, s);
           s = fmaf(b.w, b.w, s);
+          if (BF16) t_s[tid * d4 + f4] = round_bf16(b);   // after its norm
         }
         tn_s[tid] = s;
       }
@@ -188,6 +214,7 @@ partial_topk_kernel(const float* __restrict__ q, const float* __restrict__ t,
           int key = __float_as_int(v);
           if (MODE == LANES) key = (key & ~pack_mask) | (col >> 7);
           if (MODE == LABELS) key = (key & ~pack_mask) | lab_s[j];
+          if (MODE == PACKED) key &= ~pack_mask;
           if (key < best.worst()) best.insert(key, col);
         }
       }
@@ -222,12 +249,12 @@ __device__ __forceinline__ void merge_splits(const int* __restrict__ part_key,
   }
 }
 
-template <int K, bool EUCLID, int MODE>
+template <int K, int METRIC, int MODE>
 cudaError_t launch_partial(const float* q, const float* t, const int* labels,
                            int nq, int d, int n_valid, int splits,
                            int rows_per_split, int pack_mask, int empty_key,
                            int* part_key, int* part_idx, cudaStream_t stream) {
-  auto* fn = &partial_topk_kernel<K, EUCLID, MODE>;
+  auto* fn = &partial_topk_kernel<K, METRIC, MODE>;
   const size_t smem = partial_smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -240,19 +267,26 @@ cudaError_t launch_partial(const float* q, const float* t, const int* labels,
   return cudaLaunchKernel(fn, grid, dim3(BQ), args, smem, stream);
 }
 
+// bf16 applies to euclidean only: manhattan ignores the compute dtype.
 template <int K, int MODE>
-cudaError_t launch_partial_metric(bool euclid, const float* q, const float* t,
-                                  const int* labels, int nq, int d,
-                                  int n_valid, int splits, int rows_per_split,
-                                  int pack_mask, int empty_key, int* part_key,
+cudaError_t launch_partial_metric(bool euclid, int bf16, const float* q,
+                                  const float* t, const int* labels, int nq,
+                                  int d, int n_valid, int splits,
+                                  int rows_per_split, int pack_mask,
+                                  int empty_key, int* part_key,
                                   int* part_idx, cudaStream_t stream) {
+  if (euclid && bf16)
+    return launch_partial<K, L2_BF16, MODE>(q, t, labels, nq, d, n_valid,
+                                            splits, rows_per_split, pack_mask,
+                                            empty_key, part_key, part_idx,
+                                            stream);
   if (euclid)
-    return launch_partial<K, true, MODE>(q, t, labels, nq, d, n_valid, splits,
-                                         rows_per_split, pack_mask, empty_key,
-                                         part_key, part_idx, stream);
-  return launch_partial<K, false, MODE>(q, t, labels, nq, d, n_valid, splits,
-                                        rows_per_split, pack_mask, empty_key,
-                                        part_key, part_idx, stream);
+    return launch_partial<K, L2, MODE>(q, t, labels, nq, d, n_valid, splits,
+                                       rows_per_split, pack_mask, empty_key,
+                                       part_key, part_idx, stream);
+  return launch_partial<K, L1, MODE>(q, t, labels, nq, d, n_valid, splits,
+                                     rows_per_split, pack_mask, empty_key,
+                                     part_key, part_idx, stream);
 }
 
 // The carry width K a k takes: the smallest of 8, 16, 32, 64 that holds it

@@ -1,11 +1,11 @@
-"""Wrappers of the three KNN top-k kernels, their plain versions, launch counts.
+"""Wrappers of the four KNN top-k kernels, their plain versions, launch counts.
 
-Ports the three TPU kernels of `avenir_tpu/ops/pallas_knn.py` that the
-`nearestNeighbor` job runs:
+Ports the four TPU kernels of `avenir_tpu/ops/pallas_knn.py`:
 
 | wrapper              | CUDA source              | TPU kernel                    |
 |----------------------|--------------------------|-------------------------------|
 | `knn_topk`           | `csrc/knn_topk.cu`       | `_knn_kernel` (exact)         |
+| `knn_topk_packed`    | `csrc/knn_topk.cu`       | `_knn_kernel_packed`          |
 | `knn_topk_lanes`     | `csrc/knn_topk.cu`       | `_knn_kernel_lanes`           |
 | `knn_classify_lanes` | `csrc/knn_classify.cu`   | `_knn_kernel_lanes_vote`      |
 
@@ -13,13 +13,19 @@ A wrapper given CPU tensors computes its plain PyTorch version; given CUDA
 tensors it launches its kernel or raises — there is no fallback. Each
 wrapper counts its kernel launches in its `launches` attribute.
 
-All three select on an int32 key built from a non-negative fp32 distance
-d (squared for euclidean): the exact kernel on bits(d), the lane kernel on
-bits(d) & ~mask | column // 128 with mask = 2**pack_bits - 1, and the vote
-kernel on bits(d) & ~mask | label. Ties go to the lower train column.
-The plain versions use the same keys, masking and tie rule: they scan the
-train rows 4096 at a time and fold each block into the running top-k with
-a stable sort.
+All four select on an int32 key built from a non-negative fp32 distance
+d (squared for euclidean): the exact kernel on bits(d), the packed kernel
+on bits(d) & ~0xFFF, the lane kernel on bits(d) & ~mask | column // 128
+with mask = 2**pack_bits - 1, and the vote kernel on bits(d) & ~mask |
+label. Ties go to the lower train column. The plain versions use the same
+keys, masking and tie rule: they scan the train rows 4096 at a time and
+fold each block into the running top-k with a stable sort.
+
+compute_dtype="bfloat16" rounds the operands of the euclidean cross term
+q.t to bfloat16 (nearest even) and keeps fp32 products and sums; the
+norms |q|^2 and |t|^2 stay those of the fp32 values, and manhattan
+ignores the dtype. That is the TPU kernels' bf16 dot_general with fp32
+accumulation.
 """
 
 from __future__ import annotations
@@ -37,6 +43,10 @@ SENTINEL = 0x7F700000           # empty packed slot: a huge finite float
 INF_BITS = 0x7F800000           # empty exact slot: +inf
 LANES = 128                     # column // 128 is the lane kernel's chunk id
 LANE_CORPUS_CAP = LANES * (1 << 12)   # chunk ids fit 12 mantissa bits
+PACK_BITS = 12                  # packed kernel's masked bits (pallas _PACK_BITS)
+#: knn_tile.cuh Mode of each top-k selection
+MODES = {"exact": 0, "lanes": 1, "labels": 2, "packed": 3}
+COMPUTE_DTYPES = ("float32", "bfloat16")
 #: knn_tile.cuh: queries per block, train rows per tile, shared memory cap
 BQ, TT, SMEM_LIMIT = 128, 32, 232448
 #: most features the partial kernel stages in shared memory
@@ -98,6 +108,16 @@ def _check(q: torch.Tensor, t: torch.Tensor, k: int, metric: str,
     if not 0 <= nv <= t.shape[0]:
         raise ValueError(f"n_valid={nv} outside [0, {t.shape[0]}]")
     return nv
+
+
+def _bf16(compute_dtype, metric: str) -> bool:
+    """Whether the euclidean cross term runs on bfloat16-rounded operands;
+    compute_dtype is "float32" or "bfloat16" (or the torch dtype)."""
+    name = str(compute_dtype).removeprefix("torch.")
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype!r}; the kernels take "
+                         f"{COMPUTE_DTYPES}")
+    return name == "bfloat16" and metric == "euclidean"
 
 
 def _check_lanes(t: torch.Tensor) -> int:
@@ -164,13 +184,22 @@ def _vote(key: torch.Tensor, label_mask: int, n_classes: int, n_attrs: int,
 
 
 # ---------------------------------------------------------- plain versions
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 def _tile_plain(q: torch.Tensor, tb: torch.Tensor, metric: str,
-                qn: Optional[torch.Tensor]) -> torch.Tensor:
+                qn: Optional[torch.Tensor], bf16: bool = False
+                ) -> torch.Tensor:
     """[nq, m] distances (squared for euclidean) with the kernels' formula:
-    euclidean (|q|^2 + |t|^2) - 2 q.t clamped at +0 in fp32; manhattan
+    euclidean (|q|^2 + |t|^2) - 2 q.t clamped at +0 in fp32, q.t of
+    bfloat16-rounded operands when bf16 (the norms never are); manhattan
     features 0..D-1 summed from 0.0."""
     if metric == "euclidean":
-        v = (qn[:, None] + (tb * tb).sum(1)[None, :]) - 2.0 * (q @ tb.T)
+        tn = (tb * tb).sum(1)
+        if bf16:
+            q, tb = _round_bf16(q), _round_bf16(tb)
+        v = (qn[:, None] + tn[None, :]) - 2.0 * (q @ tb.T)
         return torch.where(v > 0, v, 0.0)
     acc = torch.zeros((q.shape[0], tb.shape[0]), dtype=torch.float32,
                       device=q.device)
@@ -180,24 +209,27 @@ def _tile_plain(q: torch.Tensor, tb: torch.Tensor, metric: str,
 
 
 def _select_plain(q: torch.Tensor, t: torch.Tensor, k: int, metric: str,
-                  n_valid: int, pack_mask: int, empty: int,
-                  labels: Optional[torch.Tensor] = None
+                  n_valid: int, mode: str, pack_mask: int, empty: int,
+                  bf16: bool = False, labels: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k smallest (key, column) pairs per query, ascending, over train
-    rows [0, n_valid). labels=None packs column // 128 into the masked
-    bits (a zero mask leaves the exact distance bits)."""
+    rows [0, n_valid), on the key of `mode` (see MODES): the masked bits
+    of bits(d) carry column // 128 ("lanes"), the label ("labels") or
+    nothing ("packed"); "exact" takes a zero mask."""
     nq, dev = q.shape[0], q.device
     best_k = torch.full((nq, k), empty, dtype=torch.int32, device=dev)
     best_i = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
     qn = (q * q).sum(1) if metric == "euclidean" else None
     for start in range(0, n_valid, PLAIN_BLOCK):
         stop = min(start + PLAIN_BLOCK, n_valid)
-        key = _tile_plain(q, t[start:stop], metric, qn).view(torch.int32)
+        key = _tile_plain(q, t[start:stop], metric, qn, bf16).view(torch.int32)
         col = torch.arange(start, stop, dtype=torch.int32, device=dev)
-        if labels is not None:
+        if mode == "labels":
             key = (key & ~pack_mask) | labels[start:stop][None, :]
-        elif pack_mask:
+        elif mode == "lanes":
             key = (key & ~pack_mask) | (col >> 7)[None, :]
+        elif mode == "packed":
+            key = key & ~pack_mask
         all_k = torch.cat([best_k, key], 1)
         all_i = torch.cat([best_i, col.expand(nq, -1)], 1)
         order = torch.sort(all_k, dim=1, stable=True).indices[:, :k]
@@ -205,29 +237,50 @@ def _select_plain(q: torch.Tensor, t: torch.Tensor, k: int, metric: str,
     return best_k, best_i
 
 
-def knn_topk_plain(q, t, k=8, metric="euclidean", n_valid=None, n_attrs=None):
+def _key_spec(mode: str, t: torch.Tensor) -> Tuple[int, int, int]:
+    """(pack_bits, pack_mask, empty key) of a top-k mode on corpus t."""
+    bits = (0 if mode == "exact" else PACK_BITS if mode == "packed"
+            else _check_lanes(t))
+    return bits, (1 << bits) - 1, SENTINEL if mode == "lanes" else INF_BITS
+
+
+def _topk_plain(mode, q, t, k, metric, n_valid, n_attrs, compute_dtype):
     nv = _check(q, t, k, metric, n_valid)
-    key, idx = _select_plain(q, t, k, metric, nv, 0, INF_BITS)
+    bf16 = _bf16(compute_dtype, metric)
+    _, mask, empty = _key_spec(mode, t)
+    key, idx = _select_plain(q, t, k, metric, nv, mode, mask, empty, bf16)
     return _finish(key, idx, metric, q.shape[1] if n_attrs is None else n_attrs,
-                   0, INF_BITS)
+                   mask, empty)
+
+
+def knn_topk_plain(q, t, k=8, metric="euclidean", n_valid=None, n_attrs=None,
+                   compute_dtype="float32"):
+    return _topk_plain("exact", q, t, k, metric, n_valid, n_attrs,
+                       compute_dtype)
+
+
+def knn_topk_packed_plain(q, t, k=8, metric="euclidean", n_valid=None,
+                          n_attrs=None, compute_dtype="float32"):
+    return _topk_plain("packed", q, t, k, metric, n_valid, n_attrs,
+                       compute_dtype)
 
 
 def knn_topk_lanes_plain(q, t, k=8, metric="euclidean", n_valid=None,
-                         n_attrs=None):
-    nv = _check(q, t, k, metric, n_valid)
-    mask = (1 << _check_lanes(t)) - 1
-    key, idx = _select_plain(q, t, k, metric, nv, mask, SENTINEL)
-    return _finish(key, idx, metric, q.shape[1] if n_attrs is None else n_attrs,
-                   mask, SENTINEL)
+                         n_attrs=None, compute_dtype="float32"):
+    return _topk_plain("lanes", q, t, k, metric, n_valid, n_attrs,
+                       compute_dtype)
 
 
 def knn_classify_lanes_plain(q, t, t_labels, k=8, n_classes=2, n_attrs=None,
                              kernel_fn="none", kernel_param=1.0,
-                             metric="euclidean", n_valid=None):
+                             metric="euclidean", n_valid=None,
+                             compute_dtype="float32"):
     nv = _check(q, t, k, metric, n_valid)
     _check_labels(t, t_labels, n_classes, kernel_fn)
+    bf16 = _bf16(compute_dtype, metric)
     mask = (1 << label_bits(n_classes)) - 1
-    key, _ = _select_plain(q, t, k, metric, nv, mask, SENTINEL, t_labels)
+    key, _ = _select_plain(q, t, k, metric, nv, "labels", mask, SENTINEL,
+                           bf16, t_labels)
     return _vote(key, mask, n_classes,
                  q.shape[1] if n_attrs is None else n_attrs, metric,
                  kernel_fn, float(kernel_param))
@@ -264,7 +317,7 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _launch_topk(lib, q, t, k, euclid, lanes, pack_bits, n_valid, sms,
+def _launch_topk(lib, q, t, k, euclid, mode, pack_bits, bf16, n_valid, sms,
                  stream) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of knn_topk.cu; buffers on q's device."""
     nq, d = q.shape
@@ -276,14 +329,14 @@ def _launch_topk(lib, q, t, k, euclid, lanes, pack_bits, n_valid, sms,
     out_i = torch.empty_like(out_k)
     _raise_on(lib.knn_topk_launch(
         q.data_ptr(), t.data_ptr(), nq, d, n_valid, k, int(euclid),
-        int(lanes), pack_bits, splits, rows, part_k.data_ptr(),
+        MODES[mode], pack_bits, int(bf16), splits, rows, part_k.data_ptr(),
         part_i.data_ptr(), out_k.data_ptr(), out_i.data_ptr(), stream),
-        "knn_topk_lanes" if lanes else "knn_topk")
+        f"knn_topk ({mode})")
     return out_k, out_i
 
 
-def _launch_classify(lib, q, t, t_labels, k, euclid, n_classes, n_attrs,
-                     kernel_fn, kernel_param, n_valid, sms, stream
+def _launch_classify(lib, q, t, t_labels, k, euclid, bf16, n_classes,
+                     n_attrs, kernel_fn, kernel_param, n_valid, sms, stream
                      ) -> torch.Tensor:
     """One launch of knn_classify.cu; buffers on q's device."""
     nq, d = q.shape
@@ -294,60 +347,81 @@ def _launch_classify(lib, q, t, t_labels, k, euclid, n_classes, n_attrs,
     scores = torch.empty((nq, n_classes), dtype=torch.float32, device=q.device)
     _raise_on(lib.knn_classify_launch(
         q.data_ptr(), t.data_ptr(), t_labels.data_ptr(), nq, d, n_valid, k,
-        int(euclid), label_bits(n_classes), n_classes, 1.0 / max(n_attrs, 1),
-        KERNEL_FNS.index(kernel_fn), float(kernel_param), splits, rows,
-        part_k.data_ptr(), part_i.data_ptr(), scores.data_ptr(), stream),
+        int(euclid), int(bf16), label_bits(n_classes), n_classes,
+        1.0 / max(n_attrs, 1), KERNEL_FNS.index(kernel_fn),
+        float(kernel_param), splits, rows, part_k.data_ptr(),
+        part_i.data_ptr(), scores.data_ptr(), stream),
         "knn_classify_lanes")
     return scores
+
+
+def _topk(wrapper, mode, q, t, k, metric, n_valid, n_attrs, compute_dtype
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top-k of `mode`: the plain version for CPU tensors, else one
+    launch of knn_topk.cu, counted on `wrapper`."""
+    if not q.is_cuda:
+        return _topk_plain(mode, q, t, k, metric, n_valid, n_attrs,
+                           compute_dtype)
+    nv = _check(q, t, k, metric, n_valid)
+    bf16 = _bf16(compute_dtype, metric)
+    bits, mask, empty = _key_spec(mode, t)
+    na = q.shape[1] if n_attrs is None else n_attrs
+    if q.shape[0] == 0:
+        return _finish(*_empty(q, k), metric, na, mask, empty)
+    with torch.cuda.device(q.device):
+        key, idx = _launch_topk(_build.load("knn_topk"), q, t, k,
+                                metric == "euclidean", mode, bits, bf16, nv,
+                                _sm_count(q.device), _stream(q.device))
+    wrapper.launches += 1
+    return _finish(key, idx, metric, na, mask, empty)
 
 
 # ----------------------------------------------------------------- wrappers
 def knn_topk(q: torch.Tensor, t: torch.Tensor, k: int = 8,
              metric: str = "euclidean", n_valid: Optional[int] = None,
-             n_attrs: Optional[int] = None
+             n_attrs: Optional[int] = None, *, packed: bool = False,
+             compute_dtype: str = "float32"
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dist [nq, k] float32 ascending, index [nq, k] int32) of the k
     nearest of the first n_valid rows of t, by attribute-averaged distance
     (euclidean: sqrt of the mean squared term; manhattan: the mean absolute
     one, over n_attrs attributes, default the column count). Ties go to the
     lower index; unfillable slots are (+inf, -1). Port of
-    pallas_knn.knn_topk_pallas (packed=False)."""
-    if not q.is_cuda:
-        return knn_topk_plain(q, t, k, metric, n_valid, n_attrs)
-    nv = _check(q, t, k, metric, n_valid)
-    na = q.shape[1] if n_attrs is None else n_attrs
-    if q.shape[0] == 0:
-        return _finish(*_empty(q, k), metric, na, 0, INF_BITS)
-    with torch.cuda.device(q.device):
-        key, idx = _launch_topk(_build.load("knn_topk"), q, t, k,
-                                metric == "euclidean", False, 0, nv,
-                                _sm_count(q.device), _stream(q.device))
-    knn_topk.launches += 1
-    return _finish(key, idx, metric, na, 0, INF_BITS)
+    pallas_knn.knn_topk_pallas: packed=True is knn_topk_packed."""
+    if packed:
+        return knn_topk_packed(q, t, k, metric, n_valid, n_attrs,
+                               compute_dtype)
+    return _topk(knn_topk, "exact", q, t, k, metric, n_valid, n_attrs,
+                 compute_dtype)
+
+
+def knn_topk_packed(q: torch.Tensor, t: torch.Tensor, k: int = 8,
+                    metric: str = "euclidean", n_valid: Optional[int] = None,
+                    n_attrs: Optional[int] = None,
+                    compute_dtype: str = "float32"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """As knn_topk, but selecting on (bits(d) & ~0xFFF, index), d the
+    squared or absolute sum: distances come back truncated to 2^-11
+    relative on the sum (2^-12 after the euclidean sqrt), and ties on that
+    grid go to the lower index. Port of pallas_knn.knn_topk_pallas
+    (packed=True), whose in-tile column bits and first-argmin tile merge
+    give this order; the port carries the index beside the key, so no
+    tile size applies."""
+    return _topk(knn_topk_packed, "packed", q, t, k, metric, n_valid,
+                 n_attrs, compute_dtype)
 
 
 def knn_topk_lanes(q: torch.Tensor, t: torch.Tensor, k: int = 8,
                    metric: str = "euclidean", n_valid: Optional[int] = None,
-                   n_attrs: Optional[int] = None
+                   n_attrs: Optional[int] = None,
+                   compute_dtype: str = "float32"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """As knn_topk, but selecting on the lane kernel's packed key, so the
     distances are quantized to 2^-(23 - pack_bits) relative, with
     pack_bits = lane_pack_bits(t.shape[0]) of the PADDED corpus (t is
     capped at LANE_CORPUS_CAP rows). Port of pallas_knn.knn_topk_lanes."""
-    if not q.is_cuda:
-        return knn_topk_lanes_plain(q, t, k, metric, n_valid, n_attrs)
-    nv = _check(q, t, k, metric, n_valid)
-    bits = _check_lanes(t)
-    na = q.shape[1] if n_attrs is None else n_attrs
-    mask = (1 << bits) - 1
-    if q.shape[0] == 0:
-        return _finish(*_empty(q, k), metric, na, mask, SENTINEL)
-    with torch.cuda.device(q.device):
-        key, idx = _launch_topk(_build.load("knn_topk"), q, t, k,
-                                metric == "euclidean", True, bits, nv,
-                                _sm_count(q.device), _stream(q.device))
-    knn_topk_lanes.launches += 1
-    return _finish(key, idx, metric, na, mask, SENTINEL)
+    return _topk(knn_topk_lanes, "lanes", q, t, k, metric, n_valid, n_attrs,
+                 compute_dtype)
 
 
 def knn_classify_lanes(q: torch.Tensor, t: torch.Tensor,
@@ -355,16 +429,18 @@ def knn_classify_lanes(q: torch.Tensor, t: torch.Tensor,
                        n_classes: int = 2, n_attrs: Optional[int] = None,
                        kernel_fn: str = "none", kernel_param: float = 1.0,
                        metric: str = "euclidean",
-                       n_valid: Optional[int] = None) -> torch.Tensor:
+                       n_valid: Optional[int] = None,
+                       compute_dtype: str = "float32") -> torch.Tensor:
     """Class scores [nq, n_classes] float32 of the kernel-weighted vote of
     the k nearest rows, on keys that carry the class label in their low
     label_bits(n_classes) bits. Port of pallas_knn.knn_classify_lanes."""
     if not q.is_cuda:
         return knn_classify_lanes_plain(q, t, t_labels, k, n_classes,
                                         n_attrs, kernel_fn, kernel_param,
-                                        metric, n_valid)
+                                        metric, n_valid, compute_dtype)
     nv = _check(q, t, k, metric, n_valid)
     _check_labels(t, t_labels, n_classes, kernel_fn)
+    bf16 = _bf16(compute_dtype, metric)
     na = q.shape[1] if n_attrs is None else n_attrs
     if q.shape[0] == 0:
         return torch.zeros((0, n_classes), dtype=torch.float32,
@@ -372,7 +448,7 @@ def knn_classify_lanes(q: torch.Tensor, t: torch.Tensor,
     with torch.cuda.device(q.device):
         scores = _launch_classify(
             _build.load("knn_classify"), q, t, t_labels, k,
-            metric == "euclidean", n_classes, na, kernel_fn,
+            metric == "euclidean", bf16, n_classes, na, kernel_fn,
             kernel_param, nv, _sm_count(q.device), _stream(q.device))
     knn_classify_lanes.launches += 1
     return scores
@@ -383,12 +459,13 @@ def _empty(q: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return z, z
 
 
-knn_topk.launches = 0
-knn_topk_lanes.launches = 0
-knn_classify_lanes.launches = 0
-KERNEL_WRAPPERS = (knn_topk, knn_topk_lanes, knn_classify_lanes)
+KERNEL_WRAPPERS = (knn_topk, knn_topk_packed, knn_topk_lanes,
+                   knn_classify_lanes)
 
 
 def reset_launches() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+
+
+reset_launches()

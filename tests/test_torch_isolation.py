@@ -46,6 +46,8 @@ def test_modules_list_covers_the_package():
     assert "avenir_tpu_torch" in MODULES
     assert "avenir_tpu_torch.ops.knn_kernels" in MODULES
     assert "avenir_tpu_torch.models.convert" in MODULES
+    assert "avenir_tpu_torch.tools.kernel_check" in MODULES
+    assert "avenir_tpu_torch.tools.knn_sweep" in MODULES
 
 
 @pytest.mark.parametrize("entry", ["avenir_tpu_torch", "all", "chip_smoke"])

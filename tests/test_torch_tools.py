@@ -1,0 +1,124 @@
+"""The port's two tools on the CPU: `kernel_check` passes every case with
+the plain versions and refuses to start without a device; `knn_sweep`
+covers every kernel in both dtypes and runs at a tiny size."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from avenir_tpu_torch.ops import knn_kernels as kk
+from avenir_tpu_torch.tools import kernel_check, knn_sweep
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("name", kernel_check.CASE_NAMES)
+def test_kernel_check_case_passes_on_cpu(name):
+    lines = []
+    results = kernel_check.run("cpu", names=[name], out=lines.append)
+    assert results == {name: []}
+    assert lines[0] == f"PASS {name}"
+    assert json.loads(lines[-1]) == {"metric": "kernel_check", "device": "cpu",
+                                     "passed": 1, "total": 1}
+
+
+def test_kernel_check_covers_the_reference_cases():
+    """The JAX package's check: 6 top-k cases x exact, packed, lanes, plus
+    lanes-bf16 for the 5 euclidean ones; 3 fused votes, 2 exhausted, 2
+    mixed, 1 collision."""
+    names = kernel_check.CASE_NAMES
+    assert len(names) == 6 * 3 + 5 + 3 + 2 + 2 + 1 == 31
+    for label, *_ in kernel_check.TOPK_CASES:
+        assert f"packed/{label}" in names
+    assert {"fused-vote-exhausted/float32", "fused-vote-exhausted/bfloat16",
+            "lanes/same-lane-collision"} <= set(names)
+
+
+def test_kernel_check_fails_a_wrong_result():
+    """The oracle check is not vacuous: a swapped neighbour, a distance
+    off by 1% and a stray index each fail."""
+    import numpy as np
+
+    q, t = kernel_check.case_data()["basic"]
+    full = kernel_check.oracle(q[:16], t[:512], "euclidean")
+    idx = np.argsort(full, axis=1, kind="stable")[:, :5].astype(np.int32)
+    dist = np.take_along_axis(full, idx, 1).astype(np.float32)
+    assert kernel_check.topk_faults(dist, idx, full, 5, 1e-3) == []
+    far = np.argsort(full, axis=1)[:, -1:].astype(np.int32)
+    bad_i = np.concatenate([idx[:, :4], far], 1)
+    assert any("recall" in f for f in
+               kernel_check.topk_faults(dist, bad_i, full, 5, 1e-3))
+    assert kernel_check.topk_faults(dist * 1.01, idx, full, 5, 1e-3)
+    stray = idx.copy()
+    stray[0, 0] = 512
+    assert "index out of range" in kernel_check.topk_faults(dist, stray, full,
+                                                            5, 1e-3)
+
+
+def test_kernel_check_main_on_cpu(capsys):
+    assert kernel_check.main(["--device", "cpu"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["passed"] == summary["total"] == 31
+
+
+def test_kernel_check_raises_without_a_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kernel_check.main([])
+
+
+def test_kernel_check_module_exits_nonzero_without_cuda():
+    """No "skipped, exit 0" on a machine without a GPU: the command fails
+    and prints no summary."""
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import runpy, torch; torch.cuda.is_available = lambda: False; "
+         "runpy.run_module('avenir_tpu_torch.tools.kernel_check', "
+         "run_name='__main__')"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "RuntimeError" in proc.stderr
+    assert "kernel_check" not in proc.stdout
+
+
+def test_sweep_configs_name_every_kernel_and_dtype():
+    got = {(name, dtype) for name, _, dtype in knn_sweep.CONFIGS}
+    assert got == {(k, d) for k in ("exact", "packed", "lanes")
+                   for d in kk.COMPUTE_DTYPES}
+    wrappers = {name: fn for name, fn, _ in knn_sweep.CONFIGS}
+    assert wrappers == {"exact": kk.knn_topk, "packed": kk.knn_topk_packed,
+                        "lanes": kk.knn_topk_lanes}
+    assert (knn_sweep.QUERIES, knn_sweep.TRAIN, knn_sweep.DIM, knn_sweep.K) \
+        == (8192, 131072, 128, 5)
+
+
+def test_sweep_runs_on_cpu_at_a_tiny_size():
+    lines = []
+    rows = knn_sweep.run(8, 64, 512, device="cpu", reps=1, out=lines.append)
+    kernels = [(r["kernel"], r["dtype"]) for r in rows if "kernel" in r]
+    assert kernels == [(name, dtype) for name, _, dtype in knn_sweep.CONFIGS]
+    arms = [r for r in rows if "classify" in r]
+    assert [r["classify"] for r in arms] == ["composed", "fused"]
+    assert arms[0]["agreement"] == 1.0
+    assert all(r["ms"] > 0 and r["qps"] > 0 for r in rows)
+    assert lines[0].startswith("knn_sweep on cpu: 64 queries x 512 train rows")
+    assert all(line.endswith("(cpu)") for line in lines[1:-1])
+    assert [fn.launches for fn in kk.KERNEL_WRAPPERS] == [0, 0, 0, 0]
+
+
+def test_sweep_main_takes_sizes_and_device(capsys):
+    assert knn_sweep.main(["6", "--queries", "32", "--train", "256",
+                           "--reps", "1", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "32 queries x 256 train rows, D=6" in out
+    assert out.count(" q/s") == 8
+
+
+def test_sweep_raises_without_a_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        knn_sweep.run(8, 32, 256)
