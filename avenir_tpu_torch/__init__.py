@@ -8,8 +8,10 @@ kernel on a ported path is a CUDA kernel written by hand (`ops/csrc/`).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU present and no device given they raise instead of degrading.
 
-Ported so far: the `nearestNeighbor` job (`runner.run_job`, or
-``python -m avenir_tpu_torch nearestNeighbor --conf P train.csv test.csv out``).
+Ported so far: the `nearestNeighbor`, `bayesianDistr` and
+`bayesianPredictor` jobs (`runner.run_job`, or
+``python -m avenir_tpu_torch <job> --conf P IN... OUT``), and the tools
+`kernel_check`, `knn_sweep` and `bench` (`python -m avenir_tpu_torch.tools.<tool>`).
 """
 
 __version__ = "0.1.0"

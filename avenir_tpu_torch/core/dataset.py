@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import io
 import os
-from typing import Dict, Iterable, List, Optional, Sequence, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -24,21 +24,24 @@ class Dataset:
     """Columnar view of one CSV input split against a FeatureSchema."""
 
     def __init__(self, schema: FeatureSchema, columns: Dict[int, np.ndarray],
-                 n_rows: int):
+                 n_rows: int, raw_rows: Optional[List[List[str]]] = None):
         self.schema = schema
         self.columns = columns          # ordinal -> np array (codes / floats / object)
         self.n_rows = n_rows
+        self.raw_rows = raw_rows        # kept when output echoes the input row
 
     # ------------------------------------------------------------------ load
     @classmethod
     def from_csv(cls, source: Union[str, bytes, Iterable[str]],
-                 schema: FeatureSchema, delim: str = ",") -> "Dataset":
+                 schema: FeatureSchema, delim: str = ",",
+                 keep_raw: bool = False) -> "Dataset":
         """Parse CSV lines (a path, a text blob, raw bytes, or an iterable
         of lines) into columns. Unknown values of a declared categorical
         raise. A string is a file path if such a file exists, otherwise
         content (which must contain a newline or the delimiter). Bytes are
         always content — the block reader (core/stream.py) hands file
-        blocks here."""
+        blocks here. keep_raw keeps each row's stripped tokens in
+        `raw_rows`."""
         if isinstance(source, (bytes, bytearray)):
             source = io.StringIO(bytes(source).decode())
         if isinstance(source, str):
@@ -62,11 +65,11 @@ class Dataset:
         finally:
             if hasattr(lines, "close") and lines is not source:
                 lines.close()
-        return cls.from_rows(rows, schema)
+        return cls.from_rows(rows, schema, keep_raw=keep_raw)
 
     @classmethod
-    def from_rows(cls, rows: List[List[str]], schema: FeatureSchema
-                  ) -> "Dataset":
+    def from_rows(cls, rows: List[List[str]], schema: FeatureSchema,
+                  keep_raw: bool = False) -> "Dataset":
         n = len(rows)
         columns: Dict[int, np.ndarray] = {}
         for fld in schema.fields:
@@ -88,7 +91,7 @@ class Dataset:
                 _discover_numeric_range(fld, columns[o])
             else:  # string / text / id: host-side object column
                 columns[o] = np.array(toks, dtype=object)
-        return cls(schema, columns, n)
+        return cls(schema, columns, n, raw_rows=rows if keep_raw else None)
 
     # ----------------------------------------------------------------- views
     def column(self, ordinal: int) -> np.ndarray:
@@ -110,6 +113,35 @@ class Dataset:
             index = cf.cardinality_index()
             return np.array([index[v] for v in col], dtype=np.int32)
         return col.astype(np.int32)
+
+    def feature_codes(self, fields: Optional[Sequence[FeatureField]] = None
+                      ) -> Tuple[np.ndarray, List[int]]:
+        """Dense per-feature states: (codes int32 [n, F], bins list[F]) over
+        the dense-encodable feature fields (categoricals and bucketized
+        numerics), in ordinal order. Numeric features without bucketWidth
+        are skipped: Naive Bayes takes them from feature_matrix()."""
+        if fields is None:
+            fields = [f for f in self.schema.feature_fields if f.num_bins() > 0]
+        cols, bins = [], []
+        for fld in fields:
+            nb = fld.num_bins()
+            if nb <= 0:
+                continue
+            col = self.column(fld.ordinal)
+            if fld.is_categorical:
+                cols.append(col.astype(np.int32, copy=False))
+            else:
+                if np.isnan(col).any():
+                    raise ValueError(
+                        f"missing value in bucketized numeric field {fld.name!r} "
+                        "(empty tokens cannot be dense-encoded)")
+                lo = fld.min if fld.min is not None else 0.0
+                code = np.floor((col - lo) / fld.bucket_width).astype(np.int32)
+                cols.append(np.clip(code, 0, nb - 1))
+            bins.append(nb)
+        codes = (np.stack(cols, axis=1) if cols
+                 else np.zeros((self.n_rows, 0), dtype=np.int32))
+        return codes, bins
 
     def feature_matrix(self, fields: Optional[Sequence[FeatureField]] = None
                        ) -> np.ndarray:

@@ -12,6 +12,7 @@ and adds stable integer encodings for categorical values.
 from __future__ import annotations
 
 import json
+import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -68,6 +69,35 @@ class FeatureField:
     def cardinality_index(self) -> Dict[str, int]:
         """Stable mapping categorical value -> int code (order of declaration)."""
         return {v: i for i, v in enumerate(self.cardinality)}
+
+    def num_bins(self) -> int:
+        """Number of discrete states this field takes after encoding.
+
+        Categorical: declared cardinality. Numeric with bucketWidth: number of
+        buckets across [min, max] (the reference bins continuous features the
+        same way when building count-based distributions). Other: 0 (not
+        encodable to a dense state).
+        """
+        if self.is_categorical:
+            return len(self.cardinality)
+        if self.is_numeric and self.bucket_width:
+            lo = self.min if self.min is not None else 0.0
+            hi = self.max
+            if hi is None:
+                raise ValueError(
+                    f"field {self.name!r}: bucketWidth set but no max bound"
+                )
+            return int(math.floor((hi - lo) / self.bucket_width)) + 1
+        return 0
+
+    def encode_value(self, raw: str) -> int:
+        """Encode one raw CSV token to its dense integer state."""
+        if self.is_categorical:
+            return self.cardinality_index()[raw]
+        if self.is_numeric and self.bucket_width:
+            lo = self.min if self.min is not None else 0.0
+            return int((float(raw) - lo) // self.bucket_width)
+        raise ValueError(f"field {self.name!r} is not dense-encodable")
 
     # ------------------------------------------------------------------- json
     @classmethod
@@ -222,6 +252,9 @@ class FeatureSchema:
     def class_values(self) -> List[str]:
         cf = self.class_field
         return list(cf.cardinality) if cf is not None else []
+
+    def num_classes(self) -> int:
+        return len(self.class_values())
 
     def __len__(self) -> int:
         return len(self.fields)

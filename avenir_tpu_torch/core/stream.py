@@ -46,11 +46,13 @@ def iter_byte_blocks(path: str, block_bytes: int = DEFAULT_BLOCK_BYTES
             yield carry
 
 
-def stream_job_inputs(cfg, inputs: Iterable[str], schema: FeatureSchema
-                      ) -> Iterator[Dataset]:
+def stream_job_inputs(cfg, inputs: Iterable[str], schema: FeatureSchema,
+                      keep_raw: bool = False) -> Iterator[Dataset]:
     """Dataset chunks of every input path, sized by the
-    `stream.block.size.mb` config key (default 64)."""
+    `stream.block.size.mb` config key (default 64); keep_raw keeps each
+    chunk's row tokens (`Dataset.raw_rows`) for jobs that echo the row."""
     block = int(cfg.get_float("stream.block.size.mb", 64.0) * (1 << 20))
     for path in inputs:
         for blk in iter_byte_blocks(path, block):
-            yield Dataset.from_csv(blk, schema, delim=cfg.field_delim_regex)
+            yield Dataset.from_csv(blk, schema, delim=cfg.field_delim_regex,
+                                   keep_raw=keep_raw)

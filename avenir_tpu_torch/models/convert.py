@@ -1,4 +1,5 @@
-"""Carry a KNN index and classifier built by the JAX package across.
+"""Carry models built by the JAX package across: a KNN index and
+classifier, and a Naive Bayes model.
 
 The JAX `NeighborIndex` and `NearestNeighborClassifier` hold their train
 state as arrays; saved as numpy (`t_num`, `t_cat`, `ranges`,
@@ -12,6 +13,10 @@ Two layouts arrive:
 - the kernel route (`use_pallas`): rows already normalized, one-hot
   expanded and padded (JAX knn.py:176-188).
 Both become a kernel-route index here where the kernels apply.
+
+A JAX `NaiveBayesModel` travels as its count arrays (`post_counts`,
+`cont_moments`, `class_counts`, and `cont_params` / `cont_prior_params`
+where it was loaded from a model file) with its class values and bins.
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from avenir_tpu_torch.core.schema import FeatureSchema
 from avenir_tpu_torch.models.knn import NearestNeighborClassifier, NeighborIndex
+from avenir_tpu_torch.models.naive_bayes import NaiveBayesModel
 from avenir_tpu_torch.utils.devices import DeviceLike, resolve_device
 
 
@@ -60,3 +67,29 @@ def classifier_from_jax_arrays(arrays: Dict[str, Optional[np.ndarray]],
     return NearestNeighborClassifier.from_index(
         index, np.asarray(arrays["train_labels"]), class_values,
         train_post=arrays.get("train_post"), **params)
+
+
+def nb_model_from_jax_arrays(arrays: Dict[str, Optional[np.ndarray]],
+                             schema: FeatureSchema,
+                             class_values: Sequence[str],
+                             bins: Sequence[int],
+                             device: DeviceLike = None) -> NaiveBayesModel:
+    """The port's NaiveBayesModel over a JAX model's arrays. `schema` is
+    the port's copy of the model's schema; its class values and bins must
+    be the JAX model's, or the count cells would mean other states."""
+    model = NaiveBayesModel.empty(schema, device)
+    if model.class_values != list(class_values) or model.bins != list(bins):
+        raise ValueError(
+            f"schema gives classes {model.class_values} and bins "
+            f"{model.bins}; the model has {list(class_values)} and "
+            f"{list(bins)}")
+    for name in ("post_counts", "cont_moments", "class_counts"):
+        value = np.asarray(arrays[name], np.float64)
+        if value.shape != getattr(model, name).shape:
+            raise ValueError(f"{name} has shape {value.shape}, the schema "
+                             f"gives {getattr(model, name).shape}")
+        setattr(model, name, value.copy())
+    for name in ("cont_params", "cont_prior_params"):
+        if arrays.get(name) is not None:
+            setattr(model, name, np.asarray(arrays[name], np.float64).copy())
+    return model

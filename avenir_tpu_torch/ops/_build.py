@@ -41,6 +41,8 @@ LIBRARIES = {
     "knn_classify": ("knn_classify.cu", "knn_classify_launch",
                      [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F,
                       _I, _I, _P, _P, _P, _P]),
+    "matmul_ceiling": ("matmul_ceiling.cu", "matmul_ceiling_launch",
+                       [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,10 +1,12 @@
 """Properties-driven job runner: the `hadoop jar` surface of the reference.
 
-The port of the job registry of `avenir_tpu/runner.py`, with the one job
-ported so far, `nearestNeighbor` (org.avenir.knn.NearestNeighbor). A job
-reads the reference's namespaced keys (`nen.*`) from one flat properties
-file and runs in-process on the device the caller names — ``cuda`` unless
-``device="cpu"`` is passed.
+The port of the job registry of `avenir_tpu/runner.py`, with the jobs
+ported so far: `nearestNeighbor` (org.avenir.knn.NearestNeighbor),
+`bayesianDistr` (org.avenir.bayesian.BayesianDistribution) and
+`bayesianPredictor` (org.avenir.bayesian.BayesianPredictor). A job reads
+the reference's namespaced keys (`nen.*`, `bad.*`, `bap.*`) from one flat
+properties file and runs in-process on the device the caller names —
+``cuda`` unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
@@ -90,6 +92,140 @@ def _out_file(output: str, part: str = "part-r-00000") -> str:
 
 def _schema(cfg: JobConfig) -> FeatureSchema:
     return FeatureSchema.from_file(cfg.assert_get("feature.schema.file.path"))
+
+
+# =================================================================== bayesian
+class _NBDistrFold:
+    """bayesianDistr (tabular) as a stream fold: each Dataset chunk's
+    counts are summed on the device (NaiveBayesModel.accumulate with
+    defer=True) and drained to the host once, at finish. The port of
+    `avenir_tpu/runner.py::_NBDistrFold`."""
+
+    def __init__(self, cfg: JobConfig, schema: FeatureSchema,
+                 device: torch.device):
+        self.cfg = cfg
+        self.schema = schema
+        self.device = device
+        self.model = None
+        self.rows = 0
+
+    def consume(self, ds: Dataset) -> None:
+        from avenir_tpu_torch.models.naive_bayes import NaiveBayesModel
+
+        if self.model is None:
+            # after the first parse, so data-discovered categorical
+            # vocabularies are sized into the count tensors
+            self.model = NaiveBayesModel.empty(self.schema, self.device)
+        codes, bins = ds.feature_codes(self.model.binned_fields)
+        if bins != self.model.bins:
+            raise ValueError(
+                "categorical vocabulary grew mid-stream (a chunk saw a "
+                "value absent from the first chunk / declared "
+                "cardinality); declare full cardinalities in the schema "
+                "to stream")
+        x_cont = ds.feature_matrix(self.model.cont_fields)
+        self.model.accumulate(codes, ds.labels(), x_cont, defer=True)
+        self.rows += len(ds)
+
+    def finish(self, output: str) -> JobResult:
+        from avenir_tpu_torch.models.naive_bayes import NaiveBayesModel
+
+        out = _out_file(output)
+        model = self.model
+        if model is None:
+            model = NaiveBayesModel.empty(self.schema, self.device)
+        model.save(out, delim=self.cfg.field_delim)
+        return JobResult("bayesianDistr",
+                         {"Distribution Data:Records": self.rows}, [out])
+
+    def merge(self, other: "_NBDistrFold") -> "_NBDistrFold":
+        """NB sufficient statistics are additive (NaiveBayesModel.merge),
+        so merging two folds equals folding both inputs."""
+        if other.model is not None:
+            if self.model is None:
+                self.model = other.model
+            else:
+                self.model.merge(other.model)
+        self.rows += other.rows
+        return self
+
+
+@job("bayesianDistr", "bad", "org.avenir.bayesian.BayesianDistribution")
+def bayesian_distribution(cfg: JobConfig, inputs: List[str], output: str,
+                          device: torch.device) -> JobResult:
+    """Naive Bayes sufficient statistics -> CSV model file and its stamp.
+    Input blocks stream through `stream_job_inputs` (host memory O(block),
+    `bad.stream.block.size.mb`); counts are additive, so the chunking
+    cannot change the model."""
+    from avenir_tpu_torch.core.stream import stream_job_inputs
+
+    if not cfg.get_bool("tabular.input", True):
+        raise NotImplementedError(
+            "bad.tabular.input=false (the free-text Naive Bayes of "
+            "models/text.py) is not ported yet")
+    schema = _schema(cfg)
+    fold = _NBDistrFold(cfg, schema, device)
+    for ds in stream_job_inputs(cfg, inputs, schema):
+        fold.consume(ds)
+    return fold.finish(output)
+
+
+@job("bayesianPredictor", "bap", "org.avenir.bayesian.BayesianPredictor")
+def bayesian_predictor(cfg: JobConfig, inputs: List[str], output: str,
+                       device: torch.device) -> JobResult:
+    """Map-only Naive Bayes prediction: each input row echoed with the
+    predicted class and its rounded percent. With
+    `bap.output.feature.prob.only=true` each row's id and P(features |
+    actual class) instead (BayesianPredictor.java:262-286); with
+    `bap.validation.mode=true` the confusion counters."""
+    from avenir_tpu_torch.core.stream import stream_job_inputs
+    from avenir_tpu_torch.models.naive_bayes import (NaiveBayesModel,
+                                                     NaiveBayesPredictor)
+
+    schema = _schema(cfg)
+    model = NaiveBayesModel.load(cfg.assert_get("bayesian.model.file.path"),
+                                 schema, delim=cfg.field_delim, device=device)
+    # cost-based arbitration (BayesianPredictor.java:140-144):
+    # bap.predict.class.cost = falseNegCost,falsePosCost with
+    # bap.predict.class = negClass,posClass (cardinality order fallback)
+    arbitrator = None
+    costs = cfg.get_list("predict.class.cost", delim=cfg.field_delim)
+    if costs:
+        classes = cfg.get_list("predict.class",
+                               delim=cfg.field_delim) or schema.class_values()
+        arbitrator = CostBasedArbitrator(classes[0], classes[1],
+                                         int(costs[0]), int(costs[1]))
+    pred = NaiveBayesPredictor(model, arbitrator=arbitrator)
+    prob_only = cfg.get_bool("output.feature.prob.only", False)
+    validate = cfg.get_bool("validation.mode", False)
+    delim = cfg.field_delim
+    out = _out_file(output)
+    cls_vals = schema.class_values()
+    # the confusion matrix is additive: it folds per chunk
+    cm: Optional[ConfusionMatrix] = None
+    with open(out, "w") as fh:
+        for ds in stream_job_inputs(cfg, inputs, schema, keep_raw=True):
+            if prob_only:
+                probs = pred.feature_prob(ds)
+                for rid, p in zip(ds.ids(), probs):
+                    fh.write(f"{rid}{delim}{p:.6g}\n")
+                continue
+            codes, post = pred.predict(ds)
+            for raw, c, row_post in zip(ds.raw_rows, codes, post):
+                # row_post is the reference's int-percent unnormalized
+                # posterior; normalized across classes for the appended
+                # confidence field
+                tot = float(np.sum(row_post)) or 1.0
+                prob = int(np.rint(100.0 * row_post[int(c)] / tot))
+                fh.write(delim.join(raw + [cls_vals[int(c)], str(prob)]) + "\n")
+            if validate:
+                if cm is None:
+                    pos = cfg.get("positive.class.value")
+                    cm = ConfusionMatrix(
+                        cls_vals, pos_class=cls_vals.index(pos) if pos else 1)
+                cm.add(ds.labels(), codes)
+    counters: Dict[str, float] = cm.counters() if cm is not None else {}
+    return JobResult("bayesianPredictor", counters, [out])
 
 
 # ======================================================================== knn

@@ -1,1 +1,1 @@
-"""Command-line tools of the port: `kernel_check` and `knn_sweep`."""
+"""Command-line tools of the port: `kernel_check`, `knn_sweep` and `bench`."""

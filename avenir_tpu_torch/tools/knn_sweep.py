@@ -66,6 +66,25 @@ def time_ms(fn: Callable[[], object], dev: torch.device, reps: int) -> float:
     return statistics.median(times)
 
 
+def classify_arms(q: torch.Tensor, t: torch.Tensor, labels: torch.Tensor
+                  ) -> Dict[str, Callable[[], torch.Tensor]]:
+    """The two classify arms (gaussian 30, C=2, bfloat16, euclidean), each
+    a call giving class scores [nq, 2]: "composed", the lane top-k then
+    `models.knn._vote`; "fused", `knn_classify_lanes`."""
+    def composed():
+        dist, idx = kk.knn_topk_lanes(q, t, K, "euclidean",
+                                      compute_dtype="bfloat16")
+        return _vote(dist, labels[idx.long().clamp(min=0)],
+                     torch.ones_like(dist), "gaussian", 30.0, 2)
+
+    def fused():
+        return kk.knn_classify_lanes(q, t, labels, K, 2, None, "gaussian",
+                                     30.0, "euclidean",
+                                     compute_dtype="bfloat16")
+
+    return {"composed": composed, "fused": fused}
+
+
 def run(dim: int = DIM, queries: int = QUERIES, train: int = TRAIN,
         device: DeviceLike = None, reps: int = 5, out=print
         ) -> List[Dict[str, object]]:
@@ -90,20 +109,10 @@ def run(dim: int = DIM, queries: int = QUERIES, train: int = TRAIN,
         out(f"{kernel} {dtype}: {ms:.3f} ms  {row['qps']:.3e} q/s  "
             f"{row['tflops']:.2f} TF/s  ({name})")
 
-    def composed():
-        dist, idx = kk.knn_topk_lanes(q, t, K, "euclidean",
-                                      compute_dtype="bfloat16")
-        return _vote(dist, labels[idx.long().clamp(min=0)],
-                     torch.ones_like(dist), "gaussian", 30.0, 2)
-
-    def fused():
-        return kk.knn_classify_lanes(q, t, labels, K, 2, None, "gaussian",
-                                     30.0, "euclidean",
-                                     compute_dtype="bfloat16")
-
-    agree = float((composed().argmax(1) == fused().argmax(1))
+    arms = classify_arms(q, t, labels)
+    agree = float((arms["composed"]().argmax(1) == arms["fused"]().argmax(1))
                   .float().mean())
-    for arm, fn in (("composed", composed), ("fused", fused)):
+    for arm, fn in arms.items():
         ms = time_ms(fn, dev, reps)
         rows.append(dict(classify=arm, ms=ms, qps=queries / ms * 1e3,
                          agreement=agree))

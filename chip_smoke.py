@@ -32,8 +32,24 @@ Phases, each printing a line per check; any failed check exits non-zero:
    manhattan bit-equal to float32. Then `avenir_tpu_torch.tools.knn_sweep`
    at its full width (8192 x 131072, D=128).
 
-Phases 4 and 5's sweep are the second path: each kernel's launches there
-are counted from zero, beside its launches on the job path. Then one JSON
+6. The Naive Bayes path: `bayesianDistr` through `runner.run_job` on a
+   seeded churn train CSV of 1,000,000 rows streamed in 4 MB blocks; the
+   model file and its stamp must be byte-identical to the same job's run
+   with device="cpu". Then `bayesianPredictor` on a 100,000-row churn test
+   CSV with validation and cost arbitration: accuracy above 70, the
+   predicted class equal to the CPU run's on every row, the appended
+   percent within 1 of it (float sums run in another order on the card).
+   NB has no TPU kernel: this path launches none.
+7. The bench path: `matmul_ceiling` against its plain version at 8192 x
+   131072 x 128, each row within 2^-16 sum_j |q̂_i . t̂_j| of the plain row
+   (fp32 accumulation in another order), and bit-equal across two runs;
+   its time, bound, plain and library (cuBLAS bf16 GEMM) times. Then
+   `avenir_tpu_torch.tools.bench` at full size, its JSON line printed on a
+   line of its own; the ceiling kernel and the two lane kernels must launch
+   there.
+
+Phases 4 and 5's sweep are the second path and phase 7's bench the third:
+each kernel's launches are counted from zero on each path. Then one JSON
 line of per-kernel numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -62,6 +78,11 @@ PEAKS = (("H100 PCIe", 51.2e12, 2.0e12, 756e12),
 #: the packed kernel's quantum: 12 masked mantissa bits, 2^-11 relative
 PACKED_QUANTUM = 2.0 ** -11
 CHECK_PATH = "kernel_check+knn_sweep"
+BENCH_PATH = "bench"
+#: phase 6: churn rows trained on and scored
+NB_TRAIN_ROWS, NB_TEST_ROWS = 1_000_000, 100_000
+#: phase 7: the bench's ceiling shape (bench.py:792-795)
+CEIL_NQ, CEIL_NT, CEIL_D = 8192, 131072, 128
 
 
 def fail(msg: str) -> None:
@@ -324,6 +345,22 @@ def _tied(q, t, gi, pd, mism, metric, rtol, atol, bf16=False,
     return bool(_within(true, ref, d, rtol, atol, floor).all())
 
 
+def _wrappers():
+    from avenir_tpu_torch.ops import knn_kernels as kk
+    from avenir_tpu_torch.ops import matmul_ceiling as mc
+
+    return kk.KERNEL_WRAPPERS + mc.KERNEL_WRAPPERS
+
+
+def _reset_launches() -> None:
+    for fn in _wrappers():
+        fn.launches = 0
+
+
+def _launch_counts():
+    return {fn.__name__: fn.launches for fn in _wrappers()}
+
+
 # ------------------------------------------------------------------ phase 3
 def phase_main_path():
     import torch
@@ -353,14 +390,14 @@ def phase_main_path():
     launches, preds = {}, {}     # launches: summed over the three runs
     for mode, extra, wrapper in modes:
         out = str(work / f"out_{mode}.txt")
-        kk.reset_launches()
+        _reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = run_job("nearestNeighbor", {**base, **extra}, [train, test], out,
                       device=DEVICE)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = {fn.__name__: fn.launches for fn in kk.KERNEL_WRAPPERS}
+        counts = _launch_counts()
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
         acc = res.counters["Validation:Accuracy"]
@@ -384,20 +421,13 @@ def phase_main_path():
 
 
 # ------------------------------------------------------------------ phase 4
-def _launch_counts():
-    from avenir_tpu_torch.ops import knn_kernels as kk
-
-    return {fn.__name__: fn.launches for fn in kk.KERNEL_WRAPPERS}
-
-
 def phase_kernel_check():
     """Every kernel_check case on the card; its launch counts."""
     import torch
 
-    from avenir_tpu_torch.ops import knn_kernels as kk
     from avenir_tpu_torch.tools import kernel_check
 
-    kk.reset_launches()
+    _reset_launches()
     t0 = time.perf_counter()
     results = kernel_check.run(DEVICE)
     torch.cuda.synchronize()
@@ -532,16 +562,148 @@ def phase_sweep():
     """The KNN sweep at its full width; its launch counts."""
     import torch
 
-    from avenir_tpu_torch.ops import knn_kernels as kk
     from avenir_tpu_torch.tools import knn_sweep
 
-    kk.reset_launches()
+    _reset_launches()
     t0 = time.perf_counter()
     knn_sweep.run(device=DEVICE)
     torch.cuda.synchronize()
     counts = _launch_counts()
     print(f"knn_sweep: {time.perf_counter() - t0:.1f}s, launches {counts}",
           flush=True)
+    return counts
+
+
+# ------------------------------------------------------------------ phase 6
+def phase_naive_bayes():
+    """bayesianDistr and bayesianPredictor on the card, each against the
+    same job with device="cpu"."""
+    import torch
+
+    from avenir_tpu_torch.data import churn_schema, generate_churn
+    from avenir_tpu_torch.runner import run_job
+
+    work = ROOT / "build" / "chip_smoke_nb"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    schema = str(work / "churn.json")
+    churn_schema().save(schema)
+    train, test = work / "train.csv", work / "test.csv"
+    t0 = time.perf_counter()
+    train.write_text(generate_churn(NB_TRAIN_ROWS, seed=201, as_csv=True))
+    test.write_text(generate_churn(NB_TEST_ROWS, seed=202, as_csv=True))
+    blocks = -(-train.stat().st_size // (4 << 20))
+    print(f"churn CSVs: {NB_TRAIN_ROWS} train rows ({blocks} blocks of 4 MB), "
+          f"{NB_TEST_ROWS} test rows, written in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    def timed(name, props, inputs, out, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_job(name, props, inputs, str(out), device=device)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    distr = {"bad.feature.schema.file.path": schema,
+             "bad.stream.block.size.mb": "4"}
+    models, secs = {}, {}
+    for dev in (DEVICE, "cpu"):
+        models[dev] = work / f"model_{dev}.csv"
+        res, secs[dev] = timed("bayesianDistr", distr, [str(train)],
+                               models[dev], dev)
+        check(res.counters["Distribution Data:Records"] == NB_TRAIN_ROWS,
+              f"bayesianDistr {dev}: {secs[dev]:.2f}s, {res.counters}")
+    same = all((work / f"model_{DEVICE}.csv{ext}").read_bytes()
+               == (work / f"model_cpu.csv{ext}").read_bytes()
+               for ext in ("", ".stamp.json"))
+    check(same, "bayesianDistr: model file and stamp byte-identical to the "
+          "CPU run's")
+    predict = {"bap.feature.schema.file.path": schema,
+               "bap.bayesian.model.file.path": str(models[DEVICE]),
+               "bap.validation.mode": "true",
+               "bap.positive.class.value": "closed",
+               "bap.predict.class.cost": "2,1",
+               "bap.predict.class": "open,closed"}
+    rows, psecs = {}, {}
+    for dev in (DEVICE, "cpu"):
+        out = work / f"pred_{dev}.txt"
+        res, psecs[dev] = timed("bayesianPredictor", predict, [str(test)],
+                                out, dev)
+        rows[dev] = [ln.rsplit(",", 2)[1:] for ln in
+                     out.read_text().splitlines()]
+        acc = res.counters["Validation:Accuracy"]
+        check(acc > 70 and len(rows[dev]) == NB_TEST_ROWS,
+              f"bayesianPredictor {dev}: {psecs[dev]:.2f}s, "
+              f"Validation:Accuracy {acc}, {len(rows[dev])} rows, "
+              f"{res.counters}")
+    classes = sum(a[0] == b[0] for a, b in zip(rows[DEVICE], rows["cpu"]))
+    pct = max(abs(int(a[1]) - int(b[1]))
+              for a, b in zip(rows[DEVICE], rows["cpu"]))
+    check(classes == NB_TEST_ROWS and pct <= 1,
+          f"bayesianPredictor: class equal to the CPU run's on {classes} of "
+          f"{NB_TEST_ROWS} rows, percent within {pct}")
+    shutil.rmtree(work)
+    return {"distr_s": secs[DEVICE], "distr_cpu_s": secs["cpu"],
+            "predict_s": psecs[DEVICE], "predict_cpu_s": psecs["cpu"]}
+
+
+# ------------------------------------------------------------------ phase 7
+def phase_ceiling(rate: float, bf16_flops: float):
+    """matmul_ceiling against its plain version at the bench's shape."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.ops import matmul_ceiling as mc
+
+    rng = np.random.default_rng(3)
+    q, t = (torch.from_numpy(rng.normal(size=(n, CEIL_D)).astype(np.float32))
+            .to(DEVICE) for n in (CEIL_NQ, CEIL_NT))
+    mc.matmul_ceiling_plain(q[:128], t[:128])       # warm the library
+    got = mc.matmul_ceiling(q, t)
+    again = mc.matmul_ceiling(q, t)
+    torch.cuda.synchronize()
+    ref, plain_ms = _timed_once(lambda: mc.matmul_ceiling_plain(q, t))
+    tol = 2.0 ** -16 * mc.row_abs_sums_plain(q, t)
+    err = (got - ref).abs()
+    ms = cuda_ms(lambda: mc.matmul_ceiling(q, t), 20)
+    qb, tb = q.to(torch.bfloat16), t.to(torch.bfloat16)
+    lib_ms = cuda_ms(lambda: torch.matmul(qb, tb.T).float().sum(1, keepdim=True),
+                     5)
+    flops = 2.0 * CEIL_NQ * CEIL_NT * CEIL_D
+    ops_ms = flops / bf16_flops * 1e3
+    bytes_ms = ((CEIL_NQ + CEIL_NT) * CEIL_D * 4 + CEIL_NQ * 4) / rate * 1e3
+    bound, bound_by = ((ops_ms, "operations") if ops_ms >= bytes_ms
+                       else (bytes_ms, "bytes"))
+    row = dict(name="matmul_ceiling", max_abs_err=err.max().item(),
+               max_err_over_tol=(err / tol).max().item(), ms=ms,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+               library_ms=lib_ms)
+    check(bool((err <= tol).all()) and torch.equal(got, again),
+          f"matmul_ceiling {CEIL_NQ}x{CEIL_NT}x{CEIL_D}: max|err| "
+          f"{row['max_abs_err']:.4g}, at most {row['max_err_over_tol']:.3g} "
+          f"of 2^-16 sum|q.t|, bit-equal rerun; {ms:.3f} ms "
+          f"({flops / ms / 1e9:.1f} TF/s, {bound / ms:.1%} of the bound "
+          f"{bound:.3f} ms, {bound_by}), plain {plain_ms:.1f} ms, "
+          f"cuBLAS bf16 matmul + sum {lib_ms:.3f} ms")
+    return row
+
+
+def phase_bench():
+    """The port-side bench at full size; its launch counts."""
+    import torch
+
+    from avenir_tpu_torch.tools import bench
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    line = []
+    bench.run(device=DEVICE, out=line.append)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    print(line[0], flush=True)
+    need = ("knn_topk_lanes", "knn_classify_lanes", "matmul_ceiling")
+    check(all(counts[n] >= 1 for n in need),
+          f"bench: {time.perf_counter() - t0:.1f}s, launches {counts}")
     return counts
 
 
@@ -568,8 +730,12 @@ def main() -> None:
     checks += phase_packed_bf16(flops, rate, bf16_flops, checks)
     sweep_counts = phase_sweep()
     path_counts = {n: check_counts[n] + sweep_counts[n] for n in check_counts}
-    check(min(path_counts.values()) >= 1,
-          f"{CHECK_PATH} launched every kernel: {path_counts}")
+    check(min(v for n, v in path_counts.items() if n != "matmul_ceiling") >= 1,
+          f"{CHECK_PATH} launched every KNN kernel: {path_counts}")
+    nb_secs = phase_naive_bayes()
+    ceiling = phase_ceiling(rate, bf16_flops)
+    bench_counts = phase_bench()
+    print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
 
     # each kernel's row at the shape of the path it is reported on: the
     # job's (manhattan, D=6) for the three it runs; the sweep's
@@ -590,7 +756,8 @@ def main() -> None:
                    and r.get("dtype", "float32") == "float32")
         src, line = sources[name]
         by_path = {"nearestNeighbor": launches[name],
-                   CHECK_PATH: path_counts[name]}
+                   CHECK_PATH: path_counts[name],
+                   BENCH_PATH: bench_counts[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"avenir_tpu_torch/ops/csrc/{src}",
@@ -601,6 +768,15 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    kernels.append({
+        "name": "matmul_ceiling", "route": "cuda",
+        "source": "avenir_tpu_torch/ops/csrc/matmul_ceiling.cu",
+        "replaces": "bench.py:797", "launches": bench_counts["matmul_ceiling"],
+        "launches_by_path": {"nearestNeighbor": launches["matmul_ceiling"],
+                             CHECK_PATH: path_counts["matmul_ceiling"],
+                             BENCH_PATH: bench_counts["matmul_ceiling"]},
+        **{k: ceiling[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

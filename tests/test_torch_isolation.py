@@ -48,6 +48,10 @@ def test_modules_list_covers_the_package():
     assert "avenir_tpu_torch.models.convert" in MODULES
     assert "avenir_tpu_torch.tools.kernel_check" in MODULES
     assert "avenir_tpu_torch.tools.knn_sweep" in MODULES
+    assert "avenir_tpu_torch.models.naive_bayes" in MODULES
+    assert "avenir_tpu_torch.models.artifact" in MODULES
+    assert "avenir_tpu_torch.ops.matmul_ceiling" in MODULES
+    assert "avenir_tpu_torch.tools.bench" in MODULES
 
 
 @pytest.mark.parametrize("entry", ["avenir_tpu_torch", "all", "chip_smoke"])

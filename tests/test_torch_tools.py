@@ -1,6 +1,7 @@
-"""The port's two tools on the CPU: `kernel_check` passes every case with
+"""The port's tools on the CPU: `kernel_check` passes every case with
 the plain versions and refuses to start without a device; `knn_sweep`
-covers every kernel in both dtypes and runs at a tiny size."""
+covers every kernel in both dtypes and runs at a tiny size; `bench` gives
+every section of its JSON line at a small size."""
 
 import json
 import subprocess
@@ -11,7 +12,8 @@ import pytest
 import torch
 
 from avenir_tpu_torch.ops import knn_kernels as kk
-from avenir_tpu_torch.tools import kernel_check, knn_sweep
+from avenir_tpu_torch.ops import matmul_ceiling as mc
+from avenir_tpu_torch.tools import bench, kernel_check, knn_sweep
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -122,3 +124,60 @@ def test_sweep_raises_without_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         knn_sweep.run(8, 32, 256)
+
+
+BENCH_SECTIONS = {"nb": {"rows", "train_rps", "predict_rps", "nb_rps"},
+                  "knn_d8": {"qps", "tflops"}, "knn_d128": {"qps", "tflops"},
+                  "fused_d8": {"fused_qps"}, "fused_d128": {"fused_qps"},
+                  "ceiling_d128": {"ms", "tflops", "kernel_quality"}}
+
+
+def test_bench_runs_every_section_on_cpu():
+    import math
+
+    lines = []
+    kk.reset_launches()
+    mc.reset_launches()
+    result = bench.run(device="cpu", nb_rows=20000, queries=512, train=4096,
+                       reps=1, out=lines.append)
+    assert json.loads(lines[-1]) == result
+    assert (result["metric"], result["device"], result["power_limit"]) == \
+        ("port_bench", "cpu", None)
+    assert set(result) == {"metric", "device", "power_limit", *BENCH_SECTIONS}
+    for section, keys in BENCH_SECTIONS.items():
+        # a CPU run states no share of the card's peak
+        assert set(result[section]) == keys, section
+        assert all(math.isfinite(v) and v > 0
+                   for v in result[section].values()), section
+    assert result["nb"]["rows"] == 20000
+    nb = result["nb"]
+    assert nb["nb_rps"] == pytest.approx(
+        1 / (1 / nb["train_rps"] + 1 / nb["predict_rps"]))
+    assert result["ceiling_d128"]["kernel_quality"] == pytest.approx(
+        result["knn_d128"]["tflops"] / result["ceiling_d128"]["tflops"])
+    assert [fn.launches for fn in kk.KERNEL_WRAPPERS + mc.KERNEL_WRAPPERS] \
+        == [0] * 5
+
+
+def test_bench_defaults_are_the_root_bench_configs():
+    assert (bench.NB_ROWS, bench.NB_BASE_ROWS, bench.NB_STEPS) == \
+        (1_000_000, 100_000, 8)
+    assert (bench.KNN_QUERIES, bench.KNN_TRAIN, bench.CEILING_DIM) == \
+        (8192, 131072, 128)
+    assert knn_sweep.K == 5
+
+
+def test_bench_main_prints_one_json_line(capsys):
+    assert bench.main(["--device", "cpu", "--nb-rows", "5000", "--queries",
+                       "128", "--train", "1024", "--reps", "1"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    assert json.loads(lines[0])["nb"]["rows"] == 5000
+
+
+def test_bench_raises_without_a_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.run(nb_rows=5000, queries=128, train=1024, reps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.main([])
