@@ -21,12 +21,12 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "avenir_tpu_torch"
 #: -split-compile=0 optimizes a source's kernels on every CPU at once: the
-#: 56 template instances otherwise build one after another
+#: partial kernel's template instances otherwise build one after another
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-split-compile=0"]
@@ -36,13 +36,21 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: c_void_p so ctypes never cuts them to 32 bits
 LIBRARIES = {
     "knn_topk": ("knn_topk.cu", "knn_topk_launch",
-                 [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                  _P, _P]),
+                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                  _P, _P, _P]),
     "knn_classify": ("knn_classify.cu", "knn_classify_launch",
-                     [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F,
-                      _I, _I, _P, _P, _P, _P]),
+                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                      _F, _I, _I, _P, _P, _P, _P]),
+    "knn_prepass": ("knn_prepass.cu", "knn_prepass_launch",
+                    [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P]),
     "matmul_ceiling": ("matmul_ceiling.cu", "matmul_ceiling_launch",
                        [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
+}
+#: library -> {further C entry: argtypes}: what a partial instance takes
+#: (blocks per SM, registers, local bytes)
+INFO = {
+    "knn_topk": {"knn_topk_partial_info": [_I, _I, _I, _I, _P]},
+    "knn_classify": {"knn_classify_partial_info": [_I, _I, _I, _P]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -56,30 +64,33 @@ def _nvcc() -> str:
     return found
 
 
-def build_dir() -> Path:
+def build_dir(csrc: Path = CSRC) -> Path:
     """Directory of this build: a hash of every source, header and flag."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.iterdir()):
+    for path in sorted(csrc.iterdir()):
         if path.suffix in (".cu", ".cuh"):
             h.update(path.name.encode())
             h.update(path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build_all() -> Dict[str, float]:
-    """Compile every library that is not built yet, one nvcc per source,
-    all started together. Returns {library: seconds} of the builds run.
-    Raises RuntimeError with the compiler's output if any build fails."""
-    out = build_dir()
+def build_all(csrc: Path = CSRC, names: Iterable[str] = LIBRARIES
+              ) -> Dict[str, float]:
+    """Compile every library of `names` (sources under `csrc`) that is not
+    built yet, one nvcc per source, all started together. Returns
+    {library: seconds} of the builds run. Raises RuntimeError with the
+    compiler's output if any build fails."""
+    out = build_dir(csrc)
     out.mkdir(parents=True, exist_ok=True)
     jobs: List[tuple] = []
-    for name, (src, _entry, _args) in LIBRARIES.items():
+    for name in names:
+        src = LIBRARIES[name][0]
         lib = out / f"lib{name}.so"
         if lib.exists():
             continue
         tmp = out / f".lib{name}.{os.getpid()}.so"
         log = open(out / f"{name}.log", "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / src)]
         jobs.append((name, lib, tmp, log, time.perf_counter(),
                      subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
     secs: Dict[str, float] = {}
@@ -100,9 +111,10 @@ def build_all() -> Dict[str, float]:
 def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     """Declare the argument and return types of a library's C entry."""
     _src, entry, args = LIBRARIES[name]
-    fn = getattr(lib, entry)
-    fn.argtypes = args
-    fn.restype = ctypes.c_int
+    for entry, args in {entry: args, **INFO.get(name, {})}.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
     return lib
 
 

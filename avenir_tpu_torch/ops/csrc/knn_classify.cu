@@ -38,7 +38,7 @@ __device__ __forceinline__ float kernel_score(float dist, int fn,
 }
 
 template <int K>
-__global__ void __launch_bounds__(knn::BQ)
+__global__ void __launch_bounds__(knn::THREADS)
 merge_vote_kernel(const int* __restrict__ part_key,
                   const int* __restrict__ part_idx, int nq, int splits, int k,
                   int label_mask, int n_classes, float inv_attrs, int euclid,
@@ -71,14 +71,14 @@ merge_vote_kernel(const int* __restrict__ part_key,
 }
 
 template <int K>
-cudaError_t run(bool euclid, int bf16, const float* q, const float* t,
-                const int* labels, int nq, int d, int n_valid, int k,
-                int label_mask, int n_classes, float inv_attrs, int kernel_fn,
-                float kernel_param, int splits, int rows_per_split,
-                int* part_key, int* part_idx, float* scores,
-                cudaStream_t stream) {
+cudaError_t run(bool euclid, const float* q, const float* t, const float* qn,
+                const float* tn, const int* labels, int nq, int d,
+                int n_valid, int k, int label_mask, int n_classes,
+                float inv_attrs, int kernel_fn, float kernel_param,
+                int splits, int rows_per_split, int* part_key, int* part_idx,
+                float* scores, cudaStream_t stream) {
   cudaError_t err = knn::launch_partial_metric<K, knn::LABELS>(
-      euclid, bf16, q, t, labels, nq, d, n_valid, splits, rows_per_split,
+      euclid, q, t, qn, tn, labels, nq, d, n_valid, splits, rows_per_split,
       label_mask, knn::SENTINEL, part_key, part_idx, stream);
   if (err != cudaSuccess) return err;
   int eu = euclid ? 1 : 0;
@@ -87,7 +87,8 @@ cudaError_t run(bool euclid, int bf16, const float* q, const float* t,
                   (void*)&n_classes, (void*)&inv_attrs, (void*)&eu,
                   (void*)&kernel_fn, (void*)&kernel_param, (void*)&scores};
   return cudaLaunchKernel(&merge_vote_kernel<K>,
-                          dim3((nq + knn::BQ - 1) / knn::BQ), dim3(knn::BQ),
+                          dim3((nq + knn::THREADS - 1) / knn::THREADS),
+                          dim3(knn::THREADS),
                           args, 0, stream);
 }
 
@@ -96,15 +97,17 @@ cudaError_t run(bool euclid, int bf16, const float* q, const float* t,
 extern "C" {
 
 // q [nq, d], t [nt, d] fp32 and labels [nt] int32 on the device; rows >=
-// n_valid of t are padding. scores [nq, n_classes] fp32 is overwritten.
-// kernel_fn: 0 none, 1 linearMultiplicative, 2 linearAdditive, 3 gaussian.
-// bf16=1 rounds the euclidean cross term's operands to bfloat16.
-// part_key/part_idx hold splits * nq * carry_width(k) ints each.
-// Returns cudaGetLastError().
-int knn_classify_launch(const float* q, const float* t, const int* labels,
-                        int nq, int d, int n_valid, int k, int euclid,
-                        int bf16, int label_bits, int n_classes,
-                        float inv_attrs, int kernel_fn, float kernel_param,
+// n_valid of t are padding. Euclidean takes the norms qn [nq] and tn
+// [n_valid] of knn_prepass.cu (null for manhattan), and for
+// compute_dtype="bfloat16" its rounded copies as q and t. scores [nq,
+// n_classes] fp32 is overwritten. kernel_fn: 0 none, 1
+// linearMultiplicative, 2 linearAdditive, 3 gaussian. part_key/part_idx
+// hold splits * nq * carry_width(k) ints each. Returns cudaGetLastError().
+int knn_classify_launch(const float* q, const float* t, const float* qn,
+                        const float* tn, const int* labels, int nq, int d,
+                        int n_valid, int k, int euclid, int label_bits,
+                        int n_classes, float inv_attrs, int kernel_fn,
+                        float kernel_param,
                         int splits, int rows_per_split, int* part_key,
                         int* part_idx, float* scores, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
@@ -112,22 +115,22 @@ int knn_classify_launch(const float* q, const float* t, const int* labels,
   cudaError_t err;
   switch (knn::carry_width(k)) {
     case 8:
-      err = run<8>(euclid, bf16, q, t, labels, nq, d, n_valid, k, mask,
+      err = run<8>(euclid, q, t, qn, tn, labels, nq, d, n_valid, k, mask,
                    n_classes, inv_attrs, kernel_fn, kernel_param, splits,
                    rows_per_split, part_key, part_idx, scores, s);
       break;
     case 16:
-      err = run<16>(euclid, bf16, q, t, labels, nq, d, n_valid, k, mask,
+      err = run<16>(euclid, q, t, qn, tn, labels, nq, d, n_valid, k, mask,
                     n_classes, inv_attrs, kernel_fn, kernel_param, splits,
                     rows_per_split, part_key, part_idx, scores, s);
       break;
     case 32:
-      err = run<32>(euclid, bf16, q, t, labels, nq, d, n_valid, k, mask,
+      err = run<32>(euclid, q, t, qn, tn, labels, nq, d, n_valid, k, mask,
                     n_classes, inv_attrs, kernel_fn, kernel_param, splits,
                     rows_per_split, part_key, part_idx, scores, s);
       break;
     case 64:
-      err = run<64>(euclid, bf16, q, t, labels, nq, d, n_valid, k, mask,
+      err = run<64>(euclid, q, t, qn, tn, labels, nq, d, n_valid, k, mask,
                     n_classes, inv_attrs, kernel_fn, kernel_param, splits,
                     rows_per_split, part_key, part_idx, scores, s);
       break;
@@ -136,6 +139,27 @@ int knn_classify_launch(const float* q, const float* t, const int* labels,
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// info[3] of the partial instance for (k, euclid) at d features:
+// blocks per SM, registers, local bytes (knn::partial_info).
+int knn_classify_partial_info(int k, int euclid, int d, int* info) {
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (knn::carry_width(k)) {
+    case 8:
+      err = knn::partial_info_metric<8, knn::LABELS>(euclid, d, info);
+      break;
+    case 16:
+      err = knn::partial_info_metric<16, knn::LABELS>(euclid, d, info);
+      break;
+    case 32:
+      err = knn::partial_info_metric<32, knn::LABELS>(euclid, d, info);
+      break;
+    case 64:
+      err = knn::partial_info_metric<64, knn::LABELS>(euclid, d, info);
+      break;
+  }
+  return (int)err;
 }
 
 }  // extern "C"

@@ -13,13 +13,12 @@
 // carry holds the column beside each key, so PACKED needs no column bits
 // in the key and no tile cap: it selects on (bits(d) & ~0xFFF, column).
 //
-// METRIC L2_BF16 is euclidean with the operands of the cross term q.t
-// rounded to bfloat16, nearest even, as the TPU kernels'
-// compute_dtype="bfloat16" does; products and sums stay fp32, and the
-// norms |q|^2 and |t|^2 come from the unrounded values, so each is taken
-// before its operand is rounded in shared memory. It is a template
-// argument, not a runtime flag, so the fp32 instances compile as if bf16
-// did not exist.
+// Euclidean reads the norms |q|^2 and |t|^2 from the pre-pass
+// (knn_prepass.cu), which takes them from the fp32 values. With
+// compute_dtype="bfloat16" the pre-pass also rounds q and t to bfloat16,
+// nearest even, as the TPU kernels' bf16 cross term does, and the partial
+// kernel runs on those copies with the same fp32 products and sums: one
+// instance serves both dtypes.
 //
 // Layout: one thread per query, BQ queries per block; blockIdx.y splits the
 // train axis so that a few thousand queries still fill 132 SMs. Each split
@@ -36,25 +35,20 @@
 // full-precision products).
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace knn {
 
-constexpr int BQ = 128;                 // queries per block, one per thread
-constexpr int TT = 32;                  // train rows per shared-memory tile
+constexpr int THREADS = 128;            // threads of a partial or merge block
+constexpr int TC = 4;                   // threads that share a query
+constexpr int TR = THREADS / TC;        // rows of threads, one query each
+constexpr int TPT = 8;                  // train rows a thread takes per tile
+constexpr int TT = TC * TPT;            // train rows per shared-memory tile
 constexpr int SENTINEL = 0x7F700000;    // empty packed slot (pallas_knn._SENTINEL)
 constexpr int INF_BITS = 0x7F800000;    // empty exact slot: +inf
 
 enum Mode { EXACT = 0, LANES = 1, LABELS = 2, PACKED = 3 };
-enum Metric { L1 = 0, L2 = 1, L2_BF16 = 2 };
-
-__device__ __forceinline__ float4 round_bf16(float4 v) {
-  return make_float4(__bfloat162float(__float2bfloat16_rn(v.x)),
-                     __bfloat162float(__float2bfloat16_rn(v.y)),
-                     __bfloat162float(__float2bfloat16_rn(v.z)),
-                     __bfloat162float(__float2bfloat16_rn(v.w)));
-}
+enum Metric { L1 = 0, L2 = 1 };
 
 // K smallest (key, column) pairs, ascending, in registers (K is a
 // compile-time constant, so every index below is static).
@@ -91,34 +85,138 @@ struct Carry {
   }
 };
 
-// Bytes of dynamic shared memory the partial kernel takes for D features.
-inline size_t partial_smem_bytes(int d) {
+// Queries each thread owns, a carry of 2K registers each: 4 at K=8, 2 at
+// K=16, 1 above; and the queries of a block, TR of them per thread slot.
+template <int K>
+__host__ __device__ constexpr int qpt() {
+  return K <= 8 ? 4 : K <= 16 ? 2 : 1;
+}
+template <int K>
+__host__ __device__ constexpr int block_queries() {
+  return TR * qpt<K>();
+}
+
+// float4s between staged rows: D/4 rounded up, one more where that is a
+// multiple of 4, so the rows that one phase of an LDS.128 reads (2
+// queries, or 4 consecutive train rows) fall on distinct bank groups.
+__host__ __device__ inline int row_stride4(int d) {
   const int d4 = (d + 3) / 4;
-  return sizeof(float4) * (size_t)d4 * (BQ + TT) + 2 * sizeof(int) * TT;
+  return d4 % 4 ? d4 : d4 + 1;
+}
+
+// Bytes of dynamic shared memory the partial kernel takes for D features:
+// the block's queries, one train tile, its norms and labels.
+template <int K>
+inline size_t partial_smem_bytes(int d) {
+  return sizeof(float4) * (size_t)row_stride4(d) * (block_queries<K>() + TT) +
+         2 * sizeof(int) * TT;
+}
+
+__device__ __forceinline__ bool before(int ka, int ia, int kb, int ib) {
+  return ka < kb || (ka == kb && ia < ib);
+}
+
+// The TC lanes that share a query (lanes 4r..4r+3 of a warp) hold carries
+// over disjoint column sets. Afterwards each holds the K smallest (key,
+// column) pairs of their union, ascending: the carry one thread would
+// have built over all the columns in order. Two butterfly rounds, each the
+// first step of a bitonic merge (the smaller of A[s] and the partner's
+// B[K-1-s]) and a bitonic sort of the result; every index is static.
+template <int K>
+__device__ __forceinline__ void merge_lanes(Carry<K>& c) {
+#pragma unroll
+  for (int m = 1; m < TC; m <<= 1) {
+#pragma unroll
+    for (int s = 0; s < K / 2; ++s) {
+      const int r = K - 1 - s;
+      const int bkr = __shfl_xor_sync(0xffffffffu, c.key[r], m);
+      const int bir = __shfl_xor_sync(0xffffffffu, c.idx[r], m);
+      const int bks = __shfl_xor_sync(0xffffffffu, c.key[s], m);
+      const int bis = __shfl_xor_sync(0xffffffffu, c.idx[s], m);
+      if (before(bkr, bir, c.key[s], c.idx[s])) {
+        c.key[s] = bkr;
+        c.idx[s] = bir;
+      }
+      if (before(bks, bis, c.key[r], c.idx[r])) {
+        c.key[r] = bks;
+        c.idx[r] = bis;
+      }
+    }
+#pragma unroll
+    for (int h = K / 2; h > 0; h >>= 1) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        if ((s & h) == 0 && before(c.key[s + h], c.idx[s + h], c.key[s],
+                                   c.idx[s])) {
+          const int tk = c.key[s], ti = c.idx[s];
+          c.key[s] = c.key[s + h];
+          c.idx[s] = c.idx[s + h];
+          c.key[s + h] = tk;
+          c.idx[s + h] = ti;
+        }
+      }
+    }
+  }
+}
+
+// The selection of one tile: each of the thread's QPT queries against its
+// TPT columns base + tc + TC*j, in ascending column order. CHECK masks
+// the columns at and past row_end; only a split's last tile needs it.
+template <bool CHECK, bool EUCLID, int MODE, int K, int QPT>
+__device__ __forceinline__ void select_tile(
+    Carry<K> (&best)[QPT], const float (&acc)[QPT][TPT],
+    const float (&qn)[QPT], const float* tn_s, const int* lab_s, int tc,
+    int base, int row_end, int pack_mask) {
+#pragma unroll
+  for (int j = 0; j < TPT; ++j) {
+    const int lr = tc + TC * j;
+    const int col = base + lr;
+    if (CHECK && col >= row_end) break;
+    const float tn = EUCLID ? tn_s[lr] : 0.f;
+    const int lab = MODE == LABELS ? lab_s[lr] : 0;
+#pragma unroll
+    for (int i = 0; i < QPT; ++i) {
+      float v = acc[i][j];
+      if (EUCLID) {
+        v = (qn[i] + tn) - 2.f * v;
+        v = v > 0.f ? v : 0.f;             // clamp, and -0 becomes +0
+      }
+      int key = __float_as_int(v);
+      if (MODE == LANES) key = (key & ~pack_mask) | (col >> 7);
+      if (MODE == LABELS) key = (key & ~pack_mask) | lab;
+      if (MODE == PACKED) key &= ~pack_mask;
+      if (key < best[i].worst()) best[i].insert(key, col);
+    }
+  }
 }
 
 // Per split (blockIdx.y) and query: the K smallest keys over train rows
 // [split*rows_per_split, min((split+1)*rows_per_split, n_valid)).
 // Outputs part_key/part_idx [splits][nq][K].
 template <int K, int METRIC, int MODE>
-__global__ void __launch_bounds__(BQ)
+__global__ void __launch_bounds__(THREADS)
 partial_topk_kernel(const float* __restrict__ q, const float* __restrict__ t,
+                    const float* __restrict__ qn_g,
+                    const float* __restrict__ tn_g,
                     const int* __restrict__ labels, int nq, int d,
                     int n_valid, int rows_per_split, int pack_mask,
                     int empty_key, int* __restrict__ part_key,
                     int* __restrict__ part_idx) {
-  constexpr bool EUCLID = METRIC != L1;
-  constexpr bool BF16 = METRIC == L2_BF16;
+  constexpr bool EUCLID = METRIC == L2;
+  constexpr int QPT = qpt<K>();
+  constexpr int BQK = block_queries<K>();
   extern __shared__ float4 smem[];
   const int d4 = (d + 3) / 4;
-  float4* q_s = smem;                                      // [d4][BQ]
-  float4* t_s = q_s + (size_t)d4 * BQ;                     // [TT][d4]
-  float* tn_s = reinterpret_cast<float*>(t_s + (size_t)TT * d4);  // [TT]
+  const int s4 = row_stride4(d);
+  float4* q_s = smem;                                      // [BQK][s4]
+  float4* t_s = q_s + (size_t)BQK * s4;                    // [TT][s4]
+  float* tn_s = reinterpret_cast<float*>(t_s + (size_t)TT * s4);  // [TT]
   int* lab_s = reinterpret_cast<int*>(tn_s + TT);          // [TT]
 
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const int qi = q0 + tid;
+  const int tc = tid % TC;
+  const int tr = tid / TC;
+  const int q0 = blockIdx.x * BQK;
   const int split = blockIdx.y;
   const int row0 = split * rows_per_split;
   const int row_end = min(row0 + rows_per_split, n_valid);
@@ -126,106 +224,96 @@ partial_topk_kernel(const float* __restrict__ q, const float* __restrict__ t,
   // stage this block's queries, features zero-padded to a multiple of 4
   // (a zero feature adds exactly 0 to both the L1 sum and the dot form)
   float* qf = reinterpret_cast<float*>(q_s);
-  for (int e = tid; e < d4 * 4 * BQ; e += BQ) {
-    const int c = e & 3;
-    const int r = (e >> 2) % BQ;
-    const int f = ((e >> 2) / BQ) * 4 + c;
+  const int dp = d4 * 4;
+  for (int e = tid; e < BQK * dp; e += THREADS) {
+    const int r = e / dp;
+    const int f = e - r * dp;
     const int row = q0 + r;
-    qf[e] = (f < d && row < nq) ? q[(size_t)row * d + f] : 0.f;
+    qf[r * s4 * 4 + f] = (f < d && row < nq) ? q[(size_t)row * d + f] : 0.f;
   }
-  __syncthreads();
-  // a thread reads only its own query's column of q_s from here on, so it
-  // may round that column in place once its norm is taken
-  float qn = 0.f;
-  if (EUCLID) {
-    for (int f4 = 0; f4 < d4; ++f4) {
-      const float4 a = q_s[f4 * BQ + tid];
-      qn = fmaf(a.x, a.x, qn);
-      qn = fmaf(a.y, a.y, qn);
-      qn = fmaf(a.z, a.z, qn);
-      qn = fmaf(a.w, a.w, qn);
-      if (BF16) q_s[f4 * BQ + tid] = round_bf16(a);
-    }
+  float qn[QPT];
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) {
+    const int qi = q0 + tr + TR * i;
+    qn[i] = EUCLID && qi < nq ? qn_g[qi] : 0.f;
   }
 
-  Carry<K> best;
-  best.init(empty_key);
+  Carry<K> best[QPT];
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) best[i].init(empty_key);
   float* tf = reinterpret_cast<float*>(t_s);
-  const int tile_floats = TT * d4 * 4;
   for (int base = row0; base < row_end; base += TT) {
     __syncthreads();                   // the previous tile is consumed
-    for (int e = tid; e < tile_floats; e += BQ) {
-      const int j = e / (d4 * 4);
-      const int f = e - j * (d4 * 4);
-      const int row = base + j;
-      tf[e] = (f < d && row < row_end) ? t[(size_t)row * d + f] : 0.f;
+    if ((d & 3) == 0) {                // rows are whole float4s
+      const float4* t4 = reinterpret_cast<const float4*>(t);
+      for (int e = tid; e < TT * d4; e += THREADS) {
+        const int j = e / d4;
+        const int f4 = e - j * d4;
+        if (base + j < row_end)
+          t_s[j * s4 + f4] = t4[(size_t)(base + j) * d4 + f4];
+      }
+    } else {
+      for (int e = tid; e < TT * dp; e += THREADS) {
+        const int j = e / dp;
+        const int f = e - j * dp;
+        const int row = base + j;
+        tf[j * s4 * 4 + f] =
+            (f < d && row < row_end) ? t[(size_t)row * d + f] : 0.f;
+      }
     }
     if (MODE == LABELS && tid < TT)
       lab_s[tid] = (base + tid < row_end) ? labels[base + tid] : 0;
+    if (EUCLID && tid < TT)
+      tn_s[tid] = (base + tid < row_end) ? tn_g[base + tid] : 0.f;
     __syncthreads();
-    if (EUCLID) {
-      if (tid < TT) {
-        float s = 0.f;
-        for (int f4 = 0; f4 < d4; ++f4) {
-          const float4 b = t_s[tid * d4 + f4];
-          s = fmaf(b.x, b.x, s);
-          s = fmaf(b.y, b.y, s);
-          s = fmaf(b.z, b.z, s);
-          s = fmaf(b.w, b.w, s);
-          if (BF16) t_s[tid * d4 + f4] = round_bf16(b);   // after its norm
-        }
-        tn_s[tid] = s;
-      }
-      __syncthreads();
-    }
 
-    float acc[TT];
+    float acc[QPT][TPT];
 #pragma unroll
-    for (int j = 0; j < TT; ++j) acc[j] = 0.f;
+    for (int i = 0; i < QPT; ++i)
+#pragma unroll
+      for (int j = 0; j < TPT; ++j) acc[i][j] = 0.f;
     for (int f4 = 0; f4 < d4; ++f4) {
-      const float4 a = q_s[f4 * BQ + tid];
+      float4 a[QPT];
 #pragma unroll
-      for (int j = 0; j < TT; ++j) {
-        const float4 b = t_s[j * d4 + f4];       // broadcast to the warp
-        if (EUCLID) {
-          acc[j] = fmaf(a.x, b.x, acc[j]);
-          acc[j] = fmaf(a.y, b.y, acc[j]);
-          acc[j] = fmaf(a.z, b.z, acc[j]);
-          acc[j] = fmaf(a.w, b.w, acc[j]);
-        } else {
-          // the TPU kernel's order: features 0..D-1 summed from 0.0
-          acc[j] = acc[j] + fabsf(a.x - b.x);
-          acc[j] = acc[j] + fabsf(a.y - b.y);
-          acc[j] = acc[j] + fabsf(a.z - b.z);
-          acc[j] = acc[j] + fabsf(a.w - b.w);
-        }
-      }
-    }
-    if (qi < nq) {
+      for (int i = 0; i < QPT; ++i) a[i] = q_s[(tr + TR * i) * s4 + f4];
 #pragma unroll
-      for (int j = 0; j < TT; ++j) {
-        const int col = base + j;
-        if (col < row_end) {
-          float v = acc[j];
+      for (int j = 0; j < TPT; ++j) {
+        const float4 b = t_s[(tc + TC * j) * s4 + f4];
+#pragma unroll
+        for (int i = 0; i < QPT; ++i) {
           if (EUCLID) {
-            v = (qn + tn_s[j]) - 2.f * v;
-            v = v > 0.f ? v : 0.f;             // clamp, and -0 becomes +0
+            acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+            acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+            acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+            acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+          } else {
+            // the TPU kernel's order: features 0..D-1 summed from 0.0
+            acc[i][j] = acc[i][j] + fabsf(a[i].x - b.x);
+            acc[i][j] = acc[i][j] + fabsf(a[i].y - b.y);
+            acc[i][j] = acc[i][j] + fabsf(a[i].z - b.z);
+            acc[i][j] = acc[i][j] + fabsf(a[i].w - b.w);
           }
-          int key = __float_as_int(v);
-          if (MODE == LANES) key = (key & ~pack_mask) | (col >> 7);
-          if (MODE == LABELS) key = (key & ~pack_mask) | lab_s[j];
-          if (MODE == PACKED) key &= ~pack_mask;
-          if (key < best.worst()) best.insert(key, col);
         }
       }
     }
+    if (base + TT <= row_end)
+      select_tile<false, EUCLID, MODE>(best, acc, qn, tn_s, lab_s, tc, base,
+                                       row_end, pack_mask);
+    else
+      select_tile<true, EUCLID, MODE>(best, acc, qn, tn_s, lab_s, tc, base,
+                                      row_end, pack_mask);
   }
-  if (qi < nq) {
-    const size_t o = ((size_t)split * nq + qi) * K;
 #pragma unroll
-    for (int s = 0; s < K; ++s) {
-      part_key[o + s] = best.key[s];
-      part_idx[o + s] = best.idx[s];
+  for (int i = 0; i < QPT; ++i) {
+    merge_lanes(best[i]);
+    const int qi = q0 + tr + TR * i;
+    if (tc == 0 && qi < nq) {
+      const size_t o = ((size_t)split * nq + qi) * K;
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        part_key[o + s] = best[i].key[s];
+        part_idx[o + s] = best[i].idx[s];
+      }
     }
   }
 }
@@ -250,43 +338,67 @@ __device__ __forceinline__ void merge_splits(const int* __restrict__ part_key,
 }
 
 template <int K, int METRIC, int MODE>
-cudaError_t launch_partial(const float* q, const float* t, const int* labels,
-                           int nq, int d, int n_valid, int splits,
-                           int rows_per_split, int pack_mask, int empty_key,
-                           int* part_key, int* part_idx, cudaStream_t stream) {
+cudaError_t launch_partial(const float* q, const float* t, const float* qn,
+                           const float* tn, const int* labels, int nq, int d,
+                           int n_valid, int splits, int rows_per_split,
+                           int pack_mask, int empty_key, int* part_key,
+                           int* part_idx, cudaStream_t stream) {
   auto* fn = &partial_topk_kernel<K, METRIC, MODE>;
-  const size_t smem = partial_smem_bytes(d);
+  const size_t smem = partial_smem_bytes<K>(d);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  void* args[] = {(void*)&q,        (void*)&t,          (void*)&labels,
-                  (void*)&nq,       (void*)&d,          (void*)&n_valid,
-                  (void*)&rows_per_split, (void*)&pack_mask,
-                  (void*)&empty_key, (void*)&part_key, (void*)&part_idx};
-  const dim3 grid((nq + BQ - 1) / BQ, splits);
-  return cudaLaunchKernel(fn, grid, dim3(BQ), args, smem, stream);
+  void* args[] = {(void*)&q,        (void*)&t,          (void*)&qn,
+                  (void*)&tn,       (void*)&labels,     (void*)&nq,
+                  (void*)&d,        (void*)&n_valid,    (void*)&rows_per_split,
+                  (void*)&pack_mask, (void*)&empty_key, (void*)&part_key,
+                  (void*)&part_idx};
+  const dim3 grid((nq + block_queries<K>() - 1) / block_queries<K>(), splits);
+  return cudaLaunchKernel(fn, grid, dim3(THREADS), args, smem, stream);
 }
 
-// bf16 applies to euclidean only: manhattan ignores the compute dtype.
+// euclid picks the metric; qn and tn are the pre-pass's norms (euclidean
+// only), q and t its bfloat16 copies for compute_dtype="bfloat16".
 template <int K, int MODE>
-cudaError_t launch_partial_metric(bool euclid, int bf16, const float* q,
-                                  const float* t, const int* labels, int nq,
-                                  int d, int n_valid, int splits,
-                                  int rows_per_split, int pack_mask,
-                                  int empty_key, int* part_key,
+cudaError_t launch_partial_metric(bool euclid, const float* q, const float* t,
+                                  const float* qn, const float* tn,
+                                  const int* labels, int nq, int d,
+                                  int n_valid, int splits, int rows_per_split,
+                                  int pack_mask, int empty_key, int* part_key,
                                   int* part_idx, cudaStream_t stream) {
-  if (euclid && bf16)
-    return launch_partial<K, L2_BF16, MODE>(q, t, labels, nq, d, n_valid,
-                                            splits, rows_per_split, pack_mask,
-                                            empty_key, part_key, part_idx,
-                                            stream);
   if (euclid)
-    return launch_partial<K, L2, MODE>(q, t, labels, nq, d, n_valid, splits,
-                                       rows_per_split, pack_mask, empty_key,
-                                       part_key, part_idx, stream);
-  return launch_partial<K, L1, MODE>(q, t, labels, nq, d, n_valid, splits,
-                                     rows_per_split, pack_mask, empty_key,
-                                     part_key, part_idx, stream);
+    return launch_partial<K, L2, MODE>(q, t, qn, tn, labels, nq, d, n_valid,
+                                       splits, rows_per_split, pack_mask,
+                                       empty_key, part_key, part_idx, stream);
+  return launch_partial<K, L1, MODE>(q, t, qn, tn, labels, nq, d, n_valid,
+                                     splits, rows_per_split, pack_mask,
+                                     empty_key, part_key, part_idx, stream);
+}
+
+// What one partial instance takes at D features: info[0] blocks that fit
+// on an SM (its registers and shared memory), info[1] registers a thread,
+// info[2] local-memory bytes a thread (spills; 0 when all is registers).
+template <int K, int METRIC, int MODE>
+cudaError_t partial_info(int d, int* info) {
+  auto* fn = &partial_topk_kernel<K, METRIC, MODE>;
+  const size_t smem = partial_smem_bytes<K>(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], fn, THREADS,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  info[1] = attr.numRegs;
+  info[2] = (int)attr.localSizeBytes;
+  return err;
+}
+
+template <int K, int MODE>
+cudaError_t partial_info_metric(bool euclid, int d, int* info) {
+  return euclid ? partial_info<K, L2, MODE>(d, info)
+                : partial_info<K, L1, MODE>(d, info);
 }
 
 // The carry width K a k takes: the smallest of 8, 16, 32, 64 that holds it

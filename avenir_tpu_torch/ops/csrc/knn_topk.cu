@@ -31,7 +31,7 @@
 namespace {
 
 template <int K>
-__global__ void __launch_bounds__(knn::BQ)
+__global__ void __launch_bounds__(knn::THREADS)
 merge_topk_kernel(const int* __restrict__ part_key,
                   const int* __restrict__ part_idx, int nq, int splits, int k,
                   int empty_key, int* __restrict__ out_key,
@@ -50,28 +50,28 @@ merge_topk_kernel(const int* __restrict__ part_key,
 }
 
 template <int K>
-cudaError_t run(bool euclid, int mode, int bf16, const float* q,
-                const float* t, int nq, int d, int n_valid, int k,
-                int pack_mask, int splits, int rows_per_split, int* part_key,
-                int* part_idx, int* out_key, int* out_idx,
+cudaError_t run(bool euclid, int mode, const float* q, const float* t,
+                const float* qn, const float* tn, int nq, int d, int n_valid,
+                int k, int pack_mask, int splits, int rows_per_split,
+                int* part_key, int* part_idx, int* out_key, int* out_idx,
                 cudaStream_t stream) {
   int empty = knn::INF_BITS;
   cudaError_t err;
   switch (mode) {
     case knn::EXACT:
       err = knn::launch_partial_metric<K, knn::EXACT>(
-          euclid, bf16, q, t, nullptr, nq, d, n_valid, splits,
+          euclid, q, t, qn, tn, nullptr, nq, d, n_valid, splits,
           rows_per_split, 0, empty, part_key, part_idx, stream);
       break;
     case knn::LANES:
       empty = knn::SENTINEL;
       err = knn::launch_partial_metric<K, knn::LANES>(
-          euclid, bf16, q, t, nullptr, nq, d, n_valid, splits,
+          euclid, q, t, qn, tn, nullptr, nq, d, n_valid, splits,
           rows_per_split, pack_mask, empty, part_key, part_idx, stream);
       break;
     case knn::PACKED:
       err = knn::launch_partial_metric<K, knn::PACKED>(
-          euclid, bf16, q, t, nullptr, nq, d, n_valid, splits,
+          euclid, q, t, qn, tn, nullptr, nq, d, n_valid, splits,
           rows_per_split, pack_mask, empty, part_key, part_idx, stream);
       break;
     default:
@@ -82,7 +82,8 @@ cudaError_t run(bool euclid, int mode, int bf16, const float* q,
                   (void*)&splits,   (void*)&k,        (void*)&empty,
                   (void*)&out_key,  (void*)&out_idx};
   return cudaLaunchKernel(&merge_topk_kernel<K>,
-                          dim3((nq + knn::BQ - 1) / knn::BQ), dim3(knn::BQ),
+                          dim3((nq + knn::THREADS - 1) / knn::THREADS),
+                          dim3(knn::THREADS),
                           args, 0, stream);
 }
 
@@ -91,37 +92,40 @@ cudaError_t run(bool euclid, int mode, int bf16, const float* q,
 extern "C" {
 
 // q [nq, d] and t [nt, d] fp32 row-major on the device; rows >= n_valid of t
-// are padding and never read. mode (knn::Mode) 0 exact: out_key = bits of
-// the raw distance (squared for euclidean); 1 lanes, 3 packed: out_key =
-// the packed key, with pack_bits low bits masked. bf16=1 rounds the
-// euclidean cross term's operands to bfloat16. out_idx is the train row,
-// -1 for an empty slot. part_key/part_idx hold splits * nq *
-// carry_width(k) ints each. Returns cudaGetLastError().
-int knn_topk_launch(const float* q, const float* t, int nq, int d,
-                    int n_valid, int k, int euclid, int mode, int pack_bits,
-                    int bf16, int splits, int rows_per_split, int* part_key,
-                    int* part_idx, int* out_key, int* out_idx, void* stream) {
+// are padding and never read. Euclidean takes the norms qn [nq] and tn
+// [n_valid] of knn_prepass.cu (null for manhattan), and for
+// compute_dtype="bfloat16" its rounded copies as q and t. mode (knn::Mode)
+// 0 exact: out_key = bits of the raw distance (squared for euclidean);
+// 1 lanes, 3 packed: out_key = the packed key, with pack_bits low bits
+// masked. out_idx is the train row, -1 for an empty slot.
+// part_key/part_idx hold splits * nq * carry_width(k) ints each. Returns
+// cudaGetLastError().
+int knn_topk_launch(const float* q, const float* t, const float* qn,
+                    const float* tn, int nq, int d, int n_valid, int k,
+                    int euclid, int mode, int pack_bits, int splits,
+                    int rows_per_split, int* part_key, int* part_idx,
+                    int* out_key, int* out_idx, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int pack_mask = mode == knn::EXACT ? 0 : (1 << pack_bits) - 1;
   cudaError_t err;
   switch (knn::carry_width(k)) {
     case 8:
-      err = run<8>(euclid, mode, bf16, q, t, nq, d, n_valid, k, pack_mask,
+      err = run<8>(euclid, mode, q, t, qn, tn, nq, d, n_valid, k, pack_mask,
                    splits, rows_per_split, part_key, part_idx, out_key,
                    out_idx, s);
       break;
     case 16:
-      err = run<16>(euclid, mode, bf16, q, t, nq, d, n_valid, k, pack_mask,
+      err = run<16>(euclid, mode, q, t, qn, tn, nq, d, n_valid, k, pack_mask,
                     splits, rows_per_split, part_key, part_idx, out_key,
                     out_idx, s);
       break;
     case 32:
-      err = run<32>(euclid, mode, bf16, q, t, nq, d, n_valid, k, pack_mask,
+      err = run<32>(euclid, mode, q, t, qn, tn, nq, d, n_valid, k, pack_mask,
                     splits, rows_per_split, part_key, part_idx, out_key,
                     out_idx, s);
       break;
     case 64:
-      err = run<64>(euclid, mode, bf16, q, t, nq, d, n_valid, k, pack_mask,
+      err = run<64>(euclid, mode, q, t, qn, tn, nq, d, n_valid, k, pack_mask,
                     splits, rows_per_split, part_key, part_idx, out_key,
                     out_idx, s);
       break;
@@ -130,6 +134,24 @@ int knn_topk_launch(const float* q, const float* t, int nq, int d,
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// info[3] of the partial instance for (k, euclid, mode) at d
+// features: blocks per SM, registers, local bytes (knn::partial_info).
+int knn_topk_partial_info(int k, int euclid, int mode, int d, int* info) {
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (knn::carry_width(k) * 4 + mode) {
+#define KNN_INFO(KW, M)                                                   \
+  case KW * 4 + M:                                                        \
+    err = knn::partial_info_metric<KW, M>(euclid, d, info);              \
+    break;
+    KNN_INFO(8, knn::EXACT) KNN_INFO(8, knn::LANES) KNN_INFO(8, knn::PACKED)
+    KNN_INFO(16, knn::EXACT) KNN_INFO(16, knn::LANES) KNN_INFO(16, knn::PACKED)
+    KNN_INFO(32, knn::EXACT) KNN_INFO(32, knn::LANES) KNN_INFO(32, knn::PACKED)
+    KNN_INFO(64, knn::EXACT) KNN_INFO(64, knn::LANES) KNN_INFO(64, knn::PACKED)
+#undef KNN_INFO
+  }
+  return (int)err;
 }
 
 }  // extern "C"

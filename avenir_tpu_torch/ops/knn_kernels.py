@@ -30,6 +30,8 @@ accumulation.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -47,12 +49,42 @@ PACK_BITS = 12                  # packed kernel's masked bits (pallas _PACK_BITS
 #: knn_tile.cuh Mode of each top-k selection
 MODES = {"exact": 0, "lanes": 1, "labels": 2, "packed": 3}
 COMPUTE_DTYPES = ("float32", "bfloat16")
-#: knn_tile.cuh: queries per block, train rows per tile, shared memory cap
-BQ, TT, SMEM_LIMIT = 128, 32, 232448
-#: most features the partial kernel stages in shared memory
-MAX_D = 4 * ((SMEM_LIMIT - 8 * TT) // (16 * (BQ + TT)))
+#: knn_tile.cuh: threads a block, train rows a tile, shared memory cap
+THREADS, TT, SMEM_LIMIT = 128, 32, 232448
+
+
+def _block_queries(k: int) -> int:
+    """Queries of a partial block at carry width k (knn_tile.cuh
+    block_queries): 32 rows of threads, each owning 4, 2 or 1 queries."""
+    return 32 * (4 if k <= 8 else 2 if k <= 16 else 1)
+
+
+def _row_stride4(d: int) -> int:
+    """float4s between staged rows (knn_tile.cuh row_stride4)."""
+    d4 = (d + 3) // 4
+    return d4 if d4 % 4 else d4 + 1
+
+
+def _smem_bytes(d: int, k: int) -> int:
+    """Dynamic shared memory of a partial block (knn_tile.cuh
+    partial_smem_bytes): its queries and one train tile at the padded
+    row stride, and the tile's norms and labels."""
+    return 16 * _row_stride4(d) * (_block_queries(k) + TT) + 8 * TT
+
+
+#: queries of the widest block (k <= 8)
+BQ = _block_queries(8)
+#: most features the partial kernel stages in shared memory: every D up
+#: to it fits at every carry width
+MAX_D = next(d for d in range(1, 4096)
+             if any(_smem_bytes(d + 1, k) > SMEM_LIMIT for k in (8, 16, 32, 64)))
 KERNEL_FNS = ("none", "linearMultiplicative", "linearAdditive", "gaussian")
 PLAIN_BLOCK = 4096
+#: fewest train rows a split takes when there are that many
+MIN_SPLIT_ROWS = 256
+#: a block's fixed work (staging its queries, writing its carries, the
+#: merge reading them) counted as train rows scanned
+SPLIT_COST_ROWS = 64
 
 
 def lane_pack_bits(nt: int) -> int:
@@ -188,6 +220,39 @@ def _round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def _fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf(a, b, c) of float32 tensors, rounded once as the card's fmaf
+    rounds: a*b is exact in float64; hi + lo = a*b + c exactly (TwoSum);
+    rounding hi to float32 is right unless hi lies exactly halfway between
+    two float32 values, where the sign of lo picks the side."""
+    p = a.double() * b.double()
+    c64 = c.double()
+    hi = p + c64
+    bb = hi - p
+    lo = (p - (hi - bb)) + (c64 - bb)
+    r = hi.float()
+    other = torch.nextafter(r, torch.where(hi > r.double(), float("inf"),
+                                           float("-inf")).float())
+    mid = hi == (r.double() + other.double()) / 2
+    up = lo > 0
+    pick_other = mid & (lo != 0) & ((other > r) == up)
+    return torch.where(pick_other, other, r)
+
+
+def knn_prepass_plain(q: torch.Tensor, t: torch.Tensor, bf16: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """The plain version of knn_prepass: the same fmaf chains, bit for
+    bit, and _round_bf16."""
+    out = []
+    for x in (q, t):
+        s = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+        for f in range(x.shape[1]):
+            s = _fmaf(x[:, f], x[:, f], s)
+        out.append(s)
+    return (*out, *((_round_bf16(q), _round_bf16(t)) if bf16 else (q, t)))
+
+
 def _tile_plain(q: torch.Tensor, tb: torch.Tensor, metric: str,
                 qn: Optional[torch.Tensor], bf16: bool = False
                 ) -> torch.Tensor:
@@ -287,16 +352,35 @@ def knn_classify_lanes_plain(q, t, t_labels, k=8, n_classes=2, n_attrs=None,
 
 
 # ---------------------------------------------------------------- launches
-def _splits(nq: int, n_valid: int, sms: int) -> Tuple[int, int]:
-    """(splits, rows_per_split) of the train axis: about 8 blocks per SM,
-    at least 256 train rows per split."""
+@functools.lru_cache(maxsize=256)
+def _splits(nq: int, n_valid: int, sms: int, blocks_per_sm: int,
+            stage: int = TT, bq: int = BQ) -> Tuple[int, int]:
+    """(splits, rows_per_split) of the train axis for a grid of
+    ceil(nq / bq) x splits blocks, blocks_per_sm of which run at once on
+    each of sms SMs. Picks the split count whose grid, run in whole waves
+    of sms * blocks_per_sm blocks, ends soonest: waves x (rows_per_split +
+    SPLIT_COST_ROWS) smallest, the fewer splits on a tie. rows_per_split
+    is a multiple of `stage` and at least MIN_SPLIT_ROWS where n_valid
+    allows."""
     if n_valid == 0:
-        return 1, TT
-    blocks_x = (nq + BQ - 1) // BQ
-    splits = max(1, min(math.ceil(8 * sms / blocks_x),
-                        math.ceil(n_valid / 256)))
-    rows = math.ceil(math.ceil(n_valid / splits) / TT) * TT
-    return math.ceil(n_valid / rows), rows
+        return 1, stage
+    blocks_x = (nq + bq - 1) // bq
+    slots = max(1, sms * blocks_per_sm)
+    best = None
+    for want in range(1, max(1, n_valid // MIN_SPLIT_ROWS) + 1):
+        rows = math.ceil(math.ceil(n_valid / want) / stage) * stage
+        splits = math.ceil(n_valid / rows)
+        cost = math.ceil(blocks_x * splits / slots) * (rows + SPLIT_COST_ROWS)
+        if best is None or cost < best[0]:
+            best = (cost, splits, rows)
+    return best[1], best[2]
+
+
+def _waves(nq: int, splits: int, sms: int, blocks_per_sm: int,
+           bq: int = BQ) -> float:
+    """Waves of a grid of ceil(nq / bq) x splits blocks (a fraction: the
+    last wave's share of its slots is after the point)."""
+    return (nq + bq - 1) // bq * splits / max(1, sms * blocks_per_sm)
 
 
 def _carry_width(k: int) -> int:
@@ -317,40 +401,107 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _launch_topk(lib, q, t, k, euclid, mode, pack_bits, bf16, n_valid, sms,
-                 stream) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of knn_topk.cu; buffers on q's device."""
+_INFO: dict = {}
+
+
+def partial_info(k: int, euclid: bool, mode: str, d: int
+                 ) -> Tuple[int, int, int]:
+    """(blocks per SM, registers a thread, local bytes a thread) of the
+    partial instance a CUDA launch of `mode` takes at d features, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor and cudaFuncGetAttributes
+    on the current device (cached per instance and d). Both compute
+    dtypes run the same instance."""
+    lib_name = "knn_classify" if mode == "labels" else "knn_topk"
+    key = (lib_name, _carry_width(k), euclid, mode, d)
+    if key not in _INFO:
+        lib = _build.load(lib_name)
+        info = (ctypes.c_int * 3)()
+        if mode == "labels":
+            err = lib.knn_classify_partial_info(k, int(euclid), d, info)
+        else:
+            err = lib.knn_topk_partial_info(k, int(euclid), MODES[mode], d,
+                                            info)
+        _raise_on(err, f"{lib_name} partial_info")
+        _INFO[key] = tuple(info)
+    return _INFO[key]
+
+
+def launch_plan(q: torch.Tensor, t: torch.Tensor, k: int, metric: str,
+                mode: str, n_valid: Optional[int] = None) -> dict:
+    """The grid a CUDA launch of `mode` ("exact", "lanes", "packed" or
+    "labels") takes on these tensors: blocks per SM, splits,
+    rows_per_split, grid blocks and waves."""
+    nv = _check(q, t, k, metric, n_valid)
+    with torch.cuda.device(q.device):
+        per_sm = partial_info(k, metric == "euclidean", mode, q.shape[1])[0]
+        sms = _sm_count(q.device)
+    bq = _block_queries(k)
+    splits, rows = _splits(q.shape[0], nv, sms, per_sm, bq=bq)
+    return {"blocks_per_sm": per_sm, "splits": splits, "rows_per_split": rows,
+            "grid": (q.shape[0] + bq - 1) // bq * splits,
+            "waves": _waves(q.shape[0], splits, sms, per_sm, bq)}
+
+
+def _operands(q, t, euclid: bool, bf16: bool, n_valid: int):
+    """(q, t, qn, tn) as the partial kernel takes them: euclidean runs the
+    pre-pass over q and the first n_valid rows of t for their norms and,
+    with bf16, their rounded copies; manhattan takes q and t as they are
+    and no norms."""
+    if t.data_ptr() % 16:              # the kernel loads rows as float4s
+        t = t.clone()
+    if not euclid:
+        return q, t, None, None
+    qn, tn, qx, tx = knn_prepass(q, t[:n_valid], bf16)
+    return qx, tx, qn, tn
+
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def _topk_keys(mode, q, t, k, euclid, bf16, n_valid
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The raw (key, index) [nq, k] of `mode` from the CUDA kernels: the
+    pre-pass where euclidean, then knn_topk.cu; buffers on q's device."""
     nq, d = q.shape
-    splits, rows = _splits(nq, n_valid, sms)
+    bits = _key_spec(mode, t)[0]
+    qx, tx, qn, tn = _operands(q, t, euclid, bf16, n_valid)
+    splits, rows = _splits(nq, n_valid, _sm_count(q.device),
+                           partial_info(k, euclid, mode, d)[0],
+                           bq=_block_queries(k))
     part_k = torch.empty(splits * nq * _carry_width(k), dtype=torch.int32,
                          device=q.device)
     part_i = torch.empty_like(part_k)
     out_k = torch.empty((nq, k), dtype=torch.int32, device=q.device)
     out_i = torch.empty_like(out_k)
-    _raise_on(lib.knn_topk_launch(
-        q.data_ptr(), t.data_ptr(), nq, d, n_valid, k, int(euclid),
-        MODES[mode], pack_bits, int(bf16), splits, rows, part_k.data_ptr(),
-        part_i.data_ptr(), out_k.data_ptr(), out_i.data_ptr(), stream),
-        f"knn_topk ({mode})")
+    _raise_on(_build.load("knn_topk").knn_topk_launch(
+        qx.data_ptr(), tx.data_ptr(), _ptr(qn), _ptr(tn), nq, d, n_valid, k,
+        int(euclid), MODES[mode], bits, splits, rows, part_k.data_ptr(),
+        part_i.data_ptr(), out_k.data_ptr(), out_i.data_ptr(),
+        _stream(q.device)), f"knn_topk ({mode})")
     return out_k, out_i
 
 
-def _launch_classify(lib, q, t, t_labels, k, euclid, bf16, n_classes,
-                     n_attrs, kernel_fn, kernel_param, n_valid, sms, stream
-                     ) -> torch.Tensor:
-    """One launch of knn_classify.cu; buffers on q's device."""
+def _classify_scores(q, t, t_labels, k, euclid, bf16, n_classes, n_attrs,
+                     kernel_fn, kernel_param, n_valid) -> torch.Tensor:
+    """The vote's scores [nq, n_classes] from the CUDA kernels: the
+    pre-pass where euclidean, then knn_classify.cu; buffers on q's
+    device."""
     nq, d = q.shape
-    splits, rows = _splits(nq, n_valid, sms)
+    qx, tx, qn, tn = _operands(q, t, euclid, bf16, n_valid)
+    splits, rows = _splits(nq, n_valid, _sm_count(q.device),
+                           partial_info(k, euclid, "labels", d)[0],
+                           bq=_block_queries(k))
     part_k = torch.empty(splits * nq * _carry_width(k), dtype=torch.int32,
                          device=q.device)
     part_i = torch.empty_like(part_k)
     scores = torch.empty((nq, n_classes), dtype=torch.float32, device=q.device)
-    _raise_on(lib.knn_classify_launch(
-        q.data_ptr(), t.data_ptr(), t_labels.data_ptr(), nq, d, n_valid, k,
-        int(euclid), int(bf16), label_bits(n_classes), n_classes,
+    _raise_on(_build.load("knn_classify").knn_classify_launch(
+        qx.data_ptr(), tx.data_ptr(), _ptr(qn), _ptr(tn), t_labels.data_ptr(),
+        nq, d, n_valid, k, int(euclid), label_bits(n_classes), n_classes,
         1.0 / max(n_attrs, 1), KERNEL_FNS.index(kernel_fn),
         float(kernel_param), splits, rows, part_k.data_ptr(),
-        part_i.data_ptr(), scores.data_ptr(), stream),
+        part_i.data_ptr(), scores.data_ptr(), _stream(q.device)),
         "knn_classify_lanes")
     return scores
 
@@ -358,22 +509,50 @@ def _launch_classify(lib, q, t, t_labels, k, euclid, bf16, n_classes,
 def _topk(wrapper, mode, q, t, k, metric, n_valid, n_attrs, compute_dtype
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The top-k of `mode`: the plain version for CPU tensors, else one
-    launch of knn_topk.cu, counted on `wrapper`."""
+    launch of knn_topk.cu (after the pre-pass where euclidean), counted on
+    `wrapper`."""
     if not q.is_cuda:
         return _topk_plain(mode, q, t, k, metric, n_valid, n_attrs,
                            compute_dtype)
     nv = _check(q, t, k, metric, n_valid)
     bf16 = _bf16(compute_dtype, metric)
-    bits, mask, empty = _key_spec(mode, t)
+    _, mask, empty = _key_spec(mode, t)
     na = q.shape[1] if n_attrs is None else n_attrs
     if q.shape[0] == 0:
         return _finish(*_empty(q, k), metric, na, mask, empty)
     with torch.cuda.device(q.device):
-        key, idx = _launch_topk(_build.load("knn_topk"), q, t, k,
-                                metric == "euclidean", mode, bits, bf16, nv,
-                                _sm_count(q.device), _stream(q.device))
+        key, idx = _topk_keys(mode, q, t, k, metric == "euclidean", bf16, nv)
     wrapper.launches += 1
     return _finish(key, idx, metric, na, mask, empty)
+
+
+def knn_prepass(q: torch.Tensor, t: torch.Tensor, bf16: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """(|q|^2 [nq], |t|^2 [nt], q', t') of the euclidean kernels: each
+    norm an fmaf chain over the features in order from 0.0, of the fp32
+    values; q', t' the operands rounded to bfloat16 (nearest even, kept
+    as float32) when bf16, else q and t themselves. Part of the port of
+    the euclidean Pallas kernels (pallas_knn.py:54-70), which take the
+    norms and round the operands inside each tile; one launch of
+    knn_prepass.cu over both, or the plain version for CPU tensors."""
+    if not q.is_cuda:
+        return knn_prepass_plain(q, t, bf16)
+    if q.device != t.device or q.shape[1] != t.shape[1]:
+        raise ValueError("q and t must share a device and a feature count")
+    q, t = q.contiguous(), t.contiguous()
+    (nq, d), nt = q.shape, t.shape[0]
+    qn = torch.empty(nq, dtype=torch.float32, device=q.device)
+    tn = torch.empty(nt, dtype=torch.float32, device=q.device)
+    qx = torch.empty_like(q) if bf16 else q
+    tx = torch.empty_like(t) if bf16 else t
+    with torch.cuda.device(q.device):
+        _raise_on(_build.load("knn_prepass").knn_prepass_launch(
+            q.data_ptr(), nq, t.data_ptr(), nt, d, int(bf16), qn.data_ptr(),
+            tn.data_ptr(), _ptr(qx) if bf16 else None,
+            _ptr(tx) if bf16 else None, _stream(q.device)), "knn_prepass")
+    knn_prepass.launches += 1
+    return qn, tn, qx, tx
 
 
 # ----------------------------------------------------------------- wrappers
@@ -446,10 +625,9 @@ def knn_classify_lanes(q: torch.Tensor, t: torch.Tensor,
         return torch.zeros((0, n_classes), dtype=torch.float32,
                            device=q.device)
     with torch.cuda.device(q.device):
-        scores = _launch_classify(
-            _build.load("knn_classify"), q, t, t_labels, k,
-            metric == "euclidean", bf16, n_classes, na, kernel_fn,
-            kernel_param, nv, _sm_count(q.device), _stream(q.device))
+        scores = _classify_scores(q, t, t_labels, k, metric == "euclidean",
+                                  bf16, n_classes, na, kernel_fn,
+                                  kernel_param, nv)
     knn_classify_lanes.launches += 1
     return scores
 
@@ -459,12 +637,16 @@ def _empty(q: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return z, z
 
 
+#: the four top-k entries, each a port of one Pallas kernel
 KERNEL_WRAPPERS = (knn_topk, knn_topk_packed, knn_topk_lanes,
                    knn_classify_lanes)
+#: every wrapper that counts launches: the top-k entries and the
+#: euclidean pre-pass they launch first
+COUNTED_WRAPPERS = KERNEL_WRAPPERS + (knn_prepass,)
 
 
 def reset_launches() -> None:
-    for fn in KERNEL_WRAPPERS:
+    for fn in COUNTED_WRAPPERS:
         fn.launches = 0
 
 

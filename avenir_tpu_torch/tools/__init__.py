@@ -1,1 +1,2 @@
-"""Command-line tools of the port: `kernel_check`, `knn_sweep` and `bench`."""
+"""Command-line tools of the port: `kernel_check`, `knn_sweep`, `bench` and
+`knn_ab`."""

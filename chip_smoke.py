@@ -165,7 +165,43 @@ def phase_card():
             print(f"ptxas {name}: {len(regs)} kernels, registers "
                   f"{min(regs)}..{max(regs)}, spill stores {spills} bytes",
                   flush=True)
+            partial = {fn: int(st) + int(ld) for fn, st, ld in re.findall(
+                r"Function properties for (\S*partial_topk_kernel\S*)\s+"
+                r"\d+ bytes stack frame, (\d+) bytes spill stores, "
+                r"(\d+) bytes spill loads", text)}
+            if partial:
+                spilled = sorted(fn for fn, n in partial.items() if n)
+                check(not spilled, f"ptxas {name}: {len(partial)} partial "
+                      f"instances, {len(spilled)} spill" +
+                      (f": {spilled}" if spilled else ""))
         _build.load(name)
+    partial_instances()
+
+
+def partial_instances() -> None:
+    """Every partial instance's registers and local (spilled) bytes from
+    cudaFuncGetAttributes, and its blocks per SM at D=6 and D=128; fails
+    on any local bytes. Prints the K=8 instances, which the job runs."""
+    from avenir_tpu_torch.ops import knn_kernels as kk
+
+    spilled = []
+    n = 0
+    for mode in kk.MODES:
+        for metric in ("manhattan", "euclidean"):
+            for k in (8, 16, 32, 64):
+                per_sm = {}
+                for d in (6, 128):
+                    per_sm[d], regs, local = kk.partial_info(
+                        k, metric == "euclidean", mode, d)
+                n += 1
+                if local:
+                    spilled.append(f"{mode}/{metric}/K={k}")
+                if k == 8:
+                    print(f"partial K=8 {mode} {metric}: {regs} registers, "
+                          f"{local} local bytes, blocks/SM {per_sm[6]} at "
+                          f"D=6, {per_sm[128]} at D=128", flush=True)
+    check(not spilled, f"{n} partial instances, {len(spilled)} with local "
+          f"(spilled) bytes" + (f": {spilled}" if spilled else ""))
 
 
 # ------------------------------------------------------------------ phase 2
@@ -248,16 +284,20 @@ def phase_kernels(flops: float, rate: float):
                     tied = _tied(q, t, gi, pd, mism, metric, rtol, atol)
                     ok = close and tied
                     how = f"rtol {rtol} atol {atol} ties-only {tied}"
+                n0 = wrap.launches
                 ms = cuda_ms(lambda: wrap(q, t, K, metric), 5)
+                plan = _plan(q, t, metric, name)
                 row = dict(name=name, metric=metric, d=d, max_abs_err=err,
                            index_mismatch=int(mism.sum()), ms=ms,
                            plain_ms=plain_ms, bound_ms=bound,
-                           bound_by=bound_by, library_ms=lib_ms)
+                           bound_by=bound_by, library_ms=lib_ms, **plan)
                 results.append(row)
                 check(ok, f"{name} {metric} D={d}: max|err| {err:.3g} "
                       f"index mismatches {int(mism.sum())} ({how}); "
                       f"{ms:.3f} ms, plain {plain_ms:.1f} ms, "
-                      f"bound {bound:.3f} ms, cdist+topk {lib_ms:.1f} ms")
+                      f"bound {bound:.3f} ms ({bound / ms:.1%} of it), "
+                      f"cdist+topk {lib_ms:.1f} ms; {_plan_text(plan)}, "
+                      f"{wrap.launches - n0} launches timed")
             for fn in ("none", "gaussian"):
                 def run(impl=kk.knn_classify_lanes):
                     return impl(q, t, labels, K, 2, d, fn, 30.0, metric)
@@ -267,21 +307,27 @@ def phase_kernels(flops: float, rate: float):
                     lambda: run(kk.knn_classify_lanes_plain))
                 err = (got - ref).abs().max().item()
                 agree = (got.argmax(1) == ref.argmax(1)).float().mean().item()
+                n0 = kk.knn_classify_lanes.launches
                 ms = cuda_ms(run, 5)
                 cbound, cbound_by = bound_ms(metric, d, 0, flops, rate,
                                              extra_bytes=NT * 4 + NQ * 2 * 4)
+                plan = _plan(q, t, metric, "knn_classify_lanes")
                 # no PyTorch call computes the vote: library_ms is null
                 results.append(dict(name="knn_classify_lanes", metric=metric,
                                     d=d, kernel_fn=fn, max_abs_err=err,
                                     argmax_agreement=agree, ms=ms,
                                     plain_ms=plain_ms, bound_ms=cbound,
-                                    bound_by=cbound_by, library_ms=None))
+                                    bound_by=cbound_by, library_ms=None,
+                                    **plan))
                 # "none" counts neighbours: no floored score may round apart
                 tol = 0.0 if fn == "none" else 2.0
                 check(err <= tol and agree >= 0.99,
                       f"knn_classify_lanes {metric} D={d} {fn}: max|err| "
                       f"{err:.3g} argmax agreement {agree:.5f}; {ms:.3f} ms, "
-                      f"plain {plain_ms:.1f} ms, bound {cbound:.3f} ms")
+                      f"plain {plain_ms:.1f} ms, bound {cbound:.3f} ms "
+                      f"({cbound / ms:.1%} of it); {_plan_text(plan)}, "
+                      f"{kk.knn_classify_lanes.launches - n0} launches timed")
+        results += _check_prepass(q, t, d, flops, rate)
         # padded corpus: rows at and past n_valid never enter
         nv = NT - 777
         gd, gi = kk.knn_topk(q, t, K, "manhattan", n_valid=nv)
@@ -289,6 +335,64 @@ def phase_kernels(flops: float, rate: float):
         check(bool((gi < nv).all()) and torch.equal(gd, pd),
               f"knn_topk manhattan D={d} n_valid={nv}: padding masked")
     return results
+
+
+#: wrapper -> the knn_kernels mode of its partial instance
+PLAN_MODES = {"knn_topk": "exact", "knn_topk_lanes": "lanes",
+              "knn_topk_packed": "packed", "knn_classify_lanes": "labels"}
+
+
+def _plan(q, t, metric, name) -> dict:
+    """The launch's blocks per SM, grid and waves (knn_kernels.launch_plan);
+    both compute dtypes take the same grid."""
+    from avenir_tpu_torch.ops import knn_kernels as kk
+
+    plan = kk.launch_plan(q, t, K, metric, PLAN_MODES[name])
+    return {key: plan[key] for key in ("blocks_per_sm", "grid", "waves")}
+
+
+def _plan_text(plan) -> str:
+    return (f"{plan['blocks_per_sm']} blocks/SM, grid {plan['grid']}, "
+            f"{plan['waves']:.2f} waves")
+
+
+def _check_prepass(q, t, d, flops, rate):
+    """knn_prepass against its plain version, bit for bit, in both forms:
+    norms alone (float32) and norms with bfloat16 copies."""
+    import torch
+
+    from avenir_tpu_torch.ops import knn_kernels as kk
+
+    rows = []
+    qt = torch.cat([q, t])
+    for dtype in kk.COMPUTE_DTYPES:
+        bf16 = dtype == "bfloat16"
+        got = kk.knn_prepass(q, t, bf16)
+        torch.cuda.synchronize()
+        ref, plain_ms = _timed_once(lambda: kk.knn_prepass_plain(q, t, bf16))
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        n0 = kk.knn_prepass.launches
+        ms = cuda_ms(lambda: kk.knn_prepass(q, t, bf16), 20)
+        n = NQ + NT
+        nbytes = n * d * 4 + n * 4 + (n * d * 4 if bf16 else 0)
+        ops_ms, bytes_ms = 2 * n * d / flops * 1e3, nbytes / rate * 1e3
+        bound, bound_by = ((ops_ms, "operations") if ops_ms >= bytes_ms
+                           else (bytes_ms, "bytes"))
+        # the norms alone are one PyTorch call; nothing computes the pair
+        lib_ms = None if bf16 else cuda_ms(
+            lambda: torch.einsum("ij,ij->i", qt, qt), 20)
+        rows.append(dict(name="knn_prepass", metric="euclidean", d=d,
+                         dtype=dtype, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                         library_ms=lib_ms))
+        check(same, f"knn_prepass {dtype} D={d}: bit-equal to the plain "
+              f"version {same} (max|err| {err:.3g}); {ms:.4f} ms, plain "
+              f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({bound_by}, "
+              f"{bound / ms:.1%} of it)"
+              + ("" if lib_ms is None else f", einsum {lib_ms:.4f} ms")
+              + f"; {kk.knn_prepass.launches - n0} launches timed")
+    return rows
 
 
 def _recall(gi, pi) -> float:
@@ -349,7 +453,7 @@ def _wrappers():
     from avenir_tpu_torch.ops import knn_kernels as kk
     from avenir_tpu_torch.ops import matmul_ceiling as mc
 
-    return kk.KERNEL_WRAPPERS + mc.KERNEL_WRAPPERS
+    return kk.COUNTED_WRAPPERS + mc.KERNEL_WRAPPERS
 
 
 def _reset_launches() -> None:
@@ -516,16 +620,19 @@ def phase_packed_bf16(flops: float, rate: float, bf16_flops: float,
             bound, bound_by = bound_ms(metric, d, K, flops, rate,
                                        bf16_flops=bf16_flops if bf16 else 0.0)
             lib = next(r["library_ms"] for r in phase2_rows
-                       if r["metric"] == metric and r["d"] == d)
+                       if r["name"] == "knn_topk" and r["metric"] == metric
+                       and r["d"] == d)
+            plan = _plan(q, t, metric, name)
             results.append(dict(name=name, metric=metric, d=d, dtype=dtype,
                                 max_abs_err=err,
                                 index_mismatch=int(mism.sum()), ms=ms,
                                 plain_ms=plain_ms, bound_ms=bound,
-                                bound_by=bound_by, library_ms=lib))
+                                bound_by=bound_by, library_ms=lib, **plan))
             check(ok, f"{name} {metric} {dtype} D={d}: max|err| {err:.3g} "
                   f"index mismatches {int(mism.sum())} ({how}); "
                   f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound:.3f} ms "
-                  f"({bound_by}), cdist+topk {lib:.1f} ms")
+                  f"({bound_by}, {bound / ms:.1%} of it), cdist+topk "
+                  f"{lib:.1f} ms; {_plan_text(plan)}")
 
         def run(impl=kk.knn_classify_lanes):
             return impl(q, t, labels, K, 2, d, "gaussian", 30.0, "euclidean",
@@ -768,6 +875,18 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    pre = next(r for r in checks if r["name"] == "knn_prepass"
+               and r["d"] == 128 and r["dtype"] == "float32")
+    kernels.append({
+        "name": "knn_prepass", "route": "cuda",
+        "source": "avenir_tpu_torch/ops/csrc/knn_prepass.cu",
+        "replaces": "avenir_tpu/ops/pallas_knn.py:54",
+        "launches": path_counts["knn_prepass"],
+        "launches_by_path": {"nearestNeighbor": launches["knn_prepass"],
+                             CHECK_PATH: path_counts["knn_prepass"],
+                             BENCH_PATH: bench_counts["knn_prepass"]},
+        **{k: pre[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")}})
     kernels.append({
         "name": "matmul_ceiling", "route": "cuda",
         "source": "avenir_tpu_torch/ops/csrc/matmul_ceiling.cu",

@@ -290,17 +290,147 @@ def test_classify_checks_labels():
                               kernel_fn="cosine")
 
 
+SPLIT_CASES = [(1, 1, 132, 8), (8192, 131072, 132, 2), (200, 300, 4, 3),
+               (128, 0, 132, 2), (5000, 70000, 132, 5), (8192, 131072, 132, 6),
+               (512, 10000, 132, 1), (8192, 131072, 114, 4)]
+
+
 def test_launch_split_covers_every_row():
     """The train-axis split: every valid row lands in exactly one split."""
-    for nq, nv, sms in [(1, 1, 132), (8192, 131072, 132), (200, 300, 4),
-                        (128, 0, 132), (5000, 70000, 132)]:
-        splits, rows = kk._splits(nq, nv, sms)
-        assert rows % kk.TT == 0 and splits >= 1
-        assert (splits - 1) * rows < max(nv, 1) <= splits * rows
+    for nq, nv, sms, per_sm in SPLIT_CASES:
+        for stage in (kk.TT, 4 * kk.TT):
+            splits, rows = kk._splits(nq, nv, sms, per_sm, stage)
+            assert rows % stage == 0 and splits >= 1
+            assert (splits - 1) * rows < max(nv, 1) <= splits * rows
+
+
+@pytest.mark.parametrize("nq,nv,sms,per_sm", SPLIT_CASES)
+def test_launch_split_fills_whole_waves(nq, nv, sms, per_sm):
+    """The grid runs in whole waves that end no later than a single wave
+    or a one-split grid would, and where the corpus is large the last
+    wave is as good as full: waves x rows a block scans is within 3% of a
+    perfect spread of the rows over every slot."""
+    splits, rows = kk._splits(nq, nv, sms, per_sm)
+    blocks_x = -(-nq // kk.BQ)
+    slots = sms * per_sm
+    waves = -(-blocks_x * splits // slots)
+    assert kk._waves(nq, splits, sms, per_sm) == blocks_x * splits / slots
+    one = -(-max(nv, 1) // kk.TT) * kk.TT
+    assert waves * rows <= -(-blocks_x // slots) * one
+    if nv >= 64 * kk.MIN_SPLIT_ROWS and blocks_x * nv // kk.TT >= 8 * slots:
+        assert waves * rows <= 1.03 * blocks_x * nv / slots + kk.TT
+
+
+def test_launch_split_whole_waves_at_the_job_size():
+    """8192 x 131072 at 2 blocks per SM on 132 SMs: 64 query blocks x 33
+    splits is exactly 8 waves of 264 blocks."""
+    splits, rows = kk._splits(8192, 131072, 132, 2)
+    assert (splits, 64 * splits % 264) == (33, 0)
+    assert kk._waves(8192, splits, 132, 2) == 8.0
 
 
 def test_max_features_fits_shared_memory():
-    d4 = (kk.MAX_D + 3) // 4
-    assert 16 * d4 * (kk.BQ + kk.TT) + 8 * kk.TT <= kk.SMEM_LIMIT
-    d4 += 1
-    assert 16 * d4 * (kk.BQ + kk.TT) + 8 * kk.TT > kk.SMEM_LIMIT
+    """MAX_D is the widest row every carry width stages, and no less than
+    the 360 features the kernels took before register blocking."""
+    assert kk.MAX_D >= 360
+    for k in (8, 16, 32, 64):
+        assert kk._smem_bytes(kk.MAX_D, k) <= kk.SMEM_LIMIT
+    assert kk._smem_bytes(kk.MAX_D + 1, 8) > kk.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k", [8, 16, 32, 64])
+def test_every_width_fits_shared_memory(k):
+    """Every D up to MAX_D at carry width k: the block's queries and a
+    32-row train tile at the bank-spread row stride fit the 227 KB cap;
+    the stride is D/4 rounded up, one more where that is a multiple of 4."""
+    assert kk._block_queries(k) * {8: 1, 16: 2, 32: 4, 64: 4}[k] == kk.BQ
+    for d in range(1, kk.MAX_D + 1):
+        s4 = kk._row_stride4(d)
+        assert s4 % 4 and 4 * s4 >= d and s4 <= (d + 3) // 4 + 1
+        assert kk._smem_bytes(d, k) == \
+            16 * s4 * (kk._block_queries(k) + kk.TT) + 8 * kk.TT
+        assert kk._smem_bytes(d, k) <= kk.SMEM_LIMIT
+
+
+# ------------------------------------------------------------- pre-pass
+def _fma_exact(a, b, c):
+    """fmaf(a, b, c) of float32 scalars with exact rationals: the one
+    rounding to the nearest float32, ties to even."""
+    from fractions import Fraction
+
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    r = np.float32(float(exact))
+    cands = {r, np.nextafter(r, np.float32(np.inf)),
+             np.nextafter(r, np.float32(-np.inf))}
+    cands = [x for x in cands if np.isfinite(x)]
+    best = min(abs(Fraction(float(x)) - exact) for x in cands)
+    near = [x for x in cands if abs(Fraction(float(x)) - exact) == best]
+    return min(near, key=lambda x: int(np.float32(x).view(np.uint32)) & 1)
+
+
+def _round_bf16_bits(x):
+    """bfloat16 rounding, nearest even, on the float32 bit pattern."""
+    u = x.view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("c,want", [
+    (0.0, 1 + 2.0 ** -11),                    # a tie: to even
+    (2.0 ** -60, 1 + 2.0 ** -11 + 2.0 ** -23),  # just past the tie: up
+    (-(2.0 ** -60), 1 + 2.0 ** -11),           # just short of it: down
+])
+def test_fmaf_rounds_once_at_a_tie(c, want):
+    """a*a lies exactly halfway between two float32 values, and c decides
+    the side only where the sum is rounded once, as the card's fmaf is."""
+    a = torch.tensor([1 + 2.0 ** -12], dtype=torch.float32)
+    got = kk._fmaf(a, a, torch.tensor([c], dtype=torch.float32))
+    assert got.item() == np.float32(want)
+    assert got.item() == _fma_exact(a.item(), a.item(), np.float32(c))
+
+
+@pytest.mark.parametrize("d", [1, 6, 13])
+def test_prepass_plain_norms_are_the_fmaf_chain(d):
+    """Each norm is the chain s = fmaf(x_f, x_f, s) over features in order
+    from 0.0, bit for bit against exact rationals rounded once a step; and
+    within float32 rounding of the plain top-k's (x * x).sum(1)."""
+    rng = np.random.default_rng(d)
+    q = (rng.normal(size=(7, d)) * rng.choice([1e-3, 1.0, 1e3], (7, 1))
+         ).astype(np.float32)
+    t = rng.normal(size=(9, d)).astype(np.float32)
+    qn, tn, qx, tx = kk.knn_prepass_plain(_t(q), _t(t))
+    for x, norms in ((q, qn), (t, tn)):
+        for r in range(x.shape[0]):
+            s = np.float32(0.0)
+            for f in range(d):
+                s = _fma_exact(x[r, f], x[r, f], s)
+            assert norms[r].item() == s
+        np.testing.assert_allclose(norms.numpy(), (_t(x) * _t(x)).sum(1),
+                                   rtol=1e-6 * d)
+    assert torch.equal(qx, _t(q))
+    assert torch.equal(tx, _t(t))
+
+
+def test_prepass_plain_bf16_copies_round_to_nearest_even():
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(64, 5)).astype(np.float32)
+    t = (rng.normal(size=(96, 5)) * 1e4).astype(np.float32)
+    t[0, :3] = [1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8, -(1 + 2.0 ** -8)]  # ties
+    qn, tn, qx, tx = kk.knn_prepass_plain(_t(q), _t(t), bf16=True)
+    np.testing.assert_array_equal(qx.numpy(), _round_bf16_bits(q))
+    np.testing.assert_array_equal(tx.numpy(), _round_bf16_bits(t))
+    assert torch.equal(tx, kk._round_bf16(_t(t)))
+    # the norms are the fp32 values', never the rounded copies'
+    assert torch.equal(tn, kk.knn_prepass_plain(_t(q), _t(t))[1])
+
+
+def test_prepass_on_cpu_tensors_is_the_plain_version():
+    kk.reset_launches()
+    q, t = torch.rand(8, 4), torch.rand(16, 4)
+    for bf16 in (False, True):
+        got = kk.knn_prepass(q, t, bf16)
+        for a, b in zip(got, kk.knn_prepass_plain(q, t, bf16)):
+            assert torch.equal(a, b)
+    assert kk.knn_prepass.launches == 0
+    assert kk.knn_prepass in kk.COUNTED_WRAPPERS
+    assert kk.knn_prepass not in kk.KERNEL_WRAPPERS
