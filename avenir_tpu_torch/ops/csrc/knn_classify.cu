@@ -141,8 +141,9 @@ int knn_classify_launch(const float* q, const float* t, const float* qn,
   return (int)cudaGetLastError();
 }
 
-// info[3] of the partial instance for (k, euclid) at d features:
-// blocks per SM, registers, local bytes (knn::partial_info).
+// info[6] of the partial instance for (k, euclid) at d features:
+// blocks per SM, registers, local bytes, and its stage plan
+// (knn::partial_info).
 int knn_classify_partial_info(int k, int euclid, int d, int* info) {
   cudaError_t err = cudaErrorInvalidValue;
   switch (knn::carry_width(k)) {

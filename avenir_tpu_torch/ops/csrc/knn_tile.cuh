@@ -20,19 +20,36 @@
 // kernel runs on those copies with the same fp32 products and sums: one
 // instance serves both dtypes.
 //
-// Layout: one thread per query, BQ queries per block; blockIdx.y splits the
-// train axis so that a few thousand queries still fill 132 SMs. Each split
-// writes its sorted K-carry to a scratch buffer, and a second small kernel
-// merges the splits in column order (ties stay with the lower column).
-//
-// What bounds it: the work is compute, nq*nt*D fp32 FMAs (euclidean) or
-// sub+abs+add (manhattan), plus nq*nt selection compares; the bytes read
-// are a few MB. The design keeps the train tile in shared memory, read as
-// float4 broadcasts (one shared load feeds 4 FMAs), with TT accumulators
-// per thread for instruction-level parallelism; the carry lives in
-// registers and a candidate costs one compare unless it enters. Plain fp32
-// FMA, never TF32 (the TPU reference measured ~4e-3 relative error without
-// full-precision products).
+// What bounds it: instruction issue on the CUDA cores. The work is nq*nt*D
+// fp32 FMAs (euclidean) or D subtract and abs-add pairs (manhattan: two
+// instructions a feature, so 75% of the stated 3D+1 bound is its floor),
+// plus a few selection instructions a pair; the bytes read are a few MB.
+// Every shared load, index, barrier and carry insert takes an issue slot
+// from the arithmetic, so the design spends as few as it can per pair:
+// - Register blocking. A block is 128 threads, 4 lanes to a query row;
+//   each thread owns QPT queries (4 at K=8, 2 at K=16, 1 above, so the
+//   2K-register carries fit without spilling) and 8 of a 32-row tile's
+//   train rows, so one LDS.128 of a train row feeds 4*QPT FMAs. Query and
+//   train rows sit at a float4 stride that is no multiple of 4
+//   (row_stride4), so the rows an LDS.128 phase reads fall on distinct
+//   banks.
+// - A shared bound. The 4 lanes of a query keep carries over interleaved
+//   columns and, after each tile, share the least of their worst keys; a
+//   candidate above it cannot make the query's K and costs one compare.
+//   At the end of a split the 4 carries merge by warp shuffles (a bitonic
+//   merge on (key, column)), so the split's list is the K smallest by
+//   (key, column), bit for bit what one thread over all columns keeps.
+// - Staged train rows. cp.async copies a split's rows, unpadded as they
+//   lie in t, into a ring of two stages of about STAGE_BYTES (384 rows at
+//   D=6, 32 at D=128), so the next stage lands during this one's
+//   arithmetic and one barrier serves many rows at small D; features run
+//   in order as float4s, then a float2 and a float, never on padding. The
+//   column bound is checked only in a split's ragged last tile.
+// - Whole waves. blockIdx.y splits the train axis; the wrapper picks the
+//   split count from the instance's blocks per SM so the grid fills whole
+//   waves. A second small kernel merges the splits in column order.
+// Plain fp32 FMA, never TF32 (the TPU reference measured ~4e-3 relative
+// error without full-precision products).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -104,12 +121,87 @@ __host__ __device__ inline int row_stride4(int d) {
   return d4 % 4 ? d4 : d4 + 1;
 }
 
-// Bytes of dynamic shared memory the partial kernel takes for D features:
-// the block's queries, one train tile, its norms and labels.
+constexpr int SMEM_LIMIT = 232448;      // dynamic shared memory a block may take
+constexpr int STAGE_BYTES = 16384;      // train rows a stage holds, in bytes
+
+// The ring of train-row stages at D features: `rows` a stage (a multiple
+// of TT, as many as fit STAGE_BYTES), `stages` of them (2 where they fit
+// beside the block's queries, else 1), and the block's dynamic shared
+// memory: queries, then the stages' rows, norms and labels.
+struct StagePlan {
+  int rows;
+  int stages;
+  size_t smem;
+};
+
 template <int K>
-inline size_t partial_smem_bytes(int d) {
-  return sizeof(float4) * (size_t)row_stride4(d) * (block_queries<K>() + TT) +
-         2 * sizeof(int) * TT;
+inline StagePlan stage_plan(int d) {
+  const size_t row = sizeof(float4) * row_stride4(d) + 2 * sizeof(int);
+  const int tiles = (int)(STAGE_BYTES / (row * TT));
+  const int rows = (tiles > 1 ? tiles : 1) * TT;
+  const size_t queries = sizeof(float4) * row_stride4(d) * block_queries<K>();
+  const int stages = queries + 2 * rows * row <= SMEM_LIMIT ? 2 : 1;
+  return {rows, stages, queries + stages * rows * row};
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Start the copy of train rows [base, base + rows) of t [*, d], their
+// norms and labels into one stage: rows at a stride of sf floats, unpadded
+// (a tile of rows is contiguous in t), in 16-, 8- or 4-byte pieces as the
+// row width allows (t's rows are then aligned to them).
+template <bool EUCLID, int MODE>
+__device__ __forceinline__ void load_stage(float* ts, float* tns, int* labs,
+                                           const float* t, const float* tn,
+                                           const int* labels, int d, int sf,
+                                           int base, int rows) {
+  const int tid = threadIdx.x;
+  const float* src = t + (size_t)base * d;
+  if ((d & 3) == 0) {
+    const int n = d >> 2;
+    for (int e = tid; e < rows * n; e += THREADS) {
+      const int j = e / n;
+      const int c = e - j * n;
+      cp_async16(ts + j * sf + 4 * c, src + (size_t)j * d + 4 * c);
+    }
+  } else if ((d & 1) == 0) {
+    const int n = d >> 1;
+    for (int e = tid; e < rows * n; e += THREADS) {
+      const int j = e / n;
+      const int c = e - j * n;
+      cp_async8(ts + j * sf + 2 * c, src + (size_t)j * d + 2 * c);
+    }
+  } else {
+    for (int e = tid; e < rows * d; e += THREADS) {
+      const int j = e / d;
+      const int c = e - j * d;
+      cp_async4(ts + j * sf + c, src + (size_t)j * d + c);
+    }
+  }
+  for (int e = tid; e < rows; e += THREADS) {
+    if (EUCLID) cp_async4(tns + e, tn + base + e);
+    if (MODE == LABELS) cp_async4(labs + e, labels + base + e);
+  }
 }
 
 __device__ __forceinline__ bool before(int ka, int ia, int kb, int ib) {
@@ -162,11 +254,15 @@ __device__ __forceinline__ void merge_lanes(Carry<K>& c) {
 // The selection of one tile: each of the thread's QPT queries against its
 // TPT columns base + tc + TC*j, in ascending column order. CHECK masks
 // the columns at and past row_end; only a split's last tile needs it.
+// lim[i] bounds query i's keys that can still make its K: the least of
+// the worst keys of the TC carries that share it, an upper bound on the
+// K-th smallest key of their union. A key above it is dropped unseen by
+// the carry; a key equal to it may still enter on the column order.
 template <bool CHECK, bool EUCLID, int MODE, int K, int QPT>
 __device__ __forceinline__ void select_tile(
     Carry<K> (&best)[QPT], const float (&acc)[QPT][TPT],
-    const float (&qn)[QPT], const float* tn_s, const int* lab_s, int tc,
-    int base, int row_end, int pack_mask) {
+    const float (&qn)[QPT], const int (&lim)[QPT], const float* tn_s,
+    const int* lab_s, int tc, int base, int row_end, int pack_mask) {
 #pragma unroll
   for (int j = 0; j < TPT; ++j) {
     const int lr = tc + TC * j;
@@ -185,130 +281,183 @@ __device__ __forceinline__ void select_tile(
       if (MODE == LANES) key = (key & ~pack_mask) | (col >> 7);
       if (MODE == LABELS) key = (key & ~pack_mask) | lab;
       if (MODE == PACKED) key &= ~pack_mask;
-      if (key < best[i].worst()) best[i].insert(key, col);
+      if (key <= lim[i] && key < best[i].worst()) best[i].insert(key, col);
     }
   }
 }
 
 // Per split (blockIdx.y) and query: the K smallest keys over train rows
 // [split*rows_per_split, min((split+1)*rows_per_split, n_valid)).
-// Outputs part_key/part_idx [splits][nq][K].
+// rows_per_split is a multiple of stage_rows. Outputs part_key/part_idx
+// [splits][nq][K].
 template <int K, int METRIC, int MODE>
 __global__ void __launch_bounds__(THREADS)
 partial_topk_kernel(const float* __restrict__ q, const float* __restrict__ t,
                     const float* __restrict__ qn_g,
                     const float* __restrict__ tn_g,
                     const int* __restrict__ labels, int nq, int d,
-                    int n_valid, int rows_per_split, int pack_mask,
-                    int empty_key, int* __restrict__ part_key,
-                    int* __restrict__ part_idx) {
+                    int n_valid, int rows_per_split, int stage_rows,
+                    int stages, int pack_mask, int empty_key,
+                    int* __restrict__ part_key, int* __restrict__ part_idx) {
   constexpr bool EUCLID = METRIC == L2;
   constexpr int QPT = qpt<K>();
   constexpr int BQK = block_queries<K>();
   extern __shared__ float4 smem[];
-  const int d4 = (d + 3) / 4;
-  const int s4 = row_stride4(d);
-  float4* q_s = smem;                                      // [BQK][s4]
-  float4* t_s = q_s + (size_t)BQK * s4;                    // [TT][s4]
-  float* tn_s = reinterpret_cast<float*>(t_s + (size_t)TT * s4);  // [TT]
-  int* lab_s = reinterpret_cast<int*>(tn_s + TT);          // [TT]
+  const int sf = 4 * row_stride4(d);       // floats between staged rows
+  float* q_s = reinterpret_cast<float*>(smem);             // [BQK][sf]
+  float* t_s = q_s + (size_t)BQK * sf;     // [stages][stage_rows][sf]
+  float* tn_s = t_s + (size_t)stages * stage_rows * sf;    // [stages][rows]
+  int* lab_s = reinterpret_cast<int*>(tn_s + stages * stage_rows);
 
   const int tid = threadIdx.x;
   const int tc = tid % TC;
   const int tr = tid / TC;
   const int q0 = blockIdx.x * BQK;
-  const int split = blockIdx.y;
-  const int row0 = split * rows_per_split;
+  const int row0 = blockIdx.y * rows_per_split;
   const int row_end = min(row0 + rows_per_split, n_valid);
+  const int n_stages = (row_end - row0 + stage_rows - 1) / stage_rows;
 
-  // stage this block's queries, features zero-padded to a multiple of 4
-  // (a zero feature adds exactly 0 to both the L1 sum and the dot form)
-  float* qf = reinterpret_cast<float*>(q_s);
-  const int dp = d4 * 4;
-  for (int e = tid; e < BQK * dp; e += THREADS) {
-    const int r = e / dp;
-    const int f = e - r * dp;
-    const int row = q0 + r;
-    qf[r * s4 * 4 + f] = (f < d && row < nq) ? q[(size_t)row * d + f] : 0.f;
+  if (stages == 2 && n_stages > 0) {       // the first stage's copy flies
+    load_stage<EUCLID, MODE>(t_s, tn_s, lab_s, t, tn_g, labels, d, sf, row0,
+                             min(stage_rows, row_end - row0));
+    cp_async_commit();
+  }
+  // this block's queries, unpadded: no feature past d is ever read
+  for (int e = tid; e < BQK * d; e += THREADS) {
+    const int r = e / d;
+    const int f = e - r * d;
+    q_s[r * sf + f] = q0 + r < nq ? q[(size_t)(q0 + r) * d + f] : 0.f;
   }
   float qn[QPT];
+  int lim[QPT];
+  Carry<K> best[QPT];
 #pragma unroll
   for (int i = 0; i < QPT; ++i) {
     const int qi = q0 + tr + TR * i;
     qn[i] = EUCLID && qi < nq ? qn_g[qi] : 0.f;
+    lim[i] = empty_key;
+    best[i].init(empty_key);
   }
 
-  Carry<K> best[QPT];
-#pragma unroll
-  for (int i = 0; i < QPT; ++i) best[i].init(empty_key);
-  float* tf = reinterpret_cast<float*>(t_s);
-  for (int base = row0; base < row_end; base += TT) {
-    __syncthreads();                   // the previous tile is consumed
-    if ((d & 3) == 0) {                // rows are whole float4s
-      const float4* t4 = reinterpret_cast<const float4*>(t);
-      for (int e = tid; e < TT * d4; e += THREADS) {
-        const int j = e / d4;
-        const int f4 = e - j * d4;
-        if (base + j < row_end)
-          t_s[j * s4 + f4] = t4[(size_t)(base + j) * d4 + f4];
-      }
-    } else {
-      for (int e = tid; e < TT * dp; e += THREADS) {
-        const int j = e / dp;
-        const int f = e - j * dp;
-        const int row = base + j;
-        tf[j * s4 * 4 + f] =
-            (f < d && row < row_end) ? t[(size_t)row * d + f] : 0.f;
-      }
+  const int d4 = d >> 2;
+  for (int it = 0; it < n_stages; ++it) {
+    const int sbase = row0 + it * stage_rows;
+    const int srows = min(stage_rows, row_end - sbase);
+    const int slot = stages == 2 ? (it & 1) : 0;
+    if (stages == 1) {                     // the stage is free once all read it
+      __syncthreads();
+      load_stage<EUCLID, MODE>(t_s, tn_s, lab_s, t, tn_g, labels, d, sf,
+                               sbase, srows);
+      cp_async_commit();
     }
-    if (MODE == LABELS && tid < TT)
-      lab_s[tid] = (base + tid < row_end) ? labels[base + tid] : 0;
-    if (EUCLID && tid < TT)
-      tn_s[tid] = (base + tid < row_end) ? tn_g[base + tid] : 0.f;
-    __syncthreads();
-
-    float acc[QPT][TPT];
+    cp_async_wait_all();
+    __syncthreads();                       // every thread's copies landed
+    if (stages == 2 && it + 1 < n_stages) {
+      // the other slot was read in the last stage, which all have left
+      const int nb = sbase + stage_rows;
+      const int o = (it + 1) & 1;
+      load_stage<EUCLID, MODE>(t_s + (size_t)o * stage_rows * sf,
+                               tn_s + o * stage_rows, lab_s + o * stage_rows,
+                               t, tn_g, labels, d, sf, nb,
+                               min(stage_rows, row_end - nb));
+      cp_async_commit();
+    }
+    const float* ts = t_s + (size_t)slot * stage_rows * sf;
+    const float* tns = tn_s + slot * stage_rows;
+    const int* labs = lab_s + slot * stage_rows;
+    for (int tb = 0; tb < srows; tb += TT) {
+      const float* tt = ts + tb * sf;
+      float acc[QPT][TPT];
 #pragma unroll
-    for (int i = 0; i < QPT; ++i)
+      for (int i = 0; i < QPT; ++i)
 #pragma unroll
-      for (int j = 0; j < TPT; ++j) acc[i][j] = 0.f;
-    for (int f4 = 0; f4 < d4; ++f4) {
-      float4 a[QPT];
+        for (int j = 0; j < TPT; ++j) acc[i][j] = 0.f;
+      // features in order: whole float4s, then a float2, then a float
+      for (int f4 = 0; f4 < d4; ++f4) {
+        float4 a[QPT];
 #pragma unroll
-      for (int i = 0; i < QPT; ++i) a[i] = q_s[(tr + TR * i) * s4 + f4];
+        for (int i = 0; i < QPT; ++i)
+          a[i] = *reinterpret_cast<const float4*>(q_s + (tr + TR * i) * sf +
+                                                  4 * f4);
 #pragma unroll
-      for (int j = 0; j < TPT; ++j) {
-        const float4 b = t_s[(tc + TC * j) * s4 + f4];
+        for (int j = 0; j < TPT; ++j) {
+          const float4 b = *reinterpret_cast<const float4*>(
+              tt + (tc + TC * j) * sf + 4 * f4);
 #pragma unroll
-        for (int i = 0; i < QPT; ++i) {
-          if (EUCLID) {
-            acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
-            acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
-            acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
-            acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
-          } else {
-            // the TPU kernel's order: features 0..D-1 summed from 0.0
-            acc[i][j] = acc[i][j] + fabsf(a[i].x - b.x);
-            acc[i][j] = acc[i][j] + fabsf(a[i].y - b.y);
-            acc[i][j] = acc[i][j] + fabsf(a[i].z - b.z);
-            acc[i][j] = acc[i][j] + fabsf(a[i].w - b.w);
+          for (int i = 0; i < QPT; ++i) {
+            if (EUCLID) {
+              acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+              acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+              acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+              acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+            } else {
+              // the TPU kernel's order: features 0..D-1 summed from 0.0
+              acc[i][j] = acc[i][j] + fabsf(a[i].x - b.x);
+              acc[i][j] = acc[i][j] + fabsf(a[i].y - b.y);
+              acc[i][j] = acc[i][j] + fabsf(a[i].z - b.z);
+              acc[i][j] = acc[i][j] + fabsf(a[i].w - b.w);
+            }
           }
         }
       }
+      if (d & 2) {
+        float2 a[QPT];
+#pragma unroll
+        for (int i = 0; i < QPT; ++i)
+          a[i] = *reinterpret_cast<const float2*>(q_s + (tr + TR * i) * sf +
+                                                  4 * d4);
+#pragma unroll
+        for (int j = 0; j < TPT; ++j) {
+          const float2 b = *reinterpret_cast<const float2*>(
+              tt + (tc + TC * j) * sf + 4 * d4);
+#pragma unroll
+          for (int i = 0; i < QPT; ++i) {
+            if (EUCLID) {
+              acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+              acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+            } else {
+              acc[i][j] = acc[i][j] + fabsf(a[i].x - b.x);
+              acc[i][j] = acc[i][j] + fabsf(a[i].y - b.y);
+            }
+          }
+        }
+      }
+      if (d & 1) {
+        float a[QPT];
+#pragma unroll
+        for (int i = 0; i < QPT; ++i) a[i] = q_s[(tr + TR * i) * sf + d - 1];
+#pragma unroll
+        for (int j = 0; j < TPT; ++j) {
+          const float b = tt[(tc + TC * j) * sf + d - 1];
+#pragma unroll
+          for (int i = 0; i < QPT; ++i)
+            acc[i][j] = EUCLID ? fmaf(a[i], b, acc[i][j])
+                               : acc[i][j] + fabsf(a[i] - b);
+        }
+      }
+      const int base = sbase + tb;
+      if (base + TT <= row_end)
+        select_tile<false, EUCLID, MODE>(best, acc, qn, lim, tns + tb,
+                                         labs + tb, tc, base, row_end,
+                                         pack_mask);
+      else
+        select_tile<true, EUCLID, MODE>(best, acc, qn, lim, tns + tb,
+                                        labs + tb, tc, base, row_end,
+                                        pack_mask);
+#pragma unroll
+      for (int i = 0; i < QPT; ++i) {
+        int w = best[i].worst();
+        w = min(w, __shfl_xor_sync(0xffffffffu, w, 1));
+        lim[i] = min(w, __shfl_xor_sync(0xffffffffu, w, 2));
+      }
     }
-    if (base + TT <= row_end)
-      select_tile<false, EUCLID, MODE>(best, acc, qn, tn_s, lab_s, tc, base,
-                                       row_end, pack_mask);
-    else
-      select_tile<true, EUCLID, MODE>(best, acc, qn, tn_s, lab_s, tc, base,
-                                      row_end, pack_mask);
   }
 #pragma unroll
   for (int i = 0; i < QPT; ++i) {
     merge_lanes(best[i]);
     const int qi = q0 + tr + TR * i;
     if (tc == 0 && qi < nq) {
-      const size_t o = ((size_t)split * nq + qi) * K;
+      const size_t o = ((size_t)blockIdx.y * nq + qi) * K;
 #pragma unroll
       for (int s = 0; s < K; ++s) {
         part_key[o + s] = best[i].key[s];
@@ -344,17 +493,18 @@ cudaError_t launch_partial(const float* q, const float* t, const float* qn,
                            int pack_mask, int empty_key, int* part_key,
                            int* part_idx, cudaStream_t stream) {
   auto* fn = &partial_topk_kernel<K, METRIC, MODE>;
-  const size_t smem = partial_smem_bytes<K>(d);
+  StagePlan plan = stage_plan<K>(d);
   cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
   if (err != cudaSuccess) return err;
-  void* args[] = {(void*)&q,        (void*)&t,          (void*)&qn,
-                  (void*)&tn,       (void*)&labels,     (void*)&nq,
-                  (void*)&d,        (void*)&n_valid,    (void*)&rows_per_split,
-                  (void*)&pack_mask, (void*)&empty_key, (void*)&part_key,
-                  (void*)&part_idx};
+  if (rows_per_split % plan.rows) return cudaErrorInvalidValue;
+  void* args[] = {(void*)&q,          (void*)&t,          (void*)&qn,
+                  (void*)&tn,         (void*)&labels,     (void*)&nq,
+                  (void*)&d,          (void*)&n_valid,    (void*)&rows_per_split,
+                  (void*)&plan.rows,  (void*)&plan.stages, (void*)&pack_mask,
+                  (void*)&empty_key,  (void*)&part_key,   (void*)&part_idx};
   const dim3 grid((nq + block_queries<K>() - 1) / block_queries<K>(), splits);
-  return cudaLaunchKernel(fn, grid, dim3(THREADS), args, smem, stream);
+  return cudaLaunchKernel(fn, grid, dim3(THREADS), args, plan.smem, stream);
 }
 
 // euclid picks the metric; qn and tn are the pre-pass's norms (euclidean
@@ -377,21 +527,25 @@ cudaError_t launch_partial_metric(bool euclid, const float* q, const float* t,
 
 // What one partial instance takes at D features: info[0] blocks that fit
 // on an SM (its registers and shared memory), info[1] registers a thread,
-// info[2] local-memory bytes a thread (spills; 0 when all is registers).
+// info[2] local-memory bytes a thread (spills; 0 when all is registers),
+// info[3..5] its stage plan: rows a stage, stages, shared-memory bytes.
 template <int K, int METRIC, int MODE>
 cudaError_t partial_info(int d, int* info) {
   auto* fn = &partial_topk_kernel<K, METRIC, MODE>;
-  const size_t smem = partial_smem_bytes<K>(d);
+  const StagePlan plan = stage_plan<K>(d);
   cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], fn, THREADS,
-                                                      smem);
+                                                      plan.smem);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, fn);
   info[1] = attr.numRegs;
   info[2] = (int)attr.localSizeBytes;
+  info[3] = plan.rows;
+  info[4] = plan.stages;
+  info[5] = (int)plan.smem;
   return err;
 }
 

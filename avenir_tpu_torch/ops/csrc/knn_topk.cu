@@ -15,14 +15,15 @@
 // The 128-lane carries, the lo/hi pair fold, the per-tile insertion
 // network, the column bits inside a <=4096-row tile and the revisited
 // output block are TPU vector-register and VMEM devices and are not
-// carried over: here a thread owns a query and a sorted register carry of
-// (key, column) pairs (knn_tile.cuh).
+// carried over: here a thread owns a few queries' sorted register carries
+// of (key, column) pairs over its share of the columns (knn_tile.cuh).
 //
-// What bounds it on this card: fp32 compute (nq*nt*D FMAs or L1 terms and
-// nq*nt compares) against the CUDA-core fp32 peak; the inputs are a few MB.
-// The design answers with a shared-memory train tile read as float4
-// broadcasts, 32 independent accumulators per thread, and a train-axis
-// split over gridDim.y merged by a second kernel (see knn_tile.cuh).
+// What bounds it on this card: instruction issue on the CUDA cores (nq*nt*D
+// FMAs or L1 terms and a few selection instructions a pair); the inputs
+// are a few MB. The design, in knn_tile.cuh: register blocking over
+// queries and train rows, a bound shared by a query's lanes, cp.async
+// stages of train rows, and a train-axis split over gridDim.y in whole
+// waves, merged by a second kernel.
 //
 // The wrapper (avenir_tpu_torch/ops/knn_kernels.py) allocates every buffer,
 // decodes keys to distances, and finishes sqrt(d/n_attrs) or d/n_attrs.
@@ -136,8 +137,9 @@ int knn_topk_launch(const float* q, const float* t, const float* qn,
   return (int)cudaGetLastError();
 }
 
-// info[3] of the partial instance for (k, euclid, mode) at d
-// features: blocks per SM, registers, local bytes (knn::partial_info).
+// info[6] of the partial instance for (k, euclid, mode) at d
+// features: blocks per SM, registers, local bytes, and its stage plan
+// (knn::partial_info).
 int knn_topk_partial_info(int k, int euclid, int mode, int d, int* info) {
   cudaError_t err = cudaErrorInvalidValue;
   switch (knn::carry_width(k) * 4 + mode) {

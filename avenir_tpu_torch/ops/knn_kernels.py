@@ -65,11 +65,24 @@ def _row_stride4(d: int) -> int:
     return d4 if d4 % 4 else d4 + 1
 
 
+#: bytes of train rows a stage of the partial kernel's ring holds
+STAGE_BYTES = 16384
+
+
+def _stage_plan(d: int, k: int) -> Tuple[int, int, int]:
+    """(rows a stage, stages, dynamic shared-memory bytes) of a partial
+    block (knn_tile.cuh stage_plan): stages of whole 32-row tiles filling
+    STAGE_BYTES (rows at the padded stride, their norms and labels), two
+    where they fit beside the block's queries, else one."""
+    row = 16 * _row_stride4(d) + 8
+    rows = max(1, STAGE_BYTES // (row * TT)) * TT
+    queries = 16 * _row_stride4(d) * _block_queries(k)
+    stages = 2 if queries + 2 * rows * row <= SMEM_LIMIT else 1
+    return rows, stages, queries + stages * rows * row
+
+
 def _smem_bytes(d: int, k: int) -> int:
-    """Dynamic shared memory of a partial block (knn_tile.cuh
-    partial_smem_bytes): its queries and one train tile at the padded
-    row stride, and the tile's norms and labels."""
-    return 16 * _row_stride4(d) * (_block_queries(k) + TT) + 8 * TT
+    return _stage_plan(d, k)[2]
 
 
 #: queries of the widest block (k <= 8)
@@ -405,17 +418,18 @@ _INFO: dict = {}
 
 
 def partial_info(k: int, euclid: bool, mode: str, d: int
-                 ) -> Tuple[int, int, int]:
-    """(blocks per SM, registers a thread, local bytes a thread) of the
-    partial instance a CUDA launch of `mode` takes at d features, from
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor and cudaFuncGetAttributes
-    on the current device (cached per instance and d). Both compute
-    dtypes run the same instance."""
+                 ) -> Tuple[int, ...]:
+    """(blocks per SM, registers a thread, local bytes a thread, rows a
+    stage, stages, shared-memory bytes) of the partial instance a CUDA
+    launch of `mode` takes at d features, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, cudaFuncGetAttributes
+    and the kernel's stage plan on the current device (cached per instance
+    and d). Both compute dtypes run the same instance."""
     lib_name = "knn_classify" if mode == "labels" else "knn_topk"
     key = (lib_name, _carry_width(k), euclid, mode, d)
     if key not in _INFO:
         lib = _build.load(lib_name)
-        info = (ctypes.c_int * 3)()
+        info = (ctypes.c_int * 6)()
         if mode == "labels":
             err = lib.knn_classify_partial_info(k, int(euclid), d, info)
         else:
@@ -436,7 +450,8 @@ def launch_plan(q: torch.Tensor, t: torch.Tensor, k: int, metric: str,
         per_sm = partial_info(k, metric == "euclidean", mode, q.shape[1])[0]
         sms = _sm_count(q.device)
     bq = _block_queries(k)
-    splits, rows = _splits(q.shape[0], nv, sms, per_sm, bq=bq)
+    splits, rows = _splits(q.shape[0], nv, sms, per_sm,
+                           _stage_plan(q.shape[1], k)[0], bq)
     return {"blocks_per_sm": per_sm, "splits": splits, "rows_per_split": rows,
             "grid": (q.shape[0] + bq - 1) // bq * splits,
             "waves": _waves(q.shape[0], splits, sms, per_sm, bq)}
@@ -447,7 +462,7 @@ def _operands(q, t, euclid: bool, bf16: bool, n_valid: int):
     pre-pass over q and the first n_valid rows of t for their norms and,
     with bf16, their rounded copies; manhattan takes q and t as they are
     and no norms."""
-    if t.data_ptr() % 16:              # the kernel loads rows as float4s
+    if t.data_ptr() % 16:              # the kernel copies rows in 16-byte pieces
         t = t.clone()
     if not euclid:
         return q, t, None, None
@@ -468,7 +483,7 @@ def _topk_keys(mode, q, t, k, euclid, bf16, n_valid
     qx, tx, qn, tn = _operands(q, t, euclid, bf16, n_valid)
     splits, rows = _splits(nq, n_valid, _sm_count(q.device),
                            partial_info(k, euclid, mode, d)[0],
-                           bq=_block_queries(k))
+                           _stage_plan(d, k)[0], _block_queries(k))
     part_k = torch.empty(splits * nq * _carry_width(k), dtype=torch.int32,
                          device=q.device)
     part_i = torch.empty_like(part_k)
@@ -491,7 +506,7 @@ def _classify_scores(q, t, t_labels, k, euclid, bf16, n_classes, n_attrs,
     qx, tx, qn, tn = _operands(q, t, euclid, bf16, n_valid)
     splits, rows = _splits(nq, n_valid, _sm_count(q.device),
                            partial_info(k, euclid, "labels", d)[0],
-                           bq=_block_queries(k))
+                           _stage_plan(d, k)[0], _block_queries(k))
     part_k = torch.empty(splits * nq * _carry_width(k), dtype=torch.int32,
                          device=q.device)
     part_i = torch.empty_like(part_k)

@@ -184,15 +184,17 @@ def partial_instances() -> None:
     on any local bytes. Prints the K=8 instances, which the job runs."""
     from avenir_tpu_torch.ops import knn_kernels as kk
 
-    spilled = []
+    spilled, plans = [], []
     n = 0
     for mode in kk.MODES:
         for metric in ("manhattan", "euclidean"):
             for k in (8, 16, 32, 64):
                 per_sm = {}
-                for d in (6, 128):
-                    per_sm[d], regs, local = kk.partial_info(
+                for d in (6, 128, kk.MAX_D):
+                    per_sm[d], regs, local, *plan = kk.partial_info(
                         k, metric == "euclidean", mode, d)
+                    if tuple(plan) != kk._stage_plan(d, k):
+                        plans.append(f"{mode}/{metric}/K={k}/D={d}")
                 n += 1
                 if local:
                     spilled.append(f"{mode}/{metric}/K={k}")
@@ -202,6 +204,8 @@ def partial_instances() -> None:
                           f"D=6, {per_sm[128]} at D=128", flush=True)
     check(not spilled, f"{n} partial instances, {len(spilled)} with local "
           f"(spilled) bytes" + (f": {spilled}" if spilled else ""))
+    check(not plans, "the kernels' stage plans (rows, stages, bytes) equal "
+          "knn_kernels._stage_plan" + (f"; not {plans}" if plans else ""))
 
 
 # ------------------------------------------------------------------ phase 2

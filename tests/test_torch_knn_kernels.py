@@ -340,16 +340,23 @@ def test_max_features_fits_shared_memory():
 
 @pytest.mark.parametrize("k", [8, 16, 32, 64])
 def test_every_width_fits_shared_memory(k):
-    """Every D up to MAX_D at carry width k: the block's queries and a
-    32-row train tile at the bank-spread row stride fit the 227 KB cap;
-    the stride is D/4 rounded up, one more where that is a multiple of 4."""
+    """Every D up to MAX_D at carry width k: the block's queries and its
+    ring of train stages at the bank-spread row stride fit the 227 KB cap;
+    the stride is D/4 rounded up, one more where that is a multiple of 4;
+    a stage is whole 32-row tiles near STAGE_BYTES, two of them where they
+    fit (at least up to D=128)."""
     assert kk._block_queries(k) * {8: 1, 16: 2, 32: 4, 64: 4}[k] == kk.BQ
     for d in range(1, kk.MAX_D + 1):
         s4 = kk._row_stride4(d)
         assert s4 % 4 and 4 * s4 >= d and s4 <= (d + 3) // 4 + 1
-        assert kk._smem_bytes(d, k) == \
-            16 * s4 * (kk._block_queries(k) + kk.TT) + 8 * kk.TT
-        assert kk._smem_bytes(d, k) <= kk.SMEM_LIMIT
+        rows, stages, smem = kk._stage_plan(d, k)
+        row = 16 * s4 + 8
+        assert rows % kk.TT == 0 and stages in (1, 2)
+        assert rows == kk.TT or rows * row <= kk.STAGE_BYTES < (rows + kk.TT) * row
+        assert smem == 16 * s4 * kk._block_queries(k) + stages * rows * row
+        assert smem == kk._smem_bytes(d, k) <= kk.SMEM_LIMIT
+        if d <= 128:
+            assert stages == 2
 
 
 # ------------------------------------------------------------- pre-pass
