@@ -258,30 +258,49 @@ __device__ __forceinline__ void merge_lanes(Carry<K>& c) {
 // the worst keys of the TC carries that share it, an upper bound on the
 // K-th smallest key of their union. A key above it is dropped unseen by
 // the carry; a key equal to it may still enter on the column order.
+// The keys that pass are marked in a bit mask and inserted after, lowest
+// column first, so a query's insert network is compiled once, not once a
+// column: the unrolled selection stays small enough for the instruction
+// cache.
 template <bool CHECK, bool EUCLID, int MODE, int K, int QPT>
 __device__ __forceinline__ void select_tile(
     Carry<K> (&best)[QPT], const float (&acc)[QPT][TPT],
     const float (&qn)[QPT], const int (&lim)[QPT], const float* tn_s,
     const int* lab_s, int tc, int base, int row_end, int pack_mask) {
+  float tn[TPT];
+  int lab[TPT];
 #pragma unroll
   for (int j = 0; j < TPT; ++j) {
-    const int lr = tc + TC * j;
-    const int col = base + lr;
-    if (CHECK && col >= row_end) break;
-    const float tn = EUCLID ? tn_s[lr] : 0.f;
-    const int lab = MODE == LABELS ? lab_s[lr] : 0;
+    tn[j] = EUCLID ? tn_s[tc + TC * j] : 0.f;
+    lab[j] = MODE == LABELS ? lab_s[tc + TC * j] : 0;
+  }
 #pragma unroll
-    for (int i = 0; i < QPT; ++i) {
+  for (int i = 0; i < QPT; ++i) {
+    int key[TPT];
+    unsigned hit = 0;
+#pragma unroll
+    for (int j = 0; j < TPT; ++j) {
+      const int col = base + tc + TC * j;
       float v = acc[i][j];
       if (EUCLID) {
-        v = (qn[i] + tn) - 2.f * v;
+        v = (qn[i] + tn[j]) - 2.f * v;
         v = v > 0.f ? v : 0.f;             // clamp, and -0 becomes +0
       }
-      int key = __float_as_int(v);
-      if (MODE == LANES) key = (key & ~pack_mask) | (col >> 7);
-      if (MODE == LABELS) key = (key & ~pack_mask) | lab;
-      if (MODE == PACKED) key &= ~pack_mask;
-      if (key <= lim[i] && key < best[i].worst()) best[i].insert(key, col);
+      key[j] = __float_as_int(v);
+      if (MODE == LANES) key[j] = (key[j] & ~pack_mask) | (col >> 7);
+      if (MODE == LABELS) key[j] = (key[j] & ~pack_mask) | lab[j];
+      if (MODE == PACKED) key[j] &= ~pack_mask;
+      if ((!CHECK || col < row_end) && key[j] <= lim[i] &&
+          key[j] < best[i].worst())
+        hit |= 1u << j;
+    }
+    while (hit) {
+      const int j = __ffs(hit) - 1;
+      hit &= hit - 1;
+      int k = key[0];
+#pragma unroll
+      for (int jj = 1; jj < TPT; ++jj) k = jj == j ? key[jj] : k;
+      if (k < best[i].worst()) best[i].insert(k, base + tc + TC * j);
     }
   }
 }

@@ -11,7 +11,10 @@ Ports the four TPU kernels of `avenir_tpu/ops/pallas_knn.py`:
 
 A wrapper given CPU tensors computes its plain PyTorch version; given CUDA
 tensors it launches its kernel or raises — there is no fallback. Each
-wrapper counts its kernel launches in its `launches` attribute.
+wrapper counts its kernel launches in its `launches` attribute. Euclidean
+calls first launch `knn_prepass` (`csrc/knn_prepass.cu`, counted on its
+own): row norms and, for bfloat16, rounded operand copies, which the four
+kernels take inside each tile on the TPU (`pallas_knn.py:54-70`).
 
 All four select on an int32 key built from a non-negative fp32 distance
 d (squared for euclidean): the exact kernel on bits(d), the packed kernel
@@ -25,7 +28,8 @@ compute_dtype="bfloat16" rounds the operands of the euclidean cross term
 q.t to bfloat16 (nearest even) and keeps fp32 products and sums; the
 norms |q|^2 and |t|^2 stay those of the fp32 values, and manhattan
 ignores the dtype. That is the TPU kernels' bf16 dot_general with fp32
-accumulation.
+accumulation. On the card both dtypes run the same partial kernel: the
+pre-pass hands it the rounded copies.
 """
 
 from __future__ import annotations
@@ -248,7 +252,7 @@ def _fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
                                            float("-inf")).float())
     mid = hi == (r.double() + other.double()) / 2
     up = lo > 0
-    pick_other = mid & (lo != 0) & ((other > r) == up)
+    pick_other = mid & (lo != 0) & ((other > r) == up) & torch.isfinite(hi)
     return torch.where(pick_other, other, r)
 
 
@@ -417,18 +421,19 @@ def _sm_count(dev: torch.device) -> int:
 _INFO: dict = {}
 
 
-def partial_info(k: int, euclid: bool, mode: str, d: int
+def partial_info(k: int, euclid: bool, mode: str, d: int, lib=None
                  ) -> Tuple[int, ...]:
     """(blocks per SM, registers a thread, local bytes a thread, rows a
     stage, stages, shared-memory bytes) of the partial instance a CUDA
     launch of `mode` takes at d features, from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor, cudaFuncGetAttributes
     and the kernel's stage plan on the current device (cached per instance
-    and d). Both compute dtypes run the same instance."""
+    and d; `lib` is another build of the library). Both compute dtypes run
+    the same instance."""
     lib_name = "knn_classify" if mode == "labels" else "knn_topk"
-    key = (lib_name, _carry_width(k), euclid, mode, d)
+    lib = lib or _build.load(lib_name)
+    key = (lib._name, _carry_width(k), euclid, mode, d)
     if key not in _INFO:
-        lib = _build.load(lib_name)
         info = (ctypes.c_int * 6)()
         if mode == "labels":
             err = lib.knn_classify_partial_info(k, int(euclid), d, info)
@@ -474,22 +479,23 @@ def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
     return None if x is None else x.data_ptr()
 
 
-def _topk_keys(mode, q, t, k, euclid, bf16, n_valid
+def _topk_keys(mode, q, t, k, euclid, bf16, n_valid, lib=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The raw (key, index) [nq, k] of `mode` from the CUDA kernels: the
-    pre-pass where euclidean, then knn_topk.cu; buffers on q's device."""
+    pre-pass where euclidean, then knn_topk.cu (or `lib`, a build of
+    another version of it); buffers on q's device."""
     nq, d = q.shape
     bits = _key_spec(mode, t)[0]
     qx, tx, qn, tn = _operands(q, t, euclid, bf16, n_valid)
     splits, rows = _splits(nq, n_valid, _sm_count(q.device),
-                           partial_info(k, euclid, mode, d)[0],
+                           partial_info(k, euclid, mode, d, lib)[0],
                            _stage_plan(d, k)[0], _block_queries(k))
     part_k = torch.empty(splits * nq * _carry_width(k), dtype=torch.int32,
                          device=q.device)
     part_i = torch.empty_like(part_k)
     out_k = torch.empty((nq, k), dtype=torch.int32, device=q.device)
     out_i = torch.empty_like(out_k)
-    _raise_on(_build.load("knn_topk").knn_topk_launch(
+    _raise_on((lib or _build.load("knn_topk")).knn_topk_launch(
         qx.data_ptr(), tx.data_ptr(), _ptr(qn), _ptr(tn), nq, d, n_valid, k,
         int(euclid), MODES[mode], bits, splits, rows, part_k.data_ptr(),
         part_i.data_ptr(), out_k.data_ptr(), out_i.data_ptr(),
@@ -498,20 +504,21 @@ def _topk_keys(mode, q, t, k, euclid, bf16, n_valid
 
 
 def _classify_scores(q, t, t_labels, k, euclid, bf16, n_classes, n_attrs,
-                     kernel_fn, kernel_param, n_valid) -> torch.Tensor:
+                     kernel_fn, kernel_param, n_valid, lib=None
+                     ) -> torch.Tensor:
     """The vote's scores [nq, n_classes] from the CUDA kernels: the
-    pre-pass where euclidean, then knn_classify.cu; buffers on q's
-    device."""
+    pre-pass where euclidean, then knn_classify.cu (or `lib`, a build of
+    another version of it); buffers on q's device."""
     nq, d = q.shape
     qx, tx, qn, tn = _operands(q, t, euclid, bf16, n_valid)
     splits, rows = _splits(nq, n_valid, _sm_count(q.device),
-                           partial_info(k, euclid, "labels", d)[0],
+                           partial_info(k, euclid, "labels", d, lib)[0],
                            _stage_plan(d, k)[0], _block_queries(k))
     part_k = torch.empty(splits * nq * _carry_width(k), dtype=torch.int32,
                          device=q.device)
     part_i = torch.empty_like(part_k)
     scores = torch.empty((nq, n_classes), dtype=torch.float32, device=q.device)
-    _raise_on(_build.load("knn_classify").knn_classify_launch(
+    _raise_on((lib or _build.load("knn_classify")).knn_classify_launch(
         qx.data_ptr(), tx.data_ptr(), _ptr(qn), _ptr(tn), t_labels.data_ptr(),
         nq, d, n_valid, k, int(euclid), label_bits(n_classes), n_classes,
         1.0 / max(n_attrs, 1), KERNEL_FNS.index(kernel_fn),
@@ -553,6 +560,8 @@ def knn_prepass(q: torch.Tensor, t: torch.Tensor, bf16: bool = False
     knn_prepass.cu over both, or the plain version for CPU tensors."""
     if not q.is_cuda:
         return knn_prepass_plain(q, t, bf16)
+    if q.dtype != torch.float32 or t.dtype != torch.float32:
+        raise TypeError("q and t must be float32")
     if q.device != t.device or q.shape[1] != t.shape[1]:
         raise ValueError("q and t must share a device and a feature count")
     q, t = q.contiguous(), t.contiguous()

@@ -2,12 +2,15 @@
 
     python -m avenir_tpu_torch.tools.knn_ab --parent DIR [--reps N]
 
-DIR holds an earlier `knn_tile.cuh`, `knn_topk.cu` and `knn_classify.cu`
-whose C entries take the interface of `PARENT_TOPK` and `PARENT_CLASSIFY`
-(q, t, the launch's split of the train axis and its scratch, no norms),
+DIR holds an earlier `knn_tile.cuh`, `knn_topk.cu` and `knn_classify.cu`,
 for example those of an earlier commit written out with `git show` into a
-git-ignored directory. Both versions build with the same nvcc flags
-(`ops/_build.py`), the earlier one into a build directory of its own.
+git-ignored directory. With `--abi parent` (the default) their C entries
+take the interface of `PARENT_TOPK` and `PARENT_CLASSIFY` (q, t, the
+launch's split of the train axis and its scratch, no norms: the kernels
+before the pre-pass) and their own split; with `--abi current` they take
+this checkout's interface, and run after this checkout's pre-pass on the
+grid their own occupancy gives. Both versions build with the same nvcc flags (`ops/_build.py`), the
+earlier one into a build directory of its own.
 
 The inputs are `chip_smoke.py` phase 2's: for D in (6, 128), q [8192, D],
 t [131072, D] and labels [131072] drawn from a device generator seeded
@@ -112,18 +115,28 @@ def parent_call(libs, mode: str, q, t, labels, metric: str, bf16: bool
     return run
 
 
-def current_call(mode: str, q, t, labels, metric: str, bf16: bool
-                 ) -> Callable[[], List[torch.Tensor]]:
+def load_current_abi(parent: Path):
+    """(knn_topk, knn_classify) libraries built from `parent`'s sources,
+    bound with this checkout's C interface."""
+    _build.build_all(csrc=parent, names=("knn_topk", "knn_classify"))
+    return tuple(_build.bind(ctypes.CDLL(str(_build.build_dir(parent) /
+                                             f"lib{name}.so")), name)
+                 for name in ("knn_topk", "knn_classify"))
+
+
+def current_call(mode: str, q, t, labels, metric: str, bf16: bool,
+                 libs=(None, None)) -> Callable[[], List[torch.Tensor]]:
     """A call of this checkout's kernels (the pre-pass where euclidean,
-    then the partial and merge kernels) giving [keys, indices] or
-    [scores]."""
+    then the partial and merge kernels; with `libs`, those of another
+    build with the same interface) giving [keys, indices] or [scores]."""
     euclid = metric == "euclidean"
 
     def run():
         if mode == "labels":
             return [kk._classify_scores(q, t, labels, K, euclid, bf16, C,
-                                        q.shape[1], "gaussian", 30.0, NT)]
-        return list(kk._topk_keys(mode, q, t, K, euclid, bf16, NT))
+                                        q.shape[1], "gaussian", 30.0, NT,
+                                        libs[1])]
+        return list(kk._topk_keys(mode, q, t, K, euclid, bf16, NT, libs[0]))
     return run
 
 
@@ -150,13 +163,20 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "?"
 
 
-def run(parent: Path, reps: int = 5, out=print) -> List[dict]:
+def run(parent: Path, reps: int = 5, out=print, abi: str = "parent"
+        ) -> List[dict]:
     if not torch.cuda.is_available():
         raise RuntimeError("knn_ab compares CUDA kernels and needs a CUDA "
                            "device")
     dev = torch.device("cuda")
-    libs = load_parent(parent)
+    libs = load_parent(parent) if abi == "parent" else load_current_abi(parent)
     out(card())
+    if abi == "current":
+        for d in (6, 128):
+            for name, lib in (("earlier", libs[0]), ("current", None)):
+                info = kk.partial_info(8, False, "exact", d, lib)
+                out(f"{name} K=8 manhattan exact D={d}: {info[1]} registers, "
+                    f"{info[2]} local bytes, {info[0]} blocks/SM")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     for d in (6, 128):
@@ -169,7 +189,9 @@ def run(parent: Path, reps: int = 5, out=print) -> List[dict]:
                 if metric == "euclidean" else (("float32", False),)
             for mode in ("exact", "lanes", "packed", "labels"):
                 for dtype, bf16 in dtypes:
-                    old = parent_call(libs, mode, q, t, labels, metric, bf16)
+                    old = (parent_call(libs, mode, q, t, labels, metric, bf16)
+                           if abi == "parent" else
+                           current_call(mode, q, t, labels, metric, bf16, libs))
                     new = current_call(mode, q, t, labels, metric, bf16)
                     same = all(torch.equal(a, b) for a, b in zip(old(), new()))
                     p1, n1, n2, p2 = (cuda_ms(fn, reps)
@@ -194,8 +216,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="directory of the earlier knn_tile.cuh, knn_topk.cu "
                          "and knn_classify.cu")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--abi", choices=("parent", "current"), default="parent",
+                    help="the C interface of the earlier sources")
     args = ap.parse_args(argv)
-    rows = run(args.parent, args.reps)
+    rows = run(args.parent, args.reps, abi=args.abi)
     return 0 if all(r["bit_equal"] for r in rows
                     if r["dtype"] == "float32") else 1
 

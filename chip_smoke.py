@@ -7,6 +7,10 @@ Phases, each printing a line per check; any failed check exits non-zero:
 
 1. Card: name and power limit (nvidia-smi), torch and CUDA versions, and
    the nvcc build of every kernel from `avenir_tpu_torch/ops/csrc/`.
+   Fails on any spill: ptxas's spill bytes of every partial instance and
+   the local bytes cudaFuncGetAttributes reports for each of the 32;
+   prints the registers and blocks per SM of the K=8 instances, and holds
+   each instance's stage plan to the wrapper's.
 2. Kernels against their plain PyTorch versions on the card, at the
    e-learning workload's size (8192 queries x 131072 train rows, k=5),
    D in {6, 128}, both metrics, and for the vote C=2 with the kernels
@@ -15,7 +19,10 @@ Phases, each printing a line per check; any failed check exits non-zero:
    quantum 2^-(23-pack_bits) with neighbour-set recall >= 0.99; vote
    scores equal for the kernel none (neighbour counts) and within 2.0
    for gaussian, with arg-max agreement >= 0.99. Index mismatches
-   are allowed only between tied distances. Times are CUDA-event medians.
+   are allowed only between tied distances. The euclidean pre-pass
+   (`knn_prepass`, norms alone and with bfloat16 copies) bit-equal to its
+   plain version. Times are CUDA-event medians; each row prints its share
+   of its bound, its blocks per SM, grid and waves, and its launches.
 3. The main path: the `nearestNeighbor` job through `runner.run_job` on
    seeded e-learning CSVs (131072 train, 8192 test rows, 6 features), in
    its three modes (default exact top-k, nen.device.packed.kernel,
@@ -50,7 +57,8 @@ Phases, each printing a line per check; any failed check exits non-zero:
 
 Phases 4 and 5's sweep are the second path and phase 7's bench the third:
 each kernel's launches are counted from zero on each path. Then one JSON
-line of per-kernel numbers, and as the last line
+line of per-kernel numbers (the pre-pass beside the five kernels, at the
+sweep's D=128 float32), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 

@@ -386,14 +386,18 @@ def _round_bf16_bits(x):
     (0.0, 1 + 2.0 ** -11),                    # a tie: to even
     (2.0 ** -60, 1 + 2.0 ** -11 + 2.0 ** -23),  # just past the tie: up
     (-(2.0 ** -60), 1 + 2.0 ** -11),           # just short of it: down
+    (3e38, float("inf")),                      # past the largest float32
 ])
 def test_fmaf_rounds_once_at_a_tie(c, want):
     """a*a lies exactly halfway between two float32 values, and c decides
     the side only where the sum is rounded once, as the card's fmaf is."""
     a = torch.tensor([1 + 2.0 ** -12], dtype=torch.float32)
+    if np.isinf(want):                         # a^2 + c overflows: +inf
+        a = torch.tensor([2e19], dtype=torch.float32)
     got = kk._fmaf(a, a, torch.tensor([c], dtype=torch.float32))
     assert got.item() == np.float32(want)
-    assert got.item() == _fma_exact(a.item(), a.item(), np.float32(c))
+    if np.isfinite(want):
+        assert got.item() == _fma_exact(a.item(), a.item(), np.float32(c))
 
 
 @pytest.mark.parametrize("d", [1, 6, 13])
@@ -407,11 +411,12 @@ def test_prepass_plain_norms_are_the_fmaf_chain(d):
     t = rng.normal(size=(9, d)).astype(np.float32)
     qn, tn, qx, tx = kk.knn_prepass_plain(_t(q), _t(t))
     for x, norms in ((q, qn), (t, tn)):
+        got = norms.numpy()
         for r in range(x.shape[0]):
             s = np.float32(0.0)
             for f in range(d):
                 s = _fma_exact(x[r, f], x[r, f], s)
-            assert norms[r].item() == s
+            assert got[r] == s
         np.testing.assert_allclose(norms.numpy(), (_t(x) * _t(x)).sum(1),
                                    rtol=1e-6 * d)
     assert torch.equal(qx, _t(q))
