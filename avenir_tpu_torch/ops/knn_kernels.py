@@ -445,6 +445,27 @@ def partial_info(k: int, euclid: bool, mode: str, d: int, lib=None
     return _INFO[key]
 
 
+def _grid(q: torch.Tensor, k: int, euclid: bool, mode: str, n_valid: int,
+          lib=None) -> Tuple[int, int, int, int]:
+    """(SMs, blocks per SM, splits, rows_per_split) of a CUDA launch of
+    `mode` over n_valid train rows: the instance's occupancy on q's device,
+    then the whole-wave split of _splits."""
+    nq, d = q.shape
+    sms = _sm_count(q.device)
+    per_sm = partial_info(k, euclid, mode, d, lib)[0]
+    splits, rows = _splits(nq, n_valid, sms, per_sm, _stage_plan(d, k)[0],
+                           _block_queries(k))
+    return sms, per_sm, splits, rows
+
+
+def _partial_buffers(q: torch.Tensor, k: int, splits: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The partial kernel's (key, index) scratch on q's device."""
+    part_k = torch.empty(splits * q.shape[0] * _carry_width(k),
+                         dtype=torch.int32, device=q.device)
+    return part_k, torch.empty_like(part_k)
+
+
 def launch_plan(q: torch.Tensor, t: torch.Tensor, k: int, metric: str,
                 mode: str, n_valid: Optional[int] = None) -> dict:
     """The grid a CUDA launch of `mode` ("exact", "lanes", "packed" or
@@ -452,11 +473,9 @@ def launch_plan(q: torch.Tensor, t: torch.Tensor, k: int, metric: str,
     rows_per_split, grid blocks and waves."""
     nv = _check(q, t, k, metric, n_valid)
     with torch.cuda.device(q.device):
-        per_sm = partial_info(k, metric == "euclidean", mode, q.shape[1])[0]
-        sms = _sm_count(q.device)
+        sms, per_sm, splits, rows = _grid(q, k, metric == "euclidean", mode,
+                                          nv)
     bq = _block_queries(k)
-    splits, rows = _splits(q.shape[0], nv, sms, per_sm,
-                           _stage_plan(q.shape[1], k)[0], bq)
     return {"blocks_per_sm": per_sm, "splits": splits, "rows_per_split": rows,
             "grid": (q.shape[0] + bq - 1) // bq * splits,
             "waves": _waves(q.shape[0], splits, sms, per_sm, bq)}
@@ -487,12 +506,8 @@ def _topk_keys(mode, q, t, k, euclid, bf16, n_valid, lib=None
     nq, d = q.shape
     bits = _key_spec(mode, t)[0]
     qx, tx, qn, tn = _operands(q, t, euclid, bf16, n_valid)
-    splits, rows = _splits(nq, n_valid, _sm_count(q.device),
-                           partial_info(k, euclid, mode, d, lib)[0],
-                           _stage_plan(d, k)[0], _block_queries(k))
-    part_k = torch.empty(splits * nq * _carry_width(k), dtype=torch.int32,
-                         device=q.device)
-    part_i = torch.empty_like(part_k)
+    _, _, splits, rows = _grid(q, k, euclid, mode, n_valid, lib)
+    part_k, part_i = _partial_buffers(q, k, splits)
     out_k = torch.empty((nq, k), dtype=torch.int32, device=q.device)
     out_i = torch.empty_like(out_k)
     _raise_on((lib or _build.load("knn_topk")).knn_topk_launch(
@@ -511,12 +526,8 @@ def _classify_scores(q, t, t_labels, k, euclid, bf16, n_classes, n_attrs,
     another version of it); buffers on q's device."""
     nq, d = q.shape
     qx, tx, qn, tn = _operands(q, t, euclid, bf16, n_valid)
-    splits, rows = _splits(nq, n_valid, _sm_count(q.device),
-                           partial_info(k, euclid, "labels", d, lib)[0],
-                           _stage_plan(d, k)[0], _block_queries(k))
-    part_k = torch.empty(splits * nq * _carry_width(k), dtype=torch.int32,
-                         device=q.device)
-    part_i = torch.empty_like(part_k)
+    _, _, splits, rows = _grid(q, k, euclid, "labels", n_valid, lib)
+    part_k, part_i = _partial_buffers(q, k, splits)
     scores = torch.empty((nq, n_classes), dtype=torch.float32, device=q.device)
     _raise_on((lib or _build.load("knn_classify")).knn_classify_launch(
         qx.data_ptr(), tx.data_ptr(), _ptr(qn), _ptr(tn), t_labels.data_ptr(),

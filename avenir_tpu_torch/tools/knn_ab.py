@@ -9,8 +9,11 @@ take the interface of `PARENT_TOPK` and `PARENT_CLASSIFY` (q, t, the
 launch's split of the train axis and its scratch, no norms: the kernels
 before the pre-pass) and their own split; with `--abi current` they take
 this checkout's interface, and run after this checkout's pre-pass on the
-grid their own occupancy gives. Both versions build with the same nvcc flags (`ops/_build.py`), the
-earlier one into a build directory of its own.
+grid their own occupancy gives; then both versions' K=8 manhattan exact
+instances are printed with their registers, local bytes, blocks per SM
+and SASS instructions (`cuobjdump -sass`). Both versions build with the
+same nvcc flags (`ops/_build.py`), the earlier one into a build directory
+of its own.
 
 The inputs are `chip_smoke.py` phase 2's: for D in (6, 128), q [8192, D],
 t [131072, D] and labels [131072] drawn from a device generator seeded
@@ -31,6 +34,8 @@ import argparse
 import ctypes
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -53,6 +58,26 @@ PARENT_TOPK = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
 PARENT_CLASSIFY = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I,
                    _I, _P, _P, _P, _P]
 PARENT_BQ, PARENT_TT = 128, 32
+#: mangled-name part of the K=8 manhattan exact partial instance
+K8_L1_EXACT = "partial_topk_kernelILi8ELi0ELi0E"
+
+
+def sass_instructions(sass: str, kernel: str) -> int:
+    """Instructions of the first function of `cuobjdump -sass` output
+    whose mangled name contains `kernel` (0 if none does): the lines that
+    start with an address comment, predicated or not."""
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        if kernel in part.split("\n", 1)[0]:
+            return len(re.findall(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?[A-Z]", part))
+    return 0
+
+
+def library_sass(build: Path) -> str:
+    """`cuobjdump -sass` of the knn_topk library built in `build`."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", str(build / "libknn_topk.so")],
+                          capture_output=True, text=True, timeout=300).stdout
 
 
 def parent_splits(nq: int, n_valid: int, sms: int):
@@ -87,10 +112,7 @@ def parent_call(libs, mode: str, q, t, labels, metric: str, bf16: bool
     nq, d = q.shape
     euclid = int(metric == "euclidean")
     splits, rows = parent_splits(nq, NT, kk._sm_count(q.device))
-    width = kk._carry_width(K)
-    part_k = torch.empty(splits * nq * width, dtype=torch.int32,
-                         device=q.device)
-    part_i = torch.empty_like(part_k)
+    part_k, part_i = kk._partial_buffers(q, K, splits)
     stream = kk._stream(q.device)
 
     def run():
@@ -172,11 +194,14 @@ def run(parent: Path, reps: int = 5, out=print, abi: str = "parent"
     libs = load_parent(parent) if abi == "parent" else load_current_abi(parent)
     out(card())
     if abi == "current":
-        for d in (6, 128):
-            for name, lib in (("earlier", libs[0]), ("current", None)):
+        for name, lib, build in (("earlier", libs[0], _build.build_dir(parent)),
+                                 ("current", None, _build.build_dir())):
+            n = sass_instructions(library_sass(build), K8_L1_EXACT)
+            for d in (6, 128):
                 info = kk.partial_info(8, False, "exact", d, lib)
                 out(f"{name} K=8 manhattan exact D={d}: {info[1]} registers, "
-                    f"{info[2]} local bytes, {info[0]} blocks/SM")
+                    f"{info[2]} local bytes, {info[0]} blocks/SM, {n} SASS "
+                    f"instructions")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     for d in (6, 128):

@@ -223,3 +223,25 @@ def test_knn_ab_interfaces_match_the_sources():
         len(knn_ab.PARENT_CLASSIFY) + 1
     for name in ("knn_topk", "knn_classify"):
         assert f"int {name}_launch(" in (_build.CSRC / f"{name}.cu").read_text()
+
+
+def test_knn_ab_counts_a_kernels_sass_instructions():
+    """One function's instructions of `cuobjdump -sass` output, predicated
+    ones included, never the encoding comments or another function's."""
+    from avenir_tpu_torch.tools import knn_ab
+
+    sass = """
+\tcode for sm_90a
+\t\tFunction : _ZN3knn19partial_topk_kernelILi16ELi0ELi0EEEvPKf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                             /* 0x000e700000000800 */
+\t\tFunction : _ZN3knn19partial_topk_kernelILi8ELi0ELi0EEEvPKf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                             /* 0x000e700000000800 */
+        /*0010*/              @!P0 FADD R2, R3, -R4 ;       /* 0x0000000403027221 */
+        /*0020*/              @UP1 BRA 0x1c0 ;              /* 0x0000000000007947 */
+        /*0030*/                   EXIT ;                   /* 0x000000000000794d */
+"""
+    assert knn_ab.sass_instructions(sass, knn_ab.K8_L1_EXACT) == 4
+    assert knn_ab.sass_instructions(sass, "ILi16ELi0ELi0E") == 1
+    assert knn_ab.sass_instructions(sass, "ILi64E") == 0
