@@ -16,33 +16,52 @@
 // spends no barrier, no idle thread and no rounding on them per tile.
 //
 // What bounds it: bytes, (nq + nt) * D * 4 read and, with bf16, as many
-// written; it is a few percent of the partial kernel's time. One thread a
-// row keeps the fmaf chain in feature order.
+// written. A block takes ROWS rows of one operand and walks their features
+// in chunks of up to CHUNK: its threads read a chunk of the rows in
+// address order (coalesced), write the rounded copies from the same
+// loads, and stage the values in shared memory at an odd row stride; then
+// one thread a row continues that row's fmaf chain over the chunk from
+// shared memory without bank conflicts, so the chain keeps feature order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int ROWS = 32;
+constexpr int CHUNK = 128;
 
 __global__ void __launch_bounds__(THREADS)
 prepass_kernel(const float* __restrict__ q, int nq,
                const float* __restrict__ t, int nt, int d, int bf16,
                float* __restrict__ qn, float* __restrict__ tn,
                float* __restrict__ q_r, float* __restrict__ t_r) {
-  const int r = blockIdx.x * THREADS + threadIdx.x;
-  if (r >= nq + nt) return;
-  const bool is_q = r < nq;
-  const int row = is_q ? r : r - nq;
-  const float* x = (is_q ? q : t) + (size_t)row * d;
-  float* xr = (is_q ? q_r : t_r) + (size_t)row * d;
+  __shared__ float tile[ROWS * (CHUNK + 1)];
+  const int q_blocks = (nq + ROWS - 1) / ROWS;
+  const bool is_q = (int)blockIdx.x < q_blocks;
+  const int row0 = (is_q ? blockIdx.x : blockIdx.x - q_blocks) * ROWS;
+  const int n = min(ROWS, (is_q ? nq : nt) - row0);
+  const float* x = (is_q ? q : t) + (size_t)row0 * d;
+  float* xr = (is_q ? q_r : t_r) + (size_t)row0 * d;
   float s = 0.f;
-  for (int f = 0; f < d; ++f) {
-    const float v = x[f];
-    s = fmaf(v, v, s);
-    if (bf16) xr[f] = __bfloat162float(__float2bfloat16_rn(v));
+  for (int f0 = 0; f0 < d; f0 += CHUNK) {
+    const int fc = min(CHUNK, d - f0);
+    const int stride = fc | 1;
+    for (int i = threadIdx.x; i < n * fc; i += THREADS) {
+      const int r = i / fc, f = i - r * fc;
+      const size_t at = (size_t)r * d + f0 + f;
+      const float v = x[at];
+      tile[r * stride + f] = v;
+      if (bf16) xr[at] = __bfloat162float(__float2bfloat16_rn(v));
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < n) {
+      const float* row = tile + threadIdx.x * stride;
+      for (int f = 0; f < fc; ++f) s = fmaf(row[f], row[f], s);
+    }
+    __syncthreads();
   }
-  (is_q ? qn : tn)[row] = s;
+  if ((int)threadIdx.x < n) (is_q ? qn : tn)[row0 + threadIdx.x] = s;
 }
 
 }  // namespace
@@ -55,14 +74,14 @@ extern "C" {
 int knn_prepass_launch(const float* q, int nq, const float* t, int nt, int d,
                        int bf16, float* qn, float* tn, float* q_r, float* t_r,
                        void* stream) {
-  const int rows = nq + nt;
-  if (rows == 0) return 0;
+  const int blocks = (nq + ROWS - 1) / ROWS + (nt + ROWS - 1) / ROWS;
+  if (blocks == 0) return 0;
   void* args[] = {(void*)&q,  (void*)&nq,  (void*)&t,   (void*)&nt,
                   (void*)&d,  (void*)&bf16, (void*)&qn, (void*)&tn,
                   (void*)&q_r, (void*)&t_r};
-  cudaError_t err = cudaLaunchKernel(
-      &prepass_kernel, dim3((rows + THREADS - 1) / THREADS), dim3(THREADS),
-      args, 0, (cudaStream_t)stream);
+  cudaError_t err = cudaLaunchKernel(&prepass_kernel, dim3(blocks),
+                                     dim3(THREADS), args, 0,
+                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

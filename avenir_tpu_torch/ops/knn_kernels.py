@@ -100,7 +100,8 @@ PLAIN_BLOCK = 4096
 #: fewest train rows a split takes when there are that many
 MIN_SPLIT_ROWS = 256
 #: a block's fixed work (staging its queries, writing its carries, the
-#: merge reading them) counted as train rows scanned
+#: merge reading them) counted as train rows scanned: an estimate from
+#: those byte counts, not tuned on the card
 SPLIT_COST_ROWS = 64
 
 
@@ -427,12 +428,13 @@ def partial_info(k: int, euclid: bool, mode: str, d: int, lib=None
     stage, stages, shared-memory bytes) of the partial instance a CUDA
     launch of `mode` takes at d features, from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor, cudaFuncGetAttributes
-    and the kernel's stage plan on the current device (cached per instance
-    and d; `lib` is another build of the library). Both compute dtypes run
-    the same instance."""
+    and the kernel's stage plan on the current device (cached per device,
+    instance and d; `lib` is another build of the library). Both compute
+    dtypes run the same instance."""
     lib_name = "knn_classify" if mode == "labels" else "knn_topk"
     lib = lib or _build.load(lib_name)
-    key = (lib._name, _carry_width(k), euclid, mode, d)
+    key = (lib._name, torch.cuda.current_device(), _carry_width(k), euclid,
+           mode, d)
     if key not in _INFO:
         info = (ctypes.c_int * 6)()
         if mode == "labels":
@@ -448,14 +450,15 @@ def partial_info(k: int, euclid: bool, mode: str, d: int, lib=None
 def _grid(q: torch.Tensor, k: int, euclid: bool, mode: str, n_valid: int,
           lib=None) -> Tuple[int, int, int, int]:
     """(SMs, blocks per SM, splits, rows_per_split) of a CUDA launch of
-    `mode` over n_valid train rows: the instance's occupancy on q's device,
-    then the whole-wave split of _splits."""
+    `mode` over n_valid train rows: the instance's occupancy and stage
+    rows on q's device (the current one), then the whole-wave split of
+    _splits."""
     nq, d = q.shape
     sms = _sm_count(q.device)
-    per_sm = partial_info(k, euclid, mode, d, lib)[0]
-    splits, rows = _splits(nq, n_valid, sms, per_sm, _stage_plan(d, k)[0],
+    info = partial_info(k, euclid, mode, d, lib)
+    splits, rows = _splits(nq, n_valid, sms, info[0], info[3],
                            _block_queries(k))
-    return sms, per_sm, splits, rows
+    return sms, info[0], splits, rows
 
 
 def _partial_buffers(q: torch.Tensor, k: int, splits: int

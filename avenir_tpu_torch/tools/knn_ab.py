@@ -2,27 +2,25 @@
 
     python -m avenir_tpu_torch.tools.knn_ab --parent DIR [--reps N]
 
-DIR holds an earlier `knn_tile.cuh`, `knn_topk.cu` and `knn_classify.cu`,
-for example those of an earlier commit written out with `git show` into a
-git-ignored directory. With `--abi parent` (the default) their C entries
-take the interface of `PARENT_TOPK` and `PARENT_CLASSIFY` (q, t, the
-launch's split of the train axis and its scratch, no norms: the kernels
-before the pre-pass) and their own split; with `--abi current` they take
-this checkout's interface, and run after this checkout's pre-pass on the
-grid their own occupancy gives; then both versions' K=8 manhattan exact
+DIR holds an earlier `knn_tile.cuh`, `knn_topk.cu`, `knn_classify.cu` and
+`knn_prepass.cu` with this checkout's C interface, for example those of an
+earlier commit written out with `git show` into a git-ignored directory.
+They build with the same nvcc flags (`ops/_build.py`) into a build
+directory of their own. Both versions' K=8 manhattan exact partial
 instances are printed with their registers, local bytes, blocks per SM
-and SASS instructions (`cuobjdump -sass`). Both versions build with the
-same nvcc flags (`ops/_build.py`), the earlier one into a build directory
-of its own.
+and SASS instructions (`cuobjdump -sass`).
 
 The inputs are `chip_smoke.py` phase 2's: for D in (6, 128), q [8192, D],
 t [131072, D] and labels [131072] drawn from a device generator seeded
 1234, in that order. For each D, metric, mode (exact, lanes, packed and
 the fused vote, k=5, C=2, gaussian 30) and compute dtype (float32, and
-bfloat16 for euclidean), both versions run on the same tensors: their
-selection keys and indices (the vote: its scores) are compared bit for
-bit, and their times are CUDA-event medians of `--reps` launches, taken
-in turns (earlier, current, current, earlier) and averaged per side.
+bfloat16 for euclidean), both versions' partial and merge kernels run on
+the same tensors, each on the grid its own occupancy gives, after this
+checkout's pre-pass: their selection keys and indices (the vote: its
+scores) are compared bit for bit. For each D and dtype the two pre-passes
+run alone on q and t, their norms and rounded copies compared bit for bit.
+Times are CUDA-event medians of `--reps` calls, taken in turns (earlier,
+current, current, earlier) and averaged per side.
 
 Prints the card's name and power limit, one line per row and one JSON
 line; exits 1 if any float32 row differs. Needs a CUDA device.
@@ -33,7 +31,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import math
 import re
 import shutil
 import subprocess
@@ -47,17 +44,6 @@ from avenir_tpu_torch.ops import _build
 from avenir_tpu_torch.ops import knn_kernels as kk
 
 NQ, NT, K, C, SEED = 8192, 131072, 5, 2, 1234
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the earlier C entries: knn_topk_launch(q, t, nq, d, n_valid, k, euclid,
-#: mode, pack_bits, bf16, splits, rows_per_split, part_key, part_idx,
-#: out_key, out_idx, stream) and knn_classify_launch(q, t, labels, nq, d,
-#: n_valid, k, euclid, bf16, label_bits, n_classes, inv_attrs, kernel_fn,
-#: kernel_param, splits, rows_per_split, part_key, part_idx, scores, stream)
-PARENT_TOPK = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-               _P]
-PARENT_CLASSIFY = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I,
-                   _I, _P, _P, _P, _P]
-PARENT_BQ, PARENT_TT = 128, 32
 #: mangled-name part of the K=8 manhattan exact partial instance
 K8_L1_EXACT = "partial_topk_kernelILi8ELi0ELi0E"
 
@@ -80,70 +66,14 @@ def library_sass(build: Path) -> str:
                           capture_output=True, text=True, timeout=300).stdout
 
 
-def parent_splits(nq: int, n_valid: int, sms: int):
-    """The earlier versions' split: about 8 blocks per SM, at least 256
-    train rows per split, rows a multiple of their 32-row tile."""
-    if n_valid == 0:
-        return 1, PARENT_TT
-    blocks_x = (nq + PARENT_BQ - 1) // PARENT_BQ
-    splits = max(1, min(math.ceil(8 * sms / blocks_x),
-                        math.ceil(n_valid / 256)))
-    rows = math.ceil(math.ceil(n_valid / splits) / PARENT_TT) * PARENT_TT
-    return math.ceil(n_valid / rows), rows
-
-
 def load_parent(parent: Path):
-    """(knn_topk, knn_classify) libraries built from `parent`'s sources."""
-    _build.build_all(csrc=parent, names=("knn_topk", "knn_classify"))
-    libs = []
-    for name, args in (("knn_topk", PARENT_TOPK),
-                       ("knn_classify", PARENT_CLASSIFY)):
-        lib = ctypes.CDLL(str(_build.build_dir(parent) / f"lib{name}.so"))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes, fn.restype = args, ctypes.c_int
-        libs.append(lib)
-    return libs
-
-
-def parent_call(libs, mode: str, q, t, labels, metric: str, bf16: bool
-                ) -> Callable[[], List[torch.Tensor]]:
-    """A call of the earlier kernels giving [keys, indices] or [scores]."""
-    topk, classify = libs
-    nq, d = q.shape
-    euclid = int(metric == "euclidean")
-    splits, rows = parent_splits(nq, NT, kk._sm_count(q.device))
-    part_k, part_i = kk._partial_buffers(q, K, splits)
-    stream = kk._stream(q.device)
-
-    def run():
-        if mode == "labels":
-            scores = torch.empty((nq, C), dtype=torch.float32, device=q.device)
-            kk._raise_on(classify.knn_classify_launch(
-                q.data_ptr(), t.data_ptr(), labels.data_ptr(), nq, d, NT, K,
-                euclid, int(bf16), kk.label_bits(C), C, 1.0 / d,
-                kk.KERNEL_FNS.index("gaussian"), 30.0, splits, rows,
-                part_k.data_ptr(), part_i.data_ptr(), scores.data_ptr(),
-                stream), "earlier knn_classify")
-            return [scores]
-        bits = kk._key_spec(mode, t)[0]
-        out_k = torch.empty((nq, K), dtype=torch.int32, device=q.device)
-        out_i = torch.empty_like(out_k)
-        kk._raise_on(topk.knn_topk_launch(
-            q.data_ptr(), t.data_ptr(), nq, d, NT, K, euclid, kk.MODES[mode],
-            bits, int(bf16), splits, rows, part_k.data_ptr(),
-            part_i.data_ptr(), out_k.data_ptr(), out_i.data_ptr(), stream),
-            f"earlier knn_topk ({mode})")
-        return [out_k, out_i]
-    return run
-
-
-def load_current_abi(parent: Path):
-    """(knn_topk, knn_classify) libraries built from `parent`'s sources,
-    bound with this checkout's C interface."""
-    _build.build_all(csrc=parent, names=("knn_topk", "knn_classify"))
+    """(knn_topk, knn_classify, knn_prepass) libraries built from
+    `parent`'s sources, bound with this checkout's C interface."""
+    names = ("knn_topk", "knn_classify", "knn_prepass")
+    _build.build_all(csrc=parent, names=names)
     return tuple(_build.bind(ctypes.CDLL(str(_build.build_dir(parent) /
                                              f"lib{name}.so")), name)
-                 for name in ("knn_topk", "knn_classify"))
+                 for name in names)
 
 
 def current_call(mode: str, q, t, labels, metric: str, bf16: bool,
@@ -160,6 +90,38 @@ def current_call(mode: str, q, t, labels, metric: str, bf16: bool,
                                         libs[1])]
         return list(kk._topk_keys(mode, q, t, K, euclid, bf16, NT, libs[0]))
     return run
+
+
+def prepass_call(q, t, bf16: bool, lib) -> Callable[[], List[torch.Tensor]]:
+    """A launch of `lib`'s pre-pass over q and t giving [qn, tn] and, with
+    bf16, the rounded copies."""
+    (nq, d), nt = q.shape, t.shape[0]
+
+    def run():
+        out = [torch.empty(n, dtype=torch.float32, device=q.device)
+               for n in (nq, nt)]
+        if bf16:
+            out += [torch.empty_like(q), torch.empty_like(t)]
+        ptrs = [x.data_ptr() for x in out] + [None] * (4 - len(out))
+        kk._raise_on(lib.knn_prepass_launch(
+            q.data_ptr(), nq, t.data_ptr(), nt, d, int(bf16), *ptrs,
+            kk._stream(q.device)), "knn_prepass")
+        return out
+    return run
+
+
+def ab_row(old, new, reps: int, out, **row) -> dict:
+    """Compare old() and new() bit for bit, time them in turns, print and
+    return the row."""
+    same = all(torch.equal(a, b) for a, b in zip(old(), new()))
+    p1, n1, n2, p2 = (cuda_ms(fn, reps) for fn in (old, new, new, old))
+    row.update(bit_equal=same, earlier_ms=(p1 + p2) / 2,
+               current_ms=(n1 + n2) / 2)
+    out(f"{'same' if same else 'DIFF'} D={row['d']} {row['metric']} "
+        f"{row['mode']} {row['dtype']}: earlier {row['earlier_ms']:.3f} ms "
+        f"({p1:.3f}, {p2:.3f}), current {row['current_ms']:.3f} ms "
+        f"({n1:.3f}, {n2:.3f}), x{row['earlier_ms'] / row['current_ms']:.2f}")
+    return row
 
 
 def cuda_ms(fn: Callable[[], object], reps: int) -> float:
@@ -185,23 +147,22 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "?"
 
 
-def run(parent: Path, reps: int = 5, out=print, abi: str = "parent"
-        ) -> List[dict]:
+def run(parent: Path, reps: int = 5, out=print) -> List[dict]:
     if not torch.cuda.is_available():
         raise RuntimeError("knn_ab compares CUDA kernels and needs a CUDA "
                            "device")
     dev = torch.device("cuda")
-    libs = load_parent(parent) if abi == "parent" else load_current_abi(parent)
+    libs = load_parent(parent)
+    here = _build.load("knn_prepass")
     out(card())
-    if abi == "current":
-        for name, lib, build in (("earlier", libs[0], _build.build_dir(parent)),
-                                 ("current", None, _build.build_dir())):
-            n = sass_instructions(library_sass(build), K8_L1_EXACT)
-            for d in (6, 128):
-                info = kk.partial_info(8, False, "exact", d, lib)
-                out(f"{name} K=8 manhattan exact D={d}: {info[1]} registers, "
-                    f"{info[2]} local bytes, {info[0]} blocks/SM, {n} SASS "
-                    f"instructions")
+    for name, lib, build in (("earlier", libs[0], _build.build_dir(parent)),
+                             ("current", None, _build.build_dir())):
+        n = sass_instructions(library_sass(build), K8_L1_EXACT)
+        for d in (6, 128):
+            info = kk.partial_info(8, False, "exact", d, lib)
+            out(f"{name} K=8 manhattan exact D={d}: {info[1]} registers, "
+                f"{info[2]} local bytes, {info[0]} blocks/SM, {n} SASS "
+                f"instructions")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     for d in (6, 128):
@@ -209,27 +170,19 @@ def run(parent: Path, reps: int = 5, out=print, abi: str = "parent"
         t = torch.rand((NT, d), generator=gen, device=dev)
         labels = torch.randint(0, 2, (NT,), generator=gen, device=dev,
                                dtype=torch.int32)
+        for dtype, bf16 in (("float32", False), ("bfloat16", True)):
+            rows.append(ab_row(prepass_call(q, t, bf16, libs[2]),
+                               prepass_call(q, t, bf16, here), reps, out, d=d,
+                               metric="-", mode="prepass", dtype=dtype))
         for metric in ("manhattan", "euclidean"):
             dtypes = (("float32", False), ("bfloat16", True)) \
                 if metric == "euclidean" else (("float32", False),)
             for mode in ("exact", "lanes", "packed", "labels"):
                 for dtype, bf16 in dtypes:
-                    old = (parent_call(libs, mode, q, t, labels, metric, bf16)
-                           if abi == "parent" else
-                           current_call(mode, q, t, labels, metric, bf16, libs))
-                    new = current_call(mode, q, t, labels, metric, bf16)
-                    same = all(torch.equal(a, b) for a, b in zip(old(), new()))
-                    p1, n1, n2, p2 = (cuda_ms(fn, reps)
-                                      for fn in (old, new, new, old))
-                    row = dict(d=d, metric=metric, mode=mode, dtype=dtype,
-                               bit_equal=same, earlier_ms=(p1 + p2) / 2,
-                               current_ms=(n1 + n2) / 2)
-                    rows.append(row)
-                    out(f"{'same' if same else 'DIFF'} D={d} {metric} {mode} "
-                        f"{dtype}: earlier {row['earlier_ms']:.3f} ms "
-                        f"({p1:.3f}, {p2:.3f}), current "
-                        f"{row['current_ms']:.3f} ms ({n1:.3f}, {n2:.3f}), "
-                        f"x{row['earlier_ms'] / row['current_ms']:.2f}")
+                    rows.append(ab_row(
+                        current_call(mode, q, t, labels, metric, bf16, libs),
+                        current_call(mode, q, t, labels, metric, bf16), reps,
+                        out, d=d, metric=metric, mode=mode, dtype=dtype))
     out(json.dumps({"metric": "knn_ab", "device": torch.cuda.get_device_name(0),
                     "card": card(), "rows": rows}))
     return rows
@@ -238,13 +191,11 @@ def run(parent: Path, reps: int = 5, out=print, abi: str = "parent"
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True,
-                    help="directory of the earlier knn_tile.cuh, knn_topk.cu "
-                         "and knn_classify.cu")
+                    help="directory of the earlier knn_tile.cuh, knn_topk.cu, "
+                         "knn_classify.cu and knn_prepass.cu")
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--abi", choices=("parent", "current"), default="parent",
-                    help="the C interface of the earlier sources")
     args = ap.parse_args(argv)
-    rows = run(args.parent, args.reps, abi=args.abi)
+    rows = run(args.parent, args.reps)
     return 0 if all(r["bit_equal"] for r in rows
                     if r["dtype"] == "float32") else 1
 

@@ -21,7 +21,7 @@ Phases, each printing a line per check; any failed check exits non-zero:
    for gaussian, with arg-max agreement >= 0.99. Index mismatches
    are allowed only between tied distances. The euclidean pre-pass
    (`knn_prepass`, norms alone and with bfloat16 copies) bit-equal to its
-   plain version. Times are CUDA-event medians; each row prints its share
+   plain version, there and at ragged shapes up to MAX_D. Times are CUDA-event medians; each row prints its share
    of its bound, its blocks per SM, grid and waves, and its launches.
 3. The main path: the `nearestNeighbor` job through `runner.run_job` on
    seeded e-learning CSVs (131072 train, 8192 test rows, 6 features), in
@@ -346,6 +346,7 @@ def phase_kernels(flops: float, rate: float):
         pd, pi = kk.knn_topk_plain(q, t, K, "manhattan", n_valid=nv)
         check(bool((gi < nv).all()) and torch.equal(gd, pd),
               f"knn_topk manhattan D={d} n_valid={nv}: padding masked")
+    _check_prepass_shapes()
     return results
 
 
@@ -405,6 +406,29 @@ def _check_prepass(q, t, d, flops, rate):
               + ("" if lib_ms is None else f", einsum {lib_ms:.4f} ms")
               + f"; {kk.knn_prepass.launches - n0} launches timed")
     return rows
+
+
+def _check_prepass_shapes():
+    """knn_prepass bit-equal to its plain version where its blocks are
+    ragged, its rows span several shared-memory chunks, and t starts one
+    row into its storage (off a 16-byte boundary unless 4 divides D)."""
+    import torch
+
+    from avenir_tpu_torch.ops import knn_kernels as kk
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1235)
+    bad = []
+    for d in (1, 3, 7, 128, 129, 300, kk.MAX_D):
+        q = torch.randn((37, d), generator=gen, device=DEVICE)
+        t = torch.randn((1002, d), generator=gen, device=DEVICE)[1:]
+        for bf16 in (False, True):
+            got = kk.knn_prepass(q, t, bf16)
+            ref = kk.knn_prepass_plain(q, t, bf16)
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                bad.append((d, bf16))
+    check(not bad, "knn_prepass at 37 x 1001 rows, D 1..MAX_D, t one row "
+          "into its storage: bit-equal to the plain version"
+          + (f"; not at (D, bf16) {bad}" if bad else ""))
 
 
 def _recall(gi, pi) -> float:

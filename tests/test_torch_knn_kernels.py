@@ -329,6 +329,62 @@ def test_launch_split_whole_waves_at_the_job_size():
     assert kk._waves(8192, splits, 132, 2) == 8.0
 
 
+class _FakeInfoLib:
+    """Stands in for a built library's partial_info entries: a fixed
+    occupancy and stage plan, and a count of the queries."""
+
+    def __init__(self, per_sm, stage):
+        self._name = f"fake-{per_sm}-{stage}"
+        self.per_sm, self.stage, self.calls = per_sm, stage, 0
+
+    def _fill(self, info):
+        info[0:6] = [self.per_sm, 40, 0, self.stage, 2, 0]
+        self.calls += 1
+        return 0
+
+    def knn_topk_partial_info(self, k, euclid, mode, d, info):
+        return self._fill(info)
+
+    def knn_classify_partial_info(self, k, euclid, d, info):
+        return self._fill(info)
+
+
+@pytest.mark.parametrize("k,mode", [(8, "exact"), (16, "lanes"),
+                                    (32, "packed"), (64, "labels")])
+def test_grid_takes_occupancy_and_stage_from_the_instance(monkeypatch, k,
+                                                          mode):
+    """A launch's grid comes from the built instance's own blocks per SM
+    and stage rows, never from a copy of its stage plan."""
+    lib = _FakeInfoLib(per_sm=3, stage=96)
+    monkeypatch.setattr(kk, "_INFO", {})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(kk, "_sm_count", lambda dev: 132)
+    sms, per_sm, splits, rows = kk._grid(torch.zeros(5000, 6), k, True, mode,
+                                         70000, lib)
+    assert (sms, per_sm, lib.calls) == (132, 3, 1)
+    assert rows % 96 == 0 and (splits - 1) * rows < 70000 <= splits * rows
+    assert (splits, rows) == kk._splits(5000, 70000, 132, 3, 96,
+                                        kk._block_queries(k))
+
+
+@pytest.mark.parametrize("mode", ["exact", "labels"])
+def test_partial_info_is_cached_per_device(monkeypatch, mode):
+    """Occupancy is asked once per device, instance and D: another card
+    asks again, and k of one carry width share an instance."""
+    lib = _FakeInfoLib(per_sm=2, stage=32)
+    monkeypatch.setattr(kk, "_INFO", {})
+    device = [0]
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: device[0])
+    first = kk.partial_info(8, False, mode, 6, lib)
+    assert kk.partial_info(5, False, mode, 6, lib) == first
+    assert (first[0], lib.calls) == (2, 1)
+    device[0], lib.per_sm = 1, 4
+    assert kk.partial_info(8, False, mode, 6, lib)[0] == 4
+    device[0] = 0
+    assert kk.partial_info(8, False, mode, 6, lib)[0] == 2
+    assert lib.calls == 2
+
+
 def test_max_features_fits_shared_memory():
     """MAX_D is the widest row every carry width stages, and no less than
     the 360 features the kernels took before register blocking."""
