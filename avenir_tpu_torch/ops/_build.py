@@ -46,11 +46,26 @@ LIBRARIES = {
     "matmul_ceiling": ("matmul_ceiling.cu", "matmul_ceiling_launch",
                        [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
 }
+_TOPK_ARGS = LIBRARIES["knn_topk"][2]
+_CLASSIFY_ARGS = LIBRARIES["knn_classify"][2]
 #: library -> {further C entry: argtypes}: what a partial instance takes
-#: (blocks per SM, registers, local bytes)
+#: (blocks per SM, registers, local bytes); the tensor-core form's launch
+#: and info (same arguments as the CUDA-core form's); the merge kernels
+#: alone; the tensor-core form's diagnostic instance with clock64()
+#: sections. bind() skips the ones a library lacks (an earlier version's
+#: sources), and calling one of those raises AttributeError.
 INFO = {
-    "knn_topk": {"knn_topk_partial_info": [_I, _I, _I, _I, _P]},
-    "knn_classify": {"knn_classify_partial_info": [_I, _I, _I, _P]},
+    "knn_topk": {"knn_topk_partial_info": [_I, _I, _I, _I, _P],
+                 "knn_topk_mma_launch": _TOPK_ARGS,
+                 "knn_topk_mma_info": [_I, _I, _I, _I, _P],
+                 "knn_topk_merge_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+                 "knn_topk_mma_profile": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                          _I, _P, _P, _P, _P]},
+    "knn_classify": {"knn_classify_partial_info": [_I, _I, _I, _P],
+                     "knn_classify_mma_launch": _CLASSIFY_ARGS,
+                     "knn_classify_mma_info": [_I, _I, _I, _P],
+                     "knn_classify_merge_launch": [_P, _P, _I, _I, _I, _I, _I,
+                                                   _I, _F, _I, _F, _P, _P]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -109,9 +124,12 @@ def build_all(csrc: Path = CSRC, names: Iterable[str] = LIBRARIES
 
 
 def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
-    """Declare the argument and return types of a library's C entry."""
-    _src, entry, args = LIBRARIES[name]
-    for entry, args in {entry: args, **INFO.get(name, {})}.items():
+    """Declare the argument and return types of a library's C entries:
+    its launch entry, which it must have, and those of INFO it has."""
+    _src, main, args = LIBRARIES[name]
+    for entry, args in {main: args, **INFO.get(name, {})}.items():
+        if entry != main and not hasattr(lib, entry):
+            continue
         fn = getattr(lib, entry)
         fn.argtypes = args
         fn.restype = ctypes.c_int

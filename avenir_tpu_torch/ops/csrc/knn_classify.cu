@@ -13,7 +13,9 @@
 // kernels (knn_tile.cuh); the vote is k steps per query. The design shares
 // the partial kernel of knn_topk.cu (shared-memory train tile, register
 // carry, train-axis split) and fuses the split merge with the vote.
-#include "knn_tile.cuh"
+// Euclidean compute_dtype="bfloat16" runs the partial kernel's tensor-core
+// form (knn_tile_mma.cuh) through knn_classify_mma_launch.
+#include "knn_tile_mma.cuh"
 
 namespace {
 
@@ -71,6 +73,23 @@ merge_vote_kernel(const int* __restrict__ part_key,
 }
 
 template <int K>
+cudaError_t launch_vote(const int* part_key, const int* part_idx, int nq,
+                        int splits, int k, int label_mask, int n_classes,
+                        float inv_attrs, bool euclid, int kernel_fn,
+                        float kernel_param, float* scores,
+                        cudaStream_t stream) {
+  int eu = euclid ? 1 : 0;
+  void* args[] = {(void*)&part_key,  (void*)&part_idx,  (void*)&nq,
+                  (void*)&splits,    (void*)&k,         (void*)&label_mask,
+                  (void*)&n_classes, (void*)&inv_attrs, (void*)&eu,
+                  (void*)&kernel_fn, (void*)&kernel_param, (void*)&scores};
+  return cudaLaunchKernel(&merge_vote_kernel<K>,
+                          dim3((nq + knn::THREADS - 1) / knn::THREADS),
+                          dim3(knn::THREADS),
+                          args, 0, stream);
+}
+
+template <int K>
 cudaError_t run(bool euclid, const float* q, const float* t, const float* qn,
                 const float* tn, const int* labels, int nq, int d,
                 int n_valid, int k, int label_mask, int n_classes,
@@ -81,15 +100,27 @@ cudaError_t run(bool euclid, const float* q, const float* t, const float* qn,
       euclid, q, t, qn, tn, labels, nq, d, n_valid, splits, rows_per_split,
       label_mask, knn::SENTINEL, part_key, part_idx, stream);
   if (err != cudaSuccess) return err;
-  int eu = euclid ? 1 : 0;
-  void* args[] = {(void*)&part_key,  (void*)&part_idx,  (void*)&nq,
-                  (void*)&splits,    (void*)&k,         (void*)&label_mask,
-                  (void*)&n_classes, (void*)&inv_attrs, (void*)&eu,
-                  (void*)&kernel_fn, (void*)&kernel_param, (void*)&scores};
-  return cudaLaunchKernel(&merge_vote_kernel<K>,
-                          dim3((nq + knn::THREADS - 1) / knn::THREADS),
-                          dim3(knn::THREADS),
-                          args, 0, stream);
+  return launch_vote<K>(part_key, part_idx, nq, splits, k, label_mask,
+                        n_classes, inv_attrs, euclid, kernel_fn, kernel_param,
+                        scores, stream);
+}
+
+// The tensor-core form (knn_tile_mma.cuh) of run's partial kernel, for
+// euclidean compute_dtype="bfloat16", then the same merge and vote.
+template <int K>
+cudaError_t run_mma(const float* q, const float* t, const float* qn,
+                    const float* tn, const int* labels, int nq, int d,
+                    int n_valid, int k, int label_mask, int n_classes,
+                    float inv_attrs, int kernel_fn, float kernel_param,
+                    int splits, int rows_per_split, int* part_key,
+                    int* part_idx, float* scores, cudaStream_t stream) {
+  cudaError_t err = knn::launch_partial_mma<K, knn::LABELS>(
+      q, t, qn, tn, labels, nq, d, n_valid, splits, rows_per_split,
+      label_mask, knn::SENTINEL, part_key, part_idx, nullptr, stream);
+  if (err != cudaSuccess) return err;
+  return launch_vote<K>(part_key, part_idx, nq, splits, k, label_mask,
+                        n_classes, inv_attrs, true, kernel_fn, kernel_param,
+                        scores, stream);
 }
 
 }  // namespace
@@ -161,6 +192,87 @@ int knn_classify_partial_info(int k, int euclid, int d, int* info) {
       break;
   }
   return (int)err;
+}
+
+// As knn_classify_launch, through the tensor-core form of the partial
+// kernel (knn_tile_mma.cuh) for euclidean compute_dtype="bfloat16": q and
+// t are the pre-pass's rounded copies, qn and tn its norms. euclid must
+// be 1.
+int knn_classify_mma_launch(const float* q, const float* t, const float* qn,
+                            const float* tn, const int* labels, int nq, int d,
+                            int n_valid, int k, int euclid, int label_bits,
+                            int n_classes, float inv_attrs, int kernel_fn,
+                            float kernel_param, int splits,
+                            int rows_per_split, int* part_key, int* part_idx,
+                            float* scores, void* stream) {
+  if (!euclid) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int mask = (1 << label_bits) - 1;
+  cudaError_t err;
+  switch (knn::carry_width(k)) {
+#define MMA_RUN(KW)                                                        \
+  case KW:                                                                 \
+    err = run_mma<KW>(q, t, qn, tn, labels, nq, d, n_valid, k, mask,       \
+                      n_classes, inv_attrs, kernel_fn, kernel_param,       \
+                      splits, rows_per_split, part_key, part_idx, scores,  \
+                      s);                                                  \
+    break;
+    MMA_RUN(8) MMA_RUN(16) MMA_RUN(32) MMA_RUN(64)
+#undef MMA_RUN
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// info[6] of the tensor-core LABELS instance for k at d features, as
+// knn_classify_partial_info; euclid must be 1.
+int knn_classify_mma_info(int k, int euclid, int d, int* info) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (!euclid) return (int)err;
+  switch (knn::carry_width(k)) {
+    case 8:
+      err = knn::partial_mma_info<8, knn::LABELS>(d, info);
+      break;
+    case 16:
+      err = knn::partial_mma_info<16, knn::LABELS>(d, info);
+      break;
+    case 32:
+      err = knn::partial_mma_info<32, knn::LABELS>(d, info);
+      break;
+    case 64:
+      err = knn::partial_mma_info<64, knn::LABELS>(d, info);
+      break;
+  }
+  return (int)err;
+}
+
+// The merge-and-vote kernel alone on lists a partial launch left in
+// part_key / part_idx, for timing it apart: scores as
+// knn_classify_launch writes them.
+int knn_classify_merge_launch(const int* part_key, const int* part_idx,
+                              int nq, int splits, int k, int euclid,
+                              int label_bits, int n_classes, float inv_attrs,
+                              int kernel_fn, float kernel_param,
+                              float* scores, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int mask = (1 << label_bits) - 1;
+  cudaError_t err;
+  switch (knn::carry_width(k)) {
+#define VOTE(KW)                                                           \
+  case KW:                                                                 \
+    err = launch_vote<KW>(part_key, part_idx, nq, splits, k, mask,         \
+                          n_classes, inv_attrs, euclid, kernel_fn,         \
+                          kernel_param, scores, s);                        \
+    break;
+    VOTE(8) VOTE(16) VOTE(32) VOTE(64)
+#undef VOTE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -16,9 +16,10 @@
 // Euclidean reads the norms |q|^2 and |t|^2 from the pre-pass
 // (knn_prepass.cu), which takes them from the fp32 values. With
 // compute_dtype="bfloat16" the pre-pass also rounds q and t to bfloat16,
-// nearest even, as the TPU kernels' bf16 cross term does, and the partial
-// kernel runs on those copies with the same fp32 products and sums: one
-// instance serves both dtypes.
+// nearest even, as the TPU kernels' bf16 cross term does; the wrapper then
+// runs the tensor-core form of this kernel (knn_tile_mma.cuh) on those
+// copies, which reuses the carry, staging and selection below. These
+// fp32 instances run every other call.
 //
 // What bounds it: instruction issue on the CUDA cores. The work is nq*nt*D
 // fp32 FMAs (euclidean) or D subtract and abs-add pairs (manhattan: two

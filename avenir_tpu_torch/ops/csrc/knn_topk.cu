@@ -23,11 +23,14 @@
 // are a few MB. The design, in knn_tile.cuh: register blocking over
 // queries and train rows, a bound shared by a query's lanes, cp.async
 // stages of train rows, and a train-axis split over gridDim.y in whole
-// waves, merged by a second kernel.
+// waves, merged by a second kernel. Euclidean compute_dtype="bfloat16"
+// has entries of its own (knn_topk_mma_launch, knn_topk_mma_info): the
+// tensor-core form of the partial kernel (knn_tile_mma.cuh, mma.sync bf16
+// products with fp32 accumulation), then the same merge.
 //
 // The wrapper (avenir_tpu_torch/ops/knn_kernels.py) allocates every buffer,
 // decodes keys to distances, and finishes sqrt(d/n_attrs) or d/n_attrs.
-#include "knn_tile.cuh"
+#include "knn_tile_mma.cuh"
 
 namespace {
 
@@ -48,6 +51,25 @@ merge_topk_kernel(const int* __restrict__ part_key,
       out_idx[(size_t)qi * k + s] = best.idx[s];
     }
   }
+}
+
+// The empty slot of a mode's key: +inf for exact and packed keys, the
+// sentinel for lane keys.
+inline int empty_key(int mode) {
+  return mode == knn::LANES ? knn::SENTINEL : knn::INF_BITS;
+}
+
+template <int K>
+cudaError_t launch_merge(const int* part_key, const int* part_idx, int nq,
+                         int splits, int k, int empty, int* out_key,
+                         int* out_idx, cudaStream_t stream) {
+  void* args[] = {(void*)&part_key, (void*)&part_idx, (void*)&nq,
+                  (void*)&splits,   (void*)&k,        (void*)&empty,
+                  (void*)&out_key,  (void*)&out_idx};
+  return cudaLaunchKernel(&merge_topk_kernel<K>,
+                          dim3((nq + knn::THREADS - 1) / knn::THREADS),
+                          dim3(knn::THREADS),
+                          args, 0, stream);
 }
 
 template <int K>
@@ -79,13 +101,37 @@ cudaError_t run(bool euclid, int mode, const float* q, const float* t,
       return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
-  void* args[] = {(void*)&part_key, (void*)&part_idx, (void*)&nq,
-                  (void*)&splits,   (void*)&k,        (void*)&empty,
-                  (void*)&out_key,  (void*)&out_idx};
-  return cudaLaunchKernel(&merge_topk_kernel<K>,
-                          dim3((nq + knn::THREADS - 1) / knn::THREADS),
-                          dim3(knn::THREADS),
-                          args, 0, stream);
+  return launch_merge<K>(part_key, part_idx, nq, splits, k, empty, out_key,
+                         out_idx, stream);
+}
+
+// The tensor-core form (knn_tile_mma.cuh) of run's partial kernel, for
+// euclidean compute_dtype="bfloat16", then the same merge.
+template <int K>
+cudaError_t run_mma(int mode, const float* q, const float* t, const float* qn,
+                    const float* tn, int nq, int d, int n_valid, int k,
+                    int pack_mask, int splits, int rows_per_split,
+                    int* part_key, int* part_idx, int* out_key, int* out_idx,
+                    cudaStream_t stream) {
+  const int empty = empty_key(mode);
+  cudaError_t err;
+  switch (mode) {
+#define MMA_MODE(M)                                                        \
+  case M:                                                                  \
+    err = knn::launch_partial_mma<K, M>(q, t, qn, tn, nullptr, nq, d,      \
+                                        n_valid, splits, rows_per_split,   \
+                                        M == knn::EXACT ? 0 : pack_mask,   \
+                                        empty, part_key, part_idx,         \
+                                        nullptr, stream);                  \
+    break;
+    MMA_MODE(knn::EXACT) MMA_MODE(knn::LANES) MMA_MODE(knn::PACKED)
+#undef MMA_MODE
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  return launch_merge<K>(part_key, part_idx, nq, splits, k, empty, out_key,
+                         out_idx, stream);
 }
 
 }  // namespace
@@ -154,6 +200,94 @@ int knn_topk_partial_info(int k, int euclid, int mode, int d, int* info) {
 #undef KNN_INFO
   }
   return (int)err;
+}
+
+// As knn_topk_launch, through the tensor-core form of the partial kernel
+// (knn_tile_mma.cuh) for euclidean compute_dtype="bfloat16": q and t are
+// the pre-pass's rounded copies, qn and tn its norms. euclid must be 1.
+int knn_topk_mma_launch(const float* q, const float* t, const float* qn,
+                        const float* tn, int nq, int d, int n_valid, int k,
+                        int euclid, int mode, int pack_bits, int splits,
+                        int rows_per_split, int* part_key, int* part_idx,
+                        int* out_key, int* out_idx, void* stream) {
+  if (!euclid) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int pack_mask = (1 << pack_bits) - 1;
+  cudaError_t err;
+  switch (knn::carry_width(k)) {
+#define MMA_RUN(KW)                                                        \
+  case KW:                                                                 \
+    err = run_mma<KW>(mode, q, t, qn, tn, nq, d, n_valid, k, pack_mask,    \
+                      splits, rows_per_split, part_key, part_idx, out_key, \
+                      out_idx, s);                                         \
+    break;
+    MMA_RUN(8) MMA_RUN(16) MMA_RUN(32) MMA_RUN(64)
+#undef MMA_RUN
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// info[6] of the tensor-core instance for (k, mode) at d features, as
+// knn_topk_partial_info; euclid must be 1.
+int knn_topk_mma_info(int k, int euclid, int mode, int d, int* info) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (!euclid) return (int)err;
+  switch (knn::carry_width(k) * 4 + mode) {
+#define MMA_INFO(KW, M)                                                    \
+  case KW * 4 + M:                                                         \
+    err = knn::partial_mma_info<KW, M>(d, info);                           \
+    break;
+    MMA_INFO(8, knn::EXACT) MMA_INFO(8, knn::LANES) MMA_INFO(8, knn::PACKED)
+    MMA_INFO(16, knn::EXACT) MMA_INFO(16, knn::LANES) MMA_INFO(16, knn::PACKED)
+    MMA_INFO(32, knn::EXACT) MMA_INFO(32, knn::LANES) MMA_INFO(32, knn::PACKED)
+    MMA_INFO(64, knn::EXACT) MMA_INFO(64, knn::LANES) MMA_INFO(64, knn::PACKED)
+#undef MMA_INFO
+  }
+  return (int)err;
+}
+
+// The merge kernel alone on lists a partial launch left in part_key /
+// part_idx (splits * nq * carry_width(k) ints each), for timing it apart:
+// out_key/out_idx [nq, k] as knn_topk_launch writes them.
+int knn_topk_merge_launch(const int* part_key, const int* part_idx, int nq,
+                          int splits, int k, int mode, int* out_key,
+                          int* out_idx, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int empty = empty_key(mode);
+  cudaError_t err;
+  switch (knn::carry_width(k)) {
+#define MERGE(KW)                                                          \
+  case KW:                                                                 \
+    err = launch_merge<KW>(part_key, part_idx, nq, splits, k, empty,       \
+                           out_key, out_idx, s);                           \
+    break;
+    MERGE(8) MERGE(16) MERGE(32) MERGE(64)
+#undef MERGE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The diagnostic instance: the tensor-core partial kernel at K=8, mode
+// LANES, with clock64() sections (knn::SECTIONS). Launches the partial
+// kernel alone on knn_topk_mma_launch's arguments; adds each warp's
+// cycles a section to sections[knn::SECTIONS] (zeroed by the caller).
+int knn_topk_mma_profile(const float* q, const float* t, const float* qn,
+                         const float* tn, int nq, int d, int n_valid,
+                         int pack_bits, int splits, int rows_per_split,
+                         int* part_key, int* part_idx,
+                         unsigned long long* sections, void* stream) {
+  cudaError_t err = knn::launch_partial_mma<8, knn::LANES, true>(
+      q, t, qn, tn, nullptr, nq, d, n_valid, splits, rows_per_split,
+      (1 << pack_bits) - 1, knn::SENTINEL, part_key, part_idx, sections,
+      (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

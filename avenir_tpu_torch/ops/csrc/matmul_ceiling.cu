@@ -41,26 +41,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using bf16mma::ldmatrix_x4;
+using bf16mma::mma_bf16;
+using bf16mma::store_bf16x4;
 
 constexpr int BM = 128;           // queries per block
 constexpr int BN = 128;           // train rows per tile
 constexpr int THREADS = 256;      // 8 warps: 4 (32 query rows) x 2 (64 train rows)
 constexpr int PAD = 8;            // bf16 halves of padding per shared row
 constexpr int MAX_KS = 8;         // D = 16 * KS up to 128
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  // .x (the low half, the lower column of a fragment) = lo
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float4 x) {
-  uint2 packed;
-  packed.x = pack_bf16(x.x, x.y);
-  packed.y = pack_bf16(x.z, x.w);
-  *reinterpret_cast<uint2*>(dst) = packed;
-}
 
 // float4 number v of a thread's share of a rows x D tile: (row, column)
 template <int D>
@@ -83,25 +76,6 @@ __device__ __forceinline__ void stage(const float* __restrict__ src,
 
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// four 8x8 bf16 matrices, one row address per lane (lanes 8m..8m+7: matrix m)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const __nv_bfloat16* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // partial[split, i] = sum over the split's train rows j of q̂_i . t̂_j,

@@ -28,8 +28,13 @@ compute_dtype="bfloat16" rounds the operands of the euclidean cross term
 q.t to bfloat16 (nearest even) and keeps fp32 products and sums; the
 norms |q|^2 and |t|^2 stay those of the fp32 values, and manhattan
 ignores the dtype. That is the TPU kernels' bf16 dot_general with fp32
-accumulation. On the card both dtypes run the same partial kernel: the
-pre-pass hands it the rounded copies.
+accumulation. On the card the partial kernel has two forms: every call
+but one runs the CUDA-core form (`csrc/knn_tile.cuh`, fp32 fmaf chains),
+and euclidean bfloat16 runs the tensor-core form (`csrc/knn_tile_mma.cuh`,
+`mma.sync` bf16 products with fp32 accumulation) on the pre-pass's rounded
+copies, counted on `knn_partial_mma`. Its keys are not bit-equal to the
+plain version's (the fp32 sums run in another order); the CUDA-core
+form's are.
 """
 
 from __future__ import annotations
@@ -87,6 +92,31 @@ def _stage_plan(d: int, k: int) -> Tuple[int, int, int]:
 
 def _smem_bytes(d: int, k: int) -> int:
     return _stage_plan(d, k)[2]
+
+
+#: knn_tile_mma.cuh: bf16 halves of padding a row, floats a row of a v
+#: tile, fp32 bytes of train rows a stage holds
+MMA_PAD, V_STRIDE, MMA_STAGE_BYTES = 8, TT + 4, 8192
+
+
+def _depth16(d: int) -> int:
+    """D rounded up to the mma's k-step of 16 (knn_tile_mma.cuh depth16):
+    the tensor-core form multiplies zeros past D."""
+    return -(-d // 16) * 16
+
+
+def _mma_stage_plan(d: int, k: int) -> Tuple[int, int, int]:
+    """(rows a stage, stages, dynamic shared-memory bytes) of a block of
+    the tensor-core form (knn_tile_mma.cuh mma_stage_plan): two v tiles,
+    the queries and one stage's rows packed to bf16 at depth16(d) + 8
+    halves, and a ring of fp32 stages of whole 32-row tiles filling
+    MMA_STAGE_BYTES, two stages where they fit, else one."""
+    lda = 2 * (_depth16(d) + MMA_PAD)
+    row = 16 * _row_stride4(d) + 8
+    rows = max(1, MMA_STAGE_BYTES // (row * TT)) * TT
+    fixed = (2 * 4 * V_STRIDE + lda) * _block_queries(k) + rows * lda
+    stages = 2 if fixed + 2 * rows * row <= SMEM_LIMIT else 1
+    return rows, stages, fixed + stages * rows * row
 
 
 #: queries of the widest block (k <= 8)
@@ -271,6 +301,14 @@ def knn_prepass_plain(q: torch.Tensor, t: torch.Tensor, bf16: bool = False
     return (*out, *((_round_bf16(q), _round_bf16(t)) if bf16 else (q, t)))
 
 
+def _cross(q: torch.Tensor, tb: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """The cross term q.t [nq, m] in fp32, of bfloat16-rounded operands
+    when bf16 (fp32 products of them are exact)."""
+    if bf16:
+        q, tb = _round_bf16(q), _round_bf16(tb)
+    return q @ tb.T
+
+
 def _tile_plain(q: torch.Tensor, tb: torch.Tensor, metric: str,
                 qn: Optional[torch.Tensor], bf16: bool = False
                 ) -> torch.Tensor:
@@ -280,9 +318,7 @@ def _tile_plain(q: torch.Tensor, tb: torch.Tensor, metric: str,
     features 0..D-1 summed from 0.0."""
     if metric == "euclidean":
         tn = (tb * tb).sum(1)
-        if bf16:
-            q, tb = _round_bf16(q), _round_bf16(tb)
-        v = (qn[:, None] + tn[None, :]) - 2.0 * (q @ tb.T)
+        v = (qn[:, None] + tn[None, :]) - 2.0 * _cross(q, tb, bf16)
         return torch.where(v > 0, v, 0.0)
     acc = torch.zeros((q.shape[0], tb.shape[0]), dtype=torch.float32,
                       device=q.device)
@@ -318,6 +354,20 @@ def _select_plain(q: torch.Tensor, t: torch.Tensor, k: int, metric: str,
         order = torch.sort(all_k, dim=1, stable=True).indices[:, :k]
         best_k, best_i = all_k.gather(1, order), all_i.gather(1, order)
     return best_k, best_i
+
+
+def merge_splits_plain(part_key: torch.Tensor, part_idx: torch.Tensor,
+                       nq: int, splits: int, k: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the merge kernels' split merge (knn_tile.cuh
+    merge_splits): the partial kernel's lists [splits][nq][K], each sorted
+    by (key, column) with the splits in column order, merged into each
+    query's k smallest (key, column) pairs [nq, k]. A stable sort on the
+    key, splits in order, keeps the lower column first among equal keys."""
+    key = part_key.view(splits, nq, -1).permute(1, 0, 2).reshape(nq, -1)
+    idx = part_idx.view(splits, nq, -1).permute(1, 0, 2).reshape(nq, -1)
+    order = torch.sort(key, dim=1, stable=True).indices[:, :k]
+    return key.gather(1, order), idx.gather(1, order)
 
 
 def _key_spec(mode: str, t: torch.Tensor) -> Tuple[int, int, int]:
@@ -422,40 +472,50 @@ def _sm_count(dev: torch.device) -> int:
 _INFO: dict = {}
 
 
-def partial_info(k: int, euclid: bool, mode: str, d: int, lib=None
-                 ) -> Tuple[int, ...]:
+def _mma(euclid: bool, bf16: bool) -> bool:
+    """Whether a CUDA launch takes the tensor-core form of the partial
+    kernel: euclidean with compute_dtype="bfloat16", and nothing else."""
+    return euclid and bf16
+
+
+def partial_info(k: int, euclid: bool, mode: str, d: int, lib=None,
+                 bf16: bool = False) -> Tuple[int, ...]:
     """(blocks per SM, registers a thread, local bytes a thread, rows a
     stage, stages, shared-memory bytes) of the partial instance a CUDA
     launch of `mode` takes at d features, from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor, cudaFuncGetAttributes
     and the kernel's stage plan on the current device (cached per device,
-    instance and d; `lib` is another build of the library). Both compute
-    dtypes run the same instance."""
+    form, instance and d; `lib` is another build of the library). With
+    euclid and bf16 it is the tensor-core instance's, else the CUDA-core
+    one's, which serves float32 and manhattan bfloat16 alike."""
     lib_name = "knn_classify" if mode == "labels" else "knn_topk"
     lib = lib or _build.load(lib_name)
-    key = (lib._name, torch.cuda.current_device(), _carry_width(k), euclid,
-           mode, d)
+    mma = _mma(euclid, bf16)
+    key = (lib._name, torch.cuda.current_device(), mma, _carry_width(k),
+           euclid, mode, d)
     if key not in _INFO:
         info = (ctypes.c_int * 6)()
+        form = "mma" if mma else "partial"
         if mode == "labels":
-            err = lib.knn_classify_partial_info(k, int(euclid), d, info)
+            err = getattr(lib, f"knn_classify_{form}_info")(
+                k, int(euclid), d, info)
         else:
-            err = lib.knn_topk_partial_info(k, int(euclid), MODES[mode], d,
-                                            info)
-        _raise_on(err, f"{lib_name} partial_info")
+            err = getattr(lib, f"knn_topk_{form}_info")(
+                k, int(euclid), MODES[mode], d, info)
+        _raise_on(err, f"{lib_name} {form}_info")
         _INFO[key] = tuple(info)
     return _INFO[key]
 
 
 def _grid(q: torch.Tensor, k: int, euclid: bool, mode: str, n_valid: int,
-          lib=None) -> Tuple[int, int, int, int]:
+          lib=None, bf16: bool = False) -> Tuple[int, int, int, int]:
     """(SMs, blocks per SM, splits, rows_per_split) of a CUDA launch of
     `mode` over n_valid train rows: the instance's occupancy and stage
     rows on q's device (the current one), then the whole-wave split of
     _splits."""
     nq, d = q.shape
     sms = _sm_count(q.device)
-    info = partial_info(k, euclid, mode, d, lib)
+    info = partial_info(k, euclid, mode, d, lib, bf16)
     splits, rows = _splits(nq, n_valid, sms, info[0], info[3],
                            _block_queries(k))
     return sms, info[0], splits, rows
@@ -470,14 +530,16 @@ def _partial_buffers(q: torch.Tensor, k: int, splits: int
 
 
 def launch_plan(q: torch.Tensor, t: torch.Tensor, k: int, metric: str,
-                mode: str, n_valid: Optional[int] = None) -> dict:
+                mode: str, n_valid: Optional[int] = None,
+                compute_dtype: str = "float32") -> dict:
     """The grid a CUDA launch of `mode` ("exact", "lanes", "packed" or
     "labels") takes on these tensors: blocks per SM, splits,
     rows_per_split, grid blocks and waves."""
     nv = _check(q, t, k, metric, n_valid)
+    bf16 = _bf16(compute_dtype, metric)
     with torch.cuda.device(q.device):
         sms, per_sm, splits, rows = _grid(q, k, metric == "euclidean", mode,
-                                          nv)
+                                          nv, bf16=bf16)
     bq = _block_queries(k)
     return {"blocks_per_sm": per_sm, "splits": splits, "rows_per_split": rows,
             "grid": (q.shape[0] + bq - 1) // bq * splits,
@@ -501,44 +563,68 @@ def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
     return None if x is None else x.data_ptr()
 
 
-def _topk_keys(mode, q, t, k, euclid, bf16, n_valid, lib=None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(lib, name: str, mma: bool, what: str, *args) -> None:
+    """Call `lib`'s C entry `<name>_launch`, or `<name>_mma_launch` when
+    mma (counted on knn_partial_mma), with args; raise on a CUDA error."""
+    if mma:
+        knn_partial_mma(getattr(lib, f"{name}_mma_launch"), *args)
+    else:
+        _raise_on(getattr(lib, f"{name}_launch")(*args), what)
+
+
+def knn_partial_mma(entry, *args) -> None:
+    """One launch of the tensor-core form of the partial kernel
+    (`csrc/knn_tile_mma.cuh`, euclidean bfloat16) and its merge, through
+    `entry`, a built library's `knn_topk_mma_launch` or
+    `knn_classify_mma_launch`, with the arguments of the CUDA-core
+    entry; counted in `launches`. There is no other route for these
+    calls: a failed launch raises."""
+    _raise_on(entry(*args), entry.__name__)
+    knn_partial_mma.launches += 1
+
+
+def _topk_keys(mode, q, t, k, euclid, bf16, n_valid, lib=None,
+               operands=None, mma=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The raw (key, index) [nq, k] of `mode` from the CUDA kernels: the
-    pre-pass where euclidean, then knn_topk.cu (or `lib`, a build of
-    another version of it); buffers on q's device."""
+    pre-pass where euclidean (or `operands`, (q', t', qn, tn) made
+    already), then knn_topk.cu (or `lib`, a build of another version of
+    it) in the form _mma picks (or `mma`); buffers on q's device."""
     nq, d = q.shape
     bits = _key_spec(mode, t)[0]
-    qx, tx, qn, tn = _operands(q, t, euclid, bf16, n_valid)
-    _, _, splits, rows = _grid(q, k, euclid, mode, n_valid, lib)
+    mma = _mma(euclid, bf16) if mma is None else mma
+    qx, tx, qn, tn = operands or _operands(q, t, euclid, bf16, n_valid)
+    _, _, splits, rows = _grid(q, k, euclid, mode, n_valid, lib, mma)
     part_k, part_i = _partial_buffers(q, k, splits)
     out_k = torch.empty((nq, k), dtype=torch.int32, device=q.device)
     out_i = torch.empty_like(out_k)
-    _raise_on((lib or _build.load("knn_topk")).knn_topk_launch(
-        qx.data_ptr(), tx.data_ptr(), _ptr(qn), _ptr(tn), nq, d, n_valid, k,
-        int(euclid), MODES[mode], bits, splits, rows, part_k.data_ptr(),
-        part_i.data_ptr(), out_k.data_ptr(), out_i.data_ptr(),
-        _stream(q.device)), f"knn_topk ({mode})")
+    _launch(lib or _build.load("knn_topk"), "knn_topk", mma,
+            f"knn_topk ({mode})", qx.data_ptr(), tx.data_ptr(), _ptr(qn),
+            _ptr(tn), nq, d, n_valid, k, int(euclid), MODES[mode], bits,
+            splits, rows, part_k.data_ptr(), part_i.data_ptr(),
+            out_k.data_ptr(), out_i.data_ptr(), _stream(q.device))
     return out_k, out_i
 
 
 def _classify_scores(q, t, t_labels, k, euclid, bf16, n_classes, n_attrs,
-                     kernel_fn, kernel_param, n_valid, lib=None
-                     ) -> torch.Tensor:
+                     kernel_fn, kernel_param, n_valid, lib=None,
+                     operands=None, mma=None) -> torch.Tensor:
     """The vote's scores [nq, n_classes] from the CUDA kernels: the
-    pre-pass where euclidean, then knn_classify.cu (or `lib`, a build of
-    another version of it); buffers on q's device."""
+    pre-pass where euclidean (or `operands`), then knn_classify.cu (or
+    `lib`, a build of another version of it) in the form _mma picks (or
+    `mma`); buffers on q's device."""
     nq, d = q.shape
-    qx, tx, qn, tn = _operands(q, t, euclid, bf16, n_valid)
-    _, _, splits, rows = _grid(q, k, euclid, "labels", n_valid, lib)
+    mma = _mma(euclid, bf16) if mma is None else mma
+    qx, tx, qn, tn = operands or _operands(q, t, euclid, bf16, n_valid)
+    _, _, splits, rows = _grid(q, k, euclid, "labels", n_valid, lib, mma)
     part_k, part_i = _partial_buffers(q, k, splits)
     scores = torch.empty((nq, n_classes), dtype=torch.float32, device=q.device)
-    _raise_on((lib or _build.load("knn_classify")).knn_classify_launch(
-        qx.data_ptr(), tx.data_ptr(), _ptr(qn), _ptr(tn), t_labels.data_ptr(),
-        nq, d, n_valid, k, int(euclid), label_bits(n_classes), n_classes,
-        1.0 / max(n_attrs, 1), KERNEL_FNS.index(kernel_fn),
-        float(kernel_param), splits, rows, part_k.data_ptr(),
-        part_i.data_ptr(), scores.data_ptr(), _stream(q.device)),
-        "knn_classify_lanes")
+    _launch(lib or _build.load("knn_classify"), "knn_classify", mma,
+            "knn_classify_lanes", qx.data_ptr(), tx.data_ptr(), _ptr(qn),
+            _ptr(tn), t_labels.data_ptr(), nq, d, n_valid, k, int(euclid),
+            label_bits(n_classes), n_classes, 1.0 / max(n_attrs, 1),
+            KERNEL_FNS.index(kernel_fn), float(kernel_param), splits, rows,
+            part_k.data_ptr(), part_i.data_ptr(), scores.data_ptr(),
+            _stream(q.device))
     return scores
 
 
@@ -560,6 +646,36 @@ def _topk(wrapper, mode, q, t, k, metric, n_valid, n_attrs, compute_dtype
         key, idx = _topk_keys(mode, q, t, k, metric == "euclidean", bf16, nv)
     wrapper.launches += 1
     return _finish(key, idx, metric, na, mask, empty)
+
+
+#: clock64() sections of the tensor-core form's diagnostic instance
+#: (knn_tile_mma.cuh SECTIONS), in its order
+MMA_SECTIONS = ("stage wait", "bf16 pack", "mma", "key epilogue",
+                "selection and insert", "lane merge")
+
+
+def mma_sections(q: torch.Tensor, t: torch.Tensor) -> dict:
+    """{section: share of the warps' cycles} of one launch of the
+    tensor-core partial kernel's diagnostic instance (K=8, lane keys,
+    clock64() around each of MMA_SECTIONS) on CUDA tensors q and t, after
+    the bfloat16 pre-pass (counted as any). A measurement only: the
+    diagnostic launch is not counted and its lists are dropped."""
+    nq, d = q.shape
+    nt = t.shape[0]
+    with torch.cuda.device(q.device):
+        qx, tx, qn, tn = _operands(q, t, True, True, nt)
+        _, _, splits, rows = _grid(q, 8, True, "lanes", nt, bf16=True)
+        part_k, part_i = _partial_buffers(q, 8, splits)
+        cycles = torch.zeros(len(MMA_SECTIONS), dtype=torch.int64,
+                             device=q.device)
+        _raise_on(_build.load("knn_topk").knn_topk_mma_profile(
+            qx.data_ptr(), tx.data_ptr(), qn.data_ptr(), tn.data_ptr(), nq, d,
+            nt, _check_lanes(t), splits, rows, part_k.data_ptr(),
+            part_i.data_ptr(), cycles.data_ptr(), _stream(q.device)),
+            "knn_topk_mma_profile")
+        total = cycles.sum().item()
+    return {name: c / max(total, 1)
+            for name, c in zip(MMA_SECTIONS, cycles.tolist())}
 
 
 def knn_prepass(q: torch.Tensor, t: torch.Tensor, bf16: bool = False
@@ -678,9 +794,10 @@ def _empty(q: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 #: the four top-k entries, each a port of one Pallas kernel
 KERNEL_WRAPPERS = (knn_topk, knn_topk_packed, knn_topk_lanes,
                    knn_classify_lanes)
-#: every wrapper that counts launches: the top-k entries and the
-#: euclidean pre-pass they launch first
-COUNTED_WRAPPERS = KERNEL_WRAPPERS + (knn_prepass,)
+#: every wrapper that counts launches: the top-k entries, the euclidean
+#: pre-pass they launch first, and the tensor-core form of their partial
+#: kernel, which euclidean bfloat16 launches take
+COUNTED_WRAPPERS = KERNEL_WRAPPERS + (knn_prepass, knn_partial_mma)
 
 
 def reset_launches() -> None:

@@ -14,16 +14,28 @@ The inputs are `chip_smoke.py` phase 2's: for D in (6, 128), q [8192, D],
 t [131072, D] and labels [131072] drawn from a device generator seeded
 1234, in that order. For each D, metric, mode (exact, lanes, packed and
 the fused vote, k=5, C=2, gaussian 30) and compute dtype (float32, and
-bfloat16 for euclidean), both versions' partial and merge kernels run on
-the same tensors, each on the grid its own occupancy gives, after this
-checkout's pre-pass: their selection keys and indices (the vote: its
-scores) are compared bit for bit. For each D and dtype the two pre-passes
-run alone on q and t, their norms and rounded copies compared bit for bit.
-Times are CUDA-event medians of `--reps` calls, taken in turns (earlier,
-current, current, earlier) and averaged per side.
+bfloat16 for euclidean), both versions run on the same tensors, each on
+the grid its own occupancy gives:
+
+- float32 rows: both versions' CUDA-core partial and merge kernels after
+  this checkout's pre-pass; their selection keys and indices (the vote:
+  its scores) are compared bit for bit. This is the bar: the float32
+  instances do not change.
+- bfloat16 rows (euclidean): the earlier version's CUDA-core form (its
+  pre-pass with rounded copies, then its partial and merge kernels) beside
+  this checkout's route, the tensor-core form (`knn_tile_mma.cuh`). The
+  two accumulate in another order, so they are compared by the
+  tensor-core form's tolerance with the tie rule
+  (`knn_tolerance.bf16_agrees`), not bit for bit.
+
+For each D and dtype the two pre-passes run alone on q and t, their norms
+and rounded copies compared bit for bit. Times are CUDA-event medians of
+`--reps` calls, taken in turns (earlier, current, current, earlier) and
+averaged per side; each row prints their ratio.
 
 Prints the card's name and power limit, one line per row and one JSON
-line; exits 1 if any float32 row differs. Needs a CUDA device.
+line; exits 1 if any float32 row differs or any bfloat16 row disagrees.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import torch
 
 from avenir_tpu_torch.ops import _build
 from avenir_tpu_torch.ops import knn_kernels as kk
+from avenir_tpu_torch.tools.knn_tolerance import bf16_agrees
 
 NQ, NT, K, C, SEED = 8192, 131072, 5, 2, 1234
 #: mangled-name part of the K=8 manhattan exact partial instance
@@ -77,18 +90,27 @@ def load_parent(parent: Path):
 
 
 def current_call(mode: str, q, t, labels, metric: str, bf16: bool,
-                 libs=(None, None)) -> Callable[[], List[torch.Tensor]]:
+                 libs=(None, None, None)) -> Callable[[], List[torch.Tensor]]:
     """A call of this checkout's kernels (the pre-pass where euclidean,
-    then the partial and merge kernels; with `libs`, those of another
-    build with the same interface) giving [keys, indices] or [scores]."""
+    then the partial and merge kernels in the form the wrapper routes to)
+    giving [keys, indices] or [scores]. With `libs`, another build's
+    (topk, classify, prepass) libraries with the same interface, which
+    have only the CUDA-core form: for bfloat16 their own pre-pass makes
+    the rounded copies and norms it takes."""
     euclid = metric == "euclidean"
+    earlier_bf16 = libs[0] is not None and euclid and bf16
 
     def run():
+        kw = {}
+        if earlier_bf16:
+            qn, tn, qr, tr = prepass_call(q, t, True, libs[2])()
+            kw = dict(mma=False, operands=(qr, tr, qn, tn))
         if mode == "labels":
             return [kk._classify_scores(q, t, labels, K, euclid, bf16, C,
                                         q.shape[1], "gaussian", 30.0, NT,
-                                        libs[1])]
-        return list(kk._topk_keys(mode, q, t, K, euclid, bf16, NT, libs[0]))
+                                        libs[1], **kw)]
+        return list(kk._topk_keys(mode, q, t, K, euclid, bf16, NT, libs[0],
+                                  **kw))
     return run
 
 
@@ -110,17 +132,29 @@ def prepass_call(q, t, bf16: bool, lib) -> Callable[[], List[torch.Tensor]]:
     return run
 
 
-def ab_row(old, new, reps: int, out, **row) -> dict:
-    """Compare old() and new() bit for bit, time them in turns, print and
-    return the row."""
-    same = all(torch.equal(a, b) for a, b in zip(old(), new()))
+def bit_equal(old: List[torch.Tensor], new: List[torch.Tensor]) -> str:
+    """Why two results differ bit for bit ("" where every tensor of
+    them is equal)."""
+    return "" if all(torch.equal(a, b) for a, b in zip(old, new)) \
+        else "not bit-equal"
+
+
+def ab_row(old, new, reps: int, out, agree=bit_equal, **row) -> dict:
+    """Compare old() and new() by `agree` (bit for bit unless told
+    otherwise: it returns why they disagree, "" if they do not), time
+    them in turns, print and return the row."""
+    why = agree(old(), new())
     p1, n1, n2, p2 = (cuda_ms(fn, reps) for fn in (old, new, new, old))
-    row.update(bit_equal=same, earlier_ms=(p1 + p2) / 2,
+    row.update(agree=not why, by=agree.__name__, earlier_ms=(p1 + p2) / 2,
                current_ms=(n1 + n2) / 2)
-    out(f"{'same' if same else 'DIFF'} D={row['d']} {row['metric']} "
-        f"{row['mode']} {row['dtype']}: earlier {row['earlier_ms']:.3f} ms "
-        f"({p1:.3f}, {p2:.3f}), current {row['current_ms']:.3f} ms "
-        f"({n1:.3f}, {n2:.3f}), x{row['earlier_ms'] / row['current_ms']:.2f}")
+    row["ratio"] = row["earlier_ms"] / row["current_ms"]
+    verdict = ("same" if agree is bit_equal else "close") if not why \
+        else f"DIFF ({why})"
+    out(f"{verdict} D={row['d']} {row['metric']} {row['mode']} "
+        f"{row['dtype']}{' ' + row['forms'] if 'forms' in row else ''}: "
+        f"earlier {row['earlier_ms']:.3f} ms ({p1:.3f}, {p2:.3f}), current "
+        f"{row['current_ms']:.3f} ms ({n1:.3f}, {n2:.3f}), "
+        f"x{row['ratio']:.2f}")
     return row
 
 
@@ -163,6 +197,11 @@ def run(parent: Path, reps: int = 5, out=print) -> List[dict]:
             out(f"{name} K=8 manhattan exact D={d}: {info[1]} registers, "
                 f"{info[2]} local bytes, {info[0]} blocks/SM, {n} SASS "
                 f"instructions")
+    for d in (6, 128):
+        info = kk.partial_info(8, True, "lanes", d, bf16=True)
+        out(f"current K=8 euclidean bfloat16 lanes (tensor-core) D={d}: "
+            f"{info[1]} registers, {info[2]} local bytes, {info[0]} "
+            f"blocks/SM")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     for d in (6, 128):
@@ -179,10 +218,17 @@ def run(parent: Path, reps: int = 5, out=print) -> List[dict]:
                 if metric == "euclidean" else (("float32", False),)
             for mode in ("exact", "lanes", "packed", "labels"):
                 for dtype, bf16 in dtypes:
+                    kw = {}
+                    if bf16:       # CUDA-core form against tensor-core form
+                        def bf16_close(old, new, mode=mode):
+                            return bf16_agrees(mode, q, t, K, old, new)
+                        kw = dict(agree=bf16_close,
+                                  forms="cuda-core/tensor-core")
                     rows.append(ab_row(
                         current_call(mode, q, t, labels, metric, bf16, libs),
                         current_call(mode, q, t, labels, metric, bf16), reps,
-                        out, d=d, metric=metric, mode=mode, dtype=dtype))
+                        out, d=d, metric=metric, mode=mode, dtype=dtype,
+                        **kw))
     out(json.dumps({"metric": "knn_ab", "device": torch.cuda.get_device_name(0),
                     "card": card(), "rows": rows}))
     return rows
@@ -196,8 +242,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
     rows = run(args.parent, args.reps)
-    return 0 if all(r["bit_equal"] for r in rows
-                    if r["dtype"] == "float32") else 1
+    return 0 if all(r["agree"] for r in rows) else 1
 
 
 if __name__ == "__main__":

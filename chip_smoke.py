@@ -8,9 +8,11 @@ Phases, each printing a line per check; any failed check exits non-zero:
 1. Card: name and power limit (nvidia-smi), torch and CUDA versions, and
    the nvcc build of every kernel from `avenir_tpu_torch/ops/csrc/`.
    Fails on any spill: ptxas's spill bytes of every partial instance and
-   the local bytes cudaFuncGetAttributes reports for each of the 32;
-   prints the registers and blocks per SM of the K=8 instances, and holds
-   each instance's stage plan to the wrapper's.
+   the local bytes cudaFuncGetAttributes reports for each of the 32
+   CUDA-core and 16 tensor-core (euclidean bfloat16) instances; prints
+   the registers and blocks per SM of the K=8 CUDA-core instances and of
+   every tensor-core one, and holds each instance's stage plan to the
+   wrapper's. The diagnostic instance (clock64 sections) is only listed.
 2. Kernels against their plain PyTorch versions on the card, at the
    e-learning workload's size (8192 queries x 131072 train rows, k=5),
    D in {6, 128}, both metrics, and for the vote C=2 with the kernels
@@ -21,8 +23,11 @@ Phases, each printing a line per check; any failed check exits non-zero:
    for gaussian, with arg-max agreement >= 0.99. Index mismatches
    are allowed only between tied distances. The euclidean pre-pass
    (`knn_prepass`, norms alone and with bfloat16 copies) bit-equal to its
-   plain version, there and at ragged shapes up to MAX_D. Times are CUDA-event medians; each row prints its share
-   of its bound, its blocks per SM, grid and waves, and its launches.
+   plain version, there and at ragged shapes up to MAX_D. The merge
+   kernels (knn_topk.cu, knn_classify.cu) timed apart from the partial
+   kernel on the job's split lists, equal to the plain merge. Times are
+   CUDA-event medians; each row prints its share of its bound, its
+   blocks per SM, grid and waves, and its launches.
 3. The main path: the `nearestNeighbor` job through `runner.run_job` on
    seeded e-learning CSVs (131072 train, 8192 test rows, 6 features), in
    its three modes (default exact top-k, nen.device.packed.kernel,
@@ -34,10 +39,16 @@ Phases, each printing a line per check; any failed check exits non-zero:
 5. The packed kernel and every bfloat16 variant against their plain
    versions at 8192 x 131072, D in {6, 128}: packed manhattan bit-equal;
    packed euclidean within the exact tolerance plus one 2^-11 quantum;
-   bfloat16 euclidean within each kernel's float32 tolerance against the
-   bfloat16 plain version (index mismatches only between ties); bfloat16
-   manhattan bit-equal to float32. Then `avenir_tpu_torch.tools.knn_sweep`
-   at its full width (8192 x 131072, D=128).
+   bfloat16 euclidean, which takes the tensor-core form of the partial
+   kernel (one launch on `knn_partial_mma` per call), within each
+   kernel's float32 tolerance plus the dot form's cancellation floor
+   against the bfloat16 plain version (index mismatches only between
+   ties): its products are exact and only its fp32 accumulation order
+   differs; bfloat16 manhattan bit-equal to float32. The tensor-core
+   form's clock64 section shares at D=128 and D=6, its merge kernels on
+   the bench's lists, and every carry width and mode at ragged shapes, D
+   1..MAX_D. Then `avenir_tpu_torch.tools.knn_sweep` at its full width
+   (8192 x 131072, D=128).
 
 6. The Naive Bayes path: `bayesianDistr` through `runner.run_job` on a
    seeded churn train CSV of 1,000,000 rows streamed in 4 MB blocks; the
@@ -53,12 +64,14 @@ Phases, each printing a line per check; any failed check exits non-zero:
    its time, bound, plain and library (cuBLAS bf16 GEMM) times. Then
    `avenir_tpu_torch.tools.bench` at full size, its JSON line printed on a
    line of its own; the ceiling kernel and the two lane kernels must launch
-   there.
+   there, and every KNN launch of it (all euclidean bfloat16) on the
+   tensor-core form.
 
 Phases 4 and 5's sweep are the second path and phase 7's bench the third:
 each kernel's launches are counted from zero on each path. Then one JSON
 line of per-kernel numbers (the pre-pass beside the five kernels, at the
-sweep's D=128 float32), and as the last line
+sweep's D=128 float32; the tensor-core form at the bench's D=128
+bfloat16; the two merge kernels at the job's shape), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -83,8 +96,6 @@ DEVICE = "cuda"
 PEAKS = (("H100 PCIe", 51.2e12, 2.0e12, 756e12),
          ("H100 NVL", 60.0e12, 3.9e12, 835e12),
          ("H100", 66.9e12, 3.35e12, 989e12))
-#: the packed kernel's quantum: 12 masked mantissa bits, 2^-11 relative
-PACKED_QUANTUM = 2.0 ** -11
 CHECK_PATH = "kernel_check+knn_sweep"
 BENCH_PATH = "bench"
 #: phase 6: churn rows trained on and scored
@@ -174,14 +185,21 @@ def phase_card():
                   f"{min(regs)}..{max(regs)}, spill stores {spills} bytes",
                   flush=True)
             partial = {fn: int(st) + int(ld) for fn, st, ld in re.findall(
-                r"Function properties for (\S*partial_topk_kernel\S*)\s+"
-                r"\d+ bytes stack frame, (\d+) bytes spill stores, "
+                r"Function properties for (\S*partial_topk(?:_mma)?_kernel\S*)"
+                r"\s+\d+ bytes stack frame, (\d+) bytes spill stores, "
                 r"(\d+) bytes spill loads", text)}
+            # the diagnostic instance (PROFILE, "Lb1E") runs on no path
+            diag = {fn: n for fn, n in partial.items() if "ELb1E" in fn}
+            partial = {fn: n for fn, n in partial.items() if fn not in diag}
             if partial:
                 spilled = sorted(fn for fn, n in partial.items() if n)
                 check(not spilled, f"ptxas {name}: {len(partial)} partial "
-                      f"instances, {len(spilled)} spill" +
+                      f"instances ({sum('_mma_' in fn for fn in partial)} "
+                      f"tensor-core), {len(spilled)} spill" +
                       (f": {spilled}" if spilled else ""))
+            for fn, n in diag.items():
+                print(f"ptxas {name}: diagnostic instance (clock64 sections) "
+                      f"spills {n} bytes", flush=True)
         _build.load(name)
     partial_instances()
 
@@ -194,26 +212,35 @@ def partial_instances() -> None:
 
     spilled, plans = [], []
     n = 0
+    # the CUDA-core instances (both metrics), then the tensor-core ones
+    # (euclidean bfloat16)
+    forms = [(metric, False, kk._stage_plan) for metric in
+             ("manhattan", "euclidean")] + [("euclidean", True,
+                                            kk._mma_stage_plan)]
     for mode in kk.MODES:
-        for metric in ("manhattan", "euclidean"):
+        for metric, mma, stage_plan in forms:
+            what = f"{mode} {metric}" + (" bfloat16 tensor-core" if mma
+                                         else "")
             for k in (8, 16, 32, 64):
                 per_sm = {}
                 for d in (6, 128, kk.MAX_D):
                     per_sm[d], regs, local, *plan = kk.partial_info(
-                        k, metric == "euclidean", mode, d)
-                    if tuple(plan) != kk._stage_plan(d, k):
-                        plans.append(f"{mode}/{metric}/K={k}/D={d}")
+                        k, metric == "euclidean", mode, d, bf16=mma)
+                    if tuple(plan) != stage_plan(d, k):
+                        plans.append(f"{what}/K={k}/D={d}")
                 n += 1
                 if local:
-                    spilled.append(f"{mode}/{metric}/K={k}")
-                if k == 8:
-                    print(f"partial K=8 {mode} {metric}: {regs} registers, "
+                    spilled.append(f"{what}/K={k}")
+                if k == 8 or mma:
+                    print(f"partial K={k} {what}: {regs} registers, "
                           f"{local} local bytes, blocks/SM {per_sm[6]} at "
-                          f"D=6, {per_sm[128]} at D=128", flush=True)
+                          f"D=6, {per_sm[128]} at D=128, {per_sm[kk.MAX_D]} "
+                          f"at D={kk.MAX_D}", flush=True)
     check(not spilled, f"{n} partial instances, {len(spilled)} with local "
           f"(spilled) bytes" + (f": {spilled}" if spilled else ""))
     check(not plans, "the kernels' stage plans (rows, stages, bytes) equal "
-          "knn_kernels._stage_plan" + (f"; not {plans}" if plans else ""))
+          "knn_kernels._stage_plan and _mma_stage_plan"
+          + (f"; not {plans}" if plans else ""))
 
 
 # ------------------------------------------------------------------ phase 2
@@ -260,6 +287,7 @@ def phase_kernels(flops: float, rate: float):
     import torch
 
     from avenir_tpu_torch.ops import knn_kernels as kk
+    from avenir_tpu_torch.tools import knn_tolerance as tol
 
     _warm_plain()
     gen = torch.Generator(device=DEVICE).manual_seed(1234)
@@ -285,15 +313,15 @@ def phase_kernels(flops: float, rate: float):
                 rtol, atol = (1e-6, 0.0) if metric == "manhattan" else (1e-4, 1e-5)
                 if name == "knn_topk_lanes":
                     # one quantum, on top of the exact kernel's tolerance
-                    tol = 2.0 ** -(23 - kk.lane_pack_bits(NT))
+                    quantum = 2.0 ** -(23 - kk.lane_pack_bits(NT))
                     close = bool(((gd - pd).abs()
-                                  <= atol + (rtol + tol) * pd.abs()).all())
-                    recall = _recall(gi, pi)
+                                  <= atol + (rtol + quantum) * pd.abs()).all())
+                    recall = tol.recall(gi, pi)
                     ok = close and recall >= 0.99
-                    how = f"quantum {tol:.2e} recall {recall:.5f}"
+                    how = f"quantum {quantum:.2e} recall {recall:.5f}"
                 else:
                     close = bool(((gd - pd).abs() <= atol + rtol * pd.abs()).all())
-                    tied = _tied(q, t, gi, pd, mism, metric, rtol, atol)
+                    tied = tol.tied(q, t, gi, pd, mism, metric, rtol, atol)
                     ok = close and tied
                     how = f"rtol {rtol} atol {atol} ties-only {tied}"
                 n0 = wrap.launches
@@ -332,14 +360,17 @@ def phase_kernels(flops: float, rate: float):
                                     bound_by=cbound_by, library_ms=None,
                                     **plan))
                 # "none" counts neighbours: no floored score may round apart
-                tol = 0.0 if fn == "none" else 2.0
-                check(err <= tol and agree >= 0.99,
+                limit = 0.0 if fn == "none" else 2.0
+                check(err <= limit and agree >= 0.99,
                       f"knn_classify_lanes {metric} D={d} {fn}: max|err| "
                       f"{err:.3g} argmax agreement {agree:.5f}; {ms:.3f} ms, "
                       f"plain {plain_ms:.1f} ms, bound {cbound:.3f} ms "
                       f"({cbound / ms:.1%} of it); {_plan_text(plan)}, "
                       f"{kk.knn_classify_lanes.launches - n0} launches timed")
         results += _check_prepass(q, t, d, flops, rate)
+        if d == 6:     # the job's shape
+            results += _merge_rows(q, t, labels, "manhattan", "float32",
+                                   rate, "job")
         # padded corpus: rows at and past n_valid never enter
         nv = NT - 777
         gd, gi = kk.knn_topk(q, t, K, "manhattan", n_valid=nv)
@@ -355,18 +386,139 @@ PLAN_MODES = {"knn_topk": "exact", "knn_topk_lanes": "lanes",
               "knn_topk_packed": "packed", "knn_classify_lanes": "labels"}
 
 
-def _plan(q, t, metric, name) -> dict:
-    """The launch's blocks per SM, grid and waves (knn_kernels.launch_plan);
-    both compute dtypes take the same grid."""
+def _plan(q, t, metric, name, dtype="float32") -> dict:
+    """The launch's blocks per SM, grid and waves (knn_kernels.launch_plan):
+    euclidean bfloat16 takes the tensor-core instance's grid."""
     from avenir_tpu_torch.ops import knn_kernels as kk
 
-    plan = kk.launch_plan(q, t, K, metric, PLAN_MODES[name])
+    plan = kk.launch_plan(q, t, K, metric, PLAN_MODES[name],
+                          compute_dtype=dtype)
     return {key: plan[key] for key in ("blocks_per_sm", "grid", "waves")}
 
 
 def _plan_text(plan) -> str:
     return (f"{plan['blocks_per_sm']} blocks/SM, grid {plan['grid']}, "
             f"{plan['waves']:.2f} waves")
+
+
+def _merge_reads(part_k, nq, splits, empty):
+    """(keys, indices) that merge_splits reads from these split lists:
+    each split's keys in order up to and including the first that is not
+    below the carry's worst, and the index of each key it inserts. A
+    carry of the lists' width is replayed on the card, a slot at a time."""
+    import torch
+
+    pk = part_k.view(splits, nq, -1)
+    best = torch.full((nq, pk.shape[2]), empty, dtype=torch.int32,
+                      device=part_k.device)
+    keys = idx = 0
+    for s in range(splits):
+        live = torch.ones(nq, dtype=torch.bool, device=part_k.device)
+        for j in range(pk.shape[2]):
+            key = pk[s, :, j]
+            ins = live & (key < best[:, -1])
+            keys += int(live.sum())
+            idx += int(ins.sum())
+            merged = torch.sort(torch.cat([best[:, :-1], key[:, None]], 1),
+                                dim=1).values
+            best = torch.where(ins[:, None], merged, best)
+            live = ins
+    return keys, idx
+
+
+def _merge_rows(q, t, labels, metric, dtype, rate, shape):
+    """The two merge kernels timed apart from the partial kernel: one
+    launch of the wrapper's route leaves the split lists, then
+    knn_topk_merge_launch / knn_classify_merge_launch alone on them,
+    against merge_splits_plain (and _vote) and the full launch's output.
+    Bound: the bytes the merge must move on these lists (_merge_reads,
+    and its output). Library: torch.topk over each query's splits x K
+    keys (laid out [nq, splits * K] once, outside the timing)."""
+    import torch
+
+    from avenir_tpu_torch.ops import _build
+    from avenir_tpu_torch.ops import knn_kernels as kk
+
+    euclid = metric == "euclidean"
+    bf16 = kk._bf16(dtype, metric)
+    mma = kk._mma(euclid, bf16)
+    (nq, d), stream = q.shape, kk._stream(q.device)
+    ops = [None if x is None else x.data_ptr()
+           for x in kk._operands(q, t, euclid, bf16, NT)]
+    rows = []
+    for name, mode in (("merge_topk", "lanes" if shape == "bench"
+                        else "exact"), ("merge_vote", "labels")):
+        _, _, splits, per_split = kk._grid(q, K, euclid, mode, NT, bf16=bf16)
+        part_k, part_i = kk._partial_buffers(q, K, splits)
+        ptrs = (part_k.data_ptr(), part_i.data_ptr())
+        if mode == "labels":
+            lib = _build.load("knn_classify")
+            out = torch.empty((nq, 2), dtype=torch.float32, device=q.device)
+            vote = (1, 2, 1.0 / d, kk.KERNEL_FNS.index("gaussian"), 30.0)
+            kk._launch(lib, "knn_classify", mma, "knn_classify_lanes", *ops,
+                       labels.data_ptr(), nq, d, NT, K, int(euclid),
+                       *vote, splits, per_split, *ptrs,
+                       out.data_ptr(), stream)
+            empty = kk.SENTINEL
+
+            def merge():
+                kk._raise_on(lib.knn_classify_merge_launch(
+                    *ptrs, nq, splits, K, int(euclid), *vote,
+                    out.data_ptr(), stream), "knn_classify_merge")
+
+            def plain():
+                keys = kk.merge_splits_plain(part_k, part_i, nq, splits, K)[0]
+                return kk._vote(keys, 1, 2, d, metric, "gaussian", 30.0)
+            out_bytes = nq * 2 * 4
+        else:
+            lib = _build.load("knn_topk")
+            out = torch.empty((2, nq, K), dtype=torch.int32, device=q.device)
+            bits, _, empty = kk._key_spec(mode, t)
+            kk._launch(lib, "knn_topk", mma, f"knn_topk ({mode})", *ops, nq,
+                       d, NT, K, int(euclid), kk.MODES[mode], bits, splits,
+                       per_split, *ptrs, out[0].data_ptr(),
+                       out[1].data_ptr(), stream)
+
+            def merge():
+                kk._raise_on(lib.knn_topk_merge_launch(
+                    *ptrs, nq, splits, K, kk.MODES[mode], out[0].data_ptr(),
+                    out[1].data_ptr(), stream), "knn_topk_merge")
+
+            def plain():
+                return torch.stack(kk.merge_splits_plain(part_k, part_i, nq,
+                                                         splits, K))
+            out_bytes = nq * K * 8
+        full = out.clone()
+        merge()
+        torch.cuda.synchronize()
+        ref, plain_ms = _timed_once(plain)
+        if mode == "labels":
+            err = (out - ref).abs().max().item()
+            # one floored score step on a boundary-sitting distance
+            ok = torch.equal(out, full) and err <= 2.0
+        else:
+            err = (out.long() - ref.long()).abs().max().item()
+            ok = torch.equal(out, full) and torch.equal(out, ref)
+        ms = cuda_ms(merge, 20)
+        keys, idx = _merge_reads(part_k, nq, splits, empty)
+        bound = (4 * (keys + idx) + out_bytes) / rate * 1e3
+        lib_ms = None
+        if mode != "labels":
+            cand = part_k.view(splits, nq, -1).permute(1, 0, 2).reshape(nq, -1)
+            lib_ms = cuda_ms(lambda: torch.topk(cand, K, dim=1, largest=False),
+                             20)
+        rows.append(dict(name=name, metric=metric, d=d, dtype=dtype,
+                         shape=shape, splits=splits, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                         library_ms=lib_ms, keys_read=keys))
+        check(ok, f"{name} ({mode} lists of the {shape} shape, {metric} "
+              f"{dtype} D={d}, {splits} splits): equal to the full launch's, "
+              f"max|err| {err:.3g} against the plain merge; {ms:.4f} ms, "
+              f"plain {plain_ms:.1f} ms, bound {bound:.4f} ms (bytes: {keys} "
+              f"keys and {idx} indices read of {part_k.numel()}, "
+              f"{bound / ms:.1%} of it)"
+              + ("" if lib_ms is None else f", torch.topk {lib_ms:.4f} ms"))
+    return rows
 
 
 def _check_prepass(q, t, d, flops, rate):
@@ -429,60 +581,6 @@ def _check_prepass_shapes():
     check(not bad, "knn_prepass at 37 x 1001 rows, D 1..MAX_D, t one row "
           "into its storage: bit-equal to the plain version"
           + (f"; not at (D, bf16) {bad}" if bad else ""))
-
-
-def _recall(gi, pi) -> float:
-    import torch
-
-    hits = (gi[:, :, None] == pi[:, None, :]).any(2).float()
-    return hits.mean().item()
-
-
-def _within(got, ref, d, rtol, atol, floor=0.0):
-    """Elementwise |got - ref| <= atol + rtol |ref|; with a floor, a
-    distance may instead lie within `floor` of ref in the squared sum it
-    came from (d * dist^2): near zero the square root turns one fp32 ulp
-    of the dot form's norms into a large share of the distance."""
-    ok = (got - ref).abs() <= atol + rtol * ref.abs()
-    if floor:
-        ok |= ((got * got - ref * ref) * d).abs() <= floor
-    return ok
-
-
-def _cancellation_floor(q, t) -> float:
-    """A few fp32 ulps (2^-20) of the largest |q|^2 + |t|^2: the error of
-    the dot form |q|^2 + |t|^2 - 2 q.t however small the result."""
-    return 2.0 ** -20 * ((q * q).sum(1).max() + (t * t).sum(1).max()).item()
-
-
-def _tied(q, t, gi, pd, mism, metric, rtol, atol, bf16=False,
-          floor=0.0) -> bool:
-    """Where the kernel's index differs from the plain one, the row the
-    kernel chose must be as near as the plain one's (a tie). With bf16
-    the distance is the bfloat16 cross term's, taken in float64, and
-    `floor` is _within's."""
-    import torch
-
-    rows, cols = torch.nonzero(mism, as_tuple=True)
-    if rows.numel() == 0:
-        return True
-    a, b = q[rows], t[gi[rows, cols].long()]
-    d = q.shape[1]
-    if metric == "euclidean" and bf16:
-        ar, br = (x.to(torch.bfloat16).double() for x in (a, b))
-        sq = ((a.double() ** 2).sum(1) + (b.double() ** 2).sum(1)
-              - 2.0 * (ar * br).sum(1))
-        true = torch.sqrt(torch.clamp(sq, min=0.0) / d)
-    elif metric == "euclidean":
-        true = torch.sqrt(((a.double() - b.double()) ** 2).sum(1) / d)
-    else:
-        # the kernels' own fp32 sum, features in order from 0.0
-        acc = torch.zeros(rows.numel(), device=q.device)
-        for f in range(d):
-            acc = acc + (a[:, f] - b[:, f]).abs()
-        true = (acc / d).double()
-    ref = pd[rows, cols].double()
-    return bool(_within(true, ref, d, rtol, atol, floor).all())
 
 
 def _wrappers():
@@ -576,24 +674,13 @@ def phase_kernel_check():
     check(not failed, f"kernel_check: {len(results) - len(failed)} of "
           f"{len(results)} cases pass in {time.perf_counter() - t0:.1f}s, "
           f"launches {counts}" + (f"; failed {failed}" if failed else ""))
+    check(counts["knn_partial_mma"] >= 1, "kernel_check: its bfloat16 "
+          "euclidean cases took the tensor-core form "
+          f"({counts['knn_partial_mma']} launches)")
     return counts
 
 
 # ------------------------------------------------------------------ phase 5
-def _boundary_tied(q, t, rows, metric, dtype, rtol, floor) -> bool:
-    """A vote may differ by a whole neighbour's score only where the k-th
-    and (k+1)-th nearest rows are tied, so the two sides may keep either:
-    checked on the plain top-(k+1) of those queries."""
-    from avenir_tpu_torch.ops import knn_kernels as kk
-
-    if rows.numel() == 0:
-        return True
-    dist, _ = kk.knn_topk_plain(q[rows], t, K + 1, metric,
-                                compute_dtype=dtype)
-    return bool(_within(dist[:, K], dist[:, K - 1], q.shape[1], rtol, 1e-5,
-                        floor).all())
-
-
 def phase_packed_bf16(flops: float, rate: float, bf16_flops: float,
                       phase2_rows):
     """The packed kernel and every bfloat16 variant against their plain
@@ -601,9 +688,10 @@ def phase_packed_bf16(flops: float, rate: float, bf16_flops: float,
     import torch
 
     from avenir_tpu_torch.ops import knn_kernels as kk
+    from avenir_tpu_torch.tools import knn_tolerance as tol
 
     gen = torch.Generator(device=DEVICE).manual_seed(4321)
-    topk = (("knn_topk", 0.0), ("knn_topk_packed", PACKED_QUANTUM),
+    topk = (("knn_topk", 0.0), ("knn_topk_packed", tol.PACKED_QUANTUM),
             ("knn_topk_lanes", 2.0 ** -(23 - kk.lane_pack_bits(NT))))
     results = []
     for d in (6, 128):
@@ -630,42 +718,49 @@ def phase_packed_bf16(flops: float, rate: float, bf16_flops: float,
             bf16 = dtype == "bfloat16"
             wrap = getattr(kk, name)
             plain = getattr(kk, name + "_plain")
+            n_mma = kk.knn_partial_mma.launches
             gd, gi = wrap(q, t, K, metric, compute_dtype=dtype)
             torch.cuda.synchronize()
+            # euclidean bfloat16 takes the tensor-core form, nothing else
+            mma = kk.knn_partial_mma.launches - n_mma
+            form = int(bf16 and metric == "euclidean")
             (pd, pi), plain_ms = _timed_once(
                 lambda: plain(q, t, K, metric, compute_dtype=dtype))
             err = (gd - pd).abs().max().item()
             mism = gi != pi
             rtol = 1e-4 + dict(topk)[name]
-            floor = _cancellation_floor(q, t) if bf16 else 0.0
-            close = bool(_within(gd, pd, d, rtol, 1e-5, floor).all())
+            floor = tol.cancellation_floor(q, t) if bf16 else 0.0
+            close = bool(tol.within(gd, pd, d, rtol, 1e-5, floor).all())
             if metric == "manhattan":
                 ok = torch.equal(gd, pd) and torch.equal(gi, pi)
                 how = "bit-equal"
             elif name == "knn_topk_lanes":
-                recall = _recall(gi, pi)
+                recall = tol.recall(gi, pi)
                 ok = close and recall >= 0.99
                 how = f"rtol {rtol:.3g} floor {floor:.2g} recall {recall:.5f}"
             else:
-                tied = _tied(q, t, gi, pd, mism, metric, rtol, 1e-5, bf16,
-                             floor)
+                tied = tol.tied(q, t, gi, pd, mism, metric, rtol, 1e-5, bf16,
+                                floor)
                 ok = close and tied
                 how = (f"rtol {rtol:.3g} atol 1e-05 floor {floor:.2g} "
                        f"ties-only {tied}")
+            ok = ok and mma == form
             ms = cuda_ms(lambda: wrap(q, t, K, metric, compute_dtype=dtype), 5)
             bound, bound_by = bound_ms(metric, d, K, flops, rate,
                                        bf16_flops=bf16_flops if bf16 else 0.0)
             lib = next(r["library_ms"] for r in phase2_rows
                        if r["name"] == "knn_topk" and r["metric"] == metric
                        and r["d"] == d)
-            plan = _plan(q, t, metric, name)
+            plan = _plan(q, t, metric, name, dtype)
             results.append(dict(name=name, metric=metric, d=d, dtype=dtype,
                                 max_abs_err=err,
                                 index_mismatch=int(mism.sum()), ms=ms,
                                 plain_ms=plain_ms, bound_ms=bound,
-                                bound_by=bound_by, library_ms=lib, **plan))
+                                bound_by=bound_by, library_ms=lib,
+                                mma_launches=mma, **plan))
             check(ok, f"{name} {metric} {dtype} D={d}: max|err| {err:.3g} "
                   f"index mismatches {int(mism.sum())} ({how}); "
+                  f"{mma} tensor-core launch{'es' if mma != 1 else ''}; "
                   f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound:.3f} ms "
                   f"({bound_by}, {bound / ms:.1%} of it), cdist+topk "
                   f"{lib:.1f} ms; {_plan_text(plan)}")
@@ -673,32 +768,92 @@ def phase_packed_bf16(flops: float, rate: float, bf16_flops: float,
         def run(impl=kk.knn_classify_lanes):
             return impl(q, t, labels, K, 2, d, "gaussian", 30.0, "euclidean",
                         compute_dtype="bfloat16")
+        n_mma = kk.knn_partial_mma.launches
         got = run()
         torch.cuda.synchronize()
+        mma = kk.knn_partial_mma.launches - n_mma
         ref, plain_ms = _timed_once(lambda: run(kk.knn_classify_lanes_plain))
         err = (got - ref).abs().max().item()
         agree = (got.argmax(1) == ref.argmax(1)).float().mean().item()
         # beyond a floored-score step (2.0), only a tie at the k-th
         # neighbour may change a vote
         swapped = torch.nonzero(((got - ref).abs() > 2.0).any(1)).flatten()
-        tied = _boundary_tied(q, t, swapped, "euclidean", "bfloat16", 1e-4,
-                              _cancellation_floor(q, t))
+        tied = tol.boundary_tied(q, t, swapped, K, "euclidean", "bfloat16",
+                                 1e-4, tol.cancellation_floor(q, t))
         ms = cuda_ms(run, 5)
         bound, bound_by = bound_ms("euclidean", d, 0, flops, rate,
                                    extra_bytes=NT * 4 + NQ * 2 * 4,
                                    bf16_flops=bf16_flops)
+        plan = _plan(q, t, "euclidean", "knn_classify_lanes", "bfloat16")
         results.append(dict(name="knn_classify_lanes", metric="euclidean",
                             d=d, dtype="bfloat16", kernel_fn="gaussian",
                             max_abs_err=err, argmax_agreement=agree, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound,
-                            bound_by=bound_by, library_ms=None))
-        check(tied and agree >= 0.99,
+                            bound_by=bound_by, library_ms=None,
+                            mma_launches=mma, **plan))
+        check(tied and agree >= 0.99 and mma == 1,
               f"knn_classify_lanes euclidean bfloat16 D={d} gaussian: "
               f"max|err| {err:.3g}, {swapped.numel()} queries past 2.0 "
               f"(k-th neighbour tied: {tied}), argmax agreement "
-              f"{agree:.5f}; {ms:.3f} ms, "
-              f"plain {plain_ms:.1f} ms, bound {bound:.3f} ms ({bound_by})")
+              f"{agree:.5f}; {mma} tensor-core launch; {ms:.3f} ms, "
+              f"plain {plain_ms:.1f} ms, bound {bound:.3f} ms ({bound_by}, "
+              f"{bound / ms:.1%} of it); {_plan_text(plan)}")
+        shares = kk.mma_sections(q, t)
+        torch.cuda.synchronize()
+        print(f"tensor-core sections D={d} (K=8 lane keys, share of warp "
+              f"cycles): " + ", ".join(f"{name} {v:.1%}"
+                                       for name, v in shares.items()),
+              flush=True)
+        results.append(dict(name="mma_sections", d=d, shares=shares))
+        if d == 128:   # the bench's shape
+            results += _merge_rows(q, t, labels, "euclidean", "bfloat16",
+                                   rate, "bench")
+    _check_mma_shapes()
     return results
+
+
+def _check_mma_shapes() -> None:
+    """The tensor-core form at every carry width and mode where its
+    blocks, tiles and k-steps are ragged: D from 1 to MAX_D, 300 queries,
+    3000 train rows of which 2900 valid; each launch counted on
+    knn_partial_mma and within bf16_agrees of the plain version."""
+    import torch
+
+    from avenir_tpu_torch.ops import knn_kernels as kk
+    from avenir_tpu_torch.tools import knn_tolerance as tol
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    nv, bad, n = 2900, [], 0
+    for d in (1, 6, 37, 128, 129, 300, kk.MAX_D):
+        q = torch.randn((300, d), generator=gen, device=DEVICE)
+        t = torch.randn((3000, d), generator=gen, device=DEVICE)
+        labels = torch.randint(0, 3, (3000,), generator=gen, device=DEVICE,
+                               dtype=torch.int32)
+        for k in (5, 16, 32, 64):
+            for mode in ("exact", "lanes", "packed", "labels"):
+                n0 = kk.knn_partial_mma.launches
+                if mode == "labels":
+                    args = (q, t, labels, k, 3, None, "gaussian", 30.0,
+                            "euclidean", nv)
+                    new = [kk.knn_classify_lanes(*args,
+                                                 compute_dtype="bfloat16")]
+                    old = [kk.knn_classify_lanes_plain(
+                        *args, compute_dtype="bfloat16")]
+                else:
+                    new = list(kk._topk_keys(mode, q, t, k, True, True, nv))
+                    _, mask, empty = kk._key_spec(mode, t)
+                    old = list(kk._select_plain(q, t, k, "euclidean", nv,
+                                                mode, mask, empty, True))
+                torch.cuda.synchronize()
+                why = tol.bf16_agrees(mode, q, t, k, old, new, nv)
+                launched = kk.knn_partial_mma.launches - n0
+                n += 1
+                if why or launched != 1:
+                    bad.append(f"D={d}/k={k}/{mode}: {why or launched}")
+    check(not bad, f"tensor-core form at 300 x 3000 rows (2900 valid), D "
+          f"1..{kk.MAX_D}, k 5/16/32/64, 4 modes: {n - len(bad)} of {n} "
+          f"within bf16_agrees of the plain version, one launch each"
+          + (f"; not {bad}" if bad else ""))
 
 
 def phase_sweep():
@@ -712,8 +867,9 @@ def phase_sweep():
     knn_sweep.run(device=DEVICE)
     torch.cuda.synchronize()
     counts = _launch_counts()
-    print(f"knn_sweep: {time.perf_counter() - t0:.1f}s, launches {counts}",
-          flush=True)
+    check(counts["knn_partial_mma"] >= 1,
+          f"knn_sweep: {time.perf_counter() - t0:.1f}s, launches {counts}; "
+          f"its bfloat16 calls took the tensor-core form")
     return counts
 
 
@@ -844,10 +1000,55 @@ def phase_bench():
     torch.cuda.synchronize()
     counts = _launch_counts()
     print(line[0], flush=True)
-    need = ("knn_topk_lanes", "knn_classify_lanes", "matmul_ceiling")
-    check(all(counts[n] >= 1 for n in need),
-          f"bench: {time.perf_counter() - t0:.1f}s, launches {counts}")
+    need = ("knn_topk_lanes", "knn_classify_lanes", "matmul_ceiling",
+            "knn_partial_mma")
+    # every KNN launch of the bench is euclidean bfloat16: each one takes
+    # the tensor-core form
+    bf16 = counts["knn_topk_lanes"] + counts["knn_classify_lanes"]
+    check(all(counts[n] >= 1 for n in need)
+          and counts["knn_partial_mma"] == bf16,
+          f"bench: {time.perf_counter() - t0:.1f}s, launches {counts}; "
+          f"{counts['knn_partial_mma']} of {bf16} bfloat16 KNN launches on "
+          f"the tensor-core form")
     return counts
+
+
+#: this slice's kernels: (name, source, what it replaces, the row of
+#: `checks` it reports: name, metric, D, dtype, the path whose launches
+#: count, and the wrappers whose launches launch it)
+NEW_KERNELS = (
+    ("knn_partial_mma", "knn_tile_mma.cuh", "avenir_tpu/ops/pallas_knn.py:64",
+     ("knn_topk_lanes", "euclidean", 128, "bfloat16"), BENCH_PATH,
+     ("knn_partial_mma",)),
+    ("merge_topk", "knn_topk.cu", "avenir_tpu/ops/pallas_knn.py:76",
+     ("merge_topk", "manhattan", 6, "float32"), "nearestNeighbor",
+     ("knn_topk", "knn_topk_packed", "knn_topk_lanes")),
+    ("merge_vote", "knn_classify.cu", "avenir_tpu/ops/pallas_knn.py:500",
+     ("merge_vote", "manhattan", 6, "float32"), "nearestNeighbor",
+     ("knn_classify_lanes",)))
+
+
+def _new_kernel_rows(checks, launches, path_counts, bench_counts):
+    """The kernels line's rows of NEW_KERNELS. A merge kernel is launched
+    once by each launch of its wrappers, so its launches are theirs."""
+    rows = []
+    for name, src, replaces, (row_name, metric, d, dtype), path, by in \
+            NEW_KERNELS:
+        row = next(r for r in checks if r["name"] == row_name
+                   and r.get("metric") == metric and r["d"] == d
+                   and r.get("dtype", "float32") == dtype
+                   and r.get("kernel_fn") is None)
+        by_path = {p: sum(counts[w] for w in by) for p, counts in
+                   (("nearestNeighbor", launches), (CHECK_PATH, path_counts),
+                    (BENCH_PATH, bench_counts))}
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"avenir_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces, "launches": by_path[path],
+            "launches_by_path": by_path,
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
+    return rows
 
 
 def main() -> None:
@@ -932,6 +1133,7 @@ def main() -> None:
                              BENCH_PATH: bench_counts["matmul_ceiling"]},
         **{k: ceiling[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
+    kernels += _new_kernel_rows(checks, launches, path_counts, bench_counts)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -502,3 +502,212 @@ def test_prepass_on_cpu_tensors_is_the_plain_version():
     assert kk.knn_prepass.launches == 0
     assert kk.knn_prepass in kk.COUNTED_WRAPPERS
     assert kk.knn_prepass not in kk.KERNEL_WRAPPERS
+
+
+# ------------------------------------------------- the tensor-core form
+class _FakeFormLib(_FakeInfoLib):
+    """Stands in for a built library with both forms of the partial
+    kernel: every entry records its name (and a launch its arguments);
+    the tensor-core instance reports its own occupancy and stage rows."""
+
+    def __init__(self, mma_error=0):
+        super().__init__(per_sm=2, stage=32)
+        self.called, self.args, self.mma_error = [], [], mma_error
+
+    def _info(self, entry, info, mma):
+        self.called.append(entry)
+        self.calls += 1
+        info[0:6] = [3, 90, 0, 64, 2, 0] if mma else \
+            [self.per_sm, 40, 0, self.stage, 2, 0]
+        return 0
+
+    def _launch(self, entry, args, err=0):
+        self.called.append(entry)
+        self.args.append(args)
+        return err
+
+    def knn_topk_partial_info(self, k, euclid, mode, d, info):
+        return self._info("knn_topk_partial_info", info, False)
+
+    def knn_topk_mma_info(self, k, euclid, mode, d, info):
+        return self._info("knn_topk_mma_info", info, True)
+
+    def knn_classify_partial_info(self, k, euclid, d, info):
+        return self._info("knn_classify_partial_info", info, False)
+
+    def knn_classify_mma_info(self, k, euclid, d, info):
+        return self._info("knn_classify_mma_info", info, True)
+
+    def knn_topk_launch(self, *args):
+        return self._launch("knn_topk_launch", args)
+
+    def knn_topk_mma_launch(self, *args):
+        return self._launch("knn_topk_mma_launch", args, self.mma_error)
+
+    def knn_classify_launch(self, *args):
+        return self._launch("knn_classify_launch", args)
+
+    def knn_classify_mma_launch(self, *args):
+        return self._launch("knn_classify_mma_launch", args, self.mma_error)
+
+
+def _on_a_fake_card(monkeypatch):
+    monkeypatch.setattr(kk, "_INFO", {})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(kk, "_sm_count", lambda dev: 132)
+    kk.reset_launches()
+
+
+def _route(mode, metric, dtype, lib, nt=1000):
+    """One raw launch of `mode` through `lib` on CPU tensors, as a CUDA
+    call of the wrapper with this metric and dtype makes it."""
+    gen = torch.Generator().manual_seed(3)
+    q, t = torch.rand(200, 6, generator=gen), torch.rand(nt, 6, generator=gen)
+    euclid, bf16 = metric == "euclidean", kk._bf16(dtype, metric)
+    if mode == "labels":
+        labels = torch.zeros(nt, dtype=torch.int32)
+        kk._classify_scores(q, t, labels, 5, euclid, bf16, 2, 6, "gaussian",
+                            30.0, nt, lib)
+    else:
+        kk._topk_keys(mode, q, t, 5, euclid, bf16, nt, lib)
+
+
+@pytest.mark.parametrize("mode", ["exact", "lanes", "packed", "labels"])
+@pytest.mark.parametrize("metric,dtype", [
+    ("euclidean", "bfloat16"), ("euclidean", "float32"),
+    ("manhattan", "bfloat16"), ("manhattan", "float32")])
+def test_bf16_euclidean_takes_the_tensor_core_form(monkeypatch, mode, metric,
+                                                   dtype):
+    """Euclidean bfloat16 launches the tensor-core instance on the grid
+    of its own partial_info, counted on knn_partial_mma; float32 and
+    manhattan bfloat16 keep the CUDA-core instance."""
+    _on_a_fake_card(monkeypatch)
+    lib = _FakeFormLib()
+    _route(mode, metric, dtype, lib)
+    name = "knn_classify" if mode == "labels" else "knn_topk"
+    mma = metric == "euclidean" and dtype == "bfloat16"
+    form = "_mma" if mma else ""
+    assert lib.called == [f"{name}{form or '_partial'}_info",
+                          f"{name}{form}_launch"]
+    splits, rows = lib.args[0][-7:-5] if mode != "labels" \
+        else lib.args[0][-6:-4]
+    assert rows % (64 if mma else 32) == 0
+    assert (splits, rows) == kk._splits(200, 1000, 132, 3 if mma else 2,
+                                        64 if mma else 32,
+                                        kk._block_queries(5))
+    assert kk.knn_partial_mma.launches == int(mma)
+    assert kk.knn_partial_mma in kk.COUNTED_WRAPPERS
+    assert kk.knn_partial_mma not in kk.KERNEL_WRAPPERS
+
+
+@pytest.mark.parametrize("mode", ["lanes", "labels"])
+def test_tensor_core_form_has_no_fallback(monkeypatch, mode):
+    """A tensor-core launch that fails raises, and one a library lacks
+    raises: neither reroutes to the CUDA-core form."""
+    _on_a_fake_card(monkeypatch)
+    lib = _FakeFormLib(mma_error=700)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        _route(mode, "euclidean", "bfloat16", lib)
+    assert not any(c.endswith("_launch") and "mma" not in c
+                   for c in lib.called)
+    assert kk.knn_partial_mma.launches == 0
+    bare = _FakeInfoLib(per_sm=2, stage=32)    # no tensor-core entries
+    with pytest.raises(AttributeError):
+        _route(mode, "euclidean", "bfloat16", bare)
+
+
+def test_partial_info_cache_keys_the_form(monkeypatch):
+    """The tensor-core and CUDA-core instances of one mode, K and D are
+    cached apart; manhattan bfloat16 shares the CUDA-core entry."""
+    _on_a_fake_card(monkeypatch)
+    lib = _FakeFormLib()
+    fma = kk.partial_info(8, True, "lanes", 128, lib)
+    mma = kk.partial_info(8, True, "lanes", 128, lib, bf16=True)
+    assert (fma[0], fma[3], mma[0], mma[3]) == (2, 32, 3, 64)
+    assert kk.partial_info(5, True, "lanes", 128, lib, bf16=True) == mma
+    assert kk.partial_info(8, True, "lanes", 128, lib) == fma
+    assert lib.called == ["knn_topk_partial_info", "knn_topk_mma_info"]
+    l1 = kk.partial_info(8, False, "lanes", 128, lib)
+    assert kk.partial_info(8, False, "lanes", 128, lib, bf16=True) == l1
+    assert lib.called[2:] == ["knn_topk_partial_info"]
+
+
+@pytest.mark.parametrize("k", [8, 16, 32, 64])
+def test_tensor_core_form_fits_shared_memory_at_every_width(k):
+    """Every D up to MAX_D at carry width k: two v tiles, the block's
+    queries and a stage's rows as bf16 at depth16(D) + 8 halves (an odd
+    multiple of 16 bytes, so 8 rows that ldmatrix reads fall on distinct
+    banks), and a ring of fp32 stages of whole 32-row tiles near
+    MMA_STAGE_BYTES fit the 227 KB cap, with two stages at least up to
+    D=128; at D=6 and K=8 three blocks fit an SM's 228 KB."""
+    for d in range(1, kk.MAX_D + 1):
+        dp = kk._depth16(d)
+        assert dp % 16 == 0 and d <= dp < d + 16
+        assert (2 * (dp + kk.MMA_PAD) // 16) % 2 == 1
+        rows, stages, smem = kk._mma_stage_plan(d, k)
+        row = 16 * kk._row_stride4(d) + 8
+        assert rows % kk.TT == 0 and stages in (1, 2)
+        assert rows == kk.TT or rows * row <= kk.MMA_STAGE_BYTES < \
+            (rows + kk.TT) * row
+        assert smem <= kk.SMEM_LIMIT
+        if d <= 128:
+            assert stages == 2
+    if k == 8:
+        assert 3 * (kk._mma_stage_plan(6, 8)[2] + 1024) <= 233472
+
+
+@pytest.mark.parametrize("d", [1, 6, 37, 300])
+@pytest.mark.parametrize("mode", ["exact", "lanes", "packed", "labels"])
+def test_zero_padding_to_the_mma_depth_keeps_the_plain_keys(monkeypatch, d,
+                                                            mode):
+    """The tensor-core form multiplies D padded with zeros to a multiple
+    of 16. Padding the plain bf16 cross term the same way leaves its keys
+    and indices bit-equal: a zero product adds nothing."""
+    rng = np.random.default_rng(d)
+    q = _t(rng.normal(size=(64, d)).astype(np.float32))
+    t = _t(rng.normal(size=(700, d)).astype(np.float32))
+    labels = _t(rng.integers(0, 3, 700).astype(np.int32))
+    mask = 0 if mode == "exact" else 3 if mode == "labels" else 0xFFF
+
+    def select():
+        return kk._select_plain(q, t, 8, "euclidean", 650, mode, mask,
+                                kk.INF_BITS, True, labels)
+    want = select()
+    cross = kk._cross
+
+    def padded(a, b, bf16):
+        pad = kk._depth16(a.shape[1]) - a.shape[1]
+        return cross(torch.nn.functional.pad(a, (0, pad)),
+                     torch.nn.functional.pad(b, (0, pad)), bf16)
+    monkeypatch.setattr(kk, "_cross", padded)
+    got = select()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("splits,kw,k", [(1, 8, 5), (7, 8, 8), (33, 16, 9),
+                                         (4, 64, 64)])
+def test_merge_splits_plain_is_the_merge_kernels_carry(splits, kw, k):
+    """The plain split merge against merge_splits step for step: a sorted
+    carry of K slots fed each split's sorted list in order, an entry
+    inserted only below the carry's worst key (so the earlier of equal
+    keys stays), a split left at its first entry that is not."""
+    rng = np.random.default_rng(splits * kw)
+    nq, empty = 20, kk.INF_BITS
+    key = rng.integers(0, 40, (splits, nq, kw)).astype(np.int32)
+    key[rng.random(key.shape) < 0.1] = empty      # empty slots
+    key.sort(axis=2)
+    idx = np.where(key == empty, -1, rng.integers(0, 10 ** 6, key.shape))
+    for s in range(splits):                        # columns rise by split
+        idx[s] = np.where(idx[s] < 0, -1, idx[s] + s * 10 ** 6)
+    got_k, got_i = kk.merge_splits_plain(_t(key.ravel()), _t(idx.astype(
+        np.int32).ravel()), nq, splits, k)
+    for r in range(nq):
+        carry = [(empty, -1)] * kw
+        for s in range(splits):
+            for j in range(kw):
+                if not key[s, r, j] < carry[-1][0]:
+                    break
+                carry = sorted(carry[:-1] + [(key[s, r, j], idx[s, r, j])],
+                               key=lambda e: e[0])
+        assert got_k[r].tolist() == [e[0] for e in carry[:k]]
+        assert got_i[r].tolist() == [e[1] for e in carry[:k]]

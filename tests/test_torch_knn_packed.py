@@ -182,3 +182,41 @@ def test_unknown_compute_dtype_raises(dtype):
     with pytest.raises(ValueError, match="compute_dtype"):
         kk.knn_topk_packed(q, t, 2, compute_dtype=dtype)
     assert kk.knn_topk(q, t, 2, compute_dtype=torch.bfloat16)[0].shape == (4, 2)
+
+
+@pytest.mark.parametrize("d", [1, 6, 37, 300])
+@pytest.mark.parametrize("name", ["knn_topk", "knn_topk_packed",
+                                  "knn_topk_lanes"])
+def test_bfloat16_topk_at_ragged_depths_matches_pallas_interpret(name, d):
+    """The plain bf16 top-k, which the tensor-core form is held to on the
+    card, against JAX at bfloat16 where D is no multiple of the mma's
+    k-step of 16 (1, 6, 37) or spans many of them (300)."""
+    q, t, t_pad, n_valid = _corpus("pad", 20 + d, d=d)
+    ref_d, ref_i = _jax_bf16(name, q, t_pad, 5, n_valid)
+    got_d, got_i = getattr(kk, name)(_t(q), _t(t_pad), 5, "euclidean",
+                                     n_valid, compute_dtype="bfloat16")
+    extra = {"knn_topk": 0.0, "knn_topk_packed": PACKED_QUANTUM,
+             "knn_topk_lanes": 2.0 ** -(23 - kk.lane_pack_bits(t_pad.shape[0]))
+             }[name]
+    _assert_neighbors(got_d.numpy(), got_i.numpy(), ref_d, ref_i,
+                      _oracle_bf16(q, t), "euclidean", extra=extra)
+
+
+@pytest.mark.parametrize("d", [1, 37, 300])
+def test_bfloat16_vote_at_ragged_depths_matches_pallas_interpret(d):
+    rng = np.random.default_rng(40 + d)
+    q = rng.normal(size=(128, d)).astype(np.float32)
+    t = rng.normal(size=(600, d)).astype(np.float32)
+    t_pad, _, n_valid = pad_train(t, None, 256)
+    lab_pad = np.zeros(t_pad.shape[0], np.int32)
+    lab_pad[:600] = rng.integers(0, 3, 600)
+    ref = np.asarray(knn_classify_lanes(
+        jnp.asarray(q), jnp.asarray(t_pad), jnp.asarray(lab_pad), k=5,
+        n_classes=3, kernel_fn="gaussian", kernel_param=30.0, block_q=128,
+        block_t=256, n_valid=n_valid, interpret=True,
+        compute_dtype="bfloat16"))
+    got = kk.knn_classify_lanes(_t(q), _t(t_pad), _t(lab_pad), 5, 3, None,
+                                "gaussian", 30.0, "euclidean", n_valid,
+                                compute_dtype="bfloat16").numpy()
+    assert np.abs(got - ref).max() <= 2.0
+    assert (got.argmax(1) == ref.argmax(1)).mean() >= 0.99

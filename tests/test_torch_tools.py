@@ -214,3 +214,107 @@ def test_knn_ab_counts_a_kernels_sass_instructions():
     assert knn_ab.sass_instructions(sass, knn_ab.K8_L1_EXACT) == 4
     assert knn_ab.sass_instructions(sass, "ILi16ELi0ELi0E") == 1
     assert knn_ab.sass_instructions(sass, "ILi64E") == 0
+
+
+def _bf16_pair(mode, scale=1.0):
+    """[keys, indices] (or [scores]) of the plain bf16 version on a small
+    CPU corpus, and the same with every distance key scaled by `scale`."""
+    gen = torch.Generator().manual_seed(11)
+    q = torch.rand(64, 16, generator=gen)
+    t = torch.rand(900, 16, generator=gen)
+    labels = torch.randint(0, 2, (900,), generator=gen, dtype=torch.int32)
+    if mode == "labels":
+        ref = kk.knn_classify_lanes_plain(q, t, labels, 5, 2, 16, "gaussian",
+                                          30.0, compute_dtype="bfloat16")
+        return q, t, [ref], [ref * scale]
+    _, mask, empty = kk._key_spec(mode, t)
+    key, idx = kk._select_plain(q, t, 5, "euclidean", 900, mode, mask, empty,
+                                True)
+    bits = (key & ~mask).view(torch.float32) * scale
+    return q, t, [key, idx], [(bits.view(torch.int32) & ~mask) | (key & mask),
+                              idx]
+
+
+@pytest.mark.parametrize("mode", ["exact", "lanes", "packed", "labels"])
+def test_knn_ab_bf16_row_is_held_by_the_tolerance(monkeypatch, mode):
+    """A bfloat16 row compares the two forms by bf16_agrees, not bit for
+    bit: a change of 2e-6 in every distance agrees, 2% does not (a vote by
+    its arg-max), and the row gives both times and their ratio."""
+    from avenir_tpu_torch.tools import knn_ab
+
+    times = iter([4.0, 1.0, 1.2, 4.2] * 2)
+    monkeypatch.setattr(knn_ab, "cuda_ms", lambda fn, reps: next(times))
+    lines = []
+    for scale, agrees in ((1 + 2e-6, True), (1.02 if mode != "labels"
+                                             else -1.0, False)):
+        q, t, old, new = _bf16_pair(mode, scale)
+
+        def bf16_close(a, b):
+            return knn_ab.bf16_agrees(mode, q, t, 5, a, b)
+        row = knn_ab.ab_row(lambda: old, lambda: new, 1, lines.append,
+                            agree=bf16_close, d=16, metric="euclidean",
+                            mode=mode, dtype="bfloat16",
+                            forms="cuda-core/tensor-core")
+        assert row["agree"] is agrees and row["by"] == "bf16_close"
+        assert row["ratio"] == pytest.approx(4.1 / 1.1)
+    assert lines[0].startswith(f"close D=16 euclidean {mode} bfloat16 "
+                               "cuda-core/tensor-core")
+    assert lines[1].startswith("DIFF (")
+    assert not knn_ab.bit_equal(old, old) and knn_ab.bit_equal(old, new)
+
+
+def test_knn_ab_earlier_bf16_side_is_its_own_cuda_core_form(monkeypatch):
+    """The earlier version's bfloat16 call runs its own pre-pass with
+    rounded copies, then its CUDA-core partial kernel on them, never a
+    tensor-core entry."""
+    from avenir_tpu_torch.tools import knn_ab
+    from test_torch_knn_kernels import _FakeFormLib, _on_a_fake_card
+
+    class Prepass:
+        def __init__(self):
+            self.bf16 = []
+
+        def knn_prepass_launch(self, q, nq, t, nt, d, bf16, *rest):
+            self.bf16.append(bf16)
+            return 0
+
+    _on_a_fake_card(monkeypatch)
+    q, t = torch.rand(32, 8), torch.rand(512, 8)
+    labels = torch.zeros(512, dtype=torch.int32)
+    for mode in ("lanes", "labels"):
+        topk, classify, pre = _FakeFormLib(), _FakeFormLib(), Prepass()
+        knn_ab.current_call(mode, q, t, labels, "euclidean", True,
+                            (topk, classify, pre))()
+        lib = classify if mode == "labels" else topk
+        name = "knn_classify" if mode == "labels" else "knn_topk"
+        assert lib.called == [f"{name}_partial_info", f"{name}_launch"]
+        assert pre.bf16 == [1]
+    assert kk.knn_partial_mma.launches == 0
+
+
+def test_bind_skips_entries_an_earlier_build_lacks():
+    """An earlier version's library has the launch entries but not this
+    checkout's further ones: bind declares what it has, and a missing
+    launch entry still fails."""
+    import ctypes
+
+    from avenir_tpu_torch.ops import _build
+
+    class Entry:
+        pass
+
+    class Earlier:
+        knn_topk_launch = Entry()
+        knn_topk_partial_info = Entry()
+
+    lib = _build.bind(Earlier(), "knn_topk")
+    assert lib.knn_topk_launch.restype is ctypes.c_int
+    assert lib.knn_topk_launch.argtypes == _build.LIBRARIES["knn_topk"][2]
+    assert lib.knn_topk_partial_info.argtypes == \
+        _build.INFO["knn_topk"]["knn_topk_partial_info"]
+    assert not hasattr(lib, "knn_topk_mma_launch")
+
+    class Broken:
+        knn_topk_partial_info = Entry()
+    with pytest.raises(AttributeError):
+        _build.bind(Broken(), "knn_topk")
