@@ -44,7 +44,7 @@ LIBRARIES = {
     "knn_prepass": ("knn_prepass.cu", "knn_prepass_launch",
                     [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P]),
     "matmul_ceiling": ("matmul_ceiling.cu", "matmul_ceiling_launch",
-                       [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
+                       [_P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P]),
 }
 _TOPK_ARGS = LIBRARIES["knn_topk"][2]
 _CLASSIFY_ARGS = LIBRARIES["knn_classify"][2]
@@ -52,7 +52,9 @@ _CLASSIFY_ARGS = LIBRARIES["knn_classify"][2]
 #: (blocks per SM, registers, local bytes); the tensor-core form's launch
 #: and info (same arguments as the CUDA-core form's); the merge kernels
 #: alone; the tensor-core form's diagnostic instance with clock64()
-#: sections. bind() skips the ones a library lacks (an earlier version's
+#: sections; the ceiling's main-kernel instance for a D (registers, local
+#: bytes, shared bytes, threads, blocks per SM, tile). bind() skips the
+#: ones a library lacks (an earlier version's
 #: sources), and calling one of those raises AttributeError.
 INFO = {
     "knn_topk": {"knn_topk_partial_info": [_I, _I, _I, _I, _P],
@@ -66,6 +68,7 @@ INFO = {
                      "knn_classify_mma_info": [_I, _I, _I, _P],
                      "knn_classify_merge_launch": [_P, _P, _I, _I, _I, _I, _I,
                                                    _I, _F, _I, _F, _P, _P]},
+    "matmul_ceiling": {"matmul_ceiling_info": [_I, _P]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

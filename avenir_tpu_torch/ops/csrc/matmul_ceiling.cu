@@ -1,270 +1,304 @@
-// bf16 tensor-core matmul ceiling on Hopper (sm_90a):
+// bf16 tensor-core matmul ceiling on Hopper (sm_90a), wgmma fed by TMA:
 //   out[i] = sum_j sum_d bf16(q[i,d]) * bf16(t[j,d])
-// the product q.t^T with fp32 accumulation, reduced over the train axis into
-// one row sum per query.
-//
-// Replaces the TPU kernel `kern` of bench.py:797 (bench_knn_matmul_ceiling,
-// pallas_call at bench.py:812): a bf16 dot_general of a [1024, D] query
-// block against a [4096, D] train block with fp32 accumulation, whose row
-// sums the TPU carries in its output block across the sequential train-block
-// grid axis. Hopper blocks run in no order, so nothing is carried between
-// them: each block here owns 128 queries and one 4096-row slice of the
-// train axis (the TPU's block), keeps its accumulator fragments in
-// registers across the slice's 32 tiles of 128 train rows, reduces them to
-// one partial per (query, slice) with warp shuffles and shared memory, and
-// a second kernel sums the slices in slice order. No atomics: two runs are
-// bit-equal.
-//
-// Inner loop: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, 8 warps
-// as 4 (32 query rows) x 2 (64 train rows) over a 128 x 128 output tile.
-// Operands are rounded to bf16 (round to nearest even, as XLA's astype)
-// as they are staged into shared memory, rows padded by 8 halves so that
-// fragment loads and ldmatrix hit 32 distinct banks. A warp's 32 query rows
-// never change within the slice, so their A fragments (all D features) are
-// loaded into registers once; D is a template argument (16 * KS, KS <= 8)
-// so that they stay registers. t is [nt, D] row-major, so t^T is exactly
-// the "col" operand: ldmatrix.x4 of four 8 x 8 blocks of train rows gives
-// the B fragments of two 8-column tiles. The next train tile's fp32 rows
-// are loaded in two halves while the current tile is multiplied, and
-// rounded into the other of two shared-memory stages: one barrier a tile.
-//
-// What bounds it on this card: operations. At the bench's shape (8192 x
-// 131072 x 128) it is 2.75e11 operations, 0.278 ms at the 989 TFLOP/s bf16
-// dense peak, against 0.020 ms for the 68 MB of fp32 input at 3.35 TB/s.
-// What this design leaves on the table: mma.sync cannot reach the wgmma
-// rate; 255 registers a thread allow one block of 8 warps per SM, which
-// all wait at each tile's barrier; every block re-reads and re-rounds its
-// train slice from L2, 64 times over in all. wgmma fed by TMA through a
-// ring of shared-memory stages, with a producer warp, is the way to the
-// peak.
+// (step 1 of the redesign: cast pass, TMA ring, one consumer warpgroup
+// that also issues the loads)
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
-using bf16mma::ldmatrix_x4;
-using bf16mma::mma_bf16;
-using bf16mma::store_bf16x4;
+namespace wg = wgmma_bf16;
 
-constexpr int BM = 128;           // queries per block
-constexpr int BN = 128;           // train rows per tile
-constexpr int THREADS = 256;      // 8 warps: 4 (32 query rows) x 2 (64 train rows)
-constexpr int PAD = 8;            // bf16 halves of padding per shared row
-constexpr int MAX_KS = 8;         // D = 16 * KS up to 128
+constexpr int CONSUMERS = 1;          // consumer warpgroups
+constexpr int BM = 128 * CONSUMERS;   // queries per block tile
+constexpr int BN = 128;               // train rows per stage
+constexpr int STAGES = 4;
+constexpr int THREADS = 128 * CONSUMERS;
+constexpr int CHUNK_BYTES_PER_ROW = 128;   // 64 bf16 features
+constexpr int MAX_D = 128;
 
-// float4 number v of a thread's share of a rows x D tile: (row, column)
-template <int D>
-__device__ __forceinline__ int2 vec_pos(int v) {
-  const int i = threadIdx.x + v * THREADS;
-  return make_int2(i / (D / 4), (i % (D / 4)) * 4);
+template <int KC>
+struct Smem {
+  static constexpr int Q_BYTES = KC * BM * CHUNK_BYTES_PER_ROW;
+  static constexpr int STAGE_BYTES = KC * BN * CHUNK_BYTES_PER_ROW;
+  static constexpr int BAR_OFFSET = Q_BYTES + STAGES * STAGE_BYTES;
+  // + full[STAGES], empty[STAGES], q_full, q_empty; + 1024 to align
+  static constexpr int BYTES = BAR_OFFSET + (2 * STAGES + 2) * 8 + 1024;
+};
+
+// block b of `blocks` owns the (query tile, train tile) pairs
+// [b * pairs / blocks, (b + 1) * pairs / blocks), query-tile major
+__device__ __host__ __forceinline__ long long range_start(long long b,
+                                                          long long pairs,
+                                                          long long blocks) {
+  return b * pairs / blocks;
 }
 
-// rows x D fp32 (row-major, contiguous) -> bf16 rows of stride D + PAD
-template <int D>
-__device__ __forceinline__ void stage(const float* __restrict__ src,
-                                      __nv_bfloat16* __restrict__ dst,
-                                      int rows) {
-  for (int v = 0; v < rows * D / 4 / THREADS; ++v) {
-    const int2 p = vec_pos<D>(v);
-    store_bf16x4(dst + p.x * (D + PAD) + p.y,
-                 __ldg(reinterpret_cast<const float4*>(src + p.x * D + p.y)));
-  }
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// partial[split, i] = sum over the split's train rows j of q̂_i . t̂_j,
-// D = 16 * KS features
-template <int KS>
+template <int KC>
 __global__ void __launch_bounds__(THREADS, 1)
-ceiling_partial_kernel(const float* __restrict__ q, const float* __restrict__ t,
-                       int nq, int n_tiles, int tiles_per_split,
-                       float* __restrict__ partial) {
-  constexpr int D = 16 * KS;
-  constexpr int LD = D + PAD;
-  constexpr int HALF = KS;        // a thread stages 2 * KS float4 per tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* t_s = q_s + BM * LD;             // two stages of BN rows
-  const int q0 = blockIdx.x * BM;
-  const int split = blockIdx.y;
-  const int tile0 = split * tiles_per_split;
-  const int tile1 = min(tile0 + tiles_per_split, n_tiles);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int g = lane >> 2, tg = lane & 3;
-
-  stage<D>(q + (size_t)q0 * D, q_s, BM);
-  if (tile0 < tile1) stage<D>(t + (size_t)tile0 * BN * D, t_s, BN);
-  __syncthreads();
-
-  // the warp's 32 query rows stay in registers for the whole slice
-  uint32_t a[KS][2][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const __nv_bfloat16* p =
-          q_s + (wm * 32 + mt * 16 + g) * LD + ks * 16 + tg * 2;
-      a[ks][mt][0] = lds32(p);
-      a[ks][mt][1] = lds32(p + 8 * LD);
-      a[ks][mt][2] = lds32(p + 8);
-      a[ks][mt][3] = lds32(p + 8 * LD + 8);
-    }
-  float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  // this lane's ldmatrix row: n-tile (mat >> 1), k half (mat & 1)
-  const int mat = lane >> 3;
-  const int b_off = (wn * 64 + (mat >> 1) * 8 + (lane & 7)) * LD + (mat & 1) * 8;
-  for (int tile = tile0; tile < tile1; ++tile) {
-    const int stage_i = (tile - tile0) & 1;
-    const __nv_bfloat16* tb = t_s + stage_i * BN * LD + b_off;
-    // the next tile: global loads in two halves, in flight while this one
-    // is multiplied, then rounded into the other stage, which every warp
-    // finished reading before the previous iteration's barrier
-    __nv_bfloat16* tn = t_s + (stage_i ^ 1) * BN * LD;
-    const float* src = t + (size_t)(tile + 1) * BN * D;
-    const bool more = tile + 1 < tile1;
-    float4 pf[HALF];
-    if (more) {
-#pragma unroll
-      for (int v = 0; v < HALF; ++v) {
-        const int2 p = vec_pos<D>(v);
-        pf[v] = __ldg(reinterpret_cast<const float4*>(src + p.x * D + p.y));
-      }
-    }
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, tb + np * 16 * LD + ks * 16);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[ks][mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[ks][mt], b[2], b[3]);
-        }
-      }
-      if (more && ks == (KS - 1) / 2) {
-#pragma unroll
-        for (int v = 0; v < HALF; ++v) {
-          const int2 p = vec_pos<D>(v);
-          store_bf16x4(tn + p.x * LD + p.y, pf[v]);
-          const int2 p2 = vec_pos<D>(v + HALF);
-          pf[v] = __ldg(reinterpret_cast<const float4*>(src + p2.x * D + p2.y));
-        }
-      }
-    }
-    if (more) {
-#pragma unroll
-      for (int v = 0; v < HALF; ++v) {
-        const int2 p = vec_pos<D>(v + HALF);
-        store_bf16x4(tn + p.x * LD + p.y, pf[v]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // row sums: a thread holds rows g and g + 8 of each 16-row tile, two
-  // columns of each 8-column tile; the quad's 4 threads hold the rest
-  __syncthreads();
-  float* red = reinterpret_cast<float*>(smem);  // [2 column halves][BM]
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    float lo = 0.f, hi = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      lo += acc[mt][nt][0] + acc[mt][nt][1];
-      hi += acc[mt][nt][2] + acc[mt][nt][3];
-    }
-    lo += __shfl_xor_sync(0xffffffffu, lo, 1);
-    lo += __shfl_xor_sync(0xffffffffu, lo, 2);
-    hi += __shfl_xor_sync(0xffffffffu, hi, 1);
-    hi += __shfl_xor_sync(0xffffffffu, hi, 2);
-    if (tg == 0) {
-      const int row = wm * 32 + mt * 16 + g;
-      red[wn * BM + row] = lo;
-      red[wn * BM + row + 8] = hi;
-    }
+ceiling_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tt, int nq,
+                     int t_tiles, long long pairs, int max_segs,
+                     float* __restrict__ partial) {
+  using S = Smem<KC>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = smem;
+  unsigned char* t_s = smem + S::Q_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFFSET);
+  uint64_t* q_full = full + 2 * STAGES;
+  const int tid = threadIdx.x;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) wg::mbar_init(&full[s], 1);
+    wg::mbar_init(q_full, 1);
+    wg::mbar_fence_init();
+    wg::prefetch_tmap(&tq);
+    wg::prefetch_tmap(&tt);
   }
   __syncthreads();
-  if (threadIdx.x < BM)
-    partial[(size_t)split * nq + q0 + threadIdx.x] =
-        red[threadIdx.x] + red[BM + threadIdx.x];
+
+  const long long p0 = range_start(blockIdx.x, pairs, gridDim.x);
+  const long long p1 = range_start(blockIdx.x + 1, pairs, gridDim.x);
+  const int qt0 = (int)(p0 / t_tiles);
+  float acc[2][64];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[m][i] = 0.f;
+  uint32_t it = 0, q_phase = 0;
+  for (int qt = qt0; (long long)qt * t_tiles < p1; ++qt) {
+    const int j0 = (int)(max(p0, (long long)qt * t_tiles) - (long long)qt * t_tiles);
+    const int j1 = (int)(min(p1, (long long)(qt + 1) * t_tiles) -
+                         (long long)qt * t_tiles);
+    const int n = j1 - j0;
+    if (tid == 0) {
+      wg::mbar_expect_tx(q_full, S::Q_BYTES);
+      for (int kc = 0; kc < KC; ++kc)
+        wg::tma_load(q_s + kc * BM * CHUNK_BYTES_PER_ROW, &tq, q_full, kc * 64,
+                     qt * BM);
+      for (int i = 0; i < min(STAGES, n); ++i) {
+        const int s = (it + i) % STAGES;
+        wg::mbar_expect_tx(&full[s], S::STAGE_BYTES);
+        for (int kc = 0; kc < KC; ++kc)
+          wg::tma_load(t_s + s * S::STAGE_BYTES + kc * BN * CHUNK_BYTES_PER_ROW,
+                       &tt, &full[s], kc * 64, (j0 + i) * BN);
+      }
+    }
+    wg::mbar_wait(q_full, q_phase);
+    q_phase ^= 1;
+    const uint32_t q_addr = wg::smem_addr(q_s);
+    for (int i = 0; i < n; ++i) {
+      const int s = (it + i) % STAGES;
+      wg::mbar_wait(&full[s], ((it + i) / STAGES) & 1);
+      const uint32_t t_addr = wg::smem_addr(t_s + s * S::STAGE_BYTES);
+      wg::fence_regs(acc[0]);
+      wg::fence_regs(acc[1]);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4 * KC; ++ks) {
+        const uint32_t k_off = (ks >> 2) * BN * CHUNK_BYTES_PER_ROW + (ks & 3) * 32;
+        const uint64_t b = wg::desc_sw128(t_addr + k_off);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const uint32_t a_off = (ks >> 2) * BM * CHUNK_BYTES_PER_ROW +
+                                 m * 64 * CHUNK_BYTES_PER_ROW + (ks & 3) * 32;
+          wg::wgmma_m64n128k16(acc[m], wg::desc_sw128(q_addr + a_off), b,
+                               i > 0 || ks > 0);
+        }
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_regs(acc[0]);
+      wg::fence_regs(acc[1]);
+      // every warp is done with stage s before it is loaded again
+      asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+      if (tid == 0 && i + STAGES < n) {
+        wg::mbar_expect_tx(&full[s], S::STAGE_BYTES);
+        for (int kc = 0; kc < KC; ++kc)
+          wg::tma_load(t_s + s * S::STAGE_BYTES + kc * BN * CHUNK_BYTES_PER_ROW,
+                       &tt, &full[s], kc * 64, (j0 + i + STAGES) * BN);
+      }
+    }
+    it += n;
+    // row sums: a thread holds rows g and g + 8 of its warp's 16 rows of
+    // each 64-row tile, two columns of each 8-column group; the quad's
+    // 4 threads hold the rest of the 128 columns
+    const int g = lane >> 2;
+    float* dst = partial + ((size_t)blockIdx.x * max_segs + (qt - qt0)) * BM;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      float lo = 0.f, hi = 0.f;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        lo += acc[m][4 * c] + acc[m][4 * c + 1];
+        hi += acc[m][4 * c + 2] + acc[m][4 * c + 3];
+      }
+      lo += __shfl_xor_sync(0xffffffffu, lo, 1);
+      lo += __shfl_xor_sync(0xffffffffu, lo, 2);
+      hi += __shfl_xor_sync(0xffffffffu, hi, 1);
+      hi += __shfl_xor_sync(0xffffffffu, hi, 2);
+      const int row = m * 64 + warp * 16 + g;
+      if ((lane & 3) == 0) {
+        if (qt * BM + row < nq) dst[row] = lo;
+        if (qt * BM + row + 8 < nq) dst[row + 8] = hi;
+      }
+    }
+  }
 }
 
-// out[i] = sum of partial[s, i] over splits s = 0, 1, ... in that order
-__global__ void ceiling_reduce_kernel(const float* __restrict__ partial,
-                                      int nq, int splits,
-                                      float* __restrict__ out) {
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x = lo, the lower
+  return *reinterpret_cast<uint32_t*>(&v);            // address
+}
+
+// rows of q and t to bf16 (round to nearest even) at a width of dp
+// features, zeros past d: 8 features a thread
+__global__ void ceiling_cast_kernel(const float* __restrict__ q,
+                                    const float* __restrict__ t, int nq, int nt,
+                                    int d, int dp, __nv_bfloat16* __restrict__ qb,
+                                    __nv_bfloat16* __restrict__ tb) {
+  const int per_row = dp / 8;
+  const long long total = (long long)(nq + nt) * per_row;
+  for (long long v = blockIdx.x * (long long)blockDim.x + threadIdx.x; v < total;
+       v += (long long)gridDim.x * blockDim.x) {
+    const long long row = v / per_row;
+    const int col = (int)(v % per_row) * 8;
+    const float* src = row < nq ? q + row * d : t + (row - nq) * d;
+    __nv_bfloat16* dst = row < nq ? qb + row * dp : tb + (row - nq) * dp;
+    uint4 packed = make_uint4(0, 0, 0, 0);
+    if (col < d) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(src + col));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(src + col + 4));
+      packed = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                          pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+    }
+    *reinterpret_cast<uint4*>(dst + col) = packed;
+  }
+}
+
+// out[i] = sum, in train order, of the partials of the blocks whose pair
+// ranges meet query tile i / BM
+__global__ void ceiling_reduce_kernel(const float* __restrict__ partial, int nq,
+                                      int t_tiles, long long pairs, int blocks,
+                                      int max_segs, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nq) return;
-  float s = partial[i];
-  for (int sp = 1; sp < splits; ++sp) s += partial[(size_t)sp * nq + i];
+  const int qt = i / BM;
+  const long long lo = (long long)qt * t_tiles, hi = lo + t_tiles;
+  // the block holding pair lo: range_start(b) <= lo < range_start(b + 1)
+  int b = (int)(lo * blocks / pairs);
+  while (b > 0 && range_start(b, pairs, blocks) > lo) --b;
+  while (range_start(b + 1, pairs, blocks) <= lo) ++b;
+  float s = 0.f;
+  for (; b < blocks && range_start(b, pairs, blocks) < hi; ++b) {
+    const int seg = qt - (int)(range_start(b, pairs, blocks) / t_tiles);
+    s += partial[((size_t)b * max_segs + seg) * BM + i % BM];
+  }
   out[i] = s;
 }
 
-template <int KS>
-cudaError_t launch_partial(const float* q, const float* t, int nq, int n_tiles,
-                           int tiles_per_split, int splits, float* partial,
-                           cudaStream_t s) {
-  const size_t smem = (size_t)(BM + 2 * BN) * (16 * KS + PAD) * 2;
+// the most query tiles one block's pair range meets
+int max_segments(long long pairs, int blocks, int t_tiles) {
+  int most = 0;
+  for (int b = 0; b < blocks; ++b) {
+    const long long p0 = range_start(b, pairs, blocks);
+    const long long p1 = range_start(b + 1, pairs, blocks);
+    const int segs = (int)((p1 - 1) / t_tiles - p0 / t_tiles + 1);
+    if (segs > most) most = segs;
+  }
+  return most;
+}
+
+template <int KC>
+cudaError_t launch_main(const CUtensorMap& tq, const CUtensorMap& tt, int nq,
+                        int t_tiles, long long pairs, int blocks, int max_segs,
+                        float* partial, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      ceiling_partial_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      ceiling_wgmma_kernel<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Smem<KC>::BYTES);
   if (err != cudaSuccess) return err;
-  ceiling_partial_kernel<KS><<<dim3(nq / BM, splits), THREADS, smem, s>>>(
-      q, t, nq, n_tiles, tiles_per_split, partial);
+  ceiling_wgmma_kernel<KC><<<blocks, THREADS, Smem<KC>::BYTES, s>>>(
+      tq, tt, nq, t_tiles, pairs, max_segs, partial);
   return cudaGetLastError();
+}
+
+template <int KC>
+int info(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, ceiling_wgmma_kernel<KC>);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(ceiling_wgmma_kernel<KC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Smem<KC>::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, ceiling_wgmma_kernel<KC>, THREADS, Smem<KC>::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = Smem<KC>::BYTES;
+  out[3] = THREADS;
+  out[4] = per_sm;
+  out[5] = BM;
+  out[6] = BN;
+  out[7] = STAGES;
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q [nq, d] and t [nt, d] fp32 row-major on the device, 16-byte aligned,
-// with nq and nt multiples of 128 and d a multiple of 16 up to 128;
-// rows_per_split a multiple of 128. partial holds splits * nq floats,
-// splits = ceil(nt / rows_per_split); out holds nq floats. Returns
-// cudaGetLastError().
+// q [nq, d] and t [nt, d] fp32 row-major on the device, 16-byte aligned;
+// nq and nt multiples of 128, d a multiple of 16 up to 128. qb [nq, dp]
+// and tb [nt, dp] bf16 scratch, dp = d rounded up to 64; `blocks` blocks
+// split the (query tile, train tile) pairs, `max_segs` the most query
+// tiles one block meets (the wrapper's plan; refused if it differs);
+// partial holds blocks * max_segs * BM floats, out nq. Returns
+// cudaGetLastError() after the last launch.
 int matmul_ceiling_launch(const float* q, const float* t, int nq, int nt,
-                          int d, int rows_per_split, float* partial,
-                          float* out, void* stream) {
-  if (nq <= 0 || nt <= 0 || nq % BM || nt % BN || d <= 0 || d % 16 ||
-      d > 16 * MAX_KS || rows_per_split <= 0 || rows_per_split % BN)
+                          int d, void* qb, void* tb, int blocks, int max_segs,
+                          float* partial, float* out, void* stream) {
+  if (nq <= 0 || nt <= 0 || nq % 128 || nt % BN || d <= 0 || d % 16 ||
+      d > MAX_D || blocks <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int dp = (d + 63) / 64 * 64;
+  const int t_tiles = nt / BN;
+  const long long pairs = (long long)((nq + BM - 1) / BM) * t_tiles;
+  if (blocks > pairs || max_segs != max_segments(pairs, blocks, t_tiles))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int n_tiles = nt / BN;
-  const int tiles_per_split = rows_per_split / BN;
-  const int splits = (n_tiles + tiles_per_split - 1) / tiles_per_split;
-  cudaError_t err;
-  switch (d / 16) {
-#define CEILING_CASE(KS)                                                   \
-  case KS:                                                                 \
-    err = launch_partial<KS>(q, t, nq, n_tiles, tiles_per_split, splits,   \
-                             partial, s);                                  \
-    break;
-    CEILING_CASE(1) CEILING_CASE(2) CEILING_CASE(3) CEILING_CASE(4)
-    CEILING_CASE(5) CEILING_CASE(6) CEILING_CASE(7) CEILING_CASE(8)
-#undef CEILING_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  ceiling_cast_kernel<<<1024, 256, 0, s>>>(
+      q, t, nq, nt, d, dp, (__nv_bfloat16*)qb, (__nv_bfloat16*)tb);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ceiling_reduce_kernel<<<(nq + 255) / 256, 256, 0, s>>>(partial, nq, splits,
-                                                          out);
+  CUtensorMap tq, tt;
+  if (!wg::encode_bf16_rows(&tq, qb, nq, dp, BM) ||
+      !wg::encode_bf16_rows(&tt, tb, nt, dp, BN))
+    return (int)cudaErrorInvalidValue;
+  err = dp == 64 ? launch_main<1>(tq, tt, nq, t_tiles, pairs, blocks, max_segs,
+                                  partial, s)
+                 : launch_main<2>(tq, tt, nq, t_tiles, pairs, blocks, max_segs,
+                                  partial, s);
+  if (err != cudaSuccess) return (int)err;
+  ceiling_reduce_kernel<<<(nq + 255) / 256, 256, 0, s>>>(
+      partial, nq, t_tiles, pairs, blocks, max_segs, out);
   return (int)cudaGetLastError();
+}
+
+// the main kernel's instance for d features: registers, local bytes,
+// dynamic shared bytes, threads, blocks per SM, query rows a block, train
+// rows a stage, stages (out[0..7])
+int matmul_ceiling_info(int d, int* out) {
+  if (d <= 0 || d % 16 || d > MAX_D) return (int)cudaErrorInvalidValue;
+  return d <= 64 ? info<1>(out) : info<2>(out);
 }
 
 }  // extern "C"
