@@ -13,18 +13,19 @@ namespace {
 
 namespace wg = wgmma_bf16;
 
-constexpr int CONSUMERS = 1;          // consumer warpgroups
+constexpr int CONSUMERS = 2;          // consumer warpgroups
 constexpr int BM = 128 * CONSUMERS;   // queries per block tile
 constexpr int BN = 128;               // train rows per stage
 constexpr int STAGES = 4;
-constexpr int THREADS = 128 * CONSUMERS;
-constexpr int CHUNK_BYTES_PER_ROW = 128;   // 64 bf16 features
+constexpr int THREADS = 128 * (CONSUMERS + 1);   // + the producer warpgroup
+constexpr int ROW_BYTES = 128;        // a swizzled chunk row: 64 bf16 features
 constexpr int MAX_D = 128;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
 template <int KC>
 struct Smem {
-  static constexpr int Q_BYTES = KC * BM * CHUNK_BYTES_PER_ROW;
-  static constexpr int STAGE_BYTES = KC * BN * CHUNK_BYTES_PER_ROW;
+  static constexpr int Q_BYTES = KC * BM * ROW_BYTES;
+  static constexpr int STAGE_BYTES = KC * BN * ROW_BYTES;
   static constexpr int BAR_OFFSET = Q_BYTES + STAGES * STAGE_BYTES;
   // + full[STAGES], empty[STAGES], q_full, q_empty; + 1024 to align
   static constexpr int BYTES = BAR_OFFSET + (2 * STAGES + 2) * 8 + 1024;
@@ -37,6 +38,22 @@ __device__ __host__ __forceinline__ long long range_start(long long b,
                                                           long long blocks) {
   return b * pairs / blocks;
 }
+
+// the query tiles of this block's range: qt from qt0 while qt * t_tiles
+// < p1, train tiles [seg_lo, seg_hi) of each
+struct Range {
+  long long p0, p1;
+  int t_tiles;
+  __device__ int first() const { return (int)(p0 / t_tiles); }
+  __device__ bool has(int qt) const { return (long long)qt * t_tiles < p1; }
+  __device__ int lo(int qt) const {
+    return (int)(max(p0, (long long)qt * t_tiles) - (long long)qt * t_tiles);
+  }
+  __device__ int hi(int qt) const {
+    return (int)(min(p1, (long long)(qt + 1) * t_tiles) -
+                 (long long)qt * t_tiles);
+  }
+};
 
 template <int KC>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -51,102 +68,118 @@ ceiling_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   unsigned char* q_s = smem;
   unsigned char* t_s = smem + S::Q_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFFSET);
-  uint64_t* q_full = full + 2 * STAGES;
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_full = empty + STAGES;
+  uint64_t* q_empty = q_full + 1;
   const int tid = threadIdx.x;
-  const int warp = (tid >> 5) & 3, lane = tid & 31;
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) wg::mbar_init(&full[s], 1);
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], 4 * CONSUMERS);   // a consumer warp each
+    }
     wg::mbar_init(q_full, 1);
+    wg::mbar_init(q_empty, 4 * CONSUMERS);
     wg::mbar_fence_init();
-    wg::prefetch_tmap(&tq);
-    wg::prefetch_tmap(&tt);
   }
   __syncthreads();
+  const Range r{range_start(blockIdx.x, pairs, gridDim.x),
+                range_start(blockIdx.x + 1, pairs, gridDim.x), t_tiles};
 
-  const long long p0 = range_start(blockIdx.x, pairs, gridDim.x);
-  const long long p1 = range_start(blockIdx.x + 1, pairs, gridDim.x);
-  const int qt0 = (int)(p0 / t_tiles);
-  float acc[2][64];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[m][i] = 0.f;
-  uint32_t it = 0, q_phase = 0;
-  for (int qt = qt0; (long long)qt * t_tiles < p1; ++qt) {
-    const int j0 = (int)(max(p0, (long long)qt * t_tiles) - (long long)qt * t_tiles);
-    const int j1 = (int)(min(p1, (long long)(qt + 1) * t_tiles) -
-                         (long long)qt * t_tiles);
-    const int n = j1 - j0;
+  if (tid < 128) {
+    // ---- producer warpgroup: one thread keeps the ring full
+    wg::regs_dec<PRODUCER_REGS>();
     if (tid == 0) {
-      wg::mbar_expect_tx(q_full, S::Q_BYTES);
-      for (int kc = 0; kc < KC; ++kc)
-        wg::tma_load(q_s + kc * BM * CHUNK_BYTES_PER_ROW, &tq, q_full, kc * 64,
-                     qt * BM);
-      for (int i = 0; i < min(STAGES, n); ++i) {
-        const int s = (it + i) % STAGES;
-        wg::mbar_expect_tx(&full[s], S::STAGE_BYTES);
+      wg::prefetch_tmap(&tq);
+      wg::prefetch_tmap(&tt);
+      uint32_t it = 0, k = 0;
+      for (int qt = r.first(); r.has(qt); ++qt, ++k) {
+        wg::mbar_wait(q_empty, (k & 1) ^ 1);
+        wg::mbar_expect_tx(q_full, S::Q_BYTES);
         for (int kc = 0; kc < KC; ++kc)
-          wg::tma_load(t_s + s * S::STAGE_BYTES + kc * BN * CHUNK_BYTES_PER_ROW,
-                       &tt, &full[s], kc * 64, (j0 + i) * BN);
-      }
-    }
-    wg::mbar_wait(q_full, q_phase);
-    q_phase ^= 1;
-    const uint32_t q_addr = wg::smem_addr(q_s);
-    for (int i = 0; i < n; ++i) {
-      const int s = (it + i) % STAGES;
-      wg::mbar_wait(&full[s], ((it + i) / STAGES) & 1);
-      const uint32_t t_addr = wg::smem_addr(t_s + s * S::STAGE_BYTES);
-      wg::fence_regs(acc[0]);
-      wg::fence_regs(acc[1]);
-      wg::wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4 * KC; ++ks) {
-        const uint32_t k_off = (ks >> 2) * BN * CHUNK_BYTES_PER_ROW + (ks & 3) * 32;
-        const uint64_t b = wg::desc_sw128(t_addr + k_off);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          const uint32_t a_off = (ks >> 2) * BM * CHUNK_BYTES_PER_ROW +
-                                 m * 64 * CHUNK_BYTES_PER_ROW + (ks & 3) * 32;
-          wg::wgmma_m64n128k16(acc[m], wg::desc_sw128(q_addr + a_off), b,
-                               i > 0 || ks > 0);
+          wg::tma_load(q_s + kc * BM * ROW_BYTES, &tq, q_full, kc * 64,
+                       qt * BM);
+        for (int j = r.lo(qt); j < r.hi(qt); ++j, ++it) {
+          const int s = it % STAGES;
+          wg::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          wg::mbar_expect_tx(&full[s], S::STAGE_BYTES);
+          for (int kc = 0; kc < KC; ++kc)
+            wg::tma_load(t_s + s * S::STAGE_BYTES + kc * BN * ROW_BYTES, &tt,
+                         &full[s], kc * 64, j * BN);
         }
       }
-      wg::wgmma_commit();
+    }
+  } else {
+    // ---- consumer warpgroups: c owns query rows [128c, 128c + 128) of
+    // the tile, as two 64-row wgmma tiles against each stage's 128 rows
+    wg::regs_inc<CONSUMER_REGS>();
+    const int c = tid / 128 - 1;
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    float acc[2][64];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[m][i] = 0.f;
+    const uint32_t a_addr = wg::smem_addr(q_s) + c * 128 * ROW_BYTES;
+    uint32_t it = 0, k = 0;
+    for (int qt = r.first(); r.has(qt); ++qt, ++k) {
+      wg::mbar_wait(q_full, k & 1);
+      const int n = r.hi(qt) - r.lo(qt);
+      for (int i = 0; i < n; ++i, ++it) {
+        const int s = it % STAGES;
+        wg::mbar_wait(&full[s], (it / STAGES) & 1);
+        const uint32_t b_addr = wg::smem_addr(t_s + s * S::STAGE_BYTES);
+        wg::fence_regs(acc[0]);
+        wg::fence_regs(acc[1]);
+        wg::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4 * KC; ++ks) {
+          const uint64_t b =
+              wg::desc_sw128(b_addr + (ks >> 2) * BN * ROW_BYTES + (ks & 3) * 32);
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+            wg::wgmma_m64n128k16(
+                acc[m],
+                wg::desc_sw128(a_addr + (ks >> 2) * BM * ROW_BYTES +
+                               m * 64 * ROW_BYTES + (ks & 3) * 32),
+                b, i > 0 || ks > 0);
+        }
+        wg::wgmma_commit();
+        // the previous stage's products are done: release it
+        wg::wgmma_wait<1>();
+        wg::fence_regs(acc[0]);
+        wg::fence_regs(acc[1]);
+        if (i > 0 && lane == 0) wg::mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
       wg::wgmma_wait<0>();
       wg::fence_regs(acc[0]);
       wg::fence_regs(acc[1]);
-      // every warp is done with stage s before it is loaded again
-      asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
-      if (tid == 0 && i + STAGES < n) {
-        wg::mbar_expect_tx(&full[s], S::STAGE_BYTES);
-        for (int kc = 0; kc < KC; ++kc)
-          wg::tma_load(t_s + s * S::STAGE_BYTES + kc * BN * CHUNK_BYTES_PER_ROW,
-                       &tt, &full[s], kc * 64, (j0 + i + STAGES) * BN);
+      if (lane == 0) {
+        wg::mbar_arrive(&empty[(it - 1) % STAGES]);
+        wg::mbar_arrive(q_empty);
       }
-    }
-    it += n;
-    // row sums: a thread holds rows g and g + 8 of its warp's 16 rows of
-    // each 64-row tile, two columns of each 8-column group; the quad's
-    // 4 threads hold the rest of the 128 columns
-    const int g = lane >> 2;
-    float* dst = partial + ((size_t)blockIdx.x * max_segs + (qt - qt0)) * BM;
+      // row sums: a thread holds rows g and g + 8 of its warp's 16 rows
+      // of each 64-row tile, two columns of each 8-column group; the
+      // quad's 4 threads hold the rest of the 128 columns
+      const int g = lane >> 2;
+      float* dst =
+          partial + ((size_t)blockIdx.x * max_segs + (qt - r.first())) * BM;
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      float lo = 0.f, hi = 0.f;
+      for (int m = 0; m < 2; ++m) {
+        float lo = 0.f, hi = 0.f;
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        lo += acc[m][4 * c] + acc[m][4 * c + 1];
-        hi += acc[m][4 * c + 2] + acc[m][4 * c + 3];
-      }
-      lo += __shfl_xor_sync(0xffffffffu, lo, 1);
-      lo += __shfl_xor_sync(0xffffffffu, lo, 2);
-      hi += __shfl_xor_sync(0xffffffffu, hi, 1);
-      hi += __shfl_xor_sync(0xffffffffu, hi, 2);
-      const int row = m * 64 + warp * 16 + g;
-      if ((lane & 3) == 0) {
-        if (qt * BM + row < nq) dst[row] = lo;
-        if (qt * BM + row + 8 < nq) dst[row + 8] = hi;
+        for (int j = 0; j < 16; ++j) {
+          lo += acc[m][4 * j] + acc[m][4 * j + 1];
+          hi += acc[m][4 * j + 2] + acc[m][4 * j + 3];
+        }
+        lo += __shfl_xor_sync(0xffffffffu, lo, 1);
+        lo += __shfl_xor_sync(0xffffffffu, lo, 2);
+        hi += __shfl_xor_sync(0xffffffffu, hi, 1);
+        hi += __shfl_xor_sync(0xffffffffu, hi, 2);
+        const int row = c * 128 + m * 64 + warp * 16 + g;
+        if ((lane & 3) == 0) {
+          if (qt * BM + row < nq) dst[row] = lo;
+          if (qt * BM + row + 8 < nq) dst[row + 8] = hi;
+        }
       }
     }
   }

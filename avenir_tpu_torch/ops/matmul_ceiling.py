@@ -41,7 +41,7 @@ ROWS = 128
 MAX_D = 128
 #: the kernel's tiles: queries a block tile (two consumer warpgroups of
 #: 128 rows), train rows a stage, features a 128-byte swizzled chunk
-BM = 128
+BM = 256
 BN = 128
 CHUNK = 64
 #: train rows per product in the plain version (never the whole [nq, nt])
