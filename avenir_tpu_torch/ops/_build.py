@@ -54,8 +54,8 @@ _CLASSIFY_ARGS = LIBRARIES["knn_classify"][2]
 #: alone; the tensor-core form's diagnostic instance with clock64()
 #: sections; the ceiling's main-kernel instance for a D (registers, local
 #: bytes, shared bytes, threads, blocks per SM, tile). bind() skips the
-#: ones a library lacks (an earlier version's
-#: sources), and calling one of those raises AttributeError.
+#: ones a library lacks (an earlier version's sources), and calling one
+#: of those raises AttributeError.
 INFO = {
     "knn_topk": {"knn_topk_partial_info": [_I, _I, _I, _I, _P],
                  "knn_topk_mma_launch": _TOPK_ARGS,

@@ -1,7 +1,46 @@
 // bf16 tensor-core matmul ceiling on Hopper (sm_90a), wgmma fed by TMA:
 //   out[i] = sum_j sum_d bf16(q[i,d]) * bf16(t[j,d])
-// (step 1 of the redesign: cast pass, TMA ring, one consumer warpgroup
-// that also issues the loads)
+// the product q.t^T with fp32 accumulation, reduced over the train axis into
+// one row sum per query.
+//
+// Replaces the TPU kernel `kern` of bench.py:797 (bench_knn_matmul_ceiling,
+// pallas_call at bench.py:812): a bf16 dot_general of a [1024, D] query
+// block against a [4096, D] train block with fp32 accumulation, whose row
+// sums the TPU carries in its output block across the sequential train-block
+// grid axis.
+//
+// What bounds it on this card: operations. At the bench's shape (8192 x
+// 131072 x 128) it is 2.75e11 operations, 0.278 ms at the 989 TFLOP/s bf16
+// dense peak, against 0.020 ms for the 68 MB of fp32 input at 3.35 TB/s.
+// What the design does about that:
+// - A cast pass (ceiling_cast_kernel) rounds q and t to bf16 once (nearest
+//   even, as XLA's astype) into scratch rows zero-padded to 64 or 128
+//   features, so one 128-byte swizzle serves every D and the zeros add
+//   nothing. TMA copies bytes and wgmma reads bf16, so the rounding leaves
+//   the product loop; the pass moves about 100 MB, ~0.03 ms.
+// - The product runs on wgmma.mma_async m64n128k16 with fp32 accumulators
+//   in registers. A block owns 256 queries (its resident tile, loaded once
+//   per query tile) and streams 128-row train tiles through a ring of
+//   STAGES shared-memory stages. One producer thread (its warpgroup down
+//   to 40 registers by setmaxnreg) issues the TMA loads; full and empty
+//   mbarriers guard each stage. Two consumer warpgroups (up to 232
+//   registers) each multiply 128 of the queries as two 64-row tiles
+//   against every stage, keeping one wgmma group in flight while the next
+//   stage is waited for. With 256 queries a tile, t is read from L2 32
+//   times (about 1 GB), where a 128-query tile reads it 64 times.
+// - The accumulators carry across every train tile of a block's range, so
+//   the row reduction (a thread's columns, then shuffles in each quad) runs
+//   once per segment, not once per tile.
+// - Schedule: one persistent block an SM; block b walks the contiguous
+//   range [b * pairs / blocks, (b + 1) * pairs / blocks) of (query tile,
+//   train tile) pairs, query-tile major, so every SM gets the same share to
+//   one pair. A range meets one or two query tiles (segments); each
+//   segment writes one partial per query, and ceiling_reduce_kernel adds a
+//   query's partials in block order, which is train order. No atomics: two
+//   runs are bit-equal. The plan is `ops/matmul_ceiling.py` `plan`; the C
+//   entry refuses a launch whose max_segs differs from its own count.
+// - Rows past nq in the last query tile are zeros from TMA's bounds and are
+//   never written.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -22,6 +61,8 @@ constexpr int ROW_BYTES = 128;        // a swizzled chunk row: 64 bf16 features
 constexpr int MAX_D = 128;
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
+// shared memory of the instance for KC chunks of 64 features (KC = 1 for
+// D <= 64, 2 up to 128): the query tile, the stages, the barriers
 template <int KC>
 struct Smem {
   static constexpr int Q_BYTES = KC * BM * ROW_BYTES;

@@ -1,7 +1,7 @@
-// bf16 tensor-core fragment helpers for Hopper (sm_90a), shared by the
-// matmul ceiling (matmul_ceiling.cu) and the tensor-core form of the KNN
-// partial kernel (knn_tile_mma.cuh): packing fp32 pairs to bf16, ldmatrix
-// of four 8 x 8 blocks, and mma.sync m16n8k16 with fp32 accumulation.
+// bf16 tensor-core fragment helpers for Hopper (sm_90a), used by the
+// tensor-core form of the KNN partial kernel (knn_tile_mma.cuh): packing
+// fp32 pairs to bf16, ldmatrix of four 8 x 8 blocks, and mma.sync m16n8k16
+// with fp32 accumulation. The wgmma and TMA helpers are in wgmma_bf16.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -27,8 +27,8 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled of the driver, through the runtime's entry-point
-// query (no -lcuda); nullptr if the driver does not have it
+// libcuda's cuTensorMapEncodeTiled, through the runtime's entry-point
+// query (no -lcuda); nullptr if libcuda does not have it
 inline EncodeTiledFn encode_tiled_fn() {
   static EncodeTiledFn fn = [] {
     void* p = nullptr;
@@ -49,7 +49,7 @@ inline EncodeTiledFn encode_tiled_fn() {
 
 // map of a row-major bf16 [rows, cols] tensor (cols a multiple of 64) in
 // boxes of box_rows x 64, 128-byte swizzled; rows past `rows` read as zeros.
-// Returns false if the driver refuses it.
+// Returns false if the encode refuses it.
 inline bool encode_bf16_rows(CUtensorMap* map, const void* base, uint64_t rows,
                              uint64_t cols, uint32_t box_rows) {
   const EncodeTiledFn fn = encode_tiled_fn();

@@ -29,7 +29,10 @@ whose `max_segs` differs.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import ctypes
+import functools
+from types import MappingProxyType
+from typing import Dict, List, Mapping, Tuple
 
 import torch
 
@@ -79,28 +82,32 @@ def _range_start(b: int, pairs: int, blocks: int) -> int:
     return b * pairs // blocks
 
 
-def plan(nq: int, nt: int, d: int, sms: int) -> Dict[str, object]:
+@functools.lru_cache(maxsize=64)
+def plan(nq: int, nt: int, d: int, sms: int) -> Mapping[str, object]:
     """The launch of an nq x nt x d ceiling on a card of `sms` SMs: one
     block an SM (fewer if there are fewer pairs), each on a contiguous
     range of (query tile, train tile) pairs. Returns the padded width
     `dp`, `q_tiles`, `t_tiles`, `pairs`, `blocks`, each block's pair
     `ranges`, `max_segs` (the most query tiles one range meets), and the
-    scratch shapes: `qb` and `tb` (bf16 copies) and `partial` (floats)."""
+    scratch shapes: `qb` and `tb` (bf16 copies) and `partial` (floats).
+    Cached, so that a call does not pay for it in host time, and so
+    read-only."""
     q_tiles, t_tiles = -(-nq // BM), nt // BN
     pairs = q_tiles * t_tiles
     blocks = min(sms, pairs)
-    ranges = [(_range_start(b, pairs, blocks),
-               _range_start(b + 1, pairs, blocks)) for b in range(blocks)]
+    ranges = tuple((_range_start(b, pairs, blocks),
+                    _range_start(b + 1, pairs, blocks)) for b in range(blocks))
     max_segs = max((p1 - 1) // t_tiles - p0 // t_tiles + 1
                    for p0, p1 in ranges)
     dp = padded_width(d)
-    return {"dp": dp, "q_tiles": q_tiles, "t_tiles": t_tiles,
-            "pairs": pairs, "blocks": blocks, "ranges": ranges,
-            "max_segs": max_segs, "qb": (nq, dp), "tb": (nt, dp),
-            "partial": blocks * max_segs * BM}
+    return MappingProxyType({
+        "dp": dp, "q_tiles": q_tiles, "t_tiles": t_tiles, "pairs": pairs,
+        "blocks": blocks, "ranges": ranges, "max_segs": max_segs,
+        "qb": (nq, dp), "tb": (nt, dp), "partial": blocks * max_segs * BM})
 
 
-def segments(p: Dict[str, object]) -> List[Tuple[int, int, int, int, int]]:
+def segments(p: Mapping[str, object]
+             ) -> List[Tuple[int, int, int, int, int]]:
     """(block, segment, query tile, first train tile, end train tile) of
     every segment, in block order: what each block multiplies and where
     its partial goes (row block * max_segs + segment of `partial`)."""
@@ -114,7 +121,7 @@ def segments(p: Dict[str, object]) -> List[Tuple[int, int, int, int, int]]:
     return out
 
 
-def reduce_order(p: Dict[str, object], qt: int) -> List[Tuple[int, int]]:
+def reduce_order(p: Mapping[str, object], qt: int) -> List[Tuple[int, int]]:
     """(block, segment) of the partials the reduce adds for a query of
     tile qt, in the order it adds them (the reduce kernel's walk)."""
     t_tiles, ranges = p["t_tiles"], p["ranges"]
@@ -191,8 +198,6 @@ def ceiling_info(d: int) -> Dict[str, int]:
     """The built main-kernel instance for d features (CUDA only):
     registers, local (spilled) bytes, dynamic shared bytes, threads,
     blocks per SM and its tile (bm queries, bn train rows, stages)."""
-    import ctypes
-
     vals = (ctypes.c_int * 8)()
     err = _build.load("matmul_ceiling").matmul_ceiling_info(d, vals)
     if err != 0:

@@ -13,6 +13,10 @@ Phases, each printing a line per check; any failed check exits non-zero:
    the registers and blocks per SM of the K=8 CUDA-core instances and of
    every tensor-core one, and holds each instance's stage plan to the
    wrapper's. The diagnostic instance (clock64 sections) is only listed.
+   The matmul ceiling's kernels: ptxas's spill bytes of each, and the
+   registers, local bytes, shared bytes, threads and blocks per SM of its
+   two wgmma instances (D <= 64 and D <= 128); fails on any spill or a
+   tile that differs from the wrapper's plan.
 2. Kernels against their plain PyTorch versions on the card, at the
    e-learning workload's size (8192 queries x 131072 train rows, k=5),
    D in {6, 128}, both metrics, and for the vote C=2 with the kernels
@@ -27,7 +31,10 @@ Phases, each printing a line per check; any failed check exits non-zero:
    kernels (knn_topk.cu, knn_classify.cu) timed apart from the partial
    kernel on the job's split lists, equal to the plain merge. Times are
    CUDA-event medians; each row prints its share of its bound, its
-   blocks per SM, grid and waves, and its launches.
+   blocks per SM, grid and waves, and its launches. The pre-pass and the
+   merges also get device-alone times: one CUDA-event pair around 200
+   back-to-back launches through their C entries, over 200, and
+   torch.profiler's mean device time of their kernel over 200 launches.
 3. The main path: the `nearestNeighbor` job through `runner.run_job` on
    seeded e-learning CSVs (131072 train, 8192 test rows, 6 features), in
    its three modes (default exact top-k, nen.device.packed.kernel,
@@ -46,7 +53,8 @@ Phases, each printing a line per check; any failed check exits non-zero:
    ties): its products are exact and only its fp32 accumulation order
    differs; bfloat16 manhattan bit-equal to float32. The tensor-core
    form's clock64 section shares at D=128 and D=6, its merge kernels on
-   the bench's lists, and every carry width and mode at ragged shapes, D
+   the bench's lists (with device-alone times, as in phase 2), and every
+   carry width and mode at ragged shapes, D
    1..MAX_D. Then `avenir_tpu_torch.tools.knn_sweep` at its full width
    (8192 x 131072, D=128).
 
@@ -58,10 +66,12 @@ Phases, each printing a line per check; any failed check exits non-zero:
    predicted class equal to the CPU run's on every row, the appended
    percent within 1 of it (float sums run in another order on the card).
    NB has no TPU kernel: this path launches none.
-7. The bench path: `matmul_ceiling` against its plain version at 8192 x
-   131072 x 128, each row within 2^-16 sum_j |q̂_i . t̂_j| of the plain row
-   (fp32 accumulation in another order), and bit-equal across two runs;
-   its time, bound, plain and library (cuBLAS bf16 GEMM) times. Then
+7. The bench path: `matmul_ceiling` (a cast pass, then wgmma fed by TMA)
+   against its plain version at 8192 x 131072 x 128, each row within
+   2^-16 sum_j |q̂_i . t̂_j| of the plain row (fp32 accumulation in another
+   order), and bit-equal across two runs; its time, bound, plain and
+   library (cuBLAS bf16 GEMM) times. The same at every legal D (16..128)
+   at 384 x 4736, where the last 256-query tile is half filled. Then
    `avenir_tpu_torch.tools.bench` at full size, its JSON line printed on a
    line of its own; the ceiling kernel and the two lane kernels must launch
    there, and every KNN launch of it (all euclidean bfloat16) on the
@@ -154,6 +164,42 @@ def _timed_once(fn):
     return out, start.elapsed_time(end)
 
 
+def device_alone(launch, kernel: str, n: int = 200):
+    """(ms, profiler ms) of one launch through a kernel's C entry, on the
+    device alone: one CUDA-event pair around n back-to-back launches, over
+    n; and torch.profiler's mean device time of the kernels whose name
+    holds `kernel` over n launches (None if it records none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            launch()
+        torch.cuda.synchronize()
+    us = count = 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            us += (ev.device_time_total if hasattr(ev, "device_time_total")
+                   else ev.cuda_time_total)
+            count += ev.count
+    return start.elapsed_time(end) / n, (us / count / 1e3 if count else None)
+
+
+def _device_text(ms: float, prof_ms) -> str:
+    return (f"device alone {ms:.4f} ms (200 launches a CUDA-event pair), "
+            + ("profiler not measured" if prof_ms is None
+               else f"profiler {prof_ms:.4f} ms"))
+
+
 # ------------------------------------------------------------------ phase 1
 def phase_card():
     import torch
@@ -202,6 +248,35 @@ def phase_card():
                       f"spills {n} bytes", flush=True)
         _build.load(name)
     partial_instances()
+    ceiling_instances()
+
+
+def ceiling_instances() -> None:
+    """The matmul ceiling's kernels: no spill in ptxas's log, and each
+    wgmma instance's resources from cudaFuncGetAttributes, with its tile
+    held to the wrapper's plan."""
+    from avenir_tpu_torch.ops import _build
+    from avenir_tpu_torch.ops import matmul_ceiling as mc
+    from avenir_tpu_torch.tools.ceiling_ab import ptxas_spills
+
+    log = _build.build_dir() / "matmul_ceiling.log"
+    spills = ptxas_spills(log.read_text()) if log.exists() else {}
+    bad = []
+    for d in (64, 128):
+        info = mc.ceiling_info(d)
+        print(f"matmul_ceiling wgmma instance D<={d}: {info['registers']} "
+              f"registers at launch, {info['local_bytes']} local bytes, "
+              f"{info['smem_bytes']} shared bytes, {info['threads']} "
+              f"threads, {info['blocks_per_sm']} block/SM, {info['bm']} "
+              f"queries x {info['bn']} train rows, {info['stages']} stages",
+              flush=True)
+        if info["local_bytes"] or (info["bm"], info["bn"]) != (mc.BM, mc.BN):
+            bad.append(d)
+    check(not bad and not any(spills.values()),
+          f"matmul_ceiling: {len(spills)} kernels in ptxas's log, spill "
+          f"bytes {sum(spills.values())}; the wgmma instances' local bytes "
+          f"0 and tiles equal to the plan" + (f"; not at D<={bad}" if bad
+                                               else ""))
 
 
 def partial_instances() -> None:
@@ -500,6 +575,7 @@ def _merge_rows(q, t, labels, metric, dtype, rate, shape):
             err = (out.long() - ref.long()).abs().max().item()
             ok = torch.equal(out, full) and torch.equal(out, ref)
         ms = cuda_ms(merge, 20)
+        dev_ms, prof_ms = device_alone(merge, f"{name}_kernel")
         keys, idx = _merge_reads(part_k, nq, splits, empty)
         bound = (4 * (keys + idx) + out_bytes) / rate * 1e3
         lib_ms = None
@@ -510,14 +586,16 @@ def _merge_rows(q, t, labels, metric, dtype, rate, shape):
         rows.append(dict(name=name, metric=metric, d=d, dtype=dtype,
                          shape=shape, splits=splits, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
-                         library_ms=lib_ms, keys_read=keys))
+                         library_ms=lib_ms, keys_read=keys,
+                         device_ms=dev_ms, profiler_ms=prof_ms))
         check(ok, f"{name} ({mode} lists of the {shape} shape, {metric} "
               f"{dtype} D={d}, {splits} splits): equal to the full launch's, "
               f"max|err| {err:.3g} against the plain merge; {ms:.4f} ms, "
               f"plain {plain_ms:.1f} ms, bound {bound:.4f} ms (bytes: {keys} "
               f"keys and {idx} indices read of {part_k.numel()}, "
               f"{bound / ms:.1%} of it)"
-              + ("" if lib_ms is None else f", torch.topk {lib_ms:.4f} ms"))
+              + ("" if lib_ms is None else f", torch.topk {lib_ms:.4f} ms")
+              + f"; {_device_text(dev_ms, prof_ms)}")
     return rows
 
 
@@ -526,10 +604,12 @@ def _check_prepass(q, t, d, flops, rate):
     norms alone (float32) and norms with bfloat16 copies."""
     import torch
 
+    from avenir_tpu_torch.ops import _build
     from avenir_tpu_torch.ops import knn_kernels as kk
 
     rows = []
     qt = torch.cat([q, t])
+    lib = _build.load("knn_prepass")
     for dtype in kk.COMPUTE_DTYPES:
         bf16 = dtype == "bfloat16"
         got = kk.knn_prepass(q, t, bf16)
@@ -547,16 +627,28 @@ def _check_prepass(q, t, d, flops, rate):
         # the norms alone are one PyTorch call; nothing computes the pair
         lib_ms = None if bf16 else cuda_ms(
             lambda: torch.einsum("ij,ij->i", qt, qt), 20)
+        out = [torch.empty(n, dtype=torch.float32, device=q.device) for n
+               in (NQ, NT)] + ([torch.empty_like(q), torch.empty_like(t)]
+                               if bf16 else [None, None])
+        ptrs = [None if x is None else x.data_ptr() for x in out]
+
+        def launch():
+            kk._raise_on(lib.knn_prepass_launch(
+                q.data_ptr(), NQ, t.data_ptr(), NT, d, int(bf16), *ptrs,
+                kk._stream(q.device)), "knn_prepass")
+        dev_ms, prof_ms = device_alone(launch, "prepass_kernel")
         rows.append(dict(name="knn_prepass", metric="euclidean", d=d,
                          dtype=dtype, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                         library_ms=lib_ms))
+                         library_ms=lib_ms, device_ms=dev_ms,
+                         profiler_ms=prof_ms))
         check(same, f"knn_prepass {dtype} D={d}: bit-equal to the plain "
               f"version {same} (max|err| {err:.3g}); {ms:.4f} ms, plain "
               f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({bound_by}, "
               f"{bound / ms:.1%} of it)"
               + ("" if lib_ms is None else f", einsum {lib_ms:.4f} ms")
-              + f"; {kk.knn_prepass.launches - n0} launches timed")
+              + f"; {kk.knn_prepass.launches - n0} launches timed; "
+              + _device_text(dev_ms, prof_ms))
     return rows
 
 
@@ -984,7 +1076,37 @@ def phase_ceiling(rate: float, bf16_flops: float):
           f"({flops / ms / 1e9:.1f} TF/s, {bound / ms:.1%} of the bound "
           f"{bound:.3f} ms, {bound_by}), plain {plain_ms:.1f} ms, "
           f"cuBLAS bf16 matmul + sum {lib_ms:.3f} ms")
+    _check_ceiling_widths()
     return row
+
+
+def _check_ceiling_widths() -> None:
+    """matmul_ceiling at every legal D, 384 queries (the second 256-query
+    tile half filled) x 4736 train rows: each within 2^-16 sum|q.t| of
+    its plain version, and a rerun bit-equal."""
+    import torch
+
+    from avenir_tpu_torch.ops import matmul_ceiling as mc
+
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    nq, nt = 384, 128 * 37
+    bad, worst = [], 0.0
+    widths = range(16, mc.MAX_D + 1, 16)
+    for d in widths:
+        q = torch.randn((nq, d), generator=gen, device=DEVICE)
+        t = torch.randn((nt, d), generator=gen, device=DEVICE)
+        got = mc.matmul_ceiling(q, t)
+        again = mc.matmul_ceiling(q, t)
+        torch.cuda.synchronize()
+        err = (got - mc.matmul_ceiling_plain(q, t)).abs()
+        tol = 2.0 ** -16 * mc.row_abs_sums_plain(q, t)
+        worst = max(worst, (err / tol).max().item())
+        if not (bool((err <= tol).all()) and torch.equal(got, again)):
+            bad.append(d)
+    check(not bad, f"matmul_ceiling at {nq} x {nt}, D 16..{mc.MAX_D}: "
+          f"{len(widths) - len(bad)} of {len(widths)} within 2^-16 "
+          f"sum|q.t| (at most {worst:.3g} of it) with bit-equal reruns"
+          + (f"; not at D={bad}" if bad else ""))
 
 
 def phase_bench():
@@ -1020,10 +1142,10 @@ NEW_KERNELS = (
     ("knn_partial_mma", "knn_tile_mma.cuh", "avenir_tpu/ops/pallas_knn.py:64",
      ("knn_topk_lanes", "euclidean", 128, "bfloat16"), BENCH_PATH,
      ("knn_partial_mma",)),
-    ("merge_topk", "knn_topk.cu", "avenir_tpu/ops/pallas_knn.py:76",
+    ("merge_topk", "knn_topk.cu", "avenir_tpu/ops/pallas_knn.py:78",
      ("merge_topk", "manhattan", 6, "float32"), "nearestNeighbor",
      ("knn_topk", "knn_topk_packed", "knn_topk_lanes")),
-    ("merge_vote", "knn_classify.cu", "avenir_tpu/ops/pallas_knn.py:500",
+    ("merge_vote", "knn_classify.cu", "avenir_tpu/ops/pallas_knn.py:501",
      ("merge_vote", "manhattan", 6, "float32"), "nearestNeighbor",
      ("knn_classify_lanes",)))
 
@@ -1047,7 +1169,8 @@ def _new_kernel_rows(checks, launches, path_counts, bench_counts):
             "replaces": replaces, "launches": by_path[path],
             "launches_by_path": by_path,
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}})
+                                   "bound_ms", "bound_by", "library_ms")},
+            **{k: row[k] for k in ("device_ms", "profiler_ms") if k in row}})
     return rows
 
 
@@ -1123,10 +1246,13 @@ def main() -> None:
                              CHECK_PATH: path_counts["knn_prepass"],
                              BENCH_PATH: bench_counts["knn_prepass"]},
         **{k: pre[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms")}})
+                               "bound_by", "library_ms", "device_ms",
+                               "profiler_ms")}})
     kernels.append({
         "name": "matmul_ceiling", "route": "cuda",
         "source": "avenir_tpu_torch/ops/csrc/matmul_ceiling.cu",
+        "sources": ["avenir_tpu_torch/ops/csrc/matmul_ceiling.cu",
+                    "avenir_tpu_torch/ops/csrc/wgmma_bf16.cuh"],
         "replaces": "bench.py:797", "launches": bench_counts["matmul_ceiling"],
         "launches_by_path": {"nearestNeighbor": launches["matmul_ceiling"],
                              CHECK_PATH: path_counts["matmul_ceiling"],

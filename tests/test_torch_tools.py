@@ -318,3 +318,69 @@ def test_bind_skips_entries_an_earlier_build_lacks():
         knn_topk_partial_info = Entry()
     with pytest.raises(AttributeError):
         _build.bind(Broken(), "knn_topk")
+
+
+# -------------------------------------------------------------- ceiling_ab
+def test_ceiling_ab_raises_without_a_device(monkeypatch, tmp_path):
+    from avenir_tpu_torch.tools import ceiling_ab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        ceiling_ab.run(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        ceiling_ab.main(["--parent", str(tmp_path)])
+
+
+def test_ceiling_ab_counts_tensor_core_and_tma_instructions():
+    """HGMMA, HMMA and UTMALDG instructions of `cuobjdump -sass` output,
+    predicated and suffixed ones included, never the encoding comments."""
+    from avenir_tpu_torch.tools import ceiling_ab
+
+    sass = """
+\t\tFunction : _ZN20ceiling_wgmma_kernelILi2EEEv
+        /*0000*/                   UTMALDG.2D [UR8], [UR14] ;   /* 0x00000008ff0075b4 */
+                                                                 /* 0x0001e20008019000 */
+        /*0010*/              @!P0 UTMALDG.2D [UR16], [UR14] ;  /* 0x00000010ff0075b4 */
+        /*0020*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ;
+        /*0030*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0040*/                   EXIT ;                       /* 0x000000000000794d */
+"""
+    assert ceiling_ab.sass_counts(sass) == {"HGMMA": 1, "HMMA": 1,
+                                            "UTMALDG": 2}
+    assert ceiling_ab.sass_counts("") == {"HGMMA": 0, "HMMA": 0,
+                                          "UTMALDG": 0}
+
+
+def test_ceiling_ab_reads_resource_usage_and_spills():
+    from avenir_tpu_torch.tools import ceiling_ab
+
+    usage = """
+Resource usage:
+ Common:
+  GLOBAL:0
+ Function _Z21ceiling_reduce_kernelPKfiixiiPf:
+  REG:30 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:400 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function _ZN20ceiling_wgmma_kernelILi2EEEv14CUtensorMap_st:
+  REG:168 STACK:8 SHARED:0 LOCAL:16 CONSTANT[0]:700 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
+    assert ceiling_ab.res_usage(usage, ceiling_ab.MAIN_KERNEL["current"]) \
+        == (168, 8, 16)
+    assert ceiling_ab.res_usage(usage, "ceiling_reduce") == (30, 0, 0)
+    assert ceiling_ab.res_usage(usage, "ILi1E") is None
+    log = """ptxas info    : Function properties for _Z3fooPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Function properties for _Z3barPf
+    8 bytes stack frame, 12 bytes spill stores, 4 bytes spill loads
+"""
+    assert ceiling_ab.ptxas_spills(log) == {"_Z3fooPf": 0, "_Z3barPf": 16}
+
+
+def test_ceiling_ab_binds_the_earlier_interface():
+    """The earlier mma.sync ceiling takes 9 arguments and 4096 train rows
+    a split; this checkout's takes 12."""
+    from avenir_tpu_torch.ops import _build
+    from avenir_tpu_torch.tools import ceiling_ab
+
+    assert len(ceiling_ab.PARENT_ARGS) == 9
+    assert ceiling_ab.PARENT_ROWS_PER_SPLIT == 4096
+    assert len(_build.LIBRARIES["matmul_ceiling"][2]) == 12
