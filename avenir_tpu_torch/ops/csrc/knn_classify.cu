@@ -15,6 +15,7 @@
 // carry, train-axis split) and fuses the split merge with the vote.
 // Euclidean compute_dtype="bfloat16" runs the partial kernel's tensor-core
 // form (knn_tile_mma.cuh) through knn_classify_mma_launch.
+#include "knn_merge.cuh"
 #include "knn_tile_mma.cuh"
 
 namespace {
@@ -39,54 +40,94 @@ __device__ __forceinline__ float kernel_score(float dist, int fn,
   }
 }
 
-template <int K>
-__global__ void __launch_bounds__(knn::THREADS)
-merge_vote_kernel(const int* __restrict__ part_key,
-                  const int* __restrict__ part_idx, int nq, int splits, int k,
-                  int label_mask, int n_classes, float inv_attrs, int euclid,
-                  int kernel_fn, float kernel_param,
-                  float* __restrict__ scores) {
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= nq) return;
-  knn::Carry<K> best;
-  knn::merge_splits<K>(part_key, part_idx, nq, splits, qi, knn::SENTINEL,
-                       best);
-  float* row = scores + (size_t)qi * n_classes;
-  for (int c = 0; c < n_classes; ++c) row[c] = 0.f;
+// The split merge (knn_merge.cuh) by groups of G lanes, without
+// indices, then the vote: each lane scores the slots it holds, as the
+// carry's slots were scored, and the group sums each class over its lanes
+// and writes its row once.
+template <int K, int G>
+__device__ __forceinline__ void merge_vote(const int* __restrict__ part_key,
+                                           int nq, int splits, int k,
+                                           int label_mask, int n_classes,
+                                           float inv_attrs, int euclid,
+                                           int kernel_fn, float kernel_param,
+                                           float* __restrict__ scores) {
+  const knn::Group<G> grp(nq);
+  if (__all_sync(knn::WARP, !grp.live)) return;
+  constexpr int SLOTS = knn::slots<K, G>();
+  int key[SLOTS], idx[SLOTS];
+  knn::merge_lists<K, G, false>(part_key, nullptr, nq, splits, k,
+                                knn::SENTINEL, grp, key, idx);
+  float points[SLOTS];
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    if (s < k) {
-      const int key = best.key[s];
-      const bool valid = key < knn::SENTINEL;
-      const float d2 = __int_as_float(key & ~label_mask);
+  for (int j = 0; j < SLOTS; ++j) {
+    // slots past k and past the lists' ends hold the sentinel: no vote
+    points[j] = 0.f;
+    if (key[j] < knn::SENTINEL) {
+      const float d2 = __int_as_float(key[j] & ~label_mask);
       // times the fp32 reciprocal of the attribute count, as XLA compiles
       // the reference's division by that constant
       const float dist = euclid ? sqrtf(fmaxf(d2, 0.f) * inv_attrs)
                                 : d2 * inv_attrs;
-      // select, don't multiply: an empty slot's bits may decode to NaN
-      const float score = valid ? kernel_score(dist, kernel_fn, kernel_param)
-                                : 0.f;
-      const int lab = key & label_mask;
-      if (valid && lab < n_classes) row[lab] += score;
+      points[j] = kernel_score(dist, kernel_fn, kernel_param);
     }
+  }
+  // Every score is a whole number of at most 200 (kernel_score floors it
+  // or gives 1 or 200; an empty slot scores 0) or NaN (gaussian at
+  // kernel_param 0 on a zero distance, a NaN distance), and k <= 64: a
+  // class's float sum is exact in any order below 2^24 and NaN wherever
+  // one of its scores is, so it equals the carry's sum in slot order and
+  // _vote's.
+  float* row = scores + (size_t)grp.qi * n_classes;
+  for (int c = 0; c < n_classes; ++c) {
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j)
+      sum += key[j] < knn::SENTINEL && (key[j] & label_mask) == c ? points[j]
+                                                                   : 0.f;
+    sum = knn::group_sum<G>(sum);
+    if (grp.live && grp.lane == c % G) row[c] = sum;
   }
 }
 
+// g (knn::merge_group of splits) picks the group size.
+template <int K>
+__global__ void __launch_bounds__(knn::MERGE_THREADS)
+merge_vote_kernel(const int* __restrict__ part_key, int nq, int splits, int k,
+                  int g, int label_mask, int n_classes, float inv_attrs,
+                  int euclid, int kernel_fn, float kernel_param,
+                  float* __restrict__ scores) {
+  switch (g) {
+    case 8:
+      merge_vote<K, 8>(part_key, nq, splits, k, label_mask, n_classes,
+                       inv_attrs, euclid, kernel_fn, kernel_param, scores);
+      break;
+    case 16:
+      merge_vote<K, 16>(part_key, nq, splits, k, label_mask, n_classes,
+                        inv_attrs, euclid, kernel_fn, kernel_param, scores);
+      break;
+    default:
+      merge_vote<K, 32>(part_key, nq, splits, k, label_mask, n_classes,
+                        inv_attrs, euclid, kernel_fn, kernel_param, scores);
+  }
+}
+
+// The group size is picked here from splits (knn::merge_group); the vote
+// reads no index, so part_idx is not passed on.
 template <int K>
 cudaError_t launch_vote(const int* part_key, const int* part_idx, int nq,
                         int splits, int k, int label_mask, int n_classes,
                         float inv_attrs, bool euclid, int kernel_fn,
                         float kernel_param, float* scores,
                         cudaStream_t stream) {
-  int eu = euclid ? 1 : 0;
-  void* args[] = {(void*)&part_key,  (void*)&part_idx,  (void*)&nq,
-                  (void*)&splits,    (void*)&k,         (void*)&label_mask,
+  (void)part_idx;
+  if (knn::merge_misaligned(part_key)) return cudaErrorInvalidValue;
+  int g = knn::merge_group(splits), eu = euclid ? 1 : 0;
+  void* args[] = {(void*)&part_key,  (void*)&nq,        (void*)&splits,
+                  (void*)&k,         (void*)&g,         (void*)&label_mask,
                   (void*)&n_classes, (void*)&inv_attrs, (void*)&eu,
                   (void*)&kernel_fn, (void*)&kernel_param, (void*)&scores};
-  return cudaLaunchKernel(&merge_vote_kernel<K>,
-                          dim3((nq + knn::THREADS - 1) / knn::THREADS),
-                          dim3(knn::THREADS),
-                          args, 0, stream);
+  return cudaLaunchKernel(&merge_vote_kernel<K>, knn::merge_grid(nq, splits),
+                          dim3(knn::MERGE_THREADS), args, 0, stream);
 }
 
 template <int K>
@@ -273,6 +314,21 @@ int knn_classify_merge_launch(const int* part_key, const int* part_idx,
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// info[3] of the merge-and-vote instance for k: blocks per SM, registers
+// and local bytes (knn::merge_info).
+int knn_classify_merge_info(int k, int* info) {
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (knn::carry_width(k)) {
+#define MERGE_INFO(KW)                                                     \
+  case KW:                                                                 \
+    err = knn::merge_info(&merge_vote_kernel<KW>, info);                   \
+    break;
+    MERGE_INFO(8) MERGE_INFO(16) MERGE_INFO(32) MERGE_INFO(64)
+#undef MERGE_INFO
+  }
+  return (int)err;
 }
 
 }  // extern "C"

@@ -48,7 +48,8 @@
 //   column bound is checked only in a split's ragged last tile.
 // - Whole waves. blockIdx.y splits the train axis; the wrapper picks the
 //   split count from the instance's blocks per SM so the grid fills whole
-//   waves. A second small kernel merges the splits in column order.
+//   waves. A second small kernel merges the splits in column order
+//   (knn_merge.cuh).
 // Plain fp32 FMA, never TF32 (the TPU reference measured ~4e-3 relative
 // error without full-precision products).
 #pragma once
@@ -57,7 +58,7 @@
 
 namespace knn {
 
-constexpr int THREADS = 128;            // threads of a partial or merge block
+constexpr int THREADS = 128;            // threads of a partial block
 constexpr int TC = 4;                   // threads that share a query
 constexpr int TR = THREADS / TC;        // rows of threads, one query each
 constexpr int TPT = 8;                  // train rows a thread takes per tile
@@ -483,25 +484,6 @@ partial_topk_kernel(const float* __restrict__ q, const float* __restrict__ t,
         part_key[o + s] = best[i].key[s];
         part_idx[o + s] = best[i].idx[s];
       }
-    }
-  }
-}
-
-// Merge the splits' sorted carries of one query into one sorted K-carry.
-// Splits are visited in column order and each list is sorted, so strict
-// comparisons keep the lower column first among equal keys.
-template <int K>
-__device__ __forceinline__ void merge_splits(const int* __restrict__ part_key,
-                                             const int* __restrict__ part_idx,
-                                             int nq, int splits, int qi,
-                                             int empty_key, Carry<K>& best) {
-  best.init(empty_key);
-  for (int s = 0; s < splits; ++s) {
-    const size_t o = ((size_t)s * nq + qi) * K;
-    for (int j = 0; j < K; ++j) {
-      const int key = part_key[o + j];
-      if (!(key < best.worst())) break;  // the rest of this list is larger
-      best.insert(key, part_idx[o + j]);
     }
   }
 }

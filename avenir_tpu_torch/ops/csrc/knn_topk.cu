@@ -30,26 +30,55 @@
 //
 // The wrapper (avenir_tpu_torch/ops/knn_kernels.py) allocates every buffer,
 // decodes keys to distances, and finishes sqrt(d/n_attrs) or d/n_attrs.
+#include "knn_merge.cuh"
 #include "knn_tile_mma.cuh"
 
 namespace {
 
+// The split merge (knn_merge.cuh) by groups of G lanes, then the answer
+// [nq, k] written by each group, neighbouring lanes on neighbouring slots.
+template <int K, int G>
+__device__ __forceinline__ void merge_topk(const int* __restrict__ part_key,
+                                           const int* __restrict__ part_idx,
+                                           int nq, int splits, int k,
+                                           int empty_key,
+                                           int* __restrict__ out_key,
+                                           int* __restrict__ out_idx) {
+  const knn::Group<G> grp(nq);
+  if (__all_sync(knn::WARP, !grp.live)) return;
+  constexpr int SLOTS = knn::slots<K, G>();
+  int key[SLOTS], idx[SLOTS];
+  knn::merge_lists<K, G, true>(part_key, part_idx, nq, splits, k, empty_key,
+                               grp, key, idx);
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) {
+    const int r = j * G + grp.lane;
+    if (grp.live && r < k) {
+      out_key[(size_t)grp.qi * k + r] = key[j];
+      out_idx[(size_t)grp.qi * k + r] = idx[j];
+    }
+  }
+}
+
+// g (knn::merge_group of splits) picks the group size.
 template <int K>
-__global__ void __launch_bounds__(knn::THREADS)
+__global__ void __launch_bounds__(knn::MERGE_THREADS)
 merge_topk_kernel(const int* __restrict__ part_key,
                   const int* __restrict__ part_idx, int nq, int splits, int k,
-                  int empty_key, int* __restrict__ out_key,
+                  int empty_key, int g, int* __restrict__ out_key,
                   int* __restrict__ out_idx) {
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= nq) return;
-  knn::Carry<K> best;
-  knn::merge_splits<K>(part_key, part_idx, nq, splits, qi, empty_key, best);
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    if (s < k) {
-      out_key[(size_t)qi * k + s] = best.key[s];
-      out_idx[(size_t)qi * k + s] = best.idx[s];
-    }
+  switch (g) {
+    case 8:
+      merge_topk<K, 8>(part_key, part_idx, nq, splits, k, empty_key, out_key,
+                       out_idx);
+      break;
+    case 16:
+      merge_topk<K, 16>(part_key, part_idx, nq, splits, k, empty_key,
+                        out_key, out_idx);
+      break;
+    default:
+      merge_topk<K, 32>(part_key, part_idx, nq, splits, k, empty_key,
+                        out_key, out_idx);
   }
 }
 
@@ -59,17 +88,19 @@ inline int empty_key(int mode) {
   return mode == knn::LANES ? knn::SENTINEL : knn::INF_BITS;
 }
 
+// The group size is picked here from splits (knn::merge_group).
 template <int K>
 cudaError_t launch_merge(const int* part_key, const int* part_idx, int nq,
                          int splits, int k, int empty, int* out_key,
                          int* out_idx, cudaStream_t stream) {
+  if (knn::merge_misaligned(part_key) || knn::merge_misaligned(part_idx))
+    return cudaErrorInvalidValue;
+  int g = knn::merge_group(splits);
   void* args[] = {(void*)&part_key, (void*)&part_idx, (void*)&nq,
                   (void*)&splits,   (void*)&k,        (void*)&empty,
-                  (void*)&out_key,  (void*)&out_idx};
-  return cudaLaunchKernel(&merge_topk_kernel<K>,
-                          dim3((nq + knn::THREADS - 1) / knn::THREADS),
-                          dim3(knn::THREADS),
-                          args, 0, stream);
+                  (void*)&g,        (void*)&out_key,  (void*)&out_idx};
+  return cudaLaunchKernel(&merge_topk_kernel<K>, knn::merge_grid(nq, splits),
+                          dim3(knn::MERGE_THREADS), args, 0, stream);
 }
 
 template <int K>
@@ -269,6 +300,44 @@ int knn_topk_merge_launch(const int* part_key, const int* part_idx, int nq,
     default:
       return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// info[3] of the merge instance for k: blocks per SM, registers and
+// local bytes (knn::merge_info).
+int knn_topk_merge_info(int k, int* info) {
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (knn::carry_width(k)) {
+#define MERGE_INFO(KW)                                                     \
+  case KW:                                                                 \
+    err = knn::merge_info(&merge_topk_kernel<KW>, info);                   \
+    break;
+    MERGE_INFO(8) MERGE_INFO(16) MERGE_INFO(32) MERGE_INFO(64)
+#undef MERGE_INFO
+  }
+  return (int)err;
+}
+
+// out[4]: the layout both merge kernels launch for nq queries' splits
+// lists (knn_merge.cuh): lanes a query's group, blocks, threads a block
+// and lists a lane holds at once.
+int knn_merge_layout(int nq, int splits, int* out) {
+  const int g = knn::merge_group(splits);
+  out[0] = g;
+  out[1] = (int)knn::merge_grid(nq, splits).x;
+  out[2] = knn::MERGE_THREADS;
+  out[3] = g == 32 ? knn::MERGE_OWN : 1;
+  return 0;
+}
+
+// An empty kernel on the grid a merge of nq queries' splits lists takes:
+// the launch floor under the merges' device times.
+int knn_merge_floor_launch(int nq, int splits, void* stream) {
+  cudaError_t err = cudaLaunchKernel(&knn::merge_floor_kernel,
+                                     knn::merge_grid(nq, splits),
+                                     dim3(knn::MERGE_THREADS), nullptr, 0,
+                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -359,8 +359,8 @@ def _select_plain(q: torch.Tensor, t: torch.Tensor, k: int, metric: str,
 def merge_splits_plain(part_key: torch.Tensor, part_idx: torch.Tensor,
                        nq: int, splits: int, k: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of the merge kernels' split merge (knn_tile.cuh
-    merge_splits): the partial kernel's lists [splits][nq][K], each sorted
+    """The plain version of the merge kernels' split merge (knn_merge.cuh
+    merge_lists): the partial kernel's lists [splits][nq][K], each sorted
     by (key, column) with the splits in column order, merged into each
     query's k smallest (key, column) pairs [nq, k]. A stable sort on the
     key, splits in order, keeps the lower column first among equal keys."""
@@ -368,6 +368,65 @@ def merge_splits_plain(part_key: torch.Tensor, part_idx: torch.Tensor,
     idx = part_idx.view(splits, nq, -1).permute(1, 0, 2).reshape(nq, -1)
     order = torch.sort(key, dim=1, stable=True).indices[:, :k]
     return key.gather(1, order), idx.gather(1, order)
+
+
+#: knn_merge.cuh MERGE_OWN: lists a lane holds at once in a group of 32
+#: (one in a group of 8 or 16); chip_smoke.py holds it to the kernels'
+#: merge_layout on the card
+MERGE_OWN = 2
+_INT_MAX = 2 ** 31 - 1
+
+
+def merge_splits_group_plain(part_key: torch.Tensor, part_idx: torch.Tensor,
+                             nq: int, splits: int, k: int, group: int,
+                             empty: int = INF_BITS
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A model of the merge kernels' algorithm (knn_merge.cuh merge_lists)
+    on the lists merge_splits_plain takes, as the partial kernel leaves
+    them (a key >= empty only as an empty slot at a list's end): `group`
+    lanes a query, lane l owning splits l, l + group, ...; k rounds in
+    which each lane offers the least head of its lists by (key, split),
+    the group takes the least offer, and its list steps; a head >= empty
+    is exhausted, and a round with every head exhausted gives (empty, -1).
+    A lane holds MERGE_OWN lists at once in a group of 32, else one; past
+    group * that many splits the lists go in batches of that many, the
+    answer of the batches before taking part as one more list that wins
+    ties. Returns (key, index) [nq, k] int32."""
+    own = MERGE_OWN if group == 32 else 1
+    width = part_key.numel() // max(1, splits * nq)
+    keys = part_key.view(splits, nq, width).tolist()
+    idxs = part_idx.view(splits, nq, width).tolist()
+    out = []
+    for q in range(nq):
+        answer = []
+        for b0 in range(0, splits, group * own):
+            carry, p, answer = answer, 0, []
+            stop = min(splits, b0 + group * own)
+            pos = {s: 0 for s in range(b0, stop)}
+
+            def head(s):
+                return keys[s][q][pos[s]] if pos[s] < width else _INT_MAX
+            for _ in range(k):
+                offers = [min((head(s), s) for s in
+                              range(b0 + lane, stop, group))
+                          for lane in range(min(group, stop - b0))]
+                bk, bs = min(offers)
+                hk = carry[p][0] if p < len(carry) else _INT_MAX
+                if hk <= bk:
+                    if hk < empty:
+                        answer.append(carry[p])
+                        p += 1
+                    else:
+                        answer.append((empty, -1))
+                elif bk < empty:
+                    answer.append((bk, idxs[bs][q][pos[bs]]))
+                    pos[bs] += 1
+                else:
+                    answer.append((empty, -1))
+        answer += [(empty, -1)] * (k - len(answer))
+        out.append(answer)
+    t = torch.tensor(out, dtype=torch.int32).view(nq, k, 2)
+    return t[:, :, 0].contiguous(), t[:, :, 1].contiguous()
 
 
 def _key_spec(mode: str, t: torch.Tensor) -> Tuple[int, int, int]:
@@ -519,6 +578,28 @@ def _grid(q: torch.Tensor, k: int, euclid: bool, mode: str, n_valid: int,
     splits, rows = _splits(nq, n_valid, sms, info[0], info[3],
                            _block_queries(k))
     return sms, info[0], splits, rows
+
+
+def merge_info(k: int, vote: bool = False, lib=None) -> Tuple[int, int, int]:
+    """(blocks per SM, registers a thread, local bytes a thread) of the
+    merge instance a CUDA launch at carry width _carry_width(k) takes:
+    knn_classify.cu's merge and vote with vote, else knn_topk.cu's merge
+    (`lib`: another build of that library)."""
+    name = "knn_classify" if vote else "knn_topk"
+    lib = lib or _build.load(name)
+    info = (ctypes.c_int * 3)()
+    _raise_on(getattr(lib, f"{name}_merge_info")(k, info), f"{name}_merge_info")
+    return tuple(info)
+
+
+def merge_layout(nq: int, splits: int, lib=None) -> dict:
+    """The layout both merge kernels launch for nq queries' splits lists,
+    as the kernels' library picks it (knn_merge_layout): lanes a query's
+    group, blocks, threads a block, and lists a lane holds at once."""
+    lib = lib or _build.load("knn_topk")
+    out = (ctypes.c_int * 4)()
+    _raise_on(lib.knn_merge_layout(nq, splits, out), "knn_merge_layout")
+    return dict(zip(("group", "blocks", "threads", "own"), out))
 
 
 def _partial_buffers(q: torch.Tensor, k: int, splits: int

@@ -3,8 +3,9 @@
     python -m avenir_tpu_torch.tools.knn_ab --parent DIR [--reps N]
 
 DIR holds an earlier `knn_tile.cuh`, `knn_topk.cu`, `knn_classify.cu` and
-`knn_prepass.cu` with this checkout's C interface, for example those of an
-earlier commit written out with `git show` into a git-ignored directory.
+`knn_prepass.cu` (and the headers they include) with this checkout's C
+interface, for example those of an earlier commit written out with `git
+show` into a git-ignored directory.
 They build with the same nvcc flags (`ops/_build.py`) into a build
 directory of their own. Both versions' K=8 manhattan exact partial
 instances are printed with their registers, local bytes, blocks per SM
@@ -33,8 +34,21 @@ and rounded copies compared bit for bit. Times are CUDA-event medians of
 `--reps` calls, taken in turns (earlier, current, current, earlier) and
 averaged per side; each row prints their ratio.
 
+Merge rows: both versions' merge kernels alone (`knn_topk_merge_launch`,
+`knn_classify_merge_launch`) on the same split lists, which one launch of
+this checkout's partial kernel leaves: the job's (D=6 manhattan float32,
+k=5: exact lists for the top-k merge, label lists for the vote), the
+bench's (D=128 euclidean bfloat16 on the tensor-core form, k=5: lane
+lists and label lists) and lists at k=16, 32 and 64 (D=6 manhattan
+float32); the vote at C=2 under the kernels none and gaussian(30). Keys,
+indices and scores are compared bit for bit. A merge launch takes a few
+microseconds of the device and more of the host, so a merge row's time
+is the device's: torch.profiler's mean kernel time (`profiled_ms`) over
+`--reps` calls of MERGE_LAUNCHES back-to-back launches, in the same turns.
+
 Prints the card's name and power limit, one line per row and one JSON
-line; exits 1 if any float32 row differs or any bfloat16 row disagrees.
+line; exits 1 if any float32 or merge row differs or any bfloat16 row
+disagrees.
 Needs a CUDA device.
 """
 
@@ -57,6 +71,8 @@ from avenir_tpu_torch.ops import knn_kernels as kk
 from avenir_tpu_torch.tools.knn_tolerance import bf16_agrees
 
 NQ, NT, K, C, SEED = 8192, 131072, 5, 2, 1234
+#: back-to-back launches of a merge row's call
+MERGE_LAUNCHES = 20
 #: mangled-name part of the K=8 manhattan exact partial instance
 K8_L1_EXACT = "partial_topk_kernelILi8ELi0ELi0E"
 
@@ -139,23 +155,163 @@ def bit_equal(old: List[torch.Tensor], new: List[torch.Tensor]) -> str:
         else "not bit-equal"
 
 
-def ab_row(old, new, reps: int, out, agree=bit_equal, **row) -> dict:
+def ab_row(old, new, reps: int, out, agree=bit_equal, timer=None,
+           **row) -> dict:
     """Compare old() and new() by `agree` (bit for bit unless told
     otherwise: it returns why they disagree, "" if they do not), time
-    them in turns, print and return the row."""
+    them in turns by `timer` (fn, reps) -> ms, cuda_ms unless told
+    otherwise, print and return the row."""
+    timer = timer or cuda_ms
     why = agree(old(), new())
-    p1, n1, n2, p2 = (cuda_ms(fn, reps) for fn in (old, new, new, old))
+    p1, n1, n2, p2 = (timer(fn, reps) for fn in (old, new, new, old))
     row.update(agree=not why, by=agree.__name__, earlier_ms=(p1 + p2) / 2,
                current_ms=(n1 + n2) / 2)
     row["ratio"] = row["earlier_ms"] / row["current_ms"]
     verdict = ("same" if agree is bit_equal else "close") if not why \
         else f"DIFF ({why})"
+    digits = 3 if timer is cuda_ms else 5
     out(f"{verdict} D={row['d']} {row['metric']} {row['mode']} "
         f"{row['dtype']}{' ' + row['forms'] if 'forms' in row else ''}: "
-        f"earlier {row['earlier_ms']:.3f} ms ({p1:.3f}, {p2:.3f}), current "
-        f"{row['current_ms']:.3f} ms ({n1:.3f}, {n2:.3f}), "
-        f"x{row['ratio']:.2f}")
+        f"earlier {row['earlier_ms']:.{digits}f} ms ({p1:.{digits}f}, "
+        f"{p2:.{digits}f}), current {row['current_ms']:.{digits}f} ms "
+        f"({n1:.{digits}f}, {n2:.{digits}f}), x{row['ratio']:.2f}")
     return row
+
+
+def profiled_ms(fn: Callable[[], object], kernel: str, reps: int
+                ) -> Optional[float]:
+    """torch.profiler's mean device time (ms) of the kernels whose name
+    holds `kernel` over reps calls of fn, after one warm-up; None if no
+    such kernel is recorded (a profile that records none is retaken
+    once)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = count = 0
+        for ev in prof.key_averages():
+            if kernel in ev.key:
+                us += (ev.device_time_total
+                       if hasattr(ev, "device_time_total")
+                       else ev.cuda_time_total)
+                count += ev.count
+        if count:
+            return us / count / 1e3
+    return None
+
+
+def merge_ms(fn: Callable[[], object], reps: int) -> float:
+    """A merge row's timer: the merge kernels' mean device time."""
+    ms = profiled_ms(fn, "merge_", reps)
+    return float("nan") if ms is None else ms
+
+
+def split_lists(q, t, labels, k: int, mode: str, metric: str, bf16: bool):
+    """(part_key, part_idx, splits): the split lists one launch of this
+    checkout's kernels in `mode` leaves on q and t, through the route the
+    wrapper takes (after the pre-pass where euclidean)."""
+    euclid = metric == "euclidean"
+    mma = kk._mma(euclid, bf16)
+    nq, d = q.shape
+    ops = [kk._ptr(x) for x in kk._operands(q, t, euclid, bf16, NT)]
+    _, _, splits, rows = kk._grid(q, k, euclid, mode, NT, bf16=mma)
+    part_k, part_i = kk._partial_buffers(q, k, splits)
+    stream = kk._stream(q.device)
+    if mode == "labels":
+        out = torch.empty((nq, C), dtype=torch.float32, device=q.device)
+        kk._launch(_build.load("knn_classify"), "knn_classify", mma,
+                   "knn_classify_lanes", *ops, labels.data_ptr(), nq, d, NT,
+                   k, int(euclid), kk.label_bits(C), C, 1.0 / d, 0, 1.0,
+                   splits, rows, part_k.data_ptr(), part_i.data_ptr(),
+                   out.data_ptr(), stream)
+    else:
+        out = torch.empty((2, nq, k), dtype=torch.int32, device=q.device)
+        kk._launch(_build.load("knn_topk"), "knn_topk", mma,
+                   f"knn_topk ({mode})", *ops, nq, d, NT, k, int(euclid),
+                   kk.MODES[mode], kk._key_spec(mode, t)[0], splits, rows,
+                   part_k.data_ptr(), part_i.data_ptr(), out[0].data_ptr(),
+                   out[1].data_ptr(), stream)
+    return part_k, part_i, splits
+
+
+def merge_call(lib, lists, nq: int, k: int, mode: str, metric: str, d: int,
+               kernel_fn: Optional[str] = None,
+               launches: int = MERGE_LAUNCHES, kernel_param: float = 30.0
+               ) -> Callable[[], List[torch.Tensor]]:
+    """`launches` launches of `lib`'s merge kernel alone on `lists`
+    (split_lists), giving [keys, indices] (the top-k merge of `mode`) or,
+    with kernel_fn, [scores] (the merge and vote, C classes, over d
+    attributes). Its output starts as -7 (scores NaN), so a slot no
+    launch writes shows."""
+    part_k, part_i, splits = lists
+    stream = kk._stream(part_k.device)
+    ptrs = (part_k.data_ptr(), part_i.data_ptr())
+    if kernel_fn is None:
+        out = torch.full((2, nq, k), -7, dtype=torch.int32,
+                         device=part_k.device)
+
+        def launch():
+            kk._raise_on(lib.knn_topk_merge_launch(
+                *ptrs, nq, splits, k, kk.MODES[mode], out[0].data_ptr(),
+                out[1].data_ptr(), stream), "knn_topk_merge")
+    else:
+        out = torch.full((nq, C), float("nan"), device=part_k.device)
+
+        def launch():
+            kk._raise_on(lib.knn_classify_merge_launch(
+                *ptrs, nq, splits, k, int(metric == "euclidean"),
+                kk.label_bits(C), C, 1.0 / d, kk.KERNEL_FNS.index(kernel_fn),
+                kernel_param, out.data_ptr(), stream), "knn_classify_merge")
+
+    def run():
+        for _ in range(launches):
+            launch()
+        return list(out) if kernel_fn is None else [out]
+    return run
+
+
+#: the merge rows' lists: (name, D, metric, dtype, k, top-k mode)
+MERGE_LISTS = (("job", 6, "manhattan", "float32", K, "exact"),
+               ("K=16", 6, "manhattan", "float32", 16, "exact"),
+               ("K=32", 6, "manhattan", "float32", 32, "exact"),
+               ("K=64", 6, "manhattan", "float32", 64, "exact"),
+               ("bench", 128, "euclidean", "bfloat16", K, "lanes"))
+
+
+def merge_rows(q, t, labels, libs, reps: int, out) -> List[dict]:
+    """Both versions' merge kernels on the MERGE_LISTS of this D."""
+    rows = []
+    nq, d = q.shape
+    for name, dl, metric, dtype, k, mode in MERGE_LISTS:
+        if dl != d:
+            continue
+        bf16 = dtype == "bfloat16"
+        for lmode, fns in ((mode, (None,)), ("labels", ("none", "gaussian"))):
+            lists = split_lists(q, t, labels, k, lmode, metric, bf16)
+            torch.cuda.synchronize()
+            splits = lists[2]
+            group = kk.merge_layout(nq, splits)["group"]
+            for fn in fns:
+                kernel = "merge_topk" if fn is None else f"merge_vote {fn}"
+                row = ab_row(
+                    merge_call(libs[1 if fn else 0], lists, nq, k, lmode,
+                               metric, d, fn),
+                    merge_call(_build.load("knn_classify" if fn
+                                           else "knn_topk"), lists, nq, k,
+                               lmode, metric, d, fn),
+                    reps, out, timer=merge_ms, d=d, metric=metric,
+                    mode=f"{kernel} ({lmode} lists of the {name} shape, k={k},"
+                         f" {splits} splits, G={group})",
+                    dtype=dtype)
+                row.update(kernel=kernel, lists=name, k=k, splits=splits,
+                           group=group)
+                rows.append(row)
+    return rows
 
 
 def cuda_ms(fn: Callable[[], object], reps: int) -> float:
@@ -202,6 +358,12 @@ def run(parent: Path, reps: int = 5, out=print) -> List[dict]:
         out(f"current K=8 euclidean bfloat16 lanes (tensor-core) D={d}: "
             f"{info[1]} registers, {info[2]} local bytes, {info[0]} "
             f"blocks/SM")
+    for vote in (False, True):
+        for k in (8, 16, 32, 64):
+            info = kk.merge_info(k, vote)
+            out(f"current merge_{'vote' if vote else 'topk'} K={k}: "
+                f"{info[1]} registers, {info[2]} local bytes, {info[0]} "
+                f"blocks/SM")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     for d in (6, 128):
@@ -229,6 +391,7 @@ def run(parent: Path, reps: int = 5, out=print) -> List[dict]:
                         current_call(mode, q, t, labels, metric, bf16), reps,
                         out, d=d, metric=metric, mode=mode, dtype=dtype,
                         **kw))
+        rows += merge_rows(q, t, labels, libs, reps, out)
     out(json.dumps({"metric": "knn_ab", "device": torch.cuda.get_device_name(0),
                     "card": card(), "rows": rows}))
     return rows

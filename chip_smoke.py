@@ -16,7 +16,12 @@ Phases, each printing a line per check; any failed check exits non-zero:
    The matmul ceiling's kernels: ptxas's spill bytes of each, and the
    registers, local bytes, shared bytes, threads and blocks per SM of its
    two wgmma instances (D <= 64 and D <= 128); fails on any spill or a
-   tile that differs from the wrapper's plan.
+   tile that differs from the wrapper's plan. The eight merge instances
+   (two kernels x four carry widths): ptxas's spill bytes, and the
+   registers, local bytes and blocks per SM cudaFuncGetAttributes gives;
+   fails on any spill. The merges' layout as the C side picks it
+   (knn_merge_layout) against the design's rule and the CPU model's
+   MERGE_OWN.
 2. Kernels against their plain PyTorch versions on the card, at the
    e-learning workload's size (8192 queries x 131072 train rows, k=5),
    D in {6, 128}, both metrics, and for the vote C=2 with the kernels
@@ -28,8 +33,10 @@ Phases, each printing a line per check; any failed check exits non-zero:
    are allowed only between tied distances. The euclidean pre-pass
    (`knn_prepass`, norms alone and with bfloat16 copies) bit-equal to its
    plain version, there and at ragged shapes up to MAX_D. The merge
-   kernels (knn_topk.cu, knn_classify.cu) timed apart from the partial
-   kernel on the job's split lists, equal to the plain merge. Times are
+   kernels (knn_topk.cu, knn_classify.cu on knn_merge.cuh) timed apart
+   from the partial kernel on the job's split lists, bit-equal to the
+   plain merge and vote, beside the launch floor (an empty kernel on the
+   merges' grid). Times are
    CUDA-event medians; each row prints its share of its bound, its
    blocks per SM, grid and waves, and its launches. The pre-pass and the
    merges also get device-alone times: one CUDA-event pair around 200
@@ -53,10 +60,15 @@ Phases, each printing a line per check; any failed check exits non-zero:
    ties): its products are exact and only its fp32 accumulation order
    differs; bfloat16 manhattan bit-equal to float32. The tensor-core
    form's clock64 section shares at D=128 and D=6, its merge kernels on
-   the bench's lists (with device-alone times, as in phase 2), and every
-   carry width and mode at ragged shapes, D
-   1..MAX_D. Then `avenir_tpu_torch.tools.knn_sweep` at its full width
-   (8192 x 131072, D=128).
+   the bench's lists (with device-alone times and the launch floor, as
+   in phase 2), and every carry width and mode at ragged shapes, D
+   1..MAX_D. The merge kernels alone on ragged split lists (splits 1 to
+   65, every carry width, empty queries, ties, sign bits, keys at
+   SENTINEL and INF_BITS; votes scoring NaN: gaussian at kernel_param 0
+   on zero distances, sign-bit NaN keys), bit-equal to merge_splits_plain
+   and _vote (NaN where it has NaN) and on a rerun. Then
+   `avenir_tpu_torch.tools.knn_sweep` at its full width (8192 x 131072,
+   D=128).
 
 6. The Naive Bayes path: `bayesianDistr` through `runner.run_job` on a
    seeded churn train CSV of 1,000,000 rows streamed in 4 MB blocks; the
@@ -168,9 +180,11 @@ def device_alone(launch, kernel: str, n: int = 200):
     """(ms, profiler ms) of one launch through a kernel's C entry, on the
     device alone: one CUDA-event pair around n back-to-back launches, over
     n; and torch.profiler's mean device time of the kernels whose name
-    holds `kernel` over n launches (None if it records none)."""
+    holds `kernel` over n launches (knn_ab.profiled_ms; None if it records
+    none)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from avenir_tpu_torch.tools.knn_ab import profiled_ms
 
     launch()
     torch.cuda.synchronize()
@@ -181,17 +195,7 @@ def device_alone(launch, kernel: str, n: int = 200):
         launch()
     end.record()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            launch()
-        torch.cuda.synchronize()
-    us = count = 0
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            us += (ev.device_time_total if hasattr(ev, "device_time_total")
-                   else ev.cuda_time_total)
-            count += ev.count
-    return start.elapsed_time(end) / n, (us / count / 1e3 if count else None)
+    return start.elapsed_time(end) / n, profiled_ms(launch, kernel, n)
 
 
 def _device_text(ms: float, prof_ms) -> str:
@@ -221,10 +225,15 @@ def phase_card():
     total = time.perf_counter() - t0
     print(f"build {total:.1f}s {json.dumps({k: round(v, 1) for k, v in secs.items()})} "
           f"into {_build.build_dir().relative_to(ROOT)}", flush=True)
+    merges = {}
     for name in _build.LIBRARIES:
         log = _build.build_dir() / f"{name}.log"
         if log.exists():
             text = log.read_text()
+            merges.update({fn: int(st) + int(ld) for fn, st, ld in re.findall(
+                r"Function properties for (\S*merge_(?:topk|vote)_kernel\S*)"
+                r"\s+\d+ bytes stack frame, (\d+) bytes spill stores, "
+                r"(\d+) bytes spill loads", text)})
             regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
             spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", text))
             print(f"ptxas {name}: {len(regs)} kernels, registers "
@@ -247,7 +256,12 @@ def phase_card():
                 print(f"ptxas {name}: diagnostic instance (clock64 sections) "
                       f"spills {n} bytes", flush=True)
         _build.load(name)
+    spilled = sorted(fn for fn, n in merges.items() if n)
+    check(len(merges) == 8 and not spilled, f"ptxas: {len(merges)} merge "
+          f"instances (2 kernels x 4 carry widths), {len(spilled)} spill"
+          + (f": {spilled}" if spilled else ""))
     partial_instances()
+    merge_instances()
     ceiling_instances()
 
 
@@ -316,6 +330,43 @@ def partial_instances() -> None:
     check(not plans, "the kernels' stage plans (rows, stages, bytes) equal "
           "knn_kernels._stage_plan and _mma_stage_plan"
           + (f"; not {plans}" if plans else ""))
+
+
+def merge_instances() -> None:
+    """Every merge instance's registers, local (spilled) bytes and blocks
+    per SM from cudaFuncGetAttributes; fails on any local bytes. The
+    merges' layout (knn_merge_layout) at 1 to 65 splits: G the fewest of
+    8, 16 and 32 lanes that cover min(splits, 32), blocks of whole groups,
+    and MERGE_OWN lists a lane at G=32, the count the CPU model of the
+    merge (merge_splits_group_plain) takes."""
+    from avenir_tpu_torch.ops import knn_kernels as kk
+
+    spilled = []
+    threads = kk.merge_layout(NQ, 1)["threads"]
+    for vote in (False, True):
+        name = "merge_vote" if vote else "merge_topk"
+        for k in (8, 16, 32, 64):
+            per_sm, regs, local = kk.merge_info(k, vote)
+            print(f"{name} K={k}: {regs} registers, {local} local bytes, "
+                  f"{per_sm} blocks/SM of {threads} threads", flush=True)
+            if local:
+                spilled.append(f"{name}/K={k}")
+    check(not spilled, "8 merge instances, "
+          f"{len(spilled)} with local (spilled) bytes"
+          + (f": {spilled}" if spilled else ""))
+    bad = []
+    for splits in range(1, 66):
+        lay = kk.merge_layout(NQ, splits)
+        g = min(c for c in (8, 16, 32) if c >= min(splits, 32))
+        if (lay["group"], lay["blocks"], lay["own"]) != (
+                g, -(-NQ // (threads // g)),
+                kk.MERGE_OWN if g == 32 else 1) or threads % g:
+            bad.append(f"{splits}: {lay}")
+    check(not bad, f"merge layout at 1..65 splits of {NQ} queries: G the "
+          f"fewest of 8/16/32 lanes covering min(splits, 32), "
+          f"{threads}-thread blocks of whole groups, {kk.MERGE_OWN} lists a "
+          "lane at G=32 as the CPU model takes"
+          + (f"; not {bad[:5]}" if bad else ""))
 
 
 # ------------------------------------------------------------------ phase 2
@@ -477,8 +528,9 @@ def _plan_text(plan) -> str:
 
 
 def _merge_reads(part_k, nq, splits, empty):
-    """(keys, indices) that merge_splits reads from these split lists:
-    each split's keys in order up to and including the first that is not
+    """(keys, indices) a serial merge must read from these split lists,
+    the bound's bytes (cb9153e's merge_splits, one thread a query): each
+    split's keys in order up to and including the first that is not
     below the carry's worst, and the index of each key it inserts. A
     carry of the lists' width is replayed on the card, a slot at a time."""
     import torch
@@ -505,14 +557,18 @@ def _merge_rows(q, t, labels, metric, dtype, rate, shape):
     """The two merge kernels timed apart from the partial kernel: one
     launch of the wrapper's route leaves the split lists, then
     knn_topk_merge_launch / knn_classify_merge_launch alone on them,
-    against merge_splits_plain (and _vote) and the full launch's output.
-    Bound: the bytes the merge must move on these lists (_merge_reads,
-    and its output). Library: torch.topk over each query's splits x K
-    keys (laid out [nq, splits * K] once, outside the timing)."""
+    bit-equal to merge_splits_plain (and _vote) and to the full launch's
+    output. Bound: the bytes the merge must move on these lists
+    (_merge_reads, and its output). Library: torch.topk over each query's
+    splits x K keys (laid out [nq, splits * K] once, outside the timing).
+    Beside them the launch floor: an empty kernel on the merges' grid
+    (knn_merge_floor_launch), timed as they are on the device alone."""
     import torch
 
     from avenir_tpu_torch.ops import _build
     from avenir_tpu_torch.ops import knn_kernels as kk
+
+    from avenir_tpu_torch.tools.knn_ab import merge_call
 
     euclid = metric == "euclidean"
     bf16 = kk._bf16(dtype, metric)
@@ -521,6 +577,7 @@ def _merge_rows(q, t, labels, metric, dtype, rate, shape):
     ops = [None if x is None else x.data_ptr()
            for x in kk._operands(q, t, euclid, bf16, NT)]
     rows = []
+    floors = {}
     for name, mode in (("merge_topk", "lanes" if shape == "bench"
                         else "exact"), ("merge_vote", "labels")):
         _, _, splits, per_split = kk._grid(q, K, euclid, mode, NT, bf16=bf16)
@@ -528,18 +585,12 @@ def _merge_rows(q, t, labels, metric, dtype, rate, shape):
         ptrs = (part_k.data_ptr(), part_i.data_ptr())
         if mode == "labels":
             lib = _build.load("knn_classify")
-            out = torch.empty((nq, 2), dtype=torch.float32, device=q.device)
-            vote = (1, 2, 1.0 / d, kk.KERNEL_FNS.index("gaussian"), 30.0)
+            full = torch.empty((nq, 2), dtype=torch.float32, device=q.device)
             kk._launch(lib, "knn_classify", mma, "knn_classify_lanes", *ops,
-                       labels.data_ptr(), nq, d, NT, K, int(euclid),
-                       *vote, splits, per_split, *ptrs,
-                       out.data_ptr(), stream)
-            empty = kk.SENTINEL
-
-            def merge():
-                kk._raise_on(lib.knn_classify_merge_launch(
-                    *ptrs, nq, splits, K, int(euclid), *vote,
-                    out.data_ptr(), stream), "knn_classify_merge")
+                       labels.data_ptr(), nq, d, NT, K, int(euclid), 1, 2,
+                       1.0 / d, kk.KERNEL_FNS.index("gaussian"), 30.0, splits,
+                       per_split, *ptrs, full.data_ptr(), stream)
+            empty, fn = kk.SENTINEL, "gaussian"
 
             def plain():
                 keys = kk.merge_splits_plain(part_k, part_i, nq, splits, K)[0]
@@ -547,35 +598,34 @@ def _merge_rows(q, t, labels, metric, dtype, rate, shape):
             out_bytes = nq * 2 * 4
         else:
             lib = _build.load("knn_topk")
-            out = torch.empty((2, nq, K), dtype=torch.int32, device=q.device)
+            full = torch.empty((2, nq, K), dtype=torch.int32, device=q.device)
             bits, _, empty = kk._key_spec(mode, t)
             kk._launch(lib, "knn_topk", mma, f"knn_topk ({mode})", *ops, nq,
                        d, NT, K, int(euclid), kk.MODES[mode], bits, splits,
-                       per_split, *ptrs, out[0].data_ptr(),
-                       out[1].data_ptr(), stream)
-
-            def merge():
-                kk._raise_on(lib.knn_topk_merge_launch(
-                    *ptrs, nq, splits, K, kk.MODES[mode], out[0].data_ptr(),
-                    out[1].data_ptr(), stream), "knn_topk_merge")
+                       per_split, *ptrs, full[0].data_ptr(),
+                       full[1].data_ptr(), stream)
+            fn = None
 
             def plain():
                 return torch.stack(kk.merge_splits_plain(part_k, part_i, nq,
                                                          splits, K))
             out_bytes = nq * K * 8
-        full = out.clone()
-        merge()
+        merge = merge_call(lib, (part_k, part_i, splits), nq, K, mode, metric,
+                           d, fn, launches=1)
+        out = torch.stack(merge())
+        out = out[0] if fn else out
         torch.cuda.synchronize()
         ref, plain_ms = _timed_once(plain)
         if mode == "labels":
             err = (out - ref).abs().max().item()
-            # one floored score step on a boundary-sitting distance
-            ok = torch.equal(out, full) and err <= 2.0
         else:
             err = (out.long() - ref.long()).abs().max().item()
-            ok = torch.equal(out, full) and torch.equal(out, ref)
+        ok = torch.equal(out, full) and torch.equal(out, ref)
         ms = cuda_ms(merge, 20)
         dev_ms, prof_ms = device_alone(merge, f"{name}_kernel")
+        if splits not in floors:
+            floors[splits] = _merge_floor(nq, splits, shape, stream)
+        floor_ms, floor_prof = floors[splits]
         keys, idx = _merge_reads(part_k, nq, splits, empty)
         bound = (4 * (keys + idx) + out_bytes) / rate * 1e3
         lib_ms = None
@@ -583,20 +633,47 @@ def _merge_rows(q, t, labels, metric, dtype, rate, shape):
             cand = part_k.view(splits, nq, -1).permute(1, 0, 2).reshape(nq, -1)
             lib_ms = cuda_ms(lambda: torch.topk(cand, K, dim=1, largest=False),
                              20)
+        lay = kk.merge_layout(nq, splits)
+        group, blocks = lay["group"], lay["blocks"]
         rows.append(dict(name=name, metric=metric, d=d, dtype=dtype,
-                         shape=shape, splits=splits, max_abs_err=err, ms=ms,
+                         shape=shape, splits=splits, group=group,
+                         blocks=blocks, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
                          library_ms=lib_ms, keys_read=keys,
-                         device_ms=dev_ms, profiler_ms=prof_ms))
+                         device_ms=dev_ms, profiler_ms=prof_ms,
+                         floor_ms=floor_ms, floor_profiler_ms=floor_prof))
+        share = bound / prof_ms if prof_ms else None
         check(ok, f"{name} ({mode} lists of the {shape} shape, {metric} "
-              f"{dtype} D={d}, {splits} splits): equal to the full launch's, "
-              f"max|err| {err:.3g} against the plain merge; {ms:.4f} ms, "
-              f"plain {plain_ms:.1f} ms, bound {bound:.4f} ms (bytes: {keys} "
-              f"keys and {idx} indices read of {part_k.numel()}, "
-              f"{bound / ms:.1%} of it)"
+              f"{dtype} D={d}, {splits} splits, G={group}, {blocks} blocks): "
+              f"bit-equal to the full launch's and the plain merge's, "
+              f"max|err| {err:.3g}; {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+              f"bound {bound:.5f} ms (bytes: {keys} keys and {idx} indices "
+              f"read of {part_k.numel()}, {bound / ms:.1%} of a call"
+              + ("" if share is None else f", {share:.1%} of the device "
+                 "time") + ")"
               + ("" if lib_ms is None else f", torch.topk {lib_ms:.4f} ms")
               + f"; {_device_text(dev_ms, prof_ms)}")
     return rows
+
+
+def _merge_floor(nq, splits, shape, stream):
+    """(ms, profiler ms) of an empty kernel on the merges' grid for nq
+    queries' splits lists, on the device alone (device_alone), printed."""
+    from avenir_tpu_torch.ops import _build
+    from avenir_tpu_torch.ops import knn_kernels as kk
+
+    lib = _build.load("knn_topk")
+
+    def launch():
+        kk._raise_on(lib.knn_merge_floor_launch(nq, splits, stream),
+                     "knn_merge_floor")
+    ms, prof_ms = device_alone(launch, "merge_floor_kernel")
+    lay = kk.merge_layout(nq, splits)
+    print(f"merge launch floor (an empty kernel on the merges' grid at the "
+          f"{shape} shape: {nq} queries, {splits} splits, G={lay['group']}, "
+          f"{lay['blocks']} blocks): {_device_text(ms, prof_ms)}",
+          flush=True)
+    return ms, prof_ms
 
 
 def _check_prepass(q, t, d, flops, rate):
@@ -901,7 +978,135 @@ def phase_packed_bf16(flops: float, rate: float, bf16_flops: float,
             results += _merge_rows(q, t, labels, "euclidean", "bfloat16",
                                    rate, "bench")
     _check_mma_shapes()
+    _check_merge_ragged()
     return results
+
+
+#: keys on the empty slots' edges, and an exact key with the sign bit set
+EDGE_KEYS = (0, 1, 0x7F6FFFFF, 0x7F700000, 0x7F700001, 0x7F7FFFFF,
+             0x7F800000, 0x7F800001, -2 ** 31)
+
+
+def _ragged_lists(rng, splits, nq, kw, mode):
+    """Split lists [splits][nq][kw] as the partial kernel leaves them, on
+    the card: each sorted by (key, column), columns rising by split, a key
+    >= the mode's empty key only as (empty, -1) at its end, queries 0 and
+    nq // 2 all empty. Keys: exact, a mix of a few small values (equal
+    keys across splits, within a lane's and across lanes), EDGE_KEYS and
+    random int32 (half with the sign bit set); lanes and labels, bits(d)
+    with the low bits masked and a chunk id or label (C=2) in them, d from
+    a few values (ties, exact zeros), some of which reach SENTINEL; mode
+    "nan": label keys with, among those d, a NaN with the sign bit set
+    (what a manhattan sum over a NaN row may give), which sorts first."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.ops import knn_kernels as kk
+
+    shape = (splits, nq, kw)
+    if mode == "exact":
+        pick = rng.integers(0, 3, shape)
+        key = np.where(pick == 0, rng.integers(0, 6, shape),
+                       np.where(pick == 1, rng.choice(EDGE_KEYS, shape),
+                                rng.integers(-2 ** 31, 2 ** 31, shape)))
+        empty = kk.INF_BITS
+    else:
+        below = np.int32(0x7F6FF000).view(np.float32)   # just under it
+        nan = np.uint32(0xFFC00000).view(np.float32)
+        dist = rng.choice(np.float32([0.0, 0.004, 0.25, 1.0, 3.0, below,
+                                      3.2e38, float("inf")]
+                                     + ([nan] if mode == "nan" else [])),
+                          shape)
+        mask = 0xFFF if mode == "lanes" else 1
+        low = rng.integers(0, mask + 1, shape)
+        key = (dist.view(np.int32).astype(np.int64) & ~mask) | low
+        empty = kk.SENTINEL
+    col = rng.integers(0, 1000, shape) + 1000 * np.arange(splits)[:, None,
+                                                                    None]
+    order = np.lexsort((col, key), axis=-1)
+    key = np.take_along_axis(key, order, -1)
+    col = np.take_along_axis(col, order, -1)
+    gone = key >= empty
+    gone[:, [0, nq // 2]] = True
+    key[gone], col[gone] = empty, -1
+    return (torch.from_numpy(key.astype(np.int32).ravel()).to(DEVICE),
+            torch.from_numpy(col.astype(np.int32).ravel()).to(DEVICE))
+
+
+def _same(a, b, nan_bits: bool = True) -> bool:
+    """a and b bit for bit; without nan_bits a NaN only where the other
+    has one (the card's NaN and the plain version's may differ in sign and
+    payload)."""
+    import torch
+
+    if a.is_floating_point():
+        if not nan_bits:
+            if not torch.equal(a.isnan(), b.isnan()):
+                return False
+            a, b = a.nan_to_num(0.0), b.nan_to_num(0.0)
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _check_merge_ragged() -> None:
+    """Both merge kernels alone (their C entries) on ragged lists
+    (_ragged_lists): splits 1, 7, 33, 40 and 65 (one lane owning one,
+    two and three splits, and the batches past 64), every carry width
+    with k at and below it; the top-k merge on exact and lane lists
+    against merge_splits_plain, the vote on label lists (C=2, both
+    metrics, every kernel function, gaussian at 30 and at 0, which
+    scores NaN on a zero distance) and on label lists with sign-bit NaN
+    keys (manhattan; the kernels none and gaussian, whose score of a NaN
+    distance is NaN on the card as in _vote) against _vote of those, each
+    bit for bit (a NaN where the plain version has one) and bit-equal on
+    a rerun."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.ops import _build
+    from avenir_tpu_torch.ops import knn_kernels as kk
+    from avenir_tpu_torch.tools.knn_ab import merge_call
+
+    rng = np.random.default_rng(8)
+    nq, n, bad = 300, 0, []
+    topk, vote = _build.load("knn_topk"), _build.load("knn_classify")
+    votes = {"labels": [(metric, fn, param)
+                        for metric in ("manhattan", "euclidean")
+                        for fn, param in [(fn, 30.0) for fn in kk.KERNEL_FNS]
+                        + [("gaussian", 0.0)]],
+             "nan": [("manhattan", "none", 30.0),
+                     ("manhattan", "gaussian", 30.0),
+                     ("manhattan", "gaussian", 0.0)]}
+    for splits in (1, 7, 33, 40, 65):
+        for k in (5, 8, 13, 16, 32, 50, 64):
+            kw = kk._carry_width(k)
+            for mode in ("exact", "lanes", "labels", "nan"):
+                lists = (*_ragged_lists(rng, splits, nq, kw, mode), splits)
+                ref_k, ref_i = kk.merge_splits_plain(lists[0], lists[1], nq,
+                                                     splits, k)
+                cases = []       # (what, two runs, the plain version's)
+                if mode not in votes:
+                    cases.append((mode, [merge_call(
+                        topk, lists, nq, k, mode, "-", 6, launches=1)()
+                        for _ in range(2)], [ref_k, ref_i]))
+                for metric, fn, param in votes.get(mode, ()):
+                    cases.append((f"{mode} {metric} {fn}({param:g})", [
+                        merge_call(vote, lists, nq, k, "labels", metric, 6,
+                                   fn, launches=1, kernel_param=param)()
+                        for _ in range(2)], [kk._vote(
+                            ref_k, 1, 2, 6, metric, fn, param)]))
+                torch.cuda.synchronize()
+                for what, runs, ref in cases:
+                    n += 1
+                    if not all(_same(a, b) and _same(a, c, nan_bits=False)
+                               for a, b, c in zip(runs[0], runs[1], ref)):
+                        bad.append(f"splits={splits}/k={k}/{what}")
+    check(not bad, f"merge kernels on ragged lists ({nq} queries, two all "
+          f"empty; splits 1/7/33/40/65, k 5..64, exact, lane and label "
+          f"keys with ties, sign bits and keys at SENTINEL and INF_BITS; "
+          f"votes with gaussian(0) and sign-bit NaN keys): {n - len(bad)} "
+          f"of {n} bit-equal to merge_splits_plain / _vote and on a rerun"
+          + (f"; not {bad[:10]}" if bad else ""))
 
 
 def _check_mma_shapes() -> None:
@@ -1170,7 +1375,9 @@ def _new_kernel_rows(checks, launches, path_counts, bench_counts):
             "launches_by_path": by_path,
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
-            **{k: row[k] for k in ("device_ms", "profiler_ms") if k in row}})
+            **{k: row[k] for k in ("device_ms", "profiler_ms", "floor_ms",
+                                   "floor_profiler_ms", "group", "blocks")
+               if k in row}})
     return rows
 
 

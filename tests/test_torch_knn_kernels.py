@@ -684,6 +684,26 @@ def test_zero_padding_to_the_mma_depth_keeps_the_plain_keys(monkeypatch, d,
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _carry_merge(key, idx, k, empty):
+    """merge_splits of the first merge kernels step for step, for each
+    query of lists key, idx [splits, nq, K]: a sorted carry of K slots fed
+    each split's sorted list in order, an entry inserted only below the
+    carry's worst key (so the earlier of equal keys stays), a split left
+    at its first entry that is not. Its first k slots, [nq][k] pairs."""
+    splits, nq, kw = key.shape
+    out = []
+    for r in range(nq):
+        carry = [(empty, -1)] * kw
+        for s in range(splits):
+            for j in range(kw):
+                if not key[s, r, j] < carry[-1][0]:
+                    break
+                carry = sorted(carry[:-1] + [(key[s, r, j], idx[s, r, j])],
+                               key=lambda e: e[0])
+        out.append(carry[:k])
+    return out
+
+
 @pytest.mark.parametrize("splits,kw,k", [(1, 8, 5), (7, 8, 8), (33, 16, 9),
                                          (4, 64, 64)])
 def test_merge_splits_plain_is_the_merge_kernels_carry(splits, kw, k):
@@ -701,13 +721,156 @@ def test_merge_splits_plain_is_the_merge_kernels_carry(splits, kw, k):
         idx[s] = np.where(idx[s] < 0, -1, idx[s] + s * 10 ** 6)
     got_k, got_i = kk.merge_splits_plain(_t(key.ravel()), _t(idx.astype(
         np.int32).ravel()), nq, splits, k)
-    for r in range(nq):
-        carry = [(empty, -1)] * kw
-        for s in range(splits):
-            for j in range(kw):
-                if not key[s, r, j] < carry[-1][0]:
-                    break
-                carry = sorted(carry[:-1] + [(key[s, r, j], idx[s, r, j])],
-                               key=lambda e: e[0])
-        assert got_k[r].tolist() == [e[0] for e in carry[:k]]
-        assert got_i[r].tolist() == [e[1] for e in carry[:k]]
+    for r, carry in enumerate(_carry_merge(key, idx, k, empty)):
+        assert got_k[r].tolist() == [e[0] for e in carry]
+        assert got_i[r].tolist() == [e[1] for e in carry]
+
+
+#: keys that sit on the empty slots' edges
+EDGE_KEYS = np.array([0, 1, kk.SENTINEL - 1, kk.SENTINEL, kk.SENTINEL + 1,
+                      kk.INF_BITS - 1, kk.INF_BITS, kk.INF_BITS + 1],
+                     dtype=np.int64)
+
+
+def _split_lists(rng, splits, nq, kw, empty, keys, empty_queries=()):
+    """Lists [splits, nq, kw] as the partial kernel leaves them: each
+    sorted by (key, column), columns rising by split, a key >= empty
+    (signed) only as (empty, -1) at its end; `keys` draws the candidate
+    keys: "ties" (a few small values, so equal keys meet across splits
+    and lanes), "signed" (the sign bit set on half of them) or "edges"
+    (EDGE_KEYS). The queries in empty_queries get only empty slots."""
+    shape = (splits, nq, kw)
+    if keys == "ties":
+        key = rng.integers(0, 6, shape)
+    elif keys == "signed":
+        key = rng.integers(-2 ** 31, 2 ** 31, shape)
+        key[rng.random(shape) < 0.05] = -2 ** 31
+    else:
+        key = rng.choice(EDGE_KEYS, shape)
+    col = rng.integers(0, 1000, shape) + 1000 * np.arange(splits)[:, None,
+                                                                    None]
+    order = np.lexsort((col, key), axis=-1)
+    key = np.take_along_axis(key, order, -1)
+    col = np.take_along_axis(col, order, -1)
+    gone = key >= empty
+    gone[:, list(empty_queries)] = True
+    key[gone], col[gone] = empty, -1
+    return key.astype(np.int32), col.astype(np.int32)
+
+
+GROUP_CASES = [
+    # (splits, K, k, group, empty, keys)
+    *[(splits, 16, 13, g, kk.INF_BITS, "ties") for splits in (40, 65)
+      for g in (8, 16, 32)],
+    (33, 8, 5, 32, kk.SENTINEL, "ties"),     # the bench's splits
+    (6, 8, 5, 8, kk.INF_BITS, "ties"),       # the job's splits
+    (65, 64, 64, 32, kk.INF_BITS, "signed"),
+    (40, 32, 32, 32, kk.INF_BITS, "signed"),
+    (7, 8, 8, 8, kk.INF_BITS, "edges"),
+    (33, 16, 16, 32, kk.SENTINEL, "edges"),
+    (1, 64, 50, 8, kk.SENTINEL, "ties"),
+]
+
+
+@pytest.mark.parametrize("splits,kw,k,group,empty,keys", GROUP_CASES)
+def test_group_merge_is_the_plain_merge_and_the_carry(splits, kw, k, group,
+                                                      empty, keys):
+    """The model of the merge kernels' group merge equals the plain merge
+    and the first merge kernels' carry, key and index: across lanes that
+    own several splits and batches of them, on ties across lanes and
+    within one, keys with the sign bit set, keys at SENTINEL and INF_BITS,
+    k below the carry width, and queries whose lists are all empty."""
+    rng = np.random.default_rng(splits * kw + group)
+    nq = 12
+    key, idx = _split_lists(rng, splits, nq, kw, empty, keys, (0, 7))
+    pk, pi = _t(key.ravel()), _t(idx.ravel())
+    got_k, got_i = kk.merge_splits_group_plain(pk, pi, nq, splits, k, group,
+                                               empty)
+    want_k, want_i = kk.merge_splits_plain(pk, pi, nq, splits, k)
+    assert torch.equal(got_k, want_k) and torch.equal(got_i, want_i)
+    for r, carry in enumerate(_carry_merge(key, idx, k, empty)):
+        assert got_k[r].tolist() == [e[0] for e in carry]
+        assert got_i[r].tolist() == [e[1] for e in carry]
+    assert (got_k[[0, 7]] == empty).all() and (got_i[[0, 7]] == -1).all()
+
+
+def _group_vote(key, group, label_mask, n_classes, n_attrs, metric,
+                kernel_fn, kernel_param):
+    """The merge-and-vote kernel's epilogue (knn_classify.cu merge_vote)
+    on merged label keys [nq, k]: lane l of the group holds slots
+    j * group + l and scores each as _vote does (an empty slot 0); each
+    lane sums its slots of a class in slot order, then the group sums the
+    lanes by the xor butterfly of knn::group_sum, all in float32."""
+    nq, k = key.shape
+    valid = key < kk.SENTINEL
+    dist = kk._average((key & ~label_mask).view(torch.float32), metric,
+                       n_attrs)
+    score = torch.where(valid, kk.kernel_score(dist, kernel_fn, kernel_param),
+                        0.0)
+    out = torch.zeros((nq, n_classes), dtype=torch.float32)
+    for c in range(n_classes):
+        hit = valid & ((key & label_mask) == c)
+        lanes = torch.zeros((nq, group), dtype=torch.float32)
+        for r in range(k):
+            lanes[:, r % group] += torch.where(hit[:, r], score[:, r], 0.0)
+        o = group // 2
+        while o:
+            lanes = lanes + lanes[:, torch.arange(group) ^ o]
+            o //= 2
+        out[:, c] = lanes[:, 0]
+    return out
+
+
+#: (kernel_fn, metric, kernel_param, sign-bit NaN keys): every kernel
+#: function at 30; gaussian at 0, NaN on a zero distance; NaN distances
+#: under manhattan with the kernels whose score of a NaN is NaN
+VOTE_CASES = [
+    *[(fn, metric, 30.0, False) for fn in kk.KERNEL_FNS
+      for metric in ("euclidean", "manhattan")],
+    ("gaussian", "euclidean", 0.0, False),
+    ("gaussian", "manhattan", 0.0, False),
+    ("none", "manhattan", 30.0, True),
+    ("gaussian", "manhattan", 30.0, True),
+    ("gaussian", "manhattan", 0.0, True),
+]
+
+
+@pytest.mark.parametrize("kernel_fn,metric,kernel_param,nan", VOTE_CASES)
+@pytest.mark.parametrize("splits,k,group", [(6, 5, 8), (12, 9, 16),
+                                            (33, 5, 32), (65, 16, 32)])
+def test_vote_of_group_merged_keys_is_bit_equal(kernel_fn, metric,
+                                                kernel_param, nan, splits, k,
+                                                group):
+    """The kernel's vote over the group merge's label keys (_group_vote:
+    per-lane scores, per-lane sums, the group's butterfly) equals _vote
+    over the carry's keys bit for bit, for every kernel function, and is
+    NaN wherever _vote is: gaussian at kernel_param 0 on zero distances,
+    and keys of a NaN with the sign bit set."""
+    rng = np.random.default_rng(splits + k)
+    nq, kw, n_classes = 16, kk._carry_width(k), 3
+    mask = (1 << kk.label_bits(n_classes)) - 1
+    dists = [0.0, 0.004, 0.25, 0.5, 1.0, 3.0, 40.0, 3e38]
+    if nan:
+        dists.append(np.uint32(0xFFC00000).view(np.float32))
+    dist = rng.choice(np.float32(dists), (splits, nq, kw))
+    key = (dist.view(np.int32).astype(np.int64) & ~mask) | rng.integers(
+        0, n_classes, dist.shape)
+    col = rng.integers(0, 1000, key.shape) + 1000 * np.arange(splits)[
+        :, None, None]
+    order = np.lexsort((col, key), axis=-1)
+    key = np.take_along_axis(key, order, -1)
+    col = np.take_along_axis(col, order, -1)
+    gone = key >= kk.SENTINEL
+    key[gone], col[gone] = kk.SENTINEL, -1
+    pk, pi = _t(key.astype(np.int32).ravel()), _t(col.astype(np.int32).ravel())
+    got = kk.merge_splits_group_plain(pk, pi, nq, splits, k, group,
+                                      kk.SENTINEL)[0]
+    carry = _t(np.array([[e[0] for e in row] for row in _carry_merge(
+        key, col, k, kk.SENTINEL)], dtype=np.int32))
+    args = (mask, n_classes, 6, metric, kernel_fn, kernel_param)
+    model, want = _group_vote(got, group, *args), kk._vote(carry, *args)
+    assert torch.equal(model.isnan(), want.isnan())
+    assert torch.equal(model.nan_to_num(0.0).view(torch.int32),
+                       want.nan_to_num(0.0).view(torch.int32))
+    if kernel_fn == "gaussian" and (kernel_param == 0.0 or nan):
+        assert want.isnan().any()

@@ -320,6 +320,108 @@ def test_bind_skips_entries_an_earlier_build_lacks():
         _build.bind(Broken(), "knn_topk")
 
 
+def test_knn_ab_merge_lists_cover_the_paths_and_every_width():
+    """The merge rows run on the job's lists (D=6 manhattan float32, k=5,
+    exact), the bench's (D=128 euclidean bfloat16, k=5, lanes) and lists
+    of every carry width."""
+    from avenir_tpu_torch.tools import knn_ab
+
+    lists = {name: rest for name, *rest in knn_ab.MERGE_LISTS}
+    assert lists["job"] == [6, "manhattan", "float32", knn_ab.K, "exact"]
+    assert lists["bench"] == [128, "euclidean", "bfloat16", knn_ab.K,
+                              "lanes"]
+    assert {kk._carry_width(k) for *_, k, _ in lists.values()} == \
+        {8, 16, 32, 64}
+
+
+def test_knn_ab_row_times_by_its_timer_in_turns():
+    """A merge row is timed by its own timer (the device's time), in the
+    turns earlier, current, current, earlier."""
+    from avenir_tpu_torch.tools import knn_ab
+
+    calls, lines = [], []
+    old, new = (lambda: [torch.ones(3)]), (lambda: [torch.ones(3)])
+
+    def timer(fn, reps):
+        calls.append("earlier" if fn is old else "current")
+        return 0.004 if fn is old else 0.002
+    row = knn_ab.ab_row(old, new, 3, lines.append, timer=timer, d=6,
+                        metric="manhattan", mode="merge_topk", dtype="float32")
+    assert calls == ["earlier", "current", "current", "earlier"]
+    assert row["agree"] and row["ratio"] == pytest.approx(2.0)
+    assert lines == ["same D=6 manhattan merge_topk float32: earlier 0.00400 "
+                     "ms (0.00400, 0.00400), current 0.00200 ms (0.00200, "
+                     "0.00200), x2.00"]
+
+
+def test_bind_declares_the_merge_entries():
+    """The merge instances' info entries, the merges' layout and the
+    launch floor are bound with their argument types where a library has
+    them."""
+    import ctypes
+
+    from avenir_tpu_torch.ops import _build
+
+    class Entry:
+        pass
+
+    class Current:
+        knn_topk_launch = Entry()
+        knn_topk_merge_info = Entry()
+        knn_merge_layout = Entry()
+        knn_merge_floor_launch = Entry()
+
+    lib = _build.bind(Current(), "knn_topk")
+    for name in ("knn_topk_merge_info", "knn_merge_layout",
+                 "knn_merge_floor_launch"):
+        assert getattr(lib, name).argtypes == _build.INFO["knn_topk"][name]
+        assert getattr(lib, name).restype is ctypes.c_int
+
+
+@pytest.mark.parametrize("vote", [False, True])
+def test_merge_info_reads_the_instance_or_raises(vote):
+    """merge_info asks the library's merge_info entry for the instance of
+    k's carry width and raises on a CUDA error."""
+    name = "knn_classify_merge_info" if vote else "knn_topk_merge_info"
+
+    class Lib:
+        def __init__(self, err):
+            self.err, self.ks = err, []
+
+        def __getattr__(self, entry):
+            assert entry == name
+
+            def info(k, out):
+                self.ks.append(k)
+                out[0], out[1], out[2] = 5, 47, 0
+                return self.err
+            return info
+    lib = Lib(0)
+    assert kk.merge_info(13, vote, lib) == (5, 47, 0) and lib.ks == [13]
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        kk.merge_info(5, vote, Lib(98))
+
+
+def test_merge_layout_reads_the_library_or_raises():
+    """merge_layout gives the group, blocks, threads and lists a lane that
+    the library's knn_merge_layout reports for (nq, splits), and raises on
+    a CUDA error."""
+    class Lib:
+        def __init__(self, err):
+            self.err, self.calls = err, []
+
+        def knn_merge_layout(self, nq, splits, out):
+            self.calls.append((nq, splits))
+            out[0], out[1], out[2], out[3] = 32, 1024, 256, 2
+            return self.err
+    lib = Lib(0)
+    assert kk.merge_layout(8192, 33, lib) == dict(group=32, blocks=1024,
+                                                  threads=256, own=2)
+    assert lib.calls == [(8192, 33)]
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        kk.merge_layout(8192, 6, Lib(1))
+
+
 # -------------------------------------------------------------- ceiling_ab
 def test_ceiling_ab_raises_without_a_device(monkeypatch, tmp_path):
     from avenir_tpu_torch.tools import ceiling_ab
