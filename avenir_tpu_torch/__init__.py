@@ -8,10 +8,12 @@ kernel on a ported path is a CUDA kernel written by hand (`ops/csrc/`).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU present and no device given they raise instead of degrading.
 
-Ported so far: the `nearestNeighbor`, `bayesianDistr` and
-`bayesianPredictor` jobs (`runner.run_job`, or
-``python -m avenir_tpu_torch <job> --conf P IN... OUT``), and the tools
-`kernel_check`, `knn_sweep` and `bench` (`python -m avenir_tpu_torch.tools.<tool>`).
+Ported so far: the `nearestNeighbor`, `bayesianDistr`, `bayesianPredictor`,
+`recordSimilarity`, `groupedRecordSimilarity` and `featureCondProbJoiner`
+jobs (`runner.run_job`, or
+``python -m avenir_tpu_torch <job> --conf P IN... OUT``), `runner.Pipeline`
+and `pipelines.knn_pipeline`, and the tools `kernel_check`, `knn_sweep` and
+`bench` (`python -m avenir_tpu_torch.tools.<tool>`).
 """
 
 __version__ = "0.1.0"

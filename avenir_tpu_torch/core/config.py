@@ -104,6 +104,11 @@ class JobConfig:
             return default
         return [tok.strip() for tok in val.split(delim) if tok.strip() != ""]
 
+    def get_float_list(self, key: str, default: Optional[List[float]] = None,
+                       delim: str = ",") -> Optional[List[float]]:
+        toks = self.get_list(key, None, delim)
+        return [float(t) for t in toks] if toks is not None else default
+
     # ------------------------------------------------------ required getters
     def _require(self, key: str, val: Any, what: str) -> Any:
         if val is None:

@@ -154,6 +154,14 @@ class Dataset:
             return np.zeros((self.n_rows, 0), dtype=np.float32)
         return np.stack(cols, axis=1)
 
+    def take(self, idx: np.ndarray) -> "Dataset":
+        """Row subset (a numpy fancy index)."""
+        idx = np.asarray(idx)
+        cols = {o: c[idx] for o, c in self.columns.items()}
+        raw = ([self.raw_rows[i] for i in idx] if self.raw_rows is not None
+               else None)
+        return Dataset(self.schema, cols, int(idx.shape[0]), raw)
+
     def __len__(self) -> int:
         return self.n_rows
 

@@ -99,6 +99,11 @@ class FeatureField:
             return int((float(raw) - lo) // self.bucket_width)
         raise ValueError(f"field {self.name!r} is not dense-encodable")
 
+    def decode_value(self, code: int) -> str:
+        if self.is_categorical:
+            return self.cardinality[code]
+        raise ValueError(f"field {self.name!r} is not categorical")
+
     # ------------------------------------------------------------------- json
     @classmethod
     def from_json(cls, obj: Dict[str, Any]) -> "FeatureField":

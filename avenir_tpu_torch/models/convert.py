@@ -50,7 +50,7 @@ def index_from_jax_arrays(arrays: Dict[str, Optional[np.ndarray]],
     x_cat = None if t_cat is None else np.asarray(t_cat, np.int32)[:n_valid]
     index = NeighborIndex.__new__(NeighborIndex)
     index._setup(t_num, ranges, x_cat, bins, n_valid, k, metric,
-                 int(meta["block"]), False, bool(meta["packed"]),
+                 int(meta["block"]), bool(meta["packed"]),
                  resolve_device(device))
     return index
 

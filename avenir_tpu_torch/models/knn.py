@@ -11,9 +11,10 @@ manhattan metric go to the top-k kernels (categoricals one-hot expanded by
 `_expand_mixed`); `packed=True` takes the lane-packed kernel and
 `fused=True` the in-kernel vote. Another metric, or no features, goes to
 the plain-torch `ops.distance.blocked_topk_neighbors`, as in JAX
-knn.py:168-172. Shapes the kernels do not take (k above `KMAX`, more
-expanded columns than `MAX_D`, more than 64 classes) raise in the kernel
-wrappers.
+knn.py:168-172. Class-conditional weighting never fuses (JAX knn.py:342):
+it composes the exact top-k with `_vote`. Shapes the kernels do not take
+(k above `KMAX`, more expanded columns than `MAX_D`, more than 64
+classes) raise in the kernel wrappers.
 
 Vote scores follow Neighborhood.processClassDitribution
 (Neighborhood.java:150-218) with KERNEL_SCALE=100 and int-floored scores:
@@ -36,6 +37,8 @@ import torch.nn.functional as F
 
 from avenir_tpu_torch.core.dataset import (Dataset, extract_mixed_features,
                                            pad_rows)
+from avenir_tpu_torch.models.naive_bayes import (NaiveBayesModel,
+                                                 NaiveBayesPredictor)
 from avenir_tpu_torch.ops.distance import blocked_topk_neighbors, pad_train
 from avenir_tpu_torch.ops.knn_kernels import (LANE_CORPUS_CAP, kernel_score,
                                               knn_classify_lanes, knn_topk,
@@ -100,10 +103,12 @@ class NeighborIndex:
                  packed: bool = False, device: DeviceLike = None):
         """packed=True opts into the lane-packed kernel: distances are
         quantized to ~2^-13 relative, which can reorder near-tied
-        neighbours."""
+        neighbours. approx=True selects exactly (see
+        `ops.distance.blocked_topk_neighbors`), on the kernels where they
+        apply."""
         x_num, ranges, x_cat, bins = extract_mixed_features(train)
         self._setup(x_num, ranges, x_cat, bins, len(train), k, metric, block,
-                    approx, packed, resolve_device(device))
+                    packed, resolve_device(device))
 
     @classmethod
     def from_expanded(cls, x: np.ndarray, n_attrs: int, ranges: np.ndarray,
@@ -127,11 +132,8 @@ class NeighborIndex:
         self._set_kernel_train(np.ascontiguousarray(x, np.float32), packed)
         return self
 
-    def _setup(self, x_num, ranges, x_cat, bins, n, k, metric, block, approx,
+    def _setup(self, x_num, ranges, x_cat, bins, n, k, metric, block,
                packed, device: torch.device) -> None:
-        if approx:
-            raise NotImplementedError(
-                "approx=True (approximate top-k) is not ported yet")
         self.device = device
         # the reference takes "the first topMatchCount values": a train
         # set smaller than k just yields all of it
@@ -224,22 +226,27 @@ class NearestNeighborClassifier:
                  decision_threshold: float = -1.0,
                  positive_class: Optional[str] = None,
                  metric: str = "manhattan", block: int = 4096,
+                 nb_model: Optional[NaiveBayesModel] = None,
                  approx: bool = False, fused: bool = False,
                  packed: bool = False, device: DeviceLike = None):
         """fused=True opts into the in-kernel vote for the
         non-class-conditional modes (distances quantized ~2^-21, ties
         biased toward lower class codes); packed=True opts the top-k into
         the lane-packed kernel. The default composes the exact top-k with
-        `_vote`."""
-        if class_cond_weighted:
-            raise NotImplementedError(
-                f"class-conditional weighting ({CLASS_COND_KEY}=true) needs "
-                f"the Naive Bayes model, which is not ported yet")
+        `_vote`, as class-conditional weighting always does. That mode
+        weights each train row by P(its features | its class) from
+        `nb_model`, or from a Naive Bayes model fitted on `train`."""
         index = NeighborIndex(train, k=top_match_count, metric=metric,
                               block=block, approx=approx, packed=packed,
                               device=device)
-        self._setup(index, train.labels(), train.schema.class_values(), None,
-                    kernel_function, kernel_param, False,
+        post = None
+        if class_cond_weighted:
+            model = (nb_model if nb_model is not None
+                     else NaiveBayesModel.fit(train, device=index.device))
+            post = NaiveBayesPredictor(model).feature_prob(train).astype(
+                np.float32)
+        self._setup(index, train.labels(), train.schema.class_values(), post,
+                    kernel_function, kernel_param, class_cond_weighted,
                     inverse_distance_weighted, decision_threshold,
                     positive_class, fused)
 

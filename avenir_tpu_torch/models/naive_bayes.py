@@ -16,7 +16,9 @@ The JAX package carries both with XLA ops (a one-hot einsum), no Pallas
 kernel, so plain torch ops carry them here, on the device the model names:
 - counting: one `torch.bincount` over a flat (feature, class, bin) key for
   unweighted counts with no continuous field; `index_add_` in float32 per
-  batch, folded in float64 on the host, for weights or moments;
+  batch, folded in float64 on the host, for weights or moments, the
+  moments of two or more continuous fields summed in the order of XLA's
+  CPU dot (`_xla_cpu_row_sum`), the same bits on the CPU and the card;
 - predicting: a gather of `log_post[f, :, code_f]` summed over f in
   ascending order in float32 (the order of the JAX einsum's sum, and no
   matrix product whose precision a TF32 setting could change).
@@ -354,11 +356,63 @@ def _count_batch(codes, labels, x_cont, k: int, bmax: int, weights,
     post = torch.zeros(f * k * bmax, dtype=torch.float32, device=device)
     post.index_add_(0, key, w[:, None].expand(n, f).reshape(-1))
     trip = torch.stack([torch.ones_like(x), x, x * x], dim=-1)   # [n, Fc, 3]
-    ckey = (torch.arange(fc, device=device)[None, :] * k + y[:, None]).reshape(-1)
-    mom = torch.zeros((fc * k, 3), dtype=torch.float32, device=device)
-    mom.index_add_(0, ckey, (w[:, None, None] * trip).reshape(-1, 3))
+    if fc > 1:
+        # [n, K, Fc, 3]: a row's terms in its class, zeros in the others,
+        # as the JAX einsum's one-hot product has them
+        terms = ((y[:, None] == torch.arange(k, device=device)[None, :])
+                 .to(torch.float32) * w[:, None])[:, :, None, None] \
+            * trip[:, None]
+        mom = _xla_cpu_row_sum(terms).permute(1, 0, 2)
+    else:
+        # one continuous field: XLA's CPU dot sums the rows in order, as
+        # index_add_ does on the CPU (on the card, in its atomics' order)
+        ckey = (torch.arange(fc, device=device)[None, :] * k
+                + y[:, None]).reshape(-1)
+        mom = torch.zeros((fc * k, 3), dtype=torch.float32, device=device)
+        mom.index_add_(0, ckey, (w[:, None, None] * trip).reshape(-1, 3))
+        mom = mom.reshape(fc, k, 3)
     cls = torch.zeros(k, dtype=torch.float32, device=device).index_add_(0, y, w)
-    return post.reshape(f, k, bmax), mom.reshape(fc, k, 3), cls
+    return post.reshape(f, k, bmax), mom, cls
+
+
+#: rows per block of XLA's CPU dot over a long contraction
+_DOT_BLOCK = 8192
+
+
+def _xla_cpu_row_sum(terms: torch.Tensor) -> torch.Tensor:
+    """Sum over the rows of `terms` [n, ...] in float32, in the order
+    XLA's CPU dot takes for the moments of two or more continuous fields
+    (found by probing the JAX package's einsum on the CPU, with two and
+    three classes): blocks of 8192 rows, added in order, each the sum of
+    four running sums over its rows i % 4 = 0..3, combined as (s0 + s1)
+    + (s2 + s3); then the last n % 4 rows, summed in order, added.
+    Only elementwise adds, so the bits are the same on the CPU and the
+    card, and no matrix product whose precision a setting could change.
+    One add a step over n / 4 steps at most 2048 a block (all blocks
+    at once)."""
+    n = terms.shape[0]
+    rest = terms.shape[1:]
+    n_blocks = max(1, -(-n // _DOT_BLOCK))
+    last = n - (n_blocks - 1) * _DOT_BLOCK
+    main = (n_blocks - 1) * _DOT_BLOCK + last // 4 * 4
+    # zero rows pad the lanes of the last block: x + 0 is x
+    lanes = torch.zeros((n_blocks * _DOT_BLOCK,) + rest, dtype=terms.dtype,
+                        device=terms.device)
+    lanes[:main] = terms[:main]
+    lanes = lanes.reshape((n_blocks, _DOT_BLOCK // 4, 4) + rest)
+    steps = _DOT_BLOCK // 4 if n_blocks > 1 else main // 4
+    acc = torch.zeros((n_blocks, 4) + rest, dtype=terms.dtype,
+                      device=terms.device)
+    for j in range(steps):
+        acc = acc + lanes[:, j]
+    block = (acc[:, 0] + acc[:, 1]) + (acc[:, 2] + acc[:, 3])
+    tail = torch.zeros(rest, dtype=terms.dtype, device=terms.device)
+    for i in range(main, n):
+        tail = tail + terms[i]
+    total = block[0]
+    for b in range(1, n_blocks):
+        total = total + block[b]
+    return total + tail
 
 
 def _log_gauss(x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor

@@ -22,15 +22,21 @@ namespace {
 
 enum KernelFn { NONE = 0, LINEAR_MULT = 1, LINEAR_ADD = 2, GAUSSIAN = 3 };
 
+// max(a, b) that is NaN when a is, as jnp.maximum and torch.clamp are;
+// fmaxf would return b
+__device__ __forceinline__ float max_keep_nan(float a, float b) {
+  return a >= b || a != a ? a : b;
+}
+
 // pallas_knn._kernel_score on the final attribute-averaged distance
 __device__ __forceinline__ float kernel_score(float dist, int fn,
                                               float param) {
   const float d = floorf(dist * 100.f);
   switch (fn) {
     case LINEAR_MULT:
-      return d == 0.f ? 200.f : floorf(100.f / fmaxf(d, 1.f));
+      return d == 0.f ? 200.f : floorf(100.f / max_keep_nan(d, 1.f));
     case LINEAR_ADD:
-      return fmaxf(100.f - d, 0.f);
+      return max_keep_nan(100.f - d, 0.f);
     case GAUSSIAN: {
       const float u = d / param;
       return floorf(100.f * expf(-0.5f * u * u));
@@ -66,7 +72,7 @@ __device__ __forceinline__ void merge_vote(const int* __restrict__ part_key,
       const float d2 = __int_as_float(key[j] & ~label_mask);
       // times the fp32 reciprocal of the attribute count, as XLA compiles
       // the reference's division by that constant
-      const float dist = euclid ? sqrtf(fmaxf(d2, 0.f) * inv_attrs)
+      const float dist = euclid ? sqrtf(max_keep_nan(d2, 0.f) * inv_attrs)
                                 : d2 * inv_attrs;
       points[j] = kernel_score(dist, kernel_fn, kernel_param);
     }

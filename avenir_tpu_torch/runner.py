@@ -2,11 +2,15 @@
 
 The port of the job registry of `avenir_tpu/runner.py`, with the jobs
 ported so far: `nearestNeighbor` (org.avenir.knn.NearestNeighbor),
-`bayesianDistr` (org.avenir.bayesian.BayesianDistribution) and
-`bayesianPredictor` (org.avenir.bayesian.BayesianPredictor). A job reads
-the reference's namespaced keys (`nen.*`, `bad.*`, `bap.*`) from one flat
-properties file and runs in-process on the device the caller names —
-``cuda`` unless ``device="cpu"`` is passed.
+`bayesianDistr` (org.avenir.bayesian.BayesianDistribution),
+`bayesianPredictor` (org.avenir.bayesian.BayesianPredictor),
+`recordSimilarity` (sifarish SameTypeSimilarity), `groupedRecordSimilarity`
+and `featureCondProbJoiner` (org.avenir.knn.FeatureCondProbJoiner), and
+`Stage` / `Pipeline`, which chain them as the reference's shell drivers
+did. A job reads the reference's namespaced keys (`nen.*`, `bad.*`,
+`bap.*`, `sts.*`, `grs.*`, `fcb.*`) from one flat properties file and runs
+in-process on the device the caller names — ``cuda`` unless
+``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from avenir_tpu_torch.core.config import JobConfig, load_properties
+from avenir_tpu_torch.core.config import (JobConfig, MissingConfigError,
+                                          load_properties)
 from avenir_tpu_torch.core.dataset import Dataset
 from avenir_tpu_torch.core.schema import FeatureSchema
 from avenir_tpu_torch.utils.devices import DeviceLike, resolve_device
@@ -92,6 +97,11 @@ def _out_file(output: str, part: str = "part-r-00000") -> str:
 
 def _schema(cfg: JobConfig) -> FeatureSchema:
     return FeatureSchema.from_file(cfg.assert_get("feature.schema.file.path"))
+
+
+def _read_lines(path: str) -> List[str]:
+    with open(path) as fh:
+        return [ln.rstrip("\n") for ln in fh if ln.strip()]
 
 
 # =================================================================== bayesian
@@ -299,6 +309,221 @@ def nearest_neighbor(cfg: JobConfig, inputs: List[str], output: str,
                 cm.add(test.labels(), codes)
     counters: Dict[str, float] = cm.counters() if cm is not None else {}
     return JobResult("nearestNeighbor", counters, [out])
+
+
+# ================================================================= similarity
+def _similarity_schema(cfg: JobConfig) -> FeatureSchema:
+    """The schema under any of the reference's three key spellings:
+    `feature.schema.file.path`, sifarish `same.schema.file.path` or spark
+    `rich.attr.schema.path`."""
+    for key in ("feature.schema.file.path", "same.schema.file.path",
+                "rich.attr.schema.path"):
+        path = cfg.get(key)
+        if path:
+            return FeatureSchema.from_file(path)
+    raise MissingConfigError(
+        f"missing schema config param: {cfg.prefix}.feature.schema.file.path")
+
+
+@job("recordSimilarity", "sts", "sameTypeSimilarity",
+     "org.avenir.spark.similarity.RecordSimilarity")
+def record_similarity(cfg: JobConfig, inputs: List[str], output: str,
+                      device: torch.device) -> JobResult:
+    """All-pairs record distance file (the sifarish stage of
+    resource/knn.sh:44-57, RecordSimilarity.scala:34). One input: the
+    i < j pairs of it; two inputs (or sts.inter.set.matching=true): the
+    cross pairs. Rows: id1,id2,scaled-int-distance."""
+    from avenir_tpu_torch.models.similarity import RecordSimilarity
+
+    schema = _similarity_schema(cfg)
+    delim = cfg.field_delim_regex
+    sim = RecordSimilarity(
+        metric=cfg.get("distance.metric", "manhattan"),
+        scale=cfg.get_int("distance.scale", 1000),
+        num_weights=cfg.get_float_list("num.attribute.weights"),
+        cat_weights=cfg.get_float_list("cat.attribute.weights"),
+        device=device)
+    out = _out_file(output)
+    id_first = cfg.get_bool("output.id.first", True)
+    if cfg.get_bool("inter.set.matching", len(inputs) > 1):
+        pairs = sim.inter(Dataset.from_csv(inputs[0], schema, delim=delim),
+                          Dataset.from_csv(inputs[-1], schema, delim=delim))
+    else:
+        pairs = sim.intra(Dataset.from_csv(inputs[0], schema, delim=delim))
+    n = sim.save(pairs, out, delim=cfg.field_delim, id_first=id_first)
+    return JobResult("recordSimilarity", {"Similarity:Pairs": n}, [out])
+
+
+@job("groupedRecordSimilarity", "grs",
+     "org.avenir.spark.similarity.GroupedRecordSimilarity")
+def grouped_record_similarity(cfg: JobConfig, inputs: List[str], output: str,
+                              device: torch.device) -> JobResult:
+    """Within-group pair distances (GroupedRecordSimilarity.scala:29),
+    groups by `grs.group.field.ordinals`. Rows: group key fields, id1,
+    id2, scaled-int-distance."""
+    from avenir_tpu_torch.models.similarity import GroupedRecordSimilarity
+
+    schema = _similarity_schema(cfg)
+    ds = Dataset.from_csv(inputs[0], schema, delim=cfg.field_delim_regex)
+    sim = GroupedRecordSimilarity(
+        [int(o) for o in cfg.assert_list("group.field.ordinals")],
+        metric=cfg.get("distance.metric", "manhattan"),
+        scale=cfg.get_int("distance.scale", 1000), device=device)
+    out = _out_file(output)
+    delim = cfg.field_delim
+    n = 0
+    with open(out, "w") as fh:
+        for key, id1, id2, d in sim.grouped_intra(ds):
+            sd = int(round(d * sim.scale))
+            fh.write(delim.join([*key, id1, id2, str(sd)]) + "\n")
+            n += 1
+    return JobResult("groupedRecordSimilarity", {"Similarity:Pairs": n},
+                     [out])
+
+
+@job("featureCondProbJoiner", "fcb", "org.avenir.knn.FeatureCondProbJoiner")
+def feature_cond_prob_joiner(cfg: JobConfig, inputs: List[str], output: str,
+                             device: torch.device) -> JobResult:
+    """Stage (4) of resource/knn.sh (FeatureCondProbJoiner.java:46): the
+    distance file (`id1,id2,dist` as its last fields) joined on the train
+    entity with the feature posterior file (`id,prob` rows, the
+    bap.output.feature.prob.only output). The posterior files are the
+    inputs whose name starts with fcb.feature.cond.prob.split.prefix
+    (default condProb), else the last input. Rows:
+    testId,trainId,distance,trainFeaturePostProb. Host work only."""
+    # both inputs are outputs of other jobs: split on the output delimiter
+    delim = cfg.field_delim
+    prefix = cfg.get("feature.cond.prob.split.prefix", "condProb")
+    prob_files = [p for p in inputs if os.path.basename(p).startswith(prefix)]
+    dist_files = [p for p in inputs if p not in prob_files]
+    if not prob_files:
+        prob_files, dist_files = [inputs[-1]], inputs[:-1]
+    probs: Dict[str, str] = {}
+    for p in prob_files:
+        for ln in _read_lines(p):
+            toks = [t.strip() for t in ln.split(delim)]
+            probs[toks[0]] = toks[-1]
+    # the distance file's column order is the similarity job's key
+    id_first = cfg.scoped("sts").get_bool("output.id.first", True)
+    out = _out_file(output)
+    n = 0
+    with open(out, "w") as fh:
+        for p in dist_files:
+            for ln in _read_lines(p):
+                toks = [t.strip() for t in ln.split(delim)]
+                if id_first:
+                    id1, id2, dist = toks[-3], toks[-2], toks[-1]
+                else:
+                    dist, id1, id2 = toks[-3], toks[-2], toks[-1]
+                pr = probs.get(id2)
+                if pr is None and id1 in probs:
+                    # a row may carry (test, train) in either order
+                    id1, id2 = id2, id1
+                    pr = probs[id2]
+                if pr is None:
+                    continue
+                fh.write(delim.join([id1, id2, dist, pr]) + "\n")
+                n += 1
+    return JobResult("featureCondProbJoiner", {"Join:Pairs": n}, [out])
+
+
+# =================================================================== pipeline
+#: the jobs the reference's Pipeline(fuse=True) runs as one shared scan
+#: (run_shared; JAX runner.py:1069-1077); of them the port has
+#: bayesianDistr, and not run_shared
+_SHARED_SCAN_JOBS = frozenset((
+    "bayesianDistr", "mutualInformation", "fisherDiscriminant",
+    "markovStateTransitionModel", "frequentItemsApriori",
+    "candidateGenerationWithSelfJoin"))
+
+
+@dataclass
+class Stage:
+    name: str
+    job: str
+    inputs: List[str]
+    output: str
+    conf_overrides: Dict[str, str] = field(default_factory=dict)
+
+
+class Pipeline:
+    """The resource/*.sh drivers: named stages over one shared properties
+    file, each stage's `conf_overrides` over it; a stage's output feeds
+    later stages by path (knn.sh's five stages, SURVEY §3.3). Runs every
+    stage, or the one named by `run(only=)`, on `device` (default cuda).
+
+    A failed stage re-runs up to `mapreduce.map.maxattempts` times
+    (default 2; every job rewrites its outputs from its inputs, so a
+    retry is a Hadoop task re-attempt); `on_retry(stage, attempt, exc)`
+    is called before each retry."""
+
+    def __init__(self, conf, stages: Sequence[Stage], on_retry=None,
+                 device: DeviceLike = None):
+        self.props = (load_properties(conf) if isinstance(conf, str)
+                      else dict(conf))
+        self.stages = list(stages)
+        self.results: Dict[str, JobResult] = {}
+        self.max_attempts = max(
+            int(self.props.get("mapreduce.map.maxattempts", "2")), 1)
+        self.on_retry = on_retry
+        self.attempts: Dict[str, int] = {}
+        self.device = resolve_device(device)
+
+    def _stage_props(self, st: Stage) -> Dict[str, str]:
+        props = dict(self.props)
+        props.update(st.conf_overrides)
+        return props
+
+    def _run_stage(self, st: Stage) -> None:
+        for attempt in range(1, self.max_attempts + 1):
+            self.attempts[st.name] = attempt
+            try:
+                self.results[st.name] = run_job(
+                    st.job, self._stage_props(st), st.inputs, st.output,
+                    device=self.device)
+                break
+            except Exception as exc:
+                if attempt >= self.max_attempts:
+                    raise
+                if self.on_retry is not None:
+                    self.on_retry(st.name, attempt, exc)
+
+    @staticmethod
+    def _shared_scan_job(st: Stage) -> Optional[str]:
+        name = _REGISTRY[st.job][0] if st.job in _REGISTRY else st.job
+        return name if name in _SHARED_SCAN_JOBS else None
+
+    def _check_no_shared_scan(self, stages: Sequence[Stage]) -> None:
+        """Raise where the reference's fuse=True would run consecutive
+        stages on the same inputs as one shared scan (run_shared)."""
+        for i, st in enumerate(stages):
+            group = [st]
+            seen = {self._shared_scan_job(st)}
+            for nxt in stages[i + 1:]:
+                name = self._shared_scan_job(nxt)
+                if (None in seen or name is None or name in seen
+                        or nxt.inputs != st.inputs):
+                    break
+                group.append(nxt)
+                seen.add(name)
+            if len(group) >= 2:
+                raise NotImplementedError(
+                    "fuse=True would run stages "
+                    + "+".join(g.name for g in group) + " as one shared "
+                    "scan (run_shared), which is not ported yet")
+
+    def run(self, only: Optional[str] = None,
+            fuse: bool = False) -> Dict[str, JobResult]:
+        """Run the stages in order (only the one named `only`, if given).
+        fuse=True runs them as the reference does where no two
+        consecutive stages would share a scan, and raises where they
+        would."""
+        stages = [st for st in self.stages if only is None or st.name == only]
+        if fuse:
+            self._check_no_shared_scan(stages)
+        for st in stages:
+            self._run_stage(st)
+        return self.results
 
 
 def run_from_cli(argv: Sequence[str]) -> JobResult:

@@ -44,10 +44,14 @@ Phases, each printing a line per check; any failed check exits non-zero:
    torch.profiler's mean device time of their kernel over 200 launches.
 3. The main path: the `nearestNeighbor` job through `runner.run_job` on
    seeded e-learning CSVs (131072 train, 8192 test rows, 6 features), in
-   its three modes (default exact top-k, nen.device.packed.kernel,
-   nen.device.fused.vote); each must launch its kernel, score accuracy
-   above 60, and agree with the others on >= 99% of predictions; the
-   default run's first 1024 lines must equal the job's on the CPU.
+   its four modes (default exact top-k, nen.device.packed.kernel,
+   nen.device.fused.vote, and nen.class.condtion.weighted, which weights
+   each neighbour by its Naive Bayes feature posterior and runs the
+   exact top-k with `_vote`); each must launch its kernel and score
+   accuracy above 60, the packed and fused modes agree with the default
+   on >= 99% of predictions, and the default and class-conditional runs'
+   first 1024 lines must equal the job's on the CPU. Each mode's seconds
+   are printed beside the card's name and power limit.
 4. The kernel-check path: `avenir_tpu_torch.tools.kernel_check` on the
    card, every case against its float64 oracle; any failed case fails.
 5. The packed kernel and every bfloat16 variant against their plain
@@ -65,8 +69,11 @@ Phases, each printing a line per check; any failed check exits non-zero:
    1..MAX_D. The merge kernels alone on ragged split lists (splits 1 to
    65, every carry width, empty queries, ties, sign bits, keys at
    SENTINEL and INF_BITS; votes scoring NaN: gaussian at kernel_param 0
-   on zero distances, sign-bit NaN keys), bit-equal to merge_splits_plain
-   and _vote (NaN where it has NaN) and on a rerun. Then
+   on zero distances, sign-bit NaN keys under every kernel function and
+   both metrics), bit-equal to merge_splits_plain and _vote (NaN where it
+   has NaN) and on a rerun; NaN under every kernel function but none on
+   the NaN keys. A question, printed: does the partial kernel make a
+   sign-bit NaN key from features that hold NaNs? Then
    `avenir_tpu_torch.tools.knn_sweep` at its full width (8192 x 131072,
    D=128).
 
@@ -89,8 +96,18 @@ Phases, each printing a line per check; any failed check exits non-zero:
    there, and every KNN launch of it (all euclidean bfloat16) on the
    tensor-core form.
 
-Phases 4 and 5's sweep are the second path and phase 7's bench the third:
-each kernel's launches are counted from zero on each path. Then one JSON
+8. The pipeline path: `pipelines.knn_pipeline` (recordSimilarity,
+   bayesianDistr, bayesianPredictor's feature posteriors,
+   featureCondProbJoiner, class-conditional nearestNeighbor) on seeded
+   e-learning CSVs at 8192 train x 512 test rows (the distance file has a
+   line per pair: 4,194,304), each stage timed through
+   `Pipeline.run(only=)`, then the same on the CPU: 4,194,304 pairs and
+   joins, accuracy above 60, `knn_topk` launched, and all five files
+   byte-identical to the CPU run's.
+
+Phases 4 and 5's sweep are the second path, phase 7's bench the third and
+phase 8's pipeline the fourth: each kernel's launches are counted from
+zero on each path. Then one JSON
 line of per-kernel numbers (the pre-pass beside the five kernels, at the
 sweep's D=128 float32; the tensor-core form at the bench's D=128
 bfloat16; the two merge kernels at the job's shape), and as the last line
@@ -124,6 +141,14 @@ BENCH_PATH = "bench"
 NB_TRAIN_ROWS, NB_TEST_ROWS = 1_000_000, 100_000
 #: phase 7: the bench's ceiling shape (bench.py:792-795)
 CEIL_NQ, CEIL_NT, CEIL_D = 8192, 131072, 128
+#: phase 8: the knn pipeline's train and test rows at the e-learning
+#: width; its distance file has a line per pair
+PIPE_NT, PIPE_NQ = 8192, 512
+PIPE_PATH = "knn_pipeline"
+PIPE_FILES = ("simi.txt", "distr.csv", "condProb.txt", "join.txt",
+              "knn_out.txt")
+#: nvidia-smi's name and power limit of the card (phase 1)
+CARD = ""
 
 
 def fail(msg: str) -> None:
@@ -215,6 +240,8 @@ def phase_card():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    global CARD
+    CARD = card
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
@@ -793,8 +820,10 @@ def phase_main_path():
             "nen.validation.mode": "true"}
     modes = (("default", {}, kk.knn_topk),
              ("packed", {"nen.device.packed.kernel": "true"}, kk.knn_topk_lanes),
-             ("fused", {"nen.device.fused.vote": "true"}, kk.knn_classify_lanes))
-    launches, preds = {}, {}     # launches: summed over the three runs
+             ("fused", {"nen.device.fused.vote": "true"}, kk.knn_classify_lanes),
+             ("class_cond", {"nen.class.condtion.weighted": "true"},
+              kk.knn_topk))
+    launches, preds, secs_by_mode = {}, {}, {}   # launches: summed over runs
     for mode, extra, wrapper in modes:
         out = str(work / f"out_{mode}.txt")
         _reset_launches()
@@ -810,6 +839,7 @@ def phase_main_path():
         acc = res.counters["Validation:Accuracy"]
         lines = Path(out).read_text().splitlines()
         preds[mode] = [ln.split(",")[1] for ln in lines]
+        secs_by_mode[mode] = round(secs, 3)
         check(wrapper.launches >= 1 and acc > 60 and len(lines) == NQ,
               f"nearestNeighbor {mode}: {secs:.2f}s, {wrapper.__name__} "
               f"launched {wrapper.launches}x, launches {counts}, "
@@ -817,12 +847,18 @@ def phase_main_path():
     for mode in ("packed", "fused"):
         agree = sum(a == b for a, b in zip(preds["default"], preds[mode])) / NQ
         check(agree >= 0.99, f"default vs {mode}: predictions agree {agree:.5f}")
-    cpu_out = str(work / "out_cpu.txt")
-    run_job("nearestNeighbor", base, [train, small], cpu_out, device="cpu")
-    gpu_head = Path(work / "out_default.txt").read_text().splitlines()[:CHECK_ROWS]
-    cpu_lines = Path(cpu_out).read_text().splitlines()
-    check(gpu_head == cpu_lines,
-          f"default run's first {CHECK_ROWS} lines equal the CPU run's")
+    print(f"nearestNeighbor seconds by mode ({NT} x {NQ}, {CARD}): "
+          f"{json.dumps(secs_by_mode)}", flush=True)
+    for mode, extra in (("default", {}),
+                        ("class_cond", {"nen.class.condtion.weighted": "true"})):
+        cpu_out = str(work / f"out_cpu_{mode}.txt")
+        run_job("nearestNeighbor", {**base, **extra}, [train, small], cpu_out,
+                device="cpu")
+        gpu_head = Path(work / f"out_{mode}.txt").read_text().splitlines()[
+            :CHECK_ROWS]
+        cpu_lines = Path(cpu_out).read_text().splitlines()
+        check(gpu_head == cpu_lines,
+              f"{mode} run's first {CHECK_ROWS} lines equal the CPU run's")
     shutil.rmtree(work)
     return launches
 
@@ -979,6 +1015,7 @@ def phase_packed_bf16(flops: float, rate: float, bf16_flops: float,
                                    rate, "bench")
     _check_mma_shapes()
     _check_merge_ragged()
+    _partial_nan_keys()
     return results
 
 
@@ -1056,8 +1093,8 @@ def _check_merge_ragged() -> None:
     against merge_splits_plain, the vote on label lists (C=2, both
     metrics, every kernel function, gaussian at 30 and at 0, which
     scores NaN on a zero distance) and on label lists with sign-bit NaN
-    keys (manhattan; the kernels none and gaussian, whose score of a NaN
-    distance is NaN on the card as in _vote) against _vote of those, each
+    keys (both metrics, every kernel function: a NaN distance scores NaN
+    but under none, on the card as in _vote) against _vote of those, each
     bit for bit (a NaN where the plain version has one) and bit-equal on
     a rerun."""
     import numpy as np
@@ -1070,13 +1107,11 @@ def _check_merge_ragged() -> None:
     rng = np.random.default_rng(8)
     nq, n, bad = 300, 0, []
     topk, vote = _build.load("knn_topk"), _build.load("knn_classify")
-    votes = {"labels": [(metric, fn, param)
-                        for metric in ("manhattan", "euclidean")
-                        for fn, param in [(fn, 30.0) for fn in kk.KERNEL_FNS]
-                        + [("gaussian", 0.0)]],
-             "nan": [("manhattan", "none", 30.0),
-                     ("manhattan", "gaussian", 30.0),
-                     ("manhattan", "gaussian", 0.0)]}
+    scorings = [(metric, fn, param) for metric in ("manhattan", "euclidean")
+                for fn, param in [(fn, 30.0) for fn in kk.KERNEL_FNS]
+                + [("gaussian", 0.0)]]
+    votes = {"labels": scorings, "nan": scorings}
+    nan_votes = set()    # the NaN-key scorings whose vote had a NaN
     for splits in (1, 7, 33, 40, 65):
         for k in (5, 8, 13, 16, 32, 50, 64):
             kw = kk._carry_width(k)
@@ -1101,12 +1136,67 @@ def _check_merge_ragged() -> None:
                     if not all(_same(a, b) and _same(a, c, nan_bits=False)
                                for a, b, c in zip(runs[0], runs[1], ref)):
                         bad.append(f"splits={splits}/k={k}/{what}")
+                    if mode == "nan" and bool(runs[0][0].isnan().any()):
+                        nan_votes.add(what)
     check(not bad, f"merge kernels on ragged lists ({nq} queries, two all "
           f"empty; splits 1/7/33/40/65, k 5..64, exact, lane and label "
           f"keys with ties, sign bits and keys at SENTINEL and INF_BITS; "
-          f"votes with gaussian(0) and sign-bit NaN keys): {n - len(bad)} "
+          f"votes with gaussian(0) and sign-bit NaN keys under every "
+          f"kernel function and both metrics): {n - len(bad)} "
           f"of {n} bit-equal to merge_splits_plain / _vote and on a rerun"
           + (f"; not {bad[:10]}" if bad else ""))
+    # a NaN key scores NaN under every kernel function but none
+    want = {f"nan {metric} {fn}({param:g})" for metric, fn, param in scorings
+            if fn != "none"}
+    check(want <= nan_votes, f"votes on sign-bit NaN keys: NaN under "
+          f"{len(nan_votes)} scorings, every one but none's of "
+          f"{sorted(want)}" + ("" if want <= nan_votes else
+                               f"; missing {sorted(want - nan_votes)}"))
+
+
+def _partial_nan_keys() -> None:
+    """Asks whether the partial kernel can make a key that is a NaN with
+    the sign bit set, the one kind of NaN key that sorts before every
+    distance (a positive NaN key is at or above the empty key: an empty
+    slot). Queries and train rows hold NaN and sign-bit NaN features
+    (a missing value parses to NaN); for each mode, metric and dtype the
+    count of final keys with the sign bit and an all-ones exponent (a
+    negative NaN, or -inf where the low bits were masked) is printed, and
+    the count of keys at or above the empty key. A question, not a check:
+    the answer is what PERF.md records."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.ops import knn_kernels as kk
+
+    rng = np.random.default_rng(9)
+    q = rng.random((256, 6), dtype=np.float32)
+    t = rng.random((4096, 6), dtype=np.float32)
+    nan, neg_nan = (np.uint32(b).view(np.float32)
+                    for b in (0x7FC00000, 0xFFC00000))
+    q[::4, 0], q[1::4, 2] = neg_nan, nan
+    t[::3, 1], t[1::3, 5] = neg_nan, nan
+    qd, td = torch.from_numpy(q).to(DEVICE), torch.from_numpy(t).to(DEVICE)
+    found = {}
+    for mode in ("exact", "lanes"):
+        for metric in ("manhattan", "euclidean"):
+            for dtype in ("float32", "bfloat16"):
+                bf16 = kk._bf16(dtype, metric)
+                if dtype == "bfloat16" and not bf16:
+                    continue
+                key, _ = kk._topk_keys(mode, qd, td, K, metric == "euclidean",
+                                       bf16, td.shape[0])
+                empty = kk._key_spec(mode, td)[2]
+                found[f"{mode}/{metric}/{dtype}"] = (
+                    int(((key >> 23) & 0x1FF).eq(0x1FF).sum()),
+                    int((key >= empty).sum()))
+    torch.cuda.synchronize()
+    print(f"partial kernel on NaN and sign-bit NaN features ({q.shape[0]} x "
+          f"{t.shape[0]}, k={K}, {K * q.shape[0]} keys each): sign-bit NaN "
+          f"or -inf keys, keys at or above the empty key: "
+          f"{json.dumps(found)}; a sign-bit NaN key "
+          + ("was made" if any(v[0] for v in found.values())
+             else "was never made"), flush=True)
 
 
 def _check_mma_shapes() -> None:
@@ -1243,6 +1333,63 @@ def phase_naive_bayes():
             "predict_s": psecs[DEVICE], "predict_cpu_s": psecs["cpu"]}
 
 
+# ------------------------------------------------------------------ phase 8
+def phase_pipeline():
+    """`knn_pipeline` (the five stages of resource/knn.sh) on the card,
+    stage by stage through `Pipeline.run(only=)`, then its CPU twin on
+    the same CSVs: every file byte-identical. Returns the card run's
+    launch counts."""
+    import torch
+
+    from avenir_tpu_torch.data import elearn_schema, generate_elearn
+    from avenir_tpu_torch.ops import knn_kernels as kk
+    from avenir_tpu_torch.pipelines import knn_pipeline
+
+    work = ROOT / "build" / "chip_smoke_pipe"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    schema = str(work / "elearn.json")
+    elearn_schema().save(schema)
+    train, test = str(work / "train.csv"), str(work / "test.csv")
+    Path(train).write_text(generate_elearn(PIPE_NT, seed=301, as_csv=True))
+    Path(test).write_text(generate_elearn(PIPE_NQ, seed=302, as_csv=True))
+    props = {"nen.top.match.count": str(K), "nen.validation.mode": "true",
+             "nen.class.condtion.weighted": "true"}
+    pairs = PIPE_NT * PIPE_NQ
+    counts = None
+    for dev in (DEVICE, "cpu"):
+        pipe = knn_pipeline(props, train, test, str(work / dev),
+                            schema_path=schema, device=dev)
+        secs = {}
+        if dev == DEVICE:
+            _reset_launches()
+        for st in pipe.stages:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.run(only=st.name)
+            torch.cuda.synchronize()
+            secs[st.name] = round(time.perf_counter() - t0, 3)
+        if dev == DEVICE:
+            counts = _launch_counts()
+        res = pipe.results
+        sim = res["similarity"].counters["Similarity:Pairs"]
+        join = res["join"].counters["Join:Pairs"]
+        acc = res["nearestNeighbor"].counters["Validation:Accuracy"]
+        check(sim == join == pairs and acc > 60
+              and (dev != DEVICE or kk.knn_topk.launches >= 1),
+              f"knn_pipeline {dev} ({PIPE_NT} x {PIPE_NQ}, {CARD}): "
+              f"{sum(secs.values()):.2f}s, stage seconds {json.dumps(secs)}, "
+              f"Similarity:Pairs {sim}, Join:Pairs {join}, "
+              f"Validation:Accuracy {acc}"
+              + (f", launches {counts}" if dev == DEVICE else ""))
+    same = [f for f in PIPE_FILES if (work / DEVICE / f).read_bytes()
+            == (work / "cpu" / f).read_bytes()]
+    check(len(same) == len(PIPE_FILES), f"knn_pipeline: {same} byte-identical "
+          f"to the CPU run's, of {list(PIPE_FILES)}")
+    shutil.rmtree(work)
+    return counts
+
+
 # ------------------------------------------------------------------ phase 7
 def phase_ceiling(rate: float, bf16_flops: float):
     """matmul_ceiling against its plain version at the bench's shape."""
@@ -1355,9 +1502,10 @@ NEW_KERNELS = (
      ("knn_classify_lanes",)))
 
 
-def _new_kernel_rows(checks, launches, path_counts, bench_counts):
-    """The kernels line's rows of NEW_KERNELS. A merge kernel is launched
-    once by each launch of its wrappers, so its launches are theirs."""
+def _new_kernel_rows(checks, paths):
+    """The kernels line's rows of NEW_KERNELS; `paths` maps each path to
+    its launch counts. A merge kernel is launched once by each launch of
+    its wrappers, so its launches are theirs."""
     rows = []
     for name, src, replaces, (row_name, metric, d, dtype), path, by in \
             NEW_KERNELS:
@@ -1365,9 +1513,8 @@ def _new_kernel_rows(checks, launches, path_counts, bench_counts):
                    and r.get("metric") == metric and r["d"] == d
                    and r.get("dtype", "float32") == dtype
                    and r.get("kernel_fn") is None)
-        by_path = {p: sum(counts[w] for w in by) for p, counts in
-                   (("nearestNeighbor", launches), (CHECK_PATH, path_counts),
-                    (BENCH_PATH, bench_counts))}
+        by_path = {p: sum(counts[w] for w in by)
+                   for p, counts in paths.items()}
         rows.append({
             "name": name, "route": "cuda",
             "source": f"avenir_tpu_torch/ops/csrc/{src}",
@@ -1409,7 +1556,10 @@ def main() -> None:
     nb_secs = phase_naive_bayes()
     ceiling = phase_ceiling(rate, bf16_flops)
     bench_counts = phase_bench()
+    pipe_counts = phase_pipeline()
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
+    paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
+             BENCH_PATH: bench_counts, PIPE_PATH: pipe_counts}
 
     # each kernel's row at the shape of the path it is reported on: the
     # job's (manhattan, D=6) for the three it runs; the sweep's
@@ -1429,9 +1579,7 @@ def main() -> None:
                    and r["d"] == d and r.get("kernel_fn") == fn
                    and r.get("dtype", "float32") == "float32")
         src, line = sources[name]
-        by_path = {"nearestNeighbor": launches[name],
-                   CHECK_PATH: path_counts[name],
-                   BENCH_PATH: bench_counts[name]}
+        by_path = {p: counts[name] for p, counts in paths.items()}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"avenir_tpu_torch/ops/csrc/{src}",
@@ -1449,9 +1597,8 @@ def main() -> None:
         "source": "avenir_tpu_torch/ops/csrc/knn_prepass.cu",
         "replaces": "avenir_tpu/ops/pallas_knn.py:54",
         "launches": path_counts["knn_prepass"],
-        "launches_by_path": {"nearestNeighbor": launches["knn_prepass"],
-                             CHECK_PATH: path_counts["knn_prepass"],
-                             BENCH_PATH: bench_counts["knn_prepass"]},
+        "launches_by_path": {p: counts["knn_prepass"]
+                             for p, counts in paths.items()},
         **{k: pre[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms", "device_ms",
                                "profiler_ms")}})
@@ -1461,12 +1608,11 @@ def main() -> None:
         "sources": ["avenir_tpu_torch/ops/csrc/matmul_ceiling.cu",
                     "avenir_tpu_torch/ops/csrc/wgmma_bf16.cuh"],
         "replaces": "bench.py:797", "launches": bench_counts["matmul_ceiling"],
-        "launches_by_path": {"nearestNeighbor": launches["matmul_ceiling"],
-                             CHECK_PATH: path_counts["matmul_ceiling"],
-                             BENCH_PATH: bench_counts["matmul_ceiling"]},
+        "launches_by_path": {p: counts["matmul_ceiling"]
+                             for p, counts in paths.items()},
         **{k: ceiling[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
-    kernels += _new_kernel_rows(checks, launches, path_counts, bench_counts)
+    kernels += _new_kernel_rows(checks, paths)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -303,14 +303,21 @@ def test_k_above_kernel_maximum_raises():
 
 
 def test_class_conditional_weighting_not_ported(elearn_csvs, tmp_path):
+    """Class-conditional weighting and approx=True, which raised
+    NotImplementedError before they were ported, now run: the job writes
+    the JAX job's bytes, and the approx index finds the exact one's
+    neighbours (tests/test_torch_knn_classcond.py holds both further)."""
     props = {"nen.feature.schema.file.path": elearn_csvs["schema"],
              "nen.class.condtion.weighted": "true"}
-    with pytest.raises(NotImplementedError, match="nen.class.condtion.weighted"):
-        run_job("nearestNeighbor", props,
-                [elearn_csvs["train"], elearn_csvs["test"]],
-                str(tmp_path / "o"), device=CPU)
-    with pytest.raises(NotImplementedError, match="approx"):
-        tknn.NeighborIndex(generate_elearn(50), approx=True, device=CPU)
+    inputs = [elearn_csvs["train"], elearn_csvs["test"]]
+    run_job("nearestNeighbor", props, inputs, str(tmp_path / "o"), device=CPU)
+    jax_run_job("nearestNeighbor", props, inputs, str(tmp_path / "jax"))
+    assert (tmp_path / "o").read_bytes() == (tmp_path / "jax").read_bytes()
+    train, test = generate_elearn(50), generate_elearn(10, seed=9)
+    approx = tknn.NeighborIndex(train, approx=True, device=CPU)
+    exact = tknn.NeighborIndex(train, device=CPU)
+    for a, b in zip(approx.neighbors(test), exact.neighbors(test)):
+        assert torch.equal(a, b)
 
 
 def test_default_device_needs_a_gpu(monkeypatch, elearn_csvs, tmp_path):
