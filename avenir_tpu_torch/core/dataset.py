@@ -1,12 +1,14 @@
 """Columnar dataset: CSV rows -> host numpy columns.
 
-The port's own copy of the Python row parser of `avenir_tpu/core/dataset.py`
-(the native C++ ingest is not ported yet). The reference's unit of data is
-a delimited text line whose fields get meaning from the FeatureSchema JSON;
-here each CSV split is parsed once on the host into columns:
-categoricals dictionary-encoded against the schema's cardinality, numerics
-as float32, ids as host-side object arrays. Tensors are made from these
-columns by the models, on the device the caller names.
+The port's own copy of `avenir_tpu/core/dataset.py`'s parsers. The
+reference's unit of data is a delimited text line whose fields get meaning
+from the FeatureSchema JSON; here each CSV split is parsed once on the host
+into columns: categoricals dictionary-encoded against the schema's
+cardinality, numerics as float32, ids as host-side object arrays (made
+lazily by the native parser: most jobs never read them). Two parsers give
+the same columns: the native one-pass C++ parser (`native/ingest.py`) and
+the Python row parser. Tensors are made from these columns by the models,
+on the device the caller names.
 """
 
 from __future__ import annotations
@@ -17,55 +19,138 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from avenir_tpu_torch import obs
 from avenir_tpu_torch.core.schema import FeatureField, FeatureSchema
+from avenir_tpu_torch.native import ingest
+
+ENGINES = ("auto", "native", "python")
 
 
 class Dataset:
     """Columnar view of one CSV input split against a FeatureSchema."""
 
     def __init__(self, schema: FeatureSchema, columns: Dict[int, np.ndarray],
-                 n_rows: int, raw_rows: Optional[List[List[str]]] = None):
+                 n_rows: int, raw_rows: Optional[List[List[str]]] = None,
+                 lazy: Optional[Dict[int, object]] = None,
+                 engine: str = "python"):
         self.schema = schema
         self.columns = columns          # ordinal -> np array (codes / floats / object)
         self.n_rows = n_rows
         self.raw_rows = raw_rows        # kept when output echoes the input row
+        # ordinal -> zero-arg thunk of a string column not made yet
+        self._lazy = dict(lazy) if lazy else {}
+        self.engine = engine            # the parser that made the columns
 
     # ------------------------------------------------------------------ load
     @classmethod
     def from_csv(cls, source: Union[str, bytes, Iterable[str]],
                  schema: FeatureSchema, delim: str = ",",
-                 keep_raw: bool = False) -> "Dataset":
+                 keep_raw: bool = False, engine: str = "auto") -> "Dataset":
         """Parse CSV lines (a path, a text blob, raw bytes, or an iterable
         of lines) into columns. Unknown values of a declared categorical
         raise. A string is a file path if such a file exists, otherwise
         content (which must contain a newline or the delimiter). Bytes are
         always content — the block reader (core/stream.py) hands file
         blocks here. keep_raw keeps each row's stripped tokens in
-        `raw_rows`."""
+        `raw_rows`.
+
+        engine: "auto" takes the native parser where it applies (a path,
+        text or bytes source, a one-byte delimiter, no keep_raw) and it is
+        built, else the Python row parser; "native" requires the native
+        parser and raises where it does not apply or is not built;
+        "python" forces the row parser. Both give the same columns and
+        the same errors. The parse is the span `stream.parse` (attributes
+        `nbytes` and `engine`, the parser that ran)."""
+        if engine not in ENGINES:
+            raise ValueError(f"unknown CSV engine {engine!r} "
+                             "(want auto, native, or python)")
+        t0 = obs.now()
+        ds = cls._parse(source, schema, delim, keep_raw, engine)
+        obs.record("stream.parse", t0, nbytes=_nbytes(source),
+                   engine=ds.engine)
+        return ds
+
+    @classmethod
+    def _parse(cls, source, schema, delim, keep_raw, engine) -> "Dataset":
+        text = isinstance(source, str)
+        path = text and os.path.exists(source)
+        if text and not path and not ("\n" in source or delim in source
+                                      or source == ""):
+            raise FileNotFoundError(f"no such CSV file: {source!r}")
+        fits = (not keep_raw and len(delim.encode()) == 1
+                and isinstance(source, (str, bytes, bytearray)))
+        if engine == "native" and not fits:
+            raise ValueError(
+                "engine='native' requires a path, text or bytes source, a "
+                "one-byte delimiter, and keep_raw=False")
+        if engine != "python" and fits:
+            if ingest.native_available():
+                if path:
+                    with open(source, "rb") as fh:
+                        data = fh.read()
+                else:
+                    data = source.encode() if text else bytes(source)
+                return cls._from_native(data, schema, delim)
+            if engine == "native":
+                raise RuntimeError("native CSV ingest unavailable (no g++?)")
         if isinstance(source, (bytes, bytearray)):
-            source = io.StringIO(bytes(source).decode())
-        if isinstance(source, str):
-            if os.path.exists(source):
-                lines: Iterable[str] = open(source, "r")
-            elif "\n" in source or delim in source:
-                lines = io.StringIO(source)
-            elif source == "":
-                lines = io.StringIO("")
-            else:
-                raise FileNotFoundError(f"no such CSV file: {source!r}")
-        else:
-            lines = source
+            source = bytes(source).decode()
+        lines = (open(source, "r") if path else io.StringIO(source)
+                 if isinstance(source, str) else source)
         try:
-            rows: List[List[str]] = []
-            for line in lines:
-                line = line.rstrip("\n").rstrip("\r")
-                if not line.strip():
-                    continue
-                rows.append([tok.strip() for tok in line.split(delim)])
+            return cls._from_lines(lines, schema, delim, keep_raw)
         finally:
-            if hasattr(lines, "close") and lines is not source:
+            if path:
                 lines.close()
+
+    @classmethod
+    def _from_lines(cls, lines: Iterable[str], schema: FeatureSchema,
+                    delim: str, keep_raw: bool) -> "Dataset":
+        rows: List[List[str]] = []
+        for line in lines:
+            line = line.rstrip("\n").rstrip("\r")
+            if not line.strip():
+                continue
+            rows.append([tok.strip() for tok in line.split(delim)])
         return cls.from_rows(rows, schema, keep_raw=keep_raw)
+
+    @classmethod
+    def _from_native(cls, data: bytes, schema: FeatureSchema,
+                     delim: str) -> "Dataset":
+        """The native one-pass parse, with the Python parser's errors.
+        Categoricals with a fixed declared vocabulary encode in C; those
+        with an undeclared (discovered, growable) one come back as tokens
+        and are encoded here after the parse, as from_rows does."""
+        numeric = [f.ordinal for f in schema.fields if f.is_numeric]
+        declared = [f for f in schema.fields if f.is_categorical
+                    and f.cardinality and not f.discovered_cardinality]
+        undeclared = [f for f in schema.fields if f.is_categorical
+                      and (not f.cardinality or f.discovered_cardinality)]
+        strings = [f.ordinal for f in schema.fields
+                   if not f.is_numeric and not f.is_categorical]
+        try:
+            n, columns, lazy = ingest.parse_csv_native(
+                data, delim, numeric, [(f.ordinal, f.cardinality)
+                                       for f in declared],
+                strings + [f.ordinal for f in undeclared], lazy_strings=True)
+        except ingest.NativeParseError as e:
+            if e.kind == "numeric":
+                raise ValueError(f"could not convert string to float: "
+                                 f"{e.token!r}") from None
+            name = next(f.name for f in schema.fields
+                        if f.ordinal == e.ordinal)
+            raise ValueError(f"value {e.token!r} not in declared cardinality "
+                             f"of field {name!r}") from None
+        for fld in undeclared:
+            toks = lazy.pop(fld.ordinal)().tolist()
+            _discover_cardinality(fld, toks)
+            index = fld.cardinality_index()
+            columns[fld.ordinal] = np.array([index[t] for t in toks],
+                                            dtype=np.int32)
+        for fld in schema.fields:
+            if fld.is_numeric:
+                _discover_numeric_range(fld, columns[fld.ordinal])
+        return cls(schema, columns, n, lazy=lazy, engine="native")
 
     @classmethod
     def from_rows(cls, rows: List[List[str]], schema: FeatureSchema,
@@ -95,6 +180,8 @@ class Dataset:
 
     # ----------------------------------------------------------------- views
     def column(self, ordinal: int) -> np.ndarray:
+        if ordinal not in self.columns and ordinal in self._lazy:
+            self.columns[ordinal] = self._lazy.pop(ordinal)()
         return self.columns[ordinal]
 
     def ids(self) -> np.ndarray:
@@ -155,12 +242,14 @@ class Dataset:
         return np.stack(cols, axis=1)
 
     def take(self, idx: np.ndarray) -> "Dataset":
-        """Row subset (a numpy fancy index)."""
+        """Row subset (a numpy fancy index); a lazy column stays lazy."""
         idx = np.asarray(idx)
+        lazy = {o: (lambda o=o: self.column(o)[idx]) for o in self._lazy}
         cols = {o: c[idx] for o, c in self.columns.items()}
         raw = ([self.raw_rows[i] for i in idx] if self.raw_rows is not None
                else None)
-        return Dataset(self.schema, cols, int(idx.shape[0]), raw)
+        return Dataset(self.schema, cols, int(idx.shape[0]), raw, lazy=lazy,
+                       engine=self.engine)
 
     def __len__(self) -> int:
         return self.n_rows
@@ -199,6 +288,17 @@ def _discover_numeric_range(fld, col: np.ndarray) -> None:
     hi = float(finite.max())
     fld.max = hi if fld.max is None else max(fld.max, hi)
     fld.discovered_range = True
+
+
+def _nbytes(source) -> int:
+    """Bytes of a parse's source: a file's size, text's or bytes' length,
+    -1 for an iterable of lines."""
+    if isinstance(source, (bytes, bytearray)):
+        return len(source)
+    if isinstance(source, str):
+        return (os.path.getsize(source) if os.path.exists(source)
+                else len(source.encode()))
+    return -1
 
 
 def pad_rows(n: int, multiple: int) -> int:

@@ -5,7 +5,11 @@ without its columnar sidecar and prefetch thread. The reference streams
 unbounded files through mappers one line at a time; here the unit is a
 byte block of a fixed size cut at the last newline, parsed into a Dataset
 chunk against one shared schema, so host memory stays O(block) however
-large the file.
+large the file. Each block read is the span `stream.read`, each parse
+`stream.parse` (Dataset.from_csv).
+
+The `csv.engine` key (auto, native or python; default auto) picks the
+parser of every Dataset a job reads, as Dataset.from_csv's `engine`.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import os
 from typing import Iterable, Iterator
 
+from avenir_tpu_torch import obs
 from avenir_tpu_torch.core.dataset import Dataset
 from avenir_tpu_torch.core.schema import FeatureSchema
 
@@ -23,13 +28,15 @@ def iter_byte_blocks(path: str, block_bytes: int = DEFAULT_BLOCK_BYTES
                      ) -> Iterator[bytes]:
     """Yield ~block_bytes raw byte blocks of `path`, each ending at a line
     boundary (the last block may lack its final newline). Blocks holding
-    only whitespace are dropped."""
+    only whitespace are dropped. The reading of each block yielded is a
+    `stream.read` span."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"no such input file: {path!r}")
     if block_bytes < 1:
         raise ValueError(f"block_bytes must be positive, got {block_bytes}")
     with open(path, "rb") as fh:
         carry = b""
+        t0 = obs.now()
         while True:
             block = fh.read(block_bytes)
             if not block:
@@ -41,18 +48,48 @@ def iter_byte_blocks(path: str, block_bytes: int = DEFAULT_BLOCK_BYTES
                 continue
             carry = data[cut + 1:]
             if data[:cut + 1].strip():
+                obs.record("stream.read", t0, path=path, nbytes=cut + 1)
                 yield data[:cut + 1]
+                t0 = obs.now()
         if carry.strip():
+            obs.record("stream.read", t0, path=path, nbytes=len(carry))
             yield carry
+
+
+def read_file(path: str) -> bytes:
+    """The whole of `path`, for a job that parses a file at once (a train
+    set, a similarity input): one `stream.read` span."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no such input file: {path!r}")
+    t0 = obs.now()
+    with open(path, "rb") as fh:
+        data = fh.read()
+    obs.record("stream.read", t0, path=path, nbytes=len(data))
+    return data
+
+
+def csv_engine(cfg) -> str:
+    """The parser a job's `csv.engine` key asks for (default auto)."""
+    return cfg.get("csv.engine", "auto")
+
+
+def read_dataset(cfg, path: str, schema: FeatureSchema) -> Dataset:
+    """A whole CSV file as one Dataset, with the job's delimiter and
+    engine: its `stream.read` and `stream.parse` spans."""
+    return Dataset.from_csv(read_file(path), schema,
+                            delim=cfg.field_delim_regex,
+                            engine=csv_engine(cfg))
 
 
 def stream_job_inputs(cfg, inputs: Iterable[str], schema: FeatureSchema,
                       keep_raw: bool = False) -> Iterator[Dataset]:
     """Dataset chunks of every input path, sized by the
     `stream.block.size.mb` config key (default 64); keep_raw keeps each
-    chunk's row tokens (`Dataset.raw_rows`) for jobs that echo the row."""
+    chunk's row tokens (`Dataset.raw_rows`) for jobs that echo the row,
+    which the Python parser alone can."""
     block = int(cfg.get_float("stream.block.size.mb", 64.0) * (1 << 20))
+    engine = csv_engine(cfg)
     for path in inputs:
         for blk in iter_byte_blocks(path, block):
             yield Dataset.from_csv(blk, schema, delim=cfg.field_delim_regex,
-                                   keep_raw=keep_raw)
+                                   keep_raw=keep_raw, engine=engine)

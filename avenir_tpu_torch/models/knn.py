@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from avenir_tpu_torch import obs
 from avenir_tpu_torch.core.dataset import (Dataset, extract_mixed_features,
                                            pad_rows)
 from avenir_tpu_torch.models.naive_bayes import (NaiveBayesModel,
@@ -235,20 +236,23 @@ class NearestNeighborClassifier:
         the lane-packed kernel. The default composes the exact top-k with
         `_vote`, as class-conditional weighting always does. That mode
         weights each train row by P(its features | its class) from
-        `nb_model`, or from a Naive Bayes model fitted on `train`."""
-        index = NeighborIndex(train, k=top_match_count, metric=metric,
-                              block=block, approx=approx, packed=packed,
-                              device=device)
-        post = None
-        if class_cond_weighted:
-            model = (nb_model if nb_model is not None
-                     else NaiveBayesModel.fit(train, device=index.device))
-            post = NaiveBayesPredictor(model).feature_prob(train).astype(
-                np.float32)
-        self._setup(index, train.labels(), train.schema.class_values(), post,
-                    kernel_function, kernel_param, class_cond_weighted,
-                    inverse_distance_weighted, decision_threshold,
-                    positive_class, fused)
+        `nb_model`, or from a Naive Bayes model fitted on `train`. Building
+        the resident index (and the posteriors) is the span `stream.fold`
+        (sink knn_index): the fold of the train rows."""
+        with obs.span("stream.fold", sink="knn_index", rows=len(train)):
+            index = NeighborIndex(train, k=top_match_count, metric=metric,
+                                  block=block, approx=approx, packed=packed,
+                                  device=device)
+            post = None
+            if class_cond_weighted:
+                model = (nb_model if nb_model is not None
+                         else NaiveBayesModel.fit(train, device=index.device))
+                post = NaiveBayesPredictor(model).feature_prob(train).astype(
+                    np.float32)
+            self._setup(index, train.labels(), train.schema.class_values(),
+                        post, kernel_function, kernel_param,
+                        class_cond_weighted, inverse_distance_weighted,
+                        decision_threshold, positive_class, fused)
 
     @classmethod
     def from_index(cls, index: NeighborIndex, train_labels: np.ndarray,

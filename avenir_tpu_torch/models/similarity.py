@@ -12,6 +12,8 @@ and the distance file keeps the reference's rows, `id1,id2,scaledDist`
 The writer formats a whole tile at a time, in the order the JAX
 generators yield their pairs: tiles by (row block, column block), the
 tiles wholly below the diagonal skipped for intra pairs, rows in order.
+Each tile's distances are the span `stream.fold`, its formatting and
+writing the span `job.finish`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from avenir_tpu_torch import obs
 from avenir_tpu_torch.core.dataset import Dataset, extract_mixed_features
 from avenir_tpu_torch.ops.distance import pairwise_distance
 from avenir_tpu_torch.utils.devices import DeviceLike, resolve_device
@@ -137,22 +140,37 @@ class RecordSimilarity:
                              else f"{sd}{delim}{id1}{delim}{id2}\n")
                     n += 1
                 return n
-            for i0, j0, tile, first in pairs.tiles():
+            return self.write(pairs, fh, delim, id_first)
+
+    def write(self, pairs: Pairs, fh, delim: str = ",", id_first: bool = True,
+              prefix: str = "") -> int:
+        """Write a Pairs' rows to the open file `fh` a tile at a time (each
+        tile computed under `stream.fold`, written under `job.finish`),
+        `prefix` before each row (a group's key fields). Returns the pair
+        count."""
+        n = 0
+        tiles = pairs.tiles()
+        while True:
+            with obs.span("stream.fold", sink="similarity"):
+                item = next(tiles, None)
+            if item is None:
+                return n
+            i0, j0, tile, first = item
+            with obs.span("job.finish", job="similarity"):
                 sd = _scaled(tile, self.scale).tolist()
                 ids2 = pairs.ids2[j0:j0 + tile.shape[1]]
                 for ii, row in enumerate(sd):
                     id1 = pairs.ids1[i0 + ii]
                     j = int(first[ii])
                     if id_first:
-                        head = f"{id1}{delim}"
+                        head = f"{prefix}{id1}{delim}"
                         fh.write("".join([f"{head}{id2}{delim}{v}\n"
                                           for id2, v in zip(ids2[j:], row[j:])]))
                     else:
                         tail = f"{delim}{id1}{delim}"
-                        fh.write("".join([f"{v}{tail}{id2}\n"
+                        fh.write("".join([f"{prefix}{v}{tail}{id2}\n"
                                           for id2, v in zip(ids2[j:], row[j:])]))
                     n += len(row) - j
-        return n
 
 
 class GroupedRecordSimilarity(RecordSimilarity):
@@ -172,14 +190,19 @@ class GroupedRecordSimilarity(RecordSimilarity):
                        else str(v))
         return tuple(key)
 
+    def grouped_pairs(self, ds: Dataset) -> Iterator[Tuple[Tuple, Pairs]]:
+        """(group key, the group's intra Pairs), groups in key order."""
+        groups: Dict[Tuple, List[int]] = {}
+        with obs.span("stream.fold", sink="groups"):
+            for i in range(len(ds)):
+                groups.setdefault(self._group_key(ds, i), []).append(i)
+        for key in sorted(groups):
+            yield key, self.intra(ds.take(np.asarray(groups[key])))
+
     def grouped_intra(self, ds: Dataset
                       ) -> Iterator[Tuple[Tuple, str, str, float]]:
-        groups: Dict[Tuple, List[int]] = {}
-        for i in range(len(ds)):
-            groups.setdefault(self._group_key(ds, i), []).append(i)
-        for key in sorted(groups):
-            sub = ds.take(np.asarray(groups[key]))
-            for id1, id2, d in self.intra(sub):
+        for key, pairs in self.grouped_pairs(ds):
+            for id1, id2, d in pairs:
                 yield key, id1, id2, d
 
 

@@ -8,8 +8,10 @@
 //   LANES   key = bits(d) & ~mask | column/128             (_knn_kernel_lanes)
 //   LABELS  key = bits(d) & ~mask | label[column]          (_knn_kernel_lanes_vote)
 //   PACKED  key = bits(d) & ~0xFFF                         (_knn_kernel_packed)
-// d is non-negative, so its bit pattern orders like the float. Ties in key
-// go to the lower train column, as the TPU kernels' first-argmin does. The
+// d is non-negative, so its bit pattern orders like the float; a NaN d is
+// NAN_KEY in EXACT (first) and an empty slot in the other modes, as in
+// the TPU kernels. Ties in key go to the lower train column, as the TPU
+// kernels' first-argmin does. The
 // carry holds the column beside each key, so PACKED needs no column bits
 // in the key and no tile cap: it selects on (bits(d) & ~0xFFF, column).
 //
@@ -65,6 +67,12 @@ constexpr int TPT = 8;                  // train rows a thread takes per tile
 constexpr int TT = TC * TPT;            // train rows per shared-memory tile
 constexpr int SENTINEL = 0x7F700000;    // empty packed slot (pallas_knn._SENTINEL)
 constexpr int INF_BITS = 0x7F800000;    // empty exact slot: +inf
+// EXACT's key of a NaN distance: a NaN with the sign bit, below every
+// other key as an int32, so NaNs come first in column order, as the
+// reference's first-NaN argmin takes them (pallas_knn._knn_kernel). The
+// other modes keep a NaN's bits: the card's NaN is positive, above the
+// empty key, so a NaN distance is an empty slot there, as in theirs.
+constexpr int NAN_KEY = (int)0xFFC00000u;
 
 enum Mode { EXACT = 0, LANES = 1, LABELS = 2, PACKED = 3 };
 enum Metric { L1 = 0, L2 = 1 };
@@ -286,9 +294,11 @@ __device__ __forceinline__ void select_tile(
       float v = acc[i][j];
       if (EUCLID) {
         v = (qn[i] + tn[j]) - 2.f * v;
-        v = v > 0.f ? v : 0.f;             // clamp, and -0 becomes +0
+        // the reference's jnp.maximum(v, 0): NaN stays NaN, -0 becomes +0
+        v = v <= 0.f ? 0.f : v;
       }
       key[j] = __float_as_int(v);
+      if (MODE == EXACT && v != v) key[j] = NAN_KEY;
       if (MODE == LANES) key[j] = (key[j] & ~pack_mask) | (col >> 7);
       if (MODE == LABELS) key[j] = (key[j] & ~pack_mask) | lab[j];
       if (MODE == PACKED) key[j] &= ~pack_mask;

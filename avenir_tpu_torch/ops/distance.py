@@ -133,6 +133,22 @@ def pad_train(t_num: Optional[np.ndarray], t_cat: Optional[np.ndarray],
     return t_num, t_cat, n
 
 
+def _block_topk(d: torch.Tensor, idx: torch.Tensor, k: int, metric: str
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k nearest of distances d [nq, m] with their indices idx (the
+    reference's `lax.top_k(-d, k)`): ascending, ties to the earlier
+    column. A NaN distance goes where that call puts it. `top_k` orders
+    by XLA's total order, in which a NaN with the sign bit lies below
+    -inf and one without it above +inf, so the sign of -d's NaN decides.
+    Under manhattan XLA folds the negation into the divide by the
+    constant weight total (d_total * -(1/w)), which leaves the NaN
+    positive: it is taken first. Under euclidean the negation of the
+    square root flips the sign: a NaN is taken last, after +inf."""
+    key = torch.where(d.isnan(), float("-inf"), d) if metric != "euclidean" else d
+    order = torch.sort(key, dim=1, stable=True).indices[:, :k]
+    return d.gather(1, order), idx.gather(1, order)
+
+
 def blocked_topk_neighbors(q_num, t_num, q_cat=None, t_cat=None,
                            cat_bins=None, num_ranges=None, k: int = 8,
                            block: int = 32768, metric: str = "manhattan",
@@ -142,7 +158,11 @@ def blocked_topk_neighbors(q_num, t_num, q_cat=None, t_cat=None,
     """(dist [nq, k] ascending, index [nq, k]) of the k nearest train rows,
     scanning the train set `block` rows at a time so no [nq, nt] matrix is
     built. Ties go to the lower train index. Rows at index >= n_valid are
-    padding and never enter; unfillable slots are (+inf, -1).
+    padding and never enter; unfillable slots are (+inf, -1). A NaN
+    distance is taken first under manhattan and after +inf under
+    euclidean (_block_topk); so under euclidean a query whose every
+    distance is NaN keeps its NaNs from a single block but loses them to
+    the empty carry when there are more, as in the reference.
 
     approx=True selects exactly, as the reference's `lax.approx_min_k`
     does off a TPU: on the CPU its values and indices are `lax.top_k`'s.
@@ -155,9 +175,8 @@ def blocked_topk_neighbors(q_num, t_num, q_cat=None, t_cat=None,
     ref = q_num if q_num is not None else q_cat
     nq, dev = ref.shape[0], ref.device
     nv = nt if n_valid is None else n_valid
-    best_d = torch.full((nq, k), float("inf"), dtype=torch.float32, device=dev)
-    best_i = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
-    for start in range(0, nt, block):
+
+    def block_topk(start):
         sl = slice(start, start + block)
         d = pairwise_distance(
             q_num, t_num[sl] if t_num is not None else None,
@@ -165,10 +184,17 @@ def blocked_topk_neighbors(q_num, t_num, q_cat=None, t_cat=None,
             cat_bins, num_ranges, metric)
         idx = torch.arange(start, start + block, dtype=torch.int32, device=dev)
         d = torch.where(idx[None, :] < nv, d, float("inf"))
-        all_d = torch.cat([best_d, d], 1)
-        all_i = torch.cat([best_i, idx.expand(nq, -1)], 1)
-        order = torch.sort(all_d, dim=1, stable=True).indices[:, :k]
-        best_d = all_d.gather(1, order)
-        best_i = all_i.gather(1, order)
+        return _block_topk(d, idx.expand(nq, -1), k, metric)
+
+    if nt == block:
+        best_d, best_i = block_topk(0)
+    else:
+        best_d = torch.full((nq, k), float("inf"), dtype=torch.float32,
+                            device=dev)
+        best_i = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
+        for start in range(0, nt, block):
+            bd, bi = block_topk(start)
+            best_d, best_i = _block_topk(torch.cat([best_d, bd], 1),
+                                         torch.cat([best_i, bi], 1), k, metric)
     best_i = torch.where(torch.isinf(best_d), -1, best_i)
     return best_d, best_i

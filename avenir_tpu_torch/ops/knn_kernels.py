@@ -24,6 +24,14 @@ label. Ties go to the lower train column. The plain versions use the same
 keys, masking and tie rule: they scan the train rows 4096 at a time and
 fold each block into the running top-k with a stable sort.
 
+A NaN distance (a NaN feature: a missing value parses to NaN) follows
+each TPU kernel. The exact kernel takes it first: its argmin returns the
+first NaN, so NaNs come before every number in column order and finish
+as (NaN, column); its key is NAN_KEY, a sign-bit NaN below every other
+key. The other three keep a NaN's bits, above their empty key: a NaN
+distance is an empty slot there, and a query whose every distance is NaN
+votes all zeros.
+
 compute_dtype="bfloat16" rounds the operands of the euclidean cross term
 q.t to bfloat16 (nearest even) and keeps fp32 products and sums; the
 norms |q|^2 and |t|^2 stay those of the fp32 values, and manhattan
@@ -52,6 +60,8 @@ from avenir_tpu_torch.ops import _build
 KMAX = 64
 SENTINEL = 0x7F700000           # empty packed slot: a huge finite float
 INF_BITS = 0x7F800000           # empty exact slot: +inf
+NAN_KEY = -0x400000             # exact key of a NaN distance (0xFFC00000)
+_INT_MAX = 2 ** 31 - 1
 LANES = 128                     # column // 128 is the lane kernel's chunk id
 LANE_CORPUS_CAP = LANES * (1 << 12)   # chunk ids fit 12 mantissa bits
 PACK_BITS = 12                  # packed kernel's masked bits (pallas _PACK_BITS)
@@ -228,7 +238,9 @@ def _finish(key: torch.Tensor, idx: torch.Tensor, metric: str,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Keys -> (attribute-averaged distance, index), as pallas_knn's
     wrappers finish: sqrt(d/n_attrs) or d/n_attrs; empty slots and
-    infinite distances become (+inf, -1)."""
+    infinite distances become (+inf, -1). NAN_KEY decodes to NaN and
+    keeps its index, as the wrappers set -1 only where the distance is
+    infinite."""
     bits = key & ~pack_mask
     dist = torch.where(key >= empty, float("inf"),
                        bits.view(torch.float32))
@@ -319,7 +331,8 @@ def _tile_plain(q: torch.Tensor, tb: torch.Tensor, metric: str,
     if metric == "euclidean":
         tn = (tb * tb).sum(1)
         v = (qn[:, None] + tn[None, :]) - 2.0 * _cross(q, tb, bf16)
-        return torch.where(v > 0, v, 0.0)
+        # jnp.maximum(v, 0): NaN stays NaN, -0 becomes +0
+        return torch.where(v <= 0, 0.0, v)
     acc = torch.zeros((q.shape[0], tb.shape[0]), dtype=torch.float32,
                       device=q.device)
     for f in range(q.shape[1]):
@@ -341,7 +354,11 @@ def _select_plain(q: torch.Tensor, t: torch.Tensor, k: int, metric: str,
     qn = (q * q).sum(1) if metric == "euclidean" else None
     for start in range(0, n_valid, PLAIN_BLOCK):
         stop = min(start + PLAIN_BLOCK, n_valid)
-        key = _tile_plain(q, t[start:stop], metric, qn, bf16).view(torch.int32)
+        d = _tile_plain(q, t[start:stop], metric, qn, bf16)
+        # a NaN distance: NAN_KEY in exact mode, else the card's NaN, the
+        # positive 0x7FFFFFFF (the CPU's may hold the sign bit)
+        key = torch.where(d.isnan(), NAN_KEY if mode == "exact" else _INT_MAX,
+                          d.view(torch.int32))
         col = torch.arange(start, stop, dtype=torch.int32, device=dev)
         if mode == "labels":
             key = (key & ~pack_mask) | labels[start:stop][None, :]
@@ -374,7 +391,6 @@ def merge_splits_plain(part_key: torch.Tensor, part_idx: torch.Tensor,
 #: (one in a group of 8 or 16); chip_smoke.py holds it to the kernels'
 #: merge_layout on the card
 MERGE_OWN = 2
-_INT_MAX = 2 ** 31 - 1
 
 
 def merge_splits_group_plain(part_key: torch.Tensor, part_idx: torch.Tensor,

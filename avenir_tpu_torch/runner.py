@@ -11,6 +11,11 @@ did. A job reads the reference's namespaced keys (`nen.*`, `bad.*`,
 `bap.*`, `sts.*`, `grs.*`, `fcb.*`) from one flat properties file and runs
 in-process on the device the caller names — ``cuda`` unless
 ``device="cpu"`` is passed.
+
+Each job records the reference's spans (`obs`): `job.run` around it,
+`stream.read` and `stream.parse` for its input, `stream.fold` around the
+work on each chunk (a fold's consume, a predict, a tile of distances,
+a join) and `job.finish` around its output. None synchronizes the device.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from avenir_tpu_torch import obs
 from avenir_tpu_torch.core.config import (JobConfig, MissingConfigError,
                                           load_properties)
 from avenir_tpu_torch.core.dataset import Dataset
@@ -82,7 +88,10 @@ def run_job(name: str, conf, inputs: Sequence[str], output: str = "",
     else:
         cfg = conf.scoped(prefix)
     dev = resolve_device(device)
-    return fn(cfg, list(inputs), output, dev)
+    t0 = obs.now()
+    res = fn(cfg, list(inputs), output, dev)
+    obs.record("job.run", t0, job=canonical)
+    return res
 
 
 def _out_file(output: str, part: str = "part-r-00000") -> str:
@@ -99,9 +108,26 @@ def _schema(cfg: JobConfig) -> FeatureSchema:
     return FeatureSchema.from_file(cfg.assert_get("feature.schema.file.path"))
 
 
-def _read_lines(path: str) -> List[str]:
-    with open(path) as fh:
-        return [ln.rstrip("\n") for ln in fh if ln.strip()]
+def _lines(data: bytes) -> List[str]:
+    """The non-blank lines of a block of a job's output file."""
+    return [ln for ln in data.decode().split("\n") if ln.strip()]
+
+
+def _last_three(data: bytes, delim: str) -> Tuple[List[str], List[str],
+                                                  List[str]]:
+    """The last three stripped tokens of each non-blank line of a block,
+    as three lists of strings: no list a line, so the millions of lines
+    of a distance file leave nothing for the garbage collector to
+    trace."""
+    a: List[str] = []
+    b: List[str] = []
+    c: List[str] = []
+    for ln in _lines(data):
+        toks = ln.split(delim)
+        a.append(toks[-3].strip())
+        b.append(toks[-2].strip())
+        c.append(toks[-1].strip())
+    return a, b, c
 
 
 # =================================================================== bayesian
@@ -175,9 +201,11 @@ def bayesian_distribution(cfg: JobConfig, inputs: List[str], output: str,
             "models/text.py) is not ported yet")
     schema = _schema(cfg)
     fold = _NBDistrFold(cfg, schema, device)
-    for ds in stream_job_inputs(cfg, inputs, schema):
-        fold.consume(ds)
-    return fold.finish(output)
+    for n, ds in enumerate(stream_job_inputs(cfg, inputs, schema)):
+        with obs.span("stream.fold", sink="bayesianDistr", chunk=n):
+            fold.consume(ds)
+    with obs.span("job.finish", job="bayesianDistr"):
+        return fold.finish(output)
 
 
 @job("bayesianPredictor", "bap", "org.avenir.bayesian.BayesianPredictor")
@@ -214,20 +242,27 @@ def bayesian_predictor(cfg: JobConfig, inputs: List[str], output: str,
     # the confusion matrix is additive: it folds per chunk
     cm: Optional[ConfusionMatrix] = None
     with open(out, "w") as fh:
-        for ds in stream_job_inputs(cfg, inputs, schema, keep_raw=True):
+        for n, ds in enumerate(stream_job_inputs(cfg, inputs, schema,
+                                                 keep_raw=True)):
             if prob_only:
-                probs = pred.feature_prob(ds)
-                for rid, p in zip(ds.ids(), probs):
-                    fh.write(f"{rid}{delim}{p:.6g}\n")
+                with obs.span("stream.fold", sink="bayesianPredictor",
+                              chunk=n):
+                    probs = pred.feature_prob(ds)
+                with obs.span("job.finish", job="bayesianPredictor"):
+                    for rid, p in zip(ds.ids(), probs):
+                        fh.write(f"{rid}{delim}{p:.6g}\n")
                 continue
-            codes, post = pred.predict(ds)
-            for raw, c, row_post in zip(ds.raw_rows, codes, post):
-                # row_post is the reference's int-percent unnormalized
-                # posterior; normalized across classes for the appended
-                # confidence field
-                tot = float(np.sum(row_post)) or 1.0
-                prob = int(np.rint(100.0 * row_post[int(c)] / tot))
-                fh.write(delim.join(raw + [cls_vals[int(c)], str(prob)]) + "\n")
+            with obs.span("stream.fold", sink="bayesianPredictor", chunk=n):
+                codes, post = pred.predict(ds)
+            with obs.span("job.finish", job="bayesianPredictor"):
+                for raw, c, row_post in zip(ds.raw_rows, codes, post):
+                    # row_post is the reference's int-percent unnormalized
+                    # posterior; normalized across classes for the
+                    # appended confidence field
+                    tot = float(np.sum(row_post)) or 1.0
+                    prob = int(np.rint(100.0 * row_post[int(c)] / tot))
+                    fh.write(delim.join(raw + [cls_vals[int(c)], str(prob)])
+                             + "\n")
             if validate:
                 if cm is None:
                     pos = cfg.get("positive.class.value")
@@ -245,12 +280,12 @@ def nearest_neighbor(cfg: JobConfig, inputs: List[str], output: str,
     """Fused KNN: inputs = [train CSV, test CSV]. Replaces stages (1)-(5)
     of resource/knn.sh. Key names follow knn.properties, including the
     reference's `class.condtion.weighted` spelling."""
-    from avenir_tpu_torch.core.stream import stream_job_inputs
+    from avenir_tpu_torch.core.stream import read_dataset, stream_job_inputs
     from avenir_tpu_torch.models.knn import NearestNeighborClassifier
 
     train_path, test_path = inputs[0], inputs[-1]
     schema = _schema(cfg)
-    train = Dataset.from_csv(train_path, schema, delim=cfg.field_delim_regex)
+    train = read_dataset(cfg, train_path, schema)
     clf = NearestNeighborClassifier(
         train,
         top_match_count=cfg.get_int("top.match.count", 5),
@@ -288,21 +323,23 @@ def nearest_neighbor(cfg: JobConfig, inputs: List[str], output: str,
     # confusion matrix is additive, so it folds per chunk
     cm: Optional[ConfusionMatrix] = None
     with open(out, "w") as fh:
-        for test in stream_job_inputs(cfg, [test_path], schema):
-            codes, scores = clf.predict(test)
+        for n, test in enumerate(stream_job_inputs(cfg, [test_path], schema)):
+            with obs.span("stream.fold", sink="nearestNeighbor", chunk=n):
+                codes, scores = clf.predict(test)
             if arbitrator is not None:
                 # getClassProb int-percent scale (Neighborhood.java:319-334)
                 tot = np.maximum(scores.sum(axis=1), 1e-9)
                 pos_prob = np.floor(100.0 * scores[:, pos_i] / tot)
                 codes = np.where(arbitrator.classify(pos_prob),
                                  pos_i, neg_i).astype(np.int32)
-            for i, (rid, c) in enumerate(zip(test.ids(), codes)):
-                fields = [str(rid), cls_vals[int(c)]]
-                if with_distr:
-                    tot = float(np.sum(scores[i])) or 1.0
-                    fields += [f"{cls_vals[j]}:{scores[i][j] / tot:.3f}"
-                               for j in range(len(cls_vals))]
-                fh.write(out_delim.join(fields) + "\n")
+            with obs.span("job.finish", job="nearestNeighbor"):
+                for i, (rid, c) in enumerate(zip(test.ids(), codes)):
+                    fields = [str(rid), cls_vals[int(c)]]
+                    if with_distr:
+                        tot = float(np.sum(scores[i])) or 1.0
+                        fields += [f"{cls_vals[j]}:{scores[i][j] / tot:.3f}"
+                                   for j in range(len(cls_vals))]
+                    fh.write(out_delim.join(fields) + "\n")
             if validate:
                 if cm is None:
                     cm = ConfusionMatrix(cls_vals, pos_class=clf.positive_class)
@@ -333,10 +370,10 @@ def record_similarity(cfg: JobConfig, inputs: List[str], output: str,
     resource/knn.sh:44-57, RecordSimilarity.scala:34). One input: the
     i < j pairs of it; two inputs (or sts.inter.set.matching=true): the
     cross pairs. Rows: id1,id2,scaled-int-distance."""
+    from avenir_tpu_torch.core.stream import read_dataset
     from avenir_tpu_torch.models.similarity import RecordSimilarity
 
     schema = _similarity_schema(cfg)
-    delim = cfg.field_delim_regex
     sim = RecordSimilarity(
         metric=cfg.get("distance.metric", "manhattan"),
         scale=cfg.get_int("distance.scale", 1000),
@@ -346,10 +383,10 @@ def record_similarity(cfg: JobConfig, inputs: List[str], output: str,
     out = _out_file(output)
     id_first = cfg.get_bool("output.id.first", True)
     if cfg.get_bool("inter.set.matching", len(inputs) > 1):
-        pairs = sim.inter(Dataset.from_csv(inputs[0], schema, delim=delim),
-                          Dataset.from_csv(inputs[-1], schema, delim=delim))
+        pairs = sim.inter(read_dataset(cfg, inputs[0], schema),
+                          read_dataset(cfg, inputs[-1], schema))
     else:
-        pairs = sim.intra(Dataset.from_csv(inputs[0], schema, delim=delim))
+        pairs = sim.intra(read_dataset(cfg, inputs[0], schema))
     n = sim.save(pairs, out, delim=cfg.field_delim, id_first=id_first)
     return JobResult("recordSimilarity", {"Similarity:Pairs": n}, [out])
 
@@ -361,10 +398,11 @@ def grouped_record_similarity(cfg: JobConfig, inputs: List[str], output: str,
     """Within-group pair distances (GroupedRecordSimilarity.scala:29),
     groups by `grs.group.field.ordinals`. Rows: group key fields, id1,
     id2, scaled-int-distance."""
+    from avenir_tpu_torch.core.stream import read_dataset
     from avenir_tpu_torch.models.similarity import GroupedRecordSimilarity
 
     schema = _similarity_schema(cfg)
-    ds = Dataset.from_csv(inputs[0], schema, delim=cfg.field_delim_regex)
+    ds = read_dataset(cfg, inputs[0], schema)
     sim = GroupedRecordSimilarity(
         [int(o) for o in cfg.assert_list("group.field.ordinals")],
         metric=cfg.get("distance.metric", "manhattan"),
@@ -373,10 +411,9 @@ def grouped_record_similarity(cfg: JobConfig, inputs: List[str], output: str,
     delim = cfg.field_delim
     n = 0
     with open(out, "w") as fh:
-        for key, id1, id2, d in sim.grouped_intra(ds):
-            sd = int(round(d * sim.scale))
-            fh.write(delim.join([*key, id1, id2, str(sd)]) + "\n")
-            n += 1
+        for key, pairs in sim.grouped_pairs(ds):
+            n += sim.write(pairs, fh, delim,
+                           prefix="".join(k + delim for k in key))
     return JobResult("groupedRecordSimilarity", {"Similarity:Pairs": n},
                      [out])
 
@@ -391,6 +428,8 @@ def feature_cond_prob_joiner(cfg: JobConfig, inputs: List[str], output: str,
     inputs whose name starts with fcb.feature.cond.prob.split.prefix
     (default condProb), else the last input. Rows:
     testId,trainId,distance,trainFeaturePostProb. Host work only."""
+    from avenir_tpu_torch.core.stream import iter_byte_blocks, read_file
+
     # both inputs are outputs of other jobs: split on the output delimiter
     delim = cfg.field_delim
     prefix = cfg.get("feature.cond.prob.split.prefix", "condProb")
@@ -400,30 +439,38 @@ def feature_cond_prob_joiner(cfg: JobConfig, inputs: List[str], output: str,
         prob_files, dist_files = [inputs[-1]], inputs[:-1]
     probs: Dict[str, str] = {}
     for p in prob_files:
-        for ln in _read_lines(p):
-            toks = [t.strip() for t in ln.split(delim)]
-            probs[toks[0]] = toks[-1]
+        data = read_file(p)
+        with obs.span("stream.parse", nbytes=len(data), engine="python"):
+            for ln in _lines(data):
+                toks = ln.split(delim)
+                probs[toks[0].strip()] = toks[-1].strip()
     # the distance file's column order is the similarity job's key
     id_first = cfg.scoped("sts").get_bool("output.id.first", True)
+    block = int(cfg.get_float("stream.block.size.mb", 64.0) * (1 << 20))
     out = _out_file(output)
     n = 0
     with open(out, "w") as fh:
         for p in dist_files:
-            for ln in _read_lines(p):
-                toks = [t.strip() for t in ln.split(delim)]
-                if id_first:
-                    id1, id2, dist = toks[-3], toks[-2], toks[-1]
-                else:
-                    dist, id1, id2 = toks[-3], toks[-2], toks[-1]
-                pr = probs.get(id2)
-                if pr is None and id1 in probs:
-                    # a row may carry (test, train) in either order
-                    id1, id2 = id2, id1
-                    pr = probs[id2]
-                if pr is None:
-                    continue
-                fh.write(delim.join([id1, id2, dist, pr]) + "\n")
-                n += 1
+            for chunk, blk in enumerate(iter_byte_blocks(p, block)):
+                with obs.span("stream.parse", nbytes=len(blk), engine="python"):
+                    cols = _last_three(blk, delim)
+                with obs.span("stream.fold", sink="featureCondProbJoiner",
+                              chunk=chunk):
+                    if not id_first:     # dist, id1, id2
+                        cols = (cols[1], cols[2], cols[0])
+                    lines = []
+                    for id1, id2, dist in zip(*cols):
+                        pr = probs.get(id2)
+                        if pr is None and id1 in probs:
+                            # a row may carry (test, train) in either order
+                            id1, id2 = id2, id1
+                            pr = probs[id2]
+                        if pr is not None:
+                            lines.append(f"{id1}{delim}{id2}{delim}{dist}"
+                                         f"{delim}{pr}\n")
+                with obs.span("job.finish", job="featureCondProbJoiner"):
+                    fh.write("".join(lines))
+                n += len(lines)
     return JobResult("featureCondProbJoiner", {"Join:Pairs": n}, [out])
 
 

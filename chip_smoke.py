@@ -51,7 +51,21 @@ Phases, each printing a line per check; any failed check exits non-zero:
    accuracy above 60, the packed and fused modes agree with the default
    on >= 99% of predictions, and the default and class-conditional runs'
    first 1024 lines must equal the job's on the CPU. Each mode's seconds
-   are printed beside the card's name and power limit.
+   are printed beside the card's name and power limit. First the ingest
+   check of the train file (below); the jobs ask for the native CSV
+   parser (`csv.engine=native`), so a failed build fails the run. Each
+   run prints its host-clock split; the default mode runs again with the
+   Python parser (its output byte-identical) and under torch.profiler
+   (device busy share).
+
+   The ingest check (phases 3 and 6, on their train files at full size):
+   the file parsed by Dataset.from_csv with engine="python" and
+   engine="native", every column byte-identical, rows/s of each and the
+   native parser's threads. The host-clock split (phases 3, 6 and 8): for
+   each job or pipeline stage, the seconds under each span it recorded
+   (`stream.read`, `stream.parse`, `stream.fold`, `job.finish`), `other`
+   (the seconds of `job.run` no span covers) and `job.run`, one JSON
+   object a line, with the parsers that ran.
 4. The kernel-check path: `avenir_tpu_torch.tools.kernel_check` on the
    card, every case against its float64 oracle; any failed case fails.
 5. The packed kernel and every bfloat16 variant against their plain
@@ -72,15 +86,20 @@ Phases, each printing a line per check; any failed check exits non-zero:
    on zero distances, sign-bit NaN keys under every kernel function and
    both metrics), bit-equal to merge_splits_plain and _vote (NaN where it
    has NaN) and on a rerun; NaN under every kernel function but none on
-   the NaN keys. A question, printed: does the partial kernel make a
-   sign-bit NaN key from features that hold NaNs? Then
+   the NaN keys. The partial kernel and its merge on NaN and sign-bit
+   NaN features, every mode, metric and form at D 6 and 128, against the
+   plain version: NaN distances first in column order in exact mode
+   (NAN_KEY, finished NaN with the index kept), an empty slot in the
+   others, the vote all zeros on NaN queries, as the JAX kernels give.
+   Then
    `avenir_tpu_torch.tools.knn_sweep` at its full width (8192 x 131072,
    D=128).
 
-6. The Naive Bayes path: `bayesianDistr` through `runner.run_job` on a
-   seeded churn train CSV of 1,000,000 rows streamed in 4 MB blocks; the
-   model file and its stamp must be byte-identical to the same job's run
-   with device="cpu". Then `bayesianPredictor` on a 100,000-row churn test
+6. The Naive Bayes path: the ingest check of the churn train file, then
+   `bayesianDistr` through `runner.run_job` on that seeded CSV of
+   1,000,000 rows streamed in 4 MB blocks, with the native parser and
+   with the Python parser; the model file and its stamp must be
+   byte-identical to the same job's run with device="cpu". Then `bayesianPredictor` on a 100,000-row churn test
    CSV with validation and cost arbitration: accuracy above 70, the
    predicted class equal to the CPU run's on every row, the appended
    percent within 1 of it (float sums run in another order on the card).
@@ -101,9 +120,11 @@ Phases, each printing a line per check; any failed check exits non-zero:
    featureCondProbJoiner, class-conditional nearestNeighbor) on seeded
    e-learning CSVs at 8192 train x 512 test rows (the distance file has a
    line per pair: 4,194,304), each stage timed through
-   `Pipeline.run(only=)`, then the same on the CPU: 4,194,304 pairs and
-   joins, accuracy above 60, `knn_topk` launched, and all five files
-   byte-identical to the CPU run's.
+   `Pipeline.run(only=)` with the native parser where auto takes it,
+   again with the Python parser, then on the CPU: 4,194,304 pairs and
+   joins, accuracy above 60, `knn_topk` launched, and all five files of
+   both card runs byte-identical to the CPU run's; each run's host-clock
+   split by stage.
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth: each kernel's launches are counted from
@@ -795,10 +816,107 @@ def _launch_counts():
     return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
+# --------------------------------------------------- host-clock split
+def _job_split(rec) -> dict:
+    """{job: {span name: seconds}} of a captured run: for each `job.run`
+    span, the seconds of the spans inside it by name, `other` (the
+    seconds of job.run that no span inside it covers: the spans of a job
+    do not overlap) and job.run itself. A pipeline's stages are jobs of
+    their own."""
+    spans = rec.spans()
+    out = {}
+    for run in (sp for sp in spans if sp.name == "job.run"):
+        end = run.t0 + run.dur
+        split = {}
+        for sp in spans:
+            if sp.name != "job.run" and run.t0 <= sp.t0 \
+                    and sp.t0 + sp.dur <= end:
+                split[sp.name] = split.get(sp.name, 0.0) + sp.dur
+        split["other"] = run.dur - sum(split.values())
+        split["job.run"] = run.dur
+        out[run.attrs["job"]] = split
+    return out
+
+
+def _print_split(what: str, rec, engines=None) -> dict:
+    """Print a captured run's host-clock split (one line) and return it;
+    fails if the run recorded no job.run or a parse took an engine not in
+    `engines`."""
+    split = _job_split(rec)
+    ran = sorted({sp.attrs["engine"] for sp in rec.spans()
+                  if sp.name == "stream.parse"})
+    check(bool(split) and (engines is None or set(ran) <= set(engines)),
+          f"host-clock split, {what} ({CARD}): seconds by span "
+          f"{json.dumps(split)}; parsers {ran}; "
+          f"{rec.dropped} spans dropped")
+    return split
+
+
+def _device_busy(run) -> dict:
+    """torch.profiler's device time over one call of run() (a job), and
+    its share of the job's `job.run` seconds: kernels, and kernels with
+    copies and sets."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from avenir_tpu_torch import obs
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            obs.capture() as rec:
+        run()
+        torch.cuda.synchronize()
+    secs = sum(sp.dur for sp in rec.spans() if sp.name == "job.run")
+    kern = other = 0.0
+    for ev in prof.key_averages():
+        us = (ev.device_time_total if hasattr(ev, "device_time_total")
+              else ev.cuda_time_total)
+        if ev.key.startswith(("Memcpy", "Memset")):
+            other += us
+        else:
+            kern += us
+    return {"job_run_s": secs, "kernel_s": kern / 1e6,
+            "device_s": (kern + other) / 1e6,
+            "kernel_share": kern / 1e6 / secs,
+            "device_busy_share": (kern + other) / 1e6 / secs}
+
+
+def check_ingest(path: Path, schema, what: str) -> None:
+    """Parse a whole CSV file with engine="python" and engine="native":
+    every column byte-identical (float32 bits, int32 codes, id strings);
+    rows/s of each and the native parser's threads."""
+    from avenir_tpu_torch.core.dataset import Dataset
+    from avenir_tpu_torch.native import ingest
+
+    data = path.read_bytes()
+    check(ingest.native_available(), "the native CSV parser builds and loads")
+    got, rate = {}, {}
+    for engine in ("python", "native"):
+        t0 = time.perf_counter()
+        ds = Dataset.from_csv(data, schema, engine=engine)
+        for fld in schema.fields:    # the native parser's ids are lazy
+            ds.column(fld.ordinal)
+        secs = time.perf_counter() - t0
+        got[engine], rate[engine] = ds, len(ds) / secs
+    py, nat = got["python"], got["native"]
+    same = [f.name for f in schema.fields
+            if (list(py.column(f.ordinal)) == list(nat.column(f.ordinal))
+                if py.column(f.ordinal).dtype == object else
+                py.column(f.ordinal).tobytes()
+                == nat.column(f.ordinal).tobytes())]
+    check(len(py) == len(nat) and len(same) == len(schema.fields),
+          f"ingest {what} ({len(data)} bytes, {len(py)} rows, {CARD}): "
+          f"python {rate['python']:.0f} rows/s, native {rate['native']:.0f} "
+          f"rows/s on {ingest.parse_threads(len(data))} threads "
+          f"(x{rate['native'] / rate['python']:.2f}); columns byte-identical "
+          f"{same} of {[f.name for f in schema.fields]}")
+
+
 # ------------------------------------------------------------------ phase 3
 def phase_main_path():
     import torch
 
+    from avenir_tpu_torch import obs
     from avenir_tpu_torch.data import elearn_schema, generate_elearn
     from avenir_tpu_torch.ops import knn_kernels as kk
     from avenir_tpu_torch.runner import run_job
@@ -814,10 +932,12 @@ def phase_main_path():
     Path(test).write_text(test_csv)
     small = str(work / "test_small.csv")
     Path(small).write_text("".join(test_csv.splitlines(True)[:CHECK_ROWS]))
+    check_ingest(Path(train), elearn_schema(), "e-learning train file")
+    # the native parser wherever auto would take it: a failed build fails
     base = {"nen.feature.schema.file.path": schema,
             "nen.top.match.count": str(K),
             "nen.kernel.function": "gaussian", "nen.kernel.param": "30",
-            "nen.validation.mode": "true"}
+            "nen.validation.mode": "true", "csv.engine": "native"}
     modes = (("default", {}, kk.knn_topk),
              ("packed", {"nen.device.packed.kernel": "true"}, kk.knn_topk_lanes),
              ("fused", {"nen.device.fused.vote": "true"}, kk.knn_classify_lanes),
@@ -829,11 +949,13 @@ def phase_main_path():
         _reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = run_job("nearestNeighbor", {**base, **extra}, [train, test], out,
-                      device=DEVICE)
-        torch.cuda.synchronize()
+        with obs.capture() as rec:
+            res = run_job("nearestNeighbor", {**base, **extra}, [train, test],
+                          out, device=DEVICE)
+            torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = _launch_counts()
+        _print_split(f"nearestNeighbor {mode}", rec, ["native"])
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
         acc = res.counters["Validation:Accuracy"]
@@ -849,6 +971,25 @@ def phase_main_path():
         check(agree >= 0.99, f"default vs {mode}: predictions agree {agree:.5f}")
     print(f"nearestNeighbor seconds by mode ({NT} x {NQ}, {CARD}): "
           f"{json.dumps(secs_by_mode)}", flush=True)
+    # the same job with the Python row parser, then under the profiler
+    py_out = str(work / "out_python.txt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with obs.capture() as rec:
+        run_job("nearestNeighbor", {**base, "csv.engine": "python"},
+                [train, test], py_out, device=DEVICE)
+        torch.cuda.synchronize()
+    py_secs = time.perf_counter() - t0
+    _print_split("nearestNeighbor default, engine=python", rec, ["python"])
+    check(Path(py_out).read_bytes() == Path(work / "out_default.txt")
+          .read_bytes(), f"nearestNeighbor default: {py_secs:.3f}s with "
+          f"engine=python against {secs_by_mode['default']:.3f}s native; "
+          f"output byte-identical")
+    busy = _device_busy(lambda: run_job(
+        "nearestNeighbor", base, [train, test], str(work / "out_prof.txt"),
+        device=DEVICE))
+    check(busy["kernel_s"] > 0, f"nearestNeighbor default under "
+          f"torch.profiler ({CARD}): {json.dumps(busy)}")
     for mode, extra in (("default", {}),
                         ("class_cond", {"nen.class.condtion.weighted": "true"})):
         cpu_out = str(work / f"out_cpu_{mode}.txt")
@@ -1015,7 +1156,7 @@ def phase_packed_bf16(flops: float, rate: float, bf16_flops: float,
                                    rate, "bench")
     _check_mma_shapes()
     _check_merge_ragged()
-    _partial_nan_keys()
+    _check_partial_nan()
     return results
 
 
@@ -1154,49 +1295,104 @@ def _check_merge_ragged() -> None:
                                f"; missing {sorted(want - nan_votes)}"))
 
 
-def _partial_nan_keys() -> None:
-    """Asks whether the partial kernel can make a key that is a NaN with
-    the sign bit set, the one kind of NaN key that sorts before every
-    distance (a positive NaN key is at or above the empty key: an empty
-    slot). Queries and train rows hold NaN and sign-bit NaN features
-    (a missing value parses to NaN); for each mode, metric and dtype the
-    count of final keys with the sign bit and an all-ones exponent (a
-    negative NaN, or -inf where the low bits were masked) is printed, and
-    the count of keys at or above the empty key. A question, not a check:
-    the answer is what PERF.md records."""
+def _check_partial_nan() -> None:
+    """Features that hold NaN (a missing value parses to NaN) through the
+    partial kernel and its merge, each form against the plain version on
+    the same card inputs: queries and train rows with NaN and sign-bit
+    NaN features, D=6 and D=128, every mode and metric, float32 on the
+    CUDA-core form and euclidean bfloat16 on both forms. On the queries
+    with a NaN feature the keys, indices and finished distances must be
+    the plain version's (NaN counted as NaN: the exact key NAN_KEY, NaN
+    finished, index kept; an empty slot in the other modes); on every
+    query the slots holding NAN_KEY and their indices must be the plain
+    version's, no NaN train row may be taken outside exact mode, and the
+    vote's scores must be bit-equal on the NaN queries (all zeros). Under
+    manhattan (the same fp32 adds in the same order) every key, index and
+    score must be the plain version's."""
     import numpy as np
     import torch
 
     from avenir_tpu_torch.ops import knn_kernels as kk
 
     rng = np.random.default_rng(9)
-    q = rng.random((256, 6), dtype=np.float32)
-    t = rng.random((4096, 6), dtype=np.float32)
     nan, neg_nan = (np.uint32(b).view(np.float32)
                     for b in (0x7FC00000, 0xFFC00000))
-    q[::4, 0], q[1::4, 2] = neg_nan, nan
-    t[::3, 1], t[1::3, 5] = neg_nan, nan
-    qd, td = torch.from_numpy(q).to(DEVICE), torch.from_numpy(t).to(DEVICE)
-    found = {}
-    for mode in ("exact", "lanes"):
-        for metric in ("manhattan", "euclidean"):
-            for dtype in ("float32", "bfloat16"):
-                bf16 = kk._bf16(dtype, metric)
-                if dtype == "bfloat16" and not bf16:
-                    continue
-                key, _ = kk._topk_keys(mode, qd, td, K, metric == "euclidean",
-                                       bf16, td.shape[0])
-                empty = kk._key_spec(mode, td)[2]
-                found[f"{mode}/{metric}/{dtype}"] = (
-                    int(((key >> 23) & 0x1FF).eq(0x1FF).sum()),
-                    int((key >= empty).sum()))
+    found, bad, n = {}, [], 0
+    for d in (6, 128):
+        q = rng.random((256, d), dtype=np.float32)
+        t = rng.random((4096, d), dtype=np.float32)
+        # half the queries hold a NaN; 3 train rows, fewer than k, so the
+        # other queries' lists hold NaN distances and numbers
+        q[::4, 0], q[1::4, d - 1] = neg_nan, nan
+        t[[7, 2000], 1], t[3001, d - 2] = neg_nan, nan
+        nan_q = torch.from_numpy(np.isnan(q).any(1)).to(DEVICE)
+        nan_t = torch.from_numpy(np.flatnonzero(np.isnan(t).any(1))).to(DEVICE)
+        qd, td = torch.from_numpy(q).to(DEVICE), torch.from_numpy(t).to(DEVICE)
+        labels = torch.from_numpy((np.arange(4096) % 2).astype(np.int32)).to(
+            DEVICE)
+        nt = td.shape[0]
+        for mode in ("exact", "packed", "lanes", "labels"):
+            for metric in ("manhattan", "euclidean"):
+                euclid = metric == "euclidean"
+                forms = ((("float32", False), ("bfloat16", False),
+                          ("bfloat16", True)) if euclid
+                         else (("float32", False),))
+                for dtype, mma in forms:
+                    bf16 = dtype == "bfloat16"
+                    name = (f"D={d}/{mode}/{metric}/{dtype}/"
+                            f"{'tensor-core' if mma else 'CUDA-core'}")
+                    n += 1
+                    why = _nan_case(kk, mode, qd, td, labels, metric, euclid,
+                                    bf16, mma, nt, nan_q, nan_t, found, name)
+                    if why:
+                        bad.append(f"{name}: {why}")
+    check(not bad, f"partial kernel on NaN and sign-bit NaN features (256 x "
+          f"4096, D 6 and 128, k={K}): {n - len(bad)} of {n} cases hold the "
+          f"plain version's NaN answer; NaN keys and empty slots by case "
+          f"{json.dumps(found)}" + (f"; not {bad}" if bad else ""))
+
+
+def _nan_case(kk, mode, q, t, labels, metric, euclid, bf16, mma, nt, nan_q,
+              nan_t, found, name):
+    """One case of _check_partial_nan: why it fails, or None."""
+    import torch
+
+    if mode == "labels":
+        mask, empty = (1 << kk.label_bits(2)) - 1, kk.SENTINEL
+        key, _ = kk._select_plain(q, t, K, metric, nt, mode, mask, empty, bf16,
+                                  labels)
+        want = kk._vote(key, mask, 2, q.shape[1], metric, "gaussian", 30.0)
+        got = kk._classify_scores(q, t, labels, K, euclid, bf16, 2,
+                                  q.shape[1], "gaussian", 30.0, nt, mma=mma)
+        torch.cuda.synchronize()
+        found[name] = int((key >= empty).sum())
+        if not _same(got[nan_q], want[nan_q]) or got[nan_q].any():
+            return "scores of the NaN queries"
+        if not euclid and not _same(got, want):
+            return "scores"
+        return None
+    _, mask, empty = kk._key_spec(mode, t)
+    pk, pi = kk._select_plain(q, t, K, metric, nt, mode, mask, empty, bf16)
+    gk, gi = kk._topk_keys(mode, q, t, K, euclid, bf16, nt, mma=mma)
     torch.cuda.synchronize()
-    print(f"partial kernel on NaN and sign-bit NaN features ({q.shape[0]} x "
-          f"{t.shape[0]}, k={K}, {K * q.shape[0]} keys each): sign-bit NaN "
-          f"or -inf keys, keys at or above the empty key: "
-          f"{json.dumps(found)}; a sign-bit NaN key "
-          + ("was made" if any(v[0] for v in found.values())
-             else "was never made"), flush=True)
+    found[name] = (int((gk == kk.NAN_KEY).sum()), int((gk >= empty).sum()))
+    na = q.shape[1]
+    gd, gdi = kk._finish(gk, gi, metric, na, mask, empty)
+    pd, pdi = kk._finish(pk, pi, metric, na, mask, empty)
+    if not (_same(gk[nan_q], pk[nan_q]) and _same(gi[nan_q], pi[nan_q])
+            and _same(gd[nan_q], pd[nan_q], nan_bits=False)
+            and _same(gdi[nan_q], pdi[nan_q])):
+        return "keys, indices or distances of the NaN queries"
+    nk = pk == kk.NAN_KEY
+    if not (torch.equal(gk == kk.NAN_KEY, nk) and torch.equal(gi[nk], pi[nk])):
+        return "NaN slots"
+    if mode == "exact" and not nk.any():
+        return "no NaN distance taken first"
+    if mode != "exact" and torch.isin(gi, nan_t).any():
+        return "a NaN train row taken"
+    if not euclid and not (_same(gk, pk) and _same(gi, pi)):
+        return "keys"
+    return None
 
 
 def _check_mma_shapes() -> None:
@@ -1266,6 +1462,7 @@ def phase_naive_bayes():
     same job with device="cpu"."""
     import torch
 
+    from avenir_tpu_torch import obs
     from avenir_tpu_torch.data import churn_schema, generate_churn
     from avenir_tpu_torch.runner import run_job
 
@@ -1283,28 +1480,40 @@ def phase_naive_bayes():
           f"{NB_TEST_ROWS} test rows, written in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
-    def timed(name, props, inputs, out, device):
+    check_ingest(train, churn_schema(), "churn train file")
+
+    def timed(name, props, inputs, out, device, engines):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = run_job(name, props, inputs, str(out), device=device)
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t0
+        with obs.capture() as rec:
+            res = run_job(name, props, inputs, str(out), device=device)
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _print_split(f"{name} {device}, engine={props['csv.engine']}", rec,
+                     engines)
+        return res, secs
 
+    # the native parser wherever auto would take it: a failed build fails
     distr = {"bad.feature.schema.file.path": schema,
-             "bad.stream.block.size.mb": "4"}
+             "bad.stream.block.size.mb": "4", "csv.engine": "native"}
     models, secs = {}, {}
-    for dev in (DEVICE, "cpu"):
-        models[dev] = work / f"model_{dev}.csv"
-        res, secs[dev] = timed("bayesianDistr", distr, [str(train)],
-                               models[dev], dev)
+    for dev, engine in ((DEVICE, "native"), (DEVICE, "python"),
+                        ("cpu", "native")):
+        key = dev if engine == "native" else f"{dev}_python"
+        models[key] = work / f"model_{key}.csv"
+        res, secs[key] = timed("bayesianDistr", {**distr, "csv.engine": engine},
+                               [str(train)], models[key], dev, [engine])
         check(res.counters["Distribution Data:Records"] == NB_TRAIN_ROWS,
-              f"bayesianDistr {dev}: {secs[dev]:.2f}s, {res.counters}")
-    same = all((work / f"model_{DEVICE}.csv{ext}").read_bytes()
+              f"bayesianDistr {dev}, engine={engine}: {secs[key]:.2f}s, "
+              f"{res.counters}")
+    same = all((work / f"model_{key}.csv{ext}").read_bytes()
                == (work / f"model_cpu.csv{ext}").read_bytes()
-               for ext in ("", ".stamp.json"))
+               for ext in ("", ".stamp.json")
+               for key in (DEVICE, f"{DEVICE}_python"))
     check(same, "bayesianDistr: model file and stamp byte-identical to the "
-          "CPU run's")
-    predict = {"bap.feature.schema.file.path": schema,
+          "CPU run's under both parsers")
+    # the predictor echoes each row: the Python parser, under auto too
+    predict = {"bap.feature.schema.file.path": schema, "csv.engine": "python",
                "bap.bayesian.model.file.path": str(models[DEVICE]),
                "bap.validation.mode": "true",
                "bap.positive.class.value": "closed",
@@ -1314,7 +1523,7 @@ def phase_naive_bayes():
     for dev in (DEVICE, "cpu"):
         out = work / f"pred_{dev}.txt"
         res, psecs[dev] = timed("bayesianPredictor", predict, [str(test)],
-                                out, dev)
+                                out, dev, ["python"])
         rows[dev] = [ln.rsplit(",", 2)[1:] for ln in
                      out.read_text().splitlines()]
         acc = res.counters["Validation:Accuracy"]
@@ -1329,18 +1538,22 @@ def phase_naive_bayes():
           f"bayesianPredictor: class equal to the CPU run's on {classes} of "
           f"{NB_TEST_ROWS} rows, percent within {pct}")
     shutil.rmtree(work)
-    return {"distr_s": secs[DEVICE], "distr_cpu_s": secs["cpu"],
-            "predict_s": psecs[DEVICE], "predict_cpu_s": psecs["cpu"]}
+    return {"distr_s": secs[DEVICE], "distr_python_s": secs[f"{DEVICE}_python"],
+            "distr_cpu_s": secs["cpu"], "predict_s": psecs[DEVICE],
+            "predict_cpu_s": psecs["cpu"]}
 
 
 # ------------------------------------------------------------------ phase 8
 def phase_pipeline():
     """`knn_pipeline` (the five stages of resource/knn.sh) on the card,
-    stage by stage through `Pipeline.run(only=)`, then its CPU twin on
-    the same CSVs: every file byte-identical. Returns the card run's
-    launch counts."""
+    stage by stage through `Pipeline.run(only=)`, with the native parser
+    where auto would take it and then with the Python parser, and its CPU
+    twin on the same CSVs: every file of both card runs byte-identical to
+    the twin's. Prints each stage's host-clock split. Returns the first
+    card run's launch counts."""
     import torch
 
+    from avenir_tpu_torch import obs
     from avenir_tpu_torch.data import elearn_schema, generate_elearn
     from avenir_tpu_torch.ops import knn_kernels as kk
     from avenir_tpu_torch.pipelines import knn_pipeline
@@ -1353,39 +1566,48 @@ def phase_pipeline():
     train, test = str(work / "train.csv"), str(work / "test.csv")
     Path(train).write_text(generate_elearn(PIPE_NT, seed=301, as_csv=True))
     Path(test).write_text(generate_elearn(PIPE_NQ, seed=302, as_csv=True))
+    # the native parser wherever auto would take it (the feature
+    # posteriors echo rows: Python's); the joiner parses its own lines
     props = {"nen.top.match.count": str(K), "nen.validation.mode": "true",
-             "nen.class.condtion.weighted": "true"}
+             "nen.class.condtion.weighted": "true", "csv.engine": "native",
+             "bap.csv.engine": "python"}
     pairs = PIPE_NT * PIPE_NQ
     counts = None
-    for dev in (DEVICE, "cpu"):
-        pipe = knn_pipeline(props, train, test, str(work / dev),
-                            schema_path=schema, device=dev)
+    runs = ((DEVICE, "native"), (DEVICE, "python"), ("cpu", "native"))
+    for dev, engine in runs:
+        name = dev if engine == "native" else f"{dev}_python"
+        pipe = knn_pipeline({**props, "csv.engine": engine}, train, test,
+                            str(work / name), schema_path=schema, device=dev)
         secs = {}
-        if dev == DEVICE:
+        if name == DEVICE:
             _reset_launches()
-        for st in pipe.stages:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pipe.run(only=st.name)
-            torch.cuda.synchronize()
-            secs[st.name] = round(time.perf_counter() - t0, 3)
-        if dev == DEVICE:
+        with obs.capture() as rec:
+            for st in pipe.stages:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pipe.run(only=st.name)
+                torch.cuda.synchronize()
+                secs[st.name] = round(time.perf_counter() - t0, 3)
+        if name == DEVICE:
             counts = _launch_counts()
+        _print_split(f"knn_pipeline {dev}, engine={engine} ({PIPE_NT} x "
+                     f"{PIPE_NQ})", rec, [engine, "python"])
         res = pipe.results
         sim = res["similarity"].counters["Similarity:Pairs"]
         join = res["join"].counters["Join:Pairs"]
         acc = res["nearestNeighbor"].counters["Validation:Accuracy"]
         check(sim == join == pairs and acc > 60
-              and (dev != DEVICE or kk.knn_topk.launches >= 1),
-              f"knn_pipeline {dev} ({PIPE_NT} x {PIPE_NQ}, {CARD}): "
-              f"{sum(secs.values()):.2f}s, stage seconds {json.dumps(secs)}, "
-              f"Similarity:Pairs {sim}, Join:Pairs {join}, "
+              and (name != DEVICE or kk.knn_topk.launches >= 1),
+              f"knn_pipeline {dev}, engine={engine} ({PIPE_NT} x {PIPE_NQ}, "
+              f"{CARD}): {sum(secs.values()):.2f}s, stage seconds "
+              f"{json.dumps(secs)}, Similarity:Pairs {sim}, Join:Pairs {join}, "
               f"Validation:Accuracy {acc}"
-              + (f", launches {counts}" if dev == DEVICE else ""))
-    same = [f for f in PIPE_FILES if (work / DEVICE / f).read_bytes()
-            == (work / "cpu" / f).read_bytes()]
-    check(len(same) == len(PIPE_FILES), f"knn_pipeline: {same} byte-identical "
-          f"to the CPU run's, of {list(PIPE_FILES)}")
+              + (f", launches {counts}" if name == DEVICE else ""))
+    for name in (DEVICE, f"{DEVICE}_python"):
+        same = [f for f in PIPE_FILES if (work / name / f).read_bytes()
+                == (work / "cpu" / f).read_bytes()]
+        check(len(same) == len(PIPE_FILES), f"knn_pipeline {name}: {same} "
+              f"byte-identical to the CPU run's, of {list(PIPE_FILES)}")
     shutil.rmtree(work)
     return counts
 

@@ -52,12 +52,28 @@ def test_modules_list_covers_the_package():
     assert "avenir_tpu_torch.models.artifact" in MODULES
     assert "avenir_tpu_torch.ops.matmul_ceiling" in MODULES
     assert "avenir_tpu_torch.tools.bench" in MODULES
+    for sub in ("obs", "obs.trace", "obs.histogram", "native",
+                "native.ingest"):
+        assert f"avenir_tpu_torch.{sub}" in MODULES
 
 
-@pytest.mark.parametrize("entry", ["avenir_tpu_torch", "all", "chip_smoke"])
+def test_native_source_is_the_ports_own():
+    """The native parser builds from the port's own copy of the C++
+    source, in the port's build directory."""
+    from avenir_tpu_torch.native import ingest
+
+    assert ingest.SRC == PORT / "native" / "csv_ingest.cpp"
+    assert ingest.SRC.exists()
+    assert ingest.BUILD_ROOT == ROOT / "build" / "avenir_tpu_torch" / "native"
+
+
+@pytest.mark.parametrize("entry", ["avenir_tpu_torch", "all", "chip_smoke",
+                                   "obs", "native"])
 def test_import_loads_no_jax(entry):
     modules = {"avenir_tpu_torch": ["avenir_tpu_torch"], "all": MODULES,
-               "chip_smoke": ["chip_smoke"]}[entry]
+               "chip_smoke": ["chip_smoke"],
+               "obs": ["avenir_tpu_torch.obs"],
+               "native": ["avenir_tpu_torch.native.ingest"]}[entry]
     loaded = _loaded(*modules)
     assert set(modules) <= set(loaded)
     assert _forbidden(loaded) == []

@@ -38,7 +38,9 @@ from avenir_tpu_torch.models import knn as tknn
 from avenir_tpu_torch.models.convert import (classifier_from_jax_arrays,
                                              index_from_jax_arrays)
 from avenir_tpu_torch.ops import knn_kernels as kk
+from avenir_tpu_torch import obs
 from avenir_tpu_torch.runner import run_job
+from test_torch_native_ingest import engine_of, parse_engines
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = "cpu"
@@ -99,11 +101,15 @@ def test_job_output_byte_identical_to_jax(elearn_csvs, tmp_path, variant):
              **JOB_VARIANTS[variant]}
     inputs = [elearn_csvs["train"], elearn_csvs["test"]]
     ref = jax_run_job("nearestNeighbor", props, inputs, str(tmp_path / "jax"))
-    got = run_job("nearestNeighbor", props, inputs, str(tmp_path / "port"),
-                  device=CPU)
-    assert (tmp_path / "port").read_bytes() == (tmp_path / "jax").read_bytes()
-    assert _validation(got.counters) == _validation(ref.counters)
-    assert got.counters["Validation:Accuracy"] > 60
+    for engine in ("auto", "python"):     # the native parser, then Python's
+        out = tmp_path / f"port_{engine}"
+        with obs.capture() as rec:
+            got = run_job("nearestNeighbor", {**props, "csv.engine": engine},
+                          inputs, str(out), device=CPU)
+        assert parse_engines(rec) == {engine_of(engine)}
+        assert out.read_bytes() == (tmp_path / "jax").read_bytes()
+        assert _validation(got.counters) == _validation(ref.counters)
+        assert got.counters["Validation:Accuracy"] > 60
 
 
 def test_job_through_properties_file_and_cli(elearn_csvs, tmp_path):

@@ -49,8 +49,10 @@ from avenir_tpu_torch.models.naive_bayes import (NaiveBayesModel,
                                                  NaiveBayesPredictor)
 from avenir_tpu_torch.ops import knn_kernels as kk
 from avenir_tpu_torch.ops import matmul_ceiling as mc
+from avenir_tpu_torch import obs
 from avenir_tpu_torch.runner import run_job
 from avenir_tpu_torch.utils.metrics import CostBasedArbitrator
+from test_torch_native_ingest import engine_of, parse_engines
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = "cpu"
@@ -338,13 +340,17 @@ def test_distr_job_byte_identical_to_jax(corpora, tmp_path, corpus,
         props["bad.stream.block.size.mb"] = block_mb
     train = [corpora[f"{corpus}_train"]]
     ref = jax_run_job("bayesianDistr", props, train, str(tmp_path / "jax.csv"))
-    got = run_job("bayesianDistr", props, train, str(tmp_path / "port.csv"),
-                  device=CPU)
-    for ext in ("", ".stamp.json"):
-        assert (tmp_path / f"port.csv{ext}").read_bytes() == \
-            (tmp_path / f"jax.csv{ext}").read_bytes()
-    key = "Distribution Data:Records"
-    assert got.counters[key] == ref.counters[key] == CORPORA[corpus][0]
+    for engine in ("auto", "python"):     # the native parser, then Python's
+        out = tmp_path / f"port_{engine}.csv"
+        with obs.capture() as rec:
+            got = run_job("bayesianDistr", {**props, "csv.engine": engine},
+                          train, str(out), device=CPU)
+        assert parse_engines(rec) == {engine_of(engine)}
+        for ext in ("", ".stamp.json"):
+            assert (tmp_path / f"port_{engine}.csv{ext}").read_bytes() == \
+                (tmp_path / f"jax.csv{ext}").read_bytes()
+        key = "Distribution Data:Records"
+        assert got.counters[key] == ref.counters[key] == CORPORA[corpus][0]
 
 
 @pytest.mark.parametrize("mode", sorted(JOB_MODES))

@@ -22,8 +22,10 @@ from avenir_tpu.pipelines import knn_pipeline as jax_knn_pipeline
 from avenir_tpu.runner import Pipeline as JaxPipeline
 from avenir_tpu.runner import Stage as JaxStage
 from avenir_tpu_torch.data import elearn_schema, generate_elearn
+from avenir_tpu_torch import obs
 from avenir_tpu_torch.pipelines import knn_pipeline
 from avenir_tpu_torch.runner import Pipeline, Stage
+from test_torch_native_ingest import engine_of, parse_engines
 
 CPU = "cpu"
 FILES = ("simi.txt", "distr.csv", "condProb.txt", "join.txt", "knn_out.txt")
@@ -58,19 +60,24 @@ def test_knn_pipeline_files_match_jax(elearn_env, tmp_path, fuse):
     args = (props, elearn_env["train"], elearn_env["test"])
     ref = jax_knn_pipeline(*args, str(tmp_path / "jax"),
                            schema_path=elearn_env["schema"]).run()
-    got = knn_pipeline(*args, str(tmp_path / "port"),
-                       schema_path=elearn_env["schema"],
-                       device=CPU).run(fuse=fuse)
-    assert list(got) == list(ref) == ["similarity", "bayesianDistr",
-                                      "featurePosterior", "join",
-                                      "nearestNeighbor"]
-    assert _counters(got) == _counters(ref)
-    assert got["similarity"].counters["Similarity:Pairs"] == 300 * 80
-    assert got["join"].counters["Join:Pairs"] == 300 * 80
-    assert got["nearestNeighbor"].counters["Validation:Accuracy"] > 60
-    for f in FILES:
-        assert (tmp_path / "port" / f).read_bytes() == \
-            (tmp_path / "jax" / f).read_bytes(), f
+    for engine in ("auto", "python"):     # the native parser, then Python's
+        # the feature posteriors echo rows: the Python parser under auto
+        with obs.capture() as rec:
+            got = knn_pipeline({**props, "csv.engine": engine},
+                               *args[1:], str(tmp_path / engine),
+                               schema_path=elearn_env["schema"],
+                               device=CPU).run(fuse=fuse)
+        assert parse_engines(rec) == {engine_of(engine), "python"}
+        assert list(got) == list(ref) == ["similarity", "bayesianDistr",
+                                          "featurePosterior", "join",
+                                          "nearestNeighbor"]
+        assert _counters(got) == _counters(ref)
+        assert got["similarity"].counters["Similarity:Pairs"] == 300 * 80
+        assert got["join"].counters["Join:Pairs"] == 300 * 80
+        assert got["nearestNeighbor"].counters["Validation:Accuracy"] > 60
+        for f in FILES:
+            assert (tmp_path / engine / f).read_bytes() == \
+                (tmp_path / "jax" / f).read_bytes(), f
 
 
 def test_properties_file_and_stage_overrides(elearn_env, tmp_path):
