@@ -40,6 +40,8 @@ class Dataset:
         # ordinal -> zero-arg thunk of a string column not made yet
         self._lazy = dict(lazy) if lazy else {}
         self.engine = engine            # the parser that made the columns
+        # (ordinal, bins) of each field asked for -> (codes, bins)
+        self._codes_cache: Dict[tuple, tuple] = {}
 
     # ------------------------------------------------------------------ load
     @classmethod
@@ -208,7 +210,14 @@ class Dataset:
         numerics), in ordinal order. Numeric features without bucketWidth
         are skipped: Naive Bayes takes them from feature_matrix()."""
         if fields is None:
-            fields = [f for f in self.schema.feature_fields if f.num_bins() > 0]
+            fields = self.encodable_feature_fields()
+        # keyed on (ordinal, bins) so a vocabulary discovered after a
+        # cached call (a grown num_bins) misses instead of serving codes
+        # stacked against the old bin count
+        memo_key = tuple((f.ordinal, f.num_bins()) for f in fields)
+        hit = self._codes_cache.get(memo_key)
+        if hit is not None:
+            return hit[0], list(hit[1])
         cols, bins = [], []
         for fld in fields:
             nb = fld.num_bins()
@@ -228,18 +237,29 @@ class Dataset:
             bins.append(nb)
         codes = (np.stack(cols, axis=1) if cols
                  else np.zeros((self.n_rows, 0), dtype=np.int32))
+        # the cached matrix is shared by every caller (a SharedScan chunk
+        # feeds several folds): frozen, so a fold that writes to it raises
+        # instead of corrupting the others' codes
+        codes.setflags(write=False)
+        self._codes_cache[memo_key] = (codes, tuple(bins))
         return codes, bins
 
     def feature_matrix(self, fields: Optional[Sequence[FeatureField]] = None
                        ) -> np.ndarray:
         """float32 [n, D] of numeric feature values (raw, unbinned)."""
         if fields is None:
-            fields = [f for f in self.schema.feature_fields if f.is_numeric]
+            fields = self.numeric_feature_fields()
         cols = [self.column(f.ordinal).astype(np.float32, copy=False)
                 for f in fields]
         if not cols:
             return np.zeros((self.n_rows, 0), dtype=np.float32)
         return np.stack(cols, axis=1)
+
+    def numeric_feature_fields(self) -> List[FeatureField]:
+        return [f for f in self.schema.feature_fields if f.is_numeric]
+
+    def encodable_feature_fields(self) -> List[FeatureField]:
+        return [f for f in self.schema.feature_fields if f.num_bins() > 0]
 
     def take(self, idx: np.ndarray) -> "Dataset":
         """Row subset (a numpy fancy index); a lazy column stays lazy."""

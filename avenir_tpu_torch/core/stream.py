@@ -1,7 +1,8 @@
-"""Chunked streaming CSV ingest.
+"""Chunked streaming CSV ingest, and the scan shared by several folds.
 
-The port's own copy of the block reader of `avenir_tpu/core/stream.py`,
-without its columnar sidecar and prefetch thread. The reference streams
+The port's own copy of the block reader and `SharedScan` of
+`avenir_tpu/core/stream.py`, without its columnar sidecar and prefetch
+thread. The reference streams
 unbounded files through mappers one line at a time; here the unit is a
 byte block of a fixed size cut at the last newline, parsed into a Dataset
 chunk against one shared schema, so host memory stays O(block) however
@@ -15,13 +16,18 @@ parser of every Dataset a job reads, as Dataset.from_csv's `engine`.
 from __future__ import annotations
 
 import os
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, Optional
 
 from avenir_tpu_torch import obs
 from avenir_tpu_torch.core.dataset import Dataset
 from avenir_tpu_torch.core.schema import FeatureSchema
 
 DEFAULT_BLOCK_BYTES = 64 << 20
+
+#: called with no argument for every block `iter_byte_blocks` yields, when
+#: set: a test counts the blocks a run reads (one scan or three). None in
+#: production, where the check is one load a block.
+_produce_hook = None
 
 
 def iter_byte_blocks(path: str, block_bytes: int = DEFAULT_BLOCK_BYTES
@@ -49,11 +55,19 @@ def iter_byte_blocks(path: str, block_bytes: int = DEFAULT_BLOCK_BYTES
             carry = data[cut + 1:]
             if data[:cut + 1].strip():
                 obs.record("stream.read", t0, path=path, nbytes=cut + 1)
+                _produced()
                 yield data[:cut + 1]
                 t0 = obs.now()
         if carry.strip():
             obs.record("stream.read", t0, path=path, nbytes=len(carry))
+            _produced()
             yield carry
+
+
+def _produced() -> None:
+    hook = _produce_hook
+    if hook is not None:
+        hook()
 
 
 def read_file(path: str) -> bytes:
@@ -93,3 +107,53 @@ def stream_job_inputs(cfg, inputs: Iterable[str], schema: FeatureSchema,
         for blk in iter_byte_blocks(path, block):
             yield Dataset.from_csv(blk, schema, delim=cfg.field_delim_regex,
                                    keep_raw=keep_raw, engine=engine)
+
+
+class SharedScan:
+    """One read and one parse a chunk, handed to N fold sinks.
+
+    The chunk iterator (a `stream_job_inputs` feed) runs once, and each
+    chunk goes to every registered sink in registration order, one after
+    another: each sink sees its chunks in the order its own one-job scan
+    would, which is what makes a shared scan's outputs byte-identical to
+    per-job scans.
+
+    Error contract: a sink that raises closes the chunk iterator before
+    the exception propagates, so a generator feed runs its `finally`
+    blocks (its open file closes) and is not left suspended."""
+
+    def __init__(self, chunks: Iterable):
+        self._chunks = chunks
+        self._sinks: list = []
+
+    def add_sink(self, sink, label: Optional[str] = None) -> None:
+        """Register a per-chunk consumer: a callable taking one chunk, or
+        an object with a `consume` method. `label` names the sink in its
+        `stream.fold` spans (default: its class or function name)."""
+        fn = getattr(sink, "consume", sink)
+        if label is None:
+            label = (type(sink).__name__ if hasattr(sink, "consume")
+                     else getattr(sink, "__name__", "sink"))
+        self._sinks.append((fn, label))
+
+    def run(self) -> int:
+        """Drive the scan and return the number of chunks. Each sink call
+        is a `stream.fold` span (attributes `sink` and `chunk`), and each
+        chunk's whole fan-out adds one value to the `chunk_latency_ms`
+        histogram."""
+        n = 0
+        it = iter(self._chunks)
+        try:
+            for chunk in it:
+                t_chunk = obs.now()
+                for sink, label in self._sinks:
+                    t0 = obs.now()
+                    sink(chunk)
+                    obs.record("stream.fold", t0, sink=label, chunk=n)
+                obs.observe("chunk_latency_ms", (obs.now() - t_chunk) * 1e3)
+                n += 1
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+        return n

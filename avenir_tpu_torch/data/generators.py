@@ -3,7 +3,10 @@
 The port's own copy of the churn and e-learning generators of
 `avenir_tpu/data/generators.py`: the same numpy draws from the same seed,
 so both packages see the same rows. They stand in for the reference's
-resource/telecom_churn.py and resource/elearn.py scripts.
+resource/telecom_churn.py and resource/elearn.py scripts. The
+multi-class corpus (`generate_multiclass`) is the port's own: continuous
+fields over more than two classes, the shape that shows the order in
+which Naive Bayes sums its moments.
 """
 
 from __future__ import annotations
@@ -102,4 +105,36 @@ def generate_elearn(n: int, num_numeric: int = 6, seed: int = 11,
     x = np.clip(x, 0, 100)
     rows = [[f"S{i:08d}"] + [f"{v:.3f}" for v in x[i]] + [["fail", "pass"][y[i]]]
             for i in range(n)]
+    return _rows_out(rows, schema, as_csv)
+
+
+def multiclass_schema(num_classes: int, num_cont: int) -> FeatureSchema:
+    """id, one categorical feature, `num_cont` unbinned numeric features
+    and a class of `num_classes` values."""
+    fields = [{"name": "id", "ordinal": 0, "id": True, "dataType": "string"},
+              {"name": "color", "ordinal": 1, "dataType": "categorical",
+               "cardinality": ["red", "green", "blue"], "feature": True}]
+    for i in range(num_cont):
+        fields.append({"name": f"x{i}", "ordinal": i + 2,
+                       "dataType": "double", "feature": True})
+    fields.append({"name": "label", "ordinal": num_cont + 2,
+                   "dataType": "categorical",
+                   "cardinality": [f"c{i}" for i in range(num_classes)]})
+    return FeatureSchema.from_json({"fields": fields})
+
+
+def generate_multiclass(n: int, num_classes: int, num_cont: int,
+                        seed: int = 13, as_csv: bool = False
+                        ) -> Union[Dataset, str]:
+    """Uniform rows of `multiclass_schema`: the class and the colour drawn
+    uniformly, the numeric fields uniform in [0, 120) written to four
+    decimals."""
+    rng = np.random.default_rng(seed)
+    schema = multiclass_schema(num_classes, num_cont)
+    y = rng.integers(0, num_classes, n)
+    color = rng.integers(0, 3, n)
+    x = rng.random((n, num_cont)) * 120.0
+    colors = schema.field_by_ordinal(1).cardinality
+    rows = [[f"M{i:08d}", colors[color[i]]] + [f"{v:.4f}" for v in x[i]]
+            + [f"c{y[i]}"] for i in range(n)]
     return _rows_out(rows, schema, as_csv)

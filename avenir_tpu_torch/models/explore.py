@@ -1,0 +1,502 @@
+"""Feature exploration: mutual information and the correlation family.
+
+The port of the mutual-information and correlation parts of
+`avenir_tpu/models/explore.py` (org.avenir.explore). Each job is a
+contingency-table or moment reduction over records:
+
+- mutual information and its selection scores (MutualInformation.java,
+  MutualInformationScore.java): the chunk's count tables are
+  `torch.bincount`s on the device (`_mi_chunk_counts`), drained to
+  float64 host arrays per chunk; the scores are computed from those
+  tables on the host, in float32 as the JAX package computes them
+  (`ops/infotheory.py`), so a card run and its CPU twin print the same
+  bytes;
+- Cramér and heterogeneity-reduction correlation: [B, K] contingency
+  tables counted on the device; the Cramér index in float64 numpy, the
+  impurities in float32 on the host;
+- numerical correlation: float64 moments on the host, `m.T @ m` in
+  numpy, as the reference has them.
+
+Counts are integers, so every table is exact and the same on the CPU and
+the card.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from avenir_tpu_torch.core.dataset import Dataset
+from avenir_tpu_torch.core.schema import FeatureField
+from avenir_tpu_torch.ops.infotheory import (bits_entropy, entropy, gini,
+                                             mutual_information)
+from avenir_tpu_torch.ops.reduce import cross_count
+from avenir_tpu_torch.utils.devices import DeviceLike, resolve_device
+
+_EPS = 1e-12
+#: bytes a chunk's fused count may take: its int64 tables (P bmax^2 (k + 1)
+#: + F bmax k cells, padded to the widest vocabulary) and its two [n, P]
+#: int64 key tensors. Past it add() counts pair by pair, each table in the
+#: keyspace of the pair's own bins.
+_FUSED_BYTES_LIMIT = 256 << 20
+
+
+def _fused_bytes(n: int, nf: int, bmax: int, k: int) -> int:
+    """Bytes of `_mi_chunk_counts`'s tables and key tensors on n rows."""
+    npair = nf * (nf - 1) // 2
+    return 8 * (npair * bmax * bmax * (k + 1) + nf * bmax * k
+                + 2 * n * npair)
+
+
+def _padded_add(acc: Optional[np.ndarray], new: np.ndarray) -> np.ndarray:
+    """acc + new where either may be smaller along any axis (a growing
+    data-discovered vocabulary); missing cells are zero counts."""
+    if acc is None:
+        return new
+    if acc.shape == new.shape:
+        return acc + new
+    shape = tuple(max(a, b) for a, b in zip(acc.shape, new.shape))
+    out = np.zeros(shape, np.float64)
+    out[tuple(slice(0, s) for s in acc.shape)] += acc
+    out[tuple(slice(0, s) for s in new.shape)] += new
+    return out
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().astype(np.float64)
+
+
+# ---------------------------------------------------------------------------
+# mutual information + feature selection scores
+# ---------------------------------------------------------------------------
+def _mi_chunk_counts(codes: torch.Tensor, y: torch.Tensor, bmax: int, k: int,
+                     nf: int) -> Tuple[torch.Tensor, ...]:
+    """One chunk's MI count tables on the codes' device, one int64 key
+    tensor and one `torch.bincount` a table family: fc [F, bmax, k], pair
+    [P, bmax, bmax] and pairc [P, bmax, bmax, k], P = F(F-1)/2 pairs in
+    upper-triangle (`triu`) order. Exact. The caller keeps its bytes
+    (`_fused_bytes`) under `_FUSED_BYTES_LIMIT`."""
+    dev = codes.device
+    codes = codes.long()
+    y = y.long()[:, None]
+    f_idx = torch.arange(nf, device=dev)[None, :]
+    fc = torch.bincount(((f_idx * bmax + codes) * k + y).reshape(-1),
+                        minlength=nf * bmax * k).reshape(nf, bmax, k)
+    ii, jj = np.triu_indices(nf, 1)
+    npair = len(ii)
+    if npair == 0:
+        return (fc, torch.zeros((0, bmax, bmax), dtype=torch.int64, device=dev),
+                torch.zeros((0, bmax, bmax, k), dtype=torch.int64, device=dev))
+    ci = codes[:, torch.as_tensor(ii, device=dev)]
+    cj = codes[:, torch.as_tensor(jj, device=dev)]
+    p_idx = torch.arange(npair, device=dev)[None, :]
+    key_p = (p_idx * bmax + ci) * bmax + cj                      # [n, P]
+    pair = torch.bincount(key_p.reshape(-1), minlength=npair * bmax * bmax
+                          ).reshape(npair, bmax, bmax)
+    pairc = torch.bincount((key_p * k + y).reshape(-1),
+                           minlength=npair * bmax * bmax * k
+                           ).reshape(npair, bmax, bmax, k)
+    return fc, pair, pairc
+
+
+def _mi_chunk_counts_host(codes, y, bmax: int, k: int, nf: int
+                          ) -> Tuple[np.ndarray, ...]:
+    """_mi_chunk_counts in host numpy, the path of a CPU run: one
+    `np.bincount` a table over a per-pair keyspace (no [n, P] key tensor,
+    whose temporaries would dominate host time), the class-marginal pair
+    table the integer sum of pairc over classes. The same integer tables
+    as the device path."""
+    codes = np.ascontiguousarray(codes, np.int64)
+    y = np.asarray(y, np.int64)
+    cy = codes * k + y[:, None]                                 # [n, F]
+    fc = np.empty((nf, bmax, k), np.int64)
+    for f in range(nf):
+        fc[f] = np.bincount(cy[:, f], minlength=bmax * k).reshape(bmax, k)
+    npair = nf * (nf - 1) // 2
+    pair = np.empty((npair, bmax, bmax), np.int64)
+    pairc = np.empty((npair, bmax, bmax, k), np.int64)
+    p = 0
+    for i in range(nf):
+        ci_bk = codes[:, i] * (bmax * k)
+        for j in range(i + 1, nf):
+            pairc[p] = np.bincount(ci_bk + cy[:, j],
+                                   minlength=bmax * bmax * k
+                                   ).reshape(bmax, bmax, k)
+            pair[p] = pairc[p].sum(axis=2)
+            p += 1
+    return fc, pair, pairc
+
+
+class MutualInformationAnalyzer:
+    """The MutualInformation job's tables and scores
+    (MutualInformation.java:62): the class, feature, feature-pair,
+    feature-class and feature-pair-class distributions the reducer held
+    (:138-216), counted a chunk at a time on `device` (default cuda), and
+    the greedy selection loops of MutualInformationScore.java over them:
+      mutual.info.maximization (MIM)         :98
+      mutual.info.selection (MIFS, beta)     :116-140
+      joint.mutual.info (JMI)                :177
+      double.input.symmetric.relevance(DISR) :185-229
+      min.redundancy.max.relevance (mRMR)    :265-288
+    MI values are in nats."""
+
+    def __init__(self, ds: Optional[Dataset] = None,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.fields: Optional[List[FeatureField]] = None
+        self.bins: List[int] = []
+        self.k = 0
+        self.n = 0
+        self._fc: List[np.ndarray] = []                       # f: [Bf, K]
+        self._pair: Dict[Tuple[int, int], np.ndarray] = {}    # [Bi, Bj]
+        self._pairc: Dict[Tuple[int, int], np.ndarray] = {}   # [Bi, Bj, K]
+        if ds is not None:
+            self.add(ds)
+            self.finalize()
+
+    @classmethod
+    def from_chunks(cls, chunks, device: DeviceLike = None
+                    ) -> "MutualInformationAnalyzer":
+        """Fold streamed Dataset chunks and finalize: every table is an
+        additive count, so the chunking cannot change it."""
+        self = cls(device=device)
+        for ds in chunks:
+            self.add(ds)
+        if self.fields is None:
+            raise ValueError("no input chunks")
+        self.finalize()
+        return self
+
+    def add(self, ds: Dataset) -> None:
+        """Fold one chunk's counts into the running tables. A
+        data-discovered categorical vocabulary may grow between chunks:
+        the tables zero-pad along the grown bin axes."""
+        if self.fields is None:
+            self.fields = ds.encodable_feature_fields()
+            self.k = ds.schema.num_classes()
+            self.bins = [0] * len(self.fields)
+            self._fc = [np.zeros((0, self.k), np.float64)
+                        for _ in self.fields]
+        codes, bins = ds.feature_codes(self.fields)
+        nf = len(self.fields)
+        self.bins = [max(a, b) for a, b in zip(self.bins, bins)]
+        bmax = max(bins) if bins else 1
+        if _fused_bytes(len(ds), nf, bmax, self.k) <= _FUSED_BYTES_LIMIT:
+            if self.device.type == "cpu":
+                tables = _mi_chunk_counts_host(codes, ds.labels(), bmax,
+                                               self.k, nf)
+            else:
+                tables = _mi_chunk_counts(
+                    torch.as_tensor(np.asarray(codes, np.int64),
+                                    device=self.device),
+                    torch.as_tensor(ds.labels(), device=self.device),
+                    bmax, self.k, nf)
+            fc, pair, pairc = (np.asarray(t, np.float64)
+                               if isinstance(t, np.ndarray) else _host(t)
+                               for t in tables)
+            p = 0
+            for i in range(nf):
+                self._fc[i] = _padded_add(self._fc[i], fc[i, :bins[i]])
+                for j in range(i + 1, nf):
+                    bi, bj = bins[i], bins[j]
+                    self._pair[(i, j)] = _padded_add(
+                        self._pair.get((i, j)), pair[p, :bi, :bj])
+                    self._pairc[(i, j)] = _padded_add(
+                        self._pairc.get((i, j)), pairc[p, :bi, :bj])
+                    p += 1
+        else:
+            # pair by pair, each table in its own keyspace
+            codes_d = torch.as_tensor(np.asarray(codes, np.int64),
+                                      device=self.device)
+            y = torch.as_tensor(ds.labels(), device=self.device)
+            for f in range(nf):
+                self._fc[f] = _padded_add(self._fc[f], _host(
+                    cross_count(codes_d[:, f], y, bins[f], self.k)))
+            for i in range(nf):
+                for j in range(i + 1, nf):
+                    bi, bj = bins[i], bins[j]
+                    self._pair[(i, j)] = _padded_add(
+                        self._pair.get((i, j)), _host(
+                            cross_count(codes_d[:, i], codes_d[:, j], bi, bj)))
+                    comb = codes_d[:, i].long() * bj + codes_d[:, j]
+                    self._pairc[(i, j)] = _padded_add(
+                        self._pairc.get((i, j)), _host(
+                            cross_count(comb, y, bi * bj, self.k)
+                        ).reshape(bi, bj, self.k))
+        self.n += len(ds)
+
+    def merge(self, other: "MutualInformationAnalyzer"
+              ) -> "MutualInformationAnalyzer":
+        """Fold another analyzer's tables into this one: every table is an
+        additive integer count, so merge(add(A), add(B)) equals
+        add(A ++ B) exactly. Both are un-finalized fits over the same
+        feature set; an empty `other` is a no-op, an empty `self` adopts
+        `other`'s tables. Grown vocabularies zero-pad, as in add()."""
+        if other.fields is None:
+            return self
+        if self.fields is None:
+            self.fields = other.fields
+            self.k = other.k
+            self.bins = [0] * len(other.fields)
+            self._fc = [np.zeros((0, self.k), np.float64)
+                        for _ in other.fields]
+        if self.k != other.k or [f.ordinal for f in self.fields] != \
+                [f.ordinal for f in other.fields]:
+            raise ValueError(
+                "cannot merge MI analyzers over different feature sets "
+                "or class counts")
+        self.bins = [max(a, b) for a, b in zip(self.bins, other.bins)]
+        for i in range(len(self.fields)):
+            self._fc[i] = _padded_add(self._fc[i], other._fc[i])
+        for key, tbl in other._pair.items():
+            self._pair[key] = _padded_add(self._pair.get(key), tbl)
+        for key, tbl in other._pairc.items():
+            self._pairc[key] = _padded_add(self._pairc.get(key), tbl)
+        self.n += other.n
+        return self
+
+    def finalize(self) -> None:
+        """Every MI statistic from the tables, in float32 on the host."""
+        nf = len(self.bins)
+        self.feature_class_mi = np.zeros(nf)
+        self.pair_mi = np.zeros((nf, nf))
+        self.pair_class_mi = np.zeros((nf, nf))
+        self.pair_class_entropy = np.zeros((nf, nf))
+        for f in range(nf):
+            self.feature_class_mi[f] = float(mutual_information(self._fc[f]))
+        for (i, j), joint_ij in self._pair.items():
+            mi_ij = float(mutual_information(joint_ij))
+            self.pair_mi[i, j] = self.pair_mi[j, i] = mi_ij
+        for (i, j), joint_ijc in self._pairc.items():
+            flat = joint_ijc.reshape(-1, self.k)
+            mic = float(mutual_information(flat))
+            self.pair_class_mi[i, j] = self.pair_class_mi[j, i] = mic
+            h = float(entropy(flat.reshape(-1), axis=-1))
+            self.pair_class_entropy[i, j] = self.pair_class_entropy[j, i] = h
+
+    # ------------------------------------------------------------- scores
+    def _ordinals(self) -> List[int]:
+        return [f.ordinal for f in self.fields]
+
+    def mim(self) -> List[Tuple[int, float]]:
+        """Max relevance: features sorted by I(Xf; C) descending."""
+        order = np.argsort(-self.feature_class_mi)
+        ords = self._ordinals()
+        return [(ords[i], float(self.feature_class_mi[i])) for i in order]
+
+    def mifs(self, redundancy_factor: float = 1.0) -> List[Tuple[int, float]]:
+        """Greedy: score = I(Xf;C) - beta * sum_{s in selected} I(Xf;Xs)."""
+        nf = len(self.bins)
+        selected: List[int] = []
+        out = []
+        while len(selected) < nf:
+            best, best_score = -1, -np.inf
+            for f in range(nf):
+                if f in selected:
+                    continue
+                red = sum(self.pair_mi[f, s] for s in selected)
+                score = self.feature_class_mi[f] - redundancy_factor * red
+                if score > best_score:
+                    best, best_score = f, score
+            selected.append(best)
+            out.append((self._ordinals()[best], float(best_score)))
+        return out
+
+    def _jmi_helper(self, joint: bool) -> List[Tuple[int, float]]:
+        nf = len(self.bins)
+        first = int(np.argmax(self.feature_class_mi))
+        selected = [first]
+        out = [(self._ordinals()[first], float(self.feature_class_mi[first]))]
+        while len(selected) < nf:
+            best, best_score = -1, -np.inf
+            for f in range(nf):
+                if f in selected:
+                    continue
+                if joint:
+                    s_sum = sum(self.pair_class_mi[f, s] for s in selected)
+                else:
+                    s_sum = sum(
+                        self.pair_class_mi[f, s]
+                        / max(self.pair_class_entropy[f, s], _EPS)
+                        for s in selected)
+                if s_sum > best_score:
+                    best, best_score = f, s_sum
+            selected.append(best)
+            out.append((self._ordinals()[best], float(best_score)))
+        return out
+
+    def jmi(self) -> List[Tuple[int, float]]:
+        """Joint mutual information selection."""
+        return self._jmi_helper(True)
+
+    def disr(self) -> List[Tuple[int, float]]:
+        """Double-input symmetric relevance (JMI over the pair entropy)."""
+        return self._jmi_helper(False)
+
+    def mrmr(self) -> List[Tuple[int, float]]:
+        """Greedy: score = I(Xf;C) - mean_{s in selected} I(Xf;Xs)."""
+        nf = len(self.bins)
+        selected: List[int] = []
+        out = []
+        while len(selected) < nf:
+            best, best_score = -1, -np.inf
+            for f in range(nf):
+                if f in selected:
+                    continue
+                red = sum(self.pair_mi[f, s] for s in selected)
+                score = (self.feature_class_mi[f] - red / len(selected)
+                         if selected else self.feature_class_mi[f])
+                if score > best_score:
+                    best, best_score = f, score
+            selected.append(best)
+            out.append((self._ordinals()[best], float(best_score)))
+        return out
+
+    def score(self, algorithm: str, redundancy_factor: float = 1.0):
+        """Dispatch by the reference's mut.* algorithm names."""
+        return {
+            "mutual.info.maximization": self.mim,
+            "mutual.info.selection": lambda: self.mifs(redundancy_factor),
+            "joint.mutual.info": self.jmi,
+            "double.input.symmetric.relevance": self.disr,
+            "min.redundancy.max.relevance": self.mrmr,
+        }[algorithm]()
+
+
+# ---------------------------------------------------------------------------
+# correlations
+# ---------------------------------------------------------------------------
+def contingency(ds: Dataset, fld: FeatureField,
+                device: DeviceLike = None) -> np.ndarray:
+    """int64 [Bf, K] feature-value x class count table, counted on
+    `device` (default cuda)."""
+    dev = resolve_device(device)
+    codes, _ = ds.feature_codes([fld])
+    return cross_count(torch.as_tensor(codes[:, 0].astype(np.int64),
+                                       device=dev),
+                       torch.as_tensor(ds.labels(), device=dev),
+                       fld.num_bins(), ds.schema.num_classes()).cpu().numpy()
+
+
+def cramer_index(table: np.ndarray) -> float:
+    """Cramér index V^2 = chi2 / (n * min(r-1, c-1)) in float64
+    (CramerCorrelation.java via chombo ContingencyMatrix)."""
+    n = table.sum()
+    if n == 0:
+        return 0.0
+    row = table.sum(axis=1, keepdims=True)
+    col = table.sum(axis=0, keepdims=True)
+    expected = row @ col / n
+    chi2 = float(np.where(expected > 0,
+                          (table - expected) ** 2 / np.maximum(expected, _EPS),
+                          0.0).sum())
+    r, c = table.shape
+    denom = n * max(min(r - 1, c - 1), 1)
+    return chi2 / denom
+
+
+class ContingencyAccumulator:
+    """Streaming per-field feature-value x class contingency tables, the
+    whole correlation family's input (Cramér, categorical, heterogeneity
+    reduction; CramerCorrelation.java:54). Tables are counted on `device`
+    (default cuda) a chunk at a time and kept as float64 host arrays; the
+    bin axis grows as a data-discovered vocabulary does."""
+
+    def __init__(self, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.fields: Optional[List[FeatureField]] = None
+        self.tables: Dict[int, np.ndarray] = {}      # ordinal -> [B, K]
+        self.class_counts: Optional[np.ndarray] = None
+        self.k = 0
+        self.n = 0
+
+    def add(self, ds: Dataset) -> None:
+        if self.fields is None:
+            self.fields = ds.encodable_feature_fields()
+            self.k = ds.schema.num_classes()
+            self.class_counts = np.zeros(self.k, np.float64)
+        y = ds.labels()
+        self.class_counts += np.bincount(y, minlength=self.k)
+        if self.fields:
+            codes, bins = ds.feature_codes(self.fields)
+            codes_d = torch.as_tensor(np.asarray(codes, np.int64),
+                                      device=self.device)
+            yd = torch.as_tensor(y, device=self.device)
+            for i, f in enumerate(self.fields):
+                tab = _host(cross_count(codes_d[:, i], yd, bins[i], self.k))
+                self.tables[f.ordinal] = _padded_add(
+                    self.tables.get(f.ordinal), tab)
+        self.n += len(ds)
+
+    def cramer(self) -> Dict[int, float]:
+        return {o: cramer_index(t) for o, t in sorted(self.tables.items())}
+
+    def heterogeneity(self, algo: str = "entropy") -> Dict[int, float]:
+        """(imp(C) - sum_b p(b) imp(C|b)) / imp(C) a field, the
+        impurities in float32 on the host, the weighting in float64."""
+        imp_fn = bits_entropy if algo == "entropy" else gini
+        base = float(imp_fn(self.class_counts))
+        out = {}
+        for o, tab in sorted(self.tables.items()):
+            seg_tot = tab.sum(axis=1)
+            seg_imp = imp_fn(tab, axis=-1).numpy()
+            cond = float((seg_tot / max(seg_tot.sum(), _EPS) * seg_imp).sum())
+            out[o] = (base - cond) / max(base, _EPS)
+        return out
+
+
+class NumericMomentAccumulator:
+    """Streaming Pearson moments (n, sum, cross-products) over the
+    numeric features and the numeric-coded class
+    (NumericalCorrelation.java:48), float64 on the host."""
+
+    def __init__(self):
+        self.n = 0
+        self.s: Optional[np.ndarray] = None
+        self.ss: Optional[np.ndarray] = None
+
+    def add(self, ds: Dataset) -> None:
+        x = ds.feature_matrix()
+        y = ds.labels().astype(np.float32)[:, None]
+        m = np.concatenate([x, y], axis=1).astype(np.float64)
+        if self.s is None:
+            d = m.shape[1]
+            self.s = np.zeros(d, np.float64)
+            self.ss = np.zeros((d, d), np.float64)
+        self.n += m.shape[0]
+        self.s += m.sum(axis=0)
+        self.ss += m.T @ m
+
+    def correlation(self) -> np.ndarray:
+        mean = self.s / max(self.n, 1)
+        cov = self.ss / max(self.n, 1) - np.outer(mean, mean)
+        sd = np.sqrt(np.clip(np.diag(cov), _EPS, None))
+        return cov / np.outer(sd, sd)
+
+
+def cramer_correlation(ds: Dataset, device: DeviceLike = None
+                       ) -> Dict[int, float]:
+    """Per-categorical-feature Cramér index against the class."""
+    acc = ContingencyAccumulator(device)
+    acc.add(ds)
+    return acc.cramer()
+
+
+def heterogeneity_reduction(ds: Dataset, algo: str = "entropy",
+                            device: DeviceLike = None) -> Dict[int, float]:
+    """Proportional impurity reduction of the class by each feature
+    (HeterogeneityReductionCorrelation.java:38)."""
+    acc = ContingencyAccumulator(device)
+    acc.add(ds)
+    return acc.heterogeneity(algo)
+
+
+def numerical_correlation(ds: Dataset) -> np.ndarray:
+    """Pearson correlation matrix over the numeric features and the
+    numeric-coded class, from one moment pass
+    (NumericalCorrelation.java:48)."""
+    acc = NumericMomentAccumulator()
+    acc.add(ds)
+    return acc.correlation()

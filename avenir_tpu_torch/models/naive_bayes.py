@@ -14,11 +14,12 @@ The port of `avenir_tpu/models/naive_bayes.py`. Reference semantics
 
 The JAX package carries both with XLA ops (a one-hot einsum), no Pallas
 kernel, so plain torch ops carry them here, on the device the model names:
-- counting: one `torch.bincount` over a flat (feature, class, bin) key for
-  unweighted counts with no continuous field; `index_add_` in float32 per
-  batch, folded in float64 on the host, for weights or moments, the
-  moments of two or more continuous fields summed in the order of XLA's
-  CPU dot (`_xla_cpu_row_sum`), the same bits on the CPU and the card;
+- counting: one `torch.bincount` over a flat (feature, class, bin) key,
+  int64 with no continuous field; with one, float32 per batch, folded in
+  float64 on the host, the moments summed in the order of XLA's CPU dot
+  for the batch's class and field counts (`ops.reduce.moment_reduce`),
+  with elementwise adds only: the same bits on the CPU and the card (one
+  field and at most three classes sum their rows in order, on the host);
 - predicting: a gather of `log_post[f, :, code_f]` summed over f in
   ascending order in float32 (the order of the JAX einsum's sum, and no
   matrix product whose precision a TF32 setting could change).
@@ -38,6 +39,7 @@ import torch
 
 from avenir_tpu_torch.core.dataset import Dataset
 from avenir_tpu_torch.core.schema import FeatureField, FeatureSchema
+from avenir_tpu_torch.ops.reduce import moment_reduce
 from avenir_tpu_torch.utils.devices import DeviceLike, resolve_device
 from avenir_tpu_torch.utils.metrics import ConfusionMatrix, CostBasedArbitrator
 
@@ -67,12 +69,11 @@ class NaiveBayesModel:
     # count tensors summed on the device, drained to the float64 host
     # arrays by flush(). Unweighted counts with no continuous field fold
     # as int64 — exact to 2^63 rows, so unlike the JAX package's int32
-    # fold (_FLUSH_ROWS_INT) they need no mid-stream flush. Weighted or
-    # moment-bearing folds stay float32 and flush before any cell could
-    # pass float32 integer exactness (2^24).
+    # fold (_FLUSH_ROWS_INT) they need no mid-stream flush. Moment-bearing
+    # folds stay float32 and flush before any cell could pass float32
+    # integer exactness (2^24).
     _pending: Optional[tuple] = None
     _pending_rows: int = 0
-    _pending_int: bool = False
 
     _FLUSH_ROWS = 14 << 20
 
@@ -98,8 +99,8 @@ class NaiveBayesModel:
             device=resolve_device(device),
         )
 
-    def accumulate(self, codes, labels, x_cont, weights=None,
-                   defer: bool = False) -> None:
+    def accumulate(self, codes, labels, x_cont, defer: bool = False
+                   ) -> None:
         """Add one batch of sufficient statistics, counted on the model's
         device. defer=False drains the batch to the host arrays at once;
         defer=True (the streaming path) sums it into a device-side
@@ -107,14 +108,10 @@ class NaiveBayesModel:
         drains."""
         k = len(self.class_values)
         bmax = self.post_counts.shape[2]
-        int_mode = weights is None and self.cont_moments.shape[0] == 0
-        if self._pending is not None and self._pending_int != int_mode:
-            self.flush()
-        batch = _count_batch(codes, labels, x_cont, k, bmax, weights,
-                             self.device)
+        int_mode = self.cont_moments.shape[0] == 0
+        batch = _count_batch(codes, labels, x_cont, k, bmax, self.device)
         if self._pending is None:
             self._pending = batch
-            self._pending_int = int_mode
         else:
             self._pending = tuple(a + b for a, b in zip(self._pending, batch))
         self._pending_rows += int(labels.shape[0])
@@ -329,90 +326,37 @@ class NaiveBayesModel:
         return model
 
 
-def _count_batch(codes, labels, x_cont, k: int, bmax: int, weights,
+def _int64(a, device: torch.device) -> torch.Tensor:
+    """An int64 tensor on `device` of a tensor or a numpy array (a new
+    array: a Dataset's cached codes are read-only)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device).long()
+    return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+
+
+def _count_batch(codes, labels, x_cont, k: int, bmax: int,
                  device: torch.device) -> Tuple[torch.Tensor, ...]:
     """(post [F, K, Bmax], moments [Fc, K, 3], class counts [K]) of one
     batch (numpy arrays or tensors) on `device`: int64 from one bincount
-    when unweighted with no continuous field, else float32 (the JAX
-    package's per-batch dtype)."""
-    codes_t = torch.as_tensor(codes, device=device).long()
-    y = torch.as_tensor(labels, device=device).long()
-    n, f = codes_t.shape
+    when there is no continuous field, else float32 (the JAX package's
+    per-batch dtype). The counts are integer bincounts, exact in float32
+    below 2^24 rows a batch; the moments are summed in the order of XLA's
+    CPU dot (`ops.reduce.moment_reduce`), with no atomics, so their bits
+    are the same on the CPU and the card."""
+    codes_t = _int64(codes, device)
+    y = _int64(labels, device)
+    f = codes_t.shape[1]
     x = torch.as_tensor(x_cont, dtype=torch.float32, device=device)
     fc = x.shape[1]
     # flat (feature, class, bin) key of every (row, feature) pair
     key = ((torch.arange(f, device=device)[None, :] * k + y[:, None]) * bmax
            + codes_t).reshape(-1)
-    if weights is None and fc == 0:
-        post = torch.bincount(key, minlength=f * k * bmax)
-        return (post.reshape(f, k, bmax),
-                torch.zeros((0, k, 3), dtype=torch.int64, device=device),
-                torch.bincount(y, minlength=k))
-    w = (torch.ones(n, dtype=torch.float32, device=device) if weights is None
-         else torch.as_tensor(weights, dtype=torch.float32, device=device))
-    # index_add_ sums each cell's rows in row order on the CPU (as XLA's
-    # einsum does there, bit for bit) and in atomics' order on the card;
-    # unit weights count exactly either way below 2^24 rows per batch
-    post = torch.zeros(f * k * bmax, dtype=torch.float32, device=device)
-    post.index_add_(0, key, w[:, None].expand(n, f).reshape(-1))
-    trip = torch.stack([torch.ones_like(x), x, x * x], dim=-1)   # [n, Fc, 3]
-    if fc > 1:
-        # [n, K, Fc, 3]: a row's terms in its class, zeros in the others,
-        # as the JAX einsum's one-hot product has them
-        terms = ((y[:, None] == torch.arange(k, device=device)[None, :])
-                 .to(torch.float32) * w[:, None])[:, :, None, None] \
-            * trip[:, None]
-        mom = _xla_cpu_row_sum(terms).permute(1, 0, 2)
-    else:
-        # one continuous field: XLA's CPU dot sums the rows in order, as
-        # index_add_ does on the CPU (on the card, in its atomics' order)
-        ckey = (torch.arange(fc, device=device)[None, :] * k
-                + y[:, None]).reshape(-1)
-        mom = torch.zeros((fc * k, 3), dtype=torch.float32, device=device)
-        mom.index_add_(0, ckey, (w[:, None, None] * trip).reshape(-1, 3))
-        mom = mom.reshape(fc, k, 3)
-    cls = torch.zeros(k, dtype=torch.float32, device=device).index_add_(0, y, w)
-    return post.reshape(f, k, bmax), mom, cls
-
-
-#: rows per block of XLA's CPU dot over a long contraction
-_DOT_BLOCK = 8192
-
-
-def _xla_cpu_row_sum(terms: torch.Tensor) -> torch.Tensor:
-    """Sum over the rows of `terms` [n, ...] in float32, in the order
-    XLA's CPU dot takes for the moments of two or more continuous fields
-    (found by probing the JAX package's einsum on the CPU, with two and
-    three classes): blocks of 8192 rows, added in order, each the sum of
-    four running sums over its rows i % 4 = 0..3, combined as (s0 + s1)
-    + (s2 + s3); then the last n % 4 rows, summed in order, added.
-    Only elementwise adds, so the bits are the same on the CPU and the
-    card, and no matrix product whose precision a setting could change.
-    One add a step over n / 4 steps at most 2048 a block (all blocks
-    at once)."""
-    n = terms.shape[0]
-    rest = terms.shape[1:]
-    n_blocks = max(1, -(-n // _DOT_BLOCK))
-    last = n - (n_blocks - 1) * _DOT_BLOCK
-    main = (n_blocks - 1) * _DOT_BLOCK + last // 4 * 4
-    # zero rows pad the lanes of the last block: x + 0 is x
-    lanes = torch.zeros((n_blocks * _DOT_BLOCK,) + rest, dtype=terms.dtype,
-                        device=terms.device)
-    lanes[:main] = terms[:main]
-    lanes = lanes.reshape((n_blocks, _DOT_BLOCK // 4, 4) + rest)
-    steps = _DOT_BLOCK // 4 if n_blocks > 1 else main // 4
-    acc = torch.zeros((n_blocks, 4) + rest, dtype=terms.dtype,
-                      device=terms.device)
-    for j in range(steps):
-        acc = acc + lanes[:, j]
-    block = (acc[:, 0] + acc[:, 1]) + (acc[:, 2] + acc[:, 3])
-    tail = torch.zeros(rest, dtype=terms.dtype, device=terms.device)
-    for i in range(main, n):
-        tail = tail + terms[i]
-    total = block[0]
-    for b in range(1, n_blocks):
-        total = total + block[b]
-    return total + tail
+    post = torch.bincount(key, minlength=f * k * bmax).reshape(f, k, bmax)
+    cls = torch.bincount(y, minlength=k)
+    if fc == 0:
+        return (post, torch.zeros((0, k, 3), dtype=torch.int64,
+                                  device=device), cls)
+    return post.float(), moment_reduce(y, x, k), cls.float()
 
 
 def _log_gauss(x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor
@@ -481,7 +425,7 @@ class NaiveBayesPredictor:
         codes, _ = dataset.feature_codes(self.model.binned_fields)
         x_cont = dataset.feature_matrix(self.model.cont_fields)
         pred, prob = self.predict_tensors(
-            torch.as_tensor(codes, device=self.device),
+            _int64(codes, self.device),
             torch.as_tensor(x_cont, device=self.device))
         pred = pred.cpu().numpy().astype(np.int32)
         prob = prob.cpu().numpy()

@@ -1,9 +1,11 @@
 """Canonical pipelines: the reference's tutorial shell flows as Pipelines.
 
-The port of `knn_pipeline` of `avenir_tpu/pipelines.py`: the stages that
-resource/knn.sh ran by hand, against the same properties keys, so its
-run-book translates 1:1: build the pipeline, call run(). The other
-factories of the JAX module wait for their jobs.
+The port of `knn_pipeline` and `profile_pipeline` of
+`avenir_tpu/pipelines.py`: the stages that resource/knn.sh ran by hand,
+and the corpus profiling every modelling run-book starts with, against
+the same properties keys, so a run-book translates 1:1: build the
+pipeline, call run(). `association_pipeline`, `decision_tree_pipeline` and
+`bandit_round` wait for their jobs.
 """
 
 from __future__ import annotations
@@ -59,4 +61,28 @@ def knn_pipeline(conf, train_csv: str, test_csv: str, work_dir: str,
               os.path.join(work_dir, "join.txt"), dict(overrides)),
         Stage("nearestNeighbor", "nearestNeighbor", [train_csv, test_csv],
               os.path.join(work_dir, "knn_out.txt"), dict(overrides)),
+    ], device=device)
+
+
+def profile_pipeline(conf, train_csv: str, work_dir: str,
+                     schema_path: Optional[str] = None,
+                     device: DeviceLike = None) -> Pipeline:
+    """Corpus profiling on `device` (default cuda): NB distributions
+    (distr.csv), mutual information (mi.txt) and the Fisher discriminant
+    (fisher.txt) over one labelled corpus. All three are stream folds, so
+    `run(fuse=True)` runs them as one shared scan (one read and one parse
+    a chunk, three fold sinks); `run()` scans once a job. The outputs are
+    byte-identical either way."""
+    os.makedirs(work_dir, exist_ok=True)
+    overrides: Dict[str, str] = {}
+    if schema_path:
+        for p in ("bad", "mut", "fid"):
+            overrides[f"{p}.feature.schema.file.path"] = schema_path
+    return Pipeline(_props(conf), [
+        Stage("bayesianDistr", "bayesianDistr", [train_csv],
+              os.path.join(work_dir, "distr.csv"), dict(overrides)),
+        Stage("mutualInformation", "mutualInformation", [train_csv],
+              os.path.join(work_dir, "mi.txt"), dict(overrides)),
+        Stage("fisherDiscriminant", "fisherDiscriminant", [train_csv],
+              os.path.join(work_dir, "fisher.txt"), dict(overrides)),
     ], device=device)

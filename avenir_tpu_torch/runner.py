@@ -4,23 +4,36 @@ The port of the job registry of `avenir_tpu/runner.py`, with the jobs
 ported so far: `nearestNeighbor` (org.avenir.knn.NearestNeighbor),
 `bayesianDistr` (org.avenir.bayesian.BayesianDistribution),
 `bayesianPredictor` (org.avenir.bayesian.BayesianPredictor),
-`recordSimilarity` (sifarish SameTypeSimilarity), `groupedRecordSimilarity`
-and `featureCondProbJoiner` (org.avenir.knn.FeatureCondProbJoiner), and
-`Stage` / `Pipeline`, which chain them as the reference's shell drivers
-did. A job reads the reference's namespaced keys (`nen.*`, `bad.*`,
-`bap.*`, `sts.*`, `grs.*`, `fcb.*`) from one flat properties file and runs
-in-process on the device the caller names — ``cuda`` unless
-``device="cpu"`` is passed.
+`recordSimilarity` (sifarish SameTypeSimilarity), `groupedRecordSimilarity`,
+`featureCondProbJoiner` (org.avenir.knn.FeatureCondProbJoiner),
+`mutualInformation` (org.avenir.explore.MutualInformation),
+`fisherDiscriminant` (org.avenir.discriminant.FisherDiscriminant),
+`cramerCorrelation`, `categoricalCorrelation`, `heterogeneityReduction` and
+`numericalCorrelation` (org.avenir.explore), and `Stage` / `Pipeline`,
+which chain them as the reference's shell drivers did. A job reads the
+reference's namespaced keys (`nen.*`, `bad.*`, `bap.*`, `sts.*`, `grs.*`,
+`fcb.*`, `mut.*`, `fid.*`, `crc.*`, `cac.*`, `hrc.*`, `nuc.*`) from one flat
+properties file and runs in-process on the device the caller names —
+``cuda`` unless ``device="cpu"`` is passed.
+
+The streamed jobs `bayesianDistr`, `mutualInformation` and
+`fisherDiscriminant` are fold sinks with the reference's `StreamFoldOps`
+contract (merge, `state_dict`, `load_state`); `run_shared` drives several
+of them over one scan of their common input, and `Pipeline.run(fuse=True)`
+groups consecutive such stages into one.
 
 Each job records the reference's spans (`obs`): `job.run` around it,
 `stream.read` and `stream.parse` for its input, `stream.fold` around the
 work on each chunk (a fold's consume, a predict, a tile of distances,
-a join) and `job.finish` around its output. None synchronizes the device.
+a join) and `job.finish` around its output; a shared scan records
+`job.dispatch` (mode "shared") around its scan. None synchronizes the
+device.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
 import sys
@@ -73,23 +86,31 @@ def job_names() -> List[str]:
     return sorted(_REGISTRY)
 
 
-def run_job(name: str, conf, inputs: Sequence[str], output: str = "",
-            device: DeviceLike = None) -> JobResult:
-    """Run a registered job on `device` (default cuda). `conf` is a
-    properties file path, a dict, or a JobConfig; the job sees it scoped
-    under its reference prefix."""
+def _job_cfg(name: str, conf) -> Tuple[str, JobConfig]:
+    """(canonical name, JobConfig scoped under the job's prefix) of a
+    registered job. `conf` is a properties file path, a dict, or a
+    JobConfig."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown job {name!r}; known: {', '.join(job_names())}")
-    canonical, prefix, fn = _REGISTRY[name]
+    canonical, prefix, _fn = _REGISTRY[name]
     if isinstance(conf, str):
         cfg = JobConfig(load_properties(conf), prefix)
     elif isinstance(conf, dict):
         cfg = JobConfig(conf, prefix)
     else:
         cfg = conf.scoped(prefix)
+    return canonical, cfg
+
+
+def run_job(name: str, conf, inputs: Sequence[str], output: str = "",
+            device: DeviceLike = None) -> JobResult:
+    """Run a registered job on `device` (default cuda). `conf` is a
+    properties file path, a dict, or a JobConfig; the job sees it scoped
+    under its reference prefix."""
+    canonical, cfg = _job_cfg(name, conf)
     dev = resolve_device(device)
     t0 = obs.now()
-    res = fn(cfg, list(inputs), output, dev)
+    res = _REGISTRY[canonical][2](cfg, list(inputs), output, dev)
     obs.record("job.run", t0, job=canonical)
     return res
 
@@ -130,15 +151,39 @@ def _last_three(data: bytes, delim: str) -> Tuple[List[str], List[str],
     return a, b, c
 
 
-# =================================================================== bayesian
+# ============================================================ stream folds
+# A streamed job's work on each Dataset chunk is a fold sink: its own
+# one-scan job drives it alone (`_drive_fold`), and `run_shared` drives
+# several over one scan, so the two paths share one body and write the
+# same bytes.
+
+def _drive_fold(fold, chunks, job: str) -> int:
+    """Drive one fold sink (an object with `consume`, or a callable taking
+    a chunk) over a chunk iterator through `SharedScan`, the one-sink
+    case of the shared scan: every streamed job and the shared path
+    record their `stream.fold` spans and `chunk_latency_ms` at one place.
+    Returns the number of chunks."""
+    from avenir_tpu_torch.core.stream import SharedScan
+
+    scan = SharedScan(chunks)
+    scan.add_sink(fold, label=job)
+    return scan.run()
+
+
+def _finish_fold(fold, output: str, job: str) -> JobResult:
+    """fold.finish(output) under the `job.finish` span."""
+    with obs.span("job.finish", job=job):
+        return fold.finish(output)
+
+
 class _NBDistrFold:
     """bayesianDistr (tabular) as a stream fold: each Dataset chunk's
     counts are summed on the device (NaiveBayesModel.accumulate with
-    defer=True) and drained to the host once, at finish. The port of
-    `avenir_tpu/runner.py::_NBDistrFold`."""
+    defer=True) and drained to the host at finish or checkpoint. The port
+    of `avenir_tpu/runner.py::_NBDistrFold`."""
 
-    def __init__(self, cfg: JobConfig, schema: FeatureSchema,
-                 device: torch.device):
+    def __init__(self, cfg: JobConfig, inputs: Sequence[str],
+                 schema: FeatureSchema, device: torch.device):
         self.cfg = cfg
         self.schema = schema
         self.device = device
@@ -185,7 +230,334 @@ class _NBDistrFold:
         self.rows += other.rows
         return self
 
+    def state_dict(self) -> Dict[str, object]:
+        """The reference's checkpoint: a JSON `meta` (`rows`, and `cards`,
+        the categorical vocabularies, which later chunks' codes index)
+        and the float64 arrays `post`, `mom` and `cls`."""
+        meta = {"rows": self.rows, "cards": None}
+        arrays: Dict[str, object] = {}
+        if self.model is not None:
+            m = self.model
+            m.flush()
+            meta["cards"] = {str(f.ordinal): list(f.cardinality)
+                             for f in m.binned_fields if f.is_categorical}
+            arrays = {"post": m.post_counts, "mom": m.cont_moments,
+                      "cls": m.class_counts}
+        return {"meta": np.array(json.dumps(meta)), **arrays}
 
+    def load_state(self, state: Dict[str, object]) -> None:
+        from avenir_tpu_torch.models.naive_bayes import NaiveBayesModel
+
+        meta = json.loads(str(state["meta"]))
+        self.rows = int(meta["rows"])
+        if meta["cards"] is None:
+            return                      # checkpoint taken before any chunk
+        by_ord = {f.ordinal: f for f in self.schema.fields}
+        for o, card in meta["cards"].items():
+            fld = by_ord[int(o)]
+            if fld.is_categorical and list(fld.cardinality or []) != card:
+                fld.cardinality = list(card)
+                fld.discovered_cardinality = True
+        self.model = NaiveBayesModel.empty(self.schema, self.device)
+        for key, attr in (("post", "post_counts"), ("mom", "cont_moments"),
+                          ("cls", "class_counts")):
+            arr = np.asarray(state[key], np.float64)
+            if arr.shape != getattr(self.model, attr).shape:
+                raise ValueError(
+                    f"checkpointed NB {attr} shape {arr.shape} does not "
+                    f"match the schema-derived model "
+                    f"{getattr(self.model, attr).shape}")
+            setattr(self.model, attr, arr)
+
+
+class _MutualInfoFold:
+    """mutualInformation as a stream fold: additive contingency tables
+    folded a Dataset chunk at a time (MutualInformationAnalyzer.add)."""
+
+    def __init__(self, cfg: JobConfig, inputs: Sequence[str],
+                 schema: Optional[FeatureSchema], device: torch.device):
+        from avenir_tpu_torch.models.explore import MutualInformationAnalyzer
+
+        self.cfg = cfg
+        self.inputs = list(inputs)
+        self.schema = schema
+        self.mi = MutualInformationAnalyzer(device=device)
+
+    def consume(self, ds: Dataset) -> None:
+        self.mi.add(ds)
+
+    def merge(self, other: "_MutualInfoFold") -> "_MutualInfoFold":
+        """Every MI table is an additive integer count
+        (MutualInformationAnalyzer.merge)."""
+        self.mi.merge(other.mi)
+        return self
+
+    def state_dict(self) -> Dict[str, object]:
+        mi = self.mi
+        meta = {"n": mi.n, "k": mi.k, "bins": list(mi.bins),
+                "ordinals": ([f.ordinal for f in mi.fields]
+                             if mi.fields is not None else None),
+                "pairs": sorted(mi._pair)}
+        arrays: Dict[str, object] = {}
+        if mi.fields is not None:
+            for i, fc in enumerate(mi._fc):
+                arrays[f"fc_{i}"] = fc
+            for (i, j) in mi._pair:
+                arrays[f"pair_{i}_{j}"] = mi._pair[(i, j)]
+                arrays[f"pairc_{i}_{j}"] = mi._pairc[(i, j)]
+        return {"meta": np.array(json.dumps(meta)), **arrays}
+
+    def load_state(self, state: Dict[str, object]) -> None:
+        meta = json.loads(str(state["meta"]))
+        if meta["ordinals"] is None:
+            return                      # checkpoint taken before any chunk
+        if self.schema is None:
+            self.schema = _schema(self.cfg)
+        mi = self.mi
+        # the field set the first add() would have taken from the schema
+        mi.fields = [f for f in self.schema.feature_fields
+                     if f.num_bins() > 0]
+        if [f.ordinal for f in mi.fields] != list(meta["ordinals"]):
+            raise ValueError(
+                "checkpointed MI field ordinals do not match the schema")
+        mi.k = int(meta["k"])
+        mi.bins = [int(b) for b in meta["bins"]]
+        mi.n = int(meta["n"])
+        mi._fc = [np.asarray(state[f"fc_{i}"], np.float64)
+                  for i in range(len(mi.fields))]
+        pairs = [tuple(p) for p in meta["pairs"]]
+        mi._pair = {(i, j): np.asarray(state[f"pair_{i}_{j}"], np.float64)
+                    for i, j in pairs}
+        mi._pairc = {(i, j): np.asarray(state[f"pairc_{i}_{j}"], np.float64)
+                     for i, j in pairs}
+
+    def finish(self, output: str) -> JobResult:
+        cfg, mi = self.cfg, self.mi
+        if mi.fields is None:
+            raise ValueError(f"mutualInformation: empty input "
+                             f"(no records in {self.inputs})")
+        mi.finalize()
+        algos = cfg.get_list("mutual.info.score.algorithms", [])
+        out = _out_file(output)
+        delim = cfg.field_delim
+        with open(out, "w") as fh:
+            if cfg.get_bool("output.mutual.info", True):
+                for f, fld in enumerate(mi.fields):
+                    fh.write(f"featureClassMI{delim}{fld.ordinal}{delim}"
+                             f"{mi.feature_class_mi[f]:.6f}\n")
+            for algo in algos:
+                scores = mi.score(algo,
+                                  cfg.get_float("redundancy.factor", 1.0))
+                for ordinal, s in scores:
+                    fh.write(f"{algo}{delim}{ordinal}{delim}{s:.6f}\n")
+        return JobResult("mutualInformation", {"Basic:Records": mi.n}, [out])
+
+
+class _FisherFold:
+    """fisherDiscriminant as a stream fold: per-class float64 moments
+    folded a Dataset chunk at a time (FisherDiscriminant.accumulate)."""
+
+    def __init__(self, cfg: JobConfig, inputs: Sequence[str],
+                 schema: Optional[FeatureSchema], device: torch.device):
+        from avenir_tpu_torch.models.discriminant import FisherDiscriminant
+
+        self.cfg = cfg
+        self.inputs = list(inputs)
+        self.schema = schema
+        self.fd = FisherDiscriminant()
+        self.rows = 0
+
+    def consume(self, ds: Dataset) -> None:
+        self.fd.accumulate(ds)
+        self.rows += len(ds)
+
+    def merge(self, other: "_FisherFold") -> "_FisherFold":
+        """Per-class (count, sum, sum-sq) moments are additive
+        (FisherDiscriminant.merge)."""
+        self.fd.merge(other.fd)
+        self.rows += other.rows
+        return self
+
+    def state_dict(self) -> Dict[str, object]:
+        fd = self.fd
+        meta = {"rows": self.rows,
+                "ordinals": ([f.ordinal for f in fd.fields]
+                             if fd._cnt is not None else None)}
+        arrays: Dict[str, object] = {}
+        if fd._cnt is not None:
+            arrays = {"cnt": fd._cnt, "s1": fd._s1, "s2": fd._s2}
+        return {"meta": np.array(json.dumps(meta)), **arrays}
+
+    def load_state(self, state: Dict[str, object]) -> None:
+        meta = json.loads(str(state["meta"]))
+        self.rows = int(meta["rows"])
+        if meta["ordinals"] is None:
+            return                      # checkpoint taken before any chunk
+        if self.schema is None:
+            self.schema = _schema(self.cfg)
+        fd = self.fd
+        fd.fields = [f for f in self.schema.feature_fields if f.is_numeric]
+        if [f.ordinal for f in fd.fields] != list(meta["ordinals"]):
+            raise ValueError(
+                "checkpointed discriminant field ordinals do not match "
+                "the schema")
+        fd._cnt = np.asarray(state["cnt"], np.float64)
+        fd._s1 = np.asarray(state["s1"], np.float64)
+        fd._s2 = np.asarray(state["s2"], np.float64)
+
+    def finish(self, output: str) -> JobResult:
+        if self.rows == 0:
+            raise ValueError(f"fisherDiscriminant: empty input "
+                             f"(no records in {self.inputs})")
+        self.fd.finalize()
+        out = _out_file(output)
+        self.fd.save(out, delim=self.cfg.field_delim)
+        return JobResult("fisherDiscriminant", {}, [out])
+
+
+def _merge_folds(a, b):
+    """The default merge_states: every fold sink merges in place."""
+    return a.merge(b)
+
+
+@dataclass(frozen=True)
+class StreamFoldOps:
+    """One streamed job's fold registration: the scan kind, the sink
+    factory, and the ops that make its carry a mergeable, serializable
+    state: merge_states(fold(A), fold(B)).finish() == fold(A ++ B).finish()
+    byte for byte, and restore_state(serialize_state(fold)) resumes a
+    carry taken mid-scan to the same bytes.
+
+    `kind`: "dataset" folds consume schema-parsed Dataset chunks (the
+    reference's "bytes" folds, of raw byte blocks, wait for their
+    models). `factory(cfg, inputs, schema, device)` builds the sink;
+    `merge_states` folds one sink's carry into another (default
+    `a.merge(b)`)."""
+
+    kind: str
+    factory: Callable
+    merge_states: Callable = _merge_folds
+
+    def serialize_state(self, fold) -> bytes:
+        """A fold's carry as an npz of its `state_dict()`: numpy arrays and
+        one JSON `meta` entry, no pickle, so another process (or the JAX
+        package) loads it without trusting the writer."""
+        buf = io.BytesIO()
+        np.savez(buf, **fold.state_dict())
+        return buf.getvalue()
+
+    def restore_state(self, cfg: JobConfig, inputs: Sequence[str],
+                      blob: bytes, schema: Optional[FeatureSchema] = None,
+                      device: DeviceLike = None):
+        """A fresh factory sink with a checkpoint's carry loaded, ready to
+        consume the remaining chunks."""
+        if schema is None and self.kind == "dataset":
+            schema = _schema(cfg)
+        fold = self.factory(cfg, list(inputs), schema, resolve_device(device))
+        with np.load(io.BytesIO(blob), allow_pickle=False) as z:
+            state = {k: z[k] for k in z.files}
+        fold.load_state(state)
+        return fold
+
+
+#: canonical job name -> StreamFoldOps
+_STREAM_FOLDS: Dict[str, StreamFoldOps] = {
+    "bayesianDistr": StreamFoldOps("dataset", _NBDistrFold),
+    "mutualInformation": StreamFoldOps("dataset", _MutualInfoFold),
+    "fisherDiscriminant": StreamFoldOps("dataset", _FisherFold),
+}
+
+
+def stream_fold_names() -> List[str]:
+    """The jobs a shared scan can fuse."""
+    return sorted(_STREAM_FOLDS)
+
+
+def stream_fold_ops(job: str) -> StreamFoldOps:
+    """The fold ops of a streamed job (or one of its aliases)."""
+    canonical = _REGISTRY[job][0] if job in _REGISTRY else job
+    if canonical not in _STREAM_FOLDS:
+        raise KeyError(
+            f"job {job!r} has no registered stream fold; streamed jobs: "
+            f"{', '.join(stream_fold_names())}")
+    return _STREAM_FOLDS[canonical]
+
+
+def _stream_fold_job(name: str, cfg: JobConfig, inputs: List[str],
+                     output: str, device: torch.device) -> JobResult:
+    """A streamed job on its own scan: its fold driven over the chunks of
+    its inputs, then finished."""
+    from avenir_tpu_torch.core.stream import stream_job_inputs
+
+    schema = _schema(cfg)
+    fold = _STREAM_FOLDS[name].factory(cfg, inputs, schema, device)
+    _drive_fold(fold, stream_job_inputs(cfg, inputs, schema), name)
+    return _finish_fold(fold, output, name)
+
+
+def run_shared(specs: Sequence[Tuple[str, object, str]],
+               inputs: Sequence[str],
+               device: DeviceLike = None) -> Dict[str, JobResult]:
+    """Run N streamed jobs over the same inputs with one scan.
+
+    `specs` is a sequence of (job name, conf, output path). Every job must
+    be shared-scan capable (stream_fold_names()), and they must agree on
+    the scan kind, `stream.block.size.mb`, the field delimiter and the
+    schema file: one read and one parse a chunk, N folds. Each job reads
+    its own prefixed config and writes its own outputs. Results come back
+    keyed by canonical job name, byte-identical to running the jobs one
+    scan each (run_job, the fallback and the oracle). The scan is the
+    span `job.dispatch` (mode "shared").
+
+    The reference's autotune session and its `Mem:*` and `Sidecar:*`
+    counters, and its `fold_hook` for the job server, are not ported."""
+    from avenir_tpu_torch.core.stream import SharedScan, stream_job_inputs
+
+    if not specs:
+        return {}
+    dev = resolve_device(device)
+    built = []
+    for name, conf, output in specs:
+        canonical, cfg = _job_cfg(name, conf)
+        if canonical not in _STREAM_FOLDS:
+            raise ValueError(
+                f"job {name!r} is not shared-scan capable; fusable jobs: "
+                f"{', '.join(stream_fold_names())}")
+        if any(canonical == b[0] for b in built):
+            raise ValueError(
+                f"job {canonical!r} appears twice in one shared scan")
+        built.append((canonical, _STREAM_FOLDS[canonical], cfg, output))
+    kinds = {ops.kind for _, ops, _, _ in built}
+    if len(kinds) != 1:
+        raise ValueError(f"cannot fuse jobs of mixed scan kinds {kinds}")
+    blocks = {cfg.get_float("stream.block.size.mb", 64.0)
+              for _, _, cfg, _ in built}
+    if len(blocks) != 1:
+        raise ValueError(
+            f"fused jobs disagree on stream.block.size.mb: {blocks}")
+    delims = {cfg.field_delim_regex for _, _, cfg, _ in built}
+    if len(delims) != 1:
+        raise ValueError(f"fused jobs disagree on field delimiter: {delims}")
+    spaths = {cfg.assert_get("feature.schema.file.path")
+              for _, _, cfg, _ in built}
+    if len(spaths) != 1:
+        raise ValueError(f"fused jobs disagree on the schema file: {spaths}")
+    schema = FeatureSchema.from_file(spaths.pop())
+    scan = SharedScan(stream_job_inputs(built[0][2], list(inputs), schema))
+    folds = []
+    for canonical, ops, cfg, output in built:
+        fold = ops.factory(cfg, list(inputs), schema, dev)
+        folds.append((canonical, fold, output))
+        scan.add_sink(fold, label=canonical)
+    t0 = obs.now()
+    chunks = scan.run()
+    obs.record("job.dispatch", t0, mode="shared", chunks=chunks,
+               jobs=",".join(c for c, _f, _o in folds))
+    return {canonical: _finish_fold(fold, output, canonical)
+            for canonical, fold, output in folds}
+
+
+# =================================================================== bayesian
 @job("bayesianDistr", "bad", "org.avenir.bayesian.BayesianDistribution")
 def bayesian_distribution(cfg: JobConfig, inputs: List[str], output: str,
                           device: torch.device) -> JobResult:
@@ -193,19 +565,11 @@ def bayesian_distribution(cfg: JobConfig, inputs: List[str], output: str,
     Input blocks stream through `stream_job_inputs` (host memory O(block),
     `bad.stream.block.size.mb`); counts are additive, so the chunking
     cannot change the model."""
-    from avenir_tpu_torch.core.stream import stream_job_inputs
-
     if not cfg.get_bool("tabular.input", True):
         raise NotImplementedError(
             "bad.tabular.input=false (the free-text Naive Bayes of "
             "models/text.py) is not ported yet")
-    schema = _schema(cfg)
-    fold = _NBDistrFold(cfg, schema, device)
-    for n, ds in enumerate(stream_job_inputs(cfg, inputs, schema)):
-        with obs.span("stream.fold", sink="bayesianDistr", chunk=n):
-            fold.consume(ds)
-    with obs.span("job.finish", job="bayesianDistr"):
-        return fold.finish(output)
+    return _stream_fold_job("bayesianDistr", cfg, inputs, output, device)
 
 
 @job("bayesianPredictor", "bap", "org.avenir.bayesian.BayesianPredictor")
@@ -474,16 +838,116 @@ def feature_cond_prob_joiner(cfg: JobConfig, inputs: List[str], output: str,
     return JobResult("featureCondProbJoiner", {"Join:Pairs": n}, [out])
 
 
+# ==================================================================== explore
+@job("mutualInformation", "mut", "org.avenir.explore.MutualInformation")
+def mutual_information_job(cfg: JobConfig, inputs: List[str], output: str,
+                           device: torch.device) -> JobResult:
+    """Feature-class and feature-pair mutual information and the
+    `mut.mutual.info.score.algorithms` selection scores. The count tables
+    fold a chunk at a time (host memory O(block)), the mapper contract of
+    MutualInformation.java:138-216."""
+    return _stream_fold_job("mutualInformation", cfg, inputs, output, device)
+
+
+@job("fisherDiscriminant", "fid",
+     "org.avenir.discriminant.FisherDiscriminant")
+def fisher_job(cfg: JobConfig, inputs: List[str], output: str,
+               device: torch.device) -> JobResult:
+    """Per-numeric-feature two-class boundary file (and its stamp) from
+    float64 per-class moments folded a chunk at a time."""
+    return _stream_fold_job("fisherDiscriminant", cfg, inputs, output, device)
+
+
+def _contingency(name: str, cfg: JobConfig, inputs: List[str],
+                 device: torch.device):
+    """The ContingencyAccumulator of every chunk of `inputs`."""
+    from avenir_tpu_torch.core.stream import stream_job_inputs
+    from avenir_tpu_torch.models.explore import ContingencyAccumulator
+
+    acc = ContingencyAccumulator(device)
+    _drive_fold(acc.add, stream_job_inputs(cfg, inputs, _schema(cfg)), name)
+    if acc.n == 0:
+        raise ValueError(f"{name}: empty input (no records in {inputs})")
+    return acc
+
+
+def _write_by_ordinal(name: str, cfg: JobConfig, output: str,
+                      corr: Dict[int, float], rows: int) -> JobResult:
+    """`ordinal,value` a field, in ordinal order."""
+    with obs.span("job.finish", job=name):
+        out = _out_file(output)
+        delim = cfg.field_delim
+        with open(out, "w") as fh:
+            for ordinal, v in sorted(corr.items()):
+                fh.write(f"{ordinal}{delim}{v:.6f}\n")
+    return JobResult(name, {"Basic:Records": rows}, [out])
+
+
+def _cramer(name: str, cfg: JobConfig, inputs: List[str], output: str,
+            device: torch.device) -> JobResult:
+    acc = _contingency(name, cfg, inputs, device)
+    return _write_by_ordinal(name, cfg, output, acc.cramer(), acc.n)
+
+
+@job("cramerCorrelation", "crc", "org.avenir.explore.CramerCorrelation")
+def cramer_job(cfg: JobConfig, inputs: List[str], output: str,
+               device: torch.device) -> JobResult:
+    """Cramér index of each encodable feature against the class."""
+    return _cramer("cramerCorrelation", cfg, inputs, output, device)
+
+
+@job("categoricalCorrelation", "cac",
+     "org.avenir.explore.CategoricalCorrelation")
+def categorical_job(cfg: JobConfig, inputs: List[str], output: str,
+                    device: torch.device) -> JobResult:
+    """The cac.* job: the same contingency-table statistic as
+    cramerCorrelation (CramerCorrelation.java:54)."""
+    return _cramer("categoricalCorrelation", cfg, inputs, output, device)
+
+
+@job("heterogeneityReduction", "hrc",
+     "org.avenir.explore.HeterogeneityReductionCorrelation")
+def heterogeneity_job(cfg: JobConfig, inputs: List[str], output: str,
+                      device: torch.device) -> JobResult:
+    """Proportional class impurity reduction by each feature, under
+    `hrc.heterogeneity.algorithm` (entropy, else gini)."""
+    acc = _contingency("heterogeneityReduction", cfg, inputs, device)
+    corr = acc.heterogeneity(cfg.get("heterogeneity.algorithm", "entropy"))
+    return _write_by_ordinal("heterogeneityReduction", cfg, output, corr,
+                             acc.n)
+
+
+@job("numericalCorrelation", "nuc",
+     "org.avenir.explore.NumericalCorrelation")
+def numerical_corr_job(cfg: JobConfig, inputs: List[str], output: str,
+                       device: torch.device) -> JobResult:
+    """Pearson correlation of each numeric feature pair and of each
+    feature with the numeric-coded class, from float64 host moments."""
+    from avenir_tpu_torch.core.stream import stream_job_inputs
+    from avenir_tpu_torch.models.explore import NumericMomentAccumulator
+
+    schema = _schema(cfg)
+    acc = NumericMomentAccumulator()
+    _drive_fold(acc.add, stream_job_inputs(cfg, inputs, schema),
+                "numericalCorrelation")
+    if acc.n == 0:
+        raise ValueError(f"numericalCorrelation: empty input "
+                         f"(no records in {inputs})")
+    with obs.span("job.finish", job="numericalCorrelation"):
+        corr = acc.correlation()       # [D+1, D+1]: the class is the last
+        fields = [f.ordinal for f in schema.feature_fields if f.is_numeric]
+        out = _out_file(output)
+        delim = cfg.field_delim
+        with open(out, "w") as fh:
+            for i, oi in enumerate(fields):
+                for j, oj in enumerate(fields):
+                    if j > i:
+                        fh.write(f"{oi}{delim}{oj}{delim}{corr[i, j]:.6f}\n")
+                fh.write(f"{oi}{delim}class{delim}{corr[i, -1]:.6f}\n")
+    return JobResult("numericalCorrelation", {"Basic:Records": acc.n}, [out])
+
+
 # =================================================================== pipeline
-#: the jobs the reference's Pipeline(fuse=True) runs as one shared scan
-#: (run_shared; JAX runner.py:1069-1077); of them the port has
-#: bayesianDistr, and not run_shared
-_SHARED_SCAN_JOBS = frozenset((
-    "bayesianDistr", "mutualInformation", "fisherDiscriminant",
-    "markovStateTransitionModel", "frequentItemsApriori",
-    "candidateGenerationWithSelfJoin"))
-
-
 @dataclass
 class Stage:
     name: str
@@ -535,41 +999,51 @@ class Pipeline:
                 if self.on_retry is not None:
                     self.on_retry(st.name, attempt, exc)
 
-    @staticmethod
-    def _shared_scan_job(st: Stage) -> Optional[str]:
-        name = _REGISTRY[st.job][0] if st.job in _REGISTRY else st.job
-        return name if name in _SHARED_SCAN_JOBS else None
-
-    def _check_no_shared_scan(self, stages: Sequence[Stage]) -> None:
-        """Raise where the reference's fuse=True would run consecutive
-        stages on the same inputs as one shared scan (run_shared)."""
-        for i, st in enumerate(stages):
-            group = [st]
-            seen = {self._shared_scan_job(st)}
-            for nxt in stages[i + 1:]:
-                name = self._shared_scan_job(nxt)
-                if (None in seen or name is None or name in seen
-                        or nxt.inputs != st.inputs):
-                    break
-                group.append(nxt)
-                seen.add(name)
-            if len(group) >= 2:
-                raise NotImplementedError(
-                    "fuse=True would run stages "
-                    + "+".join(g.name for g in group) + " as one shared "
-                    "scan (run_shared), which is not ported yet")
+    def _fusable(self, st: Stage) -> bool:
+        key = _REGISTRY.get(st.job)
+        return key is not None and key[0] in _STREAM_FOLDS
 
     def run(self, only: Optional[str] = None,
             fuse: bool = False) -> Dict[str, JobResult]:
         """Run the stages in order (only the one named `only`, if given).
-        fuse=True runs them as the reference does where no two
-        consecutive stages would share a scan, and raises where they
-        would."""
+        With fuse=True, each maximal run of consecutive stages that read
+        the same inputs and are shared-scan capable (stream_fold_names(),
+        no job twice) runs as one scan through run_shared: N jobs, one
+        read and one parse of the input. If the fused attempt fails,
+        `on_retry("a+b+c", 1, exc)` is called and the group's stages run
+        one scan each, with their usual retries: fusion never adds a
+        failure."""
         stages = [st for st in self.stages if only is None or st.name == only]
-        if fuse:
-            self._check_no_shared_scan(stages)
-        for st in stages:
-            self._run_stage(st)
+        i = 0
+        while i < len(stages):
+            group = [stages[i]]
+            if fuse and self._fusable(stages[i]):
+                seen = {_REGISTRY[stages[i].job][0]}
+                j = i + 1
+                while (j < len(stages) and self._fusable(stages[j])
+                       and stages[j].inputs == stages[i].inputs
+                       and _REGISTRY[stages[j].job][0] not in seen):
+                    group.append(stages[j])
+                    seen.add(_REGISTRY[stages[j].job][0])
+                    j += 1
+            if len(group) >= 2:
+                specs = [(st.job, self._stage_props(st), st.output)
+                         for st in group]
+                try:
+                    shared = run_shared(specs, group[0].inputs,
+                                        device=self.device)
+                    for st in group:
+                        self.results[st.name] = shared[_REGISTRY[st.job][0]]
+                        self.attempts[st.name] = 1
+                    i += len(group)
+                    continue
+                except Exception as exc:
+                    if self.on_retry is not None:
+                        self.on_retry("+".join(st.name for st in group), 1,
+                                      exc)
+            for st in group:
+                self._run_stage(st)
+            i += len(group)
         return self.results
 
 

@@ -95,7 +95,7 @@ def bench_naive_bayes(dev: torch.device, nb_rows: int, reps: int
 
     def train():
         for _ in range(NB_STEPS):
-            _count_batch(codes, labels, x_cont, k, bmax, None, dev)
+            _count_batch(codes, labels, x_cont, k, bmax, dev)
 
     pred = NaiveBayesPredictor(model)
 

@@ -125,6 +125,25 @@ Phases, each printing a line per check; any failed check exits non-zero:
    joins, accuracy above 60, `knn_topk` launched, and all five files of
    both card runs byte-identical to the CPU run's; each run's host-clock
    split by stage.
+9. The profile path (after phase 8): `pipelines.profile_pipeline`
+   (bayesianDistr, mutualInformation with all five score algorithms,
+   fisherDiscriminant) on phase 6's churn train file (1,000,000 rows, the
+   same generator and seed, 4 MB blocks), on the card plain and with
+   `run(fuse=True)` (one `run_shared` scan), and its CPU twin fused: every
+   file and stamp byte-identical across the three runs, the fused runs
+   reading each block once and the plain run three times (counted at the
+   stream layer's `_produce_hook`). Each run's seconds (ended by
+   torch.cuda.synchronize()) and its split by span: `stream.read`,
+   `stream.parse`, `stream.fold` per sink, `job.finish`, `other`; the
+   fused card run again under torch.profiler (device busy share). Then
+   `cramerCorrelation` and `heterogeneityReduction` on the same churn
+   file and `numericalCorrelation` on phase 3's e-learning train file,
+   each byte-identical to its CPU twin; and `bayesianDistr` on a seeded
+   5-class corpus of 1,000,000 rows with one categorical field and 1,
+   then 2, continuous fields uniform in [0, 120): model and stamp
+   byte-identical to the CPU twin's (the moments sum in a fixed order of
+   elementwise adds, not in atomics' order). The path launches no kernel
+   of the port's own.
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth: each kernel's launches are counted from
@@ -168,6 +187,17 @@ PIPE_NT, PIPE_NQ = 8192, 512
 PIPE_PATH = "knn_pipeline"
 PIPE_FILES = ("simi.txt", "distr.csv", "condProb.txt", "join.txt",
               "knn_out.txt")
+#: phase 9: the profile pipeline's files, and the multi-class NB corpus
+PROFILE_FILES = ("distr.csv", "distr.csv.stamp.json", "mi.txt",
+                 "fisher.txt", "fisher.txt.stamp.json")
+MI_ALGOS = ("mutual.info.maximization,mutual.info.selection,"
+            "joint.mutual.info,double.input.symmetric.relevance,"
+            "min.redundancy.max.relevance")
+#: (classes, continuous fields) of the multi-class NB twins: 5 classes
+#: take the 4096-row device blocks, 2 classes and one field the rows in
+#: order on the host
+MOMENT_ROWS = 1_000_000
+MOMENT_SHAPES = ((5, 1), (5, 2), (2, 1))
 #: nvidia-smi's name and power limit of the card (phase 1)
 CARD = ""
 
@@ -853,8 +883,9 @@ def _print_split(what: str, rec, engines=None) -> dict:
 
 
 def _device_busy(run) -> dict:
-    """torch.profiler's device time over one call of run() (a job), and
-    its share of the job's `job.run` seconds: kernels, and kernels with
+    """torch.profiler's device time over one call of run() (a job, or a
+    shared scan), and its share of the `job.run` seconds (of the call's
+    wall seconds where it records no job.run): kernels, and kernels with
     copies and sets."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -864,9 +895,11 @@ def _device_busy(run) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof, \
             obs.capture() as rec:
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-    secs = sum(sp.dur for sp in rec.spans() if sp.name == "job.run")
+        wall = time.perf_counter() - t0
+    secs = sum(sp.dur for sp in rec.spans() if sp.name == "job.run") or wall
     kern = other = 0.0
     for ev in prof.key_averages():
         us = (ev.device_time_total if hasattr(ev, "device_time_total")
@@ -1612,6 +1645,153 @@ def phase_pipeline():
     return counts
 
 
+# ------------------------------------------------------------------ phase 9
+def _span_split(rec, secs: float) -> dict:
+    """{span: seconds} of a captured run: `stream.read`, `stream.parse`,
+    `stream.fold` by sink, `job.finish`, and `other`, the run's seconds
+    none of them covers (these spans do not nest)."""
+    out = {}
+    for sp in rec.spans():
+        if sp.name == "stream.fold":
+            key = f"stream.fold:{sp.attrs['sink']}"
+        elif sp.name in ("stream.read", "stream.parse", "job.finish"):
+            key = sp.name
+        else:
+            continue
+        out[key] = out.get(key, 0.0) + sp.dur
+    out["other"] = secs - sum(out.values())
+    return {k: round(v, 4) for k, v in out.items()}
+
+
+def _twin(name, props, inputs, work, what):
+    """`name` on the card and on the CPU: (card seconds, CPU seconds), and
+    a check that every output file is byte-identical."""
+    import torch
+
+    from avenir_tpu_torch.runner import run_job
+
+    outs, secs = {}, {}
+    for dev in (DEVICE, "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_job(name, props, inputs, str(work / f"{name}_{dev}.txt"),
+                      device=dev)
+        torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+        outs[dev] = [Path(o).read_bytes() for o in res.outputs] + [
+            Path(o + ".stamp.json").read_bytes() for o in res.outputs
+            if Path(o + ".stamp.json").exists()]
+    check(outs[DEVICE] == outs["cpu"] and len(outs[DEVICE]) >= 1,
+          f"{name} {what} ({CARD}): {secs[DEVICE]:.3f}s on the card, "
+          f"{secs['cpu']:.3f}s on the CPU, {res.counters}; outputs "
+          f"byte-identical to the CPU twin's")
+    return secs
+
+
+def phase_profile():
+    """`profile_pipeline` at 1,000,000 churn rows on the card (plain and
+    fused) and on the CPU (fused); the correlation jobs and the
+    multi-class NB moments against their CPU twins. Returns the seconds
+    of each run."""
+    import torch
+
+    from avenir_tpu_torch import obs
+    from avenir_tpu_torch.core import stream
+    from avenir_tpu_torch.data import (churn_schema, elearn_schema,
+                                       generate_churn, generate_elearn,
+                                       generate_multiclass, multiclass_schema)
+    from avenir_tpu_torch.pipelines import profile_pipeline
+
+    work = ROOT / "build" / "chip_smoke_profile"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    schema = str(work / "churn.json")
+    churn_schema().save(schema)
+    train = work / "train.csv"
+    train.write_text(generate_churn(NB_TRAIN_ROWS, seed=201, as_csv=True))
+    n_blocks = -(-train.stat().st_size // (4 << 20))
+    props = {f"{p}.stream.block.size.mb": "4" for p in ("bad", "mut", "fid")}
+    props.update({"csv.engine": "native",
+                  "mut.mutual.info.score.algorithms": MI_ALGOS})
+    secs, blocks = {}, {}
+    for name, dev, fuse in (("cuda_plain", DEVICE, False),
+                            ("cuda_fused", DEVICE, True),
+                            ("cpu_fused", "cpu", True)):
+        pipe = profile_pipeline(props, str(train), str(work / name),
+                                schema_path=schema, device=dev)
+        count = [0]
+        stream._produce_hook = lambda: count.__setitem__(0, count[0] + 1)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with obs.capture() as rec:
+                res = pipe.run(fuse=fuse)
+                torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+        finally:
+            stream._produce_hook = None
+        blocks[name] = count[0]
+        dispatch = [sp.attrs["jobs"] for sp in rec.spans()
+                    if sp.name == "job.dispatch"]
+        check(len(res) == 3 and dispatch == (
+                  ["bayesianDistr,mutualInformation,fisherDiscriminant"]
+                  if fuse else []),
+              f"profile_pipeline {name} ({NB_TRAIN_ROWS} churn rows, "
+              f"{CARD}): {secs[name]:.3f}s, {blocks[name]} blocks read, "
+              f"split by span {json.dumps(_span_split(rec, secs[name]))}, "
+              f"counters {json.dumps({k: v.counters for k, v in res.items()})}")
+    check(blocks["cuda_plain"] == 3 * n_blocks
+          and blocks["cuda_fused"] == blocks["cpu_fused"] == n_blocks,
+          f"profile_pipeline: the fused runs read each of the {n_blocks} "
+          f"blocks once ({blocks['cuda_fused']}, {blocks['cpu_fused']}), "
+          f"the plain run three times ({blocks['cuda_plain']})")
+    same = [f for f in PROFILE_FILES
+            if (work / "cuda_plain" / f).read_bytes()
+            == (work / "cuda_fused" / f).read_bytes()
+            == (work / "cpu_fused" / f).read_bytes()]
+    check(same == list(PROFILE_FILES),
+          f"profile_pipeline: {same} byte-identical across the plain and "
+          f"fused card runs and the CPU twin, of {list(PROFILE_FILES)}")
+    busy = _device_busy(lambda: profile_pipeline(
+        props, str(train), str(work / "profiled"), schema_path=schema,
+        device=DEVICE).run(fuse=True))
+    check(busy["device_s"] > 0, f"profile_pipeline fused under "
+          f"torch.profiler ({CARD}): {json.dumps(busy)}")
+    corr = {"crc.feature.schema.file.path": schema,
+            "hrc.feature.schema.file.path": schema,
+            "crc.stream.block.size.mb": "4", "hrc.stream.block.size.mb": "4",
+            "csv.engine": "native"}
+    secs["cramerCorrelation"] = _twin("cramerCorrelation", corr, [str(train)],
+                                      work, f"({NB_TRAIN_ROWS} churn rows)")
+    secs["heterogeneityReduction"] = _twin(
+        "heterogeneityReduction", corr, [str(train)], work,
+        f"({NB_TRAIN_ROWS} churn rows)")
+    elearn = work / "elearn.csv"
+    elearn.write_text(generate_elearn(NT, seed=101, as_csv=True))
+    eschema = str(work / "elearn.json")
+    elearn_schema().save(eschema)
+    secs["numericalCorrelation"] = _twin(
+        "numericalCorrelation", {"nuc.feature.schema.file.path": eschema,
+                                 "csv.engine": "native"},
+        [str(elearn)], work, f"({NT} e-learning rows)")
+    for k, fc in MOMENT_SHAPES:
+        mschema = str(work / f"multi{k}x{fc}.json")
+        multiclass_schema(k, fc).save(mschema)
+        data = work / f"multi{k}x{fc}.csv"
+        data.write_text(generate_multiclass(MOMENT_ROWS, k, fc,
+                                            seed=400 + fc, as_csv=True))
+        secs[f"bayesianDistr_{k}cls_{fc}cont"] = _twin(
+            "bayesianDistr", {"bad.feature.schema.file.path": mschema,
+                              "csv.engine": "native"},
+            [str(data)], work, f"({MOMENT_ROWS} rows, {k} classes, {fc} "
+            f"continuous field{'s' if fc > 1 else ''}, "
+            f"{data.stat().st_size} bytes)")
+    shutil.rmtree(work)
+    return {k: (round(v, 3) if isinstance(v, float)
+                else {d: round(t, 3) for d, t in v.items()})
+            for k, v in secs.items()}
+
+
 # ------------------------------------------------------------------ phase 7
 def phase_ceiling(rate: float, bf16_flops: float):
     """matmul_ceiling against its plain version at the bench's shape."""
@@ -1779,7 +1959,9 @@ def main() -> None:
     ceiling = phase_ceiling(rate, bf16_flops)
     bench_counts = phase_bench()
     pipe_counts = phase_pipeline()
+    profile_secs = phase_profile()
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
+    print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
              BENCH_PATH: bench_counts, PIPE_PATH: pipe_counts}
 

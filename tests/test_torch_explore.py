@@ -1,0 +1,434 @@
+"""The port's profiling ops and models on the CPU against the JAX package.
+
+- `ops/reduce.py`: every keyed reduction equal to its JAX function on the
+  same seeded inputs (counts exactly; `moment_reduce` bit for bit in the
+  order of the JAX Naive Bayes einsum it follows).
+- `ops/infotheory.py`: float32 like the reference, within one unit in
+  the 6th decimal of its values (the artifacts print `%.6f`).
+- `models/explore.py`: the MI count tables exactly, through the fused
+  keyspace, its host twin and the per-pair path past the fused limit;
+  every score algorithm (same feature order, values within 1e-6); the
+  contingency family; `NumericMomentAccumulator`.
+- the jobs `mutualInformation`, `cramerCorrelation`,
+  `categoricalCorrelation`, `heterogeneityReduction` and
+  `numericalCorrelation` through `run_job` and the CLI: Cramér and
+  numerical correlation byte-identical to `avenir_tpu.runner.run_job`'s;
+  MI and heterogeneity every token equal but the value, the value within
+  one unit in the 6th decimal (float32 arithmetic of another library).
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from avenir_tpu.core.dataset import Dataset as JaxDataset
+from avenir_tpu.core.schema import FeatureSchema as JaxSchema
+from avenir_tpu.models import explore as jex
+from avenir_tpu.ops import infotheory as jinfo
+from avenir_tpu.ops import reduce as jred
+from avenir_tpu.runner import run_job as jax_run_job
+from avenir_tpu_torch.core.dataset import Dataset
+from avenir_tpu_torch.core.schema import FeatureSchema
+from avenir_tpu_torch.data import (churn_schema, elearn_schema, generate_churn,
+                                   generate_elearn)
+from avenir_tpu_torch.models import explore as ex
+from avenir_tpu_torch.ops import infotheory as info
+from avenir_tpu_torch.ops import reduce as red
+from avenir_tpu_torch.runner import run_job
+
+ROOT = Path(__file__).resolve().parents[1]
+CPU = "cpu"
+ALGOS = ("mutual.info.maximization", "mutual.info.selection",
+         "joint.mutual.info", "double.input.symmetric.relevance",
+         "min.redundancy.max.relevance")
+
+
+def _units(a: float, b: float) -> int:
+    """|a - b| in units of the 6th decimal."""
+    return round(abs(a - b) * 1e6)
+
+
+def assert_within_one_unit(got: str, ref: str, delim: str = ","):
+    """Same lines, every token equal but the last, the last (a `%.6f`
+    value) within one unit in the 6th decimal."""
+    g_lines, r_lines = got.splitlines(), ref.splitlines()
+    assert len(g_lines) == len(r_lines)
+    for g, r in zip(g_lines, r_lines):
+        gt, rt = g.split(delim), r.split(delim)
+        assert gt[:-1] == rt[:-1], (g, r)
+        assert _units(float(gt[-1]), float(rt[-1])) <= 1, (g, r)
+
+
+def _churn_text(n, seed):
+    return generate_churn(n, seed=seed, as_csv=True)
+
+
+def _both(text, schema_obj):
+    return (Dataset.from_csv(text, FeatureSchema.from_json(schema_obj)),
+            JaxDataset.from_csv(text, JaxSchema.from_json(schema_obj),
+                                engine="python"))
+
+
+def _mixed_schema():
+    """churn with a data-discovered (undeclared) vocabulary on payment, so
+    its bin axis can grow between chunks."""
+    obj = churn_schema().to_json()
+    for fld in obj["fields"]:
+        if fld["name"] == "payment":
+            del fld["cardinality"]
+    return obj
+
+
+@pytest.fixture(scope="module")
+def env(tmp_path_factory):
+    d = tmp_path_factory.mktemp("explore")
+    out = {"dir": d}
+    for name, obj in (("churn", churn_schema().to_json()),
+                      ("mixed", _mixed_schema()),
+                      ("elearn", elearn_schema().to_json())):
+        path = d / f"{name}.json"
+        path.write_text(json.dumps(obj))
+        out[f"{name}_schema"] = str(path)
+    (d / "churn.csv").write_text(_churn_text(3000, 21))
+    (d / "elearn.csv").write_text(generate_elearn(2000, seed=22, as_csv=True))
+    out["churn"], out["elearn"] = str(d / "churn.csv"), str(d / "elearn.csv")
+    return out
+
+
+# ---------------------------------------------------------------- reduce
+@pytest.mark.parametrize("k", [2, 3, 7])
+@pytest.mark.parametrize("n", [1, 257, 20003])
+def test_keyed_reduce_and_moment_reduce_match_jax(n, k):
+    """Counts exactly. `moment_reduce` bit for bit in the order of the
+    JAX package's Naive Bayes count einsum, which it follows, for x [n]
+    and x [n, 2]; where that order is the rows in order (one field, at
+    most three keys) also bit for bit the JAX `moment_reduce` (a
+    segment_sum, which adds in row order on the CPU)."""
+    from avenir_tpu.models.naive_bayes import _count_batch_kernel
+
+    rng = np.random.default_rng(n + k)
+    keys = rng.integers(0, k, n).astype(np.int32)
+    x = (rng.random((n, 2)) * 100).astype(np.float32)
+    kt = torch.from_numpy(keys)
+    counts = red.keyed_reduce(kt, k)
+    assert counts.dtype == torch.int64
+    np.testing.assert_array_equal(
+        counts.numpy(), np.asarray(jred.keyed_reduce(jnp.asarray(keys), None, k)))
+
+    def einsum_order(xx):
+        return np.asarray(_count_batch_kernel(
+            jnp.zeros((n, 1), jnp.int32), jnp.asarray(keys), jnp.asarray(xx),
+            jnp.ones((n,), jnp.float32), k, 1)[1])
+
+    got1 = red.moment_reduce(kt, torch.from_numpy(x[:, 0]), k)
+    np.testing.assert_array_equal(got1.numpy(), einsum_order(x[:, :1])[0])
+    got2 = red.moment_reduce(kt, torch.from_numpy(x), k)
+    np.testing.assert_array_equal(got2.numpy(), einsum_order(x))
+    seg = np.asarray(jred.moment_reduce(jnp.asarray(keys),
+                                        jnp.asarray(x[:, 0]), k))
+    np.testing.assert_array_equal(got1.numpy()[:, 0], seg[:, 0])
+    if k <= 3:
+        np.testing.assert_array_equal(got1.numpy(), seg)
+
+
+def test_counts_combine_and_cross_match_jax():
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 4, 999).astype(np.int32)
+    b = rng.integers(0, 6, 999).astype(np.int32)
+    c = rng.integers(0, 3, (999, 5)).astype(np.int32)
+    at, bt, ct = (torch.from_numpy(x) for x in (a, b, c))
+    np.testing.assert_array_equal(
+        red.combine_codes([at, bt], [4, 6]).numpy(),
+        np.asarray(jred.combine_codes([jnp.asarray(a), jnp.asarray(b)],
+                                      [4, 6])))
+    np.testing.assert_array_equal(
+        red.cross_count(at, bt, 4, 6).numpy(),
+        np.asarray(jred.cross_count(jnp.asarray(a), jnp.asarray(b), 4, 6)))
+    np.testing.assert_array_equal(
+        red.one_hot_count(at, 4).numpy(),
+        np.asarray(jred.one_hot_count(jnp.asarray(a), 4)))
+    np.testing.assert_array_equal(
+        red.one_hot_count(ct, 3).numpy(),
+        np.asarray(jred.one_hot_count(jnp.asarray(c), 3)))
+    for t in (red.cross_count(at, bt, 4, 6), red.one_hot_count(ct, 3)):
+        assert t.dtype == torch.int64
+
+
+# ------------------------------------------------------------ infotheory
+def _tables(seed):
+    rng = np.random.default_rng(seed)
+    out = [np.floor(rng.random((r, 2)) * 200000) for r in (4, 9, 36)]
+    out.append(np.array([[0, 5], [0, 0], [7, 0]], np.float64))
+    out.append(np.floor(rng.random((3, 4, 5)) * 50))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_infotheory_matches_jax(seed):
+    for t in _tables(seed):
+        jt = jnp.asarray(t)
+        pairs = [(info.mutual_information(t), jinfo.mutual_information(jt)),
+                 (info.entropy(t), jinfo.entropy(jt)),
+                 (info.entropy(t, axis=0), jinfo.entropy(jt, axis=0)),
+                 (info.bits_entropy(t), jinfo.bits_entropy(jt)),
+                 (info.gini(t), jinfo.gini(jt)),
+                 (info.weighted_split_score(t),
+                  jinfo.weighted_split_score(jt)),
+                 (info.weighted_split_score(t, "giniIndex"),
+                  jinfo.weighted_split_score(jt, "giniIndex"))]
+        for got, ref in pairs:
+            assert got.dtype == torch.float32
+            ref = np.asarray(ref)
+            assert got.shape == ref.shape
+            np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------------------ MI tables
+def _chunks(text, n):
+    lines = text.splitlines(True)
+    step = -(-len(lines) // n)
+    return ["".join(lines[i:i + step]) for i in range(0, len(lines), step)]
+
+
+def _analyzers(text, schema_obj, chunks=1):
+    port = ex.MutualInformationAnalyzer(device=CPU)
+    ref = jex.MutualInformationAnalyzer()
+    ps, js = FeatureSchema.from_json(schema_obj), JaxSchema.from_json(schema_obj)
+    for part in _chunks(text, chunks):
+        port.add(Dataset.from_csv(part, ps))
+        ref.add(JaxDataset.from_csv(part, js, engine="python"))
+    port.finalize()
+    ref.finalize()
+    return port, ref
+
+
+def _assert_tables_equal(port, ref):
+    assert port.bins == ref.bins and port.n == ref.n and port.k == ref.k
+    assert [f.ordinal for f in port.fields] == [f.ordinal for f in ref.fields]
+    for a, b in zip(port._fc, ref._fc):
+        np.testing.assert_array_equal(a, b)
+    assert sorted(port._pair) == sorted(ref._pair)
+    for key in ref._pair:
+        np.testing.assert_array_equal(port._pair[key], ref._pair[key])
+        np.testing.assert_array_equal(port._pairc[key], ref._pairc[key])
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("schema,chunks", [("churn", 1), ("churn", 4),
+                                           ("mixed", 4)])
+def test_mi_tables_exactly_equal(env, monkeypatch, schema, chunks, fused):
+    """The count tables equal the reference's, cell for cell, in the fused
+    keyspace and, with the fused limits at 1 in both packages, pair by
+    pair."""
+    if not fused:
+        monkeypatch.setattr(ex, "_FUSED_BYTES_LIMIT", 1)
+        monkeypatch.setattr(jex, "_FUSED_KEYSPACE_LIMIT", 1)
+    obj = _mixed_schema() if schema == "mixed" else churn_schema().to_json()
+    text = _churn_text(1500, 31)
+    if schema == "mixed":
+        # a value first seen in the last chunk grows payment's bin axis
+        lines = text.splitlines(True)
+        lines[-1] = lines[-1].replace(",poor,", ",bankrupt,").replace(
+            ",average,", ",bankrupt,").replace(",good,", ",bankrupt,")
+        text = "".join(lines)
+    port, ref = _analyzers(text, obj, chunks)
+    _assert_tables_equal(port, ref)
+
+
+def test_device_count_path_equals_its_host_twin():
+    """`_mi_chunk_counts` (torch bincounts, the card's path, here on CPU
+    tensors) and `_mi_chunk_counts_host` (the CPU run's) give the same
+    integer tables, and the reference's host twin the same again."""
+    rng = np.random.default_rng(8)
+    codes = rng.integers(0, 6, (3001, 5)).astype(np.int32)
+    y = rng.integers(0, 3, 3001).astype(np.int32)
+    dev = ex._mi_chunk_counts(torch.from_numpy(codes.astype(np.int64)),
+                              torch.from_numpy(y), 6, 3, 5)
+    host = ex._mi_chunk_counts_host(codes, y, 6, 3, 5)
+    ref = jex._mi_chunk_counts_host(codes, y, 6, 3, 5)
+    jit = jex._mi_chunk_counts(jnp.asarray(codes), jnp.asarray(y), 6, 3, 5)
+    for d, h, r, j in zip(dev, host, ref, jit):
+        assert d.dtype == torch.int64
+        np.testing.assert_array_equal(d.numpy(), h)
+        np.testing.assert_array_equal(h, r)
+        np.testing.assert_array_equal(h, np.asarray(j))
+    one = ex._mi_chunk_counts(torch.from_numpy(codes[:, :1].astype(np.int64)),
+                              torch.from_numpy(y), 6, 3, 1)
+    assert one[1].shape == (0, 6, 6) and one[2].shape == (0, 6, 6, 3)
+
+
+def test_scores_match_jax(env):
+    port, ref = _analyzers(_churn_text(3000, 41), churn_schema().to_json(), 3)
+    np.testing.assert_allclose(port.feature_class_mi, ref.feature_class_mi,
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(port.pair_mi, ref.pair_mi, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(port.pair_class_mi, ref.pair_class_mi,
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(port.pair_class_entropy,
+                               ref.pair_class_entropy, rtol=0, atol=1e-6)
+    for algo in ALGOS:
+        for beta in (1.0, 0.5):
+            got, want = port.score(algo, beta), ref.score(algo, beta)
+            assert [o for o, _ in got] == [o for o, _ in want], algo
+            for (_, g), (_, w) in zip(got, want):
+                assert abs(g - w) <= 1e-6, (algo, g, w)
+
+
+def test_mi_merge_of_shards_equals_whole(env):
+    text = _churn_text(2400, 51)
+    obj = churn_schema().to_json()
+    whole, _ = _analyzers(text, obj, 1)
+    halves = _chunks(text, 2)
+    a, _ = _analyzers(halves[0], obj, 1)
+    b, _ = _analyzers(halves[1], obj, 1)
+    empty = ex.MutualInformationAnalyzer(device=CPU)
+    merged = empty.merge(a).merge(b).merge(
+        ex.MutualInformationAnalyzer(device=CPU))
+    merged.finalize()
+    _assert_tables_equal(merged, whole)
+    np.testing.assert_array_equal(merged.feature_class_mi,
+                                  whole.feature_class_mi)
+
+
+def test_from_chunks_and_dataset_constructor(env):
+    text = _churn_text(900, 61)
+    obj = churn_schema().to_json()
+    schema = FeatureSchema.from_json(obj)
+    streamed = ex.MutualInformationAnalyzer.from_chunks(
+        (Dataset.from_csv(p, schema) for p in _chunks(text, 3)), device=CPU)
+    whole = ex.MutualInformationAnalyzer(Dataset.from_csv(text, schema),
+                                         device=CPU)
+    _assert_tables_equal(streamed, whole)
+    assert streamed.mim() == whole.mim()
+    with pytest.raises(ValueError, match="no input chunks"):
+        ex.MutualInformationAnalyzer.from_chunks([], device=CPU)
+
+
+# ------------------------------------------------------- correlations
+@pytest.mark.parametrize("schema", ["churn", "mixed"])
+def test_contingency_family_matches_jax(schema):
+    obj = _mixed_schema() if schema == "mixed" else churn_schema().to_json()
+    text = _churn_text(2000, 71)
+    ds, jds = _both(text, obj)
+    tables = [(ex.contingency(ds, fld, device=CPU),
+               np.asarray(jex.contingency(jds, jfld)))
+              for fld, jfld in zip(ds.encodable_feature_fields(),
+                                   jds.encodable_feature_fields())]
+    for got, ref in tables:
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, ref)
+    table = tables[0][0].astype(np.float64)
+    assert ex.cramer_index(table) == jex.cramer_index(table)
+    assert ex.cramer_correlation(ds, device=CPU) == jex.cramer_correlation(jds)
+    for algo in ("entropy", "gini"):
+        got = ex.heterogeneity_reduction(ds, algo, device=CPU)
+        ref = jex.heterogeneity_reduction(jds, algo)
+        assert sorted(got) == sorted(ref)
+        for o in ref:
+            assert abs(got[o] - ref[o]) <= 1e-6, (algo, o)
+    acc, jacc = ex.ContingencyAccumulator(CPU), jex.ContingencyAccumulator()
+    for part in _chunks(text, 3):
+        a, b = _both(part, obj)
+        acc.add(a)
+        jacc.add(b)
+    assert acc.n == jacc.n
+    np.testing.assert_array_equal(acc.class_counts, jacc.class_counts)
+    for o, t in jacc.tables.items():
+        np.testing.assert_array_equal(acc.tables[o], t)
+
+
+def test_numeric_moments_match_jax():
+    text = generate_elearn(3000, seed=81, as_csv=True)
+    obj = elearn_schema().to_json()
+    acc, jacc = ex.NumericMomentAccumulator(), jex.NumericMomentAccumulator()
+    for part in _chunks(text, 4):
+        a, b = _both(part, obj)
+        acc.add(a)
+        jacc.add(b)
+    assert acc.n == jacc.n
+    assert acc.s.tobytes() == jacc.s.tobytes()
+    assert acc.ss.tobytes() == jacc.ss.tobytes()
+    assert acc.correlation().tobytes() == jacc.correlation().tobytes()
+    ds, jds = _both(text, obj)
+    assert ex.numerical_correlation(ds).tobytes() == \
+        jex.numerical_correlation(jds).tobytes()
+
+
+# ------------------------------------------------------------------ jobs
+JOBS = {
+    "cramerCorrelation": ("crc", "churn", {}),
+    "categoricalCorrelation": ("cac", "churn", {}),
+    "heterogeneityReduction": ("hrc", "churn", {}),
+    "heterogeneityReduction:gini": ("hrc", "churn",
+                                    {"heterogeneity.algorithm": "gini"}),
+    "numericalCorrelation": ("nuc", "elearn", {}),
+    "mutualInformation": ("mut", "churn", {
+        "mutual.info.score.algorithms": ",".join(ALGOS),
+        "redundancy.factor": "0.8"}),
+}
+
+
+@pytest.mark.parametrize("block_mb", [None, "0.02"])
+@pytest.mark.parametrize("case", sorted(JOBS))
+def test_job_matches_jax(env, tmp_path, case, block_mb):
+    job = case.split(":")[0]
+    prefix, data, extra = JOBS[case]
+    props = {f"{prefix}.feature.schema.file.path": env[f"{data}_schema"],
+             **{f"{prefix}.{k}": v for k, v in extra.items()}}
+    if block_mb:
+        props[f"{prefix}.stream.block.size.mb"] = block_mb
+    ref = jax_run_job(job, props, [env[data]], str(tmp_path / "jax.txt"))
+    got = run_job(job, props, [env[data]], str(tmp_path / "port.txt"),
+                  device=CPU)
+    g = (tmp_path / "port.txt").read_text()
+    r = (tmp_path / "jax.txt").read_text()
+    if job in ("mutualInformation", "heterogeneityReduction"):
+        assert_within_one_unit(g, r)
+    else:
+        assert g == r
+    assert got.counters == {k: v for k, v in ref.counters.items()
+                            if k.startswith("Basic:")}
+    assert got.name == job and got.outputs == [str(tmp_path / "port.txt")]
+
+
+@pytest.mark.parametrize("job,prefix", [("mutualInformation", "mut"),
+                                        ("cramerCorrelation", "crc"),
+                                        ("numericalCorrelation", "nuc")])
+def test_empty_input_raises_as_jax(tmp_path, env, job, prefix):
+    empty = tmp_path / "empty.csv"
+    empty.write_text("")
+    props = {f"{prefix}.feature.schema.file.path": env["churn_schema"]}
+    with pytest.raises(ValueError, match="empty input"):
+        run_job(job, props, [str(empty)], str(tmp_path / "o"), device=CPU)
+    with pytest.raises(ValueError, match="empty input"):
+        jax_run_job(job, props, [str(empty)], str(tmp_path / "j"))
+
+
+def test_jobs_through_the_cli(env, tmp_path):
+    props = tmp_path / "explore.properties"
+    props.write_text(
+        f"mut.feature.schema.file.path={env['churn_schema']}\n"
+        f"crc.feature.schema.file.path={env['churn_schema']}\n"
+        "mut.mutual.info.score.algorithms=joint.mutual.info\n")
+    for name in ("org.avenir.explore.MutualInformation",
+                 "org.avenir.explore.CramerCorrelation"):
+        out = tmp_path / name.rsplit(".", 1)[-1]
+        proc = subprocess.run(
+            [sys.executable, "-m", "avenir_tpu_torch", name, "--conf",
+             str(props), env["churn"], str(out), "--device", "cpu"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert row["counters"] == {"Basic:Records": 3000}
+        jax_run_job(name, str(props), [env["churn"]], str(out) + ".jax")
+        if "Mutual" in name:
+            assert_within_one_unit(out.read_text(),
+                                   Path(str(out) + ".jax").read_text())
+        else:
+            assert out.read_bytes() == Path(str(out) + ".jax").read_bytes()

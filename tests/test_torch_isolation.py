@@ -53,7 +53,8 @@ def test_modules_list_covers_the_package():
     assert "avenir_tpu_torch.ops.matmul_ceiling" in MODULES
     assert "avenir_tpu_torch.tools.bench" in MODULES
     for sub in ("obs", "obs.trace", "obs.histogram", "native",
-                "native.ingest"):
+                "native.ingest", "ops.reduce", "ops.infotheory",
+                "models.explore", "models.discriminant"):
         assert f"avenir_tpu_torch.{sub}" in MODULES
 
 
@@ -68,12 +69,20 @@ def test_native_source_is_the_ports_own():
 
 
 @pytest.mark.parametrize("entry", ["avenir_tpu_torch", "all", "chip_smoke",
-                                   "obs", "native"])
+                                   "obs", "native", "mutualInformation",
+                                   "fisherDiscriminant"])
 def test_import_loads_no_jax(entry):
     modules = {"avenir_tpu_torch": ["avenir_tpu_torch"], "all": MODULES,
                "chip_smoke": ["chip_smoke"],
                "obs": ["avenir_tpu_torch.obs"],
-               "native": ["avenir_tpu_torch.native.ingest"]}[entry]
+               "native": ["avenir_tpu_torch.native.ingest"],
+               "mutualInformation": ["avenir_tpu_torch.runner",
+                                     "avenir_tpu_torch.models.explore",
+                                     "avenir_tpu_torch.ops.infotheory",
+                                     "avenir_tpu_torch.ops.reduce"],
+               "fisherDiscriminant": ["avenir_tpu_torch.runner",
+                                      "avenir_tpu_torch.models.discriminant",
+                                      "avenir_tpu_torch.pipelines"]}[entry]
     loaded = _loaded(*modules)
     assert set(modules) <= set(loaded)
     assert _forbidden(loaded) == []

@@ -9,9 +9,10 @@ package.
 - `Pipeline`: stage overrides over one properties file; a failed stage
   re-runs up to `mapreduce.map.maxattempts` times with `on_retry` called
   before each retry, as in JAX; `run(only=)` runs one stage.
-- `fuse=True`: where the reference would run two stages as one shared
-  scan (`run_shared`, not ported), the port raises before running any
-  stage; where no such group forms it runs as without it.
+- `fuse=True`: two stages that share a scan (`bayesianDistr` then
+  `mutualInformation` on one input) run as one `run_shared` scan, with
+  outputs equal to the sequential run's; where no such group forms the
+  stages run as without it.
 """
 
 import os
@@ -151,20 +152,39 @@ def test_run_only_one_stage(elearn_env, tmp_path):
                                             "distr.csv.stamp.json"]
 
 
-def test_fuse_on_a_shared_scan_group_raises(elearn_env, tmp_path):
-    """bayesianDistr then mutualInformation on the same input would share
-    one scan in the reference (run_shared): the port raises, names
-    run_shared, and runs nothing. Beside a stage that shares no scan, the
-    ported stage runs under fuse=True."""
-    out = str(tmp_path / "distr.csv")
-    props = {"bad.feature.schema.file.path": elearn_env["schema"]}
-    stages = [Stage("distr", "bayesianDistr", [elearn_env["train"]], out),
-              Stage("mi", "mutualInformation", [elearn_env["train"]],
-                    str(tmp_path / "mi.txt"))]
-    with pytest.raises(NotImplementedError, match="run_shared"):
-        Pipeline(props, stages, device=CPU).run(fuse=True)
-    assert not os.path.exists(out)
-    got = Pipeline(props, stages[:1] + [Stage(
+def test_fuse_runs_a_shared_scan_group(elearn_env, tmp_path):
+    """bayesianDistr then mutualInformation on the same input run as one
+    shared scan under fuse=True (one `job.dispatch` span naming both),
+    with outputs byte-identical to the sequential run's; beside a stage
+    that shares no scan, the ported stage runs under fuse=True. On churn
+    rows: MI scores the encodable (categorical or binned) features, and
+    e-learning has none."""
+    from avenir_tpu_torch.data import churn_schema, generate_churn
+
+    schema, train = str(tmp_path / "churn.json"), tmp_path / "churn.csv"
+    churn_schema().save(schema)
+    train.write_text(generate_churn(300, seed=40, as_csv=True))
+    props = {"bad.feature.schema.file.path": schema,
+             "mut.feature.schema.file.path": schema,
+             "mut.mutual.info.score.algorithms": "joint.mutual.info"}
+
+    def stages(d):
+        return [Stage("distr", "bayesianDistr", [str(train)],
+                      str(d / "distr.csv")),
+                Stage("mi", "mutualInformation", [str(train)],
+                      str(d / "mi.txt"))]
+
+    with obs.capture() as rec:
+        fused = Pipeline(props, stages(tmp_path / "f"), device=CPU).run(
+            fuse=True)
+    seq = Pipeline(props, stages(tmp_path / "s"), device=CPU).run()
+    assert [sp.attrs["jobs"] for sp in rec.spans()
+            if sp.name == "job.dispatch"] == ["bayesianDistr,mutualInformation"]
+    for name, fname in (("distr", "distr.csv"), ("mi", "mi.txt")):
+        assert (tmp_path / "f" / fname).read_bytes() == \
+            (tmp_path / "s" / fname).read_bytes()
+        assert fused[name].counters == seq[name].counters
+    got = Pipeline(props, stages(tmp_path / "o")[:1] + [Stage(
         "s", "recordSimilarity", [elearn_env["test"]],
         str(tmp_path / "s.txt"),
         {"sts.feature.schema.file.path": elearn_env["schema"]})],
@@ -192,6 +212,6 @@ def test_nb_moments_sum_in_xla_cpu_order(n, fc, k):
     ref = _count_batch_kernel(jnp.asarray(codes), jnp.asarray(y),
                               jnp.asarray(x), jnp.ones((n,), jnp.float32),
                               k, 3)
-    got = _count_batch(codes, y, x, k, 3, None, torch.device(CPU))
+    got = _count_batch(codes, y, x, k, 3, torch.device(CPU))
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
