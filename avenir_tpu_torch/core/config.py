@@ -104,6 +104,11 @@ class JobConfig:
             return default
         return [tok.strip() for tok in val.split(delim) if tok.strip() != ""]
 
+    def get_int_list(self, key: str, default: Optional[List[int]] = None,
+                     delim: str = ",") -> Optional[List[int]]:
+        toks = self.get_list(key, None, delim)
+        return [int(t) for t in toks] if toks is not None else default
+
     def get_float_list(self, key: str, default: Optional[List[float]] = None,
                        delim: str = ",") -> Optional[List[float]]:
         toks = self.get_list(key, None, delim)

@@ -261,6 +261,34 @@ class Dataset:
     def encodable_feature_fields(self) -> List[FeatureField]:
         return [f for f in self.schema.feature_fields if f.num_bins() > 0]
 
+    def to_csv(self, delim: str = ",") -> str:
+        """Rows back as reference-style CSV text: the kept raw rows when
+        there are any (byte-identical pass-through), else rebuilt from the
+        columns (categorical codes decoded to their cardinality values)."""
+        if self.raw_rows is not None:
+            return "\n".join(delim.join(r) for r in self.raw_rows) + "\n"
+        # tokens land at their declared ordinals; gaps (fields present in
+        # the file but undeclared in the schema, e.g. call_hangup's area
+        # code) become empty tokens so the row re-parses against the schema
+        width = max(f.ordinal for f in self.schema.fields) + 1
+        lines = []
+        for i in range(self.n_rows):
+            toks = [""] * width
+            for fld in self.schema.fields:
+                col = self.column(fld.ordinal)
+                if fld.is_categorical:
+                    tok = fld.decode_value(int(col[i]))
+                elif fld.is_numeric:
+                    v = float(col[i])
+                    # NaN is the parsers' missing value: an empty token
+                    tok = ("" if not np.isfinite(v)
+                           else str(int(v)) if v == int(v) else f"{v:.6g}")
+                else:
+                    tok = str(col[i])
+                toks[fld.ordinal] = tok
+            lines.append(delim.join(toks))
+        return "\n".join(lines) + "\n"
+
     def take(self, idx: np.ndarray) -> "Dataset":
         """Row subset (a numpy fancy index); a lazy column stays lazy."""
         idx = np.asarray(idx)

@@ -1,8 +1,8 @@
 """Chunked streaming CSV ingest, and the scan shared by several folds.
 
-The port's own copy of the block reader and `SharedScan` of
-`avenir_tpu/core/stream.py`, without its columnar sidecar and prefetch
-thread. The reference streams
+The port's own copy of the block readers (byte blocks, and line blocks
+for free text) and `SharedScan` of `avenir_tpu/core/stream.py`, without
+its columnar sidecar and prefetch thread. The reference streams
 unbounded files through mappers one line at a time; here the unit is a
 byte block of a fixed size cut at the last newline, parsed into a Dataset
 chunk against one shared schema, so host memory stays O(block) however
@@ -16,7 +16,7 @@ parser of every Dataset a job reads, as Dataset.from_csv's `engine`.
 from __future__ import annotations
 
 import os
-from typing import Iterable, Iterator, Optional
+from typing import Iterable, Iterator, List, Optional
 
 from avenir_tpu_torch import obs
 from avenir_tpu_torch.core.dataset import Dataset
@@ -87,11 +87,13 @@ def csv_engine(cfg) -> str:
     return cfg.get("csv.engine", "auto")
 
 
-def read_dataset(cfg, path: str, schema: FeatureSchema) -> Dataset:
+def read_dataset(cfg, path: str, schema: FeatureSchema,
+                 keep_raw: bool = False) -> Dataset:
     """A whole CSV file as one Dataset, with the job's delimiter and
-    engine: its `stream.read` and `stream.parse` spans."""
+    engine: its `stream.read` and `stream.parse` spans. keep_raw keeps
+    the row tokens, which the Python parser alone can."""
     return Dataset.from_csv(read_file(path), schema,
-                            delim=cfg.field_delim_regex,
+                            delim=cfg.field_delim_regex, keep_raw=keep_raw,
                             engine=csv_engine(cfg))
 
 
@@ -107,6 +109,33 @@ def stream_job_inputs(cfg, inputs: Iterable[str], schema: FeatureSchema,
         for blk in iter_byte_blocks(path, block):
             yield Dataset.from_csv(blk, schema, delim=cfg.field_delim_regex,
                                    keep_raw=keep_raw, engine=engine)
+
+
+def iter_line_blocks(path: str, block_bytes: int = DEFAULT_BLOCK_BYTES
+                     ) -> Iterator[List[str]]:
+    """Lists of the non-blank text lines of about block_bytes of `path`
+    each, for the jobs whose input is not schema-typed CSV (free text):
+    the reference streams them one line at a time through the mapper
+    contract, here a block at a time, so host memory stays O(block).
+    Each block's decode and split is a `stream.parse` span."""
+    for blk in iter_byte_blocks(path, block_bytes):
+        t0 = obs.now()
+        lines = [ln.rstrip("\r")
+                 for ln in blk.decode("utf-8", "replace").split("\n")
+                 if ln.strip()]
+        obs.record("stream.parse", t0, nbytes=len(blk), engine="lines")
+        if lines:
+            yield lines
+
+
+def stream_job_lines(cfg, inputs: Iterable[str]) -> Iterator[List[str]]:
+    """Line blocks of every input path, sized by the same
+    `stream.block.size.mb` key (default 64) as stream_job_inputs. The
+    JAX package reads them ahead on a thread; here they are read in turn
+    (the port has no prefetch thread yet)."""
+    block = int(cfg.get_float("stream.block.size.mb", 64.0) * (1 << 20))
+    for path in inputs:
+        yield from iter_line_blocks(path, block)
 
 
 class SharedScan:

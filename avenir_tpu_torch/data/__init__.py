@@ -1,14 +1,17 @@
-"""Seedable synthetic data generators (the churn, e-learning and
-multi-class shapes)."""
+"""Seedable synthetic data generators (the churn, e-learning,
+call-hangup and multi-class shapes)."""
 
 from avenir_tpu_torch.data.generators import (
+    call_hangup_schema,
     churn_schema,
     elearn_schema,
+    generate_call_hangup,
     generate_churn,
     generate_elearn,
     generate_multiclass,
     multiclass_schema,
 )
 
-__all__ = ["churn_schema", "elearn_schema", "generate_churn", "generate_elearn",
+__all__ = ["call_hangup_schema", "churn_schema", "elearn_schema",
+           "generate_call_hangup", "generate_churn", "generate_elearn",
            "generate_multiclass", "multiclass_schema"]

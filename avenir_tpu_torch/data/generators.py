@@ -1,9 +1,10 @@
 """Seedable synthetic datasets with known class structure.
 
-The port's own copy of the churn and e-learning generators of
-`avenir_tpu/data/generators.py`: the same numpy draws from the same seed,
+The port's own copy of the churn, e-learning and call-hangup generators
+of `avenir_tpu/data/generators.py`: the same numpy draws from the same seed,
 so both packages see the same rows. They stand in for the reference's
-resource/telecom_churn.py and resource/elearn.py scripts. The
+resource/telecom_churn.py, resource/elearn.py and resource/call_hangup.py
+scripts. The
 multi-class corpus (`generate_multiclass`) is the port's own: continuous
 fields over more than two classes, the shape that shows the order in
 which Naive Bayes sums its moments.
@@ -137,4 +138,56 @@ def generate_multiclass(n: int, num_classes: int, num_cont: int,
     colors = schema.field_by_ordinal(1).cardinality
     rows = [[f"M{i:08d}", colors[color[i]]] + [f"{v:.4f}" for v in x[i]]
             + [f"c{y[i]}"] for i in range(n)]
+    return _rows_out(rows, schema, as_csv)
+
+
+def call_hangup_schema() -> FeatureSchema:
+    """resource/call_hangup.json mirror (same ordinals; ordinal 2 = area
+    code is present in rows but undeclared, exactly as the reference skips
+    it). The class field gets its cardinality declared (deviation: the
+    reference file omits it and lets the job infer)."""
+    return FeatureSchema.from_json({
+        "fields": [
+            {"name": "id", "ordinal": 0, "id": True, "dataType": "string"},
+            {"name": "customer type", "ordinal": 1, "dataType": "categorical",
+             "feature": True, "maxSplit": 2,
+             "cardinality": ["business", "residence"]},
+            {"name": "issue", "ordinal": 3, "dataType": "categorical",
+             "feature": True, "maxSplit": 2,
+             "cardinality": ["internet", "cable", "billing", "other"]},
+            {"name": "time of day", "ordinal": 4, "dataType": "categorical",
+             "feature": True, "maxSplit": 2, "cardinality": ["AM", "PM"]},
+            {"name": "hold time", "ordinal": 5, "dataType": "int",
+             "feature": True, "bucketWidth": 60, "min": 0, "max": 600,
+             "splitScanInterval": 60},
+            {"name": "hungup", "ordinal": 6, "dataType": "categorical",
+             "cardinality": ["F", "T"]},
+        ]
+    })
+
+
+def generate_call_hangup(n: int, seed: int = 13,
+                         as_csv: bool = False) -> Union[Dataset, str]:
+    """resource/call_hangup.py behavior: Gaussian hold times by time of
+    day (AM mean 500/80, PM 400/60), hangup likely above a threshold.
+    A row at a time, in the JAX package's order of draws."""
+    rng = np.random.default_rng(seed)
+    schema = call_hangup_schema()
+    rows = []
+    for i in range(n):
+        cust = "business" if rng.random() < 0.4 else "residence"
+        issue = ["internet", "billing", "other"][rng.integers(0, 3)] \
+            if cust == "business" else \
+            ["internet", "cable", "billing", "other"][rng.integers(0, 4)]
+        tod = "AM" if rng.random() < 0.5 else "PM"
+        mean, std = (500.0, 80.0) if tod == "AM" else (400.0, 60.0)
+        hold = float(np.clip(rng.normal(mean, std), 0, 599))
+        threshold = 420.0
+        if hold > threshold:
+            hungup = "T" if rng.random() < 0.8 else "F"
+        else:
+            hungup = "F" if rng.random() < 0.9 else "T"
+        area = str(rng.choice([408, 607, 336, 646, 206]))
+        rows.append([f"{rng.integers(10**9, 10**10)}", cust, area, issue,
+                     tod, str(int(hold)), hungup])
     return _rows_out(rows, schema, as_csv)

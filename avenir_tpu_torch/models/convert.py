@@ -1,5 +1,7 @@
 """Carry models built by the JAX package across: a KNN index and
-classifier, and a Naive Bayes model.
+classifier, a Naive Bayes model and a free-text Naive Bayes model. (A
+tree travels as its DecisionPathList JSON, which `tree.DecisionPathList.load`
+reads as the JAX package wrote it.)
 
 The JAX `NeighborIndex` and `NearestNeighborClassifier` hold their train
 state as arrays; saved as numpy (`t_num`, `t_cat`, `ranges`,
@@ -16,7 +18,10 @@ Both become a kernel-route index here where the kernels apply.
 
 A JAX `NaiveBayesModel` travels as its count arrays (`post_counts`,
 `cont_moments`, `class_counts`, and `cont_params` / `cont_prior_params`
-where it was loaded from a model file) with its class values and bins.
+where it was loaded from a model file) with its class values and bins;
+a JAX `TextNaiveBayes` as its `log_prob`, `log_prior` and class-count
+arrays with its vocabulary (in code order), class values, `laplace` and
+`drop_stop`.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 from avenir_tpu_torch.core.schema import FeatureSchema
 from avenir_tpu_torch.models.knn import NearestNeighborClassifier, NeighborIndex
 from avenir_tpu_torch.models.naive_bayes import NaiveBayesModel
+from avenir_tpu_torch.models.text import TextNaiveBayes
 from avenir_tpu_torch.utils.devices import DeviceLike, resolve_device
 
 
@@ -92,4 +98,37 @@ def nb_model_from_jax_arrays(arrays: Dict[str, Optional[np.ndarray]],
     for name in ("cont_params", "cont_prior_params"):
         if arrays.get(name) is not None:
             setattr(model, name, np.asarray(arrays[name], np.float64).copy())
+    return model
+
+
+def text_nb_from_jax_arrays(arrays: Dict[str, Optional[np.ndarray]],
+                            meta: Dict[str, object],
+                            device: DeviceLike = None) -> TextNaiveBayes:
+    """The port's TextNaiveBayes over a JAX text model's arrays
+    (`log_prob` [V, K], `log_prior` [K], and `class_counts` [K], empty
+    for a model loaded from its file) and its `meta` (`vocab`, the tokens
+    in code order; `class_values`; `laplace`; `drop_stop`). It scores,
+    predicts and saves as the JAX model does. The class counts, where
+    there are any, must give the prior."""
+    vocab = list(meta["vocab"])
+    classes = list(meta["class_values"])
+    log_prob = np.asarray(arrays["log_prob"], np.float64)
+    log_prior = np.asarray(arrays["log_prior"], np.float64)
+    if log_prob.shape != (len(vocab), len(classes)) \
+            or log_prior.shape != (len(classes),):
+        raise ValueError(
+            f"log_prob {log_prob.shape} and log_prior {log_prior.shape} do "
+            f"not match {len(vocab)} tokens and {len(classes)} classes")
+    counts = np.asarray(arrays.get("class_counts", ()), np.float64)
+    if counts.size and not np.allclose(
+            np.log(np.maximum(counts / max(counts.sum(), 1.0), 1e-30)),
+            log_prior):
+        raise ValueError("class_counts do not give log_prior")
+    model = TextNaiveBayes(laplace=float(meta["laplace"]),
+                           drop_stop_words=bool(meta["drop_stop"]),
+                           device=device)
+    model.vocab = {tok: i for i, tok in enumerate(vocab)}
+    model.class_values = classes
+    model.log_prob = log_prob.copy()
+    model.log_prior = log_prior.copy()
     return model

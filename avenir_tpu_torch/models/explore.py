@@ -1,8 +1,8 @@
 """Feature exploration: mutual information and the correlation family.
 
-The port of the mutual-information and correlation parts of
-`avenir_tpu/models/explore.py` (org.avenir.explore). Each job is a
-contingency-table or moment reduction over records:
+The port of the mutual-information, class-partition and correlation
+parts of `avenir_tpu/models/explore.py` (org.avenir.explore). Each job is
+a contingency-table or moment reduction over records:
 
 - mutual information and its selection scores (MutualInformation.java,
   MutualInformationScore.java): the chunk's count tables are
@@ -11,6 +11,9 @@ contingency-table or moment reduction over records:
   tables on the host, in float32 as the JAX package computes them
   (`ops/infotheory.py`), so a card run and its CPU twin print the same
   bytes;
+- the class partition stats of every candidate split
+  (`ClassPartitionGenerator`): the tree's level histogram with one leaf,
+  counted on the device; the stats on the host;
 - Cramér and heterogeneity-reduction correlation: [B, K] contingency
   tables counted on the device; the Cramér index in float64 numpy, the
   impurities in float32 on the host;
@@ -23,7 +26,7 @@ the card.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +34,7 @@ import torch
 from avenir_tpu_torch.core.dataset import Dataset
 from avenir_tpu_torch.core.schema import FeatureField
 from avenir_tpu_torch.ops.infotheory import (bits_entropy, entropy, gini,
+                                             weighted_split_score,
                                              mutual_information)
 from avenir_tpu_torch.ops.reduce import cross_count
 from avenir_tpu_torch.utils.devices import DeviceLike, resolve_device
@@ -363,6 +367,82 @@ class MutualInformationAnalyzer:
             "double.input.symmetric.relevance": self.disr,
             "min.redundancy.max.relevance": self.mrmr,
         }[algorithm]()
+
+
+# ---------------------------------------------------------------------------
+# candidate-split class partition stats
+# ---------------------------------------------------------------------------
+class ClassPartitionGenerator:
+    """Candidate-split class-histogram stats — the older two-job tree flow's
+    first stage (explore/ClassPartitionGenerator.java:61, cpg.* keys).
+
+    For every candidate split of the requested attributes, the tree's
+    level histogram with a single root leaf (`tree._level_histogram`, one
+    keyed count on `device`, default cuda) gives the [segment, class]
+    counts; the split stat is computed on the host per
+    cpg.split.algorithm: `entropy` / `giniIndex` (weighted child info
+    content in float32, `ops.infotheory.weighted_split_score`, lower =
+    better) or `hellingerDistance` (AttributeSplitStat.java:228-283,
+    float64 numpy, higher = better, binary class only)."""
+
+    def __init__(self, ds: Dataset, attributes: Optional[Sequence[int]] = None,
+                 algorithm: str = "giniIndex", cat_partition_cap: int = 128,
+                 device: DeviceLike = None):
+        from avenir_tpu_torch.models.tree import enumerate_splits
+
+        self.ds = ds
+        self.algorithm = algorithm
+        self.device = resolve_device(device)
+        splits = enumerate_splits(ds.schema, cat_partition_cap)
+        if attributes is not None:
+            attrs = set(attributes)
+            splits = [s for s in splits if s.attribute in attrs]
+        self.splits = splits
+        self.k = ds.schema.num_classes()
+        self.histograms = self._histograms()
+
+    def _histograms(self) -> List[np.ndarray]:
+        """Per split: float32 [n_segments, k] class counts."""
+        from avenir_tpu_torch.models.tree import (_level_histogram,
+                                                  segment_matrix)
+
+        if not self.splits:
+            return []
+        n = len(self.ds)
+        dev = self.device
+        smax = max(s.n_segments for s in self.splits)
+        seg = segment_matrix(self.splits, self.ds)            # [n, NS]
+        hists = _level_histogram(
+            torch.zeros(n, dtype=torch.int32, device=dev),
+            torch.from_numpy(seg).to(dev),
+            torch.from_numpy(self.ds.labels()).to(dev),
+            torch.ones(n, dtype=torch.float32, device=dev),
+            1, len(self.splits), smax, self.k,
+        ).cpu().numpy()[0]                                     # [NS, smax, k]
+        return [hists[i, : s.n_segments] for i, s in enumerate(self.splits)]
+
+    def split_stats(self) -> List[Tuple[object, float]]:
+        """(CandidateSplit, stat) per candidate, computed per algorithm."""
+        out = []
+        for s, h in zip(self.splits, self.histograms):
+            if self.algorithm == "hellingerDistance":
+                if self.k != 2:
+                    raise ValueError("Hellinger distance algorithm is only "
+                                     "valid for binary valued class attributes")
+                tot = np.maximum(h.sum(axis=0), _EPS)        # per-class totals
+                d = np.sqrt(h[:, 0] / tot[0]) - np.sqrt(h[:, 1] / tot[1])
+                stat = float(np.sqrt((d * d).sum()))
+            else:
+                stat = float(weighted_split_score(h, self.algorithm))
+            out.append((s, stat))
+        return out
+
+    def best_split(self):
+        """(CandidateSplit, stat): max stat for Hellinger, min info content
+        for entropy/gini."""
+        stats = self.split_stats()
+        pick = max if self.algorithm == "hellingerDistance" else min
+        return pick(stats, key=lambda t: t[1])
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,7 @@ Not ported, having no caller in the port: the reference's float
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,39 +80,52 @@ def moment_reduce(keys: torch.Tensor, x: torch.Tensor, num_keys: int
     x2 = x[:, None] if flat else x
     keys = keys.long()
     n, fc = x2.shape
-    block = _dot_block(num_keys, fc, n)
-    if block is None:
+    order = _dot_block(num_keys, fc, n)
+    if order is None:
         mom = _row_order_sum(keys, x2, num_keys).to(x.device)
     else:
         trip = torch.stack([torch.ones_like(x2), x2, x2 * x2], dim=-1)
-        onehot = (keys[:, None] == torch.arange(num_keys, device=x.device)
-                  [None, :]).to(torch.float32)
-        terms = onehot[:, :, None, None] * trip[:, None]     # [n, K, Fc, 3]
-        mom = _xla_cpu_row_sum(terms, block)
+        form, block = order
+        if form == "inorder":
+            mom = torch.cat([_block_order_sum(keys, trip, c0, c1, b)
+                             for c0, c1, b in block])
+        else:
+            onehot = (keys[:, None] == torch.arange(num_keys, device=x.device)
+                      [None, :]).to(torch.float32)
+            terms = onehot[:, :, None, None] * trip[:, None]  # [n, K, Fc, 3]
+            mom = _xla_cpu_row_sum(terms, block)
     mom = mom.permute(1, 0, 2)                                # [Fc, K, 3]
     return mom[0] if flat else mom
 
 
-def _dot_block(k: int, fc: int, n: int) -> Optional[int]:
-    """Rows a block of XLA's CPU dot for the moment einsum of the JAX
+def _dot_block(k: int, fc: int, n: int):
+    """The order of XLA's CPU dot for the moment einsum of the JAX
     package's `_count_batch_kernel` ("nk,nfm->fkm", a [3 Fc, n] x [n, K]
-    product) of n rows, k classes and fc continuous fields; None where it
-    sums the rows in order. Read off the reference on the CPU, one +M/-M
-    pair of rows at a time (`tests/nb_moment_probe.py`), at 1-5 fields,
-    2-17 classes and up to 2,200,000 rows: rows in order with one field
-    and at most three classes; below 8 rows also with one or two fields
-    and at most seven classes, at 5 rows from five classes and at 6 rows
-    from nine; else blocks of 8192 rows up to four classes, 4096 up to
-    eight, 2728 up to twelve and 2048 up to sixteen (below 4 rows every
-    order gives the same sum). From 17 classes XLA sums another tree,
-    not followed here: those take 2048-row blocks and differ from the
-    reference in some bits (ROADMAP §3.1)."""
+    product) of n rows, k classes and fc continuous fields: None where it
+    sums the rows in order; ("lanes", B) where four running lanes sum
+    each block of B rows and the blocks add in order; ("inorder",
+    panels) where the class axis splits into panels (first class, last
+    class + 1, B) of at most 64 classes, and one running sum adds each
+    block of B = 32768 // (the panel's classes) rows in order, the
+    blocks in order. Read off the reference on the CPU, one +M/-M pair
+    of rows at a time (`tests/nb_moment_probe.py`), at 1-5 fields, 2-256
+    classes and up to 2,200,000 rows: rows in order with one field and
+    at most three classes; below 8 rows also with one or two fields and
+    at most seven classes, at 5 rows from five classes and at 6 rows from
+    nine; lanes over blocks of 8192 rows up to four classes, 4096 up to
+    eight, 2728 up to twelve and 2048 up to sixteen; panels from 17
+    classes (below 4 rows every order gives the same sum)."""
     if fc == 1 and k <= 3:
         return None
     if n < 8 and ((fc <= 2 and k <= 7) or (n == 5 and k >= 5)
                   or (n == 6 and k >= 9)):
         return None
-    return 8192 if k <= 4 else 4096 if k <= 8 else 2728 if k <= 12 else 2048
+    if k > 16:
+        return ("inorder", tuple((c, min(c + 64, k),
+                                  32768 // (min(c + 64, k) - c))
+                                 for c in range(0, k, 64)))
+    return ("lanes",
+            8192 if k <= 4 else 4096 if k <= 8 else 2728 if k <= 12 else 2048)
 
 
 def _row_order_sum(keys: torch.Tensor, x: torch.Tensor, k: int
@@ -166,3 +179,35 @@ def _xla_cpu_row_sum(terms: torch.Tensor, block: int) -> torch.Tensor:
     for b in range(1, n_blocks):
         total = total + sums[b]
     return total + tail
+
+
+def _block_order_sum(keys: torch.Tensor, trip: torch.Tensor, c0: int,
+                     c1: int, block: int) -> torch.Tensor:
+    """float32 [c1 - c0, Fc, 3] sums by key of trip [n, Fc, 3] for the
+    keys c0..c1-1, in the order XLA's CPU dot takes for a panel of
+    classes from 17: each block of `block` rows summed by one running sum
+    a key in row order, all blocks at once (one elementwise add a row of
+    each block: `block` steps, and no two rows of a step share a cell),
+    then the blocks' sums added in order. A row adds to its own key's
+    cell only (the rows of other keys to a spare cell): XLA's one-hot
+    product adds a zero to the others, which leaves a sum from +0 as it
+    is."""
+    n = trip.shape[0]
+    w = c1 - c0
+    n_blocks = max(1, -(-n // block))
+    pad = n_blocks * block - n
+    # zero rows pad the last block: x + 0 is x
+    trip = torch.cat([trip, trip.new_zeros((pad,) + trip.shape[1:])])
+    cell = torch.where((keys >= c0) & (keys < c1), keys - c0, w)
+    cell = torch.cat([cell, cell.new_full((pad,), w)])
+    trip = trip.reshape((n_blocks, block) + trip.shape[1:])
+    cell = cell.reshape(n_blocks, block)
+    acc = trip.new_zeros((n_blocks, w + 1) + trip.shape[2:])
+    rows = torch.arange(n_blocks, device=trip.device)
+    for j in range(min(block, n)):
+        at = (rows, cell[:, j])
+        acc[at] = acc[at] + trip[:, j]
+    total = acc[0]
+    for b in range(1, n_blocks):
+        total = total + acc[b]
+    return total[:w]

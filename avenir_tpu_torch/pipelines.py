@@ -1,11 +1,12 @@
 """Canonical pipelines: the reference's tutorial shell flows as Pipelines.
 
-The port of `knn_pipeline` and `profile_pipeline` of
-`avenir_tpu/pipelines.py`: the stages that resource/knn.sh ran by hand,
-and the corpus profiling every modelling run-book starts with, against
-the same properties keys, so a run-book translates 1:1: build the
-pipeline, call run(). `association_pipeline`, `decision_tree_pipeline` and
-`bandit_round` wait for their jobs.
+The port of `knn_pipeline`, `decision_tree_pipeline` and
+`profile_pipeline` of `avenir_tpu/pipelines.py`: the stages that
+resource/knn.sh ran by hand, resource/detr.sh's and rafo.sh's tree
+builds, and the corpus profiling every modelling run-book starts with,
+against the same properties keys, so a run-book translates 1:1: build the
+pipeline, call run(). `association_pipeline` and `bandit_round` wait for
+their jobs.
 """
 
 from __future__ import annotations
@@ -61,6 +62,29 @@ def knn_pipeline(conf, train_csv: str, test_csv: str, work_dir: str,
               os.path.join(work_dir, "join.txt"), dict(overrides)),
         Stage("nearestNeighbor", "nearestNeighbor", [train_csv, test_csv],
               os.path.join(work_dir, "knn_out.txt"), dict(overrides)),
+    ], device=device)
+
+
+def decision_tree_pipeline(conf, train_csv: str, work_dir: str,
+                           schema_path: Optional[str] = None,
+                           forest: bool = False,
+                           device: DeviceLike = None) -> Pipeline:
+    """resource/detr.sh / rafo.sh on `device` (default cuda): the
+    per-level decTree + mvDecFiles rotation (SURVEY §3.4) as one job whose
+    DecisionPathList JSON lands at dtb.decision.file.path.out
+    (decPathOut.txt in work_dir by default); with forest=True rafo's
+    randomForest, a `tree-NNN.json` a tree under work_dir/forest."""
+    os.makedirs(work_dir, exist_ok=True)
+    overrides: Dict[str, str] = {}
+    if schema_path:
+        overrides["dtb.feature.schema.file.path"] = schema_path
+    overrides.setdefault(
+        "dtb.decision.file.path.out", os.path.join(work_dir, "decPathOut.txt"))
+    job = "randomForest" if forest else "decTree"
+    return Pipeline(_props(conf), [
+        Stage("decTree", job, [train_csv],
+              os.path.join(work_dir, "forest") if forest else "",
+              overrides),
     ], device=device)
 
 

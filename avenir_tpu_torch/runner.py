@@ -8,13 +8,16 @@ ported so far: `nearestNeighbor` (org.avenir.knn.NearestNeighbor),
 `featureCondProbJoiner` (org.avenir.knn.FeatureCondProbJoiner),
 `mutualInformation` (org.avenir.explore.MutualInformation),
 `fisherDiscriminant` (org.avenir.discriminant.FisherDiscriminant),
-`cramerCorrelation`, `categoricalCorrelation`, `heterogeneityReduction` and
-`numericalCorrelation` (org.avenir.explore), and `Stage` / `Pipeline`,
+`cramerCorrelation`, `categoricalCorrelation`, `heterogeneityReduction`,
+`numericalCorrelation` and `classPartitionGenerator` (org.avenir.explore),
+`decTree`, `randomForest` and `dataPartitioner` (org.avenir.tree),
+`wordCounter` (org.avenir.text.WordCounter), and `Stage` / `Pipeline`,
 which chain them as the reference's shell drivers did. A job reads the
 reference's namespaced keys (`nen.*`, `bad.*`, `bap.*`, `sts.*`, `grs.*`,
-`fcb.*`, `mut.*`, `fid.*`, `crc.*`, `cac.*`, `hrc.*`, `nuc.*`) from one flat
-properties file and runs in-process on the device the caller names —
-``cuda`` unless ``device="cpu"`` is passed.
+`fcb.*`, `mut.*`, `fid.*`, `crc.*`, `cac.*`, `hrc.*`, `nuc.*`, `cpg.*`,
+`dtb.*`, `dap.*`, `wco.*`) from one flat properties file and runs
+in-process on the device the caller names — ``cuda`` unless
+``device="cpu"`` is passed.
 
 The streamed jobs `bayesianDistr`, `mutualInformation` and
 `fisherDiscriminant` are fold sinks with the reference's `StreamFoldOps`
@@ -25,9 +28,9 @@ groups consecutive such stages into one.
 Each job records the reference's spans (`obs`): `job.run` around it,
 `stream.read` and `stream.parse` for its input, `stream.fold` around the
 work on each chunk (a fold's consume, a predict, a tile of distances,
-a join) and `job.finish` around its output; a shared scan records
-`job.dispatch` (mode "shared") around its scan. None synchronizes the
-device.
+a join, a tree level) and `job.finish` around its output; a shared scan
+records `job.dispatch` (mode "shared") around its scan. None
+synchronizes the device.
 """
 
 from __future__ import annotations
@@ -564,12 +567,49 @@ def bayesian_distribution(cfg: JobConfig, inputs: List[str], output: str,
     """Naive Bayes sufficient statistics -> CSV model file and its stamp.
     Input blocks stream through `stream_job_inputs` (host memory O(block),
     `bad.stream.block.size.mb`); counts are additive, so the chunking
-    cannot change the model."""
+    cannot change the model. `bad.tabular.input=false` switches to the
+    free-text mode: rows are `text,classVal`, each token contributes a
+    (classVal, token) count (BayesianDistribution.mapText, :186-195)."""
     if not cfg.get_bool("tabular.input", True):
-        raise NotImplementedError(
-            "bad.tabular.input=false (the free-text Naive Bayes of "
-            "models/text.py) is not ported yet")
+        return _text_distribution(cfg, inputs, output, device)
     return _stream_fold_job("bayesianDistr", cfg, inputs, output, device)
+
+
+def _text_distribution(cfg: JobConfig, inputs: List[str], output: str,
+                       device: torch.device) -> JobResult:
+    """bayesianDistr's free-text mode: token counts folded a line block
+    at a time (mapText's per-line contract), then the model CSV."""
+    from avenir_tpu_torch.core.stream import iter_line_blocks
+    from avenir_tpu_torch.models.text import TextNaiveBayes
+
+    tmodel = TextNaiveBayes(device=device)
+    rows = 0
+    block = int(cfg.get_float("stream.block.size.mb", 64.0) * (1 << 20))
+    delim = cfg.field_delim_regex
+    for path in inputs:
+        lineno = 0
+        for chunk, lines in enumerate(iter_line_blocks(path, block)):
+            t0 = obs.now()
+            texts, labels = [], []
+            for ln in lines:
+                lineno += 1
+                text, sep, cls = ln.rpartition(delim)
+                if not sep:
+                    raise ValueError(
+                        f"{path}:{lineno}: text-mode row has no {delim!r} "
+                        f"delimiter (want text,classVal)")
+                texts.append(text)
+                labels.append(cls.strip())
+            obs.record("stream.parse", t0, nbytes=-1, engine="text")
+            with obs.span("stream.fold", sink="bayesianDistr", chunk=chunk):
+                tmodel.accumulate(texts, labels)
+            rows += len(texts)
+    with obs.span("job.finish", job="bayesianDistr"):
+        out = _out_file(output)
+        tmodel.finish()
+        tmodel.save(out, delim=cfg.field_delim)
+    return JobResult("bayesianDistr", {"Distribution Data:Records": rows},
+                     [out])
 
 
 @job("bayesianPredictor", "bap", "org.avenir.bayesian.BayesianPredictor")
@@ -945,6 +985,161 @@ def numerical_corr_job(cfg: JobConfig, inputs: List[str], output: str,
                         fh.write(f"{oi}{delim}{oj}{delim}{corr[i, j]:.6f}\n")
                 fh.write(f"{oi}{delim}class{delim}{corr[i, -1]:.6f}\n")
     return JobResult("numericalCorrelation", {"Basic:Records": acc.n}, [out])
+
+
+# ======================================================================= tree
+def _tree_builder(cfg: JobConfig, schema: FeatureSchema,
+                  device: torch.device):
+    from avenir_tpu_torch.models.tree import DecisionTreeBuilder
+
+    return DecisionTreeBuilder(
+        schema,
+        split_algorithm=cfg.get("split.algorithm", "entropy"),
+        max_depth=cfg.get_int("max.depth.limit", 3),
+        min_info_gain=cfg.get_float("min.info.gain.limit", -1.0),
+        min_population=cfg.get_int("min.population.limit", -1),
+        stopping_strategy=cfg.get("path.stopping.strategy", "maxDepth"),
+        attr_selection_strategy=cfg.get("split.attribute.selection.strategy",
+                                        "notUsedYet"),
+        device=device,
+    )
+
+
+@job("decTree", "dtb", "org.avenir.tree.DecisionTreeBuilder", "decisionTree")
+def decision_tree(cfg: JobConfig, inputs: List[str], output: str,
+                  device: torch.device) -> JobResult:
+    """Decision-tree build; the reference's per-level MR iteration with
+    decPathIn/decPathOut file rotation (resource/detr.sh:34-54) runs as an
+    in-process level loop (each level a `stream.fold` span), and the
+    DecisionPathList JSON lands at `dtb.decision.file.path.out`."""
+    from avenir_tpu_torch.core.stream import read_dataset
+
+    ds = read_dataset(cfg, inputs[0], _schema(cfg))
+    # build against the dataset's OWN schema object: parsing may have
+    # discovered vocabularies that a fresh load lacks
+    paths = _tree_builder(cfg, ds.schema, device).fit(ds)
+    with obs.span("job.finish", job="decTree"):
+        out = (cfg.get("decision.file.path.out")
+               or _out_file(output, "decPathOut.txt"))
+        paths.save(out)
+    return JobResult("decTree", {"Tree:Paths": len(paths.paths)}, [out])
+
+
+@job("randomForest", "dtb", "org.avenir.tree.RandomForestBuilder")
+def random_forest(cfg: JobConfig, inputs: List[str], output: str,
+                  device: torch.device) -> JobResult:
+    """A forest of `dtb.num.trees` trees over bootstrap (or sampled) row
+    weights, grown together a level at a time; `tree-NNN.json` a tree
+    under the output directory."""
+    from avenir_tpu_torch.core.stream import read_dataset
+    from avenir_tpu_torch.models.tree import RandomForestBuilder
+
+    ds = read_dataset(cfg, inputs[0], _schema(cfg))
+    forest = RandomForestBuilder(
+        ds.schema,
+        num_trees=cfg.get_int("num.trees", 10),
+        sampling=cfg.get("sub.sampling.strategy", "withReplace"),
+        sample_rate=cfg.get_float("sub.sampling.rate", 0.7),
+        split_algorithm=cfg.get("split.algorithm", "entropy"),
+        max_depth=cfg.get_int("max.depth.limit", 3),
+        stopping_strategy=cfg.get("path.stopping.strategy", "maxDepth"),
+        device=device,
+    ).fit(ds)
+    outs = []
+    with obs.span("job.finish", job="randomForest"):
+        if output:
+            os.makedirs(output, exist_ok=True)
+            for t, tree in enumerate(forest.trees):
+                p = os.path.join(output, f"tree-{t:03d}.json")
+                tree.save(p)
+                outs.append(p)
+    return JobResult("randomForest", {"Tree:Trees": len(forest.trees)}, outs)
+
+
+@job("classPartitionGenerator", "cpg",
+     "org.avenir.explore.ClassPartitionGenerator",
+     "splitGenerator", "org.avenir.tree.SplitGenerator")
+def class_partition_job(cfg: JobConfig, inputs: List[str], output: str,
+                        device: torch.device) -> JobResult:
+    """Candidate-split class-histogram stats (cpg.* keys; the reference's
+    two-job tree flow stage, ClassPartitionGenerator.java:61): one
+    `attribute,splitId,stat` line a candidate split. Also answers to
+    org.avenir.tree.SplitGenerator, the tree package's candidate-split
+    stats base job."""
+    from avenir_tpu_torch.core.stream import read_dataset
+    from avenir_tpu_torch.models.explore import ClassPartitionGenerator
+
+    ds = read_dataset(cfg, inputs[0], _schema(cfg))
+    with obs.span("stream.fold", sink="classPartitionGenerator"):
+        cpg = ClassPartitionGenerator(
+            ds, attributes=cfg.get_int_list("split.attributes"),
+            algorithm=cfg.get("split.algorithm",
+                              cfg.get("algorithm", "giniIndex")),
+            device=device)
+    with obs.span("job.finish", job="classPartitionGenerator"):
+        out = _out_file(output)
+        delim = cfg.field_delim
+        with open(out, "w") as fh:
+            for s, stat in cpg.split_stats():
+                fh.write(f"{s.attribute}{delim}{s.split_id}{delim}"
+                         f"{stat:.6f}\n")
+    return JobResult("classPartitionGenerator",
+                     {"Splits:Candidates": len(cpg.splits)}, [out])
+
+
+@job("dataPartitioner", "dap", "org.avenir.tree.DataPartitioner")
+def data_partitioner_job(cfg: JobConfig, inputs: List[str], output: str,
+                         device: torch.device) -> JobResult:
+    """The rows of each segment of the best split (of
+    `dap.split.attribute`, else of any attribute) to
+    `<dap.project.base.path or output>/split=<id>/segment=<j>/data`."""
+    from avenir_tpu_torch.core.stream import read_dataset
+    from avenir_tpu_torch.models.tree import DataPartitioner
+
+    # keep_raw: partition output must pass rows through byte-identical
+    # (reconstruction would reformat numerics and break on missing values)
+    ds = read_dataset(cfg, inputs[0], _schema(cfg), keep_raw=True)
+    dp = DataPartitioner(
+        ds.schema,
+        algorithm=cfg.get("split.algorithm", "giniIndex"),
+        split_attribute=cfg.get_int("split.attribute"),
+        device=device,
+    )
+    with obs.span("stream.fold", sink="dataPartitioner"):
+        split, _ = dp.best_split(ds)
+    with obs.span("job.finish", job="dataPartitioner"):
+        paths = dp.partition(ds, cfg.get("project.base.path") or output,
+                             delim=cfg.field_delim, split=split)
+    return JobResult("dataPartitioner", {"Partition:Segments": len(paths)},
+                     paths)
+
+
+# ======================================================================= text
+@job("wordCounter", "wco", "org.avenir.text.WordCounter",
+     "org.avenir.sanity.WordCount")
+def word_counter_job(cfg: JobConfig, inputs: List[str], output: str,
+                     device: torch.device) -> JobResult:
+    """Token counts of one CSV field (`wco.text.field.ordinal`) or of
+    whole lines, folded a line block at a time (host memory O(block +
+    vocabulary), WordCounter's mapper contract): `token,count` lines in
+    token order. Host work only."""
+    from avenir_tpu_torch.core.stream import stream_job_lines
+    from avenir_tpu_torch.models.text import WordCounter
+
+    wc = WordCounter(text_field_ordinal=cfg.get_int("text.field.ordinal", -1),
+                     delim=cfg.field_delim_regex)
+    counts: Dict[str, int] = {}
+    for chunk, lines in enumerate(stream_job_lines(cfg, inputs)):
+        with obs.span("stream.fold", sink="wordCounter", chunk=chunk):
+            for word, c in wc.count(lines):
+                counts[word] = counts.get(word, 0) + c
+    with obs.span("job.finish", job="wordCounter"):
+        out = _out_file(output)
+        delim = cfg.field_delim
+        with open(out, "w") as fh:
+            for word in sorted(counts):
+                fh.write(f"{word}{delim}{counts[word]}\n")
+    return JobResult("wordCounter", {"Words:Unique": len(counts)}, [out])
 
 
 # =================================================================== pipeline

@@ -142,8 +142,27 @@ Phases, each printing a line per check; any failed check exits non-zero:
    5-class corpus of 1,000,000 rows with one categorical field and 1,
    then 2, continuous fields uniform in [0, 120): model and stamp
    byte-identical to the CPU twin's (the moments sum in a fixed order of
-   elementwise adds, not in atomics' order). The path launches no kernel
-   of the port's own.
+   elementwise adds, not in atomics' order); the same with 20 classes
+   and one continuous field (its moments in 1638-row blocks, each summed
+   in row order). The path launches no kernel of the port's own.
+10. The tree and text path (after phase 9): the root bench's call-hangup
+   corpus (100,000 rows of seed 5) written ten times over, 1,000,000
+   rows. `pipelines.decision_tree_pipeline` with decTree (entropy, depth
+   4) and with the forest (5 trees, withReplace, depth 4), then
+   `dataPartitioner` and `classPartitionGenerator`, each on the card and
+   on the CPU: decPathOut.txt, every tree-NNN.json and every
+   segment=j/data byte-identical to the CPU twin's, the split stats
+   within 1e-6 of the twin's with the same best split, and the forest's
+   level histogram called once a level for all its trees (counted at
+   `tree._level_histogram_forest`). `RandomForestBuilder.predict` with
+   device=True equal to device=False on all 1,000,000 rows. The forest
+   job and its device predict again under torch.profiler: the device
+   busy share and the level histogram's and path match's device time.
+   Then `wordCounter` and text-mode `bayesianDistr` on a seeded corpus
+   of 200,000 lines (8-20 tokens from 5,000 words and stop words, 4
+   classes), byte-identical to the CPU twin's. Each run's seconds and
+   its split by span. The path launches no kernel of the port's own:
+   its device work is torch ops.
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth: each kernel's launches are counted from
@@ -194,10 +213,17 @@ MI_ALGOS = ("mutual.info.maximization,mutual.info.selection,"
             "joint.mutual.info,double.input.symmetric.relevance,"
             "min.redundancy.max.relevance")
 #: (classes, continuous fields) of the multi-class NB twins: 5 classes
-#: take the 4096-row device blocks, 2 classes and one field the rows in
-#: order on the host
+#: take the 4096-row device lanes, 2 classes and one field the rows in
+#: order on the host, 20 classes the 1638-row device blocks summed in
+#: row order
 MOMENT_ROWS = 1_000_000
-MOMENT_SHAPES = ((5, 1), (5, 2), (2, 1))
+MOMENT_SHAPES = ((5, 1), (5, 2), (2, 1), (20, 1))
+#: phase 10: the call-hangup corpus of the root bench's forest
+#: (bench.py:630, 100,000 rows of seed 5) written ten times over, the
+#: forest's shape (bench.py:132-134), and the text corpus
+TREE_BASE_ROWS, TREE_COPIES = 100_000, 10
+RF_TREES, RF_DEPTH = 5, 4
+TEXT_LINES, TEXT_VOCAB, TEXT_CLASSES = 200_000, 5_000, 4
 #: nvidia-smi's name and power limit of the card (phase 1)
 CARD = ""
 
@@ -1792,6 +1818,238 @@ def phase_profile():
             for k, v in secs.items()}
 
 
+# ----------------------------------------------------------------- phase 10
+def _text_corpus(lines: int, seed: int) -> str:
+    """`text,classVal` lines: 8-20 tokens each from a TEXT_VOCAB-word
+    vocabulary, about one in six a stop word, each class leaning on its
+    own quarter of the vocabulary."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = np.array([f"w{i}" for i in range(TEXT_VOCAB)]
+                     + ["the", "and", "a", "of", "is", "to", "in", "it"])
+    cls = rng.integers(0, TEXT_CLASSES, lines)
+    length = rng.integers(8, 21, lines)
+    lean = rng.random((lines, 20)) < 0.4
+    quarter = TEXT_VOCAB // TEXT_CLASSES
+    idx = np.where(lean, cls[:, None] * quarter
+                   + rng.integers(0, quarter, (lines, 20)),
+                   rng.integers(0, TEXT_VOCAB, (lines, 20)))
+    idx = np.where(rng.random((lines, 20)) < 1 / 6,
+                   TEXT_VOCAB + rng.integers(0, 8, (lines, 20)), idx)
+    toks = words[idx]
+    return "".join(" ".join(toks[i, :length[i]]) + f",c{cls[i]}\n"
+                   for i in range(lines))
+
+
+#: the profiler ranges the tree module marks
+RANGES = ("tree::level_histogram", "tree::path_match")
+
+
+def _us(ev, *names) -> float:
+    """The first of a profiler event's time attributes that it has (their
+    names moved from cuda_* to device_* across torch versions)."""
+    for name in names:
+        if hasattr(ev, name):
+            return getattr(ev, name)
+    return 0.0
+
+
+def _annotated_device_s(prof, label: str) -> dict:
+    """Device seconds under a record_function range: the kernels its ops
+    launched (`kernels_s`), and the range's span on the device timeline
+    (`span_s`); None where the profiler gives none."""
+    kern = span = 0.0
+    for ev in prof.events():
+        if ev.name != label:
+            continue
+        if str(ev.device_type).endswith("CPU"):
+            kern += _us(ev, "device_time_total", "cuda_time_total")
+        else:
+            span += _us(ev, "device_time_total", "cuda_time_total") \
+                or ev.time_range.elapsed_us()
+    return {"kernels_s": kern / 1e6 if kern else None,
+            "span_s": span / 1e6 if span else None}
+
+
+def phase_tree_text():
+    """decision_tree_pipeline (decTree and the forest), dataPartitioner
+    and classPartitionGenerator on 1,000,000 call-hangup rows, the
+    forest's device and host predict, and the text jobs, each on the
+    card against its CPU twin. Returns the seconds of each run."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from avenir_tpu_torch import obs
+    from avenir_tpu_torch.core.dataset import Dataset
+    from avenir_tpu_torch.data import call_hangup_schema, generate_call_hangup
+    from avenir_tpu_torch.models import tree
+    from avenir_tpu_torch.pipelines import decision_tree_pipeline
+    from avenir_tpu_torch.runner import run_job
+
+    work = ROOT / "build" / "chip_smoke_tree"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    schema = str(work / "call_hangup.json")
+    call_hangup_schema().save(schema)
+    train = work / "train.csv"
+    t0 = time.perf_counter()
+    base = generate_call_hangup(TREE_BASE_ROWS, seed=5, as_csv=True)
+    train.write_text(base * TREE_COPIES)
+    rows = TREE_BASE_ROWS * TREE_COPIES
+    print(f"call-hangup CSV: {rows} rows ({train.stat().st_size} bytes), "
+          f"written in {time.perf_counter() - t0:.1f}s", flush=True)
+    secs = {}
+
+    def timed(what, dev, run, n=rows, unit="rows"):
+        """run(dev), its seconds ended by a synchronise, and its split by
+        span."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with obs.capture() as rec:
+            out = run(dev)
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        secs.setdefault(what, {})[dev] = round(sec, 3)
+        print(f"{what} {dev} ({n} {unit}, {CARD}): {sec:.3f}s, split by "
+              f"span {json.dumps(_span_split(rec, sec))}", flush=True)
+        return out
+
+    props = {"dtb.max.depth.limit": str(RF_DEPTH),
+             "dtb.split.algorithm": "entropy", "csv.engine": "native",
+             "dtb.num.trees": str(RF_TREES),
+             "dtb.sub.sampling.strategy": "withReplace"}
+    for forest in (False, True):
+        what = "randomForest" if forest else "decTree"
+        calls = {}
+        for dev in (DEVICE, "cpu"):
+            before = tree._level_histogram_forest.calls
+            res = timed(what, dev, lambda d: decision_tree_pipeline(
+                props, str(train), str(work / f"{what}_{d}"),
+                schema_path=schema, forest=forest, device=d).run())
+            calls[dev] = tree._level_histogram_forest.calls - before
+        outs = [Path(p) for p in res["decTree"].outputs]
+        same = [p.name for p in outs
+                if p.read_bytes() == (work / f"{what}_{DEVICE}" / p.relative_to(
+                    work / f"{what}_cpu")).read_bytes()]
+        depth = max(len(path["predicates"] or [])
+                    for p in outs for path in
+                    json.loads(p.read_text())["decisionPaths"])
+        # a level's histogram, and the final one: one call for the whole
+        # forest (a call a tree would make RF_TREES times as many)
+        check(len(same) == len(outs) == (RF_TREES if forest else 1)
+              and calls[DEVICE] == calls["cpu"] <= RF_DEPTH + 1,
+              f"decision_tree_pipeline {what}: {same} byte-identical to the "
+              f"CPU twin's; trees {depth} levels deep; {calls[DEVICE]} "
+              f"histogram calls for the {RF_TREES if forest else 1} "
+              f"tree{'s' if forest else ''}, one a level and the final "
+              f"distributions")
+
+    dap = {"dap.feature.schema.file.path": schema}
+    for dev in (DEVICE, "cpu"):
+        res = timed("dataPartitioner", dev, lambda d: run_job(
+            "dataPartitioner", dap, [str(train)], str(work / f"dap_{d}"),
+            device=d))
+    segs = [Path(p) for p in res.outputs]
+    same = [str(p.relative_to(work / "dap_cpu")) for p in segs
+            if p.read_bytes() == (work / f"dap_{DEVICE}" / p.relative_to(
+                work / "dap_cpu")).read_bytes()]
+    check(len(same) == len(segs) >= 2, f"dataPartitioner: {same} "
+          f"byte-identical to the CPU twin's")
+
+    cpg = {"cpg.feature.schema.file.path": schema, "csv.engine": "native",
+           "cpg.split.algorithm": "entropy"}
+    stats = {}
+    for dev in (DEVICE, "cpu"):
+        res = timed("classPartitionGenerator", dev, lambda d: run_job(
+            "classPartitionGenerator", cpg, [str(train)],
+            str(work / f"cpg_{d}.txt"), device=d))
+        stats[dev] = [ln.split(",") for ln in
+                      Path(res.outputs[0]).read_text().splitlines()]
+    worst = max(abs(float(a[2]) - float(b[2]))
+                for a, b in zip(stats[DEVICE], stats["cpu"]))
+    best = {d: min(v, key=lambda r: float(r[2]))[:2] for d, v in stats.items()}
+    check([r[:2] for r in stats[DEVICE]] == [r[:2] for r in stats["cpu"]]
+          and worst <= 1e-6 and best[DEVICE] == best["cpu"],
+          f"classPartitionGenerator: {len(stats[DEVICE])} split stats within "
+          f"1e-6 of the CPU twin's (at most {worst:.1e}), best split "
+          f"{best[DEVICE]} on both")
+
+    # the forest's device and host predict on every row
+    ds = Dataset.from_csv(str(train), call_hangup_schema(), engine="native")
+    rf = tree.RandomForestBuilder(ds.schema, num_trees=RF_TREES,
+                                  max_depth=RF_DEPTH, sampling="withReplace",
+                                  seed=2, device=DEVICE).fit(ds)
+    dev_pred = timed("forest predict", "device=True",
+                     lambda d: rf.predict(ds, device=True))
+    host_pred = timed("forest predict", "device=False",
+                      lambda d: rf.predict(ds, device=False))
+    check(dev_pred.shape == host_pred.shape == (rows,)
+          and bool((dev_pred == host_pred).all()),
+          f"RandomForestBuilder.predict: device=True equals device=False on "
+          f"all {rows} rows")
+
+    # the forest again under the profiler, with its predict; the tree
+    # module marks its level histogram and path match as ranges
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            obs.capture() as rec:
+        t0 = time.perf_counter()
+        run_job("randomForest",
+                {**props, "dtb.feature.schema.file.path": schema},
+                [str(train)], str(work / "profiled"), device=DEVICE)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        rf.predict(ds, device=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = copy = 0.0
+    by_kernel = []
+    for ev in prof.key_averages():
+        # the ranges' own device-side spans are not kernels: leave them
+        # out, or their kernels would count twice
+        if not str(ev.device_type).endswith("CUDA") or ev.key in RANGES:
+            continue
+        us = _us(ev, "self_device_time_total", "self_cuda_time_total")
+        by_kernel.append((round(us / 1e3, 3), ev.count, ev.key[:72]))
+        if ev.key.startswith(("Memcpy", "Memset")):
+            copy += us
+        else:
+            kern += us
+    busy = {"fit_and_predict_s": round(wall, 4), "fit_s": round(fit_s, 4),
+            "kernel_s": kern / 1e6, "device_s": (kern + copy) / 1e6,
+            "device_busy_share": (kern + copy) / 1e6 / wall,
+            **{f"{label.split('::')[1]}_device_s":
+               _annotated_device_s(prof, label) for label in RANGES},
+            "split": _span_split(rec, wall),
+            "top_device_ms_count_name": sorted(by_kernel, reverse=True)[:6]}
+    check(busy["device_s"] > 0, f"randomForest fit and device predict under "
+          f"torch.profiler ({CARD}): {json.dumps(busy)}")
+    secs["forest_profiled"] = busy
+
+    # the text jobs
+    text = work / "text.txt"
+    t0 = time.perf_counter()
+    text.write_text(_text_corpus(TEXT_LINES, seed=31))
+    print(f"text corpus: {TEXT_LINES} lines ({text.stat().st_size} bytes), "
+          f"written in {time.perf_counter() - t0:.1f}s", flush=True)
+    for name, jprops in (("wordCounter", {"wco.text.field.ordinal": "0"}),
+                         ("bayesianDistr", {"bad.tabular.input": "false"})):
+        outs = {}
+        for dev in (DEVICE, "cpu"):
+            res = timed(f"{name} text", dev, lambda d: run_job(
+                name, jprops, [str(text)], str(work / f"{name}_{d}.txt"),
+                device=d), TEXT_LINES, "lines")
+            outs[dev] = Path(res.outputs[0]).read_bytes()
+        check(outs[DEVICE] == outs["cpu"] and len(outs[DEVICE]) > 0,
+              f"{name} on the text corpus: {res.counters}, output "
+              f"byte-identical to the CPU twin's")
+    shutil.rmtree(work)
+    return secs
+
+
 # ------------------------------------------------------------------ phase 7
 def phase_ceiling(rate: float, bf16_flops: float):
     """matmul_ceiling against its plain version at the bench's shape."""
@@ -1960,8 +2218,13 @@ def main() -> None:
     bench_counts = phase_bench()
     pipe_counts = phase_pipeline()
     profile_secs = phase_profile()
+    t0 = time.perf_counter()
+    tree_secs = phase_tree_text()
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
+    print(f"tree and text seconds ({CARD}; phase 10 "
+          f"{time.perf_counter() - t0:.1f}s): {json.dumps(tree_secs)}",
+          flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
              BENCH_PATH: bench_counts, PIPE_PATH: pipe_counts}
 

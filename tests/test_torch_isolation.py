@@ -54,7 +54,8 @@ def test_modules_list_covers_the_package():
     assert "avenir_tpu_torch.tools.bench" in MODULES
     for sub in ("obs", "obs.trace", "obs.histogram", "native",
                 "native.ingest", "ops.reduce", "ops.infotheory",
-                "models.explore", "models.discriminant"):
+                "models.explore", "models.discriminant", "models.tree",
+                "models.text"):
         assert f"avenir_tpu_torch.{sub}" in MODULES
 
 
@@ -70,7 +71,7 @@ def test_native_source_is_the_ports_own():
 
 @pytest.mark.parametrize("entry", ["avenir_tpu_torch", "all", "chip_smoke",
                                    "obs", "native", "mutualInformation",
-                                   "fisherDiscriminant"])
+                                   "fisherDiscriminant", "tree", "text"])
 def test_import_loads_no_jax(entry):
     modules = {"avenir_tpu_torch": ["avenir_tpu_torch"], "all": MODULES,
                "chip_smoke": ["chip_smoke"],
@@ -82,7 +83,12 @@ def test_import_loads_no_jax(entry):
                                      "avenir_tpu_torch.ops.reduce"],
                "fisherDiscriminant": ["avenir_tpu_torch.runner",
                                       "avenir_tpu_torch.models.discriminant",
-                                      "avenir_tpu_torch.pipelines"]}[entry]
+                                      "avenir_tpu_torch.pipelines"],
+               "tree": ["avenir_tpu_torch.models.tree",
+                        "avenir_tpu_torch.data.generators",
+                        "avenir_tpu_torch.tools.bench"],
+               "text": ["avenir_tpu_torch.models.text",
+                        "avenir_tpu_torch.models.convert"]}[entry]
     loaded = _loaded(*modules)
     assert set(modules) <= set(loaded)
     assert _forbidden(loaded) == []

@@ -485,14 +485,6 @@ def test_vocabulary_growing_mid_stream_raises(tmp_path):
                     str(tmp_path / "j"))
 
 
-def test_text_mode_not_ported(corpora, tmp_path):
-    props = {"bad.feature.schema.file.path": corpora["binned"],
-             "bad.tabular.input": "false"}
-    with pytest.raises(NotImplementedError, match="bad.tabular.input"):
-        run_job("bayesianDistr", props, [corpora["small_train"]],
-                str(tmp_path / "o"), device=CPU)
-
-
 def test_default_device_needs_a_gpu(monkeypatch, corpora, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     schema = FeatureSchema.from_json(_schema_json("binned"))
@@ -548,31 +540,35 @@ def _multiclass_moments(n, k, fc):
 
 
 @pytest.mark.parametrize("fc", [1, 2, 3])
-@pytest.mark.parametrize("k", [4, 5, 8, 12, 16])
+@pytest.mark.parametrize("k", [4, 5, 8, 12, 16, 17, 20, 33, 64])
 def test_multiclass_moment_bits_match_jax(k, fc):
-    """The moments of 4-16 classes bit-equal to the JAX package's
-    `_count_batch_kernel` on the CPU, at every batch size of MULTI_N: the
-    port follows XLA's CPU dot order for each (classes, fields, rows)
-    (`ops.reduce._dot_block`)."""
+    """The moments of 4-64 classes bit-equal to the JAX package's
+    `_count_batch_kernel` on the CPU, at every batch size of MULTI_N (from
+    17 classes blocks of 1927 to 512 rows: 4097 and more rows cross a
+    block's end): the port follows XLA's CPU dot order for each
+    (classes, fields, rows) (`ops.reduce._dot_block`)."""
     for n in MULTI_N:
         got, ref = _multiclass_moments(n, k, fc)
         for g, r in zip(got, ref):
             np.testing.assert_array_equal(g, r, err_msg=f"n={n}")
 
 
-@pytest.mark.parametrize("k,fc", [(2, 1), (4, 1), (5, 2)])
+@pytest.mark.parametrize("k,fc", [(2, 1), (4, 1), (5, 2), (33, 1)])
 def test_moment_bits_past_two_to_the_21_rows(k, fc):
     """One batch of 2,200,003 rows, past 2^24 / 8 rows a class cell and
     about the rows of a default 64 MB block: the reference's order is
     the one `_dot_block` gives at 20,000 rows (rows in order, 8192- and
-    4096-row blocks), and the moment bits are equal."""
-    from nb_moment_probe import row_block
-
-    from avenir_tpu_torch.ops.reduce import _dot_block
+    4096-row lanes, read off by `row_block`; 992-row blocks in order,
+    checked at a few rows by `order_holds`), and the moment bits are
+    equal."""
+    from nb_moment_probe import order_holds, port_order, row_block
 
     n = 2_200_003
-    assert row_block(n, k, fc) == _dot_block(k, fc, n) \
-        == _dot_block(k, fc, 20000)
+    assert port_order(k, fc, n) == port_order(k, fc, 20000)
+    if k <= 16:
+        assert row_block(n, k, fc) == port_order(k, fc, n)
+    else:
+        assert order_holds(n, k, fc, port_order(k, fc, n))
     got, ref = _multiclass_moments(n, k, fc)
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g, r)
@@ -594,22 +590,40 @@ def test_dot_block_is_the_reference_tree(k, fc):
         assert in_row_order(n, k, fc) == (_dot_block(k, fc, n) is None), n
 
 
-def test_moments_above_sixteen_classes_stay_unmatched():
-    """From 17 classes XLA's CPU dot sums a tree of neither form (not rows
-    in order, not blocks of four running lanes), which the port does not
-    follow: some moment cells at 20,003 rows differ from the reference's,
-    the counts stay exact. This pins the open item of ROADMAP §3.1."""
-    from nb_moment_probe import row_block
+@pytest.mark.parametrize("k,fc", [(17, 1), (20, 2), (33, 3), (48, 5),
+                                  (64, 1), (65, 2), (100, 1), (130, 3),
+                                  (200, 1)])
+def test_dot_panels_are_the_reference_tree(k, fc):
+    """From 17 classes `_dot_block` is the order read off the reference's
+    sum tree at 20,000 rows for the first, a middle and the last class of
+    every panel of 64 classes (each panel's rows in order over blocks of
+    32768 // its classes, a last panel of one class wholly in order),
+    and rows in order below 8 rows."""
+    from nb_moment_probe import class_orders, in_row_order, port_order
 
-    assert row_block(20000, 17, 2) == "other"
-    got, ref = _multiclass_moments(20003, 17, 2)
-    assert (got[1] != ref[1]).any()
-    np.testing.assert_array_equal(got[0], ref[0])    # counts stay exact
-    np.testing.assert_array_equal(got[2], ref[2])
+    probed = sorted({c for p in range(0, k, 64)
+                     for c in (p, min(p + 31, k - 1), min(p + 63, k - 1))})
+    for c0, c1, order in class_orders(20000, k, fc, probed):
+        assert all(port_order(k, fc, 20000, c) == order
+                   for c in probed if c0 <= c < c1), (c0, c1, order)
+    for n in (4, 5, 6, 7):
+        assert in_row_order(n, k, fc) and port_order(k, fc, n) is None, n
 
 
 @pytest.mark.parametrize("fc", [1, 2, 3])
-@pytest.mark.parametrize("k", [4, 5, 8])
+@pytest.mark.parametrize("k", [65, 80, 100, 130, 200, 256])
+def test_moment_bits_in_class_panels_match_jax(k, fc):
+    """Above 64 classes XLA's CPU dot sums each panel of 64 classes in its
+    own order (the last panel's blocks are longer): the moments bit-equal
+    to the reference's at 20,003 rows and on a block's end (4,097)."""
+    for n in (4097, 20003):
+        got, ref = _multiclass_moments(n, k, fc)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g, r, err_msg=f"n={n}")
+
+
+@pytest.mark.parametrize("fc", [1, 2, 3])
+@pytest.mark.parametrize("k", [4, 5, 8, 20])
 def test_multiclass_model_file_byte_identical_to_jax(tmp_path, k, fc):
     """bayesianDistr on a multi-class corpus with continuous fields:
     model file and stamp byte-identical to `avenir_tpu.runner.run_job`'s,

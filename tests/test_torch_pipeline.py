@@ -9,6 +9,9 @@ package.
 - `Pipeline`: stage overrides over one properties file; a failed stage
   re-runs up to `mapreduce.map.maxattempts` times with `on_retry` called
   before each retry, as in JAX; `run(only=)` runs one stage.
+- `decision_tree_pipeline` (decTree, and randomForest with forest=True)
+  on 3,001 call-hangup rows: decPathOut.txt and every tree-NNN.json
+  byte-identical to the JAX pipeline's.
 - `fuse=True`: two stages that share a scan (`bayesianDistr` then
   `mutualInformation` on one input) run as one `run_shared` scan, with
   outputs equal to the sequential run's; where no such group forms the
@@ -19,12 +22,15 @@ import os
 
 import pytest
 
+from avenir_tpu.pipelines import \
+    decision_tree_pipeline as jax_decision_tree_pipeline
 from avenir_tpu.pipelines import knn_pipeline as jax_knn_pipeline
 from avenir_tpu.runner import Pipeline as JaxPipeline
 from avenir_tpu.runner import Stage as JaxStage
-from avenir_tpu_torch.data import elearn_schema, generate_elearn
+from avenir_tpu_torch.data import (call_hangup_schema, elearn_schema,
+                                   generate_call_hangup, generate_elearn)
 from avenir_tpu_torch import obs
-from avenir_tpu_torch.pipelines import knn_pipeline
+from avenir_tpu_torch.pipelines import decision_tree_pipeline, knn_pipeline
 from avenir_tpu_torch.runner import Pipeline, Stage
 from test_torch_native_ingest import engine_of, parse_engines
 
@@ -79,6 +85,30 @@ def test_knn_pipeline_files_match_jax(elearn_env, tmp_path, fuse):
         for f in FILES:
             assert (tmp_path / engine / f).read_bytes() == \
                 (tmp_path / "jax" / f).read_bytes(), f
+
+
+@pytest.mark.parametrize("forest", [False, True])
+def test_decision_tree_pipeline_matches_jax(tmp_path, forest):
+    schema = str(tmp_path / "call_hangup.json")
+    call_hangup_schema().save(schema)
+    train = tmp_path / "train.csv"
+    train.write_text(generate_call_hangup(3001, seed=12, as_csv=True))
+    props = {"dtb.max.depth.limit": "4", "dtb.num.trees": "3",
+             "dtb.split.algorithm": "giniIndex"}
+    ref = jax_decision_tree_pipeline(props, str(train), str(tmp_path / "jax"),
+                                     schema_path=schema, forest=forest).run()
+    got = decision_tree_pipeline(props, str(train), str(tmp_path / "port"),
+                                 schema_path=schema, forest=forest,
+                                 device=CPU).run()
+    assert list(got) == list(ref) == ["decTree"]
+    assert got["decTree"].counters == ref["decTree"].counters
+    files = ([f"forest/tree-{t:03d}.json" for t in range(3)] if forest
+             else ["decPathOut.txt"])
+    assert [os.path.relpath(p, tmp_path / "port")
+            for p in got["decTree"].outputs] == files
+    for f in files:
+        assert (tmp_path / "port" / f).read_bytes() == \
+            (tmp_path / "jax" / f).read_bytes(), f
 
 
 def test_properties_file_and_stage_overrides(elearn_env, tmp_path):

@@ -139,11 +139,15 @@ def test_bench_runs_every_section_on_cpu():
     kk.reset_launches()
     mc.reset_launches()
     result = bench.run(device="cpu", nb_rows=20000, queries=512, train=4096,
-                       reps=1, out=lines.append)
+                       reps=1, rf_rows=2000, out=lines.append)
     assert json.loads(lines[-1]) == result
     assert (result["metric"], result["device"], result["power_limit"]) == \
         ("port_bench", "cpu", None)
-    assert set(result) == {"metric", "device", "power_limit", *BENCH_SECTIONS}
+    assert set(result) == {"metric", "device", "power_limit", *BENCH_SECTIONS,
+                           "rf_rls", "rf_levels", "rf_predict_rps"}
+    # 5 trees of depth 4: every tree reaches its depth on 2,000 rows
+    assert result["rf_levels"] == 5 * 4
+    assert result["rf_rls"] > 0 and result["rf_predict_rps"] > 0
     for section, keys in BENCH_SECTIONS.items():
         # a CPU run states no share of the card's peak
         assert set(result[section]) == keys, section
@@ -164,12 +168,15 @@ def test_bench_defaults_are_the_root_bench_configs():
         (1_000_000, 100_000, 8)
     assert (bench.KNN_QUERIES, bench.KNN_TRAIN, bench.CEILING_DIM) == \
         (8192, 131072, 128)
+    assert (bench.RF_ROWS, bench.RF_TREES, bench.RF_DEPTH) == \
+        (100_000, 5, 4)
     assert knn_sweep.K == 5
 
 
 def test_bench_main_prints_one_json_line(capsys):
     assert bench.main(["--device", "cpu", "--nb-rows", "5000", "--queries",
-                       "128", "--train", "1024", "--reps", "1"]) == 0
+                       "128", "--train", "1024", "--reps", "1",
+                       "--rf-rows", "1000"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     assert json.loads(lines[0])["nb"]["rows"] == 5000
