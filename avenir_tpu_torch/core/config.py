@@ -124,6 +124,9 @@ class JobConfig:
     def assert_get(self, key: str) -> str:
         return self._require(key, self._lookup(key), "string")
 
+    def assert_float(self, key: str) -> float:
+        return float(self._require(key, self._lookup(key), "float"))
+
     def assert_list(self, key: str, delim: str = ",") -> List[str]:
         return self._require(key, self.get_list(key, None, delim), "list")
 

@@ -138,6 +138,15 @@ def stream_job_lines(cfg, inputs: Iterable[str]) -> Iterator[List[str]]:
         yield from iter_line_blocks(path, block)
 
 
+def stream_job_byte_blocks(cfg, inputs: Iterable[str]) -> Iterator[bytes]:
+    """Raw byte blocks of every input path (the feed of the miners' native
+    encoder), sized by the same `stream.block.size.mb` key (default 64),
+    read in turn."""
+    block = int(cfg.get_float("stream.block.size.mb", 64.0) * (1 << 20))
+    for path in inputs:
+        yield from iter_byte_blocks(path, block)
+
+
 class SharedScan:
     """One read and one parse a chunk, handed to N fold sinks.
 

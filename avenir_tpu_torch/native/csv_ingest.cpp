@@ -4,7 +4,8 @@
 //
 // The port's own copy of avenir_tpu/native/csv_ingest.cpp, cut to what
 // the ported jobs use: csv_count_rows(_mt), csv_parse(_mt),
-// csv_column_bytes and csv_extract_column. Exposed through ctypes; see
+// csv_column_bytes, csv_extract_column, and the ragged encoder of the
+// miners, seq_token_count and seq_encode. Exposed through ctypes; see
 // avenir_tpu_torch/native/ingest.py for the Python contract. A float token
 // takes the same path as the reference's native parser (plain
 // [+-]digits[.digits] tokens in double arithmetic, anything else through
@@ -454,6 +455,90 @@ int64_t csv_extract_column(const char* buf, int64_t len, char delim,
         p = nl ? nl + 1 : end;
     }
     return w;
+}
+
+// Ragged tokenize and dictionary-encode (the miners' ingest: rows are
+// "id,item,item,..." with a token count of their own). One scan splits
+// every line that is not all space, tab or CR by `delim`, trims each
+// token of space, tab and CR, and encodes it against ONE vocabulary
+// (n_vocab zero-terminated strings back to back in vocab_blob); an
+// unknown token encodes as -1 and the caller decides which positions
+// must be known. Outputs CSR: codes[total_tokens] + offsets[n_rows+1]
+// (offsets[0] = 0). seq_token_count sizes the arrays; seq_encode returns
+// the rows written, or -3 when the buffers are too small.
+int64_t seq_token_count(const char* buf, int64_t len, char delim,
+                        int64_t* out_tokens) {
+    int64_t rows = 0, tokens = 0;
+    const char* p = buf;
+    const char* end = buf + len;
+    while (p < end) {
+        const char* nl = static_cast<const char*>(
+            memchr(p, '\n', static_cast<size_t>(end - p)));
+        const char* e = nl ? nl : end;
+        // what is a row must match seq_encode exactly: a whitespace-only
+        // line is skipped even when the delimiter is a whitespace byte
+        bool all_ws = true;
+        int64_t t = 1;
+        for (const char* q = p; q < e; ++q) {
+            if (*q == delim) ++t;
+            if (*q != ' ' && *q != '\t' && *q != '\r') all_ws = false;
+        }
+        if (!all_ws) { ++rows; tokens += t; }
+        p = nl ? nl + 1 : end;
+    }
+    *out_tokens = tokens;
+    return rows;
+}
+
+int64_t seq_encode(const char* buf, int64_t len, char delim,
+                   const char* vocab_blob, int32_t n_vocab,
+                   int32_t* codes, int64_t max_tokens,
+                   int64_t* offsets, int64_t max_rows) {
+    Vocab vocab;
+    const char* v = vocab_blob;
+    for (int32_t i = 0; i < n_vocab; ++i) {
+        size_t n = strlen(v);
+        vocab.values.emplace_back(v, n);
+        v += n + 1;
+    }
+    vocab.build();
+
+    int64_t rows = 0, tok = 0;
+    offsets[0] = 0;
+    const char* p = buf;
+    const char* end = buf + len;
+    while (p < end) {
+        const char* nl = static_cast<const char*>(
+            memchr(p, '\n', static_cast<size_t>(end - p)));
+        const char* e = nl ? nl : end;
+        // a whitespace-only line is no row (the Python line reader's
+        // `if ln.strip()`); a line of delimiters is one, of empty tokens
+        bool all_ws = true;
+        for (const char* s = p; s < e; ++s)
+            if (*s != ' ' && *s != '\t' && *s != '\r') { all_ws = false; break; }
+        if (all_ws) {
+            p = nl ? nl + 1 : end;
+            continue;
+        }
+        if (rows + 1 >= max_rows) return -3;   // offsets[++rows] must fit
+        const char* ts = p;
+        for (const char* s = p;; ++s) {
+            if (s == e || *s == delim) {
+                const char* a = ts;
+                const char* b = s;
+                while (a < b && (*a == ' ' || *a == '\t' || *a == '\r')) ++a;
+                while (b > a && (b[-1] == ' ' || b[-1] == '\t'
+                                 || b[-1] == '\r')) --b;
+                if (tok >= max_tokens) return -3;
+                codes[tok++] = vocab.find(a, static_cast<size_t>(b - a));
+                ts = s + 1;
+                if (s == e) break;
+            }
+        }
+        offsets[++rows] = tok;
+        p = nl ? nl + 1 : end;
+    }
+    return rows;
 }
 
 }  // extern "C"

@@ -1,7 +1,12 @@
 """ctypes binding of the port's native CSV ingest (`csv_ingest.cpp`).
 
 The port's own copy of the parse entry points of
-`avenir_tpu/native/ingest.py`. The shared library builds with g++ at first
+`avenir_tpu/native/ingest.py`, and of the miners' ragged encoder: the
+CSR encode (`seq_encode_native`), the pass-1 encoder that discovers the
+vocabulary a block at a time (`BlockScanEncoder`) and the scan lifecycle
+of the miners' streaming sources (`SpillScanMixin`, without the
+reference's encoded-block spill cache and columnar sidecar: a per-k
+re-scan here re-reads and re-encodes the CSV). The shared library builds with g++ at first
 use (`g++ -O3 -march=native -shared -fPIC -pthread`) into
 `build/avenir_tpu_torch/native/<hash>/` at the root of the checkout, keyed
 on a hash of the source, the flags and the CPU that `-march=native`
@@ -30,6 +35,8 @@ from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from avenir_tpu_torch import obs
 
 SRC = Path(__file__).resolve().with_name("csv_ingest.cpp")
 BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
@@ -118,6 +125,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.csv_extract_column.restype = i64
     lib.csv_extract_column.argtypes = [c_char_p, i64, ctypes.c_char, i32,
                                        c_char_p, i64]
+    p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    lib.seq_token_count.restype = i64
+    lib.seq_token_count.argtypes = [c_char_p, i64, ctypes.c_char,
+                                    ctypes.POINTER(i64)]
+    lib.seq_encode.restype = i64
+    lib.seq_encode.argtypes = [c_char_p, i64, ctypes.c_char, c_char_p, i32,
+                               p_i32, i64, p_i64, i64]
     return lib
 
 
@@ -254,3 +268,231 @@ def extract_column_raw(data: bytes, delim: str, ordinal: int
     if lib is None or len(d) != 1:
         return None
     return _column_bytes(lib, data, d, ordinal)
+
+
+# -------------------------------------------------------------- the miners
+def seq_encode_native(data: bytes, delim: str, vocab: List[str]
+                      ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Ragged tokenize and dictionary-encode a text block against one
+    vocabulary: (codes int32 [total_tokens], offsets int64 [rows+1]) in
+    CSR form, token t of row r at codes[offsets[r] + t]; an unknown token
+    is -1. Tokens are trimmed of space, tab and CR; a line of only those
+    is no row. None when the library is not available or the delimiter is
+    not one byte."""
+    lib = _get_lib()
+    d = delim.encode()
+    if lib is None or len(d) != 1:
+        return None
+    n_tokens = ctypes.c_int64(0)
+    n_rows = int(lib.seq_token_count(data, len(data), d,
+                                     ctypes.byref(n_tokens)))
+    codes = np.empty(max(n_tokens.value, 1), np.int32)
+    offsets = np.empty(n_rows + 1, np.int64)
+    blob = b"".join(v.encode() + b"\0" for v in vocab)
+    got = int(lib.seq_encode(data, len(data), d, blob, len(vocab),
+                             codes, codes.shape[0], offsets, n_rows + 1))
+    if got != n_rows:
+        raise RuntimeError(f"seq_encode row mismatch: {got} != {n_rows}")
+    return codes[:int(offsets[n_rows])], offsets
+
+
+def native_seq_ready(delim: str) -> bool:
+    """True when the native encoder takes this delimiter (one byte) and
+    the library is built: the gate of every CSR consumer."""
+    return len(delim.encode()) == 1 and native_available()
+
+
+def csr_rows(offsets: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(row_of int32 [total_tokens], starts [n_rows]) of a CSR offsets
+    array."""
+    return (np.repeat(np.arange(offsets.shape[0] - 1, dtype=np.int32),
+                      np.diff(offsets)),
+            offsets[:-1])
+
+
+def csr_region_mask(offsets: np.ndarray, skip: int, n_tokens: int
+                    ) -> np.ndarray:
+    """bool [n_tokens]: True where a token sits at position >= skip of its
+    row (the item region past the meta fields), built by unmarking the
+    first `skip` positions of each row."""
+    region = np.ones(n_tokens, bool)
+    starts, ends = offsets[:-1], offsets[1:]
+    for j in range(skip):
+        pos = starts + j
+        region[pos[pos < ends]] = False
+    return region
+
+
+def distinct_row_code_counts(row_of: np.ndarray, codes: np.ndarray,
+                             region: np.ndarray, v: int) -> np.ndarray:
+    """counts[c] = the rows whose region tokens include code c, a row
+    counted once however often it repeats c (the k=1 support of a
+    multi-hot matrix): a sort of row * v + code and a dedup of equal
+    neighbours."""
+    keys = row_of[region].astype(np.int64) * v + codes[region]
+    keys.sort()
+    if not keys.shape[0]:
+        return np.zeros(v, np.int64)
+    uniq = np.empty(keys.shape[0], bool)
+    uniq[0] = True
+    np.not_equal(keys[1:], keys[:-1], out=uniq[1:])
+    return np.bincount((keys[uniq] % v).astype(np.intp), minlength=v)
+
+
+class BlockScanEncoder:
+    """The per-block body of the vocabulary-discovering pass 1 of the
+    streaming miners.
+
+    Each block encodes against the current vocabulary plus two sentinels
+    that drop (the infrequent-item marker and the empty token, which would
+    otherwise read as unknown on every block of a CSV with a trailing
+    delimiter). A block with tokens still unknown takes one Python pass
+    that appends them to `vocab` and `index` in place, then encodes again
+    (only if the pass added one); a block of known tokens runs no Python
+    a row. `region` is True exactly where an item position holds a
+    vocabulary code (not a sentinel, an id or past a short row's end).
+    Codes are append-only, so a code given against an earlier vocabulary
+    holds against the final one."""
+
+    def __init__(self, delim: str, skip: int, vocab: List[str],
+                 index: Dict[str, int], marker: Optional[str] = None):
+        self.delim = delim
+        self.skip = skip
+        self.vocab = vocab
+        self.index = index
+        self.marker = marker
+        self._sentinels = ([marker] if marker is not None else []) + [""]
+
+    def encode(self, data: bytes):
+        """(codes, offsets, region, n_rows) of one raw byte block, or None
+        for a block with no rows."""
+        codes, offsets = seq_encode_native(data, self.delim,
+                                           self.vocab + self._sentinels)
+        n = offsets.shape[0] - 1
+        if n <= 0:
+            return None
+        region = csr_region_mask(offsets, self.skip, codes.shape[0])
+        if (codes[region] < 0).any():
+            added = False
+            for ln in data.decode("utf-8", "replace").split("\n"):
+                if not ln.strip():
+                    continue
+                for tok in [t.strip(" \t\r")
+                            for t in ln.split(self.delim)][self.skip:]:
+                    if tok and tok != self.marker and tok not in self.index:
+                        self.index[tok] = len(self.vocab)
+                        self.vocab.append(tok)
+                        added = True
+            if added:
+                codes, offsets = seq_encode_native(
+                    data, self.delim, self.vocab + self._sentinels)
+        v = len(self.vocab)
+        np.logical_and(region, codes >= 0, out=region)
+        np.logical_and(region, codes < v, out=region)     # sentinels drop
+        return codes, offsets, region, n
+
+
+def scan_encode_blocks(paths, delim: str, skip: int, vocab: List[str],
+                       index: Dict[str, int], block_bytes: int,
+                       marker: Optional[str] = None):
+    """The vocabulary-discovering native scan of whole files: (codes,
+    offsets, region, n_rows) a byte block (BlockScanEncoder's contract),
+    the blocks read in turn."""
+    from avenir_tpu_torch.core.stream import iter_byte_blocks
+
+    enc = BlockScanEncoder(delim, skip, vocab, index, marker)
+    for path in paths:
+        for data in iter_byte_blocks(path, block_bytes):
+            out = enc.encode(data)
+            if out is not None:
+                yield out
+
+
+class SpillScanMixin:
+    """Pass 1 of a streaming miner source: the scan lifecycle (begin, a
+    block at a time, finish), its adapter as a shared-scan sink, and the
+    restore of a checkpoint taken mid-scan.
+
+    The port of `avenir_tpu/native/ingest.py` SpillScanMixin cut to that
+    lifecycle: the reference's encoded-block spill cache and columnar
+    sidecar are not ported.
+
+    A subclass has `paths`, `delim`, `skip`, `block_bytes`, `vocab`,
+    `index`, `_item_counts`, `_scan_counts` and `_scan_encoder`, and
+    implements `_scan_block(data)` (fold one raw byte block into
+    `_scan_counts` through `_grow_counts`), `_reset_scan_state()` (zero its
+    row counters) and `_scan_result()` (what its scan returns).
+    `_scan_marker` is the infrequent-item sentinel given to the encoder."""
+
+    _scan_marker: Optional[str] = None
+
+    def _scan_begin(self) -> None:
+        self._reset_scan_state()
+        self._scan_counts = np.zeros(0, np.int64)
+        self._scan_encoder = (
+            BlockScanEncoder(self.delim, self.skip, self.vocab, self.index,
+                             marker=self._scan_marker)
+            if native_seq_ready(self.delim) else None)
+
+    def _grow_counts(self) -> None:
+        v = len(self.vocab)
+        if self._scan_counts.shape[0] < v:
+            self._scan_counts = np.concatenate(
+                [self._scan_counts,
+                 np.zeros(v - self._scan_counts.shape[0], np.int64)])
+
+    def _parse_block(self, data: bytes, label: str) -> None:
+        """_scan_block(data) as a `stream.parse` span."""
+        t0 = obs.now()
+        self._scan_block(data)
+        obs.record("stream.parse", t0, sink=label, nbytes=len(data),
+                   engine="python" if self._scan_encoder is None
+                   else "native")
+
+    def _scan_all(self):
+        """Pass 1 over every path's byte blocks, read here, then sealed."""
+        from avenir_tpu_torch.core.stream import iter_byte_blocks
+
+        self._scan_begin()
+        label = type(self).__name__
+        for path in self.paths:
+            for data in iter_byte_blocks(path, self.block_bytes):
+                self._parse_block(data, label)
+        return self._scan_finish()
+
+    def scan_consumer(self):
+        """Pass 1 as a shared-scan sink of raw byte blocks read elsewhere
+        (core.stream.SharedScan): consume() a block, finish() seals the
+        scan and returns what the source's own scan would."""
+        self._scan_begin()
+        src = self
+        label = type(self).__name__
+
+        class _ScanSink:
+            def consume(self, data: bytes) -> None:
+                src._parse_block(data, label)
+
+            def finish(self):
+                return src._scan_finish()
+
+        return _ScanSink()
+
+    def _scan_finish(self):
+        self._item_counts = self._scan_counts
+        self._scan_encoder = None
+        return self._scan_result()
+
+    def restore_scan_state(self, vocab, counts) -> None:
+        """Install a mid-scan checkpoint into a scan just begun: the
+        discovered vocabulary and the partial per-item counts, in place
+        (the encoder holds `vocab` and `index`, so they mutate and are
+        never rebound), and a new encoder over them. The caller restores
+        its own row counters."""
+        self.vocab[:] = list(vocab)
+        self.index.clear()
+        self.index.update({t: i for i, t in enumerate(self.vocab)})
+        self._scan_counts = np.asarray(counts, np.int64).copy()
+        if self._scan_encoder is not None:
+            self._scan_encoder = BlockScanEncoder(
+                self.delim, self.skip, self.vocab, self.index,
+                marker=self._scan_marker)

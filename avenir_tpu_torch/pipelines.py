@@ -1,12 +1,12 @@
 """Canonical pipelines: the reference's tutorial shell flows as Pipelines.
 
-The port of `knn_pipeline`, `decision_tree_pipeline` and
-`profile_pipeline` of `avenir_tpu/pipelines.py`: the stages that
+The port of `knn_pipeline`, `decision_tree_pipeline`, `profile_pipeline`
+and `association_pipeline` of `avenir_tpu/pipelines.py`: the stages that
 resource/knn.sh ran by hand, resource/detr.sh's and rafo.sh's tree
-builds, and the corpus profiling every modelling run-book starts with,
-against the same properties keys, so a run-book translates 1:1: build the
-pipeline, call run(). `association_pipeline` and `bandit_round` wait for
-their jobs.
+builds, the corpus profiling every modelling run-book starts with, and
+resource/carm.sh's association mining, against the same properties keys,
+so a run-book translates 1:1: build the pipeline, call run().
+`bandit_round` waits for its jobs.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import os
 from typing import Dict, Optional
 
 from avenir_tpu_torch.core.config import load_properties
-from avenir_tpu_torch.runner import Pipeline, Stage
+from avenir_tpu_torch.runner import JobResult, Pipeline, Stage
 from avenir_tpu_torch.utils.devices import DeviceLike
 
 
@@ -109,4 +109,37 @@ def profile_pipeline(conf, train_csv: str, work_dir: str,
               os.path.join(work_dir, "mi.txt"), dict(overrides)),
         Stage("fisherDiscriminant", "fisherDiscriminant", [train_csv],
               os.path.join(work_dir, "fisher.txt"), dict(overrides)),
+    ], device=device)
+
+
+class _AssociationPipeline(Pipeline):
+    """carm.sh's two stages: the rules stage reads the files the apriori
+    stage wrote, so it runs after that stage, never alone first."""
+
+    def run(self, only: Optional[str] = None,
+            fuse: bool = False) -> Dict[str, JobResult]:
+        results: Dict[str, JobResult] = {}
+        if only in (None, "apriori"):
+            results.update(super().run("apriori", fuse))
+        if only in (None, "rules"):
+            ap = self.results.get("apriori")
+            if ap is None:
+                raise RuntimeError("run the apriori stage first")
+            self.stages[1].inputs = list(ap.outputs)
+            results.update(super().run("rules", fuse))
+        return results
+
+
+def association_pipeline(conf, trans_csv: str, work_dir: str,
+                         device: DeviceLike = None) -> Pipeline:
+    """resource/carm.sh on `device` (default cuda): frequent itemsets of
+    every length (work_dir/itemsets/itemsets-<k>.txt), then association
+    rules over those files (work_dir/rules.txt)."""
+    os.makedirs(work_dir, exist_ok=True)
+    return _AssociationPipeline(_props(conf), [
+        Stage("apriori", "frequentItemsApriori", [trans_csv],
+              os.path.join(work_dir, "itemsets")),
+        # the rules stage's inputs are the apriori stage's outputs
+        Stage("rules", "associationRuleMiner", [],
+              os.path.join(work_dir, "rules.txt")),
     ], device=device)

@@ -11,19 +11,22 @@ ported so far: `nearestNeighbor` (org.avenir.knn.NearestNeighbor),
 `cramerCorrelation`, `categoricalCorrelation`, `heterogeneityReduction`,
 `numericalCorrelation` and `classPartitionGenerator` (org.avenir.explore),
 `decTree`, `randomForest` and `dataPartitioner` (org.avenir.tree),
-`wordCounter` (org.avenir.text.WordCounter), and `Stage` / `Pipeline`,
-which chain them as the reference's shell drivers did. A job reads the
-reference's namespaced keys (`nen.*`, `bad.*`, `bap.*`, `sts.*`, `grs.*`,
-`fcb.*`, `mut.*`, `fid.*`, `crc.*`, `cac.*`, `hrc.*`, `nuc.*`, `cpg.*`,
-`dtb.*`, `dap.*`, `wco.*`) from one flat properties file and runs
+`wordCounter` (org.avenir.text.WordCounter), `frequentItemsApriori`,
+`associationRuleMiner` and `infrequentItemMarker` (org.avenir.association),
+and `Stage` / `Pipeline`, which chain them as the reference's shell
+scripts did. A job reads the reference's namespaced keys (`nen.*`,
+`bad.*`, `bap.*`, `sts.*`, `grs.*`, `fcb.*`, `mut.*`, `fid.*`, `crc.*`,
+`cac.*`, `hrc.*`, `nuc.*`, `cpg.*`, `dtb.*`, `dap.*`, `wco.*`, `fia.*`,
+`arm.*`, `iim.*`) from one flat properties file and runs
 in-process on the device the caller names — ``cuda`` unless
 ``device="cpu"`` is passed.
 
 The streamed jobs `bayesianDistr`, `mutualInformation` and
-`fisherDiscriminant` are fold sinks with the reference's `StreamFoldOps`
-contract (merge, `state_dict`, `load_state`); `run_shared` drives several
-of them over one scan of their common input, and `Pipeline.run(fuse=True)`
-groups consecutive such stages into one.
+`fisherDiscriminant` (of Dataset chunks) and `frequentItemsApriori` (of
+raw byte blocks, its pass 1) are fold sinks with the reference's
+`StreamFoldOps` contract (merge, `state_dict`, `load_state`); `run_shared`
+drives several of one kind over one scan of their common input, and
+`Pipeline.run(fuse=True)` groups consecutive such stages into one.
 
 Each job records the reference's spans (`obs`): `job.run` around it,
 `stream.read` and `stream.parse` for its input, `stream.fold` around the
@@ -40,6 +43,7 @@ import io
 import json
 import os
 import sys
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -52,7 +56,9 @@ from avenir_tpu_torch.core.config import (JobConfig, MissingConfigError,
 from avenir_tpu_torch.core.dataset import Dataset
 from avenir_tpu_torch.core.schema import FeatureSchema
 from avenir_tpu_torch.utils.devices import DeviceLike, resolve_device
-from avenir_tpu_torch.utils.metrics import ConfusionMatrix, CostBasedArbitrator
+from avenir_tpu_torch.utils.metrics import (ConfusionMatrix,
+                                            CostBasedArbitrator,
+                                            throughput_counters)
 
 
 @dataclass
@@ -418,6 +424,126 @@ class _FisherFold:
         return JobResult("fisherDiscriminant", {}, [out])
 
 
+# ----------------------------------------------------------- the miner fold
+def _write_apriori_outputs(cfg: JobConfig, output: str, levels) -> List[str]:
+    """The per-k itemset files `itemsets-<k>.txt` in the directory
+    `output`, as a `job.finish` span."""
+    t0 = obs.now()
+    outs = []
+    os.makedirs(output or ".", exist_ok=True)
+    for k, isl in enumerate(levels, start=1):
+        p = os.path.join(output, f"itemsets-{k}.txt")
+        isl.save(p, delim=cfg.field_delim)
+        outs.append(p)
+    obs.record("job.finish", t0, job="frequentItemsApriori")
+    return outs
+
+
+def _build_miner(cfg: JobConfig, device: torch.device):
+    """The Apriori miner a `fia.*` conf describes."""
+    from avenir_tpu_torch.models.association import FrequentItemsApriori
+
+    return FrequentItemsApriori(
+        support_threshold=cfg.assert_float("support.threshold"),
+        max_length=cfg.get_int("item.set.length", 3),
+        emit_trans_id=cfg.get_bool("emit.trans.id", False), device=device)
+
+
+def _build_miner_source(cfg: JobConfig, inputs: Sequence[str]):
+    """The streaming transaction source a `fia.*` conf describes (the key
+    `tans.id.ord` is the reference's spelling)."""
+    from avenir_tpu_torch.models.association import StreamingTransactionSource
+
+    return StreamingTransactionSource(
+        list(inputs), delim=cfg.field_delim_regex,
+        trans_id_ord=cfg.get_int("tans.id.ord", 0),
+        skip_field_count=cfg.get_int("skip.field.count", 1),
+        marker=cfg.get("infreq.item.marker"),
+        block_bytes=int(cfg.get_float("stream.block.size.mb", 64.0)
+                        * (1 << 20)))
+
+
+class _MinerScanFold:
+    """Apriori's pass 1 (vocabulary and k=1 supports) as a shared-scan
+    sink of raw byte blocks; finish() runs the later rounds, each
+    re-reading the inputs. The port of `avenir_tpu/runner.py`
+    `_MinerScanFold` for Apriori (GSP is not ported), without the
+    encoded-block cache its rounds replay and the job server's
+    `keep_sources`."""
+
+    job = "frequentItemsApriori"
+
+    def __init__(self, cfg: JobConfig, inputs: Sequence[str],
+                 device: torch.device):
+        self.cfg = cfg
+        self.t0 = time.perf_counter()
+        self.miner = _build_miner(cfg, device)
+        self.src = _build_miner_source(cfg, inputs)
+        self._sink = self.src.scan_consumer()
+        self._sealed = False
+        self._shards: List["_MinerScanFold"] = []
+
+    def consume(self, data: bytes) -> None:
+        self._sink.consume(data)
+
+    def _seal(self) -> None:
+        """Finish the pass-1 scan once, so merge() and finish() compose
+        in any order."""
+        if not self._sealed:
+            self._sink.finish()
+            self._sealed = True
+
+    def finish(self, output: str) -> JobResult:
+        self._seal()
+        srcs = [self.src] + [f.src for f in self._shards]
+        levels = (self.miner.mine_stream(self.src) if len(srcs) == 1
+                  else self.miner.mine_stream_merged(srcs))
+        counters = {"Apriori:MaxLength": len(levels),
+                    **throughput_counters(sum(s.n_trans for s in srcs),
+                                          time.perf_counter() - self.t0)}
+        outs = _write_apriori_outputs(self.cfg, output, levels)
+        return JobResult(self.job, counters, outs)
+
+    def merge(self, other: "_MinerScanFold") -> "_MinerScanFold":
+        """Seal both shards' pass 1 and keep their sources side by side;
+        finish() then mines them with mine_stream_merged, which counts each
+        candidate per shard and sums the supports."""
+        self._seal()
+        other._seal()
+        self._shards.append(other)
+        self._shards.extend(other._shards)
+        other._shards = []
+        return self
+
+    def state_dict(self) -> Dict[str, object]:
+        """The reference's checkpoint: a JSON `meta` (`job`, `vocab`, `n`,
+        `sealed`, `t_max`) and the int64 partial item counts `counts`."""
+        if self._shards:
+            raise ValueError(
+                "checkpoint a miner fold before merging shards into it")
+        src = self.src
+        meta = {"job": self.job, "vocab": list(src.vocab),
+                "n": src.n_trans, "sealed": self._sealed, "t_max": None}
+        return {"meta": np.array(json.dumps(meta)),
+                "counts": np.asarray(src._scan_counts, np.int64)}
+
+    def load_state(self, state: Dict[str, object]) -> None:
+        meta = json.loads(str(state["meta"]))
+        if meta["job"] != self.job:
+            raise ValueError(
+                f"checkpointed {meta['job']!r} state for a {self.job!r} "
+                f"fold")
+        self.src.restore_scan_state(meta["vocab"], state["counts"])
+        self.src.n_trans = int(meta["n"])
+        if meta["sealed"]:
+            self._seal()
+
+
+def _apriori_fold(cfg: JobConfig, inputs: Sequence[str], schema,
+                  device: torch.device) -> _MinerScanFold:
+    return _MinerScanFold(cfg, inputs, device)
+
+
 def _merge_folds(a, b):
     """The default merge_states: every fold sink merges in place."""
     return a.merge(b)
@@ -431,9 +557,9 @@ class StreamFoldOps:
     byte for byte, and restore_state(serialize_state(fold)) resumes a
     carry taken mid-scan to the same bytes.
 
-    `kind`: "dataset" folds consume schema-parsed Dataset chunks (the
-    reference's "bytes" folds, of raw byte blocks, wait for their
-    models). `factory(cfg, inputs, schema, device)` builds the sink;
+    `kind`: "dataset" folds consume schema-parsed Dataset chunks, "bytes"
+    folds raw byte blocks (the miners' pass 1; markov and GSP are not
+    ported). `factory(cfg, inputs, schema, device)` builds the sink;
     `merge_states` folds one sink's carry into another (default
     `a.merge(b)`)."""
 
@@ -468,6 +594,7 @@ _STREAM_FOLDS: Dict[str, StreamFoldOps] = {
     "bayesianDistr": StreamFoldOps("dataset", _NBDistrFold),
     "mutualInformation": StreamFoldOps("dataset", _MutualInfoFold),
     "fisherDiscriminant": StreamFoldOps("dataset", _FisherFold),
+    "frequentItemsApriori": StreamFoldOps("bytes", _apriori_fold),
 }
 
 
@@ -505,16 +632,19 @@ def run_shared(specs: Sequence[Tuple[str, object, str]],
 
     `specs` is a sequence of (job name, conf, output path). Every job must
     be shared-scan capable (stream_fold_names()), and they must agree on
-    the scan kind, `stream.block.size.mb`, the field delimiter and the
-    schema file: one read and one parse a chunk, N folds. Each job reads
-    its own prefixed config and writes its own outputs. Results come back
-    keyed by canonical job name, byte-identical to running the jobs one
-    scan each (run_job, the fallback and the oracle). The scan is the
-    span `job.dispatch` (mode "shared").
+    the scan kind, `stream.block.size.mb` and the field delimiter, and
+    dataset-kind jobs on the schema file: one read (and for Dataset folds
+    one parse) a chunk, N folds. Each job reads its own prefixed config
+    and writes its own outputs. Results come back keyed by canonical job
+    name, byte-identical to running the jobs one scan each (run_job, the
+    fallback and the oracle). The scan is the span `job.dispatch` (mode
+    "shared").
 
     The reference's autotune session and its `Mem:*` and `Sidecar:*`
     counters, and its `fold_hook` for the job server, are not ported."""
-    from avenir_tpu_torch.core.stream import SharedScan, stream_job_inputs
+    from avenir_tpu_torch.core.stream import (SharedScan,
+                                              stream_job_byte_blocks,
+                                              stream_job_inputs)
 
     if not specs:
         return {}
@@ -541,20 +671,26 @@ def run_shared(specs: Sequence[Tuple[str, object, str]],
     delims = {cfg.field_delim_regex for _, _, cfg, _ in built}
     if len(delims) != 1:
         raise ValueError(f"fused jobs disagree on field delimiter: {delims}")
-    spaths = {cfg.assert_get("feature.schema.file.path")
-              for _, _, cfg, _ in built}
-    if len(spaths) != 1:
-        raise ValueError(f"fused jobs disagree on the schema file: {spaths}")
-    schema = FeatureSchema.from_file(spaths.pop())
-    scan = SharedScan(stream_job_inputs(built[0][2], list(inputs), schema))
+    schema = None
+    if kinds == {"dataset"}:
+        spaths = {cfg.assert_get("feature.schema.file.path")
+                  for _, _, cfg, _ in built}
+        if len(spaths) != 1:
+            raise ValueError(
+                f"fused jobs disagree on the schema file: {spaths}")
+        schema = FeatureSchema.from_file(spaths.pop())
+        chunks = stream_job_inputs(built[0][2], list(inputs), schema)
+    else:
+        chunks = stream_job_byte_blocks(built[0][2], list(inputs))
+    scan = SharedScan(chunks)
     folds = []
     for canonical, ops, cfg, output in built:
         fold = ops.factory(cfg, list(inputs), schema, dev)
         folds.append((canonical, fold, output))
         scan.add_sink(fold, label=canonical)
     t0 = obs.now()
-    chunks = scan.run()
-    obs.record("job.dispatch", t0, mode="shared", chunks=chunks,
+    n_chunks = scan.run()
+    obs.record("job.dispatch", t0, mode="shared", chunks=n_chunks,
                jobs=",".join(c for c, _f, _o in folds))
     return {canonical: _finish_fold(fold, output, canonical)
             for canonical, fold, output in folds}
@@ -1140,6 +1276,136 @@ def word_counter_job(cfg: JobConfig, inputs: List[str], output: str,
             for word in sorted(counts):
                 fh.write(f"{word}{delim}{counts[word]}\n")
     return JobResult("wordCounter", {"Words:Unique": len(counts)}, [out])
+
+
+# ================================================================ association
+def _read_lines(path: str) -> List[str]:
+    """The non-blank lines of a text file (universal newlines)."""
+    with open(path) as fh:
+        return [ln.rstrip("\n") for ln in fh if ln.strip()]
+
+
+@job("frequentItemsApriori", "fia",
+     "org.avenir.association.FrequentItemsApriori", "apriori")
+def apriori_job(cfg: JobConfig, inputs: List[str], output: str,
+                device: torch.device) -> JobResult:
+    """Every round in one job; the per-k itemset files `itemsets-<k>.txt`
+    in the directory `output`, as the reference's per-round outputs.
+    Inputs under 256 MB with no `stream.block.size.mb` and a multi-hot
+    matrix under 2 GiB are mined in RAM (each file's read a `stream.read`
+    span, the rows' split and encode a `stream.parse` span, the rounds a
+    `stream.fold` span of sink `apriori_resident`), the others
+    streamed."""
+    from avenir_tpu_torch.models.association import TransactionSet
+
+    miner = _build_miner(cfg, device)
+    skip = cfg.get_int("skip.field.count", 1)
+    marker = cfg.get("infreq.item.marker")
+    total_bytes = sum(os.path.getsize(p) for p in inputs
+                      if os.path.exists(p))
+    in_ram = (cfg.get("stream.block.size.mb") is None
+              and total_bytes < (256 << 20))
+    # the clock starts before the in-RAM read, so RowsPerSec prices both
+    # routes' reads alike
+    t0 = time.perf_counter()
+    if in_ram:
+        lines: List[str] = []
+        for path in inputs:
+            t_read = obs.now()
+            lines.extend(_read_lines(path))
+            obs.record("stream.read", t_read, path=path,
+                       nbytes=os.path.getsize(path))
+        t_parse = obs.now()
+        rows = [[t.strip(" \t\r") for t in ln.split(cfg.field_delim_regex)]
+                for ln in lines]
+        # the in-RAM cost is the [N, V] multi-hot matrix, which a wide
+        # item catalog can make far larger than the file
+        vocab = {tok for row in rows for tok in row[skip:]
+                 if tok and tok != marker}
+        in_ram = len(rows) * max(len(vocab), 1) < (2 << 30)
+    if in_ram:
+        tx = TransactionSet.from_rows(
+            rows, trans_id_ord=cfg.get_int("tans.id.ord", 0),
+            skip_field_count=skip, marker=marker)
+        obs.record("stream.parse", t_parse, sink="TransactionSet",
+                   nbytes=total_bytes, engine="python")
+        t_fold = obs.now()
+        levels = miner.mine(tx)
+        obs.record("stream.fold", t_fold, sink="apriori_resident")
+        n_rows = len(rows)
+    else:
+        src = _build_miner_source(cfg, inputs)
+        levels = miner.mine_stream(src)
+        n_rows = src.n_trans
+    counters = {"Apriori:MaxLength": len(levels),
+                **throughput_counters(n_rows, time.perf_counter() - t0)}
+    outs = _write_apriori_outputs(cfg, output, levels)
+    return JobResult("frequentItemsApriori", counters, outs)
+
+
+@job("associationRuleMiner", "arm",
+     "org.avenir.association.AssociationRuleMiner")
+def rule_miner_job(cfg: JobConfig, inputs: List[str], output: str,
+                   device: torch.device) -> JobResult:
+    """Rules over the per-k itemset files, in order k = 1, 2, ...:
+    `ante:ante,cons:cons,confidence,support` a line, six decimals."""
+    from avenir_tpu_torch.models.association import (AssociationRuleMiner,
+                                                     ItemSetList)
+
+    miner = AssociationRuleMiner(
+        conf_threshold=cfg.assert_float("conf.threshold"),
+        max_ante_size=cfg.get_int("max.ante.size", 3))
+    levels = [ItemSetList.load(path, k, delim=cfg.field_delim)
+              for k, path in enumerate(inputs, start=1)]
+    rules = miner.mine(levels)
+    out = _out_file(output)
+    delim = cfg.field_delim
+    with obs.span("job.finish", job="associationRuleMiner"):
+        with open(out, "w") as fh:
+            for r in rules:
+                fh.write(f"{':'.join(r.antecedent)}{delim}"
+                         f"{':'.join(r.consequent)}{delim}"
+                         f"{r.confidence:.6f}{delim}{r.support:.6f}\n")
+    return JobResult("associationRuleMiner", {"Rules:Count": len(rules)},
+                     [out])
+
+
+@job("infrequentItemMarker", "iim",
+     "org.avenir.association.InfrequentItemMarker")
+def infrequent_item_marker_job(cfg: JobConfig, inputs: List[str],
+                               output: str, device: torch.device
+                               ) -> JobResult:
+    """Rows with the items not in the frequent 1-itemset file
+    (`iim.item.set.file.path`, with transaction ids unless
+    `iim.contains.trans.id=false`) replaced by `iim.infreq.item.marker`
+    (default `*`), on the host (InfrequentItemMarker.java:41-46)."""
+    from avenir_tpu_torch.models.association import (InfrequentItemMarker,
+                                                     ItemSetList)
+
+    length = cfg.get_int("item.set.length", 1)
+    if length != 1:
+        raise ValueError("expecting item set of length 1")
+    isl = ItemSetList.load(
+        cfg.assert_get("item.set.file.path"), length,
+        with_trans_ids=cfg.get_bool("contains.trans.id", True),
+        delim=cfg.get("itemset.delim", ","))
+    marker = InfrequentItemMarker(
+        frequent_items=(s.items[0] for s in isl.item_sets),
+        marker=cfg.get("infreq.item.marker", "*"),
+        skip_field_count=cfg.get_int("skip.field.count", 1))
+    out = _out_file(output)
+    delim = cfg.field_delim
+    n = marked = 0
+    with open(out, "w") as fh:
+        for path in inputs:
+            for ln in _read_lines(path):
+                row = [t.strip() for t in ln.split(cfg.field_delim_regex)]
+                marked_row = marker.mark_row(row)
+                marked += sum(a != b for a, b in zip(row, marked_row))
+                n += 1
+                fh.write(delim.join(marked_row) + "\n")
+    return JobResult("infrequentItemMarker",
+                     {"Basic:Records": n, "Marker:Replaced": marked}, [out])
 
 
 # =================================================================== pipeline

@@ -1,7 +1,7 @@
 """Validation metrics: confusion matrix + cost-based arbitration.
 
-The port's own copy of `avenir_tpu/utils/metrics.py`'s ConfusionMatrix
-and CostBasedArbitrator. The reference validates classifiers in-job by
+The port's own copy of `avenir_tpu/utils/metrics.py`'s ConfusionMatrix,
+CostBasedArbitrator and throughput_counters. The reference validates classifiers in-job by
 pushing TP/FN/TN/FP, accuracy, recall and precision into Hadoop counters
 under a "Validation" group (util/ConfusionMatrix.java, used at
 knn/NearestNeighbor.java:300-312); here they are a plain dict.
@@ -112,3 +112,11 @@ class CostBasedArbitrator:
         thr = int(self.false_pos_cost * 100) // int(
             self.false_pos_cost + self.false_neg_cost)
         return np.asarray(prob_pos) > thr
+
+
+def throughput_counters(records: int, seconds: float) -> Dict[str, float]:
+    """The Hadoop-style `Basic:Records` of a streamed job and its
+    `Basic:RowsPerSec` (0 for a wall clock that is not positive)."""
+    rate = records / seconds if seconds > 0 else 0.0
+    return {"Basic:Records": int(records),
+            "Basic:RowsPerSec": round(rate, 1)}

@@ -163,6 +163,27 @@ Phases, each printing a line per check; any failed check exits non-zero:
    classes), byte-identical to the CPU twin's. Each run's seconds and
    its split by span. The path launches no kernel of the port's own:
    its device work is torch ops.
+11. The association path (after phase 10): the bench's market baskets
+   (100 items with Zipf popularity, 8 picks a row, seed 4) at 1,000,000
+   transactions written as `T<id>,i<j>,...`, support 0.02, length 3.
+   `pipelines.association_pipeline` (frequentItemsApriori in RAM, then
+   associationRuleMiner at confidence 0.5) on the card and on the CPU;
+   frequentItemsApriori streamed in 4 MB blocks on the card, and on the
+   first 100,000 rows on the card and the CPU; on those rows
+   infrequentItemMarker with their k=1 file, then Apriori with the
+   marker (streamed, on the card), and `run_shared([frequentItemsApriori])`
+   on the card; `fia.emit.trans.id` on the first 50,000 rows in both
+   routes on the card and the CPU.
+   Every itemsets-k.txt byte-identical across routes and devices (the
+   marked run's to the unmarked one's), rules.txt to the twin's. The
+   card's in-RAM and streamed runs under torch.profiler: seconds by
+   span, device busy share, each round's support count
+   (`association::support_count`) in device seconds beside its
+   candidates and their padded count c_pad; the two forms of the
+   bit-packed overlap (unpacked bits through one matmul, and the
+   word-by-word popcount) equal and timed on a block of 8192 rows
+   against round 2's candidates; the bench's Apriori section at its
+   500,000 transactions. The path launches no kernel of the port's own.
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth: each kernel's launches are counted from
@@ -224,6 +245,12 @@ MOMENT_SHAPES = ((5, 1), (5, 2), (2, 1), (20, 1))
 TREE_BASE_ROWS, TREE_COPIES = 100_000, 10
 RF_TREES, RF_DEPTH = 5, 4
 TEXT_LINES, TEXT_VOCAB, TEXT_CLASSES = 200_000, 5_000, 4
+#: phase 11: the market baskets, the prefixes the CPU twin streams and the
+#: transaction-id runs read, and the miner's settings
+ASSOC_TX, ASSOC_TWIN_TX, ASSOC_TIDS_TX = 1_000_000, 100_000, 50_000
+ASSOC_PROPS = {"fia.support.threshold": "0.02", "fia.item.set.length": "3",
+               "arm.conf.threshold": "0.5"}
+ASSOC_BLOCK = {"fia.stream.block.size.mb": "4"}
 #: nvidia-smi's name and power limit of the card (phase 1)
 CARD = ""
 
@@ -2050,6 +2077,232 @@ def phase_tree_text():
     return secs
 
 
+# ----------------------------------------------------------------- phase 11
+def _range_calls_s(prof, label: str) -> list:
+    """The device seconds of the kernels and copies under each call of a
+    record_function range, in call order."""
+    return [_us(ev, "device_time_total", "cuda_time_total") / 1e6
+            for ev in prof.events()
+            if ev.name == label and str(ev.device_type).endswith("CPU")]
+
+
+def _profiled(what: str, run, label: str) -> tuple:
+    """run() on the card under torch.profiler and the span recorder: its
+    result, and a dict of its seconds, split by span, device busy share
+    and the device seconds of each call of the range `label`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from avenir_tpu_torch import obs
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            obs.capture() as rec:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    kern = copy = 0.0
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA") or ev.key == label:
+            continue
+        us = _us(ev, "self_device_time_total", "self_cuda_time_total")
+        if ev.key.startswith(("Memcpy", "Memset")):
+            copy += us
+        else:
+            kern += us
+    rounds = _range_calls_s(prof, label)
+    info = {"seconds": round(secs, 4), "kernel_s": kern / 1e6,
+            "device_s": (kern + copy) / 1e6,
+            "device_busy_share": (kern + copy) / 1e6 / secs,
+            "round_device_s": rounds, "split": _span_split(rec, secs)}
+    _print_split(what, rec)
+    return out, info
+
+
+def _itemsets(outputs) -> dict:
+    return {Path(p).name: Path(p).read_bytes() for p in outputs}
+
+
+def phase_association():
+    """The association path on 1,000,000 market baskets: in RAM and
+    streamed on the card against the CPU twin, the marker, rules,
+    transaction ids and the shared scan, every file byte-identical.
+    Returns the seconds and measurements of the runs."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.models import association
+    from avenir_tpu_torch.ops import bitset
+    from avenir_tpu_torch.pipelines import association_pipeline
+    from avenir_tpu_torch.runner import run_job, run_shared
+    from avenir_tpu_torch.tools import bench
+
+    work = ROOT / "build" / "chip_smoke_assoc"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    picks = bench.apriori_picks(ASSOC_TX, seed=4)
+    lines = [",".join([f"T{r}", *(f"i{j}" for j in row)]) + "\n"
+             for r, row in enumerate(picks.tolist())]
+    corpus = {}
+    for name, rows in (("baskets", ASSOC_TX), ("twin", ASSOC_TWIN_TX),
+                       ("tids", ASSOC_TIDS_TX)):
+        corpus[name] = work / f"{name}.csv"
+        corpus[name].write_text("".join(lines[:rows]))
+    del lines
+    print(f"basket CSV: {ASSOC_TX} transactions "
+          f"({corpus['baskets'].stat().st_size} bytes), written in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    csv = str(corpus["baskets"])
+    stream = {**ASSOC_PROPS, **ASSOC_BLOCK}
+    secs, files = {}, {}
+
+    def timed(what, dev, run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs[what] = {**secs.get(what, {}),
+                      dev: round(time.perf_counter() - t0, 3)}
+        return out
+
+    # in RAM: the pipeline (apriori, then rules) on the card and the CPU
+    pipe, secs["ram_card"] = _profiled(
+        "association_pipeline on the card", lambda: association_pipeline(
+            ASSOC_PROPS, csv, str(work / "pipe_card"), device=DEVICE).run(),
+        association.SUPPORT_RANGE)
+    twin = timed("association_pipeline", "cpu", lambda: association_pipeline(
+        ASSOC_PROPS, csv, str(work / "pipe_cpu"), device="cpu").run())
+    files["ram"] = _itemsets(pipe["apriori"].outputs)
+    levels = [association.ItemSetList.load(p, k) for k, p in
+              enumerate(pipe["apriori"].outputs, start=1)]
+    cands = []
+    for k in range(2, int(ASSOC_PROPS["fia.item.set.length"]) + 1):
+        if k - 2 >= len(levels):
+            break
+        n = len(association._generate_candidates(
+            [s.items for s in levels[k - 2].item_sets], k))
+        if not n:
+            break
+        cands.append({"k": k, "candidates": n,
+                      "c_pad": association._c_pad(n)})
+    check(files["ram"] == _itemsets(twin["apriori"].outputs)
+          and len(files["ram"]) == 3
+          and _itemsets(pipe["rules"].outputs)
+          == _itemsets(twin["rules"].outputs)
+          and pipe["rules"].counters["Rules:Count"] > 0
+          and len(secs["ram_card"]["round_device_s"]) == len(cands),
+          f"association_pipeline ({ASSOC_TX} transactions, {CARD}): "
+          f"{pipe['apriori'].counters}, {pipe['rules'].counters}; itemsets "
+          f"and rules.txt byte-identical to the CPU twin's (CPU "
+          f"{secs['association_pipeline']['cpu']}s); rounds {cands}; "
+          f"{json.dumps(secs['ram_card'])}")
+
+    # streamed in 4 MB blocks on the card; the twin streams the prefix
+    res, secs["stream_card"] = _profiled(
+        "frequentItemsApriori streamed on the card", lambda: run_job(
+            "frequentItemsApriori", stream, [csv],
+            str(work / "stream_card"), device=DEVICE),
+        association.SUPPORT_RANGE)
+    check(_itemsets(res.outputs) == files["ram"]
+          and len(secs["stream_card"]["round_device_s"]) == len(cands),
+          f"frequentItemsApriori streamed ({CARD}): {res.counters}; "
+          f"itemsets byte-identical to the in-RAM run's; "
+          f"{json.dumps(secs['stream_card'])}")
+    prefix = {}
+    for dev in (DEVICE, "cpu"):
+        res = timed("streamed 100,000 rows", dev, lambda: run_job(
+            "frequentItemsApriori", stream, [str(corpus["twin"])],
+            str(work / f"twin_{dev}"), device=dev))
+        prefix[dev] = _itemsets(res.outputs)
+    check(prefix[DEVICE] == prefix["cpu"] and len(prefix["cpu"]) == 3,
+          f"frequentItemsApriori streamed on {ASSOC_TWIN_TX} rows: "
+          f"byte-identical to the CPU twin's ({secs['streamed 100,000 rows']}"
+          f" s)")
+
+    # the marker on the prefix, then Apriori over the marked rows
+    marked = timed("infrequentItemMarker", DEVICE, lambda: run_job(
+        "infrequentItemMarker",
+        {"iim.item.set.file.path": str(work / "twin_cpu" / "itemsets-1.txt"),
+         "iim.contains.trans.id": "false"}, [str(corpus["twin"])],
+        str(work / "marked.csv"), device=DEVICE))
+    res = timed("apriori marked", DEVICE, lambda: run_job(
+        "frequentItemsApriori", {**stream, "fia.infreq.item.marker": "*"},
+        marked.outputs, str(work / "marked"), device=DEVICE))
+    check(_itemsets(res.outputs) == prefix["cpu"]
+          and marked.counters["Marker:Replaced"] > 0,
+          f"infrequentItemMarker on {ASSOC_TWIN_TX} rows {marked.counters}, "
+          f"then Apriori with the marker: itemsets byte-identical to the "
+          f"unmarked run's ({secs['infrequentItemMarker']}, "
+          f"{secs['apriori marked']} s)")
+
+    # transaction ids, both routes on both devices
+    tids = {}
+    for route, extra in (("ram", {}), ("streamed", ASSOC_BLOCK)):
+        for dev in (DEVICE, "cpu"):
+            res = timed(f"trans ids {route}", dev, lambda: run_job(
+                "frequentItemsApriori",
+                {**ASSOC_PROPS, **extra, "fia.emit.trans.id": "true"},
+                [str(corpus["tids"])], str(work / f"tids_{route}_{dev}"),
+                device=dev))
+            tids[(route, dev)] = _itemsets(res.outputs)
+    longest = max(len(ln) for ln in
+                  tids[("ram", "cpu")]["itemsets-1.txt"].splitlines())
+    check(len({json.dumps({k: v.decode() for k, v in t.items()},
+                          sort_keys=True) for t in tids.values()}) == 1,
+          f"fia.emit.trans.id on {ASSOC_TIDS_TX} rows: in RAM and streamed, "
+          f"card and CPU, byte-identical (longest line {longest} bytes; "
+          f"{ {k: v for k, v in secs.items() if k.startswith('trans')} })")
+
+    # one shared scan of the prefix
+    shared = timed("run_shared", DEVICE, lambda: run_shared(
+        [("frequentItemsApriori", stream, str(work / "shared"))],
+        [str(corpus["twin"])], device=DEVICE))
+    check(_itemsets(shared["frequentItemsApriori"].outputs) == prefix["cpu"],
+          f"run_shared([frequentItemsApriori]) on {ASSOC_TWIN_TX} rows: "
+          f"byte-identical to run_job ({secs['run_shared']} s)")
+
+    # the two forms of the bit-packed overlap on a block of the corpus
+    freq = sorted(int(s.items[0][1:]) for s in levels[0].item_sets)
+    mh = np.zeros((8192, 100), np.uint8)
+    mh[np.arange(8192)[:, None], picks[:8192]] = 1
+    trans = bitset.as_words(bitset.pack_rows_u32(mh[:, freq]), DEVICE)
+    remap = {c: m for m, c in enumerate(freq)}
+    pairs = [(remap[int(a[1:])], remap[int(b[1:])]) for a, b in
+             association._generate_candidates(
+                 [s.items for s in levels[0].item_sets], 2)]
+    cand = bitset.as_words(bitset.pack_index_rows_u32(
+        pairs, len(freq), association._c_pad(len(pairs))), DEVICE)
+    b = bitset.bitset_contain_counts(trans, cand)
+    a = bitset.bitset_contain_counts(trans, cand, words=True)
+    want = [int(mh[:, [freq[i] for i in pr]].all(axis=1).sum())
+            for pr in pairs]
+    forms = {"block": list(trans.shape), "candidates": list(cand.shape),
+             "unpacked_matmul_ms": cuda_ms(
+                 lambda: bitset.bitset_contain_counts(trans, cand), 20),
+             "word_popcount_ms": cuda_ms(
+                 lambda: bitset.bitset_contain_counts(trans, cand,
+                                                      words=True), 20)}
+    check(torch.equal(a, b) and b[:len(pairs)].tolist() == want
+          and not b[len(pairs):].any(),
+          f"bit-packed overlap on the card ({CARD}): unpacked bits through "
+          f"one matmul equal to the word-by-word popcount and to the "
+          f"multi-hot oracle; {json.dumps(forms)}")
+    secs["overlap_forms"] = forms
+
+    # the bench's Apriori section
+    t0 = time.perf_counter()
+    row = bench.bench_apriori(torch.device(DEVICE), bench.APRIORI_TX)
+    check(row["apriori_rounds"] == 3 and row["apriori_frequent_sets"] > 0,
+          f"bench Apriori section ({bench.APRIORI_TX} transactions, {CARD}): "
+          f"{json.dumps(row)} in {time.perf_counter() - t0:.1f}s")
+    secs["bench"] = row
+    shutil.rmtree(work)
+    return secs
+
+
 # ------------------------------------------------------------------ phase 7
 def phase_ceiling(rate: float, bf16_flops: float):
     """matmul_ceiling against its plain version at the bench's shape."""
@@ -2220,10 +2473,15 @@ def main() -> None:
     profile_secs = phase_profile()
     t0 = time.perf_counter()
     tree_secs = phase_tree_text()
+    t_tree = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    assoc_secs = phase_association()
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     print(f"tree and text seconds ({CARD}; phase 10 "
-          f"{time.perf_counter() - t0:.1f}s): {json.dumps(tree_secs)}",
+          f"{t_tree:.1f}s): {json.dumps(tree_secs)}", flush=True)
+    print(f"association seconds ({CARD}; phase 11 "
+          f"{time.perf_counter() - t0:.1f}s): {json.dumps(assoc_secs)}",
           flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
              BENCH_PATH: bench_counts, PIPE_PATH: pipe_counts}

@@ -124,3 +124,16 @@ def test_chip_smoke_alone_fails(tmp_path):
         cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_association_path_loads_no_jax():
+    """The association path (its model, the bit-packed count, the jobs,
+    the pipeline and the bench) loads neither `jax` nor the JAX
+    package."""
+    modules = ["avenir_tpu_torch.models.association",
+               "avenir_tpu_torch.ops.bitset", "avenir_tpu_torch.runner",
+               "avenir_tpu_torch.pipelines", "avenir_tpu_torch.tools.bench"]
+    assert set(modules) <= set(MODULES)
+    loaded = _loaded(*modules)
+    assert set(modules) <= set(loaded)
+    assert _forbidden(loaded) == []

@@ -405,3 +405,114 @@ def test_a_library_that_will_not_load_is_rebuilt(monkeypatch, tmp_path):
     path.write_bytes(b"not a shared library")
     assert ingest.native_available()
     assert path.read_bytes()[:4] == b"\x7fELF"
+
+
+# ------------------------------------------------ the miners' CSR encoder
+SEQ_BLOCKS = {
+    "awkward": (b"T1, a ,b,\r\nT2,c,,a\n \t\r\n,,\nT3\n\nT4,zz\tq , a\n"
+                b"T5,*,a,*\r\nT6,\xc3\xa9t\xc3\xa9,a"),
+    "baskets": "".join(f"T{r},i{r % 7},i{(r * 3) % 11},i{r % 7}\n"
+                       for r in range(500)).encode(),
+    "empty": b"",
+    "blank": b"\n \n\t\r\n",
+}
+SEQ_VOCAB = ["a", "b", "c", "zz\tq", "i1", "i3", "été", "*", ""]
+
+
+def _jax_native():
+    """The JAX package's native library, built by another test worker
+    while this one waited: a load that failed during that build is tried
+    again (the JAX package remembers a failed load)."""
+    import time
+
+    from avenir_tpu.native import ingest as jax_ingest
+
+    for _ in range(60):
+        if jax_ingest.native_available():
+            return jax_ingest
+        jax_ingest._build_failed = False
+        time.sleep(1.0)
+    raise AssertionError("the JAX package's native library does not load")
+
+
+@pytest.mark.parametrize("block", sorted(SEQ_BLOCKS))
+@pytest.mark.parametrize("delim", [",", "\t"])
+def test_seq_encode_equals_jax_native(block, delim):
+    """Codes (unknown tokens -1) and CSR offsets equal the JAX package's
+    native encoder's on the same bytes and vocabulary, the tokens trimmed
+    of space, tab and CR and whitespace-only lines no rows."""
+    jax_ingest = _jax_native()
+    data = SEQ_BLOCKS[block]
+    if delim == "\t":
+        data = data.replace(b",", b"\t")
+    for vocab in (SEQ_VOCAB, [], ["a"]):
+        got = ingest.seq_encode_native(data, delim, vocab)
+        want = jax_ingest.seq_encode_native(data, delim, vocab)
+        assert got[0].dtype == np.int32 and got[1].dtype == np.int64
+        assert got[0].tolist() == want[0].tolist()
+        assert got[1].tolist() == want[1].tolist()
+    if block == "awkward" and delim == ",":
+        codes, offsets = ingest.seq_encode_native(data, delim, SEQ_VOCAB)
+        rows = [codes[a:b].tolist() for a, b in zip(offsets, offsets[1:])]
+        assert rows == [[-1, 0, 1, 8], [-1, 2, 8, 0], [8, 8, 8], [-1],
+                        [-1, 3, 0], [-1, 7, 0, 7], [-1, 6, 0]]
+    assert ingest.seq_encode_native(data, "::", SEQ_VOCAB) is None
+
+
+def test_csr_helpers_equal_jax():
+    jax_ingest = _jax_native()
+    data = SEQ_BLOCKS["awkward"]
+    codes, offsets = ingest.seq_encode_native(data, ",", SEQ_VOCAB)
+    for skip in (0, 1, 2, 5):
+        got = ingest.csr_region_mask(offsets, skip, codes.shape[0])
+        assert got.tolist() == jax_ingest.csr_region_mask(
+            offsets, skip, codes.shape[0]).tolist()
+    row_of, starts = ingest.csr_rows(offsets)
+    j_row_of, j_starts = jax_ingest.csr_rows(offsets)
+    assert row_of.dtype == np.int32
+    assert row_of.tolist() == j_row_of.tolist()
+    assert starts.tolist() == j_starts.tolist()
+    region = ingest.csr_region_mask(offsets, 1, codes.shape[0]) & (codes >= 0)
+    counts = ingest.distinct_row_code_counts(row_of, codes, region,
+                                             len(SEQ_VOCAB))
+    assert counts.tolist() == jax_ingest.distinct_row_code_counts(
+        row_of, codes, region, len(SEQ_VOCAB)).tolist()
+    assert counts.tolist() == [5, 1, 1, 1, 0, 0, 1, 1, 3]
+
+
+@pytest.mark.parametrize("marker", [None, "*"])
+def test_block_scan_encoder_equals_jax(tmp_path, marker):
+    """The vocabulary-discovering pass 1 over blocks in turn: the same
+    first-seen vocabulary, codes, offsets and item region as the JAX
+    package's encoder, the marker and the empty token dropped; and
+    scan_encode_blocks over files gives the blocks of the encoder."""
+    jax_ingest = _jax_native()
+    blocks = [SEQ_BLOCKS["awkward"] + b"\n", SEQ_BLOCKS["baskets"],
+              b"T9,a,new1,,new2\n", SEQ_BLOCKS["blank"]]
+    vocab, index = [], {}
+    j_vocab, j_index = [], {}
+    enc = ingest.BlockScanEncoder(",", 1, vocab, index, marker)
+    j_enc = jax_ingest.BlockScanEncoder(",", 1, j_vocab, j_index, marker)
+    outs = []
+    for data in blocks:
+        got, want = enc.encode(data), j_enc.encode(data)
+        assert (got is None) == (want is None)
+        if got is None:
+            continue
+        outs.append(got)
+        for a, b in zip(got, want):
+            assert np.asarray(a).tolist() == np.asarray(b).tolist()
+        assert vocab == j_vocab
+    assert index == {t: i for i, t in enumerate(vocab)}
+    assert "" not in vocab and (marker is None) == ("*" in vocab)
+    paths = []
+    for i, data in enumerate(blocks):
+        p = tmp_path / f"b{i}.csv"
+        p.write_bytes(data)
+        paths.append(str(p))
+    scanned = list(ingest.scan_encode_blocks(paths, ",", 1, [], {}, 1 << 20,
+                                             marker))
+    assert len(scanned) == len(outs)
+    for a, b in zip(scanned, outs):
+        assert [np.asarray(x).tolist() for x in a] == \
+            [np.asarray(x).tolist() for x in b]

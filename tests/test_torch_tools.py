@@ -182,6 +182,39 @@ def test_bench_main_prints_one_json_line(capsys):
     assert json.loads(lines[0])["nb"]["rows"] == 5000
 
 
+def test_bench_apriori_section_on_cpu(capsys):
+    """The Apriori section (the root bench's market baskets, support 0.02,
+    length 3) at a small size: its three figures, rounds and sets equal to
+    the JAX package's miner on the same baskets."""
+    import numpy as np
+
+    from avenir_tpu.models.association import (
+        FrequentItemsApriori as JaxApriori, TransactionSet as JaxTx)
+
+    assert (bench.APRIORI_TX, bench.APRIORI_VOCAB, bench.APRIORI_PICKS) == \
+        (500_000, 100, 8)
+    lines = []
+    result = bench.run(device="cpu", nb_rows=5000, queries=128, train=1024,
+                       reps=1, rf_rows=1000, apriori_tx=4000,
+                       out=lines.append)
+    assert json.loads(lines[-1]) == result
+    picks = bench.apriori_picks(4000)
+    mh = np.zeros((4000, 100), np.uint8)
+    mh[np.arange(4000)[:, None], picks] = 1
+    want = JaxApriori(0.02, 3).mine(JaxTx(
+        mh, [f"i{j}" for j in range(100)],
+        np.array([str(i) for i in range(4000)], dtype=object)))
+    assert result["apriori_rounds"] == len(want) == 3
+    assert result["apriori_frequent_sets"] == sum(len(isl) for isl in want)
+    assert result["apriori_tx_scans_per_sec"] > 0
+    capsys.readouterr()
+    assert bench.main(["--device", "cpu", "--nb-rows", "5000", "--queries",
+                       "128", "--train", "1024", "--reps", "1", "--rf-rows",
+                       "1000", "--apriori-tx", "2000"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["apriori_rounds"] == 3
+
+
 def test_bench_raises_without_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
