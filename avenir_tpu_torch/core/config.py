@@ -124,6 +124,9 @@ class JobConfig:
     def assert_get(self, key: str) -> str:
         return self._require(key, self._lookup(key), "string")
 
+    def assert_int(self, key: str) -> int:
+        return int(self._require(key, self._lookup(key), "int"))
+
     def assert_float(self, key: str) -> float:
         return float(self._require(key, self._lookup(key), "float"))
 

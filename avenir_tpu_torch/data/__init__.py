@@ -1,5 +1,6 @@
 """Seedable synthetic data generators (the churn, e-learning,
-call-hangup and multi-class shapes)."""
+call-hangup and multi-class shapes,
+and the GSP token sequences)."""
 
 from avenir_tpu_torch.data.generators import (
     call_hangup_schema,
@@ -9,9 +10,11 @@ from avenir_tpu_torch.data.generators import (
     generate_churn,
     generate_elearn,
     generate_multiclass,
+    generate_token_sequences,
     multiclass_schema,
 )
 
 __all__ = ["call_hangup_schema", "churn_schema", "elearn_schema",
            "generate_call_hangup", "generate_churn", "generate_elearn",
-           "generate_multiclass", "multiclass_schema"]
+           "generate_multiclass", "generate_token_sequences",
+           "multiclass_schema"]

@@ -191,3 +191,23 @@ def generate_call_hangup(n: int, seed: int = 13,
         rows.append([f"{rng.integers(10**9, 10**10)}", cust, area, issue,
                      tod, str(int(hold)), hungup])
     return _rows_out(rows, schema, as_csv)
+
+
+def generate_token_sequences(n: int, vocab: int = 100, mean_len: float = 10,
+                             max_len: int = 40, seed: int = 21
+                             ) -> List[str]:
+    """n event-token sequences as CSV lines `s<i>,e<j>,...` (the GSP
+    input, CandidateGenerationWithSelfJoin's rows): each of Poisson(mean_len)
+    tokens, clipped to [2, max_len], drawn from `vocab` tokens with Zipf
+    popularity p_j ∝ 1/(j+1), a token free to repeat. The port's own
+    corpus, drawn in bulk."""
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(rng.poisson(mean_len, n), 2, max_len)
+    pop = 1.0 / np.arange(1, vocab + 1)
+    tokens = rng.choice(vocab, size=int(lengths.sum()), p=pop / pop.sum())
+    names = [f"e{j}" for j in range(vocab)]
+    words = [names[j] for j in tokens.tolist()]
+    ends = np.cumsum(lengths).tolist()
+    starts = [0] + ends[:-1]
+    return [",".join([f"s{i}", *words[a:b]])
+            for i, (a, b) in enumerate(zip(starts, ends))]

@@ -45,6 +45,8 @@ LIBRARIES = {
                     [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P]),
     "matmul_ceiling": ("matmul_ceiling.cu", "matmul_ceiling_launch",
                        [_P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P]),
+    "subseq_support": ("subseq_support.cu", "subseq_support_launch",
+                       [_P, _I, _I, _P, _I, _I, _P, _P, _P]),
 }
 _TOPK_ARGS = LIBRARIES["knn_topk"][2]
 _CLASSIFY_ARGS = LIBRARIES["knn_classify"][2]
@@ -55,7 +57,8 @@ _CLASSIFY_ARGS = LIBRARIES["knn_classify"][2]
 #: kernel on that grid (the launch floor); the tensor-core form's
 #: diagnostic instance with clock64() sections; the ceiling's main-kernel
 #: instance for a D (registers, local bytes, shared bytes, threads, blocks
-#: per SM, tile). bind() skips the
+#: per SM, tile); the subsequence count's registers and local bytes.
+#: bind() skips the
 #: ones a library lacks (an earlier version's sources), and calling one
 #: of those raises AttributeError.
 INFO = {
@@ -75,6 +78,7 @@ INFO = {
                                                    _I, _F, _I, _F, _P, _P],
                      "knn_classify_merge_info": [_I, _P]},
     "matmul_ceiling": {"matmul_ceiling_info": [_I, _P]},
+    "subseq_support": {"subseq_support_info": [_P]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

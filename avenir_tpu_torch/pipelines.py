@@ -5,8 +5,8 @@ and `association_pipeline` of `avenir_tpu/pipelines.py`: the stages that
 resource/knn.sh ran by hand, resource/detr.sh's and rafo.sh's tree
 builds, the corpus profiling every modelling run-book starts with, and
 resource/carm.sh's association mining, against the same properties keys,
-so a run-book translates 1:1: build the pipeline, call run().
-`bandit_round` waits for its jobs.
+so a run-book translates 1:1: build the pipeline, call run(); and
+`bandit_round`, one decision round of the price-optimization loop.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ import os
 from typing import Dict, Optional
 
 from avenir_tpu_torch.core.config import load_properties
-from avenir_tpu_torch.runner import JobResult, Pipeline, Stage
+from avenir_tpu_torch.runner import (JobResult, Pipeline, Stage, job_prefix,
+                                     run_job)
 from avenir_tpu_torch.utils.devices import DeviceLike
 
 
@@ -143,3 +144,16 @@ def association_pipeline(conf, trans_csv: str, work_dir: str,
         Stage("rules", "associationRuleMiner", [],
               os.path.join(work_dir, "rules.txt")),
     ], device=device)
+
+
+def bandit_round(conf, stats_csv: str, out_path: str, round_num: int,
+                 job: str = "greedyRandomBandit",
+                 device: DeviceLike = None) -> JobResult:
+    """One decision round of the price-optimization loop
+    (resource/price_optimize_tutorial.txt:20-82) on `device` (default
+    cuda): reward-aggregate rows in, the selected items out. The loop
+    lives with the caller, as the tutorial's rounds did; aggregating the
+    rewards between rounds is the caller's data pipeline."""
+    props = _props(conf)
+    props[f"{job_prefix(job)}.current.round.num"] = str(round_num)
+    return run_job(job, props, [stats_csv], out_path, device=device)

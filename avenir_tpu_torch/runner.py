@@ -13,17 +13,23 @@ ported so far: `nearestNeighbor` (org.avenir.knn.NearestNeighbor),
 `decTree`, `randomForest` and `dataPartitioner` (org.avenir.tree),
 `wordCounter` (org.avenir.text.WordCounter), `frequentItemsApriori`,
 `associationRuleMiner` and `infrequentItemMarker` (org.avenir.association),
-and `Stage` / `Pipeline`, which chain them as the reference's shell
-scripts did. A job reads the reference's namespaced keys (`nen.*`,
-`bad.*`, `bap.*`, `sts.*`, `grs.*`, `fcb.*`, `mut.*`, `fid.*`, `crc.*`,
-`cac.*`, `hrc.*`, `nuc.*`, `cpg.*`, `dtb.*`, `dap.*`, `wco.*`, `fia.*`,
-`arm.*`, `iim.*`) from one flat properties file and runs
-in-process on the device the caller names — ``cuda`` unless
+`candidateGenerationWithSelfJoin` and `sequencePositionalCluster`
+(org.avenir.sequence), `sequenceGenerator`
+(org.avenir.spark.sequence), the four batch bandits `greedyRandomBandit`,
+`auerDeterministic`, `randomFirstGreedyBandit` and `softMaxBandit`
+(org.avenir.reinforce), and `Stage` / `Pipeline`, which chain them as
+the reference's shell scripts did. A job reads the reference's
+namespaced keys (`nen.*`, `bad.*`, `bap.*`, `sts.*`, `grs.*`, `fcb.*`,
+`mut.*`, `fid.*`, `crc.*`, `cac.*`, `hrc.*`, `nuc.*`, `cpg.*`, `dtb.*`,
+`dap.*`, `wco.*`, `fia.*`, `arm.*`, `iim.*`, `cgs.*`, `spc.*`, `seg.*`,
+`grb.*`, `aue.*`, `rfg.*`, `smb.*`) from one flat properties file and
+runs in-process on the device the caller names — ``cuda`` unless
 ``device="cpu"`` is passed.
 
 The streamed jobs `bayesianDistr`, `mutualInformation` and
-`fisherDiscriminant` (of Dataset chunks) and `frequentItemsApriori` (of
-raw byte blocks, its pass 1) are fold sinks with the reference's
+`fisherDiscriminant` (of Dataset chunks) and `frequentItemsApriori` and
+`candidateGenerationWithSelfJoin` (of raw byte blocks, their pass 1) are
+fold sinks with the reference's
 `StreamFoldOps` contract (merge, `state_dict`, `load_state`); `run_shared`
 drives several of one kind over one scan of their common input, and
 `Pipeline.run(fuse=True)` groups consecutive such stages into one.
@@ -41,6 +47,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import math
 import os
 import sys
 import time
@@ -93,6 +100,14 @@ def job(name: str, prefix: str, *aliases: str):
 
 def job_names() -> List[str]:
     return sorted(_REGISTRY)
+
+
+def job_prefix(name: str) -> str:
+    """The reference config prefix a registered job (or an alias of it)
+    reads, e.g. greedyRandomBandit -> 'grb'."""
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown job {name!r}")
+    return _REGISTRY[name][1]
 
 
 def _job_cfg(name: str, conf) -> Tuple[str, JobConfig]:
@@ -439,46 +454,103 @@ def _write_apriori_outputs(cfg: JobConfig, output: str, levels) -> List[str]:
     return outs
 
 
-def _build_miner(cfg: JobConfig, device: torch.device):
-    """The Apriori miner a `fia.*` conf describes."""
-    from avenir_tpu_torch.models.association import FrequentItemsApriori
+def _write_gsp_outputs(cfg: JobConfig, output: str, levels) -> List[str]:
+    """The per-k sequence files `sequences-<k>.txt` in the directory
+    `output`: the sequences sorted, each with its support to six decimals,
+    as a `job.finish` span."""
+    t0 = obs.now()
+    os.makedirs(output or ".", exist_ok=True)
+    outs = []
+    delim = cfg.field_delim
+    for k, seqs in sorted(levels.items()):
+        p = os.path.join(output, f"sequences-{k}.txt")
+        with open(p, "w") as fh:
+            for cand, support in sorted(seqs.items()):
+                fh.write(delim.join([*cand, f"{support:.6f}"]) + "\n")
+        outs.append(p)
+    obs.record("job.finish", t0, job="candidateGenerationWithSelfJoin")
+    return outs
 
-    return FrequentItemsApriori(
-        support_threshold=cfg.assert_float("support.threshold"),
-        max_length=cfg.get_int("item.set.length", 3),
-        emit_trans_id=cfg.get_bool("emit.trans.id", False), device=device)
+
+_APRIORI, _GSP = "frequentItemsApriori", "candidateGenerationWithSelfJoin"
 
 
-def _build_miner_source(cfg: JobConfig, inputs: Sequence[str]):
-    """The streaming transaction source a `fia.*` conf describes (the key
-    `tans.id.ord` is the reference's spelling)."""
-    from avenir_tpu_torch.models.association import StreamingTransactionSource
+def _build_miner(canonical: str, cfg: JobConfig, device: torch.device):
+    """The miner a `fia.*` or `cgs.*` conf describes: one constructor for
+    the job and its fold."""
+    if canonical == _APRIORI:
+        from avenir_tpu_torch.models.association import FrequentItemsApriori
 
-    return StreamingTransactionSource(
-        list(inputs), delim=cfg.field_delim_regex,
-        trans_id_ord=cfg.get_int("tans.id.ord", 0),
-        skip_field_count=cfg.get_int("skip.field.count", 1),
-        marker=cfg.get("infreq.item.marker"),
-        block_bytes=int(cfg.get_float("stream.block.size.mb", 64.0)
-                        * (1 << 20)))
+        return FrequentItemsApriori(
+            support_threshold=cfg.assert_float("support.threshold"),
+            max_length=cfg.get_int("item.set.length", 3),
+            emit_trans_id=cfg.get_bool("emit.trans.id", False),
+            device=device)
+    if canonical == _GSP:
+        from avenir_tpu_torch.models.sequence import GSPMiner
+
+        return GSPMiner(
+            support_threshold=cfg.assert_float("support.threshold"),
+            max_length=cfg.get_int("item.set.length", 3), device=device)
+    raise ValueError(f"job {canonical!r} is not a multi-pass miner")
+
+
+def _build_miner_source(canonical: str, cfg: JobConfig,
+                        inputs: Sequence[str]):
+    """The streaming source a miner conf describes: the transaction reader
+    (the key `tans.id.ord` is the reference's spelling) or the sequence
+    reader, in `stream.block.size.mb` blocks (default 64)."""
+    block = int(cfg.get_float("stream.block.size.mb", 64.0) * (1 << 20))
+    skip = cfg.get_int("skip.field.count", 1)
+    if canonical == _APRIORI:
+        from avenir_tpu_torch.models.association import \
+            StreamingTransactionSource
+
+        return StreamingTransactionSource(
+            list(inputs), delim=cfg.field_delim_regex,
+            trans_id_ord=cfg.get_int("tans.id.ord", 0),
+            skip_field_count=skip, marker=cfg.get("infreq.item.marker"),
+            block_bytes=block)
+    from avenir_tpu_torch.models.sequence import StreamingSequenceSource
+
+    return StreamingSequenceSource(list(inputs), delim=cfg.field_delim_regex,
+                                   skip_field_count=skip, block_bytes=block)
+
+
+def _source_rows(job: str, src) -> int:
+    """The rows a miner's streaming source has scanned."""
+    return src.n_trans if job == _APRIORI else src.n_rows
+
+
+def _miner_finish(job: str, cfg: JobConfig, output: str, levels,
+                  n_rows: int, seconds: float) -> JobResult:
+    """A miner's files and counters: `Apriori:MaxLength` (the itemset
+    lists written) or `GSP:MaxLength` (the longest frequent sequence),
+    and the throughput counters."""
+    if job == _APRIORI:
+        counters = {"Apriori:MaxLength": len(levels)}
+        outs = _write_apriori_outputs(cfg, output, levels)
+    else:
+        counters = {"GSP:MaxLength": max(levels) if levels else 0}
+        outs = _write_gsp_outputs(cfg, output, levels)
+    counters.update(throughput_counters(n_rows, seconds))
+    return JobResult(job, counters, outs)
 
 
 class _MinerScanFold:
-    """Apriori's pass 1 (vocabulary and k=1 supports) as a shared-scan
-    sink of raw byte blocks; finish() runs the later rounds, each
-    re-reading the inputs. The port of `avenir_tpu/runner.py`
-    `_MinerScanFold` for Apriori (GSP is not ported), without the
-    encoded-block cache its rounds replay and the job server's
-    `keep_sources`."""
-
-    job = "frequentItemsApriori"
+    """A multi-pass miner's pass 1 (vocabulary and k=1 supports; for GSP
+    the longest sequence too) as a shared-scan sink of raw byte blocks;
+    finish() runs the later rounds, each re-reading the inputs. The port
+    of `avenir_tpu/runner.py` `_MinerScanFold`, without the encoded-block
+    cache its rounds replay and the job server's `keep_sources`."""
 
     def __init__(self, cfg: JobConfig, inputs: Sequence[str],
-                 device: torch.device):
+                 device: torch.device, job: str):
         self.cfg = cfg
+        self.job = job
         self.t0 = time.perf_counter()
-        self.miner = _build_miner(cfg, device)
-        self.src = _build_miner_source(cfg, inputs)
+        self.miner = _build_miner(job, cfg, device)
+        self.src = _build_miner_source(job, cfg, inputs)
         self._sink = self.src.scan_consumer()
         self._sealed = False
         self._shards: List["_MinerScanFold"] = []
@@ -493,21 +565,25 @@ class _MinerScanFold:
             self._sink.finish()
             self._sealed = True
 
+    def _n_rows(self) -> int:
+        return _source_rows(self.job, self.src)
+
     def finish(self, output: str) -> JobResult:
         self._seal()
         srcs = [self.src] + [f.src for f in self._shards]
         levels = (self.miner.mine_stream(self.src) if len(srcs) == 1
                   else self.miner.mine_stream_merged(srcs))
-        counters = {"Apriori:MaxLength": len(levels),
-                    **throughput_counters(sum(s.n_trans for s in srcs),
-                                          time.perf_counter() - self.t0)}
-        outs = _write_apriori_outputs(self.cfg, output, levels)
-        return JobResult(self.job, counters, outs)
+        n_rows = self._n_rows() + sum(f._n_rows() for f in self._shards)
+        return _miner_finish(self.job, self.cfg, output, levels, n_rows,
+                             time.perf_counter() - self.t0)
 
     def merge(self, other: "_MinerScanFold") -> "_MinerScanFold":
         """Seal both shards' pass 1 and keep their sources side by side;
         finish() then mines them with mine_stream_merged, which counts each
         candidate per shard and sums the supports."""
+        if other.job != self.job:
+            raise ValueError(
+                f"cannot merge {other.job!r} fold into {self.job!r}")
         self._seal()
         other._seal()
         self._shards.append(other)
@@ -523,7 +599,8 @@ class _MinerScanFold:
                 "checkpoint a miner fold before merging shards into it")
         src = self.src
         meta = {"job": self.job, "vocab": list(src.vocab),
-                "n": src.n_trans, "sealed": self._sealed, "t_max": None}
+                "n": self._n_rows(), "sealed": self._sealed,
+                "t_max": getattr(src, "t_max", None)}
         return {"meta": np.array(json.dumps(meta)),
                 "counts": np.asarray(src._scan_counts, np.int64)}
 
@@ -533,15 +610,25 @@ class _MinerScanFold:
             raise ValueError(
                 f"checkpointed {meta['job']!r} state for a {self.job!r} "
                 f"fold")
-        self.src.restore_scan_state(meta["vocab"], state["counts"])
-        self.src.n_trans = int(meta["n"])
+        src = self.src
+        src.restore_scan_state(meta["vocab"], state["counts"])
+        if self.job == _APRIORI:
+            src.n_trans = int(meta["n"])
+        else:
+            src.n_rows = int(meta["n"])
+            src.t_max = max(int(meta["t_max"] or 1), 1)
         if meta["sealed"]:
             self._seal()
 
 
 def _apriori_fold(cfg: JobConfig, inputs: Sequence[str], schema,
                   device: torch.device) -> _MinerScanFold:
-    return _MinerScanFold(cfg, inputs, device)
+    return _MinerScanFold(cfg, inputs, device, _APRIORI)
+
+
+def _gsp_fold(cfg: JobConfig, inputs: Sequence[str], schema,
+              device: torch.device) -> _MinerScanFold:
+    return _MinerScanFold(cfg, inputs, device, _GSP)
 
 
 def _merge_folds(a, b):
@@ -558,8 +645,9 @@ class StreamFoldOps:
     carry taken mid-scan to the same bytes.
 
     `kind`: "dataset" folds consume schema-parsed Dataset chunks, "bytes"
-    folds raw byte blocks (the miners' pass 1; markov and GSP are not
-    ported). `factory(cfg, inputs, schema, device)` builds the sink;
+    folds raw byte blocks (the miners' pass 1, Apriori's and GSP's;
+    markov's is not ported). `factory(cfg, inputs, schema, device)`
+    builds the sink;
     `merge_states` folds one sink's carry into another (default
     `a.merge(b)`)."""
 
@@ -595,6 +683,7 @@ _STREAM_FOLDS: Dict[str, StreamFoldOps] = {
     "mutualInformation": StreamFoldOps("dataset", _MutualInfoFold),
     "fisherDiscriminant": StreamFoldOps("dataset", _FisherFold),
     "frequentItemsApriori": StreamFoldOps("bytes", _apriori_fold),
+    "candidateGenerationWithSelfJoin": StreamFoldOps("bytes", _gsp_fold),
 }
 
 
@@ -1285,22 +1374,41 @@ def _read_lines(path: str) -> List[str]:
         return [ln.rstrip("\n") for ln in fh if ln.strip()]
 
 
-@job("frequentItemsApriori", "fia",
-     "org.avenir.association.FrequentItemsApriori", "apriori")
-def apriori_job(cfg: JobConfig, inputs: List[str], output: str,
-                device: torch.device) -> JobResult:
-    """Every round in one job; the per-k itemset files `itemsets-<k>.txt`
-    in the directory `output`, as the reference's per-round outputs.
-    Inputs under 256 MB with no `stream.block.size.mb` and a multi-hot
-    matrix under 2 GiB are mined in RAM (each file's read a `stream.read`
-    span, the rows' split and encode a `stream.parse` span, the rounds a
-    `stream.fold` span of sink `apriori_resident`), the others
-    streamed."""
-    from avenir_tpu_torch.models.association import TransactionSet
-
-    miner = _build_miner(cfg, device)
+def _miner_resident(job: str, cfg: JobConfig, rows: List[List[str]]):
+    """The in-RAM set of a miner's split rows (Apriori's TransactionSet,
+    GSP's SequenceSet), or None when its device matrix would reach 2 GiB:
+    Apriori's [N, V] multi-hot matrix, which a wide item catalog can make
+    far larger than the file, or GSP's padded int32 [N, T], which one
+    long row can."""
     skip = cfg.get_int("skip.field.count", 1)
-    marker = cfg.get("infreq.item.marker")
+    if job == _APRIORI:
+        from avenir_tpu_torch.models.association import TransactionSet
+
+        marker = cfg.get("infreq.item.marker")
+        vocab = {tok for row in rows for tok in row[skip:]
+                 if tok and tok != marker}
+        if len(rows) * max(len(vocab), 1) >= (2 << 30):
+            return None
+        return TransactionSet.from_rows(
+            rows, trans_id_ord=cfg.get_int("tans.id.ord", 0),
+            skip_field_count=skip, marker=marker)
+    from avenir_tpu_torch.models.sequence import SequenceSet
+
+    t_max = max((len(r) - skip for r in rows), default=1)
+    if len(rows) * max(t_max, 1) * 4 >= (2 << 30):
+        return None
+    return SequenceSet.from_token_rows(rows, skip_field_count=skip)
+
+
+def _miner_job(job: str, cfg: JobConfig, inputs: List[str], output: str,
+               device: torch.device) -> JobResult:
+    """A multi-pass miner's every round in one job. Inputs under 256 MB
+    with no `stream.block.size.mb` whose device matrix stays under 2 GiB
+    (`_miner_resident`) are mined in RAM: each file's read a
+    `stream.read` span, the rows' split and encode a `stream.parse` span,
+    the rounds a `stream.fold` span of sink `apriori_resident` or
+    `gsp_resident`. The others are streamed."""
+    miner = _build_miner(job, cfg, device)
     total_bytes = sum(os.path.getsize(p) for p in inputs
                       if os.path.exists(p))
     in_ram = (cfg.get("stream.block.size.mb") is None
@@ -1308,6 +1416,7 @@ def apriori_job(cfg: JobConfig, inputs: List[str], output: str,
     # the clock starts before the in-RAM read, so RowsPerSec prices both
     # routes' reads alike
     t0 = time.perf_counter()
+    resident = None
     if in_ram:
         lines: List[str] = []
         for path in inputs:
@@ -1316,31 +1425,123 @@ def apriori_job(cfg: JobConfig, inputs: List[str], output: str,
             obs.record("stream.read", t_read, path=path,
                        nbytes=os.path.getsize(path))
         t_parse = obs.now()
-        rows = [[t.strip(" \t\r") for t in ln.split(cfg.field_delim_regex)]
-                for ln in lines]
-        # the in-RAM cost is the [N, V] multi-hot matrix, which a wide
-        # item catalog can make far larger than the file
-        vocab = {tok for row in rows for tok in row[skip:]
-                 if tok and tok != marker}
-        in_ram = len(rows) * max(len(vocab), 1) < (2 << 30)
-    if in_ram:
-        tx = TransactionSet.from_rows(
-            rows, trans_id_ord=cfg.get_int("tans.id.ord", 0),
-            skip_field_count=skip, marker=marker)
-        obs.record("stream.parse", t_parse, sink="TransactionSet",
+        delim = cfg.field_delim_regex
+        rows = [[t.strip(" \t\r") for t in ln.split(delim)] for ln in lines]
+        del lines
+        resident = _miner_resident(job, cfg, rows)
+    if resident is not None:
+        obs.record("stream.parse", t_parse, sink=type(resident).__name__,
                    nbytes=total_bytes, engine="python")
         t_fold = obs.now()
-        levels = miner.mine(tx)
-        obs.record("stream.fold", t_fold, sink="apriori_resident")
+        levels = miner.mine(resident)
+        obs.record("stream.fold", t_fold,
+                   sink="apriori_resident" if job == _APRIORI
+                   else "gsp_resident")
         n_rows = len(rows)
     else:
-        src = _build_miner_source(cfg, inputs)
+        src = _build_miner_source(job, cfg, inputs)
         levels = miner.mine_stream(src)
-        n_rows = src.n_trans
-    counters = {"Apriori:MaxLength": len(levels),
-                **throughput_counters(n_rows, time.perf_counter() - t0)}
-    outs = _write_apriori_outputs(cfg, output, levels)
-    return JobResult("frequentItemsApriori", counters, outs)
+        n_rows = _source_rows(job, src)
+    return _miner_finish(job, cfg, output, levels, n_rows,
+                         time.perf_counter() - t0)
+
+
+@job("frequentItemsApriori", "fia",
+     "org.avenir.association.FrequentItemsApriori", "apriori")
+def apriori_job(cfg: JobConfig, inputs: List[str], output: str,
+                device: torch.device) -> JobResult:
+    """Every round in one job (`_miner_job`); the per-k itemset files
+    `itemsets-<k>.txt` in the directory `output`, as the reference's
+    per-round outputs."""
+    return _miner_job(_APRIORI, cfg, inputs, output, device)
+
+
+# =================================================================== sequence
+@job("candidateGenerationWithSelfJoin", "cgs",
+     "org.avenir.sequence.CandidateGenerationWithSelfJoin", "gspMiner")
+def gsp_job(cfg: JobConfig, inputs: List[str], output: str,
+            device: torch.device) -> JobResult:
+    """GSP frequent sequences: every round up to cgs.item.set.length in one
+    job (CandidateGenerationWithSelfJoin.java:44-49; `_miner_job`), the
+    per-k files `sequences-<k>.txt` in the directory `output`."""
+    return _miner_job(_GSP, cfg, inputs, output, device)
+
+
+@job("sequencePositionalCluster", "spc",
+     "org.avenir.sequence.SequencePositionalCluster")
+def positional_cluster_job(cfg: JobConfig, inputs: List[str], output: str,
+                           device: torch.device) -> JobResult:
+    """High-locality window positions of an event stream
+    (SequencePositionalCluster.java:49): `position,score` a window, host
+    float64."""
+    from avenir_tpu_torch.models.sequence import (EventLocalityAnalyzer,
+                                                  positional_cluster)
+
+    analyzer = EventLocalityAnalyzer(
+        window_time_span=cfg.assert_float("window.time.span"),
+        time_step=cfg.get_float("window.time.step", 1.0),
+        score_threshold=cfg.get_float("score.threshold", 0.5),
+        min_occurence=cfg.get_int("min.occurence", 2))
+    rows = [[t.strip() for t in ln.split(cfg.field_delim_regex)]
+            for p in inputs for ln in _read_lines(p)]
+    thresh = cfg.get_float("quant.threshold")
+    cond = (lambda v: v >= thresh) if thresh is not None else \
+        (lambda v: True)
+    clusters = positional_cluster(rows, analyzer,
+                                  cfg.get_int("quant.field.ordinal", 2),
+                                  cfg.get_int("seq.num.field.ordinal", 1),
+                                  cond)
+    out = _out_file(output)
+    delim = cfg.field_delim
+    with obs.span("job.finish", job="sequencePositionalCluster"):
+        with open(out, "w") as fh:
+            for pos, score in clusters:
+                fh.write(f"{pos:.4f}{delim}{score:.6f}\n")
+    return JobResult("sequencePositionalCluster",
+                     {"Windows:Found": len(clusters)}, [out])
+
+
+def _sequence_sort_key(seq_field: int):
+    """A value record's sort key: its seq field as a number, a NaN or a
+    non-number after every number (then by its text)."""
+    def key(rec: List[str]) -> Tuple[float, str]:
+        v = rec[seq_field]
+        try:
+            f = float(v)
+        except ValueError:
+            return (float("inf"), v)
+        return (float("inf"), v) if math.isnan(f) else (f, "")
+
+    return key
+
+
+@job("sequenceGenerator", "seg", "org.avenir.spark.sequence.SequenceGenerator")
+def sequence_generator_job(cfg: JobConfig, inputs: List[str], output: str,
+                           device: torch.device) -> JobResult:
+    """Sequences from event rows (SequenceGenerator.scala:31): rows grouped
+    by seg.id.field.ordinals, each row's seg.val.field.ordinals kept as a
+    value record, a group's records sorted by seg.seq.field (an index
+    into the record); one line an entity, sorted by key: the key fields,
+    then the sorted records flattened."""
+    key_ords = cfg.get_int_list("id.field.ordinals", [0])
+    val_ords = [int(v) for v in cfg.assert_list("val.field.ordinals")]
+    sort_key = _sequence_sort_key(cfg.assert_int("seq.field"))
+    by_key: Dict[str, List[List[str]]] = {}
+    for p in inputs:
+        for ln in _read_lines(p):
+            toks = [t.strip() for t in ln.split(cfg.field_delim_regex)]
+            key = cfg.field_delim.join(toks[o] for o in key_ords)
+            by_key.setdefault(key, []).append([toks[o] for o in val_ords])
+    out = _out_file(output)
+    delim = cfg.field_delim
+    with obs.span("job.finish", job="sequenceGenerator"):
+        with open(out, "w") as fh:
+            for key, recs in sorted(by_key.items()):
+                recs.sort(key=sort_key)
+                flat = delim.join(tok for rec in recs for tok in rec)
+                fh.write(f"{key}{delim}{flat}\n")
+    return JobResult("sequenceGenerator", {"Basic:Entities": len(by_key)},
+                     [out])
 
 
 @job("associationRuleMiner", "arm",
@@ -1406,6 +1607,87 @@ def infrequent_item_marker_job(cfg: JobConfig, inputs: List[str],
                 fh.write(delim.join(marked_row) + "\n")
     return JobResult("infrequentItemMarker",
                      {"Basic:Records": n, "Marker:Replaced": marked}, [out])
+
+
+# ==================================================================== bandits
+def build_bandit_job(name: str, conf, device: DeviceLike = None):
+    """The round job (`models.bandits`) of the bandit job `name` under
+    `conf` (a properties path, a dict or a JobConfig), as the job builds
+    it: a fresh key from PRNGKey(0)."""
+    from avenir_tpu_torch.models.bandits import make_bandit_job
+
+    canonical, cfg = _job_cfg(name, conf)
+    kw: Dict[str, object] = {}
+    if canonical == "greedyRandomBandit":
+        kw = {"random_selection_prob":
+              cfg.get_float("random.selection.prob", 0.1),
+              "prob_reduction_algorithm":
+              cfg.get("prob.reduction.algorithm", "linear"),
+              "prob_reduction_constant":
+              cfg.get_float("prob.reduction.constant", 1.0),
+              "auer_greedy_constant":
+              cfg.get_float("auer.greedy.constant", 1.0),
+              "selection_unique": cfg.get_bool("selection.unique", False)}
+    elif canonical == "softMaxBandit":
+        kw = {"temp_constant": cfg.get_float("temp.constant", 1.0)}
+    return make_bandit_job(canonical, cfg.get_int("global.batch.size", 1),
+                           device=device, **kw)
+
+
+def _bandit_round(name: str, cfg: JobConfig, inputs: List[str], output: str,
+                  device: torch.device) -> JobResult:
+    """One decision round of a batch bandit (`avenir_tpu/runner.py`
+    `bandit_job`): the group item stats rows `group,item,count,reward`
+    (the chombo RunningAggregator output the tutorial loops back,
+    resource/price_optimize_tutorial.txt:55-82) in, the round's selected
+    items a group out. The job starts from PRNGKey(0) and splits its key
+    once, as the reference's does."""
+    from avenir_tpu_torch.models.bandits import GroupBanditData
+
+    data = GroupBanditData.from_lines(
+        (ln for p in inputs for ln in _read_lines(p)),
+        cfg.field_delim_regex, count_ord=cfg.get_int("count.ordinal", 2),
+        reward_ord=cfg.get_int("reward.ordinal", 3))
+    sel = build_bandit_job(name, cfg, device).select(
+        data, cfg.get_int("current.round.num", 1))
+    out = _out_file(output)
+    with obs.span("job.finish", job=name):
+        with open(out, "w") as fh:
+            data.write_selections(
+                sel, fh, cfg.field_delim,
+                output_decision_count=cfg.get_bool("output.decision.count",
+                                                   False))
+    return JobResult(name, {"Bandit:Groups": len(data.group_ids)}, [out])
+
+
+@job("greedyRandomBandit", "grb", "org.avenir.reinforce.GreedyRandomBandit")
+def greedy_random_bandit_job(cfg: JobConfig, inputs: List[str], output: str,
+                             device: torch.device) -> JobResult:
+    """Epsilon-greedy: linear, logLinear or auerGreedy decay."""
+    return _bandit_round("greedyRandomBandit", cfg, inputs, output, device)
+
+
+@job("auerDeterministic", "aue", "org.avenir.reinforce.AuerDeterministic")
+def auer_deterministic_job(cfg: JobConfig, inputs: List[str], output: str,
+                           device: torch.device) -> JobResult:
+    """UCB1, untried items first."""
+    return _bandit_round("auerDeterministic", cfg, inputs, output, device)
+
+
+@job("randomFirstGreedyBandit", "rfg",
+     "org.avenir.reinforce.RandomFirstGreedyBandit")
+def random_first_greedy_job(cfg: JobConfig, inputs: List[str], output: str,
+                            device: torch.device) -> JobResult:
+    """Uniform exploration for the first rounds, then greedy."""
+    return _bandit_round("randomFirstGreedyBandit", cfg, inputs, output,
+                         device)
+
+
+@job("softMaxBandit", "smb", "org.avenir.reinforce.SoftMaxBandit")
+def softmax_bandit_job(cfg: JobConfig, inputs: List[str], output: str,
+                       device: torch.device) -> JobResult:
+    """Boltzmann draws at temperature smb.temp.constant."""
+    return _bandit_round("softMaxBandit", cfg, inputs, output, device)
 
 
 # =================================================================== pipeline

@@ -184,10 +184,36 @@ Phases, each printing a line per check; any failed check exits non-zero:
    word-by-word popcount) equal and timed on a block of 8192 rows
    against round 2's candidates; the bench's Apriori section at its
    500,000 transactions. The path launches no kernel of the port's own.
+12. The sequence path (after phase 11): 1,000,000 sequences written as
+   `s<i>,e<j>,...` (Poisson(10) tokens, clipped to [2, 40], from 100
+   tokens with Zipf popularity, seed 21), support 0.02, length 3.
+   `candidateGenerationWithSelfJoin` in RAM and streamed in 4 MB blocks on
+   the card, under torch.profiler (seconds by span, device busy share,
+   each round's kernel seconds, the `subseq_support` kernels that start
+   inside its `sequence::support_count` range, beside its candidates and
+   c_pad): sequences-k.txt byte-identical, the
+   kernel `subseq_support` launched (its registers and no local bytes).
+   The first 20,000 sequences on the card and the CPU: byte-identical.
+   The kernel against its plain version on the first streamed block
+   (65,536 rows) with round 2's and round 3's candidates, the real ones
+   as the streamed round folds them (not the pad rows up to c_pad):
+   equal counts, CUDA-event times, the bound from the compares these
+   walks make (`walk_steps`: a walk stops at k). Then `sequencePositionalCluster` and
+   `sequenceGenerator` on 100,000 seeded event rows against their CPU
+   twins.
+13. The bandits (after phase 12): 100,000 groups x 10 arms of seeded
+   stats, the four jobs (greedyRandomBandit logLinear, auerDeterministic,
+   randomFirstGreedyBandit, softMaxBandit; batch 3) through
+   `pipelines.bandit_round` at rounds 1, 2 and 10 on the card and the
+   CPU: every group's selection identical but where a decision within 2
+   float32 ULP hangs on a float32 log
+   (`tools.bandit_check.near_tie_groups`), the differing and near-tie
+   counts printed; then the bench's bandit section
+   at 1,000,000 groups. The bandits launch no kernel of the port's own.
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
-phase 8's pipeline the fourth: each kernel's launches are counted from
-zero on each path. Then one JSON
+phase 8's pipeline the fourth, phase 12's GSP runs the fifth: each
+kernel's launches are counted from zero on each path. Then one JSON
 line of per-kernel numbers (the pre-pass beside the five kernels, at the
 sweep's D=128 float32; the tensor-core form at the bench's D=128
 bfloat16; the two merge kernels at the job's shape), and as the last line
@@ -251,6 +277,24 @@ ASSOC_TX, ASSOC_TWIN_TX, ASSOC_TIDS_TX = 1_000_000, 100_000, 50_000
 ASSOC_PROPS = {"fia.support.threshold": "0.02", "fia.item.set.length": "3",
                "arm.conf.threshold": "0.5"}
 ASSOC_BLOCK = {"fia.stream.block.size.mb": "4"}
+#: phase 12: the GSP corpus (Poisson(10) tokens a sequence, clipped to
+#: [2, 40], from GSP_VOCAB tokens of Zipf popularity), the prefix the CPU
+#: twin mines, the miner's settings, the event rows of the other two jobs
+GSP_ROWS, GSP_TWIN_ROWS, GSP_VOCAB, GSP_SEED = 1_000_000, 20_000, 100, 21
+GSP_PROPS = {"cgs.support.threshold": "0.02", "cgs.item.set.length": "3"}
+GSP_BLOCK = {"cgs.stream.block.size.mb": "4"}
+SEQ_EVENTS = 100_000
+SEQ_PATH = "candidateGenerationWithSelfJoin"
+#: phase 13: the bandit stats, the rounds, each job's keys (batch 3)
+BANDIT_GROUPS, BANDIT_ARMS, BANDIT_SEED = 100_000, 10, 31
+BANDIT_ROUNDS = (1, 2, 10)
+BANDIT_JOBS = {
+    "greedyRandomBandit": {"random.selection.prob": "0.5",
+                           "prob.reduction.algorithm": "logLinear",
+                           "prob.reduction.constant": "2.0"},
+    "auerDeterministic": {},
+    "randomFirstGreedyBandit": {},
+    "softMaxBandit": {"temp.constant": "20.0"}}
 #: nvidia-smi's name and power limit of the card (phase 1)
 CARD = ""
 
@@ -886,8 +930,9 @@ def _check_prepass_shapes():
 def _wrappers():
     from avenir_tpu_torch.ops import knn_kernels as kk
     from avenir_tpu_torch.ops import matmul_ceiling as mc
+    from avenir_tpu_torch.ops import sequence_kernels as sk
 
-    return kk.COUNTED_WRAPPERS + mc.KERNEL_WRAPPERS
+    return kk.COUNTED_WRAPPERS + mc.KERNEL_WRAPPERS + sk.KERNEL_WRAPPERS
 
 
 def _reset_launches() -> None:
@@ -2086,10 +2131,25 @@ def _range_calls_s(prof, label: str) -> list:
             if ev.name == label and str(ev.device_type).endswith("CPU")]
 
 
-def _profiled(what: str, run, label: str) -> tuple:
+def _kernel_s_by_range(prof, label: str, kernel: str) -> list:
+    """The device seconds of the kernels whose name holds `kernel` that
+    start inside each call of the range `label`, in call order: a kernel
+    launched through a C entry is no torch op's, so the range's own
+    device time leaves it out (each range here ends in a read of its
+    counts, so its kernels finish inside it)."""
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
+             if ev.name == label and str(ev.device_type).endswith("CPU")]
+    kern = [(ev.time_range.start, ev.time_range.elapsed_us())
+            for ev in prof.events() if kernel in ev.name
+            and str(ev.device_type).endswith("CUDA")]
+    return [sum(d for t, d in kern if a <= t <= b) / 1e6 for a, b in spans]
+
+
+def _profiled(what: str, run, label: str, kernel: str = None) -> tuple:
     """run() on the card under torch.profiler and the span recorder: its
     result, and a dict of its seconds, split by span, device busy share
-    and the device seconds of each call of the range `label`."""
+    and the device seconds of each call of the range `label` (and of
+    the kernels named `kernel` in each call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2117,6 +2177,12 @@ def _profiled(what: str, run, label: str) -> tuple:
             "device_s": (kern + copy) / 1e6,
             "device_busy_share": (kern + copy) / 1e6 / secs,
             "round_device_s": rounds, "split": _span_split(rec, secs)}
+    if kernel is not None:
+        info["round_kernel_s"] = _kernel_s_by_range(prof, label, kernel)
+        info["all_kernel_s"] = sum(
+            _us(ev, "self_device_time_total", "self_cuda_time_total")
+            for ev in prof.key_averages() if kernel in ev.key
+            and str(ev.device_type).endswith("CUDA")) / 1e6
     _print_split(what, rec)
     return out, info
 
@@ -2303,6 +2369,254 @@ def phase_association():
     return secs
 
 
+# ----------------------------------------------------------------- phase 12
+def _sequence_corpus(work: Path) -> tuple:
+    """The GSP corpus as `s<i>,e<j>,...` lines, and its first
+    GSP_TWIN_ROWS lines, written under `work`."""
+    from avenir_tpu_torch.data import generate_token_sequences
+
+    t0 = time.perf_counter()
+    lines = generate_token_sequences(GSP_ROWS, vocab=GSP_VOCAB,
+                                     seed=GSP_SEED)
+    csv, twin = work / "seq.csv", work / "twin.csv"
+    csv.write_text("\n".join(lines) + "\n")
+    twin.write_text("\n".join(lines[:GSP_TWIN_ROWS]) + "\n")
+    print(f"sequence CSV: {GSP_ROWS} sequences ({csv.stat().st_size} "
+          f"bytes), written in {time.perf_counter() - t0:.1f}s", flush=True)
+    return str(csv), str(twin)
+
+
+def _gsp_levels(outputs) -> list:
+    """The frequent sequences of each length, from sequences-<k>.txt."""
+    return [[tuple(ln.split(",")[:-1]) for ln in
+             Path(p).read_text().splitlines()] for p in sorted(outputs)]
+
+
+def _gsp_kernel_row(src, block, levels, k, flops, rate) -> dict:
+    """The kernel against its plain version on one streamed block and
+    round k's candidates, as the streamed round folds them (the real
+    candidates, not the pad rows up to c_pad): equal counts, their
+    CUDA-event times, the bound from the compares these walks make."""
+    import torch
+
+    from avenir_tpu_torch.models import sequence
+    from avenir_tpu_torch.ops import sequence_kernels as sk
+
+    cands = sequence.generate_sequence_candidates(levels[k - 2])
+    n, c_pad = len(cands), sequence._c_pad(len(cands))
+    cand, kv = sequence.GSPMiner._cand_arrays(cands, src.token_code, c_pad,
+                                              DEVICE)
+    cand, kv = cand[:n], kv[:n]
+    acc = torch.zeros(n, dtype=torch.int32, device=DEVICE)
+    sk.subseq_support_fold(acc, block, cand, kv)
+    plain, plain_ms = _timed_once(
+        lambda: sk.subseq_support_plain(block, cand, kv))
+    ms = cuda_ms(lambda: sk.subseq_support_fold(acc, block, cand, kv), 10)
+    acc.zero_()
+    sk.subseq_support_fold(acc, block, cand, kv)
+    torch.cuda.synchronize()
+    steps = sk.walk_steps(block, cand, kv)
+    nbytes = 4 * (block.numel() + cand.numel() + kv.numel() + 2 * n)
+    # 64 INT32 lanes an SM against 128 FP32 lanes, an FMA counted twice
+    t_ops, t_bytes = steps / (flops / 4), nbytes / rate
+    row = {"k": k, "block": list(block.shape), "candidates": n,
+           "c_pad": c_pad, "walk_steps": steps,
+           "max_abs_err": int((acc - plain).abs().max()), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": None}
+    row["bound_share"] = row["bound_ms"] / ms
+    check(torch.equal(acc, plain) and int(plain.sum()) > 0,
+          f"subseq_support at round {k} on a streamed block ({CARD}): "
+          f"counts equal to the plain version's; {json.dumps(row)}")
+    return row
+
+
+def phase_sequence(flops: float, rate: float):
+    """The sequence path: GSP in RAM and streamed on the card, the CPU twin
+    on a prefix, the kernel against its plain version on a round-2 and a
+    round-3 block, then the positional-cluster and sequence-generator
+    jobs against their twins. Returns (seconds and measurements, the
+    path's launch counts, the kernel's round-2 row)."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.models import sequence
+    from avenir_tpu_torch.ops import sequence_kernels as sk
+    from avenir_tpu_torch.runner import run_job
+
+    work = ROOT / "build" / "chip_smoke_gsp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    csv, twin = _sequence_corpus(work)
+    secs = {}
+    ram_regs, ram_local = sk.subseq_support_info()
+    check(ram_local == 0, f"subseq_support: {ram_regs} registers, "
+          f"{ram_local} local bytes a thread")
+
+    # the path: in RAM, then streamed in 4 MB blocks, on the card
+    _reset_launches()
+    ram, secs["ram_card"] = _profiled(
+        "candidateGenerationWithSelfJoin in RAM on the card",
+        lambda: run_job("candidateGenerationWithSelfJoin", GSP_PROPS, [csv],
+                        str(work / "ram"), device=DEVICE),
+        sequence.SUPPORT_RANGE, "subseq_support")
+    stream, secs["stream_card"] = _profiled(
+        "candidateGenerationWithSelfJoin streamed on the card",
+        lambda: run_job("candidateGenerationWithSelfJoin",
+                        {**GSP_PROPS, **GSP_BLOCK}, [csv],
+                        str(work / "stream"), device=DEVICE),
+        sequence.SUPPORT_RANGE, "subseq_support")
+    counts = _launch_counts()
+    files = _itemsets(ram.outputs)
+    levels = _gsp_levels(ram.outputs)
+    rounds = [{"k": 1, "candidates": GSP_VOCAB}]
+    for k in range(2, len(levels) + 1):
+        n = len(sequence.generate_sequence_candidates(levels[k - 2]))
+        rounds.append({"k": k, "candidates": n,
+                       "c_pad_streamed": sequence._c_pad(n)})
+    for r, s in zip(rounds, secs["ram_card"]["round_kernel_s"]):
+        r["ram_kernel_s"] = s
+    for r, s in zip(rounds[1:], secs["stream_card"]["round_kernel_s"]):
+        r["stream_kernel_s"] = s
+    check(files == _itemsets(stream.outputs) and len(files) == 3
+          and counts["subseq_support_fold"] >= 1
+          and len(secs["ram_card"]["round_kernel_s"]) == 3
+          and len(secs["stream_card"]["round_kernel_s"]) == 2,
+          f"candidateGenerationWithSelfJoin on {GSP_ROWS} sequences "
+          f"({CARD}): in RAM {ram.counters}, streamed {stream.counters}; "
+          f"sequences-k.txt byte-identical; subseq_support launched "
+          f"{counts['subseq_support_fold']}x; rounds {json.dumps(rounds)}; "
+          f"{json.dumps(secs)}")
+
+    # the CPU twin on the prefix
+    twin_files = {}
+    for dev in (DEVICE, "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_job("candidateGenerationWithSelfJoin", GSP_PROPS, [twin],
+                      str(work / f"twin_{dev}"), device=dev)
+        torch.cuda.synchronize()
+        secs[f"twin_{dev}"] = round(time.perf_counter() - t0, 3)
+        twin_files[dev] = _itemsets(res.outputs)
+    check(twin_files[DEVICE] == twin_files["cpu"]
+          and len(twin_files["cpu"]) == 3,
+          f"candidateGenerationWithSelfJoin on {GSP_TWIN_ROWS} sequences: "
+          f"byte-identical to the CPU twin's ({secs['twin_' + DEVICE]}s on "
+          f"the card, {secs['twin_cpu']}s on the CPU)")
+
+    # the kernel against its plain version on the first streamed block
+    src = sequence.StreamingSequenceSource([csv], block_bytes=4 << 20)
+    src.scan()
+    src.mask_tokens([src.index[t] for (t,) in levels[0]])
+    block = torch.from_numpy(next(iter(src.chunks(65536)))).to(DEVICE)
+    rows = [_gsp_kernel_row(src, block, levels, k, flops, rate)
+            for k in (2, 3)]
+    secs["kernel"] = rows
+
+    # the positional-cluster and sequence-generator jobs on event rows
+    rng = np.random.default_rng(GSP_SEED)
+    n = SEQ_EVENTS
+    ts = np.cumsum(rng.exponential(1.0, n))
+    ev = work / "events.csv"
+    ev.write_text("".join(
+        f"u{u},{t:.3f},{q}\n" for u, t, q in zip(
+            rng.integers(0, 1000, n).tolist(), ts.tolist(),
+            rng.integers(0, 100, n).tolist())))
+    secs["positional_cluster"] = _twin(
+        "sequencePositionalCluster",
+        {"spc.window.time.span": "400", "spc.window.time.step": "200",
+         "spc.score.threshold": "0.2", "spc.quant.threshold": "50"},
+        [str(ev)], work, f"on {n} events")
+    secs["sequence_generator"] = _twin(
+        "sequenceGenerator",
+        {"seg.id.field.ordinals": "0", "seg.val.field.ordinals": "1,2",
+         "seg.seq.field": "0"}, [str(ev)], work, f"on {n} events")
+    shutil.rmtree(work)
+    return secs, counts, rows[0]
+
+
+# ----------------------------------------------------------------- phase 13
+def _bandit_stats(path: Path) -> None:
+    """BANDIT_GROUPS groups x BANDIT_ARMS arms of seeded stats rows, a
+    tenth of the arms untried."""
+    import numpy as np
+
+    rng = np.random.default_rng(BANDIT_SEED)
+    g, a = BANDIT_GROUPS, BANDIT_ARMS
+    counts = rng.integers(1, 50, (g, a))
+    counts[rng.random((g, a)) < 0.1] = 0
+    rewards = rng.integers(0, 100000, (g, a)) / 1000
+    path.write_text("".join(
+        f"g{i // a},p{i % a},{c},{r}\n" for i, (c, r) in enumerate(
+            zip(counts.ravel().tolist(), rewards.ravel().tolist()))))
+
+
+def phase_bandits():
+    """The four bandit jobs through `bandit_round` at rounds 1, 2 and 10 on
+    the card and on the CPU: files identical but in groups where a
+    decision within 2 float32 ULP hangs on a float32 log; then the
+    bench's bandit section. Returns the seconds."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.models import bandits
+    from avenir_tpu_torch.pipelines import bandit_round
+    from avenir_tpu_torch.runner import build_bandit_job, job_prefix
+    from avenir_tpu_torch.tools import bandit_check, bench
+
+    work = ROOT / "build" / "chip_smoke_bandit"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    stats = work / "stats.csv"
+    _bandit_stats(stats)
+    data = bandits.GroupBanditData.from_lines(
+        stats.read_text().splitlines())
+    secs, ties = {}, {}
+    for job, kw in BANDIT_JOBS.items():
+        prefix = job_prefix(job)
+        props = {f"{prefix}.global.batch.size": "3",
+                 **{f"{prefix}.{k}": v for k, v in kw.items()}}
+        for rnd in BANDIT_ROUNDS:
+            rows = {}
+            for dev in (DEVICE, "cpu"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = bandit_round(props, str(stats),
+                                   str(work / f"{job}_{rnd}_{dev}.txt"), rnd,
+                                   job=job, device=dev)
+                torch.cuda.synchronize()
+                secs[f"{job}:{rnd}:{dev}"] = round(
+                    time.perf_counter() - t0, 3)
+                rows[dev] = Path(res.outputs[0]).read_text().splitlines()
+            sel = np.array([int(ln.rsplit(",", 1)[1][1:])
+                            for ln in rows["cpu"]]).reshape(-1, 3)
+            fresh = build_bandit_job(job, props, "cpu")
+            near = bandit_check.near_tie_groups(fresh, data, rnd, sel)
+            a = np.array(rows[DEVICE]).reshape(-1, 3)
+            b = np.array(rows["cpu"]).reshape(-1, 3)
+            differ = (a != b).any(axis=1) if a.shape == b.shape else \
+                np.ones(len(data.group_ids), bool)
+            ties[f"{job}:{rnd}"] = {"differ": int(differ.sum()),
+                                    "near_ties": int(near.sum())}
+            check(not (differ & ~near).any()
+                  and res.counters["Bandit:Groups"] == BANDIT_GROUPS,
+                  f"{job} round {rnd} ({BANDIT_GROUPS} groups x "
+                  f"{BANDIT_ARMS} arms, {CARD}): {secs[f'{job}:{rnd}:' + DEVICE]}s "
+                  f"on the card, {secs[f'{job}:{rnd}:cpu']}s on the CPU; "
+                  f"{int(differ.sum())} groups differ from the CPU twin's, "
+                  f"near-tie groups (2 float32 ULP) {int(near.sum())}")
+    print(f"bandit near ties ({CARD}): {json.dumps(ties)}", flush=True)
+    t0 = time.perf_counter()
+    row = bench.bench_bandit(torch.device(DEVICE), bench.BANDIT_GROUPS)
+    check(row["bandit_group_decisions_per_sec"] > 0,
+          f"bench bandit section ({bench.BANDIT_GROUPS} groups x "
+          f"{bench.BANDIT_ARMS} arms, {bench.BANDIT_ROUNDS} rounds, {CARD}): "
+          f"{json.dumps(row)} in {time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(work)
+    return {"seconds": secs, "near_ties": ties, "bench": row}
+
+
 # ------------------------------------------------------------------ phase 7
 def phase_ceiling(rate: float, bf16_flops: float):
     """matmul_ceiling against its plain version at the bench's shape."""
@@ -2464,7 +2778,8 @@ def main() -> None:
     checks += phase_packed_bf16(flops, rate, bf16_flops, checks)
     sweep_counts = phase_sweep()
     path_counts = {n: check_counts[n] + sweep_counts[n] for n in check_counts}
-    check(min(v for n, v in path_counts.items() if n != "matmul_ceiling") >= 1,
+    check(min(v for n, v in path_counts.items()
+              if n not in ("matmul_ceiling", "subseq_support_fold")) >= 1,
           f"{CHECK_PATH} launched every KNN kernel: {path_counts}")
     nb_secs = phase_naive_bayes()
     ceiling = phase_ceiling(rate, bf16_flops)
@@ -2476,15 +2791,26 @@ def main() -> None:
     t_tree = time.perf_counter() - t0
     t0 = time.perf_counter()
     assoc_secs = phase_association()
+    t_assoc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq_secs, seq_counts, seq_row = phase_sequence(flops, rate)
+    t_seq = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bandit_secs = phase_bandits()
+    t_bandit = time.perf_counter() - t0
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     print(f"tree and text seconds ({CARD}; phase 10 "
           f"{t_tree:.1f}s): {json.dumps(tree_secs)}", flush=True)
     print(f"association seconds ({CARD}; phase 11 "
-          f"{time.perf_counter() - t0:.1f}s): {json.dumps(assoc_secs)}",
-          flush=True)
+          f"{t_assoc:.1f}s): {json.dumps(assoc_secs)}", flush=True)
+    print(f"sequence seconds ({CARD}; phase 12 {t_seq:.1f}s): "
+          f"{json.dumps(seq_secs)}", flush=True)
+    print(f"bandit seconds ({CARD}; phase 13 {t_bandit:.1f}s): "
+          f"{json.dumps(bandit_secs)}", flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
-             BENCH_PATH: bench_counts, PIPE_PATH: pipe_counts}
+             BENCH_PATH: bench_counts, PIPE_PATH: pipe_counts,
+             SEQ_PATH: seq_counts}
 
     # each kernel's row at the shape of the path it is reported on: the
     # job's (manhattan, D=6) for the three it runs; the sweep's
@@ -2538,6 +2864,17 @@ def main() -> None:
         **{k: ceiling[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
     kernels += _new_kernel_rows(checks, paths)
+    kernels.append({
+        "name": "subseq_support", "route": "cuda",
+        "source": "avenir_tpu_torch/ops/csrc/subseq_support.cu",
+        "replaces": "avenir_tpu/models/sequence.py:84 (XLA scan, not Pallas)",
+        "launches": seq_counts["subseq_support_fold"],
+        "launches_by_path": {p: counts["subseq_support_fold"]
+                             for p, counts in paths.items()},
+        **{k: seq_row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "block", "candidates", "c_pad",
+                                   "walk_steps")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

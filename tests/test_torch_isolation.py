@@ -55,7 +55,8 @@ def test_modules_list_covers_the_package():
     for sub in ("obs", "obs.trace", "obs.histogram", "native",
                 "native.ingest", "ops.reduce", "ops.infotheory",
                 "models.explore", "models.discriminant", "models.tree",
-                "models.text"):
+                "models.text", "models.sequence", "models.bandits",
+                "ops.sequence_kernels", "ops.prng", "tools.bandit_check"):
         assert f"avenir_tpu_torch.{sub}" in MODULES
 
 
@@ -71,7 +72,8 @@ def test_native_source_is_the_ports_own():
 
 @pytest.mark.parametrize("entry", ["avenir_tpu_torch", "all", "chip_smoke",
                                    "obs", "native", "mutualInformation",
-                                   "fisherDiscriminant", "tree", "text"])
+                                   "fisherDiscriminant", "tree", "text",
+                                   "sequence", "bandits"])
 def test_import_loads_no_jax(entry):
     modules = {"avenir_tpu_torch": ["avenir_tpu_torch"], "all": MODULES,
                "chip_smoke": ["chip_smoke"],
@@ -88,7 +90,13 @@ def test_import_loads_no_jax(entry):
                         "avenir_tpu_torch.data.generators",
                         "avenir_tpu_torch.tools.bench"],
                "text": ["avenir_tpu_torch.models.text",
-                        "avenir_tpu_torch.models.convert"]}[entry]
+                        "avenir_tpu_torch.models.convert"],
+               "sequence": ["avenir_tpu_torch.models.sequence",
+                            "avenir_tpu_torch.ops.sequence_kernels"],
+               "bandits": ["avenir_tpu_torch.models.bandits",
+                           "avenir_tpu_torch.ops.prng",
+                           "avenir_tpu_torch.tools.bandit_check",
+                           "avenir_tpu_torch.pipelines"]}[entry]
     loaded = _loaded(*modules)
     assert set(modules) <= set(loaded)
     assert _forbidden(loaded) == []

@@ -174,7 +174,8 @@ def test_run_shared_rejects_bad_groups(tmp_path):
     conf = {"bad.feature.schema.file.path": schema,
             "mut.feature.schema.file.path": schema}
     out = str(tmp_path / "x")
-    assert stream_fold_names() == sorted([*JOBS, "frequentItemsApriori"])
+    assert stream_fold_names() == sorted(
+        [*JOBS, "frequentItemsApriori", "candidateGenerationWithSelfJoin"])
     with pytest.raises(ValueError, match="not shared-scan capable"):
         run_shared([("nearestNeighbor", {}, out)], [csv], device=CPU)
     with pytest.raises(ValueError, match="appears twice"):

@@ -215,6 +215,50 @@ def test_bench_apriori_section_on_cpu(capsys):
     assert line["apriori_rounds"] == 3
 
 
+def test_bench_bandit_section_on_cpu(capsys):
+    """The bandit section (the root bench's price-optimizer round: batch
+    3, prob 0.5, constant 2.0, seed 3, 10 arms of seed-6 stats, 8 rounds)
+    at a small size: its rate and groups; its last round's picks equal
+    the JAX package's bandit on the same stats."""
+    import numpy as np
+
+    from avenir_tpu.models.bandits import (GreedyRandomBandit as JaxBandit,
+                                           GroupBanditData as JaxData)
+
+    assert (bench.BANDIT_GROUPS, bench.BANDIT_ARMS, bench.BANDIT_ROUNDS) == \
+        (1_000_000, 10, 8)
+    lines = []
+    result = bench.run(device="cpu", nb_rows=5000, queries=128, train=1024,
+                       reps=1, rf_rows=1000, bandit_groups=3000,
+                       out=lines.append)
+    assert json.loads(lines[-1]) == result
+    assert result["bandit_groups"] == 3000
+    assert result["bandit_group_decisions_per_sec"] > 0
+    rng = np.random.default_rng(6)
+    counts = rng.integers(0, 50, (3000, 10)).astype(np.int32)
+    rewards = rng.random((3000, 10)).astype(np.float32) * 100.0
+    ids = [[f"p{a}" for a in range(10)] for _ in range(3000)]
+    kw = dict(batch_size=3, random_selection_prob=0.5,
+              prob_reduction_constant=2.0, seed=3)
+    from avenir_tpu_torch.models.bandits import (GreedyRandomBandit,
+                                                 GroupBanditData)
+    mine = GreedyRandomBandit(**kw, device="cpu")
+    theirs = JaxBandit(**kw)
+    data = GroupBanditData([f"g{i}" for i in range(3000)], ids, counts,
+                           rewards, np.ones((3000, 10), bool))
+    jdata = JaxData([f"g{i}" for i in range(3000)], ids, counts, rewards,
+                    np.ones((3000, 10), bool))
+    for r in range(1, bench.BANDIT_ROUNDS + 2):
+        assert mine.select(data, r).tolist() == \
+            np.asarray(theirs.select(jdata, r)).tolist()
+    capsys.readouterr()
+    assert bench.main(["--device", "cpu", "--nb-rows", "5000", "--queries",
+                       "128", "--train", "1024", "--reps", "1", "--rf-rows",
+                       "1000", "--bandit-groups", "500"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["bandit_groups"] == 500
+
+
 def test_bench_raises_without_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
