@@ -7,12 +7,16 @@ resource/telecom_churn.py, resource/elearn.py and resource/call_hangup.py
 scripts. The
 multi-class corpus (`generate_multiclass`) is the port's own: continuous
 fields over more than two classes, the shape that shows the order in
-which Naive Bayes sums its moments.
+which Naive Bayes sums its moments. `generate_event_sequences` copies the
+JAX package's draws too; the Markov corpora (`generate_markov_chains`, the
+churn tutorial's two class chains, and `generate_loyalty_sequences`, the
+loyalty tutorial's HMM) are the port's own, drawn a step at a time across
+all rows at once.
 """
 
 from __future__ import annotations
 
-from typing import List, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -211,3 +215,126 @@ def generate_token_sequences(n: int, vocab: int = 100, mean_len: float = 10,
     starts = [0] + ends[:-1]
     return [",".join([f"s{i}", *words[a:b]])
             for i, (a, b) in enumerate(zip(starts, ends))]
+
+
+def generate_event_sequences(n: int, states: Optional[List[str]] = None,
+                             mean_len: int = 10, seed: int = 19
+                             ) -> List[List[str]]:
+    """resource/event_seq.rb-style event sequences: an entity's Markov
+    walk over event states with a sticky diagonal (the JAX package's
+    draws)."""
+    rng = np.random.default_rng(seed)
+    states = states or ["login", "browse", "cart", "buy", "logout"]
+    s = len(states)
+    if s < 2:
+        raise ValueError("need at least 2 event states")
+    trans = np.full((s, s), 0.5 / (s - 1))
+    np.fill_diagonal(trans, 0.5)
+    seqs = []
+    for _ in range(n):
+        length = max(2, int(rng.poisson(mean_len)))
+        cur = int(rng.integers(0, s))
+        seq = [states[cur]]
+        for _ in range(length - 1):
+            cur = int(rng.choice(s, p=trans[cur]))
+            seq.append(states[cur])
+        seqs.append(seq)
+    return seqs
+
+
+#: the churn tutorial's states and its two class chains, converted (C) and
+#: lost (L) (docs/tutorial_churn_markov_classifier.md:18-35)
+MARKOV_STATES = ["browse", "search", "cart", "support", "leave"]
+MARKOV_CLASS_TRANS = {
+    "C": [[.2, .3, .4, .05, .05], [.2, .2, .5, .05, .05],
+          [.1, .1, .6, .1, .1], [.3, .2, .3, .1, .1], [.2, .2, .4, .1, .1]],
+    "L": [[.4, .2, .05, .1, .25], [.3, .3, .05, .1, .25],
+          [.2, .2, .1, .2, .3], [.2, .1, .05, .3, .35],
+          [.3, .2, .05, .15, .3]],
+}
+
+#: the loyalty tutorial's HMM: loyal, neutral and hostile states over
+#: (time gap x relative spend) symbols (docs/tutorial_loyalty_viterbi.md:23-36)
+LOYALTY_STATES = ["L", "N", "H"]
+LOYALTY_OBS = ["SL", "SS", "SM", "ML", "MS", "MM", "LL", "LS", "LM"]
+LOYALTY_INITIAL = [.30, .45, .25]
+LOYALTY_TRANSITION = [[.35, .40, .25], [.25, .35, .40], [.30, .40, .30]]
+LOYALTY_EMISSION = [[.08, .05, .01, .15, .12, .07, .21, .17, .14],
+                    [.10, .09, .08, .17, .15, .12, .11, .10, .08],
+                    [.13, .18, .21, .08, .12, .14, .03, .04, .07]]
+
+
+def _draw(rng, cum: np.ndarray) -> np.ndarray:
+    """One categorical draw a row of cumulative probabilities [N, K]."""
+    u = rng.random(cum.shape[0])
+    return np.minimum((u[:, None] >= cum).sum(axis=1), cum.shape[1] - 1)
+
+
+def _walk(rng, first: np.ndarray, trans: np.ndarray, lengths: np.ndarray
+          ) -> np.ndarray:
+    """int [N, max length]: Markov walks from `first`, walk i lengths[i]
+    states long (-1 past its end), `trans` [N, S, S] the transition rows
+    of each walk's chain (or [S, S] for one chain). Step t draws for the
+    walks still going."""
+    cum = np.cumsum(np.asarray(trans, np.float64), axis=-1)
+    out = np.full((first.shape[0], int(lengths.max())), -1, np.int64)
+    out[:, 0] = first
+    for t in range(1, out.shape[1]):
+        live = np.flatnonzero(lengths > t)
+        prev = out[live, t - 1]
+        out[live, t] = _draw(rng, cum[live, prev] if cum.ndim == 3
+                             else cum[prev])
+    return out
+
+
+def _join_rows(heads: List[str], names: List[str], codes: np.ndarray,
+               lengths: np.ndarray, sep: str = ",") -> List[str]:
+    """`head,names[code],...` a row, of its first lengths[i] codes."""
+    live = np.arange(codes.shape[1])[None, :] < lengths[:, None]
+    words = list(map(names.__getitem__, codes[live].tolist()))
+    ends = np.cumsum(lengths).tolist()
+    return [sep.join([head, *words[b - n:b]])
+            for head, b, n in zip(heads, ends, lengths.tolist())]
+
+
+def generate_markov_chains(n: int, seed: int = 21,
+                           n_entities: Optional[int] = None) -> List[str]:
+    """`cust<i>,<C|L>,state,...` rows of the churn tutorial's chains: the
+    class C or L at one half each, a uniform first state, 6 to 13 states,
+    each next state drawn from its class's row. With `n_entities`, row i's
+    id is `cust<i % n_entities>` (an entity with many sessions)."""
+    rng = np.random.default_rng(seed)
+    labels = np.where(rng.random(n) < 0.5, 0, 1)
+    first = rng.integers(0, len(MARKOV_STATES), n)
+    lengths = rng.integers(6, 14, n)
+    trans = np.array([MARKOV_CLASS_TRANS["C"], MARKOV_CLASS_TRANS["L"]])
+    codes = _walk(rng, first, trans[labels], lengths)
+    ids = np.arange(n) if n_entities is None else np.arange(n) % n_entities
+    heads = [f"cust{i},{'CL'[c]}" for i, c in zip(ids.tolist(),
+                                                 labels.tolist())]
+    return _join_rows(heads, MARKOV_STATES, codes, lengths)
+
+
+def generate_loyalty_sequences(n: int, seed: int = 31, mean_len: float = 10,
+                               min_len: int = 1, max_len: int = 40,
+                               tagged: bool = False
+                               ) -> Tuple[List[str], np.ndarray, np.ndarray]:
+    """(rows, hidden states int [n, max length] (-1 past a row's end),
+    lengths) of the loyalty
+    tutorial's HMM: Poisson(mean_len) observations a row, clipped to
+    [min_len, max_len]; rows `cust<i>,obs,...`, or `cust<i>,obs:state,...`
+    when `tagged` (the HMM builder's fully tagged input)."""
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(rng.poisson(mean_len, n), min_len, max_len)
+    first = _draw(rng, np.cumsum(np.tile(LOYALTY_INITIAL, (n, 1)), axis=1))
+    hidden = _walk(rng, first, np.array(LOYALTY_TRANSITION), lengths)
+    live = hidden >= 0
+    obs = np.full(hidden.shape, -1, np.int64)
+    obs[live] = _draw(rng, np.cumsum(np.array(LOYALTY_EMISSION),
+                                     axis=1)[hidden[live]])
+    names = LOYALTY_OBS
+    if tagged:
+        names = [f"{o}:{s}" for s in LOYALTY_STATES for o in LOYALTY_OBS]
+        obs = hidden * len(LOYALTY_OBS) + obs
+    heads = [f"cust{i}" for i in range(n)]
+    return _join_rows(heads, names, obs, lengths), hidden, lengths

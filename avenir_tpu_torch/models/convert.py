@@ -1,5 +1,6 @@
 """Carry models built by the JAX package across: a KNN index and
-classifier, a Naive Bayes model and a free-text Naive Bayes model. (A
+classifier, a Naive Bayes model, a free-text Naive Bayes model, a Markov
+transition model and a hidden Markov model. (A
 tree travels as its DecisionPathList JSON, which `tree.DecisionPathList.load`
 reads as the JAX package wrote it.)
 
@@ -21,7 +22,10 @@ A JAX `NaiveBayesModel` travels as its count arrays (`post_counts`,
 where it was loaded from a model file) with its class values and bins;
 a JAX `TextNaiveBayes` as its `log_prob`, `log_prior` and class-count
 arrays with its vocabulary (in code order), class values, `laplace` and
-`drop_stop`.
+`drop_stop`. A JAX `MarkovStateTransitionModel` travels as its states,
+scale, class labels and float64 `counts` [C, S, S]; a JAX
+`HiddenMarkovModel` as its states, observations and its initial,
+transition and emission arrays.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ import numpy as np
 
 from avenir_tpu_torch.core.schema import FeatureSchema
 from avenir_tpu_torch.models.knn import NearestNeighborClassifier, NeighborIndex
+from avenir_tpu_torch.models.markov import (HiddenMarkovModel,
+                                            MarkovStateTransitionModel)
 from avenir_tpu_torch.models.naive_bayes import NaiveBayesModel
 from avenir_tpu_torch.models.text import TextNaiveBayes
 from avenir_tpu_torch.utils.devices import DeviceLike, resolve_device
@@ -132,3 +138,44 @@ def text_nb_from_jax_arrays(arrays: Dict[str, Optional[np.ndarray]],
     model.log_prob = log_prob.copy()
     model.log_prior = log_prior.copy()
     return model
+
+
+def markov_model_from_jax_arrays(states: Sequence[str], scale: int,
+                                 class_labels: Optional[Sequence[str]],
+                                 counts: np.ndarray,
+                                 device: DeviceLike = None
+                                 ) -> MarkovStateTransitionModel:
+    """The port's MarkovStateTransitionModel over a JAX model's states,
+    scale, class labels (None for one unlabelled matrix) and counts
+    [C, S, S]: it saves, merges, keeps counting and classifies as the JAX
+    model does."""
+    model = MarkovStateTransitionModel(states, scale=int(scale),
+                                       class_labels=class_labels,
+                                       device=device)
+    counts = np.asarray(counts, np.float64)
+    if counts.shape != model.counts.shape:
+        raise ValueError(
+            f"counts have shape {counts.shape}; {len(model.states)} states "
+            f"and {model.counts.shape[0]} class matrices give "
+            f"{model.counts.shape}")
+    model.counts = counts.copy()
+    return model
+
+
+def hmm_from_jax_arrays(states: Sequence[str], observations: Sequence[str],
+                        initial: np.ndarray, transition: np.ndarray,
+                        emission: np.ndarray) -> HiddenMarkovModel:
+    """The port's HiddenMarkovModel over a JAX HMM's states, observations
+    and float64 initial [S], transition [S, S] and emission [S, O]."""
+    s, o = len(states), len(observations)
+    arrays = {name: np.asarray(a, np.float64).copy() for name, a in
+              (("initial", initial), ("transition", transition),
+               ("emission", emission))}
+    want = {"initial": (s,), "transition": (s, s), "emission": (s, o)}
+    for name, shape in want.items():
+        if arrays[name].shape != shape:
+            raise ValueError(f"{name} has shape {arrays[name].shape}; "
+                             f"{s} states and {o} observations give {shape}")
+    return HiddenMarkovModel(list(states), list(observations),
+                             arrays["initial"], arrays["transition"],
+                             arrays["emission"])

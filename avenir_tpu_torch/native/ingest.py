@@ -270,6 +270,19 @@ def extract_column_raw(data: bytes, delim: str, ordinal: int
     return _column_bytes(lib, data, d, ordinal)
 
 
+def extract_column_native(data: bytes, delim: str, ordinal: int
+                          ) -> Optional[np.ndarray]:
+    """One column's trimmed tokens for every row of a raw text block (a
+    short row gives ''), as a numpy unicode array: the open-vocabulary
+    companion of seq_encode_native (entity keys, which no vocabulary
+    codes). None when the library is not available or the delimiter is
+    not one byte."""
+    raw = extract_column_raw(data, delim, ordinal)
+    if raw is None:
+        return None
+    return np.array(raw.decode("utf-8", "replace").split("\n")[:-1])
+
+
 # -------------------------------------------------------------- the miners
 def seq_encode_native(data: bytes, delim: str, vocab: List[str]
                       ) -> Optional[Tuple[np.ndarray, np.ndarray]]:

@@ -17,19 +17,25 @@ ported so far: `nearestNeighbor` (org.avenir.knn.NearestNeighbor),
 (org.avenir.sequence), `sequenceGenerator`
 (org.avenir.spark.sequence), the four batch bandits `greedyRandomBandit`,
 `auerDeterministic`, `randomFirstGreedyBandit` and `softMaxBandit`
-(org.avenir.reinforce), and `Stage` / `Pipeline`, which chain them as
-the reference's shell scripts did. A job reads the reference's
+(org.avenir.reinforce), the Markov family `markovStateTransitionModel`,
+`markovModelClassifier`, `hiddenMarkovModelBuilder`,
+`viterbiStatePredictor` and `probabilisticSuffixTree` (org.avenir.markov),
+`stateTransitionRate` and `contTimeStateTransitionStats`
+(org.avenir.spark.markov) and `eventTimeDistribution`
+(org.avenir.spark.sequence), and `Stage` / `Pipeline`, which chain them
+as the reference's shell scripts did. A job reads the reference's
 namespaced keys (`nen.*`, `bad.*`, `bap.*`, `sts.*`, `grs.*`, `fcb.*`,
 `mut.*`, `fid.*`, `crc.*`, `cac.*`, `hrc.*`, `nuc.*`, `cpg.*`, `dtb.*`,
 `dap.*`, `wco.*`, `fia.*`, `arm.*`, `iim.*`, `cgs.*`, `spc.*`, `seg.*`,
-`grb.*`, `aue.*`, `rfg.*`, `smb.*`) from one flat properties file and
+`grb.*`, `aue.*`, `rfg.*`, `smb.*`, `mst.*`, `mmc.*`, `hmmb.*`, `vsp.*`,
+`pstg.*`, `str.*`, `cts.*`, `etd.*`) from one flat properties file and
 runs in-process on the device the caller names — ``cuda`` unless
 ``device="cpu"`` is passed.
 
 The streamed jobs `bayesianDistr`, `mutualInformation` and
-`fisherDiscriminant` (of Dataset chunks) and `frequentItemsApriori` and
-`candidateGenerationWithSelfJoin` (of raw byte blocks, their pass 1) are
-fold sinks with the reference's
+`fisherDiscriminant` (of Dataset chunks) and `markovStateTransitionModel`
+per class, `frequentItemsApriori` and `candidateGenerationWithSelfJoin`
+(of raw byte blocks; the miners' pass 1) are fold sinks with the reference's
 `StreamFoldOps` contract (merge, `state_dict`, `load_state`); `run_shared`
 drives several of one kind over one scan of their common input, and
 `Pipeline.run(fuse=True)` groups consecutive such stages into one.
@@ -631,6 +637,117 @@ def _gsp_fold(cfg: JobConfig, inputs: Sequence[str], schema,
     return _MinerScanFold(cfg, inputs, device, _GSP)
 
 
+# ---------------------------------------------------------- the markov fold
+_MARKOV = "markovStateTransitionModel"
+
+
+class _MarkovPerClassFold:
+    """markovStateTransitionModel (per-class mode) as a shared-scan sink of
+    raw byte blocks: the native CSR encode and `fit_csr` a block when the
+    encoder builds, the line decode and `fit` otherwise; the counts on
+    `device`. The port of `avenir_tpu/runner.py` `_MarkovPerClassFold`,
+    with its checkpoint keys (`meta`, `counts`), without
+    `consume_encoded`: the columnar sidecar that feeds it is a host
+    service the port does not have yet. The per-entity mode
+    (`id.field.ordinals`) keeps its own scan: its open-vocabulary keys
+    make no fan-out fold."""
+
+    def __init__(self, cfg: JobConfig, inputs: Sequence[str],
+                 device: torch.device):
+        from avenir_tpu_torch.models.markov import MarkovStateTransitionModel
+        from avenir_tpu_torch.native.ingest import native_seq_ready
+
+        if cfg.get_int_list("id.field.ordinals") is not None:
+            raise ValueError(
+                "markovStateTransitionModel per-entity mode "
+                "(id.field.ordinals) is not shared-scan fusable")
+        self.cfg = cfg
+        self.inputs = list(inputs)
+        states = cfg.get_list("model.states") or cfg.assert_list("state.list")
+        self.class_ord = cfg.get_int("class.label.field.ord")
+        self.skip = cfg.get_int("skip.field.count", 1)
+        self.class_labels = cfg.get_list("class.labels")
+        self.model = MarkovStateTransitionModel(
+            states, scale=cfg.get_int("trans.prob.scale", 1000),
+            class_labels=self.class_labels, device=device)
+        self.delim = cfg.field_delim_regex
+        # one vocabulary: the states first (codes 0..S-1), then the class
+        # labels that are not themselves state names
+        vocab = list(states)
+        for lab in self.class_labels or []:
+            if lab not in vocab:
+                vocab.append(lab)
+        self.vocab = vocab
+        self.label_codes = np.asarray([vocab.index(lab)
+                                       for lab in self.class_labels or []])
+        self.native = native_seq_ready(self.delim)
+        self.rows = 0
+
+    def consume(self, data: bytes) -> None:
+        if self.native:
+            from avenir_tpu_torch.native.ingest import seq_encode_native
+
+            t0 = obs.now()
+            enc = seq_encode_native(data, self.delim, self.vocab)
+            obs.record("stream.parse", t0, sink="markov_csr",
+                       nbytes=len(data), engine="native")
+            self.model.fit_csr(
+                *enc, skip=self.skip,
+                class_ord=self.class_ord if self.class_labels else None,
+                label_codes=self.label_codes)
+            self.rows += enc[1].shape[0] - 1
+        else:
+            t0 = obs.now()
+            lines = [ln.rstrip("\r")
+                     for ln in data.decode("utf-8", "replace").split("\n")
+                     if ln.strip()]
+            _, seqs, labels = _parse_sequences(lines, self.delim, self.skip,
+                                               self.class_ord)
+            obs.record("stream.parse", t0, sink="markov_lines",
+                       nbytes=len(data), engine="lines")
+            self.model.fit(seqs, labels if self.class_labels else None)
+            self.rows += len(seqs)
+
+    def finish(self, output: str) -> JobResult:
+        out = _out_file(output)
+        self.model.save(out, delim=self.cfg.field_delim)
+        return JobResult(_MARKOV, {"Basic:Records": self.rows}, [out])
+
+    def merge(self, other: "_MarkovPerClassFold") -> "_MarkovPerClassFold":
+        """Shard merge: per-class bigram counts add."""
+        self.model.merge(other.model)
+        self.rows += other.rows
+        return self
+
+    def state_dict(self) -> Dict[str, object]:
+        """The reference's checkpoint: a JSON `meta` (`rows`, `states`,
+        `class_labels`) and the float64 `counts`."""
+        meta = {"rows": self.rows, "states": self.model.states,
+                "class_labels": self.model.class_labels}
+        return {"meta": np.array(json.dumps(meta)),
+                "counts": self.model.counts}
+
+    def load_state(self, state: Dict[str, object]) -> None:
+        meta = json.loads(str(state["meta"]))
+        if meta["states"] != self.model.states \
+                or meta["class_labels"] != self.model.class_labels:
+            raise ValueError(
+                "checkpointed markov states/class labels do not match "
+                "the job config")
+        arr = np.asarray(state["counts"], np.float64)
+        if arr.shape != self.model.counts.shape:
+            raise ValueError(
+                f"checkpointed markov counts shape {arr.shape} does not "
+                f"match {self.model.counts.shape}")
+        self.model.counts = arr
+        self.rows = int(meta["rows"])
+
+
+def _markov_fold(cfg: JobConfig, inputs: Sequence[str], schema,
+                 device: torch.device) -> _MarkovPerClassFold:
+    return _MarkovPerClassFold(cfg, inputs, device)
+
+
 def _merge_folds(a, b):
     """The default merge_states: every fold sink merges in place."""
     return a.merge(b)
@@ -645,8 +762,8 @@ class StreamFoldOps:
     carry taken mid-scan to the same bytes.
 
     `kind`: "dataset" folds consume schema-parsed Dataset chunks, "bytes"
-    folds raw byte blocks (the miners' pass 1, Apriori's and GSP's;
-    markov's is not ported). `factory(cfg, inputs, schema, device)`
+    folds raw byte blocks (the per-class markov counts, and the miners'
+    pass 1, Apriori's and GSP's). `factory(cfg, inputs, schema, device)`
     builds the sink;
     `merge_states` folds one sink's carry into another (default
     `a.merge(b)`)."""
@@ -682,6 +799,7 @@ _STREAM_FOLDS: Dict[str, StreamFoldOps] = {
     "bayesianDistr": StreamFoldOps("dataset", _NBDistrFold),
     "mutualInformation": StreamFoldOps("dataset", _MutualInfoFold),
     "fisherDiscriminant": StreamFoldOps("dataset", _FisherFold),
+    _MARKOV: StreamFoldOps("bytes", _markov_fold),
     "frequentItemsApriori": StreamFoldOps("bytes", _apriori_fold),
     "candidateGenerationWithSelfJoin": StreamFoldOps("bytes", _gsp_fold),
 }
@@ -1374,6 +1492,35 @@ def _read_lines(path: str) -> List[str]:
         return [ln.rstrip("\n") for ln in fh if ln.strip()]
 
 
+def _parse_sequences(lines: Sequence[str], delim: str, skip: int,
+                     class_ord: Optional[int] = None):
+    """Rows -> (ids, sequences, labels). The first `skip` fields are meta
+    (id, class); `class_ord` points into the whole row. Tokens are trimmed
+    of space, tab and CR, the native `seq_encode`'s trim, so the Python
+    and native sequence routes tokenize alike."""
+    ids, seqs, labels = [], [], []
+    for ln in lines:
+        toks = [t.strip(" \t\r") for t in ln.split(delim)]
+        ids.append(toks[0] if skip > 0 else "")
+        labels.append(toks[class_ord] if class_ord is not None else None)
+        seqs.append(toks[skip:])
+    return ids, seqs, labels
+
+
+def _read_sequences(path: str, delim: str, skip: int,
+                    class_ord: Optional[int] = None):
+    return _parse_sequences(_read_lines(path), delim, skip, class_ord)
+
+
+def _validate(class_values: Sequence[str], actual: np.ndarray,
+              predicted: np.ndarray, pos_class: int) -> Dict[str, float]:
+    """ConfusionMatrix.counters(): the reference's "Validation" counter
+    group (BayesianPredictor.java:170-180, int-percent scaled)."""
+    cm = ConfusionMatrix(class_values, pos_class=pos_class)
+    cm.add(actual, predicted)
+    return cm.counters()
+
+
 def _miner_resident(job: str, cfg: JobConfig, rows: List[List[str]]):
     """The in-RAM set of a miner's split rows (Apriori's TransactionSet,
     GSP's SequenceSet), or None when its device matrix would reach 2 GiB:
@@ -1688,6 +1835,492 @@ def softmax_bandit_job(cfg: JobConfig, inputs: List[str], output: str,
                        device: torch.device) -> JobResult:
     """Boltzmann draws at temperature smb.temp.constant."""
     return _bandit_round("softMaxBandit", cfg, inputs, output, device)
+
+
+# ===================================================================== markov
+def _entity_keys(data: bytes, delim: str, key_ords: List[int],
+                 n_rows: int) -> np.ndarray:
+    """The per-entity key of each row of a block (its key columns joined
+    with ','), through the native column extractor."""
+    from avenir_tpu_torch.native.ingest import extract_column_native
+
+    if not key_ords:
+        # degenerate config (no id or class column): one key
+        return np.full(n_rows, "")
+    cols = [extract_column_native(data, delim, o) for o in key_ords]
+    keys = cols[0]
+    for col in cols[1:]:
+        keys = np.char.add(np.char.add(keys, ","), col)
+    return keys
+
+
+def _markov_entities(cfg: JobConfig, inputs: List[str], output: str,
+                     device: torch.device, states: List[str], scale: int,
+                     id_ords: List[int]) -> JobResult:
+    """The per-entity mode (the Spark job's `id.field.ordinals`,
+    MarkovStateTransitionModel.scala:51-52): one matrix an entity key, the
+    state sequence from `seq.start.ordinal`, the key split by class when
+    `class.attr.ordinal` is set; `entity:<key>` sections in first-seen
+    order. Natively: the states CSR-encoded, only the key columns made
+    strings; else the Python rows."""
+    from avenir_tpu_torch.core.stream import (stream_job_byte_blocks,
+                                              stream_job_lines)
+    from avenir_tpu_torch.models.markov import MarkovStateTransitionModel
+    from avenir_tpu_torch.native.ingest import (native_seq_ready,
+                                                seq_encode_native)
+
+    class_ord = cfg.get_int("class.attr.ordinal")
+    # mandatory in the Spark reference (getMandatoryIntParam, :54); the
+    # default start skips the class column too
+    key_ords = list(id_ords) + ([class_ord] if class_ord is not None else [])
+    seq_start = cfg.get_int("seq.start.ordinal",
+                            max(key_ords) + 1 if key_ords else 0)
+    delim = cfg.field_delim_regex
+    model = MarkovStateTransitionModel(states, scale=scale, device=device)
+    if native_seq_ready(delim):
+        model.class_labels = []
+        model.counts = np.zeros((0,) + model.counts.shape[1:], np.float64)
+        index: Dict[str, int] = {}
+        for data in stream_job_byte_blocks(cfg, inputs):
+            t0 = obs.now()
+            enc = seq_encode_native(data, delim, states)
+            lens = np.diff(enc[1])
+            if key_ords:
+                short = lens <= max(key_ords)
+                if short.any():
+                    raise ValueError(
+                        f"row {int(np.argmax(short))} has no "
+                        f"id/class field (ordinal {max(key_ords)})")
+            keys = _entity_keys(data, delim, key_ords, lens.shape[0])
+            obs.record("stream.parse", t0, sink="markov_entities",
+                       nbytes=len(data), engine="native")
+            t0 = obs.now()
+            # first-seen entity order: the unique keys ordered by their
+            # first row, then every row's index
+            uniq, first, inv = np.unique(keys, return_index=True,
+                                         return_inverse=True)
+            gidx = np.empty(uniq.shape[0], np.int64)
+            for u in np.argsort(first):
+                key = str(uniq[u])
+                gi = index.get(key)
+                if gi is None:
+                    gi = len(index)
+                    index[key] = gi
+                    model.class_labels.append(key)
+                gidx[u] = gi
+            if len(index) > model.counts.shape[0]:
+                model.counts = np.pad(
+                    model.counts,
+                    ((0, len(index) - model.counts.shape[0]), (0, 0),
+                     (0, 0)))
+            model.fit_csr(enc[0], enc[1], skip=seq_start,
+                          y=gidx[inv.reshape(-1)])
+            obs.record("stream.fold", t0, sink="markov_entities")
+    else:
+        for lines in stream_job_lines(cfg, inputs):
+            seqs: List[List[str]] = []
+            entity_of_row: List[str] = []
+            for ln in lines:
+                toks = [t.strip(" \t\r") for t in ln.split(delim)]
+                if key_ords and len(toks) <= max(key_ords):
+                    raise ValueError(
+                        f"row {len(entity_of_row)} has no id/class "
+                        f"field (ordinal {max(key_ords)})")
+                key = ",".join(toks[o] for o in id_ords)
+                if class_ord is not None:
+                    key += f",{toks[class_ord]}"
+                entity_of_row.append(key)
+                seqs.append(toks[seq_start:])
+            t0 = obs.now()
+            model.fit_entities(seqs, entity_of_row)
+            obs.record("stream.fold", t0, sink="markov_entities")
+    entities = model.class_labels or []
+    if not entities:
+        raise ValueError(
+            f"markovStateTransitionModel: empty input "
+            f"(no records in {inputs})")
+    out = _out_file(output)
+    with obs.span("job.finish", job=_MARKOV):
+        model.save(out, delim=cfg.field_delim, marker="entity")
+    return JobResult(_MARKOV, {"Entities:Count": len(entities)}, [out])
+
+
+@job(_MARKOV, "mst", "org.avenir.markov.MarkovStateTransitionModel",
+     "org.avenir.spark.sequence.MarkovStateTransitionModel")
+def markov_model_job(cfg: JobConfig, inputs: List[str], output: str,
+                     device: torch.device) -> JobResult:
+    """Per-class transition matrices (the Hadoop job's mst.* keys,
+    MarkovStateTransitionModel.java:116-133), streamed in
+    `stream.block.size.mb` byte blocks through `_MarkovPerClassFold`, the
+    shared-scan sink; with `id.field.ordinals`, one matrix per entity key
+    (`_markov_entities`). Both fold the counts on `device`."""
+    states = cfg.get_list("model.states") or cfg.assert_list("state.list")
+    id_ords = cfg.get_int_list("id.field.ordinals")
+    if id_ords is not None:
+        return _markov_entities(cfg, inputs, output, device, states,
+                                cfg.get_int("trans.prob.scale", 1000),
+                                id_ords)
+    from avenir_tpu_torch.core.stream import stream_job_byte_blocks
+
+    fold = _MarkovPerClassFold(cfg, inputs, device)
+    _drive_fold(fold, stream_job_byte_blocks(cfg, inputs), _MARKOV)
+    return _finish_fold(fold, output, _MARKOV)
+
+
+@job("markovModelClassifier", "mmc",
+     "org.avenir.markov.MarkovModelClassifier",
+     "org.avenir.spark.sequence.MarkovModelClassifier")
+def markov_classifier_job(cfg: JobConfig, inputs: List[str], output: str,
+                          device: torch.device) -> JobResult:
+    """`id,class,score` a row (MarkovModelClassifier.java:127-150): the
+    log odds under `mm.model.path`'s two class matrices, scored a line
+    block at a time on `device`; with `validation.mode`, the
+    `Validation:*` counters against the row's `class.label.field.ord`."""
+    from avenir_tpu_torch.core.stream import stream_job_lines
+    from avenir_tpu_torch.models.markov import (MarkovModelClassifier,
+                                                MarkovStateTransitionModel)
+
+    model = MarkovStateTransitionModel.load(
+        cfg.assert_get("mm.model.path"), delim=cfg.field_delim,
+        device=device)
+    pos, neg = cfg.assert_list("class.labels")
+    clf = MarkovModelClassifier(
+        model, pos, neg,
+        threshold=cfg.get_float("log.odds.threshold", 0.0))
+    skip = cfg.get_int("skip.field.count", 1)
+    class_ord = cfg.get_int("class.label.field.ord") \
+        if cfg.get_bool("validation.mode", False) else None
+    out = _out_file(output)
+    delim = cfg.field_delim
+    actual: List[str] = []
+    predicted: List[str] = []
+    with open(out, "w") as fh:
+        for lines in stream_job_lines(cfg, inputs):
+            t0 = obs.now()
+            ids, seqs, labels = _parse_sequences(
+                lines, cfg.field_delim_regex, skip, class_ord)
+            obs.record("stream.parse", t0, nbytes=sum(map(len, lines)),
+                       engine="python")
+            t0 = obs.now()
+            cls, scores = clf.predict(seqs)
+            obs.record("stream.fold", t0, sink="markov_classify")
+            t0 = obs.now()
+            # a float32 score formats as the float it widens to exactly
+            fh.write("".join(f"{rid}{delim}{c}{delim}{s:.6f}\n" for rid, c, s
+                             in zip(ids, cls.tolist(), scores.tolist())))
+            obs.record("job.finish", t0, job="markovModelClassifier")
+            if class_ord is not None:
+                actual += labels
+                predicted += list(cls)
+    counters: Dict[str, float] = {}
+    if actual:
+        lab = [pos, neg]
+        counters = _validate(
+            lab, np.array([lab.index(a) for a in actual]),
+            np.array([lab.index(p) for p in predicted]), 0)
+    return JobResult("markovModelClassifier", counters, [out])
+
+
+@job("hiddenMarkovModelBuilder", "hmmb",
+     "org.avenir.markov.HiddenMarkovModelBuilder")
+def hmm_builder_job(cfg: JobConfig, inputs: List[str], output: str,
+                    device: torch.device) -> JobResult:
+    """Fully tagged input: `obs<sub.field.delim>state` tokens after the
+    skip fields (HiddenMarkovModelBuilder.java:136-153), counted on
+    `device` (natively: whole pair tokens coded against the state-major
+    pair vocabulary). With `partially.tagged=true` the tokens are bare
+    observations but those that are model states, and `window.function`
+    spreads the emission counts around each tagged position (:174-259,
+    host Python)."""
+    from avenir_tpu_torch.core.stream import (stream_job_byte_blocks,
+                                              stream_job_lines)
+    from avenir_tpu_torch.models.markov import HiddenMarkovModelBuilder
+    from avenir_tpu_torch.native.ingest import (native_seq_ready,
+                                                seq_encode_native)
+
+    states = cfg.assert_list("model.states")
+    obs_vals = cfg.assert_list("model.observations")
+    sub = cfg.get("sub.field.delim", ":")
+    skip = cfg.get_int("skip.field.count", 1)
+    delim = cfg.field_delim_regex
+    builder = HiddenMarkovModelBuilder(states, obs_vals, device=device)
+    if cfg.get_bool("partially.tagged", False):
+        wf = [int(v) for v in cfg.assert_list("window.function")]
+        for lines in stream_job_lines(cfg, inputs):
+            _, seqs, _ = _parse_sequences(lines, delim, skip)
+            t0 = obs.now()
+            for seq in seqs:
+                builder.add_partially_tagged(seq, wf)
+            obs.record("stream.fold", t0, sink="hmm_partial")
+    elif native_seq_ready(delim):
+        vocab = [f"{ov}{sub}{sv}" for sv in states for ov in obs_vals]
+        for data in stream_job_byte_blocks(cfg, inputs):
+            t0 = obs.now()
+            enc = seq_encode_native(data, delim, vocab)
+            obs.record("stream.parse", t0, sink="hmm_csr", nbytes=len(data),
+                       engine="native")
+            t0 = obs.now()
+            builder.add_csr(*enc, skip=skip)
+            obs.record("stream.fold", t0, sink="hmm_csr")
+    else:
+        for lines in stream_job_lines(cfg, inputs):
+            _, seqs, _ = _parse_sequences(lines, delim, skip)
+            t0 = obs.now()
+            pairs = [[tok.split(sub) for tok in seq] for seq in seqs]
+            builder.add_many([[p[1] for p in ps] for ps in pairs],
+                             [[p[0] for p in ps] for ps in pairs])
+            obs.record("stream.fold", t0, sink="hmm_lines")
+    hmm = builder.finish()
+    out = _out_file(output)
+    with obs.span("job.finish", job="hiddenMarkovModelBuilder"):
+        hmm.save(out, delim=cfg.field_delim)
+    return JobResult("hiddenMarkovModelBuilder", {}, [out])
+
+
+@job("viterbiStatePredictor", "vsp", "org.avenir.markov.ViterbiStatePredictor")
+def viterbi_job(cfg: JobConfig, inputs: List[str], output: str,
+                device: torch.device) -> JobResult:
+    """`id,state,...` a row: each row's observations decoded under
+    `hmm.model.path`'s HMM on `device` (ViterbiStatePredictor.java:45),
+    an input file at a time."""
+    from avenir_tpu_torch.models.markov import (HiddenMarkovModel,
+                                                ViterbiDecoder)
+
+    hmm = HiddenMarkovModel.load(cfg.assert_get("hmm.model.path"),
+                                 delim=cfg.field_delim)
+    decoder = ViterbiDecoder(hmm, device=device)
+    skip = 1 if cfg.get_int("id.field.ordinal", 0) >= 0 else 0
+    out = _out_file(output)
+    delim = cfg.field_delim
+    names = hmm.states
+    with open(out, "w") as fh:
+        for path in inputs:
+            t0 = obs.now()
+            lines = _read_lines(path)
+            obs.record("stream.read", t0, path=path,
+                       nbytes=os.path.getsize(path))
+            t0 = obs.now()
+            ids, seqs, _ = _parse_sequences(lines, cfg.field_delim_regex,
+                                            skip)
+            del lines
+            obs.record("stream.parse", t0, nbytes=os.path.getsize(path),
+                       engine="python")
+            t0 = obs.now()
+            paths, lens = decoder.decode_codes(seqs)
+            obs.record("stream.fold", t0, sink="viterbi")
+            t0 = obs.now()
+            live = np.arange(paths.shape[1])[None, :] < lens[:, None]
+            words = list(map(names.__getitem__, paths[live].tolist()))
+            ends = np.cumsum(lens).tolist()
+            fh.write("".join(
+                delim.join([rid, *words[b - n:b]]) + "\n"
+                for rid, b, n in zip(ids, ends, lens.tolist())))
+            obs.record("job.finish", t0, job="viterbiStatePredictor")
+    return JobResult("viterbiStatePredictor", {}, [out])
+
+
+@job("probabilisticSuffixTree", "pstg",
+     "org.avenir.markov.ProbabilisticSuffixTreeGenerator")
+def pst_job(cfg: JobConfig, inputs: List[str], output: str,
+            device: torch.device) -> JobResult:
+    """`context,symbol,probability` a tracked (context, symbol) pair
+    (ProbabilisticSuffixTreeGenerator.java:88-123), host Python; the empty
+    context is written `$`."""
+    from avenir_tpu_torch.models.markov import ProbabilisticSuffixTree
+
+    skip = cfg.get_int("skip.field.count", 1)
+    seqs: List[List[str]] = []
+    for path in inputs:
+        _, ss, _ = _read_sequences(path, cfg.field_delim_regex, skip)
+        seqs += ss
+    symbols = sorted({s for seq in seqs for s in seq})
+    pst = ProbabilisticSuffixTree(
+        symbols, max_depth=cfg.get_int("max.seq.length", 3)).fit(seqs)
+    out = _out_file(output)
+    delim = cfg.field_delim
+    with obs.span("job.finish", job="probabilisticSuffixTree"):
+        with open(out, "w") as fh:
+            for ctx in sorted(pst.counts):
+                counts = pst.counts[ctx]
+                total = float(counts.sum()) or 1.0
+                for si, sym in enumerate(pst.symbols):
+                    if counts[si] > 0:
+                        fh.write(f"{''.join(ctx) or '$'}{delim}{sym}{delim}"
+                                 f"{counts[si] / total:.6f}\n")
+    return JobResult("probabilisticSuffixTree", {}, [out])
+
+
+@job("stateTransitionRate", "str", "org.avenir.spark.markov.StateTransitionRate")
+def state_transition_rate_job(cfg: JobConfig, inputs: List[str], output: str,
+                              device: torch.device) -> JobResult:
+    """Per-entity CTMC rate matrices from timestamped state rows
+    (StateTransitionRate.scala:30), host float64: rows grouped by
+    `key.field.ordinals` and sorted by `time.field.ordinal`; rate(i -> j)
+    = count(i -> j) / dwell(i), dwell in `rate.time.unit` (hour, day or
+    week), the diagonal -sum(off-diagonal row); timestamps in ms, sec or s
+    (`input.time.unit`). A row `key,state,r0,...` a state."""
+    from avenir_tpu_torch.models.markov import StateTransitionRate
+
+    key_ords = cfg.get_int_list("key.field.ordinals", [0])
+    time_ord = cfg.assert_int("time.field.ordinal")
+    state_ord = cfg.assert_int("state.field.ordinal")
+    states = cfg.assert_list("state.values")
+    in_unit = cfg.get("input.time.unit", "ms")
+    try:
+        to_ms = {"ms": 1.0, "sec": 1000.0, "s": 1000.0}[in_unit]
+    except KeyError:
+        raise ValueError(f"invalid input time unit {in_unit!r}")
+    rate_unit = cfg.get("rate.time.unit", "hour")
+    try:
+        unit_ms = {"hour": 3.6e6, "day": 8.64e7, "week": 6.048e8}[rate_unit]
+    except KeyError:
+        raise ValueError(f"invalid rate time unit {rate_unit!r}")
+    prec = cfg.get_int("trans.rate.output.precision", 6)
+    by_key: Dict[str, List[Tuple[float, str]]] = {}
+    for p in inputs:
+        for ln in _read_lines(p):
+            toks = [t.strip() for t in ln.split(cfg.field_delim_regex)]
+            key = cfg.field_delim.join(toks[o] for o in key_ords)
+            by_key.setdefault(key, []).append(
+                (float(toks[time_ord]) * to_ms, toks[state_ord]))
+    out = _out_file(output)
+    delim = cfg.field_delim
+    with obs.span("job.finish", job="stateTransitionRate"):
+        with open(out, "w") as fh:
+            for key, events in sorted(by_key.items()):
+                events.sort(key=lambda e: e[0])
+                seq = [(s, t / unit_ms) for t, s in events]
+                q = StateTransitionRate(states).fit([seq]).rates()
+                q = q - np.diag(q.sum(axis=1))
+                for i, s in enumerate(states):
+                    row = delim.join(f"{v:.{prec}f}" for v in q[i])
+                    fh.write(f"{key}{delim}{s}{delim}{row}\n")
+    return JobResult("stateTransitionRate", {"Basic:Entities": len(by_key)},
+                     [out])
+
+
+def _ctmc_rates(cfg: JobConfig, states: List[str], rate_path: str):
+    """(one S x S rate matrix, None) for a plain matrix file, or (None,
+    {entity: matrix}) for stateTransitionRate's per-entity rows
+    (`key,state,r0,...,rS-1`, the supplier-fulfillment flow's hand-over),
+    told apart by structure: a per-entity row has S + 2 tokens, the second
+    a state label."""
+    first = next(iter(_read_lines(rate_path)), "")
+    ftoks = [t.strip() for t in first.split(cfg.field_delim_regex)]
+    if not (len(ftoks) == len(states) + 2 and ftoks[1] in states):
+        rates = np.loadtxt(rate_path, delimiter=cfg.field_delim_regex,
+                           ndmin=2)
+        if rates.shape != (len(states), len(states)):
+            raise ValueError(
+                f"rate matrix in {rate_path} has shape {rates.shape}; "
+                f"expected {(len(states), len(states))} for state.values "
+                f"{states} (or stateTransitionRate per-entity rows)")
+        return rates, None
+    rows: Dict[str, Dict[str, List[float]]] = {}
+    for ln in _read_lines(rate_path):
+        toks = [t.strip() for t in ln.split(cfg.field_delim_regex)]
+        key, state, vals = toks[0], toks[1], [float(v) for v in toks[2:]]
+        if state not in states or len(vals) != len(states):
+            raise ValueError(
+                f"rate file row for {key!r} does not match "
+                f"state.values {states}")
+        rows.setdefault(key, {})[state] = vals
+    per_entity: Dict[str, np.ndarray] = {}
+    for key, by_state in rows.items():
+        missing = [s for s in states if s not in by_state]
+        if missing:
+            raise ValueError(
+                f"entity {key!r} in {rate_path} has no rate row for "
+                f"state(s) {missing}")
+        per_entity[key] = np.array([by_state[s] for s in states])
+    return None, per_entity
+
+
+@job("contTimeStateTransitionStats", "cts",
+     "org.avenir.spark.markov.ContTimeStateTransitionStats")
+def ctmc_stats_job(cfg: JobConfig, inputs: List[str], output: str,
+                   device: torch.device) -> JobResult:
+    """CTMC statistics by uniformization
+    (ContTimeStateTransitionStats.scala:34), host float64: rows
+    `id,initState[,endState]`, the rates from `state.trans.file.path` (a
+    plain matrix, or stateTransitionRate's per-entity rows looked up by
+    the row's id); `state.trans.stat` stateDwellTime (target
+    `target.states[0]`) or StateTransitionCount (targets 0 and 1). `id,v`
+    a row. The model's two documented deviations from the Scala job hold
+    here too (the transition count's inner bound, the conditional
+    normalization)."""
+    from avenir_tpu_torch.models.markov import ContTimeStateTransitionStats
+
+    states = cfg.assert_list("state.values")
+    horizon = cfg.assert_float("time.horizon")
+    rate_path = cfg.assert_get("state.trans.file.path")
+    rates, per_entity = _ctmc_rates(cfg, states, rate_path)
+    stats_cache: Dict[str, ContTimeStateTransitionStats] = {}
+
+    def stats_for(rid: str) -> ContTimeStateTransitionStats:
+        if rates is not None:
+            key = ""
+        else:
+            if rid not in per_entity:
+                raise KeyError(f"no rate matrix for entity {rid!r} in "
+                               f"{rate_path}")
+            key = rid
+        if key not in stats_cache:
+            q = rates if rates is not None else per_entity[key]
+            stats_cache[key] = ContTimeStateTransitionStats(q, states,
+                                                            horizon)
+        return stats_cache[key]
+
+    stat_kind = cfg.get("state.trans.stat", "stateDwellTime")
+    targets = cfg.assert_list("target.states")
+    out = _out_file(output)
+    delim = cfg.field_delim
+    # a statistic depends on the row's rates, start and end state alone:
+    # each one is computed once
+    values: Dict[Tuple[int, str, Optional[str]], float] = {}
+    with open(out, "w") as fh:
+        for path in inputs:
+            for ln in _read_lines(path):
+                toks = [t.strip() for t in ln.split(cfg.field_delim_regex)]
+                rid, init = toks[0], toks[1]
+                end = toks[2] if len(toks) > 2 else None
+                st = stats_for(rid)
+                key = (id(st), init, end)
+                if key not in values:
+                    values[key] = (
+                        st.dwell_time(init, targets[0], end)
+                        if stat_kind == "stateDwellTime" else
+                        st.transition_count(init, targets[0], targets[1],
+                                            end))
+                fh.write(f"{rid}{delim}{values[key]:.6f}\n")
+    return JobResult("contTimeStateTransitionStats", {}, [out])
+
+
+@job("eventTimeDistribution", "etd",
+     "org.avenir.spark.sequence.EventTimeDistribution")
+def event_time_job(cfg: JobConfig, inputs: List[str], output: str,
+                   device: torch.device) -> JobResult:
+    """Inter-arrival time histogram (EventTimeDistribution.scala:27): rows
+    `id,timestamp...` grouped by id, `bucket,count` a bucket."""
+    from avenir_tpu_torch.models.markov import event_time_distribution
+
+    ts_ord = cfg.get_int("time.stamp.field.ordinal", 1)
+    by_id: Dict[str, List[float]] = {}
+    for p in inputs:
+        for ln in _read_lines(p):
+            toks = [t.strip() for t in ln.split(cfg.field_delim_regex)]
+            by_id.setdefault(toks[0], []).append(float(toks[ts_ord]))
+    hist = event_time_distribution(
+        [sorted(v) for v in by_id.values()],
+        num_buckets=cfg.get_int("num.buckets", 24),
+        bucket_width=cfg.get_float("bucket.width", 3600.0))
+    out = _out_file(output)
+    delim = cfg.field_delim
+    with open(out, "w") as fh:
+        for b, c in enumerate(hist):
+            fh.write(f"{b}{delim}{int(c)}\n")
+    return JobResult("eventTimeDistribution", {"Basic:Entities": len(by_id)},
+                     [out])
 
 
 # =================================================================== pipeline

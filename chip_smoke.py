@@ -210,6 +210,30 @@ Phases, each printing a line per check; any failed check exits non-zero:
    (`tools.bandit_check.near_tie_groups`), the differing and near-tie
    counts printed; then the bench's bandit section
    at 1,000,000 groups. The bandits launch no kernel of the port's own.
+14. The Markov path (after phase 13): 1,000,000 rows of the churn
+   tutorial's two 5-state chains (`cust<i>,<C|L>,state,...`, 6-13 states,
+   ids of 10,000 customers, seed 21). `markovStateTransitionModel` per
+   class streamed in 4 MB blocks on the native parser under
+   torch.profiler (split, busy share, the `markov::bigram_count` calls and
+   device seconds, their bound: the int64 keys read once at 3.35 TB/s),
+   and on the CPU; fused with `candidateGenerationWithSelfJoin` (length
+   2) through `run_shared` (the blocks read against the solo runs'); per
+   entity (10,000 keys) on both devices; `markovModelClassifier` in
+   validation mode (accuracy above 85) and on the first 20,000 rows on
+   both devices; `hiddenMarkovModelBuilder` on 1,000,000 `obs:state` rows
+   of the loyalty HMM on both devices, then `viterbiStatePredictor` on
+   1,000,000 observation rows (Poisson(10) lengths clipped to [1, 40])
+   under torch.profiler (`markov::viterbi` calls, device seconds and
+   bound: an add and a compare a step and state pair at the fp32 rate,
+   or the bytes), the share of hidden states recovered (above the
+   tutorial's 0.45), and on the first 20,000 rows on both devices; a
+   uniform-transition HMM's paths on both devices; then
+   `probabilisticSuffixTree`, `stateTransitionRate`,
+   `eventTimeDistribution` and `contTimeStateTransitionStats` (on the
+   card run's per-entity rates) on 100,000 rows against their CPU twins.
+   Every file byte-identical to its twin's. The path's two device
+   programs are torch ops, not kernels: they print on a line of their
+   own, not in the kernels line.
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth, phase 12's GSP runs the fifth: each
@@ -217,7 +241,8 @@ kernel's launches are counted from zero on each path. Then one JSON
 line of per-kernel numbers (the pre-pass beside the five kernels, at the
 sweep's D=128 float32; the tensor-core form at the bench's D=128
 bfloat16; the two merge kernels at the job's shape), and as the last line
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
+before them the script's total seconds.
 """
 
 from __future__ import annotations
@@ -295,6 +320,12 @@ BANDIT_JOBS = {
     "auerDeterministic": {},
     "randomFirstGreedyBandit": {},
     "softMaxBandit": {"temp.constant": "20.0"}}
+#: phase 14: the churn tutorial's chains (MARKOV_ROWS rows of
+#: MARKOV_ENTITIES customers), the loyalty HMM's rows, the prefixes the
+#: CPU twins take, the host jobs' rows and entity keys
+MARKOV_ROWS, MARKOV_ENTITIES, MARKOV_SEED, HMM_SEED = 1_000_000, 10_000, 21, 31
+MARKOV_TWIN_ROWS, MARKOV_HOST_ROWS, MARKOV_HOST_KEYS = 20_000, 100_000, 1_000
+MARKOV_PATH = "markovStateTransitionModel"
 #: nvidia-smi's name and power limit of the card (phase 1)
 CARD = ""
 
@@ -1776,9 +1807,7 @@ def _twin(name, props, inputs, work, what):
                       device=dev)
         torch.cuda.synchronize()
         secs[dev] = time.perf_counter() - t0
-        outs[dev] = [Path(o).read_bytes() for o in res.outputs] + [
-            Path(o + ".stamp.json").read_bytes() for o in res.outputs
-            if Path(o + ".stamp.json").exists()]
+        outs[dev] = _files_of(res)
     check(outs[DEVICE] == outs["cpu"] and len(outs[DEVICE]) >= 1,
           f"{name} {what} ({CARD}): {secs[DEVICE]:.3f}s on the card, "
           f"{secs['cpu']:.3f}s on the CPU, {res.counters}; outputs "
@@ -2617,6 +2646,332 @@ def phase_bandits():
     return {"seconds": secs, "near_ties": ties, "bench": row}
 
 
+# ----------------------------------------------------------------- phase 14
+def _files_of(res) -> list:
+    """The bytes of a job's outputs and of their stamps, in output
+    order."""
+    return [p.read_bytes() for o in res.outputs
+            for p in (Path(o), Path(o + ".stamp.json")) if p.exists()]
+
+
+def _blocks_read(run) -> tuple:
+    """(run(), the blocks the stream layer read during it)."""
+    from avenir_tpu_torch.core import stream
+
+    count = [0]
+    stream._produce_hook = lambda: count.__setitem__(0, count[0] + 1)
+    try:
+        out = run()
+    finally:
+        stream._produce_hook = None
+    return out, count[0]
+
+
+def _markov_corpora(work: Path) -> dict:
+    """The phase's files under `work`: the churn tutorial's chains
+    (MARKOV_ROWS rows of MARKOV_ENTITIES customers, its first
+    MARKOV_TWIN_ROWS and MARKOV_HOST_ROWS rows), the loyalty HMM's tagged
+    rows and observation rows (with the hidden states and lengths of the
+    latter, and its first MARKOV_TWIN_ROWS rows), and the host jobs'
+    timestamped state rows and CTMC query rows."""
+    import numpy as np
+
+    from avenir_tpu_torch.data import (generate_loyalty_sequences,
+                                       generate_markov_chains)
+    from avenir_tpu_torch.data.generators import MARKOV_STATES
+
+    t0 = time.perf_counter()
+    files = {}
+
+    def write(name, lines):
+        files[name] = work / f"{name}.csv"
+        files[name].write_text("\n".join(lines) + "\n")
+
+    lines = generate_markov_chains(MARKOV_ROWS, seed=MARKOV_SEED,
+                                   n_entities=MARKOV_ENTITIES)
+    write("chains", lines)
+    write("chains_twin", lines[:MARKOV_TWIN_ROWS])
+    write("chains_host", lines[:MARKOV_HOST_ROWS])
+    del lines
+    tagged, _, _ = generate_loyalty_sequences(MARKOV_ROWS, seed=HMM_SEED,
+                                              min_len=6, max_len=13,
+                                              tagged=True)
+    write("tagged", tagged)
+    del tagged
+    rows, hidden, lens = generate_loyalty_sequences(MARKOV_ROWS,
+                                                    seed=HMM_SEED + 1)
+    write("obs", rows)
+    write("obs_twin", rows[:MARKOV_TWIN_ROWS])
+    del rows
+    rng = np.random.default_rng(MARKOV_SEED)
+    n = MARKOV_HOST_ROWS
+    keys = rng.integers(0, MARKOV_HOST_KEYS, n)
+    ms = np.cumsum(rng.exponential(3.6e4, n)).astype(np.int64)
+    state = rng.integers(0, len(MARKOV_STATES), n)
+    write("events", [f"k{k},{t},{MARKOV_STATES[s]}" for k, t, s in zip(
+        keys.tolist(), ms.tolist(), state.tolist())])
+    ends = rng.integers(-1, len(MARKOV_STATES), n)
+    write("queries", [f"k{k},{MARKOV_STATES[a]}"
+                      + (f",{MARKOV_STATES[b]}" if b >= 0 else "")
+                      for k, a, b in zip(
+                          rng.integers(0, MARKOV_HOST_KEYS, n).tolist(),
+                          rng.integers(0, len(MARKOV_STATES), n).tolist(),
+                          ends.tolist())])
+    print(f"markov corpora: {MARKOV_ROWS} chain rows "
+          f"({files['chains'].stat().st_size} bytes, "
+          f"{MARKOV_ENTITIES} customers), {MARKOV_ROWS} tagged and "
+          f"{MARKOV_ROWS} observation rows of the loyalty HMM "
+          f"({files['obs'].stat().st_size} bytes, {int(lens.sum())} "
+          f"observations), {n} host rows; written in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return {**{k: str(v) for k, v in files.items()}, "hidden": hidden,
+            "lens": lens}
+
+
+def _device_row(name, calls, t_ops, t_bytes, job_s) -> dict:
+    """One device program's row: its device seconds and launches (the
+    calls of its profiler range), its bound and the share of its job's
+    seconds."""
+    dev_s = sum(calls)
+    bound = max(t_ops, t_bytes)
+    return {"name": name, "device_s": dev_s, "launches": len(calls),
+            "bound_ms": bound * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_share": bound / dev_s if dev_s else None,
+            "job_s": job_s, "share_of_job": dev_s / job_s}
+
+
+def phase_markov(flops: float, rate: float):
+    """The Markov path: per-class transition models streamed on the card
+    under torch.profiler, fused with GSP through run_shared and per
+    entity, each against its CPU twin; the classifier in validation mode;
+    the HMM builder and Viterbi; ties on the card; the four host jobs.
+    Returns (seconds by job, the two device programs' rows)."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.data.generators import (LOYALTY_OBS,
+                                                  LOYALTY_STATES,
+                                                  MARKOV_STATES)
+    from avenir_tpu_torch.models import markov
+    from avenir_tpu_torch.runner import run_job, run_shared
+
+    work = ROOT / "build" / "chip_smoke_markov"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    data = _markov_corpora(work)
+    chains, states = data["chains"], ",".join(MARKOV_STATES)
+    mst = {"mst.model.states": states, "mst.skip.field.count": "2",
+           "mst.class.label.field.ord": "1", "mst.class.labels": "C,L",
+           "mst.stream.block.size.mb": "4"}
+    secs, rows = {}, []
+
+    def timed(what, dev, run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs.setdefault(what, {})[dev] = round(time.perf_counter() - t0, 3)
+        return out
+
+    # per class, streamed in 4 MB blocks on the native parser, profiled
+    card, info = _profiled(
+        "markovStateTransitionModel per class on the card",
+        lambda: run_job(MARKOV_PATH, mst, [chains], str(work / "mst_card.txt"),
+                        device=DEVICE), markov.BIGRAM_RANGE)
+    secs["mst"] = {DEVICE: info["seconds"]}
+    cpu = timed("mst", "cpu", lambda: run_job(
+        MARKOV_PATH, mst, [chains], str(work / "mst_cpu.txt"), device="cpu"))
+    calls = info["round_device_s"]
+    files = _files_of(card)
+    s, k = len(MARKOV_STATES), 2
+    # the count's least time: its int64 keys (one a transition: a row of
+    # n states has n - 1, and n + 1 commas) read once and its k x S x S
+    # counts written once
+    n_keys = Path(chains).read_bytes().count(b",") - 2 * MARKOV_ROWS
+    rows.append(_device_row(
+        markov.BIGRAM_RANGE, calls, 0.0,
+        (8 * n_keys + 8 * k * s * s) / rate, info["seconds"]))
+    rows[-1]["keys"] = n_keys
+    check(files == _files_of(cpu) and len(files) == 2
+          and card.counters["Basic:Records"] == MARKOV_ROWS
+          and len(calls) >= 1 and sum(calls) > 0
+          and "stream.parse" in info["split"],
+          f"markovStateTransitionModel per class on {MARKOV_ROWS} rows in "
+          f"4 MB blocks ({CARD}): {info['seconds']}s on the card, "
+          f"{secs['mst']['cpu']}s on the CPU; model and stamp byte-identical "
+          f"to the CPU twin's; {markov.BIGRAM_RANGE} {len(calls)} calls, "
+          f"{sum(calls):.6f} s of device time; {json.dumps(rows[-1])}; "
+          f"busy {info['device_busy_share']:.2%}; split "
+          f"{json.dumps(info['split'])}")
+
+    # fused with GSP through run_shared: one scan
+    cgs = {"cgs.support.threshold": "0.02", "cgs.item.set.length": "2",
+           "cgs.skip.field.count": "2", "cgs.stream.block.size.mb": "4"}
+    fused, fused_blocks = _blocks_read(lambda: timed(
+        "run_shared", DEVICE, lambda: run_shared(
+            [(MARKOV_PATH, mst, str(work / "fused_mst.txt")),
+             ("candidateGenerationWithSelfJoin", cgs,
+              str(work / "fused_gsp"))], [chains], device=DEVICE)))
+    _, mst_blocks = _blocks_read(lambda: run_job(
+        MARKOV_PATH, mst, [chains], str(work / "solo_mst.txt"),
+        device=DEVICE))
+    gsp, gsp_blocks = _blocks_read(lambda: timed(
+        "gsp_solo", DEVICE, lambda: run_job(
+            "candidateGenerationWithSelfJoin", cgs, [chains],
+            str(work / "solo_gsp"), device=DEVICE)))
+    check(_files_of(fused[MARKOV_PATH]) == files
+          and _files_of(fused["candidateGenerationWithSelfJoin"])
+          == _files_of(gsp) and fused_blocks == gsp_blocks
+          and fused_blocks < mst_blocks + gsp_blocks,
+          f"run_shared markovStateTransitionModel + "
+          f"candidateGenerationWithSelfJoin (length 2) ({CARD}): "
+          f"{secs['run_shared'][DEVICE]}s, {fused_blocks} blocks read "
+          f"against {mst_blocks} + {gsp_blocks} solo (GSP "
+          f"{secs['gsp_solo'][DEVICE]}s alone); files equal to the solo "
+          f"runs'")
+
+    # per entity: 10,000 customers
+    ent = {"mst.state.list": states, "mst.id.field.ordinals": "0",
+           "mst.seq.start.ordinal": "2", "mst.stream.block.size.mb": "4"}
+    ents = {dev: timed("mst_entities", dev, lambda: run_job(
+        MARKOV_PATH, ent, [chains], str(work / f"ent_{dev}.txt"),
+        device=dev)) for dev in (DEVICE, "cpu")}
+    check(_files_of(ents[DEVICE]) == _files_of(ents["cpu"])
+          and ents[DEVICE].counters["Entities:Count"] == MARKOV_ENTITIES,
+          f"markovStateTransitionModel per entity ({CARD}): "
+          f"{ents[DEVICE].counters}, {secs['mst_entities'][DEVICE]}s on the "
+          f"card, {secs['mst_entities']['cpu']}s on the CPU; model and "
+          f"stamp byte-identical")
+
+    # the classifier in validation mode on the card, then the twins
+    mmc = {"mmc.mm.model.path": card.outputs[0], "mmc.class.labels": "C,L",
+           "mmc.skip.field.count": "2", "mmc.class.label.field.ord": "1",
+           "mmc.validation.mode": "true", "mmc.stream.block.size.mb": "4"}
+    clf, cinfo = _profiled(
+        "markovModelClassifier on the card",
+        lambda: run_job("markovModelClassifier", mmc, [chains],
+                        str(work / "mmc_card.txt"), device=DEVICE),
+        markov.BIGRAM_RANGE)
+    secs["mmc"] = {DEVICE: cinfo["seconds"]}
+    twins = {dev: timed("mmc_twin", dev, lambda: run_job(
+        "markovModelClassifier", mmc, [data["chains_twin"]],
+        str(work / f"mmc_{dev}.txt"), device=dev)) for dev in (DEVICE, "cpu")}
+    check(clf.counters["Validation:Accuracy"] > 85
+          and cinfo["kernel_s"] > 0
+          and _files_of(twins[DEVICE]) == _files_of(twins["cpu"])
+          and twins[DEVICE].counters == twins["cpu"].counters,
+          f"markovModelClassifier on {MARKOV_ROWS} rows ({CARD}): "
+          f"{clf.counters}, {cinfo['seconds']}s, busy "
+          f"{cinfo['device_busy_share']:.2%}, split "
+          f"{json.dumps(cinfo['split'])}; on {MARKOV_TWIN_ROWS} rows "
+          f"{secs['mmc_twin'][DEVICE]}s on the card, "
+          f"{secs['mmc_twin']['cpu']}s on the CPU, byte-identical")
+
+    # the HMM builder on the loyalty HMM's tagged rows
+    hmmb = {"hmmb.model.states": ",".join(LOYALTY_STATES),
+            "hmmb.model.observations": ",".join(LOYALTY_OBS),
+            "hmmb.stream.block.size.mb": "4"}
+    built, binfo = _profiled(
+        "hiddenMarkovModelBuilder on the card",
+        lambda: run_job("hiddenMarkovModelBuilder", hmmb, [data["tagged"]],
+                        str(work / "hmm_card.txt"), device=DEVICE),
+        markov.BIGRAM_RANGE)
+    secs["hmmb"] = {DEVICE: binfo["seconds"]}
+    bcpu = timed("hmmb", "cpu", lambda: run_job(
+        "hiddenMarkovModelBuilder", hmmb, [data["tagged"]],
+        str(work / "hmm_cpu.txt"), device="cpu"))
+    check(_files_of(built) == _files_of(bcpu)
+          and len(binfo["round_device_s"]) >= 1
+          and sum(binfo["round_device_s"]) > 0,
+          f"hiddenMarkovModelBuilder on {MARKOV_ROWS} tagged rows "
+          f"({CARD}): {binfo['seconds']}s on the card "
+          f"({len(binfo['round_device_s'])} counts, "
+          f"{sum(binfo['round_device_s']):.6f} s of device time), "
+          f"{secs['hmmb']['cpu']}s on the CPU; model byte-identical")
+
+    # Viterbi on the observation rows under the built model
+    vsp = {"vsp.hmm.model.path": built.outputs[0]}
+    dec, vinfo = _profiled(
+        "viterbiStatePredictor on the card",
+        lambda: run_job("viterbiStatePredictor", vsp, [data["obs"]],
+                        str(work / "vsp_card.txt"), device=DEVICE),
+        markov.VITERBI_RANGE)
+    secs["vsp"] = {DEVICE: vinfo["seconds"]}
+    lens, hidden = data["lens"], data["hidden"]
+    text = Path(dec.outputs[0]).read_text()
+    flat = np.array(text.replace("\n", ",").split(",")[:-1])
+    is_id = np.zeros(flat.shape[0], bool)
+    is_id[np.cumsum(lens + 1) - (lens + 1)] = True
+    code = {v: i for i, v in enumerate(LOYALTY_STATES)}
+    got = np.array([code[v] for v in flat[~is_id].tolist()])
+    truth = hidden[np.arange(hidden.shape[1])[None, :] < lens[:, None]]
+    recovered = float((got == truth).mean()) if got.shape == truth.shape \
+        else 0.0
+    steps = int((lens - 1).sum())
+    s = len(LOYALTY_STATES)
+    # the scan's least time: an add and a compare a (step, previous, next)
+    # state at the fp32 rate (half the FMA-counted peak); or its bytes:
+    # the observations read, the back pointers (int8) and path written
+    t_ops = 2 * s * s * steps / (flops / 2)
+    t_bytes = (4 * int(lens.sum()) + s * steps + 8 * int(lens.sum())) / rate
+    vcalls = vinfo["round_device_s"]
+    rows.append(_device_row(markov.VITERBI_RANGE, vcalls, t_ops, t_bytes,
+                            vinfo["seconds"]))
+    vtw = {dev: timed("vsp_twin", dev, lambda: run_job(
+        "viterbiStatePredictor", vsp, [data["obs_twin"]],
+        str(work / f"vsp_{dev}.txt"), device=dev)) for dev in (DEVICE, "cpu")}
+    check(recovered > 0.45 and len(vcalls) >= 1 and sum(vcalls) > 0
+          and _files_of(vtw[DEVICE]) == _files_of(vtw["cpu"]),
+          f"viterbiStatePredictor on {MARKOV_ROWS} sequences ({CARD}): "
+          f"{vinfo['seconds']}s, {recovered:.4f} of the hidden states "
+          f"recovered; {json.dumps(rows[-1])}; busy "
+          f"{vinfo['device_busy_share']:.2%}, split "
+          f"{json.dumps(vinfo['split'])}; on {MARKOV_TWIN_ROWS} rows "
+          f"{secs['vsp_twin'][DEVICE]}s on the card, "
+          f"{secs['vsp_twin']['cpu']}s on the CPU, byte-identical")
+
+    # ties on the card: uniform transitions, two-valued emissions
+    rng = np.random.default_rng(HMM_SEED)
+    emis = np.where(rng.random((4, 3)) < 0.5, 1.0, 2.0)
+    tie = markov.HiddenMarkovModel(
+        ["a", "b", "c", "d"], ["x", "y", "z"], np.full(4, 0.25),
+        np.full((4, 4), 0.25), emis / emis.sum(axis=1, keepdims=True))
+    seqs = [list(rng.choice(["x", "y", "z"], int(n)))
+            for n in rng.integers(1, 21, 50_000)]
+    paths = {dev: markov.ViterbiDecoder(tie, device=dev).decode_codes(seqs)[0]
+             for dev in (DEVICE, "cpu")}
+    check(np.array_equal(paths[DEVICE], paths["cpu"]),
+          f"Viterbi ties ({CARD}): a uniform-transition HMM decodes "
+          f"{len(seqs)} sequences to the same paths on the card and the CPU")
+
+    # the host jobs against their twins
+    host = {
+        "probabilisticSuffixTree": ({"pstg.skip.field.count": "2",
+                                     "pstg.max.seq.length": "3"},
+                                    [data["chains_host"]]),
+        "stateTransitionRate": ({"str.time.field.ordinal": "1",
+                                 "str.state.field.ordinal": "2",
+                                 "str.state.values": states,
+                                 "str.rate.time.unit": "day"},
+                                [data["events"]]),
+        "eventTimeDistribution": ({"etd.bucket.width": "3600000",
+                                   "etd.num.buckets": "48"},
+                                  [data["events"]])}
+    for name, (props, inputs) in host.items():
+        secs[name] = _twin(name, props, inputs, work,
+                           f"on {MARKOV_HOST_ROWS} rows")
+    cts = {"cts.state.values": states, "cts.time.horizon": "2.0",
+           "cts.state.trans.file.path": str(
+               work / f"stateTransitionRate_{DEVICE}.txt"),
+           "cts.target.states": "cart"}
+    secs["contTimeStateTransitionStats"] = _twin(
+        "contTimeStateTransitionStats", cts, [data["queries"]], work,
+        f"on {MARKOV_HOST_ROWS} rows, per-entity rates")
+    shutil.rmtree(work)
+    return secs, rows
+
+
 # ------------------------------------------------------------------ phase 7
 def phase_ceiling(rate: float, bf16_flops: float):
     """matmul_ceiling against its plain version at the bench's shape."""
@@ -2756,6 +3111,7 @@ def _new_kernel_rows(checks, paths):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError as e:
@@ -2798,6 +3154,9 @@ def main() -> None:
     t0 = time.perf_counter()
     bandit_secs = phase_bandits()
     t_bandit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    markov_secs, markov_rows = phase_markov(flops, rate)
+    t_markov = time.perf_counter() - t0
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     print(f"tree and text seconds ({CARD}; phase 10 "
@@ -2808,6 +3167,12 @@ def main() -> None:
           f"{json.dumps(seq_secs)}", flush=True)
     print(f"bandit seconds ({CARD}; phase 13 {t_bandit:.1f}s): "
           f"{json.dumps(bandit_secs)}", flush=True)
+    print(f"markov seconds ({CARD}; phase 14 {t_markov:.1f}s): "
+          f"{json.dumps(markov_secs)}", flush=True)
+    print(f"markov device programs, torch ops, not kernels ({CARD}): "
+          f"{json.dumps(markov_rows)}", flush=True)
+    print(f"chip_smoke.py total {time.perf_counter() - t_start:.1f}s "
+          f"({CARD})", flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
              BENCH_PATH: bench_counts, PIPE_PATH: pipe_counts,
              SEQ_PATH: seq_counts}

@@ -56,7 +56,8 @@ def test_modules_list_covers_the_package():
                 "native.ingest", "ops.reduce", "ops.infotheory",
                 "models.explore", "models.discriminant", "models.tree",
                 "models.text", "models.sequence", "models.bandits",
-                "ops.sequence_kernels", "ops.prng", "tools.bandit_check"):
+                "ops.sequence_kernels", "ops.prng", "tools.bandit_check",
+                "models.markov"):
         assert f"avenir_tpu_torch.{sub}" in MODULES
 
 
@@ -73,7 +74,7 @@ def test_native_source_is_the_ports_own():
 @pytest.mark.parametrize("entry", ["avenir_tpu_torch", "all", "chip_smoke",
                                    "obs", "native", "mutualInformation",
                                    "fisherDiscriminant", "tree", "text",
-                                   "sequence", "bandits"])
+                                   "sequence", "bandits", "markov"])
 def test_import_loads_no_jax(entry):
     modules = {"avenir_tpu_torch": ["avenir_tpu_torch"], "all": MODULES,
                "chip_smoke": ["chip_smoke"],
@@ -96,7 +97,11 @@ def test_import_loads_no_jax(entry):
                "bandits": ["avenir_tpu_torch.models.bandits",
                            "avenir_tpu_torch.ops.prng",
                            "avenir_tpu_torch.tools.bandit_check",
-                           "avenir_tpu_torch.pipelines"]}[entry]
+                           "avenir_tpu_torch.pipelines"],
+               "markov": ["avenir_tpu_torch.models.markov",
+                          "avenir_tpu_torch.models.convert",
+                          "avenir_tpu_torch.runner",
+                          "avenir_tpu_torch.data.generators"]}[entry]
     loaded = _loaded(*modules)
     assert set(modules) <= set(loaded)
     assert _forbidden(loaded) == []

@@ -175,7 +175,8 @@ def test_run_shared_rejects_bad_groups(tmp_path):
             "mut.feature.schema.file.path": schema}
     out = str(tmp_path / "x")
     assert stream_fold_names() == sorted(
-        [*JOBS, "frequentItemsApriori", "candidateGenerationWithSelfJoin"])
+        [*JOBS, "frequentItemsApriori", "candidateGenerationWithSelfJoin",
+         "markovStateTransitionModel"])
     with pytest.raises(ValueError, match="not shared-scan capable"):
         run_shared([("nearestNeighbor", {}, out)], [csv], device=CPU)
     with pytest.raises(ValueError, match="appears twice"):
