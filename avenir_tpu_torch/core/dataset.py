@@ -32,7 +32,8 @@ class Dataset:
     def __init__(self, schema: FeatureSchema, columns: Dict[int, np.ndarray],
                  n_rows: int, raw_rows: Optional[List[List[str]]] = None,
                  lazy: Optional[Dict[int, object]] = None,
-                 engine: str = "python"):
+                 engine: str = "python",
+                 parse_bins: Optional[Tuple[Tuple[int, int], ...]] = None):
         self.schema = schema
         self.columns = columns          # ordinal -> np array (codes / floats / object)
         self.n_rows = n_rows
@@ -42,6 +43,14 @@ class Dataset:
         self.engine = engine            # the parser that made the columns
         # (ordinal, bins) of each field asked for -> (codes, bins)
         self._codes_cache: Dict[tuple, tuple] = {}
+        # (ordinal, bins) of every field with bins as this chunk's parse
+        # left the shared schema (a Dataset is made at the end of its
+        # parse): a later chunk's parse, which a prefetch thread may run
+        # ahead of the folds, can grow a discovered vocabulary, and this
+        # chunk's codes and sizes must not see it
+        self.parse_bins = (_bins_snapshot(schema) if parse_bins is None
+                           else parse_bins)
+        self._bins = dict(self.parse_bins)
 
     # ------------------------------------------------------------------ load
     @classmethod
@@ -214,13 +223,13 @@ class Dataset:
         # keyed on (ordinal, bins) so a vocabulary discovered after a
         # cached call (a grown num_bins) misses instead of serving codes
         # stacked against the old bin count
-        memo_key = tuple((f.ordinal, f.num_bins()) for f in fields)
+        memo_key = tuple((f.ordinal, self.num_bins(f)) for f in fields)
         hit = self._codes_cache.get(memo_key)
         if hit is not None:
             return hit[0], list(hit[1])
         cols, bins = [], []
         for fld in fields:
-            nb = fld.num_bins()
+            nb = self.num_bins(fld)
             if nb <= 0:
                 continue
             col = self.column(fld.ordinal)
@@ -259,7 +268,27 @@ class Dataset:
         return [f for f in self.schema.feature_fields if f.is_numeric]
 
     def encodable_feature_fields(self) -> List[FeatureField]:
-        return [f for f in self.schema.feature_fields if f.num_bins() > 0]
+        return [f for f in self.schema.feature_fields if self.num_bins(f) > 0]
+
+    def num_bins(self, fld: FeatureField) -> int:
+        """fld.num_bins() as this chunk's parse left it (`parse_bins`);
+        the live schema's for a field it does not hold."""
+        nb = self._bins.get(fld.ordinal)
+        return fld.num_bins() if nb is None else nb
+
+    def class_values(self) -> List[str]:
+        """The class vocabulary as this chunk's parse left it: a
+        discovered vocabulary only grows at its end, so its first
+        `parse_bins` values (a class field without bins, such as a
+        string-typed one, keeps its declared list)."""
+        cf = self.schema.class_field
+        if cf is None:
+            return []
+        nb = self._bins.get(cf.ordinal)
+        return list(cf.cardinality if nb is None else cf.cardinality[:nb])
+
+    def num_classes(self) -> int:
+        return len(self.class_values())
 
     def to_csv(self, delim: str = ",") -> str:
         """Rows back as reference-style CSV text: the kept raw rows when
@@ -297,7 +326,7 @@ class Dataset:
         raw = ([self.raw_rows[i] for i in idx] if self.raw_rows is not None
                else None)
         return Dataset(self.schema, cols, int(idx.shape[0]), raw, lazy=lazy,
-                       engine=self.engine)
+                       engine=self.engine, parse_bins=self.parse_bins)
 
     def __len__(self) -> int:
         return self.n_rows
@@ -321,6 +350,20 @@ def _discover_cardinality(fld, tokens) -> None:
         return
     fld.cardinality = sorted(set(tokens))
     fld.discovered_cardinality = True
+
+
+def _bins_snapshot(schema: FeatureSchema) -> Tuple[Tuple[int, int], ...]:
+    """(ordinal, num_bins) of every field with bins; a bucketized field
+    with no max yet is left out (its num_bins raises when asked)."""
+    out = []
+    for fld in schema.fields:
+        try:
+            nb = fld.num_bins()
+        except ValueError:
+            continue
+        if nb > 0:
+            out.append((fld.ordinal, nb))
+    return tuple(out)
 
 
 def _discover_numeric_range(fld, col: np.ndarray) -> None:
@@ -370,7 +413,7 @@ def extract_mixed_features(ds: Dataset):
     if cat_fields:
         x_cat = np.stack(
             [ds.column(f.ordinal).astype(np.int32) for f in cat_fields], axis=1)
-        bins = tuple(len(f.cardinality) for f in cat_fields)
+        bins = tuple(ds.num_bins(f) for f in cat_fields)
     else:
         x_cat, bins = None, None
     return x_num, ranges, x_cat, bins

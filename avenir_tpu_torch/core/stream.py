@@ -1,13 +1,31 @@
-"""Chunked streaming CSV ingest, and the scan shared by several folds.
+"""Chunked streaming CSV ingest, its prefetch threads, and the scan
+shared by several folds.
 
-The port's own copy of the block readers (byte blocks, and line blocks
-for free text) and `SharedScan` of `avenir_tpu/core/stream.py`, without
-its columnar sidecar and prefetch thread. The reference streams
-unbounded files through mappers one line at a time; here the unit is a
-byte block of a fixed size cut at the last newline, parsed into a Dataset
-chunk against one shared schema, so host memory stays O(block) however
-large the file. Each block read is the span `stream.read`, each parse
-`stream.parse` (Dataset.from_csv).
+The port's own copy of the stream layer of `avenir_tpu/core/stream.py`:
+the block readers (byte blocks, line blocks for free text, and
+`CsvBlockReader` / `iter_csv_chunks` for Dataset chunks), the prefetch
+thread (`prefetched`, `double_buffered`, the `stream.prefetch.depth`
+key) and `SharedScan`, without the columnar sidecar, the input-split
+byte ranges and the autotune hooks. The reference streams unbounded
+files through mappers one line at a time; here the unit is a byte block
+of a fixed size cut at the last newline, parsed into a Dataset chunk
+against one shared schema, so host memory stays O(block) however large
+the file.
+
+Every job feed runs on threads: one reads byte blocks a block ahead
+(`stream.read` spans), one parses them (`stream.parse`), and the job's
+own thread folds (`stream.fold`), so the read, the parse and the
+device's work on the block before overlap. The native parser is a
+ctypes call, which releases the GIL; the Python parser does not, so it
+overlaps little. A worker makes host arrays only: every host-to-device
+copy and kernel launch stays on the consumer's thread. Time a consumer
+waits on an empty queue is the span `stream.stall.consumer`, time a
+worker waits on a full one `stream.stall.producer` (each recorded from
+1 ms up).
+
+A parse may grow a data-discovered vocabulary of the shared schema
+while the folds still work on earlier chunks; each chunk carries the
+bins its own parse left (`Dataset.num_bins`), and the folds read those.
 
 The `csv.engine` key (auto, native or python; default auto) picks the
 parser of every Dataset a job reads, as Dataset.from_csv's `engine`.
@@ -16,17 +34,25 @@ parser of every Dataset a job reads, as Dataset.from_csv's `engine`.
 from __future__ import annotations
 
 import os
-from typing import Iterable, Iterator, List, Optional
+import queue
+import threading
+from typing import Iterable, Iterator, List, Optional, TypeVar
 
 from avenir_tpu_torch import obs
 from avenir_tpu_torch.core.dataset import Dataset
 from avenir_tpu_torch.core.schema import FeatureSchema
 
 DEFAULT_BLOCK_BYTES = 64 << 20
+#: items queued ahead of the consumer in the job feeds; the
+#: `stream.prefetch.depth` key overrides it a job (prefetch_depth)
+DEFAULT_PREFETCH_DEPTH = 2
+
+T = TypeVar("T")
 
 #: called with no argument for every block `iter_byte_blocks` yields, when
-#: set: a test counts the blocks a run reads (one scan or three). None in
-#: production, where the check is one load a block.
+#: set (on the thread that reads): a test counts the blocks a run reads
+#: (one scan or three). None in production, where the check is one load a
+#: block.
 _produce_hook = None
 
 
@@ -97,18 +123,235 @@ def read_dataset(cfg, path: str, schema: FeatureSchema,
                             engine=csv_engine(cfg))
 
 
+class CsvBlockReader:
+    """Dataset chunks of a CSV file, never the whole file at once.
+
+    A chunk is a byte block (`iter_byte_blocks`) parsed against the one
+    shared schema, so dictionary codes agree across chunks (a discovered
+    vocabulary grows in place, and each chunk keeps the bins its parse
+    left). The blocks are read a block ahead on a thread of their own
+    (depth 1), so the file's reading overlaps the parse; each parse is
+    Dataset.from_csv's `stream.parse` span."""
+
+    def __init__(self, path: str, schema: FeatureSchema, delim: str = ",",
+                 block_bytes: int = DEFAULT_BLOCK_BYTES, engine: str = "auto",
+                 keep_raw: bool = False):
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"no such CSV file: {path!r}")
+        if block_bytes < 1:
+            raise ValueError(f"block_bytes must be positive, got {block_bytes}")
+        self.path = path
+        self.schema = schema
+        self.delim = delim
+        self.block_bytes = block_bytes
+        self.engine = engine
+        self.keep_raw = keep_raw
+
+    def __iter__(self) -> Iterator[Dataset]:
+        # depth 1: one block ahead is all the read/parse overlap needs, and
+        # it caps the raw bytes in flight at about two blocks (a job feed
+        # queues parsed chunks on top of this)
+        feed = prefetched(iter_byte_blocks(self.path, self.block_bytes),
+                          depth=1)
+        try:
+            for blk in feed:
+                yield Dataset.from_csv(blk, self.schema, delim=self.delim,
+                                       keep_raw=self.keep_raw,
+                                       engine=self.engine)
+        finally:
+            # joined at once when the consumer stops early or a parse
+            # raises; a read error behind that parse error is dropped
+            feed.close(_suppress=True)
+
+
+def iter_csv_chunks(path: str, schema: FeatureSchema, delim: str = ",",
+                    block_bytes: int = DEFAULT_BLOCK_BYTES,
+                    engine: str = "auto",
+                    keep_raw: bool = False) -> Iterator[Dataset]:
+    """Dataset chunks of `path` (CsvBlockReader); a small file gives one."""
+    return iter(CsvBlockReader(path, schema, delim, block_bytes, engine,
+                               keep_raw))
+
+
+# ------------------------------------------------------------- prefetch
+_DONE = object()
+
+#: how long a consumer's pull blocks before it checks that the worker is
+#: still alive: a dead worker with an empty queue fails the pull instead
+#: of hanging it
+_GET_POLL_SECS = 0.5
+#: how long close() waits to join the worker; one still alive after it is
+#: stuck inside its source and is reported
+_JOIN_SECS = 10.0
+
+
+def _nbytes(item) -> int:
+    """The bytes of a raw byte block, 0 for any other item (a parsed
+    chunk, an encoded page): the stall spans' `nbytes`."""
+    return len(item) if isinstance(item, (bytes, bytearray)) else 0
+
+
+def _prefetch_worker(items: Iterable, q: "queue.Queue",
+                     cancel: threading.Event, error_cell: list) -> None:
+    """The worker's body. A module function taking its state as arguments:
+    a bound method as the thread's target would keep its _Prefetcher
+    alive while the worker ran, so an abandoned iterator could never be
+    collected and its worker never cancelled."""
+
+    def put(item) -> bool:
+        # time blocked on a full queue: the consumer is the slower stage
+        t0 = obs.now()
+        while not cancel.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                obs.record_min("stream.stall.producer", t0,
+                               nbytes=_nbytes(item))
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    it = iter(items)
+    try:
+        for item in it:
+            if not put(item):
+                break
+        else:
+            put(_DONE)
+    except BaseException as exc:   # re-raised on the consumer's side
+        error_cell[0] = exc        # kept even if the put loses a race
+        put(exc)                   # with close(): never dropped
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
+
+
+class _Prefetcher(Iterator[T]):
+    """An iterator over `items` produced by a worker thread.
+
+    Its contract: order is kept; a worker's exception re-raises at the
+    consumer's next pull; close() (explicit, by `yield from` delegation,
+    at the end, or at garbage collection) cancels the worker and joins it
+    within _JOIN_SECS, so neither its thread nor a file open inside
+    `items` outlives the consumer; a worker exception the consumer never
+    pulled re-raises from an explicit close(), never from GC; and a pull
+    that finds the worker dead and the queue empty fails after
+    _GET_POLL_SECS instead of hanging."""
+
+    def __init__(self, items: Iterable[T], depth: int):
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
+        self._cancel = threading.Event()
+        self._error_cell: list = [None]
+        self._thread: Optional[threading.Thread] = threading.Thread(
+            target=_prefetch_worker,
+            args=(items, self._q, self._cancel, self._error_cell),
+            daemon=True)
+        self._thread.start()
+
+    def __iter__(self) -> "_Prefetcher":
+        return self
+
+    def __next__(self) -> T:
+        if self._thread is None:
+            raise StopIteration
+        # time blocked on an empty queue: the worker is the slower stage
+        t0 = obs.now()
+        while True:
+            try:
+                item = self._q.get(timeout=_GET_POLL_SECS)
+            except queue.Empty:
+                if not self._thread.is_alive() and self._q.empty():
+                    # every exit of the worker posts _DONE or an exception:
+                    # an empty queue under a dead worker means the process
+                    # is going down
+                    self.close()
+                    raise RuntimeError(
+                        "prefetch worker exited without a result")
+                continue
+            if item is _DONE:
+                self.close()
+                raise StopIteration
+            if isinstance(item, BaseException):
+                self._error_cell[0] = None    # delivered: close() must
+                self.close(_suppress=True)    # not raise it again
+                raise item
+            obs.record_min("stream.stall.consumer", t0, nbytes=_nbytes(item))
+            return item
+
+    def close(self, _suppress: bool = False) -> None:
+        """Cancel the worker, join it, and re-raise a worker exception the
+        consumer never pulled (unless `_suppress`: the paths where an
+        exception is already on its way)."""
+        thread, self._thread = self._thread, None
+        if thread is None:
+            return
+        self._cancel.set()
+        # drain, so a worker blocked on a full queue sees the cancel soon
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        thread.join(_JOIN_SECS)
+        if thread.is_alive():
+            raise RuntimeError(
+                f"prefetch worker failed to stop within {_JOIN_SECS}s "
+                f"(stuck inside its source iterable?)")
+        pending, self._error_cell[0] = self._error_cell[0], None
+        if pending is not None and not _suppress:
+            raise pending
+
+    def __del__(self):
+        try:
+            self.close(_suppress=True)    # a GC close never raises
+        except Exception:
+            pass
+
+
+def prefetched(items: Iterable[T], depth: int = DEFAULT_PREFETCH_DEPTH
+               ) -> Iterator[T]:
+    """`items` produced on a worker thread, up to `depth` of them queued
+    ahead of the consumer (the _Prefetcher contract: order kept, errors
+    re-raised at the next pull, close() cancels and joins the worker)."""
+    return _Prefetcher(items, depth)
+
+
+def double_buffered(items: Iterable[T]) -> Iterator[T]:
+    """prefetched at depth 1: producing block k+1 on the host overlaps the
+    device's work on block k, and at most one finished block waits. The
+    miners' count loops put it between a block's encode and its fold;
+    stacked on the inner byte-block prefetch, one block is read, one
+    encoded and one counted at a time."""
+    return prefetched(items, depth=1)
+
+
+def prefetch_depth(cfg) -> int:
+    """The `stream.prefetch.depth` key (default 2, at least 1): the items
+    the job feeds below queue ahead of their consumer. Each queued item is
+    a parsed chunk or a raw block held in memory."""
+    return max(int(cfg.get_float("stream.prefetch.depth",
+                                 float(DEFAULT_PREFETCH_DEPTH))), 1)
+
+
+def _block_bytes(cfg) -> int:
+    """The `stream.block.size.mb` key (default 64) in bytes."""
+    return int(cfg.get_float("stream.block.size.mb", 64.0) * (1 << 20))
+
+
 def stream_job_inputs(cfg, inputs: Iterable[str], schema: FeatureSchema,
                       keep_raw: bool = False) -> Iterator[Dataset]:
     """Dataset chunks of every input path, sized by the
-    `stream.block.size.mb` config key (default 64); keep_raw keeps each
-    chunk's row tokens (`Dataset.raw_rows`) for jobs that echo the row,
-    which the Python parser alone can."""
-    block = int(cfg.get_float("stream.block.size.mb", 64.0) * (1 << 20))
-    engine = csv_engine(cfg)
+    `stream.block.size.mb` key (default 64) and queued
+    `stream.prefetch.depth` deep: one thread reads, one parses
+    (iter_csv_chunks), the caller folds. keep_raw keeps each chunk's row
+    tokens (`Dataset.raw_rows`) for jobs that echo the row, which the
+    Python parser alone can."""
+    block, depth = _block_bytes(cfg), prefetch_depth(cfg)
     for path in inputs:
-        for blk in iter_byte_blocks(path, block):
-            yield Dataset.from_csv(blk, schema, delim=cfg.field_delim_regex,
-                                   keep_raw=keep_raw, engine=engine)
+        yield from prefetched(iter_csv_chunks(
+            path, schema, cfg.field_delim_regex, block, csv_engine(cfg),
+            keep_raw), depth=depth)
 
 
 def iter_line_blocks(path: str, block_bytes: int = DEFAULT_BLOCK_BYTES
@@ -130,21 +373,20 @@ def iter_line_blocks(path: str, block_bytes: int = DEFAULT_BLOCK_BYTES
 
 def stream_job_lines(cfg, inputs: Iterable[str]) -> Iterator[List[str]]:
     """Line blocks of every input path, sized by the same
-    `stream.block.size.mb` key (default 64) as stream_job_inputs. The
-    JAX package reads them ahead on a thread; here they are read in turn
-    (the port has no prefetch thread yet)."""
-    block = int(cfg.get_float("stream.block.size.mb", 64.0) * (1 << 20))
+    `stream.block.size.mb` key as stream_job_inputs, read and split on a
+    worker thread and queued `stream.prefetch.depth` deep."""
+    block, depth = _block_bytes(cfg), prefetch_depth(cfg)
     for path in inputs:
-        yield from iter_line_blocks(path, block)
+        yield from prefetched(iter_line_blocks(path, block), depth=depth)
 
 
 def stream_job_byte_blocks(cfg, inputs: Iterable[str]) -> Iterator[bytes]:
     """Raw byte blocks of every input path (the feed of the miners' native
-    encoder), sized by the same `stream.block.size.mb` key (default 64),
-    read in turn."""
-    block = int(cfg.get_float("stream.block.size.mb", 64.0) * (1 << 20))
+    encoder), sized by the same `stream.block.size.mb` key, read on a
+    worker thread and queued `stream.prefetch.depth` deep."""
+    block, depth = _block_bytes(cfg), prefetch_depth(cfg)
     for path in inputs:
-        yield from iter_byte_blocks(path, block)
+        yield from prefetched(iter_byte_blocks(path, block), depth=depth)
 
 
 class SharedScan:
@@ -157,8 +399,10 @@ class SharedScan:
     per-job scans.
 
     Error contract: a sink that raises closes the chunk iterator before
-    the exception propagates, so a generator feed runs its `finally`
-    blocks (its open file closes) and is not left suspended."""
+    the exception propagates, so a prefetched feed's worker is cancelled
+    and joined and its open file closes. A worker error that close()
+    would re-raise is dropped there: the sink's exception is the one on
+    its way."""
 
     def __init__(self, chunks: Iterable):
         self._chunks = chunks
@@ -181,6 +425,7 @@ class SharedScan:
         histogram."""
         n = 0
         it = iter(self._chunks)
+        close = getattr(it, "close", None)
         try:
             for chunk in it:
                 t_chunk = obs.now()
@@ -190,8 +435,13 @@ class SharedScan:
                     obs.record("stream.fold", t0, sink=label, chunk=n)
                 obs.observe("chunk_latency_ms", (obs.now() - t_chunk) * 1e3)
                 n += 1
-        finally:
-            close = getattr(it, "close", None)
+        except BaseException:
             if close is not None:
-                close()
+                try:
+                    close()        # joins the worker; the exception on
+                except Exception:  # its way is the one to see
+                    pass
+            raise
+        if close is not None:
+            close()
         return n

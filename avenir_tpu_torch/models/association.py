@@ -36,6 +36,7 @@ import torch
 from torch.profiler import record_function
 
 from avenir_tpu_torch import obs
+from avenir_tpu_torch.core.stream import double_buffered
 from avenir_tpu_torch.native.ingest import SpillScanMixin
 from avenir_tpu_torch.ops.bitset import (as_words, bitset_contain_mask,
                                          bitset_fold_counts,
@@ -88,7 +89,9 @@ def stream_candidate_support(src: "StreamingTransactionSource",
         cand = as_words(pack_index_rows_u32(cand_ids, src.masked_width,
                                             c_pad), dev)
         counts = torch.zeros(c_pad, dtype=torch.int32, device=dev)
-        for packed in src.packed_chunks(block):
+        # the next block is encoded and packed on a worker thread while
+        # this one is copied and counted here
+        for packed in double_buffered(src.packed_chunks(block)):
             t0 = obs.now()
             bitset_fold_counts(counts, as_words(packed, dev), cand)
             obs.record("stream.fold", t0, sink="apriori_support")
@@ -219,11 +222,12 @@ class StreamingTransactionSource(SpillScanMixin):
         """The token lists of the rows of each byte block, trimmed as the
         native encoder trims; each block's decode and split is a
         `stream.parse` span."""
-        from avenir_tpu_torch.core.stream import iter_byte_blocks
+        from avenir_tpu_torch.core.stream import iter_byte_blocks, prefetched
 
         label = type(self).__name__
         for path in self.paths:
-            for blk in iter_byte_blocks(path, self.block_bytes):
+            for blk in prefetched(iter_byte_blocks(path, self.block_bytes),
+                                  depth=1):
                 t0 = obs.now()
                 rows = [[t.strip(" \t\r") for t in ln.rstrip("\r").split(
                     self.delim)]
@@ -346,7 +350,7 @@ class StreamingTransactionSource(SpillScanMixin):
         re-encodes each byte block when it builds, else the Python rows
         are packed. A byte block's encode and packing is a `stream.parse`
         span."""
-        from avenir_tpu_torch.core.stream import iter_byte_blocks
+        from avenir_tpu_torch.core.stream import iter_byte_blocks, prefetched
         from avenir_tpu_torch.native.ingest import (csr_region_mask,
                                                     csr_rows,
                                                     native_seq_ready,
@@ -359,7 +363,8 @@ class StreamingTransactionSource(SpillScanMixin):
         vm = max(self.masked_width, 1)
         label = type(self).__name__
         for path in self.paths:
-            for data in iter_byte_blocks(path, self.block_bytes):
+            for data in prefetched(iter_byte_blocks(path, self.block_bytes),
+                                   depth=1):
                 t0 = obs.now()
                 codes, offsets = seq_encode_native(data, self.delim,
                                                    self.vocab)

@@ -44,7 +44,7 @@ class FisherDiscriminant:
         if self._cnt is None:
             self.fields = [f for f in ds.schema.feature_fields
                            if f.is_numeric]
-            assert ds.schema.num_classes() == 2, \
+            assert ds.num_classes() == 2, \
                 "Fisher discriminant is two-class"
             self._cnt = np.zeros(2, np.float64)
             self._s1 = np.zeros((2, len(self.fields)), np.float64)

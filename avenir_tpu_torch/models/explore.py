@@ -179,7 +179,7 @@ class MutualInformationAnalyzer:
         the tables zero-pad along the grown bin axes."""
         if self.fields is None:
             self.fields = ds.encodable_feature_fields()
-            self.k = ds.schema.num_classes()
+            self.k = ds.num_classes()
             self.bins = [0] * len(self.fields)
             self._fc = [np.zeros((0, self.k), np.float64)
                         for _ in self.fields]
@@ -457,7 +457,7 @@ def contingency(ds: Dataset, fld: FeatureField,
     return cross_count(torch.as_tensor(codes[:, 0].astype(np.int64),
                                        device=dev),
                        torch.as_tensor(ds.labels(), device=dev),
-                       fld.num_bins(), ds.schema.num_classes()).cpu().numpy()
+                       ds.num_bins(fld), ds.num_classes()).cpu().numpy()
 
 
 def cramer_index(table: np.ndarray) -> float:
@@ -495,7 +495,7 @@ class ContingencyAccumulator:
     def add(self, ds: Dataset) -> None:
         if self.fields is None:
             self.fields = ds.encodable_feature_fields()
-            self.k = ds.schema.num_classes()
+            self.k = ds.num_classes()
             self.class_counts = np.zeros(self.k, np.float64)
         y = ds.labels()
         self.class_counts += np.bincount(y, minlength=self.k)

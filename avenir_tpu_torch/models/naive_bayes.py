@@ -79,17 +79,24 @@ class NaiveBayesModel:
 
     # ------------------------------------------------------------ training
     @classmethod
-    def empty(cls, schema: FeatureSchema, device: DeviceLike = None
-              ) -> "NaiveBayesModel":
-        binned = [f for f in schema.feature_fields if f.num_bins() > 0]
+    def empty(cls, schema: FeatureSchema, device: DeviceLike = None,
+              chunk: Optional[Dataset] = None) -> "NaiveBayesModel":
+        """A model of zero counts sized from the schema, or, given a
+        chunk, from the bins and classes that chunk's parse saw (a stream
+        fold sizes from its first chunk, not from a schema that later
+        parses may have grown)."""
+        src = schema if chunk is None else chunk
+        nbins = FeatureField.num_bins if chunk is None else chunk.num_bins
+        binned = [f for f in schema.feature_fields if nbins(f) > 0]
         cont = [f for f in schema.feature_fields
                 if f.is_numeric and not f.bucket_width]
-        bins = [f.num_bins() for f in binned]
-        k = schema.num_classes()
+        bins = [nbins(f) for f in binned]
+        class_values = src.class_values()
+        k = len(class_values)
         bmax = max(bins) if bins else 1
         return cls(
             schema=schema,
-            class_values=schema.class_values(),
+            class_values=class_values,
             binned_fields=binned,
             cont_fields=cont,
             bins=bins,
@@ -134,7 +141,7 @@ class NaiveBayesModel:
     @classmethod
     def fit(cls, dataset: Dataset, device: DeviceLike = None
             ) -> "NaiveBayesModel":
-        model = cls.empty(dataset.schema, device)
+        model = cls.empty(dataset.schema, device, chunk=dataset)
         codes, _ = dataset.feature_codes(model.binned_fields)
         x_cont = dataset.feature_matrix(model.cont_fields)
         model.accumulate(codes, dataset.labels(), x_cont)

@@ -41,6 +41,7 @@ import torch
 from torch.profiler import record_function
 
 from avenir_tpu_torch import obs
+from avenir_tpu_torch.core.stream import double_buffered
 from avenir_tpu_torch.native.ingest import SpillScanMixin
 from avenir_tpu_torch.ops.sequence_kernels import subseq_support_fold
 from avenir_tpu_torch.utils.devices import DeviceLike, resolve_device
@@ -132,7 +133,9 @@ def stream_candidate_support(src: "StreamingSequenceSource",
     with record_function(SUPPORT_RANGE):
         cand_d, kv = GSPMiner._cand_arrays(cands, src.token_code, c_pad, dev)
         counts = torch.zeros(c_pad, dtype=torch.int32, device=dev)
-        for blk in src.chunks(block):
+        # the next block is encoded and paged on a worker thread while
+        # this one is copied and counted here
+        for blk in double_buffered(src.chunks(block)):
             t0 = obs.now()
             _subseq_fold(counts[:n], torch.from_numpy(blk).to(dev),
                          cand_d[:n], kv[:n])
@@ -318,7 +321,8 @@ class StreamingSequenceSource(SpillScanMixin):
         not widen every block. A byte block's encode and paging is a
         `stream.parse` span."""
         from avenir_tpu_torch.core.stream import (iter_byte_blocks,
-                                                  iter_line_blocks)
+                                                  iter_line_blocks,
+                                                  prefetched)
         from avenir_tpu_torch.native.ingest import (csr_region_mask,
                                                     csr_rows,
                                                     native_seq_ready,
@@ -342,7 +346,8 @@ class StreamingSequenceSource(SpillScanMixin):
         label = type(self).__name__
         if native_seq_ready(self.delim):
             for path in self.paths:
-                for data in iter_byte_blocks(path, self.block_bytes):
+                for data in prefetched(
+                        iter_byte_blocks(path, self.block_bytes), depth=1):
                     t0 = obs.now()
                     codes, offsets = seq_encode_native(data, self.delim,
                                                        self.vocab)
@@ -383,7 +388,8 @@ class StreamingSequenceSource(SpillScanMixin):
 
         buf: List[List[int]] = []
         for path in self.paths:
-            for lines in iter_line_blocks(path, self.block_bytes):
+            for lines in prefetched(
+                    iter_line_blocks(path, self.block_bytes), depth=1):
                 for ln in lines:
                     toks = [t.strip(" \t\r")
                             for t in ln.split(self.delim)][self.skip:]

@@ -410,12 +410,12 @@ def scan_encode_blocks(paths, delim: str, skip: int, vocab: List[str],
                        marker: Optional[str] = None):
     """The vocabulary-discovering native scan of whole files: (codes,
     offsets, region, n_rows) a byte block (BlockScanEncoder's contract),
-    the blocks read in turn."""
-    from avenir_tpu_torch.core.stream import iter_byte_blocks
+    the blocks read a block ahead on a worker thread."""
+    from avenir_tpu_torch.core.stream import iter_byte_blocks, prefetched
 
     enc = BlockScanEncoder(delim, skip, vocab, index, marker)
     for path in paths:
-        for data in iter_byte_blocks(path, block_bytes):
+        for data in prefetched(iter_byte_blocks(path, block_bytes), depth=1):
             out = enc.encode(data)
             if out is not None:
                 yield out
@@ -463,13 +463,15 @@ class SpillScanMixin:
                    else "native")
 
     def _scan_all(self):
-        """Pass 1 over every path's byte blocks, read here, then sealed."""
-        from avenir_tpu_torch.core.stream import iter_byte_blocks
+        """Pass 1 over every path's byte blocks, read a block ahead on a
+        worker thread, then sealed."""
+        from avenir_tpu_torch.core.stream import iter_byte_blocks, prefetched
 
         self._scan_begin()
         label = type(self).__name__
         for path in self.paths:
-            for data in iter_byte_blocks(path, self.block_bytes):
+            for data in prefetched(iter_byte_blocks(path, self.block_bytes),
+                                   depth=1):
                 self._parse_block(data, label)
         return self._scan_finish()
 

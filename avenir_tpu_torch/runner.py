@@ -224,9 +224,12 @@ class _NBDistrFold:
         from avenir_tpu_torch.models.naive_bayes import NaiveBayesModel
 
         if self.model is None:
-            # after the first parse, so data-discovered categorical
-            # vocabularies are sized into the count tensors
-            self.model = NaiveBayesModel.empty(self.schema, self.device)
+            # sized from the first chunk's own bins, so data-discovered
+            # categorical vocabularies are in the count tensors as that
+            # chunk's parse left them, however far a prefetch thread has
+            # parsed (and grown the shared schema) since
+            self.model = NaiveBayesModel.empty(self.schema, self.device,
+                                               chunk=ds)
         codes, bins = ds.feature_codes(self.model.binned_fields)
         if bins != self.model.bins:
             raise ValueError(
@@ -269,8 +272,11 @@ class _NBDistrFold:
         if self.model is not None:
             m = self.model
             m.flush()
-            meta["cards"] = {str(f.ordinal): list(f.cardinality)
-                             for f in m.binned_fields if f.is_categorical}
+            # the vocabularies the model was sized with: the shared
+            # schema may already hold values of chunks not folded yet
+            meta["cards"] = {str(f.ordinal): list(f.cardinality[:b])
+                             for f, b in zip(m.binned_fields, m.bins)
+                             if f.is_categorical}
             arrays = {"post": m.post_counts, "mom": m.cont_moments,
                       "cls": m.class_counts}
         return {"meta": np.array(json.dumps(meta)), **arrays}
@@ -922,7 +928,7 @@ def _text_distribution(cfg: JobConfig, inputs: List[str], output: str,
                        device: torch.device) -> JobResult:
     """bayesianDistr's free-text mode: token counts folded a line block
     at a time (mapText's per-line contract), then the model CSV."""
-    from avenir_tpu_torch.core.stream import iter_line_blocks
+    from avenir_tpu_torch.core.stream import iter_line_blocks, prefetched
     from avenir_tpu_torch.models.text import TextNaiveBayes
 
     tmodel = TextNaiveBayes(device=device)
@@ -931,7 +937,8 @@ def _text_distribution(cfg: JobConfig, inputs: List[str], output: str,
     delim = cfg.field_delim_regex
     for path in inputs:
         lineno = 0
-        for chunk, lines in enumerate(iter_line_blocks(path, block)):
+        for chunk, lines in enumerate(prefetched(iter_line_blocks(path,
+                                                                  block))):
             t0 = obs.now()
             texts, labels = [], []
             for ln in lines:

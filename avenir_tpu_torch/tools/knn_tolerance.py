@@ -117,3 +117,38 @@ def bf16_agrees(mode, q, t, k, old, new, n_valid=None) -> str:
                 floor):
         return "an index apart without a tie"
     return ""
+
+
+def bf16_operand_floor(q, t) -> float:
+    """How far bfloat16 operands can move a squared sum from its float32
+    value: each operand rounds by at most 2^-9 relative, so
+    |q.t - bf16(q).bf16(t)| <= (2^-8 + 2^-18) sum_i |q_i t_i|
+    <= (2^-8 + 2^-18) |q| |t|, twice that in |q|^2 + |t|^2 - 2 q.t; taken
+    at the largest norms, with room for the float32 sums (2^-6)."""
+    return 2.0 ** -6 * (q.norm(dim=1).max() * t.norm(dim=1).max()).item()
+
+
+def lanes_agree(q, t, got, ref, pack_bits, fp32_ref=False) -> str:
+    """Why a euclidean bfloat16 lane top-k `got`, finished (distances,
+    indices into t), disagrees with `ref` ("" if they agree): bf16_agrees'
+    lanes rule on finished lists (distances within rtol 1e-4 plus the lane
+    quantum 2^-(23 - pack_bits), atol 1e-5, or the cancellation floor;
+    recall >= 0.99), and every index apart from ref's a tie under the
+    bfloat16 cross term. Against a float32 reference (fp32_ref) the floor
+    also holds the bfloat16 operands' rounding (bf16_operand_floor)."""
+    (gd, gi), (pd, pi) = got, ref
+    d = q.shape[1]
+    floor = cancellation_floor(q, t)
+    if fp32_ref:
+        floor += bf16_operand_floor(q, t)
+    rtol = 1e-4 + 2.0 ** -(23 - pack_bits)
+    if not bool(within(gd, pd, d, rtol, 1e-5, floor).all()):
+        err = (gd - pd).abs().max().item()
+        return f"distances apart by {err:.3g} past rtol {rtol:.3g}"
+    r = recall(gi, pi)
+    if r < 0.99:
+        return f"recall {r:.5f}"
+    if not tied(q, t, gi, pd, gi != pi, "euclidean", rtol, 1e-5, True,
+                floor):
+        return "an index apart without a tie"
+    return ""

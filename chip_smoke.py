@@ -234,10 +234,38 @@ Phases, each printing a line per check; any failed check exits non-zero:
    Every file byte-identical to its twin's. The path's two device
    programs are torch ops, not kernels: they print on a line of their
    own, not in the kernels line.
+15. The stream path (after phase 14), the bench's stream legs on the
+   card (`tools/bench.py`), with the host's torch threads and the native
+   parser's threads printed first. The running merge of the KNN leg
+   over its first STREAM_CHECK_BLOCKS = 8 rotated blocks against
+   `knn_topk_plain` (bfloat16, exact keys) over those blocks
+   concatenated (the lane plain version takes at most 524,288 rows), by
+   `knn_tolerance.lanes_agree` (bf16_agrees' lane rule: distances within
+   rtol 1e-4 plus the lane quantum, indices apart only at ties, recall
+   >= 0.99). The NB generated leg at 1,000,000,000 rows (the class counts
+   exactly). Then the KNN legs, their launches counted from zero: the
+   generated leg at 1,000,341,504 train rows (1908 blocks, each one
+   `knn_topk_lanes` launch on the tensor-core form, every final index in
+   range) and the CSV leg at STREAM_KNN_CSV_ROWS = 500,000 rows (about
+   480 MB; cut from the root bench's 2,000,000), its top-k within the
+   same rule of `blocked_topk_neighbors` in float32 over the whole
+   parsed corpus, the floor raised by the bfloat16 operands' rounding.
+   The NB CSV leg at STREAM_NB_CSV_ROWS = 20,000,000 rows (about 760 MB
+   in 4 MB blocks; cut from the root bench's 100,000,000): its model
+   and stamp byte-identical to `bayesianDistr` through `run_job` on the
+   same file at stream.prefetch.depth=1, its peak RSS over its start
+   under 1 GB. Each leg's rows/s, overlap efficiency and stall seconds.
+   The depth bar: the streamed jobs of phases 6, 9, 11, 12 and 14
+   (bayesianDistr, the fused profile run, the per-class Markov model,
+   streamed Apriori and streamed GSP) on their corpora, written again
+   as those phases write them, at stream.prefetch.depth 2, 1 and 8, every
+   file of depths 1 and 8 byte-identical to depth 2's. Then the measured
+   anchor and vs_baseline (the bench's NB and d=8 KNN sections again).
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
-phase 8's pipeline the fourth, phase 12's GSP runs the fifth: each
-kernel's launches are counted from zero on each path. Then one JSON
+phase 8's pipeline the fourth, phase 12's GSP runs the fifth, phase 15's
+KNN stream legs the sixth: each kernel's launches are counted from zero
+on each path. Then one JSON
 line of per-kernel numbers (the pre-pass beside the five kernels, at the
 sweep's D=128 float32; the tensor-core form at the bench's D=128
 bfloat16; the two merge kernels at the job's shape), and as the last line
@@ -326,6 +354,11 @@ BANDIT_JOBS = {
 MARKOV_ROWS, MARKOV_ENTITIES, MARKOV_SEED, HMM_SEED = 1_000_000, 10_000, 21, 31
 MARKOV_TWIN_ROWS, MARKOV_HOST_ROWS, MARKOV_HOST_KEYS = 20_000, 100_000, 1_000
 MARKOV_PATH = "markovStateTransitionModel"
+#: phase 15: the KNN stream legs' path, the CSV legs' rows (cut from the
+#: root bench's 100,000,000 and 2,000,000), the blocks of the merge check
+STREAM_PATH = "knn_stream"
+STREAM_NB_CSV_ROWS, STREAM_KNN_CSV_ROWS = 20_000_000, 500_000
+STREAM_CHECK_BLOCKS = 8
 #: nvidia-smi's name and power limit of the card (phase 1)
 CARD = ""
 
@@ -2973,6 +3006,247 @@ def phase_markov(flops: float, rate: float):
 
 
 # ------------------------------------------------------------------ phase 7
+# ----------------------------------------------------------------- phase 15
+def _stream_corpora(work: Path) -> dict:
+    """The corpora of the streamed jobs of phases 6, 9, 11, 12 and 14, as
+    those phases write them (each removes its own): the churn train file,
+    the market baskets, the GSP sequences and the churn tutorial's
+    chains."""
+    from avenir_tpu_torch.data import (churn_schema, generate_churn,
+                                       generate_markov_chains)
+    from avenir_tpu_torch.tools import bench
+
+    t0 = time.perf_counter()
+    files = {"schema": work / "churn.json", "churn": work / "train.csv",
+             "baskets": work / "baskets.csv", "chains": work / "chains.csv"}
+    churn_schema().save(str(files["schema"]))
+    files["churn"].write_text(generate_churn(NB_TRAIN_ROWS, seed=201,
+                                             as_csv=True))
+    picks = bench.apriori_picks(ASSOC_TX, seed=4)
+    files["baskets"].write_text("".join(
+        ",".join([f"T{r}", *(f"i{j}" for j in row)]) + "\n"
+        for r, row in enumerate(picks.tolist())))
+    del picks
+    files["chains"].write_text("\n".join(generate_markov_chains(
+        MARKOV_ROWS, seed=MARKOV_SEED, n_entities=MARKOV_ENTITIES)) + "\n")
+    files["seq"] = Path(_sequence_corpus(work)[0])
+    print(f"stream corpora (phases 6, 9, 11, 12, 14) written in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return {k: str(v) for k, v in files.items()}
+
+
+def _depth_bar(work: Path) -> dict:
+    """The streamed jobs of phases 6, 9, 11, 12 and 14 on the card at
+    stream.prefetch.depth 2, 1 and 8: every file of depths 1 and 8
+    byte-identical to depth 2's. Returns {run: {depth: seconds}}."""
+    import torch
+
+    from avenir_tpu_torch.data.generators import MARKOV_STATES
+    from avenir_tpu_torch.pipelines import profile_pipeline
+    from avenir_tpu_torch.runner import run_job
+
+    c = _stream_corpora(work)
+    distr = {"bad.feature.schema.file.path": c["schema"],
+             "bad.stream.block.size.mb": "4", "csv.engine": "native"}
+    profile = {f"{p}.stream.block.size.mb": "4" for p in ("bad", "mut", "fid")}
+    profile.update({"csv.engine": "native",
+                    "mut.mutual.info.score.algorithms": MI_ALGOS})
+    mst = {"mst.model.states": ",".join(MARKOV_STATES),
+           "mst.skip.field.count": "2", "mst.class.label.field.ord": "1",
+           "mst.class.labels": "C,L", "mst.stream.block.size.mb": "4"}
+    jobs = {
+        "bayesianDistr": ("bad", distr, lambda p, out: [run_job(
+            "bayesianDistr", p, [c["churn"]], out + ".csv", device=DEVICE)]),
+        "profile_pipeline_fused": (None, profile, lambda p, out: list(
+            profile_pipeline(p, c["churn"], out, schema_path=c["schema"],
+                             device=DEVICE).run(fuse=True).values())),
+        MARKOV_PATH: ("mst", mst, lambda p, out: [run_job(
+            MARKOV_PATH, p, [c["chains"]], out + ".txt", device=DEVICE)]),
+        "frequentItemsApriori": ("fia", {**ASSOC_PROPS, **ASSOC_BLOCK},
+                                 lambda p, out: [run_job(
+                                     "frequentItemsApriori", p,
+                                     [c["baskets"]], out, device=DEVICE)]),
+        "candidateGenerationWithSelfJoin": (
+            "cgs", {**GSP_PROPS, **GSP_BLOCK}, lambda p, out: [run_job(
+                "candidateGenerationWithSelfJoin", p, [c["seq"]], out,
+                device=DEVICE)]),
+    }
+    secs = {}
+    for name, (prefix, props, run) in jobs.items():
+        files, secs[name] = {}, {}
+        for depth in (2, 1, 8):
+            keys = ([f"{prefix}.stream.prefetch.depth"] if prefix else
+                    [f"{p}.stream.prefetch.depth" for p in ("bad", "mut",
+                                                            "fid")])
+            p = {**props, **{k: str(depth) for k in keys}}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = run(p, str(work / f"{name}_d{depth}"))
+            torch.cuda.synchronize()
+            secs[name][depth] = round(time.perf_counter() - t0, 3)
+            files[depth] = [f for r in results for f in _files_of(r)]
+        check(files[1] == files[2] == files[8] and files[2],
+              f"{name} at stream.prefetch.depth 1 and 8 ({CARD}): "
+              f"{len(files[2])} files byte-identical to depth 2's; "
+              f"seconds {json.dumps(secs[name])}")
+    return secs
+
+
+def phase_stream(rate: float, bf16_flops: float):
+    """The stream path: the bench's stream legs on the card (generated NB
+    at 1e9 rows, generated KNN at 1,000,341,504 train rows, the NB and KNN
+    CSV legs at STREAM_NB_CSV_ROWS and STREAM_KNN_CSV_ROWS), the depth
+    bar, the anchor and vs_baseline. Returns (seconds, the launch counts
+    of the KNN legs, the figures)."""
+    import os
+
+    import torch
+
+    from avenir_tpu_torch.core.dataset import Dataset
+    from avenir_tpu_torch.data import churn_schema
+    from avenir_tpu_torch.native import ingest
+    from avenir_tpu_torch.ops import knn_kernels as kk
+    from avenir_tpu_torch.ops.distance import blocked_topk_neighbors
+    from avenir_tpu_torch.runner import run_job
+    from avenir_tpu_torch.tools import bench
+    from avenir_tpu_torch.tools import knn_tolerance as tol
+
+    work = ROOT / "build" / "chip_smoke_stream"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    dev = torch.device(DEVICE)
+    secs, figs = {}, {}
+    print(f"stream host: torch.get_num_threads() {torch.get_num_threads()}, "
+          f"native parse threads a 4 MB block "
+          f"{ingest.parse_threads(4 << 20)} (a 64 MB block "
+          f"{ingest.parse_threads(64 << 20)}), {os.cpu_count()} CPUs",
+          flush=True)
+
+    # the running merge over the first blocks against the plain exact
+    # top-k of those blocks concatenated (a comparison: not counted)
+    q, t0 = bench.knn_stream_inputs(dev, bench.KNN_STREAM_BLOCK)
+    got = bench.knn_stream_fold(q, bench.rotated_blocks(t0, STREAM_CHECK_BLOCKS))
+    t_cat = torch.cat([torch.roll(t0, i, dims=1)
+                       for i in range(STREAM_CHECK_BLOCKS)])
+    ref_d, ref_i = kk.knn_topk_plain(q, t_cat, K, "euclidean",
+                                     compute_dtype="bfloat16")
+    ref = (ref_d, ref_i.long())
+    why = tol.lanes_agree(q, t_cat, got, ref, kk.lane_pack_bits(t0.shape[0]))
+    ties = int((got[1] != ref[1]).sum())
+    check(not why and bool((got[1] >= 0).all())
+          and bool((got[1] < t_cat.shape[0]).all()),
+          f"knn stream merge over {STREAM_CHECK_BLOCKS} rotated blocks of "
+          f"{t0.shape[0]} rows: within the bfloat16 lane tolerance of "
+          f"knn_topk_plain (bfloat16) over the {t_cat.shape[0]} rows "
+          f"concatenated, {ties} of {ref[1].numel()} indices apart, each a "
+          f"tie" + (f"; {why}" if why else ""))
+    del t_cat, got, ref, ref_d, ref_i
+
+    # the NB generated leg
+    t_leg = time.perf_counter()
+    figs["nb_stream"] = bench.nb_stream_generated(dev, bench.STREAM_ROWS)
+    secs["nb_generated"] = time.perf_counter() - t_leg
+    check(figs["nb_stream"]["class_count_sum"] == bench.STREAM_ROWS,
+          f"NB generated leg ({CARD}): {json.dumps(figs['nb_stream'])}; "
+          f"the class counts sum to {bench.STREAM_ROWS} exactly")
+
+    # the main path of the KNN legs: their launches counted from zero
+    _reset_launches()
+    t_leg = time.perf_counter()
+    knn, best_d, best_i = bench.knn_stream_generated(dev,
+                                                     bench.KNN_STREAM_TRAIN)
+    secs["knn_generated"] = time.perf_counter() - t_leg
+    figs["knn_stream"] = knn
+    n_blocks = bench.KNN_STREAM_TRAIN // bench.KNN_STREAM_BLOCK
+    ops = 2.0 * q.shape[0] * bench.KNN_STREAM_TRAIN * q.shape[1]
+    check(knn["lanes_launches"] == knn["tensor_core_launches"] == n_blocks
+          and bool(torch.isfinite(best_d).all())
+          and bool((best_i >= 0).all())
+          and bool((best_i < bench.KNN_STREAM_TRAIN).all()),
+          f"KNN generated leg ({CARD}): {json.dumps(knn)}; "
+          f"{ops / knn['secs'] / 1e12:.1f} TF/s of the bf16 cross term "
+          f"({ops / knn['secs'] / bf16_flops:.1%} of the peak); every final "
+          f"index in [0, {bench.KNN_STREAM_TRAIN})")
+    del best_d, best_i
+
+    t_leg = time.perf_counter()
+    csv, q_csv, best_d, best_i, path = bench.knn_stream_csv(
+        dev, STREAM_KNN_CSV_ROWS, stream_dir=work)
+    secs["knn_csv"] = time.perf_counter() - t_leg
+    counts = _launch_counts()
+    figs["knn_stream_csv"] = csv
+    full = Dataset.from_csv(str(path), bench.knn_csv_schema(),
+                            engine="native").feature_matrix()
+    rows = full.shape[0]
+    pad = -rows % bench.KNN_CSV_STEP
+    t_all = torch.from_numpy(full).to(dev)
+    del full
+    t_all = torch.cat([t_all, torch.zeros((pad, t_all.shape[1]),
+                                          device=dev)])
+    ref = blocked_topk_neighbors(q_csv, t_all, k=K, block=bench.KNN_CSV_STEP,
+                                 metric="euclidean", n_valid=rows)
+    ref = (ref[0], ref[1].long())
+    why = tol.lanes_agree(q_csv, t_all[:rows], (best_d, best_i), ref,
+                          kk.lane_pack_bits(bench.KNN_CSV_STEP),
+                          fp32_ref=True)
+    check(not why and csv["csv_rows"] == rows,
+          f"KNN CSV leg, {rows} rows ({csv['csv_bytes']} bytes) ({CARD}): "
+          f"{json.dumps(csv)}; the top-{K} within the bfloat16 tolerance of "
+          f"blocked_topk_neighbors in float32 over the whole parsed corpus, "
+          f"{int((best_i != ref[1]).sum())} of {ref[1].numel()} indices "
+          f"apart, each a tie" + (f"; {why}" if why else ""))
+    del t_all, ref, best_d, best_i
+    check(counts["knn_topk_lanes"] >= n_blocks
+          and counts["knn_partial_mma"] == counts["knn_topk_lanes"],
+          f"{STREAM_PATH} launches: {counts}")
+
+    # the NB CSV leg, held to bayesianDistr on the same file
+    t_leg = time.perf_counter()
+    nb_csv, model, path = bench.nb_stream_csv(
+        dev, STREAM_NB_CSV_ROWS, block_bytes=4 << 20, stream_dir=work)
+    secs["nb_csv"] = time.perf_counter() - t_leg
+    figs["nb_stream_csv"] = nb_csv
+    leg_model = work / "nb_leg.csv"
+    model.save(str(leg_model))
+    schema = work / "churn_declared.json"
+    churn_schema().save(str(schema))
+    t_job = time.perf_counter()
+    res = run_job("bayesianDistr",
+                  {"bad.feature.schema.file.path": str(schema),
+                   "bad.stream.block.size.mb": "4",
+                   "bad.stream.prefetch.depth": "1", "csv.engine": "native"},
+                  [str(path)], str(work / "nb_job.csv"), device=DEVICE)
+    secs["nb_csv_job_depth1"] = time.perf_counter() - t_job
+    same = all((work / f"nb_leg.csv{e}").read_bytes()
+               == (work / f"nb_job.csv{e}").read_bytes()
+               for e in ("", ".stamp.json"))
+    check(same and nb_csv["csv_peak_rss_mb"] < 1024
+          and res.counters["Distribution Data:Records"] == STREAM_NB_CSV_ROWS,
+          f"NB CSV leg, {STREAM_NB_CSV_ROWS} rows ({nb_csv['csv_bytes']} "
+          f"bytes, 4 MB blocks) ({CARD}): {json.dumps(nb_csv)}; model and "
+          f"stamp byte-identical to bayesianDistr at stream.prefetch.depth=1 "
+          f"({secs['nb_csv_job_depth1']:.2f}s); peak RSS "
+          f"{nb_csv['csv_peak_rss_mb']:.0f} MB over the leg's start, under "
+          f"1024")
+    path.unlink()
+
+    t_leg = time.perf_counter()
+    secs["depth_bar"] = _depth_bar(work)
+    secs["depth_bar_s"] = time.perf_counter() - t_leg
+
+    anchor = bench.measure_baseline_anchor()
+    nb = bench.bench_naive_bayes(dev, bench.NB_ROWS, 5)
+    knn_d8, _ = bench.bench_knn(dev, 8, bench.KNN_QUERIES, bench.KNN_TRAIN, 5)
+    ratio = bench.vs_baseline(nb["nb_rps"], knn_d8["qps"], bench.KNN_TRAIN,
+                              anchor)
+    figs.update(anchor=anchor, **ratio)
+    check(all(v > 0 for v in (*anchor.values(), *ratio.values())),
+          f"anchor {json.dumps(anchor)}, nb_rps {nb['nb_rps']:.4g}, knn_d8 "
+          f"{knn_d8['qps']:.4g} q/s: {json.dumps(ratio)} ({CARD})")
+    shutil.rmtree(work)
+    return secs, counts, figs
+
+
 def phase_ceiling(rate: float, bf16_flops: float):
     """matmul_ceiling against its plain version at the bench's shape."""
     import numpy as np
@@ -3157,6 +3431,9 @@ def main() -> None:
     t0 = time.perf_counter()
     markov_secs, markov_rows = phase_markov(flops, rate)
     t_markov = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stream_secs, stream_counts, stream_figs = phase_stream(rate, bf16_flops)
+    t_stream = time.perf_counter() - t0
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     print(f"tree and text seconds ({CARD}; phase 10 "
@@ -3171,11 +3448,14 @@ def main() -> None:
           f"{json.dumps(markov_secs)}", flush=True)
     print(f"markov device programs, torch ops, not kernels ({CARD}): "
           f"{json.dumps(markov_rows)}", flush=True)
+    print(f"stream seconds ({CARD}; phase 15 {t_stream:.1f}s): "
+          f"{json.dumps(stream_secs)}", flush=True)
+    print(f"stream figures ({CARD}): {json.dumps(stream_figs)}", flush=True)
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.1f}s "
           f"({CARD})", flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
              BENCH_PATH: bench_counts, PIPE_PATH: pipe_counts,
-             SEQ_PATH: seq_counts}
+             SEQ_PATH: seq_counts, STREAM_PATH: stream_counts}
 
     # each kernel's row at the shape of the path it is reported on: the
     # job's (manhattan, D=6) for the three it runs; the sweep's

@@ -144,7 +144,8 @@ def test_bench_runs_every_section_on_cpu():
     assert (result["metric"], result["device"], result["power_limit"]) == \
         ("port_bench", "cpu", None)
     assert set(result) == {"metric", "device", "power_limit", *BENCH_SECTIONS,
-                           "rf_rls", "rf_levels", "rf_predict_rps"}
+                           "rf_rls", "rf_levels", "rf_predict_rps",
+                           "vs_baseline"}
     # 5 trees of depth 4: every tree reaches its depth on 2,000 rows
     assert result["rf_levels"] == 5 * 4
     assert result["rf_rls"] > 0 and result["rf_predict_rps"] > 0
@@ -257,6 +258,122 @@ def test_bench_bandit_section_on_cpu(capsys):
                        "1000", "--bandit-groups", "500"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["bandit_groups"] == 500
+
+
+def test_bench_nb_stream_csv_counts_equal_jax(tmp_path):
+    """The NB CSV leg at 6,000 rows in 32 KB blocks: its end-to-end model's
+    counts equal the JAX package's NaiveBayesModel streamed over the same
+    file; every rate positive, the overlap a ratio of them."""
+    import numpy as np
+
+    from avenir_tpu.core import stream as jstream
+    from avenir_tpu.core.schema import FeatureSchema as JaxSchema
+    from avenir_tpu.models.naive_bayes import NaiveBayesModel as JaxNB
+    from avenir_tpu_torch.data import churn_schema
+
+    assert (bench.STREAM_ROWS, bench.STREAM_CHUNK, bench.STREAM_CSV_ROWS) \
+        == (1_000_000_000, 8_000_000, 100_000_000)
+    fig, model, path = bench.nb_stream_csv(torch.device("cpu"), 6000,
+                                           block_bytes=32 << 10,
+                                           stream_dir=tmp_path)
+    assert path.read_text().count("\n") == 6000
+    schema = JaxSchema.from_json(churn_schema().to_json())
+    want = JaxNB.empty(schema)
+    for ds in jstream.prefetched(jstream.iter_csv_chunks(
+            str(path), schema, block_bytes=32 << 10)):
+        codes, _ = ds.feature_codes(want.binned_fields)
+        want.accumulate(codes, ds.labels(),
+                        np.zeros((len(ds), 0), np.float32), defer=True)
+    want.flush()
+    np.testing.assert_array_equal(model.post_counts, want.post_counts)
+    np.testing.assert_array_equal(model.class_counts, want.class_counts)
+    assert model.class_counts.sum() == 6000
+    rates = ("csv_rows_per_sec", "csv_parse_rows_per_sec",
+             "csv_fold_rows_per_sec")
+    assert all(fig[r] > 0 for r in rates)
+    assert fig["csv_overlap_efficiency"] == pytest.approx(
+        fig["csv_rows_per_sec"] / min(fig["csv_parse_rows_per_sec"],
+                                      fig["csv_fold_rows_per_sec"]))
+    # a second run finds the cached file by its marker
+    mtime = path.stat().st_mtime_ns
+    bench.nb_stream_csv(torch.device("cpu"), 6000, block_bytes=32 << 10,
+                        stream_dir=tmp_path)
+    assert path.stat().st_mtime_ns == mtime
+
+
+def test_bench_knn_stream_merge_matches_jax_blocked():
+    """The KNN stream's running merge over 4 rotated blocks of 4096 rows
+    (64 queries, D 16, the lane kernel's plain version in float32)
+    against the JAX package's blocked_topk_neighbors over the four blocks
+    concatenated: the same indices, distances within the lane quantum."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from avenir_tpu.ops.distance import blocked_topk_neighbors
+
+    assert (bench.KNN_STREAM_BLOCK, bench.KNN_STREAM_TRAIN,
+            bench.KNN_STREAM_QUERIES, bench.KNN_STREAM_DIM) == \
+        (524_288, 1_000_341_504, 512, 128)
+    assert bench.KNN_STREAM_BLOCK == kk.LANE_CORPUS_CAP
+    q, t0 = bench.knn_stream_inputs(torch.device("cpu"), 4096, 16, 64)
+    got_d, got_i = bench.knn_stream_fold(
+        q, bench.rotated_blocks(t0, 4), compute_dtype="float32")
+    t = torch.cat([torch.roll(t0, i, dims=1) for i in range(4)])
+    ref_d, ref_i = blocked_topk_neighbors(jnp.asarray(q.numpy()),
+                                          jnp.asarray(t.numpy()), k=5,
+                                          block=4096, metric="euclidean")
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+    quantum = 2.0 ** -(23 - kk.lane_pack_bits(4096))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(ref_d),
+                               rtol=quantum, atol=0)
+    assert got_i.dtype == torch.int64 and int(got_i.max()) < 4 * 4096
+
+
+def test_bench_anchor_measures_positive_rates():
+    """measure_baseline_anchor gives finite, positive per-node rates (as
+    tests/test_stream_jobs.py holds the root bench's), and vs_baseline is
+    the geometric mean of the two speedups."""
+    import math
+
+    anchor = bench.measure_baseline_anchor()
+    assert set(anchor) == {"nb_node_rps", "pair_node_pps"}
+    assert math.isfinite(anchor["nb_node_rps"]) and \
+        anchor["nb_node_rps"] > 1e4
+    assert math.isfinite(anchor["pair_node_pps"]) and \
+        anchor["pair_node_pps"] > 1e5
+    ratio = bench.vs_baseline(2e6, 488.28125, 131072, anchor)
+    assert ratio["vs_baseline"] == pytest.approx(2.0)
+    scale = 32 * 0.10
+    assert ratio["vs_baseline_measured_anchor"] == pytest.approx(math.sqrt(
+        2e6 / (scale * anchor["nb_node_rps"]) * 488.28125
+        / (scale * anchor["pair_node_pps"] / 131072)))
+
+
+def test_bench_stream_sections_in_the_json_line(capsys, tmp_path):
+    """Every stream leg and the anchor through the CLI at tiny sizes: the
+    JSON line carries vs_baseline and its anchored form beside the
+    device's name and power limit, and the legs' figures."""
+    assert bench.main(["--device", "cpu", "--nb-rows", "5000", "--queries",
+                       "128", "--train", "1024", "--reps", "1", "--rf-rows",
+                       "1000", "--anchor", "--nb-stream-rows", "20000",
+                       "--nb-stream-csv-rows", "3000", "--knn-stream-train",
+                       "8192", "--knn-csv-rows", "2048", "--stream-dir",
+                       str(tmp_path)]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert (line["device"], line["power_limit"]) == ("cpu", None)
+    assert line["vs_baseline"] > 0 and line["vs_baseline_measured_anchor"] > 0
+    assert line["nb_stream"]["class_count_sum"] == 20000
+    assert line["nb_stream_csv"]["csv_rows"] == 3000
+    assert line["knn_stream"]["train_rows"] == 8192
+    assert line["knn_stream"]["lanes_launches"] == 0     # plain on the CPU
+    assert line["knn_stream_csv"]["csv_rows"] == 2048
+    for leg, rate in (("nb_stream", "gen_rows_per_sec"),
+                      ("nb_stream_csv", "csv_rows_per_sec"),
+                      ("knn_stream", "train_rows_per_sec"),
+                      ("knn_stream_csv", "train_rows_per_sec")):
+        assert line[leg][rate] > 0, leg
 
 
 def test_bench_raises_without_a_device(monkeypatch):
