@@ -1,8 +1,7 @@
-"""Feature exploration: mutual information and the correlation family.
+"""Feature exploration: mutual information, correlations, relevance, samplers.
 
-The port of the mutual-information, class-partition and correlation
-parts of `avenir_tpu/models/explore.py` (org.avenir.explore). Each job is
-a contingency-table or moment reduction over records:
+The port of `avenir_tpu/models/explore.py` (org.avenir.explore). Most jobs
+are a contingency-table or moment reduction over records:
 
 - mutual information and its selection scores (MutualInformation.java,
   MutualInformationScore.java): the chunk's count tables are
@@ -18,7 +17,15 @@ a contingency-table or moment reduction over records:
   tables counted on the device; the Cramér index in float64 numpy, the
   impurities in float32 on the host;
 - numerical correlation: float64 moments on the host, `m.T @ m` in
-  numpy, as the reference has them.
+  numpy, as the reference has them;
+- class affinity and supervised encoding: float64 host arithmetic over
+  the same contingency tables;
+- Relief: each sampled record's nearest hit and miss by a per-class
+  blocked manhattan top-k on the device, the weights on the host;
+- top matches by class: `NeighborIndex` a class (on the card the EXACT
+  top-k kernel);
+- the samplers and the rule evaluator: host numpy, the samplers drawing
+  from the reference's `default_rng` in its order.
 
 Counts are integers, so every table is exact and the same on the CPU and
 the card.
@@ -26,6 +33,8 @@ the card.
 
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -580,3 +589,294 @@ def numerical_correlation(ds: Dataset) -> np.ndarray:
     acc = NumericMomentAccumulator()
     acc.add(ds)
     return acc.correlation()
+
+
+# ---------------------------------------------------------------------------
+# Relief feature relevance
+# ---------------------------------------------------------------------------
+def relief_relevance(ds: Dataset, sample_size: Optional[int] = None,
+                     seed: int = 0, block: int = 8192,
+                     query_block: int = 8192,
+                     device: DeviceLike = None) -> Dict[int, float]:
+    """Relief: w_f += diff_f(x, nearest miss) - diff_f(x, nearest hit),
+    averaged over the sampled records (ReliefFeatureRelevance.java:49).
+
+    Each record's nearest row of every class comes from a per-class
+    blocked manhattan top-k (`ops.distance.blocked_topk_neighbors`, k at
+    most 2) on `device` (default cuda), `query_block` queries at a time;
+    the weights are host numpy over the chosen pairs. An in-class query
+    takes the runner-up (itself, or a duplicate row before it, comes
+    first); a singleton class has no hit. Ranges are the schema's
+    max - min, else the sample's own, at least 1e-12."""
+    from avenir_tpu_torch.ops.distance import (blocked_topk_neighbors,
+                                               pad_train)
+
+    dev = resolve_device(device)
+    n = len(ds)
+    rng = np.random.default_rng(seed)
+    idx = (np.arange(n) if sample_size is None or sample_size >= n
+           else rng.choice(n, sample_size, replace=False))
+    sub = ds.take(idx)
+    y = sub.labels()
+    m = len(sub)
+    k_classes = ds.schema.num_classes()
+
+    num_fields = [f for f in ds.schema.feature_fields if f.is_numeric]
+    cat_fields = [f for f in ds.schema.feature_fields if f.is_categorical]
+    num_cols, ranges = [], []
+    for f in num_fields:
+        col = sub.column(f.ordinal).astype(np.float32)
+        rngf = (f.max - f.min) if f.max is not None and f.min is not None \
+            else (float(col.max() - col.min()) or 1.0)
+        num_cols.append(col)
+        ranges.append(max(rngf, _EPS))
+    x_num = (np.stack(num_cols, axis=1) if num_cols
+             else np.zeros((m, 0), np.float32))
+    ranges_arr = np.asarray(ranges, np.float32)
+    if cat_fields:
+        x_cat = np.stack([sub.column(f.ordinal).astype(np.int32)
+                          for f in cat_fields], axis=1)
+        bins = tuple(len(f.cardinality) for f in cat_fields)
+    else:
+        x_cat, bins = None, None
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    best_d = np.full((m, k_classes), np.inf, np.float32)
+    best_i = np.zeros((m, k_classes), np.int64)
+    q_num = on_dev(x_num) if x_num.shape[1] else None
+    q_cat = on_dev(x_cat) if x_cat is not None else None
+    rng_d = on_dev(ranges_arr) if ranges_arr.size else None
+    for ki in range(k_classes):
+        rows_c = np.flatnonzero(y == ki)
+        if len(rows_c) == 0:
+            continue
+        blk = min(block, len(rows_c))
+        t_num, t_cat, n_valid = pad_train(
+            x_num[rows_c] if x_num.shape[1] else None,
+            x_cat[rows_c] if x_cat is not None else None, blk)
+        kk = min(2, len(rows_c))
+        t_num_d = on_dev(t_num) if t_num is not None else None
+        t_cat_d = on_dev(t_cat) if t_cat is not None else None
+        for qs in range(0, m, query_block):
+            qe = min(qs + query_block, m)
+            dist, nidx = blocked_topk_neighbors(
+                q_num[qs:qe] if q_num is not None else None, t_num_d,
+                q_cat[qs:qe] if q_cat is not None else None, t_cat_d,
+                cat_bins=bins, num_ranges=rng_d, k=kk, block=blk,
+                metric="manhattan", n_valid=n_valid)
+            dist, nidx = dist.cpu().numpy(), nidx.cpu().numpy()
+            in_c = y[qs:qe] == ki
+            sel = np.where(in_c, kk - 1, 0)
+            r = np.arange(qe - qs)
+            d = dist[r, sel]
+            j = nidx[r, sel]
+            if kk == 1:
+                d = np.where(in_c, np.inf, d)
+            best_d[qs:qe, ki] = d
+            best_i[qs:qe, ki] = rows_c[np.clip(j, 0, len(rows_c) - 1)]
+
+    rows = np.arange(m)
+    hit_i = best_i[rows, y]
+    hit_ok = np.isfinite(best_d[rows, y])
+    miss_view = best_d.copy()
+    miss_view[rows, y] = np.inf
+    miss_cls = miss_view.argmin(axis=1)
+    miss_i = best_i[rows, miss_cls]
+    miss_ok = np.isfinite(miss_view[rows, miss_cls])
+    valid = hit_ok & miss_ok
+    if not valid.any():
+        return {f.ordinal: 0.0 for f in num_fields + cat_fields}
+    weights = {}
+    for fi, f in enumerate(num_fields):
+        col = x_num[:, fi]
+        d_hit = np.abs(col - col[hit_i]) / ranges_arr[fi]
+        d_miss = np.abs(col - col[miss_i]) / ranges_arr[fi]
+        weights[f.ordinal] = float((d_miss - d_hit)[valid].mean())
+    for fi, f in enumerate(cat_fields):
+        col = x_cat[:, fi]
+        d_hit = (col != col[hit_i]).astype(np.float32)
+        d_miss = (col != col[miss_i]).astype(np.float32)
+        weights[f.ordinal] = float((d_miss - d_hit)[valid].mean())
+    return weights
+
+
+# ---------------------------------------------------------------------------
+# class affinity + supervised encoding
+# ---------------------------------------------------------------------------
+def class_affinity_from_table(tab: np.ndarray, fld: FeatureField,
+                              class_values: Sequence[str], top_n: int = 3
+                              ) -> Dict[str, List[Tuple[str, float]]]:
+    """Per class, the top-n values of a [B, K] contingency table by
+    P(value | class), float64; ties in numpy's default argsort order."""
+    cls_tot = tab.sum(axis=0)
+    out = {}
+    for ki, cv in enumerate(class_values):
+        p = tab[:, ki] / max(cls_tot[ki], _EPS)
+        order = np.argsort(-p)[:top_n]
+        out[cv] = [(fld.cardinality[b], float(p[b])) for b in order
+                   if b < len(fld.cardinality)]
+    return out
+
+
+def class_affinity(ds: Dataset, fld: FeatureField, top_n: int = 3,
+                   device: DeviceLike = None
+                   ) -> Dict[str, List[Tuple[str, float]]]:
+    """Per class: top-n categorical values by P(value | class)
+    (CategoricalClassAffinity.java:51), counted on `device`. The table is
+    float32 here, as the reference's single-dataset form divides its
+    int32 table in float32 (the jobs fold float64 tables)."""
+    return class_affinity_from_table(
+        contingency(ds, fld, device).astype(np.float32), fld,
+        ds.schema.class_values(), top_n)
+
+
+def supervised_encoding_from_table(tab: np.ndarray, fld: FeatureField,
+                                   classes: Sequence[str],
+                                   strategy: str = "supervisedRatio",
+                                   pos_class: Optional[str] = None
+                                   ) -> Dict[str, float]:
+    """Categorical value -> continuous code from a [B, K] contingency
+    table (CategoricalContinuousEncoding.java:47): supervisedRatio is
+    count(value, pos) / count(value); weightOfEvidence is
+    ln((count(value, pos) / total_pos) / (count(value, neg) / total_neg))
+    with a 0.5 continuity correction. The positive class is
+    `pos_class`, else the class at index 1."""
+    pi = classes.index(pos_class) if pos_class else 1
+    pos = tab[:, pi]
+    neg = tab.sum(axis=1) - pos
+    total_pos = max(pos.sum(), _EPS)
+    total_neg = max(neg.sum(), _EPS)
+    out = {}
+    for b, value in enumerate(fld.cardinality[:tab.shape[0]]):
+        if strategy == "weightOfEvidence":
+            num = max(pos[b], 0.5) / total_pos
+            den = max(neg[b], 0.5) / total_neg
+            out[value] = math.log(num / den)
+        else:
+            out[value] = float(pos[b] / max(pos[b] + neg[b], _EPS))
+    return out
+
+
+def supervised_encoding(ds: Dataset, fld: FeatureField,
+                        strategy: str = "supervisedRatio",
+                        pos_class: Optional[str] = None,
+                        device: DeviceLike = None) -> Dict[str, float]:
+    """supervised_encoding_from_table of one dataset's table, float32 as
+    in `class_affinity`."""
+    return supervised_encoding_from_table(
+        contingency(ds, fld, device).astype(np.float32), fld,
+        ds.schema.class_values(), strategy, pos_class)
+
+
+# ---------------------------------------------------------------------------
+# samplers: host numpy draws, the reference's generator in its order
+# ---------------------------------------------------------------------------
+def undersample_balance(ds: Dataset, seed: int = 0) -> Dataset:
+    """Undersample every class to the smallest present class's count, rows
+    kept in file order (UnderSamplingBalancer.java:45)."""
+    y = ds.labels()
+    rng = np.random.default_rng(seed)
+    counts = np.bincount(y, minlength=ds.schema.num_classes())
+    target = counts[counts > 0].min()
+    keep = []
+    for c in range(len(counts)):
+        rows = np.flatnonzero(y == c)
+        if len(rows) > target:
+            rows = rng.choice(rows, target, replace=False)
+        keep.append(rows)
+    return ds.take(np.sort(np.concatenate(keep)))
+
+
+def bagging_sample(ds: Dataset, rate: float = 1.0, seed: int = 0) -> Dataset:
+    """Bootstrap sample of int(n * rate) rows (BaggingSampler.java:47)."""
+    rng = np.random.default_rng(seed)
+    n = len(ds)
+    return ds.take(rng.integers(0, n, int(n * rate)))
+
+
+# ---------------------------------------------------------------------------
+# top matches by class + rule evaluation
+# ---------------------------------------------------------------------------
+def top_matches_by_class(ds: Dataset, k: int = 3, block: int = 4096,
+                         query_block: int = 16384, device: DeviceLike = None
+                         ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """Per class with at least two rows: each of its records' k nearest
+    same-class rows (TopMatchesByClass.java:47), as (dist [m, k], dataset
+    row index [m, k]); row r is the class's r-th record in file order.
+    The search is `NeighborIndex` over the class (manhattan, k + 1 capped
+    at the class size; on the card the EXACT top-k kernel), queries
+    `query_block` at a time; the first neighbour, taken to be the record
+    itself, is dropped."""
+    from avenir_tpu_torch.models.knn import NeighborIndex
+
+    dev = resolve_device(device)
+    y = ds.labels()
+    out = {}
+    for ki, cv in enumerate(ds.schema.class_values()):
+        rows = np.flatnonzero(y == ki)
+        if len(rows) < 2:
+            continue
+        sub = ds.take(rows)
+        index = NeighborIndex(sub, k=min(k + 1, len(rows)), block=block,
+                              device=dev)
+        dists, idxs = [], []
+        for qs in range(0, len(rows), query_block):
+            d, i = index.neighbors(sub.take(np.arange(
+                qs, min(qs + query_block, len(rows)), dtype=np.int32)))
+            dists.append(d.cpu().numpy())
+            idxs.append(i.cpu().numpy())
+        dist = np.concatenate(dists)
+        idx = np.concatenate(idxs)
+        out[cv] = (dist[:, 1:], rows[idx[:, 1:]])
+    return out
+
+
+@dataclass
+class Rule:
+    """condition => consequence, each a conjunction of "attr op value"
+    predicates, op one of eq, ne, gt, ge, lt, le, in (RuleEvaluator.java:48,
+    util/RuleExpression.java). Evaluated on the host: a categorical eq/ne
+    raises KeyError on a value outside the vocabulary, `in` skips it;
+    numeric compares are float64."""
+
+    condition: List[str]
+    consequence: List[str]
+
+    @staticmethod
+    def _eval_one(ds: Dataset, expr: str) -> np.ndarray:
+        toks = expr.strip().split(None, 2)
+        attr, op, val = int(toks[0]), toks[1], toks[2]
+        fld = ds.schema.field_by_ordinal(attr)
+        col = ds.column(attr)
+        if fld.is_categorical:
+            index = fld.cardinality_index()
+            if op == "in":
+                codes = [index[v] for v in val.split(":") if v in index]
+                return np.isin(col.astype(np.int64), codes)
+            m = col.astype(np.int64) == index[val]
+            return m if op == "eq" else ~m
+        x = col.astype(np.float64)
+        v = float(val)
+        return {"eq": x == v, "ne": x != v, "gt": x > v, "ge": x >= v,
+                "lt": x < v, "le": x <= v}[op]
+
+    def counts(self, ds: Dataset) -> Tuple[int, int, int]:
+        """(rows, conditionCount, bothCount) of one chunk: additive."""
+        cond = np.ones(len(ds), bool)
+        for e in self.condition:
+            cond &= self._eval_one(ds, e)
+        cons = np.ones(len(ds), bool)
+        for e in self.consequence:
+            cons &= self._eval_one(ds, e)
+        return len(ds), int(cond.sum()), int((cond & cons).sum())
+
+    @staticmethod
+    def finalize(n: int, cond: int, both: int) -> Dict[str, float]:
+        return {"support": float(both / n if n else 0.0),
+                "confidence": float(both / max(cond, 1)),
+                "conditionCount": cond, "bothCount": both}
+
+    def evaluate(self, ds: Dataset) -> Dict[str, float]:
+        return self.finalize(*self.counts(ds))

@@ -47,6 +47,8 @@ LIBRARIES = {
                        [_P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P]),
     "subseq_support": ("subseq_support.cu", "subseq_support_launch",
                        [_P, _I, _I, _P, _I, _I, _P, _P, _P]),
+    "centre_sums": ("centre_sums.cu", "centre_sums_launch",
+                    [_P, _I, _I, _P, _I, _P, _P]),
 }
 _TOPK_ARGS = LIBRARIES["knn_topk"][2]
 _CLASSIFY_ARGS = LIBRARIES["knn_classify"][2]

@@ -11,7 +11,7 @@ over attributes.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +45,8 @@ def pairwise_distance(q_num: Optional[torch.Tensor], t_num: Optional[torch.Tenso
                       metric: str = "manhattan",
                       num_weights: Optional[torch.Tensor] = None,
                       cat_weights: Optional[Sequence[float]] = None,
-                      divide: bool = False) -> torch.Tensor:
+                      divide: bool = False,
+                      cross: Optional[Callable] = None) -> torch.Tensor:
     """Dense [nq, nt] weight-averaged distance block.
 
     Numeric columns are divided by their range (max - min); 'euclidean'
@@ -60,7 +61,11 @@ def pairwise_distance(q_num: Optional[torch.Tensor], t_num: Optional[torch.Tenso
     (RecordSimilarity) does; by default the block is multiplied by the
     total's fp32 reciprocal, as XLA compiles the reference's jitted call
     (the KNN route), where the total is a constant. The two differ in
-    the last bit on about a fifth of the pairs."""
+    the last bit on about a fifth of the pairs.
+
+    cross(a, b) gives the euclidean cross term a @ b.T; by default the
+    matrix product, whose order differs between the CPU and the card.
+    `ops/xla_math.inner_dot` gives the same bits on both."""
     has_num = q_num is not None and q_num.shape[-1] > 0
     ref = q_num if has_num else q_cat
     dev = ref.device
@@ -83,7 +88,8 @@ def pairwise_distance(q_num: Optional[torch.Tensor], t_num: Optional[torch.Tenso
         if metric == "euclidean":
             sq = (_column_sum(qs * qs)[:, None]
                   + _column_sum(ts * ts)[None, :])
-            d_total = d_total + torch.clamp(sq - 2.0 * (qs @ ts.T), min=0.0)
+            qt = qs @ ts.T if cross is None else cross(qs, ts)
+            d_total = d_total + torch.clamp(sq - 2.0 * qt, min=0.0)
         else:
             d_total = d_total + _column_sum(
                 (qs[:, c, None] - ts[None, :, c]).abs() for c in range(dn))

@@ -22,13 +22,21 @@ ported so far: `nearestNeighbor` (org.avenir.knn.NearestNeighbor),
 `viterbiStatePredictor` and `probabilisticSuffixTree` (org.avenir.markov),
 `stateTransitionRate` and `contTimeStateTransitionStats`
 (org.avenir.spark.markov) and `eventTimeDistribution`
-(org.avenir.spark.sequence), and `Stage` / `Pipeline`, which chain them
+(org.avenir.spark.sequence), the rest of org.avenir.explore
+(`ruleEvaluator`, `reliefFeatureRelevance`, `categoricalClassAffinity`,
+`categoricalContinuousEncoding`, `topMatchesByClass`,
+`underSamplingBalancer`, `baggingSampler`), `agglomerativeGraphical` and
+`clusterTrain` (alias `kmeansCluster`; org.avenir.cluster and the python
+layer's cluster.py), `logisticRegression` (org.avenir.regress): all 45
+jobs of the reference; and `Stage` / `Pipeline`, which chain them
 as the reference's shell scripts did. A job reads the reference's
 namespaced keys (`nen.*`, `bad.*`, `bap.*`, `sts.*`, `grs.*`, `fcb.*`,
 `mut.*`, `fid.*`, `crc.*`, `cac.*`, `hrc.*`, `nuc.*`, `cpg.*`, `dtb.*`,
 `dap.*`, `wco.*`, `fia.*`, `arm.*`, `iim.*`, `cgs.*`, `spc.*`, `seg.*`,
 `grb.*`, `aue.*`, `rfg.*`, `smb.*`, `mst.*`, `mmc.*`, `hmmb.*`, `vsp.*`,
-`pstg.*`, `str.*`, `cts.*`, `etd.*`) from one flat properties file and
+`pstg.*`, `str.*`, `cts.*`, `etd.*`, `rue.*`, `ffr.*`, `cca.*`, `coe.*`,
+`tmc.*`, `usb.*`, `bas.*`, `agg.*`, `train.*`, `lrj.*`) from one flat
+properties file and
 runs in-process on the device the caller names — ``cuda`` unless
 ``device="cpu"`` is passed.
 
@@ -1249,13 +1257,17 @@ def fisher_job(cfg: JobConfig, inputs: List[str], output: str,
 
 
 def _contingency(name: str, cfg: JobConfig, inputs: List[str],
-                 device: torch.device):
-    """The ContingencyAccumulator of every chunk of `inputs`."""
+                 device: torch.device,
+                 schema: Optional[FeatureSchema] = None):
+    """The ContingencyAccumulator of every chunk of `inputs`, parsed
+    against `schema` (the job's own by default), whose discovered
+    vocabularies grow as the chunks arrive."""
     from avenir_tpu_torch.core.stream import stream_job_inputs
     from avenir_tpu_torch.models.explore import ContingencyAccumulator
 
     acc = ContingencyAccumulator(device)
-    _drive_fold(acc.add, stream_job_inputs(cfg, inputs, _schema(cfg)), name)
+    _drive_fold(acc.add, stream_job_inputs(cfg, inputs, schema or _schema(cfg)),
+                name)
     if acc.n == 0:
         raise ValueError(f"{name}: empty input (no records in {inputs})")
     return acc
@@ -1335,6 +1347,299 @@ def numerical_corr_job(cfg: JobConfig, inputs: List[str], output: str,
                         fh.write(f"{oi}{delim}{oj}{delim}{corr[i, j]:.6f}\n")
                 fh.write(f"{oi}{delim}class{delim}{corr[i, -1]:.6f}\n")
     return JobResult("numericalCorrelation", {"Basic:Records": acc.n}, [out])
+
+
+@job("ruleEvaluator", "rue", "org.avenir.explore.RuleEvaluator")
+def rule_evaluator(cfg: JobConfig, inputs: List[str], output: str,
+                   device: torch.device) -> JobResult:
+    """Support and confidence of each `rue.rule.<name>` definition
+    `cond1 & cond2 => cons` (RuleEvaluator.java:48): every rule's
+    (rows, cond, both) counts fold a chunk at a time on the host."""
+    from avenir_tpu_torch.core.stream import stream_job_inputs
+    from avenir_tpu_torch.models.explore import Rule
+
+    names = cfg.assert_list("rule.names")
+    cond_delim = cfg.get("cond.delim", "&")
+    rules = {}
+    for name in names:
+        expr = cfg.assert_get(f"rule.{name}")
+        if expr.count("=>") != 1:
+            raise ValueError(
+                f"{cfg.prefix}.rule.{name} must contain exactly one '=>' "
+                f"(cond => cons), got: {expr!r}")
+        cond_part, cons_part = expr.split("=>")
+        rules[name] = Rule(
+            [c.strip() for c in cond_part.split(cond_delim) if c.strip()],
+            [c.strip() for c in cons_part.split(cond_delim) if c.strip()])
+    totals = {name: [0, 0, 0] for name in names}
+
+    def fold(chunk: Dataset) -> None:
+        for name, rule in rules.items():
+            for i, v in enumerate(rule.counts(chunk)):
+                totals[name][i] += v
+
+    _drive_fold(fold, stream_job_inputs(cfg, inputs, _schema(cfg)),
+                "ruleEvaluator")
+    rows = totals[names[0]][0]
+    if rows == 0:
+        raise ValueError(f"ruleEvaluator: empty input (no records in {inputs})")
+    with obs.span("job.finish", job="ruleEvaluator"):
+        out = _out_file(output)
+        delim = cfg.field_delim
+        with open(out, "w") as fh:
+            for name in names:
+                res = Rule.finalize(*totals[name])
+                fh.write(f"{name}{delim}{res['support']:.6f}{delim}"
+                         f"{res['confidence']:.6f}\n")
+    return JobResult("ruleEvaluator", {"Basic:Records": rows}, [out])
+
+
+@job("reliefFeatureRelevance", "ffr",
+     "org.avenir.explore.ReliefFeatureRelevance")
+def relief_job(cfg: JobConfig, inputs: List[str], output: str,
+               device: torch.device) -> JobResult:
+    """Relief relevance of each feature over `ffr.sample.size` seeded
+    records (all of them by default), the nearest hits and misses found
+    on the device."""
+    from avenir_tpu_torch.core.stream import read_dataset
+    from avenir_tpu_torch.models.explore import relief_relevance
+
+    ds = read_dataset(cfg, inputs[0], _schema(cfg))
+    with obs.span("stream.fold", sink="reliefFeatureRelevance"):
+        rel = relief_relevance(ds, sample_size=cfg.get_int("sample.size"),
+                               device=device)
+    outputs = _write_by_ordinal("reliefFeatureRelevance", cfg, output, rel,
+                                0).outputs
+    return JobResult("reliefFeatureRelevance", {}, outputs)
+
+
+def _categorical_tables(name: str, cfg: JobConfig, inputs: List[str],
+                        output: str, device: torch.device, rows_of):
+    """Each categorical field's contingency table folded over `inputs`,
+    `rows_of(fld, table, class_values)` its output lines, written in
+    ordinal order."""
+    schema = _schema(cfg)
+    acc = _contingency(name, cfg, inputs, device, schema)
+    with obs.span("job.finish", job=name):
+        out = _out_file(output)
+        with open(out, "w") as fh:
+            for fld in schema.feature_fields:
+                if fld.is_categorical and fld.ordinal in acc.tables:
+                    fh.writelines(rows_of(fld, acc.tables[fld.ordinal],
+                                          schema.class_values()))
+    return JobResult(name, {"Basic:Records": acc.n}, [out])
+
+
+@job("categoricalClassAffinity", "cca",
+     "org.avenir.explore.CategoricalClassAffinity")
+def class_affinity_job(cfg: JobConfig, inputs: List[str], output: str,
+                       device: torch.device) -> JobResult:
+    """Per categorical field and class, the `cca.top.count` values (3 by
+    default) most probable given the class."""
+    from avenir_tpu_torch.models.explore import class_affinity_from_table
+
+    top_n = cfg.get_int("top.count", 3)
+    delim = cfg.field_delim
+
+    def rows_of(fld, tab, classes):
+        aff = class_affinity_from_table(tab, fld, classes, top_n)
+        return [f"{fld.ordinal}{delim}{cv}{delim}{val}{delim}{score:.6f}\n"
+                for cv, pairs in aff.items() for val, score in pairs]
+
+    return _categorical_tables("categoricalClassAffinity", cfg, inputs,
+                               output, device, rows_of)
+
+
+@job("categoricalContinuousEncoding", "coe",
+     "org.avenir.explore.CategoricalContinuousEncoding")
+def supervised_encoding_job(cfg: JobConfig, inputs: List[str], output: str,
+                            device: torch.device) -> JobResult:
+    """Each categorical value's code under `coe.encoding.strategy`
+    (supervisedRatio, or weightOfEvidence) against
+    `coe.pos.class.attr.value` (the second class by default)."""
+    from avenir_tpu_torch.models.explore import supervised_encoding_from_table
+
+    strategy = cfg.get("encoding.strategy", "supervisedRatio")
+    pos = cfg.get("pos.class.attr.value")
+    delim = cfg.field_delim
+
+    def rows_of(fld, tab, classes):
+        enc = supervised_encoding_from_table(tab, fld, classes,
+                                             strategy=strategy, pos_class=pos)
+        return [f"{fld.ordinal}{delim}{val}{delim}{code:.6f}\n"
+                for val, code in enc.items()]
+
+    return _categorical_tables("categoricalContinuousEncoding", cfg, inputs,
+                               output, device, rows_of)
+
+
+@job("topMatchesByClass", "tmc", "org.avenir.explore.TopMatchesByClass")
+def top_matches_job(cfg: JobConfig, inputs: List[str], output: str,
+                    device: torch.device) -> JobResult:
+    """Each record's `tmc.top.match.count` nearest same-class records
+    (3 by default), `class,id,id:dist,...` with 4-decimal distances."""
+    from avenir_tpu_torch.core.stream import read_dataset
+    from avenir_tpu_torch.models.explore import top_matches_by_class
+
+    ds = read_dataset(cfg, inputs[0], _schema(cfg))
+    with obs.span("stream.fold", sink="topMatchesByClass"):
+        matches = top_matches_by_class(
+            ds, k=cfg.get_int("top.match.count", 3), device=device)
+    n = 0
+    with obs.span("job.finish", job="topMatchesByClass"):
+        out = _out_file(output)
+        delim = cfg.field_delim
+        ids = ds.ids()
+        y = ds.labels()
+        cls_vals = ds.schema.class_values()
+        with open(out, "w") as fh:
+            for cv, (dist, idx) in matches.items():
+                rows = np.flatnonzero(y == cls_vals.index(cv))
+                for r in range(dist.shape[0]):
+                    fh.write(delim.join(
+                        [cv, str(ids[rows[r]])]
+                        + [f"{ids[idx[r, j]]}:{dist[r, j]:.4f}"
+                           for j in range(dist.shape[1])]) + "\n")
+                    n += 1
+    return JobResult("topMatchesByClass", {"Basic:Records": n}, [out])
+
+
+def _sampler(name: str, cfg: JobConfig, inputs: List[str], output: str,
+             draw) -> JobResult:
+    """A map-only row sampler: the rows `draw` keeps, passed through
+    byte-identical."""
+    from avenir_tpu_torch.core.stream import read_dataset
+
+    ds = read_dataset(cfg, inputs[0], _schema(cfg), keep_raw=True)
+    sampled = draw(ds)
+    with obs.span("job.finish", job=name):
+        out = _out_file(output)
+        with open(out, "w") as fh:
+            fh.write(sampled.to_csv(cfg.field_delim) if len(sampled) else "")
+    return JobResult(name, {"Basic:Records": len(sampled)}, [out])
+
+
+@job("underSamplingBalancer", "usb",
+     "org.avenir.explore.UnderSamplingBalancer")
+def undersampling_job(cfg: JobConfig, inputs: List[str], output: str,
+                      device: torch.device) -> JobResult:
+    """Every class undersampled to the smallest one's count (`usb.seed`)."""
+    from avenir_tpu_torch.models.explore import undersample_balance
+
+    return _sampler("underSamplingBalancer", cfg, inputs, output,
+                    lambda ds: undersample_balance(
+                        ds, seed=cfg.get_int("seed", 0)))
+
+
+@job("baggingSampler", "bas", "org.avenir.explore.BaggingSampler")
+def bagging_job(cfg: JobConfig, inputs: List[str], output: str,
+                device: torch.device) -> JobResult:
+    """A bootstrap sample of `bas.sample.rate` x n rows (`bas.seed`)."""
+    from avenir_tpu_torch.models.explore import bagging_sample
+
+    return _sampler("baggingSampler", cfg, inputs, output,
+                    lambda ds: bagging_sample(
+                        ds, rate=cfg.get_float("sample.rate", 1.0),
+                        seed=cfg.get_int("seed", 0)))
+
+
+# ==================================================================== cluster
+@job("agglomerativeGraphical", "agg",
+     "org.avenir.cluster.AgglomerativeGraphical")
+def agglomerative_job(cfg: JobConfig, inputs: List[str], output: str,
+                      device: torch.device) -> JobResult:
+    """Greedy agglomerative clustering over a pairwise-distance file
+    (`agg.distance.file.path`, else the input; AgglomerativeGraphical.java:
+    108): `id,cluster` a line in id order."""
+    from avenir_tpu_torch.models.cluster import AgglomerativeGraphical
+    from avenir_tpu_torch.models.similarity import (distance_matrix_from_file,
+                                                    read_distance_file)
+
+    dist_path = cfg.get("distance.file.path") or inputs[0]
+    t0 = obs.now()
+    pairs = read_distance_file(dist_path, delim=cfg.field_delim_regex,
+                               scale=cfg.get_int("distance.scale", 1000))
+    obs.record("stream.read", t0, path=dist_path)
+    ids = sorted({a for a, _ in pairs})
+    with obs.span("stream.fold", sink="agglomerativeGraphical"):
+        model = AgglomerativeGraphical(
+            num_clusters=cfg.get_int("num.clusters", 2),
+            max_avg_distance=cfg.get_float("max.avg.distance"),
+        ).fit(distance_matrix_from_file(dist_path, ids, pairs=pairs))
+    with obs.span("job.finish", job="agglomerativeGraphical"):
+        out = _out_file(output)
+        delim = cfg.field_delim
+        with open(out, "w") as fh:
+            for i, rid in enumerate(ids):
+                fh.write(f"{rid}{delim}{int(model.labels_[i])}\n")
+    return JobResult("agglomerativeGraphical",
+                     {"Cluster:Count": len(set(model.labels_.tolist()))},
+                     [out])
+
+
+@job("clusterTrain", "train", "kmeansCluster")
+def cluster_train_job(cfg: JobConfig, inputs: List[str], output: str,
+                      device: torch.device) -> JobResult:
+    """k-means (`train.num.clusters`, `train.num.iters`) or DBSCAN
+    (`train.eps`, `train.min.samples`) over the schema's numeric features
+    (unsupv/cluster.py:24-60): `id,label` a row, and the cohesion of the
+    labels as `Cluster:Cohesion`."""
+    from avenir_tpu_torch.core.stream import read_dataset
+    from avenir_tpu_torch.models.cluster import (DBSCAN, KMeans, cohesion,
+                                                 dataset_distance_matrix)
+
+    ds = read_dataset(cfg, inputs[0], _schema(cfg))
+    x = ds.feature_matrix()
+    algo = cfg.get("algo", "kmeans")
+    with obs.span("stream.fold", sink="clusterTrain"):
+        if algo == "kmeans":
+            labels = KMeans(k=cfg.get_int("num.clusters", 3),
+                            iters=cfg.get_int("num.iters", 100),
+                            device=device).fit(x).labels_
+        elif algo == "dbscan":
+            labels = DBSCAN(eps=cfg.get_float("eps", 0.5),
+                            min_samples=cfg.get_int("min.samples", 4)).fit(
+                dataset_distance_matrix(ds, device=device)).labels_
+        else:
+            raise ValueError(f"unknown cluster algo {algo!r}")
+    with obs.span("job.finish", job="clusterTrain"):
+        out = _out_file(output)
+        delim = cfg.field_delim
+        with open(out, "w") as fh:
+            for rid, lab in zip(ds.ids(), labels):
+                fh.write(f"{rid}{delim}{int(lab)}\n")
+        coh = (float(cohesion(x, np.asarray(labels)))
+               if len(set(labels)) > 1 else 0.0)
+    return JobResult("clusterTrain", {"Cluster:Cohesion": coh}, [out])
+
+
+# ==================================================================== regress
+@job("logisticRegression", "lrj", "org.avenir.regress.LogisticRegressionJob")
+def logistic_regression_job(cfg: JobConfig, inputs: List[str], output: str,
+                            device: torch.device) -> JobResult:
+    """In-process epochs for the reference's loop of MR jobs
+    (LogisticRegressionJob.java:95-119): the coefficient history goes to
+    `lrj.coeff.file.path` (else `coeff.txt` in the output), and the
+    CONVERGED (100) / NOT_CONVERGED (101) exit status to
+    `Regression:ExitStatus`."""
+    from avenir_tpu_torch.core.stream import read_dataset
+    from avenir_tpu_torch.models.regress import LogisticRegression
+
+    ds = read_dataset(cfg, inputs[0], _schema(cfg))
+    with obs.span("stream.fold", sink="logisticRegression"):
+        lr = LogisticRegression(
+            iteration_limit=cfg.get_int("iteration.limit", 10),
+            convergence_criteria=cfg.get("convergence.criteria", "iterLimit"),
+            convergence_threshold=cfg.get_float("convergence.threshold", 5.0),
+            pos_class=cfg.get("positive.class.value"),
+            device=device).fit(ds)
+    with obs.span("job.finish", job="logisticRegression"):
+        coeff_path = cfg.get("coeff.file.path") or _out_file(output,
+                                                             "coeff.txt")
+        lr.save_coeff_history(coeff_path, delim=cfg.field_delim)
+    return JobResult("logisticRegression",
+                     {"Regression:ExitStatus": lr.check_convergence()},
+                     [coeff_path])
 
 
 # ======================================================================= tree

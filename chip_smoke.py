@@ -261,11 +261,32 @@ Phases, each printing a line per check; any failed check exits non-zero:
    as those phases write them, at stream.prefetch.depth 2, 1 and 8, every
    file of depths 1 and 8 byte-identical to depth 2's. Then the measured
    anchor and vs_baseline (the bench's NB and d=8 KNN sections again).
+16. The last ten jobs (after phase 15), each on the card and against its
+   CPU twin, every file byte-identical but LR's coeff.txt (every printed
+   cell within LR_CARD_ATOL of the twin's): ruleEvaluator,
+   categoricalClassAffinity and categoricalContinuousEncoding
+   (supervisedRatio, weightOfEvidence) on 1,000,000 churn rows streamed
+   in 4 MB blocks; underSamplingBalancer and baggingSampler on 200,000;
+   reliefFeatureRelevance on 1,000,000 e-learning rows with sample.size
+   20,000; topMatchesByClass on 200,000 e-learning rows on the card (its
+   EXACT top-k launches counted from zero, and the kernel against
+   `knn_topk_plain` on one of its query blocks) and on their first
+   20,000 on both devices; logisticRegression on 1,000,000 rows
+   (iteration.limit 10, and allBelowThreshold) under torch.profiler
+   (`regress::lr_grad`); clusterTrain k-means (k=3, 100 iterations) on
+   1,000,000 rows under torch.profiler (`cluster::kmeans_step`, its
+   `centre_sums` launches counted from zero) and DBSCAN on 5,000;
+   agglomerativeGraphical on the recordSimilarity file of 200 e-learning
+   rows. Each job's seconds, and the two device ranges' device seconds
+   beside their bounds and share of their job (k-means' also its range's
+   host seconds and its fold's host share); then `centre_sums` against
+   its plain version and `index_add_` at the k-means job's shape.
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth, phase 12's GSP runs the fifth, phase 15's
-KNN stream legs the sixth: each kernel's launches are counted from zero
-on each path. Then one JSON
+KNN stream legs the sixth, phase 16's topMatchesByClass the seventh and
+its k-means the eighth: each
+kernel's launches are counted from zero on each path. Then one JSON
 line of per-kernel numbers (the pre-pass beside the five kernels, at the
 sweep's D=128 float32; the tensor-core form at the bench's D=128
 bfloat16; the two merge kernels at the job's shape), and as the last line
@@ -359,6 +380,14 @@ MARKOV_PATH = "markovStateTransitionModel"
 STREAM_PATH = "knn_stream"
 STREAM_NB_CSV_ROWS, STREAM_KNN_CSV_ROWS = 20_000_000, 500_000
 STREAM_CHECK_BLOCKS = 8
+#: phase 16: the paths of the EXACT top-k and centre-sum launches, the
+#: rows of its jobs, and how far a printed LR coefficient of the card may
+#: lie from its CPU twin's (one unit of the sixth decimal)
+TMC_PATH, KMEANS_PATH = "topMatchesByClass", "clusterTrain"
+LAST_ROWS, LAST_SAMPLER_ROWS, LAST_TMC_ROWS, LAST_TWIN_ROWS = (
+    1_000_000, 200_000, 200_000, 20_000)
+LAST_DBSCAN_ROWS, LAST_AGG_ROWS, LAST_SEED = 5_000, 200, 41
+LR_CARD_ATOL = 1e-6
 #: nvidia-smi's name and power limit of the card (phase 1)
 CARD = ""
 
@@ -992,11 +1021,13 @@ def _check_prepass_shapes():
 
 
 def _wrappers():
+    from avenir_tpu_torch.ops import cluster_kernels as ck
     from avenir_tpu_torch.ops import knn_kernels as kk
     from avenir_tpu_torch.ops import matmul_ceiling as mc
     from avenir_tpu_torch.ops import sequence_kernels as sk
 
-    return kk.COUNTED_WRAPPERS + mc.KERNEL_WRAPPERS + sk.KERNEL_WRAPPERS
+    return (kk.COUNTED_WRAPPERS + mc.KERNEL_WRAPPERS + sk.KERNEL_WRAPPERS
+            + ck.KERNEL_WRAPPERS)
 
 
 def _reset_launches() -> None:
@@ -2238,7 +2269,10 @@ def _profiled(what: str, run, label: str, kernel: str = None) -> tuple:
     info = {"seconds": round(secs, 4), "kernel_s": kern / 1e6,
             "device_s": (kern + copy) / 1e6,
             "device_busy_share": (kern + copy) / 1e6 / secs,
-            "round_device_s": rounds, "split": _span_split(rec, secs)}
+            "round_device_s": rounds, "round_wall_s": [
+                ev.time_range.elapsed_us() / 1e6 for ev in prof.events()
+                if ev.name == label and str(ev.device_type).endswith("CPU")],
+            "split": _span_split(rec, secs)}
     if kernel is not None:
         info["round_kernel_s"] = _kernel_s_by_range(prof, label, kernel)
         info["all_kernel_s"] = sum(
@@ -2761,11 +2795,12 @@ def _markov_corpora(work: Path) -> dict:
             "lens": lens}
 
 
-def _device_row(name, calls, t_ops, t_bytes, job_s) -> dict:
+def _device_row(name, calls, t_ops, t_bytes, job_s, kernel_s=0.0) -> dict:
     """One device program's row: its device seconds and launches (the
-    calls of its profiler range), its bound and the share of its job's
-    seconds."""
-    dev_s = sum(calls)
+    calls of its profiler range, plus `kernel_s` of the C-entry kernels it
+    launches, which are in no range), its bound and the share of its
+    job's seconds."""
+    dev_s = sum(calls) + kernel_s
     bound = max(t_ops, t_bytes)
     return {"name": name, "device_s": dev_s, "launches": len(calls),
             "bound_ms": bound * 1e3,
@@ -3003,6 +3038,298 @@ def phase_markov(flops: float, rate: float):
         f"on {MARKOV_HOST_ROWS} rows, per-entity rates")
     shutil.rmtree(work)
     return secs, rows
+
+
+# ----------------------------------------------------------------- phase 16
+def _last_corpora(work: Path) -> dict:
+    """The phase's files under `work`: churn and e-learning rows (their
+    first LAST_SAMPLER_ROWS, LAST_TMC_ROWS, LAST_TWIN_ROWS,
+    LAST_DBSCAN_ROWS and LAST_AGG_ROWS rows as files of their own), and
+    the schemas."""
+    from avenir_tpu_torch.data import (churn_schema, elearn_schema,
+                                       generate_churn, generate_elearn)
+
+    t0 = time.perf_counter()
+    files = {}
+    for name, gen, schema in (("churn", generate_churn, churn_schema),
+                              ("elearn", generate_elearn, elearn_schema)):
+        files[f"{name}_schema"] = work / f"{name}.json"
+        files[f"{name}_schema"].write_text(json.dumps(schema().to_json()))
+        text = gen(LAST_ROWS, seed=LAST_SEED, as_csv=True)
+        files[name] = work / f"{name}.csv"
+        files[name].write_text(text)
+        lines = text.splitlines()
+        for rows in (LAST_SAMPLER_ROWS, LAST_TWIN_ROWS, LAST_DBSCAN_ROWS,
+                     LAST_AGG_ROWS):
+            files[f"{name}_{rows}"] = work / f"{name}_{rows}.csv"
+            files[f"{name}_{rows}"].write_text("\n".join(lines[:rows]) + "\n")
+        del text, lines
+    print(f"last-jobs corpora: {LAST_ROWS} churn rows "
+          f"({files['churn'].stat().st_size} bytes) and {LAST_ROWS} "
+          f"e-learning rows ({files['elearn'].stat().st_size} bytes); "
+          f"written in {time.perf_counter() - t0:.1f}s", flush=True)
+    return {k: str(v) for k, v in files.items()}
+
+
+def phase_last(flops: float, rate: float):
+    """The last ten jobs, each on the card and against its CPU twin.
+    Returns (seconds by job, the two device programs' rows, the EXACT
+    top-k launches of topMatchesByClass's card run)."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.core.dataset import Dataset
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.models import cluster, regress
+    from avenir_tpu_torch.models.knn import NeighborIndex
+    from avenir_tpu_torch.ops import knn_kernels as kk
+    from avenir_tpu_torch.runner import run_job
+
+    work = ROOT / "build" / "chip_smoke_last"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    f = _last_corpora(work)
+    secs, rows = {}, []
+
+    def props(prefix, data, extra=None):
+        return {f"{prefix}.feature.schema.file.path": f[f"{data}_schema"],
+                f"{prefix}.stream.block.size.mb": "4", **(extra or {})}
+
+    def twin(case, job, pr, inputs, what):
+        secs[case] = {k: round(v, 3) for k, v in _twin(
+            job, pr, inputs, work, what).items()}
+
+    # the streamed contingency and rule jobs on 1,000,000 churn rows
+    rue = props("rue", "churn", {
+        "rue.rule.names": "r1,r2,r3", "rue.rule.r1": "1 eq low => 6 eq closed",
+        "rue.rule.r2": "5 gt 30 & 3 in high:med => 6 eq open",
+        "rue.rule.r3": "1 ne low & 5 le 24 => 6 ne closed"})
+    streamed = f"on {LAST_ROWS} churn rows in 4 MB blocks"
+    twin("ruleEvaluator", "ruleEvaluator", rue, [f["churn"]], streamed)
+    twin("categoricalClassAffinity", "categoricalClassAffinity",
+         props("cca", "churn"), [f["churn"]], streamed)
+    twin("categoricalContinuousEncoding:supervisedRatio",
+         "categoricalContinuousEncoding", props("coe", "churn"),
+         [f["churn"]], streamed)
+    twin("categoricalContinuousEncoding:weightOfEvidence",
+         "categoricalContinuousEncoding",
+         props("coe", "churn", {"coe.encoding.strategy": "weightOfEvidence",
+                                "coe.pos.class.attr.value": "open"}),
+         [f["churn"]], streamed)
+    sampled = f"on {LAST_SAMPLER_ROWS} churn rows"
+    twin("underSamplingBalancer", "underSamplingBalancer",
+         props("usb", "churn", {"usb.seed": "3"}),
+         [f[f"churn_{LAST_SAMPLER_ROWS}"]], sampled)
+    twin("baggingSampler", "baggingSampler",
+         props("bas", "churn", {"bas.sample.rate": "0.7", "bas.seed": "3"}),
+         [f[f"churn_{LAST_SAMPLER_ROWS}"]], sampled)
+    twin("reliefFeatureRelevance", "reliefFeatureRelevance",
+         props("ffr", "elearn", {"ffr.sample.size": "20000"}), [f["elearn"]],
+         f"on {LAST_ROWS} e-learning rows, sample.size 20000")
+
+    # top matches: 200,000 rows on the card, launches counted from zero;
+    # the first 20,000 on both devices
+    tmc = props("tmc", "elearn", {"tmc.top.match.count": "3"})
+    tmc_rows = work / "elearn_tmc.csv"
+    tmc_rows.write_text("\n".join(
+        Path(f["elearn"]).read_text().splitlines()[:LAST_TMC_ROWS]) + "\n")
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = run_job(TMC_PATH, tmc, [str(tmc_rows)], str(work / "tmc_card.txt"),
+                   device=DEVICE)
+    torch.cuda.synchronize()
+    tmc_s = time.perf_counter() - t0
+    tmc_counts = _launch_counts()
+    lines = Path(card.outputs[0]).read_text().splitlines()
+    check(tmc_counts["knn_topk"] >= 2 and len(lines) == LAST_TMC_ROWS
+          and card.counters["Basic:Records"] == LAST_TMC_ROWS,
+          f"topMatchesByClass on {LAST_TMC_ROWS} e-learning rows ({CARD}): "
+          f"{tmc_s:.3f}s, {len(lines)} lines; launches {tmc_counts}")
+    twin("topMatchesByClass", TMC_PATH, tmc,
+         [f[f"elearn_{LAST_TWIN_ROWS}"]], f"on {LAST_TWIN_ROWS} rows")
+    secs["topMatchesByClass"][DEVICE + f"_{LAST_TMC_ROWS}"] = round(tmc_s, 3)
+    # the kernel at the job's shape: one query block of the first class
+    # against the class, k + 1 = 4, against its plain version
+    schema = FeatureSchema.from_file(f["elearn_schema"])
+    ds = Dataset.from_csv(tmc_rows.read_bytes(), schema)
+    cls = ds.take(np.flatnonzero(ds.labels() == 0))
+    index = NeighborIndex(cls, k=4, block=4096, device=DEVICE)
+    q = index._query(*_mixed(cls.take(np.arange(min(16384, len(cls))))))
+    args = dict(k=4, metric="manhattan", n_valid=index.n_valid,
+                n_attrs=index.n_attrs)
+    (kd, ki), ms = _timed_once(lambda: kk.knn_topk(q, index.t_num, **args))
+    (pd, pi), plain_ms = _timed_once(
+        lambda: kk.knn_topk_plain(q, index.t_num, **args))
+    err = float((kd - pd).abs().max())
+    ties = int(((ki != pi) & (kd != pd)).sum())
+    check(err <= 1e-6 * float(pd.abs().max()) and ties == 0,
+          f"knn_topk EXACT at topMatchesByClass's shape ({CARD}): {q.shape[0]} "
+          f"queries x {index.n_valid} class rows (padded "
+          f"{index.t_num.shape[0]}), D={index.t_num.shape[1]}, k=4: "
+          f"{ms:.3f} ms against {plain_ms:.3f} ms plain, max abs err "
+          f"{err:.3e}, indices apart only at tied distances")
+
+    # logistic regression on 1,000,000 rows, profiled on the card
+    n_lr = LAST_ROWS
+    for case, extra in (("logisticRegression", {"lrj.iteration.limit": "10"}),
+                        ("logisticRegression:allBelowThreshold", {
+                            "lrj.iteration.limit": "50",
+                            "lrj.convergence.criteria": "allBelowThreshold",
+                            "lrj.convergence.threshold": "1.0"})):
+        pr = props("lrj", "elearn", extra)
+        res, info = _profiled(f"{case} on the card", lambda: run_job(
+            "logisticRegression", pr, [f["elearn"]],
+            str(work / f"{case}_card") + "/", device=DEVICE),
+            regress.GRAD_RANGE)
+        cpu_t0 = time.perf_counter()
+        cpu = run_job("logisticRegression", pr, [f["elearn"]],
+                      str(work / f"{case}_cpu") + "/", device="cpu")
+        secs[case] = {DEVICE: info["seconds"],
+                      "cpu": round(time.perf_counter() - cpu_t0, 3)}
+        calls = info["round_device_s"]
+        d = 7
+        # per gradient: x and y read once; a multiply-add a cell each way
+        # (x @ c and x.T @ r) and about 20 operations a row for the
+        # sigmoid, at the fp32 rate (the port's float64 is slower; the
+        # bytes bound is the larger either way)
+        t_ops = len(calls) * n_lr * (4 * d + 20) / flops
+        t_bytes = len(calls) * 4 * n_lr * (d + 1) / rate
+        if case == "logisticRegression":
+            rows.append(_device_row(regress.GRAD_RANGE, calls, t_ops, t_bytes,
+                                    info["seconds"]))
+        # the card's float64 gradient equals the CPU's but on a rounding
+        # tie: every printed cell within one unit of its sixth decimal
+        g, c = (Path(r.outputs[0]).read_text().splitlines()
+                for r in (res, cpu))
+        cells = [(float(u), float(v)) for gl, cl in zip(g, c)
+                 for u, v in zip(gl.split(","), cl.split(","))]
+        apart = sum(u != v for u, v in cells)
+        check(len(g) == len(c) and res.counters == cpu.counters
+              and all(abs(u - v) <= LR_CARD_ATOL for u, v in cells)
+              and len(calls) >= 1 and sum(calls) > 0,
+              f"{case} on {n_lr} e-learning rows ({CARD}): {res.counters}, "
+              f"{info['seconds']}s on the card ({len(calls)} gradients, "
+              f"{sum(calls):.6f} s of device time, busy "
+              f"{info['device_busy_share']:.2%}), {secs[case]['cpu']}s on "
+              f"the CPU; coeff.txt {len(g)} rows, {apart} of {len(cells)} "
+              f"printed cells apart from the CPU twin's (at most "
+              f"{LR_CARD_ATOL}); split {json.dumps(info['split'])}")
+
+    # k-means on 1,000,000 rows, profiled on the card, launches from zero
+    km = props("train", "elearn", {"train.num.clusters": "3",
+                                    "train.num.iters": "100"})
+    _reset_launches()
+    res, info = _profiled("clusterTrain k-means on the card", lambda: run_job(
+        "clusterTrain", km, [f["elearn"]], str(work / "km_card.txt"),
+        device=DEVICE), cluster.STEP_RANGE, "centre_sums")
+    km_counts = _launch_counts()
+    cpu_t0 = time.perf_counter()
+    cpu = run_job("clusterTrain", km, [f["elearn"]], str(work / "km_cpu.txt"),
+                  device="cpu")
+    secs["clusterTrain:kmeans"] = {
+        DEVICE: info["seconds"], "cpu": round(time.perf_counter() - cpu_t0, 3)}
+    # the steps' device time: their torch ops' (the range's) and the
+    # kernel's, all of whose launches are the steps'
+    calls = info["round_device_s"]
+    d, k = 6, 3
+    # per step: x read once, the assignment written; a multiply-add a
+    # (row, centre, column), the norms and compares
+    t_ops = len(calls) * LAST_ROWS * (2 * k * d + 2 * d + 4 * k) / flops
+    t_bytes = len(calls) * LAST_ROWS * (4 * d + 8) / rate
+    km_row = _device_row(cluster.STEP_RANGE, calls, t_ops, t_bytes,
+                         info["seconds"], info["all_kernel_s"])
+    fold = info["split"].get("stream.fold:clusterTrain")
+    km_row.update({"kernel_s": info["all_kernel_s"],
+                   "range_wall_s": sum(info["round_wall_s"]),
+                   "fold_s": fold,
+                   "fold_host_share": (1 - km_row["device_s"] / fold
+                                       if fold else None)})
+    rows.append(km_row)
+    check(_files_of(res) == _files_of(cpu) and res.counters == cpu.counters
+          and len(calls) >= 1 and sum(calls) > 0
+          and km_counts["centre_sums"] == len(calls),
+          f"clusterTrain k-means (k=3) on {LAST_ROWS} e-learning rows "
+          f"({CARD}): {res.counters}, {info['seconds']}s on the card "
+          f"({len(calls)} steps, {km_row['device_s']:.6f} s of device time "
+          f"of which {km_row['kernel_s']:.6f} s centre_sums, "
+          f"{km_row['range_wall_s']:.6f} s in the range on the host, the "
+          f"fold {fold}s; busy {info['device_busy_share']:.2%}), "
+          f"{secs['clusterTrain:kmeans']['cpu']}s on the CPU; labels "
+          f"byte-identical; centre_sums launched {km_counts['centre_sums']}x;"
+          f" split {json.dumps(info['split'])}")
+    centre_row = _centre_sums_row(f, flops, rate)
+
+    twin("clusterTrain:dbscan", "clusterTrain",
+         props("train", "elearn", {"train.algo": "dbscan", "train.eps": "0.08",
+                                   "train.min.samples": "4"}),
+         [f[f"elearn_{LAST_DBSCAN_ROWS}"]],
+         f"DBSCAN on {LAST_DBSCAN_ROWS} e-learning rows")
+
+    # agglomerative over the card's recordSimilarity file of 200 rows
+    dist = work / "dist.txt"
+    run_job("recordSimilarity", props("sts", "elearn"),
+            [f[f"elearn_{LAST_AGG_ROWS}"]], str(dist), device=DEVICE)
+    twin("agglomerativeGraphical", "agglomerativeGraphical",
+         {"agg.num.clusters": "3"}, [str(dist)],
+         f"on the distance file of {LAST_AGG_ROWS} rows")
+    shutil.rmtree(work)
+    return secs, rows, tmc_counts, km_counts, centre_row
+
+
+def _centre_sums_row(f: dict, flops: float, rate: float) -> dict:
+    """centre_sums against its plain version and `index_add_` at the
+    k-means job's shape: the 1,000,000 x 6 e-learning features and the
+    labels of a first Lloyd step from the job's seeded centres."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.core.dataset import Dataset
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.models import cluster
+    from avenir_tpu_torch.ops import cluster_kernels as ck
+
+    schema = FeatureSchema.from_file(f["elearn_schema"])
+    xh = Dataset.from_csv(Path(f["elearn"]).read_bytes(),
+                          schema).feature_matrix().astype(np.float32)
+    n, d, k = xh.shape[0], xh.shape[1], 3
+    x = torch.from_numpy(xh).to(DEVICE)
+    init = xh[np.random.default_rng(0).choice(n, k, replace=False)]
+    _, assign, _ = cluster._kmeans_step(
+        x, torch.from_numpy(init).to(DEVICE), k)
+    assign = assign.to(torch.int32)
+    got = ck.centre_sums(x, assign, k)
+    ref, plain_ms = _timed_once(lambda: ck.centre_sums_plain(x, assign, k))
+    ms = cuda_ms(lambda: ck.centre_sums(x, assign, k), 10)
+    library_ms = cuda_ms(lambda: torch.zeros(
+        (k, d), device=DEVICE).index_add_(0, assign, x), 10)
+    # x and the labels read once, the sums written; one add a (row,
+    # column) into its cluster
+    err = float((got - ref).abs().max())
+    t_bytes = (n * d * 4 + n * 4 + k * d * 4) / rate
+    t_ops = n * d / flops
+    bound = max(t_bytes, t_ops) * 1e3
+    check(torch.equal(got, ref),
+          f"centre_sums at the k-means job's shape ({CARD}): {n} x {d}, "
+          f"k={k}: {ms:.3f} ms against {plain_ms:.3f} ms plain and "
+          f"{library_ms:.3f} ms index_add_, bound {bound:.4f} ms; bit-equal "
+          f"to the plain version")
+    return {"name": "centre_sums", "route": "cuda",
+            "source": "avenir_tpu_torch/ops/csrc/centre_sums.cu",
+            "replaces": "avenir_tpu/models/cluster.py:43 (XLA segment_sum, "
+                        "not Pallas)",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+def _mixed(ds):
+    """(x_num, x_cat) of a Dataset, the query arrays of NeighborIndex."""
+    from avenir_tpu_torch.core.dataset import extract_mixed_features
+
+    x_num, _, x_cat, _ = extract_mixed_features(ds)
+    return x_num, x_cat
 
 
 # ------------------------------------------------------------------ phase 7
@@ -3409,7 +3736,8 @@ def main() -> None:
     sweep_counts = phase_sweep()
     path_counts = {n: check_counts[n] + sweep_counts[n] for n in check_counts}
     check(min(v for n, v in path_counts.items()
-              if n not in ("matmul_ceiling", "subseq_support_fold")) >= 1,
+              if n not in ("matmul_ceiling", "subseq_support_fold",
+                           "centre_sums")) >= 1,
           f"{CHECK_PATH} launched every KNN kernel: {path_counts}")
     nb_secs = phase_naive_bayes()
     ceiling = phase_ceiling(rate, bf16_flops)
@@ -3434,6 +3762,10 @@ def main() -> None:
     t0 = time.perf_counter()
     stream_secs, stream_counts, stream_figs = phase_stream(rate, bf16_flops)
     t_stream = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    last_secs, last_rows, tmc_counts, km_counts, centre_row = phase_last(
+        flops, rate)
+    t_last = time.perf_counter() - t0
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     print(f"tree and text seconds ({CARD}; phase 10 "
@@ -3451,11 +3783,16 @@ def main() -> None:
     print(f"stream seconds ({CARD}; phase 15 {t_stream:.1f}s): "
           f"{json.dumps(stream_secs)}", flush=True)
     print(f"stream figures ({CARD}): {json.dumps(stream_figs)}", flush=True)
+    print(f"last-jobs seconds ({CARD}; phase 16 {t_last:.1f}s): "
+          f"{json.dumps(last_secs)}", flush=True)
+    print(f"LR and k-means device programs ({CARD}; LR torch ops, k-means "
+          f"torch ops and centre_sums): {json.dumps(last_rows)}", flush=True)
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.1f}s "
           f"({CARD})", flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
              BENCH_PATH: bench_counts, PIPE_PATH: pipe_counts,
-             SEQ_PATH: seq_counts, STREAM_PATH: stream_counts}
+             SEQ_PATH: seq_counts, STREAM_PATH: stream_counts,
+             TMC_PATH: tmc_counts, KMEANS_PATH: km_counts}
 
     # each kernel's row at the shape of the path it is reported on: the
     # job's (manhattan, D=6) for the three it runs; the sweep's
@@ -3520,6 +3857,9 @@ def main() -> None:
                                    "bound_ms", "bound_by", "library_ms",
                                    "block", "candidates", "c_pad",
                                    "walk_steps")}})
+    kernels.append({**centre_row, "launches": km_counts["centre_sums"],
+                    "launches_by_path": {p: counts["centre_sums"]
+                                         for p, counts in paths.items()}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

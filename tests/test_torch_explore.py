@@ -361,16 +361,28 @@ def test_numeric_moments_match_jax():
 
 
 # ------------------------------------------------------------------ jobs
+#: case -> (prefix, schema, data file, extra properties)
 JOBS = {
-    "cramerCorrelation": ("crc", "churn", {}),
-    "categoricalCorrelation": ("cac", "churn", {}),
-    "heterogeneityReduction": ("hrc", "churn", {}),
-    "heterogeneityReduction:gini": ("hrc", "churn",
+    "cramerCorrelation": ("crc", "churn", "churn", {}),
+    "categoricalCorrelation": ("cac", "churn", "churn", {}),
+    "heterogeneityReduction": ("hrc", "churn", "churn", {}),
+    "heterogeneityReduction:gini": ("hrc", "churn", "churn",
                                     {"heterogeneity.algorithm": "gini"}),
-    "numericalCorrelation": ("nuc", "elearn", {}),
-    "mutualInformation": ("mut", "churn", {
+    "numericalCorrelation": ("nuc", "elearn", "elearn", {}),
+    "mutualInformation": ("mut", "churn", "churn", {
         "mutual.info.score.algorithms": ",".join(ALGOS),
         "redundancy.factor": "0.8"}),
+    "ruleEvaluator": ("rue", "churn", "churn", {
+        "rule.names": "r1,r2,r3",
+        "rule.r1": "1 eq low => 6 eq closed",
+        "rule.r2": "5 gt 30 & 3 in high:med:bogus => 6 eq open",
+        "rule.r3": "1 ne low & 5 le 24 => 6 ne closed"}),
+    "categoricalClassAffinity": ("cca", "mixed", "churn", {"top.count": "2"}),
+    "categoricalContinuousEncoding:supervisedRatio": ("coe", "mixed", "churn",
+                                                      {}),
+    "categoricalContinuousEncoding:weightOfEvidence": (
+        "coe", "churn", "churn", {"encoding.strategy": "weightOfEvidence",
+                                  "pos.class.attr.value": "open"}),
 }
 
 
@@ -378,8 +390,8 @@ JOBS = {
 @pytest.mark.parametrize("case", sorted(JOBS))
 def test_job_matches_jax(env, tmp_path, case, block_mb):
     job = case.split(":")[0]
-    prefix, data, extra = JOBS[case]
-    props = {f"{prefix}.feature.schema.file.path": env[f"{data}_schema"],
+    prefix, schema, data, extra = JOBS[case]
+    props = {f"{prefix}.feature.schema.file.path": env[f"{schema}_schema"],
              **{f"{prefix}.{k}": v for k, v in extra.items()}}
     if block_mb:
         props[f"{prefix}.stream.block.size.mb"] = block_mb
@@ -432,3 +444,168 @@ def test_jobs_through_the_cli(env, tmp_path):
                                    Path(str(out) + ".jax").read_text())
         else:
             assert out.read_bytes() == Path(str(out) + ".jax").read_bytes()
+
+
+# ------------------------------------------- relief, samplers, top matches
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """The JAX NeighborIndex on its kernel route, the Pallas kernels in
+    interpret mode (as tests/test_knn.py runs them on the CPU): the route
+    the reference takes on its device, which the port's index takes on
+    the card (the EXACT top-k kernel) and, in its plain version, here."""
+    import functools
+
+    import avenir_tpu.ops.pallas_knn as pk
+
+    monkeypatch.setattr(pk, "pallas_available", lambda: True)
+    monkeypatch.setattr(pk, "knn_topk_pallas",
+                        functools.partial(pk.knn_topk_pallas, interpret=True))
+
+
+def _jobs_equal(tmp_path, job, prefix, schema, data, extra=()):
+    """`job` through both packages on the same file: (port result, JAX
+    result), their output files asserted byte-identical."""
+    props = {f"{prefix}.feature.schema.file.path": schema,
+             **{f"{prefix}.{k}": v for k, v in dict(extra).items()}}
+    ref = jax_run_job(job, props, [data], str(tmp_path / "jax.txt"))
+    got = run_job(job, props, [data], str(tmp_path / "port.txt"), device=CPU)
+    assert (tmp_path / "port.txt").read_bytes() == \
+        (tmp_path / "jax.txt").read_bytes()
+    return got, ref
+
+
+def _odd_elearn(tmp_path):
+    """e-learning rows with duplicates (every 7th row repeated at the
+    end, so a duplicate follows its twin) and a class of one row."""
+    lines = generate_elearn(300, seed=91, as_csv=True).splitlines()
+    fails = [ln for ln in lines if ln.endswith(",fail")]
+    passes = [ln for ln in lines if ln.endswith(",pass")]
+    rows = fails + fails[::7] + passes[:1]
+    path = tmp_path / "odd.csv"
+    path.write_text("\n".join(rows) + "\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("data,sample", [("elearn", None), ("elearn", "300"),
+                                         ("churn", "500"), ("odd", None),
+                                         ("odd", "40")])
+def test_relief_matches_jax(env, tmp_path, data, sample):
+    schema = env["churn_schema" if data == "churn" else "elearn_schema"]
+    path = _odd_elearn(tmp_path) if data == "odd" else env[data]
+    extra = {"sample.size": sample} if sample else {}
+    got, ref = _jobs_equal(tmp_path, "reliefFeatureRelevance", "ffr", schema,
+                           path, extra)
+    assert got.counters == {}
+    sch = FeatureSchema.from_file(schema)
+    ds = Dataset.from_csv(Path(path).read_text(), sch)
+    jds = JaxDataset.from_csv(Path(path).read_text(),
+                              JaxSchema.from_file(schema), engine="python")
+    size = int(sample) if sample else None
+    assert ex.relief_relevance(ds, size, seed=4, block=64, query_block=96,
+                               device=CPU) == \
+        jex.relief_relevance(jds, size, seed=4, block=64, query_block=96)
+
+
+def test_relief_singleton_class_has_no_hit(tmp_path):
+    """With every row but one in one class, no record has both a hit and
+    a miss: every weight is 0, in both packages."""
+    lines = generate_elearn(60, seed=92, as_csv=True).splitlines()
+    rows = [ln.rsplit(",", 1)[0] + ",fail" for ln in lines[:-1]]
+    rows.append(lines[-1].rsplit(",", 1)[0] + ",pass")
+    obj = elearn_schema().to_json()
+    ds, jds = _both("\n".join(rows) + "\n", obj)
+    got = ex.relief_relevance(ds, device=CPU)
+    assert got == jex.relief_relevance(jds)
+    assert set(got.values()) != {0.0}
+    single = ds.take(np.array([0, len(ds) - 1]))
+    jsingle = jds.take(np.array([0, len(jds) - 1]))
+    assert ex.relief_relevance(single, device=CPU) == \
+        jex.relief_relevance(jsingle) == {o: 0.0 for o in range(1, 7)}
+
+
+@pytest.mark.parametrize("job,prefix,extra", [
+    ("underSamplingBalancer", "usb", {}),
+    ("underSamplingBalancer", "usb", {"seed": "7"}),
+    ("baggingSampler", "bas", {"sample.rate": "0.5", "seed": "3"}),
+    ("baggingSampler", "bas", {"sample.rate": "1.7"})])
+def test_samplers_match_jax(env, tmp_path, job, prefix, extra):
+    got, ref = _jobs_equal(tmp_path, job, prefix, env["churn_schema"],
+                           env["churn"], extra)
+    assert got.counters == {k: v for k, v in ref.counters.items()
+                            if k.startswith("Basic:")}
+    # rows pass through as they were written
+    src = set(Path(env["churn"]).read_text().splitlines())
+    assert set((tmp_path / "port.txt").read_text().splitlines()) <= src
+
+
+@pytest.mark.parametrize("data,k", [("elearn", "3"), ("churn", "2"),
+                                    ("odd", "4")])
+def test_top_matches_match_jax_kernel_route(env, tmp_path, pallas_interpret,
+                                            data, k):
+    schema = env["churn_schema" if data == "churn" else "elearn_schema"]
+    if data == "odd":
+        path = _odd_elearn(tmp_path)
+    else:
+        path = str(tmp_path / f"{data}.csv")
+        Path(path).write_text("\n".join(
+            Path(env[data]).read_text().splitlines()[:400]) + "\n")
+    got, ref = _jobs_equal(tmp_path, "topMatchesByClass", "tmc", schema, path,
+                           {"top.match.count": k})
+    assert got.counters == {k: v for k, v in ref.counters.items()
+                            if k.startswith("Basic:")}
+    lines = (tmp_path / "port.txt").read_text().splitlines()
+    if data == "odd":
+        # the one-row class is skipped; a duplicate's twin comes first at 0
+        assert not any(ln.startswith("pass,") for ln in lines)
+        assert any(":0.0000" in ln.split(",")[2] for ln in lines)
+
+
+def test_rule_and_explore_errors_match_jax(env, tmp_path):
+    schema = env["churn_schema"]
+    bad = {"rue.feature.schema.file.path": schema, "rue.rule.names": "a",
+           "rue.rule.a": "1 eq low"}
+    for runner in (lambda p, o: run_job("ruleEvaluator", p, [env["churn"]],
+                                        o, device=CPU),
+                   lambda p, o: jax_run_job("ruleEvaluator", p,
+                                            [env["churn"]], o)):
+        with pytest.raises(ValueError,
+                           match=r"rue\.rule\.a must contain exactly one '=>'"):
+            runner(bad, str(tmp_path / "o"))
+        with pytest.raises(ValueError, match="exactly one '=>'"):
+            runner({**bad, "rue.rule.a": "1 eq low => 6 eq open => x"},
+                   str(tmp_path / "o"))
+        with pytest.raises(KeyError, match="bogus"):
+            runner({**bad, "rue.rule.a": "1 eq bogus => 6 eq open"},
+                   str(tmp_path / "o"))
+    empty = tmp_path / "empty.csv"
+    empty.write_text("")
+    for job, prefix in (("ruleEvaluator", "rue"),
+                        ("categoricalClassAffinity", "cca"),
+                        ("categoricalContinuousEncoding", "coe")):
+        props = {f"{prefix}.feature.schema.file.path": schema,
+                 "rue.rule.names": "a", "rue.rule.a": "1 eq low => 6 eq open"}
+        for runner in (run_job, jax_run_job):
+            kw = {"device": CPU} if runner is run_job else {}
+            with pytest.raises(ValueError, match=f"{job}: empty input"):
+                runner(job, props, [str(empty)], str(tmp_path / "e"), **kw)
+
+
+def test_affinity_and_encoding_functions_match_jax():
+    text = _churn_text(1500, 93)
+    ds, jds = _both(text, churn_schema().to_json())
+    for fld, jfld in zip(ds.schema.feature_fields, jds.schema.feature_fields):
+        if not fld.is_categorical:
+            continue
+        assert ex.class_affinity(ds, fld, 2, device=CPU) == \
+            jex.class_affinity(jds, jfld, 2)
+        for strategy in ("supervisedRatio", "weightOfEvidence"):
+            for pos in (None, "open"):
+                assert ex.supervised_encoding(ds, fld, strategy, pos,
+                                              device=CPU) == \
+                    jex.supervised_encoding(jds, jfld, strategy, pos)
+    # ties in P(value | class) keep numpy's argsort order
+    tab = np.array([[2.0, 1.0], [2.0, 3.0], [1.0, 1.0], [2.0, 0.0]])
+    fld = ds.schema.field_by_ordinal(1)
+    assert ex.class_affinity_from_table(tab, fld, ["open", "closed"], 3) == \
+        jex.class_affinity_from_table(tab, jds.schema.field_by_ordinal(1),
+                                      ["open", "closed"], 3)
