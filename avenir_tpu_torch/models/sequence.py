@@ -100,19 +100,21 @@ def generate_sequence_candidates(frequent: Iterable[Sequence[str]]
 # Support counting on the device
 # --------------------------------------------------------------------------
 def _subseq_support(rows: torch.Tensor, cands: torch.Tensor,
-                    k_vec: torch.Tensor) -> torch.Tensor:
+                    k_vec: torch.Tensor, n_codes: int) -> torch.Tensor:
     """counts int32 [C]: the rows of int32 [N, T] `rows` (pad -1) holding
     candidate c of `cands` int32 [C, K] (pad -2) of length k_vec[c] as a
-    subsequence (`_subseq_support_kernel`, sequence.py:84)."""
+    subsequence (`_subseq_support_kernel`, sequence.py:84); n_codes is 1 +
+    the largest code of `cands`, known on the host."""
     return _subseq_fold(torch.zeros(cands.shape[0], dtype=torch.int32,
-                                    device=rows.device), rows, cands, k_vec)
+                                    device=rows.device), rows, cands, k_vec,
+                        n_codes)
 
 
 def _subseq_fold(acc: torch.Tensor, rows: torch.Tensor, cands: torch.Tensor,
-                 k_vec: torch.Tensor) -> torch.Tensor:
-    """acc += _subseq_support(rows, cands, k_vec), in place: the streamed
-    round's carry (`_subseq_fold_kernel`, sequence.py:114)."""
-    return subseq_support_fold(acc, rows, cands, k_vec)
+                 k_vec: torch.Tensor, n_codes: int) -> torch.Tensor:
+    """acc += _subseq_support(rows, cands, k_vec, n_codes), in place: the
+    streamed round's carry (`_subseq_fold_kernel`, sequence.py:114)."""
+    return subseq_support_fold(acc, rows, cands, k_vec, n_codes)
 
 
 def stream_candidate_support(src: "StreamingSequenceSource",
@@ -131,14 +133,15 @@ def stream_candidate_support(src: "StreamingSequenceSource",
     dev = resolve_device(device)
     n = len(cands)
     with record_function(SUPPORT_RANGE):
-        cand_d, kv = GSPMiner._cand_arrays(cands, src.token_code, c_pad, dev)
+        cand_d, kv, n_codes = GSPMiner._cand_arrays(cands, src.token_code,
+                                                    c_pad, dev)
         counts = torch.zeros(c_pad, dtype=torch.int32, device=dev)
         # the next block is encoded and paged on a worker thread while
         # this one is copied and counted here
         for blk in double_buffered(src.chunks(block)):
             t0 = obs.now()
             _subseq_fold(counts[:n], torch.from_numpy(blk).to(dev),
-                         cand_d[:n], kv[:n])
+                         cand_d[:n], kv[:n], n_codes)
             obs.record("stream.fold", t0, sink="gsp_support")
         return counts.cpu().numpy().astype(np.int64)
 
@@ -429,10 +432,12 @@ class GSPMiner:
     @staticmethod
     def _cand_arrays(cands: List[Tuple[str, ...]], code_of, c_pad: int,
                      device: DeviceLike = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(cands int32 [c_pad, k_bucket], k_vec int32 [c_pad]) on
-        `device`: each candidate's codes padded with -2, the pad rows of
-        length 0 (never counted); k_bucket is a power of two, at least 4."""
+                     ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """(cands int32 [c_pad, k_bucket], k_vec int32 [c_pad], n_codes)
+        on `device`: each candidate's codes padded with -2, the pad rows
+        of length 0 (never counted); k_bucket is a power of two, at least
+        4; n_codes is 1 + the largest code (0 if none is a token's), the
+        count kernel's code range, known here on the host."""
         k_max = max((len(cd) for cd in cands), default=1)
         k_max = max(4, 1 << (k_max - 1).bit_length())
         arr = np.full((c_pad, k_max), -2, np.int32)
@@ -441,20 +446,22 @@ class GSPMiner:
             arr[ci, :len(cd)] = [code_of(tok) for tok in cd]
             kv[ci] = len(cd)
         dev = resolve_device(device)
-        return torch.from_numpy(arr).to(dev), torch.from_numpy(kv).to(dev)
+        return (torch.from_numpy(arr).to(dev), torch.from_numpy(kv).to(dev),
+                max(int(arr.max(initial=-1)) + 1, 0))
 
     def _count(self, rows: torch.Tensor, index: Dict[str, int],
                cands: List[Tuple[str, ...]]) -> np.ndarray:
         """One in-RAM round: every block of the device-resident rows
         folded into one carry, read once (int64 [len(cands)])."""
         with record_function(SUPPORT_RANGE):
-            cand_d, kv = self._cand_arrays(
+            cand_d, kv, n_codes = self._cand_arrays(
                 cands, lambda tok: index.get(tok, -2), len(cands),
                 self.device)
             counts = torch.zeros(len(cands), dtype=torch.int32,
                                  device=self.device)
             for s in range(0, rows.shape[0], self.block):
-                _subseq_fold(counts, rows[s:s + self.block], cand_d, kv)
+                _subseq_fold(counts, rows[s:s + self.block], cand_d, kv,
+                             n_codes)
             return counts.cpu().numpy().astype(np.int64)
 
     def mine(self, ss: SequenceSet) -> Levels:

@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-split-compile=0"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: library -> (source, C entry, argtypes); pointers and the stream are
 #: c_void_p so ctypes never cuts them to 32 bits
 LIBRARIES = {
@@ -46,9 +46,9 @@ LIBRARIES = {
     "matmul_ceiling": ("matmul_ceiling.cu", "matmul_ceiling_launch",
                        [_P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P]),
     "subseq_support": ("subseq_support.cu", "subseq_support_launch",
-                       [_P, _I, _I, _P, _I, _I, _P, _P, _P]),
+                       [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P]),
     "centre_sums": ("centre_sums.cu", "centre_sums_launch",
-                    [_P, _I, _I, _P, _I, _P, _P]),
+                    [_P, _I, _I, _P, _I, _P, _P, _L, _P]),
 }
 _TOPK_ARGS = LIBRARIES["knn_topk"][2]
 _CLASSIFY_ARGS = LIBRARIES["knn_classify"][2]
@@ -59,8 +59,9 @@ _CLASSIFY_ARGS = LIBRARIES["knn_classify"][2]
 #: kernel on that grid (the launch floor); the tensor-core form's
 #: diagnostic instance with clock64() sections; the ceiling's main-kernel
 #: instance for a D (registers, local bytes, shared bytes, threads, blocks
-#: per SM, tile); the subsequence count's registers and local bytes.
-#: bind() skips the
+#: per SM, tile); the subsequence count's route and each of its kernels'
+#: registers and local bytes; the centre sums' workspace bytes, each of
+#: its two launches alone and the dependent-FADD chain. bind() skips the
 #: ones a library lacks (an earlier version's sources), and calling one
 #: of those raises AttributeError.
 INFO = {
@@ -80,7 +81,13 @@ INFO = {
                                                    _I, _F, _I, _F, _P, _P],
                      "knn_classify_merge_info": [_I, _P]},
     "matmul_ceiling": {"matmul_ceiling_info": [_I, _P]},
-    "subseq_support": {"subseq_support_info": [_P]},
+    "subseq_support": {"subseq_support_route": [_I, _I, _I],
+                       "subseq_support_info": [_I, _P]},
+    "centre_sums": {"centre_sums_workspace": [_I, _I, _I, _P],
+                    "centre_sums_partition_launch": [_P, _I, _I, _P, _I, _P,
+                                                     _L, _P],
+                    "centre_sums_chains_launch": [_I, _I, _I, _P, _L, _P, _P],
+                    "centre_sums_fadd_chain_launch": [_I, _F, _P, _P, _P]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

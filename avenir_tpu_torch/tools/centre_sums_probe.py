@@ -5,34 +5,30 @@
 First `ops/cluster_kernels.centre_sums` against its plain version at a
 few shapes (bit-equal, or the probe fails), with its CUDA-event time.
 Then, at the k-means job's shape (1,000,000 x 6, k=3, labels drawn
-uniformly from numpy's generator seeded 0), the CUDA-event medians of
-variants of `ops/csrc/centre_sums.cu`, each made from the source by one
-text substitution and built with the same nvcc flags into a git-ignored
-directory of its own:
+uniformly from numpy's generator seeded 0), the CUDA-event medians of the
+kernel's parts, each a C entry of `ops/csrc/centre_sums.cu`:
 
-- `shipped`: the source as it is;
-- `unroll8`: 8 rows a register set instead of 16;
-- `stage_only`: no chain (the staging alone);
-- `chain_only`: no staging (the chains over whatever shared memory
-  holds);
-- `no_select`: the chains add every row's value (no compare and select);
-- `alu_only`: the chains' loads replaced by values made from the row
-  index (the compare, select and add alone).
+- `shipped`: the wrapper's call, both launches (bit-equal or the probe
+  fails);
+- `partition`: the first launch alone (the rows grouped by cluster);
+- `chains`: the second launch alone, on the partition's workspace;
+- `fadd_chain`: one thread adding `FADD_ADDS` times, each add waiting on
+  the last: the latency of a dependent FADD, in ns (events) and cycles
+  (`clock64()`), which sets the floor of any bit-exact form: the largest
+  cluster's rows times that latency (`chain_floor_ms`);
 
-Only `shipped` and `unroll8` give the sums; the others time a part. Prints
-the card's name and power limit first and one JSON line last; exits 1 if
-a shape is not bit-equal. Needs a CUDA device.
+beside `index_add_` on the same inputs (float atomics, no fixed order).
+Prints the card's name, power limit and top SM clock first and one JSON
+line last; exits 1 if a shape is not bit-equal. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
-from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,18 +38,8 @@ from avenir_tpu_torch.ops import cluster_kernels as ck
 
 SHAPES = ((1, 1, 1), (5000, 6, 3), (3000, 11, 7), (700, 2, 40),
           (100_000, 130, 5), (20_000, 600, 3), (1_000_000, 6, 3))
-_CHAIN = "acc += l[u] == cluster ? v[u] : 0.0f;"
-_LOADS = "    l[u] = lab[r + u];\n    v[u] = xs[(r + u) * width];"
-VARIANTS = {
-    "shipped": (None, None),
-    "unroll8": ("constexpr int UNROLL = 16;", "constexpr int UNROLL = 8;"),
-    "stage_only": ("const bool chain = (int)threadIdx.x < nq;",
-                   "const bool chain = false;"),
-    "chain_only": ("    if ((int)threadIdx.x >= lo) {", "    if (false) {"),
-    "no_select": (_CHAIN, "acc += v[u];"),
-    "alu_only": (_LOADS, "    l[u] = r + u;\n    v[u] = (float)(r + u);"),
-}
-OUT = Path(__file__).resolve().parents[2] / "build" / "centre_sums_probe"
+#: the dependent adds of the latency chain: about 8 ms at 4 cycles an add
+FADD_ADDS = 1 << 22
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -80,30 +66,57 @@ def _inputs(n: int, d: int, k: int, seed: int):
     return (torch.from_numpy(x).cuda(), torch.from_numpy(a).cuda())
 
 
-def _build_variants() -> dict:
-    """{variant: bound C entry}, every variant built at once."""
-    src = (_build.CSRC / "centre_sums.cu").read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, (old, new) in VARIANTS.items():
-        if old is not None and old not in src:
-            raise RuntimeError(f"variant {name}: {old!r} not in the source")
-        text = src if old is None else src.replace(old, new)
-        (OUT / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-             str(OUT / f"lib{name}.so"), str(OUT / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    entries = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(OUT / f"lib{name}.so")).centre_sums_launch
-        fn.argtypes = _build.LIBRARIES["centre_sums"][2]
-        fn.restype = ctypes.c_int
-        entries[name] = fn
-    return entries
+def _check(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def fadd_latency(adds: int = FADD_ADDS, reps: int = 3) -> Tuple[float, float]:
+    """(ns, cycles) a dependent float32 add takes on the current card: one
+    thread's chain of `adds` adds, timed by CUDA events (the median of
+    reps) and by the kernel's own clock64()."""
+    lib = _build.load("centre_sums")
+    out = torch.zeros(1, device="cuda")
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+
+    def call():
+        _check(lib.centre_sums_fadd_chain_launch(
+            adds, 1e-30, out.data_ptr(), cycles.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "fadd chain")
+
+    ms = cuda_ms(call, reps)
+    return ms * 1e6 / adds, int(cycles.item()) / adds
+
+
+def chain_floor_ms(assign: torch.Tensor, k: int, ns_per_add: float) -> float:
+    """The least time of any bit-exact form on these labels: the largest
+    cluster's rows, one dependent add each."""
+    valid = assign[(assign >= 0) & (assign < k)].long()
+    rows = int(torch.bincount(valid, minlength=k).max()) if len(valid) else 0
+    return rows * ns_per_add * 1e-6
+
+
+def parts(x: torch.Tensor, a: torch.Tensor, k: int, reps: int) -> dict:
+    """CUDA-event ms of each launch of the kernel alone on (x, a, k)."""
+    lib = _build.load("centre_sums")
+    n, d = x.shape
+    ws = ck.workspace(lib, n, d, k, x.device)
+    out = torch.empty((k, d), device=x.device)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def partition():
+        _check(lib.centre_sums_partition_launch(
+            x.data_ptr(), n, d, a.data_ptr(), k, ws.data_ptr(), ws.numel(),
+            stream()), "partition")
+
+    def chains():
+        _check(lib.centre_sums_chains_launch(
+            n, d, k, ws.data_ptr(), ws.numel(), out.data_ptr(), stream()),
+            "chains")
+
+    times = {"partition": cuda_ms(partition, reps)}
+    times["chains"] = cuda_ms(chains, reps)
+    return times
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -117,7 +130,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip(), flush=True)
-    result = {"shapes": [], "variants": {}}
+    result = {"shapes": [], "parts": {}}
     ok = True
     for n, d, k in SHAPES:
         x, a = _inputs(n, d, k, n + d + k)
@@ -133,22 +146,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(0, 1, (n, d)).astype(np.float32)).cuda()
     a = torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).cuda()
-    ref = ck.centre_sums_plain(x, a, k)
-    for name, fn in _build_variants().items():
-        out = torch.zeros((k, d), device="cuda")
-
-        def call():
-            err = fn(x.data_ptr(), n, d, a.data_ptr(), k, out.data_ptr(),
-                     torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"{name}: CUDA error {err}")
-
-        ms = cuda_ms(call, args.reps)
-        result["variants"][name] = {"ms": ms,
-                                    "bit_equal": torch.equal(out, ref)}
-        print(f"{name}: {ms:.4f} ms", flush=True)
-    ok &= all(result["variants"][v]["bit_equal"]
-              for v in ("shipped", "unroll8"))
+    equal = torch.equal(ck.centre_sums(x, a, k), ck.centre_sums_plain(x, a, k))
+    ok &= equal
+    found = {"shipped": {"ms": cuda_ms(lambda: ck.centre_sums(x, a, k),
+                                       args.reps), "bit_equal": equal}}
+    found.update({p: {"ms": ms} for p, ms in parts(x, a, k, args.reps).items()})
+    ns, cycles = fadd_latency()
+    found["fadd_chain"] = {"adds": FADD_ADDS, "ns_per_add": ns,
+                           "cycles_per_add": cycles}
+    found["chain_floor_ms"] = chain_floor_ms(a, k, ns)
+    found["index_add_ms"] = cuda_ms(lambda: torch.zeros(
+        (k, d), device="cuda").index_add_(0, a, x), args.reps)
+    result["parts"] = found
+    for name, row in found.items():
+        print(f"{name}: {json.dumps(row)}", flush=True)
     print(json.dumps(result), flush=True)
     return 0 if ok else 1
 

@@ -192,13 +192,21 @@ Phases, each printing a line per check; any failed check exits non-zero:
    each round's kernel seconds, the `subseq_support` kernels that start
    inside its `sequence::support_count` range, beside its candidates and
    c_pad): sequences-k.txt byte-identical, the
-   kernel `subseq_support` launched (its registers and no local bytes).
-   The first 20,000 sequences on the card and the CPU: byte-identical.
-   The kernel against its plain version on the first streamed block
-   (65,536 rows) with round 2's and round 3's candidates, the real ones
-   as the streamed round folds them (not the pad rows up to c_pad):
-   equal counts, CUDA-event times, the bound from the compares these
-   walks make (`walk_steps`: a walk stops at k). Then `sequencePositionalCluster` and
+   kernel `subseq_support` launched (the registers of its four kernels,
+   no local bytes in any). The first 20,000 sequences on the card and the
+   CPU: byte-identical. The kernel against its plain version on the
+   first streamed block (65,536 rows) with round 2's and round 3's
+   candidates, the real ones as the streamed round folds them (not the
+   pad rows up to c_pad), on both routes: the mask route at the round's
+   code range, and the walk route (the kernel before the mask route, as
+   it was) forced by a code range past the tables' room; equal counts,
+   CUDA-event times in turns (walk, mask, mask, walk), the mask route's
+   bound from the lookups its test makes (`lookup_steps`) and the walk
+   route's from the compares its walks make (`walk_steps`: a walk stops
+   at k), each share. Both routes against the plain version on seeded
+   edge cases (SUBSEQ_EDGE_WIDTHS: both mask forms and the walk by
+   width; repeated codes and tokens, the top code of the range, lengths
+   past the code width, 0 and -1). Then `sequencePositionalCluster` and
    `sequenceGenerator` on 100,000 seeded event rows against their CPU
    twins.
 13. The bandits (after phase 12): 100,000 groups x 10 arms of seeded
@@ -280,7 +288,13 @@ Phases, each printing a line per check; any failed check exits non-zero:
    rows. Each job's seconds, and the two device ranges' device seconds
    beside their bounds and share of their job (k-means' also its range's
    host seconds and its fold's host share); then `centre_sums` against
-   its plain version and `index_add_` at the k-means job's shape.
+   its plain version and `index_add_` at the k-means job's shape (in
+   turns: index_add_, kernel, kernel, index_add_), beside the chain floor
+   (the largest cluster's rows times a dependent FADD's latency, timed
+   on the card), and against its plain version bit for bit at the edge
+   shapes CENTRE_EDGE_SHAPES (two column planes, one cluster, empty
+   clusters, rows off the partition's tiles, one row, labels outside
+   [0, k), -0 rows).
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth, phase 12's GSP runs the fifth, phase 15's
@@ -358,6 +372,11 @@ GSP_ROWS, GSP_TWIN_ROWS, GSP_VOCAB, GSP_SEED = 1_000_000, 20_000, 100, 21
 GSP_PROPS = {"cgs.support.threshold": "0.02", "cgs.item.set.length": "3"}
 GSP_BLOCK = {"cgs.stream.block.size.mb": "4"}
 SEQ_EVENTS = 100_000
+#: the row widths of the subsequence count's edge cases: uint32 masks
+#: (16, 32), uint64 masks (48, 64), the walk (80); and a code range no
+#: table takes, which forces the walk route
+SUBSEQ_EDGE_WIDTHS = (16, 32, 48, 64, 80)
+SUBSEQ_WALK_CODES = 1 << 20
 SEQ_PATH = "candidateGenerationWithSelfJoin"
 #: phase 13: the bandit stats, the rounds, each job's keys (batch 3)
 BANDIT_GROUPS, BANDIT_ARMS, BANDIT_SEED = 100_000, 10, 31
@@ -388,6 +407,16 @@ LAST_ROWS, LAST_SAMPLER_ROWS, LAST_TMC_ROWS, LAST_TWIN_ROWS = (
     1_000_000, 200_000, 200_000, 20_000)
 LAST_DBSCAN_ROWS, LAST_AGG_ROWS, LAST_SEED = 5_000, 200, 41
 LR_CARD_ATOL = 1e-6
+#: centre_sums' edge shapes (n, d, k, labels): "mixed" in [-1, k] with a
+#: -0 first row, "one" every row in cluster 0, "sparse" every fifth
+#: cluster holds rows
+CENTRE_EDGE_SHAPES = ((0, 4, 2, "mixed"), (1, 1, 1, "one"),
+                      (1, 6, 3, "one"), (1, 6, 3, "mixed"),
+                      (1500, 33, 3, "mixed"), (900, 64, 5, "mixed"),
+                      (6000, 6, 1, "one"), (3000, 5, 64, "sparse"),
+                      (4097, 6, 3, "mixed"), (8193, 6, 3, "one"),
+                      (200_000, 6, 1, "one"), (50_000, 40, 7, "mixed"),
+                      (3000, 3, 1000, "mixed"))
 #: nvidia-smi's name and power limit of the card (phase 1)
 CARD = ""
 
@@ -2491,8 +2520,10 @@ def _gsp_levels(outputs) -> list:
 def _gsp_kernel_row(src, block, levels, k, flops, rate) -> dict:
     """The kernel against its plain version on one streamed block and
     round k's candidates, as the streamed round folds them (the real
-    candidates, not the pad rows up to c_pad): equal counts, their
-    CUDA-event times, the bound from the compares these walks make."""
+    candidates, not the pad rows up to c_pad), on the mask route and on
+    the walk route: equal counts, their CUDA-event times in turns, the
+    mask route's bound from the lookups it makes and the walk route's
+    from the compares its walks make."""
     import torch
 
     from avenir_tpu_torch.models import sequence
@@ -2500,32 +2531,106 @@ def _gsp_kernel_row(src, block, levels, k, flops, rate) -> dict:
 
     cands = sequence.generate_sequence_candidates(levels[k - 2])
     n, c_pad = len(cands), sequence._c_pad(len(cands))
-    cand, kv = sequence.GSPMiner._cand_arrays(cands, src.token_code, c_pad,
-                                              DEVICE)
+    cand, kv, n_codes = sequence.GSPMiner._cand_arrays(
+        cands, src.token_code, c_pad, DEVICE)
     cand, kv = cand[:n], kv[:n]
-    acc = torch.zeros(n, dtype=torch.int32, device=DEVICE)
-    sk.subseq_support_fold(acc, block, cand, kv)
+    t, kmax = block.shape[1], cand.shape[1]
+    routes = {"mask": n_codes, "walk": SUBSEQ_WALK_CODES}
+    found = {r: sk.route(t, kmax, codes) for r, codes in routes.items()}
+    accs = {r: torch.zeros(n, dtype=torch.int32, device=DEVICE)
+            for r in routes}
+    for r, codes in routes.items():
+        sk.subseq_support_fold(accs[r], block, cand, kv, codes)
     plain, plain_ms = _timed_once(
         lambda: sk.subseq_support_plain(block, cand, kv))
-    ms = cuda_ms(lambda: sk.subseq_support_fold(acc, block, cand, kv), 10)
-    acc.zero_()
-    sk.subseq_support_fold(acc, block, cand, kv)
+    times = {r: [] for r in routes}
+    for r in ("walk", "mask", "mask", "walk"):
+        times[r].append(cuda_ms(lambda: sk.subseq_support_fold(
+            accs[r], block, cand, kv, routes[r]), 10))
+    for r, codes in routes.items():
+        accs[r].zero_()
+        sk.subseq_support_fold(accs[r], block, cand, kv, codes)
     torch.cuda.synchronize()
+    lookups = sk.lookup_steps(block, cand, kv)
     steps = sk.walk_steps(block, cand, kv)
     nbytes = 4 * (block.numel() + cand.numel() + kv.numel() + 2 * n)
-    # 64 INT32 lanes an SM against 128 FP32 lanes, an FMA counted twice
-    t_ops, t_bytes = steps / (flops / 4), nbytes / rate
+    # 64 INT32 lanes an SM against 128 FP32 lanes, an FMA counted twice:
+    # a lookup (or a compare) at the int32 rate
+    t_lookup, t_walk = lookups / (flops / 4), steps / (flops / 4)
+    t_bytes = nbytes / rate
+    ms = sum(times["mask"]) / 2
+    walk_ms = sum(times["walk"]) / 2
     row = {"k": k, "block": list(block.shape), "candidates": n,
-           "c_pad": c_pad, "walk_steps": steps,
-           "max_abs_err": int((acc - plain).abs().max()), "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "c_pad": c_pad, "n_codes": n_codes, "routes": found,
+           "lookup_steps": lookups, "walk_steps": steps,
+           "max_abs_err": int((accs["mask"] - plain).abs().max()), "ms": ms,
+           "mask_ms": times["mask"], "walk_route_ms": walk_ms,
+           "walk_ms": times["walk"], "plain_ms": plain_ms,
+           "bound_ms": max(t_lookup, t_bytes) * 1e3,
+           "bound_by": "operations" if t_lookup >= t_bytes else "bytes",
+           "lookup_bound_ms": t_lookup * 1e3,
+           "walk_bound_ms": max(t_walk, t_bytes) * 1e3,
            "library_ms": None}
     row["bound_share"] = row["bound_ms"] / ms
-    check(torch.equal(acc, plain) and int(plain.sum()) > 0,
+    row["walk_bound_share"] = row["walk_bound_ms"] / walk_ms
+    row["walk_bound_share_of_mask"] = row["walk_bound_ms"] / ms
+    check(all(torch.equal(a, plain) for a in accs.values())
+          and int(plain.sum()) > 0 and found["mask"] != "walk"
+          and found["walk"] == "walk" and ms < walk_ms,
           f"subseq_support at round {k} on a streamed block ({CARD}): "
-          f"counts equal to the plain version's; {json.dumps(row)}")
+          f"counts equal to the plain version's on the {found['mask']} "
+          f"route ({ms:.4f} ms; the lookup bound {row['lookup_bound_ms']:.4f} "
+          f"ms, {row['bound_share']:.1%} of it) and on the walk route "
+          f"({walk_ms:.4f} ms; the compare bound {row['walk_bound_ms']:.4f} "
+          f"ms, {row['walk_bound_share']:.1%}); the mask route bound by "
+          f"{row['bound_by']}; {json.dumps(row)}")
     return row
+
+
+def _check_subseq_edges() -> None:
+    """Both routes against the plain version on seeded edge cases at each
+    width of SUBSEQ_EDGE_WIDTHS: rows with pads inside and at the end, a
+    row of one token repeated, a row of pads, tokens above the code
+    range; candidates with a repeated code, the top code of the range,
+    lengths past the code width, 0 and -1, negative codes."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.ops import sequence_kernels as sk
+
+    cases, routes, apart = 0, set(), []
+    for t in SUBSEQ_EDGE_WIDTHS:
+        for seed, (n, c, kmax, v) in enumerate(((3000, 700, 4, 20),
+                                                (5000, 300, 8, 40),
+                                                (997, 257, 2, 9))):
+            rng = np.random.default_rng(1000 * t + seed)
+            lens = rng.integers(0, t + 1, n)
+            rows = rng.integers(0, v + 3, (n, t)).astype(np.int32)
+            rows[np.arange(t)[None, :] >= lens[:, None]] = -1
+            rows[rng.random((n, t)) < 0.05] = -1
+            rows[0], rows[1] = -1, 2
+            cands = rng.integers(0, v, (c, kmax)).astype(np.int32)
+            cands[rng.random((c, kmax)) < 0.05] = -2
+            cands[0, :2] = (3, 3)
+            cands[1, 0] = v - 1
+            kv = rng.integers(-1, kmax + 2, c).astype(np.int32)
+            kv[:2] = (2, 1)
+            r, cd, k = (torch.from_numpy(a).to(DEVICE)
+                        for a in (rows, cands, kv))
+            want = sk.subseq_support_plain(r, cd, k)
+            for codes in (v, SUBSEQ_WALK_CODES):
+                acc = torch.zeros(c, dtype=torch.int32, device=DEVICE)
+                sk.subseq_support_fold(acc, r, cd, k, codes)
+                torch.cuda.synchronize()
+                routes.add(sk.route(t, kmax, codes))
+                if not torch.equal(acc, want) or int(want.sum()) == 0:
+                    apart.append((t, n, c, kmax, codes))
+                cases += 1
+    check(not apart and routes == {"mask32", "mask64", "walk"},
+          f"subseq_support ({CARD}): {cases - len(apart)} of {cases} edge "
+          f"cases equal to the plain version's on the routes "
+          f"{sorted(routes)}" + (f"; apart (t, n, c, kmax, n_codes): "
+                                 f"{apart}" if apart else ""))
 
 
 def phase_sequence(flops: float, rate: float):
@@ -2546,9 +2651,11 @@ def phase_sequence(flops: float, rate: float):
     work.mkdir(parents=True)
     csv, twin = _sequence_corpus(work)
     secs = {}
-    ram_regs, ram_local = sk.subseq_support_info()
-    check(ram_local == 0, f"subseq_support: {ram_regs} registers, "
-          f"{ram_local} local bytes a thread")
+    info = sk.subseq_support_info()
+    check(all(local == 0 for _, local in info.values()),
+          f"subseq_support: (registers, local bytes) a thread of each "
+          f"kernel {json.dumps(info)}")
+    _check_subseq_edges()
 
     # the path: in RAM, then streamed in 4 MB blocks, on the card
     _reset_launches()
@@ -3277,10 +3384,31 @@ def phase_last(flops: float, rate: float):
     return secs, rows, tmc_counts, km_counts, centre_row
 
 
+def _centre_edge_case(n, d, k, labels):
+    """x with large and small values mixed and a -0 first row, and the
+    labels of CENTRE_EDGE_SHAPES, on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(n + d + k)
+    x = (rng.normal(0, 1, (n, d))
+         * 10.0 ** rng.integers(-4, 5, (n, d))).astype(np.float32)
+    if n:
+        x[0] = -0.0
+    if labels == "one":
+        a = np.zeros(n, np.int32)
+    elif labels == "sparse":
+        a = (5 * rng.integers(0, (k + 4) // 5, n)).astype(np.int32)
+    else:
+        a = rng.integers(-1, k + 1, n).astype(np.int32)
+    return torch.from_numpy(x).to(DEVICE), torch.from_numpy(a).to(DEVICE)
+
+
 def _centre_sums_row(f: dict, flops: float, rate: float) -> dict:
     """centre_sums against its plain version and `index_add_` at the
     k-means job's shape: the 1,000,000 x 6 e-learning features and the
-    labels of a first Lloyd step from the job's seeded centres."""
+    labels of a first Lloyd step from the job's seeded centres; beside the
+    chain floor on those labels; then bit for bit at CENTRE_EDGE_SHAPES."""
     import numpy as np
     import torch
 
@@ -3288,6 +3416,7 @@ def _centre_sums_row(f: dict, flops: float, rate: float) -> dict:
     from avenir_tpu_torch.core.schema import FeatureSchema
     from avenir_tpu_torch.models import cluster
     from avenir_tpu_torch.ops import cluster_kernels as ck
+    from avenir_tpu_torch.tools import centre_sums_probe as probe
 
     schema = FeatureSchema.from_file(f["elearn_schema"])
     xh = Dataset.from_csv(Path(f["elearn"]).read_bytes(),
@@ -3300,9 +3429,16 @@ def _centre_sums_row(f: dict, flops: float, rate: float) -> dict:
     assign = assign.to(torch.int32)
     got = ck.centre_sums(x, assign, k)
     ref, plain_ms = _timed_once(lambda: ck.centre_sums_plain(x, assign, k))
-    ms = cuda_ms(lambda: ck.centre_sums(x, assign, k), 10)
-    library_ms = cuda_ms(lambda: torch.zeros(
-        (k, d), device=DEVICE).index_add_(0, assign, x), 10)
+    times = {"kernel": [], "index_add_": []}
+    calls = {"kernel": lambda: ck.centre_sums(x, assign, k),
+             "index_add_": lambda: torch.zeros(
+                 (k, d), device=DEVICE).index_add_(0, assign, x)}
+    for name in ("index_add_", "kernel", "kernel", "index_add_"):
+        times[name].append(cuda_ms(calls[name], 10))
+    ms, library_ms = (sum(times[c]) / 2 for c in ("kernel", "index_add_"))
+    fadd_ns, fadd_cycles = probe.fadd_latency()
+    floor = probe.chain_floor_ms(assign, k, fadd_ns)
+    sizes = torch.bincount(assign.long(), minlength=k).tolist()
     # x and the labels read once, the sums written; one add a (row,
     # column) into its cluster
     err = float((got - ref).abs().max())
@@ -3311,9 +3447,22 @@ def _centre_sums_row(f: dict, flops: float, rate: float) -> dict:
     bound = max(t_bytes, t_ops) * 1e3
     check(torch.equal(got, ref),
           f"centre_sums at the k-means job's shape ({CARD}): {n} x {d}, "
-          f"k={k}: {ms:.3f} ms against {plain_ms:.3f} ms plain and "
-          f"{library_ms:.3f} ms index_add_, bound {bound:.4f} ms; bit-equal "
-          f"to the plain version")
+          f"k={k}, clusters of {sizes} rows: {ms:.4f} ms (calls "
+          f"{times['kernel']}) against {plain_ms:.3f} ms plain and "
+          f"{library_ms:.4f} ms index_add_ (calls {times['index_add_']}); "
+          f"the chain floor {floor:.4f} ms (the largest cluster's rows at "
+          f"{fadd_ns:.4f} ns, {fadd_cycles:.3f} cycles a dependent FADD; the "
+          f"kernel at {ms / floor:.2f}x it); the bytes bound {bound:.4f} ms; "
+          f"bit-equal to the plain version")
+    for shape in CENTRE_EDGE_SHAPES:
+        xe, ae = _centre_edge_case(*shape)
+        ke = shape[2]
+        out = ck.centre_sums(xe, ae, ke)
+        want = ck.centre_sums_plain(xe, ae, ke)
+        torch.cuda.synchronize()
+        check(out.cpu().numpy().tobytes() == want.cpu().numpy().tobytes(),
+              f"centre_sums at n={shape[0]}, d={shape[1]}, k={ke}, labels "
+              f"{shape[3]}: bit-equal to the plain version")
     return {"name": "centre_sums", "route": "cuda",
             "source": "avenir_tpu_torch/ops/csrc/centre_sums.cu",
             "replaces": "avenir_tpu/models/cluster.py:43 (XLA segment_sum, "
@@ -3321,7 +3470,9 @@ def _centre_sums_row(f: dict, flops: float, rate: float) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "chain_floor_ms": floor,
+            "fadd_ns": fadd_ns, "fadd_cycles": fadd_cycles,
+            "cluster_rows": sizes}
 
 
 def _mixed(ds):
@@ -3855,8 +4006,10 @@ def main() -> None:
                              for p, counts in paths.items()},
         **{k: seq_row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms",
-                                   "block", "candidates", "c_pad",
-                                   "walk_steps")}})
+                                   "block", "candidates", "c_pad", "routes",
+                                   "lookup_steps", "lookup_bound_ms",
+                                   "walk_steps", "walk_bound_ms",
+                                   "walk_route_ms")}})
     kernels.append({**centre_row, "launches": km_counts["centre_sums"],
                     "launches_by_path": {p: counts["centre_sums"]
                                          for p, counts in paths.items()}})

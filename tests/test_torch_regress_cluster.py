@@ -222,25 +222,63 @@ def test_kmeans_step_keeps_an_empty_cluster():
     assert new[2].tolist() == [100.0, 100.0]
 
 
-@pytest.mark.parametrize("n,d,k", [(0, 3, 2), (1, 1, 1), (5000, 6, 3),
-                                   (3000, 11, 7), (700, 2, 40)])
-def test_centre_sums_plain_is_segment_sum(n, d, k):
-    """The kernel's plain version is XLA's serial segment_sum bit for bit:
-    large and small values mixed (the order shows), a -0 row, an empty
-    cluster and labels outside [0, k), which add nowhere."""
+def _centre_case(n, d, k, labels="mixed"):
+    """x with large and small values mixed (the order shows) and a -0 first
+    row; labels "mixed" in [-1, k] (outside [0, k) adds nowhere) with
+    cluster k - 1 emptied, "one": every row in cluster 0, "sparse": k
+    clusters of which only every fifth holds rows."""
     rng = np.random.default_rng(n + d + k)
     x = (rng.normal(0, 1, (n, d))
          * 10.0 ** rng.integers(-4, 5, (n, d))).astype(np.float32)
     if n:
         x[0] = -0.0
+    if labels == "one":
+        return x, np.zeros(n, np.int32)
+    if labels == "sparse":
+        return x, (5 * rng.integers(0, (k + 4) // 5, n)).astype(np.int32)
     assign = rng.integers(-1, k + 1, n).astype(np.int32)
     assign[assign == k - 1] = 0
+    return x, assign
+
+
+# the kernel's paths: its column planes (33 and 64 columns make two), one
+# cluster's chain over every row, empty clusters, and row counts off the
+# partition's tiles of 2048 rows (at d=6)
+@pytest.mark.parametrize("n,d,k,labels", [
+    pytest.param(0, 3, 2, "mixed", id="0-3-2"),
+    pytest.param(1, 1, 1, "mixed", id="1-1-1"),
+    pytest.param(5000, 6, 3, "mixed", id="5000-6-3"),
+    pytest.param(3000, 11, 7, "mixed", id="3000-11-7"),
+    pytest.param(700, 2, 40, "mixed", id="700-2-40"),
+    (1500, 33, 3, "mixed"), (900, 64, 5, "mixed"), (6000, 6, 1, "one"),
+    (4099, 6, 3, "one"), (3000, 5, 64, "sparse"), (4097, 6, 3, "mixed"),
+    (1, 6, 1, "one")])
+def test_centre_sums_plain_is_segment_sum(n, d, k, labels):
+    """The kernel's plain version is XLA's serial segment_sum bit for bit:
+    large and small values mixed (the order shows), a -0 row, empty
+    clusters and labels outside [0, k), which add nowhere."""
+    x, assign = _centre_case(n, d, k, labels)
     got = ck.centre_sums(torch.from_numpy(x), torch.from_numpy(assign), k)
     ref = np.asarray(jax.jit(lambda a, s: jax.ops.segment_sum(
         a, s, num_segments=k))(x, assign))
     assert got.dtype == torch.float32 and got.shape == (k, d)
     assert got.numpy().tobytes() == ref.tobytes()
     assert ck.centre_sums.launches == 0
+
+
+def test_kmeans_step_of_one_row_keeps_its_signs():
+    """XLA's segment_sum of a single row is a copy of it, -0 kept (from
+    two rows on, a lone -0 row sums to +0): the centre of that row's
+    cluster keeps its -0 cells, as the reference's does."""
+    x = np.array([[-0.0, 1.5, -0.0]], np.float32)
+    centers = np.array([[5.0, 5.0, 5.0], [-1.0, 0.0, 2.0]], np.float32)
+    new, assign, _ = cl._kmeans_step(torch.from_numpy(x),
+                                     torch.from_numpy(centers), 2)
+    jnew, jassign, _ = jcl._kmeans_step(jnp.asarray(x), jnp.asarray(centers),
+                                        2)
+    assert new.numpy().tobytes() == np.asarray(jnew).tobytes()
+    assert np.signbit(new[1].numpy()).tolist() == [True, False, True]
+    assert assign.tolist() == np.asarray(jassign).tolist() == [1]
 
 
 @pytest.mark.parametrize("bad", ["dtype", "labels", "shape", "k"])

@@ -125,20 +125,29 @@ def _random_case(seed: int):
     return rows, cands, kv
 
 
+def _n_codes(cands) -> int:
+    """The code range a caller passes: 1 + the largest code, 0 if none."""
+    return max(int(np.max(cands, initial=-1)) + 1, 0)
+
+
+def _jax_counts(rows, cands, kv) -> list:
+    return np.asarray(jseq._subseq_support_kernel(
+        jnp.asarray(rows), jnp.asarray(cands), jnp.asarray(kv))).tolist()
+
+
 @pytest.mark.parametrize("seed", range(12))
 def test_plain_support_equals_jax(seed):
     """Exact: int32 counts equal the reference's scan, tiled or not."""
     rows, cands, kv = _random_case(seed)
-    want = np.asarray(jseq._subseq_support_kernel(
-        jnp.asarray(rows), jnp.asarray(cands), jnp.asarray(kv)))
+    want = np.asarray(_jax_counts(rows, cands, kv))
     r, c, k = (torch.from_numpy(x) for x in (rows, cands, kv))
-    got = sequence._subseq_support(r, c, k)
+    got = sequence._subseq_support(r, c, k, _n_codes(cands))
     assert got.dtype == torch.int32
     assert got.numpy().tolist() == want.tolist()
     tiled = sk.subseq_support_plain(r, c, k, max_cells=3 * rows.shape[0])
     assert torch.equal(tiled, got)
     acc = torch.arange(c.shape[0], dtype=torch.int32)
-    assert sequence._subseq_fold(acc, r, c, k) is acc
+    assert sequence._subseq_fold(acc, r, c, k, _n_codes(cands)) is acc
     assert acc.numpy().tolist() == (want + np.arange(len(want))).tolist()
 
 
@@ -167,12 +176,103 @@ def _kernel_walk_compares(rows, cands, kv) -> int:
 
 @pytest.mark.parametrize("seed", range(6))
 def test_walk_steps_counts_the_kernels_compares(seed):
-    """Exact: the bound's work is what the kernel's walks do on the data."""
+    """Exact: the walk route's bound counts what its walks do on the data
+    (the kernel's only route before the mask route; now its second
+    route, for rows past 64 tokens or tables past shared memory)."""
     rows, cands, kv = _random_case(seed)
     want = _kernel_walk_compares(rows, cands, kv)
     r, c, k = (torch.from_numpy(x) for x in (rows, cands, kv))
     assert sk.walk_steps(r, c, k) == want
     assert sk.walk_steps(r, c, k, max_cells=3 * rows.shape[0]) == want
+
+
+def _mask_test(rows, cands, kv):
+    """(counts, lookups) of the mask route's test walked in Python: each
+    row's position masks by code; a live candidate (1 <= k <= T, no
+    negative code among the codes min(j, K - 1) of its k steps) makes k
+    lookups, m = mask[code_0], then m = mask[code_j] & ~(m ^ (m - 1)),
+    and counts when the last m is not 0."""
+    t, kmax = rows.shape[1], cands.shape[1]
+    counts, lookups = [0] * len(cands), 0
+    for row in rows.tolist():
+        masks = {}
+        for i, tok in enumerate(row):
+            if tok >= 0:
+                masks[tok] = masks.get(tok, 0) | 1 << i
+        for ci, (code, k) in enumerate(zip(cands.tolist(), kv.tolist())):
+            steps = [code[min(j, kmax - 1)] for j in range(k)] \
+                if 1 <= k <= t else []
+            if not steps or min(steps) < 0:
+                continue
+            m = 0
+            for j, cj in enumerate(steps):
+                found = masks.get(cj, 0)
+                m = found if j == 0 else found & ~(m ^ (m - 1))
+                lookups += 1
+            counts[ci] += m != 0
+    return counts, lookups
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_lookup_steps_counts_the_mask_tests_lookups(seed):
+    """Exact: the mask route's bound counts the lookups its test makes on
+    the data, and that test's counts are the reference's."""
+    rows, cands, kv = _random_case(seed)
+    counts, want = _mask_test(rows, cands, kv)
+    assert counts == _jax_counts(rows, cands, kv)
+    r, c, k = (torch.from_numpy(x) for x in (rows, cands, kv))
+    assert sk.lookup_steps(r, c, k) == want
+
+
+@pytest.mark.parametrize("t", [16, 32, 48, 64, 80])
+def test_plain_support_edges_by_width(t):
+    """Exact, against the reference and the mask test, at the widths of
+    both mask forms (T <= 32, T <= 64) and of the walk route (T > 64):
+    rows of one token repeated, rows of pads, a token at the last
+    position, candidates with a repeated code, longer than their code
+    width, and with the top code of the range."""
+    rng = np.random.default_rng(t)
+    n, v = 60, 5
+    rows = rng.integers(0, v, (n, t)).astype(np.int32)
+    lens = rng.integers(0, t + 1, n)
+    rows[np.arange(t)[None, :] >= lens[:, None]] = -1
+    rows[0] = -1
+    rows[1] = 2
+    rows[2] = -1
+    rows[2, t - 1] = v - 1
+    cands = np.array([[2, 2, -2, -2], [2, 2, 2, -2], [v - 1, -2, -2, -2],
+                      [0, v - 1, -2, -2], [v - 1, 0, -2, -2],
+                      [1, 1, 1, 1], [0, 1, 2, 3], [3, -2, -2, -2],
+                      [2, 2, -2, -2]], np.int32)
+    kv = np.array([2, 3, 1, 2, 2, 4, 4, 3, t + 1], np.int32)
+    want = _jax_counts(rows, cands, kv)
+    assert want[0] >= 1 and want[2] >= 1    # rows 1 and 2 hold them
+    assert _mask_test(rows, cands, kv)[0] == want
+    r, c, k = (torch.from_numpy(x) for x in (rows, cands, kv))
+    assert sequence._subseq_support(r, c, k, v).tolist() == want
+    assert sequence._subseq_support(r, c, k, 10 * v).tolist() == want
+
+
+def test_n_codes_is_required_and_checked():
+    rows, cands, kv = (torch.from_numpy(x) for x in _random_case(4))
+    top = _n_codes(cands.numpy())
+    acc = torch.zeros(cands.shape[0], dtype=torch.int32)
+    with pytest.raises(TypeError):
+        sk.subseq_support_fold(acc, rows, cands, kv)
+    with pytest.raises(TypeError):
+        sequence._subseq_support(rows, cands, kv)
+    with pytest.raises(TypeError, match="n_codes"):
+        sk.subseq_support_fold(acc, rows, cands, kv, float(top))
+    for bad in (-1, sk.MAX_CODES + 1):
+        with pytest.raises(ValueError, match="n_codes"):
+            sk.subseq_support_fold(acc, rows, cands, kv, bad)
+    with pytest.raises(ValueError, match="largest code"):
+        sk.subseq_support_fold(acc, rows, cands, kv, top - 1)
+    assert acc.abs().sum() == 0
+    want = sk.subseq_support_plain(rows, cands, kv)
+    for ok in (top, np.int64(top), top + 7):
+        assert torch.equal(
+            sk.subseq_support_fold(acc.zero_(), rows, cands, kv, ok), want)
 
 
 def test_plain_support_edges():
@@ -181,25 +281,28 @@ def test_plain_support_edges():
     cands = torch.tensor([[0, 0], [1, 0], [0, -2], [-1, -1], [0, 1]],
                          dtype=torch.int32)
     kv = torch.tensor([2, 2, 1, 1, 0], dtype=torch.int32)
-    assert sequence._subseq_support(rows, cands, kv).tolist() == \
+    assert sequence._subseq_support(rows, cands, kv, 2).tolist() == \
         [1, 1, 2, 0, 0]
     empty = torch.zeros((0, 4), dtype=torch.int32)
-    assert sequence._subseq_support(empty, cands, kv).tolist() == [0] * 5
+    assert sequence._subseq_support(empty, cands, kv, 2).tolist() == [0] * 5
     # compares: c0 2+3, c1 2+2, c2 1+2; c3 opens on a pad, c4 is length 0
     assert sk.walk_steps(rows, cands, kv) == 12
+    # lookups: 3 rows each of c0 and c1 (2 steps) and c2 (1)
+    assert sk.lookup_steps(rows, cands, kv) == 15
     with pytest.raises(TypeError, match="int32"):
-        sequence._subseq_support(rows.long(), cands, kv)
+        sequence._subseq_support(rows.long(), cands, kv, 2)
     with pytest.raises(ValueError, match="lengths"):
-        sequence._subseq_support(rows, cands, kv[:2])
+        sequence._subseq_support(rows, cands, kv[:2], 2)
     with pytest.raises(ValueError, match="acc"):
         sk.subseq_support_fold(torch.zeros(2, dtype=torch.int32), rows,
-                               cands, kv)
+                               cands, kv, 2)
 
 
 def test_cpu_tensors_launch_nothing():
     sk.reset_launches()
-    rows, cands, kv = (torch.from_numpy(x) for x in _random_case(3))
-    sequence._subseq_support(rows, cands, kv)
+    rows, cands, kv = _random_case(3)
+    sequence._subseq_support(*(torch.from_numpy(x) for x in
+                               (rows, cands, kv)), _n_codes(cands))
     assert sk.subseq_support_fold.launches == 0
 
 
