@@ -13,7 +13,10 @@ Ported so far: the `nearestNeighbor`, `bayesianDistr`, `bayesianPredictor`,
 jobs (`runner.run_job`, or
 ``python -m avenir_tpu_torch <job> --conf P IN... OUT``), `runner.Pipeline`
 and `pipelines.knn_pipeline`, and the tools `kernel_check`, `knn_sweep` and
-`bench` (`python -m avenir_tpu_torch.tools.<tool>`).
+`bench` (`python -m avenir_tpu_torch.tools.<tool>`); since then all 45
+jobs of the JAX package's runner, and its online half: the score plane
+(`server.ScorePlane`) and the streaming learners (`models.reinforce`,
+`streaming.LearnerStream`).
 """
 
 __version__ = "0.1.0"

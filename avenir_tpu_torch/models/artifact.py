@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 from typing import Optional
 
 from avenir_tpu_torch.core.atomic import publish_json
@@ -63,6 +64,14 @@ def read_stamp(path: str) -> Optional[dict]:
             f"unreadable stamp beside {path}: {exc}") from exc
 
 
+def stamp_version(path: str) -> int:
+    """The stamped format version, 0 for an unstamped legacy artifact: a
+    dimension of the score plane's cache key, so a restamp to a foreign
+    version misses."""
+    stamp = read_stamp(path)
+    return int(stamp.get("format_version", 0)) if stamp else 0
+
+
 def verify_stamp(path: str) -> Optional[dict]:
     """Digest-verified load gate: the stamp (None when unstamped); raises
     ModelFormatSkew when the stamp names a foreign format or no longer
@@ -83,3 +92,11 @@ def verify_stamp(path: str) -> Optional[dict]:
             f"stamp {str(stamp.get('digest'))[:12]} — artifact changed "
             f"under its stamp")
     return stamp
+
+
+def rm_stamp(path: str) -> None:
+    """Drop the sidecar (an absent one is fine)."""
+    try:
+        os.remove(stamp_path(path))
+    except FileNotFoundError:
+        pass

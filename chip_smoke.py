@@ -295,6 +295,36 @@ Phases, each printing a line per check; any failed check exits non-zero:
    shapes CENTRE_EDGE_SHAPES (two column planes, one cluster, empty
    clusters, rows off the partition's tiles, one row, labels outside
    [0, k), -0 rows).
+17. The score plane (after phase 16): the models of phases 6, 9, 14 and
+   13 retrained at their sizes on the card (NB and Fisher on 1,000,000
+   churn rows, the per-class Markov model on 1,000,000 chain rows; the
+   stats of 100,000 groups x 10 arms), and an NB model with three
+   continuous fields (5 classes, 100,000 rows), each family served by a
+   `ScorePlane` on the card at the default window (2 ms) and batch (64)
+   to SCORE_THREADS = 64 client threads: 4,096 of phase 6's test rows to
+   NB (cost arbitration 2,1) and to Fisher, 1,024 rows to the NB model
+   with continuous fields, 4,096 fresh chain rows to the Markov
+   classifier, 128 groups to the bandit (phase 13's logLinear
+   greedyRandomBandit at round 10, batch 3). Every answer equal to that
+   row's line in the card's batch job output (bayesianPredictor,
+   markovModelClassifier, the Fisher side, the bandit job's select at
+   the same round); 64 rows of each family but the bandit scored solo
+   through `score_once` on the card equal to their coalesced answers;
+   the bandit's pulls and all its groups against the CPU twin's select
+   by `bandit_check`'s rule; a burst of 48 reward appends over 32 nonces
+   from 8 threads applying each nonce once, the next window of 64 pulls
+   reloading the model once, some of them moved, its first equal to a
+   cold `score_once` (the bandit's solo check: each cold load parses its
+   1,000,000 stats rows for seconds); each plane, closed, joining its
+   thread; no kernel of the port's own launched. Printed a family:
+   requests, windows, mean rows a window, p50 and p99 of queue, predict
+   and total ms, model loads, cache hits, seconds, and a slice served
+   again under torch.profiler (every thread's ranges) with the device
+   ms of its `score::<kind>` ranges; then the host-clock ms of a warm
+   window split into the artifact digest of the cache key, the host
+   parse, the model call (the device predict with its read-back; the
+   bandit's select) and the output lines (the bandit's of every group,
+   its window the plane's predict p50).
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth, phase 12's GSP runs the fifth, phase 15's
@@ -417,6 +447,25 @@ CENTRE_EDGE_SHAPES = ((0, 4, 2, "mixed"), (1, 1, 1, "one"),
                       (4097, 6, 3, "mixed"), (8193, 6, 3, "one"),
                       (200_000, 6, 1, "one"), (50_000, 40, 7, "mixed"),
                       (3000, 3, 1000, "mixed"))
+#: phase 17: the score plane's client threads, the rows each family is
+#: sent (fewer for the bandit, whose every window selects over and formats
+#: all BANDIT_GROUPS groups), the solo sample of NB, Fisher and Markov
+#: (the bandit's is the pull after the reward burst: each cold load of its
+#: 1,000,000 stats rows takes seconds), the slice served again under
+#: torch.profiler, and the reward burst: appends from 8 threads over fewer
+#: distinct nonces
+SCORE_THREADS, SCORE_ROWS, SCORE_BANDIT_ROWS = 64, 4096, 128
+SCORE_SOLO, SCORE_PROFILED, SCORE_BANDIT_PROFILED = 64, 1024, 32
+SCORE_BURST, SCORE_BURST_NONCES, SCORE_SEED = 48, 32, 61
+#: and an NB model with three continuous fields (phase 9's multi-class
+#: corpus shape, 5 classes), whose log densities sum over the fields: its
+#: train rows and the rows it is sent
+SCORE_CONT_TRAIN, SCORE_CONT_ROWS = 100_000, 1024
+#: the bandit served: phase 13's greedyRandomBandit at round 10, batch 3
+SCORE_BANDIT_CONF = {"algorithm": "greedyRandomBandit", "batch.size": "3",
+                     "round": "10", "random.selection.prob": "0.5",
+                     "prob.reduction.algorithm": "logLinear",
+                     "prob.reduction.constant": "2.0"}
 #: nvidia-smi's name and power limit of the card (phase 1)
 CARD = ""
 
@@ -3824,6 +3873,453 @@ def phase_bench():
 #: this slice's kernels: (name, source, what it replaces, the row of
 #: `checks` it reports: name, metric, D, dtype, the path whose launches
 #: count, and the wrappers whose launches launch it)
+# ----------------------------------------------------------------- phase 17
+def _score_corpora(work: Path) -> dict:
+    """The served models' training files and the rows sent, written as
+    the earlier phases write them: phase 6's churn train file (trains NB,
+    and Fisher as phase 9 does) and the first SCORE_ROWS of its test
+    rows, phase 14's chain rows and SCORE_ROWS fresh ones, phase 13's
+    bandit stats; and SCORE_CONT_TRAIN and SCORE_CONT_ROWS rows of phase
+    9's multi-class shape with three continuous fields."""
+    from avenir_tpu_torch.data import (churn_schema, generate_churn,
+                                       generate_markov_chains,
+                                       generate_multiclass, multiclass_schema)
+
+    t0 = time.perf_counter()
+    f = {k: work / name for k, name in (
+        ("schema", "churn.json"), ("train", "train.csv"),
+        ("test", "test.csv"), ("chains", "chains.csv"),
+        ("chain_rows", "chain_rows.csv"), ("stats", "stats.csv"),
+        ("cont_schema", "multi.json"), ("cont_train", "multi_train.csv"),
+        ("cont_test", "multi_test.csv"))}
+    churn_schema().save(str(f["schema"]))
+    multiclass_schema(5, 3).save(str(f["cont_schema"]))
+    f["cont_train"].write_text(generate_multiclass(
+        SCORE_CONT_TRAIN, 5, 3, seed=211, as_csv=True))
+    f["cont_test"].write_text(generate_multiclass(
+        SCORE_CONT_ROWS, 5, 3, seed=212, as_csv=True))
+    f["train"].write_text(generate_churn(NB_TRAIN_ROWS, seed=201,
+                                         as_csv=True))
+    test = generate_churn(NB_TEST_ROWS, seed=202, as_csv=True).splitlines()
+    f["test"].write_text("\n".join(test[:SCORE_ROWS]) + "\n")
+    f["chains"].write_text("\n".join(generate_markov_chains(
+        MARKOV_ROWS, seed=MARKOV_SEED, n_entities=MARKOV_ENTITIES)) + "\n")
+    f["chain_rows"].write_text("\n".join(generate_markov_chains(
+        SCORE_ROWS, seed=MARKOV_SEED + 2)) + "\n")
+    _bandit_stats(f["stats"])
+    print(f"score corpora: {NB_TRAIN_ROWS} churn rows, {MARKOV_ROWS} chain "
+          f"rows, {BANDIT_GROUPS} groups x {BANDIT_ARMS} arms of stats, "
+          f"{SCORE_CONT_TRAIN} rows of 5 classes and 3 continuous fields; "
+          f"{SCORE_ROWS} rows to score a family ({SCORE_CONT_ROWS} of the "
+          f"last); written in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return {k: str(v) for k, v in f.items()}
+
+
+def _score_traffic(plane, reqs) -> tuple:
+    """Every request through `plane.score` from SCORE_THREADS client
+    threads, each taking the next request once its last is answered:
+    (the answers in request order, wall seconds). Fails on any error or
+    a client not joined within its bounded wait."""
+    import threading
+
+    out, errs = [None] * len(reqs), []
+    todo, lock = iter(range(len(reqs))), threading.Lock()
+
+    def client():
+        while not errs:
+            with lock:
+                i = next(todo, None)
+            if i is None:
+                return
+            try:
+                out[i] = plane.score(reqs[i], timeout=120.0).row
+            except Exception as exc:
+                errs.append(exc)
+
+    threads = [threading.Thread(target=client)
+               for _ in range(SCORE_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300.0)
+    secs = time.perf_counter() - t0
+    alive = sum(t.is_alive() for t in threads)
+    if errs or alive:
+        fail(f"score plane: {len(reqs)} {reqs[0].kind} requests: "
+             f"{len(errs)} errors ({errs[:1]!r}), {alive} clients not "
+             f"joined")
+    return out, secs
+
+
+def _all_threads_profiler():
+    """torch.profiler's config recording every thread's ranges (the plane
+    predicts on its dispatcher thread), or None where this torch has
+    none."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
+
+def _median_ms(fn, reps: int) -> tuple:
+    """(fn()'s last result, the median of its host-clock ms over reps
+    calls, each ended by torch.cuda.synchronize())."""
+    import torch
+
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return out, times[len(times) // 2]
+
+
+def _window_split(kind, model, conf, rows) -> dict:
+    """Where a warm window of `rows` of NB, Fisher or Markov spends its
+    host-clock ms: the cache key's artifact digest, then the scorer's
+    predict split as it runs it: the host parse, the model call (the
+    device predict with its read-back), and the rest, the output lines.
+    Medians over 21 windows, on a scorer loaded as the plane loads it."""
+    from avenir_tpu_torch.core.dataset import Dataset
+    from avenir_tpu_torch.server.score import load_scorer, model_cache_key
+
+    reps = 21
+    sc = load_scorer(kind, model, conf, device=DEVICE)
+    _, digest = _median_ms(lambda: model_cache_key(kind, model, conf), reps)
+    args = (conf,) if kind == "discriminant" else ()
+    _, window = _median_ms(lambda: sc.predict_rows(rows, *args), reps)
+    parse = call = 0.0
+    if kind == "bayes":
+        ds, parse = _median_ms(lambda: Dataset.from_csv(
+            "\n".join(rows) + "\n", sc.schema, delim=sc.delim,
+            keep_raw=True), reps)
+        _, call = _median_ms(lambda: sc.pred.predict(ds), reps)
+    elif kind == "markov":
+        seqs, parse = _median_ms(lambda: [
+            [t.strip(" \t\r") for t in ln.split(sc.delim)][sc.skip:]
+            for ln in rows], reps)
+        _, call = _median_ms(lambda: sc.clf.predict(seqs), reps)
+    return {"rows": len(rows), "digest_ms": round(digest, 4),
+            "window_ms": round(window, 4), "parse_ms": round(parse, 4),
+            "model_call_ms": round(call, 4),
+            "lines_ms": round(window - parse - call, 4)}
+
+
+def _serve(kind, model, conf, rows, want, solo, profiled, after=None,
+           label=None):
+    """One family through a ScorePlane on the card at the default window
+    and batch: every answer against `want` (the batch job's line of that
+    row), the answers at the indices `solo` against cold `score_once` on
+    the card, the first `profiled` requests again under torch.profiler (the
+    `score::<kind>` ranges' device ms); `after(plane, got)` runs on the
+    warm plane before it closes, which must join its thread. Returns the
+    family's numbers; `label` names the family in the check's line."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from avenir_tpu_torch.server.score import (ScorePlane, ScoreRequest,
+                                               score_once)
+
+    t0 = time.perf_counter()
+    reqs = [ScoreRequest(kind, model, r, dict(conf)) for r in rows]
+    plane = ScorePlane(device=DEVICE)
+    try:
+        got, secs = _score_traffic(plane, reqs)
+        snap, hists = plane.snapshot(), plane.hist_summaries()
+        same = sum(a == b for a, b in zip(got, want))
+        t1 = time.perf_counter()
+        solo_same = sum(score_once(kind, model, rows[i], dict(conf),
+                                   device=DEVICE) == got[i] for i in solo)
+        solo_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        cfg = _all_threads_profiler()
+        dev_ms = None
+        if cfg is not None:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         experimental_config=cfg) as prof:
+                again, psecs = _score_traffic(plane, reqs[:profiled])
+                torch.cuda.synchronize()
+            calls = _range_calls_s(prof, f"score::{kind}")
+            dev_ms = {"requests": profiled, "seconds": round(psecs, 4),
+                      "ranges": len(calls),
+                      "device_ms": round(sum(calls) * 1e3, 4),
+                      "device_ms_per_range": round(
+                          sum(calls) * 1e3 / max(len(calls), 1), 4),
+                      "answers_equal": again == got[:profiled],
+                      "with_profiler_s": round(time.perf_counter() - t1, 3)}
+        extra = after(plane, got) if after is not None else {}
+    finally:
+        plane.close()
+    joined = not any(t.name == "score-dispatch" and t.is_alive()
+                     for t in threading.enumerate())
+    name = plane._model_name(model)
+    st = snap["stats"]
+    row = {"requests": len(reqs), "seconds": round(secs, 4),
+           "windows": st["predict_calls"],
+           "rows_per_window": round(st["window_rows"]
+                                    / max(st["predict_calls"], 1), 2),
+           **{f"{h}_ms": {q: hists[f"score_{name}_{h}_ms"][q]
+                          for q in ("p50", "p99")}
+              for h in ("queue", "predict", "total")},
+           "model_loads": st["model_loads"],
+           "cache_hits": snap["cache"]["hits"],
+           "solo_s": round(solo_s, 3),
+           "profiled": dev_ms if dev_ms is not None else "not measured "
+           "(this torch's profiler records no other thread)", **extra}
+    check(same == len(rows) and solo_same == len(solo) and joined
+          and st["errors"] == 0 and (dev_ms is None
+                                     or dev_ms["answers_equal"]),
+          f"score plane {label or kind} ({CARD}): {same} of {len(rows)} "
+          f"answers equal the card's batch job line, " + (
+              f"{solo_same} of {len(solo)} solo score_once rows equal "
+              f"their coalesced answers" if solo else "the solo check "
+              f"the pull after the reward burst") +
+          f", the closed plane joined its thread; {json.dumps(row)}; phase "
+          f"{time.perf_counter() - t0:.1f}s")
+    return row
+
+
+def phase_score():
+    """The score plane on the card: the models of phases 6, 9, 13 and 14
+    retrained at their sizes, each family served to SCORE_THREADS client
+    threads at the default window and batch and held against the card's
+    batch job, solo scores, the bandit's CPU twin (bandit_check's rule)
+    and a reward burst. Returns the phase's numbers."""
+    import numpy as np
+
+    from avenir_tpu_torch.data.generators import MARKOV_STATES
+    from avenir_tpu_torch.models.bandits import GroupBanditData
+    from avenir_tpu_torch.models.discriminant import FisherDiscriminant
+    from avenir_tpu_torch.runner import build_bandit_job, run_job
+    from avenir_tpu_torch.server.score import (ScoreRequest,
+                                               load_reward_journal,
+                                               model_cache_key, score_once)
+    from avenir_tpu_torch.tools import bandit_check
+
+    t_phase = time.perf_counter()
+    _reset_launches()
+    work = ROOT / "build" / "chip_smoke_score"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    f = _score_corpora(work)
+    rng = np.random.default_rng(SCORE_SEED)
+    t0 = time.perf_counter()
+    nb = run_job("bayesianDistr", {
+        "bad.feature.schema.file.path": f["schema"],
+        "bad.stream.block.size.mb": "4", "csv.engine": "native"},
+        [f["train"]], str(work / "nb_model.csv"), device=DEVICE).outputs[0]
+    nb_cont = run_job("bayesianDistr", {
+        "bad.feature.schema.file.path": f["cont_schema"],
+        "csv.engine": "native"}, [f["cont_train"]],
+        str(work / "nb_cont_model.csv"), device=DEVICE).outputs[0]
+    fisher = run_job("fisherDiscriminant", {
+        "fid.feature.schema.file.path": f["schema"],
+        "fid.stream.block.size.mb": "4", "csv.engine": "native"},
+        [f["train"]], str(work / "fisher.txt"), device=DEVICE).outputs[0]
+    mst = run_job(MARKOV_PATH, {
+        "mst.model.states": ",".join(MARKOV_STATES),
+        "mst.skip.field.count": "2", "mst.class.label.field.ord": "1",
+        "mst.class.labels": "C,L", "mst.stream.block.size.mb": "4"},
+        [f["chains"]], str(work / "mst.txt"), device=DEVICE).outputs[0]
+    # the batch jobs whose lines the plane must answer
+    nb_conf = {"field.delim": ",", "schema.path": f["schema"],
+               "predict.class.cost": "2,1", "predict.class": "open,closed"}
+    run_job("bayesianPredictor", {
+        "bap.feature.schema.file.path": f["schema"],
+        "bap.bayesian.model.file.path": nb, "csv.engine": "python",
+        "bap.predict.class.cost": "2,1", "bap.predict.class": "open,closed"},
+        [f["test"]], str(work / "nb_pred.txt"), device=DEVICE)
+    cont_conf = {"field.delim": ",", "schema.path": f["cont_schema"]}
+    run_job("bayesianPredictor", {
+        "bap.feature.schema.file.path": f["cont_schema"],
+        "bap.bayesian.model.file.path": nb_cont, "csv.engine": "python"},
+        [f["cont_test"]], str(work / "nb_cont_pred.txt"), device=DEVICE)
+    mk_conf = {"field.delim": ",", "class.labels": "C,L",
+               "log.odds.threshold": "0", "skip.field.count": "2"}
+    run_job("markovModelClassifier", {
+        "mmc.mm.model.path": mst, "mmc.class.labels": "C,L",
+        "mmc.skip.field.count": "2"}, [f["chain_rows"]],
+        str(work / "mmc.txt"), device=DEVICE)
+    ordinal = sorted(FisherDiscriminant.load(fisher).boundaries)[0]
+    fd_conf = {"field.delim": ",", "ordinal": str(ordinal)}
+    bandit_props = _score_bandit_props()
+    run_job("greedyRandomBandit", bandit_props, [f["stats"]],
+            str(work / "select.txt"), device=DEVICE)
+    bd_conf = {"field.delim": ",", **SCORE_BANDIT_CONF}
+    print(f"score models and batch jobs on the card ({CARD}): "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    tests = Path(f["test"]).read_text().splitlines()
+    chain_rows = Path(f["chain_rows"]).read_text().splitlines()
+    fd = FisherDiscriminant.load(fisher)
+    sides = fd.predict_values(ordinal, np.asarray(
+        [float(r.split(",")[ordinal]) for r in tests], np.float64))
+    by_group = {}
+    for ln in (work / "select.txt").read_text().splitlines():
+        by_group.setdefault(ln.split(",")[0], []).append(ln)
+    groups = [f"g{i}" for i in rng.choice(BANDIT_GROUPS, SCORE_BANDIT_ROWS,
+                                          replace=False).tolist()]
+    solo = sorted(rng.choice(SCORE_ROWS, SCORE_SOLO, replace=False).tolist())
+    solo_cont = sorted(rng.choice(SCORE_CONT_ROWS, SCORE_SOLO,
+                                  replace=False).tolist())
+    rows = {}
+    rows["bayes"] = _serve(
+        "bayes", nb, nb_conf, tests,
+        (work / "nb_pred.txt").read_text().splitlines(), solo,
+        SCORE_PROFILED)
+    rows["bayes_continuous"] = _serve(
+        "bayes", nb_cont, cont_conf,
+        Path(f["cont_test"]).read_text().splitlines(),
+        (work / "nb_cont_pred.txt").read_text().splitlines(), solo_cont,
+        SCORE_PROFILED // 4, label="bayes (3 continuous fields)")
+    rows["discriminant"] = _serve(
+        "discriminant", fisher, fd_conf, tests,
+        [f"{r},{int(s)}" for r, s in zip(tests, sides)], solo,
+        SCORE_PROFILED)
+    rows["markov"] = _serve(
+        "markov", mst, mk_conf, chain_rows,
+        (work / "mmc.txt").read_text().splitlines(), solo, SCORE_PROFILED)
+
+    def burst(plane, got):
+        """The bandit's CPU twin by bandit_check's rule and its warm
+        window's split, then the reward burst and the window after it:
+        the model reloaded once, the first burst arm's group equal to a
+        cold score_once."""
+        import threading
+
+        t0 = time.perf_counter()
+        data = GroupBanditData.from_lines(
+            Path(f["stats"]).read_text().splitlines())
+        rnd = int(SCORE_BANDIT_CONF["round"])
+        sel = build_bandit_job("greedyRandomBandit", bandit_props,
+                               "cpu").select(data, rnd)
+        near = bandit_check.near_tie_groups(build_bandit_job(
+            "greedyRandomBandit", bandit_props, "cpu"), data, rnd, sel)
+        cpu = {}
+        for parts in data.selections_to_rows(sel):
+            cpu.setdefault(parts[0], []).append(",".join(parts))
+        gi = {g: i for i, g in enumerate(data.group_ids)}
+        differ = [g for g in data.group_ids if by_group[g] != cpu[g]]
+        pulled = [g for g, a in zip(groups, got) if a != "\n".join(cpu[g])]
+        twin = {"groups_differ": len(differ),
+                "near_tie_groups": int(near.sum()),
+                "pulls_differ": len(pulled),
+                "seconds": round(time.perf_counter() - t0, 3)}
+        check(all(near[gi[g]] for g in differ + pulled),
+              f"score plane bandit against the CPU twin ({CARD}): "
+              f"{len(pulled)} of {len(groups)} pulls and {len(differ)} of "
+              f"{BANDIT_GROUPS} groups differ, every one a near-tie group "
+              f"(2 float32 ULP; {int(near.sum())} in all)")
+        # a warm window's split: the digest, the select on the device
+        # stats, and the rest of the plane's predict p50, the lines of
+        # every group
+        name = plane._model_name(f["stats"])
+        window = plane.hist_summaries()[f"score_{name}_predict_ms"]["p50"]
+        stats_dev = data.to_device(DEVICE)
+        _, digest = _median_ms(
+            lambda: model_cache_key("bandit", f["stats"], bd_conf), 3)
+        _, select = _median_ms(lambda: build_bandit_job(
+            "greedyRandomBandit", bandit_props, DEVICE).select(stats_dev,
+                                                               rnd), 3)
+        split = {"digest_ms": round(digest, 4),
+                 "window_ms": round(window, 4), "parse_ms": 0.0,
+                 "model_call_ms": round(select, 4),
+                 "lines_ms": round(window - select, 4),
+                 "window_ms_is": "the plane's predict p50"}
+        # the burst: SCORE_BURST appends from 8 threads over
+        # SCORE_BURST_NONCES nonces, each nonce with one payload, a reward
+        # that makes its arm the group's best
+        arms = [(f"g{int(g)}", f"p{int(a)}") for g, a in zip(
+            rng.choice(BANDIT_GROUPS, SCORE_BURST_NONCES, replace=False),
+            rng.integers(0, BANDIT_ARMS, SCORE_BURST_NONCES))]
+        acks, lock = [], threading.Lock()
+
+        def send(idx):
+            for i in idx:
+                n = i % SCORE_BURST_NONCES
+                g, a = arms[n]
+                ack = plane.reward(ScoreRequest(
+                    "bandit", f["stats"], f"{g},{a},{50000.0 + n},3",
+                    dict(bd_conf), action="reward", req_id=f"burst{n}"))
+                with lock:
+                    acks.append(ack)
+
+        senders = [threading.Thread(target=send,
+                                    args=(range(k, SCORE_BURST, 8),))
+                   for k in range(8)]
+        for t in senders:
+            t.start()
+        for t in senders:
+            t.join(120.0)
+        entries = load_reward_journal(f["stats"])
+        loads = plane.snapshot()["stats"]["model_loads"]
+        # the next window: the burst's groups and the first of the
+        # traffic's, from the client threads at once
+        after_groups = [g for g, _ in arms] + groups[:64 - len(arms)]
+        after, pull_s = _score_traffic(plane, [
+            ScoreRequest("bandit", f["stats"], g, dict(bd_conf))
+            for g in after_groups])
+        reloaded = plane.snapshot()["stats"]["model_loads"] - loads
+        cold = score_once("bandit", f["stats"], arms[0][0], dict(bd_conf),
+                          device=DEVICE)
+        moved = sum(a != "\n".join(by_group[g])
+                    for g, a in zip(after_groups, after))
+        applied = sum(a["applied"] for a in acks)
+        check(not any(t.is_alive() for t in senders)
+              and len(acks) == SCORE_BURST
+              and applied == len(entries) == SCORE_BURST_NONCES
+              and len({e["nonce"] for e in entries}) == SCORE_BURST_NONCES
+              and reloaded == 1 and after[0] == cold and moved > 0,
+              f"score plane reward burst ({CARD}): {len(acks)} appends "
+              f"over {SCORE_BURST_NONCES} nonces, {applied} applied, "
+              f"{len(entries)} journal entries; the next {len(after)} "
+              f"pulls loaded the model {reloaded} time(s) in {pull_s:.3f}s, "
+              f"{moved} of them moved by the rewards, and the first "
+              f"equals a cold score_once")
+        return {"cpu_twin": twin, "window_split": split, "burst": {
+            "appends": len(acks), "applied": applied,
+            "pulls_after": len(after), "moved": moved,
+            "reload_window_s": round(pull_s, 3)}}
+
+    rows["bandit"] = _serve(
+        "bandit", f["stats"], bd_conf, groups,
+        ["\n".join(by_group[g]) for g in groups], [],
+        SCORE_BANDIT_PROFILED, after=burst)
+    split = {
+        "bayes": _window_split("bayes", nb, nb_conf, tests[:64]),
+        "discriminant": _window_split("discriminant", fisher, fd_conf,
+                                      tests[:64]),
+        "markov": _window_split("markov", mst, mk_conf, chain_rows[:64]),
+        "bandit": rows["bandit"].pop("window_split")}
+    print(f"score window split, host-clock ms of a warm window ({CARD}; "
+          f"64 rows, the bandit's the plane's predict p50): "
+          f"{json.dumps(split)}", flush=True)
+    counts = _launch_counts()
+    check(not any(counts.values()),
+          f"score plane: no kernel of the port's own launched {counts}")
+    shutil.rmtree(work)
+    return {"families": rows, "window_split": split,
+            "seconds": round(time.perf_counter() - t_phase, 1)}
+
+
+def _score_bandit_props() -> dict:
+    """The greedyRandomBandit job's keys for SCORE_BANDIT_CONF."""
+    return {"grb.global.batch.size": SCORE_BANDIT_CONF["batch.size"],
+            "grb.current.round.num": SCORE_BANDIT_CONF["round"],
+            **{f"grb.{k}": v for k, v in SCORE_BANDIT_CONF.items()
+               if k not in ("algorithm", "batch.size", "round")}}
+
+
 NEW_KERNELS = (
     ("knn_partial_mma", "knn_tile_mma.cuh", "avenir_tpu/ops/pallas_knn.py:64",
      ("knn_topk_lanes", "euclidean", 128, "bfloat16"), BENCH_PATH,
@@ -3917,6 +4413,9 @@ def main() -> None:
     last_secs, last_rows, tmc_counts, km_counts, centre_row = phase_last(
         flops, rate)
     t_last = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    score = phase_score()
+    t_score = time.perf_counter() - t0
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     print(f"tree and text seconds ({CARD}; phase 10 "
@@ -3938,6 +4437,8 @@ def main() -> None:
           f"{json.dumps(last_secs)}", flush=True)
     print(f"LR and k-means device programs ({CARD}; LR torch ops, k-means "
           f"torch ops and centre_sums): {json.dumps(last_rows)}", flush=True)
+    print(f"score plane ({CARD}; phase 17 {t_score:.1f}s): "
+          f"{json.dumps(score)}", flush=True)
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.1f}s "
           f"({CARD})", flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,

@@ -57,7 +57,8 @@ def test_modules_list_covers_the_package():
                 "models.explore", "models.discriminant", "models.tree",
                 "models.text", "models.sequence", "models.bandits",
                 "ops.sequence_kernels", "ops.prng", "tools.bandit_check",
-                "models.markov"):
+                "models.markov", "core.keys", "server", "server.score",
+                "models.reinforce", "streaming"):
         assert f"avenir_tpu_torch.{sub}" in MODULES
 
 
@@ -74,7 +75,8 @@ def test_native_source_is_the_ports_own():
 @pytest.mark.parametrize("entry", ["avenir_tpu_torch", "all", "chip_smoke",
                                    "obs", "native", "mutualInformation",
                                    "fisherDiscriminant", "tree", "text",
-                                   "sequence", "bandits", "markov"])
+                                   "sequence", "bandits", "markov",
+                                   "score", "reinforce"])
 def test_import_loads_no_jax(entry):
     modules = {"avenir_tpu_torch": ["avenir_tpu_torch"], "all": MODULES,
                "chip_smoke": ["chip_smoke"],
@@ -101,7 +103,13 @@ def test_import_loads_no_jax(entry):
                "markov": ["avenir_tpu_torch.models.markov",
                           "avenir_tpu_torch.models.convert",
                           "avenir_tpu_torch.runner",
-                          "avenir_tpu_torch.data.generators"]}[entry]
+                          "avenir_tpu_torch.data.generators"],
+               "score": ["avenir_tpu_torch.server",
+                         "avenir_tpu_torch.server.score",
+                         "avenir_tpu_torch.core.keys",
+                         "avenir_tpu_torch.models.artifact"],
+               "reinforce": ["avenir_tpu_torch.models.reinforce",
+                             "avenir_tpu_torch.streaming"]}[entry]
     loaded = _loaded(*modules)
     assert set(modules) <= set(loaded)
     assert _forbidden(loaded) == []
