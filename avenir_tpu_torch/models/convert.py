@@ -1,6 +1,7 @@
 """Carry models built by the JAX package across: a KNN index and
 classifier, a Naive Bayes model, a free-text Naive Bayes model, a Markov
-transition model and a hidden Markov model. (A
+transition model, a hidden Markov model, an SVM, a bagged SVM and a
+basic neural net. (A
 tree travels as its DecisionPathList JSON, which `tree.DecisionPathList.load`
 reads as the JAX package wrote it.)
 
@@ -25,7 +26,12 @@ arrays with its vocabulary (in code order), class values, `laplace` and
 `drop_stop`. A JAX `MarkovStateTransitionModel` travels as its states,
 scale, class labels and float64 `counts` [C, S, S]; a JAX
 `HiddenMarkovModel` as its states, observations and its initial,
-transition and emission arrays.
+transition and emission arrays. A JAX `SVMClassifier` or `BaggedSVM`
+travels as its hyperparameters with `x_train`, `dual_coef(s)` and
+`intercept(s)` (read off the object, `svm_from_jax`,
+`bagged_svm_from_jax`); a JAX `BasicNeuralNetwork`'s params dict (`w1`,
+`b1`, `w2`, `b2`) as numpy arrays, into the port's module
+(`neural_params_from_jax`).
 """
 
 from __future__ import annotations
@@ -33,12 +39,15 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 from avenir_tpu_torch.core.schema import FeatureSchema
 from avenir_tpu_torch.models.knn import NearestNeighborClassifier, NeighborIndex
 from avenir_tpu_torch.models.markov import (HiddenMarkovModel,
                                             MarkovStateTransitionModel)
 from avenir_tpu_torch.models.naive_bayes import NaiveBayesModel
+from avenir_tpu_torch.models.neural import TwoLayerNet
+from avenir_tpu_torch.models.svm import BaggedSVM, SVMClassifier
 from avenir_tpu_torch.models.text import TextNaiveBayes
 from avenir_tpu_torch.utils.devices import DeviceLike, resolve_device
 
@@ -179,3 +188,42 @@ def hmm_from_jax_arrays(states: Sequence[str], observations: Sequence[str],
     return HiddenMarkovModel(list(states), list(observations),
                              arrays["initial"], arrays["transition"],
                              arrays["emission"])
+
+
+_SVM_KEYS = ("kernel", "c", "gamma", "degree", "coef0", "learning_rate",
+             "epochs")
+
+
+def svm_from_jax(model, device: DeviceLike = None) -> SVMClassifier:
+    """The port's SVMClassifier with a JAX SVMClassifier's hyperparameters
+    and fitted state (`x_train`, `dual_coef`, `intercept`), on `device`."""
+    m = SVMClassifier(**{k: getattr(model, k) for k in _SVM_KEYS},
+                      device=device)
+    if model.dual_coef is not None:
+        m.x_train = np.asarray(model.x_train, np.float32)
+        m.dual_coef = np.asarray(model.dual_coef, np.float32)
+    m.intercept = float(model.intercept)
+    return m
+
+
+def bagged_svm_from_jax(model, device: DeviceLike = None) -> BaggedSVM:
+    """The port's BaggedSVM with a JAX BaggedSVM's base hyperparameters,
+    ensemble settings and fitted state (`x_train`, `dual_coefs` [E, n],
+    `intercepts` [E], `oob_score_`), on `device`."""
+    m = BaggedSVM(svm_from_jax(model.base, device), model.num_estimators,
+                  model.sample_fraction, model.use_oob)
+    if model.dual_coefs is not None:
+        m.x_train = np.asarray(model.x_train)
+        m.dual_coefs = np.asarray(model.dual_coefs, np.float32)
+        m.intercepts = np.asarray(model.intercepts, np.float32)
+    m.oob_score_ = model.oob_score_
+    return m
+
+
+def neural_params_from_jax(params: Dict[str, np.ndarray],
+                           device: DeviceLike = None) -> TwoLayerNet:
+    """The port's net from a JAX BasicNeuralNetwork's params dict (`w1`
+    [n_in, n_hidden], `b1`, `w2` [n_hidden, n_out], `b2`) as numpy."""
+    dev = resolve_device(device)
+    return TwoLayerNet(*(torch.from_numpy(np.array(params[k], np.float32))
+                         .to(dev) for k in ("w1", "b1", "w2", "b2")))

@@ -49,6 +49,9 @@ LIBRARIES = {
                        [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P]),
     "centre_sums": ("centre_sums.cu", "centre_sums_launch",
                     [_P, _I, _I, _P, _I, _P, _P, _L, _P]),
+    "metropolis_walk": ("metropolis_walk.cu", "metropolis_walk_launch",
+                        [_P, _P, _P, _L, _P, _I, _F, _F, _F, _F, _F, _F, _F,
+                         _P, _P, _P]),
 }
 _TOPK_ARGS = LIBRARIES["knn_topk"][2]
 _CLASSIFY_ARGS = LIBRARIES["knn_classify"][2]
@@ -61,7 +64,8 @@ _CLASSIFY_ARGS = LIBRARIES["knn_classify"][2]
 #: instance for a D (registers, local bytes, shared bytes, threads, blocks
 #: per SM, tile); the subsequence count's route and each of its kernels'
 #: registers and local bytes; the centre sums' workspace bytes, each of
-#: its two launches alone and the dependent-FADD chain. bind() skips the
+#: its two launches alone and the dependent-FADD chain; the Metropolis
+#: walk's step chain on draws held in registers. bind() skips the
 #: ones a library lacks (an earlier version's sources), and calling one
 #: of those raises AttributeError.
 INFO = {
@@ -88,6 +92,8 @@ INFO = {
                                                      _L, _P],
                     "centre_sums_chains_launch": [_I, _I, _I, _P, _L, _P, _P],
                     "centre_sums_fadd_chain_launch": [_I, _F, _P, _P, _P]},
+    "metropolis_walk": {"metropolis_chain_latency_launch": [
+        _P, _P, _L, _P, _I, _F, _F, _F, _F, _F, _P, _P, _P]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

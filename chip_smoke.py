@@ -326,14 +326,38 @@ Phases, each printing a line per check; any failed check exits non-zero:
    bandit's select) and the output lines (the bandit's of every group,
    its window the plane's predict p50).
 
+18. The library modules no job calls (after phase 17), on the card: an
+   rbf `SVMClassifier` (gamma 2, C 10, 200 epochs) on make_moons(32768)
+   (a [32768, 32768] float32 Gram matrix, 4 GiB), `kfold_validate` with
+   5 folds and a `BaggedSVM` of 10 estimators with use_oob at the same
+   rows; `BasicNeuralNetwork` (hidden 16, 1,000 iterations) in batch mode
+   on 100,000 moons rows and in minibatch mode (batch 32); and
+   `MetropolisSampler` (a 200-bin two-Gaussian target) drawing 1,000,000
+   samples at skip 2, plain and with the mixture proposal: one
+   `metropolis_walk` launch a sample call and no other kernel. Then the
+   SVM trainer alone on the fit's Gram matrix beside its bytes bound (417
+   reads of the matrix at 3.35 TB/s); fit, kfold and bagging at 4,096
+   rows against their CPU twins (dual coefficients within 1e-5 of the
+   largest, predictions equal but where the twin's |decision| is under
+   1e-4); both net modes at 10,000 rows from one initial net against
+   their twins (parameters within 1e-5; the card's initial normals
+   within 4 ULP of the CPU's); for each sampler mode its sample call
+   again (bit-equal), the whole walk's CUDA-event ms, ns a step and chain
+   floor (the steps times one step's dependent chain, timed with
+   clock64()), the kernel against its plain version bit for bit on the
+   first 200,000 steps of the card's draws, the sampler against its CPU
+   twin over those steps by `tools.sampling_check.walk_divergence`, and
+   Geweke and Raftery-Lewis on the card's samples.
+
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth, phase 12's GSP runs the fifth, phase 15's
 KNN stream legs the sixth, phase 16's topMatchesByClass the seventh and
-its k-means the eighth: each
+its k-means the eighth, phase 18's library modules the ninth: each
 kernel's launches are counted from zero on each path. Then one JSON
 line of per-kernel numbers (the pre-pass beside the five kernels, at the
 sweep's D=128 float32; the tensor-core form at the bench's D=128
-bfloat16; the two merge kernels at the job's shape), and as the last line
+bfloat16; the two merge kernels at the job's shape; the walk at the
+first 200,000 steps of phase 18's plain chain), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 before them the script's total seconds.
 """
@@ -466,6 +490,17 @@ SCORE_BANDIT_CONF = {"algorithm": "greedyRandomBandit", "batch.size": "3",
                      "round": "10", "random.selection.prob": "0.5",
                      "prob.reduction.algorithm": "logLinear",
                      "prob.reduction.constant": "2.0"}
+#: phase 18: the SVM's moons rows on the card and those its CPU twin
+#: checks, its epochs, folds and estimators; the net's rows on the card
+#: and those its twin checks, its iterations; the sampler's samples and
+#: skip, the walk's prefix held against its plain version and the twin;
+#: the tolerances of tests/test_torch_svm_neural.py
+LIB_SVM_ROWS, LIB_SVM_TWIN_ROWS, LIB_SVM_EPOCHS = 32_768, 4_096, 200
+LIB_FOLDS, LIB_ESTIMATORS = 5, 10
+LIB_NN_ROWS, LIB_NN_TWIN_ROWS, LIB_NN_ITERS = 100_000, 10_000, 1_000
+LIB_SAMPLES, LIB_SKIP, LIB_WALK_CHECK = 1_000_000, 2, 200_000
+SVM_COEF_RTOL, SVM_MARGIN, NN_ATOL = 1e-5, 1e-4, 1e-5
+LIB_PATH = "MetropolisSampler"
 #: nvidia-smi's name and power limit of the card (phase 1)
 CARD = ""
 
@@ -1102,10 +1137,11 @@ def _wrappers():
     from avenir_tpu_torch.ops import cluster_kernels as ck
     from avenir_tpu_torch.ops import knn_kernels as kk
     from avenir_tpu_torch.ops import matmul_ceiling as mc
+    from avenir_tpu_torch.ops import sampling_kernels as smk
     from avenir_tpu_torch.ops import sequence_kernels as sk
 
     return (kk.COUNTED_WRAPPERS + mc.KERNEL_WRAPPERS + sk.KERNEL_WRAPPERS
-            + ck.KERNEL_WRAPPERS)
+            + ck.KERNEL_WRAPPERS + smk.KERNEL_WRAPPERS)
 
 
 def _reset_launches() -> None:
@@ -4332,6 +4368,355 @@ NEW_KERNELS = (
      ("knn_classify_lanes",)))
 
 
+# ----------------------------------------------------------------- phase 18
+#: the Metropolis target: LIB_BINS bins of width LIB_BW from LIB_XMIN, a
+#: two-Gaussian mixture; the proposal std, the mixture's global std and
+#: threshold, the seed
+LIB_XMIN, LIB_BW, LIB_BINS = -5.0, 0.05, 200
+LIB_PSTD, LIB_MIXTURE, LIB_SEED = 0.5, (3.0, 0.7), 7
+#: a walk step's float operations: the multiply-add (2), the clamp (2),
+#: the bin index (sub, fmod, sub, divide, round, convert, clip: 8), the
+#: ratio's floor and divide (2), the compare (1)
+WALK_STEP_OPS = 15
+#: the SVM's and the net's settings (tests/test_svm_neural.py's)
+LIB_SVM = {"kernel": "rbf", "gamma": 2.0, "c": 10.0,
+           "epochs": LIB_SVM_EPOCHS}
+LIB_NN_MODES = (("batch", 0.5), ("minibatch", 0.2))
+
+
+def _lib_sampler(mixture: bool, device: str):
+    import numpy as np
+
+    from avenir_tpu_torch.utils.sampling import MetropolisSampler
+
+    centres = LIB_XMIN + LIB_BW * np.arange(LIB_BINS)
+    values = (np.exp(-0.5 * ((centres + 2.0) / 0.8) ** 2)
+              + 0.6 * np.exp(-0.5 * ((centres - 3.0) / 0.5) ** 2))
+    m = MetropolisSampler(LIB_PSTD, LIB_XMIN, LIB_BW, values, seed=LIB_SEED,
+                          device=device)
+    if mixture:
+        m.set_mixture_proposal(*LIB_MIXTURE)
+    return m
+
+
+def _svm_twins(x, y) -> dict:
+    """fit, kfold and bagging on the card against the CPU twin: dual
+    coefficients within SVM_COEF_RTOL of the largest, predictions equal
+    but where the twin's |decision| is under SVM_MARGIN."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.models import svm
+
+    out = {}
+    card = svm.SVMClassifier(**LIB_SVM, device=DEVICE).fit(x, y)
+    twin = svm.SVMClassifier(**LIB_SVM, device="cpu").fit(x, y)
+    scale = np.abs(twin.dual_coef).max()
+    err = float(np.abs(card.dual_coef - twin.dual_coef).max() / scale)
+    f = twin.decision_function(x)
+    near = np.abs(f) < SVM_MARGIN
+    same = np.array_equal(card.predict(x)[~near], twin.predict(x)[~near])
+    out["fit"] = {"coef_rel_err": err, "near_margin": int(near.sum()),
+                  "intercept_err": abs(card.intercept - twin.intercept)}
+    check(err <= SVM_COEF_RTOL and same,
+          f"SVM fit at {len(x)} rows, card against its CPU twin: dual "
+          f"coefficients {err:.3g} of the largest apart (tolerance "
+          f"{SVM_COEF_RTOL}), predictions equal off the margin "
+          f"({int(near.sum())} rows within {SVM_MARGIN})")
+    vm = svm.kfold_masks(len(x), LIB_FOLDS)
+    fc = svm.fold_decisions(svm.SVMClassifier(**LIB_SVM, device=DEVICE), x,
+                            y, vm)
+    ft = svm.fold_decisions(svm.SVMClassifier(**LIB_SVM, device="cpu"), x,
+                            y, vm)
+    near = np.abs(ft) < SVM_MARGIN
+    same = bool(((fc > 0) == (ft > 0))[~near].all())
+    err = float(np.abs(fc - ft).max())
+    out["kfold"] = {"decision_abs_err": err, "near_margin": int(near.sum())}
+    check(same, f"SVM kfold ({LIB_FOLDS} folds) at {len(x)} rows, card "
+          f"against its CPU twin: decisions {err:.3g} apart, every fold's "
+          f"predictions equal off the margin ({int(near.sum())} within)")
+    bc = svm.BaggedSVM(svm.SVMClassifier(**LIB_SVM, device=DEVICE),
+                       LIB_ESTIMATORS, use_oob=True).fit(x, y, seed=0)
+    bt = svm.BaggedSVM(svm.SVMClassifier(**LIB_SVM, device="cpu"),
+                       LIB_ESTIMATORS, use_oob=True).fit(x, y, seed=0)
+    scales = np.abs(bt.dual_coefs).max(axis=1, keepdims=True)
+    err = float((np.abs(bc.dual_coefs - bt.dual_coefs) / scales).max())
+    xt = torch.from_numpy(np.array(x, np.float32))
+    ft = (bt.base.gram(xt, xt).numpy() @ bt.dual_coefs.T + bt.intercepts)
+    near = (np.abs(ft) < SVM_MARGIN).any(axis=1)
+    same = np.array_equal(bc.predict(x)[~near], bt.predict(x)[~near])
+    oob_same = bc.oob_score_ == bt.oob_score_ or near.any()
+    out["bagging"] = {"coef_rel_err": err, "near_margin": int(near.sum()),
+                      "oob_card": bc.oob_score_, "oob_twin": bt.oob_score_}
+    check(err <= SVM_COEF_RTOL and same and oob_same,
+          f"BaggedSVM ({LIB_ESTIMATORS} estimators, use_oob) at {len(x)} "
+          f"rows, card against its CPU twin: dual coefficients {err:.3g} of "
+          f"each estimator's largest apart, votes equal off the margin "
+          f"({int(near.sum())} rows within), oob {bc.oob_score_} / "
+          f"{bt.oob_score_}")
+    return out
+
+
+def _nn_twins(x, y) -> dict:
+    """Both training modes on the card against the CPU twin from one
+    initial net: parameters within NN_ATOL, predictions equal off a 1e-4
+    probability margin; and the card's own initial draws against the
+    CPU's within 4 ULP."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.models import neural as nnm
+    from avenir_tpu_torch.ops import prng
+
+    init = nnm._init_params(prng.PRNGKey(0), 2, 16, 2,
+                            torch.device("cpu")).arrays()
+    card_init = nnm._init_params(prng.PRNGKey(0), 2, 16, 2,
+                                 torch.device(DEVICE)).arrays()
+    ulps = max(int(np.abs(card_init[k].view(np.int32).astype(np.int64)
+                          - init[k].view(np.int32).astype(np.int64)).max())
+               for k in ("w1", "w2"))
+    check(ulps <= 4, f"the net's initial normals on the card within {ulps} "
+          "ULP of the CPU's (budget 4)")
+    out = {"init_ulps": ulps}
+    for mode, lr in LIB_NN_MODES:
+        nets = {}
+        for dev in (DEVICE, "cpu"):
+            start = nnm.TwoLayerNet(*(torch.from_numpy(init[k].copy()).to(dev)
+                                      for k in ("w1", "b1", "w2", "b2")))
+            nets[dev] = nnm.BasicNeuralNetwork(
+                n_hidden=16, learning_rate=lr, iterations=LIB_NN_ITERS,
+                training_mode=mode, batch_size=32, device=dev).fit(
+                    x, y, init=start)
+        card, twin = nets[DEVICE].params.arrays(), nets["cpu"].params.arrays()
+        err = max(float(np.abs(card[k] - twin[k]).max()) for k in card)
+        p = nets["cpu"].predict_proba(x)
+        keep = np.abs(p[:, 1] - 0.5) >= 1e-4
+        same = np.array_equal(nets[DEVICE].predict(x)[keep],
+                              nets["cpu"].predict(x)[keep])
+        out[mode] = {"param_abs_err": err, "near_margin": int((~keep).sum())}
+        check(err <= NN_ATOL and same,
+              f"BasicNeuralNetwork {mode} ({LIB_NN_ITERS} iterations) at "
+              f"{len(x)} rows from one initial net, card against its CPU "
+              f"twin: parameters {err:.3g} apart (tolerance {NN_ATOL}), "
+              f"predictions equal off the margin")
+    return out
+
+
+def _walk_checks(mode: str, sampled, sample_ms: float, flops: float,
+                 rate: float) -> dict:
+    """The walk of one mode: the sample call again for its chain and draws
+    (bit-equal to the main path's), the full walk's CUDA-event ms beside
+    its bound, the kernel against its plain version on the first
+    LIB_WALK_CHECK steps of the card's draws, the sampler against its CPU
+    twin over those steps by the divergence rule, the diagnostics."""
+    import numpy as np
+
+    from avenir_tpu_torch.ops import sampling_kernels as smk
+    from avenir_tpu_torch.tools.sampling_check import walk_divergence
+    from avenir_tpu_torch.utils import mcmc
+    from avenir_tpu_torch.utils.sampling import StepDraws
+
+    first, out = sampled
+    mixture = mode == "mixture"
+    steps = LIB_SAMPLES * LIB_SKIP
+    m = _lib_sampler(mixture, DEVICE)
+    x0 = m.cur
+    chain, draws = m.walk(steps)
+    again = chain[LIB_SKIP - 1::LIB_SKIP][:LIB_SAMPLES].cpu().numpy()
+    check(again.tobytes() == out.tobytes() and m.cur == first.cur
+          and m.trans_count == first.trans_count
+          and m.key.tolist() == first.key.tolist(),
+          f"Metropolis {mode}: the sample call's chain again, bit-equal")
+    walk = m.walk_target()
+    full = (draws.z, draws.uniforms, draws.mix)
+    full_ms = cuda_ms(lambda: smk.metropolis_walk(*full, walk, x0), 3)
+    ns, cycles = smk.chain_latency_ns(walk, x0)
+    k = LIB_WALK_CHECK
+    pre = tuple(None if t is None else t[:k].contiguous() for t in full)
+    got, taken = smk.metropolis_walk(*pre, walk, x0)
+    ms = cuda_ms(lambda: smk.metropolis_walk(*pre, walk, x0), 5)
+    host = tuple(None if t is None else t.cpu() for t in pre)
+    walk_h = smk.WalkTarget(walk.bins.cpu(), walk.xmin, walk.xmax,
+                            walk.bin_width, walk.pstd, walk.gstd, walk.thr)
+    t0 = time.perf_counter()
+    want, want_taken = smk.metropolis_walk_plain(*host, walk_h, x0)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got_h = got.cpu()
+    err = float((got_h - want).abs().max())
+    # the bound: each draw read once and each x written once (4 bytes
+    # each), or WALK_STEP_OPS float operations a step at the fp32 rate;
+    # the floor: a step's dependent chain, timed, times the steps
+    t_bytes = k * 4 * (3 + mixture) / rate
+    t_ops = k * WALK_STEP_OPS / flops
+    bound = max(t_bytes, t_ops) * 1e3
+    floor = k * ns * 1e-6
+    check(got_h.numpy().tobytes() == want.numpy().tobytes()
+          and int(taken) == int(want_taken),
+          f"metropolis_walk {mode} ({CARD}): bit-equal to its plain version "
+          f"over the first {k} steps of the card's draws ({int(taken)} "
+          f"taken); {ms:.4f} ms against {plain_ms:.1f} ms plain (host); "
+          f"bound {bound:.5f} ms; the chain floor {floor:.4f} ms "
+          f"({ns:.3f} ns, {cycles:.1f} cycles a step; the kernel at "
+          f"{ms / floor:.2f}x it)")
+    twin = _lib_sampler(mixture, "cpu")
+    tchain, tdraws = twin.walk(k)
+    res = walk_divergence(walk, x0, chain[:k], StepDraws(*pre), tchain,
+                          tdraws)
+    check(res["allowed"],
+          f"Metropolis {mode}: the card's sampler against its CPU twin over "
+          f"{k} steps by the divergence rule: first parting "
+          f"{res['first']} ({res['why'] or 'none'}), largest gap before it "
+          f"{res['max_gap']:.3g} (tolerance {res['gap_tol']:.3g}), "
+          f"{res['z_differ']} steps with z apart")
+    sample = out.astype(np.float64)
+    z = mcmc.GewekeConvergence(burn_in_sizes=[0, LIB_SAMPLES // 10,
+                                              LIB_SAMPLES // 2])
+    zs = z.calculate_zscores(sample)
+    burn, size = mcmc.RafteryLewisConvergence().find_sample_size(sample)
+    check(len(zs) == 3 and all(np.isfinite(v) for *_, v in zs)
+          and size > 0 and np.isfinite(sample).all(),
+          f"Metropolis {mode}: {LIB_SAMPLES} samples at skip {LIB_SKIP} in "
+          f"[{sample.min():.4f}, {sample.max():.4f}], "
+          f"{first.trans_count} of {steps} taken; Geweke z "
+          f"{[round(v, 3) for *_, v in zs]}, Raftery-Lewis burn-in {burn}, "
+          f"sample size {size}")
+    print(f"metropolis_walk {mode} ({CARD}): the sample call {sample_ms:.1f} "
+          f"ms (draws and walk); the walk of {steps} steps {full_ms:.3f} ms, "
+          f"{full_ms * 1e6 / steps:.2f} ns a step, the chain floor "
+          f"{steps * ns * 1e-6:.3f} ms ({ns:.3f} ns a step's chain)",
+          flush=True)
+    return {"steps": k, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "chain_floor_ms": floor, "max_abs_err": err,
+            "full_steps": steps, "full_ms": full_ms,
+            "ns_per_step": full_ms * 1e6 / steps, "chain_ns": ns,
+            "chain_cycles": cycles, "sample_ms": sample_ms,
+            "taken": first.trans_count, "divergence": res["first"],
+            "z_differ": res["z_differ"], "geweke": [v for *_, v in zs],
+            "raftery_lewis": [burn, size]}
+
+
+def phase_library(flops: float, rate: float):
+    """The library modules no job calls, on the card: the SVM (fit, kfold,
+    bagging with oob) on make_moons(LIB_SVM_ROWS), the net in batch and
+    minibatch mode on LIB_NN_ROWS moons rows, the Metropolis sampler plain
+    and mixture; then each against its CPU twin and the walk against its
+    plain version. Returns (seconds, the walk's kernels-line row, the main
+    path's launch counts, the device rows)."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.models import neural as nnm
+    from avenir_tpu_torch.models import svm
+
+    t_phase = time.perf_counter()
+    x, y = nnm.make_moons(LIB_SVM_ROWS)
+    xn, yn = nnm.make_moons(LIB_NN_ROWS, noise=0.15, seed=5)
+    secs = {}
+    # the main path, its launches counted from zero
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, fit_ms = _timed_once(
+        lambda: svm.SVMClassifier(**LIB_SVM, device=DEVICE).fit(x, y))
+    acc = model.score(x[:LIB_SVM_TWIN_ROWS], y[:LIB_SVM_TWIN_ROWS])
+    rep, kfold_ms = _timed_once(lambda: svm.kfold_validate(
+        svm.SVMClassifier(**LIB_SVM, device=DEVICE), x, y, LIB_FOLDS))
+    ens, bag_ms = _timed_once(lambda: svm.BaggedSVM(
+        svm.SVMClassifier(**LIB_SVM, device=DEVICE), LIB_ESTIMATORS,
+        use_oob=True).fit(x, y, seed=0))
+    bag_acc = ens.score(x[:LIB_SVM_TWIN_ROWS], y[:LIB_SVM_TWIN_ROWS])
+    nets = {}
+    for mode, lr in LIB_NN_MODES:
+        net, ms = _timed_once(lambda: nnm.BasicNeuralNetwork(
+            n_hidden=16, learning_rate=lr, iterations=LIB_NN_ITERS,
+            training_mode=mode, batch_size=32, device=DEVICE).fit(xn, yn))
+        nets[mode] = (net.score(xn, yn), ms)
+    sampled = {}
+    for mode in ("plain", "mixture"):
+        m = _lib_sampler(mode == "mixture", DEVICE)
+        out, ms = _timed_once(lambda: m.sample(LIB_SAMPLES, LIB_SKIP))
+        sampled[mode] = ((m, out), ms)
+    torch.cuda.synchronize()
+    secs["main_path"] = round(time.perf_counter() - t0, 3)
+    counts = _launch_counts()
+    check(counts["metropolis_walk"] == 2
+          and not any(v for n, v in counts.items() if n != "metropolis_walk"),
+          f"{LIB_PATH} path: one metropolis_walk launch a sample call, no "
+          f"other kernel of the port's own: {counts}")
+    check(acc > 0.9 and rep.avg_error < 0.1 and bag_acc > 0.9
+          and ens.oob_score_ > 0.9
+          and min(a for a, _ in nets.values()) > 0.9,
+          f"SVM rbf on {LIB_SVM_ROWS} moons rows ({CARD}): fit "
+          f"{fit_ms:.1f} ms, accuracy {acc:.4f} on the first "
+          f"{LIB_SVM_TWIN_ROWS}; kfold ({LIB_FOLDS}) {kfold_ms:.1f} ms, "
+          f"error {rep.avg_error:.4f}; bagging ({LIB_ESTIMATORS}, use_oob) "
+          f"{bag_ms:.1f} ms, accuracy {bag_acc:.4f}, oob {ens.oob_score_:.4f};"
+          f" the net on {LIB_NN_ROWS} rows: " + ", ".join(
+              f"{mode} {ms:.1f} ms, accuracy {a:.4f}"
+              for mode, (a, ms) in nets.items()))
+    # the trainer alone on the fit's Gram matrix: 417 reads of it
+    xt = torch.from_numpy(x).to(DEVICE)
+    m1 = svm.SVMClassifier(**LIB_SVM, device=DEVICE)
+    gram = m1.gram(xt, xt)
+    ypm = torch.from_numpy(np.where(y > 0, 1.0, -1.0).astype(np.float32)
+                           ).to(DEVICE)
+    ones = torch.ones((1, LIB_SVM_ROWS), device=DEVICE)
+    _, train_ms = _timed_once(lambda: m1.train(gram, ypm, ones))
+    reads = 16 + 1 + 2 * LIB_SVM_EPOCHS
+    svm_bound = reads * gram.numel() * 4 / rate * 1e3
+    del gram
+    torch.cuda.empty_cache()
+    print(f"SVM trainer ({CARD}): {train_ms:.1f} ms for {reads} reads of "
+          f"the [{LIB_SVM_ROWS}, {LIB_SVM_ROWS}] float32 Gram matrix; bytes "
+          f"bound {svm_bound:.1f} ms ({svm_bound / train_ms:.1%})",
+          flush=True)
+    # a net step: x (float32) and y (int64) read once; the forward's two
+    # products 2 * rows * (2 * 16 + 16 * 2) operations, the backward's
+    # twice that
+    nn_rows = {}
+    for mode, (_, ms) in nets.items():
+        n = LIB_NN_ROWS if mode == "batch" else 32
+        t_b = n * (2 * 4 + 8) / rate
+        t_o = 6 * n * (2 * 16 + 16 * 2) / flops
+        nn_rows[mode] = {"ms": ms, "bound_ms": LIB_NN_ITERS * max(
+            t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o
+            else "operations"}
+    print(f"the net's training ({CARD}): " + ", ".join(
+        f"{mode} {r['ms']:.1f} ms for {LIB_NN_ITERS} steps against its "
+        f"{r['bound_by']} bound of {r['bound_ms']:.4f} ms"
+        for mode, r in nn_rows.items()), flush=True)
+    rows = {"svm": {"fit_ms": fit_ms, "train_ms": train_ms,
+                    "bound_ms": svm_bound, "kfold_ms": kfold_ms,
+                    "bagging_ms": bag_ms, "reads": reads},
+            "nn": nn_rows}
+    t0 = time.perf_counter()
+    twins = {"svm": _svm_twins(x[:LIB_SVM_TWIN_ROWS], y[:LIB_SVM_TWIN_ROWS]),
+             "nn": _nn_twins(xn[:LIB_NN_TWIN_ROWS], yn[:LIB_NN_TWIN_ROWS])}
+    secs["twins"] = round(time.perf_counter() - t0, 3)
+    print(f"SVM and net twins: {json.dumps(twins)}", flush=True)
+    t0 = time.perf_counter()
+    walks = {mode: _walk_checks(mode, s_, ms, flops, rate)
+             for mode, (s_, ms) in sampled.items()}
+    secs["walks"] = round(time.perf_counter() - t0, 3)
+    rows["metropolis"] = walks
+    secs["phase"] = round(time.perf_counter() - t_phase, 1)
+    w = walks["plain"]
+    row = {"name": "metropolis_walk", "route": "cuda",
+           "source": "avenir_tpu_torch/ops/csrc/metropolis_walk.cu",
+           "replaces": "avenir_tpu/utils/sampling.py:184 (XLA scan, not "
+                       "Pallas)",
+           "max_abs_err": w["max_abs_err"], "ms": w["ms"],
+           "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+           "bound_by": w["bound_by"], "library_ms": None,
+           "chain_floor_ms": w["chain_floor_ms"],
+           "steps": w["steps"], "chain_ns": w["chain_ns"],
+           "chain_cycles": w["chain_cycles"], "full_steps": w["full_steps"],
+           "full_ms": w["full_ms"], "mixture_ms": walks["mixture"]["ms"],
+           "mixture_full_ms": walks["mixture"]["full_ms"]}
+    return secs, row, counts, rows
+
+
 def _new_kernel_rows(checks, paths):
     """The kernels line's rows of NEW_KERNELS; `paths` maps each path to
     its launch counts. A merge kernel is launched once by each launch of
@@ -4384,7 +4769,7 @@ def main() -> None:
     path_counts = {n: check_counts[n] + sweep_counts[n] for n in check_counts}
     check(min(v for n, v in path_counts.items()
               if n not in ("matmul_ceiling", "subseq_support_fold",
-                           "centre_sums")) >= 1,
+                           "centre_sums", "metropolis_walk")) >= 1,
           f"{CHECK_PATH} launched every KNN kernel: {path_counts}")
     nb_secs = phase_naive_bayes()
     ceiling = phase_ceiling(rate, bf16_flops)
@@ -4416,6 +4801,7 @@ def main() -> None:
     t0 = time.perf_counter()
     score = phase_score()
     t_score = time.perf_counter() - t0
+    lib_secs, walk_row, lib_counts, lib_rows = phase_library(flops, rate)
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     print(f"tree and text seconds ({CARD}; phase 10 "
@@ -4439,12 +4825,17 @@ def main() -> None:
           f"torch ops and centre_sums): {json.dumps(last_rows)}", flush=True)
     print(f"score plane ({CARD}; phase 17 {t_score:.1f}s): "
           f"{json.dumps(score)}", flush=True)
+    print(f"library seconds ({CARD}; phase 18 {lib_secs['phase']}s): "
+          f"{json.dumps(lib_secs)}", flush=True)
+    print(f"library device programs ({CARD}; the SVM and the net torch ops, "
+          f"the walk metropolis_walk): {json.dumps(lib_rows)}", flush=True)
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.1f}s "
           f"({CARD})", flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
              BENCH_PATH: bench_counts, PIPE_PATH: pipe_counts,
              SEQ_PATH: seq_counts, STREAM_PATH: stream_counts,
-             TMC_PATH: tmc_counts, KMEANS_PATH: km_counts}
+             TMC_PATH: tmc_counts, KMEANS_PATH: km_counts,
+             LIB_PATH: lib_counts}
 
     # each kernel's row at the shape of the path it is reported on: the
     # job's (manhattan, D=6) for the three it runs; the sweep's
@@ -4513,6 +4904,9 @@ def main() -> None:
                                    "walk_route_ms")}})
     kernels.append({**centre_row, "launches": km_counts["centre_sums"],
                     "launches_by_path": {p: counts["centre_sums"]
+                                         for p, counts in paths.items()}})
+    kernels.append({**walk_row, "launches": lib_counts["metropolis_walk"],
+                    "launches_by_path": {p: counts["metropolis_walk"]
                                          for p, counts in paths.items()}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

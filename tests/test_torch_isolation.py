@@ -58,7 +58,10 @@ def test_modules_list_covers_the_package():
                 "models.text", "models.sequence", "models.bandits",
                 "ops.sequence_kernels", "ops.prng", "tools.bandit_check",
                 "models.markov", "core.keys", "server", "server.score",
-                "models.reinforce", "streaming"):
+                "models.reinforce", "streaming", "utils.tabular",
+                "utils.mcmc", "utils.profiling", "utils.sampling",
+                "models.svm", "models.neural", "ops.sampling_kernels",
+                "tools.sampling_check"):
         assert f"avenir_tpu_torch.{sub}" in MODULES
 
 
@@ -76,7 +79,7 @@ def test_native_source_is_the_ports_own():
                                    "obs", "native", "mutualInformation",
                                    "fisherDiscriminant", "tree", "text",
                                    "sequence", "bandits", "markov",
-                                   "score", "reinforce"])
+                                   "score", "reinforce", "library"])
 def test_import_loads_no_jax(entry):
     modules = {"avenir_tpu_torch": ["avenir_tpu_torch"], "all": MODULES,
                "chip_smoke": ["chip_smoke"],
@@ -109,7 +112,16 @@ def test_import_loads_no_jax(entry):
                          "avenir_tpu_torch.core.keys",
                          "avenir_tpu_torch.models.artifact"],
                "reinforce": ["avenir_tpu_torch.models.reinforce",
-                             "avenir_tpu_torch.streaming"]}[entry]
+                             "avenir_tpu_torch.streaming"],
+               "library": ["avenir_tpu_torch.utils.tabular",
+                           "avenir_tpu_torch.utils.mcmc",
+                           "avenir_tpu_torch.utils.profiling",
+                           "avenir_tpu_torch.utils.sampling",
+                           "avenir_tpu_torch.models.svm",
+                           "avenir_tpu_torch.models.neural",
+                           "avenir_tpu_torch.ops.sampling_kernels",
+                           "avenir_tpu_torch.tools.sampling_check",
+                           "avenir_tpu_torch.models.convert"]}[entry]
     loaded = _loaded(*modules)
     assert set(modules) <= set(loaded)
     assert _forbidden(loaded) == []

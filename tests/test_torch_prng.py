@@ -2,12 +2,30 @@
 `jax.random` on the CPU.
 
 Keys, splits, raw bits and uniforms are bit for bit (tolerance 0) for
-several seeds and shapes, and so is a JAX key handed over as its uint32
-[2] data. Gumbel noise takes two float32 logs, which XLA and PyTorch may
-round differently: it is held within 2 ULP plus 2^-21, and categorical
-draws are equal on these seeds. The defaults the port copies are checked
-first, so that a JAX that changes them fails here with a clear message.
+several seeds and shapes, over [0, 1), [tiny, 1), normal's
+[nextafter(-1, 0), 1) and a span like [-2.5, 7); so is a JAX key handed
+over as its uint32 [2] data, and so are the batched forms (`split_many`,
+`uniform_many`) against `jax.vmap` over [N, 2] keys. Gumbel noise takes
+two float32 logs, which XLA and PyTorch may round differently: it is
+held within 2 ULP plus 2^-21, and categorical draws are equal on these
+seeds.
+
+Normal draws take one float32 log1p, rounded apart in the same way. The
+budget, measured on 1,048,576 draws under each of three keys (7, 0, 11):
+0.94-0.96% of the draws differ from `jax.random.normal`, 0.34-0.35% by
+more than 1 ULP, 0.067-0.070% by more than 2 ULP, none by more than 3;
+every draw more than 2 ULP apart has 0.617 <= |u| <= 0.683. The test
+holds them to at most 1.2% differing, 0.1% more than 2 ULP apart, none
+more than 3 ULP, and the 3-ULP ones to 0.6 < |u| < 0.7 (`torch.erfinv`
+instead would put 59% of the draws apart, up to 91 ULP, and XLA's old
+-log((1 - x)(1 + x)) form 13%, up to 91 ULP). `fma32` is held to the
+correctly rounded a * b + c, the case a float64 add would round twice
+included. The defaults the port copies are checked first, so that a JAX
+that changes them fails here with a clear message.
 """
+
+from fractions import Fraction
+
 
 import jax
 import jax.numpy as jnp
@@ -58,7 +76,7 @@ def test_bits_and_uniform_bit_equal(seed, shape):
     jbits = np.asarray(jax.random.bits(jkey, shape, jnp.uint32))
     assert bits.numpy().astype(np.uint32).tolist() == jbits.tolist()
     for lo, hi in ((0.0, 1.0), (float(np.finfo(np.float32).tiny), 1.0),
-                   (-2.5, 7.0)):
+                   (prng.NORMAL_LO, 1.0), (-2.5, 7.0)):
         u = prng.uniform(key, shape, lo, hi)
         ju = np.asarray(jax.random.uniform(jkey, shape, jnp.float32, lo, hi))
         assert u.dtype == torch.float32
@@ -107,3 +125,100 @@ def test_a_jax_key_carries_over():
         == np.asarray(jax.random.bits(jk, (64,), jnp.uint32)).tolist()
     with pytest.raises(ValueError, match="uint32"):
         prng.random_bits(np.zeros(3, np.uint32), (2,))
+
+
+def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """|a - b| in float32 ULPs, on the ordered integer line."""
+    ai = a.view(np.int32).astype(np.int64)
+    bi = b.view(np.int32).astype(np.int64)
+    ai = np.where(ai < 0, -(ai & 0x7FFFFFFF), ai)
+    bi = np.where(bi < 0, -(bi & 0x7FFFFFFF), bi)
+    return np.abs(ai - bi)
+
+
+@pytest.mark.parametrize("seed", [7, 0, 11])
+def test_normal_within_its_ulp_budget(seed):
+    key = prng.PRNGKey(seed)
+    n = 1 << 20
+    u = prng.uniform(key, (n,), prng.NORMAL_LO, 1.0).numpy()
+    ju = np.asarray(jax.random.uniform(jnp.asarray(key), (n,), jnp.float32,
+                                       prng.NORMAL_LO, 1.0))
+    assert u.view(np.int32).tolist() == ju.view(np.int32).tolist()
+    got = prng.normal(key, (n,))
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    want = np.asarray(jax.random.normal(jnp.asarray(key), (n,)))
+    d = _ulps(got.numpy(), want)
+    assert (d > 0).mean() <= 0.012
+    assert (d > 2).mean() <= 0.001
+    assert d.max() <= 3
+    far = np.abs(u[d > 2])
+    assert ((far > 0.6) & (far < 0.7)).all()
+
+
+def test_normal_shapes_and_edges():
+    key = prng.split(prng.PRNGKey(3), 2)[1]
+    for shape in [(1,), (3, 5), (2, 3, 4)]:
+        got = prng.normal(key, shape).numpy()
+        want = np.asarray(jax.random.normal(jnp.asarray(key), shape))
+        assert got.shape == want.shape
+        assert _ulps(got, want).max() <= 3
+    x = torch.tensor([-1.0, 1.0, 0.0, -0.0], dtype=torch.float32)
+    out = prng.erf_inv(x).numpy()
+    assert out[0] == -np.inf and out[1] == np.inf and out[2] == 0.0
+    assert np.signbit(out[3])
+
+
+def test_batched_keys_bit_equal():
+    keys = jax.random.split(jax.random.PRNGKey(5), 2000)
+    kt = prng.keys_tensor(np.asarray(keys))
+    assert kt.shape == (2000, 2) and kt.dtype == torch.int64
+    for num in (2, 3):
+        got = prng.split_many(kt, num).numpy()
+        want = np.asarray(jax.vmap(lambda k: jax.random.split(k, num))(keys))
+        assert got.tolist() == want.tolist()
+    got = prng.uniform_many(kt).numpy()
+    want = np.asarray(jax.vmap(lambda k: jax.random.uniform(k))(keys))
+    assert got.view(np.int32).tolist() == want.view(np.int32).tolist()
+    # a scalar draw is the vmapped one
+    assert float(jax.random.uniform(keys[17])) == float(got[17])
+    got = prng.normal_many(kt).numpy()
+    want = np.asarray(jax.vmap(lambda k: jax.random.normal(k))(keys))
+    assert _ulps(got, want).max() <= 3
+    assert (got == want).mean() > 0.97
+    with pytest.raises(ValueError, match="uint32"):
+        prng.keys_tensor(np.zeros((4, 3), np.uint32))
+
+
+def _fma_exact(a: np.float32, b: np.float32, c: np.float32) -> np.float32:
+    """a * b + c rounded once to float32 (nearest, ties to even), by exact
+    rational arithmetic."""
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    r = np.float32(float(exact))
+    best = None
+    for cand in (np.nextafter(r, np.float32(-np.inf)), r,
+                 np.nextafter(r, np.float32(np.inf))):
+        dist = abs(Fraction(float(cand)) - exact)
+        even = (int(np.float32(cand).view(np.int32)) & 1) == 0
+        if best is None or dist < best[0] or (dist == best[0] and even):
+            best = (dist, cand)
+    return np.float32(best[1])
+
+
+def test_fma32_rounds_once():
+    # a float64 add lands on a float32 midpoint the exact sum lies below
+    a = np.float32(2.0 ** -24 * (1 + 2.0 ** -15))
+    b = np.float32(1 - 2.0 ** -15)
+    c = np.float32(1 + 2.0 ** -23)
+    twice = np.float32(float(a) * float(b) + float(c))
+    once = _fma_exact(a, b, c)
+    assert once == c and twice != once
+    got = prng.fma32(*(torch.tensor([v]) for v in (a, b, c)))
+    assert got.numpy()[0] == once
+    rng = np.random.default_rng(0)
+    scale = np.float32(2.0) ** rng.integers(-30, 30, (3, 400)).astype(
+        np.float32)
+    a, b, c = rng.normal(size=(3, 400)).astype(np.float32) * scale
+    got = prng.fma32(torch.from_numpy(a), torch.from_numpy(b),
+                     torch.from_numpy(c)).numpy()
+    want = np.array([_fma_exact(*t) for t in zip(a, b, c)], np.float32)
+    assert got.view(np.int32).tolist() == want.view(np.int32).tolist()
