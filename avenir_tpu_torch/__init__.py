@@ -16,7 +16,8 @@ and `pipelines.knn_pipeline`, and the tools `kernel_check`, `knn_sweep` and
 `bench` (`python -m avenir_tpu_torch.tools.<tool>`); since then all 45
 jobs of the JAX package's runner, and its online half: the score plane
 (`server.ScorePlane`) and the streaming learners (`models.reinforce`,
-`streaming.LearnerStream`).
+`streaming.LearnerStream`); HOCON `.conf` job files; and the mesh layer
+`parallel` on `torch.distributed`.
 """
 
 __version__ = "0.1.0"

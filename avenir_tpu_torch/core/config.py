@@ -1,6 +1,8 @@
 """Job configuration: flat .properties files with per-job key prefixes.
 
-The port's own copy of the .properties half of `avenir_tpu/core/config.py`.
+The port's own copy of `avenir_tpu/core/config.py`: the .properties
+files, and the HOCON subset of the reference's Spark layer (one block a
+job, read by `JobConfig.from_hocon`).
 The reference passes a flat properties file to every job via
 `-Dconf.path=...`, and jobs read namespaced keys like `nen.*` plus shared
 un-prefixed keys (`field.delim.regex`) — see resource/knn.properties.
@@ -15,6 +17,7 @@ import re
 from typing import Any, Dict, List, Optional
 
 _KEY_VALUE = re.compile(r"([^=:]+)[=:](.*)")
+_HOCON_ENTRY = re.compile(r"([^=:{]+?)\s*[=:]\s*(.*)$")
 
 
 def load_properties(path: str) -> Dict[str, str]:
@@ -43,6 +46,66 @@ def load_properties(path: str) -> Dict[str, str]:
     return props
 
 
+def parse_properties_string(text: str) -> Dict[str, str]:
+    props: Dict[str, str] = {}
+    for stripped in (ln.strip() for ln in text.splitlines()):
+        if not stripped or stripped.startswith("#") or stripped.startswith("!"):
+            continue
+        m = _KEY_VALUE.match(stripped)
+        if m:
+            props[m.group(1).strip()] = m.group(2).strip()
+    return props
+
+
+def load_hocon(path: str) -> Dict[str, Dict[str, str]]:
+    """Parse the HOCON subset the reference's Spark layer uses
+    (resource/atmTrans.conf, sup.conf): one `jobName { ... }` block per
+    job, `key = value` / `key: value` entries, `//`/`#` comments, quoted or
+    bare scalars, and `[a, "b"]` lists. Nested blocks flatten to dotted
+    keys. Values normalize to the .properties string convention — lists
+    become comma-joined strings — so a JobConfig over a block behaves
+    exactly like one over a properties file."""
+    blocks: Dict[str, Dict[str, str]] = {}
+    stack: List[str] = []
+    with open(path) as fh:
+        text = fh.read()
+    for raw in text.splitlines():
+        line = raw.strip()
+        if not line or line.startswith("//") or line.startswith("#"):
+            continue
+        if line.endswith("{"):
+            stack.append(line[:-1].strip())
+            continue
+        if line == "}":
+            if not stack:
+                raise ValueError(f"{path}: unbalanced '}}'")
+            stack.pop()
+            continue
+        m = _HOCON_ENTRY.match(line)
+        if not m:
+            continue
+        key, val = m.group(1).strip(), m.group(2).strip()
+        if not stack:
+            raise ValueError(f"{path}: top-level entry {key!r} outside a job block")
+        dotted = ".".join(stack[1:] + [key])
+        blocks.setdefault(stack[0], {})[dotted] = _hocon_value(val)
+    if stack:
+        raise ValueError(f"{path}: unclosed block {stack[-1]!r}")
+    return blocks
+
+
+def _hocon_value(val: str) -> str:
+    val = val.strip()
+    if val.startswith("[") and val.endswith("]"):
+        inner = val[1:-1].strip()
+        if not inner:
+            return ""
+        return ",".join(_hocon_value(tok) for tok in inner.split(","))
+    if len(val) >= 2 and val[0] == val[-1] and val[0] in "\"'":
+        return val[1:-1]
+    return val
+
+
 _TRUE = {"true", "yes", "1", "on"}
 
 
@@ -64,6 +127,16 @@ class JobConfig:
     @classmethod
     def from_file(cls, path: str, prefix: str = "") -> "JobConfig":
         return cls(load_properties(path), prefix)
+
+    @classmethod
+    def from_hocon(cls, path: str, block: str, prefix: str = "") -> "JobConfig":
+        """A job's view of one HOCON job block (the Spark-surface config,
+        e.g. resource/atmTrans.conf driving contTimeStateTransitionStats)."""
+        blocks = load_hocon(path)
+        if block not in blocks:
+            raise MissingConfigError(
+                f"no block {block!r} in {path} (has: {', '.join(sorted(blocks))})")
+        return cls(blocks[block], prefix)
 
     def scoped(self, prefix: str) -> "JobConfig":
         """Same properties viewed under a different job prefix."""
@@ -142,6 +215,10 @@ class JobConfig:
     def field_delim_regex(self) -> str:
         return self.props.get("field.delim.regex",
                               self.props.get("field.delim.in", ","))
+
+    @property
+    def debug_on(self) -> bool:
+        return self.props.get("debug.on", "false").lower() in _TRUE
 
     def __repr__(self) -> str:
         return f"JobConfig(prefix={self.prefix!r}, {len(self.props)} keys)"

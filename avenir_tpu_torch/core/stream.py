@@ -5,8 +5,9 @@ The port's own copy of the stream layer of `avenir_tpu/core/stream.py`:
 the block readers (byte blocks, line blocks for free text, and
 `CsvBlockReader` / `iter_csv_chunks` for Dataset chunks), the prefetch
 thread (`prefetched`, `double_buffered`, the `stream.prefetch.depth`
-key) and `SharedScan`, without the columnar sidecar, the input-split
-byte ranges and the autotune hooks. The reference streams unbounded
+key), `SharedScan`, and the input splits of one file (`byte_range=`
+under Hadoop's LineRecordReader contract, `split_byte_ranges`), without
+the columnar sidecar and the autotune hooks. The reference streams unbounded
 files through mappers one line at a time; here the unit is a byte block
 of a fixed size cut at the last newline, parsed into a Dataset chunk
 against one shared schema, so host memory stays O(block) however large
@@ -35,8 +36,9 @@ from __future__ import annotations
 
 import os
 import queue
+import re
 import threading
-from typing import Iterable, Iterator, List, Optional, TypeVar
+from typing import Iterable, Iterator, List, Optional, Tuple, TypeVar
 
 from avenir_tpu_torch import obs
 from avenir_tpu_torch.core.dataset import Dataset
@@ -48,6 +50,8 @@ DEFAULT_BLOCK_BYTES = 64 << 20
 DEFAULT_PREFETCH_DEPTH = 2
 
 T = TypeVar("T")
+# the first byte that is not whitespace, searched for in place
+_NONWS = re.compile(rb"\S")
 
 #: called with no argument for every block `iter_byte_blocks` yields, when
 #: set (on the thread that reads): a test counts the blocks a run reads
@@ -56,38 +60,149 @@ T = TypeVar("T")
 _produce_hook = None
 
 
-def iter_byte_blocks(path: str, block_bytes: int = DEFAULT_BLOCK_BYTES
-                     ) -> Iterator[bytes]:
+def iter_byte_blocks(path: str, block_bytes: int = DEFAULT_BLOCK_BYTES,
+                     byte_range: Optional[Tuple[int, int]] = None,
+                     with_offsets: bool = False) -> Iterator:
     """Yield ~block_bytes raw byte blocks of `path`, each ending at a line
     boundary (the last block may lack its final newline). Blocks holding
-    only whitespace are dropped. The reading of each block yielded is a
-    `stream.read` span."""
+    only whitespace are dropped. The reading of each block is a
+    `stream.read` span.
+
+    byte_range=(start, end) restricts the blocks to one input split under
+    Hadoop's LineRecordReader contract: a split that starts mid-line skips
+    past its first newline (the split before owns that line), and a split
+    owns every line that starts before `end`, reading past `end` to finish
+    it. Disjoint ranges covering [0, size) so yield every line once.
+
+    with_offsets=True yields (offset, block) pairs, `offset` the file
+    offset of the block's first byte, and keeps the blank blocks, so the
+    blocks tile the covered range without a gap (`is_blank_block` tells a
+    consumer which to skip)."""
+    blocks = _offset_byte_blocks(path, block_bytes, byte_range)
+    if with_offsets:
+        return _counted(blocks)
+    return _blank_filtered(blocks)
+
+
+def _counted(blocks: Iterator[Tuple[int, bytes]]
+             ) -> Iterator[Tuple[int, bytes]]:
+    try:
+        for item in blocks:
+            _produced()
+            yield item
+    finally:
+        blocks.close()
+
+
+def _blank_filtered(blocks: Iterator[Tuple[int, bytes]]) -> Iterator[bytes]:
+    try:
+        for _off, blk in blocks:
+            if not is_blank_block(blk):
+                _produced()
+                yield blk
+    finally:
+        blocks.close()          # an abandoned scan closes the file at once
+
+
+def _offset_byte_blocks(path: str, block_bytes: int,
+                        byte_range: Optional[Tuple[int, int]]
+                        ) -> Iterator[Tuple[int, bytes]]:
+    """(file offset, block) pairs tiling the byte range without a gap: the
+    one copy of the block cutter behind both `iter_byte_blocks` modes."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"no such input file: {path!r}")
     if block_bytes < 1:
         raise ValueError(f"block_bytes must be positive, got {block_bytes}")
+    _check_range(byte_range)
+    size = os.path.getsize(path)
+    start, end = byte_range if byte_range else (0, size)
+    end = min(end, size)
     with open(path, "rb") as fh:
+        if start > 0:
+            fh.seek(start - 1)
+            if fh.read(1) != b"\n":
+                fh.readline()
+        pos = fh.tell()
+        emit = pos               # offset of the next byte not yet yielded
         carry = b""
         t0 = obs.now()
-        while True:
+        while pos < end:
             block = fh.read(block_bytes)
             if not block:
                 break
-            data = carry + block if carry else block
-            cut = data.rfind(b"\n")
+            pos += len(block)
+            if pos >= end:
+                # finish the line holding byte end-1 (the split owns every
+                # line that starts before `end`), reading past `end` if its
+                # newline is not read yet
+                data = carry + block if carry else block
+                carry = b""
+                b = len(data) - (pos - end)
+                if b > 0 and data[b - 1:b] == b"\n":
+                    cut = b
+                else:
+                    nl = data.find(b"\n", b)
+                    while nl < 0:
+                        extra = fh.read(block_bytes)
+                        if not extra:
+                            break
+                        off = len(data)
+                        data += extra
+                        nl = data.find(b"\n", off)
+                    cut = (nl + 1) if nl >= 0 else len(data)
+                obs.record("stream.read", t0, path=path, offset=emit,
+                           nbytes=cut)
+                yield emit, data[:cut]
+                return
+            # carry holds no newline, so the cut in `block` is the cut in
+            # carry + block
+            cut = block.rfind(b"\n")
             if cut < 0:
-                carry = data
+                carry += block
                 continue
-            carry = data[cut + 1:]
-            if data[:cut + 1].strip():
-                obs.record("stream.read", t0, path=path, nbytes=cut + 1)
-                _produced()
-                yield data[:cut + 1]
-                t0 = obs.now()
-        if carry.strip():
-            obs.record("stream.read", t0, path=path, nbytes=len(carry))
-            _produced()
-            yield carry
+            out = carry + block[:cut + 1] if carry else block[:cut + 1]
+            carry = block[cut + 1:]
+            obs.record("stream.read", t0, path=path, offset=emit,
+                       nbytes=len(out))
+            yield emit, out
+            emit += len(out)
+            t0 = obs.now()
+        if carry:
+            obs.record("stream.read", t0, path=path, offset=emit,
+                       nbytes=len(carry))
+            yield emit, carry
+
+
+def _check_range(byte_range: Optional[Tuple[int, int]]) -> None:
+    if byte_range is not None:
+        s, e = byte_range
+        if s < 0 or e < s:
+            raise ValueError(f"invalid byte_range {byte_range}")
+
+
+def split_byte_ranges(total: int, n: int) -> List[Tuple[int, int]]:
+    """`n` contiguous [lo, hi) ranges tiling [0, total) without a gap: the
+    one copy of the input-split arithmetic (`parallel.multihost`'s
+    `host_shard_bounds`). The sizes are ceil(total / n), so a total
+    smaller than n leaves trailing empty ranges (total, total), which
+    still tile: a reader under the LineRecordReader contract sees no line
+    there, never a line twice."""
+    if n < 1:
+        raise ValueError(f"split count must be positive, got {n}")
+    if total < 0:
+        raise ValueError(f"total must be non-negative, got {total}")
+    per = (total + n - 1) // n
+    ranges = []
+    for i in range(n):
+        lo = min(i * per, total)
+        ranges.append((lo, min(lo + per, total)))
+    return ranges
+
+
+def is_blank_block(data: bytes) -> bool:
+    """True when a byte block holds no byte but whitespace (searched in
+    place, without the copy `bytes.strip()` makes)."""
+    return _NONWS.search(data) is None
 
 
 def _produced() -> None:
@@ -135,24 +250,30 @@ class CsvBlockReader:
 
     def __init__(self, path: str, schema: FeatureSchema, delim: str = ",",
                  block_bytes: int = DEFAULT_BLOCK_BYTES, engine: str = "auto",
-                 keep_raw: bool = False):
+                 keep_raw: bool = False,
+                 byte_range: Optional[Tuple[int, int]] = None):
+        """byte_range=(start, end) reads one input split of the file, under
+        `iter_byte_blocks`' LineRecordReader contract: disjoint ranges
+        covering the file give every line once."""
         if not os.path.exists(path):
             raise FileNotFoundError(f"no such CSV file: {path!r}")
         if block_bytes < 1:
             raise ValueError(f"block_bytes must be positive, got {block_bytes}")
+        _check_range(byte_range)
         self.path = path
         self.schema = schema
         self.delim = delim
         self.block_bytes = block_bytes
         self.engine = engine
         self.keep_raw = keep_raw
+        self.byte_range = byte_range
 
     def __iter__(self) -> Iterator[Dataset]:
         # depth 1: one block ahead is all the read/parse overlap needs, and
         # it caps the raw bytes in flight at about two blocks (a job feed
         # queues parsed chunks on top of this)
-        feed = prefetched(iter_byte_blocks(self.path, self.block_bytes),
-                          depth=1)
+        feed = prefetched(iter_byte_blocks(self.path, self.block_bytes,
+                                           self.byte_range), depth=1)
         try:
             for blk in feed:
                 yield Dataset.from_csv(blk, self.schema, delim=self.delim,

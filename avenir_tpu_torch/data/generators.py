@@ -4,7 +4,8 @@ The port's own copy of the churn, e-learning and call-hangup generators
 of `avenir_tpu/data/generators.py`: the same numpy draws from the same seed,
 so both packages see the same rows. They stand in for the reference's
 resource/telecom_churn.py, resource/elearn.py and resource/call_hangup.py
-scripts. The
+scripts, and of the tutorials' price ladder, hospital readmission,
+disease, buy-transaction and visit-history generators. The
 multi-class corpus (`generate_multiclass`) is the port's own: continuous
 fields over more than two classes, the shape that shows the order in
 which Naive Bayes sums its moments. `generate_event_sequences` copies the
@@ -197,6 +198,29 @@ def generate_call_hangup(n: int, seed: int = 13,
     return _rows_out(rows, schema, as_csv)
 
 
+def generate_price_opt(num_products: int = 10, seed: int = 17
+                       ) -> List[List[str]]:
+    """resource/price_opt.py behavior: per product a price ladder whose
+    revenue rises to a halfway peak then falls — the group bandit round
+    input rows (group=product, item=price, count, avgReward)."""
+    rng = np.random.default_rng(seed)
+    rows: List[List[str]] = []
+    for _ in range(num_products):
+        prod = str(rng.integers(1_000_000, 8_000_000))
+        num_price = int(rng.integers(6, 12))
+        price = int(rng.integers(10, 80))
+        delta = int(rng.integers(2, 4))
+        rev = float(rng.integers(10_000, 30_000))
+        rev_delta = float(rng.integers(500, 1_500))
+        half = num_price // 2 + int(rng.integers(-2, 2))
+        for p in range(num_price):
+            rows.append([prod, str(price), "1", f"{rev:.0f}"])
+            price += delta
+            rev += (rev_delta if p < half else -rev_delta) + float(
+                rng.integers(-20, 20))
+    return rows
+
+
 def generate_token_sequences(n: int, vocab: int = 100, mean_len: float = 10,
                              max_len: int = 40, seed: int = 21
                              ) -> List[str]:
@@ -240,6 +264,215 @@ def generate_event_sequences(n: int, states: Optional[List[str]] = None,
             seq.append(states[cur])
         seqs.append(seq)
     return seqs
+
+
+def _weighted(rng, vals, wts, size):
+    """Weighted categorical draw (the reference util.rb's
+    CategoricalField / NumericalFieldRange sampling)."""
+    p = np.asarray(wts, np.float64)
+    return rng.choice(vals, size=size, p=p / p.sum())
+
+
+def hosp_readmit_schema() -> FeatureSchema:
+    """resource/hosp_readmit.json mirror: bucketized numerics WITHOUT a
+    declared max (extent is data-discovered, see
+    dataset._discover_numeric_range) + undeclared categorical
+    vocabularies — the reference's sparsest schema style."""
+    def cat(name, o):
+        return {"name": name, "ordinal": o, "dataType": "categorical",
+                "feature": True}
+    return FeatureSchema.from_json({"fields": [
+        {"name": "id", "ordinal": 0, "id": True, "dataType": "string"},
+        {"name": "age", "ordinal": 1, "dataType": "int", "feature": True,
+         "bucketWidth": 10},
+        {"name": "weight", "ordinal": 2, "dataType": "int", "feature": True,
+         "bucketWidth": 10},
+        {"name": "height", "ordinal": 3, "dataType": "int", "feature": True,
+         "bucketWidth": 5},
+        cat("employmentStatus", 4), cat("familyStatus", 5), cat("diet", 6),
+        cat("exercise", 7), cat("followUp", 8), cat("smoking", 9),
+        cat("alcohol", 10),
+        {"name": "readmit", "ordinal": 11, "dataType": "categorical"},
+    ]})
+
+
+def generate_hosp_readmit(n: int, seed: int = 27,
+                          as_csv: bool = False) -> Union[Dataset, str]:
+    """resource/hosp_readmit.rb behavior: weighted demographic draws and
+    an additive readmission probability (age/solitude/followUp dominate)."""
+    rng = np.random.default_rng(seed)
+
+    age = _weighted(rng, [15, 25, 35, 45, 55, 65, 75, 85],
+                   [2, 3, 6, 10, 14, 19, 25, 21], n) + rng.integers(-4, 5, n)
+    weight = _weighted(rng, np.arange(135, 246, 10),
+                       [9, 13, 16, 20, 23, 20, 17, 14, 10, 7, 5, 3], n)
+    height = _weighted(rng, [52, 58, 63, 68, 73], [9, 12, 16, 23, 14], n)
+    emp = _weighted(rng, ["employed", "unemployed", "retired"], [10, 1, 3], n)
+    emp = np.where((age > 68) & (rng.random(n) < 0.8), "retired", emp)
+    fam = _weighted(rng, ["alone", "with partner"], [10, 15], n)
+    diet = _weighted(rng, ["average", "poor", "good"], [10, 4, 2], n)
+    diet = np.where((emp == "unemployed") & (rng.random(n) < 0.7),
+                    "poor", diet)
+    exercise = _weighted(rng, ["average", "low", "high"], [10, 12, 4], n)
+    follow = _weighted(rng, ["average", "low", "high"], [10, 14, 3], n)
+    smoking = _weighted(rng, ["non smoker", "smoker"], [10, 3], n)
+    alcohol = _weighted(rng, ["average", "low", "high"], [10, 16, 4], n)
+
+    prob = np.full(n, 20.0)
+    prob += np.select([age > 80, age > 70, age > 60], [10, 5, 3], 0)
+    prob += np.where((weight > 200) & (height < 70), 5,
+                     np.where((weight > 180) & (height < 60), 3, 0))
+    prob += np.select([emp == "unemployed", emp == "retired"], [6, 4], 0)
+    prob += np.where(fam == "alone", 9, 0)
+    prob += np.select([diet == "poor", diet == "average"], [4, 2], 0)
+    prob += np.select([exercise == "low", exercise == "average"], [3, 1], 0)
+    prob += np.where(follow == "low", 8, 0)
+    prob += np.where(smoking == "smoker", 6, 0)
+    prob += np.select([alcohol == "high", alcohol == "average"], [5, 2], 0)
+    readmit = np.where(rng.integers(0, 100, n) < prob, "Y", "N")
+
+    rows = [[f"P{i:011d}", str(int(age[i])), str(int(weight[i])),
+             str(int(height[i])), emp[i], fam[i], diet[i], exercise[i],
+             follow[i], smoking[i], alcohol[i], readmit[i]]
+            for i in range(n)]
+    return _rows_out(rows, hosp_readmit_schema(), as_csv)
+
+
+def disease_schema() -> FeatureSchema:
+    """resource/patient.json mirror (the disease rule-mining meta data)."""
+    def cat(name, o):
+        return {"name": name, "ordinal": o, "dataType": "categorical",
+                "feature": True}
+    return FeatureSchema.from_json({"fields": [
+        {"name": "patientID", "ordinal": 0, "id": True,
+         "dataType": "string"},
+        {"name": "age", "ordinal": 1, "dataType": "int", "feature": True,
+         "min": 20, "max": 80, "maxSplit": 3, "bucketWidth": 5},
+        cat("race", 2),
+        {"name": "weight", "ordinal": 3, "dataType": "int", "feature": True},
+        cat("diet", 4), cat("family history", 5), cat("domestic life", 6),
+        {"name": "disease", "ordinal": 7, "dataType": "categorical"},
+    ]})
+
+
+def generate_disease(n: int, seed: int = 28,
+                     as_csv: bool = False) -> Union[Dataset, str]:
+    """resource/disease.rb behavior: multiplicative risk by age band, race,
+    diet, family history and domestic life."""
+    rng = np.random.default_rng(seed)
+
+    age = rng.integers(20, 80, n)
+    race = _weighted(rng, ["EUA", "AFA", "LAA", "ASA"], [10, 3, 1, 1], n)
+    weight = rng.integers(120, 240, n)
+    diet = _weighted(rng, ["LF", "REG", "HF"], [2, 8, 4], n)
+    fam = _weighted(rng, ["NFH", "FH"], [5, 1], n)
+    dom = _weighted(rng, ["S", "DP"], [2, 4], n)
+
+    pr = np.full(n, 15.0)
+    pr *= np.select([age < 40, age < 50, age < 60, age < 70],
+                    [1.0, 1.05, 1.15, 1.4], 1.5)
+    pr *= np.select([race == "AFA", race == "ASA", race == "LAA"],
+                    [1.2, 0.9, 0.95], 1.0)
+    pr *= np.where(diet == "HF", 1.15, 1.0)
+    pr *= np.where(fam == "FH", 1.2, 1.0)
+    pr *= np.where(dom == "S", 1.2, 1.0)
+    status = np.where(rng.integers(0, 100, n) < np.minimum(pr, 99.0),
+                      "Yes", "No")
+    rows = [[f"D{i:011d}", str(int(age[i])), race[i], str(int(weight[i])),
+             diet[i], fam[i], dom[i], status[i]] for i in range(n)]
+    return _rows_out(rows, disease_schema(), as_csv)
+
+
+BUY_STATES = ["SL", "SE", "SG", "ML", "ME", "MG", "LL", "LE", "LG"]
+
+
+def generate_buy_xactions(n_cust: int = 400, days: int = 210,
+                          daily_frac: float = 0.05, seed: int = 29
+                          ) -> List[List[str]]:
+    """resource/buy_xaction.rb behavior: per day a fraction of customers
+    transacts; the amount depends on recency and prior amount (short gaps
+    -> small corrective buys, long gaps -> large restock buys). Rows:
+    (custID, xid, date-ordinal, amount), unordered like the raw feed."""
+    rng = np.random.default_rng(seed)
+    last: dict = {}
+    rows: List[List[str]] = []
+    xid = 0
+    for day in range(days):
+        k = int(daily_frac * n_cust * (85 + rng.integers(0, 30)) / 100)
+        for c in rng.integers(0, n_cust, k):
+            cid = f"C{c:09d}"
+            if cid in last:
+                gap = day - last[cid][0]
+                amt_pr = last[cid][1]
+                if gap < 30:
+                    amt = (50 if amt_pr < 40 else 30) + int(rng.integers(-10, 10))
+                elif gap < 60:
+                    amt = (100 if amt_pr < 80 else 60) + int(rng.integers(-20, 20))
+                else:
+                    amt = (180 if amt_pr < 150 else 120) + int(rng.integers(-30, 30))
+            else:
+                amt = 40 + int(rng.integers(0, 180))
+            amt = max(amt, 5)
+            last[cid] = (day, amt)
+            rows.append([cid, f"X{xid:09d}", str(day), str(amt)])
+            xid += 1
+    return rows
+
+
+def xactions_to_state_sequences(rows: List[List[str]]
+                                ) -> List[List[str]]:
+    """The Projection-MR + xaction_state.rb steps in one: group
+    transactions per customer ordered by date, then encode each
+    consecutive pair as a 2-char state — days-gap S/M/L (<30/<60/else) x
+    amount-ratio L/E/G (prev <0.9x / within 10% / >1.1x of current).
+    Returns [custID, state, state, ...] rows for customers with >=2
+    transactions."""
+    hist: dict = {}
+    for cid, _xid, date, amt in rows:
+        hist.setdefault(cid, []).append((int(date), int(amt)))
+    out = []
+    for cid in hist:
+        xs = sorted(hist[cid])
+        if len(xs) < 2:
+            continue
+        seq = [cid]
+        for (d0, a0), (d1, a1) in zip(xs[:-1], xs[1:]):
+            gap = d1 - d0
+            dd = "S" if gap < 30 else ("M" if gap < 60 else "L")
+            ad = "L" if a0 < 0.9 * a1 else ("E" if a0 < 1.1 * a1 else "G")
+            seq.append(dd + ad)
+        out.append(seq)
+    return out
+
+
+def generate_visit_history(n_users: int, conv_rate: int = 10,
+                           labeled: bool = True, seed: int = 31
+                           ) -> List[List[str]]:
+    """resource/visit_history.py behavior: per user a page-visit session
+    sequence of 2-char states (elapsed-time x duration, H/M/L each);
+    converted users trend low-elapsed/high-duration, non-converted the
+    reverse. Rows: [userID, label?, state...]."""
+    rng = np.random.default_rng(seed)
+    out: List[List[str]] = []
+    for i in range(n_users):
+        converted = rng.integers(0, 100) < conv_rate
+        row = [f"U{i:011d}"]
+        if labeled:
+            truthful = rng.integers(0, 100) < 90
+            row.append("T" if converted == truthful else "F")
+        if converted:
+            n_sess = int(rng.integers(2, 21))
+            el_p, du_p = [0.15, 0.25, 0.60], [0.15, 0.25, 0.60]
+            el_v, du_v = ["H", "M", "L"], ["L", "M", "H"]
+        else:
+            n_sess = int(rng.integers(2, 13))
+            el_p, du_p = [0.20, 0.25, 0.55], [0.20, 0.25, 0.55]
+            el_v, du_v = ["L", "M", "H"], ["H", "M", "L"]
+        for _ in range(n_sess):
+            row.append(str(rng.choice(el_v, p=el_p))
+                       + str(rng.choice(du_v, p=du_p)))
+        out.append(row)
+    return out
 
 
 #: the churn tutorial's states and its two class chains, converted (C) and

@@ -15,8 +15,9 @@ coefficients sit within the tolerance `tests/test_torch_regress_cluster.py`
 states; the float64 sums keep the card's gradient equal to the CPU's but
 on a rounding tie.
 
-Not ported: `fit(mesh=)`, the sharded gradient (a `torch.distributed`
-item of its own).
+`fit(mesh=)` shards the rows over the ranks of a `parallel.data_mesh`:
+each rank's float64 gradient half is summed across them before the one
+rounding to float32 (`parallel.distributed`'s lr_step family).
 """
 
 from __future__ import annotations
@@ -36,14 +37,22 @@ NOT_CONVERGED = 101
 GRAD_RANGE = "regress::lr_grad"
 
 
-def _lr_grad(coeff: torch.Tensor, x: torch.Tensor, y: torch.Tensor
-             ) -> torch.Tensor:
-    """Unnormalized log-likelihood gradient x^T (y - sigmoid(x c)), float32
-    of a float64 computation."""
+def _lr_grad64(coeff: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+               w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Unnormalized log-likelihood gradient x^T ((y - sigmoid(x c)) * w) in
+    float64: the core of the single-device and the sharded step."""
     with torch.profiler.record_function(GRAD_RANGE):
         x64 = x.double()
         r = y.double() - torch.sigmoid(x64 @ coeff.double())
-        return (x64.T @ r).float()
+        if w is not None:
+            r = r * w.double()
+        return x64.T @ r
+
+
+def _lr_grad(coeff: torch.Tensor, x: torch.Tensor, y: torch.Tensor
+             ) -> torch.Tensor:
+    """`_lr_grad64` rounded to float32 once."""
+    return _lr_grad64(coeff, x, y).float()
 
 
 def _lr_step(coeff: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -72,11 +81,11 @@ class LogisticRegression:
         self.device = resolve_device(device)
         self.coeff_history: List[np.ndarray] = []
 
-    def _design(self, ds: Dataset) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(x float32 [n, 1 + D], y float32 [n]) on the device: the features
-        standardized in float64 on the host by the first call's mean and
-        deviation (the reference's deviation from the Java job, which
-        leaves scaling to the user), an intercept column first."""
+    def _design_host(self, ds: Dataset) -> Tuple[np.ndarray, np.ndarray]:
+        """(x float32 [n, 1 + D], y float32 [n]) on the host: the features
+        standardized in float64 by the first call's mean and deviation
+        (the reference's deviation from the Java job, which leaves scaling
+        to the user), an intercept column first."""
         x = ds.feature_matrix().astype(np.float64)
         if not hasattr(self, "_mu"):
             self._mu = x.mean(axis=0)
@@ -87,17 +96,43 @@ class LogisticRegression:
         if self.pos_class is not None:
             pi = ds.schema.class_values().index(self.pos_class)
             y = (ds.labels() == pi).astype(np.float32)
+        return x, y
+
+    def _design(self, ds: Dataset) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`_design_host` on the device."""
+        x, y = self._design_host(ds)
         return (torch.from_numpy(x).to(self.device),
                 torch.from_numpy(y).to(self.device))
 
-    def fit(self, ds: Dataset) -> "LogisticRegression":
+    def fit(self, ds: Dataset, mesh=None) -> "LogisticRegression":
         """Full-batch gradient epochs until the criterion says CONVERGED or
-        the iteration limit."""
-        x, y = self._design(ds)
-        coeff = torch.zeros(x.shape[1], dtype=torch.float32, device=self.device)
+        the iteration limit. With `mesh` (on `mesh.device`), every rank
+        calls fit on the whole dataset and keeps its shard of the rows over
+        the data axis; pad rows weigh 0 and the normalizer is the weight
+        total, the real row count."""
+        if mesh is None:
+            x, y = self._design(ds)
+            dev = self.device
+
+            def step(c):
+                return _lr_step(c, x, y, self.lr)[0]
+        else:
+            from avenir_tpu_torch.parallel.distributed import \
+                distributed_lr_step_fn
+            from avenir_tpu_torch.parallel.mesh import (DATA_AXIS, row_mask,
+                                                        shard_rows)
+            xh, yh = self._design_host(ds)
+            dev = mesh.device
+            x, y = shard_rows(mesh, xh), shard_rows(mesh, yh)
+            w = row_mask(mesh, len(xh), x.shape[0] * mesh.shape[DATA_AXIS])
+            mesh_step = distributed_lr_step_fn(mesh, self.lr, axes=(DATA_AXIS,))
+
+            def step(c):
+                return mesh_step(c, x, y, w)
+        coeff = torch.zeros(x.shape[1], dtype=torch.float32, device=dev)
         self.coeff_history = [coeff.cpu().numpy()]
         for _ in range(self.iter_limit):
-            coeff, _ = _lr_step(coeff, x, y, self.lr)
+            coeff = step(coeff)
             self.coeff_history.append(coeff.cpu().numpy())
             if self.check_convergence() == CONVERGED:
                 break

@@ -30,8 +30,8 @@ order. The model is the DecisionPathList JSON of the reference
 (jackson field names), so the files of the reference, of the JAX package
 and of the port are interchangeable.
 
-Not ported: `DecisionTreeBuilder.fit(mesh=)`, the sharded fit, which waits
-for the port's `torch.distributed` layer.
+`DecisionTreeBuilder.fit(mesh=)` shards the rows over the ranks of a
+`parallel.data_mesh` and sums each level histogram across them.
 """
 
 from __future__ import annotations
@@ -252,18 +252,20 @@ def segment_matrix(splits: Sequence[CandidateSplit], ds: Dataset
 
 def _level_histogram_forest(leaf_ids: torch.Tensor, seg_matrix: torch.Tensor,
                             labels: torch.Tensor, weights: torch.Tensor,
-                            n_leaves: int, n_splits: int, smax: int, k: int
+                            n_leaves: int, n_splits: int, smax: int, k: int,
+                            dtype: torch.dtype = torch.float32
                             ) -> torch.Tensor:
-    """float32 [T, L, NS, S, K]: every tree's level histogram in one call,
-    on the tensors' device. Trees share the segment matrix [n, NS] and
-    the labels [n] and differ in leaf routing and row weights ([T, n]
-    each). The key of a (tree, row, split) is the JAX package's
+    """float32 (or `dtype`) [T, L, NS, S, K]: every tree's level histogram
+    in one call, on the tensors' device. Trees share the segment matrix
+    [n, NS] and the labels [n] and differ in leaf routing and row weights
+    ([T, n] each). The key of a (tree, row, split) is the JAX package's
     ((leaf * NS + split) * S + segment) * K + class with the tree in
     front, counted with its row's weight by `torch.bincount` over row
     blocks (each block's int64 keys at most KEY_BLOCK); the weights are
     integers, so the float64 sums are exact, and the float32 cast gives
     the JAX package's float32 `segment_sum` while every cell stays under
-    2^24. Counts its calls in `_level_histogram_forest.calls`; a
+    2^24 (dtype=torch.int64 gives the exact counts, which a mesh sums
+    across ranks). Counts its calls in `_level_histogram_forest.calls`; a
     profile sees each call as the range `tree::level_histogram`."""
     _level_histogram_forest.calls += 1
     with record_function("tree::level_histogram"):
@@ -283,8 +285,7 @@ def _level_histogram_forest(leaf_ids: torch.Tensor, seg_matrix: torch.Tensor,
             w = weights[:, s:e, None].to(torch.float64).expand(key.shape)
             counts += torch.bincount(key.reshape(-1), weights=w.reshape(-1),
                                      minlength=t * cells)
-        return counts.to(torch.float32).reshape(t, n_leaves, n_splits,
-                                                smax, k)
+        return counts.to(dtype).reshape(t, n_leaves, n_splits, smax, k)
 
 
 _level_histogram_forest.calls = 0
@@ -292,13 +293,13 @@ _level_histogram_forest.calls = 0
 
 def _level_histogram(leaf_id: torch.Tensor, seg_matrix: torch.Tensor,
                      labels: torch.Tensor, weights: torch.Tensor,
-                     n_leaves: int, n_splits: int, smax: int, k: int
-                     ) -> torch.Tensor:
+                     n_leaves: int, n_splits: int, smax: int, k: int,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """counts[l, s, seg, c] of one tree (leaf ids [n], weights [n]): the
     whole MR shuffle of one tree level, as a forest of one."""
     return _level_histogram_forest(leaf_id[None], seg_matrix, labels,
                                    weights[None], n_leaves, n_splits, smax,
-                                   k)[0]
+                                   k, dtype)[0]
 
 
 def _advance_leaves_forest(leaf_ids: torch.Tensor, seg_matrix: torch.Tensor,
@@ -613,6 +614,22 @@ def _leaf_pad(n_leaves: int) -> int:
     return 1 << (n_leaves - 1).bit_length()
 
 
+def _mesh_level_histogram(mesh):
+    """`_level_histogram` of rows sharded over the mesh's data axis: the
+    exact counts of this rank's rows summed over the ranks
+    (`parallel.distributed`'s tree_level family), as float32."""
+    from avenir_tpu_torch.parallel.distributed import distributed_tree_level_fn
+    from avenir_tpu_torch.parallel.mesh import DATA_AXIS
+
+    def histogram(leaf_id, seg_matrix, labels, weights, n_leaves, n_splits,
+                  smax, k):
+        return distributed_tree_level_fn(
+            mesh, n_leaves, n_splits, smax, k, axes=(DATA_AXIS,))(
+            leaf_id, seg_matrix, labels, weights).to(torch.float32)
+
+    return histogram
+
+
 class DecisionTreeBuilder:
     """dtb.* job equivalent: level-wise tree growth, all state in-process,
     the device work on `device` (default cuda)."""
@@ -644,23 +661,40 @@ class DecisionTreeBuilder:
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------- fit
-    def fit(self, ds: Dataset, row_weights: Optional[np.ndarray] = None
-            ) -> DecisionPathList:
+    def fit(self, ds: Dataset, row_weights: Optional[np.ndarray] = None,
+            mesh=None) -> DecisionPathList:
         """Build the tree: a level histogram, the host's split choice and
         an advance a level (each level one `stream.fold` span), then the
-        final histogram for the leaves' class distributions."""
+        final histogram for the leaves' class distributions.
+
+        With `mesh` (`parallel.data_mesh`, on `mesh.device`), every rank
+        calls fit on the whole dataset and keeps its shard of the rows
+        over the data axis (pad rows weigh 0); each level histogram is
+        summed over the ranks as exact int64 counts, so every rank picks
+        the same splits and the tree equals fit()'s."""
         n = len(ds)
         k = len(self.class_values)
         ns = len(self.splits)
-        dev = self.device
         with obs.span("stream.fold", sink="split_encode", rows=n):
             seg = segment_matrix(self.splits, ds)             # [n, NS]
-            seg_d = torch.from_numpy(seg).to(dev)
-            labels_d = torch.from_numpy(ds.labels()).to(dev)
+            labels = ds.labels()
             w_host = (row_weights.astype(np.float32) if row_weights is not None
                       else np.ones(n, np.float32))
-            w = torch.from_numpy(w_host).to(dev)
-            leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
+            if mesh is None:
+                dev = self.device
+                seg_d = torch.from_numpy(seg).to(dev)
+                labels_d = torch.from_numpy(labels).to(dev)
+                w = torch.from_numpy(w_host).to(dev)
+            else:
+                from avenir_tpu_torch.parallel.mesh import shard_rows
+                dev = mesh.device
+                seg_d = shard_rows(mesh, seg)
+                labels_d = shard_rows(mesh, labels)
+                w = shard_rows(mesh, w_host)          # pad rows weigh 0
+            leaf_id = torch.zeros(seg_d.shape[0], dtype=torch.int32,
+                                  device=dev)
+        histogram = _level_histogram if mesh is None else \
+            _mesh_level_histogram(mesh)
 
         # host-side tree state: leaf -> (predicate chain, used attrs)
         leaves: List[Dict] = [{"preds": [], "used": set(), "stopped": False}]
@@ -670,7 +704,7 @@ class DecisionTreeBuilder:
                 break
             with obs.span("stream.fold", sink="tree_level", chunk=depth):
                 lpad = _leaf_pad(len(leaves))
-                counts = _level_histogram(
+                counts = histogram(
                     leaf_id, seg_d, labels_d, w, lpad, ns, self.smax, k
                 ).cpu().numpy()[: len(leaves)]                # [L, NS, S, K]
                 best_split_of_leaf, child_offset, new_leaves = \
@@ -684,7 +718,7 @@ class DecisionTreeBuilder:
             leaves = leaves + new_leaves
 
         with obs.span("stream.fold", sink="tree_level", chunk="final"):
-            counts_final = _level_histogram(
+            counts_final = histogram(
                 leaf_id, seg_d, labels_d, w, _leaf_pad(len(leaves)),
                 max(ns, 1), self.smax, k
             ).cpu().numpy()[: len(leaves)] if ns else None

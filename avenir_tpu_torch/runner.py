@@ -85,11 +85,14 @@ from avenir_tpu_torch.utils.metrics import (ConfusionMatrix,
 @dataclass
 class JobResult:
     """What a job hands back: Hadoop-counter-style counters (the
-    reference's "Validation:*" group) plus the files it wrote."""
+    reference's "Validation:*" group) plus the files it wrote, and for the
+    tree and split jobs the fitted object as `payload` (the decision paths,
+    the forest, the split generator), as the reference hands them back."""
 
     name: str
     counters: Dict[str, float] = field(default_factory=dict)
     outputs: List[str] = field(default_factory=list)
+    payload: object = None
 
     def __repr__(self) -> str:
         return f"JobResult({self.name}, counters={self.counters}, outputs={self.outputs})"
@@ -126,13 +129,17 @@ def job_prefix(name: str) -> str:
 
 def _job_cfg(name: str, conf) -> Tuple[str, JobConfig]:
     """(canonical name, JobConfig scoped under the job's prefix) of a
-    registered job. `conf` is a properties file path, a dict, or a
-    JobConfig."""
+    registered job. `conf` is a properties file path, a HOCON `.conf` path
+    (the block named after the job), a dict, or a JobConfig."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown job {name!r}; known: {', '.join(job_names())}")
     canonical, prefix, _fn = _REGISTRY[name]
     if isinstance(conf, str):
-        cfg = JobConfig(load_properties(conf), prefix)
+        if conf.endswith(".conf"):
+            # Spark-surface HOCON config: one block per job name
+            cfg = JobConfig.from_hocon(conf, canonical, prefix)
+        else:
+            cfg = JobConfig(load_properties(conf), prefix)
     elif isinstance(conf, dict):
         cfg = JobConfig(conf, prefix)
     else:
@@ -1677,7 +1684,8 @@ def decision_tree(cfg: JobConfig, inputs: List[str], output: str,
         out = (cfg.get("decision.file.path.out")
                or _out_file(output, "decPathOut.txt"))
         paths.save(out)
-    return JobResult("decTree", {"Tree:Paths": len(paths.paths)}, [out])
+    return JobResult("decTree", {"Tree:Paths": len(paths.paths)}, [out],
+                     paths)
 
 
 @job("randomForest", "dtb", "org.avenir.tree.RandomForestBuilder")
@@ -1708,7 +1716,8 @@ def random_forest(cfg: JobConfig, inputs: List[str], output: str,
                 p = os.path.join(output, f"tree-{t:03d}.json")
                 tree.save(p)
                 outs.append(p)
-    return JobResult("randomForest", {"Tree:Trees": len(forest.trees)}, outs)
+    return JobResult("randomForest", {"Tree:Trees": len(forest.trees)}, outs,
+                     forest)
 
 
 @job("classPartitionGenerator", "cpg",
@@ -1739,7 +1748,7 @@ def class_partition_job(cfg: JobConfig, inputs: List[str], output: str,
                 fh.write(f"{s.attribute}{delim}{s.split_id}{delim}"
                          f"{stat:.6f}\n")
     return JobResult("classPartitionGenerator",
-                     {"Splits:Candidates": len(cpg.splits)}, [out])
+                     {"Splits:Candidates": len(cpg.splits)}, [out], cpg)
 
 
 @job("dataPartitioner", "dap", "org.avenir.tree.DataPartitioner")
@@ -2741,7 +2750,8 @@ def run_from_cli(argv: Sequence[str]) -> JobResult:
     ap = argparse.ArgumentParser(prog="avenir_tpu_torch")
     ap.add_argument("jobname", help="job name or reference Tool class")
     ap.add_argument("--conf", default=None,
-                    help="properties file (the -Dconf.path analog)")
+                    help="properties file (the -Dconf.path analog), or a HOCON .conf "
+                         "with a block named after the job")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions of the kernels)")

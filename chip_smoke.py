@@ -349,11 +349,33 @@ Phases, each printing a line per check; any failed check exits non-zero:
    twin over those steps by `tools.sampling_check.walk_divergence`, and
    Geweke and Raftery-Lewis on the card's samples.
 
+19. A HOCON job file (after phase 18): the supplier-fulfillment
+   tutorial's `sup.conf`, one block a job, drives `stateTransitionRate` on
+   1,000,000 event rows (1,000 products x 1,000 weeks, the tutorial's
+   two reliability profiles) and `contTimeStateTransitionStats` on the
+   1,000 products through `runner.run_job` with device="cuda"; both files
+   byte-identical to the CPU twin's (the same conf text, its rates path
+   its own). Both jobs are host float64: no kernel launches.
+20. `parallel/` on the card: a NCCL process group of world size 1 in this
+   process (`multihost.initialize` at a free localhost port), its data
+   mesh, and the eight families on cuda tensors (1,000,000 rows; KNN at
+   1024 x 131072 x 6, k=5; bandits at 100,000 groups x 10 arms), each
+   equal to the port's single-device core (LR's step within 1e-7), with
+   its CUDA-event ms and its all_reduce's ms alone; then
+   `DecisionTreeBuilder.fit(mesh=)` (the e-learning features split every
+   10, depth 3) and `LogisticRegression.fit(mesh=)` (10 iterations) on
+   1,000,000 e-learning rows against fit() on the card: the same decision
+   paths, coefficients within 1e-7. NCCL puts no two ranks on one GPU,
+   so the multi-rank equality lives in the CPU tests' gloo world
+   (`tests/test_torch_parallel.py`). A failed NCCL start fails the run:
+   nothing falls back to gloo or the CPU.
+
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth, phase 12's GSP runs the fifth, phase 15's
 KNN stream legs the sixth, phase 16's topMatchesByClass the seventh and
-its k-means the eighth, phase 18's library modules the ninth: each
-kernel's launches are counted from zero on each path. Then one JSON
+its k-means the eighth, phase 18's library modules the ninth, phase
+19's conf jobs the tenth and phase 20's mesh the eleventh (no kernel on
+either): each kernel's launches are counted from zero on each path. Then one JSON
 line of per-kernel numbers (the pre-pass beside the five kernels, at the
 sweep's D=128 float32; the tensor-core form at the bench's D=128
 bfloat16; the two merge kernels at the job's shape; the walk at the
@@ -4717,6 +4739,340 @@ def phase_library(flops: float, rate: float):
     return secs, row, counts, rows
 
 
+# ------------------------------------------------------------ phase 19
+#: the supplier-fulfillment tutorial's sup.conf: one block a CTMC job
+SUP_CONF = """stateTransitionRate {{
+  field.delim.in = ","
+  key.field.ordinals = [0]
+  time.field.ordinal = 1
+  state.field.ordinal = 2
+  state.values = ["F", "P", "L"]
+  rate.time.unit = "week"
+  input.time.unit = "ms"
+  trans.rate.output.precision = 9
+}}
+
+contTimeStateTransitionStats {{
+  field.delim.in = ","
+  key.field.len = 1
+  state.values = ["F", "P", "L"]
+  time.horizon = 4
+  state.trans.file.path = "{rates}"
+  state.trans.stat = "stateDwellTime"
+  target.states = ["L"]
+}}
+"""
+#: 1,000 products x 1,000 weeks of fulfillment states: 1,000,000 rows
+CONF_PRODUCTS, CONF_WEEKS = 1_000, 1_000
+CONF_PATH = "sup.conf"
+
+
+def _fulfillment_csv(path: Path) -> None:
+    """The tutorial's weekly states (`productId,epochMs,state`), reliable
+    and struggling products in turn, drawn a week at a time for all
+    products at once."""
+    import numpy as np
+
+    profiles = np.array([
+        [[.85, .10, .05], [.60, .25, .15], [.50, .30, .20]],
+        [[.40, .30, .30], [.25, .40, .35], [.15, .35, .50]]])
+    rng = np.random.default_rng(13)
+    kind = np.arange(CONF_PRODUCTS) % 2
+    s = np.zeros(CONF_PRODUCTS, np.int64)
+    weeks = np.empty((CONF_PRODUCTS, CONF_WEEKS), np.int64)
+    for w in range(CONF_WEEKS):
+        weeks[:, w] = s
+        cum = profiles[kind, s].cumsum(axis=1)
+        s = (rng.random(CONF_PRODUCTS)[:, None] > cum).sum(axis=1)
+    names = np.array(["F", "P", "L"])
+    stamps = [str(w * 604_800_000) for w in range(CONF_WEEKS)]
+    with open(path, "w") as fh:
+        for p in range(CONF_PRODUCTS):
+            pid = f"PROD{p:05d}"
+            fh.write("".join(f"{pid},{t},{st}\n" for t, st in
+                             zip(stamps, names[weeks[p]])))
+
+
+def phase_conf():
+    """The CTMC pair of the supplier-fulfillment tutorial driven by one
+    HOCON `sup.conf` through `runner.run_job` on the card, each file
+    against its CPU twin's (run from the same conf text, its rates path
+    its own). Returns (seconds, the path's launch counts)."""
+    import torch
+
+    from avenir_tpu_torch.runner import run_job
+
+    work = ROOT / "build" / "chip_smoke_conf"
+    shutil.rmtree(work, ignore_errors=True)
+    t_phase = time.perf_counter()
+    data, queries = work / "fulfill.csv", work / "queries.csv"
+    outs, secs = {}, {}
+    for dev in (DEVICE, "cpu"):
+        d = work / dev
+        d.mkdir(parents=True, exist_ok=True)
+        (d / CONF_PATH).write_text(SUP_CONF.format(rates=d / "rates.txt"))
+    _fulfillment_csv(data)
+    queries.write_text("".join(f"PROD{p:05d},L\n"
+                               for p in range(CONF_PRODUCTS)))
+    secs["corpus"] = round(time.perf_counter() - t_phase, 3)
+    for dev in (DEVICE, "cpu"):
+        d, conf = work / dev, str(work / dev / CONF_PATH)
+        if dev == DEVICE:
+            _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_job("stateTransitionRate", conf, [str(data)],
+                      str(d / "rates.txt"), device=dev)
+        t1 = time.perf_counter()
+        res2 = run_job("contTimeStateTransitionStats", conf, [str(queries)],
+                       str(d / "dwell.csv"), device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if dev == DEVICE:
+            counts = _launch_counts()
+        secs[dev] = {"stateTransitionRate": round(t1 - t0, 3),
+                     "contTimeStateTransitionStats": round(t2 - t1, 3)}
+        outs[dev] = _files_of(res) + _files_of(res2)
+    check(res.counters["Basic:Entities"] == CONF_PRODUCTS
+          and outs[DEVICE] == outs["cpu"] and len(outs[DEVICE]) == 2,
+          f"{CONF_PATH}: stateTransitionRate on {CONF_PRODUCTS * CONF_WEEKS} "
+          f"event rows and contTimeStateTransitionStats on {CONF_PRODUCTS} "
+          f"queries from one HOCON conf ({CARD}): {json.dumps(secs)}; both "
+          f"files byte-identical to the CPU twin's")
+    check(not any(counts.values()),
+          f"{CONF_PATH} path: both jobs are host float64, no kernel of the "
+          f"port's own launched: {counts}")
+    secs["phase"] = round(time.perf_counter() - t_phase, 1)
+    return secs, counts
+
+
+# ------------------------------------------------------------ phase 20
+MESH_ROWS = 1_000_000
+#: the KNN family's queries, train rows, features and k
+MESH_KNN = (1024, 131072, 6, 5)
+MESH_FIT_ROWS, MESH_FIT_DEPTH, MESH_LR_ITERS = 1_000_000, 3, 10
+MESH_PATH = "mesh"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_inputs():
+    """Every family's inputs on the card (rows of MESH_ROWS, KNN at
+    MESH_KNN) and the single-device core that answers each."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.models.association import _contain_counts_resident
+    from avenir_tpu_torch.models.bandits import _ucb1
+    from avenir_tpu_torch.models.markov import bigram_counts
+    from avenir_tpu_torch.models.regress import _lr_step
+    from avenir_tpu_torch.models.tree import _level_histogram
+    from avenir_tpu_torch.ops.distance import _block_topk, pairwise_distance
+
+    rng = np.random.default_rng(2026)
+    n = MESH_ROWS
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+
+    nq, nt, d, k = MESH_KNN
+    q, t = dev(rng.random((nq, d), np.float32)), dev(rng.random((nt, d),
+                                                                 np.float32))
+    t_lab = dev(rng.integers(0, 2, nt).astype(np.int32))
+    ones = dev(np.ones(n, np.float32))
+    codes = dev(rng.integers(0, 12, (n, 5)).astype(np.int32))
+    lab2 = dev(rng.integers(0, 2, n).astype(np.int32))
+    leaf = dev(rng.integers(0, 8, n).astype(np.int32))
+    seg = dev(rng.integers(0, 2, (n, 54)).astype(np.int8))
+    x = dev(np.concatenate([np.ones((n, 1)), rng.normal(0, 1, (n, 6))],
+                           axis=1).astype(np.float32))
+    coeff = dev(rng.normal(0, 0.3, 7).astype(np.float32))
+    seq = rng.integers(0, 5, (n // 10, 10)).astype(np.int32)
+    seq[np.arange(10)[None, :] >= rng.integers(2, 11, n // 10)[:, None]] = -1
+    trans = dev((rng.random((n, 64)) < 0.1).astype(np.uint8))
+    cand = np.zeros((256, 64), np.float32)
+    for c in range(256):
+        cand[c, [c % 64, (c // 64 + 1 + c) % 64]] = 1.0
+    g = n // 10
+    counts = dev(rng.integers(0, 40, (g, 10)).astype(np.int32))
+    rewards = dev((rng.random((g, 10)) * 100).astype(np.float32))
+    mask = dev(np.ones((g, 10), bool))
+
+    def knn_single():
+        dd = pairwise_distance(q, t)
+        return _block_topk(dd, torch.arange(nt, device=q.device).expand_as(dd),
+                           k, "manhattan")
+    return {
+        "knn_topk": ((k,), (q, t, t_lab),
+                     lambda: (lambda dv, ix: (dv, t_lab[ix]))(*knn_single())),
+        "nb_train": ((2, 12), (codes, lab2, ones), None),
+        "tree_level": ((8, 54, 2, 2), (leaf, seg, lab2, ones),
+                       lambda: _level_histogram(leaf, seg, lab2, ones, 8, 54,
+                                                2, 2, dtype=torch.int64)),
+        "lr_step": ((0.5,), (coeff, x, lab2.float(), ones),
+                    lambda: _lr_step(coeff, x, lab2.float(), 0.5)[0]),
+        "markov_counts": ((5, 2), (dev(seq), lab2[:n // 10]),
+                          lambda: bigram_counts(dev(seq), lab2[:n // 10], 5,
+                                                2)),
+        "apriori_support": ((2,), (trans, dev(cand)),
+                            lambda: _contain_counts_resident(
+                                trans, dev(cand), 2, 8192).long()),
+        "bandit_select": ((3, 100.0), (counts, rewards, mask, 10.0),
+                          lambda: _ucb1(counts, rewards, mask, 10.0, 100.0,
+                                        3)),
+        "crosscount": ((12, 2), (codes[:, 0], lab2, ones), None),
+    }
+
+
+def phase_mesh():
+    """`parallel/` on one card: a NCCL process group of world size 1 in
+    this process, its 1-rank data mesh, the eight families on cuda
+    tensors against the port's single-device cores, then
+    `DecisionTreeBuilder.fit(mesh=)` and `LogisticRegression.fit(mesh=)`
+    on MESH_FIT_ROWS e-learning rows against fit() on the card. Returns
+    (seconds, each family's ms and its collective's ms, the path's launch
+    counts)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from avenir_tpu_torch.core.dataset import Dataset
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.data import elearn_schema, generate_elearn
+    from avenir_tpu_torch.models.regress import LogisticRegression
+    from avenir_tpu_torch.models.tree import DecisionTreeBuilder
+    from avenir_tpu_torch.parallel import FAMILIES, data_mesh, multihost
+    from avenir_tpu_torch.parallel.mesh import all_reduce_sum
+
+    t_phase = time.perf_counter()
+    n = multihost.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0,
+                             device=DEVICE)
+    check(n == 1 and dist.get_backend() == "nccl",
+          f"{MESH_PATH}: a {dist.get_backend()} process group of world "
+          f"size {n} on the card")
+    mesh = data_mesh(device=DEVICE)
+    secs, rows = {}, {}
+    _reset_launches()
+    try:
+        for name, (params, args, single) in _mesh_inputs().items():
+            fn = FAMILIES[name](mesh, *params)
+            out = fn(*args)
+            ms = cuda_ms(lambda: fn(*args), 5)
+            got = out if isinstance(out, tuple) else (out,)
+            if single is None:      # nb_train, crosscount: their oracle
+                single = _count_oracle(name, args, params)
+            want = single()
+            want = want if isinstance(want, tuple) else (want,)
+            if name == "lr_step":
+                err = float((got[0] - want[0]).abs().max())
+                same = err <= LR_MESH_ATOL
+            else:
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+            # the tensors the family all-reduces: its counts, or LR's
+            # float64 gradient and weight total
+            coll = ([] if name in ("knn_topk", "bandit_select") else
+                    [torch.zeros(args[1].shape[1], dtype=torch.float64,
+                                 device=DEVICE),
+                     torch.zeros(1, dtype=torch.float64, device=DEVICE)]
+                    if name == "lr_step" else [o.clone() for o in got])
+            coll_ms = (cuda_ms(lambda: [all_reduce_sum(c, mesh,
+                                                       mesh.axis_names)
+                                        for c in coll], 20)
+                       if coll else None)
+            rows[name] = {"ms": ms, "collective_ms": coll_ms,
+                          "collective": "all_reduce" if coll else "none",
+                          "reduced": [list(c.shape) for c in coll]}
+            check(same, f"mesh family {name} ({CARD}): {ms:.4f} ms, its "
+                  f"collective " + (f"all_reduce of {rows[name]['reduced']} "
+                                    f"{coll_ms:.4f} ms" if coll else
+                                    "none on a world of one (no model axis)")
+                  + ", equal to the single-device core"
+                  + (f" within {LR_MESH_ATOL}" if name == "lr_step" else ""))
+        torch.cuda.synchronize()
+        secs["families"] = round(time.perf_counter() - t_phase, 3)
+        t0 = time.perf_counter()
+        obj = elearn_schema().to_json()
+        for f in obj["fields"]:
+            if f.get("feature"):
+                f["splitScanInterval"] = 10
+        text = generate_elearn(MESH_FIT_ROWS, seed=23, as_csv=True)
+        ds = Dataset.from_csv(text, FeatureSchema.from_json(obj))
+        secs["corpus"] = round(time.perf_counter() - t0, 3)
+        fits = {}
+        for kind, fit in (
+                ("tree", lambda m: DecisionTreeBuilder(
+                    ds.schema, max_depth=MESH_FIT_DEPTH, device=DEVICE
+                ).fit(ds, mesh=m).to_json()),
+                ("lr", lambda m: LogisticRegression(
+                    iteration_limit=MESH_LR_ITERS, device=DEVICE
+                ).fit(ds, mesh=m).coeff)):
+            for label, m in (("fit", None), ("mesh", mesh)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fits[kind, label] = fit(m)
+                torch.cuda.synchronize()
+                secs[f"{kind}_{label}"] = round(time.perf_counter() - t0, 3)
+        counts = _launch_counts()
+    finally:
+        multihost.shutdown()
+    check(fits["tree", "mesh"] == fits["tree", "fit"],
+          f"DecisionTreeBuilder.fit(mesh=) on {MESH_FIT_ROWS} e-learning "
+          f"rows, depth {MESH_FIT_DEPTH} ({CARD}): {secs['tree_mesh']} s, "
+          f"fit() {secs['tree_fit']} s; the decision paths identical")
+    lr_err = float(np.abs(fits["lr", "mesh"] - fits["lr", "fit"]).max())
+    check(lr_err <= LR_MESH_ATOL,
+          f"LogisticRegression.fit(mesh=) on {MESH_FIT_ROWS} e-learning rows, "
+          f"{MESH_LR_ITERS} iterations ({CARD}): {secs['lr_mesh']} s, fit() "
+          f"{secs['lr_fit']} s; coefficients {lr_err:.3g} apart (tolerance "
+          f"{LR_MESH_ATOL})")
+    check(not any(counts.values()),
+          f"{MESH_PATH} path: torch ops and NCCL, no kernel of the port's "
+          f"own launched: {counts}")
+    secs["phase"] = round(time.perf_counter() - t_phase, 1)
+    print(f"mesh families ({CARD}; world of one, NCCL; two ranks on one "
+          f"GPU are not allowed, so the multi-rank equality is the CPU "
+          f"tests' gloo world): {json.dumps(rows)}", flush=True)
+    return secs, rows, counts
+
+
+LR_MESH_ATOL = 1e-7
+
+
+def _count_oracle(name, args, params):
+    """The plain counts of nb_train and crosscount (no single-device core
+    of their own), by one `index_add_` on the card."""
+    import torch
+
+    def nb():
+        codes, labels, w = args
+        k, b = params
+        f = codes.shape[1]
+        key = ((torch.arange(f, device=codes.device)[None, :] * k
+                + labels.long()[:, None]) * b + codes.long())
+        post = torch.zeros(f * k * b, dtype=torch.int64, device=codes.device)
+        post.index_add_(0, key.reshape(-1), torch.ones_like(key.reshape(-1)))
+        cls = torch.zeros(k, dtype=torch.int64, device=codes.device)
+        cls.index_add_(0, labels.long(), torch.ones_like(labels.long()))
+        return post.reshape(f, k, b), cls
+
+    def cross():
+        a, b, w = args
+        ba, bb = params
+        out = torch.zeros(ba * bb, dtype=torch.int64, device=a.device)
+        key = a.long() * bb + b.long()
+        out.index_add_(0, key, torch.ones_like(key))
+        return out.reshape(ba, bb)
+
+    return nb if name == "nb_train" else cross
+
+
+
 def _new_kernel_rows(checks, paths):
     """The kernels line's rows of NEW_KERNELS; `paths` maps each path to
     its launch counts. A merge kernel is launched once by each launch of
@@ -4802,6 +5158,8 @@ def main() -> None:
     score = phase_score()
     t_score = time.perf_counter() - t0
     lib_secs, walk_row, lib_counts, lib_rows = phase_library(flops, rate)
+    conf_secs, conf_counts = phase_conf()
+    mesh_secs, mesh_rows, mesh_counts = phase_mesh()
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     print(f"tree and text seconds ({CARD}; phase 10 "
@@ -4829,13 +5187,18 @@ def main() -> None:
           f"{json.dumps(lib_secs)}", flush=True)
     print(f"library device programs ({CARD}; the SVM and the net torch ops, "
           f"the walk metropolis_walk): {json.dumps(lib_rows)}", flush=True)
+    print(f"conf seconds ({CARD}; phase 19 {conf_secs['phase']}s): "
+          f"{json.dumps(conf_secs)}", flush=True)
+    print(f"mesh seconds ({CARD}; phase 20 {mesh_secs['phase']}s): "
+          f"{json.dumps(mesh_secs)}", flush=True)
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.1f}s "
           f"({CARD})", flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
              BENCH_PATH: bench_counts, PIPE_PATH: pipe_counts,
              SEQ_PATH: seq_counts, STREAM_PATH: stream_counts,
              TMC_PATH: tmc_counts, KMEANS_PATH: km_counts,
-             LIB_PATH: lib_counts}
+             LIB_PATH: lib_counts, CONF_PATH: conf_counts,
+             MESH_PATH: mesh_counts}
 
     # each kernel's row at the shape of the path it is reported on: the
     # job's (manhattan, D=6) for the three it runs; the sweep's

@@ -18,10 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-from avenir_tpu.data.generators import generate_price_opt
+from avenir_tpu.data import generate_price_opt as jax_generate_price_opt
 from avenir_tpu.models import bandits as jb
 from avenir_tpu.pipelines import bandit_round as jax_bandit_round
 from avenir_tpu.runner import run_job as jax_run_job
+from avenir_tpu_torch.data import generate_price_opt
 from avenir_tpu_torch.models import bandits
 from avenir_tpu_torch.pipelines import bandit_round
 from avenir_tpu_torch.runner import (build_bandit_job, job_names, job_prefix,
@@ -221,6 +222,12 @@ def test_group_data_from_lines_equals_jax(tmp_path, delim):
     with pytest.raises(IndexError, match="row 1 has 3 fields"):
         bandits.GroupBanditData.from_lines(
             [lines[0], delim.join(lines[1].split(delim)[:3])], delim)
+
+
+@pytest.mark.parametrize("seed", [17, 44])
+def test_price_opt_rows_equal_jax(seed):
+    assert generate_price_opt(num_products=6, seed=seed) == \
+        jax_generate_price_opt(num_products=6, seed=seed)
 
 
 def test_bandit_round_loop(tmp_path):
