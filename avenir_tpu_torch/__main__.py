@@ -1,4 +1,4 @@
-"""CLI: `python -m avenir_tpu_torch <jobName> --conf <props> IN... OUT [--device cpu]`.
+"""CLI: `python -m avenir_tpu_torch <jobName> --conf <props> IN... OUT [--device cpu] [--shard N]`.
 
 The `hadoop jar avenir.jar <ToolClass> -Dconf.path=<props> IN OUT` surface
 without the JVM; job names or full reference Tool class names are accepted.

@@ -13,10 +13,10 @@ grows with the rows, runs on `device`:
 - streamed (`mine_stream`): pass 1 finds the vocabulary and the k=1
   supports (`StreamingTransactionSource.scan_items`, natively when the
   encoder builds), the frequent-item mask then shrinks the vocabulary,
-  and each round re-reads the CSV into bit-packed blocks folded into one
-  int32 carry on the device (`ops.bitset.bitset_fold_counts`). The
-  reference's encoded-block spill cache and columnar sidecar are not
-  ported: each round re-reads and re-encodes the CSV.
+  and each round replays pass 1's encoded-block spill cache (or, where it
+  cannot, re-reads the CSV) into bit-packed blocks folded into one int32
+  carry on the device (`ops.bitset.bitset_fold_counts`). The reference's
+  columnar sidecar is not ported.
 
 A round's count is the profiler range `association::support_count`.
 Between rounds the state is the per-k itemset file (`ItemSetList`), as in
@@ -196,19 +196,26 @@ class StreamingTransactionSource(SpillScanMixin):
     Python a row). After the k=1 round the miner installs the
     frequent-item mask (`mask_items`, the ingest form of the reference's
     InfrequentItemMarker), and `packed_chunks` then yields uint32 bitset
-    blocks over the frequent items only, re-reading the files each
-    round."""
+    blocks over the frequent items only. Pass 1 spills each block's codes
+    to the encoded-block cache (`spill_cache`, bounded by
+    `cache_budget_bytes`), which the later rounds replay; without it, or
+    for a source it cannot serve, a round re-reads the files."""
 
     def __init__(self, paths: Sequence[str], delim: str = ",",
                  trans_id_ord: int = 0, skip_field_count: int = 1,
                  marker: Optional[str] = None,
-                 block_bytes: int = 64 << 20):
+                 block_bytes: int = 64 << 20,
+                 spill_cache: bool = True,
+                 cache_budget_bytes: Optional[int] = None):
         self.paths = list(paths)
         self.delim = delim
         self.trans_id_ord = trans_id_ord
         self.skip = skip_field_count
         self.marker = marker
         self.block_bytes = block_bytes
+        self.spill_cache = spill_cache
+        self.cache_budget_bytes = cache_budget_bytes
+        self._cache = None            # EncodedBlockCache once pass 1 ran
         self.vocab: List[str] = []
         self.index: Dict[str, int] = {}
         self.n_trans = 0
@@ -271,6 +278,10 @@ class StreamingTransactionSource(SpillScanMixin):
             row_of, _ = csr_rows(offsets)
             self._scan_counts += distinct_row_code_counts(
                 row_of, codes, region, len(self.vocab))
+            if self._cache is not None:
+                blk_counts = np.bincount(row_of[region].astype(np.intp),
+                                         minlength=n)
+                self._cache.add_block(blk_counts, codes[region])
             self.n_trans += n
             return
         rows = [[t.strip(" \t\r") for t in ln.split(self.delim)]
@@ -298,6 +309,8 @@ class StreamingTransactionSource(SpillScanMixin):
         region = np.ones(codes.shape[0], bool)
         self._scan_counts += distinct_row_code_counts(
             row_of, codes, region, len(self.vocab))
+        if self._cache is not None:
+            self._cache.add_block(blk_counts, codes)
         self.n_trans += len(rows)
 
     # ----------------------------------------------------- frequent mask
@@ -346,23 +359,40 @@ class StreamingTransactionSource(SpillScanMixin):
     def packed_chunks(self, block_rows: int = 8192):
         """uint32 bitset blocks [block_rows, words(V_masked)] over the
         masked vocabulary, a page of a byte block's rows each (a page's
-        tail rows are zero: they contain no candidate). The native encoder
-        re-encodes each byte block when it builds, else the Python rows
-        are packed. A byte block's encode and packing is a `stream.parse`
-        span."""
+        tail rows are zero: they contain no candidate). The pass-1 cache
+        replays when it can serve (no span: nothing is parsed); otherwise
+        the native encoder re-encodes each byte block when it builds (a
+        `stream.parse` span with the packing), else the Python rows are
+        packed."""
         from avenir_tpu_torch.core.stream import iter_byte_blocks, prefetched
         from avenir_tpu_torch.native.ingest import (csr_region_mask,
                                                     csr_rows,
                                                     native_seq_ready,
                                                     seq_encode_native)
 
-        if not native_seq_ready(self.delim):
-            for mh, _ids in self.chunks(block_rows):
-                yield pack_rows_u32(mh)
-            return
         vm = max(self.masked_width, 1)
         label = type(self).__name__
-        for path in self.paths:
+
+        def pages(r, c, n):
+            # r is sorted: each page is a searchsorted slice
+            bounds = np.searchsorted(
+                r, np.arange(0, n + block_rows, block_rows, dtype=np.int32))
+            out = []
+            for page, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+                mh = np.zeros((block_rows, vm), np.uint8)
+                mh[r[lo:hi] - page * block_rows, c[lo:hi]] = 1
+                out.append(pack_rows_u32(mh))
+            return out
+
+        def replay_pages(blk_iter):
+            for counts, codes in prefetched(blk_iter, depth=1):
+                n = counts.shape[0]
+                if n <= 0:
+                    continue
+                row_of = np.repeat(np.arange(n, dtype=np.int32), counts)
+                yield from pages(*self._apply_mask(row_of, codes), n)
+
+        def parse_pages(path):
             for data in prefetched(iter_byte_blocks(path, self.block_bytes),
                                    depth=1):
                 t0 = obs.now()
@@ -376,20 +406,18 @@ class StreamingTransactionSource(SpillScanMixin):
                 valid = csr_region_mask(offsets, self.skip, codes.shape[0])
                 np.logical_and(valid, codes >= 0, out=valid)
                 row_of, _ = csr_rows(offsets)
-                r, c = self._apply_mask(row_of[valid], codes[valid])
-                # r is sorted: each page is a searchsorted slice
-                bounds = np.searchsorted(
-                    r, np.arange(0, n + block_rows, block_rows,
-                                 dtype=np.int32))
-                pages = []
-                for page, (lo, hi) in enumerate(zip(bounds[:-1],
-                                                    bounds[1:])):
-                    mh = np.zeros((block_rows, vm), np.uint8)
-                    mh[r[lo:hi] - page * block_rows, c[lo:hi]] = 1
-                    pages.append(pack_rows_u32(mh))
+                blocks = pages(*self._apply_mask(row_of[valid],
+                                                 codes[valid]), n)
                 obs.record("stream.parse", t0, sink=label, nbytes=len(data),
                            engine="native")
-                yield from pages
+                yield from blocks
+
+        if ((self._cache is not None and self._cache.valid)
+                or native_seq_ready(self.delim)):
+            yield from self._cache_pages(replay_pages, parse_pages)
+            return
+        for mh, _ids in self.chunks(block_rows):
+            yield pack_rows_u32(mh)
 
     def chunks(self, block_rows: int = 8192, with_ids: bool = False):
         """(multi-hot uint8 [block_rows, V_masked], ids) blocks from the

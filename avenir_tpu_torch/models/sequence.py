@@ -17,10 +17,10 @@ count, the work that grows with the rows, runs on `device` through
 - streamed (`mine_stream`): pass 1 finds the vocabulary, the k=1
   supports and the longest sequence (`StreamingSequenceSource.scan`,
   natively when the encoder builds); the frequent-token mask then drops
-  the other tokens at ingest, and each round re-reads the CSV into padded
-  [bucket(rows, 1024), bucket(t, 16)] blocks folded into one int32 carry
-  on the device. The reference's encoded-block spill cache is not
-  ported: each round re-reads and re-encodes the CSV.
+  the other tokens at ingest, and each round replays pass 1's
+  encoded-block spill cache (or, where it cannot, re-reads the CSV) into
+  padded [bucket(rows, 1024), bucket(t, 16)] blocks folded into one int32
+  carry on the device.
 
 A round's count is the profiler range `sequence::support_count`. A
 candidate is kept when its count is above `support_threshold * n`, and
@@ -209,16 +209,23 @@ class StreamingSequenceSource(SpillScanMixin):
     GSP is multi-pass (the reference runs one MR job a sequence length k
     over the same input): pass 1 (`scan`) fixes the vocabulary, the row
     count and the longest sequence; `chunks` then yields padded int32
-    blocks encoded against that vocabulary (the native `seq_encode` when
-    it builds, the Python split otherwise), re-reading the files each
-    round."""
+    blocks encoded against that vocabulary. Pass 1 spills each block's
+    codes to the encoded-block cache (`spill_cache`, bounded by
+    `cache_budget_bytes`), which the later rounds replay; without it, or
+    for a source it cannot serve, a round re-reads the files (the native
+    `seq_encode` when it builds, the Python split otherwise)."""
 
     def __init__(self, paths: Sequence[str], delim: str = ",",
-                 skip_field_count: int = 1, block_bytes: int = 64 << 20):
+                 skip_field_count: int = 1, block_bytes: int = 64 << 20,
+                 spill_cache: bool = True,
+                 cache_budget_bytes: Optional[int] = None):
         self.paths = list(paths)
         self.delim = delim
         self.skip = skip_field_count
         self.block_bytes = block_bytes
+        self.spill_cache = spill_cache
+        self.cache_budget_bytes = cache_budget_bytes
+        self._cache = None            # EncodedBlockCache once pass 1 ran
         self.vocab: List[str] = []
         self.index: Dict[str, int] = {}
         self.n_rows = 0
@@ -286,6 +293,8 @@ class StreamingSequenceSource(SpillScanMixin):
             self.t_max = max(self.t_max, int(per_row.max(initial=0)))
             self._scan_counts += distinct_row_code_counts(
                 row_of, codes, region, len(self.vocab))
+            if self._cache is not None:
+                self._cache.add_block(per_row, codes[region])
             self.n_rows += n
             return
         lines = [ln for ln in data.decode("utf-8", "replace").split("\n")
@@ -314,6 +323,8 @@ class StreamingSequenceSource(SpillScanMixin):
         region = np.ones(codes.shape[0], bool)
         self._scan_counts += distinct_row_code_counts(
             row_of, codes, region, len(self.vocab))
+        if self._cache is not None:
+            self._cache.add_block(blk_counts, codes)
         self.n_rows += len(lines)
 
     # ------------------------------------------------------- chunk feed
@@ -321,8 +332,9 @@ class StreamingSequenceSource(SpillScanMixin):
         """Padded int32 [bucket(rows, 1024), bucket(t, 16)] blocks, pad -1
         (a row of pads holds no candidate). Both axes round up to a power
         of two a block, not to the global maxima, so one long line does
-        not widen every block. A byte block's encode and paging is a
-        `stream.parse` span."""
+        not widen every block. The pass-1 cache replays when it can serve
+        (no span: nothing is parsed); a re-read byte block's encode and
+        paging is a `stream.parse` span."""
         from avenir_tpu_torch.core.stream import (iter_byte_blocks,
                                                   iter_line_blocks,
                                                   prefetched)
@@ -346,39 +358,65 @@ class StreamingSequenceSource(SpillScanMixin):
                 out.append(blk)
             return out
 
+        def positions(valid, row_of, starts, n):
+            # each surviving token's rank in its row: one cumsum over the
+            # valid mask
+            cs = np.cumsum(valid, dtype=np.int32)
+            base = np.zeros(n, np.int32)
+            nz = starts > 0
+            base[nz] = cs[starts[nz] - 1]
+            rows_v = row_of[valid]
+            return rows_v, cs[valid] - 1 - base[rows_v]
+
+        def replay_pages(blk_iter):
+            # a cached block holds each row's region tokens (a count a row,
+            # then the codes): mask, compact the positions, page. No CSV
+            # read and no tokenizer.
+            for counts, codes in prefetched(blk_iter, depth=1):
+                n = counts.shape[0]
+                if n <= 0:
+                    continue
+                starts = np.zeros(n, np.int64)
+                starts[1:] = np.cumsum(counts[:-1], dtype=np.int64)
+                row_of = np.repeat(np.arange(n, dtype=np.int32), counts)
+                if self._remap is not None:
+                    enc = self._remap[codes]
+                    valid = enc >= 0
+                else:
+                    enc = codes
+                    valid = np.ones(codes.shape[0], bool)
+                rows_v, pos = positions(valid, row_of, starts, n)
+                yield from pages(rows_v, pos, enc[valid], n)
+
         label = type(self).__name__
-        if native_seq_ready(self.delim):
-            for path in self.paths:
-                for data in prefetched(
-                        iter_byte_blocks(path, self.block_bytes), depth=1):
-                    t0 = obs.now()
-                    codes, offsets = seq_encode_native(data, self.delim,
-                                                       self.vocab)
-                    n = offsets.shape[0] - 1
-                    if n <= 0:
-                        continue
-                    # the sequence region; unknown tokens (-1: ids,
-                    # empties) drop as in the Python path
-                    valid = csr_region_mask(offsets, self.skip,
-                                            codes.shape[0])
+
+        def parse_pages(path):
+            for data in prefetched(iter_byte_blocks(path, self.block_bytes),
+                                   depth=1):
+                t0 = obs.now()
+                codes, offsets = seq_encode_native(data, self.delim,
+                                                   self.vocab)
+                n = offsets.shape[0] - 1
+                if n <= 0:
+                    continue
+                # the sequence region; unknown tokens (-1: ids, empties)
+                # drop as in the Python path
+                valid = csr_region_mask(offsets, self.skip, codes.shape[0])
+                np.logical_and(valid, codes >= 0, out=valid)
+                if self._remap is not None:
+                    codes = np.where(valid, self._remap[
+                        np.clip(codes, 0, None)], -1)
                     np.logical_and(valid, codes >= 0, out=valid)
-                    if self._remap is not None:
-                        codes = np.where(valid, self._remap[
-                            np.clip(codes, 0, None)], -1)
-                        np.logical_and(valid, codes >= 0, out=valid)
-                    row_of, starts = csr_rows(offsets)
-                    # each surviving token's rank in its row: one cumsum
-                    # over the valid mask
-                    cs = np.cumsum(valid, dtype=np.int32)
-                    base = np.zeros(n, np.int32)
-                    nz = starts > 0
-                    base[nz] = cs[starts[nz] - 1]
-                    rows_v = row_of[valid]
-                    pos = cs[valid] - 1 - base[rows_v]
-                    blocks = pages(rows_v, pos, codes[valid], n)
-                    obs.record("stream.parse", t0, sink=label,
-                               nbytes=len(data), engine="native")
-                    yield from blocks
+                row_of, starts = csr_rows(offsets)
+                rows_v, pos = positions(valid, row_of, starts, n)
+                blocks = pages(rows_v, pos, codes[valid], n)
+                obs.record("stream.parse", t0, sink=label,
+                           nbytes=len(data), engine="native")
+                yield from blocks
+
+        if ((self._cache is not None and self._cache.valid)
+                or native_seq_ready(self.delim)):
+            yield from self._cache_pages(replay_pages, parse_pages)
             return
 
         def emit(rows_enc):

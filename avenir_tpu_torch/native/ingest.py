@@ -3,10 +3,11 @@
 The port's own copy of the parse entry points of
 `avenir_tpu/native/ingest.py`, and of the miners' ragged encoder: the
 CSR encode (`seq_encode_native`), the pass-1 encoder that discovers the
-vocabulary a block at a time (`BlockScanEncoder`) and the scan lifecycle
-of the miners' streaming sources (`SpillScanMixin`, without the
-reference's encoded-block spill cache and columnar sidecar: a per-k
-re-scan here re-reads and re-encodes the CSV). The shared library builds with g++ at first
+vocabulary a block at a time (`BlockScanEncoder`), the scan lifecycle
+of the miners' streaming sources (`SpillScanMixin`) and the encoded-block
+spill cache their per-k rounds replay instead of re-reading the CSV
+(`EncodedBlockCache`; the reference's columnar sidecar is not ported).
+The shared library builds with g++ at first
 use (`g++ -O3 -march=native -shared -fPIC -pthread`) into
 `build/avenir_tpu_torch/native/<hash>/` at the root of the checkout, keyed
 on a hash of the source, the flags and the CPU that `-march=native`
@@ -336,6 +337,361 @@ def csr_region_mask(offsets: np.ndarray, skip: int, n_tokens: int
     return region
 
 
+# --------------------------------------------------------------------------
+# Encoded-block spill cache
+# --------------------------------------------------------------------------
+_ENC_MAGIC = b"AVNRENC1"
+_ENC_DTYPES = {0: np.uint8, 1: np.uint16, 2: np.uint32}
+
+#: the cache's default on-disk byte budget: generous, but finite, so
+#: every spill can be evicted
+DEFAULT_CACHE_BUDGET_BYTES = 1 << 30
+
+
+def _enc_dtype_code(max_value: int) -> int:
+    """The narrowest of uint8 (0), uint16 (1) and uint32 (2) that holds
+    `max_value`."""
+    if max_value < (1 << 8):
+        return 0
+    if max_value < (1 << 16):
+        return 1
+    return 2
+
+
+class EncodedBlockCache:
+    """On-disk spill cache of each block's region-compacted codes.
+
+    The port of `avenir_tpu/native/ingest.py` EncodedBlockCache, byte for
+    byte in its format. The multi-pass miners (Apriori, GSP) re-scan their
+    input once per itemset length k, and pass 1 already produces every
+    later pass's input: each block's vocabulary codes of its item region,
+    in row order. The cache spills exactly that, a record a block:
+
+        header  <q n_rows> <q n_tokens> <B counts_dtype> <B codes_dtype>
+        counts  n_rows elements: the region tokens of each row
+        codes   n_tokens elements: their codes, row after row
+
+    each in the narrowest dtype that fits (`_enc_dtype_code`), after the
+    magic ``AVNRENC1`` that starts a segment file, so a replay reads a
+    fraction of the CSV's bytes and tokenizes nothing.
+
+    Byte budget: `byte_budget` (default DEFAULT_CACHE_BUDGET_BYTES; the
+    jobs' key ``stream.encoded.cache.budget.mb``). Blocks land in one
+    segment a source (``set_source``; a writer that cannot attribute
+    blocks, the shared-scan feed, writes one combined segment). Past the
+    budget whole segments are evicted, least recently replayed first
+    (never replayed ones in write order), and counted in
+    ``evicted_bytes``; a consumer re-parses an evicted source and replays
+    the rest (``source_valid(i)``, ``blocks(i)``), so a tight budget costs
+    time, never correctness.
+
+    Validity is the whole source set's: the (size, mtime) of every source
+    at begin() must still hold at commit(), which refuses a source that
+    changed while the scan ran, and at every replay, so a source that
+    changed since re-parses in full. (The reference's per-block content
+    fingerprints, which let an appended source replay its prefix, serve
+    its incremental refresh, which the port does not have.) The cache
+    directory belongs to this object (a tempdir unless `cache_dir` is
+    given) and is removed on close() or collection: it is a spill within
+    one job."""
+
+    #: segment key of the combined (source-unattributed) write stream
+    _COMBINED = None
+
+    #: sentinel: no segment can serve the requested source
+    _NO_SEGMENT = object()
+
+    def __init__(self, sources: Sequence[str],
+                 cache_dir: Optional[str] = None,
+                 byte_budget: Optional[int] = None):
+        import tempfile
+
+        self.sources = list(sources)
+        self.byte_budget = (DEFAULT_CACHE_BUDGET_BYTES
+                            if byte_budget is None else int(byte_budget))
+        self._own_dir = cache_dir is None
+        self._dir = cache_dir or tempfile.mkdtemp(prefix="avenir_encblk_")
+        os.makedirs(self._dir, exist_ok=True)
+        self._fh = None
+        self._cur = self._COMBINED        # segment being written
+        self._seg_order: list = []        # segment keys in write order
+        self._seg_bytes: dict = {}        # segment key -> bytes written
+        self._evicted: set = set()
+        self._last_replay: dict = {}      # segment key -> replay clock
+        self._replay_clock = 0
+        self._fingerprint = None
+        self._committed = False
+        self.n_blocks = 0
+        self.evicted_bytes = 0
+        self.replays = 0          # completed replay passes
+
+    def _seg_path(self, key) -> str:
+        name = ("encoded_blocks.bin" if key is self._COMBINED
+                else f"encoded_blocks_s{key}.bin")
+        return os.path.join(self._dir, name)
+
+    # ------------------------------------------------------------- write
+    def _current_fingerprint(self):
+        """The stat identity (path, size, mtime_ns) of every source: the
+        begin/commit torn-write gate and the replay gate.
+
+        key-covered: all — a replay needs every source's stat unchanged.
+        """
+        from avenir_tpu_torch.core.keys import key_site
+
+        key_site("cache.fingerprint")
+        out = []
+        for p in self.sources:
+            try:
+                st = os.stat(p)
+                out.append((p, st.st_size, st.st_mtime_ns))
+            except OSError:
+                out.append((p, -1, -1))
+        return tuple(out)
+
+    def begin(self) -> None:
+        """Start (or restart) a write pass; any prior content is gone."""
+        self.abort()
+        for key in self._seg_order:
+            try:
+                os.remove(self._seg_path(key))
+            except OSError:
+                pass
+        self._fingerprint = self._current_fingerprint()
+        self._seg_order = []
+        self._seg_bytes = {}
+        self._evicted = set()
+        self._last_replay = {}
+        self._cur = self._COMBINED
+        self.n_blocks = 0
+        self.evicted_bytes = 0
+
+    def set_source(self, index: int) -> None:
+        """Attribute subsequent add_block() calls to source `index` —
+        per-source segments are what make partial eviction (and partial
+        replay) possible. Writers that cannot attribute blocks simply
+        never call this and get one combined segment."""
+        if self._cur == index:
+            return
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+        self._cur = index
+
+    def _open_segment(self) -> None:
+        path = self._seg_path(self._cur)
+        if self._cur in self._seg_order and os.path.exists(path):
+            # a writer returning to an earlier source (interleaved
+            # set_source calls) must EXTEND its segment — "wb" here
+            # would silently truncate committed blocks and replay a
+            # partial segment as if it were whole
+            self._fh = open(path, "ab")
+            return
+        self._fh = open(path, "wb")
+        self._fh.write(_ENC_MAGIC)
+        self._seg_bytes[self._cur] = len(_ENC_MAGIC)
+        if self._cur not in self._seg_order:
+            self._seg_order.append(self._cur)
+
+    def _spilled_bytes(self) -> int:
+        """Live spill size from the per-segment byte counters — O(live
+        segments) arithmetic, no flush/stat per call (add_block calls
+        this once per block)."""
+        return sum(n for k, n in self._seg_bytes.items()
+                   if k not in self._evicted)
+
+    def _evict_segment(self, key) -> None:
+        if key == self._cur and self._fh is not None:
+            self._fh.close()
+            self._fh = None
+        try:
+            os.remove(self._seg_path(key))
+        except OSError:
+            pass
+        self.evicted_bytes += self._seg_bytes.get(key, 0)
+        self._evicted.add(key)
+
+    def evict_to(self, byte_budget: int) -> int:
+        """Evict whole segments, least-recently-replayed first (never-
+        replayed segments in write order before any replayed one), until
+        the spill fits `byte_budget`. The currently-written segment goes
+        last — but it too is evicted when it alone exceeds the budget
+        (the cache then quietly disables itself for that source and the
+        consumer re-parses). Returns the bytes evicted by this call."""
+        before = self.evicted_bytes
+        order = {k: i for i, k in enumerate(self._seg_order)}
+        live = [k for k in self._seg_order if k not in self._evicted]
+        live.sort(key=lambda k: (k == self._cur,
+                                 self._last_replay.get(k, -1), order[k]))
+        spilled = self._spilled_bytes()
+        for key in live:
+            if spilled <= byte_budget:
+                break
+            spilled -= self._seg_bytes.get(key, 0)
+            self._evict_segment(key)
+        return self.evicted_bytes - before
+
+    def add_block(self, counts: np.ndarray, codes: np.ndarray) -> None:
+        """Append one block: per-row region token counts + the region
+        token codes (row-major). Narrowest-dtype encoding per block; a
+        write that pushes the spill past the byte budget triggers
+        whole-segment eviction. Blocks for an already-evicted segment
+        are dropped (and counted) — the budget is a hard bound."""
+        import struct
+
+        if self._fingerprint is None:
+            raise RuntimeError("add_block() before begin()")
+        if self._committed:
+            raise RuntimeError(
+                "add_block() after commit(): a sealed cache never grows "
+                "— call begin() to rewrite it")
+        counts = np.ascontiguousarray(counts)
+        codes = np.ascontiguousarray(codes)
+        cd = _enc_dtype_code(int(counts.max(initial=0)))
+        kd = _enc_dtype_code(int(codes.max(initial=0)))
+        size = (18 + counts.shape[0] * _ENC_DTYPES[cd]().itemsize
+                + codes.shape[0] * _ENC_DTYPES[kd]().itemsize)
+        if self._cur in self._evicted:
+            self.evicted_bytes += size
+            return
+        if self._fh is None:
+            self._open_segment()
+        self._fh.write(struct.pack("<qqBB", counts.shape[0],
+                                   codes.shape[0], cd, kd))
+        counts.astype(_ENC_DTYPES[cd]).tofile(self._fh)
+        codes.astype(_ENC_DTYPES[kd]).tofile(self._fh)
+        self.n_blocks += 1
+        self._seg_bytes[self._cur] = self._seg_bytes.get(self._cur, 0) + size
+        if self._spilled_bytes() > self.byte_budget:
+            self.evict_to(self.byte_budget)
+
+    def commit(self) -> bool:
+        """Seal the write pass. Returns False (and stays invalid) when a
+        source changed while the scan ran — a torn cache must never be
+        replayed. Segments evicted by the budget stay evicted; the
+        surviving ones replay."""
+        if self._fingerprint is None:
+            return False
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+        self._committed = self._fingerprint == self._current_fingerprint()
+        return self._committed
+
+    def abort(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+        self._fingerprint = None     # a new begin() must precede writes
+        self._committed = False
+
+    # ------------------------------------------------------------ replay
+    def _segment_key(self, index: int):
+        """Segment key serving source `index` (its own segment, or the
+        combined one when it is the only source), else _NO_SEGMENT."""
+        if index in self._seg_order:
+            return index
+        if self._COMBINED in self._seg_order and len(self.sources) == 1 \
+                and index == 0:
+            return self._COMBINED
+        return self._NO_SEGMENT
+
+    def _fingerprint_ok(self) -> bool:
+        return (self._committed and self._fingerprint is not None
+                and self._fingerprint == self._current_fingerprint())
+
+    @property
+    def valid(self) -> bool:
+        """True when a committed cache exists, the sources are
+        byte-for-byte the ones it encoded (size+mtime fingerprint), AND
+        no segment was evicted — the all-or-nothing replay gate. With
+        evictions, consumers use the per-source gate below."""
+        return (self._fingerprint_ok() and not self._evicted
+                and all(os.path.exists(self._seg_path(k))
+                        for k in self._seg_order))
+
+    def source_valid(self, index: int) -> bool:
+        """True when source `index`'s blocks can replay: no source changed
+        since the scan, and its own segment survives, or the cache wrote
+        one combined segment for a single source. A multi-source combined
+        segment cannot split, so it replays only through the
+        all-or-nothing `valid` gate."""
+        if not self._fingerprint_ok():
+            return False
+        key = self._segment_key(index)
+        if key is self._NO_SEGMENT:
+            return False
+        return (key not in self._evicted
+                and os.path.exists(self._seg_path(key)))
+
+    def _read_segment(self, key):
+        import struct
+
+        path = self._seg_path(key)
+        with open(path, "rb") as fh:
+            if fh.read(len(_ENC_MAGIC)) != _ENC_MAGIC:
+                raise RuntimeError("encoded-block cache is corrupt")
+            while True:
+                head = fh.read(18)
+                if not head:
+                    break
+                n_rows, n_tok, cd, kd = struct.unpack("<qqBB", head)
+                counts = np.fromfile(fh, _ENC_DTYPES[cd], n_rows)
+                codes = np.fromfile(fh, _ENC_DTYPES[kd], n_tok)
+                if counts.shape[0] != n_rows or codes.shape[0] != n_tok:
+                    raise RuntimeError("encoded-block cache is truncated")
+                # int32 both ways: per-row region counts are bounded by
+                # tokens-per-row and codes by the vocab — widening the
+                # block-proportional arrays to int64 here was exactly the
+                # mem-dtype-expansion-at-parse shape this tier flags
+                yield counts.astype(np.int32), codes.astype(np.int32)
+        self._replay_clock += 1
+        self._last_replay[key] = self._replay_clock
+
+    def blocks(self, source: Optional[int] = None):
+        """Yield (counts int32 [n_rows], codes int32 [n_tokens]) per
+        cached block — all segments in write order by default, one
+        source's segment with `source=i`. Raises RuntimeError when the
+        requested scope is not replayable — callers check `valid` /
+        `source_valid(i)` and fall back to the re-parse path."""
+        if source is not None:
+            if not self.source_valid(source):
+                raise RuntimeError(
+                    f"encoded-block segment for source {source} is "
+                    f"stale, evicted or absent")
+            key = source if source in self._seg_order else self._COMBINED
+            yield from self._read_segment(key)
+            live = [k for k in self._seg_order if k not in self._evicted]
+            if live and key == live[-1]:
+                self.replays += 1
+            return
+        if not self.valid:
+            raise RuntimeError("encoded-block cache is stale or absent")
+        for key in self._seg_order:
+            yield from self._read_segment(key)
+        self.replays += 1
+
+    def nbytes(self) -> int:
+        try:
+            return self._spilled_bytes()
+        except OSError:
+            return 0
+
+    # ----------------------------------------------------------- cleanup
+    def close(self) -> None:
+        import shutil
+
+        self.abort()
+        if self._own_dir:
+            shutil.rmtree(self._dir, ignore_errors=True)
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
 def distinct_row_code_counts(row_of: np.ndarray, codes: np.ndarray,
                              region: np.ndarray, v: int) -> np.ndarray:
     """counts[c] = the rows whose region tokens include code c, a row
@@ -423,19 +779,21 @@ def scan_encode_blocks(paths, delim: str, skip: int, vocab: List[str],
 
 class SpillScanMixin:
     """Pass 1 of a streaming miner source: the scan lifecycle (begin, a
-    block at a time, finish), its adapter as a shared-scan sink, and the
-    restore of a checkpoint taken mid-scan.
+    block at a time, finish and commit), its adapter as a shared-scan
+    sink, the restore of a checkpoint taken mid-scan, and the ownership of
+    the encoded-block spill cache that the per-k rounds replay.
 
-    The port of `avenir_tpu/native/ingest.py` SpillScanMixin cut to that
-    lifecycle: the reference's encoded-block spill cache and columnar
-    sidecar are not ported.
+    The port of `avenir_tpu/native/ingest.py` SpillScanMixin without the
+    columnar sidecar.
 
-    A subclass has `paths`, `delim`, `skip`, `block_bytes`, `vocab`,
-    `index`, `_item_counts`, `_scan_counts` and `_scan_encoder`, and
+    A subclass has `paths`, `delim`, `skip`, `block_bytes`, `spill_cache`,
+    `cache_budget_bytes` (None: the cache's default), `vocab`, `index`,
+    `_cache`, `_item_counts`, `_scan_counts` and `_scan_encoder`, and
     implements `_scan_block(data)` (fold one raw byte block into
-    `_scan_counts` through `_grow_counts`), `_reset_scan_state()` (zero its
-    row counters) and `_scan_result()` (what its scan returns).
-    `_scan_marker` is the infrequent-item sentinel given to the encoder."""
+    `_scan_counts` through `_grow_counts`, spilling its codes to `_cache`
+    when there is one), `_reset_scan_state()` (zero its row counters) and
+    `_scan_result()` (what its scan returns). `_scan_marker` is the
+    infrequent-item sentinel given to the encoder."""
 
     _scan_marker: Optional[str] = None
 
@@ -446,6 +804,12 @@ class SpillScanMixin:
             BlockScanEncoder(self.delim, self.skip, self.vocab, self.index,
                              marker=self._scan_marker)
             if native_seq_ready(self.delim) else None)
+        if self.spill_cache:
+            if self._cache is not None:
+                self._cache.close()
+            self._cache = EncodedBlockCache(
+                self.paths, byte_budget=self.cache_budget_bytes)
+            self._cache.begin()
 
     def _grow_counts(self) -> None:
         v = len(self.vocab)
@@ -464,21 +828,26 @@ class SpillScanMixin:
 
     def _scan_all(self):
         """Pass 1 over every path's byte blocks, read a block ahead on a
-        worker thread, then sealed."""
+        worker thread, then sealed. With the cache on, each path's blocks
+        spill to a segment of its own (so a budget eviction drops a source,
+        not the cache)."""
         from avenir_tpu_torch.core.stream import iter_byte_blocks, prefetched
 
         self._scan_begin()
         label = type(self).__name__
-        for path in self.paths:
-            for data in prefetched(iter_byte_blocks(path, self.block_bytes),
-                                   depth=1):
+        for si, path in enumerate(self.paths):
+            if self._cache is not None:
+                self._cache.set_source(si)
+            for data in prefetched(
+                    iter_byte_blocks(path, self.block_bytes), depth=1):
                 self._parse_block(data, label)
         return self._scan_finish()
 
     def scan_consumer(self):
         """Pass 1 as a shared-scan sink of raw byte blocks read elsewhere
         (core.stream.SharedScan): consume() a block, finish() seals the
-        scan and returns what the source's own scan would."""
+        scan (and commits the cache) and returns what the source's own
+        scan would."""
         self._scan_begin()
         src = self
         label = type(self).__name__
@@ -495,14 +864,20 @@ class SpillScanMixin:
     def _scan_finish(self):
         self._item_counts = self._scan_counts
         self._scan_encoder = None
+        if self._cache is not None and not self._cache.commit():
+            # a source changed under the scan: a torn cache never replays
+            self._cache.close()
+            self._cache = None
         return self._scan_result()
 
     def restore_scan_state(self, vocab, counts) -> None:
         """Install a mid-scan checkpoint into a scan just begun: the
         discovered vocabulary and the partial per-item counts, in place
         (the encoder holds `vocab` and `index`, so they mutate and are
-        never rebound), and a new encoder over them. The caller restores
-        its own row counters."""
+        never rebound), and a new encoder over them. The cache is dropped
+        and stays off: begun after the restore, it would hold only the
+        later blocks yet commit as whole, so a restored scan re-parses its
+        sources a round. The caller restores its own row counters."""
         self.vocab[:] = list(vocab)
         self.index.clear()
         self.index.update({t: i for i, t in enumerate(self.vocab)})
@@ -511,3 +886,44 @@ class SpillScanMixin:
             self._scan_encoder = BlockScanEncoder(
                 self.delim, self.skip, self.vocab, self.index,
                 marker=self._scan_marker)
+        if self._cache is not None:
+            self._cache.close()
+            self._cache = None
+        self.spill_cache = False
+
+    def _cache_pages(self, replay_pages, parse_pages):
+        """The per-k feed of the pages of every source: the committed cache
+        replayed when it is whole; otherwise a source at a time, its
+        segment replayed when it survives, else re-parsed
+        (`parse_pages(path)`)."""
+        if self._cache is not None and self._cache.valid:
+            yield from replay_pages(self._cache.blocks())
+            return
+        for si, path in enumerate(self.paths):
+            if self._cache is not None and self._cache.source_valid(si):
+                yield from replay_pages(self._cache.blocks(si))
+            else:
+                yield from parse_pages(path)
+
+    @property
+    def cache_nbytes(self) -> int:
+        """On-disk size of the spill cache (0 when off)."""
+        return self._cache.nbytes() if self._cache is not None else 0
+
+    @property
+    def cache_evicted_bytes(self) -> int:
+        """Bytes the cache evicted or dropped to hold its budget: the
+        Cache:EvictedBytes counter."""
+        return (self._cache.evicted_bytes
+                if self._cache is not None else 0)
+
+    def close(self) -> None:
+        if self._cache is not None:
+            self._cache.close()
+            self._cache = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -29,7 +29,7 @@ Both give the same int32 counts, whatever the block layout.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -143,3 +143,9 @@ def bitset_contain_mask(trans: torch.Tensor, cand: torch.Tensor
     for the transaction-id pass over kept sets of every length."""
     return _contained(trans, cand)
 
+
+def packed_block_nbytes(block_rows: int, n_bits: int) -> Tuple[int, int]:
+    """(packed, dense) byte sizes of one block of `block_rows` rows over
+    `n_bits` items: uint32 words against the uint8 multi-hot, the memory
+    the packed route saves."""
+    return (block_rows * words_for(n_bits) * 4, block_rows * max(n_bits, 1))

@@ -23,11 +23,17 @@ Rows shard over every axis of the mesh jointly (`shard_rows(mesh, a,
 axes=mesh.axis_names)`), as the reference's P(axes). Ties keep
 `lax.top_k`'s lower index first (`ops.distance._block_topk`), which
 `torch.topk` on the card does not promise.
+
+Inside `recorded_payloads()`, each collective a family runs is logged
+with its payload, the bytes of its result, which `parallel.scaling.
+collective_payload_model` predicts per family: the port's counterpart of
+the reference's compiled-HLO check. Outside it nothing is kept.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from contextlib import contextmanager
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -38,6 +44,39 @@ from avenir_tpu_torch.parallel.mesh import (MODEL_AXIS, Mesh, all_reduce_sum)
 #: the rows of a tile in the sharded support count: bounds the [rows, C]
 #: overlap a tile makes on the device
 APRIORI_TILE_ROWS = 8192
+
+#: the list that recorded_payloads() is filling, or None
+_payloads: Optional[List[Dict[str, object]]] = None
+
+
+@contextmanager
+def recorded_payloads():
+    """Yield a list that receives the {"op", "payload_bytes"} of every
+    collective the families run inside the block."""
+    global _payloads
+    outer, _payloads = _payloads, []
+    try:
+        yield _payloads
+    finally:
+        _payloads = outer
+
+
+def _record(op: str, nbytes: int) -> None:
+    if _payloads is not None:
+        _payloads.append({"op": op, "payload_bytes": nbytes})
+
+
+def _reduce(t: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """all_reduce_sum, recorded."""
+    _record("all_reduce", t.numel() * t.element_size())
+    return all_reduce_sum(t, mesh, axes)
+
+
+def _gather(parts: List[torch.Tensor], t: torch.Tensor, mesh: Mesh,
+            group) -> None:
+    """dist.all_gather into `parts`, recorded."""
+    dist.all_gather(parts, t, group=group)
+    _record("all_gather", sum(p.numel() * p.element_size() for p in parts))
 
 
 def _axes(mesh: Mesh, axes: Optional[Sequence[str]]) -> tuple:
@@ -70,8 +109,8 @@ def distributed_topk_fn(mesh: Mesh, k: int, metric: str = "manhattan"):
         m = mesh.shape[MODEL_AXIS]
         parts_d = [torch.empty_like(loc_d) for _ in range(m)]
         parts_lab = [torch.empty_like(loc_lab) for _ in range(m)]
-        dist.all_gather(parts_d, loc_d.contiguous(), group=group)
-        dist.all_gather(parts_lab, loc_lab.contiguous(), group=group)
+        _gather(parts_d, loc_d.contiguous(), mesh, group)
+        _gather(parts_lab, loc_lab.contiguous(), mesh, group)
         all_d = torch.cat(parts_d, dim=1)                       # [nq_loc, M k]
         all_lab = torch.cat(parts_lab, dim=1)
         pos = torch.arange(all_d.shape[1], device=d.device).expand_as(all_d)
@@ -98,8 +137,8 @@ def distributed_nb_train_fn(mesh: Mesh, num_classes: int, bmax: int):
         post = _weighted_bincount(key[ok], w[:, None].expand(n, f)[ok],
                                   f * num_classes * bmax)
         cls = _weighted_bincount(lab[ok_lab], w[ok_lab], num_classes)
-        return (all_reduce_sum(post.reshape(f, num_classes, bmax), mesh, axes),
-                all_reduce_sum(cls, mesh, axes))
+        return (_reduce(post.reshape(f, num_classes, bmax), mesh, axes),
+                _reduce(cls, mesh, axes))
 
     return kernel
 
@@ -118,7 +157,7 @@ def distributed_tree_level_fn(mesh: Mesh, n_leaves: int, n_splits: int,
     def kernel(leaf_id, seg_matrix, labels, weights):
         h = _level_histogram(leaf_id, seg_matrix, labels, weights, n_leaves,
                              n_splits, smax, num_classes, dtype=torch.int64)
-        return all_reduce_sum(h, mesh, axes)
+        return _reduce(h, mesh, axes)
 
     return kernel
 
@@ -135,8 +174,8 @@ def distributed_lr_step_fn(mesh: Mesh, learning_rate: float = 1.0,
     axes = _axes(mesh, axes)
 
     def kernel(coeff, x, y, w):
-        grad = all_reduce_sum(_lr_grad64(coeff, x, y, w), mesh, axes).float()
-        n = all_reduce_sum(w.to(torch.float64).sum().reshape(1), mesh, axes)
+        grad = _reduce(_lr_grad64(coeff, x, y, w), mesh, axes).float()
+        n = _reduce(w.to(torch.float64).sum().reshape(1), mesh, axes)
         n = torch.clamp(n, min=1.0).float().expand_as(grad)
         return coeff + learning_rate * (grad / n)
 
@@ -153,8 +192,8 @@ def distributed_markov_counts_fn(mesh: Mesh, n_states: int,
     axes = mesh.axis_names
 
     def kernel(padded, labels):
-        return all_reduce_sum(bigram_counts(padded, labels, n_states,
-                                            n_classes), mesh, axes)
+        return _reduce(bigram_counts(padded, labels, n_states, n_classes),
+                       mesh, axes)
 
     return kernel
 
@@ -170,7 +209,7 @@ def distributed_apriori_support_fn(mesh: Mesh, k: int):
 
     def kernel(trans, cand):
         counts = _contain_counts_resident(trans, cand, k, APRIORI_TILE_ROWS)
-        return all_reduce_sum(counts.to(torch.int64), mesh, axes)
+        return _reduce(counts.to(torch.int64), mesh, axes)
 
     return kernel
 
@@ -200,7 +239,7 @@ def distributed_crosscount_fn(mesh: Mesh, bins_a: int, bins_b: int):
         a, b = a.long(), b.long()
         ok = (a >= 0) & (a < bins_a) & (b >= 0) & (b < bins_b)
         h = _weighted_bincount((a * bins_b + b)[ok], w[ok], bins_a * bins_b)
-        return all_reduce_sum(h.reshape(bins_a, bins_b), mesh, axes)
+        return _reduce(h.reshape(bins_a, bins_b), mesh, axes)
 
     return kernel
 

@@ -522,11 +522,32 @@ def _build_miner(canonical: str, cfg: JobConfig, device: torch.device):
     raise ValueError(f"job {canonical!r} is not a multi-pass miner")
 
 
+def _cache_budget(cfg: JobConfig) -> int:
+    """The encoded-block spill cache's byte budget,
+    `stream.encoded.cache.budget.mb` (default
+    native.ingest.DEFAULT_CACHE_BUDGET_BYTES): past it whole sources are
+    evicted, re-parsed a round, and counted in Cache:EvictedBytes."""
+    from avenir_tpu_torch.native.ingest import DEFAULT_CACHE_BUDGET_BYTES
+
+    return int(cfg.get_float("stream.encoded.cache.budget.mb",
+                             DEFAULT_CACHE_BUDGET_BYTES / (1 << 20))
+               * (1 << 20))
+
+
+def _cache_counters(src) -> Dict[str, float]:
+    """A streamed miner's spill-cache counters: the bytes on disk
+    (Cache:SpillBytes) and the bytes the budget evicted
+    (Cache:EvictedBytes, 0 unless the corpus outgrew the budget)."""
+    return {"Cache:SpillBytes": float(src.cache_nbytes),
+            "Cache:EvictedBytes": float(src.cache_evicted_bytes)}
+
+
 def _build_miner_source(canonical: str, cfg: JobConfig,
-                        inputs: Sequence[str]):
+                        inputs: Sequence[str], spill: bool):
     """The streaming source a miner conf describes: the transaction reader
     (the key `tans.id.ord` is the reference's spelling) or the sequence
-    reader, in `stream.block.size.mb` blocks (default 64)."""
+    reader, in `stream.block.size.mb` blocks (default 64), spilling its
+    pass 1 to the encoded-block cache when `spill`."""
     block = int(cfg.get_float("stream.block.size.mb", 64.0) * (1 << 20))
     skip = cfg.get_int("skip.field.count", 1)
     if canonical == _APRIORI:
@@ -537,11 +558,14 @@ def _build_miner_source(canonical: str, cfg: JobConfig,
             list(inputs), delim=cfg.field_delim_regex,
             trans_id_ord=cfg.get_int("tans.id.ord", 0),
             skip_field_count=skip, marker=cfg.get("infreq.item.marker"),
-            block_bytes=block)
+            block_bytes=block, spill_cache=spill,
+            cache_budget_bytes=_cache_budget(cfg))
     from avenir_tpu_torch.models.sequence import StreamingSequenceSource
 
     return StreamingSequenceSource(list(inputs), delim=cfg.field_delim_regex,
-                                   skip_field_count=skip, block_bytes=block)
+                                   skip_field_count=skip, block_bytes=block,
+                                   spill_cache=spill,
+                                   cache_budget_bytes=_cache_budget(cfg))
 
 
 def _source_rows(job: str, src) -> int:
@@ -549,11 +573,15 @@ def _source_rows(job: str, src) -> int:
     return src.n_trans if job == _APRIORI else src.n_rows
 
 
-def _miner_finish(job: str, cfg: JobConfig, output: str, levels,
-                  n_rows: int, seconds: float) -> JobResult:
+def finish_miner_levels(job: str, cfg: JobConfig, levels, n_rows: int,
+                        seconds: float, output: str,
+                        extra_counters: Optional[Dict[str, float]] = None
+                        ) -> JobResult:
     """A miner's files and counters: `Apriori:MaxLength` (the itemset
     lists written) or `GSP:MaxLength` (the longest frequent sequence),
-    and the throughput counters."""
+    the throughput counters, then `extra_counters` (the Cache:* pair of a
+    streamed run). Every miner path ends here: the job, the fold sink and
+    the sharded driver's per-k rounds."""
     if job == _APRIORI:
         counters = {"Apriori:MaxLength": len(levels)}
         outs = _write_apriori_outputs(cfg, output, levels)
@@ -561,15 +589,17 @@ def _miner_finish(job: str, cfg: JobConfig, output: str, levels,
         counters = {"GSP:MaxLength": max(levels) if levels else 0}
         outs = _write_gsp_outputs(cfg, output, levels)
     counters.update(throughput_counters(n_rows, seconds))
+    counters.update(extra_counters or {})
     return JobResult(job, counters, outs)
 
 
 class _MinerScanFold:
     """A multi-pass miner's pass 1 (vocabulary and k=1 supports; for GSP
     the longest sequence too) as a shared-scan sink of raw byte blocks;
-    finish() runs the later rounds, each re-reading the inputs. The port
-    of `avenir_tpu/runner.py` `_MinerScanFold`, without the encoded-block
-    cache its rounds replay and the job server's `keep_sources`."""
+    finish() runs the later rounds, which replay the encoded-block cache
+    pass 1 spilled (`stream.encoded.cache`, default true) instead of
+    re-reading the inputs. The port of `avenir_tpu/runner.py`
+    `_MinerScanFold`, without the job server's `keep_sources`."""
 
     def __init__(self, cfg: JobConfig, inputs: Sequence[str],
                  device: torch.device, job: str):
@@ -577,7 +607,8 @@ class _MinerScanFold:
         self.job = job
         self.t0 = time.perf_counter()
         self.miner = _build_miner(job, cfg, device)
-        self.src = _build_miner_source(job, cfg, inputs)
+        self.src = _build_miner_source(
+            job, cfg, inputs, cfg.get_bool("stream.encoded.cache", True))
         self._sink = self.src.scan_consumer()
         self._sealed = False
         self._shards: List["_MinerScanFold"] = []
@@ -601,8 +632,12 @@ class _MinerScanFold:
         levels = (self.miner.mine_stream(self.src) if len(srcs) == 1
                   else self.miner.mine_stream_merged(srcs))
         n_rows = self._n_rows() + sum(f._n_rows() for f in self._shards)
-        return _miner_finish(self.job, self.cfg, output, levels, n_rows,
-                             time.perf_counter() - self.t0)
+        res = finish_miner_levels(self.job, self.cfg, levels, n_rows,
+                                  time.perf_counter() - self.t0, output,
+                                  _cache_counters(self.src))
+        for src in srcs:
+            src.close()
+        return res
 
     def merge(self, other: "_MinerScanFold") -> "_MinerScanFold":
         """Seal both shards' pass 1 and keep their sources side by side;
@@ -1885,6 +1920,7 @@ def _miner_job(job: str, cfg: JobConfig, inputs: List[str], output: str,
     # routes' reads alike
     t0 = time.perf_counter()
     resident = None
+    cache: Dict[str, float] = {}
     if in_ram:
         lines: List[str] = []
         for path in inputs:
@@ -1907,11 +1943,15 @@ def _miner_job(job: str, cfg: JobConfig, inputs: List[str], output: str,
                    else "gsp_resident")
         n_rows = len(rows)
     else:
-        src = _build_miner_source(job, cfg, inputs)
+        # streamed: the rounds after pass 1 replay its encoded-block cache
+        src = _build_miner_source(job, cfg, inputs,
+                                  cfg.get_bool("stream.encoded.cache", True))
         levels = miner.mine_stream(src)
         n_rows = _source_rows(job, src)
-    return _miner_finish(job, cfg, output, levels, n_rows,
-                         time.perf_counter() - t0)
+        cache = _cache_counters(src)
+        src.close()
+    return finish_miner_levels(job, cfg, levels, n_rows,
+                               time.perf_counter() - t0, output, cache)
 
 
 @job("frequentItemsApriori", "fia",
@@ -2746,7 +2786,10 @@ class Pipeline:
 
 def run_from_cli(argv: Sequence[str]) -> JobResult:
     """`python -m avenir_tpu_torch <jobName> --conf <props> IN... OUT
-    [--device cpu]`; prints the result as one JSON line."""
+    [--device cpu] [--shard N]`; prints the result as one JSON line.
+    `--shard N` runs a streamed job's scan across N worker processes
+    (`dist.run_sharded`), and the line then also holds each worker's stats
+    under "workers"."""
     ap = argparse.ArgumentParser(prog="avenir_tpu_torch")
     ap.add_argument("jobname", help="job name or reference Tool class")
     ap.add_argument("--conf", default=None,
@@ -2755,6 +2798,13 @@ def run_from_cli(argv: Sequence[str]) -> JobResult:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
+    ap.add_argument("--shard", type=int, default=0, metavar="N",
+                    help="run a streamed job's scan across N worker "
+                         "processes: over-partitioned byte-range blocks "
+                         "claimed through the first-commit-wins block "
+                         "ledger, merged by the registered fold-state "
+                         "algebra (avenir_tpu_torch.dist.run_sharded); "
+                         "byte-identical to the solo scan")
     ap.add_argument("paths", nargs="*", help="input paths... output path")
     args = ap.parse_intermixed_args(argv)
     if not args.paths:
@@ -2762,10 +2812,19 @@ def run_from_cli(argv: Sequence[str]) -> JobResult:
     short = args.jobname.rsplit(".", 1)[-1]
     name = (args.jobname if args.jobname in _REGISTRY
             else short[0].lower() + short[1:])
-    res = run_job(name, args.conf or {}, args.paths[:-1], args.paths[-1],
-                  device=args.device)
-    print(json.dumps({"job": res.name, "counters": res.counters,
-                      "outputs": res.outputs}))
+    if args.shard:
+        from avenir_tpu_torch.dist import run_sharded
+
+        res = run_sharded(name, args.conf or {}, args.paths[:-1],
+                          args.paths[-1], procs=args.shard,
+                          device=args.device)
+    else:
+        res = run_job(name, args.conf or {}, args.paths[:-1],
+                      args.paths[-1], device=args.device)
+    row = {"job": res.name, "counters": res.counters, "outputs": res.outputs}
+    if args.shard:
+        row["workers"] = res.payload["workers"]
+    print(json.dumps(row))
     return res
 
 

@@ -227,7 +227,8 @@ def append_reward(artifact: str, group: str, item: str, reward: float,
                     "reward": float(reward), "count": int(count),
                     "nonce": nonce})
     publish_json({"format_version": REWARD_JOURNAL_VERSION,
-                  "entries": entries}, reward_journal_path(artifact))
+                  "entries": entries}, reward_journal_path(artifact),
+                 site="score.reward")
     return {"applied": True, "entries": len(entries)}
 
 

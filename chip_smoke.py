@@ -212,7 +212,7 @@ Phases, each printing a line per check; any failed check exits non-zero:
 13. The bandits (after phase 12): 100,000 groups x 10 arms of seeded
    stats, the four jobs (greedyRandomBandit logLinear, auerDeterministic,
    randomFirstGreedyBandit, softMaxBandit; batch 3) through
-   `pipelines.bandit_round` at rounds 1, 2 and 10 on the card and the
+   `pipelines.bandit_round` at rounds 1 and 10 on the card and the
    CPU: every group's selection identical but where a decision within 2
    float32 ULP hangs on a float32 log
    (`tools.bandit_check.near_tie_groups`), the differing and near-tie
@@ -369,13 +369,40 @@ Phases, each printing a line per check; any failed check exits non-zero:
    so the multi-rank equality lives in the CPU tests' gloo world
    (`tests/test_torch_parallel.py`). A failed NCCL start fails the run:
    nothing falls back to gloo or the CPU.
+21. The sharded driver (`dist/`) on the card, the kernels built first in
+   this process so that no worker runs nvcc: `mutualInformation` and
+   `bayesianDistr` on phase 6's 1,000,000 churn train rows, the per-class
+   `markovStateTransitionModel` on phase 14's 1,000,000 chain rows,
+   `frequentItemsApriori` on phase 11's 1,000,000 baskets and GSP on phase
+   12's 1,000,000 sequences (4 MB blocks), each through
+   `run_sharded(procs=2, device="cuda")` (GSP at procs=4 through the API
+   and at procs=2 through the CLI, below), worker
+   processes that fold on the card and, for the miners, count the per-k
+   rounds by replaying their encoded-block caches; every artifact
+   byte-identical to the job's solo `run_job` on the card, with the solo
+   and sharded seconds, the `Shard:*` and `Cache:*` counters, and each
+   worker's `scan_s` and `perk_s`. GSP's workers must launch
+   `subseq_support.cu` (they report their launches in their stats files)
+   and run at least one per-k round. Then the SIGSTOP chaos leg on
+   `mutualInformation` (`tools.bench_scaling.chaos_leg`: a worker stopped
+   on an uncommitted claim, resumed after the run: every block committed,
+   `Shard:DedupBlocks` >= 1, bytes equal to the solo run's), workers that
+   see no card (`CUDA_VISIBLE_DEVICES` empty) failing the run with
+   `ShardError` and writing nothing, and GSP's run at procs=2 as
+   `python -m avenir_tpu_torch candidateGenerationWithSelfJoin --shard 2`
+   in a fresh process, its line holding its workers' stats: bytes equal
+   to the solo run's, per-k rounds and the workers' launches as above.
+   Phases 6, 11, 12 and 14 leave their corpora
+   in `build/chip_smoke_corpora/` for it.
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth, phase 12's GSP runs the fifth, phase 15's
 KNN stream legs the sixth, phase 16's topMatchesByClass the seventh and
 its k-means the eighth, phase 18's library modules the ninth, phase
 19's conf jobs the tenth and phase 20's mesh the eleventh (no kernel on
-either): each kernel's launches are counted from zero on each path. Then one JSON
+either), and phase 21's sharded workers the twelfth (`shard`: the
+launches the workers report, summed): each kernel's launches are counted
+from zero on each path. Then one JSON
 line of per-kernel numbers (the pre-pass beside the five kernels, at the
 sweep's D=128 float32; the tensor-core form at the bench's D=128
 bfloat16; the two merge kernels at the job's shape; the walk at the
@@ -387,11 +414,13 @@ before them the script's total seconds.
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -456,7 +485,7 @@ SUBSEQ_WALK_CODES = 1 << 20
 SEQ_PATH = "candidateGenerationWithSelfJoin"
 #: phase 13: the bandit stats, the rounds, each job's keys (batch 3)
 BANDIT_GROUPS, BANDIT_ARMS, BANDIT_SEED = 100_000, 10, 31
-BANDIT_ROUNDS = (1, 2, 10)
+BANDIT_ROUNDS = (1, 10)
 BANDIT_JOBS = {
     "greedyRandomBandit": {"random.selection.prob": "0.5",
                            "prob.reduction.algorithm": "logLinear",
@@ -1899,6 +1928,7 @@ def phase_naive_bayes():
     check(classes == NB_TEST_ROWS and pct <= 1,
           f"bayesianPredictor: class equal to the CPU run's on {classes} of "
           f"{NB_TEST_ROWS} rows, percent within {pct}")
+    _keep(train, "churn_train.csv")
     shutil.rmtree(work)
     return {"distr_s": secs[DEVICE], "distr_python_s": secs[f"{DEVICE}_python"],
             "distr_cpu_s": secs["cpu"], "predict_s": psecs[DEVICE],
@@ -2597,6 +2627,7 @@ def phase_association():
           f"bench Apriori section ({bench.APRIORI_TX} transactions, {CARD}): "
           f"{json.dumps(row)} in {time.perf_counter() - t0:.1f}s")
     secs["bench"] = row
+    _keep(corpus["baskets"], "baskets.csv")
     shutil.rmtree(work)
     return secs
 
@@ -2842,6 +2873,7 @@ def phase_sequence(flops: float, rate: float):
         "sequenceGenerator",
         {"seg.id.field.ordinals": "0", "seg.val.field.ordinals": "1,2",
          "seg.seq.field": "0"}, [str(ev)], work, f"on {n} events")
+    _keep(Path(csv), "seq.csv")
     shutil.rmtree(work)
     return secs, counts, rows[0]
 
@@ -2863,7 +2895,7 @@ def _bandit_stats(path: Path) -> None:
 
 
 def phase_bandits():
-    """The four bandit jobs through `bandit_round` at rounds 1, 2 and 10 on
+    """The four bandit jobs through `bandit_round` at rounds 1 and 10 on
     the card and on the CPU: files identical but in groups where a
     decision within 2 float32 ULP hangs on a float32 log; then the
     bench's bandit section. Returns the seconds."""
@@ -3250,6 +3282,7 @@ def phase_markov(flops: float, rate: float):
     secs["contTimeStateTransitionStats"] = _twin(
         "contTimeStateTransitionStats", cts, [data["queries"]], work,
         f"on {MARKOV_HOST_ROWS} rows, per-entity rates")
+    _keep(Path(chains), "chains.csv")
     shutil.rmtree(work)
     return secs, rows
 
@@ -5041,6 +5074,237 @@ def phase_mesh():
     return secs, rows, counts
 
 
+
+# ----------------------------------------------------------------- phase 21
+#: phase 21: the sharded driver's path; the workers of each run (GSP's
+#: run through the API; its run at SHARD_PROCS is the CLI's), each run's
+#: time limit, and the corpora the earlier phases
+#: leave behind for it (each made anew, from the same generator and seed,
+#: when phase 21 runs alone)
+SHARD_PATH = "shard"
+SHARD_PROCS, SHARD_GSP_PROCS = 2, 4
+SHARD_TIMEOUT_S = 300.0
+CORPORA = ROOT / "build" / "chip_smoke_corpora"
+
+
+def _keep(path: Path, name: str) -> None:
+    """Move an earlier phase's corpus into CORPORA for phase 21."""
+    CORPORA.mkdir(parents=True, exist_ok=True)
+    shutil.move(str(path), str(CORPORA / name))
+
+
+def _shard_corpora(work: Path) -> dict:
+    """Phase 21's inputs: phase 6's churn train rows, phase 11's baskets,
+    phase 12's sequences and phase 14's chains, kept by those phases, or
+    written here from their generators and seeds."""
+    from avenir_tpu_torch.data import (generate_churn,
+                                       generate_markov_chains)
+    from avenir_tpu_torch.tools import bench
+
+    t0 = time.perf_counter()
+    out, made = {}, []
+    for key, name in (("churn", "churn_train.csv"), ("baskets", "baskets.csv"),
+                      ("seq", "seq.csv"), ("chains", "chains.csv")):
+        path = CORPORA / name
+        if not path.exists():
+            made.append(key)
+            CORPORA.mkdir(parents=True, exist_ok=True)
+            if key == "churn":
+                path.write_text(generate_churn(NB_TRAIN_ROWS, seed=201,
+                                               as_csv=True))
+            elif key == "baskets":
+                picks = bench.apriori_picks(ASSOC_TX, seed=4)
+                path.write_text("".join(
+                    ",".join([f"T{r}", *(f"i{j}" for j in row)]) + "\n"
+                    for r, row in enumerate(picks.tolist())))
+            elif key == "seq":
+                _keep(Path(_sequence_corpus(work)[0]), name)
+            else:
+                path.write_text("\n".join(generate_markov_chains(
+                    MARKOV_ROWS, seed=MARKOV_SEED,
+                    n_entities=MARKOV_ENTITIES)) + "\n")
+        out[key] = str(path)
+    print(f"shard corpora: {json.dumps({k: os.path.getsize(v) for k, v in out.items()})} "
+          f"bytes; written here: {made or 'none'} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    return out
+
+
+def phase_shard():
+    """The sharded driver on the card: each job of the sharded path through
+    `run_sharded(device="cuda")` against its solo `run_job` on the card,
+    byte for byte, with the workers' kernel launches; the SIGSTOP chaos
+    leg; a worker without the device failing the run; and the CLI's
+    `--shard`. Returns (seconds and counters, the workers' launch
+    counts)."""
+    import torch
+
+    from avenir_tpu_torch.data import churn_schema
+    from avenir_tpu_torch.data.generators import MARKOV_STATES
+    from avenir_tpu_torch.dist import ShardError, StragglerPolicy, run_sharded
+    from avenir_tpu_torch.dist.driver import worker_launches
+    from avenir_tpu_torch.ops import _build
+    from avenir_tpu_torch.runner import run_job
+    from avenir_tpu_torch.tools.bench_scaling import chaos_leg, same_files
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_shard"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    # every kernel is built here, once: no worker runs nvcc
+    built = _build.build_all()
+    corpora = _shard_corpora(work)
+    schema = str(work / "churn.json")
+    churn_schema().save(schema)
+    mi = {"mut.feature.schema.file.path": schema,
+          "mut.mutual.info.score.algorithms": MI_ALGOS,
+          "mut.stream.block.size.mb": "4"}
+    runs = [
+        ("mutualInformation", mi, "churn", SHARD_PROCS),
+        ("bayesianDistr", {"bad.feature.schema.file.path": schema,
+                           "bad.stream.block.size.mb": "4"},
+         "churn", SHARD_PROCS),
+        ("markovStateTransitionModel",
+         {"mst.model.states": ",".join(MARKOV_STATES),
+          "mst.skip.field.count": "2", "mst.class.label.field.ord": "1",
+          "mst.class.labels": "C,L", "mst.stream.block.size.mb": "4"},
+         "chains", SHARD_PROCS),
+        ("frequentItemsApriori",
+         {"fia.support.threshold": ASSOC_PROPS["fia.support.threshold"],
+          "fia.item.set.length": ASSOC_PROPS["fia.item.set.length"],
+          **ASSOC_BLOCK}, "baskets", SHARD_PROCS),
+        (SEQ_PATH, {**GSP_PROPS, **GSP_BLOCK}, "seq", SHARD_GSP_PROCS)]
+    secs = {"builds_s": {k: round(v, 1) for k, v in built.items()}}
+    launches = {fn.__name__: 0 for fn in _wrappers()}
+    solo_out = {}
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, round(time.perf_counter() - t0, 3)
+
+    for name, props, key, procs in runs:
+        inp = corpora[key]
+        row = {}
+        if name not in solo_out:
+            solo_out[name] = str(work / f"solo_{name}")
+            _, row["solo_s"] = timed(lambda: run_job(
+                name, props, [inp], solo_out[name], device=DEVICE))
+        res, row["sharded_s"] = timed(lambda: run_sharded(
+            name, props, [inp], str(work / f"sharded_{name}_{procs}"),
+            procs=procs, device=DEVICE, timeout_s=SHARD_TIMEOUT_S))
+        run_launches = worker_launches(res)
+        for fn, n in run_launches.items():
+            launches[fn] += n
+        row["counters"] = {k: v for k, v in res.counters.items()
+                           if k.startswith(("Shard:", "Cache:"))}
+        row["workers"] = [{k: w.get(k) for k in ("worker", "device",
+                                                  "scan_s", "perk_s",
+                                                  "folded", "perk_folded",
+                                                  "stolen", "mirrored")}
+                          for w in res.payload["workers"]]
+        row["subseq_support_launches"] = run_launches["subseq_support_fold"]
+        secs[f"{name}_{procs}"] = row
+        ok = (same_files(solo_out[name], res.outputs)
+              and all(w["device"].startswith("cuda")
+                      for w in res.payload["workers"]))
+        if name in (SEQ_PATH, "frequentItemsApriori"):
+            ok = ok and res.counters["Shard:PerKRounds"] >= 1 \
+                and res.counters["Shard:PerKBlocks"] >= \
+                res.counters["Shard:Blocks"]
+        if name == SEQ_PATH:
+            ok = ok and run_launches["subseq_support_fold"] > 0
+        check(ok, f"{name} sharded over {procs} workers on the card "
+              f"({CARD}): byte-identical to the solo run_job on the card; "
+              f"{json.dumps(row)}")
+
+    # the chaos leg: a worker stopped while it holds a claim
+    res, caught = chaos_leg(
+        "mutualInformation", mi, corpora["churn"], str(work / "chaos"),
+        DEVICE, policy=StragglerPolicy(mirror_floor_s=0.5,
+                                       mirror_multiple=2.0, poll_s=0.02),
+        timeout_s=SHARD_TIMEOUT_S)
+    for fn, n in worker_launches(res).items():
+        launches[fn] += n
+    secs["chaos"] = {**caught, "counters": {
+        k: v for k, v in res.counters.items() if k.startswith("Shard:")}}
+    check(res.counters["Shard:DedupBlocks"] >= 1 and caught["resumed"]
+          and same_files(solo_out["mutualInformation"], res.outputs),
+          f"chaos leg: worker {caught['victim']} stopped on a claim, every "
+          f"block committed, the late commit deduped, bytes equal to the "
+          f"solo run's: {json.dumps(secs['chaos'])}")
+
+    # a worker that cannot open the card fails the run; nothing falls back
+    saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    try:
+        run_sharded("mutualInformation", mi, [corpora["churn"]],
+                    str(work / "nodev"), procs=SHARD_PROCS, device=DEVICE,
+                    timeout_s=SHARD_TIMEOUT_S)
+        refused = ""
+    except ShardError as e:
+        refused = str(e)
+    finally:
+        if saved is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES")
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = saved
+    check("none is available" in refused and not (work / "nodev").exists(),
+          f"workers without the card fail the run (ShardError), no CPU "
+          f"fallback: {refused.splitlines()[0] if refused else 'no error'}")
+
+    # GSP over SHARD_PROCS workers through the CLI's --shard: a fresh
+    # coordinator process, whose line carries its workers' stats
+    conf = work / "gsp.properties"
+    conf.write_text("".join(f"{k}={v}\n" for k, v in
+                            {**GSP_PROPS, **GSP_BLOCK}.items()))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "avenir_tpu_torch", SEQ_PATH, "--shard",
+         str(SHARD_PROCS), "--conf", str(conf), corpora["seq"],
+         str(work / "cli")], capture_output=True, text=True,
+        timeout=SHARD_TIMEOUT_S + 120, cwd=ROOT, env=env)
+    cli_s = round(time.perf_counter() - t0, 3)
+    line = (json.loads(proc.stdout.strip().splitlines()[-1])
+            if proc.returncode == 0 else {})
+    c = line.get("counters", {})
+    workers = line.get("workers", [])
+    run_launches = worker_launches(
+        types.SimpleNamespace(payload={"workers": workers}))
+    for fn, n in run_launches.items():
+        launches[fn] += n
+    row = {"cli_s": cli_s,
+           "counters": {k: v for k, v in c.items()
+                        if k.startswith(("Shard:", "Cache:"))},
+           "workers": [{k: w.get(k) for k in ("worker", "device", "scan_s",
+                                               "perk_s", "folded",
+                                               "perk_folded", "stolen",
+                                               "mirrored")}
+                       for w in workers],
+           "subseq_support_launches": run_launches.get(
+               "subseq_support_fold", 0)}
+    secs[f"{SEQ_PATH}_{SHARD_PROCS}"] = row
+    check(proc.returncode == 0
+          and same_files(solo_out[SEQ_PATH], line.get("outputs", []))
+          and len(workers) == SHARD_PROCS
+          and all(w["device"].startswith("cuda") for w in workers)
+          and c.get("Shard:PerKRounds", 0) >= 1
+          and c.get("Shard:PerKBlocks", 0) >= c.get("Shard:Blocks", 1)
+          and row["subseq_support_launches"] > 0,
+          f"python -m avenir_tpu_torch {SEQ_PATH} --shard {SHARD_PROCS} on "
+          f"the card ({CARD}): {cli_s}s with the interpreter's boot, bytes "
+          f"equal to the solo run_job's; {json.dumps(row)} "
+          f"{proc.stderr[-400:] if proc.returncode else ''}")
+    shutil.rmtree(work)
+    shutil.rmtree(CORPORA, ignore_errors=True)
+    secs["phase"] = round(time.perf_counter() - t_phase, 1)
+    print(f"shard path launches (the workers'): {json.dumps(launches)}",
+          flush=True)
+    return secs, launches
+
 LR_MESH_ATOL = 1e-7
 
 
@@ -5114,6 +5378,7 @@ def main() -> None:
         fail(f"the avenir_tpu_torch package is not beside this script: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    shutil.rmtree(CORPORA, ignore_errors=True)
 
     phase_card()
     flops, rate, bf16_flops = peaks(torch.cuda.get_device_name(0))
@@ -5160,6 +5425,7 @@ def main() -> None:
     lib_secs, walk_row, lib_counts, lib_rows = phase_library(flops, rate)
     conf_secs, conf_counts = phase_conf()
     mesh_secs, mesh_rows, mesh_counts = phase_mesh()
+    shard_secs, shard_counts = phase_shard()
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     print(f"tree and text seconds ({CARD}; phase 10 "
@@ -5191,6 +5457,8 @@ def main() -> None:
           f"{json.dumps(conf_secs)}", flush=True)
     print(f"mesh seconds ({CARD}; phase 20 {mesh_secs['phase']}s): "
           f"{json.dumps(mesh_secs)}", flush=True)
+    print(f"shard seconds ({CARD}; phase 21 {shard_secs['phase']}s): "
+          f"{json.dumps(shard_secs)}", flush=True)
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.1f}s "
           f"({CARD})", flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
@@ -5198,7 +5466,7 @@ def main() -> None:
              SEQ_PATH: seq_counts, STREAM_PATH: stream_counts,
              TMC_PATH: tmc_counts, KMEANS_PATH: km_counts,
              LIB_PATH: lib_counts, CONF_PATH: conf_counts,
-             MESH_PATH: mesh_counts}
+             MESH_PATH: mesh_counts, SHARD_PATH: shard_counts}
 
     # each kernel's row at the shape of the path it is reported on: the
     # job's (manhattan, D=6) for the three it runs; the sweep's

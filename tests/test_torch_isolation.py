@@ -4,6 +4,7 @@ JAX package `avenir_tpu`. Checked in a fresh interpreter, since this test
 process has both loaded already."""
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -61,7 +62,10 @@ def test_modules_list_covers_the_package():
                 "models.reinforce", "streaming", "utils.tabular",
                 "utils.mcmc", "utils.profiling", "utils.sampling",
                 "models.svm", "models.neural", "ops.sampling_kernels",
-                "tools.sampling_check"):
+                "tools.sampling_check", "dist", "dist.driver", "dist.worker",
+                "dist.plan", "dist.ledger", "dist.detect", "dist.collective",
+                "tune", "tune.signals", "parallel.scaling",
+                "tools.bench_scaling"):
         assert f"avenir_tpu_torch.{sub}" in MODULES
 
 
@@ -79,7 +83,8 @@ def test_native_source_is_the_ports_own():
                                    "obs", "native", "mutualInformation",
                                    "fisherDiscriminant", "tree", "text",
                                    "sequence", "bandits", "markov",
-                                   "score", "reinforce", "library"])
+                                   "score", "reinforce", "library",
+                                   "dist"])
 def test_import_loads_no_jax(entry):
     modules = {"avenir_tpu_torch": ["avenir_tpu_torch"], "all": MODULES,
                "chip_smoke": ["chip_smoke"],
@@ -121,7 +126,13 @@ def test_import_loads_no_jax(entry):
                            "avenir_tpu_torch.models.neural",
                            "avenir_tpu_torch.ops.sampling_kernels",
                            "avenir_tpu_torch.tools.sampling_check",
-                           "avenir_tpu_torch.models.convert"]}[entry]
+                           "avenir_tpu_torch.models.convert"],
+               "dist": ["avenir_tpu_torch.dist",
+                        "avenir_tpu_torch.dist.worker",
+                        "avenir_tpu_torch.dist.collective",
+                        "avenir_tpu_torch.tune",
+                        "avenir_tpu_torch.parallel.scaling",
+                        "avenir_tpu_torch.tools.bench_scaling"]}[entry]
     loaded = _loaded(*modules)
     assert set(modules) <= set(loaded)
     assert _forbidden(loaded) == []
@@ -170,3 +181,64 @@ def test_association_path_loads_no_jax():
     loaded = _loaded(*modules)
     assert set(modules) <= set(loaded)
     assert _forbidden(loaded) == []
+
+
+_BLOCKED_WORKER = """
+import importlib.abc, runpy, sys
+
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name in ("jax", "jaxlib", "avenir_tpu") or name.startswith(
+                ("jax.", "jaxlib.", "avenir_tpu.")):
+            raise ImportError(f"{name} is blocked in this worker")
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
+sys.argv = ["worker", *sys.argv[1:]]
+runpy.run_module("avenir_tpu_torch.dist.worker", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def test_shard_worker_runs_with_jax_unimportable(tmp_path):
+    """One sharded worker process, with `jax` and the JAX package made
+    unimportable, folds every block of a plan and commits them."""
+    from avenir_tpu_torch.data import churn_schema, generate_churn
+    from avenir_tpu_torch.dist import (BlockLedger, merge_block_states,
+                                       plan_shards, write_plan)
+    from avenir_tpu_torch.runner import (_finish_fold, _job_cfg, _schema,
+                                         run_job, stream_fold_ops)
+
+    csv = tmp_path / "churn.csv"
+    csv.write_text(generate_churn(1500, seed=5, as_csv=True))
+    schema = str(tmp_path / "churn.json")
+    churn_schema().save(schema)
+    conf = {"mut.feature.schema.file.path": schema}
+    root = tmp_path / "root"
+    root.mkdir()
+    plan = plan_shards([str(csv)], procs=1, factor=3)
+    plan.job, plan.prefix, plan.device = "mutualInformation", "mut", "cpu"
+    plan.props = dict(conf)
+    write_plan(plan, str(root / "plan.json"))
+    (root / "go").write_text("go")
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_WORKER, str(root), "0"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    ledger = BlockLedger(str(root))
+    assert ledger.committed() == [0, 1, 2]
+    stats = json.loads((root / "stats" / "w0.json").read_text())
+    assert stats["folded"] == 3 and stats["device"] == "cpu"
+    canonical, cfg = _job_cfg("mutualInformation", conf)
+    merged = merge_block_states(
+        canonical, cfg, stream_fold_ops(canonical), plan,
+        {b: ledger.load_state(b) for b in range(3)}, [str(csv)], str(root),
+        schema=_schema(cfg), device="cpu")
+    _finish_fold(merged, str(tmp_path / "sharded.txt"), canonical)
+    run_job("mutualInformation", conf, [str(csv)], str(tmp_path / "solo.txt"),
+            device="cpu")
+    assert (tmp_path / "sharded.txt").read_bytes() == \
+        (tmp_path / "solo.txt").read_bytes()

@@ -203,17 +203,122 @@ def rank_main(rank: int, port: int, outdir: str) -> None:
         raise
 
 
-def spawn_world(outdir: str, timeout: float) -> Dict[int, dict]:
-    """Run `rank_main` on WORLD spawned processes; every rank's outputs
-    by rank. Raises if a rank fails or the world outlives `timeout`
-    seconds (a hung collective), and kills what is left."""
+#: the payload world: two ranks, meshed 2x1 and 1x2
+PAIR_MESHES = {"2x1": 1, "1x2": 2}
+
+
+def _carry(rank: int) -> Dict[str, np.ndarray]:
+    """A rank's additive carry for `allsum_carry`: counts and moments of
+    several shapes and dtypes, from the rank's seed."""
+    rng = np.random.default_rng(300 + rank)
+    return {"counts": rng.integers(0, 1 << 40, (3, 4)).astype(np.int64),
+            "moments": rng.normal(size=(5,)).astype(np.float32),
+            "n": np.asarray(rng.integers(1, 100), np.int64)}
+
+
+def pair_main(rank: int, port: int, outdir: str) -> None:
+    """One rank of a gloo world of two: `allsum_carry` (and its gate
+    before and after the group), every family's logged collectives on
+    both meshes, and a small `measure_scaling`."""
+    try:
+        import torch
+        torch.set_num_threads(1)
+        from avenir_tpu_torch.dist.collective import (CollectiveUnavailable,
+                                                      allsum_carry,
+                                                      collective_ready)
+        from avenir_tpu_torch.parallel import data_mesh
+        from avenir_tpu_torch.parallel.distributed import recorded_payloads
+        from avenir_tpu_torch.parallel.multihost import initialize, shutdown
+        from avenir_tpu_torch.parallel.scaling import measure_scaling
+
+        res = {"ready_before": collective_ready()}
+        try:
+            allsum_carry(_carry(rank))
+        except CollectiveUnavailable as e:
+            res["refused_before"] = str(e)
+        assert initialize(f"tcp://127.0.0.1:{port}", 2, rank,
+                          device="cpu") == 2
+        res["ready"] = collective_ready()
+        res["allsum"] = allsum_carry(_carry(rank))
+        data = inputs()
+        for name, mp in PAIR_MESHES.items():
+            mesh = data_mesh(model_parallel=mp, device="cpu")
+            res[name] = {"shape": dict(mesh.shape)}
+            for fam in ("knn_topk", "nb_train", "tree_level", "lr_step",
+                        "markov_counts", "apriori_support",
+                        "bandit_select", "crosscount"):
+                with recorded_payloads() as payloads:
+                    _collect_one(mesh, data, fam)
+                res[name][fam] = payloads
+        res["scaling"] = measure_scaling(nb_rows_per_rank=4096,
+                                         knn_queries_per_rank=64,
+                                         knn_train=512, iters=2,
+                                         device="cpu")
+        shutdown()
+        with open(os.path.join(outdir, f"rank{rank}.pkl"), "wb") as fh:
+            pickle.dump(res, fh)
+    except BaseException:
+        with open(os.path.join(outdir, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+
+
+def _collect_one(mesh, data, fam: str) -> None:
+    """One family's step on `mesh`, as `_collect` runs it."""
+    import torch
+
+    from avenir_tpu_torch.parallel import FAMILIES, shard_rows
+    from avenir_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+
+    joint = mesh.axis_names
+
+    def rows(a, pad=0, axes=joint):
+        return shard_rows(mesh, a, pad, axes)
+
+    d = data[fam]
+    if fam == "knn_topk":
+        t_axes = (MODEL_AXIS,) if MODEL_AXIS in joint else None
+        t = rows(d["t"], axes=t_axes) if t_axes else torch.from_numpy(d["t"])
+        tl = (rows(d["t_labels"], axes=t_axes) if t_axes
+              else torch.from_numpy(d["t_labels"]))
+        FAMILIES[fam](mesh, K_NN)(rows(d["q"], axes=(DATA_AXIS,)), t, tl)
+    elif fam == "nb_train":
+        FAMILIES[fam](mesh, **NB)(rows(d["codes"]), rows(d["labels"]),
+                                  rows(d["w"]))
+    elif fam == "tree_level":
+        FAMILIES[fam](mesh, **TREE)(rows(d["leaf_id"]), rows(d["seg"]),
+                                    rows(d["labels"]), rows(d["w"]))
+    elif fam == "lr_step":
+        FAMILIES[fam](mesh, LR_RATE)(torch.from_numpy(d["coeff"]),
+                                     rows(d["x"]), rows(d["y"]),
+                                     rows(d["w"]))
+    elif fam == "markov_counts":
+        FAMILIES[fam](mesh, **MARKOV)(rows(d["padded"], -1),
+                                      rows(d["labels"]))
+    elif fam == "apriori_support":
+        FAMILIES[fam](mesh, APRIORI_K)(rows(d["trans"]),
+                                       torch.from_numpy(d["cand"]))
+    elif fam == "bandit_select":
+        FAMILIES[fam](mesh, **BANDIT)(rows(d["counts"]), rows(d["rewards"]),
+                                      rows(d["mask"], False), d["round_num"])
+    else:
+        FAMILIES[fam](mesh, **CROSS)(rows(d["a"]), rows(d["b"]),
+                                     rows(d["w"]))
+
+
+def spawn_world(outdir: str, timeout: float, target=rank_main,
+                world: int = WORLD) -> Dict[int, dict]:
+    """Run `target` (default `rank_main`) on `world` spawned processes;
+    every rank's outputs by rank. Raises if a rank fails or the world
+    outlives `timeout` seconds (a hung collective), and kills what is
+    left."""
     import multiprocessing as mp
     import time
 
     ctx = mp.get_context("spawn")
     port = free_port()
-    procs = [ctx.Process(target=rank_main, args=(r, port, outdir))
-             for r in range(WORLD)]
+    procs = [ctx.Process(target=target, args=(r, port, outdir))
+             for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + timeout
@@ -238,7 +343,7 @@ def spawn_world(outdir: str, timeout: float) -> Dict[int, dict]:
     if errs:
         raise RuntimeError("\n".join(errs))
     out = {}
-    for r in range(WORLD):
+    for r in range(world):
         with open(os.path.join(outdir, f"rank{r}.pkl"), "rb") as fh:
             out[r] = pickle.load(fh)
     return out
