@@ -5,9 +5,10 @@ The port's own copy of the stream layer of `avenir_tpu/core/stream.py`:
 the block readers (byte blocks, line blocks for free text, and
 `CsvBlockReader` / `iter_csv_chunks` for Dataset chunks), the prefetch
 thread (`prefetched`, `double_buffered`, the `stream.prefetch.depth`
-key), `SharedScan`, and the input splits of one file (`byte_range=`
-under Hadoop's LineRecordReader contract, `split_byte_ranges`), without
-the columnar sidecar and the autotune hooks. The reference streams unbounded
+key), `SharedScan`, the input splits of one file (`byte_range=` under
+Hadoop's LineRecordReader contract, `split_byte_ranges`), and the job
+feeds' route through the columnar sidecar (`native/sidecar.py`), without
+the autotune hooks. The reference streams unbounded
 files through mappers one line at a time; here the unit is a byte block
 of a fixed size cut at the last newline, parsed into a Dataset chunk
 against one shared schema, so host memory stays O(block) however large
@@ -43,6 +44,7 @@ from typing import Iterable, Iterator, List, Optional, Tuple, TypeVar
 from avenir_tpu_torch import obs
 from avenir_tpu_torch.core.dataset import Dataset
 from avenir_tpu_torch.core.schema import FeatureSchema
+from avenir_tpu_torch.native import sidecar
 
 DEFAULT_BLOCK_BYTES = 64 << 20
 #: items queued ahead of the consumer in the job feeds; the
@@ -460,6 +462,14 @@ def _block_bytes(cfg) -> int:
     return int(cfg.get_float("stream.block.size.mb", 64.0) * (1 << 20))
 
 
+def _sidecar_payloads(feed) -> Iterator:
+    """A sidecar feed's payloads, without its (offset, length, hash)
+    bookkeeping and its blank-block placeholders: what a job folds."""
+    for _off, _length, _hash, payload in feed:
+        if payload is not None:
+            yield payload
+
+
 def stream_job_inputs(cfg, inputs: Iterable[str], schema: FeatureSchema,
                       keep_raw: bool = False) -> Iterator[Dataset]:
     """Dataset chunks of every input path, sized by the
@@ -467,12 +477,27 @@ def stream_job_inputs(cfg, inputs: Iterable[str], schema: FeatureSchema,
     `stream.prefetch.depth` deep: one thread reads, one parses
     (iter_csv_chunks), the caller folds. keep_raw keeps each chunk's row
     tokens (`Dataset.raw_rows`) for jobs that echo the row, which the
-    Python parser alone can."""
+    Python parser alone can.
+
+    Where the columnar sidecar engages (the native parser, a one-byte
+    delimiter, `stream.sidecar` not off, no keep_raw), each path streams
+    through native.sidecar.dataset_blocks instead: a verified repeat scan
+    replays packed columns without parsing, a first scan parses and
+    packs, and anything in doubt falls back to the chunks below, to the
+    same bytes."""
     block, depth = _block_bytes(cfg), prefetch_depth(cfg)
+    opts = None if keep_raw else sidecar.opts_from_cfg(cfg)
     for path in inputs:
-        yield from prefetched(iter_csv_chunks(
-            path, schema, cfg.field_delim_regex, block, csv_engine(cfg),
-            keep_raw), depth=depth)
+        feed = None
+        if opts is not None:
+            feed = sidecar.dataset_blocks(opts, path, schema,
+                                          cfg.field_delim_regex, block)
+        if feed is not None:
+            yield from prefetched(_sidecar_payloads(feed), depth=depth)
+        else:
+            yield from prefetched(iter_csv_chunks(
+                path, schema, cfg.field_delim_regex, block, csv_engine(cfg),
+                keep_raw), depth=depth)
 
 
 def iter_line_blocks(path: str, block_bytes: int = DEFAULT_BLOCK_BYTES
@@ -501,13 +526,29 @@ def stream_job_lines(cfg, inputs: Iterable[str]) -> Iterator[List[str]]:
         yield from prefetched(iter_line_blocks(path, block), depth=depth)
 
 
-def stream_job_byte_blocks(cfg, inputs: Iterable[str]) -> Iterator[bytes]:
+def stream_job_byte_blocks(cfg, inputs: Iterable[str],
+                           sidecar_skip: Optional[int] = None
+                           ) -> Iterator[bytes]:
     """Raw byte blocks of every input path (the feed of the miners' native
     encoder), sized by the same `stream.block.size.mb` key, read on a
-    worker thread and queued `stream.prefetch.depth` deep."""
+    worker thread and queued `stream.prefetch.depth` deep.
+
+    `sidecar_skip` opts in to the bytes-kind columnar sidecar: a caller
+    whose consumers take a native.sidecar.SidecarBytesBlock as well as raw
+    bytes (the per-class markov fold, the miners' pass 1) passes its meta
+    skip count, and a verified repeat scan then replays packed codes
+    instead of text. None keeps the raw feed."""
     block, depth = _block_bytes(cfg), prefetch_depth(cfg)
+    opts = None if sidecar_skip is None else sidecar.opts_from_cfg(cfg)
     for path in inputs:
-        yield from prefetched(iter_byte_blocks(path, block), depth=depth)
+        feed = None
+        if opts is not None:
+            feed = sidecar.byte_blocks(opts, path, cfg.field_delim_regex,
+                                       int(sidecar_skip), block)
+        if feed is not None:
+            yield from prefetched(_sidecar_payloads(feed), depth=depth)
+        else:
+            yield from prefetched(iter_byte_blocks(path, block), depth=depth)
 
 
 class SharedScan:

@@ -39,7 +39,18 @@ namespace), ``Shard:MirroredBlocks``, ``Shard:MergeMs`` (restore and merge
 wall), ``Shard:ScanSeconds`` (from the go barrier), ``Shard:Workers`` and,
 for the miners, ``Shard:PerKRounds``, ``Shard:PerKBlocks``,
 ``Shard:PerKSeconds``, ``Cache:SpillBytes`` and ``Cache:EvictedBytes``
-(summed over the workers).
+(summed over the workers), and the workers' own parse accounting:
+``Sidecar:HitBlocks`` / ``Sidecar:DeltaBlocks`` and ``Shard:ParseSpans``
+/ ``Shard:ReplaySpans``. Over a warm columnar sidecar the planner snaps
+its cuts to the sidecar's verified block starts, and each worker replays
+its range (read-only) instead of parsing it.
+
+:func:`run_sharded_refresh` composes the driver with the incremental
+refresh (``--shard N --incremental``): the checkpointed carry is restored
+as `runner.run_incremental` restores it, only the appended tail is
+planned and folded by the workers, the committed block states merge in
+plan order into the restored carry, and the workers' fingerprints of the
+chunks they folded extend the checkpoint.
 """
 
 from __future__ import annotations
@@ -82,6 +93,40 @@ def _worker_env() -> Dict[str, str]:
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (_pkg_parent(), env.get("PYTHONPATH")) if p)
     return env
+
+
+def _sidecar_snap(cfg, ops, inputs: Sequence[str], procs: int,
+                  factor: int, schema=None
+                  ) -> Optional[List[Optional[List[int]]]]:
+    """Each input's verified sidecar block starts, for the planner to snap
+    its cuts to, where the sidecar is at least as fine as the plan (at
+    least procs x factor blocks: a coarser one would merge plan blocks and
+    starve workers). None when no input qualifies: the planner scans for
+    newlines and the workers parse."""
+    from avenir_tpu_torch.native import sidecar
+
+    opts = sidecar.opts_from_cfg(cfg)
+    if opts is None:
+        return None
+    block_bytes = int(cfg.get_float("stream.block.size.mb", 64.0)
+                      * (1 << 20))
+    delim = cfg.field_delim_regex
+    if ops.kind == "dataset" and schema is None:
+        from avenir_tpu_torch.runner import _schema
+
+        schema = _schema(cfg)
+    snap: List[Optional[List[int]]] = []
+    for path in inputs:
+        if ops.kind == "dataset":
+            dirpath = sidecar.dataset_dir(opts, path, schema, delim,
+                                          block_bytes)
+        else:
+            dirpath = sidecar.bytes_dir(opts, path, delim,
+                                        cfg.get_int("skip.field.count", 1),
+                                        block_bytes)
+        offs = sidecar.verified_offsets(dirpath, path, block_bytes)
+        snap.append(offs if len(offs) >= procs * factor else None)
+    return snap if any(sn is not None for sn in snap) else None
 
 
 def _restore_inputs(canonical: str, plan: ShardPlan, block,
@@ -281,7 +326,9 @@ def run_sharded(name: str, conf, inputs: Sequence[str], output: str,
     per_k = canonical in RESCAN_AT_FINISH
     try:
         plan = plan_shards(list(inputs), procs, factor,
-                           policy=policy.to_dict())
+                           policy=policy.to_dict(),
+                           snap=_sidecar_snap(cfg, ops, list(inputs),
+                                              procs, factor))
         plan.job = canonical
         plan.prefix = _REGISTRY[canonical][1]
         plan.props = {k: str(v) for k, v in cfg.props.items()}
@@ -290,46 +337,12 @@ def run_sharded(name: str, conf, inputs: Sequence[str], output: str,
         write_plan(plan, os.path.join(root, "plan.json"))
         ledger = BlockLedger(root)
         logs = os.path.join(root, "logs")
-        os.makedirs(logs, exist_ok=True)
-
-        workers = []
-        for w in range(procs):
-            log = open(os.path.join(logs, f"w{w}.log"), "ab")
-            proc = subprocess.Popen(
-                [sys.executable, "-m", "avenir_tpu_torch.dist.worker",
-                 root, str(w)],
-                stdout=log, stderr=log, env=_worker_env(),
-                cwd=_pkg_parent())
-            if pin_cores and hasattr(os, "sched_setaffinity"):
-                # pinned from here, so no Python runs between the fork and
-                # the exec of a process that may hold a CUDA context
-                os.sched_setaffinity(proc.pid,
-                                     {pin_cores[w % len(pin_cores)]})
-            workers.append((log, proc))
+        workers = _spawn_workers(root, procs, logs, pin_cores)
         mined = None
         try:
-            if worker_hook is not None:
-                worker_hook([p.pid for _log, p in workers], root)
-            # boot barrier: the measured scan starts once every worker has
-            # booted (concurrently)
-            deadline = time.perf_counter() + timeout_s
-            ready = os.path.join(root, "ready")
-            while True:
-                try:
-                    n_ready = len(os.listdir(ready))
-                except OSError:
-                    n_ready = 0
-                if n_ready >= procs:
-                    break
-                _reap_check(workers, ledger, plan, logs)
-                if time.perf_counter() > deadline:
-                    raise ShardError(
-                        f"{n_ready}/{procs} workers ready within "
-                        f"{timeout_s}s")
-                time.sleep(0.01)
-            t_scan = time.perf_counter()
-            publish_bytes(b"go", os.path.join(root, "go"))
-
+            t_scan, deadline = _release_workers(
+                workers, ledger, plan, root, logs, procs, timeout_s,
+                worker_hook)
             n_blocks = len(plan.blocks)
             if per_k:
                 # pass 1: every block's state committed; the workers stay
@@ -339,35 +352,10 @@ def run_sharded(name: str, conf, inputs: Sequence[str], output: str,
                 mined = _coordinate_per_k(canonical, cfg, plan, ledger,
                                           root, workers, logs, deadline,
                                           policy, dev)
-            # once the scan is done, straggling workers get a bounded grace
-            # to exit on their own (a woken straggler records its rejected
-            # duplicate); past it the finally kills them, so a wedged
-            # worker cannot hold a finished scan
-            grace_until = None
-            while True:
-                alive = [p for _log, p in workers if p.poll() is None]
-                done = len(ledger.committed())
-                if per_k or done >= n_blocks:
-                    if not alive:
-                        break
-                    if grace_until is None:
-                        grace_until = time.perf_counter() \
-                            + policy.exit_grace_s
-                    elif time.perf_counter() > grace_until:
-                        break
-                elif not alive:
-                    _raise_workers_dead(workers, logs, done, n_blocks)
-                if time.perf_counter() > deadline:
-                    raise ShardError(
-                        f"sharded scan incomplete after {timeout_s}s "
-                        f"({done}/{n_blocks} blocks committed)")
-                time.sleep(0.02)
+            _drain_workers(workers, ledger, n_blocks, logs, deadline,
+                           policy, timeout_s, per_k)
         finally:
-            for log, proc in workers:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-                log.close()
+            _stop_workers(workers)
 
         # ------------------------------------------------------- merge
         stats = _worker_stats(root, procs)
@@ -422,6 +410,7 @@ def run_sharded(name: str, conf, inputs: Sequence[str], output: str,
             res.counters["Shard:MirroredBlocks"] = float(
                 sum(s.get("mirrored", 0) + s.get("perk_mirrored", 0)
                     for s in stats))
+            _add_worker_sidecar_counters(res, stats)
         if per_k:
             res.counters["Shard:PerKRounds"] = float(mined["rounds"])
             res.counters["Shard:PerKBlocks"] = float(mined["blocks"])
@@ -433,6 +422,252 @@ def run_sharded(name: str, conf, inputs: Sequence[str], output: str,
     finally:
         if own_root:
             shutil.rmtree(root, ignore_errors=True)
+
+
+def _spawn_workers(root: str, procs: int, logs: str,
+                   pin_cores: Optional[Sequence[int]]) -> list:
+    """Start `procs` worker interpreters on the published plan under
+    `root`, each logging to ``<logs>/w<i>.log``: (log, process) pairs."""
+    os.makedirs(logs, exist_ok=True)
+    workers = []
+    for w in range(procs):
+        log = open(os.path.join(logs, f"w{w}.log"), "ab")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "avenir_tpu_torch.dist.worker",
+             root, str(w)],
+            stdout=log, stderr=log, env=_worker_env(), cwd=_pkg_parent())
+        if pin_cores and hasattr(os, "sched_setaffinity"):
+            # pinned from here, so no Python runs between the fork and
+            # the exec of a process that may hold a CUDA context
+            os.sched_setaffinity(proc.pid, {pin_cores[w % len(pin_cores)]})
+        workers.append((log, proc))
+    return workers
+
+
+def _release_workers(workers, ledger: BlockLedger, plan: ShardPlan,
+                     root: str, logs: str, procs: int, timeout_s: float,
+                     worker_hook: Optional[Callable]):
+    """Call the test tap, wait at the boot barrier until every worker has
+    booted (concurrently), and publish ``go``: (the scan's start, the
+    run's deadline)."""
+    if worker_hook is not None:
+        worker_hook([p.pid for _log, p in workers], root)
+    deadline = time.perf_counter() + timeout_s
+    ready = os.path.join(root, "ready")
+    while True:
+        try:
+            n_ready = len(os.listdir(ready))
+        except OSError:
+            n_ready = 0
+        if n_ready >= procs:
+            break
+        _reap_check(workers, ledger, plan, logs)
+        if time.perf_counter() > deadline:
+            raise ShardError(
+                f"{n_ready}/{procs} workers ready within {timeout_s}s")
+        time.sleep(0.01)
+    t_scan = time.perf_counter()
+    publish_bytes(b"go", os.path.join(root, "go"))
+    return t_scan, deadline
+
+
+def _drain_workers(workers, ledger: BlockLedger, n_blocks: int, logs: str,
+                   deadline: float, policy: StragglerPolicy,
+                   timeout_s: float, per_k: bool) -> None:
+    """Wait for every block's commit (the per-k rounds have waited
+    already), then give straggling workers a bounded grace to exit on
+    their own (a woken straggler records its rejected duplicate); past it
+    _stop_workers kills them, so a wedged worker cannot hold a finished
+    scan."""
+    grace_until = None
+    while True:
+        alive = [p for _log, p in workers if p.poll() is None]
+        done = len(ledger.committed())
+        if per_k or done >= n_blocks:
+            if not alive:
+                return
+            if grace_until is None:
+                grace_until = time.perf_counter() + policy.exit_grace_s
+            elif time.perf_counter() > grace_until:
+                return
+        elif not alive:
+            _raise_workers_dead(workers, logs, done, n_blocks)
+        if time.perf_counter() > deadline:
+            raise ShardError(
+                f"sharded scan incomplete after {timeout_s}s "
+                f"({done}/{n_blocks} blocks committed)")
+        time.sleep(0.02)
+
+
+def _stop_workers(workers) -> None:
+    for log, proc in workers:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def _extend_checkpoint(iplan, plan: ShardPlan, ledger: BlockLedger) -> bool:
+    """Extend a refresh's fingerprints and watermarks, in plan order, by
+    the fingerprints each block's winning worker recorded of the chunks it
+    folded (never a re-read here: a source grown since the fold must not
+    stamp bytes no fold saw). False when a block's fingerprints are
+    missing or do not tile its range (a crash between a commit and its
+    fingerprints): the merged carry holds that block, so a checkpoint
+    without it would fold it twice next time, and the previous checkpoint
+    stays the newest instead (the next refresh folds the delta again)."""
+    for blk in plan.blocks:
+        if blk.start >= blk.end:
+            continue
+        iplan.delta_blocks += 1
+    for blk in plan.blocks:
+        if blk.start >= blk.end:
+            continue
+        fps = ledger.load_fps(blk.id)
+        expect = blk.start
+        try:
+            for fp in fps or ():
+                if int(fp["offset"]) != expect:
+                    return False
+                expect += int(fp["length"])
+        except (KeyError, TypeError, ValueError):
+            return False
+        if not fps or expect != blk.end:
+            return False
+        iplan.fps[blk.input].extend(fps)
+        iplan.watermarks[blk.input] = blk.end
+    return True
+
+
+def run_sharded_refresh(name: str, conf, inputs: Sequence[str],
+                        output: str, procs: int = 2,
+                        factor: int = DEFAULT_FACTOR,
+                        shard_root: Optional[str] = None,
+                        policy: Optional[StragglerPolicy] = None,
+                        pin_cores: Optional[Sequence[int]] = None,
+                        worker_hook: Optional[Callable] = None,
+                        timeout_s: float = 7200.0,
+                        state_dir: Optional[str] = None,
+                        device: DeviceLike = None) -> "JobResult":
+    """``--shard N --incremental`` on `device` (default cuda): restore the
+    last checkpointed carry as `runner.run_incremental` does (the same
+    store and fingerprint gate, cold on any doubt), then fold only the
+    verified prefix's appended tail across `procs` workers. The committed
+    delta states merge in plan order into the restored carry, the workers'
+    fingerprints extend the checkpoint, and the artifact equals a solo
+    refresh's (and so a cold run's). With nothing appended no worker
+    starts.
+
+    The miners are refused: their per-k rounds re-scan the whole corpus a
+    candidate length, so their "refresh" would be a full re-mine behind an
+    incremental flag."""
+    from avenir_tpu_torch.native import sidecar
+    from avenir_tpu_torch.runner import (_REGISTRY, _job_cfg,
+                                         _note_sidecar_counters,
+                                         _plan_finish, _prepare_incremental,
+                                         stream_fold_ops)
+
+    canonical, cfg = _job_cfg(name, conf)
+    if canonical in RESCAN_AT_FINISH:
+        raise ShardError(
+            f"{canonical} cannot refresh incrementally under --shard: "
+            f"the miners' per-k rounds re-scan the whole corpus per "
+            f"candidate length; run --shard (full re-mine) or "
+            f"--incremental alone")
+    ops = stream_fold_ops(canonical)
+    dev = resolve_device(device)
+    policy = policy or StragglerPolicy()
+    inputs = [str(p) for p in inputs]
+    iplan = _prepare_incremental(canonical, cfg, inputs, output, state_dir,
+                                 dev)
+    sc0 = sidecar.counters_snapshot()
+    sizes = [os.path.getsize(p) for p in inputs]
+    if all(w >= sz for w, sz in zip(iplan.watermarks, sizes)):
+        # nothing appended: the artifact from the carry alone, no worker
+        # started, no byte read
+        res = _plan_finish(iplan)
+        _note_sidecar_counters(canonical, res, sc0)
+        res.counters["Shard:Blocks"] = 0.0
+        res.counters["Shard:Workers"] = 0.0
+        res.payload = {"workers": []}
+        return res
+
+    root = shard_root or tempfile.mkdtemp(prefix="avenir_refresh_")
+    own_root = shard_root is None
+    procs = max(int(procs), 1)
+    try:
+        plan = plan_shards(inputs, procs, factor, policy=policy.to_dict(),
+                           starts=list(iplan.watermarks),
+                           snap=_sidecar_snap(cfg, ops, inputs, procs,
+                                              factor, schema=iplan.schema))
+        plan.job = canonical
+        plan.prefix = _REGISTRY[canonical][1]
+        plan.props = {k: str(v) for k, v in cfg.props.items()}
+        plan.record_fps = True
+        plan.device = str(dev)
+        write_plan(plan, os.path.join(root, "plan.json"))
+        ledger = BlockLedger(root)
+        logs = os.path.join(root, "logs")
+        workers = _spawn_workers(root, procs, logs, pin_cores)
+        n_blocks = len(plan.blocks)
+        try:
+            t_scan, deadline = _release_workers(
+                workers, ledger, plan, root, logs, procs, timeout_s,
+                worker_hook)
+            _drain_workers(workers, ledger, n_blocks, logs, deadline,
+                           policy, timeout_s, per_k=False)
+        finally:
+            _stop_workers(workers)
+
+        # the delta merges into the restored carry, in plan order
+        t_merge = time.perf_counter()
+        states = {bid: ledger.load_state(bid) for bid in ledger.committed()}
+        delta = merge_block_states(canonical, cfg, ops, plan, states,
+                                   inputs, root, schema=iplan.schema,
+                                   device=dev)
+        iplan.fold = (ops.merge_states(iplan.fold, delta)
+                      if iplan.hit_blocks > 0 else delta)
+        tiled = _extend_checkpoint(iplan, plan, ledger)
+        merge_ms = (time.perf_counter() - t_merge) * 1e3
+        t0 = obs.now()
+        res = _plan_finish(iplan, checkpoint=tiled)
+        obs.record("job.dispatch", t0, mode="sharded-refresh", procs=procs,
+                   blocks=n_blocks, jobs=canonical)
+        _note_sidecar_counters(canonical, res, sc0)
+        stats = _worker_stats(root, procs)
+        by_id = {b.id: b for b in plan.blocks}
+        res.counters["Shard:Blocks"] = float(n_blocks)
+        res.counters["Shard:StolenBlocks"] = float(
+            sum(1 for bid, info in ledger.claims().items()
+                if bid in by_id and by_id[bid].home != info["worker"]))
+        res.counters["Shard:DedupBlocks"] = float(ledger.dup_count())
+        res.counters["Shard:MergeMs"] = round(merge_ms, 3)
+        res.counters["Shard:ScanSeconds"] = round(
+            time.perf_counter() - t_scan, 4)
+        res.counters["Shard:Workers"] = float(procs)
+        if stats:
+            res.counters["Shard:MirroredBlocks"] = float(
+                sum(s.get("mirrored", 0) for s in stats))
+            _add_worker_sidecar_counters(res, stats)
+        res.payload = {"workers": stats}
+        return res
+    finally:
+        if own_root:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+def _add_worker_sidecar_counters(res, stats: List[Dict]) -> None:
+    """The workers' own sidecar and parse accounting, summed: a sharded
+    run over a warm sidecar reports Shard:ParseSpans == 0 and
+    Sidecar:HitBlocks equal to the blocks replayed."""
+    res.counters["Sidecar:HitBlocks"] = float(
+        sum(s.get("sidecar_hit_blocks", 0) for s in stats))
+    res.counters["Sidecar:DeltaBlocks"] = float(
+        sum(s.get("sidecar_delta_blocks", 0) for s in stats))
+    res.counters["Shard:ParseSpans"] = float(
+        sum(s.get("parse_spans", 0) for s in stats))
+    res.counters["Shard:ReplaySpans"] = float(
+        sum(s.get("replay_spans", 0) for s in stats))
 
 
 def worker_launches(res) -> Dict[str, int]:

@@ -170,13 +170,24 @@ class BlockLedger:
     def state_path(self, block_id: int) -> str:
         return os.path.join(self.states_dir, f"b{block_id}.npz")
 
-    def commit(self, block_id: int, worker: int, blob: bytes) -> bool:
+    def fps_path(self, block_id: int) -> str:
+        return os.path.join(self.states_dir, f"b{block_id}.fps.json")
+
+    def commit(self, block_id: int, worker: int, blob: bytes,
+               fps: Optional[List[Dict]] = None) -> bool:
         """Publish a block's serialized fold state, first commit wins.
         True when this state is the one the coordinator will merge; False
         when the block was already committed: the duplicate is rejected
         (never merged: the fold families are non-idempotent) and recorded
-        under ``dups/``. (The reference's `fps` fingerprints of a sharded
-        refresh come with that driver.)"""
+        under ``dups/``.
+
+        ``fps`` (refresh plans) are the fingerprints of the chunks this
+        fold consumed; only the winning commit publishes them (a losing
+        mirror may have read other bytes), after the state's link. A
+        crash between the two leaves a committed block without them,
+        which the coordinator takes as the end of its checkpoint's
+        extension (the next refresh re-folds from there), never as a
+        wrong checkpoint."""
         path = self.state_path(block_id)
         tmp = os.path.join(self.states_dir,
                            f".tmp.b{block_id}.{uuid.uuid4().hex}")
@@ -188,6 +199,11 @@ class BlockLedger:
             os.link(tmp, path)
             crash_point("ledger.commit", AFTER_RENAME)
             sched_point("ledger.commit")
+            if fps is not None:
+                fptmp = f"{tmp}.fps"
+                with open(fptmp, "w") as fh:
+                    json.dump(fps, fh)
+                os.replace(fptmp, self.fps_path(block_id))
             return True
         except FileExistsError:
             self._mark_dup(block_id, worker)
@@ -197,6 +213,17 @@ class BlockLedger:
                 os.remove(tmp)
             except OSError:
                 pass
+
+    def load_fps(self, block_id: int) -> Optional[List[Dict]]:
+        """The winning commit's folded-chunk fingerprints, or None when
+        the block committed without them (not a refresh plan, or a crash
+        between the state's link and their publish)."""
+        try:
+            with open(self.fps_path(block_id)) as fh:
+                fps = json.load(fh)
+            return list(fps) if isinstance(fps, list) else None
+        except (OSError, ValueError):
+            return None
 
     def _mark_dup(self, block_id: int, worker: int) -> None:
         """Record one rejected duplicate commit — worker-namespaced so

@@ -18,8 +18,11 @@ whose last line has no newline, a corpus smaller than the block count
 The plan is one atomic JSON manifest that the workers, separate processes
 with no other channel, load to learn the job, its properties, the block
 table, the straggler policy and the device they fold on. It keeps the
-reference's keys (``record_fps`` is always false here: the port has no
-sharded refresh yet) and adds ``device``.
+reference's keys (``record_fps`` set for a sharded refresh,
+:func:`avenir_tpu_torch.dist.driver.run_sharded_refresh`) and adds
+``device``. A refresh plan starts each input at its verified watermark
+(``starts``), and a plan over a warm columnar sidecar snaps its cuts to
+the sidecar's block starts (``snap``), so a worker replays its range.
 """
 
 from __future__ import annotations
@@ -95,8 +98,10 @@ class ShardPlan:
     #: per-k candidate-counting loop against the level-namespaced
     #: ledger (driver publishes candidate manifests, workers count)
     per_k: bool = False
-    #: refresh plans' chunk fingerprints (the reference's key; no port
-    #: plan sets it yet)
+    #: refresh plans: each worker fingerprints the exact chunks its fold
+    #: consumed and commits them with the block's state, so the
+    #: coordinator extends the checkpoint from folded bytes, never from a
+    #: re-read of a file a writer may have grown since
     record_fps: bool = False
     #: the torch device every worker folds on ("cuda" or "cpu")
     device: str = "cuda"

@@ -47,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from avenir_tpu_torch import obs
+from avenir_tpu_torch.core.dataset import Dataset
 from avenir_tpu_torch.core.atomic import (publish_bytes, publish_json,
                                           sched_point)
 from avenir_tpu_torch.dist.detect import (StragglerPolicy, mirror_after_s,
@@ -65,20 +66,78 @@ _HOLD_ENV = "AVENIR_SHARD_TEST_HOLD"
 RESCAN_AT_FINISH = ("frequentItemsApriori", "candidateGenerationWithSelfJoin")
 
 
+def _sidecar_range_feed(cfg, ops, schema, path: str, start: int, end: int,
+                        block_bytes: int):
+    """A read-only sidecar feed over one claimed byte range, or None. The
+    ranged contract replays all of [start, end) from verified sidecar
+    blocks or nothing: a worker never writes the shared sidecar (N
+    processes extending one columns.bin would tear it) and never splices a
+    replay with a parse mid-range. A plan snapped to the sidecar's block
+    starts replays whole."""
+    from avenir_tpu_torch.native import sidecar
+
+    opts = sidecar.opts_from_cfg(cfg)
+    if ops.kind == "dataset":
+        return sidecar.dataset_blocks(opts, path, schema,
+                                      cfg.field_delim_regex, block_bytes,
+                                      byte_range=(start, end), write=False)
+    return sidecar.byte_blocks(opts, path, cfg.field_delim_regex,
+                               cfg.get_int("skip.field.count", 1),
+                               block_bytes, byte_range=(start, end),
+                               write=False)
+
+
 def fold_block(canonical: str, cfg, ops, schema, inputs: List[str],
-               path: str, start: int, end: int, device):
+               path: str, start: int, end: int, device,
+               fps_out: Optional[list] = None):
     """Fold one plan block, the byte range ``[start, end)`` of `path`,
     through the job's registered fold sink on `device`, and return the fed
     fold. A plan block is newline-aligned, so the range reads as a plain
-    slice: a dataset job's `CsvBlockReader`, a bytes job's byte blocks."""
+    slice: a dataset job's `CsvBlockReader`, a bytes job's byte blocks, or
+    the columnar sidecar's replay when the whole range re-proves against
+    it (the fold sinks take a replayed payload as well).
+
+    ``fps_out`` (refresh plans) collects the fingerprints of the exact
+    chunks the fold consumed (the sidecar's verified hashes, or a hash of
+    each raw block as it is read), tiling [start, end) without a gap."""
+    from avenir_tpu_torch.core import incremental as incr
     from avenir_tpu_torch.core.stream import (CsvBlockReader, csv_engine,
-                                              iter_byte_blocks)
+                                              is_blank_block,
+                                              iter_byte_blocks, prefetched)
     from avenir_tpu_torch.runner import _drive_fold
 
     fold = ops.factory(cfg, list(inputs), schema, device)
     block_bytes = int(cfg.get_float("stream.block.size.mb", 64.0)
                       * (1 << 20))
-    if ops.kind == "dataset":
+    feed = None
+    if start < end:
+        feed = _sidecar_range_feed(cfg, ops, schema, path, start, end,
+                                   block_bytes)
+    if feed is not None:
+        def replayed():
+            for off, length, hsh, payload in feed:
+                if fps_out is not None:
+                    fps_out.append({"offset": int(off),
+                                    "length": int(length), "hash": hsh})
+                if payload is not None:
+                    yield payload
+        chunks = replayed()
+    elif fps_out is not None:
+        engine = csv_engine(cfg)
+
+        def fingerprinted():
+            for off, data in prefetched(
+                    iter_byte_blocks(path, block_bytes,
+                                     byte_range=(start, end),
+                                     with_offsets=True), depth=1):
+                fps_out.append(incr.block_fingerprint(off, data))
+                if is_blank_block(data):
+                    continue
+                yield (data if ops.kind != "dataset" else Dataset.from_csv(
+                    data, schema, delim=cfg.field_delim_regex,
+                    engine=engine))
+        chunks = fingerprinted()
+    elif ops.kind == "dataset":
         chunks = iter(CsvBlockReader(path, schema, cfg.field_delim_regex,
                                      block_bytes, engine=csv_engine(cfg),
                                      byte_range=(start, end)))
@@ -192,20 +251,24 @@ class _Worker:
         publish_json(self.stats, path)
 
     # ------------------------------------------------------- fold path
-    def _fold(self, path: str, start: int, end: int, inputs=None):
+    def _fold(self, path: str, start: int, end: int, inputs=None,
+              fps_out: Optional[list] = None):
         return fold_block(self.canonical, self.cfg, self.ops, self.schema,
                           inputs or self.inputs, path, start, end,
-                          self.device)
+                          self.device, fps_out=fps_out)
 
     def _fold_and_commit(self, blk: ShardBlock) -> None:
+        # a refresh plan fingerprints the exact chunks this fold reads, so
+        # the coordinator extends the checkpoint from folded bytes
+        fps = [] if self.plan.record_fps else None
         fold = self._fold(self.plan.inputs[blk.input]["path"], blk.start,
-                          blk.end)
+                          blk.end, fps_out=fps)
         if self.per_k:
             # seal now: commits this block's spill cache for the per-k
             # rounds to replay
             fold._seal()
         blob = self.ops.serialize_state(fold)
-        if self.ledger.commit(blk.id, self.worker, blob):
+        if self.ledger.commit(blk.id, self.worker, blob, fps=fps):
             self.stats["folded"] += 1
         else:
             self.stats["dedup_rejected"] += 1
@@ -247,9 +310,11 @@ class _Worker:
         return stale[0] if stale else None
 
     def run(self) -> None:
+        from avenir_tpu_torch.native import sidecar
         from avenir_tpu_torch.tune.signals import extract_signals
 
         self.barrier()
+        sc0 = sidecar.counters_snapshot()
         by_id = {b.id: b for b in self.plan.blocks}
         t_run = time.perf_counter()
         try:
@@ -282,7 +347,19 @@ class _Worker:
                 if self.per_k:
                     self._run_per_k(by_id)
                     self.stats["perk_s"] = round(self._perk_wall, 4)
-                self.write_stats(extract_signals(rec.spans()))
+                # what this worker parsed and what it replayed from the
+                # sidecar, which the coordinator's process cannot see
+                spans = rec.spans()
+                self.stats["parse_spans"] = sum(
+                    1 for sp in spans if sp.name == "stream.parse")
+                self.stats["replay_spans"] = sum(
+                    1 for sp in spans if sp.name == "stream.sidecar.replay")
+                now = sidecar.counters_snapshot()
+                self.stats["sidecar_hit_blocks"] = \
+                    now["hit_blocks"] - sc0["hit_blocks"]
+                self.stats["sidecar_delta_blocks"] = \
+                    now["delta_blocks"] - sc0["delta_blocks"]
+                self.write_stats(extract_signals(spans))
         finally:
             for fold in self._folds.values():
                 fold.src.close()

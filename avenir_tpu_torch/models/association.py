@@ -253,6 +253,9 @@ class StreamingTransactionSource(SpillScanMixin):
     def _reset_scan_state(self) -> None:
         self.n_trans = 0
 
+    def _note_encoded_rows(self, per_row: np.ndarray, n: int) -> None:
+        self.n_trans += n
+
     def _scan_result(self) -> Tuple[List[str], np.ndarray, int]:
         return self.vocab, self._item_counts, self.n_trans
 
@@ -392,9 +395,9 @@ class StreamingTransactionSource(SpillScanMixin):
                 row_of = np.repeat(np.arange(n, dtype=np.int32), counts)
                 yield from pages(*self._apply_mask(row_of, codes), n)
 
-        def parse_pages(path):
-            for data in prefetched(iter_byte_blocks(path, self.block_bytes),
-                                   depth=1):
+        def parse_pages(path, byte_range=None):
+            for data in prefetched(iter_byte_blocks(path, self.block_bytes,
+                                                    byte_range), depth=1):
                 t0 = obs.now()
                 codes, offsets = seq_encode_native(data, self.delim,
                                                    self.vocab)

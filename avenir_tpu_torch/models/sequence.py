@@ -267,6 +267,10 @@ class StreamingSequenceSource(SpillScanMixin):
         self.n_rows = 0
         self.t_max = 1
 
+    def _note_encoded_rows(self, per_row: np.ndarray, n: int) -> None:
+        self.t_max = max(self.t_max, int(per_row.max(initial=0)))
+        self.n_rows += n
+
     def _scan_result(self) -> Tuple[List[str], np.ndarray, int]:
         return self.vocab, self._item_counts, self.n_rows
 
@@ -390,9 +394,9 @@ class StreamingSequenceSource(SpillScanMixin):
 
         label = type(self).__name__
 
-        def parse_pages(path):
-            for data in prefetched(iter_byte_blocks(path, self.block_bytes),
-                                   depth=1):
+        def parse_pages(path, byte_range=None):
+            for data in prefetched(iter_byte_blocks(path, self.block_bytes,
+                                                    byte_range), depth=1):
                 t0 = obs.now()
                 codes, offsets = seq_encode_native(data, self.delim,
                                                    self.vocab)

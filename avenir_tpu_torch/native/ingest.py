@@ -385,12 +385,17 @@ class EncodedBlockCache:
     the rest (``source_valid(i)``, ``blocks(i)``), so a tight budget costs
     time, never correctness.
 
-    Validity is the whole source set's: the (size, mtime) of every source
-    at begin() must still hold at commit(), which refuses a source that
-    changed while the scan ran, and at every replay, so a source that
-    changed since re-parses in full. (The reference's per-block content
-    fingerprints, which let an appended source replay its prefix, serve
-    its incremental refresh, which the port does not have.) The cache
+    Validity is per block, not per file. The own-read scan records a
+    content fingerprint (offset, length, sha1, ``note_block``) of every
+    raw block it encodes; at replay a source whose (size, mtime_ns) moved
+    is proved again by re-hashing the recorded ranges (memoized a file
+    snapshot). An appended source so stays replayable: its committed
+    blocks still match the file's prefix, ``source_delta`` gives the
+    offset where the coverage ends, and only the tail re-parses. An
+    in-place edit, or a writer that never saw raw blocks (the shared-scan
+    feed records no fingerprints), falls back to the whole-file stat gate
+    and a full re-parse. commit() still refuses a source that changed
+    while the scan ran: a torn cache never commits. The cache
     directory belongs to this object (a tempdir unless `cache_dir` is
     given) and is removed on close() or collection: it is a spill within
     one job."""
@@ -420,6 +425,8 @@ class EncodedBlockCache:
         self._last_replay: dict = {}      # segment key -> replay clock
         self._replay_clock = 0
         self._fingerprint = None
+        self._block_fps: dict = {}        # segment key -> [(off, len, hash)]
+        self._delta_memo: dict = {}       # (src, size, mtime) -> end | None
         self._committed = False
         self.n_blocks = 0
         self.evicted_bytes = 0
@@ -433,9 +440,11 @@ class EncodedBlockCache:
     # ------------------------------------------------------------- write
     def _current_fingerprint(self):
         """The stat identity (path, size, mtime_ns) of every source: the
-        begin/commit torn-write gate and the replay gate.
+        begin/commit torn-write gate only (a scan whose sources changed
+        under it never commits). Replay validity is the per-block content
+        proof (``_content_coverage``), never this tuple.
 
-        key-covered: all — a replay needs every source's stat unchanged.
+        key-covered: all — replay identity is the content fingerprints.
         """
         from avenir_tpu_torch.core.keys import key_site
 
@@ -462,9 +471,35 @@ class EncodedBlockCache:
         self._seg_bytes = {}
         self._evicted = set()
         self._last_replay = {}
+        self._block_fps = {}
+        self._delta_memo = {}
         self._cur = self._COMBINED
         self.n_blocks = 0
         self.evicted_bytes = 0
+
+    def note_block(self, offset: int, data: bytes) -> None:
+        """Record the content fingerprint (offset, length, hash) of one raw
+        byte block of the source being written, whether or not the block
+        spills a record (a blank block covers bytes but adds no rows).
+        Per-block fingerprints turn an appended source from a total
+        invalidation into a delta (source_delta). A writer that sees no
+        raw blocks (the shared-scan feed) never calls this and keeps the
+        whole-file gate."""
+        from avenir_tpu_torch.core.incremental import block_hash
+
+        self.note_fingerprint(offset, len(data), block_hash(data))
+
+    def note_fingerprint(self, offset: int, length: int,
+                         hash_: str) -> None:
+        """note_block for a writer that already holds the block's hash (the
+        sidecar feed hashes each block for its own manifest): the same
+        record, no second hash."""
+        if self._fingerprint is None:
+            raise RuntimeError("note_block() before begin()")
+        if self._committed:
+            raise RuntimeError("note_block() after commit()")
+        self._block_fps.setdefault(self._cur, []).append(
+            (int(offset), int(length), hash_))
 
     def set_source(self, index: int) -> None:
         """Attribute subsequent add_block() calls to source `index` —
@@ -596,9 +631,84 @@ class EncodedBlockCache:
             return self._COMBINED
         return self._NO_SEGMENT
 
+    def _content_coverage(self, index: int) -> Optional[int]:
+        """The offset up to which source `index`'s recorded fingerprints
+        still match the file, proved by re-hashing the recorded ranges
+        (memoized a (size, mtime_ns) snapshot, so the per-k rounds prove
+        once). None when no fingerprints were recorded, the serving
+        segment is evicted or absent, or any recorded block mismatches:
+        a source replays all of its committed blocks or none."""
+        if not self._committed:
+            return None
+        key = self._segment_key(index)
+        if key is self._NO_SEGMENT or key in self._evicted \
+                or not os.path.exists(self._seg_path(key)):
+            return None
+        fps = self._block_fps.get(key)
+        if not fps:
+            return None
+        path = self.sources[index]
+        try:
+            st = os.stat(path)
+        except OSError:
+            return None
+        memo = (index, st.st_size, st.st_mtime_ns)
+        if memo not in self._delta_memo:
+            from avenir_tpu_torch.core.incremental import verified_prefix
+
+            n, covered = verified_prefix(
+                path, [{"offset": o, "length": ln, "hash": h}
+                       for o, ln, h in fps])
+            self._delta_memo[memo] = covered if n == len(fps) else None
+        return self._delta_memo[memo]
+
+    def source_delta(self, index: int) -> Optional[int]:
+        """The offset at which source `index`'s cached coverage ends, when
+        its committed blocks are still a verified content prefix of the
+        file: the appended-source gate, where a consumer replays
+        ``blocks(index, prefix=True)`` and re-parses only
+        ``[delta, size)``. None when the prefix no longer matches (an
+        in-place edit), the segment was evicted, the writer recorded no
+        fingerprints, or the coverage ends mid-line on a grown file (the
+        last line had no newline, so the appended bytes extend a row
+        already encoded)."""
+        cov = self._content_coverage(index)
+        if cov is None:
+            return None
+        path = self.sources[index]
+        try:
+            size = os.path.getsize(path)
+        except OSError:
+            return None
+        if cov < size:
+            from avenir_tpu_torch.core.incremental import ends_at_newline
+
+            if not ends_at_newline(path, cov):
+                return None
+        return cov
+
+    def _source_unchanged(self, index: int) -> bool:
+        rec = self._fingerprint[index]
+        path = self.sources[index]
+        try:
+            st = os.stat(path)
+            cur = (path, st.st_size, st.st_mtime_ns)
+        except OSError:
+            cur = (path, -1, -1)
+        if cur == rec:
+            return True
+        # an mtime-only change (a touch, a copy back) keeps the cache: the
+        # content fingerprints prove the bytes, end to end
+        cov = self._content_coverage(index)
+        return cov is not None and cov == cur[1]
+
     def _fingerprint_ok(self) -> bool:
-        return (self._committed and self._fingerprint is not None
-                and self._fingerprint == self._current_fingerprint())
+        if not self._committed or self._fingerprint is None:
+            return False
+        if self._fingerprint == self._current_fingerprint():
+            return True
+        return all(self._source_unchanged(i)
+                   for i in range(len(self.sources)))
 
     @property
     def valid(self) -> bool:
@@ -611,11 +721,12 @@ class EncodedBlockCache:
                         for k in self._seg_order))
 
     def source_valid(self, index: int) -> bool:
-        """True when source `index`'s blocks can replay: no source changed
-        since the scan, and its own segment survives, or the cache wrote
-        one combined segment for a single source. A multi-source combined
-        segment cannot split, so it replays only through the
-        all-or-nothing `valid` gate."""
+        """True when source `index`'s blocks can replay in full (the file
+        is covered end to end): its own segment survives, or the cache
+        wrote one combined segment for a single source. A multi-source
+        combined segment cannot split, so it replays only through the
+        all-or-nothing `valid` gate. An appended source fails this gate
+        and keeps the prefix gate (source_delta)."""
         if not self._fingerprint_ok():
             return False
         key = self._segment_key(index)
@@ -648,14 +759,18 @@ class EncodedBlockCache:
         self._replay_clock += 1
         self._last_replay[key] = self._replay_clock
 
-    def blocks(self, source: Optional[int] = None):
+    def blocks(self, source: Optional[int] = None, prefix: bool = False):
         """Yield (counts int32 [n_rows], codes int32 [n_tokens]) per
         cached block — all segments in write order by default, one
-        source's segment with `source=i`. Raises RuntimeError when the
-        requested scope is not replayable — callers check `valid` /
-        `source_valid(i)` and fall back to the re-parse path."""
+        source's segment with `source=i`. With ``prefix=True`` the
+        source's gate relaxes from full coverage to the verified content
+        prefix (source_delta): the appended-source replay, whose caller
+        re-parses the tail. Raises RuntimeError when the requested scope
+        is not replayable — callers check `valid` / `source_valid(i)` /
+        `source_delta(i)` and fall back to the re-parse path."""
         if source is not None:
-            if not self.source_valid(source):
+            if not (self.source_valid(source) or (
+                    prefix and self.source_delta(source) is not None)):
                 raise RuntimeError(
                     f"encoded-block segment for source {source} is "
                     f"stale, evicted or absent")
@@ -783,23 +898,31 @@ class SpillScanMixin:
     sink, the restore of a checkpoint taken mid-scan, and the ownership of
     the encoded-block spill cache that the per-k rounds replay.
 
-    The port of `avenir_tpu/native/ingest.py` SpillScanMixin without the
-    columnar sidecar.
+    The port of `avenir_tpu/native/ingest.py` SpillScanMixin. A source
+    with `sidecar_opts` (set by the runner from the job's conf) reads its
+    own pass 1 through the columnar sidecar (native/sidecar.py).
 
     A subclass has `paths`, `delim`, `skip`, `block_bytes`, `spill_cache`,
     `cache_budget_bytes` (None: the cache's default), `vocab`, `index`,
     `_cache`, `_item_counts`, `_scan_counts` and `_scan_encoder`, and
     implements `_scan_block(data)` (fold one raw byte block into
     `_scan_counts` through `_grow_counts`, spilling its codes to `_cache`
-    when there is one), `_reset_scan_state()` (zero its row counters) and
-    `_scan_result()` (what its scan returns). `_scan_marker` is the
-    infrequent-item sentinel given to the encoder."""
+    when there is one), `_note_encoded_rows(per_row, n)` (its row
+    counters for one replayed sidecar block), `_reset_scan_state()` (zero
+    its row counters) and `_scan_result()` (what its scan returns).
+    `_scan_marker` is the infrequent-item sentinel given to the
+    encoder."""
 
     _scan_marker: Optional[str] = None
+    #: the columnar sidecar's knobs (native.sidecar.opts_from_cfg); None
+    #: reads pass 1 from the text
+    sidecar_opts: Optional[dict] = None
 
     def _scan_begin(self) -> None:
         self._reset_scan_state()
         self._scan_counts = np.zeros(0, np.int64)
+        self._sidecar_vocab_src = None
+        self._sidecar_vocab_done = 0
         self._scan_encoder = (
             BlockScanEncoder(self.delim, self.skip, self.vocab, self.index,
                              marker=self._scan_marker)
@@ -830,22 +953,105 @@ class SpillScanMixin:
         """Pass 1 over every path's byte blocks, read a block ahead on a
         worker thread, then sealed. With the cache on, each path's blocks
         spill to a segment of its own (so a budget eviction drops a source,
-        not the cache)."""
-        from avenir_tpu_torch.core.stream import iter_byte_blocks, prefetched
+        not the cache), and every block's fingerprint is recorded
+        (note_block), so an appended source later replays its committed
+        prefix and re-parses only the tail.
+
+        With `sidecar_opts`, each path goes through the columnar sidecar
+        first: verified blocks replay as SidecarBytesBlock
+        (`_scan_encoded_block`: no tokenizer, no parse span), cold blocks
+        come raw and are folded and packed, so the next run's pass 1
+        parses nothing either. The spill cache sits on top either way."""
+        from avenir_tpu_torch.core.stream import (is_blank_block,
+                                                  iter_byte_blocks, prefetched)
 
         self._scan_begin()
         label = type(self).__name__
+        opts = self.sidecar_opts
         for si, path in enumerate(self.paths):
+            feed = None
+            if opts is not None:
+                from avenir_tpu_torch.native import sidecar
+
+                feed = sidecar.byte_blocks(opts, path, self.delim,
+                                           self.skip, self.block_bytes)
             if self._cache is not None:
                 self._cache.set_source(si)
-            for data in prefetched(
-                    iter_byte_blocks(path, self.block_bytes), depth=1):
-                self._parse_block(data, label)
+            if feed is not None:
+                for off, length, hsh, payload in feed:
+                    if self._cache is not None:
+                        self._cache.note_fingerprint(off, length, hsh)
+                    if payload is None:
+                        continue
+                    if isinstance(payload, (bytes, bytearray)):
+                        self._parse_block(payload, label)
+                    else:
+                        self._scan_encoded_block(payload)
+            elif self._cache is not None:
+                for off, data in prefetched(
+                        iter_byte_blocks(path, self.block_bytes,
+                                         with_offsets=True), depth=1):
+                    self._cache.note_block(off, data)
+                    if not is_blank_block(data):
+                        self._parse_block(data, label)
+            else:
+                for data in prefetched(
+                        iter_byte_blocks(path, self.block_bytes), depth=1):
+                    self._parse_block(data, label)
         return self._scan_finish()
 
+    def _scan_encoded_block(self, blk) -> None:
+        """Fold one replayed sidecar block (native.sidecar.
+        SidecarBytesBlock), the parse-free twin of `_scan_block`. The
+        sidecar's vocabulary extends this source's in first-seen order
+        (less the infrequent-item marker, which the sidecar keeps and the
+        miners drop), the order a cold scan assigns, so the codes, counts
+        and spill cache equal a cold pass over the same bytes."""
+        if blk.skip != self.skip:
+            raise ValueError(
+                f"sidecar block packed at skip={blk.skip} fed to a "
+                f"skip={self.skip} scan")
+        # the merge watermark is per sidecar: each source's manifest has a
+        # vocabulary of its own (one list a feed), so it is keyed on that
+        # list's identity and restarts at 0 for the next source
+        if self._sidecar_vocab_src is not blk.vocab:
+            self._sidecar_vocab_src = blk.vocab
+            self._sidecar_vocab_done = 0
+        done = self._sidecar_vocab_done
+        for tok in blk.vocab[done:blk.vocab_end]:
+            if tok != self._scan_marker and tok not in self.index:
+                self.index[tok] = len(self.vocab)
+                self.vocab.append(tok)
+        self._sidecar_vocab_done = max(done, blk.vocab_end)
+        self._grow_counts()
+        # a stored code is the vocabulary code + 1, 0 the empty token: a
+        # lookup table maps them onto this source's codes, -1 dropping the
+        # empties and the marker as the cold region mask does
+        lut = np.full(blk.vocab_end + 1, -1, np.int32)
+        for k in range(blk.vocab_end):
+            tok = blk.vocab[k]
+            if tok != self._scan_marker:
+                lut[k + 1] = self.index[tok]
+        mapped = lut[blk.codes]
+        region = mapped >= 0
+        row_of = np.repeat(np.arange(blk.n, dtype=np.int32), blk.counts)
+        self._scan_counts += distinct_row_code_counts(
+            row_of, mapped, region, len(self.vocab))
+        per_row = np.bincount(row_of[region].astype(np.intp),
+                              minlength=blk.n)
+        if self._cache is not None:
+            self._cache.add_block(per_row, mapped[region])
+        self._note_encoded_rows(per_row, blk.n)
+
+    def _note_encoded_rows(self, per_row: np.ndarray, n: int) -> None:
+        """The subclass's row counters for one replayed block (the
+        transaction count; the row count and longest row)."""
+        raise NotImplementedError
+
     def scan_consumer(self):
-        """Pass 1 as a shared-scan sink of raw byte blocks read elsewhere
-        (core.stream.SharedScan): consume() a block, finish() seals the
+        """Pass 1 as a shared-scan sink of blocks read elsewhere
+        (core.stream.SharedScan): consume() a raw byte block, or a
+        replayed SidecarBytesBlock from a sidecar feed, finish() seals the
         scan (and commits the cache) and returns what the source's own
         scan would."""
         self._scan_begin()
@@ -853,8 +1059,11 @@ class SpillScanMixin:
         label = type(self).__name__
 
         class _ScanSink:
-            def consume(self, data: bytes) -> None:
-                src._parse_block(data, label)
+            def consume(self, data) -> None:
+                if isinstance(data, (bytes, bytearray)):
+                    src._parse_block(data, label)
+                else:
+                    src._scan_encoded_block(data)
 
             def finish(self):
                 return src._scan_finish()
@@ -894,16 +1103,43 @@ class SpillScanMixin:
     def _cache_pages(self, replay_pages, parse_pages):
         """The per-k feed of the pages of every source: the committed cache
         replayed when it is whole; otherwise a source at a time, its
-        segment replayed when it survives, else re-parsed
-        (`parse_pages(path)`)."""
+        segment replayed when it covers the file, its committed prefix
+        replayed and the appended tail re-parsed when the file grew
+        (`source_delta`), else the file re-parsed
+        (`parse_pages(path, byte_range)`)."""
         if self._cache is not None and self._cache.valid:
             yield from replay_pages(self._cache.blocks())
             return
         for si, path in enumerate(self.paths):
-            if self._cache is not None and self._cache.source_valid(si):
+            if self._cache is None:
+                yield from parse_pages(path)
+                continue
+            if self._cache.source_valid(si):
                 yield from replay_pages(self._cache.blocks(si))
+                continue
+            delta = self._cache.source_delta(si)
+            if delta is not None:
+                yield from replay_pages(self._cache.blocks(si, prefix=True))
+                yield from parse_pages(path, (delta, os.path.getsize(path)))
             else:
                 yield from parse_pages(path)
+
+    @property
+    def cache_replays(self) -> int:
+        """Completed replay passes of the spill cache."""
+        return self._cache.replays if self._cache is not None else 0
+
+    def cache_ready(self) -> bool:
+        """True when pass 1 ran, its spill cache committed, and every
+        source's segment can still replay in full: the precondition of
+        serving a repeat mining request from this source with no CSV
+        parse (runner.run_warm_miner). Any change to the corpus fails
+        it. Like `cache_replays`, its caller is the job server's warm
+        store, not ported yet: only the tests call it."""
+        c = self._cache
+        if c is None or self._item_counts is None:
+            return False
+        return all(c.source_valid(i) for i in range(len(self.paths)))
 
     @property
     def cache_nbytes(self) -> int:

@@ -47,13 +47,20 @@ per class, `frequentItemsApriori` and `candidateGenerationWithSelfJoin`
 `StreamFoldOps` contract (merge, `state_dict`, `load_state`); `run_shared`
 drives several of one kind over one scan of their common input, and
 `Pipeline.run(fuse=True)` groups consecutive such stages into one.
+`run_incremental` (`--incremental`) refreshes one of them after an append
+by restoring its checkpointed carry and folding only the new blocks, and
+`run_incremental_shared` refreshes several over one delta scan. Their
+feeds go through the columnar sidecar (`native/sidecar.py`, on unless
+`stream.sidecar=false`), so a repeat scan of unchanged bytes parses
+nothing.
 
 Each job records the reference's spans (`obs`): `job.run` around it,
 `stream.read` and `stream.parse` for its input, `stream.fold` around the
 work on each chunk (a fold's consume, a predict, a tile of distances,
 a join, a tree level) and `job.finish` around its output; a shared scan
-records `job.dispatch` (mode "shared") around its scan. None
-synchronizes the device.
+records `job.dispatch` (mode "shared") around its scan; an incremental
+run records `job.restore` and `job.checkpoint`. None synchronizes the
+device.
 """
 
 from __future__ import annotations
@@ -76,6 +83,7 @@ from avenir_tpu_torch.core.config import (JobConfig, MissingConfigError,
                                           load_properties)
 from avenir_tpu_torch.core.dataset import Dataset
 from avenir_tpu_torch.core.schema import FeatureSchema
+from avenir_tpu_torch.native import sidecar
 from avenir_tpu_torch.utils.devices import DeviceLike, resolve_device
 from avenir_tpu_torch.utils.metrics import (ConfusionMatrix,
                                             CostBasedArbitrator,
@@ -154,10 +162,41 @@ def run_job(name: str, conf, inputs: Sequence[str], output: str = "",
     under its reference prefix."""
     canonical, cfg = _job_cfg(name, conf)
     dev = resolve_device(device)
+    sc0 = sidecar.counters_snapshot()
     t0 = obs.now()
     res = _REGISTRY[canonical][2](cfg, list(inputs), output, dev)
     obs.record("job.run", t0, job=canonical)
+    _note_sidecar_counters(canonical, res, sc0)
     return res
+
+
+#: the delta-scan counters every streamed result carries: the blocks a
+#: restored carry covered and the blocks folded (Cache:HitBlocks,
+#: Cache:DeltaBlocks), the bytes the carry skipped (Resume:SkippedBytes),
+#: and the sidecar blocks replayed and parsed (Sidecar:HitBlocks,
+#: Sidecar:DeltaBlocks); a cold run keeps the zeros
+DELTA_COUNTERS = ("Cache:HitBlocks", "Cache:DeltaBlocks",
+                  "Resume:SkippedBytes", "Sidecar:HitBlocks",
+                  "Sidecar:DeltaBlocks")
+
+
+def _note_sidecar_counters(canonical: str, res: "JobResult",
+                           before: dict) -> None:
+    """A streamed result's delta-scan counters (DELTA_COUNTERS, 0 unless
+    set already) and the sidecar blocks its scan replayed
+    (Sidecar:HitBlocks) and parsed (Sidecar:DeltaBlocks) since `before`
+    (sidecar.counters_snapshot() taken before the scan). The counters
+    are process-wide, so a fused scan attributes its totals to every fold
+    it fed: the replays served each of them."""
+    if canonical not in _STREAM_FOLDS:
+        return
+    for key in DELTA_COUNTERS:
+        res.counters.setdefault(key, 0.0)
+    after = sidecar.counters_snapshot()
+    res.counters["Sidecar:HitBlocks"] = float(
+        after["hit_blocks"] - before["hit_blocks"])
+    res.counters["Sidecar:DeltaBlocks"] = float(
+        after["delta_blocks"] - before["delta_blocks"])
 
 
 def _out_file(output: str, part: str = "part-r-00000") -> str:
@@ -547,25 +586,36 @@ def _build_miner_source(canonical: str, cfg: JobConfig,
     """The streaming source a miner conf describes: the transaction reader
     (the key `tans.id.ord` is the reference's spelling) or the sequence
     reader, in `stream.block.size.mb` blocks (default 64), spilling its
-    pass 1 to the encoded-block cache when `spill`."""
+    pass 1 to the encoded-block cache when `spill`, its own pass-1 read
+    through the columnar sidecar unless `stream.sidecar=false`."""
     block = int(cfg.get_float("stream.block.size.mb", 64.0) * (1 << 20))
     skip = cfg.get_int("skip.field.count", 1)
     if canonical == _APRIORI:
         from avenir_tpu_torch.models.association import \
             StreamingTransactionSource
 
-        return StreamingTransactionSource(
+        src = StreamingTransactionSource(
             list(inputs), delim=cfg.field_delim_regex,
             trans_id_ord=cfg.get_int("tans.id.ord", 0),
             skip_field_count=skip, marker=cfg.get("infreq.item.marker"),
             block_bytes=block, spill_cache=spill,
             cache_budget_bytes=_cache_budget(cfg))
-    from avenir_tpu_torch.models.sequence import StreamingSequenceSource
+    else:
+        from avenir_tpu_torch.models.sequence import StreamingSequenceSource
 
-    return StreamingSequenceSource(list(inputs), delim=cfg.field_delim_regex,
-                                   skip_field_count=skip, block_bytes=block,
-                                   spill_cache=spill,
-                                   cache_budget_bytes=_cache_budget(cfg))
+        src = StreamingSequenceSource(
+            list(inputs), delim=cfg.field_delim_regex,
+            skip_field_count=skip, block_bytes=block, spill_cache=spill,
+            cache_budget_bytes=_cache_budget(cfg))
+    _attach_sidecar_opts(src, cfg)
+    return src
+
+
+def _attach_sidecar_opts(src, cfg: JobConfig) -> None:
+    """Point a miner source's own pass-1 read at the columnar sidecar
+    (SpillScanMixin._scan_all); `stream.sidecar=false` leaves it None and
+    the scan parses."""
+    src.sidecar_opts = sidecar.opts_from_cfg(cfg)
 
 
 def _source_rows(job: str, src) -> int:
@@ -701,10 +751,9 @@ class _MarkovPerClassFold:
     """markovStateTransitionModel (per-class mode) as a shared-scan sink of
     raw byte blocks: the native CSR encode and `fit_csr` a block when the
     encoder builds, the line decode and `fit` otherwise; the counts on
-    `device`. The port of `avenir_tpu/runner.py` `_MarkovPerClassFold`,
-    with its checkpoint keys (`meta`, `counts`), without
-    `consume_encoded`: the columnar sidecar that feeds it is a host
-    service the port does not have yet. The per-entity mode
+    `device`, and `consume_encoded` for a block the columnar sidecar
+    replays. The port of `avenir_tpu/runner.py` `_MarkovPerClassFold`,
+    with its checkpoint keys (`meta`, `counts`). The per-entity mode
     (`id.field.ordinals`) keeps its own scan: its open-vocabulary keys
     make no fan-out fold."""
 
@@ -734,13 +783,48 @@ class _MarkovPerClassFold:
             if lab not in vocab:
                 vocab.append(lab)
         self.vocab = vocab
+        self._index = {t: i for i, t in enumerate(vocab)}
         self.label_codes = np.asarray([vocab.index(lab)
                                        for lab in self.class_labels or []])
         self.native = native_seq_ready(self.delim)
         self.rows = 0
 
-    def consume(self, data: bytes) -> None:
-        if self.native:
+    def consume_encoded(self, blk) -> None:
+        """Fold one block the sidecar replays (native.sidecar.
+        SidecarBytesBlock): the CSR codes seq_encode_native would have
+        made, rebuilt from the block (the meta columns encoded from their
+        token buffers, the tail codes mapped from the sidecar's
+        vocabulary to this one, an unknown and the empty token both -1 as
+        in the cold encode), into `fit_csr`. No tokenizer, no parse
+        span."""
+        from avenir_tpu_torch.native.ingest import csr_region_mask
+
+        lens = blk.counts + blk.skip
+        offsets = np.zeros(blk.n + 1, np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        total = int(offsets[-1])
+        codes = np.empty(total, np.int32)
+        idx = self._index
+        starts = offsets[:-1]
+        for j in range(blk.skip):
+            codes[starts + j] = [idx.get(t, -1) for t in blk.meta[j]]
+        lut = np.full(blk.vocab_end + 1, -1, np.int32)
+        for k in range(blk.vocab_end):
+            lut[k + 1] = idx.get(blk.vocab[k], -1)
+        if blk.skip:
+            codes[csr_region_mask(offsets, blk.skip, total)] = lut[blk.codes]
+        else:
+            codes[:] = lut[blk.codes]
+        self.model.fit_csr(
+            codes, offsets, skip=self.skip,
+            class_ord=self.class_ord if self.class_labels else None,
+            label_codes=self.label_codes)
+        self.rows += blk.n
+
+    def consume(self, data) -> None:
+        if not isinstance(data, (bytes, bytearray)):
+            self.consume_encoded(data)
+        elif self.native:
             from avenir_tpu_torch.native.ingest import seq_encode_native
 
             t0 = obs.now()
@@ -888,6 +972,47 @@ def _stream_fold_job(name: str, cfg: JobConfig, inputs: List[str],
     return _finish_fold(fold, output, name)
 
 
+def _fused_specs(specs, jobs: str, group: str):
+    """(canonical, cfg, ops, output) of each spec of a fused run, its scan
+    kind, and the schema its dataset-kind jobs share, after the checks
+    every fused run makes: registered streamed jobs, each once, of one
+    kind, one block size, one delimiter and one schema file. `jobs` and
+    `group` name what is fused in the errors ("jobs" in one "scan",
+    "refreshes" in one "refresh")."""
+    built = []
+    for name, conf, output in specs:
+        canonical, cfg = _job_cfg(name, conf)
+        if canonical not in _STREAM_FOLDS:
+            raise ValueError(
+                f"job {name!r} is not shared-scan capable; fusable jobs: "
+                f"{', '.join(stream_fold_names())}")
+        if any(canonical == b[0] for b in built):
+            raise ValueError(
+                f"job {canonical!r} appears twice in one shared {group}")
+        built.append((canonical, cfg, _STREAM_FOLDS[canonical], output))
+    kinds = {ops.kind for _c, _cfg, ops, _o in built}
+    if len(kinds) != 1:
+        raise ValueError(f"cannot fuse {jobs} of mixed scan kinds {kinds}")
+    blocks = {cfg.get_float("stream.block.size.mb", 64.0)
+              for _c, cfg, _ops, _o in built}
+    if len(blocks) != 1:
+        raise ValueError(
+            f"fused {jobs} disagree on stream.block.size.mb: {blocks}")
+    delims = {cfg.field_delim_regex for _c, cfg, _ops, _o in built}
+    if len(delims) != 1:
+        raise ValueError(f"fused {jobs} disagree on field delimiter: {delims}")
+    kind = kinds.pop()
+    schema = None
+    if kind == "dataset":
+        spaths = {cfg.assert_get("feature.schema.file.path")
+                  for _c, cfg, _ops, _o in built}
+        if len(spaths) != 1:
+            raise ValueError(
+                f"fused {jobs} disagree on the schema file: {spaths}")
+        schema = FeatureSchema.from_file(spaths.pop())
+    return built, kind, schema
+
+
 def run_shared(specs: Sequence[Tuple[str, object, str]],
                inputs: Sequence[str],
                device: DeviceLike = None) -> Dict[str, JobResult]:
@@ -903,8 +1028,11 @@ def run_shared(specs: Sequence[Tuple[str, object, str]],
     fallback and the oracle). The scan is the span `job.dispatch` (mode
     "shared").
 
-    The reference's autotune session and its `Mem:*` and `Sidecar:*`
-    counters, and its `fold_hook` for the job server, are not ported."""
+    The feed goes through the columnar sidecar (bytes-kind jobs when they
+    agree on `skip.field.count`, which the packed format is keyed to), and
+    each result carries the delta-scan counters (DELTA_COUNTERS). The
+    reference's autotune session and `Mem:*` counters, and its
+    `fold_hook` for the job server, are not ported."""
     from avenir_tpu_torch.core.stream import (SharedScan,
                                               stream_job_byte_blocks,
                                               stream_job_inputs)
@@ -912,42 +1040,20 @@ def run_shared(specs: Sequence[Tuple[str, object, str]],
     if not specs:
         return {}
     dev = resolve_device(device)
-    built = []
-    for name, conf, output in specs:
-        canonical, cfg = _job_cfg(name, conf)
-        if canonical not in _STREAM_FOLDS:
-            raise ValueError(
-                f"job {name!r} is not shared-scan capable; fusable jobs: "
-                f"{', '.join(stream_fold_names())}")
-        if any(canonical == b[0] for b in built):
-            raise ValueError(
-                f"job {canonical!r} appears twice in one shared scan")
-        built.append((canonical, _STREAM_FOLDS[canonical], cfg, output))
-    kinds = {ops.kind for _, ops, _, _ in built}
-    if len(kinds) != 1:
-        raise ValueError(f"cannot fuse jobs of mixed scan kinds {kinds}")
-    blocks = {cfg.get_float("stream.block.size.mb", 64.0)
-              for _, _, cfg, _ in built}
-    if len(blocks) != 1:
-        raise ValueError(
-            f"fused jobs disagree on stream.block.size.mb: {blocks}")
-    delims = {cfg.field_delim_regex for _, _, cfg, _ in built}
-    if len(delims) != 1:
-        raise ValueError(f"fused jobs disagree on field delimiter: {delims}")
-    schema = None
-    if kinds == {"dataset"}:
-        spaths = {cfg.assert_get("feature.schema.file.path")
-                  for _, _, cfg, _ in built}
-        if len(spaths) != 1:
-            raise ValueError(
-                f"fused jobs disagree on the schema file: {spaths}")
-        schema = FeatureSchema.from_file(spaths.pop())
-        chunks = stream_job_inputs(built[0][2], list(inputs), schema)
+    built, kind, schema = _fused_specs(specs, "jobs", "scan")
+    cfg0 = built[0][1]
+    if kind == "dataset":
+        chunks = stream_job_inputs(cfg0, list(inputs), schema)
     else:
-        chunks = stream_job_byte_blocks(built[0][2], list(inputs))
+        skips = {cfg.get_int("skip.field.count", 1)
+                 for _c, cfg, _ops, _o in built}
+        chunks = stream_job_byte_blocks(
+            cfg0, list(inputs),
+            sidecar_skip=skips.pop() if len(skips) == 1 else None)
+    sc0 = sidecar.counters_snapshot()
     scan = SharedScan(chunks)
     folds = []
-    for canonical, ops, cfg, output in built:
+    for canonical, cfg, ops, output in built:
         fold = ops.factory(cfg, list(inputs), schema, dev)
         folds.append((canonical, fold, output))
         scan.add_sink(fold, label=canonical)
@@ -955,8 +1061,421 @@ def run_shared(specs: Sequence[Tuple[str, object, str]],
     n_chunks = scan.run()
     obs.record("job.dispatch", t0, mode="shared", chunks=n_chunks,
                jobs=",".join(c for c, _f, _o in folds))
-    return {canonical: _finish_fold(fold, output, canonical)
-            for canonical, fold, output in folds}
+    results = {}
+    for canonical, fold, output in folds:
+        results[canonical] = _finish_fold(fold, output, canonical)
+        _note_sidecar_counters(canonical, results[canonical], sc0)
+    return results
+
+
+def run_warm_miner(name: str, conf, inputs: Sequence[str], output: str,
+                   src, device: DeviceLike = None) -> JobResult:
+    """Serve a multi-pass miner from a warm streaming source whose pass 1
+    already ran (`scan_items` / `scan` memoize the discovery counts): every
+    per-k round replays the source's committed encoded-block cache, so an
+    unchanged corpus serves with no CSV parse. The caller owns `src` and
+    its validity (`SpillScanMixin.cache_ready`) and closes it; the mining
+    parameters come from `conf`, which pass 1 does not depend on. The
+    files are the cold `run_job`'s byte for byte; the throughput counters
+    price the mining alone. Its caller is the job server's warm store
+    (the reference's `server/jobserver.py`, not ported yet): no path of
+    the port calls it but the tests."""
+    canonical, cfg = _job_cfg(name, conf)
+    if canonical not in (_APRIORI, _GSP):
+        raise ValueError(
+            f"job {name!r} has no warm-source path; warm-servable jobs: "
+            f"{_APRIORI}, {_GSP}")
+    t0 = time.perf_counter()
+    miner = _build_miner(canonical, cfg, resolve_device(device))
+    levels = miner.mine_stream(src)
+    res = finish_miner_levels(canonical, cfg, levels,
+                              _source_rows(canonical, src),
+                              time.perf_counter() - t0, output,
+                              extra_counters=_cache_counters(src))
+    for key in DELTA_COUNTERS:
+        res.counters.setdefault(key, 0.0)
+    return res
+
+
+# ====================================================== incremental driver
+# The port of the delta-scan driver of `avenir_tpu/runner.py`: a streamed
+# job's carry is checkpointed (core/incremental.py) with the fingerprints of
+# every block it covers, and a refresh restores it and folds only the blocks
+# past the watermark, to the same bytes as a cold run_job (the merge algebra
+# of StreamFoldOps). The reference's autotune session and its
+# Mem:PredictedPeakBytes pricing are not ported: the manifest's
+# `predicted_peak_bytes` is null.
+
+#: the manifest layout the driver writes and restores
+_INCR_FORMAT = 1
+
+
+def _incremental_state_dir(cfg: JobConfig, canonical: str,
+                           inputs: Sequence[str]) -> str:
+    """Where a job's delta-scan state lives across runs: the
+    `stream.incremental.state.dir` key, else
+    `.avenir_incremental/<job>_<digest>` beside the first input, one
+    directory a (job, input set), so a rerun finds its own state and two
+    jobs over one corpus never collide."""
+    from avenir_tpu_torch.core import keys
+
+    explicit = cfg.get("stream.incremental.state.dir")
+    if explicit:
+        return explicit
+    base = os.path.dirname(os.path.abspath(inputs[0]))
+    return os.path.join(base, ".avenir_incremental",
+                        f"{canonical}_{keys.state_digest(canonical, inputs)}")
+
+
+def _conf_digest(cfg: JobConfig, canonical: str) -> str:
+    """The digest of the conf view a carry was folded under
+    (core.keys.conf_digest): every key but the view-neutral ones, and the
+    schema file's bytes. The reference's job config also holds the key
+    ``__job_name__`` (the canonical name), so it is folded in here too:
+    both packages stamp one conf with one digest."""
+    from avenir_tpu_torch.core import keys
+
+    return keys.conf_digest(
+        JobConfig(dict(cfg.props, __job_name__=canonical), cfg.prefix))
+
+
+class _IncrementalPlan:
+    """One job's restore plan and delta-fold state: the per-job half of an
+    incremental run, shared by `run_incremental`, `run_incremental_shared`
+    and `dist.run_sharded_refresh`, so they never disagree on the restore
+    gate or the checkpoint layout."""
+
+    def __init__(self, canonical: str, cfg: JobConfig, ops: "StreamFoldOps",
+                 inputs: List[str], output: str, schema, store,
+                 conf_digest: str):
+        self.canonical = canonical
+        self.cfg = cfg
+        self.ops = ops
+        self.inputs = inputs
+        self.abs_inputs = [os.path.abspath(p) for p in inputs]
+        self.output = output
+        self.schema = schema
+        self.store = store
+        self.conf_digest = conf_digest
+        self.block = int(cfg.get_float("stream.block.size.mb", 64.0)
+                         * (1 << 20))
+        self.interval = int(
+            cfg.get_float("stream.checkpoint.interval.mb", 256.0)
+            * (1 << 20))
+        self.delim = cfg.field_delim_regex
+        self.fold = None
+        self.watermarks = [0] * len(inputs)
+        self.fps: List[list] = [[] for _ in inputs]
+        self.hit_blocks = 0
+        self.skipped = 0
+        self.seq = 0
+        self.delta_blocks = 0
+        self.since_ckpt = 0
+
+
+def _restorable(meta: dict, plan: _IncrementalPlan) -> bool:
+    """The manifest gates of a restore: the layout, the job, the conf view
+    and the input list, which must be a prefix of the current one (a new
+    source folds whole, like appended bytes)."""
+    old_inputs = [str(p) for p in meta.get("inputs", [])]
+    return (meta.get("format") == _INCR_FORMAT
+            and meta.get("format_version", _INCR_FORMAT) == _INCR_FORMAT
+            and meta.get("job") == plan.canonical
+            and meta.get("conf_digest") == plan.conf_digest
+            and old_inputs == plan.abs_inputs[:len(old_inputs)])
+
+
+def _prepare_incremental(canonical: str, cfg: JobConfig, inputs: List[str],
+                         output: str, state_dir: Optional[str],
+                         device: torch.device,
+                         schema=None) -> _IncrementalPlan:
+    """One job's restore plan: load the newest checkpoint, verify its
+    fingerprints against the current files, and restore the carry (on
+    `device`) when, and only when, the covered prefix still matches.
+    Anything else (a torn or truncated checkpoint, a version skew, an
+    in-place edit, a changed job, conf or input list, a mid-line watermark
+    on a grown file, an unloadable carry) leaves a fresh cold fold.
+    `schema` hands every plan of a fused refresh one schema object."""
+    from avenir_tpu_torch.core import incremental as incr
+
+    ops = stream_fold_ops(canonical)
+    if schema is None and ops.kind == "dataset":
+        schema = _schema(cfg)
+    store = incr.CheckpointStore(
+        state_dir or _incremental_state_dir(cfg, canonical, inputs))
+    plan = _IncrementalPlan(canonical, cfg, ops, inputs, output, schema,
+                            store, _conf_digest(cfg, canonical))
+    t_restore = obs.now()
+    loaded = store.load()
+    if loaded is not None:
+        meta, blob = loaded
+        plan.seq = int(meta.get("seq", 0))     # the sequence goes on
+    if loaded is not None and _restorable(meta, plan):
+        wm, kept = [], []
+        for path, src_fps in zip(inputs, meta.get("fingerprints", [])):
+            n, covered = incr.verified_prefix(path, src_fps)
+            if n != len(src_fps):
+                break                   # an in-place edit: cold
+            if covered < os.path.getsize(path) \
+                    and not incr.ends_at_newline(path, covered):
+                # the last line had no newline, so the appended bytes
+                # extend a row already folded: cold
+                break
+            wm.append(covered)
+            kept.append(list(src_fps))
+        else:
+            try:
+                plan.fold = ops.restore_state(cfg, inputs, blob,
+                                              schema=schema, device=device)
+            except Exception:
+                plan.fold = None        # an unloadable carry: cold
+            if plan.fold is not None:
+                plan.watermarks[:len(wm)] = wm
+                plan.fps[:len(kept)] = kept
+                plan.hit_blocks = sum(len(x) for x in kept)
+                plan.skipped = sum(wm)
+    restored = plan.fold is not None
+    if not restored:
+        plan.fold = ops.factory(cfg, inputs, schema, device)
+    obs.record("job.restore", t_restore, job=canonical, restored=restored,
+               skipped_bytes=plan.skipped)
+    return plan
+
+
+def _plan_checkpoint(plan: _IncrementalPlan, complete: bool) -> None:
+    """Commit one checkpoint of a plan's carry and fingerprints."""
+    from avenir_tpu_torch.core import incremental as incr
+
+    t0 = obs.now()
+    plan.seq += 1
+    blob = plan.ops.serialize_state(plan.fold)
+    meta = {"format": _INCR_FORMAT, "format_version": _INCR_FORMAT,
+            "job": plan.canonical, "seq": plan.seq,
+            "conf_digest": plan.conf_digest,
+            "inputs": plan.abs_inputs, "block_bytes": plan.block,
+            "watermarks": list(plan.watermarks),
+            "fingerprints": plan.fps,
+            "complete": complete,
+            "predicted_peak_bytes": None}
+    saved = plan.store.save(meta, blob)
+    obs.record("job.checkpoint", t0, job=plan.canonical, seq=plan.seq,
+               complete=complete, nbytes=len(blob))
+    if incr._checkpoint_hook is not None:
+        incr._checkpoint_hook(saved)
+
+
+def _plan_note_block(plan: _IncrementalPlan, si: int, off: int,
+                     length: int, fp_hash: str) -> None:
+    """Account one folded block of source `si`: its fingerprint, the
+    watermark, and a mid-scan checkpoint every
+    `stream.checkpoint.interval.mb` (after the fold, so the carry holds
+    the block)."""
+    plan.fps[si].append({"offset": int(off), "length": int(length),
+                         "hash": fp_hash})
+    plan.watermarks[si] = off + length
+    plan.delta_blocks += 1
+    plan.since_ckpt += length
+    if plan.since_ckpt >= plan.interval:
+        _plan_checkpoint(plan, complete=False)
+        plan.since_ckpt = 0
+
+
+def _plan_finish(plan: _IncrementalPlan,
+                 checkpoint: bool = True) -> JobResult:
+    """The final (complete) checkpoint, written before finish() so the carry
+    never holds a finished fold, then the artifact and the delta counters.
+    ``checkpoint=False`` (a sharded refresh whose worker fingerprints do
+    not tile) writes the artifact and leaves the previous checkpoint the
+    newest: its carry and fingerprints still agree, where this carry with
+    partial fingerprints would make the next refresh fold bytes twice."""
+    if checkpoint:
+        _plan_checkpoint(plan, complete=True)
+    if plan.output:
+        os.makedirs(os.path.dirname(os.path.abspath(plan.output)),
+                    exist_ok=True)
+    res = _finish_fold(plan.fold, plan.output, plan.canonical)
+    res.counters["Cache:HitBlocks"] = float(plan.hit_blocks)
+    res.counters["Cache:DeltaBlocks"] = float(plan.delta_blocks)
+    res.counters["Resume:SkippedBytes"] = float(plan.skipped)
+    return res
+
+
+def _cold_delta_feed(plan: _IncrementalPlan, path: str, start: int,
+                     size: int):
+    """The blocks of [start, size) of one source as (offset, length, hash,
+    payload): raw blocks, a blank one with payload None, a dataset-kind
+    block parsed (Dataset.from_csv's stream.parse span)."""
+    from avenir_tpu_torch.core import incremental as incr
+    from avenir_tpu_torch.core.stream import (csv_engine, is_blank_block,
+                                              iter_byte_blocks, prefetched)
+
+    engine = csv_engine(plan.cfg)
+    feed = prefetched(iter_byte_blocks(path, plan.block,
+                                       byte_range=(start, size),
+                                       with_offsets=True), depth=1)
+    try:
+        for off, data in feed:
+            fp = incr.block_fingerprint(off, data)
+            if is_blank_block(data):
+                payload = None
+            elif plan.ops.kind == "dataset":
+                payload = Dataset.from_csv(data, plan.schema,
+                                           delim=plan.delim, engine=engine)
+            else:
+                payload = data
+            yield off, len(data), fp["hash"], payload
+    finally:
+        feed.close()
+
+
+def _delta_feed(plan: _IncrementalPlan, path: str, start: int, size: int,
+                sidecar_ok: bool = True):
+    """One source's delta range as a tuple feed, through the columnar
+    sidecar when it engages: delta bytes a plain run (or the last refresh)
+    already packed replay without a parse, and the new tail parses and
+    extends the sidecar. Anything in doubt (no manifest, a boundary off
+    the watermark, drift) falls back to the cold feed, to the same
+    bytes."""
+    feed = None
+    if sidecar_ok:
+        opts = sidecar.opts_from_cfg(plan.cfg)
+        if plan.ops.kind == "dataset":
+            feed = sidecar.dataset_blocks(opts, path, plan.schema,
+                                          plan.delim, plan.block,
+                                          byte_range=(start, size))
+        else:
+            feed = sidecar.byte_blocks(
+                opts, path, plan.delim,
+                plan.cfg.get_int("skip.field.count", 1), plan.block,
+                byte_range=(start, size))
+    return feed if feed is not None \
+        else _cold_delta_feed(plan, path, start, size)
+
+
+def run_incremental(name: str, conf, inputs: Sequence[str],
+                    output: str = "", state_dir: Optional[str] = None,
+                    device: DeviceLike = None) -> JobResult:
+    """Run a streamed job incrementally on `device` (default cuda): restore
+    the last checkpointed carry, fold only the blocks past its watermark,
+    and re-emit the artifact, the same bytes as a cold `run_job`.
+
+    A per-(job, corpus) CheckpointStore (`state_dir`, the
+    `stream.incremental.state.dir` key, or `_incremental_state_dir`)
+    holds the newest carry and the fingerprints of every block it covers.
+    A verified prefix restores the carry and skips its bytes; anything
+    else falls back to a cold scan, never to a wrong artifact. The carry
+    is checkpointed again every `stream.checkpoint.interval.mb` (default
+    256), so a killed scan resumes from its last watermark, and at the
+    end (complete) for the next refresh.
+
+    The result carries Cache:HitBlocks (restored, verified blocks),
+    Cache:DeltaBlocks (blocks folded) and Resume:SkippedBytes (bytes the
+    restored carry covered) beside the sidecar's counters."""
+    canonical, cfg = _job_cfg(name, conf)
+    inputs = [str(p) for p in inputs]
+    plan = _prepare_incremental(canonical, cfg, inputs, output, state_dir,
+                                resolve_device(device))
+    sc0 = sidecar.counters_snapshot()
+    for si, path in enumerate(inputs):
+        size = os.path.getsize(path)
+        start = plan.watermarks[si]
+        if start >= size:
+            continue
+        feed = _delta_feed(plan, path, start, size)
+        try:
+            for off, length, fp_hash, payload in feed:
+                if payload is not None:
+                    t0 = obs.now()
+                    plan.fold.consume(payload)
+                    obs.record("stream.fold", t0, sink=canonical)
+                _plan_note_block(plan, si, off, length, fp_hash)
+        finally:
+            feed.close()
+    res = _plan_finish(plan)
+    _note_sidecar_counters(canonical, res, sc0)
+    return res
+
+
+def run_incremental_shared(specs: Sequence[Tuple[str, object, str]],
+                           inputs: Sequence[str],
+                           state_dirs: Optional[Dict[str, str]] = None,
+                           device: DeviceLike = None
+                           ) -> Dict[str, JobResult]:
+    """Refresh N streamed jobs over the same appended corpus with one delta
+    scan: each job restores its own carry (`_prepare_incremental`, the
+    solo gate), and the jobs whose verified watermarks agree fold the new
+    blocks through one `SharedScan` (the span `job.dispatch`, mode
+    "incremental_shared"). Jobs whose watermarks differ (seeded at another
+    size, or fallen back cold) scan in a group of their own, so fusion
+    never decides correctness. The results equal `run_incremental` a job.
+
+    `specs` are (job name, conf, output) with `run_shared`'s contract;
+    `state_dirs` maps canonical job names to checkpoint directories
+    (others take their default)."""
+    from avenir_tpu_torch.core.stream import SharedScan
+
+    if not specs:
+        return {}
+    inputs = [str(p) for p in inputs]
+    dev = resolve_device(device)
+    built, kind, schema = _fused_specs(specs, "refreshes", "refresh")
+    plans = [_prepare_incremental(canonical, cfg, inputs, output,
+                                  (state_dirs or {}).get(canonical), dev,
+                                  schema=schema)
+             for canonical, cfg, _ops, output in built]
+    groups: Dict[tuple, List[_IncrementalPlan]] = {}
+    for plan in plans:
+        groups.setdefault(tuple(plan.watermarks), []).append(plan)
+
+    def delta_feed(group: List[_IncrementalPlan]):
+        # the packed bytes format is keyed to the skip count: a bytes-kind
+        # group that disagrees on it reads cold
+        sidecar_ok = kind == "dataset" or len(
+            {p.cfg.get_int("skip.field.count", 1) for p in group}) == 1
+        for si, path in enumerate(inputs):
+            size = os.path.getsize(path)
+            start = group[0].watermarks[si]
+            if start >= size:
+                continue
+            feed = _delta_feed(group[0], path, start, size, sidecar_ok)
+            try:
+                for off, length, fp_hash, payload in feed:
+                    yield si, off, length, fp_hash, payload
+            finally:
+                feed.close()
+
+    def fold_sink(plan: _IncrementalPlan):
+        def consume(item) -> None:
+            if item[4] is not None:
+                plan.fold.consume(item[4])
+        return consume
+
+    def bookkeeper(group: List[_IncrementalPlan]):
+        # after the folds (sink order), so a mid-scan checkpoint holds the
+        # block, as in the solo driver
+        def consume(item) -> None:
+            si, off, length, fp_hash, _payload = item
+            for plan in group:
+                _plan_note_block(plan, si, off, length, fp_hash)
+        return consume
+
+    sc0 = sidecar.counters_snapshot()
+    for group in groups.values():
+        scan = SharedScan(delta_feed(group))
+        for plan in group:
+            scan.add_sink(fold_sink(plan), label=plan.canonical)
+        scan.add_sink(bookkeeper(group), label="bookkeeper")
+        t0 = obs.now()
+        n_chunks = scan.run()
+        obs.record("job.dispatch", t0, mode="incremental_shared",
+                   chunks=n_chunks,
+                   jobs=",".join(p.canonical for p in group))
+    results: Dict[str, JobResult] = {}
+    for plan in plans:
+        res = _plan_finish(plan)
+        _note_sidecar_counters(plan.canonical, res, sc0)
+        results[plan.canonical] = res
+    return results
 
 
 # =================================================================== bayesian
@@ -2324,7 +2843,11 @@ def markov_model_job(cfg: JobConfig, inputs: List[str], output: str,
     from avenir_tpu_torch.core.stream import stream_job_byte_blocks
 
     fold = _MarkovPerClassFold(cfg, inputs, device)
-    _drive_fold(fold, stream_job_byte_blocks(cfg, inputs), _MARKOV)
+    # the fold takes a replayed SidecarBytesBlock too, so the feed opts in
+    # to the bytes-kind sidecar at this job's skip count
+    _drive_fold(fold, stream_job_byte_blocks(
+        cfg, inputs, sidecar_skip=fold.skip if fold.native else None),
+        _MARKOV)
     return _finish_fold(fold, output, _MARKOV)
 
 
@@ -2786,10 +3309,13 @@ class Pipeline:
 
 def run_from_cli(argv: Sequence[str]) -> JobResult:
     """`python -m avenir_tpu_torch <jobName> --conf <props> IN... OUT
-    [--device cpu] [--shard N]`; prints the result as one JSON line.
-    `--shard N` runs a streamed job's scan across N worker processes
-    (`dist.run_sharded`), and the line then also holds each worker's stats
-    under "workers"."""
+    [--device cpu] [--shard N] [--incremental]`; prints the result as one
+    JSON line. `--shard N` runs a streamed job's scan across N worker
+    processes (`dist.run_sharded`), and the line then also holds each
+    worker's stats under "workers". `--incremental` refreshes a streamed
+    job from its last checkpoint (`run_incremental`); with `--shard N`,
+    across N workers (`dist.run_sharded_refresh`), which the miners
+    refuse."""
     ap = argparse.ArgumentParser(prog="avenir_tpu_torch")
     ap.add_argument("jobname", help="job name or reference Tool class")
     ap.add_argument("--conf", default=None,
@@ -2805,6 +3331,10 @@ def run_from_cli(argv: Sequence[str]) -> JobResult:
                          "ledger, merged by the registered fold-state "
                          "algebra (avenir_tpu_torch.dist.run_sharded); "
                          "byte-identical to the solo scan")
+    ap.add_argument("--incremental", action="store_true",
+                    help="delta-scan a streamed job: restore the last "
+                         "fold-state checkpoint and fold only appended "
+                         "blocks (run_incremental)")
     ap.add_argument("paths", nargs="*", help="input paths... output path")
     args = ap.parse_intermixed_args(argv)
     if not args.paths:
@@ -2812,17 +3342,32 @@ def run_from_cli(argv: Sequence[str]) -> JobResult:
     short = args.jobname.rsplit(".", 1)[-1]
     name = (args.jobname if args.jobname in _REGISTRY
             else short[0].lower() + short[1:])
-    if args.shard:
+    inputs, output = args.paths[:-1], args.paths[-1]
+    if args.shard and args.incremental and (
+            _REGISTRY[name][0] if name in _REGISTRY else name) in (
+            _APRIORI, _GSP):
+        # the miners' per-k rounds re-scan the whole corpus a candidate
+        # length, so their refresh would be a full re-mine in disguise
+        ap.error("--shard and --incremental cannot compose for the "
+                 "miners: per-k candidate rounds re-scan the whole "
+                 "corpus; run --shard (full re-mine) or --incremental "
+                 "alone")
+    if args.shard and args.incremental:
+        from avenir_tpu_torch.dist.driver import run_sharded_refresh
+
+        res = run_sharded_refresh(name, args.conf or {}, inputs, output,
+                                  procs=args.shard, device=args.device)
+    elif args.shard:
         from avenir_tpu_torch.dist import run_sharded
 
-        res = run_sharded(name, args.conf or {}, args.paths[:-1],
-                          args.paths[-1], procs=args.shard,
-                          device=args.device)
+        res = run_sharded(name, args.conf or {}, inputs, output,
+                          procs=args.shard, device=args.device)
     else:
-        res = run_job(name, args.conf or {}, args.paths[:-1],
-                      args.paths[-1], device=args.device)
+        runner = run_incremental if args.incremental else run_job
+        res = runner(name, args.conf or {}, inputs, output,
+                     device=args.device)
     row = {"job": res.name, "counters": res.counters, "outputs": res.outputs}
-    if args.shard:
+    if args.shard and res.payload:
         row["workers"] = res.payload["workers"]
     print(json.dumps(row))
     return res

@@ -99,7 +99,10 @@ Phases, each printing a line per check; any failed check exits non-zero:
    `bayesianDistr` through `runner.run_job` on that seeded CSV of
    1,000,000 rows streamed in 4 MB blocks, with the native parser and
    with the Python parser; the model file and its stamp must be
-   byte-identical to the same job's run with device="cpu". Then `bayesianPredictor` on a 100,000-row churn test
+   byte-identical to the same job's run with device="cpu". Each run
+   parses (stream.sidecar=false) but one more native run on the card,
+   the default, which also packs the columnar sidecar: its seconds beside
+   the parsing run's are the pack's cost. Then `bayesianPredictor` on a 100,000-row churn test
    CSV with validation and cost arbitration: accuracy above 70, the
    predicted class equal to the CPU run's on every row, the appended
    percent within 1 of it (float sums run in another order on the card).
@@ -209,7 +212,7 @@ Phases, each printing a line per check; any failed check exits non-zero:
    past the code width, 0 and -1). Then `sequencePositionalCluster` and
    `sequenceGenerator` on 100,000 seeded event rows against their CPU
    twins.
-13. The bandits (after phase 12): 100,000 groups x 10 arms of seeded
+13. The bandits (after phase 12): 25,000 groups x 10 arms of seeded
    stats, the four jobs (greedyRandomBandit logLinear, auerDeterministic,
    randomFirstGreedyBandit, softMaxBandit; batch 3) through
    `pipelines.bandit_round` at rounds 1 and 10 on the card and the
@@ -261,12 +264,14 @@ Phases, each printing a line per check; any failed check exits non-zero:
    The NB CSV leg at STREAM_NB_CSV_ROWS = 20,000,000 rows (about 760 MB
    in 4 MB blocks; cut from the root bench's 100,000,000): its model
    and stamp byte-identical to `bayesianDistr` through `run_job` on the
-   same file at stream.prefetch.depth=1, its peak RSS over its start
-   under 1 GB. Each leg's rows/s, overlap efficiency and stall seconds.
+   same file at stream.prefetch.depth=1, parsing (the sidecar off) and
+   then by default (parsing and packing the sidecar), its peak RSS over
+   its start under 1 GB. Each leg's rows/s, overlap efficiency and stall seconds.
    The depth bar: the streamed jobs of phases 6, 9, 11, 12 and 14
    (bayesianDistr, the fused profile run, the per-class Markov model,
    streamed Apriori and streamed GSP) on their corpora, written again
-   as those phases write them, at stream.prefetch.depth 2, 1 and 8, every
+   as those phases write them, at stream.prefetch.depth 2, 1 and 8 (the
+   sidecar off, so that each depth parses), every
    file of depths 1 and 8 byte-identical to depth 2's. Then the measured
    anchor and vs_baseline (the bench's NB and d=8 KNN sections again).
 16. The last ten jobs (after phase 15), each on the card and against its
@@ -298,7 +303,7 @@ Phases, each printing a line per check; any failed check exits non-zero:
 17. The score plane (after phase 16): the models of phases 6, 9, 14 and
    13 retrained at their sizes on the card (NB and Fisher on 1,000,000
    churn rows, the per-class Markov model on 1,000,000 chain rows; the
-   stats of 100,000 groups x 10 arms), and an NB model with three
+   stats of 25,000 groups x 10 arms), and an NB model with three
    continuous fields (5 classes, 100,000 rows), each family served by a
    `ScorePlane` on the card at the default window (2 ms) and batch (64)
    to SCORE_THREADS = 64 client threads: 4,096 of phase 6's test rows to
@@ -374,7 +379,9 @@ Phases, each printing a line per check; any failed check exits non-zero:
    `bayesianDistr` on phase 6's 1,000,000 churn train rows, the per-class
    `markovStateTransitionModel` on phase 14's 1,000,000 chain rows,
    `frequentItemsApriori` on phase 11's 1,000,000 baskets and GSP on phase
-   12's 1,000,000 sequences (4 MB blocks), each through
+   12's 1,000,000 sequences (4 MB blocks), the sidecar off in every run
+   (Shard:ParseSpans > 0 and no replay: the workers parse their byte
+   ranges), each through
    `run_sharded(procs=2, device="cuda")` (GSP at procs=4 through the API
    and at procs=2 through the CLI, below), worker
    processes that fold on the card and, for the miners, count the per-k
@@ -393,16 +400,40 @@ Phases, each printing a line per check; any failed check exits non-zero:
    in a fresh process, its line holding its workers' stats: bytes equal
    to the solo run's, per-k rounds and the workers' launches as above.
    Phases 6, 11, 12 and 14 leave their corpora
-   in `build/chip_smoke_corpora/` for it.
+   in `build/chip_smoke_corpora/` for it and phase 22.
+22. The delta scan and the columnar sidecar (after phase 21, on copies of
+   its churn rows and sequences; 4 MB blocks): a cold `run_incremental`
+   of mutualInformation, bayesianDistr, fisherDiscriminant and GSP, each
+   checkpointing its carry, then an append of INCR_APPEND_ROWS = 10,000
+   churn rows and sequences (1%, seed 202), the cold `run_job` of each on
+   the grown files (the sidecar off, a full parse) and its timed refresh:
+   every refresh byte-identical to its cold twin, Resume:SkippedBytes and
+   Cache:HitBlocks > 0, the seconds and their ratio printed; GSP's
+   refresh (its restored miner re-parses every per-k round) launching
+   `subseq_support.cu` exactly as often as its cold twin.
+   `run_incremental_shared` of the three dataset jobs from copies of
+   their seeded states (one delta scan) equal to the solo refreshes;
+   `run_sharded_refresh` of mutualInformation at 2 workers equal to the
+   solo refresh and the cold run. The sidecar: mutualInformation and GSP
+   pack on a cold `run_job` (Sidecar:DeltaBlocks >= 1), then replay with
+   Sidecar:HitBlocks equal to the blocks packed, none parsed and no
+   `stream.parse` span (GSP's replay still launching the count kernel a
+   level), every file equal to its cold twin's; `run_sharded` over the
+   warm sidecar with Shard:ParseSpans == 0. Then a child interpreter
+   killed (os._exit) at its first mid-scan checkpoint
+   (stream.checkpoint.interval.mb = 8), and the resume from it:
+   Resume:SkippedBytes equal to the checkpoint's watermark, bytes equal
+   to the cold run's.
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth, phase 12's GSP runs the fifth, phase 15's
 KNN stream legs the sixth, phase 16's topMatchesByClass the seventh and
 its k-means the eighth, phase 18's library modules the ninth, phase
 19's conf jobs the tenth and phase 20's mesh the eleventh (no kernel on
-either), and phase 21's sharded workers the twelfth (`shard`: the
-launches the workers report, summed): each kernel's launches are counted
-from zero on each path. Then one JSON
+either), phase 21's sharded workers the twelfth (`shard`: the
+launches the workers report, summed) and phase 22's refreshes, sidecar
+packs and replays the thirteenth (`incremental`): each kernel's launches
+are counted from zero on each path. Then one JSON
 line of per-kernel numbers (the pre-pass beside the five kernels, at the
 sweep's D=128 float32; the tensor-core form at the bench's D=128
 bfloat16; the two merge kernels at the job's shape; the walk at the
@@ -427,6 +458,10 @@ ROOT = Path(__file__).resolve().parent
 NQ, NT, K = 8192, 131072, 5
 CHECK_ROWS = 1024
 DEVICE = "cuda"
+#: the columnar sidecar off (an unprefixed key, which every job's config
+#: reads), where a run must parse: the twins that time the parse, the
+#: depth bar, the sharded workers of phase 21
+SIDECAR_OFF = {"stream.sidecar": "false"}
 
 #: fp32 CUDA-core peak (FLOP/s, an FMA counted as 2), memory rate
 #: (bytes/s) and dense bf16 tensor-core peak (FLOP/s) at the full power
@@ -483,8 +518,11 @@ SEQ_EVENTS = 100_000
 SUBSEQ_EDGE_WIDTHS = (16, 32, 48, 64, 80)
 SUBSEQ_WALK_CODES = 1 << 20
 SEQ_PATH = "candidateGenerationWithSelfJoin"
-#: phase 13: the bandit stats, the rounds, each job's keys (batch 3)
-BANDIT_GROUPS, BANDIT_ARMS, BANDIT_SEED = 100_000, 10, 31
+#: phase 13: the bandit stats (25,000 groups; at 100,000, which phase 17
+#: inherits, the whole script ran 992.2 s on an NVIDIA H100 80GB HBM3 at
+#: 700 W, too near its 1200 s limit on a host 1.22x slower), the rounds,
+#: each job's keys (batch 3)
+BANDIT_GROUPS, BANDIT_ARMS, BANDIT_SEED = 25_000, 10, 31
 BANDIT_ROUNDS = (1, 10)
 BANDIT_JOBS = {
     "greedyRandomBandit": {"random.selection.prob": "0.5",
@@ -1887,22 +1925,30 @@ def phase_naive_bayes():
     # the native parser wherever auto would take it: a failed build fails
     distr = {"bad.feature.schema.file.path": schema,
              "bad.stream.block.size.mb": "4", "csv.engine": "native"}
+    # each run parses (the sidecar off) but `{DEVICE}_pack`, the default,
+    # which parses and packs the columnar sidecar: its cost is the
+    # difference
     models, secs = {}, {}
-    for dev, engine in ((DEVICE, "native"), (DEVICE, "python"),
-                        ("cpu", "native")):
-        key = dev if engine == "native" else f"{dev}_python"
+    for dev, engine, key in ((DEVICE, "native", DEVICE),
+                             (DEVICE, "native", f"{DEVICE}_pack"),
+                             (DEVICE, "python", f"{DEVICE}_python"),
+                             ("cpu", "native", "cpu")):
+        props = {**distr, "csv.engine": engine,
+                 **({} if key.endswith("_pack") else SIDECAR_OFF)}
         models[key] = work / f"model_{key}.csv"
-        res, secs[key] = timed("bayesianDistr", {**distr, "csv.engine": engine},
-                               [str(train)], models[key], dev, [engine])
-        check(res.counters["Distribution Data:Records"] == NB_TRAIN_ROWS,
-              f"bayesianDistr {dev}, engine={engine}: {secs[key]:.2f}s, "
+        res, secs[key] = timed("bayesianDistr", props, [str(train)],
+                               models[key], dev, [engine])
+        packed = res.counters["Sidecar:DeltaBlocks"]
+        check(res.counters["Distribution Data:Records"] == NB_TRAIN_ROWS
+              and (packed >= 1 if key.endswith("_pack") else not packed),
+              f"bayesianDistr {key}, engine={engine}: {secs[key]:.2f}s, "
               f"{res.counters}")
     same = all((work / f"model_{key}.csv{ext}").read_bytes()
                == (work / f"model_cpu.csv{ext}").read_bytes()
                for ext in ("", ".stamp.json")
-               for key in (DEVICE, f"{DEVICE}_python"))
+               for key in (DEVICE, f"{DEVICE}_pack", f"{DEVICE}_python"))
     check(same, "bayesianDistr: model file and stamp byte-identical to the "
-          "CPU run's under both parsers")
+          "CPU run's under both parsers and with the sidecar's pack")
     # the predictor echoes each row: the Python parser, under auto too
     predict = {"bap.feature.schema.file.path": schema, "csv.engine": "python",
                "bap.bayesian.model.file.path": str(models[DEVICE]),
@@ -1930,7 +1976,8 @@ def phase_naive_bayes():
           f"{NB_TEST_ROWS} rows, percent within {pct}")
     _keep(train, "churn_train.csv")
     shutil.rmtree(work)
-    return {"distr_s": secs[DEVICE], "distr_python_s": secs[f"{DEVICE}_python"],
+    return {"distr_s": secs[DEVICE], "distr_pack_s": secs[f"{DEVICE}_pack"],
+            "distr_python_s": secs[f"{DEVICE}_python"],
             "distr_cpu_s": secs["cpu"], "predict_s": psecs[DEVICE],
             "predict_cpu_s": psecs["cpu"]}
 
@@ -2069,7 +2116,9 @@ def phase_profile():
     n_blocks = -(-train.stat().st_size // (4 << 20))
     props = {f"{p}.stream.block.size.mb": "4" for p in ("bad", "mut", "fid")}
     props.update({"csv.engine": "native",
-                  "mut.mutual.info.score.algorithms": MI_ALGOS})
+                  "mut.mutual.info.score.algorithms": MI_ALGOS,
+                  # the sidecar off: the runs parse, so the reads compare
+                  "stream.sidecar": "false"})
     secs, blocks = {}, {}
     for name, dev, fuse in (("cuda_plain", DEVICE, False),
                             ("cuda_fused", DEVICE, True),
@@ -3119,16 +3168,19 @@ def phase_markov(flops: float, rate: float):
           f"busy {info['device_busy_share']:.2%}; split "
           f"{json.dumps(info['split'])}")
 
-    # fused with GSP through run_shared: one scan
+    # fused with GSP through run_shared: one scan (the sidecar off, so
+    # each run reads the text and the reads compare)
     cgs = {"cgs.support.threshold": "0.02", "cgs.item.set.length": "2",
-           "cgs.skip.field.count": "2", "cgs.stream.block.size.mb": "4"}
+           "cgs.skip.field.count": "2", "cgs.stream.block.size.mb": "4",
+           "cgs.stream.sidecar": "false"}
+    mst_off = {**mst, "mst.stream.sidecar": "false"}
     fused, fused_blocks = _blocks_read(lambda: timed(
         "run_shared", DEVICE, lambda: run_shared(
-            [(MARKOV_PATH, mst, str(work / "fused_mst.txt")),
+            [(MARKOV_PATH, mst_off, str(work / "fused_mst.txt")),
              ("candidateGenerationWithSelfJoin", cgs,
               str(work / "fused_gsp"))], [chains], device=DEVICE)))
     _, mst_blocks = _blocks_read(lambda: run_job(
-        MARKOV_PATH, mst, [chains], str(work / "solo_mst.txt"),
+        MARKOV_PATH, mst_off, [chains], str(work / "solo_mst.txt"),
         device=DEVICE))
     gsp, gsp_blocks = _blocks_read(lambda: timed(
         "gsp_solo", DEVICE, lambda: run_job(
@@ -3664,14 +3716,18 @@ def _depth_bar(work: Path) -> dict:
     from avenir_tpu_torch.runner import run_job
 
     c = _stream_corpora(work)
+    # the sidecar off: each depth parses (a repeat run would replay)
     distr = {"bad.feature.schema.file.path": c["schema"],
-             "bad.stream.block.size.mb": "4", "csv.engine": "native"}
+             "bad.stream.block.size.mb": "4", "csv.engine": "native",
+             **SIDECAR_OFF}
     profile = {f"{p}.stream.block.size.mb": "4" for p in ("bad", "mut", "fid")}
     profile.update({"csv.engine": "native",
-                    "mut.mutual.info.score.algorithms": MI_ALGOS})
+                    "mut.mutual.info.score.algorithms": MI_ALGOS,
+                    **SIDECAR_OFF})
     mst = {"mst.model.states": ",".join(MARKOV_STATES),
            "mst.skip.field.count": "2", "mst.class.label.field.ord": "1",
-           "mst.class.labels": "C,L", "mst.stream.block.size.mb": "4"}
+           "mst.class.labels": "C,L", "mst.stream.block.size.mb": "4",
+           **SIDECAR_OFF}
     jobs = {
         "bayesianDistr": ("bad", distr, lambda p, out: [run_job(
             "bayesianDistr", p, [c["churn"]], out + ".csv", device=DEVICE)]),
@@ -3680,12 +3736,14 @@ def _depth_bar(work: Path) -> dict:
                              device=DEVICE).run(fuse=True).values())),
         MARKOV_PATH: ("mst", mst, lambda p, out: [run_job(
             MARKOV_PATH, p, [c["chains"]], out + ".txt", device=DEVICE)]),
-        "frequentItemsApriori": ("fia", {**ASSOC_PROPS, **ASSOC_BLOCK},
+        "frequentItemsApriori": ("fia", {**ASSOC_PROPS, **ASSOC_BLOCK,
+                                         **SIDECAR_OFF},
                                  lambda p, out: [run_job(
                                      "frequentItemsApriori", p,
                                      [c["baskets"]], out, device=DEVICE)]),
         "candidateGenerationWithSelfJoin": (
-            "cgs", {**GSP_PROPS, **GSP_BLOCK}, lambda p, out: [run_job(
+            "cgs", {**GSP_PROPS, **GSP_BLOCK, **SIDECAR_OFF},
+            lambda p, out: [run_job(
                 "candidateGenerationWithSelfJoin", p, [c["seq"]], out,
                 device=DEVICE)]),
     }
@@ -3828,22 +3886,34 @@ def phase_stream(rate: float, bf16_flops: float):
     model.save(str(leg_model))
     schema = work / "churn_declared.json"
     churn_schema().save(str(schema))
-    t_job = time.perf_counter()
-    res = run_job("bayesianDistr",
-                  {"bad.feature.schema.file.path": str(schema),
-                   "bad.stream.block.size.mb": "4",
-                   "bad.stream.prefetch.depth": "1", "csv.engine": "native"},
-                  [str(path)], str(work / "nb_job.csv"), device=DEVICE)
-    secs["nb_csv_job_depth1"] = time.perf_counter() - t_job
+    # the job parsing (the sidecar off), then as a user runs it by
+    # default: parsing and packing the columnar sidecar
+    nb_job = {"bad.feature.schema.file.path": str(schema),
+              "bad.stream.block.size.mb": "4",
+              "bad.stream.prefetch.depth": "1", "csv.engine": "native"}
+    jobs = {}
+    for key, props in (("nb_csv_job_depth1", {**nb_job, **SIDECAR_OFF}),
+                       ("nb_csv_job_depth1_pack", nb_job)):
+        torch.cuda.synchronize()
+        t_job = time.perf_counter()
+        jobs[key] = run_job("bayesianDistr", props, [str(path)],
+                            str(work / f"{key}.csv"), device=DEVICE)
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t_job
     same = all((work / f"nb_leg.csv{e}").read_bytes()
-               == (work / f"nb_job.csv{e}").read_bytes()
-               for e in ("", ".stamp.json"))
+               == (work / f"{key}.csv{e}").read_bytes()
+               for e in ("", ".stamp.json") for key in jobs)
+    packed = [res.counters["Sidecar:DeltaBlocks"] for res in jobs.values()]
     check(same and nb_csv["csv_peak_rss_mb"] < 1024
-          and res.counters["Distribution Data:Records"] == STREAM_NB_CSV_ROWS,
+          and all(res.counters["Distribution Data:Records"]
+                  == STREAM_NB_CSV_ROWS for res in jobs.values())
+          and packed[0] == 0 and packed[1] >= 1,
           f"NB CSV leg, {STREAM_NB_CSV_ROWS} rows ({nb_csv['csv_bytes']} "
           f"bytes, 4 MB blocks) ({CARD}): {json.dumps(nb_csv)}; model and "
           f"stamp byte-identical to bayesianDistr at stream.prefetch.depth=1 "
-          f"({secs['nb_csv_job_depth1']:.2f}s); peak RSS "
+          f"({secs['nb_csv_job_depth1']:.2f}s parsing, "
+          f"{secs['nb_csv_job_depth1_pack']:.2f}s packing {packed[1]:.0f} "
+          f"sidecar blocks); peak RSS "
           f"{nb_csv['csv_peak_rss_mb']:.0f} MB over the leg's start, under "
           f"1024")
     path.unlink()
@@ -5156,24 +5226,27 @@ def phase_shard():
     corpora = _shard_corpora(work)
     schema = str(work / "churn.json")
     churn_schema().save(schema)
+    # the sidecar off in every run: the workers parse their byte ranges
+    # (phase 22 drives the replay over a warm sidecar)
     mi = {"mut.feature.schema.file.path": schema,
           "mut.mutual.info.score.algorithms": MI_ALGOS,
-          "mut.stream.block.size.mb": "4"}
+          "mut.stream.block.size.mb": "4", **SIDECAR_OFF}
+    gsp = {**GSP_PROPS, **GSP_BLOCK, **SIDECAR_OFF}
     runs = [
         ("mutualInformation", mi, "churn", SHARD_PROCS),
         ("bayesianDistr", {"bad.feature.schema.file.path": schema,
-                           "bad.stream.block.size.mb": "4"},
+                           "bad.stream.block.size.mb": "4", **SIDECAR_OFF},
          "churn", SHARD_PROCS),
         ("markovStateTransitionModel",
          {"mst.model.states": ",".join(MARKOV_STATES),
           "mst.skip.field.count": "2", "mst.class.label.field.ord": "1",
-          "mst.class.labels": "C,L", "mst.stream.block.size.mb": "4"},
-         "chains", SHARD_PROCS),
+          "mst.class.labels": "C,L", "mst.stream.block.size.mb": "4",
+          **SIDECAR_OFF}, "chains", SHARD_PROCS),
         ("frequentItemsApriori",
          {"fia.support.threshold": ASSOC_PROPS["fia.support.threshold"],
           "fia.item.set.length": ASSOC_PROPS["fia.item.set.length"],
-          **ASSOC_BLOCK}, "baskets", SHARD_PROCS),
-        (SEQ_PATH, {**GSP_PROPS, **GSP_BLOCK}, "seq", SHARD_GSP_PROCS)]
+          **ASSOC_BLOCK, **SIDECAR_OFF}, "baskets", SHARD_PROCS),
+        (SEQ_PATH, gsp, "seq", SHARD_GSP_PROCS)]
     secs = {"builds_s": {k: round(v, 1) for k, v in built.items()}}
     launches = {fn.__name__: 0 for fn in _wrappers()}
     solo_out = {}
@@ -5208,6 +5281,8 @@ def phase_shard():
         row["subseq_support_launches"] = run_launches["subseq_support_fold"]
         secs[f"{name}_{procs}"] = row
         ok = (same_files(solo_out[name], res.outputs)
+              and res.counters["Shard:ParseSpans"] > 0
+              and res.counters["Shard:ReplaySpans"] == 0
               and all(w["device"].startswith("cuda")
                       for w in res.payload["workers"]))
         if name in (SEQ_PATH, "frequentItemsApriori"):
@@ -5231,6 +5306,7 @@ def phase_shard():
     secs["chaos"] = {**caught, "counters": {
         k: v for k, v in res.counters.items() if k.startswith("Shard:")}}
     check(res.counters["Shard:DedupBlocks"] >= 1 and caught["resumed"]
+          and res.counters["Shard:ParseSpans"] > 0
           and same_files(solo_out["mutualInformation"], res.outputs),
           f"chaos leg: worker {caught['victim']} stopped on a claim, every "
           f"block committed, the late commit deduped, bytes equal to the "
@@ -5259,7 +5335,7 @@ def phase_shard():
     # coordinator process, whose line carries its workers' stats
     conf = work / "gsp.properties"
     conf.write_text("".join(f"{k}={v}\n" for k, v in
-                            {**GSP_PROPS, **GSP_BLOCK}.items()))
+                            gsp.items()))
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -5293,17 +5369,286 @@ def phase_shard():
           and all(w["device"].startswith("cuda") for w in workers)
           and c.get("Shard:PerKRounds", 0) >= 1
           and c.get("Shard:PerKBlocks", 0) >= c.get("Shard:Blocks", 1)
+          and c.get("Shard:ParseSpans", 0) > 0
+          and c.get("Shard:ReplaySpans", 1) == 0
           and row["subseq_support_launches"] > 0,
           f"python -m avenir_tpu_torch {SEQ_PATH} --shard {SHARD_PROCS} on "
           f"the card ({CARD}): {cli_s}s with the interpreter's boot, bytes "
           f"equal to the solo run_job's; {json.dumps(row)} "
           f"{proc.stderr[-400:] if proc.returncode else ''}")
     shutil.rmtree(work)
-    shutil.rmtree(CORPORA, ignore_errors=True)
     secs["phase"] = round(time.perf_counter() - t_phase, 1)
     print(f"shard path launches (the workers'): {json.dumps(launches)}",
           flush=True)
     return secs, launches
+
+INCR_PATH = "incremental"
+#: the append of phase 22: 1% of phase 6's churn rows and of phase 12's
+#: sequences, each from its own seed
+INCR_APPEND_ROWS, INCR_APPEND_SEED = 10_000, 202
+#: phase 22's block size, and its crash leg's mid-scan checkpoint
+#: interval: the first checkpoint after 2 blocks
+INCR_BLOCK_MB, INCR_CKPT_MB = "4", "8"
+
+_INCR_CHILD = r'''
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+from avenir_tpu_torch.core import incremental
+
+def kill(meta):
+    if not meta.get("complete"):
+        os._exit(137)          # a hard kill at the first mid-scan checkpoint
+incremental._checkpoint_hook = kill
+
+from avenir_tpu_torch.runner import run_incremental
+run_incremental("mutualInformation", json.loads(sys.argv[2]), [sys.argv[3]],
+                sys.argv[4], state_dir=sys.argv[5], device=sys.argv[6])
+print("COMPLETED")
+'''
+
+
+def phase_incremental():
+    """The delta-scan layer on the card: run_incremental and its refresh
+    after a 1% append against a cold run_job (MI, NB, GSP), the fused
+    refresh, the sharded refresh, the columnar sidecar's pack and replay,
+    a sharded scan over a warm sidecar, and a child killed at its first
+    mid-scan checkpoint resumed. Returns (seconds and counters, the launch
+    counts of the refreshes and replays)."""
+    import torch
+
+    from avenir_tpu_torch import obs
+    from avenir_tpu_torch.data import (churn_schema, generate_churn,
+                                       generate_token_sequences)
+    from avenir_tpu_torch.dist import (StragglerPolicy, run_sharded,
+                                       run_sharded_refresh)
+    from avenir_tpu_torch.runner import (run_incremental,
+                                         run_incremental_shared, run_job)
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_incr"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    corpora = _shard_corpora(work)
+    churn, seq = str(work / "churn.csv"), str(work / "seq.csv")
+    shutil.copyfile(corpora["churn"], churn)
+    shutil.copyfile(corpora["seq"], seq)
+    schema = str(work / "churn.json")
+    churn_schema().save(schema)
+    trio = {"mutualInformation": {
+                "mut.feature.schema.file.path": schema,
+                "mut.mutual.info.score.algorithms": MI_ALGOS,
+                "mut.stream.block.size.mb": INCR_BLOCK_MB},
+            "bayesianDistr": {"bad.feature.schema.file.path": schema,
+                              "bad.stream.block.size.mb": INCR_BLOCK_MB},
+            "fisherDiscriminant": {"fid.feature.schema.file.path": schema,
+                                   "fid.stream.block.size.mb": INCR_BLOCK_MB}}
+    gsp = {**GSP_PROPS, "cgs.stream.block.size.mb": INCR_BLOCK_MB}
+    confs = {**trio, SEQ_PATH: gsp}
+    prefix = {"mutualInformation": "mut", "bayesianDistr": "bad",
+              "fisherDiscriminant": "fid", SEQ_PATH: "cgs"}
+    inputs = {SEQ_PATH: [seq]}
+
+    def inp(job):
+        return inputs.get(job, [churn])
+
+    def out(tag, job):
+        return str(work / tag / job) + (os.sep if job == SEQ_PATH else "")
+
+    def state(tag, job):
+        return str(work / "state" / tag / job)
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        return res, round(time.perf_counter() - t0, 4)
+
+    def deltas(res):
+        return {k: res.counters[k] for k in (
+            "Cache:HitBlocks", "Cache:DeltaBlocks", "Resume:SkippedBytes",
+            "Sidecar:HitBlocks", "Sidecar:DeltaBlocks")}
+
+    secs = {"corpus_bytes": os.path.getsize(churn),
+            "seq_bytes": os.path.getsize(seq)}
+
+    # seed: a cold run_incremental of each job (its carry checkpointed);
+    # the fused and sharded refreshes start from copies of these states
+    for job, conf in confs.items():
+        res, secs[f"seed_{job}_s"] = timed(lambda: run_incremental(
+            job, conf, inp(job), out("seed", job),
+            state_dir=state("solo", job), device=DEVICE))
+        check(res.counters["Cache:HitBlocks"] == 0
+              and res.counters["Cache:DeltaBlocks"] >= 1,
+              f"{job} cold run_incremental on the card ({CARD}): "
+              f"{secs[f'seed_{job}_s']}s, {json.dumps(deltas(res))}")
+        if job in trio:
+            shutil.copytree(state("solo", job), state("fused", job))
+    shutil.copytree(state("solo", "mutualInformation"),
+                    state("sharded", "mutualInformation"))
+    with open(churn, "a") as fh:
+        fh.write(generate_churn(INCR_APPEND_ROWS, seed=INCR_APPEND_SEED,
+                                as_csv=True))
+    with open(seq, "a") as fh:
+        fh.write("\n".join(generate_token_sequences(
+            INCR_APPEND_ROWS, vocab=GSP_VOCAB, seed=INCR_APPEND_SEED)) + "\n")
+
+    # the cold twins: a full parse each (the sidecar off)
+    cold = {}
+    for job in confs:
+        off = {**confs[job], f"{prefix[job]}.stream.sidecar": "false"}
+        _reset_launches()
+        cold[job], secs[f"cold_{job}_s"] = timed(lambda: run_job(
+            job, off, inp(job), out("cold", job), device=DEVICE))
+        if job == SEQ_PATH:
+            secs["cold_gsp_launches"] = _launch_counts()[
+                "subseq_support_fold"]
+
+    # the refresh path: its launches counted from zero
+    _reset_launches()
+    refresh = {}
+    for job in confs:
+        before = _launch_counts()["subseq_support_fold"]
+        refresh[job], secs[f"refresh_{job}_s"] = timed(
+            lambda: run_incremental(job, confs[job], inp(job),
+                                    out("refresh", job),
+                                    state_dir=state("solo", job),
+                                    device=DEVICE))
+        launched = _launch_counts()["subseq_support_fold"] - before
+        row = {"cold_s": secs[f"cold_{job}_s"],
+               "refresh_s": secs[f"refresh_{job}_s"],
+               "speedup": round(secs[f"cold_{job}_s"]
+                                / max(secs[f"refresh_{job}_s"], 1e-9), 3),
+               **deltas(refresh[job])}
+        ok = (_files_of(refresh[job]) == _files_of(cold[job])
+              and refresh[job].counters["Resume:SkippedBytes"] > 0
+              and refresh[job].counters["Cache:HitBlocks"] > 0)
+        if job == SEQ_PATH:
+            row["subseq_support_launches"] = launched
+            row["cold_launches"] = secs["cold_gsp_launches"]
+            ok = ok and launched == secs["cold_gsp_launches"] > 0
+        secs[f"refresh_{job}"] = row
+        check(ok, f"{job} refresh after a {INCR_APPEND_ROWS}-row append on "
+              f"the card ({CARD}): byte-identical to the cold run_job; "
+              f"{json.dumps(row)}")
+
+    # one delta scan for the three dataset jobs
+    with obs.capture() as rec:
+        fused, secs["fused_refresh_s"] = timed(lambda: run_incremental_shared(
+            [(job, conf, out("fused", job)) for job, conf in trio.items()],
+            [churn], state_dirs={job: state("fused", job) for job in trio},
+            device=DEVICE))
+    groups = [sp.attrs["jobs"] for sp in rec.spans()
+              if sp.name == "job.dispatch"
+              and sp.attrs.get("mode") == "incremental_shared"]
+    check(groups == [",".join(trio)] and all(
+        _files_of(fused[job]) == _files_of(refresh[job])
+        and deltas(fused[job])["Resume:SkippedBytes"]
+        == deltas(refresh[job])["Resume:SkippedBytes"] for job in trio),
+        f"run_incremental_shared of {', '.join(trio)} on the card ({CARD}): "
+        f"{secs['fused_refresh_s']}s, one delta scan {groups}, every file "
+        f"equal to its solo refresh's")
+
+    # the sharded refresh: the appended tail across 2 workers
+    mi = trio["mutualInformation"]
+    res, secs["sharded_refresh_s"] = timed(lambda: run_sharded_refresh(
+        "mutualInformation", mi, [churn], out("sharded", "mutualInformation"),
+        procs=SHARD_PROCS, state_dir=state("sharded", "mutualInformation"),
+        policy=StragglerPolicy(mirror_floor_s=60.0), device=DEVICE,
+        timeout_s=SHARD_TIMEOUT_S))
+    row = {**deltas(res), **{k: v for k, v in res.counters.items()
+                             if k.startswith("Shard:")}}
+    secs["sharded_refresh"] = row
+    check(_files_of(res) == _files_of(refresh["mutualInformation"])
+          == _files_of(cold["mutualInformation"])
+          and res.counters["Shard:Workers"] == SHARD_PROCS
+          and res.counters["Resume:SkippedBytes"] > 0
+          and all(w["device"].startswith("cuda")
+                  for w in res.payload["workers"]),
+          f"run_sharded_refresh of mutualInformation at {SHARD_PROCS} workers "
+          f"on the card ({CARD}): {secs['sharded_refresh_s']}s with the "
+          f"workers' boot, equal to the solo refresh and the cold run; "
+          f"{json.dumps(row)}")
+
+    # the sidecar: MI and GSP pack on a cold run_job, then replay
+    scdir = str(work / "sc")
+    for job in ("mutualInformation", SEQ_PATH):
+        conf = {**confs[job], f"{prefix[job]}.stream.sidecar.dir": scdir}
+        pack, secs[f"sidecar_pack_{job}_s"] = timed(lambda: run_job(
+            job, conf, inp(job), out("pack", job), device=DEVICE))
+        before = _launch_counts()["subseq_support_fold"]
+        with obs.capture() as rec:
+            warm, secs[f"sidecar_replay_{job}_s"] = timed(lambda: run_job(
+                job, conf, inp(job), out("replay", job), device=DEVICE))
+        launched = _launch_counts()["subseq_support_fold"] - before
+        parsed = sum(sp.name == "stream.parse" for sp in rec.spans())
+        row = {"pack_s": secs[f"sidecar_pack_{job}_s"],
+               "replay_s": secs[f"sidecar_replay_{job}_s"],
+               "pack": deltas(pack), "replay": deltas(warm),
+               "replay_parse_spans": parsed}
+        ok = (_files_of(pack) == _files_of(warm) == _files_of(cold[job])
+              and pack.counters["Sidecar:DeltaBlocks"] >= 1
+              and warm.counters["Sidecar:HitBlocks"]
+              == pack.counters["Sidecar:DeltaBlocks"]
+              and warm.counters["Sidecar:DeltaBlocks"] == 0 and parsed == 0)
+        if job == SEQ_PATH:
+            row["replay_subseq_support_launches"] = launched
+            ok = ok and launched > 0
+        secs[f"sidecar_{job}"] = row
+        check(ok, f"{job} through the columnar sidecar on the card "
+              f"({CARD}): packed, then replayed with no parse, every file "
+              f"equal to the cold run's; {json.dumps(row)}")
+    warm_mi = {**mi, "mut.stream.sidecar.dir": scdir}
+    res, secs["sharded_warm_s"] = timed(lambda: run_sharded(
+        "mutualInformation", warm_mi, [churn], out("sharded_warm",
+                                                    "mutualInformation"),
+        procs=SHARD_PROCS, factor=2, device=DEVICE,
+        timeout_s=SHARD_TIMEOUT_S))
+    row = {k: v for k, v in res.counters.items()
+           if k.startswith(("Shard:", "Sidecar:"))}
+    secs["sharded_warm"] = row
+    check(_files_of(res) == _files_of(cold["mutualInformation"])
+          and res.counters["Shard:ParseSpans"] == 0
+          and res.counters["Shard:ReplaySpans"] >= 1,
+          f"run_sharded of mutualInformation over the warm sidecar "
+          f"({CARD}): {secs['sharded_warm_s']}s, no block parsed in the "
+          f"workers; {json.dumps(row)}")
+
+    # a child killed at its first mid-scan checkpoint, then the resume
+    crash_state = state("crash", "mutualInformation")
+    conf = {**mi, "mut.stream.checkpoint.interval.mb": INCR_CKPT_MB}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _INCR_CHILD, str(ROOT), json.dumps(conf),
+         churn, out("killed", "mutualInformation"), crash_state, DEVICE],
+        capture_output=True, text=True, timeout=SHARD_TIMEOUT_S, cwd=ROOT)
+    secs["crash_child_s"] = round(time.perf_counter() - t0, 3)
+    from avenir_tpu_torch.core.incremental import CheckpointStore
+
+    loaded = CheckpointStore(crash_state).load()
+    covered = sum(loaded[0]["watermarks"]) if loaded else 0
+    res, secs["resume_s"] = timed(lambda: run_incremental(
+        "mutualInformation", conf, [churn], out("resumed",
+                                                "mutualInformation"),
+        state_dir=crash_state, device=DEVICE))
+    row = {"child_rc": proc.returncode, "covered": covered, **deltas(res)}
+    secs["crash"] = row
+    check(proc.returncode == 137 and "COMPLETED" not in proc.stdout
+          and loaded is not None and loaded[0]["complete"] is False
+          and 0 < covered < os.path.getsize(churn)
+          and res.counters["Resume:SkippedBytes"] == covered
+          and _files_of(res) == _files_of(cold["mutualInformation"]),
+          f"a run_incremental child killed at its first mid-scan checkpoint "
+          f"({secs['crash_child_s']}s with its boot), resumed on the card "
+          f"({CARD}) in {secs['resume_s']}s to the cold bytes; "
+          f"{json.dumps(row)} {proc.stderr[-300:] if proc.returncode != 137 else ''}")
+    counts = _launch_counts()
+    shutil.rmtree(work)
+    shutil.rmtree(CORPORA, ignore_errors=True)
+    secs["phase"] = round(time.perf_counter() - t_phase, 1)
+    print(f"incremental path launches: {json.dumps(counts)}", flush=True)
+    return secs, counts
+
 
 LR_MESH_ATOL = 1e-7
 
@@ -5426,6 +5771,7 @@ def main() -> None:
     conf_secs, conf_counts = phase_conf()
     mesh_secs, mesh_rows, mesh_counts = phase_mesh()
     shard_secs, shard_counts = phase_shard()
+    incr_secs, incr_counts = phase_incremental()
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     print(f"tree and text seconds ({CARD}; phase 10 "
@@ -5459,6 +5805,8 @@ def main() -> None:
           f"{json.dumps(mesh_secs)}", flush=True)
     print(f"shard seconds ({CARD}; phase 21 {shard_secs['phase']}s): "
           f"{json.dumps(shard_secs)}", flush=True)
+    print(f"incremental seconds ({CARD}; phase 22 {incr_secs['phase']}s): "
+          f"{json.dumps(incr_secs)}", flush=True)
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.1f}s "
           f"({CARD})", flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
@@ -5466,7 +5814,8 @@ def main() -> None:
              SEQ_PATH: seq_counts, STREAM_PATH: stream_counts,
              TMC_PATH: tmc_counts, KMEANS_PATH: km_counts,
              LIB_PATH: lib_counts, CONF_PATH: conf_counts,
-             MESH_PATH: mesh_counts, SHARD_PATH: shard_counts}
+             MESH_PATH: mesh_counts, SHARD_PATH: shard_counts,
+             INCR_PATH: incr_counts}
 
     # each kernel's row at the shape of the path it is reported on: the
     # job's (manhattan, D=6) for the three it runs; the sweep's

@@ -133,7 +133,9 @@ def _port_apriori(monkeypatch, route, props, inputs, out):
     if route == "python":
         monkeypatch.setattr(ingest, "native_seq_ready", lambda delim: False)
     if route != "ram":
-        props = {**props, "fia.stream.block.size.mb": "0.01"}
+        # the sidecar off: pass 1 parses with the route's engine
+        props = {**props, "fia.stream.block.size.mb": "0.01",
+                 "fia.stream.sidecar": "false"}
     with obs.capture() as rec:
         res = run_job("frequentItemsApriori", props, inputs, out, device=CPU)
     monkeypatch.undo()

@@ -21,6 +21,7 @@ from avenir_tpu_torch.core.schema import FeatureSchema
 from avenir_tpu_torch.data import (churn_schema, elearn_schema, generate_churn,
                                    generate_elearn)
 from avenir_tpu_torch.models.artifact import ModelFormatSkew
+from avenir_tpu_torch.runner import DELTA_COUNTERS
 from avenir_tpu_torch.models.discriminant import FisherDiscriminant
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -136,7 +137,8 @@ def test_job_byte_identical_to_jax_and_through_the_cli(corpora, tmp_path,
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     row = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert row["job"] == "fisherDiscriminant" and row["counters"] == {}
+    assert row["job"] == "fisherDiscriminant"
+    assert set(row["counters"]) == set(DELTA_COUNTERS)
     for ext in ("", ".stamp.json"):
         assert (tmp_path / f"port.txt{ext}").read_bytes() == \
             (tmp_path / f"jax.txt{ext}").read_bytes()

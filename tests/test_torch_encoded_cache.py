@@ -113,9 +113,11 @@ def test_budget_eviction_and_source_gates(tmp_path, budget):
 
 
 def test_changed_source_reparses_in_full(tmp_path):
-    """A source that changed since the scan closes both gates, as the
-    reference's do, and the per-k pages then re-parse the whole file: the
-    support counts see the appended row, as a fresh scan's do."""
+    """A source that changed since the scan closes both full-replay gates,
+    as the reference's do; an append keeps the prefix gate
+    (`source_delta`), so the per-k pages replay the committed blocks and
+    parse only the appended row: the support counts see it, as a fresh
+    scan's do."""
     from avenir_tpu.models.association import \
         StreamingTransactionSource as RefSource
     from avenir_tpu_torch.models.association import (
@@ -132,10 +134,12 @@ def test_changed_source_reparses_in_full(tmp_path):
     cands = [("a", "b"), ("b", "c")]
     assert count_token_supports(port, cands, 8, device=CPU).tolist() == \
         [400, 400]
+    size = csv.stat().st_size
     with open(csv, "a") as fh:
         fh.write("t400,a,b\n")
     assert port._cache.source_valid(0) == ref._cache.source_valid(0) is False
     assert port._cache.valid == ref._cache.valid is False
+    assert port._cache.source_delta(0) == ref._cache.source_delta(0) == size
     assert count_token_supports(port, cands, 8, device=CPU).tolist() == \
         [401, 400]
     port.close()

@@ -65,7 +65,7 @@ def test_modules_list_covers_the_package():
                 "tools.sampling_check", "dist", "dist.driver", "dist.worker",
                 "dist.plan", "dist.ledger", "dist.detect", "dist.collective",
                 "tune", "tune.signals", "parallel.scaling",
-                "tools.bench_scaling"):
+                "tools.bench_scaling", "core.incremental", "native.sidecar"):
         assert f"avenir_tpu_torch.{sub}" in MODULES
 
 

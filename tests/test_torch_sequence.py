@@ -424,6 +424,8 @@ def test_sequences_byte_identical_to_jax(tmp_path, jax_root, monkeypatch,
     want = _jax_outputs(str(jax_root / "-".join(map(str, config))), config)
     threshold, length, _crlf = config
     props = _props(threshold, length, None if route == "ram" else 0.005)
+    # the sidecar off: pass 1 parses with the route's engine
+    props["cgs.stream.sidecar"] = "false"
     if route == "python":
         monkeypatch.setattr(ingest, "native_seq_ready", lambda delim: False)
     with obs.capture() as rec:

@@ -1,51 +1,124 @@
 """The docs/ tutorials, run on the port and held against the reference.
 
-Each runnable tutorial's ```python fences run twice, in sibling temporary
-directories: verbatim on the JAX package, and through
+Each runnable tutorial's ```python fences run twice, one after the other
+in the same temporary directory (the first run's files moved aside):
+verbatim on the JAX package, and through
 `torch_tutorial_harness.port_source` on the port with `device="cpu"`.
 The port's run must pass the tutorial's own asserts, and every file it
 writes under `workdir` must equal the reference's byte for byte (a
 config that names its own directory is compared with that path
-replaced). No file needs a float tolerance: at these sizes XLA's `log`,
-MI and impurity values print the same digits as the port's.
+replaced; the one path also gives the sidecar directories named from a
+hash of their corpus' path the same names). No file needs a float
+tolerance but three mutual-information files of the streaming tutorial
+(MI_FILES), those on its first 2,000 churn rows: their featureClassMI of
+field 5 prints 0.305637 on the port and 0.305638 on the reference, two
+adjacent float32 values on either side of the rounding edge
+(`tests/test_torch_explore.py::test_tutorial_mi_value_one_float32_ulp_from_jax`),
+so it is held within one unit in the 6th decimal, the rule that file
+holds MI to; every other token of those files is exact, and the
+tutorial's other MI files (on its grown corpus) are compared byte for
+byte.
 
-The reference also writes its columnar sidecar and autotune records
-under `workdir` (`.avenir_sidecar/`, `.avenir_tune/`); the port has
-neither module yet, so those two caches are the only files the port's
-run may lack.
+Both packages write the columnar sidecar (`.avenir_sidecar/`, and the
+directory a tutorial names in `stream.sidecar.dir`) in one format, so
+its files are compared like any other. The reference also writes
+autotune records (`.avenir_tune/`), which the port does not have: that
+cache is the only one the port's run may lack. An incremental
+checkpoint (a directory holding `MANIFEST.json` beside its
+`carry_<seq>_<hash8>.npz`) is compared by its manifest's fields: the
+port's carry holds its own dtypes (int64 and float64 counts), so its npz
+bytes, and the carry's name, size and hash built from them, are its own.
 """
+
+import json
 
 import os
 
 import pytest
-
+from test_torch_explore import assert_within_one_unit
 from torch_tutorial_harness import (RUNNABLE, TUTORIALS, WAITING, _device_slot,
                                     _port_call, fences, port_source,
                                     run_tutorial, written_files)
 
-#: the reference's caches under `workdir`, which the port does not write
-REFERENCE_ONLY = (".avenir_sidecar" + os.sep, ".avenir_tune" + os.sep)
+#: a tutorial's mutual-information files, held to the last printed value
+#: within one unit in the 6th decimal (every other token exact)
+MI_FILES = {"tutorial_scale_streaming.md": (
+    "mi_whole.txt", "mi_tiny.txt", "mi_s.txt")}
+
+#: the reference's cache under `workdir`, which the port does not write
+REFERENCE_ONLY = (".avenir_tune" + os.sep,)
+
+#: the checkpoint manifest's fields both packages write alike (the carry's
+#: `carry_file`, `carry_bytes` and `carry_hash` are each package's own,
+#: and the reference's `predicted_peak_bytes` prices its memory model)
+CHECKPOINT_FIELDS = ("format", "format_version", "job", "seq", "conf_digest",
+                     "inputs", "block_bytes", "watermarks", "fingerprints",
+                     "complete")
+
+
+def _checkpoints(files):
+    """Split the incremental checkpoints out of `files`: (the other files,
+    {checkpoint dir: its manifest's CHECKPOINT_FIELDS and carry count})."""
+    dirs = {os.path.dirname(k) for k in files
+            if os.path.basename(k).startswith("carry_")
+            and k.endswith(".npz")}
+    rest, ckpt = {}, {}
+    for k, v in files.items():
+        d = os.path.dirname(k)
+        if d not in dirs:
+            rest[k] = v
+        elif os.path.basename(k) == "MANIFEST.json":
+            man = json.loads(v)
+            ckpt.setdefault(d, {}).update(
+                {f: man[f] for f in CHECKPOINT_FIELDS})
+        else:
+            ckpt.setdefault(d, {})["carries"] = \
+                ckpt.get(d, {}).get("carries", 0) + 1
+    return rest, ckpt
 
 
 def test_excluded_set_is_exactly_the_two_waiting_tutorials():
+    """Of the two tutorials that waited, only the job server's still does."""
     assert sorted(set(TUTORIALS) - set(RUNNABLE)) == [
-        "tutorial_job_server.md", "tutorial_scale_streaming.md"]
+        "tutorial_job_server.md"]
     assert set(WAITING) <= set(TUTORIALS)
 
 
+def _quiet_shards(monkeypatch):
+    """The sharded runs of a tutorial mirror no straggler on a loaded box:
+    their default policy (both packages') waits 60 s, not 5, before it
+    folds a peer's claimed block again, so the fences' `Shard:DedupBlocks
+    == 0` holds however slowly a worker boots. Mirroring is timing, not
+    the bytes the test compares."""
+    import functools
+
+    import avenir_tpu.dist.driver as jax_driver
+    import avenir_tpu_torch.dist.driver as port_driver
+
+    for mod in (jax_driver, port_driver):
+        monkeypatch.setattr(mod, "StragglerPolicy", functools.partial(
+            mod.StragglerPolicy, mirror_floor_s=60.0))
+
+
 @pytest.mark.parametrize("name", RUNNABLE)
-def test_tutorial_runs_on_port(name, tmp_path):
-    ref, port = tmp_path / "ref", tmp_path / "port"
-    ref.mkdir()
-    port.mkdir()
-    run_tutorial(name, str(ref), port=False)
-    run_tutorial(name, str(port), port=True)
-    want = {k: v for k, v in written_files(str(ref)).items()
-            if not k.startswith(REFERENCE_ONLY)}
-    got = written_files(str(port))
+def test_tutorial_runs_on_port(name, tmp_path, monkeypatch):
+    _quiet_shards(monkeypatch)
+    work = tmp_path / "work"
+    work.mkdir()
+    run_tutorial(name, str(work), port=False)
+    want, want_ckpt = _checkpoints(
+        {k: v for k, v in written_files(str(work)).items()
+         if not k.startswith(REFERENCE_ONLY)})
+    work.rename(tmp_path / "ref")
+    work.mkdir()
+    run_tutorial(name, str(work), port=True)
+    got, got_ckpt = _checkpoints(written_files(str(work)))
     assert sorted(got) == sorted(want)
+    for k in MI_FILES.get(name, ()):
+        assert_within_one_unit(got.pop(k).decode(), want.pop(k).decode())
     differ = [k for k in sorted(want) if got[k] != want[k]]
     assert not differ, f"{name}: files differ from the reference's: {differ}"
+    assert got_ckpt == want_ckpt
 
 
 def test_rewrite_maps_imports_names_and_module_strings():

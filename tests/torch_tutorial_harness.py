@@ -34,7 +34,6 @@ TUTORIALS = sorted(
 #: tutorials whose modules the port does not have yet, and what they wait for
 WAITING = {
     "tutorial_job_server.md": "server/jobserver.py and net/",
-    "tutorial_scale_streaming.md": "dist/, run_incremental and the sidecar",
 }
 
 RUNNABLE = [t for t in TUTORIALS if t not in WAITING]
