@@ -2,6 +2,8 @@
 
 The `hadoop jar avenir.jar <ToolClass> -Dconf.path=<props> IN OUT` surface
 without the JVM; job names or full reference Tool class names are accepted.
+`python -m avenir_tpu_torch serve|fleet|stats ...` runs the job server, a
+fleet of them, or the metrics report (`runner.run_from_cli`).
 """
 
 import sys

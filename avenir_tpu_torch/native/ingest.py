@@ -1134,12 +1134,18 @@ class SpillScanMixin:
         source's segment can still replay in full: the precondition of
         serving a repeat mining request from this source with no CSV
         parse (runner.run_warm_miner). Any change to the corpus fails
-        it. Like `cache_replays`, its caller is the job server's warm
-        store, not ported yet: only the tests call it."""
+        it. Its caller is the job server's warm store."""
         c = self._cache
         if c is None or self._item_counts is None:
             return False
         return all(c.source_valid(i) for i in range(len(self.paths)))
+
+    def cache_evict_to(self, byte_budget: int) -> int:
+        """Trim the spill toward `byte_budget` through the cache's own
+        segment eviction (`EncodedBlockCache.evict_to`); the bytes
+        evicted, 0 when the cache is off."""
+        return (self._cache.evict_to(byte_budget)
+                if self._cache is not None else 0)
 
     @property
     def cache_nbytes(self) -> int:

@@ -885,9 +885,14 @@ class SidecarHandle:
     manifest against the current corpus bytes, ``cache_nbytes`` is its
     footprint on disk, and ``close()`` deletes the directory (a scan
     holding the open segment finishes unharmed; the next scan parses and
-    packs again). The reference's job server pins these under its warm
-    store's byte budget; the port has no job server yet, so only the
-    tests hold a handle."""
+    packs again). The job server's warm store pins these under its byte
+    budget, with the same protocol as the miners' streaming sources."""
+
+    #: the pinned state is a cache on disk that outlives the process: the
+    #: warm store drops the pin without close() at shutdown or when it
+    #: pins the same directory again; only an eviction or a stale
+    #: manifest deletes the directory
+    cache_durable = True
 
     def __init__(self, path: str, dirpath: str):
         self.path = os.path.abspath(path)
@@ -907,6 +912,15 @@ class SidecarHandle:
     @property
     def cache_nbytes(self) -> int:
         return sidecar_nbytes(self.dirpath)
+
+    def cache_evict_to(self, byte_budget: int) -> int:
+        """A sidecar is one unit, so any budget below its size evicts it
+        whole; the bytes evicted."""
+        nb = self.cache_nbytes
+        if nb <= byte_budget:
+            return 0
+        self.close()
+        return nb
 
     def close(self) -> None:
         sched_point("warm.evict")

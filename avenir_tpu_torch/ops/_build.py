@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List
@@ -97,6 +98,10 @@ INFO = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: held around build-and-bind: threads of one process (the job server's
+#: executors, the score plane's dispatcher) may reach a kernel for the
+#: first time at once, and must run nvcc once between them
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -131,7 +136,7 @@ def build_all(csrc: Path = CSRC, names: Iterable[str] = LIBRARIES
         lib = out / f"lib{name}.so"
         if lib.exists():
             continue
-        tmp = out / f".lib{name}.{os.getpid()}.so"
+        tmp = out / f".lib{name}.{os.getpid()}.{threading.get_ident()}.so"
         log = open(out / f"{name}.log", "w")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / src)]
         jobs.append((name, lib, tmp, log, time.perf_counter(),
@@ -165,10 +170,16 @@ def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The bound library `name`, built first if it is not yet."""
-    if name not in _loaded:
-        path = build_dir() / f"lib{name}.so"
-        if not path.exists():
-            build_all()
-        _loaded[name] = bind(ctypes.CDLL(str(path)), name)
-    return _loaded[name]
+    """The bound library `name`, built first if it is not yet. Safe from
+    several threads at once: one of them builds and binds, the others
+    wait for it."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    with _load_lock:
+        if name not in _loaded:
+            path = build_dir() / f"lib{name}.so"
+            if not path.exists():
+                build_all()
+            _loaded[name] = bind(ctypes.CDLL(str(path)), name)
+        return _loaded[name]

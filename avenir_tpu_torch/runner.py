@@ -649,7 +649,10 @@ class _MinerScanFold:
     finish() runs the later rounds, which replay the encoded-block cache
     pass 1 spilled (`stream.encoded.cache`, default true) instead of
     re-reading the inputs. The port of `avenir_tpu/runner.py`
-    `_MinerScanFold`, without the job server's `keep_sources`."""
+    `_MinerScanFold`. The job server sets `keep_sources` (through
+    run_shared's `fold_hook`) to adopt the still-open source, and its
+    committed encoded-block cache, after finish(): a repeat mining
+    request then replays encoded blocks instead of parsing the CSV."""
 
     def __init__(self, cfg: JobConfig, inputs: Sequence[str],
                  device: torch.device, job: str):
@@ -662,6 +665,7 @@ class _MinerScanFold:
         self._sink = self.src.scan_consumer()
         self._sealed = False
         self._shards: List["_MinerScanFold"] = []
+        self.keep_sources = False
 
     def consume(self, data: bytes) -> None:
         self._sink.consume(data)
@@ -685,8 +689,9 @@ class _MinerScanFold:
         res = finish_miner_levels(self.job, self.cfg, levels, n_rows,
                                   time.perf_counter() - self.t0, output,
                                   _cache_counters(self.src))
-        for src in srcs:
-            src.close()
+        if not self.keep_sources:
+            for src in srcs:
+                src.close()
         return res
 
     def merge(self, other: "_MinerScanFold") -> "_MinerScanFold":
@@ -1015,7 +1020,9 @@ def _fused_specs(specs, jobs: str, group: str):
 
 def run_shared(specs: Sequence[Tuple[str, object, str]],
                inputs: Sequence[str],
-               device: DeviceLike = None) -> Dict[str, JobResult]:
+               device: DeviceLike = None,
+               fold_hook: Optional[Callable] = None
+               ) -> Dict[str, JobResult]:
     """Run N streamed jobs over the same inputs with one scan.
 
     `specs` is a sequence of (job name, conf, output path). Every job must
@@ -1030,9 +1037,11 @@ def run_shared(specs: Sequence[Tuple[str, object, str]],
 
     The feed goes through the columnar sidecar (bytes-kind jobs when they
     agree on `skip.field.count`, which the packed format is keyed to), and
-    each result carries the delta-scan counters (DELTA_COUNTERS). The
-    reference's autotune session and `Mem:*` counters, and its
-    `fold_hook` for the job server, are not ported."""
+    each result carries the delta-scan counters (DELTA_COUNTERS).
+    `fold_hook(canonical, fold)`, when given, is called with each fold
+    sink right after it is built: the job server's warm-state tap (it
+    sets a miner fold's `keep_sources`). It must not consume chunks. The
+    reference's autotune session and `Mem:*` counters are not ported."""
     from avenir_tpu_torch.core.stream import (SharedScan,
                                               stream_job_byte_blocks,
                                               stream_job_inputs)
@@ -1055,6 +1064,8 @@ def run_shared(specs: Sequence[Tuple[str, object, str]],
     folds = []
     for canonical, cfg, ops, output in built:
         fold = ops.factory(cfg, list(inputs), schema, dev)
+        if fold_hook is not None:
+            fold_hook(canonical, fold)
         folds.append((canonical, fold, output))
         scan.add_sink(fold, label=canonical)
     t0 = obs.now()
@@ -1078,8 +1089,7 @@ def run_warm_miner(name: str, conf, inputs: Sequence[str], output: str,
     parameters come from `conf`, which pass 1 does not depend on. The
     files are the cold `run_job`'s byte for byte; the throughput counters
     price the mining alone. Its caller is the job server's warm store
-    (the reference's `server/jobserver.py`, not ported yet): no path of
-    the port calls it but the tests."""
+    (`server/jobserver.py`)."""
     canonical, cfg = _job_cfg(name, conf)
     if canonical not in (_APRIORI, _GSP):
         raise ValueError(
@@ -3315,7 +3325,26 @@ def run_from_cli(argv: Sequence[str]) -> JobResult:
     worker's stats under "workers". `--incremental` refreshes a streamed
     job from its last checkpoint (`run_incremental`); with `--shard N`,
     across N workers (`dist.run_sharded_refresh`), which the miners
-    refuse."""
+    refuse.
+
+    `python -m avenir_tpu_torch serve ...` starts the resident job
+    server instead (server/spool.py: `--stdin`, `--spool DIR` or
+    `--listen HOST:PORT` behind the HTTP edge of net/listener.py),
+    `fleet --root DIR --hosts N` runs N servers behind the affinity
+    router (net/fleet.py), and `stats <paths...>` renders one server's
+    metrics.json or a fleet's, merged (obs/report.py). Each takes
+    `--device cpu` but `stats`, which reads files only."""
+    subcommands = {"serve": ("avenir_tpu_torch.server.spool", "serve_main"),
+                   "fleet": ("avenir_tpu_torch.net.fleet", "fleet_main"),
+                   "stats": ("avenir_tpu_torch.obs.report", "stats_main")}
+    if argv and argv[0] in subcommands:
+        import importlib
+
+        mod, fn = subcommands[argv[0]]
+        rc = getattr(importlib.import_module(mod), fn)(list(argv[1:]))
+        if rc:
+            sys.exit(rc)
+        return JobResult(argv[0])
     ap = argparse.ArgumentParser(prog="avenir_tpu_torch")
     ap.add_argument("jobname", help="job name or reference Tool class")
     ap.add_argument("--conf", default=None,

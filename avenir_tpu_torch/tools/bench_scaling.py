@@ -1,14 +1,39 @@
-"""The scale tripwires: the sharded driver, the delta scan, the sidecar.
+"""The scale tripwires: the sharded driver, the delta scan, the sidecar,
+the job server, the fleet, its faults and the score plane.
 
 The port of `bench_scaling.py`'s `host_parallel_capacity`,
-`shard_tripwire`, `incremental_tripwire` and `sidecar_tripwire` (without
-its job-server leg; the other tripwires wait for their modules):
+`shard_tripwire`, `incremental_tripwire`, `sidecar_tripwire` (without
+its job-server leg), `server_tripwire`, `fleet_tripwire`,
+`fleet_fault_tripwire` and `score_tripwire`, each with the reference's
+floor (the other tripwires wait for their modules):
 
     python -m avenir_tpu_torch.tools.bench_scaling [--tripwire shard|
-        incremental|sidecar] [--rows N] [--floor X] [--device cpu]
+        incremental|sidecar|server|fleet|fleet_fault|score] [--rows N]
+        [--floor X] [--device cpu]
 
 prints one JSON line (`--floor 0` records the speedups without a
-verdict on them; each tripwire has the reference's floor by default).
+verdict on them; `--rows` is the score tripwire's query count). Every
+run, job server and fleet host is on `device` (default cuda).
+
+**server_tripwire** (floor 1.5x at 10,000,000 rows): the reference's
+six-request, three-tenant load (the churn trio, markov, two identical
+Apriori requests) served by one JobServer against the six run one after
+another; equal artifacts, a batch of at least two, the served phase's
+peak RSS under budget + slack and the priced peak under the budget.
+
+**fleet_tripwire** (floor 1.5x, gated on a two-process capacity of at
+least 1.7): a 2-host fleet against a 1-host one, each host pinned to one
+core, on two rounds of the churn trio over two corpora; affinity hit
+rate at least 0.6, no budget entry passed, equal artifacts.
+
+**fleet_fault_tripwire** (no speed floor): a SIGKILLed host's leases
+requeue to the survivor (nothing lost, nothing conflicting, the host
+restarts), and a SIGSTOPped host's request is mirrored and answered.
+
+**score_tripwire** (floor 3x at 512 queries): 32 client threads into one
+coalescing ScorePlane against `score_once` row by row, then two
+JobServer + NetListener hosts behind a ScoreFront over keep-alive
+sockets; every row its solo twin's.
 
 **incremental_tripwire** (floor 5x at 10,000,000 rows): a seeded cold
 `run_incremental` of mutualInformation, a 1% append, then the timed cold
@@ -300,27 +325,42 @@ def shard_tripwire(rows: int = 10_000_000, floor: float = 1.5,
         shutil.rmtree(d, ignore_errors=True)
 
 
-def _churn_corpus(d: str, rows: int, seed: int) -> Tuple[str, str]:
+def _blob_corpus(path: str, rows: int, blob: str, blob_rows: int) -> str:
+    """`path` holding `blob` (`blob_rows` rows) repeated to about `rows`
+    rows; the reference's corpora are 100,000-row blobs repeated, and a
+    smaller `rows` (the CPU tests) writes the blob's first `rows` rows."""
+    if rows < blob_rows:
+        blob = "".join(blob.splitlines(keepends=True)[:rows])
+    with open(path, "w") as fh:
+        for _ in range(max(rows // blob_rows, 1)):
+            fh.write(blob)
+    return path
+
+
+def _churn_corpus(d: str, rows: int, seed: int, name: str = "churn.csv"
+                  ) -> Tuple[str, str]:
     """(csv, schema) of `rows` churn rows (a 100,000-row seeded blob
     repeated) in `d`."""
     from avenir_tpu_torch.data import churn_schema, generate_churn
 
-    blob = generate_churn(100_000, seed=seed, as_csv=True)
-    csv = os.path.join(d, "churn.csv")
-    with open(csv, "w") as fh:
-        for _ in range(max(rows // 100_000, 1)):
-            fh.write(blob)
+    csv = _blob_corpus(os.path.join(d, name), rows,
+                       generate_churn(100_000, seed=seed, as_csv=True),
+                       100_000)
     schema = os.path.join(d, "churn.json")
     churn_schema().save(schema)
     return csv, schema
 
 
-def _file_bytes(res) -> List[bytes]:
+def _bytes_of(paths: List[str]) -> List[bytes]:
     out = []
-    for path in sorted(res.outputs):
+    for path in sorted(paths):
         with open(path, "rb") as fh:
             out.append(fh.read())
     return out
+
+
+def _file_bytes(res) -> List[bytes]:
+    return _bytes_of(res.outputs)
 
 
 def _span_seconds(spans) -> Dict[str, float]:
@@ -521,24 +561,704 @@ def sidecar_tripwire(rows: int = 10_000_000, floor: float = 2.0,
         shutil.rmtree(d, ignore_errors=True)
 
 
-#: tripwire name -> (function, its default floor)
+def _seq_blob(n: int, seed: int) -> str:
+    """`n` rows of the reference's two-class L/M/H sequence corpus."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    states = ["L", "M", "H"]
+    lines = []
+    for i in range(n):
+        up = i % 2 == 0
+        s, toks = 1, []
+        for _ in range(6):
+            p = [0.1, 0.3, 0.6] if up else [0.6, 0.3, 0.1]
+            s = int(np.clip(s + rng.choice([-1, 0, 1], p=p), 0, 2))
+            toks.append(states[s])
+        lines.append(f"c{i},{'T' if up else 'F'}," + ",".join(toks))
+    return "\n".join(lines) + "\n"
+
+
+def server_load(churn: str, seq: str, schema: str) -> list:
+    """The reference's 6-request, 3-tenant mixed load: (tenant, job, conf,
+    corpus, tag) rows (the churn trio, markov, two identical Apriori
+    requests)."""
+    conf = lambda p: {f"{p}.feature.schema.file.path": schema}  # noqa: E731
+    mi_conf = {**conf("mut"),
+               "mut.mutual.info.score.algorithms":
+                   "mutual.info.maximization"}
+    fia_conf = {"fia.support.threshold": "0.3",
+                "fia.item.set.length": "2",
+                "fia.skip.field.count": "2"}
+    mst_conf = {"mst.model.states": "L,M,H",
+                "mst.class.label.field.ord": "1",
+                "mst.skip.field.count": "2",
+                "mst.class.labels": "T,F"}
+    return [
+        ("a", "bayesianDistr", conf("bad"), churn, "nb"),
+        ("b", "mutualInformation", mi_conf, churn, "mi"),
+        ("c", "fisherDiscriminant", conf("fid"), churn, "fid"),
+        ("c", "markovStateTransitionModel", mst_conf, seq, "mst"),
+        ("a", "frequentItemsApriori", fia_conf, seq, "fia_a"),
+        ("b", "frequentItemsApriori", fia_conf, seq, "fia_b"),
+    ]
+
+
+def server_tripwire(rows: int = 10_000_000, floor: float = 1.5,
+                    budget_mb: float = 3072.0, slack_mb: float = 512.0,
+                    device: str = "cuda") -> dict:
+    """The resident job server against one job at a time: `server_load`
+    served by one JobServer (2 workers) must beat the same six requests
+    run one after another through `run_job` by `floor` in jobs/min, every
+    served artifact equal to its sequential twin's. Admission must hold
+    the process: the peak RSS sampled during the served phase
+    (`analysis.mem._RssSampler`) stays under budget + slack, and the
+    priced peak under the budget. A warm-up on 500 rows runs each job
+    first, off the clock (the kernels build there)."""
+    from avenir_tpu_torch.analysis.mem import _read_rss_bytes, _RssSampler
+    from avenir_tpu_torch.data import generate_churn
+    from avenir_tpu_torch.runner import run_job
+    from avenir_tpu_torch.server import JobRequest, JobServer
+
+    d = tempfile.mkdtemp(prefix="avenir_server_tripwire_")
+    try:
+        churn, schema = _churn_corpus(d, rows, seed=31)
+        # the reference's 100,000-row blob; a smaller run draws its first
+        # `rows` rows alone (the same rows: one generator, in order)
+        seq_blob = _seq_blob(min(rows, 100_000), seed=32)
+        seq = _blob_corpus(os.path.join(d, "seq.csv"), rows, seq_blob,
+                           100_000)
+        load = server_load(churn, seq, schema)
+        warm_churn = os.path.join(d, "warm_churn.csv")
+        with open(warm_churn, "w") as fh:
+            fh.write(generate_churn(500, seed=33, as_csv=True))
+        warm_seq = _blob_corpus(os.path.join(d, "warm_seq.csv"), 500,
+                                seq_blob, 100_000)
+        for _t, job, cf, corpus, tag in load[:5]:
+            run_job(job, cf, [warm_churn if corpus == churn else warm_seq],
+                    os.path.join(d, f"warm_{tag}"), device=device)
+        # the served phase first, its RSS sampled alone: the sequential
+        # twin is not under admission
+        server = JobServer(budget_bytes=int(budget_mb * (1 << 20)),
+                           workers=2, state_root=os.path.join(d, "state"),
+                           device=device)
+        tickets = {tag: server.submit(JobRequest(
+                       job, cf, [corpus], os.path.join(d, f"srv_{tag}"),
+                       tenant=tenant))
+                   for tenant, job, cf, corpus, tag in load}
+        rss_before = _read_rss_bytes()
+        t0 = time.perf_counter()
+        with _RssSampler() as sampler:
+            server.start()
+            server.drain(timeout=7200)
+            _sync(device)
+        t_srv = time.perf_counter() - t0
+        served = {tag: t.result(timeout=60) for tag, t in tickets.items()}
+        stats = server.stats()
+        server.shutdown()
+        t0 = time.perf_counter()
+        seq_res = {tag: run_job(job, cf, [corpus],
+                                os.path.join(d, f"seq_{tag}"),
+                                device=device)
+                   for _t, job, cf, corpus, tag in load}
+        _sync(device)
+        t_seq = time.perf_counter() - t0
+        for *_rest, tag in load:
+            if _file_bytes(served[tag]) != _file_bytes(seq_res[tag]):
+                raise RuntimeError(f"served {tag}: an artifact differs from "
+                                   f"its sequential twin's")
+        speedup = t_seq / max(t_srv, 1e-9)
+        peak_rss = sampler.peak_rss / (1 << 20)
+        waits = sorted(r.counters["Server:QueueWaitMs"]
+                       for r in served.values())
+        batched = max(r.counters["Server:BatchSize"]
+                      for r in served.values())
+        row = {"rows": rows, "requests": len(load), "floor": floor,
+               "device": device, "t_served_s": t_srv,
+               "t_sequential_s": t_seq,
+               "jobs_per_min_sequential": len(load) / (t_seq / 60.0),
+               "jobs_per_min_served": len(load) / (t_srv / 60.0),
+               "speedup": speedup,
+               "p50_queue_wait_ms": waits[len(waits) // 2],
+               "p99_queue_wait_ms": waits[-1],
+               "max_batch_size": int(batched),
+               "coalesced": int(stats["coalesced"]),
+               "warm_hits": int(stats["warm_hits"]),
+               "rss_before_mb": rss_before / (1 << 20),
+               "peak_rss_mb": peak_rss,
+               "peak_device_mb": sampler.peak_live / (1 << 20),
+               "peak_priced_mb": stats["peak_priced_bytes"] / (1 << 20),
+               "budget_mb": budget_mb,
+               "outputs_byte_identical": True}
+        # every gate is read, and a failure carries the numbers
+        missed = []
+        if speedup < floor:
+            missed.append(f"served load only {speedup:.2f}x sequential "
+                          f"jobs/min (floor {floor}x)")
+        if peak_rss > budget_mb + slack_mb:
+            missed.append(
+                f"peak RSS {peak_rss:.0f} MB during the served phase "
+                f"exceeded the {budget_mb:.0f} MB budget + {slack_mb:.0f} "
+                f"MB slack")
+        if stats["peak_priced_bytes"] > budget_mb * (1 << 20):
+            missed.append(
+                f"admission let priced in-flight bytes "
+                f"({stats['peak_priced_bytes']:.0f}) past the budget")
+        if batched < 2:
+            missed.append("no request was batched")
+        if missed:
+            raise RuntimeError("; ".join(missed) + f": {json.dumps(row)}")
+        return row
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _sync(device: str) -> None:
+    if str(device).startswith("cuda"):
+        import torch
+
+        torch.cuda.synchronize()
+
+
+def _churn_trio(schema: str) -> list:
+    """(job, prefix, conf, tag) of the churn profiling trio."""
+    conf = lambda p: {f"{p}.feature.schema.file.path": schema}  # noqa: E731
+    mi_conf = {**conf("mut"), "mut.mutual.info.score.algorithms":
+               "mutual.info.maximization"}
+    return [("bayesianDistr", "bad", conf("bad"), "nb"),
+            ("mutualInformation", "mut", mi_conf, "mi"),
+            ("fisherDiscriminant", "fid", conf("fid"), "fid")]
+
+
+def fleet_tripwire(rows: int = 10_000_000, floor: float = 1.5,
+                   budget_mb: float = 3072.0, min_hit_rate: float = 0.6,
+                   rounds: int = 2, parallel_efficiency_floor: float = 0.75,
+                   device: str = "cuda") -> dict:
+    """A 2-host fleet against a 1-host one on the same open-loop load (the
+    churn trio over two corpora, `rounds` rounds: 6 x rounds requests),
+    each host pinned to one core and serving on `device`: the fleet must
+    beat the single host by ``min(floor, capacity x 0.75)`` in jobs/min
+    where the box's two-process capacity is at least 1.7 (else the
+    numbers are recorded without a verdict); the router's affinity hit
+    rate must reach `min_hit_rate` (round 2 returns to round 1's host);
+    no host's admission peak and no router assignment may pass its
+    budget entry; every first-round artifact equals its solo twin's."""
+    from avenir_tpu_torch.data import generate_churn
+    from avenir_tpu_torch.net.fleet import Fleet
+    from avenir_tpu_torch.runner import run_job
+
+    d = tempfile.mkdtemp(prefix="avenir_fleet_tripwire_")
+    try:
+        (c0, schema), (c1, _s) = (
+            _churn_corpus(d, rows, seed=seed, name=f"churn_{i}.csv")
+            for i, seed in enumerate((41, 43)))
+        corpora = [c0, c1]
+        trio = _churn_trio(schema)
+        load = []
+        for rnd in range(rounds):
+            for ci, corpus in enumerate(corpora):
+                for job, prefix, cf, short in trio:
+                    # an inert key in the conf digest: round 2 runs again
+                    # on its warm host instead of coalescing into round 1
+                    load.append((f"{short}_c{ci}_r{rnd}", {
+                        "job": job,
+                        "conf": {**cf, f"{prefix}.bench.round": str(rnd)},
+                        "inputs": [corpus], "tenant": f"tenant_{short}",
+                        "output": os.path.join(d, "served",
+                                               f"{short}_c{ci}_r{rnd}")}))
+        warm = os.path.join(d, "warm.csv")
+        with open(warm, "w") as fh:
+            fh.write(generate_churn(500, seed=45, as_csv=True))
+        n_cores = os.cpu_count() or 2
+
+        def run_arm(hosts: int) -> dict:
+            root = os.path.join(d, f"arm_{hosts}h")
+            fleet = Fleet(root, hosts=hosts, workers=1, budget_mb=budget_mb,
+                          metrics_interval_s=0.5,
+                          pin_cores=[i % n_cores for i in range(hosts)],
+                          device=device)
+            with fleet:
+                # every host builds its kernels and warms up off the clock
+                fleet.collect([fleet.submit_to(h, {
+                    "job": job, "conf": cf, "inputs": [warm],
+                    "output": os.path.join(root, f"warm_{h}_{short}")})
+                    for h in range(hosts) for job, _p, cf, short in trio],
+                    timeout=600)
+                t0 = time.perf_counter()
+                names = {tag: fleet.submit(dict(obj, output=os.path.join(
+                             d, "served", f"{hosts}h_{tag}")))
+                         for tag, obj in load}
+                got = fleet.collect(list(names.values()), timeout=7200)
+                dt = time.perf_counter() - t0
+                rows_by_tag = {tag: got[n] for tag, n in names.items()}
+                router = fleet.router.snapshot()
+                hit_rate = fleet.router.affinity_hit_rate()
+            bad = [t for t, r in rows_by_tag.items() if not r.get("ok")]
+            if bad:
+                raise RuntimeError(
+                    f"{hosts}-host arm failed requests {bad}: "
+                    f"{rows_by_tag[bad[0]].get('error')}")
+            per_host = []
+            for i in range(hosts):
+                with open(os.path.join(root, f"host{i}",
+                                       "metrics.json")) as fh:
+                    hs = json.load(fh)
+                peak = hs["inflight"]["peak_priced_bytes"]
+                if peak > budget_mb * (1 << 20):
+                    raise RuntimeError(
+                        f"host {i} admission peak {peak} breached its "
+                        f"{budget_mb} MB budget entry")
+                per_host.append({
+                    "host": i, "served": hs["stats"].get("served", 0.0),
+                    "p99_queue_wait_ms": hs["hists"].get(
+                        "queue_wait_ms", {}).get("p99", 0.0),
+                    "peak_priced_mb": peak / (1 << 20)})
+            for h in router["hosts"]:
+                if h["peak_assigned_bytes"] > h["budget_bytes"]:
+                    raise RuntimeError(f"router assigned host {h['host']} "
+                                       f"past its budget entry")
+            return {"wall_s": dt, "jobs_per_min": len(load) / (dt / 60.0),
+                    "hit_rate": hit_rate, "router": router["stats"],
+                    "per_host": per_host, "rows": rows_by_tag}
+
+        cap_before = host_parallel_capacity(2)
+        solo = run_arm(1)
+        fleet_arm = run_arm(2)
+        capacity = min(cap_before, host_parallel_capacity(2))
+        for tag, obj in load[:6]:
+            twin = run_job(obj["job"], obj["conf"], obj["inputs"],
+                           os.path.join(d, "twin", tag), device=device)
+            if _file_bytes(twin) != _bytes_of(
+                    fleet_arm["rows"][tag]["outputs"]):
+                raise RuntimeError(f"fleet {tag}: an artifact differs from "
+                                   f"its solo twin's")
+        speedup = solo["wall_s"] / max(fleet_arm["wall_s"], 1e-9)
+        effective_floor = min(floor, capacity * parallel_efficiency_floor)
+        gated = capacity >= 1.7
+        if gated and speedup < effective_floor:
+            raise RuntimeError(
+                f"2-host fleet only {speedup:.2f}x the 1-host server "
+                f"(floor {effective_floor:.2f}x; solo {solo['wall_s']:.2f}"
+                f" s, fleet {fleet_arm['wall_s']:.2f} s)")
+        if fleet_arm["hit_rate"] < min_hit_rate:
+            raise RuntimeError(
+                f"affinity hit rate {fleet_arm['hit_rate']:.2f} under the "
+                f"{min_hit_rate} floor")
+        return {"rows": rows, "requests": len(load), "floor": floor,
+                "device": device, "effective_floor": effective_floor,
+                "host_parallel_capacity": capacity,
+                "throughput_gated": gated, "speedup": speedup,
+                "t_solo_s": solo["wall_s"], "t_fleet_s": fleet_arm["wall_s"],
+                "jobs_per_min_solo": solo["jobs_per_min"],
+                "jobs_per_min_fleet": fleet_arm["jobs_per_min"],
+                "affinity_hit_rate": fleet_arm["hit_rate"],
+                "router": fleet_arm["router"],
+                "per_host": fleet_arm["per_host"],
+                "outputs_byte_identical": True}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def fleet_fault_tripwire(rows: int = 10_000_000, budget_mb: float = 3072.0,
+                         device: str = "cuda",
+                         lease_ttl_s: float = 2.0) -> dict:
+    """Dying and stalled hosts lose and corrupt nothing (no speed floor).
+
+    **Chaos leg**: a 2-host fleet serves the churn trio over two corpora;
+    once the first result lands, the host holding the most unfinished
+    leases is SIGKILLed (stopped first, and killed only while a leased
+    request of its has no result row: the kill strands work). Every request yields an ok row, each artifact
+    equals its solo twin's, at least one requeue fired, no lease is
+    left, and the killed host restarts and serves again.
+
+    **Hedging leg**: both hosts warmed, one SIGSTOPped, a fresh corpus
+    placed on it: the front mirrors it to the other host (router hedges
+    >= 1), the first result wins while the original is stopped, with no
+    requeue or restart; the late original's bytes equal the twin's.
+
+    `lease_ttl_s` is the reference's 2 s."""
+    from avenir_tpu_torch.data import generate_churn
+    from avenir_tpu_torch.net.fault import FaultPolicy
+    from avenir_tpu_torch.net.fleet import Fleet
+    from avenir_tpu_torch.runner import run_job
+
+    d = tempfile.mkdtemp(prefix="avenir_fleet_fault_")
+    try:
+        (c0, schema), (c1, _s) = (
+            _churn_corpus(d, rows, seed=seed, name=f"churn_{i}.csv")
+            for i, seed in enumerate((61, 67)))
+        corpora = [c0, c1]
+        trio = _churn_trio(schema)
+        load = [(f"{short}_c{ci}", {
+                    "job": job, "conf": cf, "inputs": [corpus],
+                    "tenant": f"tenant_{short}",
+                    "output": os.path.join(d, "served", f"{short}_c{ci}")})
+                for ci, corpus in enumerate(corpora)
+                for job, _p, cf, short in trio]
+        warm = os.path.join(d, "warm.csv")
+        with open(warm, "w") as fh:
+            fh.write(generate_churn(500, seed=71, as_csv=True))
+        n_cores = os.cpu_count() or 2
+        pin = [i % n_cores for i in range(2)]
+
+        chaos_policy = FaultPolicy(
+            poll_interval_s=0.1, lease_ttl_s=lease_ttl_s,
+            restart_backoff_base_s=0.5, heartbeat_timeout_s=60.0,
+            hedge=False)
+        fleet = Fleet(os.path.join(d, "chaos"), hosts=2, workers=1,
+                      budget_mb=budget_mb, metrics_interval_s=0.5,
+                      pin_cores=pin, fault_policy=chaos_policy,
+                      device=device)
+        with fleet:
+            fleet.collect([fleet.submit_to(h, {
+                "job": job, "conf": cf, "inputs": [warm],
+                "output": os.path.join(d, "chaos", f"w_{h}_{short}")})
+                for h in range(2) for job, _p, cf, short in trio],
+                timeout=600)
+            names = {tag: fleet.submit(obj) for tag, obj in load}
+            deadline = time.perf_counter() + 3600
+            while not fleet.ready():
+                if time.perf_counter() > deadline:
+                    raise RuntimeError("no fleet result within 3600 s")
+                time.sleep(0.05)
+            # the victim: the host holding the most unfinished leases (the
+            # sweep races this loop; if the batch drains first, no kill)
+            # the victim: the host holding the most unfinished leases. It
+            # is stopped before its leases are read against the result
+            # rows on disk, so what the kill strands is known: a host
+            # whose leased requests all finished is resumed and the
+            # choice made again (if the batch drains first, no kill)
+            victim = victim_pid = None
+            stranded: List[str] = []
+            kill_deadline = time.perf_counter() + 60
+            while victim_pid is None \
+                    and time.perf_counter() < kill_deadline:
+                held: Dict[int, List[str]] = {}
+                for lease_name in fleet._leases.names():
+                    lease = fleet._leases.load(lease_name)
+                    if lease is not None:
+                        held.setdefault(lease.host, []).append(lease_name)
+                if not held and not fleet._outstanding:
+                    break
+                victim = max(held, key=lambda h: len(held[h])) \
+                    if held else None
+                pid = fleet.host_pid(victim) if held else None
+                if pid is None:
+                    time.sleep(0.02)
+                    continue
+                os.kill(pid, signal.SIGSTOP)
+                with fleet._lock:
+                    paths = {n: [c.out_path for c in fleet._outstanding[n]
+                                 .copies] for n in held[victim]
+                             if n in fleet._outstanding}
+                stranded = [n for n, ps in paths.items()
+                            if not any(os.path.exists(p) for p in ps)]
+                if stranded:
+                    victim_pid = pid
+                else:
+                    os.kill(pid, signal.SIGCONT)
+                    time.sleep(0.02)
+            killed = victim_pid is not None
+            if killed:
+                os.kill(victim_pid, signal.SIGKILL)
+            got = fleet.collect(list(names.values()), timeout=7200)
+            rows_by_tag = {tag: got[n] for tag, n in names.items()}
+            bad = [t for t, r in rows_by_tag.items() if not r.get("ok")]
+            if bad:
+                raise RuntimeError(
+                    f"chaos leg lost/failed requests {bad}: "
+                    f"{rows_by_tag[bad[0]].get('error')}")
+            chaos_snap = fleet.fault_snapshot()
+            if killed and chaos_snap["stats"]["requeues"] < 1:
+                raise RuntimeError("chaos leg: SIGKILL stranded no lease")
+            if chaos_snap["leases_outstanding"] != 0:
+                raise RuntimeError(f"chaos leg leaked "
+                                   f"{chaos_snap['leases_outstanding']} "
+                                   f"lease(s)")
+            t0 = time.perf_counter()
+            while killed:
+                snap = fleet.fault_snapshot()
+                if snap["stats"]["restarts"] >= 1 \
+                        and snap["hosts"][victim]["state"] == "serving":
+                    break
+                if time.perf_counter() - t0 > 120:
+                    raise RuntimeError(f"killed host {victim} never "
+                                       f"reintegrated: {snap}")
+                time.sleep(0.1)
+        for tag, obj in load:
+            twin = run_job(obj["job"], obj["conf"], obj["inputs"],
+                           os.path.join(d, "twin", tag), device=device)
+            if _file_bytes(twin) != _bytes_of(rows_by_tag[tag]["outputs"]):
+                raise RuntimeError(f"chaos leg {tag}: an artifact differs "
+                                   f"from its solo twin's (a conflicting "
+                                   f"result)")
+
+        hedge_policy = FaultPolicy(
+            poll_interval_s=0.1, hedge_multiple=2.0, hedge_floor_ms=500.0,
+            lease_ttl_s=3600.0, heartbeat_timeout_s=3600.0)
+        hedge_fleet = Fleet(os.path.join(d, "hedge"), hosts=2, workers=1,
+                            budget_mb=budget_mb, metrics_interval_s=0.5,
+                            pin_cores=pin, fault_policy=hedge_policy,
+                            device=device)
+        job, _prefix, cf, short = trio[0]
+        with hedge_fleet:
+            hedge_fleet.collect([hedge_fleet.submit_to(h, {
+                "job": job, "conf": cf, "inputs": [warm],
+                "output": os.path.join(d, "hedge", f"w_{h}")})
+                for h in range(2)], timeout=600)
+            # the hedge gate reads each host's served tail from its
+            # heartbeat snapshot: wait for both before stopping one
+            t0 = time.perf_counter()
+            while not all(n >= 1 for _p, n
+                          in hedge_fleet._rolled_p99().values()):
+                if time.perf_counter() - t0 > 60:
+                    raise RuntimeError(
+                        "host heartbeats never reflected the warm-ups")
+                time.sleep(0.1)
+            os.kill(hedge_fleet.host_pid(0), signal.SIGSTOP)
+            try:
+                hname = hedge_fleet.submit({
+                    "job": job, "conf": cf, "inputs": [corpora[0]],
+                    "tenant": "hedge",
+                    "output": os.path.join(d, "served", "hedged")})
+                hrow = hedge_fleet.collect([hname], timeout=7200)[hname]
+            finally:
+                os.kill(hedge_fleet.host_pid(0), signal.SIGCONT)
+            if not hrow.get("ok"):
+                raise RuntimeError(f"hedging leg request failed: "
+                                   f"{hrow.get('error')}")
+            hedges = hedge_fleet.router.stats["hedges"]
+            hsnap = hedge_fleet.fault_snapshot()
+            if hedges < 1:
+                raise RuntimeError("hedging leg: the stalled host never "
+                                   "triggered a mirror")
+            if hsnap["stats"]["requeues"] or hsnap["stats"]["restarts"]:
+                raise RuntimeError(f"hedging leg: a stall must hedge, not "
+                                   f"requeue or restart ({hsnap['stats']})")
+        twin = run_job(job, cf, [corpora[0]],
+                       os.path.join(d, "twin", "hedged"), device=device)
+        if _file_bytes(twin) != _bytes_of(hrow["outputs"]):
+            raise RuntimeError("the hedged artifact differs from its solo "
+                               "twin's")
+        return {"rows": rows, "requests": len(load), "device": device,
+                "lease_ttl_s": lease_ttl_s,
+                "chaos_requeues": int(chaos_snap["stats"]["requeues"]),
+                "chaos_restarts": int(chaos_snap["stats"]["restarts"]),
+                "victim_host": int(victim) if killed else None,
+                "chaos_kill_skipped": not killed,
+                "stranded_at_kill": len(stranded), "hedges": int(hedges),
+                "zero_lost": True, "zero_conflicting": True,
+                "outputs_byte_identical": True}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def score_tripwire(queries: int = 512, floor: float = 3.0,
+                   p99_ceiling_ms: float = 250.0, min_hit_rate: float = 0.9,
+                   fleet_scores_per_model: int = 40,
+                   device: str = "cuda") -> dict:
+    """The score plane's coalescing and the score fleet, on `device`.
+
+    **Coalescing leg**: `queries` markov scores (a 24-state model) from
+    32 client threads into one ScorePlane (2 ms window, batch 64) must
+    beat the same rows scored one by one through `score_once` (load,
+    predict one row, drop) by `floor` in scores/s, with one model load,
+    fewer predicts than requests, every row equal to its solo twin, and
+    the per-model p99 under `p99_ceiling_ms`.
+
+    **Fleet leg**: two in-process JobServer + NetListener hosts behind a
+    ScoreFront, two models over keep-alive sockets: affinity hit rate at
+    least `min_hit_rate`, every wire row equal to its solo twin, and the
+    merged snapshot holding both models' histograms and every score."""
+    import math
+
+    from avenir_tpu_torch.net.fleet import ScoreFront
+    from avenir_tpu_torch.net.listener import NetListener
+    from avenir_tpu_torch.obs.report import merge_snapshots
+    from avenir_tpu_torch.runner import run_job
+    from avenir_tpu_torch.server import JobServer
+    from avenir_tpu_torch.server.score import (ScorePlane, ScoreRequest,
+                                               score_once)
+
+    states = tuple(f"s{i:02d}" for i in range(24))
+    mst_conf = {"mst.model.states": ",".join(states),
+                "mst.class.label.field.ord": "1",
+                "mst.skip.field.count": "2", "mst.class.labels": "T,F"}
+    score_conf = {"field.delim": ",", "class.labels": "T,F",
+                  "log.odds.threshold": "0", "skip.field.count": "2"}
+
+    def seq_rows(start: int, n: int) -> list:
+        return [f"c{i}," + ("T" if i % 2 else "F") + ","
+                + ",".join(states[(i + j) % len(states)] for j in range(6))
+                for i in range(start, start + n)]
+
+    d = tempfile.mkdtemp(prefix="avenir_score_tripwire_")
+    try:
+        models = []
+        for m, start in enumerate((0, 7)):
+            corpus = os.path.join(d, f"train_{m}.csv")
+            with open(corpus, "w") as fh:
+                fh.write("\n".join(seq_rows(start, 600)) + "\n")
+            model = os.path.join(d, f"model_{m}.txt")
+            run_job("markovStateTransitionModel", dict(mst_conf), [corpus],
+                    model, device=device)
+            models.append(model)
+        model = models[0]
+        rows = [seq_rows(i * 3, 6)[0] for i in range(queries)]
+        score_once("markov", model, rows[0], score_conf, device=device)
+        t0 = time.perf_counter()
+        solo = [score_once("markov", model, r, score_conf, device=device)
+                for r in rows]
+        t_solo = time.perf_counter() - t0
+        plane = ScorePlane(window_ms=2.0, batch_max=64, device=device)
+        try:
+            plane.score(ScoreRequest("markov", model, rows[0],
+                                     dict(score_conf)))
+            warm_predicts = plane.predict_calls(model)
+            out = [None] * queries
+            n_threads = 32
+
+            def client(t: int) -> None:
+                for i in range(t, queries, n_threads):
+                    out[i] = plane.score(ScoreRequest(
+                        "markov", model, rows[i], dict(score_conf)),
+                        timeout=60.0).row
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            t_plane = time.perf_counter() - t0
+            predicts = plane.predict_calls(model) - warm_predicts
+            stats = plane.snapshot()["stats"]
+            name = os.path.splitext(os.path.basename(model))[0]
+            summary = plane.hist_summaries()[f"score_{name}_total_ms"]
+        finally:
+            plane.close()
+        for i, (a, b) in enumerate(zip(solo, out)):
+            if a != b:
+                raise RuntimeError(f"coalesced row {i} differs from its "
+                                   f"solo twin ({b!r} vs {a!r})")
+        if stats["model_loads"] != 1:
+            raise RuntimeError(f"the plane loaded the model "
+                               f"{stats['model_loads']} times")
+        if predicts >= queries:
+            raise RuntimeError(f"{predicts} predicts for {queries} "
+                               f"requests: the window never coalesced")
+        speedup = t_solo / max(t_plane, 1e-9)
+        if speedup < floor:
+            raise RuntimeError(
+                f"coalesced scoring only {speedup:.2f}x the solo reference "
+                f"(floor {floor}x; solo {t_solo:.2f} s, plane "
+                f"{t_plane:.2f} s)")
+        if summary["p99"] > p99_ceiling_ms:
+            raise RuntimeError(f"score p99 {summary['p99']:.1f} ms past "
+                               f"the {p99_ceiling_ms} ms ceiling")
+
+        fleet_rows = rows[:fleet_scores_per_model]
+        solo_by_model = {m: [score_once("markov", m, r, score_conf,
+                                        device=device) for r in fleet_rows]
+                         for m in models}
+        servers = [JobServer(workers=1, state_root=os.path.join(d, f"h{i}"),
+                             device=device).start() for i in range(2)]
+        listeners = [NetListener(s, port=0).start() for s in servers]
+        try:
+            front = ScoreFront([f"http://127.0.0.1:{lis.port}"
+                                for lis in listeners])
+            wire = {m: [None] * len(fleet_rows) for m in models}
+
+            def fleet_client(m: str) -> None:
+                for i, r in enumerate(fleet_rows):
+                    wire[m][i] = front.score("markov", m, r,
+                                             conf=dict(score_conf),
+                                             timeout=60.0)["row"]
+
+            fthreads = [threading.Thread(target=fleet_client, args=(m,))
+                        for m in models]
+            for t in fthreads:
+                t.start()
+            for t in fthreads:
+                t.join()
+            hit_rate = front.router.affinity_hit_rate()
+            front.close()
+            snap = merge_snapshots([s.metrics_snapshot() for s in servers])
+        finally:
+            for lis in listeners:
+                lis.stop()
+            for srv in servers:
+                srv.shutdown()
+        for m in models:
+            for i, (a, b) in enumerate(zip(solo_by_model[m], wire[m])):
+                if a != b:
+                    raise RuntimeError(f"fleet row {i} of {m} differs from "
+                                       f"its solo twin ({b!r} vs {a!r})")
+        if hit_rate < min_hit_rate:
+            raise RuntimeError(f"score affinity hit rate {hit_rate:.2f} "
+                               f"under the {min_hit_rate} floor")
+        total = 2 * len(fleet_rows)
+        fleet_stats = (snap.get("score") or {}).get("stats", {})
+        if int(fleet_stats.get("scores", 0)) != total:
+            raise RuntimeError(f"merged snapshot counts "
+                               f"{fleet_stats.get('scores')} scores, "
+                               f"{total} were served")
+        missing = [m for m in models
+                   if "score_" + os.path.splitext(os.path.basename(m))[0]
+                   .replace(".", "_") + "_total_ms"
+                   not in (snap.get("hists_raw") or {})]
+        if missing:
+            raise RuntimeError(f"merged snapshot lacks the score "
+                               f"histograms of {missing}")
+        return {"queries": queries, "floor": floor, "device": device,
+                "speedup": speedup, "t_solo_s": t_solo,
+                "t_plane_s": t_plane,
+                "scores_per_s_solo": queries / t_solo,
+                "scores_per_s_coalesced": queries / max(t_plane, 1e-9),
+                "vectorized_dispatches": int(predicts),
+                "dispatch_bound": int(math.ceil(queries / 64)),
+                "model_loads": int(stats["model_loads"]),
+                "p50_total_ms": summary["p50"],
+                "p99_total_ms": summary["p99"],
+                "p99_ceiling_ms": p99_ceiling_ms,
+                "fleet_scores": total,
+                "fleet_affinity_hit_rate": hit_rate,
+                "rows_byte_identical": True}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+#: tripwire name -> (function, its default floor; None: no speed floor)
 TRIPWIRES = {"shard": (shard_tripwire, 1.5),
              "incremental": (incremental_tripwire, 5.0),
-             "sidecar": (sidecar_tripwire, 2.0)}
+             "sidecar": (sidecar_tripwire, 2.0),
+             "server": (server_tripwire, 1.5),
+             "fleet": (fleet_tripwire, 1.5),
+             "fleet_fault": (fleet_fault_tripwire, None),
+             "score": (score_tripwire, 3.0)}
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="avenir_tpu_torch.tools.bench_scaling")
     ap.add_argument("--tripwire", choices=sorted(TRIPWIRES), default="shard")
-    ap.add_argument("--rows", type=int, default=10_000_000)
+    ap.add_argument("--rows", type=int, default=10_000_000,
+                    help="corpus rows (the score tripwire: its queries, "
+                         "default 512)")
     ap.add_argument("--floor", type=float, default=None,
                     help="the speedup floor (default: the tripwire's own)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     fn, floor = TRIPWIRES[args.tripwire]
-    print(json.dumps(fn(rows=args.rows,
-                        floor=floor if args.floor is None else args.floor,
-                        device=args.device)))
+    kwargs = {"device": args.device}
+    if args.tripwire == "score":
+        if args.rows != ap.get_default("rows"):
+            kwargs["queries"] = args.rows
+    else:
+        kwargs["rows"] = args.rows
+    if floor is not None:
+        kwargs["floor"] = floor if args.floor is None else args.floor
+    print(json.dumps(fn(**kwargs)))
 
 
 if __name__ == "__main__":

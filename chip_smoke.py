@@ -400,7 +400,8 @@ Phases, each printing a line per check; any failed check exits non-zero:
    in a fresh process, its line holding its workers' stats: bytes equal
    to the solo run's, per-k rounds and the workers' launches as above.
    Phases 6, 11, 12 and 14 leave their corpora
-   in `build/chip_smoke_corpora/` for it and phase 22.
+   in `build/chip_smoke_corpora/` for it and phases 22-23 (phase 3 its
+   e-learning CSVs for phase 23, which removes the directory).
 22. The delta scan and the columnar sidecar (after phase 21, on copies of
    its churn rows and sequences; 4 MB blocks): a cold `run_incremental`
    of mutualInformation, bayesianDistr, fisherDiscriminant and GSP, each
@@ -424,6 +425,29 @@ Phases, each printing a line per check; any failed check exits non-zero:
    (stream.checkpoint.interval.mb = 8), and the resume from it:
    Resume:SkippedBytes equal to the checkpoint's watermark, bytes equal
    to the cold run's.
+23. The resident job server and the network edge (`server/`, `net/`) on
+   the card. One `JobServer(workers=1)` takes bayesianDistr,
+   mutualInformation and fisherDiscriminant from three tenants over
+   phase 6's 1,000,000 churn rows (the sidecar off, so the scan parses),
+   submitted before `start()`: Server:BatchSize 3, each file equal to the
+   solo `run_job` on the card and to its CPU twin, the batch's seconds
+   printed beside the solo runs' sum. Phase 3's nearestNeighbor served
+   in its default and fused-vote modes: each file equal to phase 3's,
+   `knn_topk` / `knn_classify_lanes` launched. GSP on phase 12's
+   sequences served twice: the second a warm hit (the pinned spill
+   cache: no `stream.parse` span, as many `subseq_support` launches as
+   the first, the same files); then a refresh request seeds the managed
+   checkpoint, SERVE_APPEND_ROWS sequences are appended, and a second
+   refresh restores it (Resume:SkippedBytes > 0) to a cold run's bytes.
+   A `NetListener` on 127.0.0.1:0: `POST /submit?wait=1` equal to the
+   solo run; SERVE_SCORES `POST /score` calls (the trio's NB model on
+   churn rows) over one keep-alive socket, each equal to `score_once`,
+   their p50 and p99 ms printed; `/metrics` and `/healthz`; one
+   deterministic 429 with Retry-After (a fixed pricer, the server not yet
+   started), then the held request served. A `Fleet` of SERVE_HOSTS
+   hosts (`serve --spool --device cuda`, fresh interpreters on the one
+   card): four requests, one host SIGKILLed after placement, every row
+   ok and equal to its solo bytes, requeues >= 1, no lease left.
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth, phase 12's GSP runs the fifth, phase 15's
@@ -431,9 +455,10 @@ KNN stream legs the sixth, phase 16's topMatchesByClass the seventh and
 its k-means the eighth, phase 18's library modules the ninth, phase
 19's conf jobs the tenth and phase 20's mesh the eleventh (no kernel on
 either), phase 21's sharded workers the twelfth (`shard`: the
-launches the workers report, summed) and phase 22's refreshes, sidecar
-packs and replays the thirteenth (`incremental`): each kernel's launches
-are counted from zero on each path. Then one JSON
+launches the workers report, summed), phase 22's refreshes, sidecar
+packs and replays the thirteenth (`incremental`) and phase 23's served
+requests the fourteenth (`serve`): each kernel's launches are counted
+from zero on each path. Then one JSON
 line of per-kernel numbers (the pre-pass beside the five kernels, at the
 sweep's D=128 float32; the tensor-core form at the bench's D=128
 bfloat16; the two merge kernels at the job's shape; the walk at the
@@ -456,6 +481,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 NQ, NT, K = 8192, 131072, 5
+#: phase 3's job conf and the files of its modes, which phase 23 serves
+#: again (its train and test CSVs stay in CORPORA)
+MAIN_PATH: dict = {}
 CHECK_ROWS = 1024
 DEVICE = "cuda"
 #: the columnar sidecar off (an unprefixed key, which every job's config
@@ -1372,6 +1400,7 @@ def phase_main_path():
              ("fused", {"nen.device.fused.vote": "true"}, kk.knn_classify_lanes),
              ("class_cond", {"nen.class.condtion.weighted": "true"},
               kk.knn_topk))
+    MAIN_PATH.update(base=base, files={})
     launches, preds, secs_by_mode = {}, {}, {}   # launches: summed over runs
     for mode, extra, wrapper in modes:
         out = str(work / f"out_{mode}.txt")
@@ -1388,6 +1417,7 @@ def phase_main_path():
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
         acc = res.counters["Validation:Accuracy"]
+        MAIN_PATH["files"][mode] = _files_of(res)
         lines = Path(out).read_text().splitlines()
         preds[mode] = [ln.split(",")[1] for ln in lines]
         secs_by_mode[mode] = round(secs, 3)
@@ -1429,6 +1459,8 @@ def phase_main_path():
         cpu_lines = Path(cpu_out).read_text().splitlines()
         check(gpu_head == cpu_lines,
               f"{mode} run's first {CHECK_ROWS} lines equal the CPU run's")
+    _keep(Path(train), "elearn_train.csv")
+    _keep(Path(test), "elearn_test.csv")
     shutil.rmtree(work)
     return launches
 
@@ -5644,9 +5676,359 @@ def phase_incremental():
           f"{json.dumps(row)} {proc.stderr[-300:] if proc.returncode != 137 else ''}")
     counts = _launch_counts()
     shutil.rmtree(work)
-    shutil.rmtree(CORPORA, ignore_errors=True)
     secs["phase"] = round(time.perf_counter() - t_phase, 1)
     print(f"incremental path launches: {json.dumps(counts)}", flush=True)
+    return secs, counts
+
+
+SERVE_PATH = "serve"
+#: phase 23: the /score calls on one keep-alive socket, the fleet's
+#: hosts, the sequences appended before the GSP refresh, and the fleet's
+#: lease TTL (the reference tutorial's 1 s is shorter than a torch host's
+#: boot on the card; a lease on a live host is renewed either way)
+SERVE_SCORES, SERVE_HOSTS, SERVE_APPEND_ROWS = 64, 2, 10_000
+SERVE_LEASE_TTL_S = 5.0
+SERVE_WAIT_S = 600.0
+#: the phase's admission budget: the reference's footprint model prices
+#: GSP over GSP_VOCAB tokens in 4 MB blocks at 3,282,995,218 bytes (its
+#: scan state, 3 x 65,536 rows x 4,096 candidates x 4 bytes), past the
+#: default 3 GiB, so the served GSP requests would be refused at it
+SERVE_BUDGET_BYTES = 8 << 30
+
+
+def _http_json(url: str, obj=None, timeout: float = SERVE_WAIT_S):
+    """(status, body, headers) of a GET (obj None) or a JSON POST; an
+    HTTP error status comes back, not raised."""
+    import urllib.error
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.load(resp), dict(resp.headers)
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read() or b"{}"), dict(exc.headers)
+
+
+def phase_server():
+    """The job server, its listener and a fleet on the card (docstring
+    item 23). Returns (seconds and figures, the launch counts of the
+    served requests). Every server, listener and fleet it starts is
+    stopped on the way out, a failed check's too, so that no thread or
+    host process outlives the phase."""
+    import contextlib
+
+    with contextlib.ExitStack() as stack:
+        return _serve_phase(stack)
+
+
+def _serve_phase(stack):
+    import http.client
+    import signal
+
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch import obs
+    from avenir_tpu_torch.data import (churn_schema, elearn_schema,
+                                       generate_elearn,
+                                       generate_token_sequences)
+    from avenir_tpu_torch.net.fault import FaultPolicy
+    from avenir_tpu_torch.net.fleet import Fleet
+    from avenir_tpu_torch.net.listener import NetListener
+    from avenir_tpu_torch.runner import run_job
+    from avenir_tpu_torch.server import JobRequest, JobServer
+    from avenir_tpu_torch.server.score import score_once
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_serve"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    corpora = _shard_corpora(work)
+    churn = corpora["churn"]
+    seq = str(work / "seq.csv")
+    shutil.copyfile(corpora["seq"], seq)
+    schema = str(work / "churn.json")
+    churn_schema().save(schema)
+    trio = {"bayesianDistr": ("bad", {"bad.feature.schema.file.path": schema,
+                                      **SIDECAR_OFF}),
+            "mutualInformation": ("mut", {
+                "mut.feature.schema.file.path": schema,
+                "mut.mutual.info.score.algorithms": MI_ALGOS,
+                **SIDECAR_OFF}),
+            "fisherDiscriminant": ("fid", {
+                "fid.feature.schema.file.path": schema, **SIDECAR_OFF})}
+    gsp = {**GSP_PROPS, **GSP_BLOCK, **SIDECAR_OFF}
+    secs = {"churn_bytes": os.path.getsize(churn),
+            "seq_bytes": os.path.getsize(seq)}
+
+    def out(tag):
+        return str(work / tag) + os.sep
+
+    def gsp_launches():
+        return _launch_counts()["subseq_support_fold"]
+
+    def serve(srv, req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = srv.submit(req).result(SERVE_WAIT_S)
+        torch.cuda.synchronize()
+        return res, round(time.perf_counter() - t0, 4)
+
+    # the solo twins first, on the card and on the CPU: the launches of
+    # the served requests are counted from zero after them
+    solo, cpu, solo_s = {}, {}, {}
+    for job, (_p, conf) in trio.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solo[job] = run_job(job, conf, [churn], out(f"solo_{job}"),
+                            device=DEVICE)
+        torch.cuda.synchronize()
+        solo_s[job] = round(time.perf_counter() - t0, 4)
+        cpu[job] = run_job(job, conf, [churn], out(f"cpu_{job}"),
+                           device="cpu")
+    if not MAIN_PATH.get("files"):
+        fail("phase 23 serves phase 3's nearestNeighbor: run phase 3 first")
+    train = str(CORPORA / "elearn_train.csv")
+    test = str(CORPORA / "elearn_test.csv")
+    knn_modes = {"default": {}, "fused": {"nen.device.fused.vote": "true"}}
+    _reset_launches()
+
+    # ---- the trio batched into one shared scan
+    srv = JobServer(workers=1, device=DEVICE,
+                    budget_bytes=SERVE_BUDGET_BYTES,
+                    state_root=str(work / "state"))
+    stack.callback(srv.shutdown, drain=False)
+    tickets = {job: srv.submit(JobRequest(job, conf, [churn],
+                                          out(f"srv_{job}"),
+                                          tenant=f"tenant_{p}"))
+               for job, (p, conf) in trio.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.start()
+    served = {job: t.result(SERVE_WAIT_S) for job, t in tickets.items()}
+    torch.cuda.synchronize()
+    secs["trio_batch_s"] = round(time.perf_counter() - t0, 4)
+    secs["trio_solo_sum_s"] = round(sum(solo_s.values()), 4)
+    secs["trio_solo_s"] = solo_s
+    ok = all(served[j].counters["Server:BatchSize"] == 3.0
+             and _files_of(served[j]) == _files_of(solo[j])
+             == _files_of(cpu[j]) for j in trio)
+    check(ok, f"the trio served as one batch on the card ({CARD}): "
+          f"{secs['trio_batch_s']}s against the solo runs' "
+          f"{secs['trio_solo_sum_s']}s ({json.dumps(solo_s)}); "
+          f"Server:BatchSize 3, every file equal to the solo run_job's and "
+          f"its CPU twin's ({secs['churn_bytes']} bytes of churn rows)")
+
+    # ---- phase 3's nearestNeighbor, served
+    if not (os.path.exists(train) and os.path.exists(test)):
+        Path(train).write_text(generate_elearn(NT, seed=101, as_csv=True))
+        Path(test).write_text(generate_elearn(NQ, seed=102, as_csv=True))
+    # phase 3's schema went with its work directory: the same schema here
+    knn_schema = str(work / "elearn.json")
+    elearn_schema().save(knn_schema)
+    knn = {}
+    for mode, extra in knn_modes.items():
+        before = _launch_counts()
+        res, secs[f"knn_{mode}_s"] = serve(srv, JobRequest(
+            "nearestNeighbor", {**MAIN_PATH["base"], **extra,
+                                "nen.feature.schema.file.path": knn_schema},
+            [train, test], str(work / f"knn_{mode}.txt"), tenant="knn"))
+        after = _launch_counts()
+        knn[mode] = {n: after[n] - before[n] for n in after
+                     if after[n] != before[n]}
+        wrapper = "knn_topk" if mode == "default" else "knn_classify_lanes"
+        check(_files_of(res) == MAIN_PATH["files"][mode]
+              and knn[mode].get(wrapper, 0) > 0,
+              f"nearestNeighbor {mode} served on the card ({CARD}): "
+              f"{secs[f'knn_{mode}_s']}s, its file equal to phase 3's, "
+              f"launches {json.dumps(knn[mode])}")
+    secs["knn_launches"] = knn
+
+    # ---- GSP twice (the second a warm hit), then two refreshes
+    runs = {}
+    for tag in ("cold", "warm"):
+        before = gsp_launches()
+        with obs.capture() as rec:
+            res, secs[f"gsp_{tag}_s"] = serve(srv, JobRequest(
+                SEQ_PATH, gsp, [seq], out(f"gsp_{tag}"), tenant="gsp"))
+        runs[tag] = {"res": res, "launches": gsp_launches() - before,
+                     "parse_spans": sum(sp.name == "stream.parse"
+                                        for sp in rec.spans())}
+    cold, warm = runs["cold"], runs["warm"]
+    secs["gsp"] = {t: {"s": secs[f"gsp_{t}_s"], "launches": r["launches"],
+                       "parse_spans": r["parse_spans"],
+                       "warm_hit": r["res"].counters["Server:WarmHit"]}
+                   for t, r in runs.items()}
+    check(cold["res"].counters["Server:WarmHit"] == 0.0
+          and warm["res"].counters["Server:WarmHit"] == 1.0
+          and cold["parse_spans"] > 0 and warm["parse_spans"] == 0
+          and warm["launches"] == cold["launches"] > 0
+          and _files_of(warm["res"]) == _files_of(cold["res"]),
+          f"GSP served twice on the card ({CARD}): the second a warm hit "
+          f"from the pinned spill cache, no parse span, the same "
+          f"subseq_support launches and files; {json.dumps(secs['gsp'])}")
+    seed, secs["gsp_refresh_seed_s"] = serve(srv, JobRequest(
+        SEQ_PATH, gsp, [seq], out("gsp_seed"), tenant="gsp",
+        mode="refresh"))
+    with open(seq, "a") as fh:
+        fh.write("\n".join(generate_token_sequences(
+            SERVE_APPEND_ROWS, vocab=GSP_VOCAB, seed=INCR_APPEND_SEED))
+            + "\n")
+    refreshed, secs["gsp_refresh_s"] = serve(srv, JobRequest(
+        SEQ_PATH, gsp, [seq], out("gsp_refresh"), tenant="gsp",
+        mode="refresh"))
+    srv.shutdown()
+    # the served requests' launches; nothing later in the phase launches
+    # a kernel in this process but the cold twin (the edge's jobs and the
+    # fleet hosts' launch none)
+    counts = _launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gsp_cold = run_job(SEQ_PATH, gsp, [seq], out("gsp_cold"), device=DEVICE)
+    torch.cuda.synchronize()
+    secs["gsp_cold_after_append_s"] = round(time.perf_counter() - t0, 4)
+    skipped = refreshed.counters["Resume:SkippedBytes"]
+    check(seed.counters["Resume:SkippedBytes"] == 0 and skipped > 0
+          and _files_of(refreshed) == _files_of(gsp_cold),
+          f"GSP refresh served after a {SERVE_APPEND_ROWS}-row append "
+          f"({CARD}): {secs['gsp_refresh_s']}s (seed "
+          f"{secs['gsp_refresh_seed_s']}s, cold twin "
+          f"{secs['gsp_cold_after_append_s']}s), Resume:SkippedBytes "
+          f"{skipped:.0f}, equal to the cold run's files")
+
+    # ---- the HTTP edge
+    net = JobServer(workers=1, device=DEVICE,
+                    state_root=str(work / "net_state")).start()
+    stack.callback(net.shutdown, drain=False)
+    lis = NetListener(net, port=0).start()
+    stack.callback(lis.stop)
+    url = f"http://127.0.0.1:{lis.port}"
+    mi_job, (_p, mi_conf) = "mutualInformation", trio["mutualInformation"]
+    t0 = time.perf_counter()
+    code, row, _h = _http_json(url + "/submit?wait=1", {
+        "job": mi_job, "conf": mi_conf, "inputs": [churn],
+        "output": out("net_mi")})
+    secs["submit_wait_s"] = round(time.perf_counter() - t0, 4)
+    check(code == 200 and row["ok"]
+          and [Path(p).read_bytes() for p in row["outputs"]]
+          == [Path(p).read_bytes() for p in solo[mi_job].outputs],
+          f"POST /submit?wait=1 of mutualInformation ({CARD}): "
+          f"{secs['submit_wait_s']}s, the bytes of the solo run")
+    nb_model = solo["bayesianDistr"].outputs[0]
+    nb_conf = {"field.delim": ",", "schema.path": schema,
+               "predict.class.cost": "2,1", "predict.class": "open,closed"}
+    with open(churn) as fh:
+        rows = [next(fh).rstrip("\n") for _ in range(SERVE_SCORES)]
+    want = [score_once("bayes", nb_model, r, nb_conf, device=DEVICE)
+            for r in rows]
+    conn = http.client.HTTPConnection("127.0.0.1", lis.port,
+                                      timeout=SERVE_WAIT_S)
+    got, ms, socks = [], [], set()
+    for r in rows:
+        t0 = time.perf_counter()
+        conn.request("POST", "/score", json.dumps({
+            "kind": "bayes", "model": nb_model, "row": r,
+            "conf": nb_conf}).encode(), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        ms.append((time.perf_counter() - t0) * 1000.0)
+        socks.add(id(conn.sock))
+        got.append(body.get("row") if resp.status == 200 else None)
+    conn.close()
+    p50, p99 = (float(np.percentile(ms, q)) for q in (50, 99))
+    secs["score_ms"] = {"p50": round(p50, 3), "p99": round(p99, 3),
+                        "min": round(min(ms), 3), "max": round(max(ms), 3),
+                        "first": round(ms[0], 3)}
+    check(got == want and len(socks) == 1,
+          f"{SERVE_SCORES} POST /score (bayes) over one keep-alive socket "
+          f"({CARD}): every row equal to score_once; ms p50 {p50:.3f}, p99 "
+          f"{p99:.3f} (first {ms[0]:.3f})")
+    code_m, snap, _h = _http_json(url + "/metrics")
+    code_h, health, _h = _http_json(url + "/healthz")
+    check(code_m == 200 and snap["stats"]["served"] >= 1
+          and snap["score"]["stats"]["scores"] >= SERVE_SCORES
+          and code_h == 200 and health["status"] == "serving",
+          f"GET /metrics (served {snap['stats']['served']:.0f}, scores "
+          f"{snap['score']['stats']['scores']}) and /healthz "
+          f"({health['status']})")
+    lis.stop()
+    net.shutdown()
+    shed = JobServer(workers=1, device=DEVICE, budget_bytes=150 << 20,
+                     pricer=lambda reqs, reserve: (100 << 20) * len(reqs),
+                     rss_probe=lambda: 0,
+                     state_root=str(work / "shed_state"))
+    stack.callback(shed.shutdown, drain=False)
+    edge = NetListener(shed, port=0).start()
+    stack.callback(edge.stop)
+    shed_url = f"http://127.0.0.1:{edge.port}"
+    nb_job, (_p, nb_jconf) = "bayesianDistr", trio["bayesianDistr"]
+    first = _http_json(shed_url + "/submit", {
+        "job": nb_job, "conf": nb_jconf, "inputs": [churn],
+        "output": out("shed0")})
+    flood = _http_json(shed_url + "/submit", {
+        "job": nb_job, "conf": nb_jconf, "inputs": [churn],
+        "output": out("shed1")})
+    shed.start()
+    done = _http_json(shed_url + f"/result/{first[1]['req_id']}"
+                      f"?timeout={SERVE_WAIT_S:.0f}")
+    edge.stop()
+    shed.shutdown()
+    check(first[0] == 202 and flood[0] == 429
+          and int(flood[2].get("Retry-After", 0)) >= 1
+          and done[0] == 200 and done[1]["ok"]
+          and [Path(p).read_bytes() for p in done[1]["outputs"]]
+          == [Path(p).read_bytes() for p in solo[nb_job].outputs],
+          f"the edge sheds a flood with 429 (Retry-After "
+          f"{flood[2].get('Retry-After')}) against the admission model, "
+          f"then serves the held request to the solo bytes")
+
+    # ---- a fleet of hosts on the one card, one SIGKILLed
+    policy = FaultPolicy(poll_interval_s=0.1, lease_ttl_s=SERVE_LEASE_TTL_S,
+                         restart_backoff_base_s=0.5,
+                         heartbeat_timeout_s=120.0, hedge=False)
+    fleet = Fleet(str(work / "fleet"), hosts=SERVE_HOSTS, workers=1,
+                  fault_policy=policy, device=DEVICE)
+    stack.callback(fleet.stop)
+    t0 = time.perf_counter()
+    fleet.start(timeout=SERVE_WAIT_S)
+    secs["fleet_boot_s"] = round(time.perf_counter() - t0, 3)
+    load = [(job, conf) for job, (_p, conf) in trio.items()]
+    load.append(load[0])
+    t0 = time.perf_counter()
+    names = [fleet.submit({"job": job, "conf": conf, "inputs": [churn],
+                           "output": out(f"fleet{i}"), "tenant": f"t{i}"})
+             for i, (job, conf) in enumerate(load)]
+    # the host with the most placed requests (the corpus' sticky host)
+    hosts = fleet.router.snapshot()["hosts"]
+    victim = max(range(SERVE_HOSTS),
+                 key=lambda h: hosts[h]["assigned_requests"])
+    os.kill(fleet.host_pid(victim), signal.SIGKILL)
+    got_rows = fleet.collect(names, timeout=SERVE_WAIT_S)
+    secs["fleet_s"] = round(time.perf_counter() - t0, 3)
+    fsnap = fleet.fault_snapshot()
+    codes = fleet.stop()
+    rows_ok = [got_rows[n].get("ok") for n in names]
+    same = [[Path(p).read_bytes() for p in got_rows[n]["outputs"]]
+            == [Path(p).read_bytes() for p in solo[job].outputs]
+            for n, (job, _c) in zip(names, load)]
+    secs["fleet"] = {"requeues": fsnap["stats"]["requeues"],
+                     "restarts": fsnap["stats"]["restarts"],
+                     "leases_outstanding": fsnap["leases_outstanding"],
+                     "victim": victim, "stop_codes": codes}
+    check(all(rows_ok) and all(same)
+          and fsnap["stats"]["requeues"] >= 1
+          and fsnap["leases_outstanding"] == 0,
+          f"a Fleet of {SERVE_HOSTS} hosts on the card ({CARD}; boot "
+          f"{secs['fleet_boot_s']}s): {len(load)} requests, host {victim} "
+          f"SIGKILLed after placement, every row ok and equal to its solo "
+          f"bytes in {secs['fleet_s']}s; {json.dumps(secs['fleet'])}")
+    shutil.rmtree(work)
+    shutil.rmtree(CORPORA, ignore_errors=True)
+    secs["phase"] = round(time.perf_counter() - t_phase, 1)
+    print(f"serve path launches: {json.dumps(counts)}", flush=True)
     return secs, counts
 
 
@@ -5772,6 +6154,7 @@ def main() -> None:
     mesh_secs, mesh_rows, mesh_counts = phase_mesh()
     shard_secs, shard_counts = phase_shard()
     incr_secs, incr_counts = phase_incremental()
+    serve_secs, serve_counts = phase_server()
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     print(f"tree and text seconds ({CARD}; phase 10 "
@@ -5807,6 +6190,8 @@ def main() -> None:
           f"{json.dumps(shard_secs)}", flush=True)
     print(f"incremental seconds ({CARD}; phase 22 {incr_secs['phase']}s): "
           f"{json.dumps(incr_secs)}", flush=True)
+    print(f"serve seconds ({CARD}; phase 23 {serve_secs['phase']}s): "
+          f"{json.dumps(serve_secs)}", flush=True)
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.1f}s "
           f"({CARD})", flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
@@ -5815,7 +6200,7 @@ def main() -> None:
              TMC_PATH: tmc_counts, KMEANS_PATH: km_counts,
              LIB_PATH: lib_counts, CONF_PATH: conf_counts,
              MESH_PATH: mesh_counts, SHARD_PATH: shard_counts,
-             INCR_PATH: incr_counts}
+             INCR_PATH: incr_counts, SERVE_PATH: serve_counts}
 
     # each kernel's row at the shape of the path it is reported on: the
     # job's (manhattan, D=6) for the three it runs; the sweep's

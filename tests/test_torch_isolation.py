@@ -65,7 +65,10 @@ def test_modules_list_covers_the_package():
                 "tools.sampling_check", "dist", "dist.driver", "dist.worker",
                 "dist.plan", "dist.ledger", "dist.detect", "dist.collective",
                 "tune", "tune.signals", "parallel.scaling",
-                "tools.bench_scaling", "core.incremental", "native.sidecar"):
+                "tools.bench_scaling", "core.incremental", "native.sidecar",
+                "server.jobserver", "server.spool", "net", "net.router",
+                "net.listener", "net.fault", "net.fleet", "obs.report",
+                "analysis", "analysis.mem", "tools.fleet_load"):
         assert f"avenir_tpu_torch.{sub}" in MODULES
 
 
@@ -84,7 +87,7 @@ def test_native_source_is_the_ports_own():
                                    "fisherDiscriminant", "tree", "text",
                                    "sequence", "bandits", "markov",
                                    "score", "reinforce", "library",
-                                   "dist"])
+                                   "dist", "serve"])
 def test_import_loads_no_jax(entry):
     modules = {"avenir_tpu_torch": ["avenir_tpu_torch"], "all": MODULES,
                "chip_smoke": ["chip_smoke"],
@@ -112,6 +115,12 @@ def test_import_loads_no_jax(entry):
                           "avenir_tpu_torch.models.convert",
                           "avenir_tpu_torch.runner",
                           "avenir_tpu_torch.data.generators"],
+               "serve": ["avenir_tpu_torch.server.jobserver",
+                         "avenir_tpu_torch.server.spool",
+                         "avenir_tpu_torch.net",
+                         "avenir_tpu_torch.obs.report",
+                         "avenir_tpu_torch.analysis.mem",
+                         "avenir_tpu_torch.tools.fleet_load"],
                "score": ["avenir_tpu_torch.server",
                          "avenir_tpu_torch.server.score",
                          "avenir_tpu_torch.core.keys",

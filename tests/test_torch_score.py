@@ -11,7 +11,11 @@ discriminant and markov rows byte for byte, bandit pulls within
 lies within 2 float32 ULP), `model_cache_key` and every `core/keys.py`
 recipe equal, reward journals byte-identical and folded alike by both
 packages. A publish that fails leaves the old journal whole, and with no
-device given the plane wants `cuda` and raises here.
+device given the plane wants `cuda` and raises here. Last, the three edge
+tests of `tests/test_score.py` (`:449`, `:491`, `:526`) on the port's
+job server: `POST /score` over one keep-alive socket, the fleet's
+`ScoreFront` minting a reward nonce and closing every thread's socket,
+and the score plane in the server's metrics snapshot and the fleet merge.
 """
 
 import json
@@ -808,3 +812,118 @@ def test_no_device_given_wants_cuda(tmp_path, monkeypatch):
         score_once("markov", model, row, dict(MARKOV_SCORE_CONF))
     assert not [t for t in threading.enumerate()
                 if t.name == "score-dispatch"]
+
+
+# ------------------------------------------------- HTTP edge + metrics
+def test_post_score_keepalive_two_requests_one_socket(tmp_path):
+    """`POST /score` on the port's NetListener over a CPU JobServer: two
+    scores ride one HTTP/1.1 keep-alive socket, each the solo score of
+    both packages; an unknown field is a strict 400 on the same socket."""
+    import http.client
+
+    from avenir_tpu_torch.net.listener import NetListener
+    from avenir_tpu_torch.server import JobServer
+
+    model = _markov_model(tmp_path)
+    rows = open(_seq_csv(tmp_path, rows=4, seed=9, name="q.csv")
+                ).read().splitlines()
+    want = [score_once("markov", model, r, dict(MARKOV_SCORE_CONF),
+                       device=CPU) for r in rows[:2]]
+    assert want == [jax_score.score_once("markov", model, r,
+                                         dict(MARKOV_SCORE_CONF))
+                    for r in rows[:2]]
+    srv = JobServer(state_root=str(tmp_path / "srv"), workers=1,
+                    device=CPU)
+    try:
+        with NetListener(srv, port=0) as lis:
+            conn = http.client.HTTPConnection("127.0.0.1", lis.port,
+                                              timeout=60)
+            socks = []
+            for i, row in enumerate(rows[:2]):
+                conn.request(
+                    "POST", "/score",
+                    json.dumps({"kind": "markov", "model": model,
+                                "row": row,
+                                "conf": MARKOV_SCORE_CONF}).encode(),
+                    {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                body = json.loads(resp.read())
+                assert resp.status == 200 and body["row"] == want[i]
+                socks.append(conn.sock)
+            assert socks[0] is socks[1] and socks[0] is not None
+            conn.request("POST", "/score",
+                         json.dumps({"kind": "markov", "model": model,
+                                     "row": rows[0], "oops": 1}).encode(),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            assert resp.status == 400
+            resp.read()
+            assert conn.sock is socks[0]
+            conn.close()
+    finally:
+        srv.shutdown()
+
+
+def test_score_front_mints_reward_nonce_and_closes_all_threads(tmp_path):
+    """`net.fleet.ScoreFront` over one port listener: a reward with no
+    req_id gets a minted nonce (its retry can never apply twice), and
+    close() reaches the keep-alive sockets every thread opened."""
+    from avenir_tpu_torch.net.fleet import ScoreFront
+    from avenir_tpu_torch.net.listener import NetListener
+    from avenir_tpu_torch.server import JobServer
+
+    stats = _bandit_stats(tmp_path)
+    srv = JobServer(state_root=str(tmp_path / "srv"), workers=1,
+                    device=CPU)
+    try:
+        with NetListener(srv, port=0) as lis:
+            front = ScoreFront([f"http://127.0.0.1:{lis.port}"])
+            ack = front.score("bandit", stats, "g1,itemB,9.0,2",
+                              conf=dict(BANDIT_SCORE_CONF),
+                              action="reward")
+            assert ack["applied"] is True
+            entries = load_reward_journal(stats)
+            assert len(entries) == 1 and entries[0]["nonce"]
+            t = threading.Thread(
+                target=front.score,
+                args=("bandit", stats, "g1"),
+                kwargs={"conf": dict(BANDIT_SCORE_CONF)})
+            t.start()
+            t.join(WAIT_S)
+            conns = list(front._all_conns)
+            assert len(conns) == 2            # one per (thread, host)
+            front.close()
+            assert front._all_conns == []
+            assert all(c.sock is None for c in conns)
+    finally:
+        srv.shutdown()
+
+
+def test_metrics_snapshot_and_fleet_merge_carry_score(tmp_path):
+    """The server's metrics snapshot carries the score plane's counters
+    and per-model histograms, and the fleet merge (`obs.report`) sums
+    the counters and folds the histograms exactly."""
+    from avenir_tpu_torch.obs.report import merge_snapshots
+    from avenir_tpu_torch.server import JobServer
+
+    model = _markov_model(tmp_path)
+    row = open(_seq_csv(tmp_path, rows=4, seed=9, name="q.csv")
+               ).read().splitlines()[0]
+    srv = JobServer(state_root=str(tmp_path / "srv"), workers=1,
+                    device=CPU)
+    try:
+        plane = srv.score_plane(window_ms=0.0)
+        assert plane.device == torch.device(CPU)
+        plane.score(ScoreRequest("markov", model, row,
+                                 dict(MARKOV_SCORE_CONF)))
+        snap = srv.metrics_snapshot()
+    finally:
+        srv.shutdown()
+    assert snap["score"]["stats"]["scores"] == 1
+    name = os.path.splitext(os.path.basename(model))[0]
+    assert f"score_{name}_total_ms" in snap["hists"]
+    assert snap["score"]["per_model_predicts"][name] == 1
+    merged = merge_snapshots([snap, snap])
+    assert merged["score"]["stats"]["scores"] == 2
+    assert merged["score"]["per_model_predicts"][name] == 2
+    assert merged["hists"][f"score_{name}_total_ms"]["count"] == 2
