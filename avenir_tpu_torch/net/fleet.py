@@ -4,10 +4,10 @@ The port of `avenir_tpu/net/fleet.py`. Each host is a fresh interpreter,
 ``python -m avenir_tpu_torch serve --spool ... --device D`` (never a
 fork: the coordinator may hold a CUDA context), with the repo root on
 its ``PYTHONPATH``; ``Fleet(device=...)`` names D (default cuda, the
-hosts sharing the card). The reference's profile store (``profile_dir``:
-fold-cost placement and the tuned pricer) waits for ``tune/``
-(``ROADMAP.md`` item 8): ``Fleet(profile_dir=...)`` raises
-NotImplementedError.
+hosts sharing the card). ``Fleet(profile_dir=...)`` shares one autotune
+profile store (``tune/``) across the hosts (each gets ``--autotune-dir``)
+and the front: the front prices with the same tuned pricer the hosts
+admit with, and weights placement by the measured fold cost.
 
 One resident JobServer amortizes scans/compiles across tenants but is
 still one Python process on one core-set; the fleet layer is the
@@ -34,10 +34,11 @@ The front half runs in the CALLER's process:
   SIGTERM/SIGINT drain gracefully: stop claiming, finish in-flight,
   final merged metrics.json, exit 0.
 
-Placement cost: the router's tie-break takes a measured per-chunk fold
-cost of each (job, corpus) where a profile store supplies one; without
-one (the port, until ``tune/``) every corpus is unmeasured and ties
-break by host index.
+Placement cost: when a profile store (``avenir_tpu_torch.tune``) is
+configured, the router's tie-break consults the measured per-chunk fold
+cost of each (job, corpus): a corpus whose folds are measured expensive
+counts for more pending load than its bytes alone say. Without one, or
+without a measurement, placement is by bytes alone.
 
 Fault tolerance (avenir-fault, :mod:`avenir_tpu_torch.net.fault`): a
 supervisor thread watches the host processes (exit code + spool
@@ -283,8 +284,9 @@ class Fleet:
     Construct, ``start()``, ``submit()`` request objects (the spool
     JSON schema), ``collect()`` rows, ``stop()``. The budget vector is
     one ``budget_mb`` entry per host; ``device`` is every host's
-    ``--device`` (default cuda). ``profile_dir`` raises
-    NotImplementedError until ``tune/`` is ported.
+    ``--device`` (default cuda). ``profile_dir`` opts placement into
+    fold-cost weighting and is forwarded to every host as its autotune
+    store.
 
     Single-writer: one Fleet coordinates one spool tree — request
     names come from a per-instance sequence and every ``in/`` spool
@@ -321,11 +323,6 @@ class Fleet:
         check stays authoritative for death either way."""
         if hosts < 1:
             raise ValueError("fleet needs at least one host")
-        if profile_dir:
-            raise NotImplementedError(
-                "Fleet(profile_dir=...) needs tune/ (the profile store "
-                "and the tuned pricer), which the port does not have "
-                "yet: ROADMAP.md item 8")
         #: every host's --device: the coordinator opens no device of
         #: its own, so a missing card fails in the hosts' boot
         self.device = "cuda" if device is None else str(device)
@@ -338,6 +335,7 @@ class Fleet:
         self.workers = int(workers)
         self.warm_budget_mb = float(warm_budget_mb)
         self.metrics_interval_s = float(metrics_interval_s)
+        self.profile_dir = profile_dir
         self._env = env
         self.pin_cores = list(pin_cores) if pin_cores else None
         self.fault = fault_policy or FaultPolicy()
@@ -415,6 +413,10 @@ class Fleet:
                "--state-root", os.path.join(host_dir, "state"),
                "--metrics-interval", str(self.metrics_interval_s),
                "--device", self.device]
+        if self.profile_dir:
+            # the hosts share one profile store: a fold cost measured on
+            # any host informs placement for all of them
+            cmd += ["--autotune-dir", self.profile_dir]
         preexec = None
         if self.pin_cores and hasattr(os, "sched_setaffinity"):
             core = self.pin_cores[i % len(self.pin_cores)]
@@ -511,8 +513,8 @@ class Fleet:
     def price(self, obj: Dict) -> Tuple[object, int, Optional[float]]:
         """(request, priced bytes, fold cost ms) of one request object
         — the placement inputs. Pricing uses the same oracle the hosts
-        admit with; the fold cost is None (unmeasured) until the port
-        has a profile store."""
+        admit with; the fold cost comes from the shared profile store
+        when one is configured."""
         req = request_from_json(obj)
         memo_key = (req.job, req.mode,
                     tuple(os.path.abspath(p) for p in req.inputs),
@@ -525,6 +527,14 @@ class Fleet:
                 return req, hit[0], hit[1]
         priced = self._pricer()(req)
         cost = None
+        if self.profile_dir:
+            # the fold cost rides the same memo: a profile read per
+            # arrival would pay a disk read per request on the hot-corpus
+            # path the memo exists for
+            from avenir_tpu_torch import tune
+
+            cost = tune.placement_cost_ms(self.profile_dir, req.job,
+                                          req.conf, req.inputs)
         with self._lock:
             if len(self._price_memo) >= _PRICE_MEMO_MAX:
                 self._price_memo = {
@@ -537,17 +547,25 @@ class Fleet:
 
     def _pricer(self):
         """The front's pricing oracle — the SAME one the hosts admit
-        with (the footprint model), so the front never places work a
-        host then fast-fails."""
+        with: the residual-corrected tuned pricer when a profile store is
+        configured (the hosts get it through --autotune-dir), the bare
+        footprint model otherwise. A front that priced lower than a host
+        would place work the host then fast-fails."""
         fn = getattr(self, "_pricer_fn", None)
         if fn is not None:
             return fn
         from avenir_tpu_torch.server.jobserver import (DEFAULT_RESERVE_BYTES,
                                                        price_request_bytes)
 
+        if self.profile_dir:
+            from avenir_tpu_torch import tune
+
+            base = tune.make_tuned_pricer(self.profile_dir,
+                                          base=price_request_bytes)
+        else:
+            base = price_request_bytes
         self._pricer_fn = fn = \
-            lambda req: int(price_request_bytes([req],
-                                                DEFAULT_RESERVE_BYTES))
+            lambda req: int(base([req], DEFAULT_RESERVE_BYTES))
         return fn
 
     def submit(self, obj: Dict, block: bool = True,
@@ -1282,8 +1300,8 @@ def fleet_main(argv) -> int:
     ap.add_argument("--once", action="store_true",
                     help="serve what is spooled, drain, exit")
     ap.add_argument("--profile-dir", default=None,
-                    help="autotune profile store (needs tune/, which the "
-                         "port does not have yet: refused)")
+                    help="autotune profile store consulted for "
+                         "fold-cost-weighted placement")
     ap.add_argument("--device", default=None,
                     help="every host's torch device (default cuda; 'cpu' "
                          "runs the plain versions of the kernels)")

@@ -159,15 +159,132 @@ def run_job(name: str, conf, inputs: Sequence[str], output: str = "",
             device: DeviceLike = None) -> JobResult:
     """Run a registered job on `device` (default cuda). `conf` is a
     properties file path, a dict, or a JobConfig; the job sees it scoped
-    under its reference prefix."""
+    under its reference prefix.
+
+    A streamed job's result also carries the memory counters
+    (`_add_mem_counters`): `Mem:PredictedPeakBytes`, the footprint model
+    of `analysis/mem.py` at the job's block size and corpus, beside the
+    measured `Mem:PeakRSS`. With the `stream.autotune` key (the CLI's
+    `--autotune`) the run applies the profile store's knobs and records
+    its signals for the next run (`tune.begin_run`)."""
     canonical, cfg = _job_cfg(name, conf)
     dev = resolve_device(device)
+    session = _autotune_begin([canonical], [cfg], inputs)
+    rss0 = _rss_now()
     sc0 = sidecar.counters_snapshot()
     t0 = obs.now()
-    res = _REGISTRY[canonical][2](cfg, list(inputs), output, dev)
+    try:
+        res = _REGISTRY[canonical][2](cfg, list(inputs), output, dev)
+    except BaseException:
+        if session is not None:
+            session.close()   # a leaked session would contaminate
+        raise                 # every later one in this process
     obs.record("job.run", t0, job=canonical)
     _note_sidecar_counters(canonical, res, sc0)
+    _add_mem_counters(canonical, cfg, inputs, res, rss0=rss0)
+    if session is not None:
+        session.finish({canonical: res})
     return res
+
+
+#: the highest process-lifetime peak RSS (bytes) already attributed to a
+#: streamed result. ru_maxrss is a lifetime peak: in a resident process
+#: every later job re-reads the largest job's number, so a residual
+#: recorded from it would inflate the learned admission factor of every
+#: small job after it. Only a run that raises the peak records one.
+#: Unlocked: a racing double or missed record costs one advisory sample.
+_residual_peak_seen = 0
+
+
+def _rss_now() -> int:
+    """Current (not peak) resident bytes; 0 where they cannot be read.
+    Taken at a job's start, so that the residual record prices the job's
+    incremental footprint (the peak less what the process already held:
+    the interpreter, torch, a CUDA context, earlier jobs' arenas), which
+    is what the footprint model predicts."""
+    from avenir_tpu_torch.analysis.mem import MemAuditError, _read_rss_bytes
+
+    try:
+        return _read_rss_bytes()
+    except MemAuditError:
+        return 0
+
+
+def _add_mem_counters(canonical: str, cfg: JobConfig,
+                      inputs: Sequence[str], res: "JobResult",
+                      rss0: Optional[int] = None) -> None:
+    """The memory counters of a streamed job's result:
+    `Mem:PredictedPeakBytes` (the footprint model of `analysis/mem.py` at
+    the job's block size, prefetch depth and corpus; the incremental
+    driver sets it first) and `Mem:PeakRSS` (the process peak, an upper
+    bound in a long-lived process). When the run raised the process peak
+    and the caller gave its starting RSS `rss0`, the pair (predicted,
+    peak - rss0) goes into the job's profile store
+    (`tune.record_residual`), autotune on or off. Advisory: a failure to
+    predict never fails a job that ran, so any error drops the
+    counters."""
+    if canonical not in _STREAM_FOLDS:
+        return
+    try:
+        import resource
+
+        from avenir_tpu_torch.analysis.mem import (corpus_stats,
+                                                   footprint_model)
+
+        paths = [p for p in inputs if os.path.exists(p)]
+        if not paths:
+            return
+        # linux ru_maxrss is in KB
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        if "Mem:PredictedPeakBytes" not in res.counters:
+            from avenir_tpu_torch.core.stream import prefetch_depth
+
+            block = int(cfg.get_float("stream.block.size.mb", 64.0)
+                        * (1 << 20))
+            stats = corpus_stats(paths, delim=cfg.field_delim_regex)
+            schema = None
+            schema_path = cfg.get("feature.schema.file.path")
+            if schema_path:
+                schema = FeatureSchema.from_file(schema_path)
+            est = footprint_model(canonical, block, schema, stats,
+                                  prefetch_depth=prefetch_depth(cfg))
+            res.counters["Mem:PredictedPeakBytes"] = float(est.total_bytes)
+        res.counters["Mem:PeakRSS"] = float(rss)
+        global _residual_peak_seen
+        if rss > _residual_peak_seen:
+            _residual_peak_seen = rss
+            if rss0 is not None and rss - rss0 > 0:
+                from avenir_tpu_torch import tune
+
+                tune.record_residual(
+                    canonical, cfg, paths,
+                    res.counters["Mem:PredictedPeakBytes"], rss - rss0)
+    except Exception:
+        pass
+
+
+def _autotune_begin(canonicals: Sequence[str], cfgs: Sequence[JobConfig],
+                    inputs: Sequence[str]):
+    """The autotune session of a run whose (first) config sets
+    `stream.autotune` and whose jobs are all streamed: the profile store's
+    knobs are overlaid onto the configs, and the session's
+    ``finish(results)`` records the run and chooses the next knobs
+    (`tune.begin_run`). None when autotune is off or does not apply.
+    A profile naming an unknown or out-of-range knob raises KnobError;
+    any other storage failure runs untuned."""
+    cfg0 = cfgs[0]
+    if not cfg0.get_bool("stream.autotune", False):
+        return None
+    if not inputs or any(c not in _STREAM_FOLDS for c in canonicals):
+        return None
+    from avenir_tpu_torch import tune
+
+    try:
+        return tune.begin_run(list(canonicals), list(cfgs), list(inputs))
+    except tune.KnobError:
+        raise
+    except Exception:
+        return None
 
 
 #: the delta-scan counters every streamed result carries: the blocks a
@@ -178,6 +295,10 @@ def run_job(name: str, conf, inputs: Sequence[str], output: str = "",
 DELTA_COUNTERS = ("Cache:HitBlocks", "Cache:DeltaBlocks",
                   "Resume:SkippedBytes", "Sidecar:HitBlocks",
                   "Sidecar:DeltaBlocks")
+
+#: the memory counters every streamed result carries (`_add_mem_counters`):
+#: the footprint model's prediction and the process's peak RSS
+MEM_COUNTERS = ("Mem:PredictedPeakBytes", "Mem:PeakRSS")
 
 
 def _note_sidecar_counters(canonical: str, res: "JobResult",
@@ -977,13 +1098,16 @@ def _stream_fold_job(name: str, cfg: JobConfig, inputs: List[str],
     return _finish_fold(fold, output, name)
 
 
-def _fused_specs(specs, jobs: str, group: str):
+def _fused_specs(specs, jobs: str, group: str,
+                 before_checks: Optional[Callable] = None):
     """(canonical, cfg, ops, output) of each spec of a fused run, its scan
     kind, and the schema its dataset-kind jobs share, after the checks
     every fused run makes: registered streamed jobs, each once, of one
     kind, one block size, one delimiter and one schema file. `jobs` and
     `group` name what is fused in the errors ("jobs" in one "scan",
-    "refreshes" in one "refresh")."""
+    "refreshes" in one "refresh"). `before_checks(built)`, when given,
+    runs between the first two checks and the others: the autotune
+    overlay, so that the agreement checks judge the tuned values."""
     built = []
     for name, conf, output in specs:
         canonical, cfg = _job_cfg(name, conf)
@@ -995,6 +1119,8 @@ def _fused_specs(specs, jobs: str, group: str):
             raise ValueError(
                 f"job {canonical!r} appears twice in one shared {group}")
         built.append((canonical, cfg, _STREAM_FOLDS[canonical], output))
+    if before_checks is not None:
+        before_checks(built)
     kinds = {ops.kind for _c, _cfg, ops, _o in built}
     if len(kinds) != 1:
         raise ValueError(f"cannot fuse {jobs} of mixed scan kinds {kinds}")
@@ -1040,8 +1166,13 @@ def run_shared(specs: Sequence[Tuple[str, object, str]],
     each result carries the delta-scan counters (DELTA_COUNTERS).
     `fold_hook(canonical, fold)`, when given, is called with each fold
     sink right after it is built: the job server's warm-state tap (it
-    sets a miner fold's `keep_sources`). It must not consume chunks. The
-    reference's autotune session and `Mem:*` counters are not ported."""
+    sets a miner fold's `keep_sources`). It must not consume chunks.
+
+    Each result carries the memory counters (`_add_mem_counters`). With
+    `stream.autotune` in the first job's config, the fused group's
+    profile (the jobs' names joined by "+") overlays its knobs onto every
+    member config before the agreement checks, and the run records its
+    signals for the next (`tune.begin_run`)."""
     from avenir_tpu_torch.core.stream import (SharedScan,
                                               stream_job_byte_blocks,
                                               stream_job_inputs)
@@ -1049,33 +1180,53 @@ def run_shared(specs: Sequence[Tuple[str, object, str]],
     if not specs:
         return {}
     dev = resolve_device(device)
-    built, kind, schema = _fused_specs(specs, "jobs", "scan")
-    cfg0 = built[0][1]
-    if kind == "dataset":
-        chunks = stream_job_inputs(cfg0, list(inputs), schema)
-    else:
-        skips = {cfg.get_int("skip.field.count", 1)
-                 for _c, cfg, _ops, _o in built}
-        chunks = stream_job_byte_blocks(
-            cfg0, list(inputs),
-            sidecar_skip=skips.pop() if len(skips) == 1 else None)
-    sc0 = sidecar.counters_snapshot()
-    scan = SharedScan(chunks)
-    folds = []
-    for canonical, cfg, ops, output in built:
-        fold = ops.factory(cfg, list(inputs), schema, dev)
-        if fold_hook is not None:
-            fold_hook(canonical, fold)
-        folds.append((canonical, fold, output))
-        scan.add_sink(fold, label=canonical)
-    t0 = obs.now()
-    n_chunks = scan.run()
-    obs.record("job.dispatch", t0, mode="shared", chunks=n_chunks,
-               jobs=",".join(c for c, _f, _o in folds))
-    results = {}
-    for canonical, fold, output in folds:
-        results[canonical] = _finish_fold(fold, output, canonical)
-        _note_sidecar_counters(canonical, results[canonical], sc0)
+    session = None
+    rss0 = None
+
+    def overlay(built):
+        nonlocal session, rss0
+        session = _autotune_begin([b[0] for b in built],
+                                  [b[1] for b in built], inputs)
+        rss0 = _rss_now()
+
+    try:
+        built, kind, schema = _fused_specs(specs, "jobs", "scan",
+                                           before_checks=overlay)
+        cfg0 = built[0][1]
+        if kind == "dataset":
+            chunks = stream_job_inputs(cfg0, list(inputs), schema)
+        else:
+            skips = {cfg.get_int("skip.field.count", 1)
+                     for _c, cfg, _ops, _o in built}
+            chunks = stream_job_byte_blocks(
+                cfg0, list(inputs),
+                sidecar_skip=skips.pop() if len(skips) == 1 else None)
+        sc0 = sidecar.counters_snapshot()
+        scan = SharedScan(chunks)
+        folds = []
+        for canonical, cfg, ops, output in built:
+            fold = ops.factory(cfg, list(inputs), schema, dev)
+            if fold_hook is not None:
+                fold_hook(canonical, fold)
+            folds.append((canonical, fold, output))
+            scan.add_sink(fold, label=canonical)
+        t0 = obs.now()
+        n_chunks = scan.run()
+        obs.record("job.dispatch", t0, mode="shared", chunks=n_chunks,
+                   jobs=",".join(c for c, _f, _o in folds))
+        results = {}
+        for (canonical, fold, output), (_c, cfg, _ops, _o) in zip(folds,
+                                                                  built):
+            results[canonical] = _finish_fold(fold, output, canonical)
+            _note_sidecar_counters(canonical, results[canonical], sc0)
+            _add_mem_counters(canonical, cfg, inputs, results[canonical],
+                              rss0=rss0)
+    except BaseException:
+        if session is not None:
+            session.close()   # a leaked session would contaminate
+        raise                 # every later one in this process
+    if session is not None:
+        session.finish(results)
     return results
 
 
@@ -1104,6 +1255,8 @@ def run_warm_miner(name: str, conf, inputs: Sequence[str], output: str,
                               extra_counters=_cache_counters(src))
     for key in DELTA_COUNTERS:
         res.counters.setdefault(key, 0.0)
+    # no starting RSS: the warm path records no residual
+    _add_mem_counters(canonical, cfg, inputs, res)
     return res
 
 
@@ -1112,9 +1265,8 @@ def run_warm_miner(name: str, conf, inputs: Sequence[str], output: str,
 # job's carry is checkpointed (core/incremental.py) with the fingerprints of
 # every block it covers, and a refresh restores it and folds only the blocks
 # past the watermark, to the same bytes as a cold run_job (the merge algebra
-# of StreamFoldOps). The reference's autotune session and its
-# Mem:PredictedPeakBytes pricing are not ported: the manifest's
-# `predicted_peak_bytes` is null.
+# of StreamFoldOps). Each checkpoint's manifest holds the footprint
+# model's `predicted_peak_bytes`, and the result its Mem:* counters.
 
 #: the manifest layout the driver writes and restores
 _INCR_FORMAT = 1
@@ -1181,6 +1333,9 @@ class _IncrementalPlan:
         self.seq = 0
         self.delta_blocks = 0
         self.since_ckpt = 0
+        #: the footprint model's price of the scan (`_prepare_incremental`)
+        self.predicted: Optional[int] = None
+        self.rss0 = _rss_now()
 
 
 def _restorable(meta: dict, plan: _IncrementalPlan) -> bool:
@@ -1249,6 +1404,20 @@ def _prepare_incremental(canonical: str, cfg: JobConfig, inputs: List[str],
         plan.fold = ops.factory(cfg, inputs, schema, device)
     obs.record("job.restore", t_restore, job=canonical, restored=restored,
                skipped_bytes=plan.skipped)
+    # the checkpoint's footprint, priced by analysis/mem's model (the job
+    # server's admission oracle); a failure to predict never fails a scan
+    try:
+        from avenir_tpu_torch.analysis.mem import (corpus_stats,
+                                                   footprint_model)
+        from avenir_tpu_torch.core.stream import prefetch_depth
+
+        stats = corpus_stats([p for p in inputs if os.path.exists(p)],
+                             delim=plan.delim)
+        plan.predicted = int(footprint_model(
+            canonical, plan.block, schema, stats,
+            prefetch_depth=prefetch_depth(cfg)).total_bytes)
+    except Exception:
+        pass
     return plan
 
 
@@ -1266,7 +1435,7 @@ def _plan_checkpoint(plan: _IncrementalPlan, complete: bool) -> None:
             "watermarks": list(plan.watermarks),
             "fingerprints": plan.fps,
             "complete": complete,
-            "predicted_peak_bytes": None}
+            "predicted_peak_bytes": plan.predicted}
     saved = plan.store.save(meta, blob)
     obs.record("job.checkpoint", t0, job=plan.canonical, seq=plan.seq,
                complete=complete, nbytes=len(blob))
@@ -1307,6 +1476,10 @@ def _plan_finish(plan: _IncrementalPlan,
     res.counters["Cache:HitBlocks"] = float(plan.hit_blocks)
     res.counters["Cache:DeltaBlocks"] = float(plan.delta_blocks)
     res.counters["Resume:SkippedBytes"] = float(plan.skipped)
+    if plan.predicted is not None:
+        res.counters["Mem:PredictedPeakBytes"] = float(plan.predicted)
+    _add_mem_counters(plan.canonical, plan.cfg, plan.inputs, res,
+                      rss0=plan.rss0)
     return res
 
 
@@ -1380,29 +1553,43 @@ def run_incremental(name: str, conf, inputs: Sequence[str],
 
     The result carries Cache:HitBlocks (restored, verified blocks),
     Cache:DeltaBlocks (blocks folded) and Resume:SkippedBytes (bytes the
-    restored carry covered) beside the sidecar's counters."""
+    restored carry covered) beside the sidecar's and the memory
+    counters. With `stream.autotune` the profile's knobs are overlaid
+    before the restore plan: they enter the conf digest, so a knob change
+    re-scans cold and the next refresh under the same knobs restores. It
+    is the one path that records `job.checkpoint` spans, the checkpoint
+    interval rule's signal."""
     canonical, cfg = _job_cfg(name, conf)
     inputs = [str(p) for p in inputs]
-    plan = _prepare_incremental(canonical, cfg, inputs, output, state_dir,
-                                resolve_device(device))
-    sc0 = sidecar.counters_snapshot()
-    for si, path in enumerate(inputs):
-        size = os.path.getsize(path)
-        start = plan.watermarks[si]
-        if start >= size:
-            continue
-        feed = _delta_feed(plan, path, start, size)
-        try:
-            for off, length, fp_hash, payload in feed:
-                if payload is not None:
-                    t0 = obs.now()
-                    plan.fold.consume(payload)
-                    obs.record("stream.fold", t0, sink=canonical)
-                _plan_note_block(plan, si, off, length, fp_hash)
-        finally:
-            feed.close()
-    res = _plan_finish(plan)
-    _note_sidecar_counters(canonical, res, sc0)
+    dev = resolve_device(device)
+    session = _autotune_begin([canonical], [cfg], inputs)
+    try:
+        plan = _prepare_incremental(canonical, cfg, inputs, output,
+                                    state_dir, dev)
+        sc0 = sidecar.counters_snapshot()
+        for si, path in enumerate(inputs):
+            size = os.path.getsize(path)
+            start = plan.watermarks[si]
+            if start >= size:
+                continue
+            feed = _delta_feed(plan, path, start, size)
+            try:
+                for off, length, fp_hash, payload in feed:
+                    if payload is not None:
+                        t0 = obs.now()
+                        plan.fold.consume(payload)
+                        obs.record("stream.fold", t0, sink=canonical)
+                    _plan_note_block(plan, si, off, length, fp_hash)
+            finally:
+                feed.close()
+        res = _plan_finish(plan)
+        _note_sidecar_counters(canonical, res, sc0)
+    except BaseException:
+        if session is not None:
+            session.close()   # a leaked session would contaminate
+        raise                 # every later one in this process
+    if session is not None:
+        session.finish({canonical: res})
     return res
 
 
@@ -3319,24 +3506,29 @@ class Pipeline:
 
 def run_from_cli(argv: Sequence[str]) -> JobResult:
     """`python -m avenir_tpu_torch <jobName> --conf <props> IN... OUT
-    [--device cpu] [--shard N] [--incremental]`; prints the result as one
-    JSON line. `--shard N` runs a streamed job's scan across N worker
-    processes (`dist.run_sharded`), and the line then also holds each
-    worker's stats under "workers". `--incremental` refreshes a streamed
-    job from its last checkpoint (`run_incremental`); with `--shard N`,
-    across N workers (`dist.run_sharded_refresh`), which the miners
-    refuse.
+    [--device cpu] [--shard N] [--incremental] [--autotune]`; prints the
+    result as one JSON line. `--shard N` runs a streamed job's scan across
+    N worker processes (`dist.run_sharded`), and the line then also holds
+    each worker's stats under "workers". `--incremental` refreshes a
+    streamed job from its last checkpoint (`run_incremental`); with
+    `--shard N`, across N workers (`dist.run_sharded_refresh`), which the
+    miners refuse. `--autotune` sets `stream.autotune`: the run applies
+    the profile store's knobs and records its signals for the next run
+    (a HOCON `.conf` sets the key in its block instead; `--shard` refuses
+    it).
 
     `python -m avenir_tpu_torch serve ...` starts the resident job
     server instead (server/spool.py: `--stdin`, `--spool DIR` or
     `--listen HOST:PORT` behind the HTTP edge of net/listener.py),
     `fleet --root DIR --hosts N` runs N servers behind the affinity
     router (net/fleet.py), and `stats <paths...>` renders one server's
-    metrics.json or a fleet's, merged (obs/report.py). Each takes
-    `--device cpu` but `stats`, which reads files only."""
+    metrics.json or a fleet's, merged (obs/report.py), and `tune <dir>`
+    the autotune profiles under a directory (tune/report.py). Each takes
+    `--device cpu` but `stats` and `tune`, which read files only."""
     subcommands = {"serve": ("avenir_tpu_torch.server.spool", "serve_main"),
                    "fleet": ("avenir_tpu_torch.net.fleet", "fleet_main"),
-                   "stats": ("avenir_tpu_torch.obs.report", "stats_main")}
+                   "stats": ("avenir_tpu_torch.obs.report", "stats_main"),
+                   "tune": ("avenir_tpu_torch.tune.report", "tune_main")}
     if argv and argv[0] in subcommands:
         import importlib
 
@@ -3364,10 +3556,27 @@ def run_from_cli(argv: Sequence[str]) -> JobResult:
                     help="delta-scan a streamed job: restore the last "
                          "fold-state checkpoint and fold only appended "
                          "blocks (run_incremental)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="close the telemetry loop: apply the profile "
+                         "store's tuned knobs to this run and record its "
+                         "signals for the next (sets stream.autotune)")
     ap.add_argument("paths", nargs="*", help="input paths... output path")
     args = ap.parse_intermixed_args(argv)
     if not args.paths:
         ap.error("expected IN... OUT paths (at least an output path)")
+    # a .conf path routes through the HOCON block loader in run_job
+    props = args.conf if args.conf else {}
+    if args.autotune:
+        # a HOCON conf holds a block a job, which the flag cannot reach
+        # into: the key goes in the job's block instead
+        if isinstance(props, str):
+            if props.endswith(".conf"):
+                ap.error("--autotune cannot rewrite a HOCON .conf; set "
+                         "stream.autotune = true in the job's block")
+            props = dict(load_properties(props))
+        else:
+            props = dict(props)
+        props["stream.autotune"] = "true"
     short = args.jobname.rsplit(".", 1)[-1]
     name = (args.jobname if args.jobname in _REGISTRY
             else short[0].lower() + short[1:])
@@ -3381,20 +3590,24 @@ def run_from_cli(argv: Sequence[str]) -> JobResult:
                  "miners: per-k candidate rounds re-scan the whole "
                  "corpus; run --shard (full re-mine) or --incremental "
                  "alone")
+    if args.shard and args.autotune:
+        # the sharded driver applies no tuned knobs: the flag would tune
+        # nothing, so it is refused
+        ap.error("--shard does not support --autotune yet; the sharded "
+                 "driver applies no tuned knobs")
     if args.shard and args.incremental:
         from avenir_tpu_torch.dist.driver import run_sharded_refresh
 
-        res = run_sharded_refresh(name, args.conf or {}, inputs, output,
+        res = run_sharded_refresh(name, props, inputs, output,
                                   procs=args.shard, device=args.device)
     elif args.shard:
         from avenir_tpu_torch.dist import run_sharded
 
-        res = run_sharded(name, args.conf or {}, inputs, output,
+        res = run_sharded(name, props, inputs, output,
                           procs=args.shard, device=args.device)
     else:
         runner = run_incremental if args.incremental else run_job
-        res = runner(name, args.conf or {}, inputs, output,
-                     device=args.device)
+        res = runner(name, props, inputs, output, device=args.device)
     row = {"job": res.name, "counters": res.counters, "outputs": res.outputs}
     if args.shard and res.payload:
         row["workers"] = res.payload["workers"]

@@ -66,9 +66,13 @@ the server only ever executes through the registered runner paths
 ``run_incremental_shared`` / ``run_warm_miner``), whose equivalence
 the shared-scan and merge auditors re-prove every round.
 
-The reference's autotune wiring (``autotune_dir``: the tuned pricer and
-the fold-cost batch balancer) waits for ``tune/`` (``ROADMAP.md`` item
-8): ``JobServer(autotune_dir=...)`` raises NotImplementedError.
+Autotune wiring (``tune/``): ``JobServer(autotune_dir=...)`` prices
+with the residual-corrected tuned pricer, stops a batch's compatible
+prefix at a request whose measured fold cost leaves the batch's band
+(``autotune_balance_ratio``), and injects ``stream.autotune.dir`` into
+each request conf, so the profiles the runner writes land in the store
+the server reads. An autotuned request (``stream.autotune``) is priced
+at the knobs the runner will overlay.
 """
 
 from __future__ import annotations
@@ -250,8 +254,8 @@ def price_request_bytes(requests: Sequence[JobRequest],
     summed); jobs without a model, or a corpus that cannot be sampled,
     price at the flat `reserve_bytes` — admission must always have a
     number, so the fallback is conservative, never an exception. A
-    ``stream.autotune`` conf prices at its static block size and depth:
-    the port's runner does not autotune, so that is what it runs."""
+    ``stream.autotune`` conf prices at the block size and depth of its
+    profile's knobs, which the runner overlays after admission."""
     from avenir_tpu_torch.core.schema import FeatureSchema
     from avenir_tpu_torch.runner import stream_fold_names
 
@@ -273,6 +277,25 @@ def price_request_bytes(requests: Sequence[JobRequest],
         cfg0 = streamed[0][1]
         block_mb = cfg0.get_float("stream.block.size.mb", 64.0)
         depth = prefetch_depth(cfg0)
+        if cfg0.get_bool("stream.autotune", False):
+            # price what the runner will run: an autotuned dispatch
+            # overlays the profile's knobs after admission, so a tuned-up
+            # block must not run at several times its admitted bytes. A
+            # bad profile prices at the static values (and the run fails
+            # loudly on it)
+            try:
+                from avenir_tpu_torch import tune
+
+                jobs = sorted(c for c, _cfg in streamed)
+                prof = tune.ProfileStore(tune.resolve_dir(
+                    cfg0, requests[0].inputs)).load(
+                    "+".join(jobs), tune.corpus_digest(requests[0].inputs))
+                knobs = dict((prof or {}).get("knobs") or {})
+                block_mb = float(knobs.get("stream.block.size.mb",
+                                           block_mb))
+                depth = int(knobs.get("stream.prefetch.depth", depth))
+            except Exception:
+                pass
         block = int(block_mb * (1 << 20))
         paths = [p for p in requests[0].inputs if os.path.exists(p)]
         stats = corpus_stats(paths, delim=cfg0.field_delim_regex) \
@@ -592,12 +615,8 @@ class JobServer:
                  metrics_path: Optional[str] = None,
                  metrics_interval_s: float = 2.0,
                  autotune_dir: Optional[str] = None,
+                 autotune_balance_ratio: float = 4.0,
                  device: DeviceLike = None):
-        if autotune_dir:
-            raise NotImplementedError(
-                "JobServer(autotune_dir=...) needs tune/ (the profile "
-                "store and the tuned pricer), which the port does not "
-                "have yet: ROADMAP.md item 8")
         # every runner call and the score plane run here; resolved now,
         # so a server asked for a missing card fails at construction
         self.device = resolve_device(device)
@@ -614,6 +633,20 @@ class JobServer:
         self._threads: List[threading.Thread] = []
         self._admission = _Admission(budget_bytes, reserve_bytes,
                                      rss_probe=rss_probe)
+        # the autotune wiring (tune/): an `autotune_dir` is a profile
+        # store root; the pricer gains the residual-learned factor
+        # (never under 1.0: the model stays the admission floor) and the
+        # scheduler reads the per-job measured fold-cost means when it
+        # composes batches
+        self._autotune_dir = autotune_dir
+        self._balance_ratio = float(autotune_balance_ratio)
+        self._fold_costs: Dict[tuple, Optional[float]] = {}
+        self._fold_costs_at = 0.0
+        if pricer is None and autotune_dir:
+            from avenir_tpu_torch import tune
+
+            pricer = tune.make_tuned_pricer(autotune_dir,
+                                            base=price_request_bytes)
         # the admission oracle: price_request_bytes (analysis.mem's
         # footprint model) unless a test/operator injects its own
         self._pricer = pricer or price_request_bytes
@@ -981,6 +1014,13 @@ class JobServer:
                         # same job under a different conf cannot share
                         # one scan; stop the prefix so FIFO holds
                         break
+                    if not self._batch_balanced_locked(primaries, ticket):
+                        # fold-cost imbalance (autotune profiles): a
+                        # shared chunk waits on the sum of its sinks'
+                        # folds, so a cheap fold batched behind a far
+                        # costlier one loses more latency than the shared
+                        # ingest saves; stop the prefix, FIFO holds
+                        break
                     jobs_in_batch.add(ticket._canonical)
                     seen[ticket._ekey] = len(primaries)
                     primaries.append(ticket)
@@ -1039,6 +1079,45 @@ class JobServer:
         if q is not None and ticket in q:
             q.remove(ticket)
         self._order.pop(ticket.request.req_id, None)
+
+    # ------------------------------------------------ autotune composition
+    def _fold_cost_locked(self, canonical: Optional[str],
+                          inputs: Sequence[str]) -> Optional[float]:
+        """The measured mean per-chunk fold cost (ms) of one (job, corpus)
+        from the autotune profile store, memoized for 5 s so the
+        scheduler does not re-read small JSON files under the lock on
+        every pass. None: unmeasured (always batches)."""
+        if not self._autotune_dir or canonical is None:
+            return None
+        now = time.perf_counter()
+        if now - self._fold_costs_at > 5.0:
+            self._fold_costs.clear()
+            self._fold_costs_at = now
+        from avenir_tpu_torch.tune import ProfileStore, corpus_digest
+
+        key = (canonical, corpus_digest(inputs))
+        if key not in self._fold_costs:
+            self._fold_costs[key] = ProfileStore(
+                self._autotune_dir).fold_cost_ms(canonical, key[1])
+        return self._fold_costs[key]
+
+    def _batch_balanced_locked(self, primaries: List[Ticket],
+                               candidate: Ticket) -> bool:
+        """True when the candidate's measured fold cost lies inside the
+        batch's fold-cost band (tune.batch_balanced); always true without
+        an autotune dir or without measurements: the balancer never
+        refuses work it has not profiled."""
+        if not self._autotune_dir:
+            return True
+        from avenir_tpu_torch.tune import batch_balanced
+
+        costs = [self._fold_cost_locked(t._canonical, t.request.inputs)
+                 for t in primaries]
+        return batch_balanced(
+            costs,
+            self._fold_cost_locked(candidate._canonical,
+                                   candidate.request.inputs),
+            ratio=self._balance_ratio)
 
     def _scheduler_loop(self) -> None:
         while not self._shutdown.is_set():
@@ -1174,6 +1253,29 @@ class JobServer:
             _obs.recorder().record("server.held", t0, held_ms / 1000.0,
                                    attrs=link)
 
+    def _conf_with_tune_dir(self, conf):
+        """The request conf with the server's `autotune_dir` as
+        `stream.autotune.dir` (unless the tenant set one), so the profiles
+        the runner writes land in the store the pricer and the balancer
+        read. The conf digest leaves the autotune keys out, so the
+        injection never invalidates a tenant's checkpoints. A properties
+        file path passes untouched: the file is the tenant's."""
+        if not self._autotune_dir:
+            return conf
+        from avenir_tpu_torch.core.config import JobConfig
+
+        if isinstance(conf, dict):
+            if "stream.autotune.dir" in conf:
+                return conf
+            return {**conf, "stream.autotune.dir": self._autotune_dir}
+        if isinstance(conf, JobConfig):
+            if conf.get("stream.autotune.dir"):
+                return conf
+            props = dict(conf.props)
+            props["stream.autotune.dir"] = self._autotune_dir
+            return JobConfig(props, conf.prefix)
+        return conf
+
     def _run_batch(self, batch: _Batch) -> Tuple[List, float]:
         """Execute primaries through the registered runner paths;
         (one JobResult per primary index-aligned, warm-hit flag)."""
@@ -1196,7 +1298,8 @@ class JobServer:
                         managed.append(sd)
                     state_dirs[canonical] = sd
                 shared = run_incremental_shared(
-                    [(r.job, r.conf, r.output) for r in reqs], inputs,
+                    [(r.job, self._conf_with_tune_dir(r.conf), r.output)
+                     for r in reqs], inputs,
                     state_dirs=state_dirs, device=self.device)
             finally:
                 for sd in managed:
@@ -1204,8 +1307,10 @@ class JobServer:
                 self._pin_sidecars(reqs)
             return [shared[_scoped(r.job, r.conf)[0]] for r in reqs], 0.0
         if not batch.streamable:
-            return [run_job(reqs[0].job, reqs[0].conf, reqs[0].inputs,
-                            reqs[0].output, device=self.device)], 0.0
+            return [run_job(reqs[0].job,
+                            self._conf_with_tune_dir(reqs[0].conf),
+                            reqs[0].inputs, reqs[0].output,
+                            device=self.device)], 0.0
         # warm miner fast path: a lone mining request over a corpus
         # whose pinned source is still content-valid replays encoded
         # blocks — zero CSV parses
@@ -1224,7 +1329,8 @@ class JobServer:
         try:
             try:
                 shared = run_shared(
-                    [(r.job, r.conf, r.output) for r in reqs],
+                    [(r.job, self._conf_with_tune_dir(r.conf), r.output)
+                     for r in reqs],
                     inputs, device=self.device, fold_hook=fold_hook)
             except BaseException:
                 # a fold marked keep_sources holds its source (and spill

@@ -396,8 +396,9 @@ def serve_main(argv) -> int:
                     help="managed incremental-checkpoint root (default: "
                          "a per-session temp dir)")
     ap.add_argument("--autotune-dir", default=None,
-                    help="autotune profile store (needs tune/, which the "
-                         "port does not have yet: refused)")
+                    help="autotune profile store (tuned pricer + "
+                         "fold-cost-balanced batches; the fleet shares "
+                         "one across hosts)")
     ap.add_argument("--device", default=None,
                     help="torch device of every job and score (default "
                          "cuda; 'cpu' runs the plain versions of the "

@@ -1,19 +1,32 @@
 """The scale tripwires: the sharded driver, the delta scan, the sidecar,
-the job server, the fleet, its faults and the score plane.
+the job server, the fleet, its faults, the score plane, the autotune loop
+and the telemetry's overhead.
 
 The port of `bench_scaling.py`'s `host_parallel_capacity`,
 `shard_tripwire`, `incremental_tripwire`, `sidecar_tripwire` (without
 its job-server leg), `server_tripwire`, `fleet_tripwire`,
-`fleet_fault_tripwire` and `score_tripwire`, each with the reference's
-floor (the other tripwires wait for their modules):
+`fleet_fault_tripwire`, `score_tripwire`, `autotune_tripwire` and
+`obs_tripwire`, each with the reference's floor or ceiling (the miner
+and shared-scan tripwires wait for their port-side counterparts):
 
     python -m avenir_tpu_torch.tools.bench_scaling [--tripwire shard|
-        incremental|sidecar|server|fleet|fleet_fault|score] [--rows N]
-        [--floor X] [--device cpu]
+        incremental|sidecar|server|fleet|fleet_fault|score|autotune|obs]
+        [--rows N] [--floor X] [--device cpu]
 
 prints one JSON line (`--floor 0` records the speedups without a
-verdict on them; `--rows` is the score tripwire's query count). Every
-run, job server and fleet host is on `device` (default cuda).
+verdict on them; for `obs`, `--floor` is the overhead ceiling; `--rows`
+is the score tripwire's query count). Every run, job server and fleet
+host is on `device` (default cuda).
+
+**autotune_tripwire** (floor 1.15x at 10,000,000 rows): the fused churn
+trio under the static default knobs, recording its signals and choosing
+knobs, against the same trio under the chosen knobs pinned as conf keys;
+equal artifacts, best of two a side, the knobs and their reasons in the
+line.
+
+**obs_tripwire** (ceiling 1.03x at 10,000,000 rows): the fused churn trio
+in 8 MB blocks, parsing, with tracing off and on; equal artifacts, a
+read, a parse and a fold span a chunk for every job.
 
 **server_tripwire** (floor 1.5x at 10,000,000 rows): the reference's
 six-request, three-tenant load (the churn trio, markov, two identical
@@ -1229,14 +1242,183 @@ def score_tripwire(queries: int = 512, floor: float = 3.0,
         shutil.rmtree(d, ignore_errors=True)
 
 
-#: tripwire name -> (function, its default floor; None: no speed floor)
-TRIPWIRES = {"shard": (shard_tripwire, 1.5),
-             "incremental": (incremental_tripwire, 5.0),
-             "sidecar": (sidecar_tripwire, 2.0),
-             "server": (server_tripwire, 1.5),
-             "fleet": (fleet_tripwire, 1.5),
-             "fleet_fault": (fleet_fault_tripwire, None),
-             "score": (score_tripwire, 3.0)}
+def _trio_specs(d: str, schema: str, tag: str, extra=None) -> list:
+    """(job, conf, output) of the churn trio, each conf with the `extra`
+    keys (un-prefixed) under its job's prefix."""
+    return [(job, {**cf, **{f"{prefix}.{k}": v
+                            for k, v in (extra or {}).items()}},
+             os.path.join(d, f"{tag}_{short}"))
+            for job, prefix, cf, short in _churn_trio(schema)]
+
+
+def _timed_shared(specs, csv: str, device: str) -> Tuple[dict, float]:
+    """(results, seconds) of one `run_shared` of `specs` over `csv`, the
+    clock stopped after the device drains."""
+    from avenir_tpu_torch.runner import run_shared
+
+    _sync(device)
+    t0 = time.perf_counter()
+    res = run_shared(specs, [csv], device=device)
+    _sync(device)
+    return res, time.perf_counter() - t0
+
+
+def _same_outputs(a: dict, b: dict, what: str) -> None:
+    for job in a:
+        if _file_bytes(a[job]) != _file_bytes(b[job]):
+            raise RuntimeError(
+                f"{what} changed the output of {job}: the run may change "
+                f"speed, never bytes")
+
+
+def obs_tripwire(rows: int = 10_000_000, ceiling: float = 1.03,
+                 device: str = "cuda") -> dict:
+    """Telemetry overhead and coverage: the fused churn trio (one
+    SharedScan, 8 MB blocks) runs once with tracing off and once with
+    tracing on under a captured recorder; the traced run must stay within
+    `ceiling` x the untraced wall clock, write the same bytes, and record
+    a read and a parse span a chunk and a fold span a chunk for every
+    job. Every pass parses (`stream.sidecar=false`): a sidecar replay
+    records `stream.sidecar.replay` in place of the read and parse spans
+    the coverage check counts, and parsing is the hot path whose
+    instrumentation is measured. One untimed pass first, so that the
+    page cache and the allocator price neither timed side."""
+    from collections import Counter
+
+    from avenir_tpu_torch import obs
+
+    d = tempfile.mkdtemp(prefix="avenir_obs_tripwire_")
+    try:
+        csv, schema = _churn_corpus(d, rows, seed=21)
+        extra = {"stream.block.size.mb": "8", "stream.sidecar": "false"}
+        jobs = [j for j, _c, _o in _trio_specs(d, schema, "x")]
+        _timed_shared(_trio_specs(d, schema, "warm", extra), csv, device)
+        prev = obs.set_enabled(False)
+        try:
+            off_res, t_off = _timed_shared(
+                _trio_specs(d, schema, "off", extra), csv, device)
+        finally:
+            obs.set_enabled(prev)
+        with obs.capture() as rec:
+            on_res, t_on = _timed_shared(
+                _trio_specs(d, schema, "on", extra), csv, device)
+        _same_outputs(off_res, on_res, "tracing")
+        spans = rec.spans()
+        chunks = next((int(sp.attrs["chunks"]) for sp in spans
+                       if sp.name == "job.dispatch"), 0)
+        names = Counter(sp.name for sp in spans)
+        folds = Counter(sp.attrs.get("sink") for sp in spans
+                        if sp.name == "stream.fold" and sp.attrs)
+        if chunks < 1:
+            raise RuntimeError("traced fused run recorded no job.dispatch "
+                               "span: the scan executor went blind")
+        blind = [j for j in jobs if folds.get(j, 0) < chunks]
+        if (blind or names["stream.read"] < chunks
+                or names["stream.parse"] < chunks):
+            raise RuntimeError(
+                f"trace coverage hole: {chunks} chunks scanned but "
+                f"read={names['stream.read']} parse={names['stream.parse']} "
+                f"folds={dict(folds)} (jobs missing folds: {blind})")
+        overhead = t_on / max(t_off, 1e-9)
+        out = {"rows": rows, "ceiling": ceiling, "device": device,
+               "overhead_ratio": overhead, "t_off_s": t_off,
+               "t_on_s": t_on, "chunks": chunks, "spans": len(spans),
+               "spans_dropped": rec.dropped, "span_s": _span_seconds(spans),
+               "outputs_byte_identical": True}
+        if overhead > ceiling:
+            raise RuntimeError(
+                f"tracing overhead {overhead:.3f}x exceeds the {ceiling}x "
+                f"ceiling (off {t_off:.2f}s, on {t_on:.2f}s): {out}")
+        return out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def autotune_tripwire(rows: int = 10_000_000, floor: float = 1.15,
+                      device: str = "cuda") -> dict:
+    """The autotune loop pays: the fused churn trio runs under the static
+    default knobs (64 MB blocks, prefetch depth 2, no stream.* sizing
+    key) with the tuner recording its signals and choosing knobs, then
+    under the knobs it chose, pinned as explicit conf keys; the tuned
+    pass must beat the static one `floor` times over, to the same bytes.
+    Each side has an untimed warm-up at its own knobs (the sidecar and
+    the page cache), then the timed passes alternate static, tuned,
+    static, tuned, each side's best kept; only the first static pass
+    records into the profile store."""
+    from avenir_tpu_torch.tune import (ProfileStore, corpus_digest,
+                                       residual_factor)
+
+    d = tempfile.mkdtemp(prefix="avenir_autotune_tripwire_")
+    try:
+        csv, schema = _churn_corpus(d, rows, seed=41)
+        tune_dir = os.path.join(d, "tune")
+        tuning = {"stream.autotune": "true", "stream.autotune.dir": tune_dir}
+        jobs = [j for j, _c, _o in _trio_specs(d, schema, "x")]
+        _timed_shared(_trio_specs(d, schema, "warm_static"), csv, device)
+        static_res, t_static = _timed_shared(
+            _trio_specs(d, schema, "static", tuning), csv, device)
+        prof = ProfileStore(tune_dir).load("+".join(sorted(jobs)),
+                                           corpus_digest([csv]))
+        chosen = dict((prof or {}).get("knobs") or {})
+        reasons = list((prof or {}).get("reasons") or [])
+        signals = ((prof or {}).get("runs") or [{}])[-1].get("signals")
+        if not chosen:
+            raise RuntimeError(
+                "autotuner chose no knobs from the static pass's signals: "
+                f"the signal->policy leg is dead (profile={prof})")
+        pinned = {k: f"{v:g}" for k, v in chosen.items()}
+        _timed_shared(_trio_specs(d, schema, "warm_tuned", pinned), csv,
+                      device)
+        tuned_res, t_tuned = _timed_shared(
+            _trio_specs(d, schema, "tuned", pinned), csv, device)
+        static2, t_static2 = _timed_shared(
+            _trio_specs(d, schema, "static2"), csv, device)
+        tuned2, t_tuned2 = _timed_shared(
+            _trio_specs(d, schema, "tuned2", pinned), csv, device)
+        for res in (tuned_res, static2, tuned2):
+            _same_outputs(static_res, res, "the tuned config")
+        best_static, best_tuned = min(t_static, t_static2), \
+            min(t_tuned, t_tuned2)
+        speedup = best_static / max(best_tuned, 1e-9)
+        # the residual the process's first streamed run (the untuned
+        # warm-up: its store is beside the corpus) recorded: on a card it
+        # holds what the run's first device use made resident
+        first = {p["job"]: {"residuals": p.get("residuals"),
+                            "factor": residual_factor(
+                                p.get("residuals") or [])}
+                 for p in ProfileStore(os.path.join(
+                     d, ".avenir_tune")).profiles()}
+        out = {"rows": rows, "floor": floor, "device": device,
+               "speedup": speedup, "t_static_s": best_static,
+               "t_tuned_s": best_tuned,
+               "t_static_runs_s": [t_static, t_static2],
+               "t_tuned_runs_s": [t_tuned, t_tuned2],
+               "chosen_knobs": chosen, "reasons": reasons,
+               "signals": signals, "first_run_residuals": first,
+               "mem": {j: {k: v for k, v in static_res[j].counters.items()
+                           if k.startswith("Mem:")} for j in jobs},
+               "outputs_byte_identical": True}
+        if speedup < floor:
+            raise RuntimeError(
+                f"tuned config only {speedup:.2f}x the static default "
+                f"(floor {floor}x): the telemetry->knob loop stopped "
+                f"paying: {json.dumps(out)}")
+        return out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+#: tripwire name -> (function, its default bound, the bound's keyword:
+#: a speedup "floor" or an overhead "ceiling"; None: no speed bound)
+TRIPWIRES = {"shard": (shard_tripwire, 1.5, "floor"),
+             "incremental": (incremental_tripwire, 5.0, "floor"),
+             "sidecar": (sidecar_tripwire, 2.0, "floor"),
+             "server": (server_tripwire, 1.5, "floor"),
+             "fleet": (fleet_tripwire, 1.5, "floor"),
+             "fleet_fault": (fleet_fault_tripwire, None, None),
+             "score": (score_tripwire, 3.0, "floor"),
+             "autotune": (autotune_tripwire, 1.15, "floor"),
+             "obs": (obs_tripwire, 1.03, "ceiling")}
 
 
 def main(argv=None) -> None:
@@ -1246,18 +1428,19 @@ def main(argv=None) -> None:
                     help="corpus rows (the score tripwire: its queries, "
                          "default 512)")
     ap.add_argument("--floor", type=float, default=None,
-                    help="the speedup floor (default: the tripwire's own)")
+                    help="the speedup floor, or the obs tripwire's "
+                         "overhead ceiling (default: the tripwire's own)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    fn, floor = TRIPWIRES[args.tripwire]
+    fn, bound, keyword = TRIPWIRES[args.tripwire]
     kwargs = {"device": args.device}
     if args.tripwire == "score":
         if args.rows != ap.get_default("rows"):
             kwargs["queries"] = args.rows
     else:
         kwargs["rows"] = args.rows
-    if floor is not None:
-        kwargs["floor"] = floor if args.floor is None else args.floor
+    if bound is not None:
+        kwargs[keyword] = bound if args.floor is None else args.floor
     print(json.dumps(fn(**kwargs)))
 
 

@@ -112,6 +112,14 @@ def extract_signals(spans: Iterable,
             sig.chunks += 1
             if sp.attrs:
                 sig.bytes_read += int(sp.attrs.get("nbytes", 0))
+        elif sp.name == "stream.sidecar.replay":
+            # a sidecar replay is the run's ingest: without its chunks
+            # and seconds a warm scan records no signal and the block
+            # and prefetch rules go inert
+            sig.read_s += sp.dur
+            sig.chunks += 1
+            if sp.attrs:
+                sig.bytes_read += int(sp.attrs.get("nbytes", 0))
         elif sp.name == "stream.parse":
             sig.parse_s += sp.dur
         elif sp.name == "stream.fold":

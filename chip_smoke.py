@@ -448,6 +448,27 @@ Phases, each printing a line per check; any failed check exits non-zero:
    hosts (`serve --spool --device cuda`, fresh interpreters on the one
    card): four requests, one host SIGKILLed after placement, every row
    ok and equal to its solo bytes, requeues >= 1, no lease left.
+24. The autotune loop (`tune/`) on the card (after phase 23, which leaves
+   phase 6's churn rows and phase 12's sequences in CORPORA; this phase
+   removes them). (a) The fused churn trio (bayesianDistr,
+   mutualInformation, fisherDiscriminant; the sidecar off) through
+   `run_shared` with `stream.autotune` on: pass 1 at the static knobs
+   records its signal row and chooses knobs (printed with their reasons
+   and the Mem:* counters), pass 2 applies them; every file of pass 2
+   equal to pass 1's and to the CPU twin's at the same knobs, and
+   Mem:PredictedPeakBytes equal to the twin's. The static pass again,
+   not recording, under torch.profiler: its device busy share beside the
+   host-clock signal row the tuner reads (spans never synchronize the
+   device). (b) candidateGenerationWithSelfJoin (length 2, the sidecar
+   off) over two sources of TUNE_GSP_ROWS made rows whose codes spill 61
+   bytes a row, under an explicit `stream.encoded.cache.budget.mb` of 64:
+   pass 1 evicts one source, the tuned pass 2 runs under the budget the
+   cache rule chose and evicts nothing; the same files and as many
+   `subseq_support` launches. (c) `JobServer(autotune_dir=)` serves the
+   autotuned trio and phase 12's GSP: its tuned price at least the bare
+   model's, the balancer's batch sizes printed, every file equal to pass
+   1's and to a solo GSP run's. (d) `python -m avenir_tpu_torch tune
+   <dir>` exits 0 and lists the trio's and GSP's profiles.
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth, phase 12's GSP runs the fifth, phase 15's
@@ -457,8 +478,9 @@ its k-means the eighth, phase 18's library modules the ninth, phase
 either), phase 21's sharded workers the twelfth (`shard`: the
 launches the workers report, summed), phase 22's refreshes, sidecar
 packs and replays the thirteenth (`incremental`) and phase 23's served
-requests the fourteenth (`serve`): each kernel's launches are counted
-from zero on each path. Then one JSON
+requests the fourteenth (`serve`) and phase 24's autotuned runs the
+fifteenth (`tune`): each kernel's launches are counted from zero on each
+path. Then one JSON
 line of per-kernel numbers (the pre-pass beside the five kernels, at the
 sweep's D=128 float32; the tensor-core form at the bench's D=128
 bfloat16; the two merge kernels at the job's shape; the walk at the
@@ -1306,11 +1328,12 @@ def _print_split(what: str, rec, engines=None) -> dict:
     return split
 
 
-def _device_busy(run) -> dict:
+def _device_busy(run, rec_out: list = None) -> dict:
     """torch.profiler's device time over one call of run() (a job, or a
     shared scan), and its share of the `job.run` seconds (of the call's
     wall seconds where it records no job.run): kernels, and kernels with
-    copies and sets."""
+    copies and sets. `rec_out`, when given, receives the span recorder of
+    the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1323,6 +1346,8 @@ def _device_busy(run) -> dict:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if rec_out is not None:
+        rec_out.append(rec)
     secs = sum(sp.dur for sp in rec.spans() if sp.name == "job.run") or wall
     kern = other = 0.0
     for ev in prof.key_averages():
@@ -6026,9 +6051,286 @@ def _serve_phase(stack):
           f"SIGKILLed after placement, every row ok and equal to its solo "
           f"bytes in {secs['fleet_s']}s; {json.dumps(secs['fleet'])}")
     shutil.rmtree(work)
-    shutil.rmtree(CORPORA, ignore_errors=True)
     secs["phase"] = round(time.perf_counter() - t_phase, 1)
     print(f"serve path launches: {json.dumps(counts)}", flush=True)
+    return secs, counts
+
+
+TUNE_PATH = "tune"
+#: phase 24(b)'s corpus: fixed-width rows of 64 bytes (`s<7 digits>`, then
+#: TUNE_GSP_TOKENS tokens of 4 characters, all hot but one),
+#: so a 4 MB block holds 65,536 rows, one page of the per-k count, and any
+#: larger power of two a whole number of pages: the launches do not move
+#: with the block size the tuner picks. Source a (first) brings
+#: TUNE_GSP_A_ROWS cold tokens, one new a row, so the codes pass 65,535;
+#: every row of source b takes one of a's last cold tokens, so each of its
+#: blocks spills uint32 codes, 45 bytes a row (1 count + 11 x 4): b spills
+#: 65,250,422 bytes (62.23 MiB), a 3,150,044. Under the explicit budget
+#: of TUNE_GSP_BUDGET_MB, b stays and a is evicted; the reference's cache
+#: rule then asks for pow2(1.5 x 62.23 MiB) = 128 MB, room for both. A
+#: spill under 60.34 MiB would round to the rule's 64 MB floor, which
+#: moves nothing: the rule clamps the current budget into the registry's
+#: range, so a budget under 64 MB reads as 64.
+TUNE_GSP_A_ROWS, TUNE_GSP_B_ROWS = 70_000, 1_450_000
+TUNE_GSP_TOKENS, TUNE_GSP_HOT = 11, 30
+TUNE_GSP_BUDGET_MB = "64"
+TUNE_GSP_PROPS = {"cgs.support.threshold": "0.02",
+                  "cgs.item.set.length": "2", **GSP_BLOCK,
+                  "cgs.stream.encoded.cache.budget.mb": TUNE_GSP_BUDGET_MB,
+                  **{"cgs." + k: v for k, v in SIDECAR_OFF.items()}}
+
+
+def _tune_gsp_sources(work: Path, seed: int) -> list:
+    """Phase 24(b)'s two sources (TUNE_GSP_PROPS' comment), made with
+    numpy: a row is `s<7 digits>`, TUNE_GSP_TOKENS - 1 hot tokens
+    `h<3 digits>` drawn from TUNE_GSP_HOT, and one cold token, 4 base-36
+    digits: row i of source a takes cold token i, a row of source b one of
+    a's last 4,000."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    digits = np.frombuffer(b"0123456789abcdefghijklmnopqrstuvwxyz",
+                           dtype=np.uint8)
+    hot_bytes = np.frombuffer("".join(
+        f"h{i:03d}" for i in range(TUNE_GSP_HOT)).encode(),
+        dtype=np.uint8).reshape(-1, 4)
+
+    def write(path, first_id, cold):
+        rows = len(cold)
+        buf = np.empty((rows, 64), dtype=np.uint8)
+        buf[:, 0] = ord("s")
+        ids = np.arange(first_id, first_id + rows)
+        for j in range(7):
+            buf[:, 7 - j] = ord("0") + (ids // 10 ** j) % 10
+        toks = hot_bytes[rng.integers(0, TUNE_GSP_HOT,
+                                      (rows, TUNE_GSP_TOKENS))]
+        toks[np.arange(rows), rng.integers(0, TUNE_GSP_TOKENS, rows)] = \
+            np.stack([digits[cold // 36 ** (3 - j) % 36] for j in range(4)],
+                     axis=1)
+        cells = buf[:, 8:63].reshape(rows, TUNE_GSP_TOKENS, 5)
+        cells[:, :, 0] = ord(",")
+        cells[:, :, 1:] = toks
+        buf[:, 63] = ord("\n")
+        path.write_bytes(buf.tobytes())
+        return str(path)
+
+    a_cold = np.arange(TUNE_GSP_A_ROWS)
+    b_cold = rng.integers(TUNE_GSP_A_ROWS - 4000, TUNE_GSP_A_ROWS,
+                          TUNE_GSP_B_ROWS)
+    return [write(work / "gsp_a.csv", 0, a_cold),
+            write(work / "gsp_b.csv", TUNE_GSP_A_ROWS, b_cold)]
+
+
+def phase_tune():
+    """The autotune loop on the card (docstring item 24). Returns (seconds
+    and figures, the launch counts of the phase's card runs)."""
+    import contextlib
+
+    with contextlib.ExitStack() as stack:
+        return _tune_phase(stack)
+
+
+def _tune_phase(stack):
+    import torch
+
+    from avenir_tpu_torch.data import churn_schema
+    from avenir_tpu_torch.runner import run_job, run_shared
+    from avenir_tpu_torch.server import JobRequest, JobServer
+    from avenir_tpu_torch.server.jobserver import (DEFAULT_RESERVE_BYTES,
+                                                   price_request_bytes)
+    from avenir_tpu_torch.tune import (ProfileStore, corpus_digest,
+                                       extract_signals, residual_factor)
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_tune"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    corpora = _shard_corpora(work)
+    churn = str(work / "churn.csv")
+    shutil.copyfile(corpora["churn"], churn)
+    schema = str(work / "churn.json")
+    churn_schema().save(schema)
+    tune_dir = str(work / "tune")
+    store = ProfileStore(tune_dir)
+    auto = {"stream.autotune": "true", "stream.autotune.dir": tune_dir}
+    trio = (("bayesianDistr", "bad"), ("mutualInformation", "mut"),
+            ("fisherDiscriminant", "fid"))
+    group = "+".join(sorted(j for j, _p in trio))
+    secs, figs = {}, {}
+
+    def conf(p, extra=()):
+        c = {f"{p}.feature.schema.file.path": schema,
+             **{f"{p}.{k}": v for k, v in SIDECAR_OFF.items()},
+             **{f"{p}.{k}": v for k, v in dict(extra).items()}}
+        if p == "mut":
+            c["mut.mutual.info.score.algorithms"] = "mutual.info.maximization"
+        return c
+
+    def specs(tag, extra=()):
+        return [(j, conf(p, extra), str(work / tag / j)) for j, p in trio]
+
+    def timed(what, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[what] = round(time.perf_counter() - t0, 4)
+        return out
+
+    def mem(res):
+        return {k: v for k, v in res.counters.items() if k.startswith("Mem:")}
+
+    # (c)'s GSP request over phase 12's sequences, and its solo twin on the
+    # card, run before the count starts
+    seq = str(work / "seq.csv")
+    shutil.copyfile(corpora["seq"], seq)
+    gsp_req = {**GSP_PROPS, **GSP_BLOCK,
+               **{"cgs." + k: v for k, v in SIDECAR_OFF.items()}}
+    solo = timed("gsp_solo_s", lambda: run_job(
+        SEQ_PATH, gsp_req, [seq], str(work / "gsp_solo") + os.sep,
+        device=DEVICE))
+    # launches are counted from zero here, on every autotuned card run of
+    # the phase
+    _reset_launches()
+
+    # ---- (a) the fused churn trio, pass 1 static and pass 2 tuned
+    p1 = timed("trio_pass1_s", lambda: run_shared(
+        specs("p1", auto), [churn], device=DEVICE))
+    prof = store.load(group, corpus_digest([churn]))
+    check(prof is not None and bool(prof["runs"]),
+          f"(a) pass 1 of the fused trio recorded its signals: {prof}")
+    knobs = dict(prof["knobs"])
+    row = prof["runs"][-1]
+    figs["trio_knobs"] = knobs
+    figs["trio_reasons"] = prof["reasons"]
+    figs["trio_signals"] = row["signals"]
+    figs["trio_mem_pass1"] = {j: mem(p1[j]) for j, _p in trio}
+    print(f"(a) pass 1, static knobs ({CARD}; {secs['trio_pass1_s']}s): "
+          f"knobs used {json.dumps(row['knobs_used'])}; signal row "
+          f"{json.dumps(row['signals'])}; chosen {json.dumps(knobs)}, "
+          f"reasons {json.dumps(prof['reasons'])}; Mem "
+          f"{json.dumps(figs['trio_mem_pass1'])}", flush=True)
+    p2 = timed("trio_pass2_s", lambda: run_shared(
+        specs("p2", auto), [churn], device=DEVICE))
+    prof2 = store.load(group, corpus_digest([churn]))
+    used2 = prof2["runs"][-1]["knobs_used"]
+    pinned = {k: f"{v:g}" for k, v in knobs.items()}
+    cpu = timed("trio_cpu_twin_s", lambda: run_shared(
+        specs("cpu", pinned), [churn], device="cpu"))
+    same = all(_files_of(p2[j]) == _files_of(p1[j]) == _files_of(cpu[j])
+               for j, _p in trio)
+    pred = all(p2[j].counters["Mem:PredictedPeakBytes"]
+               == cpu[j].counters["Mem:PredictedPeakBytes"] for j, _p in trio)
+    figs["trio_mem_pass2"] = {j: mem(p2[j]) for j, _p in trio}
+    check(bool(knobs) and all(used2[k] == v for k, v in knobs.items())
+          and same and pred,
+          f"(a) pass 2 applied the chosen knobs {json.dumps(knobs)} "
+          f"({CARD}; {secs['trio_pass2_s']}s against pass 1's "
+          f"{secs['trio_pass1_s']}s): every file byte-identical to pass 1's "
+          f"and to the CPU twin's at the same knobs, Mem:PredictedPeakBytes "
+          f"equal to the twin's: {json.dumps(figs['trio_mem_pass2'])}")
+    # what the host-clock spans saw against the device: pass 1's knobs, not
+    # recording, under torch.profiler
+    recs = []
+    busy = _device_busy(lambda: run_shared(specs("busy"), [churn],
+                                           device=DEVICE), rec_out=recs)
+    busy_sig = extract_signals(recs[0].spans()).to_json()
+    figs["trio_busy"] = {**busy, "signals": busy_sig}
+    print(f"(a) the static pass again under torch.profiler ({CARD}): device "
+          f"busy share {busy['device_busy_share']:.4f} of "
+          f"{busy['job_run_s']:.3f}s ({busy['device_s']:.4f}s on the "
+          f"device); its host-clock signal row {json.dumps(busy_sig)}",
+          flush=True)
+
+    # ---- (b) GSP with a budget that evicts, then the tuned budget
+    gsp_in = _tune_gsp_sources(work, 241)
+    gsp_conf = {**TUNE_GSP_PROPS, "cgs.stream.autotune": "true",
+                "cgs.stream.autotune.dir": tune_dir}
+    gsp = []
+    for i in (1, 2):
+        before = _launch_counts()["subseq_support_fold"]
+        res = timed(f"gsp_pass{i}_s", lambda: run_job(
+            SEQ_PATH, gsp_conf, gsp_in, str(work / f"gsp{i}") + os.sep,
+            device=DEVICE))
+        gsp.append((res, _launch_counts()["subseq_support_fold"] - before,
+                    store.load(SEQ_PATH, corpus_digest(gsp_in))))
+    (g1, n1, gp1), (g2, n2, gp2) = gsp
+    cache = [{k: r.counters[k] for k in ("Cache:SpillBytes",
+                                         "Cache:EvictedBytes")}
+             for r, _n, _p in gsp]
+    budget = gp1["knobs"].get("stream.encoded.cache.budget.mb")
+    figs["gsp"] = {"bytes": [os.path.getsize(p) for p in gsp_in],
+                   "cache": cache, "launches": [n1, n2],
+                   "knobs": gp1["knobs"], "reasons": gp1["reasons"],
+                   "signals": gp1["runs"][-1]["signals"],
+                   "mem": [mem(g1), mem(g2)]}
+    check(cache[0]["Cache:EvictedBytes"] > 0 and budget is not None
+          and gp2["runs"][-1]["knobs_used"][
+              "stream.encoded.cache.budget.mb"] == budget
+          and cache[1]["Cache:EvictedBytes"] == 0
+          and _files_of(g2) == _files_of(g1) and n1 == n2 >= 1,
+          f"(b) {SEQ_PATH} over sources of {TUNE_GSP_A_ROWS} and "
+          f"{TUNE_GSP_B_ROWS} rows ({CARD}): "
+          f"pass 1 under the explicit budget {TUNE_GSP_BUDGET_MB} MB "
+          f"{json.dumps(cache[0])} in {secs['gsp_pass1_s']}s; the tuned "
+          f"pass 2 at {budget} MB {json.dumps(cache[1])} in "
+          f"{secs['gsp_pass2_s']}s; files equal, subseq_support launched "
+          f"{n1} / {n2} times; {json.dumps(figs['gsp'])}")
+
+    # ---- (c) the job server with the profile store
+    srv = JobServer(workers=1, device=DEVICE, autotune_dir=tune_dir,
+                    budget_bytes=SERVE_BUDGET_BYTES,
+                    state_root=str(work / "state"))
+    stack.callback(srv.shutdown, drain=False)
+    reqs = [JobRequest(j, conf(p, {"stream.autotune": "true"}), [churn],
+                       str(work / "srv" / j), tenant=f"tenant_{p}")
+            for j, p in trio]
+    reqs.append(JobRequest(SEQ_PATH, gsp_req, [seq],
+                           str(work / "srv_gsp") + os.sep, tenant="seq"))
+    tuned_price = srv._pricer(reqs[:3], DEFAULT_RESERVE_BYTES)
+    bare_price = price_request_bytes(reqs[:3], DEFAULT_RESERVE_BYTES)
+    # the fold costs the balancer reads when it composes the batch
+    costs = {j: store.fold_cost_ms(j, corpus_digest([churn]))
+             for j, _p in trio}
+    tickets = [srv.submit(r) for r in reqs]
+    served = timed("served_s", lambda: (srv.start(), [
+        t.result(SERVE_WAIT_S) for t in tickets])[1])
+    sizes = {r.job: served[i].counters["Server:BatchSize"]
+             for i, r in enumerate(reqs)}
+    figs["server"] = {"tuned_price": tuned_price, "bare_price": bare_price,
+                      "batch_sizes": sizes, "fold_cost_ms": costs,
+                      "split": any(v < 3 for j, v in sizes.items()
+                                   if j != SEQ_PATH)}
+    check(tuned_price >= bare_price
+          and all(_files_of(served[i]) == _files_of(p1[r.job])
+                  for i, r in enumerate(reqs[:3]))
+          and _files_of(served[3]) == _files_of(solo),
+          f"(c) JobServer(autotune_dir=) on the card ({CARD}; "
+          f"{secs['served_s']}s): tuned price {tuned_price} >= the bare "
+          f"model's {bare_price}; the balancer "
+          f"{'split' if figs['server']['split'] else 'kept'} the trio "
+          f"(batch sizes {json.dumps(sizes)}, fold costs "
+          f"{json.dumps(costs)} ms); every file equal to pass 1's and "
+          f"the GSP solo run's")
+    counts = _launch_counts()
+
+    # ---- (d) the tune subcommand
+    proc = subprocess.run(
+        [sys.executable, "-m", "avenir_tpu_torch", "tune", tune_dir],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    listed = [ln.split()[0] for ln in proc.stdout.splitlines()
+              if ln and not ln.startswith(" ")]
+    check(proc.returncode == 0 and group in listed and SEQ_PATH in listed,
+          f"(d) python -m avenir_tpu_torch tune: exit {proc.returncode}, "
+          f"profiles {listed}")
+    figs["residual_factors"] = {
+        f"{p['job']}_{p['corpus_digest']}": residual_factor(
+            p.get("residuals") or []) for p in store.profiles()}
+    print(f"tune figures ({CARD}): {json.dumps(figs)}", flush=True)
+    shutil.rmtree(work)
+    shutil.rmtree(CORPORA, ignore_errors=True)
+    secs["phase"] = round(time.perf_counter() - t_phase, 1)
+    print(f"tune path launches: {json.dumps(counts)}", flush=True)
     return secs, counts
 
 
@@ -6155,6 +6457,7 @@ def main() -> None:
     shard_secs, shard_counts = phase_shard()
     incr_secs, incr_counts = phase_incremental()
     serve_secs, serve_counts = phase_server()
+    tune_secs, tune_counts = phase_tune()
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     print(f"tree and text seconds ({CARD}; phase 10 "
@@ -6192,6 +6495,8 @@ def main() -> None:
           f"{json.dumps(incr_secs)}", flush=True)
     print(f"serve seconds ({CARD}; phase 23 {serve_secs['phase']}s): "
           f"{json.dumps(serve_secs)}", flush=True)
+    print(f"tune seconds ({CARD}; phase 24 {tune_secs['phase']}s): "
+          f"{json.dumps(tune_secs)}", flush=True)
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.1f}s "
           f"({CARD})", flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
@@ -6200,7 +6505,8 @@ def main() -> None:
              TMC_PATH: tmc_counts, KMEANS_PATH: km_counts,
              LIB_PATH: lib_counts, CONF_PATH: conf_counts,
              MESH_PATH: mesh_counts, SHARD_PATH: shard_counts,
-             INCR_PATH: incr_counts, SERVE_PATH: serve_counts}
+             INCR_PATH: incr_counts, SERVE_PATH: serve_counts,
+             TUNE_PATH: tune_counts}
 
     # each kernel's row at the shape of the path it is reported on: the
     # job's (manhattan, D=6) for the three it runs; the sweep's

@@ -21,7 +21,7 @@ from avenir_tpu_torch.core.schema import FeatureSchema
 from avenir_tpu_torch.data import (churn_schema, elearn_schema, generate_churn,
                                    generate_elearn)
 from avenir_tpu_torch.models.artifact import ModelFormatSkew
-from avenir_tpu_torch.runner import DELTA_COUNTERS
+from avenir_tpu_torch.runner import DELTA_COUNTERS, MEM_COUNTERS
 from avenir_tpu_torch.models.discriminant import FisherDiscriminant
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -126,8 +126,8 @@ def test_job_byte_identical_to_jax_and_through_the_cli(corpora, tmp_path,
     props = {"fid.feature.schema.file.path": str(schema)}
     if block_mb:
         props["fid.stream.block.size.mb"] = block_mb
-    jax_run_job("fisherDiscriminant", props, [str(csv)],
-                str(tmp_path / "jax.txt"))
+    ref = jax_run_job("fisherDiscriminant", props, [str(csv)],
+                      str(tmp_path / "jax.txt"))
     conf = tmp_path / "fid.properties"
     conf.write_text("".join(f"{k}={v}\n" for k, v in props.items()))
     proc = subprocess.run(
@@ -138,7 +138,9 @@ def test_job_byte_identical_to_jax_and_through_the_cli(corpora, tmp_path,
     assert proc.returncode == 0, proc.stderr
     row = json.loads(proc.stdout.strip().splitlines()[-1])
     assert row["job"] == "fisherDiscriminant"
-    assert set(row["counters"]) == set(DELTA_COUNTERS)
+    assert set(row["counters"]) == set(DELTA_COUNTERS) | set(MEM_COUNTERS)
+    assert row["counters"]["Mem:PredictedPeakBytes"] == \
+        ref.counters["Mem:PredictedPeakBytes"]
     for ext in ("", ".stamp.json"):
         assert (tmp_path / f"port.txt{ext}").read_bytes() == \
             (tmp_path / f"jax.txt{ext}").read_bytes()

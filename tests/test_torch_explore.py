@@ -40,7 +40,7 @@ from avenir_tpu_torch.data import (churn_schema, elearn_schema, generate_churn,
 from avenir_tpu_torch.models import explore as ex
 from avenir_tpu_torch.ops import infotheory as info
 from avenir_tpu_torch.ops import reduce as red
-from avenir_tpu_torch.runner import DELTA_COUNTERS, run_job
+from avenir_tpu_torch.runner import DELTA_COUNTERS, MEM_COUNTERS, run_job
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = "cpu"
@@ -406,8 +406,18 @@ JOBS = {
 def _job_counters(counters):
     """A result's counters without the delta-scan ones (DELTA_COUNTERS),
     which every streamed result carries and which count what a restore or
-    the columnar sidecar served."""
-    return {k: v for k, v in counters.items() if k not in DELTA_COUNTERS}
+    the columnar sidecar served, and without the memory counters
+    (MEM_COUNTERS: the tests hold the prediction to the reference's on
+    its own; the peak RSS measures the process)."""
+    return {k: v for k, v in counters.items()
+            if k not in DELTA_COUNTERS and k not in MEM_COUNTERS}
+
+
+def _same_prediction(port, ref):
+    """Mem:PredictedPeakBytes of a port result equals the reference's (both
+    absent for a job that is not streamed)."""
+    assert port.get("Mem:PredictedPeakBytes") == \
+        ref.get("Mem:PredictedPeakBytes")
 
 
 @pytest.mark.parametrize("block_mb", [None, "0.02"])
@@ -430,6 +440,7 @@ def test_job_matches_jax(env, tmp_path, case, block_mb):
         assert g == r
     assert _job_counters(got.counters) == {
         k: v for k, v in ref.counters.items() if k.startswith("Basic:")}
+    _same_prediction(got.counters, ref.counters)
     assert got.name == job and got.outputs == [str(tmp_path / "port.txt")]
 
 
@@ -462,7 +473,9 @@ def test_jobs_through_the_cli(env, tmp_path):
         assert proc.returncode == 0, proc.stderr
         row = json.loads(proc.stdout.strip().splitlines()[-1])
         assert _job_counters(row["counters"]) == {"Basic:Records": 3000}
-        jax_run_job(name, str(props), [env["churn"]], str(out) + ".jax")
+        ref = jax_run_job(name, str(props), [env["churn"]],
+                          str(out) + ".jax")
+        _same_prediction(row["counters"], ref.counters)
         if "Mutual" in name:
             assert_within_one_unit(out.read_text(),
                                    Path(str(out) + ".jax").read_text())

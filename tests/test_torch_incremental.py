@@ -111,7 +111,7 @@ def _manifest(state):
 #: size and hash follow the port's own carry bytes
 SHARED_FIELDS = ("format", "format_version", "job", "seq", "conf_digest",
                  "inputs", "block_bytes", "watermarks", "fingerprints",
-                 "complete")
+                 "complete", "predicted_peak_bytes")
 
 
 # ------------------------------------------------------------ mechanics

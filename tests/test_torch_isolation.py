@@ -64,7 +64,8 @@ def test_modules_list_covers_the_package():
                 "models.svm", "models.neural", "ops.sampling_kernels",
                 "tools.sampling_check", "dist", "dist.driver", "dist.worker",
                 "dist.plan", "dist.ledger", "dist.detect", "dist.collective",
-                "tune", "tune.signals", "parallel.scaling",
+                "tune", "tune.signals", "tune.knobs", "tune.policy",
+                "tune.store", "tune.report", "parallel.scaling",
                 "tools.bench_scaling", "core.incremental", "native.sidecar",
                 "server.jobserver", "server.spool", "net", "net.router",
                 "net.listener", "net.fault", "net.fleet", "obs.report",

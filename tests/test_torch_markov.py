@@ -47,7 +47,7 @@ from avenir_tpu_torch.native import ingest
 from avenir_tpu_torch.runner import (Pipeline, Stage, job_names, run_job,
                                      run_shared, stream_fold_names,
                                      stream_fold_ops)
-from avenir_tpu_torch.runner import DELTA_COUNTERS
+from avenir_tpu_torch.runner import DELTA_COUNTERS, MEM_COUNTERS
 
 CPU = "cpu"
 ROUTES = ("native", "python")
@@ -61,8 +61,18 @@ MST = {"mst.model.states": ",".join(MARKOV_STATES),
 def _job_counters(counters):
     """A result's counters without the delta-scan ones (DELTA_COUNTERS),
     which every streamed result carries and which count what a restore or
-    the columnar sidecar served."""
-    return {k: v for k, v in counters.items() if k not in DELTA_COUNTERS}
+    the columnar sidecar served, and without the memory counters
+    (MEM_COUNTERS: the tests hold the prediction to the reference's on
+    its own; the peak RSS measures the process)."""
+    return {k: v for k, v in counters.items()
+            if k not in DELTA_COUNTERS and k not in MEM_COUNTERS}
+
+
+def _same_prediction(port, ref):
+    """Mem:PredictedPeakBytes of a port result equals the reference's (both
+    absent for a job that is not streamed)."""
+    assert port.get("Mem:PredictedPeakBytes") == \
+        ref.get("Mem:PredictedPeakBytes")
 
 
 def _python_route(monkeypatch):
@@ -553,6 +563,7 @@ def test_markov_per_class_job_byte_identical(tmp_path, monkeypatch, route,
     assert got == want and len(got) == 2
     assert _job_counters(port.counters) == {"Basic:Records": 1500} == \
         {k: v for k, v in jax.counters.items() if k == "Basic:Records"}
+    _same_prediction(port.counters, jax.counters)
     engines = {sp.attrs.get("engine") for sp in rec.spans()
                if sp.name == "stream.parse"}
     assert engines == {"native" if route == "native" else "lines"}
@@ -616,6 +627,7 @@ def test_markov_per_entity_job_byte_identical(tmp_path, monkeypatch, route,
     n = {"id": 17, "id_class": 34, "class_only": 2}[conf]
     assert _job_counters(port.counters) == {"Entities:Count": n} == \
         {"Entities:Count": jax.counters["Entities:Count"]}
+    _same_prediction(port.counters, jax.counters)
     # with no id column the reference's routes key apart: the Python rows
     # join the empty id list and the class (",C"), the native columns give
     # the class alone ("C"); each route matches its own reference route
@@ -912,6 +924,8 @@ def test_run_shared_markov_apriori_gsp(tmp_path, monkeypatch, route):
         assert files[0] == files[1] == files[2] == files[3], job
     assert _job_counters(fused["markovStateTransitionModel"].counters) == \
         {"Basic:Records": 800}
+    for job in fused:
+        _same_prediction(fused[job].counters, jfused[job].counters)
     # one scan where the solo runs made three: the miners' later rounds
     # re-read the file in both
     blocks = len(list(stream_job_byte_blocks(

@@ -50,7 +50,7 @@ from avenir_tpu_torch.models.naive_bayes import (NaiveBayesModel,
 from avenir_tpu_torch.ops import knn_kernels as kk
 from avenir_tpu_torch.ops import matmul_ceiling as mc
 from avenir_tpu_torch import obs
-from avenir_tpu_torch.runner import DELTA_COUNTERS, run_job
+from avenir_tpu_torch.runner import DELTA_COUNTERS, MEM_COUNTERS, run_job
 from avenir_tpu_torch.utils.metrics import CostBasedArbitrator
 from test_torch_native_ingest import engine_of, parse_engines
 
@@ -399,7 +399,11 @@ def test_jobs_through_properties_file_and_cli(corpora, tmp_path):
         rows.append(json.loads(proc.stdout.strip().splitlines()[-1]))
     assert rows[0]["job"] == "bayesianDistr" and model.exists()
     assert {k: v for k, v in rows[0]["counters"].items()
-            if k not in DELTA_COUNTERS} == {"Distribution Data:Records": 800}
+            if k not in DELTA_COUNTERS and k not in MEM_COUNTERS} == \
+        {"Distribution Data:Records": 800}
+    assert rows[0]["counters"]["Mem:PredictedPeakBytes"] == jax_run_job(
+        "bayesianDistr", str(props), [corpora["small_train"]],
+        str(tmp_path / "jax_distr") + "/").counters["Mem:PredictedPeakBytes"]
     assert rows[1]["counters"]["Validation:Accuracy"] > 70
     jax_run_job("bayesianPredictor", str(props), [corpora["small_test"]],
                 str(tmp_path / "jax.txt"))

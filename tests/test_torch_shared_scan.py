@@ -62,9 +62,12 @@ def _conf(prefix, schema, block="0.005"):
 
 
 def _scan_counters(res):
-    """A result's counters but what the columnar sidecar served."""
+    """A result's counters but what the columnar sidecar served and
+    `Mem:PeakRSS`, a measurement of the process, not of the job (held
+    above zero here); `Mem:PredictedPeakBytes` stays."""
+    assert res.counters["Mem:PeakRSS"] > 0
     return {k: v for k, v in res.counters.items()
-            if not k.startswith("Sidecar:")}
+            if not k.startswith("Sidecar:") and k != "Mem:PeakRSS"}
 
 
 def _read(res) -> bytes:

@@ -24,10 +24,15 @@ directory a tutorial names in `stream.sidecar.dir`) in one format, so
 its files are compared like any other. The job server's tutorial
 writes metrics snapshots, host logs and result rows that hold times;
 TIMING_FILES leaves them out by name, each with its reason, and its
-served artifacts are compared. The reference also writes
-autotune records (`.avenir_tune/`), which the port does not have: that
-cache is the only one the port's run may lack. An incremental
-checkpoint (a directory holding `MANIFEST.json` beside its
+served artifacts are compared. Both packages write autotune profiles
+(`.avenir_tune/<job>_<digest>.json`): each is compared by the fields that
+do not hold timings or memory readings (`format`, `format_version`,
+`job`, `corpus_digest`) and by the presence of its `runs` and
+`residuals`. A streamed run records its residual only when it raises the
+process's lifetime peak RSS, which hangs on what the process ran before
+(both packages run in one process here), so the test opens that gate for
+every streamed run of both packages (`_every_run_records_its_residual`).
+An incremental checkpoint (a directory holding `MANIFEST.json` beside its
 `carry_<seq>_<hash8>.npz`) is compared by its manifest's fields: the
 port's carry holds its own dtypes (int64 and float64 counts), so its npz
 bytes, and the carry's name, size and hash built from them, are its own.
@@ -64,15 +69,16 @@ TIMING_FILES = {"tutorial_job_server.md": {
         "counters (the chaos_out artifact it names is compared)",
 }}
 
-#: the reference's cache under `workdir`, which the port does not write
-REFERENCE_ONLY = (".avenir_tune" + os.sep,)
+#: the autotune profile store's directory name (tune/store.py)
+TUNE_DIR = ".avenir_tune"
+#: a profile's fields that hold no timing and no memory reading
+PROFILE_FIELDS = ("format", "format_version", "job", "corpus_digest")
 
 #: the checkpoint manifest's fields both packages write alike (the carry's
-#: `carry_file`, `carry_bytes` and `carry_hash` are each package's own,
-#: and the reference's `predicted_peak_bytes` prices its memory model)
+#: `carry_file`, `carry_bytes` and `carry_hash` are each package's own)
 CHECKPOINT_FIELDS = ("format", "format_version", "job", "seq", "conf_digest",
                      "inputs", "block_bytes", "watermarks", "fingerprints",
-                     "complete")
+                     "complete", "predicted_peak_bytes")
 
 
 def _untimed(name, files):
@@ -82,6 +88,44 @@ def _untimed(name, files):
     pats = TIMING_FILES.get(name, {})
     return {k: v for k, v in files.items()
             if not any(fnmatch.fnmatch(k, p) for p in pats)}
+
+
+def _profiles(files):
+    """Split the autotune profiles out of `files`: (the other files,
+    {profile path: its PROFILE_FIELDS and whether it holds runs and
+    residuals}). A publish's tmp file beside them (a host SIGKILLed while
+    it wrote) is left out: the protocol leaves the last whole profile."""
+    from avenir_tpu_torch.core.atomic import is_tmp_name
+
+    rest, profs = {}, {}
+    for k, v in files.items():
+        if TUNE_DIR not in k.split(os.sep)[:-1]:
+            rest[k] = v
+        elif not is_tmp_name(k):
+            prof = json.loads(v)
+            profs[k] = {**{f: prof.get(f) for f in PROFILE_FIELDS},
+                        "runs": "runs" in prof,
+                        "residuals": "residuals" in prof}
+    return rest, profs
+
+
+def _every_run_records_its_residual(monkeypatch):
+    """Open the residual gate of both runners for every streamed run in
+    this process: the peak it compares with is reset before each result,
+    and the starting RSS reads 0, so each result records (predicted, the
+    process peak). Without it, whether a run records hangs on the
+    process's earlier runs, not on the package."""
+    import avenir_tpu.runner as jax_runner
+    import avenir_tpu_torch.runner as port_runner
+
+    for mod in (jax_runner, port_runner):
+        def gate_open(*args, _orig=mod._add_mem_counters, _mod=mod,
+                      **kwargs):
+            _mod._residual_peak_seen = 0
+            return _orig(*args, **kwargs)
+
+        monkeypatch.setattr(mod, "_add_mem_counters", gate_open)
+        monkeypatch.setattr(mod, "_rss_now", lambda: 0)
 
 
 def _checkpoints(files):
@@ -132,16 +176,18 @@ def _quiet_shards(monkeypatch):
 @pytest.mark.parametrize("name", RUNNABLE)
 def test_tutorial_runs_on_port(name, tmp_path, monkeypatch):
     _quiet_shards(monkeypatch)
+    _every_run_records_its_residual(monkeypatch)
     work = tmp_path / "work"
     work.mkdir()
     run_tutorial(name, str(work), port=False)
-    want, want_ckpt = _checkpoints(_untimed(name,
-        {k: v for k, v in written_files(str(work)).items()
-         if not k.startswith(REFERENCE_ONLY)}))
+    want, want_prof = _profiles(_untimed(name, written_files(str(work))))
+    want, want_ckpt = _checkpoints(want)
     work.rename(tmp_path / "ref")
     work.mkdir()
     run_tutorial(name, str(work), port=True)
-    got, got_ckpt = _checkpoints(_untimed(name, written_files(str(work))))
+    got, got_prof = _profiles(_untimed(name, written_files(str(work))))
+    got, got_ckpt = _checkpoints(got)
+    assert got_prof == want_prof
     assert sorted(got) == sorted(want)
     for k in MI_FILES.get(name, ()):
         assert_within_one_unit(got.pop(k).decode(), want.pop(k).decode())
