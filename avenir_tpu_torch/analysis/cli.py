@@ -1,0 +1,220 @@
+"""The auditors' command line: ``python -m avenir_tpu_torch.analysis``.
+
+The port of `avenir_tpu/analysis/cli.py`'s modes that the port has:
+
+- ``--flow``: the flow rules over the paths (default: the port's
+  package and `chip_smoke.py`) and the chunk-invariance audit of the
+  stream entries;
+- ``--mem``: the mem rules and the footprint audit (sampled RSS against
+  the model at two block sizes);
+- ``--merge``: the merge rules and the shard-merge, resume, incremental
+  and sharded-steal audit.
+
+Two or three of them together run one after another in one process and
+print ``{"modes": {<tier>: <report>}, "clean": bool}`` with ``--json``
+(one tier prints its report alone), exiting with the worst code. The
+audits run on ``--device``: cuda unless the caller asks for the CPU, as
+every entry point of the port (without a card, an audit then fails to
+run and the exit is 2). ``--rules`` takes a subset of the tiers' rule ids (an
+audit runs only when its rule id is named); ``--no-baseline`` ignores
+the allowlist (`analysis/audit_baseline.txt`).
+
+Exit codes: 0 clean (no finding, no stale allowlist entry, no parse
+error); 1 findings; 2 a usage error or an audit that failed to run.
+``--ir`` lowers jaxprs and is never ported; ``--proto``, ``--race``,
+``--keys`` and the AST rules (paths with no tier) are not ported yet
+(`ROADMAP.md` §1, item 8): each exits 2 with a message.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from typing import List, Optional
+
+from avenir_tpu_torch.analysis.engine import (default_baseline_path,
+                                              load_baseline)
+
+#: the ported tiers, in audit-cost order
+TIERS = ("flow", "mem", "merge")
+
+#: modes of the reference that the port refuses, each with its reason
+NOT_PORTED = {
+    "ir": "--ir lowers jaxprs and HLO; the port has none, so it is never "
+          "ported",
+    "proto": "--proto is not ported yet (ROADMAP.md section 1, item 8)",
+    "race": "--race is not ported yet (ROADMAP.md section 1, item 8)",
+    "keys": "--keys is not ported yet (ROADMAP.md section 1, item 8)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m avenir_tpu_torch.analysis",
+        description="the port's flow, mem and merge auditors")
+    p.add_argument("paths", nargs="*",
+                   help=".py/.md files or directories for the tiers' rules "
+                        "(default: the port's package and chip_smoke.py)")
+    for tier, what in (("flow", "the flow rules and the chunk-invariance "
+                                "audit"),
+                       ("mem", "the mem rules and the footprint audit"),
+                       ("merge", "the merge rules and the shard-merge, "
+                                 "resume, incremental and sharded-steal "
+                                 "audit")):
+        p.add_argument(f"--{tier}", action="store_true", help=what)
+    for mode in NOT_PORTED:
+        p.add_argument(f"--{mode}", action="store_true",
+                       help=argparse.SUPPRESS)
+    p.add_argument("--device", default="cuda",
+                   help="where the audits run the stream entries (cuda or "
+                        "cpu; default cuda)")
+    p.add_argument("--baseline", default=None,
+                   help="allowlist file (default: avenir_tpu_torch/"
+                        "analysis/audit_baseline.txt)")
+    p.add_argument("--no-baseline", action="store_true",
+                   help="report every finding, ignoring the allowlist")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="print one JSON object instead of text")
+    p.add_argument("--rules", default=None, metavar="ID[,ID...]",
+                   help="a subset of the tiers' rule ids (an audit runs "
+                        "only when its own id is named)")
+    p.add_argument("--no-md", action="store_true",
+                   help="skip ```python fences in .md files")
+    p.add_argument("--allow-stale", action="store_true",
+                   help="do not fail on allowlist entries that no longer "
+                        "match")
+    return p
+
+
+def _report_root(args) -> Optional[str]:
+    """The root finding keys are relative to: the checkout (where the
+    default allowlist's keys point), an explicit allowlist's directory,
+    or the working directory without one."""
+    if args.baseline:
+        return os.path.dirname(os.path.abspath(args.baseline))
+    if args.no_baseline:
+        return None
+    return os.path.dirname(os.path.dirname(os.path.dirname(
+        default_baseline_path())))
+
+
+def _tiers():
+    """tier -> (rule classes, audit rule id, audit error, runner)."""
+    from avenir_tpu_torch.analysis import flow, mem, merge
+
+    return {
+        "flow": (flow.ALL_FLOW_RULES, flow.FLOW_AUDIT_RULE,
+                 flow.FlowAuditError, flow.run_flow),
+        "mem": (mem.ALL_MEM_RULES, mem.MEM_AUDIT_RULE, mem.MemAuditError,
+                mem.run_mem),
+        "merge": (merge.ALL_MERGE_RULES, merge.MERGE_AUDIT_RULE,
+                  merge.MergeAuditError, merge.run_merge),
+    }
+
+
+def _summary(name: str, report) -> str:
+    tail = ""
+    for key, flag, what in (
+            ("invariance_audit", "invariance_validated", "chunk-invariance"),
+            ("footprint_audit", "footprint_model_validated", "footprint"),
+            ("merge_audit", "merge_validated", "merge")):
+        rows = getattr(report, key)
+        if rows:
+            ok = sum(1 for r in rows if r[flag])
+            tail += f", {what} audit {ok}/{len(rows)} entries validated"
+    return (f"{name}: {len(report.scanned)} files, "
+            f"{len(report.findings)} finding(s), "
+            f"{len(report.suppressed)} allowlisted, "
+            f"{len(report.stale)} stale allowlist entr(y/ies)"
+            + (f", {len(report.errors)} parse error(s)"
+               if report.errors else "") + tail)
+
+
+def _print_report(name: str, report) -> None:
+    for f in report.errors + report.findings:
+        print(f.render())
+    for e in report.stale:
+        print(f"stale allowlist entry (line {e.lineno}): {e.key}: the "
+              f"finding it excused is gone; delete it", file=sys.stderr)
+    print(_summary(name, report))
+
+
+def _exit_code(report, args) -> int:
+    if report.findings or report.errors:
+        return 1
+    if report.stale and not args.allow_stale:
+        return 1
+    return 0
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    refused = [m for m in NOT_PORTED if getattr(args, m)]
+    if refused:
+        for m in refused:
+            print(f"avenir_tpu_torch.analysis: {NOT_PORTED[m]}",
+                  file=sys.stderr)
+        return 2
+    chosen = [t for t in TIERS if getattr(args, t)]
+    if not chosen:
+        print("avenir_tpu_torch.analysis: pass --flow, --mem or --merge "
+              "(the AST rules of the reference are not ported yet: "
+              "ROADMAP.md section 1, item 8)", file=sys.stderr)
+        return 2
+    tiers = _tiers()
+    wanted = None
+    if args.rules:
+        wanted = [r.strip() for r in args.rules.split(",") if r.strip()]
+        known = {rid for t in chosen
+                 for rid in [c.rule_id for c in tiers[t][0]] + [tiers[t][1]]}
+        unknown = set(wanted) - known
+        if unknown:
+            print(f"avenir_tpu_torch.analysis: unknown rule(s): "
+                  f"{', '.join(sorted(unknown))}", file=sys.stderr)
+            return 2
+    try:
+        baseline = ([] if args.no_baseline
+                    else load_baseline(args.baseline))
+    except ValueError as e:
+        print(f"avenir_tpu_torch.analysis: {e}", file=sys.stderr)
+        return 2
+
+    modes = {}
+    worst = 0
+    for name in chosen:
+        classes, audit_rule, err_cls, run = tiers[name]
+        rules = [c() for c in classes
+                 if wanted is None or c.rule_id in wanted]
+        audit = wanted is None or audit_rule in wanted
+        t0 = time.monotonic()
+        try:
+            report = run(paths=args.paths or None, rules=rules,
+                         baseline=baseline, root=_report_root(args),
+                         include_md=not args.no_md, audit=audit,
+                         device=args.device)
+        except (err_cls, OSError) as e:
+            print(f"avenir_tpu_torch.analysis [{name}]: audit failed to "
+                  f"run: {e}", file=sys.stderr)
+            modes[name] = {"error": str(e),
+                           "wall_s": round(time.monotonic() - t0, 3)}
+            worst = 2
+            continue
+        modes[name] = dict(report.to_json(),
+                           wall_s=round(time.monotonic() - t0, 3))
+        worst = max(worst, _exit_code(report, args))
+        if not args.as_json:
+            _print_report(name, report)
+    if args.as_json:
+        if len(chosen) == 1:
+            print(json.dumps(modes[chosen[0]], indent=1))
+        else:
+            print(json.dumps({"modes": modes, "clean": worst == 0},
+                             indent=1))
+    return worst
+
+
+if __name__ == "__main__":
+    sys.exit(main())

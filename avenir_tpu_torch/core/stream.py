@@ -61,6 +61,13 @@ _NONWS = re.compile(rb"\S")
 #: block.
 _produce_hook = None
 
+#: called with the byte size of every item a prefetched() worker produces
+#: (`_nbytes`: a raw block's, 0 for a parsed chunk or an encoded page,
+#: which the footprint model prices by their own terms), when set: the
+#: memory auditor (`analysis/mem.py`) holds the model's block term
+#: against the blocks that flowed. None in production.
+_bytes_hook = None
+
 
 def iter_byte_blocks(path: str, block_bytes: int = DEFAULT_BLOCK_BYTES,
                      byte_range: Optional[Tuple[int, int]] = None,
@@ -309,8 +316,12 @@ _JOIN_SECS = 10.0
 
 
 def _nbytes(item) -> int:
-    """The bytes of a raw byte block, 0 for any other item (a parsed
-    chunk, an encoded page): the stall spans' `nbytes`."""
+    """The bytes of a raw byte block, bare or as the (offset, block) pair
+    of `iter_byte_blocks(with_offsets=True)`; 0 for any other item (a
+    parsed chunk, an encoded page): the stall spans' `nbytes` and the
+    byte hook's count."""
+    if isinstance(item, tuple) and len(item) == 2:
+        item = item[1]
     return len(item) if isinstance(item, (bytes, bytearray)) else 0
 
 
@@ -337,6 +348,9 @@ def _prefetch_worker(items: Iterable, q: "queue.Queue",
     it = iter(items)
     try:
         for item in it:
+            bhook = _bytes_hook
+            if bhook is not None:
+                bhook(_nbytes(item))
             if not put(item):
                 break
         else:

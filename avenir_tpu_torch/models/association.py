@@ -15,8 +15,9 @@ grows with the rows, runs on `device`:
   encoder builds), the frequent-item mask then shrinks the vocabulary,
   and each round replays pass 1's encoded-block spill cache (or, where it
   cannot, re-reads the CSV) into bit-packed blocks folded into one int32
-  carry on the device (`ops.bitset.bitset_fold_counts`). The reference's
-  columnar sidecar is not ported.
+  carry on the device (`ops.bitset.bitset_fold_counts`). Pass 1 reads
+  through the columnar sidecar (`native/sidecar.py`) when the job's conf
+  leaves it on, and a repeat run replays it instead of parsing.
 
 A round's count is the profiler range `association::support_count`.
 Between rounds the state is the per-k itemset file (`ItemSetList`), as in

@@ -201,9 +201,10 @@ class MutualInformationAnalyzer:
                 tables = _mi_chunk_counts_host(codes, ds.labels(), bmax,
                                                self.k, nf)
             else:
+                # the codes cross as the parse left them; the counts
+                # widen them on the card
                 tables = _mi_chunk_counts(
-                    torch.as_tensor(np.asarray(codes, np.int64),
-                                    device=self.device),
+                    torch.as_tensor(codes, device=self.device),
                     torch.as_tensor(ds.labels(), device=self.device),
                     bmax, self.k, nf)
             fc, pair, pairc = (np.asarray(t, np.float64)

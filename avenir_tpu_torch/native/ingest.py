@@ -6,7 +6,8 @@ CSR encode (`seq_encode_native`), the pass-1 encoder that discovers the
 vocabulary a block at a time (`BlockScanEncoder`), the scan lifecycle
 of the miners' streaming sources (`SpillScanMixin`) and the encoded-block
 spill cache their per-k rounds replay instead of re-reading the CSV
-(`EncodedBlockCache`; the reference's columnar sidecar is not ported).
+(`EncodedBlockCache`; pass 1 itself may read through the columnar
+sidecar, `native/sidecar.py`, with `SpillScanMixin.sidecar_opts`).
 The shared library builds with g++ at first
 use (`g++ -O3 -march=native -shared -fPIC -pthread`) into
 `build/avenir_tpu_torch/native/<hash>/` at the root of the checkout, keyed

@@ -98,6 +98,11 @@ INFO = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: nvcc runs started (`build_all`) and libraries bound (`bind`) by this
+#: process, wherever they were asked for: `load` builds and binds a
+#: library once, so a count that grows with a job's blocks is a rebuild
+#: or re-bind a block (the miner and shared-scan tripwires read it)
+counts: Dict[str, int] = {"builds": 0, "binds": 0}
 #: held around build-and-bind: threads of one process (the job server's
 #: executors, the score plane's dispatcher) may reach a kernel for the
 #: first time at once, and must run nvcc once between them
@@ -139,6 +144,7 @@ def build_all(csrc: Path = CSRC, names: Iterable[str] = LIBRARIES
         tmp = out / f".lib{name}.{os.getpid()}.{threading.get_ident()}.so"
         log = open(out / f"{name}.log", "w")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / src)]
+        counts["builds"] += 1
         jobs.append((name, lib, tmp, log, time.perf_counter(),
                      subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
     secs: Dict[str, float] = {}
@@ -159,6 +165,7 @@ def build_all(csrc: Path = CSRC, names: Iterable[str] = LIBRARIES
 def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     """Declare the argument and return types of a library's C entries:
     its launch entry, which it must have, and those of INFO it has."""
+    counts["binds"] += 1
     _src, main, args = LIBRARIES[name]
     for entry, args in {main: args, **INFO.get(name, {})}.items():
         if entry != main and not hasattr(lib, entry):

@@ -12,7 +12,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from avenir_tpu_torch.ops import xla_math
 
 _EPS = 1e-12
 
@@ -62,12 +65,19 @@ def weighted_split_score(seg_class_counts, algo: str = "entropy"
 
 def mutual_information(joint_counts) -> torch.Tensor:
     """MI (nats) of a joint count table [..., A, B] between its last two
-    axes."""
-    joint = _f32(joint_counts)
-    pj = joint / torch.clamp(joint.sum(dim=(-2, -1), keepdim=True), min=_EPS)
-    pa = pj.sum(dim=-1, keepdim=True)
-    pb = pj.sum(dim=-2, keepdim=True)
-    ratio = pj / torch.clamp(pa * pb, min=_EPS)
-    terms = torch.where(pj > 0, pj * torch.log(torch.clamp(ratio, min=_EPS)),
-                        torch.zeros_like(pj))
-    return terms.sum(dim=(-2, -1))
+    axes, bit for bit the reference's on its CPU build: the sums run in
+    XLA's CPU reduce order (`xla_math.sum_last2`, `xla_math.sum_axis`)
+    and the log is XLA's (`xla_math.log`), each other step one rounded
+    float32 operation, on the host; so a value on a 6th-decimal
+    rounding edge prints as the reference's."""
+    joint = _f32(joint_counts).cpu().numpy()
+    f32 = np.float32
+    pj = joint / np.maximum(xla_math.sum_last2(joint)[..., None, None],
+                            f32(_EPS))
+    pa = xla_math.sum_axis(pj, -1)
+    pb = xla_math.sum_axis(pj, -2)
+    ratio = pj / np.maximum(pa * pb, f32(_EPS))
+    terms = np.where(pj > 0,
+                     pj * xla_math.log(np.maximum(ratio, f32(_EPS))),
+                     f32(0.0))
+    return torch.from_numpy(np.asarray(xla_math.sum_last2(terms)))

@@ -3073,8 +3073,9 @@ def markov_classifier_job(cfg: JobConfig, inputs: List[str], output: str,
         if cfg.get_bool("validation.mode", False) else None
     out = _out_file(output)
     delim = cfg.field_delim
-    actual: List[str] = []
-    predicted: List[str] = []
+    # the validation counts fold a chunk at a time: O(classes), not O(rows)
+    lab = [pos, neg]
+    cm = ConfusionMatrix(lab, pos_class=0) if class_ord is not None else None
     with open(out, "w") as fh:
         for lines in stream_job_lines(cfg, inputs):
             t0 = obs.now()
@@ -3090,15 +3091,11 @@ def markov_classifier_job(cfg: JobConfig, inputs: List[str], output: str,
             fh.write("".join(f"{rid}{delim}{c}{delim}{s:.6f}\n" for rid, c, s
                              in zip(ids, cls.tolist(), scores.tolist())))
             obs.record("job.finish", t0, job="markovModelClassifier")
-            if class_ord is not None:
-                actual += labels
-                predicted += list(cls)
-    counters: Dict[str, float] = {}
-    if actual:
-        lab = [pos, neg]
-        counters = _validate(
-            lab, np.array([lab.index(a) for a in actual]),
-            np.array([lab.index(p) for p in predicted]), 0)
+            if cm is not None:
+                cm.add(np.array([lab.index(a) for a in labels]),
+                       np.array([lab.index(p) for p in cls]))
+    counters: Dict[str, float] = (cm.counters()
+                                  if cm is not None and cm.total else {})
     return JobResult("markovModelClassifier", counters, [out])
 
 

@@ -1,22 +1,43 @@
 """The scale tripwires: the sharded driver, the delta scan, the sidecar,
-the job server, the fleet, its faults, the score plane, the autotune loop
-and the telemetry's overhead.
+the job server, the fleet, its faults, the score plane, the autotune loop,
+the telemetry's overhead, the streamed miners, the shared scan and the
+auditors.
 
 The port of `bench_scaling.py`'s `host_parallel_capacity`,
-`shard_tripwire`, `incremental_tripwire`, `sidecar_tripwire` (without
-its job-server leg), `server_tripwire`, `fleet_tripwire`,
-`fleet_fault_tripwire`, `score_tripwire`, `autotune_tripwire` and
-`obs_tripwire`, each with the reference's floor or ceiling (the miner
-and shared-scan tripwires wait for their port-side counterparts):
+`shard_tripwire`, `incremental_tripwire`, `sidecar_tripwire`,
+`server_tripwire`, `fleet_tripwire`, `fleet_fault_tripwire`,
+`score_tripwire`, `autotune_tripwire`, `obs_tripwire`, `miner_tripwire`
+and `shared_scan_tripwire`, each with the reference's floor or ceiling,
+and of the legs of its `graftlint_tripwire` that the port has
+(`audit_tripwire`):
 
     python -m avenir_tpu_torch.tools.bench_scaling [--tripwire shard|
-        incremental|sidecar|server|fleet|fleet_fault|score|autotune|obs]
-        [--rows N] [--floor X] [--device cpu]
+        incremental|sidecar|server|fleet|fleet_fault|score|autotune|obs|
+        miner|shared_scan|audit] [--rows N] [--floor X] [--device cpu]
 
 prints one JSON line (`--floor 0` records the speedups without a
 verdict on them; for `obs`, `--floor` is the overhead ceiling; `--rows`
-is the score tripwire's query count). Every run, job server and fleet
-host is on `device` (default cuda).
+is the score tripwire's query count, and defaults to each tripwire's
+own). Every run, job server and fleet host is on `device` (default
+cuda).
+
+**miner_tripwire** (20,000 rows, no speed floor): both streamed miners
+keep Basic:Records equal to the rows; GSP binds at most the subsequence
+kernel's library, and at four times the blocks runs no nvcc and binds
+nothing (the port's build and bind counts, `ops._build.counts`, stand
+for the reference's jit cache size); Apriori's per-k rounds replay the
+encoded-block cache, smaller than its CSV.
+
+**shared_scan_tripwire** (floor 1.3x at 30,000 rows): the churn trio as
+three scans against one `run_shared` scan, both parsing (sidecar off, a
+departure from the reference, whose fused pass would replay what its
+sequential pass packed); equal artifacts, no nvcc run and no library
+bound by the fused pass.
+
+**audit_tripwire** (no speed floor): the flow invariance, mem footprint,
+merge (with its incremental and sharded-steal legs) and span-coverage
+audits over the eight stream entries, at least eight validated each; the
+memory manifest goes to `build/avenir_tpu_torch/MEMORY_MANIFEST.json`.
 
 **autotune_tripwire** (floor 1.15x at 10,000,000 rows): the fused churn
 trio under the static default knobs, recording its signals and choosing
@@ -552,8 +573,38 @@ def sidecar_tripwire(rows: int = 10_000_000, floor: float = 2.0,
             raise RuntimeError(
                 f"incremental cold seed parsed {i_parsed} block(s) over a "
                 f"packed corpus: {incr.counters}")
+        # a served batch replays the sidecar and pins it under the warm
+        # store's budget; shutdown drops the pins and keeps the files
+        from avenir_tpu_torch.server import JobRequest, JobServer
+
+        with obs.capture() as rec_s:
+            with JobServer(workers=1, state_root=os.path.join(d, "srv_state"),
+                           device=device) as srv:
+                tickets = [srv.submit(JobRequest(j, conf(p), [csv],
+                                                 os.path.join(d, f"srv_{p}")))
+                           for j, p in trio]
+                served = {j: t.result(timeout=3600)
+                          for (j, _p), t in zip(trio, tickets)}
+                pinned = int(srv.warm.stats()["pinned_sources"])
+        s_parsed = sum(1 for sp in rec_s.spans() if sp.name == "stream.parse")
+        for j, _p in trio:
+            if _file_bytes(served[j]) != _file_bytes(colds[0][j]):
+                raise RuntimeError(f"served sidecar replay of {j} drifted")
+            if served[j].counters.get("Sidecar:HitBlocks", 0) < 1:
+                raise RuntimeError(
+                    f"served batch of {j} did not replay the sidecar: "
+                    f"{served[j].counters}")
+        if s_parsed or pinned < 1:
+            raise RuntimeError(
+                f"served batch parsed {s_parsed} block(s) and pinned "
+                f"{pinned} sidecar(s): the warm store does not hold the "
+                f"sidecar")
         sc_bytes = sum(sidecar.sidecar_nbytes(os.path.join(scdir, n))
                        for n in os.listdir(scdir))
+        if sc_bytes <= 0:
+            raise RuntimeError(
+                "the packed sidecar vanished after the server batch: "
+                "shutdown must drop the pins, not the files")
         return {"speedup": speedup, "floor": floor, "t_cold_s": t_cold,
                 "t_warm_s": t_warm, "t_cold_runs_s": t_colds,
                 "t_warm_runs_s": t_warms,
@@ -569,7 +620,171 @@ def sidecar_tripwire(rows: int = 10_000_000, floor: float = 2.0,
                 "shard_replay_spans": int(
                     shard.counters["Shard:ReplaySpans"]),
                 "incremental_parse_spans": i_parsed,
+                "server_parse_spans": s_parsed,
+                "server_pinned_sidecars": pinned,
                 "outputs_byte_identical": True}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _build_counts() -> Dict[str, object]:
+    """The nvcc runs and library binds this process has made so far
+    (`ops._build.counts`, counted where `build_all` and `bind` do them,
+    whoever asked), and the libraries bound (`ops._build._loaded`): the
+    port's counterpart of the reference's jit cache size."""
+    from avenir_tpu_torch.ops import _build
+
+    return {**_build.counts, "libraries": sorted(_build._loaded)}
+
+
+def _build_delta(before: Dict[str, object]) -> Dict[str, object]:
+    """The builds, binds and newly bound libraries since `before`."""
+    now = _build_counts()
+    return {"builds": now["builds"] - before["builds"],
+            "binds": now["binds"] - before["binds"],
+            "libraries": [n for n in now["libraries"]
+                          if n not in before["libraries"]]}
+
+
+def miner_tripwire(rows: int = 20_000, device: str = "cuda") -> dict:
+    """Both streamed miners over `rows` sequence rows keep their
+    throughput counters (Basic:Records equal to the rows); GSP's first
+    run binds at most one library, the subsequence kernel's, and its
+    rerun at a quarter of the block size (four times the blocks) runs no
+    nvcc and binds nothing (`ops._build.counts`, counted in `build_all`
+    and `bind`): a rebuild or re-bind a block would add to those counts
+    with every block, the hazard the reference's bound on its kernel's
+    compiled variants catches. Where an earlier run in the process bound
+    the library already, the first run adds nothing either. Apriori's
+    per-k rounds replay the encoded-block spill cache, which is smaller
+    than its CSV. The subsequence kernel's launches are in the line."""
+    from avenir_tpu_torch.models.association import (
+        FrequentItemsApriori, StreamingTransactionSource)
+    from avenir_tpu_torch.ops import sequence_kernels
+    from avenir_tpu_torch.runner import run_job
+
+    d = tempfile.mkdtemp(prefix="avenir_miner_tripwire_")
+    try:
+        path = os.path.join(d, "seq.csv")
+        with open(path, "w") as fh:
+            fh.write(_seq_blob(rows, 12))
+        out: Dict[str, object] = {"rows": rows, "device": device}
+        launched0 = sequence_kernels.subseq_support_fold.launches
+        gsp = []
+        for job, p, block in (
+                ("frequentItemsApriori", "fia", "1"),
+                ("candidateGenerationWithSelfJoin", "cgs", "1"),
+                ("candidateGenerationWithSelfJoin", "cgs", "0.25")):
+            conf = {f"{p}.support.threshold": "0.3",
+                    f"{p}.item.set.length": "2",
+                    f"{p}.skip.field.count": "2",
+                    f"{p}.stream.block.size.mb": block}
+            before = _build_counts()
+            res = run_job(job, conf, [path],
+                          os.path.join(d, f"{job}_{block}"), device=device)
+            if job.startswith("candidate"):
+                gsp.append(_build_delta(before))
+            recs = res.counters.get("Basic:Records")
+            if recs is None or int(recs) != rows:
+                raise RuntimeError(
+                    f"{job} lost its throughput counter: Basic:Records="
+                    f"{recs!r} (expected {rows})")
+            out.setdefault(job, {"rows": int(recs), "rows_per_sec":
+                                 res.counters.get("Basic:RowsPerSec")})
+        first, rerun = gsp
+        if (first["binds"] > 1 or set(first["libraries"]) - {"subseq_support"}
+                or rerun["builds"] or rerun["binds"]):
+            raise RuntimeError(
+                f"GSP built and bound {first} and then {rerun} at four "
+                f"times the blocks: a kernel library rebuilt or re-bound "
+                f"a block")
+        out["gsp_build_counts"] = gsp
+        out["gsp_subseq_support_launches"] = (
+            sequence_kernels.subseq_support_fold.launches - launched0)
+        src = StreamingTransactionSource([path], skip_field_count=2,
+                                         block_bytes=1 << 20)
+        try:
+            FrequentItemsApriori(0.3, 2, device=device).mine_stream(src)
+            replays, cache_bytes = src.cache_replays, src.cache_nbytes
+        finally:
+            src.close()
+        csv_bytes = os.path.getsize(path)
+        if replays < 1:
+            raise RuntimeError(
+                "the miner's per-k pass did not replay the encoded-block "
+                "cache (it re-parsed the CSV)")
+        if cache_bytes >= csv_bytes:
+            raise RuntimeError(
+                f"encoded-block cache ({cache_bytes} B) is not smaller than "
+                f"the CSV it replaces ({csv_bytes} B)")
+        out["miner_cache"] = {"replays": replays, "cache_bytes": cache_bytes,
+                              "csv_bytes": csv_bytes}
+        return out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def shared_scan_tripwire(rows: int = 30_000, floor: float = 1.3,
+                         device: str = "cuda") -> dict:
+    """The churn trio (bayesianDistr, mutualInformation,
+    fisherDiscriminant, 0.1 MB blocks) as three one-job scans and as one
+    `run_shared` scan: equal artifacts, the fused pass `floor` times
+    faster, and no nvcc run and no library bind in the fused pass
+    (`ops._build.counts`: the sinks see the chunks the solo jobs saw, and
+    NB binds no library). Both sides parse
+    (`stream.sidecar=false`): with the sidecar on, the fused pass would
+    replay what the sequential pass packed, and the ratio would price the
+    replay, not the shared scan. A 500-row fused warm-up first, then the
+    two sides in turns, three times, each side's best kept: a pass takes
+    a tenth of a second, so one stolen slice would sink a single pair."""
+    from avenir_tpu_torch.data import churn_schema, generate_churn
+    from avenir_tpu_torch.runner import run_job
+
+    d = tempfile.mkdtemp(prefix="avenir_shared_scan_")
+    try:
+        csv = os.path.join(d, "churn.csv")
+        with open(csv, "w") as fh:
+            fh.write(generate_churn(rows, seed=11, as_csv=True))
+        schema = os.path.join(d, "churn.json")
+        churn_schema().save(schema)
+        warm = os.path.join(d, "warm.csv")
+        with open(warm, "w") as fh:
+            fh.write(generate_churn(500, seed=12, as_csv=True))
+        extra = {"stream.block.size.mb": "0.1", "stream.sidecar": "false"}
+        _timed_shared(_trio_specs(d, schema, "warm", extra), warm, device)
+        t_seqs, t_fuseds = [], []
+        fused_counts = {"builds": 0, "binds": 0, "libraries": []}
+        for rnd in range(3):
+            _sync(device)
+            t0 = time.perf_counter()
+            seq_res = {j: run_job(j, c, [csv], o, device=device)
+                       for j, c, o in _trio_specs(d, schema, f"seq{rnd}",
+                                                  extra)}
+            _sync(device)
+            t_seqs.append(time.perf_counter() - t0)
+            before = _build_counts()
+            fused_res, t_fused = _timed_shared(
+                _trio_specs(d, schema, f"fus{rnd}", extra), csv, device)
+            t_fuseds.append(t_fused)
+            for k, v in _build_delta(before).items():
+                fused_counts[k] += v
+            _same_outputs(seq_res, fused_res, "the shared scan")
+        speedup = min(t_seqs) / max(min(t_fuseds), 1e-9)
+        out = {"rows": rows, "floor": floor, "device": device,
+               "speedup": speedup, "t_sequential_s": min(t_seqs),
+               "t_fused_s": min(t_fuseds), "t_sequential_runs_s": t_seqs,
+               "t_fused_runs_s": t_fuseds, "fused_build_counts": fused_counts,
+               "outputs_byte_identical": True}
+        if fused_counts["builds"] or fused_counts["binds"]:
+            raise RuntimeError(
+                f"the fused pass built or bound kernel libraries "
+                f"{fused_counts} that the solo jobs did not: the fan-out "
+                f"changed the chunks")
+        if speedup < floor:
+            raise RuntimeError(
+                f"fused shared scan only {speedup:.2f}x faster than "
+                f"sequential (floor {floor}x): {json.dumps(out)}")
+        return out
     finally:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -1408,6 +1623,74 @@ def autotune_tripwire(rows: int = 10_000_000, floor: float = 1.15,
         shutil.rmtree(d, ignore_errors=True)
 
 
+def audit_tripwire(device: str = "cuda", kernels: bool = True) -> dict:
+    """The legs of the reference's graftlint tripwire that the port has,
+    over the eight stream entries on `device`: the flow rules and the
+    chunk-invariance audit, the mem rules and the footprint audit, the
+    merge rules and the shard-merge audit with its incremental and
+    sharded-steal legs, and span coverage; at least eight entries
+    validated in each, no finding past the allowlist. The memory
+    manifest (with `kernels`, a row a CUDA kernel, measured on the card
+    around calls of its own) goes to
+    `build/avenir_tpu_torch/MEMORY_MANIFEST.json`; the rows are in the
+    line. The entries' corpora are their own: the tripwire takes no
+    `--rows`."""
+    from avenir_tpu_torch.analysis.engine import load_baseline
+    from avenir_tpu_torch.analysis.flow import run_flow
+    from avenir_tpu_torch.analysis.mem import memory_manifest, run_mem
+    from avenir_tpu_torch.analysis.merge import run_merge
+    from avenir_tpu_torch.obs.coverage import audit_span_coverage
+
+    out: Dict[str, object] = {"device": device}
+    reports = {}
+    for name, run in (("flow", run_flow), ("mem", run_mem),
+                      ("merge", run_merge)):
+        t0 = time.perf_counter()
+        rep = run(baseline=load_baseline(), root=ROOT, device=device)
+        out[f"{name}_s"] = time.perf_counter() - t0
+        if not rep.clean:
+            raise RuntimeError(
+                f"{name} audit regression: counts={rep.counts()} stale="
+                f"{[e.key for e in rep.stale]} errors={len(rep.errors)}: "
+                + "; ".join(f.render() for f in rep.findings[:5]))
+        out[f"{name}_allowlisted"] = len(rep.suppressed)
+        reports[name] = rep
+    gates = (("invariance", reports["flow"].invariance_audit,
+              "invariance_validated"),
+             ("footprint", reports["mem"].footprint_audit,
+              "footprint_model_validated"),
+             ("merge", reports["merge"].merge_audit, "merge_validated"),
+             ("incremental", reports["merge"].merge_audit,
+              "incremental_validated"),
+             ("shard_dedup", reports["merge"].merge_audit,
+              "shard_dedup_validated"))
+    t0 = time.perf_counter()
+    cov = audit_span_coverage(device=device)
+    out["coverage_s"] = time.perf_counter() - t0
+    gates += (("span_coverage", cov, "span_coverage_validated"),)
+    for what, rows_, flag in gates:
+        bad = [r["kernel"] for r in rows_ if not r.get(flag)]
+        if bad or len(rows_) < 8:
+            raise RuntimeError(
+                f"{what} audit regression: {len(rows_)} stream entries "
+                f"audited, failed={bad}")
+        out[f"{what}_validated"] = len(rows_)
+    manifest = memory_manifest(include_kernels=kernels, device=device)
+    manifest["footprint_audit"] = reports["mem"].footprint_audit
+    path = os.path.join(ROOT, "build", "avenir_tpu_torch",
+                        "MEMORY_MANIFEST.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(manifest, fh, indent=1)
+    out["memory_manifest"] = os.path.relpath(path, ROOT)
+    out["kernels"] = manifest.get("kernels")
+    out["rows"] = {"invariance": reports["flow"].invariance_audit,
+                   "footprint": reports["mem"].footprint_audit,
+                   "merge": reports["merge"].merge_audit,
+                   "span_coverage": cov}
+    return out
+
+
 #: tripwire name -> (function, its default bound, the bound's keyword:
 #: a speedup "floor" or an overhead "ceiling"; None: no speed bound)
 TRIPWIRES = {"shard": (shard_tripwire, 1.5, "floor"),
@@ -1418,15 +1701,18 @@ TRIPWIRES = {"shard": (shard_tripwire, 1.5, "floor"),
              "fleet_fault": (fleet_fault_tripwire, None, None),
              "score": (score_tripwire, 3.0, "floor"),
              "autotune": (autotune_tripwire, 1.15, "floor"),
-             "obs": (obs_tripwire, 1.03, "ceiling")}
+             "obs": (obs_tripwire, 1.03, "ceiling"),
+             "miner": (miner_tripwire, None, None),
+             "shared_scan": (shared_scan_tripwire, 1.3, "floor"),
+             "audit": (audit_tripwire, None, None)}
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="avenir_tpu_torch.tools.bench_scaling")
     ap.add_argument("--tripwire", choices=sorted(TRIPWIRES), default="shard")
-    ap.add_argument("--rows", type=int, default=10_000_000,
-                    help="corpus rows (the score tripwire: its queries, "
-                         "default 512)")
+    ap.add_argument("--rows", type=int, default=None,
+                    help="corpus rows, default the tripwire's own (the "
+                         "score tripwire: its queries, default 512)")
     ap.add_argument("--floor", type=float, default=None,
                     help="the speedup floor, or the obs tripwire's "
                          "overhead ceiling (default: the tripwire's own)")
@@ -1434,11 +1720,10 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     fn, bound, keyword = TRIPWIRES[args.tripwire]
     kwargs = {"device": args.device}
-    if args.tripwire == "score":
-        if args.rows != ap.get_default("rows"):
-            kwargs["queries"] = args.rows
-    else:
-        kwargs["rows"] = args.rows
+    if args.rows is not None:
+        if args.tripwire == "audit":
+            ap.error("the audit tripwire takes no --rows")
+        kwargs["queries" if args.tripwire == "score" else "rows"] = args.rows
     if bound is not None:
         kwargs[keyword] = bound if args.floor is None else args.floor
     print(json.dumps(fn(**kwargs)))

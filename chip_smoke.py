@@ -469,6 +469,25 @@ Phases, each printing a line per check; any failed check exits non-zero:
    model's, the balancer's batch sizes printed, every file equal to pass
    1's and to a solo GSP run's. (d) `python -m avenir_tpu_torch tune
    <dir>` exits 0 and lists the trio's and GSP's profiles.
+25. The auditors on the card (`analysis/`, `obs/coverage.py`), over the
+   eight stream entries of `analysis.manifest.stream_entries("cuda")`
+   (NB, MI, Fisher, Markov, Apriori and GSP alone, the churn trio and
+   Markov + Apriori fused; their own small corpora, the sidecar off):
+   the flow audit (three chunk layouts and the adversarial scheduler,
+   byte-identical), the mem audit (the sampled RSS in the model's band at
+   two block sizes, the CUDA context and every kernel library loaded
+   before the sampled window), the merge audit (shards of 2 and 4, the
+   mid-scan resume, the delta scan killed and resumed, solo and fused,
+   the sharded steal's duplicate rejected) and span coverage; each row is
+   printed and every verdict must be validated, with no finding past the
+   allowlist. Then the memory manifest's kernel rows measured around one
+   call each (`cuda_peak`), the miner tripwire at AUDIT_MINER_ROWS rows
+   (Basic:Records equal to the rows, the encoded-block cache replayed and
+   smaller than its CSV, at most the subsequence library bound, and no
+   nvcc run or bind at four times the blocks) and the shared-scan
+   tripwire at AUDIT_SHARED_ROWS (byte-identical, at least 1.3x, no nvcc
+   run or bind in the fused pass). The GSP entries' and
+   the miner tripwire's `subseq_support` launches are the `audit` path.
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth, phase 12's GSP runs the fifth, phase 15's
@@ -477,10 +496,10 @@ its k-means the eighth, phase 18's library modules the ninth, phase
 19's conf jobs the tenth and phase 20's mesh the eleventh (no kernel on
 either), phase 21's sharded workers the twelfth (`shard`: the
 launches the workers report, summed), phase 22's refreshes, sidecar
-packs and replays the thirteenth (`incremental`) and phase 23's served
-requests the fourteenth (`serve`) and phase 24's autotuned runs the
-fifteenth (`tune`): each kernel's launches are counted from zero on each
-path. Then one JSON
+packs and replays the thirteenth (`incremental`), phase 23's served
+requests the fourteenth (`serve`), phase 24's autotuned runs the
+fifteenth (`tune`) and phase 25's audits the sixteenth (`audit`): each
+kernel's launches are counted from zero on each path. Then one JSON
 line of per-kernel numbers (the pre-pass beside the five kernels, at the
 sweep's D=128 float32; the tensor-core form at the bench's D=128
 bfloat16; the two merge kernels at the job's shape; the walk at the
@@ -6337,6 +6356,75 @@ def _tune_phase(stack):
 LR_MESH_ATOL = 1e-7
 
 
+AUDIT_PATH = "audit"
+#: the reference's row counts of the miner and shared-scan tripwires
+AUDIT_MINER_ROWS = 20_000
+AUDIT_SHARED_ROWS = 30_000
+
+
+def _audit_line(row: dict) -> dict:
+    """An audit row without its bulk (the mem rows' terms)."""
+    if "runs" in row:
+        return {**row, "runs": [{k: v for k, v in r.items() if k != "terms"}
+                                for r in row["runs"]]}
+    return row
+
+
+def phase_audit():
+    """The auditors and the miner and shared-scan tripwires on the card
+    (docstring item 25). Returns (seconds and figures, the launch counts
+    of the phase)."""
+    from avenir_tpu_torch.analysis.mem import kernel_device_entries
+    from avenir_tpu_torch.tools.bench_scaling import (audit_tripwire,
+                                                      miner_tripwire,
+                                                      shared_scan_tripwire)
+
+    t_phase = time.perf_counter()
+    _reset_launches()
+    try:
+        audit = audit_tripwire(device=DEVICE, kernels=False)
+    except RuntimeError as e:
+        fail(f"the audits on {DEVICE} ({CARD}): {e}")
+    secs = {k: round(v, 1) for k, v in audit.items() if k.endswith("_s")}
+    for what, rows in audit["rows"].items():
+        for row in rows:
+            print(f"{what} audit row ({CARD}): {json.dumps(_audit_line(row))}",
+                  flush=True)
+    verdicts = {k: v for k, v in audit.items() if k.endswith("_validated")}
+    check(all(v == 8 for v in verdicts.values()),
+          f"the audits on {DEVICE} ({CARD}; {json.dumps(secs)}): "
+          f"{json.dumps(verdicts)} of 8, allowlisted "
+          f"{[audit[f'{t}_allowlisted'] for t in ('flow', 'mem', 'merge')]}")
+    audits = _launch_counts()
+    t0 = time.perf_counter()
+    kernels = kernel_device_entries(DEVICE)
+    secs["kernel_rows"] = round(time.perf_counter() - t0, 1)
+    # the kernel rows' calls are measurements, not the path's launches
+    _reset_launches()
+    for row in kernels:
+        print(f"memory manifest kernel row ({CARD}): {json.dumps(row)}",
+              flush=True)
+    t0 = time.perf_counter()
+    miner = miner_tripwire(rows=AUDIT_MINER_ROWS, device=DEVICE)
+    secs["miner_tripwire"] = round(time.perf_counter() - t0, 1)
+    print(f"miner tripwire ({CARD}; {secs['miner_tripwire']}s): "
+          f"{json.dumps(miner)}", flush=True)
+    t0 = time.perf_counter()
+    shared = shared_scan_tripwire(rows=AUDIT_SHARED_ROWS, device=DEVICE)
+    secs["shared_scan_tripwire"] = round(time.perf_counter() - t0, 1)
+    print(f"shared-scan tripwire ({CARD}; {secs['shared_scan_tripwire']}s):"
+          f" {json.dumps(shared)}", flush=True)
+    counts = {k: v + audits[k] for k, v in _launch_counts().items()}
+    check(counts["subseq_support_fold"] >= 1
+          and miner["gsp_subseq_support_launches"] >= 1,
+          f"the GSP entries and the miner tripwire launched subseq_support "
+          f"{counts['subseq_support_fold']}x (the tripwire "
+          f"{miner['gsp_subseq_support_launches']}x)")
+    secs["phase"] = round(time.perf_counter() - t_phase, 1)
+    print(f"audit path launches: {json.dumps(counts)}", flush=True)
+    return secs, counts
+
+
 def _count_oracle(name, args, params):
     """The plain counts of nb_train and crosscount (no single-device core
     of their own), by one `index_add_` on the card."""
@@ -6458,6 +6546,7 @@ def main() -> None:
     incr_secs, incr_counts = phase_incremental()
     serve_secs, serve_counts = phase_server()
     tune_secs, tune_counts = phase_tune()
+    audit_secs, audit_counts = phase_audit()
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     print(f"tree and text seconds ({CARD}; phase 10 "
@@ -6497,6 +6586,8 @@ def main() -> None:
           f"{json.dumps(serve_secs)}", flush=True)
     print(f"tune seconds ({CARD}; phase 24 {tune_secs['phase']}s): "
           f"{json.dumps(tune_secs)}", flush=True)
+    print(f"audit seconds ({CARD}; phase 25 {audit_secs['phase']}s): "
+          f"{json.dumps(audit_secs)}", flush=True)
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.1f}s "
           f"({CARD})", flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
@@ -6506,7 +6597,7 @@ def main() -> None:
              LIB_PATH: lib_counts, CONF_PATH: conf_counts,
              MESH_PATH: mesh_counts, SHARD_PATH: shard_counts,
              INCR_PATH: incr_counts, SERVE_PATH: serve_counts,
-             TUNE_PATH: tune_counts}
+             TUNE_PATH: tune_counts, AUDIT_PATH: audit_counts}
 
     # each kernel's row at the shape of the path it is reported on: the
     # job's (manhattan, D=6) for the three it runs; the sweep's

@@ -2,7 +2,8 @@
 tripwire's three legs (byte identity of two fold families and the miner's
 per-k rounds against solo runs in child processes, and the SIGSTOP chaos
 leg), the incremental and sidecar tripwires' byte identity and parse
-accounting, and the server, fleet, fleet-fault and score tripwires' byte
+accounting (the sidecar's with its job-server leg: a served batch
+replays and pins the sidecar), and the server, fleet, fleet-fault and score tripwires' byte
 identity, batching, affinity, requeue, hedge and coalescing checks, each
 with its speedup floor at 0, since a small corpus on a shared CPU
 measures start-up costs and not the scan."""
@@ -47,6 +48,8 @@ def test_sidecar_tripwire_on_the_cpu():
     assert out["warm_parse_spans"] == 0 and out["warm_replay_spans"] >= 3
     assert out["shard_parse_spans"] == 0 and out["shard_replay_spans"] >= 1
     assert out["incremental_parse_spans"] == 0
+    assert out["server_parse_spans"] == 0
+    assert out["server_pinned_sidecars"] >= 1
     assert min(out["hit_blocks"].values()) >= 1
     assert 0 < out["sidecar_bytes"]
 

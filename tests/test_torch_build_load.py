@@ -17,6 +17,8 @@ import pytest
 
 from avenir_tpu_torch.ops import _build
 
+_BIND = _build.bind
+
 _FAKE_NVCC = """#!{python}
 import sys, time
 args = sys.argv[1:]
@@ -91,3 +93,29 @@ def test_eight_threads_compile_each_library_once(faked, names):
     with open(log) as fh:
         assert len(fh.read().split()) == len(_build.LIBRARIES)
     assert len(opened) == len(set(names))
+
+
+class _Entries:
+    """A loaded library whose every C entry is a plain object."""
+
+    def __getattr__(self, entry):
+        return type(entry, (), {})()
+
+
+def test_builds_and_binds_are_counted_where_they_happen(faked, monkeypatch):
+    """`_build.counts` adds one an nvcc run and one a bind, whoever asks:
+    `load` builds every library once and binds each once, and a bind made
+    past `load`'s cache still counts."""
+    log, _opened = faked
+    monkeypatch.setattr(_build, "bind", _BIND)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: _Entries())
+    monkeypatch.setattr(_build, "counts", {"builds": 0, "binds": 0})
+    for _ in range(3):
+        _build.load("knn_topk")
+    assert _build.counts == {"builds": len(_build.LIBRARIES), "binds": 1}
+    _build.load("subseq_support")
+    assert _build.counts == {"builds": len(_build.LIBRARIES), "binds": 2}
+    _build.bind(_Entries(), "subseq_support")
+    assert _build.counts["binds"] == 3
+    with open(log) as fh:
+        assert len(fh.read().split()) == len(_build.LIBRARIES)

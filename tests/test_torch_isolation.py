@@ -69,7 +69,10 @@ def test_modules_list_covers_the_package():
                 "tools.bench_scaling", "core.incremental", "native.sidecar",
                 "server.jobserver", "server.spool", "net", "net.router",
                 "net.listener", "net.fault", "net.fleet", "obs.report",
-                "analysis", "analysis.mem", "tools.fleet_load"):
+                "analysis", "analysis.mem", "tools.fleet_load",
+                "analysis.engine", "analysis.manifest", "analysis.flow",
+                "analysis.merge", "analysis.cli", "analysis.__main__",
+                "obs.coverage"):
         assert f"avenir_tpu_torch.{sub}" in MODULES
 
 
@@ -88,7 +91,7 @@ def test_native_source_is_the_ports_own():
                                    "fisherDiscriminant", "tree", "text",
                                    "sequence", "bandits", "markov",
                                    "score", "reinforce", "library",
-                                   "dist", "serve"])
+                                   "dist", "serve", "audit"])
 def test_import_loads_no_jax(entry):
     modules = {"avenir_tpu_torch": ["avenir_tpu_torch"], "all": MODULES,
                "chip_smoke": ["chip_smoke"],
@@ -142,7 +145,14 @@ def test_import_loads_no_jax(entry):
                         "avenir_tpu_torch.dist.collective",
                         "avenir_tpu_torch.tune",
                         "avenir_tpu_torch.parallel.scaling",
-                        "avenir_tpu_torch.tools.bench_scaling"]}[entry]
+                        "avenir_tpu_torch.tools.bench_scaling"],
+               "audit": ["avenir_tpu_torch.analysis.engine",
+                         "avenir_tpu_torch.analysis.manifest",
+                         "avenir_tpu_torch.analysis.flow",
+                         "avenir_tpu_torch.analysis.mem",
+                         "avenir_tpu_torch.analysis.merge",
+                         "avenir_tpu_torch.analysis.cli",
+                         "avenir_tpu_torch.obs.coverage"]}[entry]
     loaded = _loaded(*modules)
     assert set(modules) <= set(loaded)
     assert _forbidden(loaded) == []
@@ -252,3 +262,42 @@ def test_shard_worker_runs_with_jax_unimportable(tmp_path):
             device="cpu")
     assert (tmp_path / "sharded.txt").read_bytes() == \
         (tmp_path / "solo.txt").read_bytes()
+
+
+_BLOCKED_AUDIT = """
+import importlib.abc, json, sys
+
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name in ("jax", "jaxlib", "avenir_tpu") or name.startswith(
+                ("jax.", "jaxlib.", "avenir_tpu.")):
+            raise ImportError(f"{name} is blocked here")
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
+from avenir_tpu_torch.analysis.flow import audit_stream
+from avenir_tpu_torch.analysis.manifest import stream_entries
+from avenir_tpu_torch.analysis.mem import audit_footprint
+from avenir_tpu_torch.analysis.merge import audit_merge
+from avenir_tpu_torch.obs.coverage import audit_entry
+
+spec = next(s for s in stream_entries("cpu") if s.name == "mi_stream")
+print(json.dumps([audit_stream(spec)[0]["invariance_validated"],
+                  audit_merge(spec)[0]["merge_validated"],
+                  audit_footprint(spec)[0]["footprint_model_validated"],
+                  audit_entry(spec)["span_coverage_validated"]]))
+"""
+
+
+def test_auditors_run_with_jax_unimportable():
+    """The flow, merge, mem and coverage audits of one stream entry run
+    to validated rows in an interpreter where `jax` and the JAX package
+    cannot be imported."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_AUDIT], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [True] * 4
