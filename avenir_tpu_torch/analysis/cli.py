@@ -1,29 +1,37 @@
 """The auditors' command line: ``python -m avenir_tpu_torch.analysis``.
 
-The port of `avenir_tpu/analysis/cli.py`'s modes that the port has:
+The port of `avenir_tpu/analysis/cli.py`:
 
+- paths and no tier: the AST rules (`rules.py`) over the paths;
 - ``--flow``: the flow rules over the paths (default: the port's
   package and `chip_smoke.py`) and the chunk-invariance audit of the
   stream entries;
 - ``--mem``: the mem rules and the footprint audit (sampled RSS against
   the model at two block sizes);
 - ``--merge``: the merge rules and the shard-merge, resume, incremental
-  and sharded-steal audit.
+  and sharded-steal audit;
+- ``--keys``: the keys rules over the cache surface and the
+  perturbation audit of the 11 key sites;
+- ``--proto``: the proto rules over the protocol surface and the
+  commit-point crash audit of the 13 commit sites;
+- ``--race``: the race rules over the multi-writer surface and the
+  interleaving audit of the 8 interleave sites (``--depth`` two-way
+  choices exhaustively, then ``--seeds`` seeded schedules; default 3
+  and 64), or one replayed trace (``--schedule SITE:DIGITS``).
 
-Two or three of them together run one after another in one process and
+Two or more tiers together run one after another in one process and
 print ``{"modes": {<tier>: <report>}, "clean": bool}`` with ``--json``
 (one tier prints its report alone), exiting with the worst code. The
 audits run on ``--device``: cuda unless the caller asks for the CPU, as
 every entry point of the port (without a card, an audit then fails to
-run and the exit is 2). ``--rules`` takes a subset of the tiers' rule ids (an
-audit runs only when its rule id is named); ``--no-baseline`` ignores
-the allowlist (`analysis/audit_baseline.txt`).
+run and the exit is 2). ``--rules`` takes a subset of the tiers' rule
+ids (an audit runs only when its rule id is named); ``--no-baseline``
+ignores the allowlist (`analysis/audit_baseline.txt`).
 
-Exit codes: 0 clean (no finding, no stale allowlist entry, no parse
-error); 1 findings; 2 a usage error or an audit that failed to run.
-``--ir`` lowers jaxprs and is never ported; ``--proto``, ``--race``,
-``--keys`` and the AST rules (paths with no tier) are not ported yet
-(`ROADMAP.md` §1, item 8): each exits 2 with a message.
+Exit codes, the reference's: 0 clean (no finding, no stale allowlist
+entry, no parse error); 1 findings; 2 a usage error or an audit that
+failed to run. ``--ir`` lowers jaxprs and is never ported: it exits 2
+with a message.
 """
 
 from __future__ import annotations
@@ -38,33 +46,49 @@ from typing import List, Optional
 from avenir_tpu_torch.analysis.engine import (default_baseline_path,
                                               load_baseline)
 
-#: the ported tiers, in audit-cost order
-TIERS = ("flow", "mem", "merge")
+#: the audit tiers, in the order they run
+TIERS = ("flow", "mem", "merge", "keys", "proto", "race")
+
+#: the tier of paths given with no tier flag
+AST_TIER = "rules"
 
 #: modes of the reference that the port refuses, each with its reason
 NOT_PORTED = {
     "ir": "--ir lowers jaxprs and HLO; the port has none, so it is never "
           "ported",
-    "proto": "--proto is not ported yet (ROADMAP.md section 1, item 8)",
-    "race": "--race is not ported yet (ROADMAP.md section 1, item 8)",
-    "keys": "--keys is not ported yet (ROADMAP.md section 1, item 8)",
 }
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m avenir_tpu_torch.analysis",
-        description="the port's flow, mem and merge auditors")
+        description="the port's AST rules and auditors")
     p.add_argument("paths", nargs="*",
-                   help=".py/.md files or directories for the tiers' rules "
-                        "(default: the port's package and chip_smoke.py)")
+                   help=".py/.md files or directories: alone, for the AST "
+                        "rules; with a tier, for its rules (default: the "
+                        "tier's own surface)")
     for tier, what in (("flow", "the flow rules and the chunk-invariance "
                                 "audit"),
                        ("mem", "the mem rules and the footprint audit"),
                        ("merge", "the merge rules and the shard-merge, "
                                  "resume, incremental and sharded-steal "
-                                 "audit")):
+                                 "audit"),
+                       ("keys", "the keys rules and the key-site "
+                                "perturbation audit"),
+                       ("proto", "the proto rules and the commit-point "
+                                 "crash audit"),
+                       ("race", "the race rules and the interleaving "
+                                "audit")):
         p.add_argument(f"--{tier}", action="store_true", help=what)
+    p.add_argument("--schedule", default=None, metavar="SITE:DIGITS",
+                   help="with --race: replay exactly one interleaving "
+                        "trace, e.g. ledger.claim:01101")
+    p.add_argument("--depth", type=int, default=3,
+                   help="with --race: the two-way choices explored "
+                        "exhaustively (default 3)")
+    p.add_argument("--seeds", type=int, default=64,
+                   help="with --race: the seeded schedules after them "
+                        "(default 64)")
     for mode in NOT_PORTED:
         p.add_argument(f"--{mode}", action="store_true",
                        help=argparse.SUPPRESS)
@@ -103,7 +127,8 @@ def _report_root(args) -> Optional[str]:
 
 def _tiers():
     """tier -> (rule classes, audit rule id, audit error, runner)."""
-    from avenir_tpu_torch.analysis import flow, mem, merge
+    from avenir_tpu_torch.analysis import (flow, keys, mem, merge, proto,
+                                           race)
 
     return {
         "flow": (flow.ALL_FLOW_RULES, flow.FLOW_AUDIT_RULE,
@@ -112,7 +137,33 @@ def _tiers():
                 mem.run_mem),
         "merge": (merge.ALL_MERGE_RULES, merge.MERGE_AUDIT_RULE,
                   merge.MergeAuditError, merge.run_merge),
+        "keys": (keys.ALL_KEYS_RULES, keys.KEYS_AUDIT_RULE,
+                 keys.KeysAuditError, keys.run_keys),
+        "proto": (proto.ALL_PROTO_RULES, proto.PROTO_AUDIT_RULE,
+                  proto.ProtoAuditError, proto.run_proto),
+        "race": (race.ALL_RACE_RULES, race.RACE_AUDIT_RULE,
+                 race.RaceAuditError, race.run_race),
     }
+
+
+def _run_ast(args, baseline, wanted) -> int:
+    """The AST tier: the rules of `rules.py` over the paths."""
+    from avenir_tpu_torch.analysis.rules import ALL_RULES, run_rules
+
+    rules = [c() for c in ALL_RULES if wanted is None or c.rule_id in wanted]
+    try:
+        report = run_rules(args.paths, rules=rules, baseline=baseline,
+                           root=_report_root(args),
+                           include_md=not args.no_md)
+    except OSError as e:
+        print(f"avenir_tpu_torch.analysis: cannot read input: {e}",
+              file=sys.stderr)
+        return 2
+    if args.as_json:
+        print(json.dumps(report.to_json(), indent=1))
+    else:
+        _print_report(AST_TIER, report)
+    return _exit_code(report, args)
 
 
 def _summary(name: str, report) -> str:
@@ -120,11 +171,14 @@ def _summary(name: str, report) -> str:
     for key, flag, what in (
             ("invariance_audit", "invariance_validated", "chunk-invariance"),
             ("footprint_audit", "footprint_model_validated", "footprint"),
-            ("merge_audit", "merge_validated", "merge")):
+            ("merge_audit", "merge_validated", "merge"),
+            ("key_audit", "key_validated", "key-perturbation"),
+            ("proto_audit", "commit_point_validated", "commit-point"),
+            ("race_audit", "interleaving_validated", "interleaving")):
         rows = getattr(report, key)
         if rows:
             ok = sum(1 for r in rows if r[flag])
-            tail += f", {what} audit {ok}/{len(rows)} entries validated"
+            tail += f", {what} audit {ok}/{len(rows)} validated"
     return (f"{name}: {len(report.scanned)} files, "
             f"{len(report.findings)} finding(s), "
             f"{len(report.suppressed)} allowlisted, "
@@ -159,17 +213,32 @@ def main(argv: Optional[List[str]] = None) -> int:
                   file=sys.stderr)
         return 2
     chosen = [t for t in TIERS if getattr(args, t)]
-    if not chosen:
-        print("avenir_tpu_torch.analysis: pass --flow, --mem or --merge "
-              "(the AST rules of the reference are not ported yet: "
-              "ROADMAP.md section 1, item 8)", file=sys.stderr)
+    if args.schedule and not args.race:
+        print("avenir_tpu_torch.analysis: --schedule replays an "
+              "interleaving trace and needs --race", file=sys.stderr)
         return 2
-    tiers = _tiers()
+    if not chosen and not args.paths:
+        print("avenir_tpu_torch.analysis: pass paths for the AST rules, "
+              "or --flow / --mem / --merge / --keys / --proto / --race "
+              "for the audits", file=sys.stderr)
+        return 2
+    schedule = None
+    if args.schedule:
+        from avenir_tpu_torch.analysis.race import parse_schedule
+        try:
+            schedule = parse_schedule(args.schedule)
+        except ValueError as e:
+            print(f"avenir_tpu_torch.analysis: {e}", file=sys.stderr)
+            return 2
+    tiers = _tiers() if chosen else {}
     wanted = None
     if args.rules:
+        from avenir_tpu_torch.analysis.rules import rule_ids
+
         wanted = [r.strip() for r in args.rules.split(",") if r.strip()]
-        known = {rid for t in chosen
-                 for rid in [c.rule_id for c in tiers[t][0]] + [tiers[t][1]]}
+        known = ({rid for t in chosen
+                  for rid in [c.rule_id for c in tiers[t][0]]
+                  + [tiers[t][1]]} if chosen else set(rule_ids()))
         unknown = set(wanted) - known
         if unknown:
             print(f"avenir_tpu_torch.analysis: unknown rule(s): "
@@ -182,6 +251,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"avenir_tpu_torch.analysis: {e}", file=sys.stderr)
         return 2
 
+    if not chosen:
+        return _run_ast(args, baseline, wanted)
+    extra = {"race": {"depth": args.depth, "seeds": args.seeds,
+                      "schedule": schedule}}
     modes = {}
     worst = 0
     for name in chosen:
@@ -194,7 +267,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             report = run(paths=args.paths or None, rules=rules,
                          baseline=baseline, root=_report_root(args),
                          include_md=not args.no_md, audit=audit,
-                         device=args.device)
+                         device=args.device, **extra.get(name, {}))
         except (err_cls, OSError) as e:
             print(f"avenir_tpu_torch.analysis [{name}]: audit failed to "
                   f"run: {e}", file=sys.stderr)

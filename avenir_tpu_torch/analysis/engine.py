@@ -1,7 +1,9 @@
 """The auditors' engine: source discovery, AST context, allowlist, runner.
 
 The port of `avenir_tpu/analysis/engine.py` without its jit helpers
-(they serve only the JAX rules of `rules.py`, which are not ported).
+(they serve only the JAX rules of the reference's `rules.py`, which are
+not ported); `ModuleContext.compiled_names` takes their place for the
+host-sync rule.
 Every rule is a lexical pattern over one module's AST plus import-alias
 resolution. Findings are keyed ``path::rule::scope`` (scope: the dotted
 enclosing class and function, ``<module>`` at the top), not by line, so
@@ -24,6 +26,9 @@ _FENCE = re.compile(r"```python[ \t]*\n(.*?)```", re.DOTALL)
 
 _SCOPE_NODES = (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda,
                 ast.ClassDef)
+
+#: wrappers whose result is a compiled device callable
+_COMPILERS = {"jax.jit", "jit", "torch.compile", "torch.jit.script"}
 
 
 @dataclass(frozen=True)
@@ -66,9 +71,12 @@ class Report:
     absorbed. `invariance_audit` is filled by flow runs (a row a stream
     entry: its chunk-layout and scheduler byte identity),
     `footprint_audit` by mem runs (measured RSS against the footprint
-    model) and `merge_audit` by merge runs (shard merge, resume,
-    incremental and sharded-steal byte identity); the keys are in every
-    JSON report, so one schema parses them all."""
+    model), `merge_audit` by merge runs (shard merge, resume,
+    incremental and sharded-steal byte identity), `proto_audit` by proto
+    runs (a row a commit site: its kill-injected recovery),
+    `race_audit` by race runs (a row an interleave site: its schedules)
+    and `key_audit` by keys runs (a row a key site: its perturbations);
+    the keys are in every JSON report, so one schema parses them all."""
 
     findings: List[Finding] = field(default_factory=list)
     suppressed: List[Finding] = field(default_factory=list)
@@ -78,6 +86,9 @@ class Report:
     invariance_audit: List[dict] = field(default_factory=list)
     footprint_audit: List[dict] = field(default_factory=list)
     merge_audit: List[dict] = field(default_factory=list)
+    proto_audit: List[dict] = field(default_factory=list)
+    race_audit: List[dict] = field(default_factory=list)
+    key_audit: List[dict] = field(default_factory=list)
 
     def counts(self) -> Dict[str, int]:
         out: Dict[str, int] = {}
@@ -100,13 +111,17 @@ class Report:
             "invariance_audit": self.invariance_audit,
             "footprint_audit": self.footprint_audit,
             "merge_audit": self.merge_audit,
+            "proto_audit": self.proto_audit,
+            "race_audit": self.race_audit,
+            "key_audit": self.key_audit,
             "clean": self.clean,
         }
 
 
 class ModuleContext:
     """A parsed module and the lookups every rule needs: parent links,
-    import-alias resolution, loop and scope ancestry."""
+    import-alias resolution, loop and scope ancestry, and the names bound
+    to compiled callables."""
 
     def __init__(self, path: str, tree: ast.Module):
         self.path = path
@@ -116,6 +131,7 @@ class ModuleContext:
             for child in ast.iter_child_nodes(node):
                 self.parents[child] = node
         self.aliases = self._collect_aliases(tree)
+        self.compiled_names = self._collect_compiled_names(tree)
 
     @staticmethod
     def _collect_aliases(tree: ast.Module) -> Dict[str, str]:
@@ -129,6 +145,35 @@ class ModuleContext:
                 for a in node.names:
                     aliases[a.asname or a.name] = f"{node.module}.{a.name}"
         return aliases
+
+    def _is_compiler(self, expr: ast.AST) -> bool:
+        """`expr` wraps a function into a compiled callable: a compiler
+        itself (``@torch.compile``), a call of one (``@jax.jit(...)``,
+        ``torch.compile(f)``) or a ``functools.partial`` of one."""
+        if self.dotted(expr) in _COMPILERS:
+            return True
+        if not isinstance(expr, ast.Call):
+            return False
+        callee = self.dotted(expr.func)
+        if callee in _COMPILERS:
+            return True
+        return (callee in ("functools.partial", "partial") and bool(expr.args)
+                and self.dotted(expr.args[0]) in _COMPILERS)
+
+    def _collect_compiled_names(self, tree: ast.Module) -> Set[str]:
+        """Names bound (at any nesting) to compiled callables: a def
+        decorated by a compiler, and ``f = compiler(g)``."""
+        names: Set[str] = set()
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                if any(self._is_compiler(d) for d in node.decorator_list):
+                    names.add(node.name)
+            elif isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                    and isinstance(node.targets[0], ast.Name) \
+                    and isinstance(node.value, ast.Call) \
+                    and self._is_compiler(node.value):
+                names.add(node.targets[0].id)
+        return names
 
     def dotted(self, node: ast.AST) -> Optional[str]:
         """The dotted name of an expression like ``np.random.choice``,

@@ -47,7 +47,7 @@ def key_site(name: str) -> str:
     """No-op marker binding a key function to its ``KEY_SITES`` entry.
 
     Purely declarative — returns its argument so the call is free of
-    side effects; the JAX package's source auditor reads the names.
+    side effects; the keys auditor (`analysis/keys.py`) reads the names.
     """
     return name
 

@@ -4,13 +4,14 @@ The port of `avenir_tpu/ops/infotheory.py`: entropy, Gini index,
 population-weighted split impurity and mutual information as vectorized
 functions over count tensors, in float32 as the JAX package computes
 them (it runs with 64-bit types off). The tables they score are small
-(a few hundred cells), so the callers run them on the host: a card run
-and its CPU twin then print the same bytes.
+(a few hundred cells), so every function runs on the host in numpy,
+each step one rounded float32 operation, the sums in XLA's CPU reduce
+order (`xla_math.sum_axis`, `xla_math.sum_last2`) and the log XLA's
+(`xla_math.log`): the values are the reference's bit for bit on its CPU
+build, and a card run and its CPU twin print the same bytes.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
@@ -20,33 +21,52 @@ from avenir_tpu_torch.ops import xla_math
 _EPS = 1e-12
 
 
-def _f32(counts) -> torch.Tensor:
-    return torch.as_tensor(counts).to(torch.float32)
+def _f32(counts) -> np.ndarray:
+    """A count table as a float32 host array (a device tensor is read
+    back; a float64 table rounds as `jnp.asarray` rounds it)."""
+    if isinstance(counts, torch.Tensor):
+        counts = counts.detach().cpu().numpy()
+    return np.asarray(counts, np.float32)
 
 
-def _norm(counts: torch.Tensor, axis: int = -1) -> torch.Tensor:
-    tot = counts.sum(dim=axis, keepdim=True)
-    return counts / torch.clamp(tot, min=_EPS)
+def _norm(counts: np.ndarray, axis: int = -1) -> np.ndarray:
+    tot = xla_math.sum_axis(counts, axis)
+    return counts / np.maximum(tot, np.float32(_EPS))
+
+
+def _entropy(counts: np.ndarray, axis: int) -> np.ndarray:
+    p = _norm(counts, axis)
+    terms = np.where(p > 0, p * xla_math.log(np.maximum(p, np.float32(_EPS))),
+                     np.float32(0.0))
+    return -np.squeeze(xla_math.sum_axis(terms, axis), axis)
+
+
+def _bits_entropy(counts: np.ndarray, axis: int) -> np.ndarray:
+    return _entropy(counts, axis) / xla_math.log(np.float32(2.0))
+
+
+def _gini(counts: np.ndarray, axis: int) -> np.ndarray:
+    p = _norm(counts, axis)
+    return np.float32(1.0) - np.squeeze(xla_math.sum_axis(p * p, axis), axis)
+
+
+def _tensor(values: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(values, np.float32))
 
 
 def entropy(counts, axis: int = -1) -> torch.Tensor:
     """Shannon entropy (nats) of count vectors along `axis`."""
-    p = _norm(_f32(counts), axis)
-    terms = torch.where(p > 0, p * torch.log(torch.clamp(p, min=_EPS)),
-                        torch.zeros_like(p))
-    return -terms.sum(dim=axis)
+    return _tensor(_entropy(_f32(counts), axis))
 
 
 def bits_entropy(counts, axis: int = -1) -> torch.Tensor:
     """Entropy in bits (log2), as the reference's InfoContentStat."""
-    return entropy(counts, axis) / torch.tensor(math.log(2.0),
-                                                dtype=torch.float32)
+    return _tensor(_bits_entropy(_f32(counts), axis))
 
 
 def gini(counts, axis: int = -1) -> torch.Tensor:
     """Gini index 1 - sum p^2 of count vectors along `axis`."""
-    p = _norm(_f32(counts), axis)
-    return 1.0 - (p * p).sum(dim=axis)
+    return _tensor(_gini(_f32(counts), axis))
 
 
 def weighted_split_score(seg_class_counts, algo: str = "entropy"
@@ -56,11 +76,12 @@ def weighted_split_score(seg_class_counts, algo: str = "entropy"
     impurity(segment s), what the tree reducer minimizes over candidate
     splits (tree/DecisionTreeBuilder.java:495-532)."""
     counts = _f32(seg_class_counts)
-    score_fn = bits_entropy if algo in ("entropy", "infoGain") else gini
-    seg_tot = counts.sum(dim=-1)                                 # [..., S]
-    tot = torch.clamp(seg_tot.sum(dim=-1, keepdim=True), min=_EPS)
-    imp = score_fn(counts, axis=-1)                              # [..., S]
-    return (seg_tot / tot * imp).sum(dim=-1)
+    score_fn = _bits_entropy if algo in ("entropy", "infoGain") else _gini
+    seg_tot = np.squeeze(xla_math.sum_axis(counts, -1), -1)     # [..., S]
+    tot = np.maximum(xla_math.sum_axis(seg_tot, -1), np.float32(_EPS))
+    imp = score_fn(counts, -1)                                   # [..., S]
+    return _tensor(np.squeeze(xla_math.sum_axis(seg_tot / tot * imp, -1),
+                              -1))
 
 
 def mutual_information(joint_counts) -> torch.Tensor:
@@ -70,7 +91,7 @@ def mutual_information(joint_counts) -> torch.Tensor:
     and the log is XLA's (`xla_math.log`), each other step one rounded
     float32 operation, on the host; so a value on a 6th-decimal
     rounding edge prints as the reference's."""
-    joint = _f32(joint_counts).cpu().numpy()
+    joint = _f32(joint_counts)
     f32 = np.float32
     pj = joint / np.maximum(xla_math.sum_last2(joint)[..., None, None],
                             f32(_EPS))

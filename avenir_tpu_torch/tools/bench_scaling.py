@@ -8,7 +8,7 @@ The port of `bench_scaling.py`'s `host_parallel_capacity`,
 `server_tripwire`, `fleet_tripwire`, `fleet_fault_tripwire`,
 `score_tripwire`, `autotune_tripwire`, `obs_tripwire`, `miner_tripwire`
 and `shared_scan_tripwire`, each with the reference's floor or ceiling,
-and of the legs of its `graftlint_tripwire` that the port has
+and of every leg of its `graftlint_tripwire` but the IR one
 (`audit_tripwire`):
 
     python -m avenir_tpu_torch.tools.bench_scaling [--tripwire shard|
@@ -34,9 +34,11 @@ departure from the reference, whose fused pass would replay what its
 sequential pass packed); equal artifacts, no nvcc run and no library
 bound by the fused pass.
 
-**audit_tripwire** (no speed floor): the flow invariance, mem footprint,
-merge (with its incremental and sharded-steal legs) and span-coverage
-audits over the eight stream entries, at least eight validated each; the
+**audit_tripwire** (no speed floor): the AST rules over the package, the
+keys, proto and race audits over their 11, 13 and 8 sites (the race at
+depth 3 and 64 seeds), then the flow invariance, mem footprint, merge
+(with its incremental and sharded-steal legs) and span-coverage audits
+over the eight stream entries, at least eight validated each; the
 memory manifest goes to `build/avenir_tpu_torch/MEMORY_MANIFEST.json`.
 
 **autotune_tripwire** (floor 1.15x at 10,000,000 rows): the fused churn
@@ -1623,15 +1625,72 @@ def autotune_tripwire(rows: int = 10_000_000, floor: float = 1.15,
         shutil.rmtree(d, ignore_errors=True)
 
 
-def audit_tripwire(device: str = "cuda", kernels: bool = True) -> dict:
-    """The legs of the reference's graftlint tripwire that the port has,
-    over the eight stream entries on `device`: the flow rules and the
-    chunk-invariance audit, the mem rules and the footprint audit, the
-    merge rules and the shard-merge audit with its incremental and
-    sharded-steal legs, and span coverage; at least eight entries
-    validated in each, no finding past the allowlist. The memory
-    manifest (with `kernels`, a row a CUDA kernel, measured on the card
-    around calls of its own) goes to
+def _host_legs(device: str) -> dict:
+    """The tripwire's host-service legs: the AST rules over the port's
+    package, then the keys, proto and race tiers (the race at its
+    default depth 3 and 64 seeds), each its rules and its audit over
+    every registered site. Any finding past the allowlist, stale entry
+    or site not validated raises RuntimeError; an audit that fails to
+    run raises its own error."""
+    from avenir_tpu_torch.analysis import keys, proto, race
+    from avenir_tpu_torch.analysis.engine import load_baseline
+    from avenir_tpu_torch.analysis.rules import run_rules
+
+    def regression(name, rep):
+        return RuntimeError(
+            f"{name} audit regression: counts={rep.counts()} stale="
+            f"{[e.key for e in rep.stale]} errors={len(rep.errors)}: "
+            + "; ".join(f.render() for f in rep.findings[:5]))
+
+    out: Dict[str, object] = {}
+    t0 = time.perf_counter()
+    rep = run_rules([os.path.join(ROOT, "avenir_tpu_torch")],
+                    baseline=load_baseline(), root=ROOT)
+    out["ast_s"] = time.perf_counter() - t0
+    if not rep.clean:
+        raise regression("AST", rep)
+    out["ast_files"] = len(rep.scanned)
+    out["ast_allowlisted"] = len(rep.suppressed)
+    rows_out = {}
+    for name, registry, run, attr, flag in (
+            ("keys", keys.KEY_SITES, keys.run_keys, "key_audit",
+             "key_validated"),
+            ("proto", proto.COMMIT_SITES, proto.run_proto, "proto_audit",
+             "commit_point_validated"),
+            ("race", race.INTERLEAVE_SITES, race.run_race, "race_audit",
+             "interleaving_validated")):
+        t0 = time.perf_counter()
+        rep = run(baseline=load_baseline(), root=ROOT, device=device)
+        out[f"{name}_s"] = time.perf_counter() - t0
+        if not rep.clean:
+            raise regression(name, rep)
+        rows = getattr(rep, attr)
+        bad = [r["site"] for r in rows if not r[flag]]
+        if bad or len(rows) < len(registry):
+            raise RuntimeError(
+                f"{name} audit regression: {len(rows)} of {len(registry)} "
+                f"sites audited, failed={bad}")
+        out[f"{name}_validated"] = len(rows)
+        out[f"{name}_allowlisted"] = len(rep.suppressed)
+        rows_out[name] = rows
+    out["rows"] = rows_out
+    return out
+
+
+def audit_tripwire(device: str = "cuda", kernels: bool = True,
+                   host: bool = True) -> dict:
+    """Every leg of the reference's graftlint tripwire that the port
+    has (its IR leg lowers jaxprs and is never ported): first the host
+    services (`_host_legs`: the AST rules, and the keys, proto and race
+    tiers over every registered site; `host=False` leaves them out, for
+    a caller that runs them itself), then over the eight stream entries
+    on `device` the
+    flow rules and the chunk-invariance audit, the mem rules and the
+    footprint audit, the merge rules and the shard-merge audit with its
+    incremental and sharded-steal legs, and span coverage; at least
+    eight entries validated in each, no finding past the allowlist. The
+    memory manifest (with `kernels`, a row a CUDA kernel, measured on
+    the card around calls of its own) goes to
     `build/avenir_tpu_torch/MEMORY_MANIFEST.json`; the rows are in the
     line. The entries' corpora are their own: the tripwire takes no
     `--rows`."""
@@ -1642,6 +1701,11 @@ def audit_tripwire(device: str = "cuda", kernels: bool = True) -> dict:
     from avenir_tpu_torch.obs.coverage import audit_span_coverage
 
     out: Dict[str, object] = {"device": device}
+    host_rows = {}
+    if host:
+        legs = _host_legs(device)
+        host_rows = legs.pop("rows")
+        out.update(legs)
     reports = {}
     for name, run in (("flow", run_flow), ("mem", run_mem),
                       ("merge", run_merge)):
@@ -1687,7 +1751,7 @@ def audit_tripwire(device: str = "cuda", kernels: bool = True) -> dict:
     out["rows"] = {"invariance": reports["flow"].invariance_audit,
                    "footprint": reports["mem"].footprint_audit,
                    "merge": reports["merge"].merge_audit,
-                   "span_coverage": cov}
+                   "span_coverage": cov, **host_rows}
     return out
 
 

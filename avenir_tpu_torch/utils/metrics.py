@@ -1,10 +1,11 @@
 """Validation metrics: confusion matrix + cost-based arbitration.
 
 The port's own copy of `avenir_tpu/utils/metrics.py`'s ConfusionMatrix,
-CostBasedArbitrator and throughput_counters. The reference validates classifiers in-job by
-pushing TP/FN/TN/FP, accuracy, recall and precision into Hadoop counters
-under a "Validation" group (util/ConfusionMatrix.java, used at
-knn/NearestNeighbor.java:300-312); here they are a plain dict.
+CostBasedArbitrator, throughput_counters and Counters. The reference
+validates classifiers in-job by pushing TP/FN/TN/FP, accuracy, recall
+and precision into Hadoop counters under a "Validation" group
+(util/ConfusionMatrix.java, used at knn/NearestNeighbor.java:300-312);
+here they are a plain dict.
 """
 
 from __future__ import annotations
@@ -120,3 +121,26 @@ def throughput_counters(records: int, seconds: float) -> Dict[str, float]:
     rate = records / seconds if seconds > 0 else 0.0
     return {"Basic:Records": int(records),
             "Basic:RowsPerSec": round(rate, 1)}
+
+
+class Counters:
+    """A flat stand-in for Hadoop counter groups: "Group:Name" -> value
+    (`avenir_tpu/utils/metrics.py` `Counters`)."""
+
+    def __init__(self) -> None:
+        self.values: Dict[str, float] = {}
+
+    def incr(self, key: str, amount: float = 1) -> None:
+        self.values[key] = self.values.get(key, 0) + amount
+
+    def set(self, key: str, value: float) -> None:
+        self.values[key] = value
+
+    def update(self, other: Dict[str, float]) -> None:
+        self.values.update(other)
+
+    def get(self, key: str, default: float = 0) -> float:
+        return self.values.get(key, default)
+
+    def __repr__(self) -> str:
+        return f"Counters({self.values})"

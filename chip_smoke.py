@@ -261,8 +261,9 @@ Phases, each printing a line per check; any failed check exits non-zero:
    480 MB; cut from the root bench's 2,000,000), its top-k within the
    same rule of `blocked_topk_neighbors` in float32 over the whole
    parsed corpus, the floor raised by the bfloat16 operands' rounding.
-   The NB CSV leg at STREAM_NB_CSV_ROWS = 20,000,000 rows (about 760 MB
-   in 4 MB blocks; cut from the root bench's 100,000,000): its model
+   The NB CSV leg at STREAM_NB_CSV_ROWS = 10,000,000 rows (about 380 MB
+   in 4 MB blocks; cut from the root bench's 100,000,000, and from
+   20,000,000 to make room for phase 26): its model
    and stamp byte-identical to `bayesianDistr` through `run_job` on the
    same file at stream.prefetch.depth=1, parsing (the sidecar off) and
    then by default (parsing and packing the sidecar), its peak RSS over
@@ -488,6 +489,17 @@ Phases, each printing a line per check; any failed check exits non-zero:
    tripwire at AUDIT_SHARED_ROWS (byte-identical, at least 1.3x, no nvcc
    run or bind in the fused pass). The GSP entries' and
    the miner tripwire's `subseq_support` launches are the `audit` path.
+26. The host services on the card: the AST rules over the port's
+   package (`analysis/rules.py`), then the keys audit over all 11 key
+   sites (each registered input dimension moved one at a time; its jobs,
+   Apriori, the Markov model, its incremental run and the Markov scorer,
+   on cuda), the proto audit over all 13 commit sites (each killed
+   before and after its rename in a fresh interpreter, recovered
+   byte-identical) and the race audit over all 8 interleave sites
+   (every two-way choice to depth RACE_DEPTH, then RACE_SEEDS seeded
+   schedules a site; two resident actor interpreters); each tier's rows,
+   its findings past the allowlist (none), its seconds and its launches,
+   which are the `host_services` path.
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth, phase 12's GSP runs the fifth, phase 15's
@@ -498,7 +510,8 @@ either), phase 21's sharded workers the twelfth (`shard`: the
 launches the workers report, summed), phase 22's refreshes, sidecar
 packs and replays the thirteenth (`incremental`), phase 23's served
 requests the fourteenth (`serve`), phase 24's autotuned runs the
-fifteenth (`tune`) and phase 25's audits the sixteenth (`audit`): each
+fifteenth (`tune`), phase 25's audits the sixteenth (`audit`) and
+phase 26's host services the seventeenth (`host_services`): each
 kernel's launches are counted from zero on each path. Then one JSON
 line of per-kernel numbers (the pre-pass beside the five kernels, at the
 sweep's D=128 float32; the tensor-core form at the bench's D=128
@@ -607,9 +620,10 @@ MARKOV_ROWS, MARKOV_ENTITIES, MARKOV_SEED, HMM_SEED = 1_000_000, 10_000, 21, 31
 MARKOV_TWIN_ROWS, MARKOV_HOST_ROWS, MARKOV_HOST_KEYS = 20_000, 100_000, 1_000
 MARKOV_PATH = "markovStateTransitionModel"
 #: phase 15: the KNN stream legs' path, the CSV legs' rows (cut from the
-#: root bench's 100,000,000 and 2,000,000), the blocks of the merge check
+#: root bench's 100,000,000 and 2,000,000; the NB leg from 20,000,000 to
+#: make room for phase 26), the blocks of the merge check
 STREAM_PATH = "knn_stream"
-STREAM_NB_CSV_ROWS, STREAM_KNN_CSV_ROWS = 20_000_000, 500_000
+STREAM_NB_CSV_ROWS, STREAM_KNN_CSV_ROWS = 10_000_000, 500_000
 STREAM_CHECK_BLOCKS = 8
 #: phase 16: the paths of the EXACT top-k and centre-sum launches, the
 #: rows of its jobs, and how far a printed LR coefficient of the card may
@@ -6360,6 +6374,11 @@ AUDIT_PATH = "audit"
 #: the reference's row counts of the miner and shared-scan tripwires
 AUDIT_MINER_ROWS = 20_000
 AUDIT_SHARED_ROWS = 30_000
+#: phase 26: the host services' path, and the race audit's size on the
+#: card: every two-way choice to depth 3 (the reference's default), then
+#: 16 seeded schedules a site (its default 64 takes about twice as long)
+HOST_PATH = "host_services"
+RACE_DEPTH, RACE_SEEDS = 3, 16
 
 
 def _audit_line(row: dict) -> dict:
@@ -6382,7 +6401,7 @@ def phase_audit():
     t_phase = time.perf_counter()
     _reset_launches()
     try:
-        audit = audit_tripwire(device=DEVICE, kernels=False)
+        audit = audit_tripwire(device=DEVICE, kernels=False, host=False)
     except RuntimeError as e:
         fail(f"the audits on {DEVICE} ({CARD}): {e}")
     secs = {k: round(v, 1) for k, v in audit.items() if k.endswith("_s")}
@@ -6422,6 +6441,62 @@ def phase_audit():
           f"{miner['gsp_subseq_support_launches']}x)")
     secs["phase"] = round(time.perf_counter() - t_phase, 1)
     print(f"audit path launches: {json.dumps(counts)}", flush=True)
+    return secs, counts
+
+
+def phase_host_services():
+    """The AST rules and the keys, proto and race audits on the card
+    (docstring item 26). Returns (seconds, the launch counts of the
+    phase)."""
+    from avenir_tpu_torch.analysis import keys, proto, race
+    from avenir_tpu_torch.analysis.engine import load_baseline
+    from avenir_tpu_torch.analysis.rules import run_rules
+
+    t_phase = time.perf_counter()
+    root = str(ROOT)
+    tiers = (
+        ("ast", lambda b: run_rules([str(ROOT / "avenir_tpu_torch")],
+                                    baseline=b, root=root),
+         None, None, 0),
+        ("keys", lambda b: keys.run_keys(baseline=b, root=root,
+                                         device=DEVICE),
+         "key_audit", "key_validated", len(keys.KEY_SITES)),
+        ("proto", lambda b: proto.run_proto(baseline=b, root=root,
+                                            device=DEVICE),
+         "proto_audit", "commit_point_validated", len(proto.COMMIT_SITES)),
+        ("race", lambda b: race.run_race(baseline=b, root=root,
+                                         device=DEVICE, depth=RACE_DEPTH,
+                                         seeds=RACE_SEEDS),
+         "race_audit", "interleaving_validated",
+         len(race.INTERLEAVE_SITES)))
+    secs, counts = {}, None
+    for name, run, attr, flag, n_sites in tiers:
+        _reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rep = run(load_baseline())
+        except RuntimeError as e:
+            fail(f"the {name} tier on {DEVICE} ({CARD}) failed to run: {e}")
+        secs[name] = round(time.perf_counter() - t0, 1)
+        launches = _launch_counts()
+        counts = (launches if counts is None
+                  else {k: v + launches[k] for k, v in counts.items()})
+        rows = getattr(rep, attr) if attr else []
+        for row in rows:
+            print(f"{name} audit row ({CARD}): {json.dumps(row)}",
+                  flush=True)
+        for f in rep.findings + rep.errors:
+            print(f.render(), flush=True)
+        ok_rows = sum(1 for r in rows if r[flag]) if flag else 0
+        check(rep.clean and ok_rows == n_sites,
+              f"{name} tier on {DEVICE} ({CARD}; {secs[name]}s): "
+              f"{len(rep.scanned)} files, {len(rep.findings)} findings "
+              f"past the allowlist, {len(rep.suppressed)} allowlisted, "
+              f"{len(rep.stale)} stale, {ok_rows} of {n_sites} sites "
+              f"validated, launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    secs["phase"] = round(time.perf_counter() - t_phase, 1)
+    print(f"host_services path launches: {json.dumps(counts)}", flush=True)
     return secs, counts
 
 
@@ -6547,6 +6622,7 @@ def main() -> None:
     serve_secs, serve_counts = phase_server()
     tune_secs, tune_counts = phase_tune()
     audit_secs, audit_counts = phase_audit()
+    host_secs, host_counts = phase_host_services()
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     print(f"tree and text seconds ({CARD}; phase 10 "
@@ -6588,6 +6664,8 @@ def main() -> None:
           f"{json.dumps(tune_secs)}", flush=True)
     print(f"audit seconds ({CARD}; phase 25 {audit_secs['phase']}s): "
           f"{json.dumps(audit_secs)}", flush=True)
+    print(f"host services seconds ({CARD}; phase 26 {host_secs['phase']}s):"
+          f" {json.dumps(host_secs)}", flush=True)
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.1f}s "
           f"({CARD})", flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
@@ -6597,7 +6675,8 @@ def main() -> None:
              LIB_PATH: lib_counts, CONF_PATH: conf_counts,
              MESH_PATH: mesh_counts, SHARD_PATH: shard_counts,
              INCR_PATH: incr_counts, SERVE_PATH: serve_counts,
-             TUNE_PATH: tune_counts, AUDIT_PATH: audit_counts}
+             TUNE_PATH: tune_counts, AUDIT_PATH: audit_counts,
+             HOST_PATH: host_counts}
 
     # each kernel's row at the shape of the path it is reported on: the
     # job's (manhattan, D=6) for the three it runs; the sweep's

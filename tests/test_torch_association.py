@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.models.association import (
     FrequentItemsApriori as JaxApriori,
     StreamingTransactionSource as JaxSource)

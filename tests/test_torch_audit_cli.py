@@ -60,24 +60,27 @@ def test_the_audits_default_to_the_card():
     run on cuda unless the caller asks for the CPU."""
     import inspect
 
-    from avenir_tpu_torch.analysis import cli, flow, manifest, mem, merge
+    from avenir_tpu_torch.analysis import (cli, flow, keys, manifest, mem,
+                                           merge, proto, race)
     from avenir_tpu_torch.obs import coverage
 
     assert cli.build_parser().parse_args(["--flow"]).device == "cuda"
     assert {s.device for s in manifest.stream_entries()} == {"cuda"}
     for fn in (manifest.stream_entries, flow.run_flow, mem.run_mem,
                merge.run_merge, mem.memory_manifest,
-               mem.kernel_device_entries, coverage.audit_span_coverage):
+               mem.kernel_device_entries, coverage.audit_span_coverage,
+               keys.run_keys, keys.audit_keys, proto.run_proto,
+               race.run_race):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 @pytest.mark.parametrize("args,text", [
     (["--flow", "--rules", "nope"], "unknown rule"),
     (["--ir"], "never ported"),
-    (["--proto"], "item 8"),
-    (["--race"], "item 8"),
-    (["--keys"], "item 8"),
-    (["avenir_tpu_torch"], "item 8"),
+    (["--schedule", "ledger.claim:01"], "needs --race"),
+    (["--race", "--schedule", "ledger.claim"], "bad schedule"),
+    (["--keys", "--proto", "--rules", "nope"], "unknown rule"),
+    ([], "pass paths"),
     (["--flow", "--rules", "flow-chunk-invariance", "--device", "nodevice"],
      "failed to run"),
     pytest.param(["--flow", "--rules", "flow-chunk-invariance"],
@@ -90,6 +93,69 @@ def test_cli_usage_and_audit_errors_exit_2(args, text):
     proc = _cli(args)
     assert proc.returncode == 2, proc.stdout + proc.stderr
     assert text in proc.stderr
+
+
+#: (reference fixture module, fixture stem, tier flag, rule id)
+_EXIT_CASES = [
+    ("test_graftlint", "_INT64", None, "default-int64"),
+    ("test_graftlint", "_SYNC", None, "host-sync-in-fold"),
+    ("test_graftlint_keys", "_MTIME", "--keys", "keys-mtime-validity"),
+    ("test_graftlint_proto", "_NONATOMIC", "--proto",
+     "proto-nonatomic-publish"),
+    ("test_graftlint_race", "_CTA", "--race", "race-check-then-act"),
+]
+
+
+@pytest.mark.parametrize("module,stem,tier,rule", _EXIT_CASES,
+                         ids=[c[3] for c in _EXIT_CASES])
+def test_cli_exit_codes_match_the_reference(tmp_path, monkeypatch, capsys,
+                                            module, stem, tier, rule):
+    """The AST tier and the keys, proto and race tiers exit as the
+    reference's command line does on its fixtures: 1 on the bad one, 0
+    on the good one (a rule subset, so no audit runs), 2 on an unknown
+    rule; the port's JSON holds the same counts."""
+    import importlib
+
+    from avenir_tpu.analysis import cli as jax_cli
+    from avenir_tpu_torch.analysis import cli
+
+    fx = importlib.import_module(module)
+    (tmp_path / "bad.py").write_text(getattr(fx, stem + "_BAD"))
+    (tmp_path / "good.py").write_text(getattr(fx, stem + "_GOOD"))
+    monkeypatch.chdir(tmp_path)
+    flag = [tier] if tier else []
+    for argv in (flag + ["bad.py", "--rules", rule, "--no-baseline"],
+                 flag + ["good.py", "--rules", rule, "--no-baseline"],
+                 flag + ["good.py", "--rules", "nope"]):
+        got = cli.main(argv + ["--device", "cpu"])
+        capsys.readouterr()
+        assert got == jax_cli.main(argv), argv
+        capsys.readouterr()
+    assert cli.main(flag + ["bad.py", "--rules", rule, "--no-baseline",
+                            "--json", "--device", "cpu"]) == 1
+    rep = json.loads(capsys.readouterr().out)
+    jax_cli.main(flag + ["bad.py", "--rules", rule, "--no-baseline",
+                         "--json"])
+    assert rep["counts"] == json.loads(capsys.readouterr().out)["counts"]
+    assert rep["proto_audit"] == rep["race_audit"] == rep["key_audit"] == []
+
+
+def test_cli_ast_tier_passes_the_package():
+    proc = _cli(["avenir_tpu_torch", "--json"])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    rep = json.loads(proc.stdout)
+    assert rep["clean"] and rep["findings"] == []
+    assert rep["files_scanned"] > 100 and rep["suppressed"] > 40
+
+
+def test_cli_runs_the_new_tiers_together_on_the_cpu(tmp_path):
+    (tmp_path / "clean.py").write_text("x = 1\n")
+    proc = _cli(["--keys", "--race", "clean.py", "--rules",
+                 "keys-mtime-validity,race-check-then-act", "--json",
+                 "--device", "cpu"], cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    rep = json.loads(proc.stdout)
+    assert set(rep["modes"]) == {"keys", "race"} and rep["clean"]
 
 
 def test_cli_bad_allowlist_exits_2(tmp_path):

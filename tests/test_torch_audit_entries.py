@@ -19,6 +19,7 @@ import dataclasses
 
 import pytest
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.analysis.flow import audit_stream as jax_audit_stream
 from avenir_tpu.analysis.manifest import stream_entries as jax_entries
 from avenir_tpu.obs.coverage import audit_entry as jax_coverage

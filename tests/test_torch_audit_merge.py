@@ -9,6 +9,7 @@ import dataclasses
 
 import pytest
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.analysis.manifest import stream_entries as jax_entries
 from avenir_tpu.analysis.merge import audit_merge as jax_audit_merge
 from avenir_tpu_torch.analysis.manifest import stream_entries

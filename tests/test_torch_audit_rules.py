@@ -2,10 +2,11 @@
 against the JAX package's where both have them:
 
 - every bad and good fixture of the reference's rule corpora
-  (`tests/test_graftlint_flow.py`, `test_graftlint_merge.py`,
-  `test_graftlint_mem.py`) gives the same (rule id, line, scope)
-  findings under the port's rule as under the reference's, and torch's
-  constructors count as numpy's do;
+  (`tests/test_graftlint.py`, `test_graftlint_flow.py`,
+  `test_graftlint_merge.py`, `test_graftlint_mem.py`) gives the same
+  (rule id, line, scope) findings under the port's rule as under the
+  reference's, and torch's constructors count as numpy's do; the AST
+  rules read torch's syncs, draws and placements;
 - the port's own surface is clean under its allowlist for each tier's
   rules, and every allowlist entry is used;
 - the allowlist's format errors and its stale entries;
@@ -25,14 +26,18 @@ import time
 import numpy as np
 import pytest
 
+import test_graftlint as ref_ast
 import test_graftlint_flow as ref_flow
 import test_graftlint_mem as ref_mem
 import test_graftlint_merge as ref_merge
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.analysis import engine as jax_engine
 from avenir_tpu.analysis import flow as jax_flow
 from avenir_tpu.analysis import mem as jax_mem
 from avenir_tpu.analysis import merge as jax_merge
-from avenir_tpu_torch.analysis import engine, flow, mem, merge
+from avenir_tpu.analysis import rules as jax_rules
+from avenir_tpu_torch.analysis import (engine, flow, keys, mem, merge, proto,
+                                       race, rules)
 from avenir_tpu_torch.analysis.manifest import (StreamKernelSpec,
                                                 stream_entries)
 from avenir_tpu_torch.obs.coverage import SpanCoverageError, audit_entry
@@ -55,11 +60,15 @@ FIXTURES = [
     (ref_mem, "_TEMP", "CorpusScaledTemporaryRule"),
     (ref_mem, "_CACHE", "CacheSpillUnbudgetedRule"),
     (ref_mem, "_DTYPE", "DtypeExpansionAtParseRule"),
+    (ref_ast, "_INT64", "DefaultInt64Rule"),
+    (ref_ast, "_SYNC", "HostSyncInFoldRule"),
+    (ref_ast, "_UNSEEDED", "UnseededStochasticTestRule"),
+    (ref_ast, "_SHARDED", "ShardedHostMaterializeRule"),
 ]
 _PORT = {"test_graftlint_flow": flow, "test_graftlint_merge": merge,
-         "test_graftlint_mem": mem}
+         "test_graftlint_mem": mem, "test_graftlint": rules}
 _REF = {"test_graftlint_flow": jax_flow, "test_graftlint_merge": jax_merge,
-        "test_graftlint_mem": jax_mem}
+        "test_graftlint_mem": jax_mem, "test_graftlint": jax_rules}
 
 
 def _lint(eng, tmp_path, source, rule):
@@ -121,17 +130,102 @@ def test_rules_read_torch_constructors(tmp_path):
         [("mem-corpus-scaled-temporary", 9)]
 
 
-@pytest.mark.parametrize("tier", ["flow", "mem", "merge"])
+#: torch's forms of the AST rules' hazards, with the lines that fire
+_TORCH_SYNC = """
+import numpy as np
+import torch
+from avenir_tpu_torch.ops import sequence_kernels
+from avenir_tpu_torch.ops.cluster_kernels import centre_sums
+
+@torch.compile
+def step(x):
+    return x.sum()
+
+def fold(chunks, acc):
+    for c in chunks:
+        acc += c.sum().cpu()                               # 13
+        rows = c.tolist()                                  # 14
+        torch.cuda.synchronize()                           # 15
+        n = int(sequence_kernels.subseq_support_fold(acc, c, c, c, 3))  # 16
+        m = np.asarray(centre_sums(c, c, 3))               # 17
+        t = float(step(c))                                 # 18
+        s = float(c.sum())                                 # a host tensor
+        acc = acc + c.to(torch.float32)                    # stays put
+    return acc.cpu(), rows, n, m, t, s                     # once, after
+"""
+
+_TORCH_UNSEEDED = """
+import torch
+
+def test_global_draws():
+    x = torch.rand(10)                                     # 5
+    i = torch.randint(0, 9, (4,))                          # 6
+    assert x.max() < 1 and i.min() >= 0
+
+def test_pinned_draws():
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(10, generator=g)
+    assert x.shape == (10,)
+
+def helper():
+    return torch.rand(3)                                   # no assert
+"""
+
+_TORCH_SHARDED = """
+import numpy as np
+from avenir_tpu_torch.parallel.mesh import replicated, shard_rows
+
+def gather(mesh, x):
+    xs = shard_rows(mesh, x)
+    w = replicated(mesh, x)
+    a = xs.cpu()                                           # 8
+    b = np.asarray(w)                                      # 9
+    c = shard_rows(mesh, np.asarray(x))                    # feeds it
+    return a, b, c, x.cpu()                                # x is not placed
+"""
+
+
+@pytest.mark.parametrize("source,rule,lines", [
+    (_TORCH_SYNC, "HostSyncInFoldRule", [13, 14, 15, 16, 17, 18]),
+    (_TORCH_UNSEEDED, "UnseededStochasticTestRule", [5, 6]),
+    (_TORCH_SHARDED, "ShardedHostMaterializeRule", [8, 9]),
+], ids=["sync", "unseeded", "sharded"])
+def test_ast_rules_read_torch(tmp_path, source, rule, lines):
+    got = _lint(engine, tmp_path, source, getattr(rules, rule)())
+    assert sorted(line for _r, line, _s in got) == lines
+
+
+def test_ast_rules_not_ported_are_named():
+    """Four of the reference's eight AST rules are ported; the module's
+    docstring names the other four, which have no torch counterpart."""
+    ported = set(rules.rule_ids())
+    assert ported == {"default-int64", "host-sync-in-fold",
+                      "unseeded-stochastic-test", "sharded-host-materialize"}
+    rest = set(jax_rules.rule_ids()) - ported
+    assert rest == {"recompile-hazard", "tracer-leak",
+                    "int64-literal-in-jnp", "fold-undonated-carry"}
+    assert all(f"`{r}`" in rules.__doc__ for r in rest)
+
+
+@pytest.mark.parametrize("tier", ["flow", "mem", "merge", "rules", "keys",
+                                  "proto", "race"])
 def test_the_port_is_clean_under_its_allowlist(tier):
     run = {"flow": flow.run_flow, "mem": mem.run_mem,
-           "merge": merge.run_merge}[tier]
+           "merge": merge.run_merge, "keys": keys.run_keys,
+           "proto": proto.run_proto, "race": race.run_race}.get(tier)
     baseline = engine.load_baseline()
-    report = run(baseline=baseline, root=REPO, audit=False)
+    if run is None:
+        report = rules.run_rules([os.path.join(REPO, "avenir_tpu_torch")],
+                                 baseline=baseline, root=REPO)
+    else:
+        report = run(baseline=baseline, root=REPO, audit=False)
     assert not report.errors and not report.findings, \
         [f.render() for f in report.findings]
     assert not report.stale
     ids = {"flow": flow.flow_rule_ids(), "mem": mem.mem_rule_ids(),
-           "merge": merge.merge_rule_ids()}[tier]
+           "merge": merge.merge_rule_ids(), "rules": rules.rule_ids(),
+           "keys": keys.keys_rule_ids(), "proto": proto.proto_rule_ids(),
+           "race": race.race_rule_ids()}[tier]
     used = [e for e in baseline if e.key.split("::")[1] in ids]
     assert all(e.used for e in used)
 

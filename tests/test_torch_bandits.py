@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.data import generate_price_opt as jax_generate_price_opt
 from avenir_tpu.models import bandits as jb
 from avenir_tpu.pipelines import bandit_round as jax_bandit_round

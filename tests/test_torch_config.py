@@ -18,6 +18,7 @@ import textwrap
 import numpy as np
 import pytest
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.core import config as jconfig
 from avenir_tpu.runner import run_job as jrun_job
 from avenir_tpu_torch.core.config import (JobConfig, MissingConfigError,

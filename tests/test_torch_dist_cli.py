@@ -11,6 +11,7 @@ import subprocess
 import sys
 
 import pytest
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 import torch
 
 from avenir_tpu_torch.dist import ShardError, StragglerPolicy, run_sharded

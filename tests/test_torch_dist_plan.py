@@ -16,6 +16,7 @@ import time
 import numpy as np
 import pytest
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.dist import plan as jplan
 from avenir_tpu.dist.detect import mirror_after_wall_s as jwall
 from avenir_tpu.tune import signals as jsignals

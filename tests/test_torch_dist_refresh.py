@@ -19,6 +19,7 @@ import subprocess
 import sys
 
 import pytest
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 
 from avenir_tpu_torch.dist import (BlockLedger, ShardError, StragglerPolicy,
                                    run_sharded, run_sharded_refresh)

@@ -15,6 +15,7 @@ import os
 
 import numpy as np
 import pytest
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 
 from avenir_tpu_torch.dist import StragglerPolicy, run_sharded
 from avenir_tpu_torch.runner import run_job

@@ -9,6 +9,7 @@ import os
 import numpy as np
 import pytest
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.native import ingest as jingest
 from avenir_tpu.ops import bitset as jbitset
 from avenir_tpu_torch.native import ingest

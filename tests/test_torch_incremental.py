@@ -23,6 +23,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 
 from avenir_tpu_torch.core.incremental import (CheckpointStore,
                                                block_fingerprint,

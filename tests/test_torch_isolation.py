@@ -72,7 +72,8 @@ def test_modules_list_covers_the_package():
                 "analysis", "analysis.mem", "tools.fleet_load",
                 "analysis.engine", "analysis.manifest", "analysis.flow",
                 "analysis.merge", "analysis.cli", "analysis.__main__",
-                "obs.coverage"):
+                "obs.coverage", "analysis.rules", "analysis.keys",
+                "analysis.proto", "analysis.race", "utils.metrics"):
         assert f"avenir_tpu_torch.{sub}" in MODULES
 
 
@@ -91,7 +92,8 @@ def test_native_source_is_the_ports_own():
                                    "fisherDiscriminant", "tree", "text",
                                    "sequence", "bandits", "markov",
                                    "score", "reinforce", "library",
-                                   "dist", "serve", "audit"])
+                                   "dist", "serve", "audit",
+                                   "host_services"])
 def test_import_loads_no_jax(entry):
     modules = {"avenir_tpu_torch": ["avenir_tpu_torch"], "all": MODULES,
                "chip_smoke": ["chip_smoke"],
@@ -152,7 +154,13 @@ def test_import_loads_no_jax(entry):
                          "avenir_tpu_torch.analysis.mem",
                          "avenir_tpu_torch.analysis.merge",
                          "avenir_tpu_torch.analysis.cli",
-                         "avenir_tpu_torch.obs.coverage"]}[entry]
+                         "avenir_tpu_torch.obs.coverage"],
+               "host_services": ["avenir_tpu_torch.analysis",
+                                 "avenir_tpu_torch.analysis.rules",
+                                 "avenir_tpu_torch.analysis.keys",
+                                 "avenir_tpu_torch.analysis.proto",
+                                 "avenir_tpu_torch.analysis.race",
+                                 "avenir_tpu_torch.utils.metrics"]}[entry]
     loaded = _loaded(*modules)
     assert set(modules) <= set(loaded)
     assert _forbidden(loaded) == []

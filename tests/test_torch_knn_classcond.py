@@ -26,6 +26,7 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.data import generate_elearn as jax_generate_elearn
 from avenir_tpu.models.knn import NearestNeighborClassifier as JaxClassifier
 from avenir_tpu.models.knn import NeighborIndex as JaxIndex

@@ -28,6 +28,7 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.models import markov as jm
 from avenir_tpu.runner import JobConfig as JaxJobConfig
 from avenir_tpu.runner import run_job as jax_run_job

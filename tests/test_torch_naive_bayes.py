@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.core.dataset import Dataset as JaxDataset
 from avenir_tpu.core.schema import FeatureField as JaxField
 from avenir_tpu.core.schema import FeatureSchema as JaxSchema

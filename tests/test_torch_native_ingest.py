@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.data import (call_hangup_schema as jax_hangup_schema,
                              generate_call_hangup as jax_generate_hangup)
 from avenir_tpu.native.ingest import parse_csv_native as jax_parse_native

@@ -34,6 +34,7 @@ from avenir_tpu_torch.net.fault import (FaultPolicy, Lease, LeaseStore,
 from avenir_tpu_torch.net.fleet import Fleet, FleetError, affinity_key
 from avenir_tpu_torch.net.listener import EdgePolicy, NetListener
 from avenir_tpu_torch.net.router import AffinityRouter, RouterError
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.runner import run_job as jax_run_job
 from avenir_tpu_torch.runner import run_job
 from avenir_tpu_torch.server import JobRequest, JobServer

@@ -20,6 +20,7 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 import torch_parallel_world as world
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.parallel import distributed as jdist
 from avenir_tpu.parallel import mesh as jmesh
 from avenir_tpu_torch.core import stream as pstream

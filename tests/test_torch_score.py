@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.core import keys as jax_keys
 from avenir_tpu.models.bandits import GroupBanditData as JaxBanditData
 from avenir_tpu.server import score as jax_score

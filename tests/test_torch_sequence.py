@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.models import sequence as jseq
 from avenir_tpu.runner import JobConfig as JaxJobConfig
 from avenir_tpu.runner import run_job as jax_run_job

@@ -26,6 +26,7 @@ import threading
 import numpy as np
 import pytest
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.runner import run_job as jax_run_job
 from avenir_tpu_torch.runner import run_incremental, run_job
 from avenir_tpu_torch.server import (AdmissionError, JobRequest, JobServer,

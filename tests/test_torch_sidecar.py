@@ -20,6 +20,7 @@ import os
 
 import numpy as np
 import pytest
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 
 from avenir_tpu_torch.native import sidecar
 from avenir_tpu_torch.runner import run_job

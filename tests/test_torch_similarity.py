@@ -30,6 +30,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.core.dataset import Dataset as JaxDataset
 from avenir_tpu.core.schema import FeatureSchema as JaxSchema
 from avenir_tpu.models import similarity as jsim

@@ -27,6 +27,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.core import stream as jstream
 from avenir_tpu.core.schema import FeatureSchema as JaxSchema
 from avenir_tpu.runner import JobConfig as JaxJobConfig

@@ -17,6 +17,7 @@ the CPU against the JAX package, on the same seeded corpus:
 import numpy as np
 import pytest
 
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from avenir_tpu.models import text as jtext
 from avenir_tpu.runner import run_job as jax_run_job
 from avenir_tpu_torch import obs

@@ -26,6 +26,7 @@ from contextlib import redirect_stderr, redirect_stdout
 
 import numpy as np
 import pytest
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from test_torch_explore import assert_within_one_unit
 
 from avenir_tpu_torch import tune

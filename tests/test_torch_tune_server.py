@@ -11,6 +11,7 @@ import json
 import os
 
 import pytest
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 
 from avenir_tpu_torch import tune
 from avenir_tpu_torch.server import JobRequest, JobServer

@@ -38,6 +38,7 @@ import json
 import os
 
 import pytest
+import torch_reference_native  # noqa: F401  (settles the reference's native route)
 from torch_tutorial_harness import (RUNNABLE, TUTORIALS, WAITING, _device_slot,
                                     _port_call, fences, port_source,
                                     run_tutorial, written_files)

@@ -260,3 +260,26 @@ def test_trace_inside_a_running_profiler_does_nothing(tmp_path):
 def test_no_compilation_cache_counterpart():
     assert hasattr(jprof, "enable_persistent_compilation_cache")
     assert not hasattr(tprof, "enable_persistent_compilation_cache")
+
+
+def test_counters_match_reference():
+    """`utils/metrics.Counters` takes the reference's increments, sets,
+    updates and defaults to the same values and repr."""
+    from avenir_tpu.utils.metrics import Counters as JaxCounters
+    from avenir_tpu_torch.utils.metrics import Counters
+
+    ops = [("incr", ("Basic:Records",)), ("incr", ("Basic:Records", 41)),
+           ("set", ("Validation:Accuracy", 0.875)),
+           ("incr", ("Validation:TP", 2.5)),
+           ("update", ({"Basic:Records": 7, "Cache:Hits": 3},)),
+           ("incr", ("Cache:Hits", -1))]
+    port, ref = Counters(), JaxCounters()
+    for name, args in ops:
+        getattr(port, name)(*args)
+        getattr(ref, name)(*args)
+    assert port.values == ref.values == {
+        "Basic:Records": 7, "Validation:Accuracy": 0.875,
+        "Validation:TP": 2.5, "Cache:Hits": 2}
+    assert port.get("Missing") == ref.get("Missing") == 0
+    assert port.get("Missing", -1.0) == -1.0
+    assert repr(port) == repr(ref).replace("JaxCounters", "Counters")
