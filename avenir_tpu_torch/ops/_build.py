@@ -58,13 +58,15 @@ _TOPK_ARGS = LIBRARIES["knn_topk"][2]
 _CLASSIFY_ARGS = LIBRARIES["knn_classify"][2]
 #: library -> {further C entry: argtypes}: what a partial instance takes
 #: (blocks per SM, registers, local bytes); the tensor-core form's launch
-#: and info (same arguments as the CUDA-core form's); the merge kernels
+#: and info (same arguments as the CUDA-core form's) and its persistent
+#: schedule's plan (blocks, segments); the merge kernels
 #: alone, their instances' resources, their grid's layout and an empty
 #: kernel on that grid (the launch floor); the tensor-core form's
 #: diagnostic instance with clock64() sections; the ceiling's main-kernel
 #: instance for a D (registers, local bytes, shared bytes, threads, blocks
-#: per SM, tile); the subsequence count's route and each of its kernels'
-#: registers and local bytes; the centre sums' workspace bytes, each of
+#: per SM, tile); the pre-pass's bf16 layout; the subsequence count's
+#: route and each of its kernels' registers and local bytes; the centre
+#: sums' workspace bytes, each of
 #: its two launches alone and the dependent-FADD chain; the Metropolis
 #: walk's step chain on draws held in registers. bind() skips the
 #: ones a library lacks (an earlier version's sources), and calling one
@@ -73,18 +75,21 @@ INFO = {
     "knn_topk": {"knn_topk_partial_info": [_I, _I, _I, _I, _P],
                  "knn_topk_mma_launch": _TOPK_ARGS,
                  "knn_topk_mma_info": [_I, _I, _I, _I, _P],
+                 "knn_topk_mma_plan": [_I, _I, _I, _I, _P],
                  "knn_topk_merge_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
                  "knn_topk_merge_info": [_I, _P],
                  "knn_merge_layout": [_I, _I, _P],
                  "knn_merge_floor_launch": [_I, _I, _P],
-                 "knn_topk_mma_profile": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                          _I, _P, _P, _P, _P]},
+                 "knn_topk_mma_profile": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                          _I, _I, _I, _P, _P, _P, _P]},
     "knn_classify": {"knn_classify_partial_info": [_I, _I, _I, _P],
                      "knn_classify_mma_launch": _CLASSIFY_ARGS,
                      "knn_classify_mma_info": [_I, _I, _I, _P],
+                     "knn_classify_mma_plan": [_I, _I, _I, _I, _P],
                      "knn_classify_merge_launch": [_P, _P, _I, _I, _I, _I, _I,
                                                    _I, _F, _I, _F, _P, _P],
                      "knn_classify_merge_info": [_I, _P]},
+    "knn_prepass": {"knn_prepass_rows16": []},
     "matmul_ceiling": {"matmul_ceiling_info": [_I, _P]},
     "subseq_support": {"subseq_support_route": [_I, _I, _I],
                        "subseq_support_info": [_I, _P]},

@@ -154,15 +154,16 @@ cudaError_t run(bool euclid, const float* q, const float* t, const float* qn,
 
 // The tensor-core form (knn_tile_mma.cuh) of run's partial kernel, for
 // euclidean compute_dtype="bfloat16", then the same merge and vote.
+// splits is the schedule's segments, blocks its blocks (knn::mma_plan).
 template <int K>
-cudaError_t run_mma(const float* q, const float* t, const float* qn,
+cudaError_t run_mma(const void* q, const void* t, const float* qn,
                     const float* tn, const int* labels, int nq, int d,
                     int n_valid, int k, int label_mask, int n_classes,
                     float inv_attrs, int kernel_fn, float kernel_param,
-                    int splits, int rows_per_split, int* part_key,
-                    int* part_idx, float* scores, cudaStream_t stream) {
+                    int splits, int blocks, int* part_key, int* part_idx,
+                    float* scores, cudaStream_t stream) {
   cudaError_t err = knn::launch_partial_mma<K, knn::LABELS>(
-      q, t, qn, tn, labels, nq, d, n_valid, splits, rows_per_split,
+      q, t, qn, tn, labels, nq, d, n_valid, splits, blocks,
       label_mask, knn::SENTINEL, part_key, part_idx, nullptr, stream);
   if (err != cudaSuccess) return err;
   return launch_vote<K>(part_key, part_idx, nq, splits, k, label_mask,
@@ -176,8 +177,8 @@ extern "C" {
 
 // q [nq, d], t [nt, d] fp32 and labels [nt] int32 on the device; rows >=
 // n_valid of t are padding. Euclidean takes the norms qn [nq] and tn
-// [n_valid] of knn_prepass.cu (null for manhattan), and for
-// compute_dtype="bfloat16" its rounded copies as q and t. scores [nq,
+// [n_valid] of knn_prepass.cu (null for manhattan); euclidean
+// compute_dtype="bfloat16" takes knn_classify_mma_launch. scores [nq,
 // n_classes] fp32 is overwritten. kernel_fn: 0 none, 1
 // linearMultiplicative, 2 linearAdditive, 3 gaussian. part_key/part_idx
 // hold splits * nq * carry_width(k) ints each. Returns cudaGetLastError().
@@ -243,15 +244,17 @@ int knn_classify_partial_info(int k, int euclid, int d, int* info) {
 
 // As knn_classify_launch, through the tensor-core form of the partial
 // kernel (knn_tile_mma.cuh) for euclidean compute_dtype="bfloat16": q and
-// t are the pre-pass's rounded copies, qn and tn its norms. euclid must
-// be 1.
-int knn_classify_mma_launch(const float* q, const float* t, const float* qn,
+// t are the pre-pass's bf16 rows ([nq, depth16(d)] and [n_valid,
+// depth16(d)]), qn and tn its norms, labels 16-byte aligned; in place of
+// rows_per_split the persistent schedule's blocks, and splits its
+// segments (knn_classify_mma_plan). euclid must be 1.
+int knn_classify_mma_launch(const void* q, const void* t, const float* qn,
                             const float* tn, const int* labels, int nq, int d,
                             int n_valid, int k, int euclid, int label_bits,
                             int n_classes, float inv_attrs, int kernel_fn,
-                            float kernel_param, int splits,
-                            int rows_per_split, int* part_key, int* part_idx,
-                            float* scores, void* stream) {
+                            float kernel_param, int splits, int blocks,
+                            int* part_key, int* part_idx, float* scores,
+                            void* stream) {
   if (!euclid) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int mask = (1 << label_bits) - 1;
@@ -261,8 +264,7 @@ int knn_classify_mma_launch(const float* q, const float* t, const float* qn,
   case KW:                                                                 \
     err = run_mma<KW>(q, t, qn, tn, labels, nq, d, n_valid, k, mask,       \
                       n_classes, inv_attrs, kernel_fn, kernel_param,       \
-                      splits, rows_per_split, part_key, part_idx, scores,  \
-                      s);                                                  \
+                      splits, blocks, part_key, part_idx, scores, s);      \
     break;
     MMA_RUN(8) MMA_RUN(16) MMA_RUN(32) MMA_RUN(64)
 #undef MMA_RUN
@@ -335,6 +337,18 @@ int knn_classify_merge_info(int k, int* info) {
 #undef MERGE_INFO
   }
   return (int)err;
+}
+
+// out[2] = (blocks, segments) of the tensor-core form's persistent
+// schedule, as knn_topk_mma_plan.
+int knn_classify_mma_plan(int k, int nq, int n_valid, int blocks, int* out) {
+  switch (knn::carry_width(k)) {
+    case 8: return knn::mma_plan<8>(nq, n_valid, blocks, out);
+    case 16: return knn::mma_plan<16>(nq, n_valid, blocks, out);
+    case 32: return knn::mma_plan<32>(nq, n_valid, blocks, out);
+    case 64: return knn::mma_plan<64>(nq, n_valid, blocks, out);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

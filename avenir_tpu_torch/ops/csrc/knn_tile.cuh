@@ -17,11 +17,11 @@
 //
 // Euclidean reads the norms |q|^2 and |t|^2 from the pre-pass
 // (knn_prepass.cu), which takes them from the fp32 values. With
-// compute_dtype="bfloat16" the pre-pass also rounds q and t to bfloat16,
-// nearest even, as the TPU kernels' bf16 cross term does; the wrapper then
-// runs the tensor-core form of this kernel (knn_tile_mma.cuh) on those
-// copies, which reuses the carry, staging and selection below. These
-// fp32 instances run every other call.
+// compute_dtype="bfloat16" the pre-pass also rounds q and t to bfloat16
+// rows, nearest even, as the TPU kernels' bf16 cross term does; the
+// wrapper then runs the tensor-core form of this kernel (knn_tile_mma.cuh)
+// on those rows, which reuses the carry below. These fp32 instances run
+// every other call.
 //
 // What bounds it: instruction issue on the CUDA cores. The work is nq*nt*D
 // fp32 FMAs (euclidean) or D subtract and abs-add pairs (manhattan: two

@@ -25,8 +25,8 @@
 // stages of train rows, and a train-axis split over gridDim.y in whole
 // waves, merged by a second kernel. Euclidean compute_dtype="bfloat16"
 // has entries of its own (knn_topk_mma_launch, knn_topk_mma_info): the
-// tensor-core form of the partial kernel (knn_tile_mma.cuh, mma.sync bf16
-// products with fp32 accumulation), then the same merge.
+// tensor-core form of the partial kernel (knn_tile_mma.cuh, wgmma bf16
+// products fed by TMA, fp32 accumulation), then the same merge.
 //
 // The wrapper (avenir_tpu_torch/ops/knn_kernels.py) allocates every buffer,
 // decodes keys to distances, and finishes sqrt(d/n_attrs) or d/n_attrs.
@@ -138,11 +138,12 @@ cudaError_t run(bool euclid, int mode, const float* q, const float* t,
 
 // The tensor-core form (knn_tile_mma.cuh) of run's partial kernel, for
 // euclidean compute_dtype="bfloat16", then the same merge.
+// splits is the schedule's segments, blocks its blocks (knn::mma_plan).
 template <int K>
-cudaError_t run_mma(int mode, const float* q, const float* t, const float* qn,
+cudaError_t run_mma(int mode, const void* q, const void* t, const float* qn,
                     const float* tn, int nq, int d, int n_valid, int k,
-                    int pack_mask, int splits, int rows_per_split,
-                    int* part_key, int* part_idx, int* out_key, int* out_idx,
+                    int pack_mask, int splits, int blocks, int* part_key,
+                    int* part_idx, int* out_key, int* out_idx,
                     cudaStream_t stream) {
   const int empty = empty_key(mode);
   cudaError_t err;
@@ -150,7 +151,7 @@ cudaError_t run_mma(int mode, const float* q, const float* t, const float* qn,
 #define MMA_MODE(M)                                                        \
   case M:                                                                  \
     err = knn::launch_partial_mma<K, M>(q, t, qn, tn, nullptr, nq, d,      \
-                                        n_valid, splits, rows_per_split,   \
+                                        n_valid, splits, blocks,           \
                                         M == knn::EXACT ? 0 : pack_mask,   \
                                         empty, part_key, part_idx,         \
                                         nullptr, stream);                  \
@@ -172,7 +173,7 @@ extern "C" {
 // q [nq, d] and t [nt, d] fp32 row-major on the device; rows >= n_valid of t
 // are padding and never read. Euclidean takes the norms qn [nq] and tn
 // [n_valid] of knn_prepass.cu (null for manhattan), and for
-// compute_dtype="bfloat16" its rounded copies as q and t. mode (knn::Mode)
+// compute_dtype="bfloat16" the tensor-core entry below. mode (knn::Mode)
 // 0 exact: out_key = bits of the raw distance (squared for euclidean);
 // 1 lanes, 3 packed: out_key = the packed key, with pack_bits low bits
 // masked. out_idx is the train row, -1 for an empty slot.
@@ -235,11 +236,14 @@ int knn_topk_partial_info(int k, int euclid, int mode, int d, int* info) {
 
 // As knn_topk_launch, through the tensor-core form of the partial kernel
 // (knn_tile_mma.cuh) for euclidean compute_dtype="bfloat16": q and t are
-// the pre-pass's rounded copies, qn and tn its norms. euclid must be 1.
-int knn_topk_mma_launch(const float* q, const float* t, const float* qn,
+// the pre-pass's bf16 rows ([nq, depth16(d)] and [n_valid, depth16(d)]),
+// qn and tn its norms; in place of rows_per_split the persistent
+// schedule's blocks, and splits its segments (knn_topk_mma_plan; a launch
+// whose splits differ is refused). euclid must be 1.
+int knn_topk_mma_launch(const void* q, const void* t, const float* qn,
                         const float* tn, int nq, int d, int n_valid, int k,
                         int euclid, int mode, int pack_bits, int splits,
-                        int rows_per_split, int* part_key, int* part_idx,
+                        int blocks, int* part_key, int* part_idx,
                         int* out_key, int* out_idx, void* stream) {
   if (!euclid) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -249,7 +253,7 @@ int knn_topk_mma_launch(const float* q, const float* t, const float* qn,
 #define MMA_RUN(KW)                                                        \
   case KW:                                                                 \
     err = run_mma<KW>(mode, q, t, qn, tn, nq, d, n_valid, k, pack_mask,    \
-                      splits, rows_per_split, part_key, part_idx, out_key, \
+                      splits, blocks, part_key, part_idx, out_key,         \
                       out_idx, s);                                         \
     break;
     MMA_RUN(8) MMA_RUN(16) MMA_RUN(32) MMA_RUN(64)
@@ -342,21 +346,47 @@ int knn_merge_floor_launch(int nq, int splits, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// The diagnostic instance: the tensor-core partial kernel at K=8, mode
-// LANES, with clock64() sections (knn::SECTIONS). Launches the partial
-// kernel alone on knn_topk_mma_launch's arguments; adds each warp's
-// cycles a section to sections[knn::SECTIONS] (zeroed by the caller).
-int knn_topk_mma_profile(const float* q, const float* t, const float* qn,
-                         const float* tn, int nq, int d, int n_valid,
-                         int pack_bits, int splits, int rows_per_split,
-                         int* part_key, int* part_idx,
+// The diagnostic instance: the tensor-core partial kernel at K=8 in mode
+// `mode` (knn::Mode; labels [n_valid] for LABELS, else null), with
+// clock64() sections (knn::SECTIONS). Launches the partial kernel alone on
+// knn_topk_mma_launch's arguments; adds each warp's cycles a section to
+// sections[knn::SECTIONS] (zeroed by the caller).
+int knn_topk_mma_profile(const void* q, const void* t, const float* qn,
+                         const float* tn, const int* labels, int nq, int d,
+                         int n_valid, int mode, int pack_bits, int splits,
+                         int blocks, int* part_key, int* part_idx,
                          unsigned long long* sections, void* stream) {
-  cudaError_t err = knn::launch_partial_mma<8, knn::LANES, true>(
-      q, t, qn, tn, nullptr, nq, d, n_valid, splits, rows_per_split,
-      (1 << pack_bits) - 1, knn::SENTINEL, part_key, part_idx, sections,
-      (cudaStream_t)stream);
+  const int mask = mode == knn::EXACT ? 0 : (1 << pack_bits) - 1;
+  const int empty = mode == knn::LABELS ? knn::SENTINEL : empty_key(mode);
+  cudaError_t err;
+  switch (mode) {
+#define MMA_PROFILE(M)                                                     \
+  case M:                                                                  \
+    err = knn::launch_partial_mma<8, M, true>(                             \
+        q, t, qn, tn, labels, nq, d, n_valid, splits, blocks, mask, empty, \
+        part_key, part_idx, sections, (cudaStream_t)stream);               \
+    break;
+    MMA_PROFILE(knn::EXACT) MMA_PROFILE(knn::LANES) MMA_PROFILE(knn::PACKED)
+    MMA_PROFILE(knn::LABELS)
+#undef MMA_PROFILE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// out[2] = (blocks, segments) of the tensor-core form's persistent
+// schedule for k, nq queries and n_valid train rows on `blocks` blocks
+// (knn::mma_plan): the blocks it launches and the splits its lists take.
+int knn_topk_mma_plan(int k, int nq, int n_valid, int blocks, int* out) {
+  switch (knn::carry_width(k)) {
+    case 8: return knn::mma_plan<8>(nq, n_valid, blocks, out);
+    case 16: return knn::mma_plan<16>(nq, n_valid, blocks, out);
+    case 32: return knn::mma_plan<32>(nq, n_valid, blocks, out);
+    case 64: return knn::mma_plan<64>(nq, n_valid, blocks, out);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for a bf16 product on wgmma fed by TMA:
-// the host-side tensor-map encode (128-byte swizzle), mbarrier init, arrive
-// and wait, the TMA tile load, warpgroup register reallocation, and the
-// wgmma shared-memory descriptor, fence, commit, wait and the m64n128k16
-// bf16 instruction with fp32 accumulators. Used by matmul_ceiling.cu.
+// the host-side tensor-map encodes (128- and 32-byte swizzles, and a plain
+// 1-D map of 4-byte words), mbarrier init, arrive and wait, the TMA tile
+// loads, warpgroup register reallocation, and the wgmma shared-memory
+// descriptors, fence, commit, wait and the m64n128k16 and m64n64k16 bf16
+// instructions with fp32 accumulators. Used by matmul_ceiling.cu,
+// centre_sums.cu and the tensor-core KNN partial (knn_tile_mma.cuh).
 //
 // Layout contract (K-major, 128-byte swizzle): a tile is stored as chunks
 // of 64 bf16 features (128 bytes a row), each chunk a TMA box of `rows`
@@ -11,6 +13,11 @@
 // features starts at the chunk's row-0 address of those rows plus 32
 // bytes per 16 features into the chunk; its descriptor carries the
 // 1024-byte stride between 8-row groups.
+//
+// The 32-byte swizzle (encode_bf16_chunks16, desc_sw32) is the same
+// contract with chunks of 16 features (32 bytes a row, one k-step): 8 rows
+// make a 256-byte atom, and the descriptor carries the 256-byte stride
+// between 8-row groups.
 #pragma once
 
 #include <cuda.h>
@@ -61,6 +68,40 @@ inline bool encode_bf16_rows(CUtensorMap* map, const void* base, uint64_t rows,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// map of a row-major bf16 [rows, cols] tensor (cols a multiple of 16) in
+// boxes of box_rows x 16, 32-byte swizzled; rows past `rows` read as zeros.
+// Returns false if the encode refuses it.
+inline bool encode_bf16_chunks16(CUtensorMap* map, const void* base,
+                                 uint64_t rows, uint64_t cols,
+                                 uint32_t box_rows) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {16, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// 1-D map of n 4-byte words (fp32 or int32) in boxes of `box` words;
+// words past n read as zeros. Returns false if the encode refuses it.
+inline bool encode_words(CUtensorMap* map, const void* base, uint64_t n,
+                         uint32_t box, CUtensorMapDataType type) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (!fn) return false;
+  const cuuint64_t dims[1] = {n};
+  const cuuint64_t strides[1] = {n * 4};    // unread for a rank-1 map
+  const cuuint32_t boxes[1] = {box};
+  const cuuint32_t elem[1] = {1};
+  return fn(map, type, 1, const_cast<void*>(base), dims, strides, boxes,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -129,6 +170,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// TMA: the box at word c0 of the 1-D `map` into shared `dst`
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0)
+      : "memory");
+}
+
 template <uint32_t REGS>
 __device__ __forceinline__ void regs_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
@@ -146,6 +197,14 @@ __device__ __forceinline__ void regs_inc() {
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// descriptor of a K-major, 32-byte-swizzled operand at shared `addr` (a
+// chunk of 16 features, one k-step): stride 256 bytes between 8-row
+// groups, layout 3 (32-byte swizzle)
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -205,6 +264,29 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// As wgmma_m64n128k16 for b of 64 rows: d is 64 x 64 fp32, 32 a thread,
+// rows and columns laid out alike (columns 8i + 2(l%4) and + 1, i < 8).
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

@@ -13,8 +13,9 @@ A wrapper given CPU tensors computes its plain PyTorch version; given CUDA
 tensors it launches its kernel or raises — there is no fallback. Each
 wrapper counts its kernel launches in its `launches` attribute. Euclidean
 calls first launch `knn_prepass` (`csrc/knn_prepass.cu`, counted on its
-own): row norms and, for bfloat16, rounded operand copies, which the four
-kernels take inside each tile on the TPU (`pallas_knn.py:54-70`).
+own): row norms and, for bfloat16, the operands rounded to bf16 rows
+zero-padded to a multiple of 16 features, which the four kernels take
+inside each tile on the TPU (`pallas_knn.py:54-70`).
 
 All four select on an int32 key built from a non-negative fp32 distance
 d (squared for euclidean): the exact kernel on bits(d), the packed kernel
@@ -39,10 +40,10 @@ ignores the dtype. That is the TPU kernels' bf16 dot_general with fp32
 accumulation. On the card the partial kernel has two forms: every call
 but one runs the CUDA-core form (`csrc/knn_tile.cuh`, fp32 fmaf chains),
 and euclidean bfloat16 runs the tensor-core form (`csrc/knn_tile_mma.cuh`,
-`mma.sync` bf16 products with fp32 accumulation) on the pre-pass's rounded
-copies, counted on `knn_partial_mma`. Its keys are not bit-equal to the
-plain version's (the fp32 sums run in another order); the CUDA-core
-form's are.
+`wgmma` bf16 products fed by TMA, fp32 accumulators, the keys and the
+selection in registers) on the pre-pass's bf16 rows, counted on
+`knn_partial_mma`. Its keys are not bit-equal to the plain version's (the
+fp32 sums run in another order); the CUDA-core form's are.
 """
 
 from __future__ import annotations
@@ -104,29 +105,69 @@ def _smem_bytes(d: int, k: int) -> int:
     return _stage_plan(d, k)[2]
 
 
-#: knn_tile_mma.cuh: bf16 halves of padding a row, floats a row of a v
-#: tile, fp32 bytes of train rows a stage holds
-MMA_PAD, V_STRIDE, MMA_STAGE_BYTES = 8, TT + 4, 8192
+#: knn_tile_mma.cuh: queries a block (two consumer warpgroups of 64),
+#: bytes of a stage's norms and labels, most stages of the ring
+MMA_BQ, MMA_AUX, MMA_MAX_STAGES = 128, 1024, 8
 
 
 def _depth16(d: int) -> int:
-    """D rounded up to the mma's k-step of 16 (knn_tile_mma.cuh depth16):
-    the tensor-core form multiplies zeros past D."""
+    """D rounded up to the wgmma's k-step of 16 (knn_tile_mma.cuh
+    depth16): the pre-pass's bf16 rows are zero past D, and the
+    tensor-core form multiplies the zeros."""
     return -(-d // 16) * 16
+
+
+def _mma_bn(k: int) -> int:
+    """Train rows a stage of the tensor-core form at carry width k (the
+    wgmma's N; knn_tile_mma.cuh mma_bn)."""
+    return 64 if _carry_width(k) >= 32 else 128
+
+
+def _mma_smem(d: int, k: int, stages: int) -> int:
+    """Shared-memory bytes of a block of the tensor-core form
+    (knn_tile_mma.cuh mma_smem): 1024 to align, the queries as bf16 rows
+    at depth16(d), `stages` stages of BN rows and MMA_AUX bytes, and
+    2 * stages + 2 mbarriers."""
+    row = 2 * _depth16(d)
+    return (1024 + row * MMA_BQ + stages * (row * _mma_bn(k) + MMA_AUX)
+            + (2 * stages + 2) * 8)
 
 
 def _mma_stage_plan(d: int, k: int) -> Tuple[int, int, int]:
     """(rows a stage, stages, dynamic shared-memory bytes) of a block of
-    the tensor-core form (knn_tile_mma.cuh mma_stage_plan): two v tiles,
-    the queries and one stage's rows packed to bf16 at depth16(d) + 8
-    halves, and a ring of fp32 stages of whole 32-row tiles filling
-    MMA_STAGE_BYTES, two stages where they fit, else one."""
-    lda = 2 * (_depth16(d) + MMA_PAD)
-    row = 16 * _row_stride4(d) + 8
-    rows = max(1, MMA_STAGE_BYTES // (row * TT)) * TT
-    fixed = (2 * 4 * V_STRIDE + lda) * _block_queries(k) + rows * lda
-    stages = 2 if fixed + 2 * rows * row <= SMEM_LIMIT else 1
-    return rows, stages, fixed + stages * rows * row
+    the tensor-core form (knn_tile_mma.cuh mma_stage_plan): the most
+    stages, up to MMA_MAX_STAGES, that fit SMEM_LIMIT beside the block's
+    queries (0 where none does)."""
+    stages = MMA_MAX_STAGES
+    while stages > 0 and _mma_smem(d, k, stages) > SMEM_LIMIT:
+        stages -= 1
+    return _mma_bn(k), stages, _mma_smem(d, k, stages)
+
+
+def mma_schedule(nq: int, n_valid: int, k: int, blocks: int
+                 ) -> Tuple[int, int]:
+    """(blocks, segments) of the tensor-core form's persistent schedule
+    (knn_tile_mma.cuh MmaSchedule, mma_segments): the (query tile of
+    MMA_BQ, train tile of BN) pairs, query-tile major, cut into min(blocks,
+    pairs) contiguous ranges, block b taking [b * pairs // blocks, (b + 1)
+    * pairs // blocks); segments, the most blocks that meet one query
+    tile, is the count of split lists a query takes."""
+    bn = _mma_bn(k)
+    tiles = -(-n_valid // bn) if n_valid > 0 else 1
+    q_tiles = -(-nq // MMA_BQ)
+    pairs = q_tiles * tiles
+    blocks = min(blocks, pairs)
+
+    def block_of(p):            # the block whose range holds pair p
+        b = p * blocks // pairs
+        while b > 0 and b * pairs // blocks > p:
+            b -= 1
+        while (b + 1) * pairs // blocks <= p:
+            b += 1
+        return b
+    segments = max(block_of((qt + 1) * tiles - 1) - block_of(qt * tiles) + 1
+                   for qt in range(q_tiles))
+    return blocks, segments
 
 
 #: queries of the widest block (k <= 8)
@@ -299,18 +340,26 @@ def _fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.where(pick_other, other, r)
 
 
+def bf16_rows(x: torch.Tensor) -> torch.Tensor:
+    """x [n, d] float32 rounded to bfloat16 (nearest even) as [n,
+    depth16(d)] bfloat16 rows, zero past d: the tensor-core form's
+    operand layout."""
+    pad = _depth16(x.shape[1]) - x.shape[1]
+    return torch.nn.functional.pad(x.to(torch.bfloat16), (0, pad))
+
+
 def knn_prepass_plain(q: torch.Tensor, t: torch.Tensor, bf16: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  torch.Tensor]:
     """The plain version of knn_prepass: the same fmaf chains, bit for
-    bit, and _round_bf16."""
+    bit, of the float32 values, and with bf16 their bf16_rows."""
     out = []
     for x in (q, t):
         s = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
         for f in range(x.shape[1]):
             s = _fmaf(x[:, f], x[:, f], s)
         out.append(s)
-    return (*out, *((_round_bf16(q), _round_bf16(t)) if bf16 else (q, t)))
+    return (*out, *((bf16_rows(q), bf16_rows(t)) if bf16 else (q, t)))
 
 
 def _cross(q: torch.Tensor, tb: torch.Tensor, bf16: bool) -> torch.Tensor:
@@ -587,13 +636,29 @@ def _grid(q: torch.Tensor, k: int, euclid: bool, mode: str, n_valid: int,
     """(SMs, blocks per SM, splits, rows_per_split) of a CUDA launch of
     `mode` over n_valid train rows: the instance's occupancy and stage
     rows on q's device (the current one), then the whole-wave split of
-    _splits."""
+    _splits. The tensor-core form (`bf16`) gives (SMs, blocks per SM,
+    segments, blocks) of its persistent schedule (mma_schedule), which its
+    launch takes in place of (splits, rows_per_split)."""
     nq, d = q.shape
     sms = _sm_count(q.device)
     info = partial_info(k, euclid, mode, d, lib, bf16)
+    if _mma(euclid, bf16) and _persistent(lib, mode):
+        blocks, segments = mma_schedule(nq, n_valid, k, sms * info[0])
+        return sms, info[0], segments, blocks
+    # an earlier tensor-core form split the train axis as the CUDA-core
+    # form does, in blocks of MMA_BQ queries
     splits, rows = _splits(nq, n_valid, sms, info[0], info[3],
-                           _block_queries(k))
+                           MMA_BQ if _mma(euclid, bf16) else _block_queries(k))
     return sms, info[0], splits, rows
+
+
+def _persistent(lib, mode: str) -> bool:
+    """Whether the tensor-core form of `lib` (this checkout's when None)
+    runs the persistent schedule, whose launch takes (segments, blocks)
+    where an earlier form took (splits, rows_per_split): this checkout's
+    library has the schedule's plan entry."""
+    name = "knn_classify" if mode == "labels" else "knn_topk"
+    return lib is None or hasattr(lib, f"{name}_mma_plan")
 
 
 def merge_info(k: int, vote: bool = False, lib=None) -> Tuple[int, int, int]:
@@ -630,29 +695,41 @@ def launch_plan(q: torch.Tensor, t: torch.Tensor, k: int, metric: str,
                 mode: str, n_valid: Optional[int] = None,
                 compute_dtype: str = "float32") -> dict:
     """The grid a CUDA launch of `mode` ("exact", "lanes", "packed" or
-    "labels") takes on these tensors: blocks per SM, splits,
-    rows_per_split, grid blocks and waves."""
+    "labels") takes on these tensors: blocks per SM, splits (the split
+    lists a query takes), rows_per_split (None for the tensor-core form,
+    whose persistent blocks take ranges of (query tile, train tile)
+    pairs), grid blocks and waves."""
     nv = _check(q, t, k, metric, n_valid)
-    bf16 = _bf16(compute_dtype, metric)
+    mma = _mma(metric == "euclidean", _bf16(compute_dtype, metric))
     with torch.cuda.device(q.device):
         sms, per_sm, splits, rows = _grid(q, k, metric == "euclidean", mode,
-                                          nv, bf16=bf16)
+                                          nv, bf16=mma)
+    if mma:
+        return {"blocks_per_sm": per_sm, "splits": splits,
+                "rows_per_split": None, "grid": rows,
+                "waves": rows / max(1, sms * per_sm)}
     bq = _block_queries(k)
     return {"blocks_per_sm": per_sm, "splits": splits, "rows_per_split": rows,
             "grid": (q.shape[0] + bq - 1) // bq * splits,
             "waves": _waves(q.shape[0], splits, sms, per_sm, bq)}
 
 
-def _operands(q, t, euclid: bool, bf16: bool, n_valid: int):
+def _operands(q, t, euclid: bool, bf16: bool, n_valid: int,
+              mma: bool = True):
     """(q, t, qn, tn) as the partial kernel takes them: euclidean runs the
     pre-pass over q and the first n_valid rows of t for their norms and,
-    with bf16, their rounded copies; manhattan takes q and t as they are
-    and no norms."""
+    with bf16, their bf16 rows for the tensor-core form; manhattan takes q
+    and t as they are and no norms. With bf16 and not mma (the CUDA-core
+    form on bfloat16 operands, which no wrapper call takes: a cross-check
+    of the two forms) the operands are the fp32 values of the bf16 rows."""
     if t.data_ptr() % 16:              # the kernel copies rows in 16-byte pieces
         t = t.clone()
     if not euclid:
         return q, t, None, None
     qn, tn, qx, tx = knn_prepass(q, t[:n_valid], bf16)
+    if bf16 and not mma:
+        d = q.shape[1]
+        qx, tx = (x[:, :d].float().contiguous() for x in (qx, tx))
     return qx, tx, qn, tn
 
 
@@ -671,11 +748,13 @@ def _launch(lib, name: str, mma: bool, what: str, *args) -> None:
 
 def knn_partial_mma(entry, *args) -> None:
     """One launch of the tensor-core form of the partial kernel
-    (`csrc/knn_tile_mma.cuh`, euclidean bfloat16) and its merge, through
-    `entry`, a built library's `knn_topk_mma_launch` or
-    `knn_classify_mma_launch`, with the arguments of the CUDA-core
-    entry; counted in `launches`. There is no other route for these
-    calls: a failed launch raises."""
+    (`csrc/knn_tile_mma.cuh`, euclidean bfloat16: wgmma fed by TMA) and
+    its merge, through `entry`, a built library's `knn_topk_mma_launch`
+    or `knn_classify_mma_launch`, with the arguments of the CUDA-core
+    entry (q and t the pre-pass's bf16 rows); counted in `launches`.
+    There is no other route for these calls: a missing
+    cuTensorMapEncodeTiled, a refused encode or a refused launch
+    raises."""
     _raise_on(entry(*args), entry.__name__)
     knn_partial_mma.launches += 1
 
@@ -689,7 +768,7 @@ def _topk_keys(mode, q, t, k, euclid, bf16, n_valid, lib=None,
     nq, d = q.shape
     bits = _key_spec(mode, t)[0]
     mma = _mma(euclid, bf16) if mma is None else mma
-    qx, tx, qn, tn = operands or _operands(q, t, euclid, bf16, n_valid)
+    qx, tx, qn, tn = operands or _operands(q, t, euclid, bf16, n_valid, mma)
     _, _, splits, rows = _grid(q, k, euclid, mode, n_valid, lib, mma)
     part_k, part_i = _partial_buffers(q, k, splits)
     out_k = torch.empty((nq, k), dtype=torch.int32, device=q.device)
@@ -711,7 +790,9 @@ def _classify_scores(q, t, t_labels, k, euclid, bf16, n_classes, n_attrs,
     `mma`); buffers on q's device."""
     nq, d = q.shape
     mma = _mma(euclid, bf16) if mma is None else mma
-    qx, tx, qn, tn = operands or _operands(q, t, euclid, bf16, n_valid)
+    qx, tx, qn, tn = operands or _operands(q, t, euclid, bf16, n_valid, mma)
+    if mma and t_labels.data_ptr() % 16:   # TMA copies 16-byte-aligned words
+        t_labels = t_labels.clone()
     _, _, splits, rows = _grid(q, k, euclid, "labels", n_valid, lib, mma)
     part_k, part_i = _partial_buffers(q, k, splits)
     scores = torch.empty((nq, n_classes), dtype=torch.float32, device=q.device)
@@ -747,29 +828,32 @@ def _topk(wrapper, mode, q, t, k, metric, n_valid, n_attrs, compute_dtype
 
 #: clock64() sections of the tensor-core form's diagnostic instance
 #: (knn_tile_mma.cuh SECTIONS), in its order
-MMA_SECTIONS = ("stage wait", "bf16 pack", "mma", "key epilogue",
+MMA_SECTIONS = ("stage wait", "query load", "wgmma", "key epilogue",
                 "selection and insert", "lane merge")
 
 
-def mma_sections(q: torch.Tensor, t: torch.Tensor) -> dict:
+def mma_sections(q: torch.Tensor, t: torch.Tensor, mode: str = "lanes",
+                 labels: Optional[torch.Tensor] = None) -> dict:
     """{section: share of the warps' cycles} of one launch of the
-    tensor-core partial kernel's diagnostic instance (K=8, lane keys,
-    clock64() around each of MMA_SECTIONS) on CUDA tensors q and t, after
-    the bfloat16 pre-pass (counted as any). A measurement only: the
+    tensor-core partial kernel's diagnostic instance (K=8, the keys of
+    `mode`, clock64() around each of MMA_SECTIONS) on CUDA tensors q and
+    t (and int32 `labels` [nt] for "labels", 2 classes), after the
+    bfloat16 pre-pass (counted as any). A measurement only: the
     diagnostic launch is not counted and its lists are dropped."""
     nq, d = q.shape
     nt = t.shape[0]
+    bits = label_bits(2) if mode == "labels" else _key_spec(mode, t)[0]
     with torch.cuda.device(q.device):
         qx, tx, qn, tn = _operands(q, t, True, True, nt)
-        _, _, splits, rows = _grid(q, 8, True, "lanes", nt, bf16=True)
+        _, _, splits, rows = _grid(q, 8, True, mode, nt, bf16=True)
         part_k, part_i = _partial_buffers(q, 8, splits)
         cycles = torch.zeros(len(MMA_SECTIONS), dtype=torch.int64,
                              device=q.device)
         _raise_on(_build.load("knn_topk").knn_topk_mma_profile(
-            qx.data_ptr(), tx.data_ptr(), qn.data_ptr(), tn.data_ptr(), nq, d,
-            nt, _check_lanes(t), splits, rows, part_k.data_ptr(),
-            part_i.data_ptr(), cycles.data_ptr(), _stream(q.device)),
-            "knn_topk_mma_profile")
+            qx.data_ptr(), tx.data_ptr(), qn.data_ptr(), tn.data_ptr(),
+            _ptr(labels), nq, d, nt, MODES[mode], bits, splits, rows,
+            part_k.data_ptr(), part_i.data_ptr(), cycles.data_ptr(),
+            _stream(q.device)), "knn_topk_mma_profile")
         total = cycles.sum().item()
     return {name: c / max(total, 1)
             for name, c in zip(MMA_SECTIONS, cycles.tolist())}
@@ -780,11 +864,12 @@ def knn_prepass(q: torch.Tensor, t: torch.Tensor, bf16: bool = False
                            torch.Tensor]:
     """(|q|^2 [nq], |t|^2 [nt], q', t') of the euclidean kernels: each
     norm an fmaf chain over the features in order from 0.0, of the fp32
-    values; q', t' the operands rounded to bfloat16 (nearest even, kept
-    as float32) when bf16, else q and t themselves. Part of the port of
-    the euclidean Pallas kernels (pallas_knn.py:54-70), which take the
-    norms and round the operands inside each tile; one launch of
-    knn_prepass.cu over both, or the plain version for CPU tensors."""
+    values; q', t' the operands' bf16_rows (bfloat16 [n, depth16(D)],
+    nearest even, zero past D) when bf16, else q and t themselves. Part
+    of the port of the euclidean Pallas kernels (pallas_knn.py:54-70),
+    which take the norms and round the operands inside each tile; one
+    launch of knn_prepass.cu over both, or the plain version for CPU
+    tensors."""
     if not q.is_cuda:
         return knn_prepass_plain(q, t, bf16)
     if q.dtype != torch.float32 or t.dtype != torch.float32:
@@ -795,8 +880,11 @@ def knn_prepass(q: torch.Tensor, t: torch.Tensor, bf16: bool = False
     (nq, d), nt = q.shape, t.shape[0]
     qn = torch.empty(nq, dtype=torch.float32, device=q.device)
     tn = torch.empty(nt, dtype=torch.float32, device=q.device)
-    qx = torch.empty_like(q) if bf16 else q
-    tx = torch.empty_like(t) if bf16 else t
+    dp = _depth16(d)
+    qx = torch.empty((nq, dp), dtype=torch.bfloat16, device=q.device) \
+        if bf16 else q
+    tx = torch.empty((nt, dp), dtype=torch.bfloat16, device=q.device) \
+        if bf16 else t
     with torch.cuda.device(q.device):
         _raise_on(_build.load("knn_prepass").knn_prepass_launch(
             q.data_ptr(), nq, t.data_ptr(), nt, d, int(bf16), qn.data_ptr(),

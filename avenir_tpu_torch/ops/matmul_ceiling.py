@@ -174,6 +174,15 @@ def matmul_ceiling(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     16 up to MAX_D."""
     if not q.is_cuda:
         return matmul_ceiling_plain(q, t)
+    out = launch(q, t, _build.load("matmul_ceiling"))
+    matmul_ceiling.launches += 1
+    return out
+
+
+def launch(q: torch.Tensor, t: torch.Tensor, lib) -> torch.Tensor:
+    """One launch of `lib`'s matmul_ceiling_launch (this checkout's
+    library, or another build with its interface) on CUDA tensors q and t,
+    on the plan of `plan`; out [nq, 1]. Raises on a CUDA error."""
     _check(q, t)
     (nq, d), nt = q.shape, t.shape[0]
     with torch.cuda.device(q.device):
@@ -184,13 +193,12 @@ def matmul_ceiling(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         partial = torch.empty(p["partial"], dtype=torch.float32,
                               device=q.device)
         out = torch.empty((nq, 1), dtype=torch.float32, device=q.device)
-        err = _build.load("matmul_ceiling").matmul_ceiling_launch(
+        err = lib.matmul_ceiling_launch(
             q.data_ptr(), t.data_ptr(), nq, nt, d, qb.data_ptr(),
             tb.data_ptr(), p["blocks"], p["max_segs"], partial.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"matmul_ceiling launch failed: CUDA error {err}")
-    matmul_ceiling.launches += 1
     return out
 
 

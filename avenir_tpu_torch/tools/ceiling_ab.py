@@ -2,13 +2,15 @@
 
     python -m avenir_tpu_torch.tools.ceiling_ab --parent DIR [--reps N]
 
-DIR holds an earlier `matmul_ceiling.cu` and `mma_bf16.cuh` with the C
-interface of the bf16 `mma.sync` ceiling (9 arguments: q, t, nq, nt, d,
+DIR holds an earlier `matmul_ceiling.cu` and the headers it includes,
+written out into a git-ignored directory: either the bf16 `mma.sync`
+ceiling with its own C interface (9 arguments: q, t, nq, nt, d,
 rows_per_split, partial, out, stream; 4096 train rows a split), for
-example 637fd96's, written out with `git show` into a git-ignored
-directory. It builds with the same nvcc flags (`ops/_build.py`) into a
-build directory of its own; this checkout's ceiling builds as the wrapper
-builds it.
+example 637fd96's, or a `wgmma` ceiling with this checkout's interface
+(it has `matmul_ceiling_info`), whose output must then also equal this
+checkout's bit for bit. It builds with the same nvcc flags
+(`ops/_build.py`) into a build directory of its own; this checkout's
+ceiling builds as the wrapper builds it.
 
 The inputs are `chip_smoke.py` phase 7's: q [8192, 128] and t [131072,
 128] float32, normal, from numpy's generator seeded 3. Each version's rows
@@ -23,8 +25,8 @@ For each version it prints the main kernel's registers, stack and local
 bytes (`cuobjdump -res-usage`), ptxas's spill bytes over the library, and
 the library's SASS counts of HGMMA (wgmma), HMMA (mma.sync) and UTMALDG
 (TMA loads) (`cuobjdump -sass`). Prints the card's name and power limit
-first and one JSON line last; exits 1 if a row is out of tolerance or a
-rerun differs. Needs a CUDA device.
+first and one JSON line last; exits 1 if a row is out of tolerance, a
+rerun differs or a wgmma parent's output differs. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -54,7 +56,8 @@ PARENT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                ctypes.c_void_p]
 PARENT_ROWS_PER_SPLIT = 4096
-#: mangled-name part of each version's D=128 main-kernel instance
+#: mangled-name part of each version's D=128 main-kernel instance (a
+#: wgmma parent's is the current one's)
 MAIN_KERNEL = {"earlier": "ceiling_partial_kernelILi8E",
                "current": "ceiling_wgmma_kernelILi2E"}
 OPCODES = ("HGMMA", "HMMA", "UTMALDG")
@@ -93,18 +96,27 @@ def ptxas_spills(log: str) -> Dict[str, int]:
 
 
 def load_parent(parent: Path) -> ctypes.CDLL:
-    """The earlier library built from `parent`'s sources, bound with its
-    own 9-argument interface."""
+    """The earlier library built from `parent`'s sources, bound with this
+    checkout's interface if it is a wgmma build (it has
+    matmul_ceiling_info), else with its own 9-argument interface."""
     _build.build_all(csrc=parent, names=("matmul_ceiling",))
     lib = ctypes.CDLL(str(_build.build_dir(parent) / "libmatmul_ceiling.so"))
+    if wgmma_build(lib):
+        return _build.bind(lib, "matmul_ceiling")
     lib.matmul_ceiling_launch.argtypes = PARENT_ARGS
     lib.matmul_ceiling_launch.restype = ctypes.c_int
     return lib
 
 
+def wgmma_build(lib) -> bool:
+    return hasattr(lib, "matmul_ceiling_info")
+
+
 def parent_call(lib, q: torch.Tensor, t: torch.Tensor
                 ) -> Callable[[], torch.Tensor]:
     """A call of the earlier kernel on q and t, out [nq, 1]."""
+    if wgmma_build(lib):
+        return lambda: mc.launch(q, t, lib)
     (nq, d), nt = q.shape, t.shape[0]
     splits = -(-nt // PARENT_ROWS_PER_SPLIT)
 
@@ -122,11 +134,11 @@ def parent_call(lib, q: torch.Tensor, t: torch.Tensor
     return run
 
 
-def version_lines(name: str, build: Path) -> dict:
+def version_lines(kernel: str, build: Path) -> dict:
     """The version's main-kernel resources, spills and SASS counts."""
     lib = build / "libmatmul_ceiling.so"
     log = build / "matmul_ceiling.log"
-    usage = res_usage(_cuobjdump("-res-usage", lib), MAIN_KERNEL[name])
+    usage = res_usage(_cuobjdump("-res-usage", lib), kernel)
     spills = sum(ptxas_spills(log.read_text()).values()) \
         if log.exists() else None
     return {"registers": usage and usage[0], "stack": usage and usage[1],
@@ -143,9 +155,12 @@ def run(parent: Path, reps: int = 20, out=print) -> List[dict]:
     _build.load("matmul_ceiling")
     out(card())
     rows = []
-    for name, build in (("earlier", _build.build_dir(parent)),
-                        ("current", _build.build_dir())):
-        row = {"version": name, **version_lines(name, build)}
+    same_interface = wgmma_build(earlier)
+    for name, build, kernel in (
+            ("earlier", _build.build_dir(parent),
+             MAIN_KERNEL["current" if same_interface else "earlier"]),
+            ("current", _build.build_dir(), MAIN_KERNEL["current"])):
+        row = {"version": name, **version_lines(kernel, build)}
         rows.append(row)
         out(f"{name} D=128 main kernel: {row['registers']} registers, stack "
             f"{row['stack']} B, local {row['local']} B; library spills "
@@ -158,15 +173,21 @@ def run(parent: Path, reps: int = 20, out=print) -> List[dict]:
              "current": lambda: mc.matmul_ceiling(q, t)}
     ref = mc.matmul_ceiling_plain(q, t)
     tol = 2.0 ** -16 * mc.row_abs_sums_plain(q, t)
+    outs = {}
     for row in rows:
         fn = calls[row["version"]]
         got = fn().clone()
         again = fn()
         torch.cuda.synchronize()
         err = (got - ref).abs()
+        outs[row["version"]] = got
         row.update(within=bool((err <= tol).all()),
                    rerun_equal=torch.equal(got, again),
                    max_err_over_tol=(err / tol).max().item())
+    # a wgmma parent computes the same function the same way: bit for bit
+    rows[1]["equal_to_earlier"] = (torch.equal(outs["earlier"],
+                                               outs["current"])
+                                   if same_interface else None)
     p1, n1, n2, p2 = (cuda_ms(calls[v], reps) for v in
                       ("earlier", "current", "current", "earlier"))
     flops = 2.0 * NQ * NT * D
@@ -181,7 +202,9 @@ def run(parent: Path, reps: int = 20, out=print) -> List[dict]:
             f"2^-16 sum|q.t| {row['within']} (at most "
             f"{row['max_err_over_tol']:.3g} of it), rerun bit-equal "
             f"{row['rerun_equal']}")
-    out(f"earlier over current: x{rows[0]['ms'] / rows[1]['ms']:.2f}")
+    out(f"earlier over current: x{rows[0]['ms'] / rows[1]['ms']:.2f}"
+        + ("" if not same_interface else
+           f"; outputs bit-equal {rows[1]['equal_to_earlier']}"))
     out(json.dumps({"metric": "ceiling_ab",
                     "device": torch.cuda.get_device_name(0), "card": card(),
                     "rows": rows}))
@@ -192,11 +215,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True,
                     help="directory of the earlier matmul_ceiling.cu and "
-                         "mma_bf16.cuh")
+                         "the headers it includes")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     rows = run(args.parent, args.reps)
-    return 0 if all(r["within"] and r["rerun_equal"] for r in rows) else 1
+    return 0 if all(r["within"] and r["rerun_equal"]
+                    and r.get("equal_to_earlier") is not False
+                    for r in rows) else 1
 
 
 if __name__ == "__main__":

@@ -2,14 +2,16 @@
 
     python -m avenir_tpu_torch.tools.knn_ab --parent DIR [--reps N]
 
-DIR holds an earlier `knn_tile.cuh`, `knn_topk.cu`, `knn_classify.cu` and
-`knn_prepass.cu` (and the headers they include) with this checkout's C
-interface, for example those of an earlier commit written out with `git
-show` into a git-ignored directory.
+DIR holds an earlier `knn_tile.cuh`, `knn_tile_mma.cuh`, `knn_topk.cu`,
+`knn_classify.cu` and `knn_prepass.cu` (and the headers they include)
+with this checkout's C interface, for example those of an earlier commit
+written out with `git show` into a git-ignored directory.
 They build with the same nvcc flags (`ops/_build.py`) into a build
 directory of their own. Both versions' K=8 manhattan exact partial
 instances are printed with their registers, local bytes, blocks per SM
-and SASS instructions (`cuobjdump -sass`).
+and SASS instructions (`cuobjdump -sass`), and both versions' tensor-core
+instances (every carry width and mode, D 6 and 128) with their
+registers, local bytes and blocks per SM.
 
 The inputs are `chip_smoke.py` phase 2's: for D in (6, 128), q [8192, D],
 t [131072, D] and labels [131072] drawn from a device generator seeded
@@ -22,15 +24,17 @@ the grid its own occupancy gives:
   this checkout's pre-pass; their selection keys and indices (the vote:
   its scores) are compared bit for bit. This is the bar: the float32
   instances do not change.
-- bfloat16 rows (euclidean): the earlier version's CUDA-core form (its
-  pre-pass with rounded copies, then its partial and merge kernels) beside
-  this checkout's route, the tensor-core form (`knn_tile_mma.cuh`). The
-  two accumulate in another order, so they are compared by the
-  tensor-core form's tolerance with the tie rule
-  (`knn_tolerance.bf16_agrees`), not bit for bit.
+- bfloat16 rows (euclidean): the earlier version's tensor-core form (its
+  pre-pass with its bf16 operands, then its tensor-core partial and merge
+  kernels) beside this checkout's. The two accumulate in another order,
+  so they are compared by the tensor-core form's tolerance with the tie
+  rule (`knn_tolerance.bf16_agrees`), not bit for bit.
 
 For each D and dtype the two pre-passes run alone on q and t, their norms
-and rounded copies compared bit for bit. Times are CUDA-event medians of
+and bf16 values compared bit for bit (an earlier pre-pass may write fp32
+copies of D values where this one writes bf16 rows zero-padded to a
+multiple of 16; `knn_prepass_rows16` tells them apart, and the values
+are compared where both have them). Times are CUDA-event medians of
 `--reps` calls, taken in turns (earlier, current, current, earlier) and
 averaged per side; each row prints their ratio.
 
@@ -110,9 +114,9 @@ def current_call(mode: str, q, t, labels, metric: str, bf16: bool,
     """A call of this checkout's kernels (the pre-pass where euclidean,
     then the partial and merge kernels in the form the wrapper routes to)
     giving [keys, indices] or [scores]. With `libs`, another build's
-    (topk, classify, prepass) libraries with the same interface, which
-    have only the CUDA-core form: for bfloat16 their own pre-pass makes
-    the rounded copies and norms it takes."""
+    (topk, classify, prepass) libraries with the same interface: for
+    bfloat16 their own pre-pass makes the bf16 operands and norms their
+    tensor-core form takes."""
     euclid = metric == "euclidean"
     earlier_bf16 = libs[0] is not None and euclid and bf16
 
@@ -120,7 +124,7 @@ def current_call(mode: str, q, t, labels, metric: str, bf16: bool,
         kw = {}
         if earlier_bf16:
             qn, tn, qr, tr = prepass_call(q, t, True, libs[2])()
-            kw = dict(mma=False, operands=(qr, tr, qn, tn))
+            kw = dict(mma=True, operands=(qr, tr, qn, tn))
         if mode == "labels":
             return [kk._classify_scores(q, t, labels, K, euclid, bf16, C,
                                         q.shape[1], "gaussian", 30.0, NT,
@@ -130,15 +134,25 @@ def current_call(mode: str, q, t, labels, metric: str, bf16: bool,
     return run
 
 
+def rows16(lib) -> bool:
+    """Whether `lib`'s pre-pass writes bf16 rows of depth16(D) values
+    (else fp32 copies of D values, as earlier ones did)."""
+    return hasattr(lib, "knn_prepass_rows16") and lib.knn_prepass_rows16() == 1
+
+
 def prepass_call(q, t, bf16: bool, lib) -> Callable[[], List[torch.Tensor]]:
     """A launch of `lib`'s pre-pass over q and t giving [qn, tn] and, with
-    bf16, the rounded copies."""
+    bf16, its bf16 operands in the layout it writes (rows16)."""
     (nq, d), nt = q.shape, t.shape[0]
+    layout = rows16(lib)
 
     def run():
         out = [torch.empty(n, dtype=torch.float32, device=q.device)
                for n in (nq, nt)]
-        if bf16:
+        if bf16 and layout:
+            out += [torch.empty((n, kk._depth16(d)), dtype=torch.bfloat16,
+                                device=q.device) for n in (nq, nt)]
+        elif bf16:
             out += [torch.empty_like(q), torch.empty_like(t)]
         ptrs = [x.data_ptr() for x in out] + [None] * (4 - len(out))
         kk._raise_on(lib.knn_prepass_launch(
@@ -155,6 +169,19 @@ def bit_equal(old: List[torch.Tensor], new: List[torch.Tensor]) -> str:
         else "not bit-equal"
 
 
+def prepass_equal(old: List[torch.Tensor], new: List[torch.Tensor]) -> str:
+    """bit_equal for two pre-passes' [qn, tn, q', t'] whose bf16 operands
+    may lie in either layout: fp32 copies [n, D] or bf16 rows [n,
+    depth16(D)] (zero past D) compare as their bf16 values over D."""
+    def values(x, d):
+        return x[:, :d].to(torch.bfloat16) if x.dim() == 2 else x
+    d = min(x.shape[1] for x in old[2:] + new[2:]) if len(old) > 2 else 0
+    pads = [x[:, d:] for x in old[2:] + new[2:] if x.shape[1] > d]
+    if any(bool(p.any()) for p in pads):
+        return "padding not zero"
+    return bit_equal([values(x, d) for x in old], [values(x, d) for x in new])
+
+
 def ab_row(old, new, reps: int, out, agree=bit_equal, timer=None,
            **row) -> dict:
     """Compare old() and new() by `agree` (bit for bit unless told
@@ -167,7 +194,8 @@ def ab_row(old, new, reps: int, out, agree=bit_equal, timer=None,
     row.update(agree=not why, by=agree.__name__, earlier_ms=(p1 + p2) / 2,
                current_ms=(n1 + n2) / 2)
     row["ratio"] = row["earlier_ms"] / row["current_ms"]
-    verdict = ("same" if agree is bit_equal else "close") if not why \
+    verdict = ("same" if agree in (bit_equal, prepass_equal)
+               else "close") if not why \
         else f"DIFF ({why})"
     digits = 3 if timer is cuda_ms else 5
     out(f"{verdict} D={row['d']} {row['metric']} {row['mode']} "
@@ -353,11 +381,18 @@ def run(parent: Path, reps: int = 5, out=print) -> List[dict]:
             out(f"{name} K=8 manhattan exact D={d}: {info[1]} registers, "
                 f"{info[2]} local bytes, {info[0]} blocks/SM, {n} SASS "
                 f"instructions")
-    for d in (6, 128):
-        info = kk.partial_info(8, True, "lanes", d, bf16=True)
-        out(f"current K=8 euclidean bfloat16 lanes (tensor-core) D={d}: "
-            f"{info[1]} registers, {info[2]} local bytes, {info[0]} "
-            f"blocks/SM")
+    for name, topk, classify in (("earlier", libs[0], libs[1]),
+                                 ("current", None, None)):
+        for mode in kk.MODES:
+            for k in (8, 16, 32, 64):
+                for d in (6, 128):
+                    info = kk.partial_info(
+                        k, True, mode, d,
+                        classify if mode == "labels" else topk, bf16=True)
+                    out(f"{name} K={k} euclidean bfloat16 {mode} "
+                        f"(tensor-core) D={d}: {info[1]} registers, "
+                        f"{info[2]} local bytes, {info[0]} blocks/SM, "
+                        f"{info[3]} rows x {info[4]} stages")
     for vote in (False, True):
         for k in (8, 16, 32, 64):
             info = kk.merge_info(k, vote)
@@ -373,19 +408,20 @@ def run(parent: Path, reps: int = 5, out=print) -> List[dict]:
                                dtype=torch.int32)
         for dtype, bf16 in (("float32", False), ("bfloat16", True)):
             rows.append(ab_row(prepass_call(q, t, bf16, libs[2]),
-                               prepass_call(q, t, bf16, here), reps, out, d=d,
-                               metric="-", mode="prepass", dtype=dtype))
+                               prepass_call(q, t, bf16, here), reps, out,
+                               agree=prepass_equal, d=d, metric="-",
+                               mode="prepass", dtype=dtype))
         for metric in ("manhattan", "euclidean"):
             dtypes = (("float32", False), ("bfloat16", True)) \
                 if metric == "euclidean" else (("float32", False),)
             for mode in ("exact", "lanes", "packed", "labels"):
                 for dtype, bf16 in dtypes:
                     kw = {}
-                    if bf16:       # CUDA-core form against tensor-core form
+                    if bf16:       # the two versions' tensor-core forms
                         def bf16_close(old, new, mode=mode):
                             return bf16_agrees(mode, q, t, K, old, new)
                         kw = dict(agree=bf16_close,
-                                  forms="cuda-core/tensor-core")
+                                  forms="tensor-core/tensor-core")
                     rows.append(ab_row(
                         current_call(mode, q, t, labels, metric, bf16, libs),
                         current_call(mode, q, t, labels, metric, bf16), reps,

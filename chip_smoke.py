@@ -80,8 +80,11 @@ Phases, each printing a line per check; any failed check exits non-zero:
    form's clock64 section shares at D=128 and D=6, its merge kernels on
    the bench's lists (with device-alone times and the launch floor, as
    in phase 2), and every carry width and mode at ragged shapes, D
-   1..MAX_D. The merge kernels alone on ragged split lists (splits 1 to
-   65, every carry width, empty queries, ties, sign bits, keys at
+   1..MAX_D, and against float64 oracles at D 6, 37, 128 and 300
+   (kernel_check's bfloat16 bar: rtol 2e-2, recall >= 0.999; the true
+   distances wherever the plain bfloat16 version meets them, the bf16 dot
+   form's own everywhere). The merge kernels alone on ragged split lists
+   (splits 1 to 65, every carry width, empty queries, ties, sign bits, keys at
    SENTINEL and INF_BITS; votes scoring NaN: gaussian at kernel_param 0
    on zero distances, sign-bit NaN keys under every kernel function and
    both metrics), bit-equal to merge_splits_plain and _vote (NaN where it
@@ -883,6 +886,38 @@ def partial_instances() -> None:
     check(not plans, "the kernels' stage plans (rows, stages, bytes) equal "
           "knn_kernels._stage_plan and _mma_stage_plan"
           + (f"; not {plans}" if plans else ""))
+    _check_mma_schedule()
+
+
+def _check_mma_schedule() -> None:
+    """The tensor-core form's persistent schedule (blocks, segments) as
+    its C side plans it (knn_topk_mma_plan, knn_classify_mma_plan) equals
+    knn_kernels.mma_schedule, which the wrapper launches with, at every
+    carry width on the bench's, the stream leg's, ragged and empty shapes
+    over this card's SMs."""
+    import ctypes
+
+    import torch
+
+    from avenir_tpu_torch.ops import _build
+    from avenir_tpu_torch.ops import knn_kernels as kk
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = ((NQ, NT), (512, 524288), (300, 2900), (5, 0), (1, 1),
+              (100000, 1000))
+    bad, n = [], 0
+    for name in ("knn_topk", "knn_classify"):
+        entry = getattr(_build.load(name), f"{name}_mma_plan")
+        for k in (5, 16, 32, 64):
+            for nq, nv in shapes:
+                out = (ctypes.c_int * 2)()
+                err = entry(k, nq, nv, sms, out)
+                n += 1
+                if err or tuple(out) != kk.mma_schedule(nq, nv, k, sms):
+                    bad.append(f"{name}/k={k}/{nq}x{nv}: {err} {tuple(out)}")
+    check(not bad, f"tensor-core schedule: {n} (blocks, segments) plans of "
+          f"the C side equal knn_kernels.mma_schedule on {sms} SMs"
+          + (f"; not {bad}" if bad else ""))
 
 
 def merge_instances() -> None:
@@ -1231,7 +1266,8 @@ def _merge_floor(nq, splits, shape, stream):
 
 def _check_prepass(q, t, d, flops, rate):
     """knn_prepass against its plain version, bit for bit, in both forms:
-    norms alone (float32) and norms with bfloat16 copies."""
+    norms alone (float32) and norms with bfloat16 rows (zero-padded to a
+    multiple of 16 features, the tensor-core form's operands)."""
     import torch
 
     from avenir_tpu_torch.ops import _build
@@ -1250,7 +1286,7 @@ def _check_prepass(q, t, d, flops, rate):
         n0 = kk.knn_prepass.launches
         ms = cuda_ms(lambda: kk.knn_prepass(q, t, bf16), 20)
         n = NQ + NT
-        nbytes = n * d * 4 + n * 4 + (n * d * 4 if bf16 else 0)
+        nbytes = n * d * 4 + n * 4 + (n * kk._depth16(d) * 2 if bf16 else 0)
         ops_ms, bytes_ms = 2 * n * d / flops * 1e3, nbytes / rate * 1e3
         bound, bound_by = ((ops_ms, "operations") if ops_ms >= bytes_ms
                            else (bytes_ms, "bytes"))
@@ -1258,7 +1294,9 @@ def _check_prepass(q, t, d, flops, rate):
         lib_ms = None if bf16 else cuda_ms(
             lambda: torch.einsum("ij,ij->i", qt, qt), 20)
         out = [torch.empty(n, dtype=torch.float32, device=q.device) for n
-               in (NQ, NT)] + ([torch.empty_like(q), torch.empty_like(t)]
+               in (NQ, NT)] + ([torch.empty((n, kk._depth16(d)),
+                                            dtype=torch.bfloat16,
+                                            device=q.device) for n in (NQ, NT)]
                                if bf16 else [None, None])
         ptrs = [None if x is None else x.data_ptr() for x in out]
 
@@ -1674,6 +1712,7 @@ def phase_packed_bf16(flops: float, rate: float, bf16_flops: float,
             results += _merge_rows(q, t, labels, "euclidean", "bfloat16",
                                    rate, "bench")
     _check_mma_shapes()
+    _check_mma_oracle()
     _check_merge_ragged()
     _check_partial_nan()
     return results
@@ -1956,6 +1995,102 @@ def _check_mma_shapes() -> None:
           f"1..{kk.MAX_D}, k 5/16/32/64, 4 modes: {n - len(bad)} of {n} "
           f"within bf16_agrees of the plain version, one launch each"
           + (f"; not {bad}" if bad else ""))
+
+
+def _bf16_oracle(q, t):
+    """[nq, nt] float64 attribute-averaged distances of the bfloat16 dot
+    form itself: |q|^2 + |t|^2 of the float32 values less twice the cross
+    term of the bf16-rounded operands, clamped at 0, all in float64 (8
+    queries at a time)."""
+    import numpy as np
+    import torch
+
+    def rows(x):
+        return torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+    qb, tb = rows(q), rows(t)
+    qn = (q.astype(np.float64) ** 2).sum(1)
+    tn = (t.astype(np.float64) ** 2).sum(1)
+    out = np.empty((q.shape[0], t.shape[0]))
+    for s in range(0, q.shape[0], 8):
+        d2 = qn[s:s + 8, None] + tn[None, :] - 2.0 * (qb[s:s + 8] @ tb.T)
+        out[s:s + 8] = np.sqrt(np.maximum(d2, 0.0) / q.shape[1])
+    return out
+
+
+def _check_mma_oracle() -> None:
+    """kernel_check's bfloat16 bar on the tensor-core form at every carry
+    width and mode: D 6, 37, 128 and 300, 256 queries against 3000 train
+    rows of which 2900 valid (seeded normals, as kernel_check draws).
+    Top-k modes (exact, lanes, packed): distances within rtol 2e-2 (atol
+    1e-5) and tie-tolerant recall >= 0.999 (kernel_check.topk_faults). The
+    vote (labels, kernel none, 3 classes): each query's class counts equal
+    to those of the oracle's k nearest, unless the oracle's k-th and
+    (k + 1)-th distances lie within 2 x 2e-2 of each other (a tie at the
+    boundary). Two float64 oracles: the bfloat16 dot form's own distances
+    (_bf16_oracle), which every case must meet; and the true distances
+    (kernel_check.oracle), which a case must meet wherever the plain
+    bfloat16 version (the same function in torch ops) meets them: the dot
+    form's bf16 cancellation may put the true bar out of its reach (at D=6
+    on these data), and the line says where. Each call one launch on
+    knn_partial_mma."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.ops import knn_kernels as kk
+    from avenir_tpu_torch.tools import kernel_check
+
+    rtol, nv, bad, n, out_of_reach = 2e-2, 2900, [], 0, []
+    rng = np.random.default_rng(11)
+    modes = {"exact": kk.knn_topk, "lanes": kk.knn_topk_lanes,
+             "packed": kk.knn_topk_packed, "labels": kk.knn_classify_lanes}
+
+    def faults(mode, got, oracle, k, lh):
+        if mode != "labels":
+            return kernel_check.topk_faults(got[0], got[1], oracle, k, rtol)
+        order = np.argsort(oracle, axis=1, kind="stable")
+        want = np.stack([np.bincount(lh[order[i, :k]], minlength=3)
+                         for i in range(oracle.shape[0])])
+        srt = np.take_along_axis(oracle, order[:, :k + 1], 1)
+        tied = srt[:, k] - srt[:, k - 1] <= 2 * rtol * srt[:, k - 1]
+        wrong = (got != want).any(1) & ~tied
+        return [f"{int(wrong.sum())} votes off"] if wrong.any() else []
+
+    for d in (6, 37, 128, 300):
+        qh = rng.normal(size=(256, d)).astype(np.float32)
+        th = rng.normal(size=(3000, d)).astype(np.float32)
+        lh = rng.integers(0, 3, 3000).astype(np.int32)
+        true, form = (kernel_check.oracle(qh, th[:nv], "euclidean"),
+                      _bf16_oracle(qh, th[:nv]))
+        q, t = torch.from_numpy(qh).to(DEVICE), torch.from_numpy(th).to(DEVICE)
+        labels = torch.from_numpy(lh).to(DEVICE)
+        for k in (5, 16, 32, 64):
+            for mode, wrap in modes.items():
+                args = ((q, t, labels, k, 3, None, "none", 1.0, "euclidean",
+                         nv) if mode == "labels"
+                        else (q, t, k, "euclidean", nv))
+                plain = getattr(kk, wrap.__name__ + "_plain")
+                n0 = kk.knn_partial_mma.launches
+                got = wrap(*args, compute_dtype="bfloat16")
+                launched = kk.knn_partial_mma.launches - n0
+                ref = plain(*args, compute_dtype="bfloat16")
+                got, ref = ([x.cpu().numpy() for x in r] if mode != "labels"
+                            else r.cpu().numpy() for r in (got, ref))
+                why = faults(mode, got, form, k, lh)
+                if faults(mode, ref, true, k, lh[:nv]):
+                    out_of_reach.append(f"D={d}/k={k}/{mode}")
+                else:
+                    why = why + faults(mode, got, true, k, lh[:nv])
+                n += 1
+                if why or launched != 1:
+                    bad.append(f"D={d}/k={k}/{mode}: {why or launched}")
+    check(not bad, f"tensor-core form against float64 oracles, D 6/37/128/"
+          f"300, k 5/16/32/64, 4 modes (kernel_check's bfloat16 bar: rtol "
+          f"{rtol}, recall >= 0.999; votes equal but at boundary ties): "
+          f"{n - len(bad)} of {n} hold against the bf16 form's oracle and, "
+          f"where the plain bfloat16 version meets it, the true one; the "
+          f"true bar out of the plain version's reach in "
+          f"{len(out_of_reach)} cases ({', '.join(out_of_reach) or 'none'})"
+          f"; one launch each" + (f"; not {bad}" if bad else ""))
 
 
 def phase_sweep():

@@ -58,14 +58,41 @@ def test_rules_match_the_reference_on_its_fixtures(tmp_path, fixture):
         assert fired
 
 
-def test_registry_matches_the_annotations():
+def _reference_site_names():
+    """The reference's registered sites whose seam lies in its package:
+    a fixture site another test appended to the reference's list (its
+    racy check-then-act claim, path "bad_fixture.py") is not one."""
+    return [s.name for s in jax_race.INTERLEAVE_SITES
+            if s.path.startswith("avenir_tpu/")]
+
+
+def _registry_agrees():
+    """The port's registry against what the reference's code says: the
+    hooks against the sched_point names read from the reference's
+    sources, the sites against its package's own sites."""
     refs = race.check_sched_registry()
     hooks = sorted({h for s in race.INTERLEAVE_SITES for h in s.sched})
     assert sorted(refs) == hooks and len(hooks) == 12
-    assert hooks == sorted({h for s in jax_race.INTERLEAVE_SITES
-                            for h in s.sched})
-    assert [s.name for s in race.INTERLEAVE_SITES] == \
-        [s.name for s in jax_race.INTERLEAVE_SITES]
+    assert hooks == sorted(jax_race.sched_annotations())
+    names = [s.name for s in race.INTERLEAVE_SITES]
+    assert names == _reference_site_names() and len(names) == 8
+
+
+def test_registry_matches_the_annotations():
+    _registry_agrees()
+
+
+def test_registry_check_ignores_a_leaked_fixture_site(monkeypatch):
+    # the reference's racy fixture module appends its site to the
+    # reference's list at import; a ghost of it must not move the check
+    ghost = jax_race.InterleaveSite(
+        "bad.claim", "bad_fixture.py", ("bad.claim",), lambda root: None,
+        (lambda root: {}, lambda root: {}), lambda *a: [])
+    monkeypatch.setattr(jax_race, "INTERLEAVE_SITES",
+                        jax_race.INTERLEAVE_SITES + [ghost])
+    assert "bad.claim" in [s.name for s in jax_race.INTERLEAVE_SITES]
+    _registry_agrees()
+    assert "bad.claim" not in _reference_site_names()
 
 
 def _rows(rows):

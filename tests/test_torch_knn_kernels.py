@@ -480,16 +480,56 @@ def test_prepass_plain_norms_are_the_fmaf_chain(d):
 
 
 def test_prepass_plain_bf16_copies_round_to_nearest_even():
+    """The bf16 operands are bfloat16 rows of depth16(D) values: each
+    feature rounded to nearest even, zeros past D; the norms are the
+    float32 values', never the rounded ones'."""
     rng = np.random.default_rng(3)
     q = rng.normal(size=(64, 5)).astype(np.float32)
     t = (rng.normal(size=(96, 5)) * 1e4).astype(np.float32)
     t[0, :3] = [1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8, -(1 + 2.0 ** -8)]  # ties
     qn, tn, qx, tx = kk.knn_prepass_plain(_t(q), _t(t), bf16=True)
-    np.testing.assert_array_equal(qx.numpy(), _round_bf16_bits(q))
-    np.testing.assert_array_equal(tx.numpy(), _round_bf16_bits(t))
-    assert torch.equal(tx, kk._round_bf16(_t(t)))
+    for x, rows in ((q, qx), (t, tx)):
+        assert rows.dtype == torch.bfloat16 and rows.shape == (x.shape[0], 16)
+        np.testing.assert_array_equal(rows[:, :5].float().numpy(),
+                                      _round_bf16_bits(x))
+        assert not rows[:, 5:].any()
+    assert torch.equal(tx[:, :5].float(), kk._round_bf16(_t(t)))
     # the norms are the fp32 values', never the rounded copies'
     assert torch.equal(tn, kk.knn_prepass_plain(_t(q), _t(t))[1])
+
+
+@pytest.mark.parametrize("d", [1, 6, 16, 37, 128, 300])
+def test_prepass_bf16_rows_hold_the_reference_cross_term(d):
+    """knn_prepass_plain(bf16=True)'s layout against the JAX package's
+    _tile_distance (pallas_knn.py:54-70) in bfloat16: bfloat16 rows of
+    depth16(D) values (D rounded up to 16, a 32-byte multiple a row, as
+    the tensor maps take it), zeros past D; norms of the unrounded values;
+    and the cross term of the rows, with those norms, gives the
+    reference's distance tile within float32 rounding of the dot form
+    (the reference takes its norms by jnp.sum, the pre-pass by an fmaf
+    chain, and XLA sums the products in its own order)."""
+    from avenir_tpu.ops.pallas_knn import _tile_distance
+
+    rng = np.random.default_rng(d)
+    q = rng.normal(size=(48, d)).astype(np.float32)
+    t = (rng.normal(size=(200, d)) * 3).astype(np.float32)
+    qn, tn, qx, tx = kk.knn_prepass_plain(_t(q), _t(t), bf16=True)
+    dp = -(-d // 16) * 16
+    exact = (np.einsum("ij,ij->i", q, q, dtype=np.float64),
+             np.einsum("ij,ij->i", t, t, dtype=np.float64))
+    for x, rows, norms, want in ((q, qx, qn, exact[0]),
+                                 (t, tx, tn, exact[1])):
+        assert rows.dtype == torch.bfloat16 and rows.shape == (len(x), dp)
+        assert (2 * dp) % 32 == 0 and not rows[:, d:].any()
+        assert torch.equal(rows[:, :d], _t(x).to(torch.bfloat16))
+        np.testing.assert_allclose(norms.numpy(), want, rtol=2e-6 * d)
+    cross = qx.float() @ tx.float().T
+    got = torch.clamp((qn[:, None] + tn[None, :]) - 2.0 * cross, min=0.0)
+    want = np.asarray(_tile_distance(jnp.asarray(q), jnp.asarray(t),
+                                     "euclidean", jnp.bfloat16))
+    scale = (qn[:, None] + tn[None, :]).numpy()
+    np.testing.assert_array_less(np.abs(got.numpy() - want),
+                                 4e-6 * d * scale + 1e-6)
 
 
 def test_prepass_on_cpu_tensors_is_the_plain_version():
@@ -616,6 +656,86 @@ def test_tensor_core_form_has_no_fallback(monkeypatch, mode):
         _route(mode, "euclidean", "bfloat16", bare)
 
 
+class _FakePersistentLib(_FakeFormLib):
+    """This checkout's library: the tensor-core form runs the persistent
+    schedule, whose plan entry it has."""
+
+    def knn_topk_mma_plan(self, *args):
+        raise AssertionError("the wrapper plans with mma_schedule")
+
+    knn_classify_mma_plan = knn_topk_mma_plan
+
+
+@pytest.mark.parametrize("mode", ["exact", "lanes", "packed", "labels"])
+def test_bf16_euclidean_takes_the_persistent_schedule(monkeypatch, mode):
+    """With this checkout's library the tensor-core launch takes (segments,
+    blocks) of mma_schedule on every SM times the instance's blocks per
+    SM, where an earlier form took (splits, rows_per_split)."""
+    _on_a_fake_card(monkeypatch)
+    lib = _FakePersistentLib()
+    _route(mode, "euclidean", "bfloat16", lib)
+    segments, blocks = lib.args[0][-7:-5] if mode != "labels" \
+        else lib.args[0][-6:-4]
+    assert (blocks, segments) == kk.mma_schedule(200, 1000, 5, 132 * 3)
+    assert (blocks, segments) == (16, 8)       # 2 query tiles x 8 tiles
+    assert kk.knn_partial_mma.launches == 1
+
+
+def _ranges(nq, n_valid, k, asked):
+    """Each block's (query tile, train tile) pairs under mma_schedule's
+    rule, and the tiles a query tile has."""
+    bn = kk._mma_bn(k)
+    tiles = max(1, -(-n_valid // bn))
+    pairs = -(-nq // kk.MMA_BQ) * tiles
+    blocks = min(asked, pairs)
+    return [range(b * pairs // blocks, (b + 1) * pairs // blocks)
+            for b in range(blocks)], tiles
+
+
+@pytest.mark.parametrize("nq,n_valid,k,asked", [
+    (8192, 131072, 5, 132), (512, 524288, 5, 132), (300, 2900, 16, 132),
+    (300, 2900, 64, 132), (5, 0, 8, 132), (1, 1, 32, 132),
+    (1000, 777777, 9, 131), (100000, 1000, 64, 132), (128, 128, 8, 1)])
+def test_mma_schedule_covers_every_pair_once(nq, n_valid, k, asked):
+    """Every (query tile, train tile) pair lies in exactly one block's
+    contiguous range, the ranges differ in length by one at most, and a
+    query tile's blocks, in order, take slots 0, 1, ... of at most
+    `segments` lists: its lists run in column order, as the merge takes
+    them."""
+    blocks, segments = kk.mma_schedule(nq, n_valid, k, asked)
+    ranges, tiles = _ranges(nq, n_valid, k, asked)
+    assert blocks == len(ranges) <= asked
+    flat = [p for r in ranges for p in r]
+    assert flat == list(range(-(-nq // kk.MMA_BQ) * tiles))
+    assert max(map(len, ranges)) - min(map(len, ranges)) <= 1
+    per_tile = {}
+    for b, r in enumerate(ranges):
+        for qt in sorted({p // tiles for p in r}):
+            per_tile.setdefault(qt, []).append(b)
+    assert segments == max(len(bs) for bs in per_tile.values())
+    for bs in per_tile.values():
+        assert bs == list(range(bs[0], bs[0] + len(bs)))
+
+
+def test_launch_plan_of_the_persistent_form(monkeypatch):
+    """launch_plan gives the tensor-core form's grid as its persistent
+    blocks (at most one wave) and its lists as the splits; the CUDA-core
+    form keeps its split plan."""
+    _on_a_fake_card(monkeypatch)
+    lib = _FakeFormLib()
+    monkeypatch.setattr(kk._build, "load", lambda name: lib)
+    q, t = torch.rand(8192, 6), torch.rand(131072, 6)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: __import__(
+        "contextlib").nullcontext())
+    plan = kk.launch_plan(q, t, 5, "euclidean", "lanes",
+                          compute_dtype="bfloat16")
+    assert (plan["grid"], plan["splits"]) == kk.mma_schedule(
+        8192, 131072, 5, 132 * 3)
+    assert plan["rows_per_split"] is None and plan["waves"] <= 1
+    fp32 = kk.launch_plan(q, t, 5, "euclidean", "lanes")
+    assert fp32["rows_per_split"] % 32 == 0 and fp32["splits"] >= 1
+
+
 def test_partial_info_cache_keys_the_form(monkeypatch):
     """The tensor-core and CUDA-core instances of one mode, K and D are
     cached apart; manhattan bfloat16 shares the CUDA-core entry."""
@@ -634,35 +754,43 @@ def test_partial_info_cache_keys_the_form(monkeypatch):
 
 @pytest.mark.parametrize("k", [8, 16, 32, 64])
 def test_tensor_core_form_fits_shared_memory_at_every_width(k):
-    """Every D up to MAX_D at carry width k: two v tiles, the block's
-    queries and a stage's rows as bf16 at depth16(D) + 8 halves (an odd
-    multiple of 16 bytes, so 8 rows that ldmatrix reads fall on distinct
-    banks), and a ring of fp32 stages of whole 32-row tiles near
-    MMA_STAGE_BYTES fit the 227 KB cap, with two stages at least up to
-    D=128; at D=6 and K=8 three blocks fit an SM's 228 KB."""
+    """Every D up to MAX_D at carry width k: the block's 128 queries and
+    stages of BN train rows (128; 64 at K >= 32) as bf16 rows of depth16(D)
+    values, each stage with 1024 bytes of norms and labels, fit the 227 KB
+    cap with the most stages (up to 8) that do, at least one, so the query
+    tile is never walked in depth pieces; two stages at least up to D=256
+    and four up to D=128. Every TMA box (16 features x rows, 32-byte
+    swizzle) starts 1024 bytes apart, as the swizzle atoms need."""
+    bn = 64 if k >= 32 else 128
     for d in range(1, kk.MAX_D + 1):
         dp = kk._depth16(d)
         assert dp % 16 == 0 and d <= dp < d + 16
-        assert (2 * (dp + kk.MMA_PAD) // 16) % 2 == 1
         rows, stages, smem = kk._mma_stage_plan(d, k)
-        row = 16 * kk._row_stride4(d) + 8
-        assert rows % kk.TT == 0 and stages in (1, 2)
-        assert rows == kk.TT or rows * row <= kk.MMA_STAGE_BYTES < \
-            (rows + kk.TT) * row
-        assert smem <= kk.SMEM_LIMIT
+        assert rows == bn == kk._mma_bn(k)
+        assert 1 <= stages <= kk.MMA_MAX_STAGES and smem <= kk.SMEM_LIMIT
+        assert smem == kk._mma_smem(d, k, stages)
+        assert stages == kk.MMA_MAX_STAGES or \
+            kk._mma_smem(d, k, stages + 1) > kk.SMEM_LIMIT
+        q_bytes, t_bytes = kk.MMA_BQ * dp * 2, bn * dp * 2
+        assert smem >= 1024 + q_bytes + stages * (t_bytes + kk.MMA_AUX)
+        assert q_bytes % 1024 == 0 and t_bytes % 1024 == 0
+        assert (q_bytes // (dp // 16)) % 1024 == 0      # a query box
+        assert (t_bytes // (dp // 16)) % 1024 == 0      # a train box
+        assert bn * 4 <= 512                            # norms, then labels
+        if d <= 256:
+            assert stages >= 2
         if d <= 128:
-            assert stages == 2
-    if k == 8:
-        assert 3 * (kk._mma_stage_plan(6, 8)[2] + 1024) <= 233472
+            assert stages >= 4
 
 
-@pytest.mark.parametrize("d", [1, 6, 37, 300])
+@pytest.mark.parametrize("d", [1, 6, 16, 37, 128, 300, 360])
 @pytest.mark.parametrize("mode", ["exact", "lanes", "packed", "labels"])
 def test_zero_padding_to_the_mma_depth_keeps_the_plain_keys(monkeypatch, d,
                                                             mode):
-    """The tensor-core form multiplies D padded with zeros to a multiple
-    of 16. Padding the plain bf16 cross term the same way leaves its keys
-    and indices bit-equal: a zero product adds nothing."""
+    """The tensor-core form multiplies the pre-pass's bf16 rows, D padded
+    with zeros to depth16(D). Taking the plain bf16 cross term from those
+    rows (kk.bf16_rows, the layout knn_prepass_plain returns) leaves its
+    keys and indices bit-equal: a zero product adds nothing."""
     rng = np.random.default_rng(d)
     q = _t(rng.normal(size=(64, d)).astype(np.float32))
     t = _t(rng.normal(size=(700, d)).astype(np.float32))
@@ -673,13 +801,13 @@ def test_zero_padding_to_the_mma_depth_keeps_the_plain_keys(monkeypatch, d,
         return kk._select_plain(q, t, 8, "euclidean", 650, mode, mask,
                                 kk.INF_BITS, True, labels)
     want = select()
-    cross = kk._cross
 
-    def padded(a, b, bf16):
-        pad = kk._depth16(a.shape[1]) - a.shape[1]
-        return cross(torch.nn.functional.pad(a, (0, pad)),
-                     torch.nn.functional.pad(b, (0, pad)), bf16)
-    monkeypatch.setattr(kk, "_cross", padded)
+    def rows(a, b, bf16):
+        assert bf16
+        ra, rb = kk.bf16_rows(a), kk.bf16_rows(b)
+        assert ra.shape[1] == kk._depth16(d) and not ra[:, d:].any()
+        return ra.float() @ rb.float().T
+    monkeypatch.setattr(kk, "_cross", rows)
     got = select()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 

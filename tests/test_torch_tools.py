@@ -465,9 +465,11 @@ def test_knn_ab_bf16_row_is_held_by_the_tolerance(monkeypatch, mode):
 
 
 def test_knn_ab_earlier_bf16_side_is_its_own_cuda_core_form(monkeypatch):
-    """The earlier version's bfloat16 call runs its own pre-pass with
-    rounded copies, then its CUDA-core partial kernel on them, never a
-    tensor-core entry."""
+    """The earlier version's bfloat16 call runs its own pre-pass with its
+    own bf16 operands, then its own tensor-core entries (the form this
+    checkout's replaces), never the CUDA-core form; an earlier library
+    without the persistent schedule's plan entry takes (splits,
+    rows_per_split) from its own stage rows."""
     from avenir_tpu_torch.tools import knn_ab
     from test_torch_knn_kernels import _FakeFormLib, _on_a_fake_card
 
@@ -488,9 +490,12 @@ def test_knn_ab_earlier_bf16_side_is_its_own_cuda_core_form(monkeypatch):
                             (topk, classify, pre))()
         lib = classify if mode == "labels" else topk
         name = "knn_classify" if mode == "labels" else "knn_topk"
-        assert lib.called == [f"{name}_partial_info", f"{name}_launch"]
+        assert lib.called == [f"{name}_mma_info", f"{name}_mma_launch"]
         assert pre.bf16 == [1]
-    assert kk.knn_partial_mma.launches == 0
+        splits, rows = kk._splits(32, knn_ab.NT, 132, 3, 64, kk.MMA_BQ)
+        at = 15 if mode == "labels" else 11
+        assert tuple(lib.args[0][at:at + 2]) == (splits, rows)
+    assert kk.knn_partial_mma.launches == 2
 
 
 def test_bind_skips_entries_an_earlier_build_lacks():
