@@ -3,6 +3,10 @@
 The port of `avenir_tpu/analysis/cli.py`:
 
 - paths and no tier: the AST rules (`rules.py`) over the paths;
+- ``--ir``: the IR rules over what the kernel manifest's seven op
+  entries run on ``--device`` and what the eight distributed families
+  run on a gloo world of eight CPU ranks, and the collective-payload
+  audit of the families (`ir.py`); it takes no paths;
 - ``--flow``: the flow rules over the paths (default: the port's
   package and `chip_smoke.py`) and the chunk-invariance audit of the
   stream entries;
@@ -29,9 +33,9 @@ ids (an audit runs only when its rule id is named); ``--no-baseline``
 ignores the allowlist (`analysis/audit_baseline.txt`).
 
 Exit codes, the reference's: 0 clean (no finding, no stale allowlist
-entry, no parse error); 1 findings; 2 a usage error or an audit that
-failed to run. ``--ir`` lowers jaxprs and is never ported: it exits 2
-with a message.
+entry, no parse error); 1 findings; 2 a usage error, an audit that
+failed to run or an IR entry that failed to build or run (a "trace
+error", as too small a world of ranks or a missing device).
 """
 
 from __future__ import annotations
@@ -47,16 +51,13 @@ from avenir_tpu_torch.analysis.engine import (default_baseline_path,
                                               load_baseline)
 
 #: the audit tiers, in the order they run
-TIERS = ("flow", "mem", "merge", "keys", "proto", "race")
+TIERS = ("ir", "flow", "mem", "merge", "keys", "proto", "race")
 
 #: the tier of paths given with no tier flag
 AST_TIER = "rules"
 
-#: modes of the reference that the port refuses, each with its reason
-NOT_PORTED = {
-    "ir": "--ir lowers jaxprs and HLO; the port has none, so it is never "
-          "ported",
-}
+#: how a tier's failure to run is named on stderr
+_FAILED = {"ir": "trace error"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,7 +68,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help=".py/.md files or directories: alone, for the AST "
                         "rules; with a tier, for its rules (default: the "
                         "tier's own surface)")
-    for tier, what in (("flow", "the flow rules and the chunk-invariance "
+    for tier, what in (("ir", "the IR rules over the kernel manifest and "
+                              "the collective-payload audit (no paths)"),
+                       ("flow", "the flow rules and the chunk-invariance "
                                 "audit"),
                        ("mem", "the mem rules and the footprint audit"),
                        ("merge", "the merge rules and the shard-merge, "
@@ -89,12 +92,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seeds", type=int, default=64,
                    help="with --race: the seeded schedules after them "
                         "(default 64)")
-    for mode in NOT_PORTED:
-        p.add_argument(f"--{mode}", action="store_true",
-                       help=argparse.SUPPRESS)
     p.add_argument("--device", default="cuda",
-                   help="where the audits run the stream entries (cuda or "
-                        "cpu; default cuda)")
+                   help="where the audits run the stream entries and the "
+                        "IR op entries (cuda or cpu; default cuda)")
     p.add_argument("--baseline", default=None,
                    help="allowlist file (default: avenir_tpu_torch/"
                         "analysis/audit_baseline.txt)")
@@ -127,10 +127,15 @@ def _report_root(args) -> Optional[str]:
 
 def _tiers():
     """tier -> (rule classes, audit rule id, audit error, runner)."""
-    from avenir_tpu_torch.analysis import (flow, keys, mem, merge, proto,
+    from avenir_tpu_torch.analysis import (flow, ir, keys, mem, merge, proto,
                                            race)
 
+    def run_ir(paths, rules, baseline, root, include_md, audit, device):
+        return ir.run_ir(rules=rules, baseline=baseline, audit=audit,
+                         device=device)
+
     return {
+        "ir": (ir.ALL_IR_RULES, ir.PAYLOAD_RULE, ir.IRTraceError, run_ir),
         "flow": (flow.ALL_FLOW_RULES, flow.FLOW_AUDIT_RULE,
                  flow.FlowAuditError, flow.run_flow),
         "mem": (mem.ALL_MEM_RULES, mem.MEM_AUDIT_RULE, mem.MemAuditError,
@@ -168,6 +173,11 @@ def _run_ast(args, baseline, wanted) -> int:
 
 def _summary(name: str, report) -> str:
     tail = ""
+    if report.payload_audit:
+        ok = sum(1 for r in report.payload_audit
+                 if r["payload_model_validated"])
+        tail += (f", payload audit {ok}/{len(report.payload_audit)} "
+                 f"families validated")
     for key, flag, what in (
             ("invariance_audit", "invariance_validated", "chunk-invariance"),
             ("footprint_audit", "footprint_model_validated", "footprint"),
@@ -206,11 +216,10 @@ def _exit_code(report, args) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    refused = [m for m in NOT_PORTED if getattr(args, m)]
-    if refused:
-        for m in refused:
-            print(f"avenir_tpu_torch.analysis: {NOT_PORTED[m]}",
-                  file=sys.stderr)
+    if args.ir and args.paths:
+        print("avenir_tpu_torch.analysis: --ir records the kernel manifest; "
+              "do not pass paths (run the two modes as two invocations)",
+              file=sys.stderr)
         return 2
     chosen = [t for t in TIERS if getattr(args, t)]
     if args.schedule and not args.race:
@@ -219,8 +228,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     if not chosen and not args.paths:
         print("avenir_tpu_torch.analysis: pass paths for the AST rules, "
-              "or --flow / --mem / --merge / --keys / --proto / --race "
-              "for the audits", file=sys.stderr)
+              "or --ir / --flow / --mem / --merge / --keys / --proto / "
+              "--race for the audits", file=sys.stderr)
         return 2
     schedule = None
     if args.schedule:
@@ -269,8 +278,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                          include_md=not args.no_md, audit=audit,
                          device=args.device, **extra.get(name, {}))
         except (err_cls, OSError) as e:
-            print(f"avenir_tpu_torch.analysis [{name}]: audit failed to "
-                  f"run: {e}", file=sys.stderr)
+            print(f"avenir_tpu_torch.analysis [{name}]: "
+                  f"{_FAILED.get(name, 'audit failed to run')}: {e}",
+                  file=sys.stderr)
             modes[name] = {"error": str(e),
                            "wall_s": round(time.monotonic() - t0, 3)}
             worst = 2
@@ -281,8 +291,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         if not args.as_json:
             _print_report(name, report)
     if args.as_json:
-        if len(chosen) == 1:
-            print(json.dumps(modes[chosen[0]], indent=1))
+        if len(chosen) == 1:        # the report alone: the reference's schema
+            one = modes[chosen[0]]
+            if "error" not in one:
+                one = {k: v for k, v in one.items() if k != "wall_s"}
+            print(json.dumps(one, indent=1))
         else:
             print(json.dumps({"modes": modes, "clean": worst == 0},
                              indent=1))

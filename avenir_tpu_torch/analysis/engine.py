@@ -68,8 +68,10 @@ class BaselineEntry:
 @dataclass
 class Report:
     """One auditor run: the surviving findings and what the allowlist
-    absorbed. `invariance_audit` is filled by flow runs (a row a stream
-    entry: its chunk-layout and scheduler byte identity),
+    absorbed. `payload_audit` is filled by IR runs (a row a distributed
+    family: the collective bytes its process group was handed, those it
+    recorded and the model's), `invariance_audit` by flow runs (a row a
+    stream entry: its chunk-layout and scheduler byte identity),
     `footprint_audit` by mem runs (measured RSS against the footprint
     model), `merge_audit` by merge runs (shard merge, resume,
     incremental and sharded-steal byte identity), `proto_audit` by proto
@@ -83,6 +85,7 @@ class Report:
     stale: List[BaselineEntry] = field(default_factory=list)
     scanned: List[str] = field(default_factory=list)
     errors: List[Finding] = field(default_factory=list)
+    payload_audit: List[dict] = field(default_factory=list)
     invariance_audit: List[dict] = field(default_factory=list)
     footprint_audit: List[dict] = field(default_factory=list)
     merge_audit: List[dict] = field(default_factory=list)
@@ -108,6 +111,7 @@ class Report:
             "stale_baseline_entries": [e.key for e in self.stale],
             "errors": [f.to_json() for f in self.errors],
             "files_scanned": len(self.scanned),
+            "payload_audit": self.payload_audit,
             "invariance_audit": self.invariance_audit,
             "footprint_audit": self.footprint_audit,
             "merge_audit": self.merge_audit,

@@ -1,22 +1,34 @@
-"""The stream entries the auditors drive: the port's streamed folds.
+"""The units the auditors drive: the IR tier's op and family entries,
+and the stream entries of the flow, mem and merge audits.
 
-The port of the stream half of `avenir_tpu/analysis/manifest.py`
-(`StreamKernelSpec`, `_job_runner`, `_shared_runner`, `_churn_corpus`,
-`_seq_corpus`, `stream_entries`): the same eight entries, NB, MI, Fisher,
-Markov, Apriori and GSP each on its own scan, and the churn trio and the
-Markov + Apriori pair fused on one `SharedScan`, over the same seeded
-corpora and confs. Each entry's `path:line` is the port's fold, so a
-finding lands on the code that owns the invariant.
+The port of `avenir_tpu/analysis/manifest.py`, both halves.
 
-Every runner turns the columnar sidecar off (`stream.sidecar=false`): an
-entry runs several times over one corpus, and a replay parses nothing,
-so its chunk counts would not differ between layouts and its
-`stream.parse` span would be missing. Each entry runs on its `device`
-(`stream_entries(device=...)`): "cuda" unless the caller asks for
-"cpu", as every entry point of the port.
+The IR half (`KernelSpec`, `manifest_entries`) is what `analysis/ir.py`
+records: for each hot op of the reference's manifest the port's
+counterpart with its inputs, and for each family of
+`parallel/distributed.FAMILIES` its builder on a mesh of AUDIT_DEVICES
+ranks and the analytic collective bytes it must ship
+(`parallel/scaling.collective_payload_model`). The names, shapes, dtypes
+and pinned dims are the reference's; the inputs are concrete, seeded
+with numpy for the op entries, zeros and ones for the families as the
+reference places them. An op entry's tensors live on its `device`
+("cuda" unless the caller asks for "cpu", as every entry point of the
+port); a family runs on the CPU ranks of a gloo world, so its builder is
+a module-level function that a spawned rank can import.
 
-The IR half (`KernelSpec`, the op and family entries) lowers jaxprs and
-is not ported.
+The stream half (`StreamKernelSpec`, `_job_runner`, `_shared_runner`,
+`_churn_corpus`, `_seq_corpus`, `stream_entries`): the same eight
+entries as the reference's, NB, MI, Fisher, Markov, Apriori and GSP each
+on its own scan, and the churn trio and the Markov + Apriori pair fused
+on one `SharedScan`, over the same seeded corpora and confs. Each
+entry's `path:line` is the port's fold, so a finding lands on the code
+that owns the invariant.
+
+Every stream runner turns the columnar sidecar off
+(`stream.sidecar=false`): an entry runs several times over one corpus,
+and a replay parses nothing, so its chunk counts would not differ
+between layouts and its `stream.parse` span would be missing. Each
+entry runs on its `device` (`stream_entries(device=...)`).
 """
 
 from __future__ import annotations
@@ -24,7 +36,7 @@ from __future__ import annotations
 import inspect
 import os
 from dataclasses import dataclass
-from typing import Callable, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -33,7 +45,7 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 def _loc(obj) -> Tuple[str, int]:
-    """(repo-relative posix path, first line) of a fold's def."""
+    """(repo-relative posix path, first line) of a def."""
     src = inspect.getsourcefile(inspect.unwrap(obj))
     rel = os.path.relpath(os.path.abspath(src), _REPO_ROOT)
     try:
@@ -43,6 +55,310 @@ def _loc(obj) -> Tuple[str, int]:
     return rel.replace(os.sep, "/"), line
 
 
+#: every family runs on a world of this many ranks: the reference's
+#: 8-device mesh
+AUDIT_DEVICES = 8
+
+#: the reference's pinned dims, from which every payload model below
+#: derives: ROWS global rows, 8 a rank
+ROWS = 8 * AUDIT_DEVICES
+KNN_K, KNN_D = 5, 8
+TREE = dict(n_leaves=4, n_splits=3, smax=2, num_classes=2)
+LR_D = 8
+MARKOV = dict(n_states=3, n_classes=2)
+APRIORI_CAND, APRIORI_VOCAB, APRIORI_K = 16, 12, 2
+BANDIT_ARMS, BANDIT_BATCH = 6, 2
+CROSS = dict(bins_a=10, bins_b=2)
+_NB_CLASSES, _NB_FEAT, _NB_BMAX = 2, 8, 10
+
+
+@dataclass(frozen=True)
+class KernelSpec:
+    """One unit of the IR tier.
+
+    ``build(mesh)`` returns ``(fn, args)``: `fn(*args)` is the call the
+    tier records, `args` concrete tensors (an op entry's on its device,
+    a family's this rank's shard on `mesh`, a `parallel.mesh.Mesh`; None
+    for an op entry). ``payload_model(shape)`` gives a family's analytic
+    collective bytes on a mesh of `shape` ({axis: size}); None marks an
+    op entry."""
+
+    name: str                     # finding scope (rule keys use it)
+    path: str                     # repo-relative module the op lives in
+    line: int
+    build: Callable
+    model_parallel: int = 1       # family mesh: ranks//mp x mp
+    payload_model: Optional[Callable] = None
+
+    @property
+    def is_family(self) -> bool:
+        return self.payload_model is not None
+
+
+def audit_shape(spec: KernelSpec) -> Dict[str, int]:
+    """The {axis: size} of a family's audit mesh, the reference's:
+    {data: 8}, or {data: 4, model: 2} for model_parallel 2."""
+    if spec.model_parallel > 1:
+        return {"data": AUDIT_DEVICES // spec.model_parallel,
+                "model": spec.model_parallel}
+    return {"data": AUDIT_DEVICES}
+
+
+# ------------------------------------------------------------- op entries
+def _op_entries(device: str = "cuda") -> List[KernelSpec]:
+    """The reference's seven op entries on the port's counterparts, with
+    seeded inputs on `device`."""
+    import torch
+
+    from avenir_tpu_torch.ops import bitset, infotheory, knn_kernels, reduce
+
+    def on(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+    def words(rng, rows):
+        return on(rng.integers(0, 1 << 32, (rows, 4), dtype=np.uint64)
+                  .astype(np.uint32).view(np.int32))
+
+    def bitset_counts(_mesh):
+        rng = np.random.default_rng(0)
+        return bitset.bitset_contain_counts, (words(rng, 256), words(rng, 64))
+
+    def bitset_mask(_mesh):
+        rng = np.random.default_rng(1)
+        return bitset.bitset_contain_mask, (words(rng, 256), words(rng, 64))
+
+    def keyed(_mesh):
+        rng = np.random.default_rng(2)
+        return (lambda k: reduce.keyed_reduce(k, 64),
+                (on(rng.integers(0, 64, 1024).astype(np.int32)),))
+
+    def onehot(_mesh):
+        rng = np.random.default_rng(3)
+        return (lambda c: reduce.one_hot_count(c, 32),
+                (on(rng.integers(0, 32, (1024, 4)).astype(np.int32)),))
+
+    def split_score(_mesh):
+        rng = np.random.default_rng(4)
+        return (lambda c: infotheory.weighted_split_score(c, "entropy"),
+                (on(rng.integers(0, 50, (16, 4, 3)).astype(np.float32)),))
+
+    def mi(_mesh):
+        rng = np.random.default_rng(5)
+        return (infotheory.mutual_information,
+                (on(rng.integers(0, 50, (8, 4)).astype(np.float32)),))
+
+    def knn(_mesh):
+        rng = np.random.default_rng(6)
+        return (lambda q, t: knn_kernels.knn_topk(q, t, k=5,
+                                                  metric="euclidean"),
+                (on(rng.random((128, 8), dtype=np.float32)),
+                 on(rng.random((256, 8), dtype=np.float32))))
+
+    def spec(name, ref, build):
+        path, line = _loc(ref)
+        return KernelSpec(name, path, line, build)
+
+    return [
+        spec("bitset_contain_counts", bitset.bitset_contain_counts,
+             bitset_counts),
+        spec("bitset_contain_mask", bitset.bitset_contain_mask, bitset_mask),
+        spec("keyed_reduce", reduce.keyed_reduce, keyed),
+        spec("one_hot_count", reduce.one_hot_count, onehot),
+        spec("weighted_split_score", infotheory.weighted_split_score,
+             split_score),
+        spec("mutual_information", infotheory.mutual_information, mi),
+        spec("knn_topk_pallas", knn_kernels.knn_topk, knn),
+    ]
+
+
+# --------------------------------------------------------- family entries
+def _rows(mesh, arr, pad=0):
+    """This rank's shard of `arr`, rows over every axis of the mesh (the
+    reference's P(axes))."""
+    from avenir_tpu_torch.parallel.mesh import shard_rows
+
+    return shard_rows(mesh, arr, pad, mesh.axis_names)
+
+
+def _whole(mesh, arr):
+    from avenir_tpu_torch.parallel.mesh import replicated
+
+    return replicated(mesh, arr)
+
+
+def knn_build(mesh):
+    from avenir_tpu_torch.parallel.distributed import distributed_topk_fn
+    from avenir_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                                shard_rows)
+
+    data_n = mesh.shape[DATA_AXIS]
+    model_n = mesh.shape.get(MODEL_AXIS, 1)
+    nq, train = 8 * data_n, 16 * model_n
+    t_axes = (MODEL_AXIS,) if MODEL_AXIS in mesh.axis_names else ()
+    fn = distributed_topk_fn(mesh, k=KNN_K, metric="euclidean")
+    return fn, (
+        shard_rows(mesh, np.zeros((nq, KNN_D), np.float32), 0, (DATA_AXIS,)),
+        shard_rows(mesh, np.zeros((train, KNN_D), np.float32), 0, t_axes),
+        shard_rows(mesh, np.zeros((train,), np.int32), 0, t_axes))
+
+
+def knn_payload(shape):
+    from avenir_tpu_torch.parallel.scaling import collective_payload_model
+
+    return collective_payload_model("knn_topk", shape, nq=8 * shape["data"],
+                                    k=KNN_K)
+
+
+def nb_build(mesh):
+    from avenir_tpu_torch.parallel.distributed import distributed_nb_train_fn
+
+    fn = distributed_nb_train_fn(mesh, _NB_CLASSES, _NB_BMAX)
+    return fn, (_rows(mesh, np.zeros((ROWS, _NB_FEAT), np.int32)),
+                _rows(mesh, np.zeros((ROWS,), np.int32)),
+                _rows(mesh, np.ones((ROWS,), np.float32)))
+
+
+def nb_payload(shape):
+    from avenir_tpu_torch.parallel.scaling import collective_payload_model
+
+    return collective_payload_model("nb_train", shape, n_feat=_NB_FEAT,
+                                    num_classes=_NB_CLASSES, bmax=_NB_BMAX)
+
+
+def tree_build(mesh):
+    from avenir_tpu_torch.parallel.distributed import (
+        distributed_tree_level_fn)
+
+    fn = distributed_tree_level_fn(mesh, TREE["n_leaves"], TREE["n_splits"],
+                                   TREE["smax"], TREE["num_classes"])
+    return fn, (_rows(mesh, np.zeros((ROWS,), np.int32)),
+                _rows(mesh, np.zeros((ROWS, TREE["n_splits"]), np.int8)),
+                _rows(mesh, np.zeros((ROWS,), np.int32)),
+                _rows(mesh, np.ones((ROWS,), np.float32)))
+
+
+def tree_payload(shape):
+    from avenir_tpu_torch.parallel.scaling import collective_payload_model
+
+    return collective_payload_model("tree_level", shape, **TREE)
+
+
+def lr_build(mesh):
+    from avenir_tpu_torch.parallel.distributed import distributed_lr_step_fn
+
+    fn = distributed_lr_step_fn(mesh, learning_rate=0.5)
+    return fn, (_whole(mesh, np.zeros((LR_D,), np.float32)),
+                _rows(mesh, np.zeros((ROWS, LR_D), np.float32)),
+                _rows(mesh, np.zeros((ROWS,), np.float32)),
+                _rows(mesh, np.ones((ROWS,), np.float32)))
+
+
+def lr_payload(shape):
+    from avenir_tpu_torch.parallel.scaling import collective_payload_model
+
+    return collective_payload_model("lr_step", shape, d=LR_D)
+
+
+def markov_build(mesh):
+    from avenir_tpu_torch.parallel.distributed import (
+        distributed_markov_counts_fn)
+
+    fn = distributed_markov_counts_fn(mesh, MARKOV["n_states"],
+                                      MARKOV["n_classes"])
+    return fn, (_rows(mesh, np.zeros((ROWS, 6), np.int32)),
+                _rows(mesh, np.zeros((ROWS,), np.int32)))
+
+
+def markov_payload(shape):
+    from avenir_tpu_torch.parallel.scaling import collective_payload_model
+
+    return collective_payload_model("markov_counts", shape, **MARKOV)
+
+
+def apriori_build(mesh):
+    from avenir_tpu_torch.parallel.distributed import (
+        distributed_apriori_support_fn)
+
+    fn = distributed_apriori_support_fn(mesh, APRIORI_K)
+    return fn, (_rows(mesh, np.zeros((ROWS, APRIORI_VOCAB), np.uint8)),
+                _whole(mesh, np.zeros((APRIORI_CAND, APRIORI_VOCAB),
+                                      np.float32)))
+
+
+def apriori_payload(shape):
+    from avenir_tpu_torch.parallel.scaling import collective_payload_model
+
+    return collective_payload_model("apriori_support", shape,
+                                    n_cand=APRIORI_CAND)
+
+
+def bandit_build(mesh):
+    from avenir_tpu_torch.parallel.distributed import (
+        distributed_bandit_select_fn)
+
+    fn = distributed_bandit_select_fn(mesh, batch_size=BANDIT_BATCH)
+    return fn, (_rows(mesh, np.zeros((ROWS, BANDIT_ARMS), np.int32)),
+                _rows(mesh, np.zeros((ROWS, BANDIT_ARMS), np.float32)),
+                _rows(mesh, np.ones((ROWS, BANDIT_ARMS), bool), False),
+                5.0)
+
+
+def bandit_payload(shape):
+    from avenir_tpu_torch.parallel.scaling import collective_payload_model
+
+    return collective_payload_model("bandit_select", shape)
+
+
+def cross_build(mesh):
+    from avenir_tpu_torch.parallel.distributed import (
+        distributed_crosscount_fn)
+
+    fn = distributed_crosscount_fn(mesh, CROSS["bins_a"], CROSS["bins_b"])
+    return fn, (_rows(mesh, np.zeros((ROWS,), np.int32)),
+                _rows(mesh, np.zeros((ROWS,), np.int32)),
+                _rows(mesh, np.ones((ROWS,), np.float32)))
+
+
+def cross_payload(shape):
+    from avenir_tpu_torch.parallel.scaling import collective_payload_model
+
+    return collective_payload_model("crosscount", shape, **CROSS)
+
+
+def _family_entries() -> List[KernelSpec]:
+    """The eight families of `parallel/distributed.FAMILIES`, each at the
+    port's family function, with the reference's model_parallel."""
+    from avenir_tpu_torch.parallel.distributed import FAMILIES
+
+    builders = {
+        "knn_topk": (knn_build, knn_payload, 2),
+        "nb_train": (nb_build, nb_payload, 1),
+        "tree_level": (tree_build, tree_payload, 1),
+        "lr_step": (lr_build, lr_payload, 1),
+        "markov_counts": (markov_build, markov_payload, 1),
+        "apriori_support": (apriori_build, apriori_payload, 1),
+        "bandit_select": (bandit_build, bandit_payload, 1),
+        "crosscount": (cross_build, cross_payload, 1),
+    }
+    out = []
+    for name, (build, payload, mp) in builders.items():
+        path, line = _loc(FAMILIES[name])
+        out.append(KernelSpec(name, path, line, build, model_parallel=mp,
+                              payload_model=payload))
+    return out
+
+
+def manifest_entries(device: str = "cuda") -> List[KernelSpec]:
+    """The IR tier's manifest: the hot ops on `device`, then every
+    distributed family."""
+    return _op_entries(device) + _family_entries()
+
+
+def family_names() -> List[str]:
+    return [s.name for s in _family_entries()]
+
+
+# ------------------------------------------------------ stream entries
 @dataclass(frozen=True)
 class StreamKernelSpec:
     """One streamed fold for the auditors.

@@ -21,8 +21,9 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional, Set
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "avenir_tpu_torch"
@@ -112,6 +113,8 @@ counts: Dict[str, int] = {"builds": 0, "binds": 0}
 #: executors, the score plane's dispatcher) may reach a kernel for the
 #: first time at once, and must run nvcc once between them
 _load_lock = threading.Lock()
+#: the set that `libraries_asked()` is filling, or None
+_asked: Optional[Set[str]] = None
 
 
 def _nvcc() -> str:
@@ -181,16 +184,36 @@ def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     return lib
 
 
+@contextmanager
+def libraries_asked():
+    """Yield a set that receives the name of every library `load` is
+    asked for inside the block, bound already or not (the IR tier reads
+    the SASS of what an entry's call binds)."""
+    global _asked
+    outer, _asked = _asked, set()
+    try:
+        yield _asked
+    finally:
+        _asked = outer
+
+
+def library_path(name: str) -> Path:
+    """Where this checkout's build of library `name` lands."""
+    return build_dir() / f"lib{name}.so"
+
+
 def load(name: str) -> ctypes.CDLL:
     """The bound library `name`, built first if it is not yet. Safe from
     several threads at once: one of them builds and binds, the others
     wait for it."""
+    if _asked is not None:
+        _asked.add(name)
     lib = _loaded.get(name)
     if lib is not None:
         return lib
     with _load_lock:
         if name not in _loaded:
-            path = build_dir() / f"lib{name}.so"
+            path = library_path(name)
             if not path.exists():
                 build_all()
             _loaded[name] = bind(ctypes.CDLL(str(path)), name)

@@ -8,8 +8,7 @@ The port of `bench_scaling.py`'s `host_parallel_capacity`,
 `server_tripwire`, `fleet_tripwire`, `fleet_fault_tripwire`,
 `score_tripwire`, `autotune_tripwire`, `obs_tripwire`, `miner_tripwire`
 and `shared_scan_tripwire`, each with the reference's floor or ceiling,
-and of every leg of its `graftlint_tripwire` but the IR one
-(`audit_tripwire`):
+and of every leg of its `graftlint_tripwire` (`audit_tripwire`):
 
     python -m avenir_tpu_torch.tools.bench_scaling [--tripwire shard|
         incremental|sidecar|server|fleet|fleet_fault|score|autotune|obs|
@@ -36,7 +35,9 @@ bound by the fused pass.
 
 **audit_tripwire** (no speed floor): the AST rules over the package, the
 keys, proto and race audits over their 11, 13 and 8 sites (the race at
-depth 3 and 64 seeds), then the flow invariance, mem footprint, merge
+depth 3 and 64 seeds), the IR rules over the kernel manifest with the
+eight families' payloads validated on a gloo world of eight CPU ranks,
+then the flow invariance, mem footprint, merge
 (with its incremental and sharded-steal legs) and span-coverage audits
 over the eight stream entries, at least eight validated each; the
 memory manifest goes to `build/avenir_tpu_torch/MEMORY_MANIFEST.json`.
@@ -1677,14 +1678,44 @@ def _host_legs(device: str) -> dict:
     return out
 
 
+def _ir_leg(device: str) -> dict:
+    """The tripwire's IR leg, the reference's: `run_ir` clean under the
+    allowlist (the op entries on `device`, the families on a gloo world
+    of eight CPU ranks) and all eight families' payloads validated.
+    Raises RuntimeError on a finding past the allowlist, a stale entry or
+    a drifted family; an entry that fails to run raises IRTraceError."""
+    from avenir_tpu_torch.analysis.engine import load_baseline
+    from avenir_tpu_torch.analysis.ir import run_ir
+
+    t0 = time.perf_counter()
+    rep = run_ir(baseline=load_baseline(), device=device)
+    out: Dict[str, object] = {"ir_s": time.perf_counter() - t0}
+    if not rep.clean:
+        raise RuntimeError(
+            f"IR audit regression: counts={rep.counts()} stale="
+            f"{[e.key for e in rep.stale]}: "
+            + "; ".join(f.render() for f in rep.findings[:5]))
+    audit = rep.payload_audit
+    bad = [a["family"] for a in audit if not a["payload_model_validated"]]
+    if bad or len(audit) < 8:
+        raise RuntimeError(
+            f"collective payload audit regression: {len(audit)} families "
+            f"audited, drifted={bad}")
+    out["payload_validated"] = len(audit)
+    out["ir_allowlisted"] = len(rep.suppressed)
+    out["rows"] = audit
+    return out
+
+
 def audit_tripwire(device: str = "cuda", kernels: bool = True,
-                   host: bool = True) -> dict:
-    """Every leg of the reference's graftlint tripwire that the port
-    has (its IR leg lowers jaxprs and is never ported): first the host
+                   host: bool = True, ir: bool = True) -> dict:
+    """Every leg of the reference's graftlint tripwire: first the host
     services (`_host_legs`: the AST rules, and the keys, proto and race
     tiers over every registered site; `host=False` leaves them out, for
-    a caller that runs them itself), then over the eight stream entries
-    on `device` the
+    a caller that runs them itself), then the IR leg (`_ir_leg`: the IR
+    rules clean and eight families' payloads validated; `ir=False`
+    leaves it out, as `host`), then over the eight stream entries on
+    `device` the
     flow rules and the chunk-invariance audit, the mem rules and the
     footprint audit, the merge rules and the shard-merge audit with its
     incremental and sharded-steal legs, and span coverage; at least
@@ -1705,6 +1736,10 @@ def audit_tripwire(device: str = "cuda", kernels: bool = True,
     if host:
         legs = _host_legs(device)
         host_rows = legs.pop("rows")
+        out.update(legs)
+    if ir:
+        legs = _ir_leg(device)
+        host_rows["payload"] = legs.pop("rows")
         out.update(legs)
     reports = {}
     for name, run in (("flow", run_flow), ("mem", run_mem),

@@ -503,6 +503,24 @@ Phases, each printing a line per check; any failed check exits non-zero:
    schedules a site; two resident actor interpreters); each tier's rows,
    its findings past the allowlist (none), its seconds and its launches,
    which are the `host_services` path.
+27. The IR tier on the card (`analysis/ir.py`): `run_ir(device="cuda")`
+   over the kernel manifest, the seven op entries on the card (each
+   called once to warm, then recorded under a dispatch mode and
+   `torch.cuda.set_sync_debug_mode("warn")`) and the eight families on a
+   gloo world of eight CPU ranks. A row an entry: its ops, the
+   synchronizing calls the card reported and the lines they returned to,
+   the device-to-host reads the host rules saw (in loops and not),
+   the libraries it bound and their fp64 SASS hits (`cuobjdump -sass`),
+   its findings; and a row a family: the collective bytes its process
+   group was handed, recorded and modelled. Fails unless the report is
+   clean under the allowlist with 8 families validated, every
+   synchronizing call the card reported returned to a line where the
+   capture recorded an op the host rules read as a device-to-host read
+   (`Capture.unexplained_syncs`), the SASS leg read the
+   two libraries the `knn_topk_pallas` entry bound, and `knn_topk` and
+   `knn_prepass` were launched; the entry's output (q [128, 8], t [256,
+   8], euclidean, k=5) then holds `knn_topk_plain` at rtol 1e-4, atol
+   1e-5, indices apart only at ties. Its launches are the `ir` path.
 
 Phases 4 and 5's sweep are the second path, phase 7's bench the third and
 phase 8's pipeline the fourth, phase 12's GSP runs the fifth, phase 15's
@@ -513,8 +531,9 @@ either), phase 21's sharded workers the twelfth (`shard`: the
 launches the workers report, summed), phase 22's refreshes, sidecar
 packs and replays the thirteenth (`incremental`), phase 23's served
 requests the fourteenth (`serve`), phase 24's autotuned runs the
-fifteenth (`tune`), phase 25's audits the sixteenth (`audit`) and
-phase 26's host services the seventeenth (`host_services`): each
+fifteenth (`tune`), phase 25's audits the sixteenth (`audit`),
+phase 26's host services the seventeenth (`host_services`) and phase
+27's IR entries the eighteenth (`ir`): each
 kernel's launches are counted from zero on each path. Then one JSON
 line of per-kernel numbers (the pre-pass beside the five kernels, at the
 sweep's D=128 float32; the tensor-core form at the bench's D=128
@@ -6526,8 +6545,8 @@ def _audit_line(row: dict) -> dict:
 
 def phase_audit():
     """The auditors and the miner and shared-scan tripwires on the card
-    (docstring item 25). Returns (seconds and figures, the launch counts
-    of the phase)."""
+    (docstring item 25; the tripwire's IR leg is phase 27). Returns
+    (seconds and figures, the launch counts of the phase)."""
     from avenir_tpu_torch.analysis.mem import kernel_device_entries
     from avenir_tpu_torch.tools.bench_scaling import (audit_tripwire,
                                                       miner_tripwire,
@@ -6536,7 +6555,8 @@ def phase_audit():
     t_phase = time.perf_counter()
     _reset_launches()
     try:
-        audit = audit_tripwire(device=DEVICE, kernels=False, host=False)
+        audit = audit_tripwire(device=DEVICE, kernels=False, host=False,
+                               ir=False)
     except RuntimeError as e:
         fail(f"the audits on {DEVICE} ({CARD}): {e}")
     secs = {k: round(v, 1) for k, v in audit.items() if k.endswith("_s")}
@@ -6632,6 +6652,113 @@ def phase_host_services():
               f"{json.dumps({k: v for k, v in launches.items() if v})}")
     secs["phase"] = round(time.perf_counter() - t_phase, 1)
     print(f"host_services path launches: {json.dumps(counts)}", flush=True)
+    return secs, counts
+
+
+IR_PATH = "ir"
+
+
+def _ir_entry_row(spec, cap, report) -> dict:
+    """One op entry's row of the IR phase: what its recorded call ran on
+    the card, the synchronizing calls the card reported in it, the
+    libraries it bound with their fp64 SASS hits, and its findings."""
+    from avenir_tpu_torch.analysis import ir
+
+    reads = [e for e in cap.events if ir.is_host_read(e)]
+    keys = sorted({f.key.split("::", 1)[1] for f in report.findings
+                   + report.suppressed if f.path == spec.path
+                   and f.scope.split(".lib")[0] == spec.name})
+    sites = set(cap.syncs)
+    return {"entry": spec.name, "device": cap.device,
+            "ops": len(cap.events), "seconds": round(cap.seconds, 4),
+            "syncs": len(cap.syncs), "sync_sites": sorted(sites),
+            "sync_ops": sorted({e.op for e in reads
+                                if sites.intersection(e.chain)}),
+            "unexplained_syncs": cap.unexplained_syncs(),
+            "host_reads": len(reads),
+            "host_reads_in_loops": sum(1 for e in reads if e.loop_site),
+            "libraries": list(cap.libraries),
+            "sass_fp64": cap.sass, "findings": keys}
+
+
+def phase_ir():
+    """The IR tier on the card (docstring item 27). Returns (seconds, the
+    launch counts of the phase)."""
+    import torch
+
+    from avenir_tpu_torch.analysis import ir
+    from avenir_tpu_torch.analysis.engine import load_baseline
+    from avenir_tpu_torch.analysis.manifest import manifest_entries
+    from avenir_tpu_torch.ops import knn_kernels as kk
+    from avenir_tpu_torch.tools import knn_tolerance as tol
+
+    t_phase = time.perf_counter()
+    specs = manifest_entries(DEVICE)
+    captures = {}
+    _reset_launches()
+    try:
+        rep = ir.run_ir(baseline=load_baseline(), device=DEVICE,
+                        entries=specs, captures=captures)
+    except ir.IRTraceError as e:
+        fail(f"the IR tier on {DEVICE} ({CARD}): trace error: {e}")
+    counts = _launch_counts()
+    secs = {"run_ir": round(time.perf_counter() - t_phase, 1)}
+    for spec in specs:
+        cap = captures[spec.name]
+        if spec.is_family:
+            row = next(r for r in rep.payload_audit
+                       if r["family"] == spec.name)
+            print(f"ir family row ({CARD}): {json.dumps(row)}", flush=True)
+            continue
+        row = _ir_entry_row(spec, cap, rep)
+        print(f"ir entry row ({CARD}): {json.dumps(row)}", flush=True)
+        # the card's own account of the capture: every synchronizing call
+        # it reported returned to a line where the capture recorded an op
+        # that the host rules read as a device-to-host read
+        check(not row["unexplained_syncs"],
+              f"ir {spec.name} on {DEVICE} ({CARD}): {row['syncs']} "
+              f"synchronizing calls at {row['sync_sites']} "
+              f"({row['sync_ops']}); the host rules read "
+              f"{row['host_reads']} device-to-host reads "
+              f"({row['host_reads_in_loops']} in loops); unexplained "
+              f"{row['unexplained_syncs']}")
+    for f in rep.findings + rep.errors:
+        print(f.render(), flush=True)
+    for e in rep.stale:
+        print(f"stale allowlist entry: {e.key}", flush=True)
+    knn = captures["knn_topk_pallas"]
+    ok_rows = sum(1 for r in rep.payload_audit
+                  if r["payload_model_validated"])
+    check(rep.clean and ok_rows == 8,
+          f"ir tier on {DEVICE} ({CARD}; {secs['run_ir']}s): "
+          f"{len(rep.findings)} findings past the allowlist, "
+          f"{len(rep.suppressed)} allowlisted, {len(rep.stale)} stale, "
+          f"{ok_rows} of 8 families' payloads validated")
+    check(set(knn.libraries) == {"knn_prepass", "knn_topk"}
+          and set(knn.sass) == set(knn.libraries),
+          f"ir SASS leg ({CARD}): knn_topk_pallas bound {knn.libraries}, "
+          f"scanned {sorted(knn.sass)}, fp64 hits {knn.sass}")
+    check(counts["knn_topk"] >= 1 and counts["knn_prepass"] >= 1,
+          f"{IR_PATH} launches: "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    # the knn entry's output against the plain version (these launches
+    # are the comparison's, read after the path's counts)
+    fn, (q, t) = next(s for s in specs
+                      if s.name == "knn_topk_pallas").build(None)
+    gd, gi = fn(q, t)
+    pd, pi = kk.knn_topk_plain(q, t, 5, "euclidean")
+    torch.cuda.synchronize()
+    rtol, atol = 1e-4, 1e-5
+    mism = gi != pi
+    close = bool(((gd - pd).abs() <= atol + rtol * pd.abs()).all())
+    tied = tol.tied(q, t, gi, pd, mism, "euclidean", rtol, atol)
+    check(close and tied,
+          f"ir knn_topk_pallas on {DEVICE} ({CARD}): max|err| "
+          f"{(gd - pd).abs().max().item():.3g} against knn_topk_plain, "
+          f"index mismatches {int(mism.sum())} (rtol {rtol} atol {atol} "
+          f"ties-only {tied})")
+    secs["phase"] = round(time.perf_counter() - t_phase, 1)
+    print(f"ir path launches: {json.dumps(counts)}", flush=True)
     return secs, counts
 
 
@@ -6758,6 +6885,7 @@ def main() -> None:
     tune_secs, tune_counts = phase_tune()
     audit_secs, audit_counts = phase_audit()
     host_secs, host_counts = phase_host_services()
+    ir_secs, ir_counts = phase_ir()
     print(f"naive bayes seconds: {json.dumps(nb_secs)}", flush=True)
     print(f"profile seconds ({CARD}): {json.dumps(profile_secs)}", flush=True)
     print(f"tree and text seconds ({CARD}; phase 10 "
@@ -6801,6 +6929,8 @@ def main() -> None:
           f"{json.dumps(audit_secs)}", flush=True)
     print(f"host services seconds ({CARD}; phase 26 {host_secs['phase']}s):"
           f" {json.dumps(host_secs)}", flush=True)
+    print(f"ir seconds ({CARD}; phase 27 {ir_secs['phase']}s): "
+          f"{json.dumps(ir_secs)}", flush=True)
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.1f}s "
           f"({CARD})", flush=True)
     paths = {"nearestNeighbor": launches, CHECK_PATH: path_counts,
@@ -6811,7 +6941,7 @@ def main() -> None:
              MESH_PATH: mesh_counts, SHARD_PATH: shard_counts,
              INCR_PATH: incr_counts, SERVE_PATH: serve_counts,
              TUNE_PATH: tune_counts, AUDIT_PATH: audit_counts,
-             HOST_PATH: host_counts}
+             HOST_PATH: host_counts, IR_PATH: ir_counts}
 
     # each kernel's row at the shape of the path it is reported on: the
     # job's (manhattan, D=6) for the three it runs; the sweep's

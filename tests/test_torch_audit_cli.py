@@ -1,7 +1,7 @@
 """`python -m avenir_tpu_torch.analysis` on the CPU: its exit codes (0
 clean, 1 findings, 2 a usage error or an audit that failed to run), its
-JSON for one tier and for several, the modes it refuses (the audits'
-own runs are held in `test_torch_audit_*.py` and the audit tripwire);
+JSON for one tier and for several, its usage errors (the audits' own
+runs are held in `test_torch_audit_*.py` and the audit tripwire);
 and the miner and shared-scan tripwires of `tools/bench_scaling.py` at
 small row counts."""
 
@@ -65,6 +65,7 @@ def test_the_audits_default_to_the_card():
     from avenir_tpu_torch.obs import coverage
 
     assert cli.build_parser().parse_args(["--flow"]).device == "cuda"
+    assert cli.build_parser().parse_args(["--ir"]).device == "cuda"
     assert {s.device for s in manifest.stream_entries()} == {"cuda"}
     for fn in (manifest.stream_entries, flow.run_flow, mem.run_mem,
                merge.run_merge, mem.memory_manifest,
@@ -76,7 +77,7 @@ def test_the_audits_default_to_the_card():
 
 @pytest.mark.parametrize("args,text", [
     (["--flow", "--rules", "nope"], "unknown rule"),
-    (["--ir"], "never ported"),
+    (["--ir", "avenir_tpu_torch/"], "do not pass paths"),
     (["--schedule", "ledger.claim:01"], "needs --race"),
     (["--race", "--schedule", "ledger.claim"], "bad schedule"),
     (["--keys", "--proto", "--rules", "nope"], "unknown rule"),

@@ -1,14 +1,15 @@
 """`tools/bench_scaling.py`'s audit tripwire on the CPU: it gates the
-AST rules over the package, the keys, proto and race audits, then the
-flow, mem and merge audits and span coverage at eight rows each, and
-writes the memory manifest under `build/avenir_tpu_torch/`, never over
-the root's. Eight copies of the Markov entry stand for the eight stream
-entries (their audits against the JAX package's are
+AST rules over the package, the keys, proto and race audits, the IR
+rules with the eight families' payloads (a gloo world of eight ranks),
+then the flow, mem and merge audits and span coverage at eight rows
+each, and writes the memory manifest under `build/avenir_tpu_torch/`,
+never over the root's. Eight copies of the Markov entry stand for the
+eight stream entries (their audits against the JAX package's are
 `test_torch_audit_entries.py` and `test_torch_audit_merge.py`), and one
 or two sites a host tier for its registered sites (every site:
 `test_torch_audit_keys.py`, `_proto.py`, `_race.py`); a ninth row that
 fails its audit, or a host site that fails its own, fails the
-tripwire."""
+tripwire, as a family whose payload drifts from its model does."""
 
 import dataclasses
 import json
@@ -18,7 +19,7 @@ import pytest
 
 import functools
 
-from avenir_tpu_torch.analysis import keys, manifest, proto, race
+from avenir_tpu_torch.analysis import ir, keys, manifest, proto, race
 from avenir_tpu_torch.tools.bench_scaling import ROOT, audit_tripwire
 
 
@@ -61,6 +62,9 @@ def test_audit_tripwire_on_the_cpu(monkeypatch):
         assert out[f"{what}_validated"] == 8, what
     assert (out["keys_validated"], out["proto_validated"],
             out["race_validated"]) == (1, 2, 1)
+    assert out["payload_validated"] == 8 and out["ir_allowlisted"] > 8
+    assert [r["family"] for r in out["rows"]["payload"]] == \
+        manifest.family_names()
     assert out["ast_files"] > 100 and out["ast_allowlisted"] > 40
     assert out["rows"]["race"][0]["schedules"] == {
         "exhaustive": 2, "seeded": 1, "replay": 0}
@@ -90,3 +94,16 @@ def test_audit_tripwire_fails_on_a_host_site(monkeypatch):
     monkeypatch.setattr(keys, "KEY_SITES", [_bad_site(keys)])
     with pytest.raises(RuntimeError, match="keys audit regression"):
         audit_tripwire(device="cpu", kernels=False)
+
+
+def test_audit_tripwire_ir_leg_fails_on_a_drifted_family(monkeypatch):
+    """The IR leg on the CPU: a family whose model is 4 bytes off fails
+    the tripwire before any stream entry runs."""
+    entries = manifest.manifest_entries("cpu")
+    nb = next(s for s in entries if s.name == "nb_train")
+    off = dataclasses.replace(
+        nb, payload_model=lambda shape: nb.payload_model(shape) + 4)
+    monkeypatch.setattr(ir, "manifest_entries", lambda device="cuda": [
+        off if s.name == "nb_train" else s for s in entries])
+    with pytest.raises(RuntimeError, match="IR audit regression.*nb_train"):
+        audit_tripwire(device="cpu", host=False, kernels=False)
